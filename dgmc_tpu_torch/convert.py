@@ -1,0 +1,62 @@
+"""Carry weights across: flax parameter trees → torch ``state_dict``s.
+
+``params`` is the flax parameter tree as nested dicts of numpy arrays
+(``jax.device_get(variables['params'])`` gives one). The mapping:
+
+- a flax ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight``
+  ``[out, in]``; its bias keeps its shape (RelConv's ``lin1``/``lin2``
+  have none, ``root`` and ``final`` do);
+- RelCNN's layer scopes ``conv_<i>`` become ``convs.<i>``;
+- DGMC's explicit consensus-MLP parameters (``mlp_hidden_kernel``,
+  ``mlp_hidden_bias``, ``mlp_out_kernel``, ``mlp_out_bias``) keep their
+  names and shapes.
+"""
+
+import re
+
+import numpy as np
+import torch
+
+__all__ = ['dgmc_from_flax', 'relcnn_from_flax']
+
+_MLP = ('mlp_hidden_kernel', 'mlp_hidden_bias', 'mlp_out_kernel',
+        'mlp_out_bias')
+
+
+def _tensor(a):
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def relcnn_from_flax(params, prefix=''):
+    """State dict of :class:`~dgmc_tpu_torch.models.rel.RelCNN` from a
+    flax ``RelCNN`` parameter tree; keys are prefixed with ``prefix``."""
+    out = {}
+    for scope, sub in params.items():
+        m = re.fullmatch(r'conv_(\d+)', scope)
+        if m:
+            for lin in ('lin1', 'lin2', 'root'):
+                dense = sub[lin]
+                key = f'{prefix}convs.{m.group(1)}.{lin}'
+                out[f'{key}.weight'] = _tensor(dense['kernel']).T.contiguous()
+                if 'bias' in dense:
+                    out[f'{key}.bias'] = _tensor(dense['bias'])
+        elif scope == 'final':
+            out[f'{prefix}final.weight'] = _tensor(sub['kernel']).T.contiguous()
+            out[f'{prefix}final.bias'] = _tensor(sub['bias'])
+        else:
+            raise KeyError(f'unexpected RelCNN parameter scope {scope!r}')
+    return out
+
+
+def dgmc_from_flax(params):
+    """State dict of :class:`~dgmc_tpu_torch.models.dgmc.DGMC` (RelCNN
+    ψ₁/ψ₂) from the flax DGMC parameter tree."""
+    out = {}
+    for role in ('psi_1', 'psi_2'):
+        out.update(relcnn_from_flax(params[role], prefix=f'{role}.'))
+    for name in _MLP:
+        out[name] = _tensor(params[name])
+    extra = set(params) - {'psi_1', 'psi_2', *_MLP}
+    if extra:
+        raise KeyError(f'unexpected DGMC parameters {sorted(extra)}')
+    return out

@@ -1,0 +1,146 @@
+"""Directed-relation convolution backbone (used for DBP15K KGs).
+
+Per layer ``root(x) + mean_{j->i} lin1(x_j) + mean_{i->j} lin2(x_j)``:
+separate linear maps for the incoming and outgoing neighbourhoods, two
+masked mean reductions with swapped sender/receiver roles. Stacked with
+ReLU and jumping-knowledge concat, then a final linear map.
+
+Ported: ``batch_norm=False`` and eval-mode dropout (inference). Masked
+batch norm and training-mode dropout are later work.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
+
+__all__ = ['RelConv', 'RelCNN', 'lecun_normal_']
+
+# Standard deviation of a unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w, fan_in, generator=None):
+    """Flax's default kernel init (``lecun_normal``): a normal of variance
+    ``1/fan_in`` truncated at two standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+def _init_linear(lin, generator):
+    lecun_normal_(lin.weight, lin.in_features, generator)
+    if lin.bias is not None:
+        nn.init.zeros_(lin.bias)
+
+
+class RelConv(nn.Module):
+    def __init__(self, in_channels, out_channels):
+        super().__init__()
+        self.lin1 = nn.Linear(in_channels, out_channels, bias=False)
+        self.lin2 = nn.Linear(in_channels, out_channels, bias=False)
+        self.root = nn.Linear(in_channels, out_channels)
+
+    def reset_parameters(self, generator=None):
+        for lin in (self.lin1, self.lin2, self.root):
+            _init_linear(lin, generator)
+
+    def forward(self, x, graph, streams=1):
+        """``streams > 1`` evaluates the same convolution on ``streams``
+        independent channel groups laid out channel-wise
+        (``x: [B, N, streams * C]``): per group the math equals a separate
+        call, but the edge gathers read ``streams``-times wider rows."""
+        B, N = x.shape[0], x.shape[1]
+
+        def grouped(lin, v):
+            if streams == 1:
+                return lin(v)
+            return lin(v.reshape(B, N, streams, -1)).reshape(B, N, -1)
+
+        h1 = grouped(self.lin1, x)
+        h2 = grouped(self.lin2, x)
+        # Incoming: messages flow sender -> receiver.
+        a_in = scatter_to_nodes(gather_nodes(h1, graph.senders),
+                                graph.receivers, graph.edge_mask, N,
+                                aggr='mean')
+        # Outgoing: the same edges walked backwards.
+        a_out = scatter_to_nodes(gather_nodes(h2, graph.receivers),
+                                 graph.senders, graph.edge_mask, N,
+                                 aggr='mean')
+        return grouped(self.root, x) + (a_in + a_out)
+
+
+class RelCNN(nn.Module):
+    """Stack of :class:`RelConv` layers (``RelCNN(in, channels, layers)``).
+
+    The output width is :attr:`out_channels`. ``supports_streams`` tells
+    DGMC that all consensus steps' source-side inputs can be evaluated
+    in one channel-packed pass.
+    """
+    supports_streams = True
+
+    def __init__(self, in_channels, channels, num_layers, batch_norm=False,
+                 cat=True, lin=True, dropout=0.0):
+        super().__init__()
+        if batch_norm:
+            raise NotImplementedError(
+                'RelCNN(batch_norm=True) needs MaskedBatchNorm, which is '
+                'not ported yet')
+        self.in_channels = in_channels
+        self.channels = channels
+        self.num_layers = num_layers
+        self.batch_norm = batch_norm
+        self.cat = cat
+        self.lin = lin
+        self.dropout = dropout
+        self.convs = nn.ModuleList(
+            RelConv(in_channels if i == 0 else channels, channels)
+            for i in range(num_layers))
+        if lin:
+            width = (in_channels + num_layers * channels if cat
+                     else channels)
+            self.final = nn.Linear(width, channels)
+        else:
+            self.final = None
+
+    @property
+    def out_channels(self):
+        if self.lin:
+            return self.channels
+        if self.cat:
+            return self.in_channels + self.num_layers * self.channels
+        return self.channels
+
+    def reset_parameters(self, generator=None):
+        for conv in self.convs:
+            conv.reset_parameters(generator)
+        if self.final is not None:
+            _init_linear(self.final, generator)
+
+    def forward(self, x, graph, streams=1):
+        if self.training and self.dropout > 0:
+            raise NotImplementedError(
+                'training-mode dropout is not ported yet; call .eval()')
+        B, N = x.shape[0], x.shape[1]
+        xs = [x]
+        for conv in self.convs:
+            xs.append(torch.relu(conv(xs[-1], graph, streams=streams)))
+        if streams == 1:
+            out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
+            return self.final(out) if self.lin else out
+        # Grouped jumping-knowledge concat + final linear map: per group.
+        if self.cat:
+            out = torch.cat([v.reshape(B, N, streams, -1) for v in xs],
+                            dim=-1)
+        else:
+            out = xs[-1].reshape(B, N, streams, -1)
+        if self.lin:
+            out = self.final(out)
+        return out.reshape(B, N, -1)
+
+    def extra_repr(self):
+        return (f'{self.in_channels}, {self.out_channels}, '
+                f'num_layers={self.num_layers}, cat={self.cat}, '
+                f'lin={self.lin}, dropout={self.dropout}')

@@ -1,0 +1,107 @@
+"""Padded graph batches and deterministic edge→node aggregation.
+
+Every batch of graphs lives in ``[B, N, ...]`` / ``[B, E, ...]`` tensors
+with boolean validity masks and graph-local edge endpoints, as in the
+JAX package. Aggregation never uses ``index_add_``/``scatter_add_``:
+those use floating-point atomics on CUDA, whose order changes from run
+to run, and serving promises bit-identical answers across repeats. Edges
+are instead stable-sorted by receiver and each node's messages summed in
+edge order by one segment reduction.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ['GraphBatch', 'gather_nodes', 'scatter_to_nodes', 'degree']
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """A batch of ``B`` graphs padded to ``N`` nodes and ``E`` edges each.
+
+    Attributes:
+        x: ``[B, N, C]`` node features (zeros at padding).
+        senders / receivers: ``[B, E]`` int64 graph-local endpoints.
+        node_mask: ``[B, N]`` bool, True at real nodes.
+        edge_mask: ``[B, E]`` bool, True at real edges. Padded edges
+            point at node 0 and are masked out of every aggregation.
+    """
+    x: torch.Tensor
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    node_mask: torch.Tensor
+    edge_mask: torch.Tensor
+
+    @classmethod
+    def from_numpy(cls, arrays, device):
+        """Build from the arrays of :func:`~dgmc_tpu_torch.utils.data.
+        pad_graphs` (or any dict with the same keys)."""
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a)).to(device=device,
+                                                     dtype=dtype)
+        return cls(x=t(arrays['x'], torch.float32),
+                   senders=t(arrays['senders'], torch.int64),
+                   receivers=t(arrays['receivers'], torch.int64),
+                   node_mask=t(arrays['node_mask'], torch.bool),
+                   edge_mask=t(arrays['edge_mask'], torch.bool))
+
+    @property
+    def num_nodes(self):
+        return self.x.shape[1]
+
+    @property
+    def num_edges(self):
+        return self.senders.shape[1]
+
+
+def gather_nodes(x, idx):
+    """Batched node gather ``x[b, idx[b, e]]``: ``[B, N, C]``, ``[B, E]``
+    → ``[B, E, C]``."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _segments(receivers, edge_mask, num_nodes):
+    """Receiver-sorted edge order and per-node offsets over the flattened
+    batch: node ``(b, n)`` owns sorted positions
+    ``offsets[b*N+n] : offsets[b*N+n+1]``. Masked edges sort into a
+    sentinel segment past the last node."""
+    B = receivers.shape[0]
+    base = torch.arange(B, device=receivers.device)[:, None] * num_nodes
+    seg = torch.where(edge_mask, receivers.long() + base, B * num_nodes)
+    sorted_seg, order = torch.sort(seg.reshape(-1), stable=True)
+    bounds = torch.arange(B * num_nodes + 2, device=receivers.device)
+    offsets = torch.searchsorted(sorted_seg, bounds)
+    return order, offsets
+
+
+def scatter_to_nodes(messages, receivers, edge_mask, num_nodes, aggr='sum'):
+    """Batched edge→node aggregation, deterministic on every device.
+
+    messages: ``[B, E, C]``, receivers: ``[B, E]``, edge_mask: ``[B, E]``.
+    Returns ``[B, N, C]``. ``aggr`` is ``'sum'`` or ``'mean'`` (masked;
+    empty neighbourhoods give zeros). Sums accumulate in float32 and are
+    cast back to the message dtype once.
+    """
+    if aggr not in ('sum', 'mean'):
+        raise ValueError(f'Unknown aggregation: {aggr!r}')
+    B, E, C = messages.shape
+    acc = torch.promote_types(messages.dtype, torch.float32)
+    order, offsets = _segments(receivers, edge_mask, num_nodes)
+    data = messages.reshape(B * E, C).to(acc)[order]
+    # The last segment is the masked edges' sentinel: reduced, then cut.
+    out = torch.segment_reduce(data, 'sum', offsets=offsets, axis=0)
+    out = out[:B * num_nodes].reshape(B, num_nodes, C)
+    if aggr == 'mean':
+        deg = (offsets[1:] - offsets[:-1])[:B * num_nodes].to(acc)
+        out = out / deg.clamp(min=1.0).reshape(B, num_nodes, 1)
+    return out.to(messages.dtype)
+
+
+def degree(receivers, edge_mask, num_nodes):
+    """Masked in-degree per node: ``[B, E]`` → ``[B, N]`` float32."""
+    B = receivers.shape[0]
+    _, offsets = _segments(receivers, edge_mask, num_nodes)
+    deg = (offsets[1:] - offsets[:-1])[:B * num_nodes]
+    return deg.to(torch.float32).reshape(B, num_nodes)

@@ -1,0 +1,113 @@
+"""``python -m dgmc_tpu_torch.serve``: answer sampled queries at DBP15K width.
+
+Seed-initializes the DBP15K-configuration DGMC (ψ₁ = ``RelCNN(300, 256,
+3)``, ψ₂ = ``RelCNN(32, 32, 3)``, ``k=10``, ``num_steps=10``), builds the
+corpus index over the target KG of the synthetic DBP15K alignment
+(20000 nodes, 120000 edges, 300 features), warms the declared buckets,
+then answers ``--num-queries`` sampled queries and prints each answer as
+one JSON line on standard output. Progress goes to standard error.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from dgmc_tpu_torch import resolve_device
+from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
+from dgmc_tpu_torch.models.dgmc import DGMC
+from dgmc_tpu_torch.models.rel import RelCNN
+from dgmc_tpu_torch.serve.client import sample_query
+from dgmc_tpu_torch.serve.corpus import Corpus, load_or_build
+from dgmc_tpu_torch.serve.engine import MatchEngine
+from dgmc_tpu_torch.serve.router import QueryRouter
+
+__all__ = ['DBP15K', 'dbp15k_model', 'dbp15k_kg', 'main']
+
+#: The DBP15K configuration (``dgmc_tpu/experiments/dbp15k.py``: model
+#: widths and the synthetic KG's CLI defaults).
+DBP15K = {'feat_dim': 300, 'dim': 256, 'rnd_dim': 32, 'num_layers': 3,
+          'num_steps': 10, 'k': 10, 'nodes_s': 15000, 'nodes_t': 20000,
+          'edges_s': 100000, 'edges_t': 120000}
+
+
+def set_exact_float32():
+    """Full float32 on the card: no TF32 in matrix products or cuDNN, so
+    shortlists compare against a float32 plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dbp15k_model(seed=0, num_layers=DBP15K['num_layers']):
+    """The DBP15K-width DGMC with flax-default weights drawn from a
+    ``torch.Generator`` seeded with ``seed`` (built on the CPU)."""
+    c = DBP15K
+    psi_1 = RelCNN(c['feat_dim'], c['dim'], num_layers, batch_norm=False,
+                   cat=True, lin=True, dropout=0.0)
+    psi_2 = RelCNN(c['rnd_dim'], c['rnd_dim'], num_layers, batch_norm=False,
+                   cat=True, lin=True, dropout=0.0)
+    g = torch.Generator().manual_seed(int(seed))
+    return DGMC(psi_1, psi_2, num_steps=c['num_steps'], k=c['k'],
+                generator=g).eval()
+
+
+def dbp15k_kg(seed=0):
+    """The synthetic DBP15K-shaped alignment at its CLI defaults."""
+    c = DBP15K
+    return synthetic_kg_alignment(c['nodes_s'], c['nodes_t'], c['edges_s'],
+                                  c['edges_t'], c['feat_dim'],
+                                  rng=np.random.RandomState(seed))
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog='python -m dgmc_tpu_torch.serve',
+                                description=__doc__.split('\n\n')[0])
+    p.add_argument('--num-queries', type=int, default=8)
+    p.add_argument('--buckets', default='16x48,32x96,64x192')
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--max-results', type=int, default=5)
+    p.add_argument('--cache-dir', default=None,
+                   help='corpus-table cache directory (default: none)')
+    p.add_argument('--device', default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        'PyTorch path)')
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    set_exact_float32()
+
+    def log(msg):
+        print(f'serve: {msg}', file=sys.stderr, flush=True)
+
+    kg = dbp15k_kg(args.seed)
+    corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
+    model = dbp15k_model(args.seed).to(device)
+    index, info = load_or_build(args.cache_dir, model.psi_1, corpus,
+                                device=device, log=log)
+    router = QueryRouter(args.buckets, corpus.num_nodes, corpus.num_edges)
+    engine = MatchEngine(model, index, router,
+                         max_results=args.max_results, device=device)
+    t0 = time.perf_counter()
+    engine.warm()
+    log(f'{engine.buckets_warm} buckets warm in '
+        f'{time.perf_counter() - t0:.2f}s (cache {info["cache"]}) on '
+        f'{device}')
+    largest = max(b.nodes for b in router.buckets)
+    rng = np.random.RandomState(args.seed)
+    for i in range(args.num_queries):
+        n = int(rng.randint(min(16, largest), min(64, largest) + 1))
+        graph, gt = sample_query(corpus.x, n, 3 * n,
+                                 seed=args.seed + 1 + i)
+        answer = engine.match(graph)
+        answer['query'] = i
+        answer['latency_ms'] = round(engine.last_latency_s * 1e3, 3)
+        answer['hits1'] = float(np.mean(
+            [m['target'] == g for m, g in zip(answer['matches'], gt)]))
+        print(json.dumps(answer), flush=True)
+    return 0

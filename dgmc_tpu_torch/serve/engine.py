@@ -1,0 +1,225 @@
+"""Query path: route, pad, shortlist against the corpus table, rerank.
+
+Each query runs the model's own forward
+(:meth:`dgmc_tpu_torch.models.dgmc.DGMC.forward`) with the corpus ψ₁
+table passed in precomputed (``h_t=...``): ψ₁ on the query, the top-k
+shortlist against the device-resident table (the CUDA top-k kernel on
+the card), and the sparse consensus rerank. Every declared bucket is run
+once by :meth:`MatchEngine.warm` before the first query, so the kernels
+are built and the allocator is primed off the query path.
+
+Answers are bit-identical across repeats and across concurrent callers:
+execution is serialized under one lock, the indicator noise comes from a
+fixed seed, aggregation has a fixed summation order (``ops/graph.py``),
+the kernel uses no atomics, and every ranking is a stable
+lowest-index-first selection.
+
+Ported: the device tier. The host-RAM offload tier, the shadow audit,
+the goodput/capacity accounting and the HTTP front end are later work.
+"""
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from dgmc_tpu_torch import resolve_device
+from dgmc_tpu_torch.obs import probes
+from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.ops.topk import stable_topk
+
+__all__ = ['MatchEngine', 'UnknownExecutableError', 'ranked']
+
+
+def ranked(S_0, S_L, node_mask, r):
+    """The answer tensors of one query: the ``r`` best candidates of
+    ``S_L`` per node, the initial top-1 of ``S_0``, and per-query
+    confidence proxies (masked means over the real query nodes)."""
+    vals, pos = stable_topk(S_L.val, S_L.val.shape[-1])
+    top_v, top_p = vals[..., :r], pos[..., :r]
+    top_i = torch.gather(S_L.idx, -1, top_p)
+    v0, p0 = stable_topk(S_0.val, 1)
+    i0 = torch.gather(S_0.idx, -1, p0)
+    mask = node_mask.to(torch.float32)
+    denom = mask.sum().clamp(min=1.0)
+
+    def row_mean(x):
+        return (x.to(torch.float32) * mask).sum() / denom
+
+    k = S_L.val.shape[-1]
+    # Degenerate shortlist of one: the margin is the full top-1 mass.
+    margin = row_mean(vals[..., 0] - vals[..., 1] if k >= 2 else vals[..., 0])
+    # Shortlist slots are ordered by the initial score, so the winning
+    # slot is the selected match's rank inside the shortlist; rank k-1
+    # means the answer sat on the shortlist boundary.
+    sel_rank = pos[..., 0].to(torch.float32)
+    saturated = ((pos[..., 0] == k - 1).to(torch.float32) if k > 1
+                 else torch.zeros_like(sel_rank))
+    return {'cand_idx': top_i, 'cand_prob': top_v,
+            'initial_idx': i0[..., 0], 'initial_prob': v0[..., 0],
+            'shortlist_idx': S_L.idx,
+            'q_entropy': probes.entropy(S_L.val, node_mask),
+            'q_margin': margin,
+            'q_correction': probes.delta_norm(S_L.val, S_0.val, node_mask),
+            'q_saturation': row_mean(sel_rank / max(k - 1, 1)),
+            'q_saturated_frac': row_mean(saturated)}
+
+
+class UnknownExecutableError(RuntimeError):
+    """A routed bucket that was never warmed."""
+
+    def __init__(self, bucket, sig):
+        self.payload = {
+            'error': 'bucket-not-warm',
+            'detail': f'bucket {bucket.nodes}x{bucket.edges} (signature '
+                      f'{sig}) was not warmed',
+        }
+        super().__init__(self.payload['detail'])
+
+
+class MatchEngine:
+    """Serve sparse DGMC matches of query graphs against one corpus index.
+
+    Args:
+        model: a sparse :class:`~dgmc_tpu_torch.models.dgmc.DGMC`; it is
+            moved to ``device`` and put in eval mode.
+        index: the :class:`~dgmc_tpu_torch.serve.corpus.CorpusIndex`.
+        router: a :class:`~dgmc_tpu_torch.serve.router.QueryRouter` whose
+            corpus shape matches ``index``.
+        max_results: ranked candidates per query node (at most ``k``).
+        noise_seed: every query draws its indicator noise from this fixed
+            seed, so identical queries get identical answers.
+        device: ``cuda`` by default; raises where CUDA is absent unless
+            ``'cpu'`` is passed.
+    """
+
+    def __init__(self, model, index, router, max_results=5, noise_seed=0,
+                 device=None):
+        self.device = resolve_device(device)
+        if router.corpus_nodes != index.corpus.num_nodes \
+                or router.corpus_edges != index.corpus.num_edges:
+            raise ValueError('the router\'s corpus shape differs from the '
+                             'index\'s corpus')
+        self.model = model.to(self.device).eval()
+        self.index = index
+        self.router = router
+        self.max_results = int(min(max_results, model.k))
+        self.noise_seed = int(noise_seed)
+        self._lock = threading.Lock()
+        self._t_graph = GraphBatch.from_numpy(index.corpus.graph_arrays(),
+                                              self.device)
+        self._h_t = torch.as_tensor(index.h_t, dtype=torch.float32).to(
+            self.device)
+        self._warm = {}   # signature -> {'bucket', 'warm_s', 'queries'}
+        self.query_count = 0
+        self.last_latency_s = None
+
+    def _template(self, bucket):
+        """Zero-filled query arrays of the bucket's padded shape."""
+        n, e = bucket.nodes, bucket.edges
+        return {'x': np.zeros((1, n, self.index.corpus.feat_dim),
+                              np.float32),
+                'senders': np.zeros((1, e), np.int32),
+                'receivers': np.zeros((1, e), np.int32),
+                'node_mask': np.zeros((1, n), bool),
+                'edge_mask': np.zeros((1, e), bool)}
+
+    def warm(self):
+        """Run every declared bucket once; returns ``{signature: info}``
+        with each bucket's warm-up seconds."""
+        report = {}
+        for bucket in self.router.buckets:
+            sig = self.router.signature(bucket)
+            t0 = time.perf_counter()
+            with self._lock:
+                self._execute(self._template(bucket))
+            warm_s = round(time.perf_counter() - t0, 3)
+            self._warm[sig] = {'bucket': bucket, 'warm_s': warm_s,
+                               'queries': 0}
+            report[sig] = {'bucket': sig, 'warm_s': warm_s}
+        return report
+
+    @property
+    def buckets_warm(self):
+        return len(self._warm)
+
+    def bucket_stats(self):
+        return {info['bucket']: info['queries']
+                for info in self._warm.values()}
+
+    def match(self, graph, r_s=None):
+        """Answer one query :class:`~dgmc_tpu_torch.utils.data.Graph`.
+
+        Routes, pads, executes and returns the structured answer (host
+        Python). Raises :class:`~dgmc_tpu_torch.serve.router.
+        UnknownBucketError` for a query outside the declared buckets and
+        ``ValueError`` for a malformed one. Thread-safe; execution is
+        serialized. ``r_s`` (``[num_steps, 1, bucket nodes, R_in]``)
+        replaces the drawn indicator noise.
+        """
+        if graph.x is None:
+            raise ValueError('query graphs need node features x')
+        if graph.x.shape[1] != self.index.corpus.feat_dim:
+            raise ValueError(
+                f'query feature width {graph.x.shape[1]} != corpus '
+                f'feature width {self.index.corpus.feat_dim}')
+        n_real = graph.num_nodes
+        bucket = self.router.route(n_real, graph.num_edges)
+        sig = self.router.signature(bucket)
+        info = self._warm.get(sig)
+        if info is None:
+            raise UnknownExecutableError(bucket, sig)
+        arrays = self.router.pad_query(graph, bucket)
+        with self._lock:
+            t0 = time.perf_counter()
+            out = self._execute(arrays, r_s)
+            self.last_latency_s = time.perf_counter() - t0
+            info['queries'] += 1
+            self.query_count += 1
+        return self._answer(bucket, n_real, out)
+
+    def _execute(self, arrays, r_s=None):
+        q = GraphBatch.from_numpy(arrays, self.device)
+        if r_s is not None:
+            r_s = torch.as_tensor(r_s, dtype=torch.float32).to(self.device)
+        with torch.inference_mode():
+            S_0, S_L = self.model(q, self._t_graph, h_t=self._h_t,
+                                  noise_seed=self.noise_seed, r_s=r_s)
+            out = ranked(S_0, S_L, q.node_mask, self.max_results)
+            # .cpu() waits for the device: the answer is complete here.
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _answer(self, bucket, n_real, out):
+        matches = []
+        for i in range(n_real):
+            cands = [[int(t), float(p)] for t, p in
+                     zip(out['cand_idx'][0, i], out['cand_prob'][0, i])]
+            matches.append({
+                'node': i,
+                'target': cands[0][0],
+                'score': cands[0][1],
+                'candidates': cands,
+                'initial': [int(out['initial_idx'][0, i]),
+                            float(out['initial_prob'][0, i])],
+            })
+        return {
+            'bucket': f'{bucket.nodes}x{bucket.edges}',
+            'signature': self.router.signature(bucket),
+            'nodes': n_real,
+            'matches': matches,
+            # Per-query confidence proxies (deterministic: the fixed
+            # noise seed makes them a pure function of the query).
+            'quality': {
+                'entropy': round(float(out['q_entropy']), 6),
+                'margin': round(float(out['q_margin']), 6),
+                'correction': round(float(out['q_correction']), 6),
+                'saturation': round(float(out['q_saturation']), 6),
+                'saturated_frac': round(float(out['q_saturated_frac']),
+                                        6),
+            },
+            # The shortlist each node was reranked over (plain ints, so
+            # answers stay ==-comparable).
+            'shortlist': [[int(t) for t in row]
+                          for row in out['shortlist_idx'][0, :n_real]],
+        }

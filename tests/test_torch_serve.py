@@ -1,0 +1,239 @@
+"""The port's serving slice end to end against the JAX package.
+
+A small RelCNN pair (k=5, num_steps=3), a 200-node corpus and a 20-node
+query: the port's corpus embeddings, DGMC forward and MatchEngine answer
+(device='cpu', converted weights, JAX's own indicator noise injected)
+against an eager JAX ``DGMC.apply(..., train=False, h_t=...)`` at the
+same padded bucket shape.
+
+Tolerances: shortlists and ranked candidates must be equal (indices).
+Embeddings agree to atol 1e-5 (float32 products summed in another order);
+probabilities to rtol 1e-4 / atol 1e-5, the float32 drift of three
+consensus iterations of such products through softmax; the quality
+fields, rounded to 6 decimals in the answer, to atol 2e-5.
+"""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from dgmc_tpu.models import DGMC as JaxDGMC
+from dgmc_tpu.models.rel import RelCNN as JaxRelCNN
+from dgmc_tpu.ops.graph import GraphBatch as JaxGraphBatch
+from dgmc_tpu_torch.convert import dgmc_from_flax
+from dgmc_tpu_torch.models.dgmc import DGMC
+from dgmc_tpu_torch.models.rel import RelCNN
+from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.serve.client import sample_query
+from dgmc_tpu_torch.serve.corpus import (CACHE_TABLE, compute_embeddings,
+                                         load_or_build, synthetic_corpus)
+from dgmc_tpu_torch.serve.engine import MatchEngine
+from dgmc_tpu_torch.serve.router import (QueryRouter, UnknownBucketError,
+                                         parse_buckets)
+from dgmc_tpu_torch.utils.data import pad_graphs
+
+K, STEPS, R_IN = 5, 3, 8
+BUCKET = '32x96'
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jgraph(arrays):
+    return JaxGraphBatch(**{k: jnp.asarray(v) for k, v in arrays.items()})
+
+
+@pytest.fixture(scope='module')
+def pair():
+    """JAX model + params, the converted torch model, corpus and query."""
+    corpus = synthetic_corpus(200, 600, 12, seed=0)
+    jm = JaxDGMC(JaxRelCNN(12, 16, 2), JaxRelCNN(R_IN, R_IN, 2),
+                 num_steps=STEPS, k=K)
+    t_arrays = corpus.graph_arrays(dummy_x=False)
+    q, gt = sample_query(corpus.x, 20, 60, seed=3)
+    q_arrays = pad_graphs([q], 32, 96)
+    params = jm.init({'params': jax.random.key(0),
+                      'noise': jax.random.key(1)},
+                     _jgraph(q_arrays), _jgraph(t_arrays))['params']
+    tm = DGMC(RelCNN(12, 16, 2), RelCNN(R_IN, R_IN, 2), num_steps=STEPS,
+              k=K)
+    tm.load_state_dict(dgmc_from_flax(jax.device_get(params)))
+    return {'jm': jm, 'params': params, 'tm': tm.eval(), 'corpus': corpus,
+            't_arrays': t_arrays, 'q': q, 'q_arrays': q_arrays}
+
+
+@pytest.fixture(scope='module')
+def jax_run(pair):
+    """Eager JAX serving forward; captures the indicator noise ψ₂ sees."""
+    jm, params = pair['jm'], pair['params']
+    h_t = pair['jm'].psi_1.apply({'params': params['psi_1']},
+                                 jnp.asarray(pair['t_arrays']['x']),
+                                 _jgraph(pair['t_arrays']))
+    seen = []
+
+    def capture(next_fun, args, kwargs, context):
+        if (context.module.name == 'psi_2'
+                and context.method_name == '__call__' and not seen):
+            seen.append(np.array(args[0]))
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(capture):
+        S_0, S_L = jm.apply({'params': params}, _jgraph(pair['q_arrays']),
+                            _jgraph(pair['t_arrays']), train=False,
+                            rngs={'noise': jax.random.key(7)}, h_t=h_t)
+    # The first ψ₂ call is the source side, all steps packed channel-wise.
+    B, N_s = 1, 32
+    r_s = seen[0].reshape(B, N_s, STEPS, R_IN).transpose(2, 0, 1, 3)
+    return {'h_t': np.array(h_t), 'r_s': r_s,
+            'S_0': (np.array(S_0.val), np.array(S_0.idx)),
+            'S_L': (np.array(S_L.val), np.array(S_L.idx))}
+
+
+def test_corpus_embeddings_match_jax(pair, jax_run):
+    h_t = compute_embeddings(pair['tm'].psi_1, pair['corpus'], device='cpu')
+    assert h_t.shape == (1, 200, 16) and h_t.dtype == np.float32
+    np.testing.assert_allclose(h_t, jax_run['h_t'], atol=1e-5)
+
+
+def test_model_forward_matches_jax(pair, jax_run):
+    g_s = GraphBatch.from_numpy(pair['q_arrays'], 'cpu')
+    g_t = GraphBatch.from_numpy(pair['corpus'].graph_arrays(), 'cpu')
+    with torch.no_grad():
+        S_0, S_L = pair['tm'](g_s, g_t, h_t=torch.from_numpy(jax_run['h_t']),
+                              r_s=torch.from_numpy(jax_run['r_s']))
+    for got, (val, idx) in ((S_0, jax_run['S_0']), (S_L, jax_run['S_L'])):
+        np.testing.assert_array_equal(got.idx.numpy(), idx)
+        np.testing.assert_allclose(got.val.numpy(), val, rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _ranked_numpy(S_0, S_L, node_mask, r):
+    """The engine's ``ranked`` block, re-derived in numpy."""
+    (v0, i0), (vL, iL) = S_0, S_L
+    pos = np.argsort(-vL, axis=-1, kind='stable')
+    top_v = np.take_along_axis(vL, pos, -1)
+    m = node_mask.astype(np.float32)
+
+    def row_mean(x):
+        return float((x * m).sum() / max(m.sum(), 1.0))
+
+    def ent(S):
+        h = -np.where(S > 0, S * np.log(np.maximum(S, 1e-12)), 0).sum(-1)
+        return row_mean(h)
+
+    k = vL.shape[-1]
+    d = (vL - v0) * m[..., None]
+    return {
+        'cand_idx': np.take_along_axis(iL, pos[..., :r], -1),
+        'initial_idx': np.take_along_axis(
+            i0, np.argsort(-v0, -1, kind='stable')[..., :1], -1)[..., 0],
+        'quality': {
+            'entropy': ent(vL),
+            'margin': row_mean(top_v[..., 0] - top_v[..., 1]),
+            'correction': float(np.sqrt((d * d).sum(axis=(1, 2))).mean()),
+            'saturation': row_mean(pos[..., 0] / (k - 1)),
+            'saturated_frac': row_mean((pos[..., 0] == k - 1) * 1.0),
+        }}
+
+
+@pytest.fixture(scope='module')
+def engine(pair):
+    corpus = pair['corpus']
+    index, _ = load_or_build(None, pair['tm'].psi_1, corpus, device='cpu')
+    router = QueryRouter(f'16x48,{BUCKET}', corpus.num_nodes,
+                         corpus.num_edges)
+    eng = MatchEngine(pair['tm'], index, router, max_results=3,
+                      device='cpu')
+    assert set(eng.warm()) == {'16x48', BUCKET}
+    return eng
+
+
+def test_engine_answer_matches_jax(pair, jax_run, engine):
+    ans = engine.match(pair['q'], r_s=jax_run['r_s'])
+    n = pair['q'].num_nodes
+    assert ans['bucket'] == BUCKET and ans['nodes'] == n
+    np.testing.assert_array_equal(np.array(ans['shortlist']),
+                                  jax_run['S_L'][1][0, :n])
+    want = _ranked_numpy(jax_run['S_0'], jax_run['S_L'],
+                         pair['q_arrays']['node_mask'], 3)
+    cands = np.array([[c[0] for c in m['candidates']]
+                      for m in ans['matches']])
+    np.testing.assert_array_equal(cands, want['cand_idx'][0, :n])
+    np.testing.assert_array_equal([m['initial'][0] for m in ans['matches']],
+                                  want['initial_idx'][0, :n])
+    vL, iL = jax_run['S_L']
+    for i, m in enumerate(ans['matches']):
+        for t, p in m['candidates']:
+            slot = list(iL[0, i]).index(t)
+            np.testing.assert_allclose(p, vL[0, i, slot], rtol=1e-4,
+                                       atol=1e-5)
+    for key, val in want['quality'].items():
+        np.testing.assert_allclose(ans['quality'][key], val, atol=2e-5,
+                                   err_msg=key)
+
+
+def test_repeat_query_gives_identical_answer(pair, engine):
+    first = engine.match(pair['q'])
+    assert engine.match(pair['q']) == first
+    assert engine.bucket_stats()[parse_buckets(BUCKET)[0]] >= 2
+
+
+def test_unknown_bucket_raises(pair, engine):
+    big, _ = sample_query(pair['corpus'].x, 40, 100, seed=1)
+    with pytest.raises(UnknownBucketError) as e:
+        engine.match(big)
+    assert e.value.payload['buckets'] == ['16x48', BUCKET]
+
+
+def test_engine_needs_cuda_unless_cpu_is_asked(pair, engine):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present; the default device is valid')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        MatchEngine(pair['tm'], engine.index, engine.router)
+
+
+def test_corpus_cache_rebuilds_on_changed_params_or_corrupt_table(tmp_path):
+    corpus = synthetic_corpus(30, 60, 6, seed=2)
+    psi_1 = RelCNN(6, 4, 1).eval()
+    cache = str(tmp_path / 'cache')
+    _, info = load_or_build(cache, psi_1, corpus, device='cpu')
+    assert info['cache'] == 'miss:no-manifest'
+    index, info = load_or_build(cache, psi_1, corpus, device='cpu')
+    assert info['cache'] == 'hit' and index.h_t.shape == (1, 30, 4)
+    with torch.no_grad():
+        psi_1.final.bias.add_(1.0)
+    _, info = load_or_build(cache, psi_1, corpus, device='cpu')
+    assert info['cache'] == 'miss:params-mismatch'
+    table = os.path.join(cache, CACHE_TABLE)
+    with open(table, 'r+b') as f:
+        f.seek(-4, os.SEEK_END)
+        f.write(b'\x00\x01\x02\x03')
+    _, info = load_or_build(cache, psi_1, corpus, device='cpu')
+    assert info['cache'] == 'miss:sha256-mismatch:h_t.npy'
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, dirs, names in os.walk(os.path.join(REPO, 'dgmc_tpu_torch')):
+        if '_build' in dirs:   # kernel build output, not the package
+            dirs.remove('_build')
+        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split('.')[0]
+            assert top not in ('jax', 'jaxlib', 'flax', 'dgmc_tpu'), \
+                f'{os.path.relpath(path, REPO)} imports {mod}'
