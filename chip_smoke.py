@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (any failure exits non-zero and prints no result line):
 
-- ``build``: compiles every kernel of the serving path from
-  ``dgmc_tpu_torch/csrc`` (one ``nvcc`` per source, started together).
+- ``build``: compiles every kernel source of ``dgmc_tpu_torch/csrc``
+  (one ``nvcc`` per source, started together).
 - ``topk_kernel``: the CUDA top-k kernel against its plain PyTorch
   version on the card — bit-equal indices and values on integer-valued
   cases (ties, a random mask, k above the valid targets, tile
@@ -18,6 +18,18 @@ Phases (any failure exits non-zero and prints no result line):
   :func:`hold_near_ties`). Times the kernel, the plain version and
   ``torch.topk(h_s @ h_t^T)`` (yardstick only) at each of those shapes:
   median of CUDA-event timings after warm-up.
+- ``spline_kernel``: the SplineConv routing kernels (forward and the
+  gradient w.r.t. t) against their plain versions — bit-equal on exact
+  inputs (an all-masked batch, M not a multiple of any tile, B=1, no
+  edges), within rtol 1e-5 / atol 1e-5 x max|out| on float32 inputs and
+  on the four SplineConv shapes of the training path over a real
+  ``RandomGraphPairs`` batch; repeats bit-identical. Times the kernels,
+  the plain versions and ``torch.sparse.mm`` of the block-diagonal
+  routing matrix (yardstick only) at O=256 and O=64.
+- ``consensus_kernel``: the dense consensus kernel against its plain
+  factored version, the same way, at [64, 80, 80], R=64 and a ragged
+  case; times the kernel and the plain version (no single PyTorch call
+  computes it).
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
@@ -27,9 +39,20 @@ Phases (any failure exits non-zero and prints no result line):
   corpus table, and one small query answered on the CPU plain path must
   agree. A ``torch.profiler`` breakdown of a small and the whole-graph
   query follows (informational).
+- ``train``: the PascalPF-width dense model trained through the CLI's
+  own ``main`` (one epoch of 16 steps of 64 pairs, 80 nodes / 640 edges,
+  plus 128 held-out pairs): the dispatch ledger shows the kernels, the
+  launch counters rise by 44/44/10 per train step and 44/0/10 per eval
+  batch, every loss is finite. Then: the first step's loss and gradients
+  against the CPU plain path on the same weights, batch and noise
+  (``GRAD_TOL``, with a float64 CPU reference beyond it); two 2-step
+  runs from one seed give bit-identical losses; the median step time,
+  pairs/s, peak memory and a profile of one step (informational).
 
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
-one JSON line listing every kernel, and last
+one JSON line listing every kernel (``ms_source`` says whether its
+``ms``, ``plain_ms`` and ``library_ms`` are profiler device times or
+CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
 matrix products and cuDNN.
 """
@@ -214,23 +237,26 @@ def phase_topk_kernel(result):
                    'bound_ms': bound_ms,
                    'bound_by': 'operations' if t_ops >= t_bytes
                    else 'bytes',
-                   'library_ms': lib_ms})
+                   'library_ms': lib_ms, 'ms_source': 'cuda_events'})
 
 
-def profile_query(engine, graph, label, top=8):
-    """Device time of one answered query by operator (torch.profiler):
-    the breakdown behind the per-query latency. Informational: a
-    profiler that records no device time prints 'not measured'."""
+def _profiled(run, calls=1):
+    """``(rows, wall_ms)``: the device-side events (kernels, copies,
+    memsets) that ``calls`` calls of ``run`` produce under torch.profiler,
+    as ``(device_us, name, count)``, and the host wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    engine.match(graph)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
         t0 = time.perf_counter()
-        engine.match(graph)
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []   # device-side events only: kernels, copies, memsets
+    rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -238,6 +264,42 @@ def profile_query(engine, graph, label, top=8):
                          getattr(ev, 'self_cuda_time_total', 0))
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
+    return rows, wall_ms
+
+
+def device_ms(fn, runs=10, tries=3):
+    """Device time of one call of ``fn``: the device-side events of
+    ``runs`` calls after a warm-up, summed, per call. Unlike
+    :func:`cuda_ms` it leaves out the host's launch overhead, which
+    dominates a call that takes microseconds on the card. The profiler
+    now and then records no device time at all: then it tries again, and
+    after ``tries`` empty profiles returns None."""
+    for _ in range(tries):
+        rows, _ = _profiled(fn, runs)
+        if rows:
+            return sum(r[0] for r in rows) / 1e3 / runs
+    return None
+
+
+def timed(calls):
+    """``(times, source)`` for a dict of calls, ``times[k] = (ms,
+    wall_ms)``: ``ms`` is the device time per call where the profiler
+    records one for every call, else the per-call CUDA-event time for
+    every call, so that a kernel, its plain version and its library call
+    stand on one yardstick; ``source`` (``'profiler'`` or
+    ``'cuda_events'``) says which, and goes into the JSON line."""
+    wall = {k: cuda_ms(f) for k, f in calls.items()}
+    dev = {k: device_ms(f) for k, f in calls.items()}
+    if any(v is None for v in dev.values()):
+        return {k: (w, w) for k, w in wall.items()}, 'cuda_events'
+    return {k: (dev[k], wall[k]) for k in calls}, 'profiler'
+
+
+def profile(run, label, top=8):
+    """Device time of one call of ``run`` by operator (torch.profiler):
+    the breakdown behind a latency or step time. Informational: a
+    profiler that records no device time prints 'not measured'."""
+    rows, wall_ms = _profiled(run)
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         log(f'profile: {label}: device time not measured (the profiler '
@@ -250,6 +312,244 @@ def profile_query(engine, graph, label, top=8):
     for dev_us, key, count in rows[:top]:
         log(f'profile: {label}:   {dev_us / 1e3:9.3f} ms '
             f'{100 * dev_us / 1e3 / busy_ms:5.1f}%  x{count:<5d} {key[:70]}')
+
+
+def bound(flops, nbytes):
+    """``(bound_ms, bound_by)``: the larger of operations at the float32
+    peak and bytes at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def hold_close(label, got, want):
+    """Kernel against plain on float32 inputs: rtol 1e-5 and atol 1e-5 x
+    the largest |value| (the two sum in other orders) → max |err|."""
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale):
+        raise AssertionError(f'{label}: kernel and plain version differ by '
+                             f'{err} (max |plain| {scale})')
+    return err
+
+
+def hold_equal(label, fn, plain):
+    """Bit-equal to the plain version, and a repeat bit-identical."""
+    out = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain()):
+        raise AssertionError(f'{label}: kernel differs from the plain '
+                             f'version')
+    if not torch.equal(out, fn()):
+        raise AssertionError(f'{label}: a repeat gave another result')
+    return out
+
+
+def _train_args(extra=()):
+    from dgmc_tpu_torch.experiments import pascal_pf
+    return pascal_pf.parse_args(['--seed', '0', *extra])
+
+
+def _spline_exact(gen, B, N, E, O, masked):
+    """Exact inputs: small-integer t, dyadic basis, and g an integer
+    multiple of each node's degree (so g / deg is exact)."""
+    from dgmc_tpu_torch.ops.kernels.spline import Routing
+    A, M = 4, N * 25
+    t = torch.randint(-3, 4, (B, M, O), generator=gen).float()
+    basis = torch.randint(0, 5, (B, E, A), generator=gen).float() / 4
+    flat = torch.randint(0, M, (B, E, A), generator=gen)
+    rcv = torch.randint(0, N, (B, E), generator=gen)
+    mask = torch.rand(B, E, generator=gen) > masked
+    deg = torch.zeros(B, N).scatter_add_(1, rcv, mask.float())
+    g = torch.randint(-3, 4, (B, N, O), generator=gen).float() * deg.clamp(
+        min=1)[..., None]
+    dev = torch.device('cuda')
+    return (t.to(dev), g.to(dev), basis.to(dev),
+            Routing(flat.to(dev), rcv.to(dev), mask.to(dev), N, M))
+
+
+def _routing_matrix(basis, routing, transpose=False):
+    """The block-diagonal routing matrix ``[B*N, B*M]`` (basis / degree
+    weights; its transpose for the gradient) as a sparse CSR tensor: the
+    ``torch.sparse.mm`` yardstick."""
+    B, E, A = routing.flat.shape
+    N, M = routing.num_nodes, routing.num_rows
+    _, offsets = routing.receiver_csr()
+    deg = (offsets[1:] - offsets[:-1])[:B * N].float().clamp(min=1)
+    b = torch.arange(B, device=basis.device)[:, None, None]
+    rows = (b * N + routing.receivers[..., None]).expand(B, E, A)
+    cols = b * M + routing.flat
+    keep = routing.edge_mask[..., None].expand(B, E, A)
+    vals = basis / deg[rows]
+    idx = torch.stack([rows[keep], cols[keep]])
+    shape = (B * N, B * M)
+    if transpose:
+        idx, shape = idx.flip(0), shape[::-1]
+    return torch.sparse_coo_tensor(idx, vals[keep], shape,
+                                   check_invariants=False).coalesce(
+        ).to_sparse_csr()
+
+
+def _spline_work(basis, routing, O):
+    """Operations and bytes that this batch's routing needs: forward reads
+    each touched t row once, the gradient writes all of d_t."""
+    B, E, A = routing.flat.shape
+    N, M = routing.num_nodes, routing.num_rows
+    keep = routing.edge_mask[..., None].expand(B, E, A)
+    slots = int(keep.sum())
+    b = torch.arange(B, device=basis.device)[:, None, None]
+    rows = int(torch.unique((b * M + routing.flat)[keep]).numel())
+    index_bytes = 12.0 * slots + 9.0 * B * E     # flat+basis, rcv+mask
+    flops = 2.0 * slots * O
+    fwd = bound(flops, 4.0 * rows * O + index_bytes + 4.0 * B * N * O)
+    bwd = bound(flops, 4.0 * B * N * O + index_bytes + 4.0 * B * M * O)
+    return fwd, bwd
+
+
+def phase_spline_kernel(fwd_res, bwd_res):
+    from dgmc_tpu_torch.models.spline import spline_routing
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
+                                                   plain_route_d_t,
+                                                   route_d_t, route_fwd)
+    from dgmc_tpu_torch.experiments import pascal_pf
+    gen = torch.Generator().manual_seed(1)
+    exact = {'all_masked': (2, 11, 40, 16, 1.01),
+             'm_275_rows': (3, 11, 50, 33, 0.2),
+             'batch_1': (1, 24, 80, 64, 0.2),
+             'no_edges': (2, 6, 0, 8, 0.0),
+             'train_width': (64, 80, 640, 256, 0.3)}
+    for name, case in exact.items():
+        t, g, basis, routing = _spline_exact(gen, *case)
+        out = hold_equal(f'spline fwd {name}',
+                         lambda: route_fwd(t, basis, routing),
+                         lambda: plain_route_aggregate(t, basis, routing))
+        hold_equal(f'spline d_t {name}',
+                   lambda: route_d_t(g, basis, routing),
+                   lambda: plain_route_d_t(g, basis, routing))
+        if name == 'all_masked' and bool(out.any()):
+            raise AssertionError('an all-masked node did not give zeros')
+        log(f'spline_kernel: case {name} B,N,E,O={case[:4]}: fwd and d_t '
+            f'bit-equal, repeats identical')
+
+    # The four SplineConv shapes of the training path on a real batch.
+    args = _train_args()
+    _, loader, _ = pascal_pf.build(args)
+    batch = next(iter(loader))
+    graph = GraphBatch.from_numpy(batch.s, 'cuda')
+    basis, routing = spline_routing(graph, 5)
+    B, N = graph.x.shape[:2]
+    M = routing.num_rows
+    err_f = err_b = 0.0
+    for label, O in (('psi_1 conv_0/1', args.dim), ('psi_2 conv_0/1',
+                                                    args.rnd_dim)):
+        for layer in (0, 1):
+            t = torch.randn(B, M, O, generator=gen).cuda()
+            g = torch.randn(B, N, O, generator=gen).cuda()
+            out = route_fwd(t, basis, routing)
+            torch.cuda.synchronize()
+            err_f = max(err_f, hold_close(
+                f'spline fwd {label}', out,
+                plain_route_aggregate(t, basis, routing)))
+            err_b = max(err_b, hold_close(
+                f'spline d_t {label}', route_d_t(g, basis, routing),
+                plain_route_d_t(g, basis, routing)))
+            if not torch.equal(out, route_fwd(t, basis, routing)):
+                raise AssertionError('spline fwd: a repeat differs')
+        log(f'spline_kernel: {label} [{B}, {M}, {O}] on a RandomGraphPairs '
+            f'batch: within tolerance (max |err| fwd {err_f:.3g}, d_t '
+            f'{err_b:.3g})')
+
+        (fb, fby), (bb, bby) = _spline_work(basis, routing, O)
+        R = _routing_matrix(basis, routing)
+        RT = _routing_matrix(basis, routing, transpose=True)
+        t2, g2 = t.reshape(B * M, O), g.reshape(B * N, O)
+        lib_err = hold_close('sparse.mm yardstick', torch.sparse.mm(
+            R, t2).reshape(B, N, O), plain_route_aggregate(t, basis,
+                                                           routing))
+        calls = {'fwd': lambda: route_fwd(t, basis, routing),
+                 'fwd plain': lambda: plain_route_aggregate(t, basis,
+                                                            routing),
+                 'fwd sparse.mm': lambda: torch.sparse.mm(R, t2),
+                 'd_t': lambda: route_d_t(g, basis, routing),
+                 'd_t plain': lambda: plain_route_d_t(g, basis, routing),
+                 'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2)}
+        got, src = timed(calls)
+        dev = {k: v[0] for k, v in got.items()}
+        log(f'spline_kernel: O={O}, bound fwd {fb:.4f} ms ({fby}), d_t '
+            f'{bb:.4f} ms ({bby}); sparse.mm agrees (max |err| '
+            f'{lib_err:.3g}); ms per call [{src}] / per-call wall ms (CUDA '
+            f'events, median of 10): '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got.items()))
+        if O == args.dim:   # the JSON line carries the ψ₁ width (O=256)
+            fwd_res.update(ms=dev['fwd'], plain_ms=dev['fwd plain'],
+                           bound_ms=fb, bound_by=fby,
+                           library_ms=dev['fwd sparse.mm'], ms_source=src)
+            bwd_res.update(ms=dev['d_t'], plain_ms=dev['d_t plain'],
+                           bound_ms=bb, bound_by=bby,
+                           library_ms=dev['d_t sparse.mm'], ms_source=src)
+    fwd_res.update(name='spline_route_fwd', route='cuda',
+                   source='dgmc_tpu_torch/csrc/spline.cu',
+                   replaces='dgmc_tpu/ops/pallas/spline.py:72',
+                   max_abs_err=err_f)
+    bwd_res.update(name='spline_route_bwd', route='cuda',
+                   source='dgmc_tpu_torch/csrc/spline.cu',
+                   replaces='dgmc_tpu/ops/pallas/spline.py:96',
+                   max_abs_err=err_b)
+
+
+def phase_consensus_kernel(result):
+    from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
+                                                      plain_consensus)
+    gen = torch.Generator().manual_seed(2)
+
+    def case(B, N_s, N_t, R, ints):
+        def draw(*shape, scale=1.0):
+            if ints:
+                return torch.randint(-2, 3, shape, generator=gen).float()
+            return scale * torch.randn(*shape, generator=gen)
+        return [a.cuda() for a in (
+            draw(B, N_s, R), draw(B, N_t, R), draw(R, R, scale=R ** -0.5),
+            draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
+            draw(1, scale=0.1))]
+
+    shapes = {'ragged': (2, 20, 37, 8), 'one_pair': (1, 1, 1, 1),
+              'train_width': (64, 80, 80, 64), 'r_max': (2, 33, 65, R_MAX)}
+    for name, shape in shapes.items():
+        a = case(*shape, ints=True)
+        hold_equal(f'consensus {name}', lambda: consensus_fwd(*a),
+                   lambda: plain_consensus(*a))
+        log(f'consensus_kernel: case {name} B,N_s,N_t,R={shape}: bit-equal, '
+            f'repeat identical')
+    err = 0.0
+    for name in ('ragged', 'r_max', 'train_width'):
+        a = case(*shapes[name], ints=False)
+        out = consensus_fwd(*a)
+        torch.cuda.synchronize()
+        err = max(err, hold_close(f'consensus {name}', out,
+                                  plain_consensus(*a)))
+    B, N_s, N_t, R = shapes['train_width']
+    got, src = timed({'kernel': lambda: consensus_fwd(*a),
+                      'plain': lambda: plain_consensus(*a)})
+    (ms, wall), (plain_ms, wall_plain) = got['kernel'], got['plain']
+    flops = 2.0 * B * (N_s + N_t) * R * R + 3.0 * B * N_s * N_t * R
+    nbytes = 4.0 * (B * (N_s + N_t) * R + R * R + 2 * R + 1
+                    + B * N_s * N_t)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f'consensus_kernel: float32 within tolerance (max |err| {err:.3g}); '
+        f'at [{B}, {N_s}, {N_t}] R={R}, ms per call [{src}] / per-call '
+        f'wall ms (CUDA events, median of 10): kernel {ms:.4f} / '
+        f'{wall:.4f}, plain {plain_ms:.4f} / {wall_plain:.4f}; '
+        f'bound {b_ms:.4f} ms '
+        f'({flops / 1e9:.3f} GFLOP factored, against '
+        f'{2.0 * B * N_s * N_t * R * R / 1e9:.2f} for the per-pair product; '
+        f'{nbytes / 1e6:.2f} MB); no single PyTorch call computes it')
+    result.update(name='consensus_fwd', route='cuda',
+                  source='dgmc_tpu_torch/csrc/consensus.cu',
+                  replaces='dgmc_tpu/ops/pallas/consensus.py:49',
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_by=b_by, library_ms=None, ms_source=src)
 
 
 def phase_serve(result):
@@ -336,7 +636,7 @@ def phase_serve(result):
 
     for qi in (0, len(queries) - 1):
         try:
-            profile_query(engine, queries[qi][0], f'query {qi}')
+            profile(lambda: engine.match(queries[qi][0]), f'query {qi}')
         except Exception as e:   # the breakdown is informational only
             log(f'profile: query {qi}: not measured ({e!r})')
 
@@ -363,6 +663,184 @@ def phase_serve(result):
         f'candidates equal, max |prob diff| {err:.3g})')
 
 
+#: Launches per train step and per eval batch at full width:
+#: (spline_route_fwd, spline_route_bwd, consensus_fwd). ψ₁ runs 2 layers
+#: on 2 graphs, ψ₂ 2 layers on 2 graphs in each of 10 consensus steps.
+TRAIN_KERNELS = ('spline_route_fwd', 'spline_route_bwd', 'consensus_fwd')
+PER_TRAIN_STEP = (44, 44, 10)
+PER_EVAL_BATCH = (44, 0, 10)
+#: Gradients that are zero but for rounding: ψ₂'s final bias shifts o_s
+#: and o_t alike, the MLP's output bias a whole row of S_hat.
+ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
+#: First-step gradients, as fractions of each tensor's largest |entry|:
+#: CUDA within GRAD_TOL of the CPU float32 path, or else no farther from
+#: the CPU float64 path than twice the CPU float32 path is, and never
+#: farther than GRAD_F64_CAP.
+GRAD_TOL, GRAD_F64_CAP = 1e-3, 2e-3
+
+
+def _deltas(a, b):
+    return tuple(b[k] - a[k] for k in TRAIN_KERNELS)
+
+
+def _loss_and_grads(model, batch, r_s, device, dtype):
+    """Loss and gradients of one training forward (``loss_on_s0``) with
+    the injected noise, in ``dtype`` on ``device``."""
+    from dgmc_tpu_torch.models import metrics
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    model = model.to(device=device, dtype=dtype).train()
+    g_s, g_t, y, y_mask = batch_to_device(batch, device)
+    for g in (g_s, g_t):
+        g.x, g.edge_attr = g.x.to(dtype), g.edge_attr.to(dtype)
+    S_0, S_L = model(g_s, g_t, r_s=r_s.to(device=device, dtype=dtype))
+    loss = metrics.nll_loss(S_L, y, y_mask) + metrics.nll_loss(S_0, y,
+                                                               y_mask)
+    loss.backward()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().to('cpu', torch.float64)
+                         for n, p in model.named_parameters()}
+
+
+def phase_train(results):
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.models.dgmc import draw_noise
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+
+    marks, losses = [], []
+
+    def hook(kind, index, out):
+        torch.cuda.synchronize()
+        marks.append((kind, time.perf_counter(), dispatch.launch_counts()))
+        if kind == 'train':
+            losses.append(float(out['loss']))
+
+    argv = ['--seed', '0', '--epochs', '1', '--synthetic_eval', '128']
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counters at 0 just before, read just after.
+    dispatch.reset()
+    marks.append(('start', time.perf_counter(), dispatch.launch_counts()))
+    pascal_pf.main(argv, hook=hook)
+    counts = dispatch.launch_counts()
+    decisions = dispatch.decisions()
+    peak = torch.cuda.max_memory_allocated()
+    kinds = [m[0] for m in marks[1:]]
+    if kinds != ['train'] * 16 + ['eval'] * 2:
+        raise AssertionError(f'expected 16 train steps and 2 eval batches, '
+                             f'got {kinds}')
+    for prev, cur in zip(marks, marks[1:]):
+        want = PER_TRAIN_STEP if cur[0] == 'train' else PER_EVAL_BATCH
+        got = _deltas(prev[2], cur[2])
+        if got != want:
+            raise AssertionError(f'{cur[0]} launches {got}, expected {want}')
+    for name in TRAIN_KERNELS:
+        d = decisions[name]
+        if d['path'] != 'kernel' or d['counts']['plain']:
+            raise AssertionError(f'{name}: dispatch {d}')
+        results[name]['launches'] = counts[name]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'non-finite train loss: {losses}')
+    step_ms = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
+               if b[0] == 'train'][2:]
+    med = statistics.median(step_ms)
+    log(f'train: 16 steps of 64 pairs + 2 eval batches through '
+        f'pascal_pf.main; launches {[counts[k] for k in TRAIN_KERNELS]} '
+        f'({"/".join(map(str, PER_TRAIN_STEP))} per step, '
+        f'{"/".join(map(str, PER_EVAL_BATCH))} per eval batch); dispatch '
+        f'kernel for all three; losses {losses[0]:.4f} -> {losses[-1]:.4f}')
+    log(f'train: step ms after 2 warm-up steps (host clock, synchronized, '
+        f'collation included): median {med:.3f}, min {min(step_ms):.3f}, '
+        f'max {max(step_ms):.3f}; {64 / med * 1e3:.1f} pairs/s; '
+        f'max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)')
+
+    # The first step against the CPU plain path: same weights, batch and
+    # noise. At random init ψ₂'s gradients are small sums of large terms
+    # that cancel, so float32 rounding alone moves them by up to a few
+    # 1e-3 of their largest entry on either device; the CPU plain path in
+    # float64 says which side the rounding is on.
+    args = _train_args()
+    model, loader, _ = pascal_pf.build(args)
+    loader.dataset.set_epoch(1)
+    batch = next(iter(loader))
+    r_s = draw_noise(args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
+                     args.rnd_dim, seed=pascal_pf.noise_seed(0, 0, 1, 0))
+    out = {}
+    for label, dev, dtype in (('cuda', 'cuda', torch.float32),
+                              ('cpu', 'cpu', torch.float32),
+                              ('cpu float64', 'cpu', torch.float64)):
+        t0 = time.perf_counter()
+        out[label] = _loss_and_grads(copy.deepcopy(model), batch, r_s, dev,
+                                     dtype)
+        log(f'train: first step forward+backward on {label}: loss '
+            f'{out[label][0]:.8f} in {time.perf_counter() - t0:.2f}s')
+    rel = abs(out['cuda'][0] - out['cpu'][0]) / abs(out['cpu'][0])
+    if rel > 1e-4:
+        raise AssertionError(f'CPU and CUDA losses differ: rel {rel}')
+    worst, by_f64 = 0.0, []
+    for name, ref in out['cpu float64'][1].items():
+        got, want = out['cuda'][1][name], out['cpu'][1][name]
+        if name in ZERO_GRAD:
+            if max(float(got.abs().max()), float(want.abs().max())) > 1e-5:
+                raise AssertionError(f'{name}: gradient not ~0')
+            continue
+        scale = float(ref.abs().max())
+        diff = float((got - want).abs().max()) / scale
+        worst = max(worst, diff)
+        if diff <= GRAD_TOL:
+            continue
+        # Beyond GRAD_TOL: CUDA must be as close to float64 as the CPU is,
+        # and within GRAD_F64_CAP of it in any case.
+        e_cuda = float((got - ref).abs().max()) / scale
+        e_cpu = float((want - ref).abs().max()) / scale
+        by_f64.append(f'{name} (|cuda-cpu| {diff:.3g}, |cuda-f64| '
+                      f'{e_cuda:.3g}, |cpu-f64| {e_cpu:.3g})')
+        if e_cuda > min(2 * e_cpu, GRAD_F64_CAP):
+            raise AssertionError(f'{name}: CUDA gradient off by {e_cuda:.3g}'
+                                 f' of max against float64 (limit '
+                                 f'{GRAD_F64_CAP:g}), the CPU by '
+                                 f'{e_cpu:.3g}')
+    log(f'train: CUDA agrees with the CPU plain path: loss rel {rel:.3g}; '
+        f'gradients within {GRAD_TOL:g} x max|grad| per tensor (worst '
+        f'{worst:.3g}) except, held against float64 instead (within '
+        f'min(2 x the CPU float32 error, {GRAD_F64_CAP:g}) x max|grad|): '
+        f'{by_f64 or "none"}')
+
+    def two_steps():
+        model, loader, _ = pascal_pf.build(args)
+        state = create_train_state(model.cuda(), learning_rate=args.lr)
+        step = make_train_step(model, loss_on_s0=True)
+        loader.dataset.set_epoch(1)
+        got = []
+        for i, batch in zip(range(2), loader):
+            state, o = step(state, batch, pascal_pf.noise_seed(0, 0, 1, i))
+            got.append(o['loss'].item())
+        return got, state, step, batch
+
+    run_a, _, _, _ = two_steps()
+    run_b, state, step, batch = two_steps()
+    if run_a != run_b:
+        raise AssertionError(f'two 2-step runs differ: {run_a} vs {run_b}')
+    log(f'train: two 2-step runs from one seed give bit-identical losses '
+        f'{run_a}')
+    t0 = time.perf_counter()
+    next(iter(loader))
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    draw_noise(args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
+               args.rnd_dim, seed=1, device='cuda')
+    torch.cuda.synchronize()
+    noise_ms = (time.perf_counter() - t0) * 1e3
+    log(f'train: host work per step: collating 64 pairs (transforms '
+        f'included) {collate_ms:.3f} ms, drawing and copying the '
+        f'indicator noise {noise_ms:.3f} ms')
+    try:
+        profile(lambda: step(state, batch, 12345), 'one train step', top=12)
+    except Exception as e:   # the breakdown is informational only
+        log(f'profile: one train step: not measured ({e!r})')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -383,11 +861,17 @@ def main():
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
 
-    topk = {}
+    res = {k: {} for k in ('topk', *TRAIN_KERNELS)}
     failed = []
-    for name, fn in (('build', phase_build),
-                     ('topk_kernel', lambda: phase_topk_kernel(topk)),
-                     ('serve', lambda: phase_serve(topk))):
+    for name, fn in (
+            ('build', phase_build),
+            ('topk_kernel', lambda: phase_topk_kernel(res['topk'])),
+            ('spline_kernel', lambda: phase_spline_kernel(
+                res['spline_route_fwd'], res['spline_route_bwd'])),
+            ('consensus_kernel', lambda: phase_consensus_kernel(
+                res['consensus_fwd'])),
+            ('serve', lambda: phase_serve(res['topk'])),
+            ('train', lambda: phase_train(res))):
         t0 = time.perf_counter()
         try:
             fn()
@@ -404,8 +888,9 @@ def main():
     log(smi[0] if smi else 'nvidia-smi: no output')
     keys = ('name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
-    print(json.dumps({'kernels': [{k: topk[k] for k in keys}]}), flush=True)
+            'library_ms', 'ms_source')
+    print(json.dumps({'kernels': [{k: r[k] for k in keys}
+                                  for r in res.values()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

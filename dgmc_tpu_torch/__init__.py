@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of Deep Graph Matching Consensus.
 
 A second package beside the JAX reference (``dgmc_tpu``): the same
-module layout (``ops/``, ``models/``, ``serve/``, ``utils/``, ``data/``)
-in PyTorch idiom, with every kernel the serving path reaches written by
-hand for Hopper (``csrc/``). The package imports neither JAX nor
-anything of ``dgmc_tpu``.
+module layout (``ops/``, ``models/``, ``train/``, ``serve/``,
+``experiments/``, ``utils/``, ``data/``) in PyTorch idiom, with every
+kernel the serving and dense training paths reach written by hand for
+Hopper (``csrc/``). The package imports neither JAX nor anything of
+``dgmc_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 asking for CUDA where there is none raises instead of falling back.
@@ -14,7 +15,7 @@ import torch
 
 __version__ = '0.1.0'
 
-__all__ = ['resolve_device', '__version__']
+__all__ = ['resolve_device', 'set_exact_float32', '__version__']
 
 
 def resolve_device(device=None):
@@ -30,3 +31,10 @@ def resolve_device(device=None):
             'dgmc_tpu_torch runs on CUDA by default and no CUDA device is '
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def set_exact_float32():
+    """Full float32 on the card: no TF32 in matrix products or cuDNN, so
+    results compare against the float32 plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

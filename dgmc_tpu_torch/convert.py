@@ -6,7 +6,10 @@
 - a flax ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight``
   ``[out, in]``; its bias keeps its shape (RelConv's ``lin1``/``lin2``
   have none, ``root`` and ``final`` do);
-- RelCNN's layer scopes ``conv_<i>`` become ``convs.<i>``;
+- RelCNN's and SplineCNN's layer scopes ``conv_<i>`` become
+  ``convs.<i>``;
+- a SplineConv ``weight [K^D, C_in, C_out]`` keeps its layout, its
+  ``root`` (a bias-free Dense) is transposed, its ``bias`` carries over;
 - DGMC's explicit consensus-MLP parameters (``mlp_hidden_kernel``,
   ``mlp_hidden_bias``, ``mlp_out_kernel``, ``mlp_out_bias``) keep their
   names and shapes.
@@ -17,7 +20,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ['dgmc_from_flax', 'relcnn_from_flax']
+__all__ = ['dgmc_from_flax', 'relcnn_from_flax', 'splinecnn_from_flax']
 
 _MLP = ('mlp_hidden_kernel', 'mlp_hidden_bias', 'mlp_out_kernel',
         'mlp_out_bias')
@@ -25,6 +28,14 @@ _MLP = ('mlp_hidden_kernel', 'mlp_hidden_bias', 'mlp_out_kernel',
 
 def _tensor(a):
     return torch.tensor(np.asarray(a, np.float32))
+
+
+def _linear(dense, key, out):
+    """A flax ``Dense`` into ``out`` as ``Linear`` ``weight`` (transposed)
+    and, where it has one, ``bias``."""
+    out[f'{key}.weight'] = _tensor(dense['kernel']).T.contiguous()
+    if 'bias' in dense:
+        out[f'{key}.bias'] = _tensor(dense['bias'])
 
 
 def relcnn_from_flax(params, prefix=''):
@@ -35,25 +46,45 @@ def relcnn_from_flax(params, prefix=''):
         m = re.fullmatch(r'conv_(\d+)', scope)
         if m:
             for lin in ('lin1', 'lin2', 'root'):
-                dense = sub[lin]
-                key = f'{prefix}convs.{m.group(1)}.{lin}'
-                out[f'{key}.weight'] = _tensor(dense['kernel']).T.contiguous()
-                if 'bias' in dense:
-                    out[f'{key}.bias'] = _tensor(dense['bias'])
+                _linear(sub[lin], f'{prefix}convs.{m.group(1)}.{lin}', out)
         elif scope == 'final':
-            out[f'{prefix}final.weight'] = _tensor(sub['kernel']).T.contiguous()
-            out[f'{prefix}final.bias'] = _tensor(sub['bias'])
+            _linear(sub, f'{prefix}final', out)
         else:
             raise KeyError(f'unexpected RelCNN parameter scope {scope!r}')
     return out
 
 
+def splinecnn_from_flax(params, prefix=''):
+    """State dict of :class:`~dgmc_tpu_torch.models.spline.SplineCNN`
+    from a flax ``SplineCNN`` parameter tree; keys are prefixed with
+    ``prefix``."""
+    out = {}
+    for scope, sub in params.items():
+        m = re.fullmatch(r'conv_(\d+)', scope)
+        if m:
+            key = f'{prefix}convs.{m.group(1)}'
+            out[f'{key}.weight'] = _tensor(sub['weight'])
+            _linear(sub['root'], f'{key}.root', out)
+            out[f'{key}.bias'] = _tensor(sub['bias'])
+        elif scope == 'final':
+            _linear(sub, f'{prefix}final', out)
+        else:
+            raise KeyError(f'unexpected SplineCNN parameter scope {scope!r}')
+    return out
+
+
+def _backbone_from_flax(params, prefix):
+    spline = 'weight' in params.get('conv_0', {})
+    return (splinecnn_from_flax if spline else relcnn_from_flax)(
+        params, prefix)
+
+
 def dgmc_from_flax(params):
-    """State dict of :class:`~dgmc_tpu_torch.models.dgmc.DGMC` (RelCNN
-    ψ₁/ψ₂) from the flax DGMC parameter tree."""
+    """State dict of :class:`~dgmc_tpu_torch.models.dgmc.DGMC` (RelCNN or
+    SplineCNN ψ₁/ψ₂) from the flax DGMC parameter tree."""
     out = {}
     for role in ('psi_1', 'psi_2'):
-        out.update(relcnn_from_flax(params[role], prefix=f'{role}.'))
+        out.update(_backbone_from_flax(params[role], prefix=f'{role}.'))
     for name in _MLP:
         out[name] = _tensor(params[name])
     extra = set(params) - {'psi_1', 'psi_2', *_MLP}

@@ -44,6 +44,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TS = 128;       // source rows per block
@@ -282,18 +284,11 @@ int dgmc_topk_f32(const float* h_s, const float* h_t, const uint8_t* t_mask,
       (long long)nseg * tiles_per_seg * TT < N_t || B < 1 || N_s < 1 ||
       C < 1)
     return (int)cudaErrorInvalidValue;
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  const int rc = launch(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B,
-                        N_s, N_t, C, k, nseg, tiles_per_seg,
-                        reinterpret_cast<cudaStream_t>(stream));
-  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess &&
-      rc == cudaSuccess)
-    return (int)err;
-  return rc;
+  return dgmc::on_device(device, [&]() {
+    return launch(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B, N_s,
+                  N_t, C, k, nseg, tiles_per_seg,
+                  reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

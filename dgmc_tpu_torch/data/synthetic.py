@@ -1,17 +1,77 @@
-"""Synthetic DBP15K-shaped knowledge-graph alignment (NumPy).
+"""Synthetic matching workloads (NumPy), draw for draw the JAX
+package's generators, so one seed gives the same arrays in both.
 
-A random source KG whose entities are injectively mapped into a larger
-target KG as variance-preserving noisy copies, with a fraction of the
-mapped edges rewired and distractor entities/edges added. The same
-construction, draw for draw, as the JAX package's generator, so one
-seed gives the same arrays in both.
+- :class:`RandomGraphPairs`: random matchable point-cloud pairs (30-60
+  inliers uniform in ``[-1, 1]^2``, a target copy jittered with Gaussian
+  noise, 0-20 per-side outliers in ``[2, 3]^2``), the PascalPF training
+  data; no download.
+- :func:`synthetic_kg_alignment`: a random source KG whose entities are
+  injectively mapped into a larger target KG as variance-preserving
+  noisy copies, with a fraction of the mapped edges rewired and
+  distractor entities/edges added (the DBP15K stand-in).
 """
 
 from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ['SyntheticKG', 'synthetic_kg_alignment']
+from dgmc_tpu_torch.utils.data import Graph, GraphPair
+
+__all__ = ['RandomGraphPairs', 'SyntheticKG', 'synthetic_kg_alignment']
+
+
+class RandomGraphPairs:
+    """Virtual dataset of random matchable point-cloud pairs.
+
+    Item ``idx`` of epoch ``epoch`` is drawn from its own
+    ``RandomState`` seeded by ``(seed, epoch, idx)``; inlier ``i`` of the
+    source matches inlier ``i`` of the target, outliers have no ground
+    truth (``y_col = -1``).
+    """
+
+    def __init__(self, min_inliers=30, max_inliers=60, min_outliers=0,
+                 max_outliers=20, noise=0.05, transform=None, length=1024,
+                 seed=0):
+        self.min_inliers = min_inliers
+        self.max_inliers = max_inliers
+        self.min_outliers = min_outliers
+        self.max_outliers = max_outliers
+        self.noise = noise
+        self.transform = transform
+        self.length = length
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        """Advance the virtual dataset so each epoch draws fresh pairs."""
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + self.epoch * 7919 + idx) % (2 ** 31))
+        n_in = rng.randint(self.min_inliers, self.max_inliers + 1)
+        n_out_s = rng.randint(self.min_outliers, self.max_outliers + 1)
+        n_out_t = rng.randint(self.min_outliers, self.max_outliers + 1)
+
+        pos_in = rng.uniform(-1.0, 1.0, (n_in, 2))
+        pos_s = np.concatenate(
+            [pos_in, rng.uniform(2.0, 3.0, (n_out_s, 2))]).astype(np.float32)
+        pos_t_in = pos_in + self.noise * rng.randn(n_in, 2)
+        pos_t = np.concatenate(
+            [pos_t_in, rng.uniform(2.0, 3.0, (n_out_t, 2))]).astype(
+                np.float32)
+
+        g_s = Graph(edge_index=np.zeros((2, 0), np.int64), pos=pos_s)
+        g_t = Graph(edge_index=np.zeros((2, 0), np.int64), pos=pos_t)
+        if self.transform is not None:
+            g_s = self.transform(g_s)
+            g_t = self.transform(g_t)
+        y_col = np.concatenate([np.arange(n_in),
+                                np.full(n_out_s, -1)]).astype(np.int64)
+        return GraphPair(s=g_s, t=g_t, y_col=y_col)
 
 
 class SyntheticKG(NamedTuple):

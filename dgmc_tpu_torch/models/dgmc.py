@@ -1,22 +1,27 @@
-"""Deep Graph Matching Consensus — sparse inference.
+"""Deep Graph Matching Consensus: dense and sparse matching.
 
-The two-stage matcher: an initial soft correspondence ``S^0`` over the
-top-k candidates of the ψ₁ embeddings, refined for ``num_steps``
-neighbourhood-consensus iterations. Per step, random node indicator
-functions ``r_s`` are projected through ``S`` onto the target graph,
-ψ₂ colours both graphs, and an MLP on the colour difference updates the
-correspondence logits.
+The two-stage matcher: an initial soft correspondence ``S^0`` from the ψ₁
+embeddings, refined for ``num_steps`` neighbourhood-consensus
+iterations. Per step, random node indicator functions ``r_s`` are
+projected through ``S`` onto the target graph, ψ₂ colours both graphs,
+and an MLP on the colour difference updates the correspondence logits.
 
-Ported here: the sparse (``k >= 1``) inference branch of the JAX
-``DGMC.__call__`` with the serving arguments (``h_t``, ``S_idx``,
-``h_t_cand``), the channel-packed source side of ψ₂ and the arithmetic
-candidate mask. The dense branch, the training branch (negatives and
-ground-truth injection) and the fused kernels are later work.
+Ported here:
+
+- the dense variant (``k = -1``), trained and evaluated: the similarity
+  product, masked softmax over ``[B, N_s, N_t]``, per step ``r_t = Sᵀ r_s``
+  and ψ₂ on both sides, and the consensus delta through
+  :func:`~dgmc_tpu_torch.ops.kernels.consensus.consensus_update` (its
+  CUDA kernel on the card) or the factored plain form;
+- the sparse (``k >= 1``) inference branch with the serving arguments
+  (``h_t``, ``S_idx``, ``h_t_cand``), the channel-packed source side of
+  ψ₂ and the arithmetic candidate mask. The sparse training branch
+  (negatives and ground-truth injection) is later work.
 
 Indicator noise: torch cannot reproduce JAX's threefry streams, so pair
 ``b`` draws its noise from a CPU ``torch.Generator`` seeded from
 ``(noise_seed, pair_offset + b)`` — the same numbers on every device, so
-the CPU and CUDA paths of one query see the same noise. Tests inject
+the CPU and CUDA paths of one call see the same noise. Tests inject
 JAX's own draws through ``r_s``.
 """
 
@@ -28,6 +33,9 @@ from torch import nn
 
 from dgmc_tpu_torch.models.rel import lecun_normal_
 from dgmc_tpu_torch.ops.graph import scatter_to_nodes
+from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_update,
+                                                  plain_consensus)
 from dgmc_tpu_torch.ops.softmax import masked_softmax
 from dgmc_tpu_torch.ops.topk import chunked_topk
 
@@ -83,22 +91,27 @@ class DGMC(nn.Module):
 
     Args:
         psi_1: feature GNN, called as ``psi_1(x, graph)``.
-        psi_2: consensus GNN exposing ``in_channels``/``out_channels`` and
-            channel-packed evaluation (``streams``), e.g. ``RelCNN``.
+        psi_2: consensus GNN exposing ``in_channels``/``out_channels``
+            (``SplineCNN``, ``RelCNN``). The sparse variant also needs
+            channel-packed evaluation (``streams``), as RelCNN has.
         num_steps: default number of consensus iterations.
-        k: top-k sparsity (``k >= 1``; the dense variant is not ported).
+        k: ``-1`` for the dense variant, else the top-k sparsity.
         generator: optional ``torch.Generator`` the initial weights are
             drawn from (:meth:`reset_parameters`).
+
+    The dense consensus delta goes through :func:`consensus_update` (its
+    kernel on CUDA tensors, its plain version on the CPU) whenever
+    ``R <= R_MAX``, the kernel's own limit, and through the factored
+    plain form above it; the gate's decision is recorded in the dispatch
+    ledger.
     """
 
-    def __init__(self, psi_1, psi_2, num_steps, k, generator=None):
+    def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None):
         super().__init__()
-        if k < 1:
-            raise NotImplementedError('the dense DGMC variant (k=-1) is '
-                                      'not ported yet')
-        if not getattr(psi_2, 'supports_streams', False):
-            raise NotImplementedError('psi_2 must support channel-packed '
-                                      'evaluation (streams), as RelCNN does')
+        if k >= 1 and not getattr(psi_2, 'supports_streams', False):
+            raise NotImplementedError('the sparse variant needs a psi_2 with '
+                                      'channel-packed evaluation (streams), '
+                                      'as RelCNN has')
         self.psi_1 = psi_1
         self.psi_2 = psi_2
         self.num_steps = num_steps
@@ -128,17 +141,69 @@ class DGMC(nn.Module):
         h = torch.relu(d @ self.mlp_hidden_kernel + self.mlp_hidden_bias)
         return (h @ self.mlp_out_kernel)[..., 0] + self.mlp_out_bias[0]
 
+    def _noise(self, r_s, num_steps, B, N_s, noise_seed, pair_offset,
+               device):
+        R_in = self.psi_2.in_channels
+        if r_s is None:
+            return draw_noise(num_steps, B, N_s, R_in, noise_seed,
+                              pair_offset, device=device)
+        if tuple(r_s.shape) != (num_steps, B, N_s, R_in):
+            raise ValueError(f'r_s must be [num_steps, B, N_s, R_in] = '
+                             f'{(num_steps, B, N_s, R_in)}; got '
+                             f'{tuple(r_s.shape)}')
+        return r_s
+
+    def _delta_fn(self):
+        """:func:`consensus_update`, or the factored plain form above the
+        kernel's ``R <= R_MAX`` limit. The JAX package's auto gate also
+        asks ``N_s, N_t >= 128`` because its kernel pads to the TPU's
+        128 x 128 tile; the CUDA kernel masks ragged tiles, so only its
+        own R limit remains."""
+        R = self.mlp_hidden_kernel.shape[0]
+        if R > R_MAX:
+            dispatch.record('consensus_fwd', 'plain', f'R>{R_MAX}')
+            return plain_consensus
+        return consensus_update
+
+    def _dense(self, graph_s, graph_t, num_steps, noise_seed, pair_offset,
+               r_s):
+        h_s = self.psi_1(graph_s.x, graph_s)
+        h_t = self.psi_1(graph_t.x, graph_t)
+        s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
+        B, N_s = s_mask.shape
+        S_mask = s_mask[:, :, None] & t_mask[:, None, :]
+        S_hat = h_s @ h_t.transpose(1, 2)
+        S_0 = masked_softmax(S_hat, S_mask)
+        if num_steps > 0:
+            r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
+                              pair_offset, h_s.device)
+            delta_fn = self._delta_fn()
+            mlp = (self.mlp_hidden_kernel, self.mlp_hidden_bias,
+                   self.mlp_out_kernel, self.mlp_out_bias)
+            for step in range(num_steps):
+                S = masked_softmax(S_hat, S_mask)
+                r_t = S.transpose(1, 2) @ r_s[step]
+                o_s = self.psi_2(r_s[step], graph_s)
+                o_t = self.psi_2(r_t, graph_t)
+                delta = delta_fn(o_s, o_t, *mlp)
+                S_hat = S_hat + torch.where(S_mask, delta, 0.0)
+        S_L = masked_softmax(S_hat, S_mask)
+        return (Correspondence(S_0, None, s_mask, t_mask),
+                Correspondence(S_L, None, s_mask, t_mask))
+
     def forward(self, graph_s, graph_t, h_t=None, S_idx=None, h_t_cand=None,
                 num_steps=None, noise_seed=0, pair_offset=0, r_s=None):
-        """Compute ``(S_0, S_L)`` sparse correspondences (inference).
+        """Compute ``(S_0, S_L)``: dense ``[B, N_s, N_t]`` correspondences
+        for ``k = -1``, sparse ``[B, N_s, k]`` ones otherwise.
 
         Args:
             graph_s / graph_t: padded :class:`~dgmc_tpu_torch.ops.graph.
                 GraphBatch` pairs.
             h_t: optional precomputed ψ₁ target table ``[B, N_t, C]`` (the
-                serving corpus cache); ψ₁ then runs on the source only and
-                ``graph_t.x`` is never read.
-            S_idx: optional precomputed shortlist ``[B, N_s, k]``.
+                serving corpus cache; sparse only); ψ₁ then runs on the
+                source only and ``graph_t.x`` is never read.
+            S_idx: optional precomputed shortlist ``[B, N_s, k]`` (sparse
+                only).
             h_t_cand: optional pre-gathered candidate rows
                 ``[B, N_s, k, C]`` (needs ``S_idx``).
             noise_seed / pair_offset: the indicator-noise stream (see
@@ -147,6 +212,13 @@ class DGMC(nn.Module):
                 used instead of drawing it.
         """
         num_steps = self.num_steps if num_steps is None else num_steps
+        if self.k < 1:
+            if h_t is not None or S_idx is not None or h_t_cand is not None:
+                raise ValueError('h_t / S_idx / h_t_cand are serving '
+                                 'arguments of the sparse variant; the '
+                                 'dense variant has no shortlist')
+            return self._dense(graph_s, graph_t, num_steps, noise_seed,
+                               pair_offset, r_s)
         if h_t_cand is not None and S_idx is None:
             raise ValueError('h_t_cand (pre-gathered candidate rows) is '
                              'meaningless without the S_idx it was '
@@ -183,13 +255,8 @@ class DGMC(nn.Module):
 
         if num_steps > 0:
             R_in = self.psi_2.in_channels
-            if r_s is None:
-                r_s = draw_noise(num_steps, B, N_s, R_in, noise_seed,
-                                 pair_offset, device=h_s.device)
-            elif tuple(r_s.shape) != (num_steps, B, N_s, R_in):
-                raise ValueError(f'r_s must be [num_steps, B, N_s, R_in] = '
-                                 f'{(num_steps, B, N_s, R_in)}; got '
-                                 f'{tuple(r_s.shape)}')
+            r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
+                              pair_offset, h_s.device)
             # The source-side ψ₂ input is noise, independent of S: all
             # steps run as ONE channel-packed ψ₂ call on the source graph.
             T = num_steps

@@ -16,7 +16,7 @@ from torch import nn
 
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
-__all__ = ['RelConv', 'RelCNN', 'lecun_normal_']
+__all__ = ['RelConv', 'RelCNN', 'init_linear_', 'lecun_normal_']
 
 # Standard deviation of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
@@ -30,7 +30,7 @@ def lecun_normal_(w, fan_in, generator=None):
                                  generator=generator)
 
 
-def _init_linear(lin, generator):
+def init_linear_(lin, generator):
     lecun_normal_(lin.weight, lin.in_features, generator)
     if lin.bias is not None:
         nn.init.zeros_(lin.bias)
@@ -45,7 +45,7 @@ class RelConv(nn.Module):
 
     def reset_parameters(self, generator=None):
         for lin in (self.lin1, self.lin2, self.root):
-            _init_linear(lin, generator)
+            init_linear_(lin, generator)
 
     def forward(self, x, graph, streams=1):
         """``streams > 1`` evaluates the same convolution on ``streams``
@@ -117,7 +117,7 @@ class RelCNN(nn.Module):
         for conv in self.convs:
             conv.reset_parameters(generator)
         if self.final is not None:
-            _init_linear(self.final, generator)
+            init_linear_(self.final, generator)
 
     def forward(self, x, graph, streams=1):
         if self.training and self.dropout > 0:

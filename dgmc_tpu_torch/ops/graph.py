@@ -10,11 +10,13 @@ edge order by one segment reduction.
 """
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ['GraphBatch', 'gather_nodes', 'scatter_to_nodes', 'degree']
+__all__ = ['GraphBatch', 'gather_nodes', 'segments', 'scatter_to_nodes',
+           'degree']
 
 
 @dataclasses.dataclass
@@ -27,25 +29,38 @@ class GraphBatch:
         node_mask: ``[B, N]`` bool, True at real nodes.
         edge_mask: ``[B, E]`` bool, True at real edges. Padded edges
             point at node 0 and are masked out of every aggregation.
+        edge_attr: optional ``[B, E, D]`` float32 edge features (the
+            pseudo-coordinates of SplineCNN).
     """
     x: torch.Tensor
     senders: torch.Tensor
     receivers: torch.Tensor
     node_mask: torch.Tensor
     edge_mask: torch.Tensor
+    edge_attr: Optional[torch.Tensor] = None
 
     @classmethod
     def from_numpy(cls, arrays, device):
         """Build from the arrays of :func:`~dgmc_tpu_torch.utils.data.
-        pad_graphs` (or any dict with the same keys)."""
+        pad_graphs` (or any dict with the same keys). Edge endpoints
+        outside ``[0, N)`` raise: the kernels index node rows with them
+        unchecked."""
+        N = np.shape(arrays['x'])[1]
+        for key in ('senders', 'receivers'):
+            ends = np.asarray(arrays[key])
+            if ends.size and (ends.min() < 0 or ends.max() >= N):
+                raise ValueError(f'{key} outside [0, {N})')
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a)).to(device=device,
                                                      dtype=dtype)
+        attr = arrays.get('edge_attr')
         return cls(x=t(arrays['x'], torch.float32),
                    senders=t(arrays['senders'], torch.int64),
                    receivers=t(arrays['receivers'], torch.int64),
                    node_mask=t(arrays['node_mask'], torch.bool),
-                   edge_mask=t(arrays['edge_mask'], torch.bool))
+                   edge_mask=t(arrays['edge_mask'], torch.bool),
+                   edge_attr=(None if attr is None
+                              else t(attr, torch.float32)))
 
     @property
     def num_nodes(self):
@@ -62,7 +77,7 @@ def gather_nodes(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _segments(receivers, edge_mask, num_nodes):
+def segments(receivers, edge_mask, num_nodes):
     """Receiver-sorted edge order and per-node offsets over the flattened
     batch: node ``(b, n)`` owns sorted positions
     ``offsets[b*N+n] : offsets[b*N+n+1]``. Masked edges sort into a
@@ -88,7 +103,7 @@ def scatter_to_nodes(messages, receivers, edge_mask, num_nodes, aggr='sum'):
         raise ValueError(f'Unknown aggregation: {aggr!r}')
     B, E, C = messages.shape
     acc = torch.promote_types(messages.dtype, torch.float32)
-    order, offsets = _segments(receivers, edge_mask, num_nodes)
+    order, offsets = segments(receivers, edge_mask, num_nodes)
     data = messages.reshape(B * E, C).to(acc)[order]
     # The last segment is the masked edges' sentinel: reduced, then cut.
     out = torch.segment_reduce(data, 'sum', offsets=offsets, axis=0)
@@ -102,6 +117,6 @@ def scatter_to_nodes(messages, receivers, edge_mask, num_nodes, aggr='sum'):
 def degree(receivers, edge_mask, num_nodes):
     """Masked in-degree per node: ``[B, E]`` → ``[B, N]`` float32."""
     B = receivers.shape[0]
-    _, offsets = _segments(receivers, edge_mask, num_nodes)
+    _, offsets = segments(receivers, edge_mask, num_nodes)
     deg = (offsets[1:] - offsets[:-1])[:B * num_nodes]
     return deg.to(torch.float32).reshape(B, num_nodes)

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds. Libraries land in
 ``dgmc_tpu_torch/_build/`` (gitignored) under a name that carries the
-hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as built. Nothing here runs at import time.
+hash of the source, the shared headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as built.
+Nothing here runs at import time.
 """
 
 import ctypes
@@ -43,6 +44,18 @@ def _nvcc():
                        'CUDA toolkit (set CUDA_HOME)')
 
 
+def _digest(src):
+    """Hash of the source, every shared header of ``csrc/`` (a ``.cu``
+    may include any of them) and the flags: an edited header rebuilds
+    every library instead of loading a stale one."""
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, 'rb') as f:
+            h.update(os.path.basename(path).encode() + b'\0' + f.read())
+    return h.hexdigest()[:16]
+
+
 def load_library(source):
     """Compile ``csrc/<source>`` (once per content hash) and return the
     loaded ``ctypes.CDLL``. The library object carries ``build_seconds``
@@ -53,9 +66,7 @@ def load_library(source):
         if lib is not None:
             return lib
         src = os.path.join(CSRC_DIR, source)
-        with open(src, 'rb') as f:
-            digest = hashlib.sha256(
-                f.read() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = _digest(src)
         stem = os.path.splitext(source)[0]
         out = os.path.join(BUILD_DIR, f'lib{stem}_{digest}.so')
         seconds, log = 0.0, ''

@@ -1,0 +1,161 @@
+"""Dense consensus update: CUDA kernel (forward), plain versions and the
+tile-recompute backward.
+
+``delta[b, s, t] = relu((o_s[b, s] - o_t[b, t]) @ W1 + b1) @ W2 + b2``
+(float32, ``[B, N_s, N_t]``), never holding the ``[B, N_s, N_t, R]``
+difference tensor across the forward. The kernel (``csrc/consensus.cu``)
+replaces the JAX package's Pallas TPU kernel
+``dgmc_tpu/ops/pallas/consensus.py::_consensus_kernel``; see the source
+for its design and bound.
+
+- :func:`consensus_fwd` is the kernel's wrapper: its plain version
+  :func:`plain_consensus` (the factored form ``relu(u_s - u_t) @ W2 + b2``
+  with ``u_s = o_s @ W1 + b1``, ``u_t = o_t @ W1``) for CPU tensors; on a
+  CUDA tensor it launches the kernel or raises. ``R > R_MAX`` does not
+  reach it: the model records that gate (``dispatch``) and takes the
+  plain form instead.
+- :func:`consensus_update` is differentiable: its backward recomputes
+  the difference tile by tile over ``TILE_T`` targets in plain PyTorch
+  (float32 accumulation), as the JAX kernel's ``lax.scan`` backward does;
+  the JAX package has no Pallas backward to port.
+"""
+
+import ctypes
+
+import torch
+
+from dgmc_tpu_torch.ops.kernels import dispatch
+
+__all__ = ['R_MAX', 'TILE_T', 'plain_consensus', 'consensus_fwd',
+           'consensus_backward', 'consensus_update']
+
+#: Largest R the kernel takes: W1 and the tile's u_s / u_t rows live in
+#: shared memory (4 (R^2 + 130 R) bytes, 132 KB at R = 128). Checked
+#: against the compiled library at load.
+R_MAX = 128
+
+#: Target rows per backward tile: bounds the recomputed difference to
+#: ``B * N_s * TILE_T * R`` floats.
+TILE_T = 32
+
+
+def plain_consensus(o_s, o_t, w1, b1, w2, b2):
+    """The factored plain version → ``[B, N_s, N_t]``. Materializes the
+    ``[B, N_s, N_t, R]`` hidden layer; differentiable by autograd."""
+    u_s = o_s @ w1 + b1
+    u_t = o_t @ w1
+    h = torch.relu(u_s[:, :, None, :] - u_t[:, None, :, :])
+    return (h @ w2)[..., 0] + b2[0]
+
+
+def _library():
+    from dgmc_tpu_torch.ops.kernels.build import load_library
+    lib = load_library('consensus.cu')
+    if not getattr(lib, 'consensus_bound', False):
+        fn = lib.dgmc_consensus_fwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.dgmc_consensus_r_max.restype = ctypes.c_int
+        if lib.dgmc_consensus_r_max() != R_MAX:
+            raise RuntimeError(f'csrc/consensus.cu R_MAX '
+                               f'{lib.dgmc_consensus_r_max()} differs from '
+                               f'the wrapper\'s {R_MAX}')
+        lib.consensus_bound = True
+    return lib
+
+
+@dispatch.kernel_wrapper('consensus_fwd')
+def consensus_fwd(o_s, o_t, w1, b1, w2, b2):
+    """The consensus delta → ``[B, N_s, N_t]`` float32 (no gradient; see
+    :func:`consensus_update`)."""
+    if o_s.dim() != 3 or o_t.dim() != 3 or o_s.shape[0] != o_t.shape[0] \
+            or o_s.shape[2] != o_t.shape[2]:
+        raise ValueError(f'consensus_fwd wants o_s [B, N_s, R] and o_t '
+                         f'[B, N_t, R]; got {tuple(o_s.shape)} and '
+                         f'{tuple(o_t.shape)}')
+    B, N_s, R = o_s.shape
+    N_t = o_t.shape[1]
+    if (tuple(w1.shape) != (R, R) or tuple(b1.shape) != (R,)
+            or tuple(w2.shape) != (R, 1) or tuple(b2.shape) != (1,)):
+        raise ValueError(f'consensus MLP shapes {tuple(w1.shape)}, '
+                         f'{tuple(b1.shape)}, {tuple(w2.shape)}, '
+                         f'{tuple(b2.shape)} do not fit R={R}')
+    args = [a.detach() for a in (o_s, o_t, w1, b1, w2, b2)]
+    devs = {a.device for a in args}
+    if len(devs) != 1:
+        raise ValueError(f'consensus_fwd inputs lie on several devices: '
+                         f'{sorted(map(str, devs))}')
+    dev = o_s.device
+    if dev.type == 'cpu':
+        dispatch.record('consensus_fwd', 'plain', 'device=cpu')
+        return plain_consensus(*args)
+    if dev.type != 'cuda':
+        raise ValueError(f'consensus_fwd runs on cpu or cuda, not '
+                         f'{dev.type}')
+    if any(a.dtype != torch.float32 for a in args):
+        raise TypeError(f'the consensus kernel takes float32 only; got '
+                        f'{sorted({str(a.dtype) for a in args})}')
+    if R > R_MAX or B > 65535:
+        raise ValueError(f'the consensus kernel takes R <= {R_MAX} and '
+                         f'B <= 65535; got R={R}, B={B}')
+    dispatch.record('consensus_fwd', 'kernel', 'auto-cuda')
+    lib = _library()
+    args = [a.contiguous() for a in args]
+    out = torch.empty((B, N_s, N_t), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    err = lib.dgmc_consensus_fwd_f32(
+        *(a.data_ptr() for a in args), out.data_ptr(), B, N_s, N_t, R,
+        stream.device_index, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'consensus kernel launch failed with CUDA error '
+                           f'{err} (B={B}, N_s={N_s}, N_t={N_t}, R={R})')
+    consensus_fwd.launches += 1
+    return out
+
+
+def consensus_backward(o_s, o_t, w1, b1, w2, g):
+    """Gradients of ``sum(g * delta)`` w.r.t. ``(o_s, o_t, w1, b1, w2,
+    b2)``: the hidden layer is recomputed per tile of ``TILE_T`` targets
+    and reduced at once, so at most ``[B, N_s, TILE_T, R]`` lives at a
+    time. Through the factored form: ``d_u_s`` / ``d_u_t`` first, then one
+    node-level product each for ``d_o_s``, ``d_o_t`` and ``d_w1``."""
+    N_t = o_t.shape[1]
+    u_s = o_s @ w1 + b1
+    u_t = o_t @ w1
+    w2v = w2[:, 0]
+    d_us = torch.zeros_like(u_s)
+    d_ut = torch.empty_like(u_t)
+    d_w2 = torch.zeros_like(w2v)
+    for start in range(0, N_t, TILE_T):
+        stop = min(start + TILE_T, N_t)
+        g_b = g[:, :, start:stop]                                # [B,S,T]
+        pre = u_s[:, :, None, :] - u_t[:, None, start:stop, :]   # [B,S,T,R]
+        d_w2 += torch.einsum('bstq,bst->q', torch.relu(pre), g_b)
+        d_pre = torch.where(pre > 0, g_b[..., None] * w2v, 0.0)
+        d_us += d_pre.sum(dim=2)
+        d_ut[:, start:stop] = -d_pre.sum(dim=1)
+    d_w1 = (torch.einsum('bsr,bsq->rq', o_s, d_us)
+            + torch.einsum('btr,btq->rq', o_t, d_ut))
+    return (d_us @ w1.T, d_ut @ w1.T, d_w1, d_us.sum(dim=(0, 1)),
+            d_w2[:, None], g.sum().reshape(1))
+
+
+class _ConsensusUpdate(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, o_s, o_t, w1, b1, w2, b2):
+        ctx.save_for_backward(o_s, o_t, w1, b1, w2)
+        return consensus_fwd(o_s, o_t, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = consensus_backward(*ctx.saved_tensors, g)
+        return tuple(d if need else None
+                     for d, need in zip(grads, ctx.needs_input_grad))
+
+
+def consensus_update(o_s, o_t, w1, b1, w2, b2):
+    """``mlp(o_s[:, :, None] - o_t[:, None, :])`` → ``[B, N_s, N_t]``,
+    differentiable in every argument; see the module docstring."""
+    return _ConsensusUpdate.apply(o_s, o_t, w1, b1, w2, b2)

@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from dgmc_tpu_torch import resolve_device
+from dgmc_tpu_torch import resolve_device, set_exact_float32
 from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
 from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.rel import RelCNN
@@ -32,13 +32,6 @@ __all__ = ['DBP15K', 'dbp15k_model', 'dbp15k_kg', 'main']
 DBP15K = {'feat_dim': 300, 'dim': 256, 'rnd_dim': 32, 'num_layers': 3,
           'num_steps': 10, 'k': 10, 'nodes_s': 15000, 'nodes_t': 20000,
           'edges_s': 100000, 'edges_t': 120000}
-
-
-def set_exact_float32():
-    """Full float32 on the card: no TF32 in matrix products or cuDNN, so
-    shortlists compare against a float32 plain version."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def dbp15k_model(seed=0, num_layers=DBP15K['num_layers']):

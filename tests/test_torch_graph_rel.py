@@ -140,3 +140,12 @@ def test_dgmc_state_dict_conversion_covers_every_parameter():
     np.testing.assert_array_equal(
         tm.psi_1.convs[0].lin1.weight.detach().numpy(),
         np.asarray(params['psi_1']['conv_0']['lin1']['kernel']).T)
+
+
+@pytest.mark.parametrize('key', ['senders', 'receivers'])
+def test_graph_upload_rejects_endpoints_outside_the_graph(key):
+    a = _graph_arrays(3)
+    a[key] = a[key].copy()
+    a[key][1, 5] = 13
+    with pytest.raises(ValueError, match=key):
+        tgraph.GraphBatch.from_numpy(a, 'cpu')

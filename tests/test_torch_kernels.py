@@ -5,9 +5,10 @@ with a GPU and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-Without a CUDA device every test here skips. Tolerance: indices and
-values bit-equal, since every input is integer-valued (each product and
-partial sum is an exact small integer in float32).
+Without a CUDA device every test here skips. Tolerance: bit-equal,
+since every input is integer-valued or dyadic (each product and partial
+sum is exact in float32, and the divisions by the degree are correctly
+rounded on both sides).
 """
 
 import numpy as np
@@ -15,6 +16,12 @@ import pytest
 import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
+                                                  plain_consensus)
+from dgmc_tpu_torch.ops.kernels.spline import (Routing,
+                                               plain_route_aggregate,
+                                               plain_route_d_t, route_d_t,
+                                               route_fwd)
 from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
                                              streaming_topk)
 
@@ -70,3 +77,82 @@ def test_topk_above_k_max_is_a_recorded_plain_dispatch(cuda):
     assert streaming_topk.launches == before
     assert torch.equal(idx[0, 0].cpu(), torch.arange(K_MAX + 1,
                                                      dtype=torch.int32))
+
+
+# (B, N, E, O, masked share): an all-masked batch, M = N * 25 not a
+# multiple of any tile, B = 1, no edges, and the training path's widths.
+SPLINE_CASES = [(2, 11, 40, 16, 1.01), (3, 13, 50, 33, 0.2),
+                (1, 24, 80, 64, 0.2), (2, 6, 0, 8, 0.0),
+                (4, 80, 640, 256, 0.3)]
+
+
+def _spline_case(cuda, B, N, E, O, masked):
+    """Small-integer t, dyadic basis (quarters), and g an integer multiple
+    of each node's degree, so that g / deg is exact: exact sums."""
+    rng = np.random.RandomState(B * 1000 + N + E + O)
+    A, M = 4, N * 25
+    t = torch.from_numpy(rng.randint(-3, 4, (B, M, O)).astype(np.float32))
+    basis = torch.from_numpy(rng.randint(0, 5, (B, E, A)).astype(
+        np.float32) / 4)
+    flat = torch.from_numpy(rng.randint(0, M, (B, E, A)))
+    rcv = torch.from_numpy(rng.randint(0, N, (B, E)))
+    mask = torch.from_numpy(rng.rand(B, E) > masked)
+    deg = torch.zeros(B, N).scatter_add_(1, rcv, mask.float())
+    g = torch.from_numpy(rng.randint(-3, 4, (B, N, O)).astype(
+        np.float32)) * deg.clamp(min=1)[..., None]
+    routing = Routing(flat.to(cuda), rcv.to(cuda), mask.to(cuda), N, M)
+    return t.to(cuda), g.to(cuda), basis.to(cuda), routing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SPLINE_CASES)
+def test_spline_kernels_match_plain(cuda, case):
+    t, g, basis, routing = _spline_case(cuda, *case)
+    before = (route_fwd.launches, route_d_t.launches)
+    out = route_fwd(t, basis, routing)
+    d_t = route_d_t(g, basis, routing)
+    torch.cuda.synchronize()
+    assert (route_fwd.launches, route_d_t.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert dispatch.decisions()['spline_route_fwd']['path'] == 'kernel'
+    assert torch.equal(out, plain_route_aggregate(t, basis, routing))
+    assert torch.equal(d_t, plain_route_d_t(g, basis, routing))
+    assert torch.equal(out, route_fwd(t, basis, routing))
+    assert torch.equal(d_t, route_d_t(g, basis, routing))
+
+
+# (B, N_s, N_t, R): ragged tiles, one pair, the training path's shape and
+# the kernel's R limit.
+CONSENSUS_CASES = [(2, 20, 37, 8), (1, 1, 1, 1), (64, 80, 80, 64),
+                   (2, 33, 65, R_MAX)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', CONSENSUS_CASES)
+def test_consensus_kernel_matches_plain(cuda, case):
+    B, N_s, N_t, R = case
+    rng = np.random.RandomState(N_s + N_t + R)
+
+    def ints(*shape, lo=-2, hi=3):
+        return torch.from_numpy(rng.randint(lo, hi, shape).astype(
+            np.float32)).to(cuda)
+
+    args = (ints(B, N_s, R), ints(B, N_t, R), ints(R, R), ints(R),
+            ints(R, 1), ints(1))
+    before = consensus_fwd.launches
+    out = consensus_fwd(*args)
+    torch.cuda.synchronize()
+    assert consensus_fwd.launches == before + 1
+    assert dispatch.decisions()['consensus_fwd']['path'] == 'kernel'
+    assert torch.equal(out, plain_consensus(*args))
+    assert torch.equal(out, consensus_fwd(*args))
+
+
+@pytest.mark.cuda
+def test_consensus_kernel_rejects_r_above_limit(cuda):
+    R = R_MAX + 1
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        consensus_fwd(z(1, 2, R, device=cuda), z(1, 2, R, device=cuda),
+                      z(R, R, device=cuda), z(R, device=cuda),
+                      z(R, 1, device=cuda), z(1, device=cuda))

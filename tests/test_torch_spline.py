@@ -1,0 +1,186 @@
+"""The port's SplineConv pieces held against the JAX package on the CPU:
+the open B-spline basis, the plain route_aggregate (forward, d_t, d_basis)
+against the Pallas kernel run in interpret mode, and SplineCNN with flax
+weights carried across by dgmc_tpu_torch.convert.
+
+Tolerances: the basis is the same elementwise float32 arithmetic, so it
+must be equal. Routing sums the same float32 products in another order
+(receiver- or row-sorted segment sums against the kernel's one-hot
+matmuls), so forward and gradients agree to atol 1e-5 on O(1) values.
+SplineCNN chains float32 matrix products through two layers; atol 1e-5
+on O(1) activations is a few hundred ulps and fails on any wrong weight,
+layout or mask.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgmc_tpu.models.spline import SplineCNN as JaxSplineCNN
+from dgmc_tpu.ops.graph import GraphBatch as JaxGraphBatch
+from dgmc_tpu.ops.pallas.spline import route_aggregate as jax_route
+from dgmc_tpu.ops.spline import open_spline_basis as jax_basis
+from dgmc_tpu_torch.convert import splinecnn_from_flax
+from dgmc_tpu_torch.models.spline import SplineCNN, SplineConv
+from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels.spline import (Routing,
+                                               plain_route_aggregate,
+                                               plain_route_d_t,
+                                               route_aggregate)
+from dgmc_tpu_torch.ops.spline import open_spline_basis
+
+
+def _problem(B=3, N=24, E=80, C=8, O=16, seed=0, mask_frac=0.2):
+    """The JAX kernel tests' problem (``tests/ops/test_pallas_spline.py``)
+    as numpy arrays: t, flat, basis, receivers, edge_mask."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, N, C).astype(np.float32)
+    senders = rng.randint(0, N, (B, E)).astype(np.int32)
+    receivers = rng.randint(0, N, (B, E)).astype(np.int32)
+    emask = rng.rand(B, E) > mask_frac
+    attr = rng.rand(B, E, 2).astype(np.float32)
+    W = (rng.randn(25, C, O) * 0.1).astype(np.float32)
+    t = (x @ W.transpose(1, 0, 2).reshape(C, 25 * O)).reshape(B, N * 25, O)
+    basis, combo = jax_basis(jnp.asarray(attr), 5, 1)
+    flat = np.asarray(senders[..., None] * 25 + np.asarray(combo))
+    return (t.astype(np.float32), flat, np.array(basis), receivers, emask,
+            N)
+
+
+def _torch_args(t, flat, basis, rcv, em, N):
+    routing = Routing(torch.from_numpy(flat), torch.from_numpy(rcv),
+                      torch.from_numpy(em), N, t.shape[1])
+    return torch.from_numpy(t), torch.from_numpy(basis), routing
+
+
+@pytest.mark.parametrize('shape', [(5, 2), (3, 7, 3), (40, 1)])
+def test_open_spline_basis_equals_jax(shape):
+    rng = np.random.RandomState(len(shape))
+    # Values outside [0, 1] and on the knots exercise the clamps.
+    pseudo = rng.uniform(-0.2, 1.2, shape).astype(np.float32)
+    pseudo.reshape(-1)[:3] = [0.0, 0.25, 1.0]
+    want_b, want_i = jax_basis(jnp.asarray(pseudo), 5, 1)
+    got_b, got_i = open_spline_basis(torch.from_numpy(pseudo), 5, 1)
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+# (seed, N, E, mask_frac): the JAX tests' forward, masked and M-padding
+# cases (tests/ops/test_pallas_spline.py:41-78; 11 * 25 rows is no
+# multiple of the kernel's 256-row M tile).
+CASES = {'forward': (0, 24, 80, 0.2), 'all_masked': (2, 24, 80, 1.01),
+         'm_padding': (3, 11, 40, 0.2)}
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_plain_route_aggregate_matches_jax_kernel(name):
+    seed, N, E, mask_frac = CASES[name]
+    args = _problem(N=N, E=E, seed=seed, mask_frac=mask_frac)
+    t, flat, basis, rcv, em, _ = args
+    want = jax_route(*map(jnp.asarray, (t, flat, basis, rcv, em)), N, True)
+    t_, basis_, routing = _torch_args(*args)
+    got = plain_route_aggregate(t_, basis_, routing)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    if name == 'all_masked':
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_route_gradients_match_jax_kernel(name):
+    """d_t and d_basis of sum(out ** 2): the JAX kernel's custom VJP
+    against the port's explicit plain d_t, autograd through the plain
+    forward, and the port's autograd.Function (plain versions inside on
+    the CPU)."""
+    seed, N, E, mask_frac = CASES[name]
+    args = _problem(N=N, E=E, seed=seed + 1, mask_frac=mask_frac)
+    t, flat, basis, rcv, em, _ = args
+    j = dict(zip(('flat', 'rcv', 'em'), map(jnp.asarray, (flat, rcv, em))))
+
+    def loss(t, basis):
+        out = jax_route(t, j['flat'], basis, j['rcv'], j['em'], N, True)
+        return (out ** 2).sum()
+
+    want_t, want_b = jax.grad(loss, argnums=(0, 1))(jnp.asarray(t),
+                                                    jnp.asarray(basis))
+    want_out = jax_route(*map(jnp.asarray, (t, flat, basis, rcv, em)), N,
+                         True)
+    t_, basis_, routing = _torch_args(*args)
+    g = torch.from_numpy(2 * np.asarray(want_out))
+    np.testing.assert_allclose(plain_route_d_t(g, basis_, routing).numpy(),
+                               np.asarray(want_t), atol=1e-5)
+    for fn in (plain_route_aggregate, route_aggregate):
+        tt = t_.clone().requires_grad_(True)
+        bb = basis_.clone().requires_grad_(True)
+        (fn(tt, bb, routing) ** 2).sum().backward()
+        np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want_t),
+                                   atol=1e-5)
+        np.testing.assert_allclose(bb.grad.numpy(), np.asarray(want_b),
+                                   atol=1e-5)
+
+
+def test_route_aggregate_without_edges_gives_zeros():
+    t = torch.randn(2, 6 * 25, 4)
+    routing = Routing(torch.zeros(2, 0, 4, dtype=torch.int64),
+                      torch.zeros(2, 0, dtype=torch.int64),
+                      torch.zeros(2, 0, dtype=torch.bool), 6, 6 * 25)
+    basis = torch.zeros(2, 0, 4)
+    tt = t.clone().requires_grad_(True)
+    out = route_aggregate(tt, basis, routing)
+    assert out.shape == (2, 6, 4) and (out == 0).all()
+    out.sum().backward()
+    assert (tt.grad == 0).all()
+
+
+def _spline_graph(seed, B=2, N=16, E=48):
+    rng = np.random.RandomState(seed)
+    return {'x': rng.randn(B, N, 3).astype(np.float32),
+            'senders': rng.randint(0, N, (B, E)).astype(np.int32),
+            'receivers': rng.randint(0, N, (B, E)).astype(np.int32),
+            'node_mask': np.ones((B, N), bool),
+            'edge_mask': rng.rand(B, E) > 0.2,
+            'edge_attr': rng.rand(B, E, 2).astype(np.float32)}
+
+
+@pytest.mark.parametrize('cat,lin', [(False, True), (True, True),
+                                     (True, False)])
+def test_splinecnn_forward_matches_jax(cat, lin):
+    a = _spline_graph(4)
+    jm = JaxSplineCNN(3, 8, 2, 2, cat=cat, lin=lin)
+    jg = JaxGraphBatch(**{k: jnp.asarray(v) for k, v in a.items()})
+    params = jm.init(jax.random.key(0), jg.x, jg)['params']
+    want = jm.apply({'params': params}, jg.x, jg)
+    tm = SplineCNN(3, 8, 2, 2, cat=cat, lin=lin)
+    tm.load_state_dict(splinecnn_from_flax(jax.device_get(params)))
+    g = GraphBatch.from_numpy(a, 'cpu')
+    got = tm(g.x, g)
+    assert tm.out_channels == jm.out_channels
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5)
+
+
+def test_splineconv_routes_through_wrapper_and_matches_plain():
+    """SplineConv reaches the routing wrapper (its plain version on the
+    CPU, recorded once) and equals the node GEMM, the plain routing, the
+    root map and the bias composed by hand."""
+    a = _spline_graph(5)
+    g = GraphBatch.from_numpy(a, 'cpu')
+    conv = SplineConv(3, 8, 2)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    dispatch.reset()
+    got = conv(g.x, g)
+    assert dispatch.decisions()['spline_route_fwd'] == {
+        'path': 'plain', 'reason': 'device=cpu',
+        'counts': {'kernel': 0, 'plain': 1}}
+    B, N, _ = g.x.shape
+    basis, combo = open_spline_basis(g.edge_attr, 5, 1)
+    routing = Routing(g.senders[..., None] * 25 + combo, g.receivers,
+                      g.edge_mask, N, N * 25)
+    t = torch.einsum('bnc,kco->bnko', g.x, conv.weight).reshape(B, N * 25,
+                                                                 8)
+    want = (plain_route_aggregate(t, basis, routing) + g.x @ conv.root.weight.T
+            + conv.bias)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               atol=1e-6)
