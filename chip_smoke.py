@@ -30,11 +30,20 @@ Phases (any failure exits non-zero and prints no result line):
   factored version, the same way, at [64, 80, 80], R=64 and a ragged
   case; times the kernel and the plain version (no single PyTorch call
   computes it).
+- ``sparse_consensus_kernel``: the sparse consensus kernels (forward and
+  backward) against their plain versions — bit-equal on exact inputs (a
+  duplicate-heavy shortlist, one row, K=1, R=128, B=2; the backward also
+  against autograd of the unfused plain form), within rtol 1e-5 / atol
+  1e-5 x max|out| on float32 at [1, 15000, 20, 32] and [1, 15000, 10, 32]
+  over 20000 targets; repeats bit-identical. Times both kernels and their
+  plain versions at both shapes (no single PyTorch call computes them).
+  Also shows that the port's gather gradient repeats bit-identically.
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
-  one query. Per query: the dispatch ledger shows the kernel, its launch
-  count rose once, a repeat gives an identical answer. Then the kernel
+  one query. Per query: the dispatch ledger shows the kernels, the top-k
+  launch count rose once and the sparse-consensus forward's once per
+  consensus step (10), a repeat gives an identical answer. Then the kernel
   is held against its plain version on each query's own ψ₁ rows and the
   corpus table, and one small query answered on the CPU plain path must
   agree. A ``torch.profiler`` breakdown of a small and the whole-graph
@@ -48,6 +57,19 @@ Phases (any failure exits non-zero and prints no result line):
   (``GRAD_TOL``, with a float64 CPU reference beyond it); two 2-step
   runs from one seed give bit-identical losses; the median step time,
   pairs/s, peak memory and a profile of one step (informational).
+- ``kg_train``: sparse DGMC trained at the DBP15K width and shapes on the
+  synthetic KG alignment (15000 / 20000 entities, 100000 / 120000 edges)
+  through the CLI's own ``dbp15k.main``: 10 phase-1 epochs (one eval),
+  then 4 phase-2 epochs with their evals. The dispatch ledger shows the
+  kernels; the launch counters (topk / sparse-consensus forward /
+  backward) rise by 1/0/0 per phase-1 step and eval, 1/10/10 per phase-2
+  step and 1/10/0 per phase-2 eval; every loss is finite. Then: the first
+  phase-2 step's loss and gradients against the CPU plain path on the
+  same weights, shortlist, noise and negatives, ψ₁'s dropout off, at the
+  full widths and 1500 / 2000 entities (``GRAD_TOL`` with a float64 CPU
+  reference beyond it); two 2-step phase-2 runs from one seed give
+  bit-identical losses; median step times, peak memory and a profile of
+  one phase-2 step (informational).
 
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
 one JSON line listing every kernel (``ms_source`` says whether its
@@ -61,6 +83,7 @@ import concurrent.futures
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -297,21 +320,25 @@ def timed(calls):
 
 def profile(run, label, top=8):
     """Device time of one call of ``run`` by operator (torch.profiler):
-    the breakdown behind a latency or step time. Informational: a
-    profiler that records no device time prints 'not measured'."""
+    the breakdown behind a latency or step time, the ``top`` rows.
+    Informational: a profiler that records no device time prints 'not
+    measured'. Returns every row, ``(device_us, name, count)``, largest
+    first."""
     rows, wall_ms = _profiled(run)
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         log(f'profile: {label}: device time not measured (the profiler '
             f'recorded none)')
-        return
+        return rows
     rows.sort(reverse=True)
     log(f'profile: {label}: wall {wall_ms:.3f} ms under the profiler, '
         f'device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), '
         f'{sum(r[2] for r in rows)} device ops')
     for dev_us, key, count in rows[:top]:
         log(f'profile: {label}:   {dev_us / 1e3:9.3f} ms '
-            f'{100 * dev_us / 1e3 / busy_ms:5.1f}%  x{count:<5d} {key[:70]}')
+            f'{100 * dev_us / 1e3 / busy_ms:5.1f}%  x{count:<5d} '
+            f'{key[:70]}')
+    return rows
 
 
 def bound(flops, nbytes):
@@ -552,6 +579,396 @@ def phase_consensus_kernel(result):
                   bound_by=b_by, library_ms=None, ms_source=src)
 
 
+def _sc_case(gen, B, N_s, N_t, K, R, dup=0.0, ints=True):
+    """Inputs of the sparse consensus kernels: small integers (exact) or
+    float32 at the model's scales; ``dup`` of the slots point at one
+    target. Returns ``(o_s, o_t, w1, b1, w2, b2)``, the Shortlist and the
+    output gradient g, on the card."""
+    from dgmc_tpu_torch.ops.shortlist import Shortlist
+
+    def draw(*shape, scale=1.0, lo=-2, hi=3):
+        if ints:
+            return torch.randint(lo, hi, shape, generator=gen).float()
+        return scale * torch.randn(*shape, generator=gen)
+    idx = torch.randint(0, N_t, (B, N_s, K), generator=gen)
+    idx[torch.rand(B, N_s, K, generator=gen) < dup] = N_t // 2
+    floats = [draw(B, N_s, R), draw(B, N_t, R), draw(R, R, scale=R ** -0.5),
+              draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
+              draw(1, scale=0.1), draw(B, N_s, K, lo=-1, hi=2)]
+    floats = [a.cuda() for a in floats]
+    return floats[:6], Shortlist(idx.cuda(), N_t), floats[6]
+
+
+def _sc_autograd(args, sl, g):
+    """Gradients of the unfused plain form by autograd."""
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        plain_fused_candidate_delta)
+    ts = [a.clone().requires_grad_() for a in args]
+    out = plain_fused_candidate_delta(ts[0], ts[1], sl, *ts[2:])
+    return torch.autograd.grad((out * g).sum(), ts)
+
+
+SC_GRADS = ('d_o_s', 'd_o_t', 'd_w1', 'd_b1', 'd_w2', 'd_b2')
+
+
+def _sc_work(B, N_s, N_t, K, R):
+    """``((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes))``: the least
+    work of the function in the factored form. Operations: node products
+    2(N_s+N_t)R^2 each (u forward; u again, d_o and d_W1 backward); per
+    candidate 3R forward (difference, product, sum) and 6R backward (the
+    difference, g*w2 where positive, its sums into d_u_s and d_u_t, 2R for
+    d_w2). Bytes: o_s, o_t, the shortlist at 4 bytes a slot (top-k emits
+    int32; the kernels read int64), the weights (and g) read once, delta
+    (or d_o_s, d_o_t and the weight gradients) written once."""
+    nodes = 2.0 * B * (N_s + N_t) * R * R
+    cand = B * N_s * K
+    rows = 4.0 * B * (N_s + N_t) * R
+    weights = 4.0 * (R * R + 2 * R + 1)
+    fwd = (nodes + 3.0 * cand * R, rows + 4.0 * cand + 4.0 * cand + weights)
+    bwd = (3 * nodes + 6.0 * cand * R,
+           2 * rows + 4.0 * cand + 4.0 * cand + 2 * weights)
+    return fwd, bwd
+
+
+def phase_sparse_consensus_kernel(fwd_res, bwd_res):
+    from dgmc_tpu_torch.ops.graph import gather_nodes
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        plain_fused_candidate_delta, plain_sparse_consensus_bwd,
+        plain_sparse_consensus_fwd, sparse_consensus_bwd,
+        sparse_consensus_fwd)
+    gen = torch.Generator().manual_seed(3)
+    exact = {'duplicates': (2, 1000, 300, 20, 32, 0.9),
+             'one_row': (1, 1, 7, 1, 32, 0.0),
+             'k_1': (2, 300, 90, 1, 32, 0.0),
+             'r_max': (2, 200, 150, 10, 128, 0.2),
+             'batch_2': (2, 1500, 2000, 20, 32, 0.0)}
+    for name, case in exact.items():
+        args, sl, g = _sc_case(gen, *case)
+        for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
+            hold_equal(f'sparse consensus fwd {name} vs {plain.__name__}',
+                       lambda: sparse_consensus_fwd(args[0], args[1], sl,
+                                                    *args[2:]),
+                       lambda: plain(args[0], args[1], sl, *args[2:]))
+        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        torch.cuda.synchronize()
+        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        for label, want in (('plain', plain_sparse_consensus_bwd(
+                *args[:2], sl, *args[2:5], g)),
+                ('autograd', _sc_autograd(args, sl, g))):
+            for n, a, b, c in zip(SC_GRADS, got, want, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'sparse consensus bwd {name}: {n} '
+                                         f'differs from the {label} version')
+                if not torch.equal(a, c):
+                    raise AssertionError(f'sparse consensus bwd {name}: {n} '
+                                         f'differs on a repeat')
+        log(f'sparse_consensus_kernel: case {name} B,N_s,N_t,K,R,dup={case}: '
+            f'fwd bit-equal (unfused and factored plain forms), all six '
+            f'gradients bit-equal (plain and autograd), repeats identical')
+
+    err_f = err_b = 0.0
+    for K in (20, 10):
+        B, N_s, N_t, R = 1, 15000, 20000, 32
+        args, sl, g = _sc_case(gen, B, N_s, N_t, K, R, ints=False)
+        out = sparse_consensus_fwd(args[0], args[1], sl, *args[2:])
+        torch.cuda.synchronize()
+        for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
+            err_f = max(err_f, hold_close(
+                f'sparse consensus fwd K={K} vs {plain.__name__}', out,
+                plain(args[0], args[1], sl, *args[2:])))
+        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        auto = _sc_autograd(args, sl, g)
+        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        rel_auto = []
+        for n, a, b, c, d in zip(SC_GRADS, got, want, again, auto):
+            err_b = max(err_b, hold_close(f'sparse consensus {n} K={K}', a,
+                                          b))
+            if not torch.equal(a, c):
+                raise AssertionError(f'sparse consensus {n}: a repeat '
+                                     f'differs')
+            rel_auto.append(float((a - d).abs().max() / d.abs().max()))
+        if not torch.equal(out, sparse_consensus_fwd(args[0], args[1], sl,
+                                                     *args[2:])):
+            raise AssertionError('sparse consensus fwd: a repeat differs')
+        log(f'sparse_consensus_kernel: float32 [1, {N_s}, {K}, {R}] over '
+            f'{N_t} targets: fwd and gradients within tolerance (max |err| '
+            f'fwd {err_f:.3g}, bwd {err_b:.3g}), repeats bit-identical; '
+            f'|kernel - autograd of the unfused form| / max per gradient '
+            + ', '.join(f'{n} {v:.2g}' for n, v in zip(SC_GRADS, rel_auto)))
+        (ff, fb), (bf, bb) = _sc_work(B, N_s, N_t, K, R)
+        (f_ms, f_by), (b_ms, b_by) = bound(ff, fb), bound(bf, bb)
+        got_t, src = timed({
+            'fwd': lambda: sparse_consensus_fwd(args[0], args[1], sl,
+                                                *args[2:]),
+            'fwd plain': lambda: plain_fused_candidate_delta(
+                args[0], args[1], sl, *args[2:]),
+            'fwd plain factored': lambda: plain_sparse_consensus_fwd(
+                args[0], args[1], sl, *args[2:]),
+            'bwd': lambda: sparse_consensus_bwd(*args[:2], sl, *args[2:5],
+                                                g),
+            'bwd plain': lambda: plain_sparse_consensus_bwd(
+                *args[:2], sl, *args[2:5], g)})
+        log(f'sparse_consensus_kernel: K={K}: bound fwd {f_ms:.4f} ms '
+            f'({f_by}; {ff / 1e9:.3f} GFLOP factored, {fb / 1e6:.2f} MB), '
+            f'bwd {b_ms:.4f} ms ({b_by}; {bf / 1e9:.3f} GFLOP, '
+            f'{bb / 1e6:.2f} MB); ms per call [{src}] / per-call wall ms '
+            f'(CUDA events, median of 10): '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got_t.items()))
+        if K == 20:   # the JSON line carries the training shape
+            fwd_res.update(ms=got_t['fwd'][0], plain_ms=got_t['fwd plain'][0],
+                           bound_ms=f_ms, bound_by=f_by, ms_source=src)
+            bwd_res.update(ms=got_t['bwd'][0], plain_ms=got_t['bwd plain'][0],
+                           bound_ms=b_ms, bound_by=b_by, ms_source=src)
+    fwd_res.update(name='sparse_consensus_fwd', route='cuda',
+                   source='dgmc_tpu_torch/csrc/sparse_consensus.cu',
+                   replaces='dgmc_tpu/ops/pallas/sparse_consensus.py:62',
+                   max_abs_err=err_f, library_ms=None)
+    bwd_res.update(name='sparse_consensus_bwd', route='cuda',
+                   source='dgmc_tpu_torch/csrc/sparse_consensus.cu',
+                   replaces='dgmc_tpu/ops/pallas/sparse_consensus.py:77',
+                   max_abs_err=err_b, library_ms=None)
+
+    # The gather-gradient repair: a duplicate-heavy gather, its gradient
+    # twice through the port's sorted segment sum and through
+    # torch.gather's own backward (float atomics), informational.
+    x = torch.randn(1, 2000, 32, generator=gen).cuda().requires_grad_()
+    idx = torch.randint(0, 50, (1, 300000), generator=gen).cuda()
+    cot = torch.randn(1, 300000, 32, generator=gen).cuda()
+
+    def grad_of(fn):
+        x.grad = None
+        fn().backward(cot)
+        return x.grad.clone()
+
+    ours = [grad_of(lambda: gather_nodes(x, idx)) for _ in range(3)]
+    if not all(torch.equal(ours[0], o) for o in ours[1:]):
+        raise AssertionError('gather_nodes: its gradient differs on repeats')
+    native = [grad_of(lambda: torch.gather(
+        x, 1, idx[..., None].expand(-1, -1, 32))) for _ in range(3)]
+    diff = [int((native[0] != n).sum()) for n in native[1:]]
+    log(f'sparse_consensus_kernel: gather gradient over 300000 rows into 50 '
+        f'of 2000 nodes: gather_nodes bit-identical on 3 repeats; '
+        f'torch.gather\'s own backward differed from its first run in '
+        f'{diff} of {native[0].numel()} entries')
+
+
+#: Launches per step of the KG training path: (topk, sparse-consensus
+#: forward, backward). One search per forward; 10 consensus steps.
+KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd')
+KG_PER = {('train', 1): (1, 0, 0), ('eval', 1): (1, 0, 0),
+          ('train', 2): (1, 10, 10), ('eval', 2): (1, 10, 0)}
+KG_ARGV = ['--synthetic', '--seed', '0']
+#: The CPU comparison's reduced node and edge counts (widths unchanged).
+KG_SMALL = ['--syn_nodes_s', '1500', '--syn_nodes_t', '2000',
+            '--syn_edges_s', '10000', '--syn_edges_t', '12000']
+
+
+def _kg_loss_and_grads(model, batch, S_idx, r_s, neg, device, dtype):
+    """Loss and gradients of one phase-2 training forward (10 steps, ψ₁
+    detached) with the shortlist, noise and negatives given."""
+    from dgmc_tpu_torch.models import metrics
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    model = model.to(device=device, dtype=dtype).train()
+    g_s, g_t, y, y_mask = batch_to_device(batch, device)
+    g_s.x, g_t.x = g_s.x.to(dtype), g_t.x.to(dtype)
+    _, S_L = model(g_s, g_t, y=y, y_mask=y_mask, S_idx=S_idx.to(device),
+                   num_steps=10, detach=True, r_s=r_s.to(device, dtype),
+                   negatives=neg.to(device))
+    loss = metrics.nll_loss(S_L, y, y_mask)
+    loss.backward()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().to('cpu', torch.float64)
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def _hold_grads(label, out):
+    """The first step's loss (within 1e-4 relative) and gradients of
+    ``out['cuda']`` against ``out['cpu']``: each within GRAD_TOL of the
+    tensor's largest entry or else, held against ``out['cpu float64']``,
+    no farther from it than min(2 x the CPU float32 error, GRAD_F64_CAP).
+    At random init ψ₂'s gradients are small sums of large terms that
+    cancel, so float32 rounding alone moves them by up to a few 1e-3 of
+    their largest entry on either device; float64 says which side the
+    rounding is on."""
+    rel = abs(out['cuda'][0] - out['cpu'][0]) / abs(out['cpu'][0])
+    if rel > 1e-4:
+        raise AssertionError(f'{label}: CPU and CUDA losses differ: {rel}')
+    worst, by_f64 = 0.0, []
+    for name, ref in out['cpu float64'][1].items():
+        got, want = out['cuda'][1][name], out['cpu'][1][name]
+        if name in ZERO_GRAD:
+            if max(float(got.abs().max()), float(want.abs().max())) > 1e-5:
+                raise AssertionError(f'{name}: gradient not ~0')
+            continue
+        scale = float(ref.abs().max())
+        diff = float((got - want).abs().max()) / scale
+        worst = max(worst, diff)
+        if diff <= GRAD_TOL:
+            continue
+        e_cuda = float((got - ref).abs().max()) / scale
+        e_cpu = float((want - ref).abs().max()) / scale
+        by_f64.append(f'{name} (|cuda-cpu| {diff:.3g}, |cuda-f64| '
+                      f'{e_cuda:.3g}, |cpu-f64| {e_cpu:.3g})')
+        if e_cuda > min(2 * e_cpu, GRAD_F64_CAP):
+            raise AssertionError(f'{label} {name}: CUDA gradient off by '
+                                 f'{e_cuda:.3g} of max against float64, the '
+                                 f'CPU by {e_cpu:.3g}')
+    if set(out['cuda'][1]) != set(out['cpu'][1]):
+        raise AssertionError(f'{label}: CPU and CUDA differ in which '
+                             f'parameters have gradients')
+    log(f'{label}: CUDA agrees with the CPU plain path: loss rel {rel:.3g}; '
+        f'{len(out["cuda"][1])} gradients within {GRAD_TOL:g} x max|grad| '
+        f'per tensor (worst {worst:.3g}) except, held against float64: '
+        f'{by_f64 or "none"}')
+
+
+def phase_kg_train(results):
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+
+    marks, losses = [], []
+
+    def hook(kind, epoch, out):
+        torch.cuda.synchronize()
+        marks.append((kind, epoch, time.perf_counter(),
+                      dispatch.launch_counts()))
+        if kind == 'train':
+            losses.append(float(out['loss']))
+
+    P1, EPOCHS = 10, 14
+    argv = KG_ARGV + ['--epochs', str(EPOCHS), '--phase1_epochs', str(P1)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # The main path: counters at 0 just before, read just after.
+    dispatch.reset()
+    marks.append(('start', 0, t0, dispatch.launch_counts()))
+    dbp15k.main(argv, hook=hook)
+    counts = dispatch.launch_counts()
+    decisions = dispatch.decisions()
+    peak = torch.cuda.max_memory_allocated()
+    want_kinds = ([('train', e) for e in range(1, P1 + 1)] + [('eval', P1)]
+                  + [(k, e) for e in range(P1 + 1, EPOCHS + 1)
+                     for k in ('train', 'eval')])
+    if [m[:2] for m in marks[1:]] != want_kinds:
+        raise AssertionError(f'unexpected step sequence '
+                             f'{[m[:2] for m in marks[1:]]}')
+    for prev, cur in zip(marks, marks[1:]):
+        want = KG_PER[(cur[0], 1 if cur[1] <= P1 else 2)]
+        got = tuple(cur[3][k] - prev[3][k] for k in KG_KERNELS)
+        if got != want:
+            raise AssertionError(f'{cur[0]} at epoch {cur[1]}: launches '
+                                 f'{got}, expected {want}')
+    for name in KG_KERNELS:
+        d = decisions[name]
+        if d['path'] != 'kernel' or d['counts']['plain']:
+            raise AssertionError(f'{name}: dispatch {d}')
+    for name in KG_KERNELS[1:]:
+        results[name]['launches'] = counts[name]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'non-finite train loss: {losses}')
+    step_ms = {1: [], 2: []}
+    for prev, cur in zip(marks, marks[1:]):
+        if cur[0] == 'train':
+            step_ms[1 if cur[1] <= P1 else 2].append(1e3 * (cur[2] - prev[2]))
+    p1, p2 = step_ms[1][2:], step_ms[2][1:]
+    log(f'kg_train: {EPOCHS} epochs ({P1} phase 1) through dbp15k.main in '
+        f'{time.perf_counter() - t0:.1f}s; launches '
+        f'{[counts[k] for k in KG_KERNELS]} (per step: phase 1 1/0/0, phase '
+        f'2 1/10/10, phase-2 eval 1/10/0); dispatch kernel for all three; '
+        f'losses {losses[0]:.4f} -> {losses[P1 - 1]:.4f} (phase 1), '
+        f'{losses[P1]:.4f} -> {losses[-1]:.4f} (phase 2)')
+    log(f'kg_train: step ms (host clock, synchronized): phase 1 median '
+        f'{statistics.median(p1):.3f} (min {min(p1):.3f}, max {max(p1):.3f}'
+        f', steps 3-{P1}), phase 2 median {statistics.median(p2):.3f} '
+        f'(min {min(p2):.3f}, max {max(p2):.3f}, steps {P1 + 2}-{EPOCHS}); '
+        f'max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)')
+
+    # The first phase-2 step against the CPU plain path at 1500 / 2000
+    # entities: same weights (ψ₁'s dropout off), shortlist, noise and
+    # negatives.
+    args = dbp15k.parse_args(KG_ARGV + KG_SMALL)
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim)
+    model.psi_1.dropout = 0.0
+    dev_b = batch_to_device(train_b, 'cuda')
+    cpu_b = batch_to_device(train_b, 'cpu')
+    probe = copy.deepcopy(model).cuda().eval()
+    with torch.no_grad():
+        h = [probe.psi_1(g.x, g) for g in dev_b[:2]]
+        S_idx = chunked_topk(h[0], h[1], args.k).cpu()
+        hc = [model.eval().psi_1(g.x, g) for g in cpu_b[:2]]
+        diff_rows = int((chunked_topk(hc[0], hc[1], args.k).long()
+                         != S_idx.long()).any(-1).sum())
+    N_s, N_t = args.syn_nodes_s, args.syn_nodes_t
+    r_s = draw_noise(args.num_steps, 1, N_s, args.rnd_dim, seed=11)
+    neg = draw_negatives(torch.tensor([N_t]), N_s, min(args.k, N_t - args.k),
+                         seed=11)
+    out = {}
+    for label, dev, dtype in (('cuda', 'cuda', torch.float32),
+                              ('cpu', 'cpu', torch.float32),
+                              ('cpu float64', 'cpu', torch.float64)):
+        t0 = time.perf_counter()
+        out[label] = _kg_loss_and_grads(copy.deepcopy(model), train_b,
+                                        S_idx, r_s, neg, dev, dtype)
+        log(f'kg_train: first phase-2 step at {N_s}/{N_t} entities on '
+            f'{label}: loss {out[label][0]:.8f} in '
+            f'{time.perf_counter() - t0:.2f}s')
+    log(f'kg_train: the CPU plain top-k differs from the kernel\'s '
+        f'shortlist in {diff_rows} of {N_s} rows (near ties; both runs '
+        f'take the kernel\'s)')
+    _hold_grads('kg_train', out)
+
+    def two_steps():
+        got = []
+        dbp15k.main(KG_ARGV + ['--epochs', '2', '--phase1_epochs', '0'],
+                    hook=lambda k, e, o: got.append(o['loss'].item())
+                    if k == 'train' else None)
+        return got
+
+    run_a, run_b = two_steps(), two_steps()
+    if run_a != run_b:
+        raise AssertionError(f'two 2-step runs differ: {run_a} vs {run_b}')
+    log(f'kg_train: two 2-step phase-2 runs from one seed give bit-identical '
+        f'losses {run_a}')
+
+    # Informational: host work and a profile of one phase-2 step.
+    args = dbp15k.parse_args(KG_ARGV)
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim).cuda()
+    state = create_train_state(model, learning_rate=args.lr)
+    step = make_train_step(model, num_steps=args.num_steps, detach=True)
+    dev_b = batch_to_device(train_b, 'cuda')
+    step(state, dev_b, 1)
+    t0 = time.perf_counter()
+    draw_noise(args.num_steps, 1, args.syn_nodes_s, args.rnd_dim, seed=1,
+               device='cuda')
+    draw_negatives(torch.tensor([args.syn_nodes_t], device='cuda'),
+                   args.syn_nodes_s, args.k, seed=1)
+    torch.cuda.synchronize()
+    log(f'kg_train: host work per phase-2 step: drawing and copying the '
+        f'indicator noise and the negatives '
+        f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
+    try:
+        rows = profile(lambda: step(state, dev_b, 12345), 'one phase-2 step',
+                       top=14)
+        mine = [(m.group(1), dev_us, count) for dev_us, key, count in rows
+                if (m := re.search(r'::(sc_\w+|topk_tiles)\b', key))]
+        log('profile: one phase-2 step: the port\'s kernels: ' + ', '.join(
+            f'{name} {dev_us / 1e3:.3f} ms x{count}'
+            for name, dev_us, count in mine))
+    except Exception as e:   # the breakdown is informational only
+        log(f'profile: one phase-2 step: not measured ({e!r})')
+
+
+
 def phase_serve(result):
     from dgmc_tpu_torch.ops.graph import GraphBatch
     from dgmc_tpu_torch.ops.kernels import dispatch
@@ -585,18 +1002,20 @@ def phase_serve(result):
     queries.append((whole, kg.perm))
 
     # The main path: counters at 0 just before, read just after.
+    steps = engine.model.num_steps
     dispatch.reset()
     answers, answered = [], 0
     for qi, (graph, gt) in enumerate(queries):
-        before = dispatch.launch_counts()['topk']
+        before = dispatch.launch_counts()
         ans = engine.match(graph)
         answered += 1
         latency_ms = engine.last_latency_s * 1e3
-        d = dispatch.decisions()['topk']
-        launches = dispatch.launch_counts()['topk']
-        if d['path'] != 'kernel' or launches != before + 1:
-            raise AssertionError(f'query {qi}: topk {d} with launches '
-                                 f'{before} -> {launches}')
+        after = dispatch.launch_counts()
+        for name, per in (('topk', 1), ('sparse_consensus_fwd', steps)):
+            d = dispatch.decisions()[name]
+            if d['path'] != 'kernel' or after[name] != before[name] + per:
+                raise AssertionError(f'query {qi}: {name} {d} with launches '
+                                     f'{before[name]} -> {after[name]}')
         again = engine.match(graph)
         answered += 1
         if again != ans:
@@ -612,14 +1031,17 @@ def phase_serve(result):
             f'{hits1:.4f} (S_0 {hits1_s0:.4f})')
         answers.append(ans)
     launches = dispatch.launch_counts()['topk']
+    sc_launches = dispatch.launch_counts()['sparse_consensus_fwd']
     peak = torch.cuda.max_memory_allocated()
-    if launches != answered:
-        raise AssertionError(f'topk launched {launches} times for '
+    if launches != answered or sc_launches != steps * answered:
+        raise AssertionError(f'topk launched {launches} times and the '
+                             f'sparse-consensus forward {sc_launches} for '
                              f'{answered} queries answered')
     log(f'serve: {answered} queries answered, topk kernel launches '
-        f'{launches}; whole-graph hits@1 {hits1:.4f} (S_0 {hits1_s0:.4f}, '
-        f'random weights); max_memory_allocated {peak} bytes '
-        f'({peak / 2**30:.3f} GiB)')
+        f'{launches}, sparse-consensus forward launches {sc_launches} '
+        f'({steps} per query); whole-graph hits@1 {hits1:.4f} (S_0 '
+        f'{hits1_s0:.4f}, random weights); max_memory_allocated {peak} '
+        f'bytes ({peak / 2**30:.3f} GiB)')
     result['launches'] = launches
 
     # The kernel against its plain version on the inputs the main path
@@ -756,10 +1178,7 @@ def phase_train(results):
         f'max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)')
 
     # The first step against the CPU plain path: same weights, batch and
-    # noise. At random init ψ₂'s gradients are small sums of large terms
-    # that cancel, so float32 rounding alone moves them by up to a few
-    # 1e-3 of their largest entry on either device; the CPU plain path in
-    # float64 says which side the rounding is on.
+    # noise (see _hold_grads).
     args = _train_args()
     model, loader, _ = pascal_pf.build(args)
     loader.dataset.set_epoch(1)
@@ -775,37 +1194,7 @@ def phase_train(results):
                                      dtype)
         log(f'train: first step forward+backward on {label}: loss '
             f'{out[label][0]:.8f} in {time.perf_counter() - t0:.2f}s')
-    rel = abs(out['cuda'][0] - out['cpu'][0]) / abs(out['cpu'][0])
-    if rel > 1e-4:
-        raise AssertionError(f'CPU and CUDA losses differ: rel {rel}')
-    worst, by_f64 = 0.0, []
-    for name, ref in out['cpu float64'][1].items():
-        got, want = out['cuda'][1][name], out['cpu'][1][name]
-        if name in ZERO_GRAD:
-            if max(float(got.abs().max()), float(want.abs().max())) > 1e-5:
-                raise AssertionError(f'{name}: gradient not ~0')
-            continue
-        scale = float(ref.abs().max())
-        diff = float((got - want).abs().max()) / scale
-        worst = max(worst, diff)
-        if diff <= GRAD_TOL:
-            continue
-        # Beyond GRAD_TOL: CUDA must be as close to float64 as the CPU is,
-        # and within GRAD_F64_CAP of it in any case.
-        e_cuda = float((got - ref).abs().max()) / scale
-        e_cpu = float((want - ref).abs().max()) / scale
-        by_f64.append(f'{name} (|cuda-cpu| {diff:.3g}, |cuda-f64| '
-                      f'{e_cuda:.3g}, |cpu-f64| {e_cpu:.3g})')
-        if e_cuda > min(2 * e_cpu, GRAD_F64_CAP):
-            raise AssertionError(f'{name}: CUDA gradient off by {e_cuda:.3g}'
-                                 f' of max against float64 (limit '
-                                 f'{GRAD_F64_CAP:g}), the CPU by '
-                                 f'{e_cpu:.3g}')
-    log(f'train: CUDA agrees with the CPU plain path: loss rel {rel:.3g}; '
-        f'gradients within {GRAD_TOL:g} x max|grad| per tensor (worst '
-        f'{worst:.3g}) except, held against float64 instead (within '
-        f'min(2 x the CPU float32 error, {GRAD_F64_CAP:g}) x max|grad|): '
-        f'{by_f64 or "none"}')
+    _hold_grads('train', out)
 
     def two_steps():
         model, loader, _ = pascal_pf.build(args)
@@ -861,7 +1250,7 @@ def main():
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
 
-    res = {k: {} for k in ('topk', *TRAIN_KERNELS)}
+    res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:])}
     failed = []
     for name, fn in (
             ('build', phase_build),
@@ -870,8 +1259,11 @@ def main():
                 res['spline_route_fwd'], res['spline_route_bwd'])),
             ('consensus_kernel', lambda: phase_consensus_kernel(
                 res['consensus_fwd'])),
+            ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
+                res['sparse_consensus_fwd'], res['sparse_consensus_bwd'])),
             ('serve', lambda: phase_serve(res['topk'])),
-            ('train', lambda: phase_train(res))):
+            ('train', lambda: phase_train(res)),
+            ('kg_train', lambda: phase_kg_train(res))):
         t0 = time.perf_counter()
         try:
             fn()

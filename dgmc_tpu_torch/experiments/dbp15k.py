@@ -1,0 +1,184 @@
+"""DBP15K cross-lingual entity alignment: train sparse DGMC.
+
+``python -m dgmc_tpu_torch.experiments.dbp15k --synthetic [--device cpu]``
+
+RelCNN ψ₁ (300 → ``--dim``, ``--num_layers`` layers, concat, final
+linear, dropout 0.5) and ψ₂ (``--rnd_dim`` → ``--rnd_dim``, no dropout),
+sparse DGMC with the top ``--k`` candidates per entity, in training
+extended by ``min(k, N_t - k)`` random negatives and the injected ground
+truth. The two-phase schedule: epochs ``1..--phase1_epochs`` train
+feature matching alone (``num_steps=0``), the rest refine with
+``--num_steps`` consensus steps and ψ₁ detached (its dropout still
+active). Each epoch is one Adam step on loss(S_L) over the whole pair
+(``--pairs-per-step`` replicas, each drawing its own noise and
+negatives). The test alignments are evaluated with Hits@1 and Hits@10 at
+every 10th phase-1 epoch and every phase-2 epoch, one line each. The
+defaults are the JAX CLI's (``dgmc_tpu/experiments/dbp15k.py``) at
+float32.
+
+``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
+offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
+default). The real DBP15K data needs the dataset's parser, which is not
+ported: without ``--synthetic`` the CLI exits with a notice.
+"""
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from dgmc_tpu_torch import resolve_device, set_exact_float32
+from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
+from dgmc_tpu_torch.models.dgmc import DGMC
+from dgmc_tpu_torch.models.rel import RelCNN
+from dgmc_tpu_torch.train.state import create_train_state
+from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
+                                        make_train_step)
+from dgmc_tpu_torch.utils.data import Graph, GraphPair, pad_pair_batch
+
+__all__ = ['parse_args', 'synthetic_batches', 'build', 'noise_seed', 'main']
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog='python -m dgmc_tpu_torch.experiments.dbp15k',
+        description=__doc__.split('\n\n')[0])
+    p.add_argument('--synthetic', action='store_true',
+                   help='train on the synthetic KG alignment (the real '
+                        'DBP15K parser is not ported)')
+    p.add_argument('--syn_nodes_s', type=int, default=15000)
+    p.add_argument('--syn_nodes_t', type=int, default=20000)
+    p.add_argument('--syn_edges_s', type=int, default=100000)
+    p.add_argument('--syn_edges_t', type=int, default=120000)
+    p.add_argument('--syn_dim', type=int, default=300)
+    p.add_argument('--syn_noise', type=float, default=2.5,
+                   help='max feature-noise sigma on aligned entities')
+    p.add_argument('--syn_noise_min', type=float, default=0.5,
+                   help='min feature-noise sigma (each aligned entity draws '
+                        'its own in [min, max])')
+    p.add_argument('--syn_rewire', type=float, default=0.15,
+                   help='fraction of source edges rewired on the target side')
+    p.add_argument('--syn_seed_frac', type=float, default=0.3,
+                   help='seed-alignment (training) fraction')
+    p.add_argument('--pairs-per-step', '--pairs_per_step',
+                   dest='pairs_per_step', type=int, default=1, metavar='N',
+                   help='batch N replicas of the training pair per step, '
+                        'each drawing its own noise and negatives')
+    p.add_argument('--dim', type=int, default=256)
+    p.add_argument('--rnd_dim', type=int, default=32)
+    p.add_argument('--num_layers', type=int, default=3)
+    p.add_argument('--num_steps', type=int, default=10)
+    p.add_argument('--k', type=int, default=10)
+    p.add_argument('--lr', type=float, default=0.001)
+    p.add_argument('--epochs', type=int, default=200)
+    p.add_argument('--phase1_epochs', type=int, default=100)
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--device', default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        'PyTorch path)')
+    p.add_argument('--precision', choices=['f32'], default='f32',
+                   help='compute precision: float32 only (the kernels take '
+                        'float32; the bf16 policy is not ported yet)')
+    return p.parse_args(argv)
+
+
+def synthetic_batches(args):
+    """``(train_batch, test_batch, in_dim)``: the synthetic alignment as
+    host :class:`~dgmc_tpu_torch.utils.data.PairBatch` es, the seed
+    alignments as the train ground truth (``--pairs-per-step`` replicas)
+    and the rest as the test ground truth (one pair). Same arrays as the
+    JAX CLI's for the same flags."""
+    kg = synthetic_kg_alignment(
+        args.syn_nodes_s, args.syn_nodes_t, args.syn_edges_s,
+        args.syn_edges_t, args.syn_dim, noise_min=args.syn_noise_min,
+        noise_max=args.syn_noise, rewire=args.syn_rewire,
+        seed_frac=args.syn_seed_frac, rng=np.random.RandomState(args.seed))
+    g_s = Graph(edge_index=np.stack([kg.senders_s, kg.receivers_s]),
+                x=kg.x_s)
+    g_t = Graph(edge_index=np.stack([kg.senders_t, kg.receivers_t]),
+                x=kg.x_t)
+    sizes = (args.syn_nodes_s, args.syn_edges_s, args.syn_nodes_t,
+             args.syn_edges_t)
+
+    def batch(mask, reps=1):
+        y = np.where(mask, kg.perm, -1).astype(np.int64)
+        return pad_pair_batch([GraphPair(s=g_s, t=g_t, y_col=y)], *sizes,
+                              pairs_per_step=reps)
+
+    return (batch(kg.train_mask, max(1, args.pairs_per_step)),
+            batch(~kg.train_mask), args.syn_dim)
+
+
+def build(args, in_dim):
+    """The model on the CPU, flax-default weights drawn from a generator
+    seeded with ``args.seed``."""
+    psi_1 = RelCNN(in_dim, args.dim, args.num_layers, batch_norm=False,
+                   cat=True, lin=True, dropout=0.5)
+    psi_2 = RelCNN(args.rnd_dim, args.rnd_dim, args.num_layers,
+                   batch_norm=False, cat=True, lin=True, dropout=0.0)
+    return DGMC(psi_1, psi_2, num_steps=args.num_steps, k=args.k,
+                generator=torch.Generator().manual_seed(args.seed))
+
+
+def noise_seed(seed, split, epoch):
+    """The random seed of one step: disjoint for the train (``split`` 0)
+    and eval (1) streams and every epoch."""
+    return (seed * 2 + split) * 1_000_033 + epoch
+
+
+def main(argv=None, hook=None):
+    """Train as the module docstring says; returns the train state.
+    ``hook(kind, epoch, out)``, if given, is called after every train
+    step (``kind='train'``) and evaluation (``'eval'``) with its
+    metrics."""
+    args = parse_args(argv)
+    if not args.synthetic:
+        print('[dbp15k] the DBP15K dataset parser is not ported yet; run '
+              'with --synthetic to train on the synthetic KG alignment',
+              file=sys.stderr)
+        raise SystemExit(2)
+    device = resolve_device(args.device)
+    set_exact_float32()
+    train_batch, test_batch, in_dim = synthetic_batches(args)
+    model = build(args, in_dim).to(device)
+    state = create_train_state(model, learning_rate=args.lr)
+    # Phase 1: feature matching only. Phase 2: refinement with ψ₁'s
+    # gradients cut (detach), its dropout still active.
+    phase1 = make_train_step(model, num_steps=0)
+    phase2 = make_train_step(model, num_steps=args.num_steps, detach=True)
+    eval1 = make_eval_step(model, hits_ks=(10,), num_steps=0)
+    eval2 = make_eval_step(model, hits_ks=(10,), num_steps=args.num_steps)
+    # One pair throughout: upload it once (its graphs keep their sorted
+    # edge orders across steps).
+    train_dev = batch_to_device(train_batch, device)
+    test_dev = batch_to_device(test_batch, device)
+
+    print('Optimize initial feature matching...', flush=True)
+    last_print, t_span = 0, time.time()
+    for epoch in range(1, args.epochs + 1):
+        refine = epoch > args.phase1_epochs
+        if epoch == args.phase1_epochs + 1:
+            print('Refine correspondence matrix...', flush=True)
+        step = phase2 if refine else phase1
+        state, out = step(state, train_dev, noise_seed(args.seed, 0, epoch))
+        if hook is not None:
+            hook('train', epoch, out)
+        if epoch % 10 == 0 or refine:
+            ev = (eval2 if refine else eval1)(
+                test_dev, noise_seed(args.seed, 1, epoch))
+            if hook is not None:
+                hook('eval', epoch, ev)
+            count = max(float(ev['count']), 1.0)
+            per_epoch = (time.time() - t_span) / (epoch - last_print)
+            last_print, t_span = epoch, time.time()
+            print(f'{epoch:03d}: Loss: {float(out["loss"]):.4f}, '
+                  f'Hits@1: {float(ev["correct"]) / count:.4f}, '
+                  f'Hits@10: {float(ev["hits@10"]) / count:.4f} '
+                  f'({per_epoch:.2f}s/epoch)', flush=True)
+    return state
+
+
+if __name__ == '__main__':
+    main()

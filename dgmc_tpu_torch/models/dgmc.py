@@ -13,16 +13,26 @@ Ported here:
   and ψ₂ on both sides, and the consensus delta through
   :func:`~dgmc_tpu_torch.ops.kernels.consensus.consensus_update` (its
   CUDA kernel on the card) or the factored plain form;
-- the sparse (``k >= 1``) inference branch with the serving arguments
-  (``h_t``, ``S_idx``, ``h_t_cand``), the channel-packed source side of
-  ψ₂ and the arithmetic candidate mask. The sparse training branch
-  (negatives and ground-truth injection) is later work.
+- the sparse variant (``k >= 1``), trained and evaluated: the top-k
+  shortlist (its CUDA kernel on the card), in training extended by
+  ``min(k, N_t - k)`` random negatives per row and the injected ground
+  truth (:func:`include_gt`), the channel-packed source side of ψ₂, and
+  the consensus delta through
+  :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
+  fused_candidate_delta` (its CUDA kernels, forward and backward, on the
+  card); plus the serving arguments ``h_t``, ``S_idx`` and ``h_t_cand``.
+  The shortlist's receiver order is built once per forward
+  (:class:`~dgmc_tpu_torch.ops.shortlist.Shortlist`) and serves every
+  reduction onto the targets.
 
-Indicator noise: torch cannot reproduce JAX's threefry streams, so pair
-``b`` draws its noise from a CPU ``torch.Generator`` seeded from
-``(noise_seed, pair_offset + b)`` — the same numbers on every device, so
-the CPU and CUDA paths of one call see the same noise. Tests inject
-JAX's own draws through ``r_s``.
+Random streams: torch cannot reproduce JAX's threefry streams, so pair
+``b`` draws its indicator noise and its negatives from CPU
+``torch.Generator`` s seeded from ``(seed, pair_offset + b)``, one stream
+each — the same numbers on every device, so the CPU and CUDA paths of
+one call see the same draws, and a batch of pairs draws what the same
+pairs would draw one at a time. Tests inject JAX's own draws through
+``r_s`` and ``negatives``. Dropout masks come from the ``generator``
+passed to the forward, on the model's device.
 """
 
 import dataclasses
@@ -32,14 +42,16 @@ import torch
 from torch import nn
 
 from dgmc_tpu_torch.models.rel import lecun_normal_
-from dgmc_tpu_torch.ops.graph import scatter_to_nodes
 from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels import sparse_consensus
 from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_update,
                                                   plain_consensus)
+from dgmc_tpu_torch.ops.shortlist import Shortlist
 from dgmc_tpu_torch.ops.softmax import masked_softmax
 from dgmc_tpu_torch.ops.topk import chunked_topk
 
-__all__ = ['Correspondence', 'DGMC', 'draw_noise']
+__all__ = ['Correspondence', 'DGMC', 'draw_noise', 'draw_negatives',
+           'include_gt']
 
 
 @dataclasses.dataclass
@@ -57,12 +69,25 @@ class Correspondence:
         return self.idx is not None
 
     def to_dense(self):
-        """Scatter a sparse correspondence back to ``[B, N_s, N_t]``."""
+        """Scatter a sparse correspondence back to ``[B, N_s, N_t]``;
+        candidates that repeat a target column add up, as in the JAX
+        package. Each slot first takes the sum over the equal slots of
+        its row (a ``K x K`` compare), so the scatter writes one value per
+        column whichever duplicate lands last."""
         if not self.is_sparse:
             return self.val
         B, N_s, _ = self.val.shape
+        same = self.idx[..., :, None] == self.idx[..., None, :]
+        summed = (same * self.val[..., None, :]).sum(-1)
         out = self.val.new_zeros((B, N_s, self.tgt_mask.shape[1]))
-        return out.scatter(-1, self.idx, self.val)
+        return out.scatter(-1, self.idx.long(), summed)
+
+
+def _pair_generator(seed, index, stream=0):
+    """The CPU generator of pair ``index`` in random stream ``stream``
+    (0: indicator noise, 1: negatives)."""
+    return torch.Generator().manual_seed(
+        int(seed) * 1_000_003 + int(index) + (int(stream) << 40))
 
 
 def draw_noise(num_steps, B, N_s, R, seed=0, pair_offset=0, device='cpu'):
@@ -71,26 +96,50 @@ def draw_noise(num_steps, B, N_s, R, seed=0, pair_offset=0, device='cpu'):
     ``device``."""
     out = torch.empty((num_steps, B, N_s, R), dtype=torch.float32)
     for b in range(B):
-        g = torch.Generator().manual_seed(
-            int(seed) * 1_000_003 + int(pair_offset) + b)
+        g = _pair_generator(seed, pair_offset + b)
         out[:, b] = torch.randn((num_steps, N_s, R), generator=g)
     return out.to(device)
 
 
-def _gather_t(feat, idx):
-    """``feat [B, N_t, C]``, ``idx [B, N_s, K]`` → ``[B, N_s, K, C]``."""
-    B, N_s, K = idx.shape
-    C = feat.shape[-1]
-    flat = torch.gather(feat, 1, idx.reshape(B, N_s * K, 1).expand(-1, -1,
-                                                                   C))
-    return flat.reshape(B, N_s, K, C)
+def draw_negatives(n_valid, N_s, num_rnd, seed=0, pair_offset=0):
+    """Random negative columns ``[B, N_s, num_rnd]`` int64 on
+    ``n_valid``'s device: ``floor(u * n_valid[b])``, with ``u`` uniform in
+    ``[0, 1)`` drawn on the CPU by pair ``b``'s own generator (seeded by
+    ``(seed, pair_offset + b)``, a stream apart from the noise's), so every
+    column is a valid target. ``n_valid`` ``[B]`` counts each pair's valid
+    targets; it is not read on the host."""
+    B = n_valid.shape[0]
+    u = torch.empty((B, N_s, num_rnd), dtype=torch.float32)
+    for b in range(B):
+        u[b] = torch.rand((N_s, num_rnd), generator=_pair_generator(
+            seed, pair_offset + b, stream=1))
+    n = n_valid.to(torch.float32)[:, None, None]
+    cols = torch.floor(u.to(n_valid.device) * n)
+    return torch.minimum(cols, (n - 1).clamp(min=0)).long()
+
+
+def include_gt(S_idx, y_col, y_mask, return_replaced=False):
+    """Overwrite the last candidate slot with the ground-truth column in
+    every valid row whose ground truth is not already a candidate.
+
+    S_idx: ``[B, N_s, K]``; y_col: ``[B, N_s]``; y_mask: ``[B, N_s]``.
+    With ``return_replaced`` also returns the ``[B, N_s]`` bool mask of
+    the rows whose last slot was overwritten.
+    """
+    y_col = y_col.to(S_idx.dtype)
+    present = (S_idx == y_col[..., None]).any(dim=-1)
+    replace = y_mask & ~present
+    out = S_idx.clone()
+    out[..., -1] = torch.where(replace, y_col, S_idx[..., -1])
+    return (out, replace) if return_replaced else out
 
 
 class DGMC(nn.Module):
     """Two-stage graph matching with iterative neighbourhood consensus.
 
     Args:
-        psi_1: feature GNN, called as ``psi_1(x, graph)``.
+        psi_1: feature GNN, called as ``psi_1(x, graph, generator=...)``
+            (the dropout masks' generator).
         psi_2: consensus GNN exposing ``in_channels``/``out_channels``
             (``SplineCNN``, ``RelCNN``). The sparse variant also needs
             channel-packed evaluation (``streams``), as RelCNN has.
@@ -99,11 +148,12 @@ class DGMC(nn.Module):
         generator: optional ``torch.Generator`` the initial weights are
             drawn from (:meth:`reset_parameters`).
 
-    The dense consensus delta goes through :func:`consensus_update` (its
-    kernel on CUDA tensors, its plain version on the CPU) whenever
-    ``R <= R_MAX``, the kernel's own limit, and through the factored
-    plain form above it; the gate's decision is recorded in the dispatch
-    ledger.
+    The consensus delta goes through :func:`consensus_update` (dense) or
+    :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
+    fused_candidate_delta` (sparse): their kernels on CUDA tensors, their
+    plain versions on the CPU, whenever ``R`` is within the kernel's own
+    limit. Above it the plain form runs, and the gate's decision is
+    recorded in the dispatch ledger.
     """
 
     def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None):
@@ -137,9 +187,10 @@ class DGMC(nn.Module):
             self.mlp_hidden_bias.zero_()
             self.mlp_out_bias.zero_()
 
-    def consensus_mlp(self, d):
-        h = torch.relu(d @ self.mlp_hidden_kernel + self.mlp_hidden_bias)
-        return (h @ self.mlp_out_kernel)[..., 0] + self.mlp_out_bias[0]
+    @property
+    def _mlp(self):
+        return (self.mlp_hidden_kernel, self.mlp_hidden_bias,
+                self.mlp_out_kernel, self.mlp_out_bias)
 
     def _noise(self, r_s, num_steps, B, N_s, noise_seed, pair_offset,
                device):
@@ -165,10 +216,21 @@ class DGMC(nn.Module):
             return plain_consensus
         return consensus_update
 
-    def _dense(self, graph_s, graph_t, num_steps, noise_seed, pair_offset,
-               r_s):
-        h_s = self.psi_1(graph_s.x, graph_s)
-        h_t = self.psi_1(graph_t.x, graph_t)
+    def _sparse_delta_fn(self):
+        """:func:`fused_candidate_delta`, or its plain form above the
+        kernels' ``R <= R_MAX`` limit (recorded)."""
+        R = self.mlp_hidden_kernel.shape[0]
+        if R > sparse_consensus.R_MAX:
+            dispatch.record('sparse_consensus_fwd', 'plain',
+                            f'R>{sparse_consensus.R_MAX}')
+            return sparse_consensus.plain_fused_candidate_delta
+        return sparse_consensus.fused_candidate_delta
+
+    def _dense(self, graph_s, graph_t, num_steps, detach, noise_seed,
+               pair_offset, r_s, generator):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+            h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
+            h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         B, N_s = s_mask.shape
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
@@ -178,38 +240,53 @@ class DGMC(nn.Module):
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
                               pair_offset, h_s.device)
             delta_fn = self._delta_fn()
-            mlp = (self.mlp_hidden_kernel, self.mlp_hidden_bias,
-                   self.mlp_out_kernel, self.mlp_out_bias)
             for step in range(num_steps):
                 S = masked_softmax(S_hat, S_mask)
                 r_t = S.transpose(1, 2) @ r_s[step]
-                o_s = self.psi_2(r_s[step], graph_s)
-                o_t = self.psi_2(r_t, graph_t)
-                delta = delta_fn(o_s, o_t, *mlp)
+                o_s = self.psi_2(r_s[step], graph_s, generator=generator)
+                o_t = self.psi_2(r_t, graph_t, generator=generator)
+                delta = delta_fn(o_s, o_t, *self._mlp)
                 S_hat = S_hat + torch.where(S_mask, delta, 0.0)
         S_L = masked_softmax(S_hat, S_mask)
         return (Correspondence(S_0, None, s_mask, t_mask),
                 Correspondence(S_L, None, s_mask, t_mask))
 
-    def forward(self, graph_s, graph_t, h_t=None, S_idx=None, h_t_cand=None,
-                num_steps=None, noise_seed=0, pair_offset=0, r_s=None):
+    def forward(self, graph_s, graph_t, y=None, y_mask=None, h_t=None,
+                S_idx=None, h_t_cand=None, num_steps=None, detach=False,
+                noise_seed=0, pair_offset=0, r_s=None, negatives=None,
+                generator=None):
         """Compute ``(S_0, S_L)``: dense ``[B, N_s, N_t]`` correspondences
-        for ``k = -1``, sparse ``[B, N_s, k]`` ones otherwise.
+        for ``k = -1``, sparse ``[B, N_s, K]`` ones otherwise.
 
         Args:
             graph_s / graph_t: padded :class:`~dgmc_tpu_torch.ops.graph.
                 GraphBatch` pairs.
+            y / y_mask: ``[B, N_s]`` ground-truth target columns and their
+                validity. In training mode the sparse variant extends the
+                shortlist with random negatives and injects ``y`` (which
+                must lie in ``[0, N_t)`` where valid; ``batch_to_device``
+                checks on upload); otherwise unused.
             h_t: optional precomputed ψ₁ target table ``[B, N_t, C]`` (the
                 serving corpus cache; sparse only); ψ₁ then runs on the
                 source only and ``graph_t.x`` is never read.
-            S_idx: optional precomputed shortlist ``[B, N_s, k]`` (sparse
-                only).
+            S_idx: optional precomputed top-k shortlist ``[B, N_s, k]``
+                (sparse only; in training it is extended as the search's
+                would be).
             h_t_cand: optional pre-gathered candidate rows
                 ``[B, N_s, k, C]`` (needs ``S_idx``).
-            noise_seed / pair_offset: the indicator-noise stream (see
-                :func:`draw_noise`).
+            num_steps: consensus iterations (default: the module's).
+            detach: cut ψ₁'s gradients; ψ₁ still runs in its own mode
+                (dropout stays active in training), as in the JAX CLI's
+                phase 2.
+            noise_seed / pair_offset: the random streams of pair ``b``
+                (:func:`draw_noise`, :func:`draw_negatives`).
             r_s: optional indicator noise ``[num_steps, B, N_s, R_in]``
                 used instead of drawing it.
+            negatives: optional negative columns ``[B, N_s, num_rnd]``
+                (``num_rnd = min(k, N_t - k)``) used instead of drawing
+                them (sparse training only).
+            generator: the dropout masks' ``torch.Generator`` on the
+                model's device (training with dropout only).
         """
         num_steps = self.num_steps if num_steps is None else num_steps
         if self.k < 1:
@@ -217,18 +294,32 @@ class DGMC(nn.Module):
                 raise ValueError('h_t / S_idx / h_t_cand are serving '
                                  'arguments of the sparse variant; the '
                                  'dense variant has no shortlist')
-            return self._dense(graph_s, graph_t, num_steps, noise_seed,
-                               pair_offset, r_s)
+            return self._dense(graph_s, graph_t, num_steps, detach,
+                               noise_seed, pair_offset, r_s, generator)
         if h_t_cand is not None and S_idx is None:
             raise ValueError('h_t_cand (pre-gathered candidate rows) is '
                              'meaningless without the S_idx it was '
                              'gathered at')
-        h_s = self.psi_1(graph_s.x, graph_s)
-        if h_t is None and h_t_cand is None:
-            h_t = self.psi_1(graph_t.x, graph_t)
+        train = self.training and y is not None
+        if train and h_t_cand is not None:
+            raise ValueError('h_t_cand is an inference argument: training '
+                             'extends the shortlist with negatives and the '
+                             'ground truth, whose rows it lacks')
+        if negatives is not None and not train:
+            raise ValueError('negatives are drawn in training mode only '
+                             '(with y)')
+        # detach: ψ₁ runs without a graph, still in its own mode (the
+        # same dropout masks as with one).
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+            h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
+            if h_t is None and h_t_cand is None:
+                h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+        if detach and h_t_cand is not None:
+            h_t_cand = h_t_cand.detach()
 
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         (B, N_s), N_t = s_mask.shape, t_mask.shape[1]
+        dev = h_s.device
         if S_idx is None:
             if h_t is None:
                 raise ValueError('the candidate search needs the full h_t '
@@ -238,44 +329,68 @@ class DGMC(nn.Module):
             raise ValueError(f'precomputed S_idx carries {S_idx.shape[-1]} '
                              f'candidates but the model was built with '
                              f'k={self.k}')
+        elif bool(((S_idx < 0) | (S_idx >= N_t)).any()):
+            # The kernels index target rows unchecked.
+            raise ValueError(f'precomputed S_idx outside [0, {N_t})')
         S_idx = S_idx.long()
 
         # Candidate-slot validity without gathering t_mask at S_idx: masked
         # columns score finfo.min / -inf in the search, strictly below any
-        # real inner product, so slot j is valid exactly when j < n_valid.
+        # real inner product, so slot j is valid exactly when j < n_valid;
+        # a negative floor(u * n_valid) is valid when n_valid > 0, and an
+        # injected ground truth by the caller's contract.
         n_valid_t = t_mask.sum(dim=-1)
-        entry_mask = (torch.arange(self.k, device=s_mask.device)[None, None]
+        entry_mask = (torch.arange(self.k, device=dev)[None, None]
                       < n_valid_t[:, None, None]).expand(B, N_s, self.k)
+        if train:
+            if y_mask is None:
+                y_mask = torch.ones(y.shape, dtype=torch.bool, device=dev)
+            num_rnd = min(self.k, N_t - self.k)
+            if num_rnd > 0:
+                if negatives is None:
+                    negatives = draw_negatives(n_valid_t, N_s, num_rnd,
+                                               noise_seed, pair_offset)
+                elif tuple(negatives.shape) != (B, N_s, num_rnd):
+                    raise ValueError(f'negatives must be [B, N_s, num_rnd] '
+                                     f'= {(B, N_s, num_rnd)}; got '
+                                     f'{tuple(negatives.shape)}')
+                elif bool(((negatives < 0) | (negatives >= N_t)).any()):
+                    raise ValueError(f'negatives outside [0, {N_t})')
+                S_idx = torch.cat([S_idx, negatives.to(dev).long()], dim=-1)
+                entry_mask = torch.cat(
+                    [entry_mask, (n_valid_t > 0)[:, None, None].expand(
+                        B, N_s, num_rnd)], dim=-1)
+            S_idx, replaced = include_gt(S_idx, y.long(), y_mask & s_mask,
+                                         return_replaced=True)
+            entry_mask = entry_mask.clone()
+            entry_mask[..., -1] |= replaced
+        shortlist = Shortlist(S_idx, N_t)
         row_mask = s_mask[..., None]
 
-        h_t_rows = h_t_cand if h_t_cand is not None else _gather_t(h_t,
-                                                                   S_idx)
+        h_t_rows = h_t_cand if h_t_cand is not None else shortlist.gather(h_t)
         S_hat = torch.einsum('bsc,bskc->bsk', h_s, h_t_rows)
         S_0 = masked_softmax(S_hat, entry_mask) * row_mask
 
         if num_steps > 0:
-            R_in = self.psi_2.in_channels
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
-                              pair_offset, h_s.device)
+                              pair_offset, dev)
             # The source-side ψ₂ input is noise, independent of S: all
-            # steps run as ONE channel-packed ψ₂ call on the source graph.
-            T = num_steps
+            # steps run as ONE channel-packed ψ₂ call on the source graph
+            # (RelCNN refuses it with active dropout, which would draw one
+            # mask across the steps).
+            T, R_in = num_steps, self.psi_2.in_channels
             o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(B, N_s, T * R_in),
-                           graph_s, streams=T)
+                           graph_s, streams=T, generator=generator)
             o_s_all = o.reshape(B, N_s, T, -1).permute(2, 0, 1, 3)
-            flat_idx = S_idx.reshape(B, N_s * self.k)
-            all_edges = torch.ones_like(flat_idx, dtype=torch.bool)
+            delta_fn = self._sparse_delta_fn()
             for step in range(num_steps):
                 S = masked_softmax(S_hat, entry_mask) * row_mask
-                contrib = S[..., None] * r_s[step][:, :, None, :]
-                r_t = scatter_to_nodes(
-                    contrib.reshape(B, N_s * self.k, R_in), flat_idx,
-                    all_edges, N_t, aggr='sum')
-                o_t = self.psi_2(r_t, graph_t)
-                delta = self.consensus_mlp(o_s_all[step][:, :, None, :]
-                                           - _gather_t(o_t, S_idx))
-                S_hat = S_hat + delta
+                r_t = shortlist.scatter(S[..., None]
+                                        * r_s[step][:, :, None, :])
+                o_t = self.psi_2(r_t, graph_t, generator=generator)
+                S_hat = S_hat + delta_fn(o_s_all[step], o_t, shortlist,
+                                         *self._mlp)
 
         S_L = masked_softmax(S_hat, entry_mask) * row_mask
-        return (Correspondence(S_0, S_idx, s_mask, t_mask),
-                Correspondence(S_L, S_idx, s_mask, t_mask))
+        return (Correspondence(S_0, shortlist.idx, s_mask, t_mask),
+                Correspondence(S_L, shortlist.idx, s_mask, t_mask))

@@ -5,8 +5,14 @@ separate linear maps for the incoming and outgoing neighbourhoods, two
 masked mean reductions with swapped sender/receiver roles. Stacked with
 ReLU and jumping-knowledge concat, then a final linear map.
 
-Ported: ``batch_norm=False`` and eval-mode dropout (inference). Masked
-batch norm and training-mode dropout are later work.
+Ported: ``batch_norm=False``, with dropout after each layer's ReLU in
+training mode (masks from an explicit ``torch.Generator`` on the model's
+device). Masked batch norm is later work.
+
+The edge gathers and both aggregations of a layer read the graph's
+cached receiver and sender orders (:meth:`GraphBatch.csr`: every edge
+for a gather's gradient, the real edges for an aggregation), so their
+gradients, like their forwards, sum in a fixed order.
 """
 
 import math
@@ -16,7 +22,8 @@ from torch import nn
 
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
-__all__ = ['RelConv', 'RelCNN', 'init_linear_', 'lecun_normal_']
+__all__ = ['RelConv', 'RelCNN', 'dropout', 'init_linear_',
+           'lecun_normal_']
 
 # Standard deviation of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
@@ -34,6 +41,20 @@ def init_linear_(lin, generator):
     lecun_normal_(lin.weight, lin.in_features, generator)
     if lin.bias is not None:
         nn.init.zeros_(lin.bias)
+
+
+def dropout(h, p, generator):
+    """Flax's ``Dropout``: keep each entry with probability ``1 - p`` and
+    scale the kept ones by ``1 / (1 - p)``; the mask is drawn from
+    ``generator``, which lives on ``h``'s device."""
+    if generator is None:
+        raise ValueError('training-mode dropout draws its masks from an '
+                         'explicit generator; pass generator=')
+    if p >= 1.0:
+        return torch.zeros_like(h)
+    keep = torch.rand(h.shape, generator=generator, device=h.device,
+                      dtype=h.dtype) >= p
+    return torch.where(keep, h / (1.0 - p), 0.0)
 
 
 class RelConv(nn.Module):
@@ -61,14 +82,17 @@ class RelConv(nn.Module):
 
         h1 = grouped(self.lin1, x)
         h2 = grouped(self.lin2, x)
+        def gather(h, key):
+            return gather_nodes(h, getattr(graph, key),
+                                graph.csr(key, masked=False))
         # Incoming: messages flow sender -> receiver.
-        a_in = scatter_to_nodes(gather_nodes(h1, graph.senders),
-                                graph.receivers, graph.edge_mask, N,
-                                aggr='mean')
+        a_in = scatter_to_nodes(gather(h1, 'senders'), graph.receivers,
+                                graph.edge_mask, N, aggr='mean',
+                                segs=graph.csr('receivers'))
         # Outgoing: the same edges walked backwards.
-        a_out = scatter_to_nodes(gather_nodes(h2, graph.receivers),
-                                 graph.senders, graph.edge_mask, N,
-                                 aggr='mean')
+        a_out = scatter_to_nodes(gather(h2, 'receivers'), graph.senders,
+                                 graph.edge_mask, N, aggr='mean',
+                                 segs=graph.csr('senders'))
         return grouped(self.root, x) + (a_in + a_out)
 
 
@@ -119,14 +143,22 @@ class RelCNN(nn.Module):
         if self.final is not None:
             init_linear_(self.final, generator)
 
-    def forward(self, x, graph, streams=1):
-        if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                'training-mode dropout is not ported yet; call .eval()')
+    def forward(self, x, graph, streams=1, generator=None):
+        """``generator``: the source of the dropout masks, needed in
+        training mode with ``dropout > 0``. ``streams > 1`` (see
+        :class:`RelConv`) is refused with active dropout, which would
+        draw one mask across the channel groups."""
+        active = self.training and self.dropout > 0
+        if streams > 1 and active:
+            raise ValueError(
+                'streams>1 is invalid with active dropout: a packed '
+                'evaluation draws ONE mask across the channel groups, '
+                'coupling what should be independent iterations')
         B, N = x.shape[0], x.shape[1]
         xs = [x]
         for conv in self.convs:
-            xs.append(torch.relu(conv(xs[-1], graph, streams=streams)))
+            h = torch.relu(conv(xs[-1], graph, streams=streams))
+            xs.append(dropout(h, self.dropout, generator) if active else h)
         if streams == 1:
             out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
             return self.final(out) if self.lin else out

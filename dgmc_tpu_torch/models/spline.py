@@ -15,7 +15,7 @@ optional jumping-knowledge concat, dropout and a final linear map.
 import torch
 from torch import nn
 
-from dgmc_tpu_torch.models.rel import init_linear_, lecun_normal_
+from dgmc_tpu_torch.models.rel import dropout, init_linear_, lecun_normal_
 from dgmc_tpu_torch.ops.kernels.spline import Routing, route_aggregate
 from dgmc_tpu_torch.ops.spline import open_spline_basis
 
@@ -106,7 +106,6 @@ class SplineCNN(nn.Module):
         self.convs = nn.ModuleList(
             SplineConv(in_channels if i == 0 else channels, channels, dim)
             for i in range(num_layers))
-        self.drop = nn.Dropout(dropout)
         if lin:
             width = (in_channels + num_layers * channels if cat
                      else channels)
@@ -128,14 +127,17 @@ class SplineCNN(nn.Module):
         if self.final is not None:
             init_linear_(self.final, generator)
 
-    def forward(self, x, graph):
+    def forward(self, x, graph, generator=None):
+        """``generator``: the source of the dropout mask, needed in
+        training mode with ``dropout > 0``."""
         conv = self.convs[0]
         routing = spline_routing(graph, conv.kernel_size, conv.degree)
         xs = [x]
         for conv in self.convs:
             xs.append(torch.relu(conv(xs[-1], graph, routing)))
         out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
-        out = self.drop(out)
+        if self.training and self.dropout > 0:
+            out = dropout(out, self.dropout, generator)
         return self.final(out) if self.lin else out
 
     def extra_repr(self):

@@ -6,7 +6,9 @@ JAX package. Aggregation never uses ``index_add_``/``scatter_add_``:
 those use floating-point atomics on CUDA, whose order changes from run
 to run, and serving promises bit-identical answers across repeats. Edges
 are instead stable-sorted by receiver and each node's messages summed in
-edge order by one segment reduction.
+edge order by one segment reduction. The same holds for the gradient of
+a gather (``torch.gather``'s backward is ``scatter_add_``):
+:func:`gather_nodes` sums it by the same sorted segment reduction.
 """
 
 import dataclasses
@@ -15,8 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ['GraphBatch', 'gather_nodes', 'segments', 'scatter_to_nodes',
-           'degree']
+__all__ = ['GraphBatch', 'gather_nodes', 'segments', 'segment_sum',
+           'scatter_to_nodes', 'degree']
 
 
 @dataclasses.dataclass
@@ -31,6 +33,11 @@ class GraphBatch:
             point at node 0 and are masked out of every aggregation.
         edge_attr: optional ``[B, E, D]`` float32 edge features (the
             pseudo-coordinates of SplineCNN).
+
+    :meth:`csr` caches the sorted edge orders per endpoint array, so every
+    aggregation and gather gradient over one batch sorts each endpoint
+    array at most twice (real edges; every edge). The endpoint arrays and
+    masks are not to be modified after that.
     """
     x: torch.Tensor
     senders: torch.Tensor
@@ -38,6 +45,8 @@ class GraphBatch:
     node_mask: torch.Tensor
     edge_mask: torch.Tensor
     edge_attr: Optional[torch.Tensor] = None
+    _csr: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     @classmethod
     def from_numpy(cls, arrays, device):
@@ -70,46 +79,96 @@ class GraphBatch:
     def num_edges(self):
         return self.senders.shape[1]
 
+    def csr(self, key, masked=True):
+        """:func:`segments` of the edges by ``key`` (``'senders'`` or
+        ``'receivers'``), computed once per batch: of the real edges
+        (``masked``, for :func:`scatter_to_nodes`) or of every edge (for
+        :func:`gather_nodes`)."""
+        if (key, masked) not in self._csr:
+            self._csr[key, masked] = segments(
+                getattr(self, key), self.edge_mask if masked else None,
+                self.num_nodes)
+        return self._csr[key, masked]
 
-def gather_nodes(x, idx):
+
+class _GatherNodes(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, idx, segs):
+        ctx.num_nodes = x.shape[1]
+        ctx.segs = segs
+        if segs is None:
+            ctx.save_for_backward(idx)
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        segs = ctx.segs
+        if segs is None:
+            idx, = ctx.saved_tensors
+            segs = segments(idx, None, ctx.num_nodes)
+        return segment_sum(g, *segs, ctx.num_nodes).to(g.dtype), None, None
+
+
+def gather_nodes(x, idx, segs=None):
     """Batched node gather ``x[b, idx[b, e]]``: ``[B, N, C]``, ``[B, E]``
-    → ``[B, E, C]``."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    → ``[B, E, C]``.
+
+    Its gradient w.r.t. ``x`` sums each node's rows in a fixed order
+    (:func:`segment_sum`) over ``segs = segments(idx, None, N)``, the
+    order of every entry of ``idx``: pass an earlier call's to skip the
+    sort (``GraphBatch.csr(key, masked=False)``). A masked order would
+    drop the gradient of the entries it leaves out.
+    """
+    return _GatherNodes.apply(x, idx, segs)
 
 
 def segments(receivers, edge_mask, num_nodes):
     """Receiver-sorted edge order and per-node offsets over the flattened
     batch: node ``(b, n)`` owns sorted positions
     ``offsets[b*N+n] : offsets[b*N+n+1]``. Masked edges sort into a
-    sentinel segment past the last node."""
+    sentinel segment past the last node; ``edge_mask=None`` keeps every
+    edge."""
     B = receivers.shape[0]
     base = torch.arange(B, device=receivers.device)[:, None] * num_nodes
-    seg = torch.where(edge_mask, receivers.long() + base, B * num_nodes)
+    seg = receivers.long() + base
+    if edge_mask is not None:
+        seg = torch.where(edge_mask, seg, B * num_nodes)
     sorted_seg, order = torch.sort(seg.reshape(-1), stable=True)
     bounds = torch.arange(B * num_nodes + 2, device=receivers.device)
     offsets = torch.searchsorted(sorted_seg, bounds)
     return order, offsets
 
 
-def scatter_to_nodes(messages, receivers, edge_mask, num_nodes, aggr='sum'):
+def segment_sum(messages, order, offsets, num_nodes):
+    """``[B, E, C]`` messages summed per node in the sorted order of
+    :func:`segments` → ``[B, N, C]``, accumulated in (at least) float32.
+    The last segment is the masked edges' sentinel: reduced, then cut."""
+    B, E, C = messages.shape
+    acc = torch.promote_types(messages.dtype, torch.float32)
+    data = messages.reshape(B * E, C).to(acc)[order]
+    out = torch.segment_reduce(data, 'sum', offsets=offsets, axis=0)
+    return out[:B * num_nodes].reshape(B, num_nodes, C)
+
+
+def scatter_to_nodes(messages, receivers, edge_mask, num_nodes, aggr='sum',
+                     segs=None):
     """Batched edge→node aggregation, deterministic on every device.
 
     messages: ``[B, E, C]``, receivers: ``[B, E]``, edge_mask: ``[B, E]``.
     Returns ``[B, N, C]``. ``aggr`` is ``'sum'`` or ``'mean'`` (masked;
     empty neighbourhoods give zeros). Sums accumulate in float32 and are
-    cast back to the message dtype once.
+    cast back to the message dtype once. ``segs``: the
+    ``segments(receivers, edge_mask, num_nodes)`` of an earlier call, to
+    skip the sort.
     """
     if aggr not in ('sum', 'mean'):
         raise ValueError(f'Unknown aggregation: {aggr!r}')
-    B, E, C = messages.shape
-    acc = torch.promote_types(messages.dtype, torch.float32)
-    order, offsets = segments(receivers, edge_mask, num_nodes)
-    data = messages.reshape(B * E, C).to(acc)[order]
-    # The last segment is the masked edges' sentinel: reduced, then cut.
-    out = torch.segment_reduce(data, 'sum', offsets=offsets, axis=0)
-    out = out[:B * num_nodes].reshape(B, num_nodes, C)
+    B = messages.shape[0]
+    order, offsets = segs or segments(receivers, edge_mask, num_nodes)
+    out = segment_sum(messages, order, offsets, num_nodes)
     if aggr == 'mean':
-        deg = (offsets[1:] - offsets[:-1])[:B * num_nodes].to(acc)
+        deg = (offsets[1:] - offsets[:-1])[:B * num_nodes].to(out.dtype)
         out = out / deg.clamp(min=1.0).reshape(B, num_nodes, 1)
     return out.to(messages.dtype)
 

@@ -1,0 +1,287 @@
+"""Sparse consensus delta: CUDA kernels (forward and backward), plain
+versions, and its two differentiable forms.
+
+``delta[b, s, k] = relu((o_s[b, s] - o_t[b, S_idx[b, s, k]]) @ W1 + b1)
+@ W2 + b2`` (float32, ``[B, N_s, K]``), the per-candidate MLP of every
+sparse consensus step. The kernels (``csrc/sparse_consensus.cu``) replace
+the JAX package's Pallas TPU kernels
+``dgmc_tpu/ops/pallas/sparse_consensus.py::_fwd_kernel`` / ``_bwd_kernel``;
+see the source for their design and bound.
+
+- :func:`sparse_consensus_fwd` and :func:`sparse_consensus_bwd` are the
+  kernels' wrappers. Their CPU versions,
+  :func:`plain_sparse_consensus_fwd` and :func:`plain_sparse_consensus_bwd`,
+  compute the kernels' factored form in plain PyTorch, so on every device
+  the backward is the gradient of its own forward (the direct and the
+  factored form round differently, and a value near 0 may take the other
+  side of the ReLU). On a CUDA tensor each launches its kernel or raises;
+  ``R > R_MAX`` does not reach them (the model records that gate and takes
+  the plain form instead).
+- :func:`fused_candidate_delta` (``o_t`` table plus shortlist, the form
+  DGMC uses) and :func:`sparse_consensus_delta` (pre-gathered candidates
+  ``[B, N_s, K, R]``, seen as a ``[B, N_s*K, R]`` table under the
+  identity shortlist) are ``torch.autograd.Function`` s over the two
+  wrappers. Their residuals are ``o_s``, ``o_t`` and the weights; the
+  candidate tensor is never saved.
+- :func:`plain_sparse_consensus_delta` / :func:`plain_fused_candidate_delta`
+  are the unfused forms of the JAX package's ``*_reference`` functions,
+  differentiable by autograd: the forward's independent check.
+
+``S_idx`` may be an int tensor or a
+:class:`~dgmc_tpu_torch.ops.shortlist.Shortlist`, whose receiver order the
+backward's ``d_o_t`` pass walks; pass the Shortlist to build that order
+once per forward. Indices must lie in ``[0, N_t)``: the kernels read
+``o_t`` rows unchecked.
+"""
+
+import ctypes
+
+import torch
+
+from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.shortlist import CHUNK, Shortlist
+
+__all__ = ['R_MAX', 'plain_sparse_consensus_delta',
+           'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
+           'plain_sparse_consensus_bwd', 'sparse_consensus_fwd',
+           'sparse_consensus_bwd', 'fused_candidate_delta',
+           'sparse_consensus_delta']
+
+#: Largest R the kernels take: a warp holds a row in registers, four
+#: channels per lane. Checked against the compiled library at load.
+R_MAX = 128
+
+
+def plain_sparse_consensus_delta(o_s, cand, w1, b1, w2, b2):
+    """The unfused form: ``o_s [B, N_s, R]``, ``cand [B, N_s, K, R]`` →
+    ``[B, N_s, K]``, materializing the difference and hidden layer."""
+    h = torch.relu((o_s[:, :, None, :] - cand) @ w1 + b1)
+    return (h @ w2)[..., 0] + b2[0]
+
+
+def _shortlist(S_idx, num_targets):
+    if isinstance(S_idx, Shortlist):
+        return S_idx
+    return Shortlist(S_idx, num_targets)
+
+
+def plain_fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
+    """Gather the candidate rows of ``o_t [B, N_t, R]``, then
+    :func:`plain_sparse_consensus_delta`."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    return plain_sparse_consensus_delta(o_s, sl.gather(o_t), w1, b1, w2, b2)
+
+
+def _factored(o_s, o_t, w1, b1):
+    """``u_s = o_s W1 + b1`` and ``u_t = o_t W1``: ``(o_s - o_t) W1 + b1
+    = u_s - u_t``."""
+    return o_s @ w1 + b1, o_t @ w1
+
+
+def plain_sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
+    """The delta in the kernels' factored form, in plain PyTorch:
+    ``relu(u_s[s] - u_t[t]) @ w2 + b2``. Holds ``[B, N_s, K, R]`` while
+    it runs."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    u_s, u_t = _factored(o_s, o_t, w1, b1)
+    pre = u_s[:, :, None, :] - sl.gather(u_t)
+    return (torch.relu(pre) @ w2)[..., 0] + b2[0]
+
+
+def _node_grads(o_s, o_t, w1, d_us, d_ut):
+    """``(d_o_s, d_o_t, d_w1, d_b1)`` from the gradients w.r.t. ``u_s`` and
+    ``u_t``: node-level products, no per-candidate work."""
+    d_w1 = (torch.einsum('bsr,bsq->rq', o_s, d_us)
+            + torch.einsum('btr,btq->rq', o_t, d_ut))
+    return d_us @ w1.T, d_ut @ w1.T, d_w1, d_us.sum(dim=(0, 1))
+
+
+def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g):
+    """Gradients of ``sum(g * delta)`` w.r.t. ``(o_s, o_t, w1, b1, w2,
+    b2)`` in the kernels' factored form, in plain PyTorch: with ``pre =
+    u_s[s] - u_t[t]`` and ``d_pre = g * w2`` where ``pre > 0``, ``d_u_s``
+    sums ``d_pre`` over each row's candidates and ``d_u_t`` minus
+    ``d_pre`` over the slots pointing at each target (the shortlist's
+    receiver order). Holds ``[B, N_s, K, R]`` while it runs."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    u_s, u_t = _factored(o_s, o_t, w1, b1)
+    pre = u_s[:, :, None, :] - sl.gather(u_t)
+    d_pre = torch.where(pre > 0, g[..., None] * w2[:, 0], 0.0)
+    d_us = d_pre.sum(dim=2)
+    d_ut = -sl.scatter(d_pre)
+    d_w2 = torch.einsum('bskq,bsk->q', torch.relu(pre), g)[:, None]
+    return (*_node_grads(o_s, o_t, w1, d_us, d_ut), d_w2,
+            g.sum().reshape(1))
+
+
+def _library():
+    from dgmc_tpu_torch.ops.kernels.build import load_library
+    lib = load_library('sparse_consensus.cu')
+    if not getattr(lib, 'sc_bound', False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.dgmc_sc_fwd_f32.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.dgmc_sc_bwd_f32.argtypes = [p] * 17 + [i] * 6 + [ll, i, p]
+        lib.dgmc_sc_partials.argtypes = [ll]
+        for fn in (lib.dgmc_sc_fwd_f32, lib.dgmc_sc_bwd_f32,
+                   lib.dgmc_sc_partials, lib.dgmc_sc_r_max):
+            fn.restype = ctypes.c_int
+        if lib.dgmc_sc_r_max() != R_MAX:
+            raise RuntimeError(f'csrc/sparse_consensus.cu takes R <= '
+                               f'{lib.dgmc_sc_r_max()}, the wrapper '
+                               f'R <= {R_MAX}')
+        lib.sc_bound = True
+    return lib
+
+
+def _check(name, o_s, o_t, sl, weights):
+    """Shapes, devices and (on CUDA) dtypes and the R limit → device."""
+    if o_s.dim() != 3 or o_t.dim() != 3 or o_s.shape[0] != o_t.shape[0] \
+            or o_s.shape[2] != o_t.shape[2]:
+        raise ValueError(f'{name} wants o_s [B, N_s, R] and o_t [B, N_t, R]; '
+                         f'got {tuple(o_s.shape)} and {tuple(o_t.shape)}')
+    B, N_s, R = o_s.shape
+    N_t = o_t.shape[1]
+    if sl.shape[:2] != (B, N_s) or sl.num_targets != N_t:
+        raise ValueError(f'{name}: shortlist {sl.shape} over '
+                         f'{sl.num_targets} targets does not fit o_s '
+                         f'{tuple(o_s.shape)} / o_t {tuple(o_t.shape)}')
+    w1, b1, w2 = weights[:3]
+    if (tuple(w1.shape) != (R, R) or tuple(b1.shape) != (R,)
+            or tuple(w2.shape) != (R, 1) or tuple(weights[3].shape) != (1,)):
+        raise ValueError(f'{name}: consensus MLP shapes '
+                         f'{[tuple(w.shape) for w in weights]} do not fit '
+                         f'R={R}')
+    tensors = (o_s, o_t, *weights)
+    devs = {a.device for a in tensors} | {sl.device}
+    if len(devs) != 1:
+        raise ValueError(f'{name} inputs lie on several devices: '
+                         f'{sorted(map(str, devs))}')
+    dev = o_s.device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name} runs on cpu or cuda, not {dev.type}')
+    if dev.type == 'cuda':
+        if any(a.dtype != torch.float32 for a in tensors):
+            raise TypeError(f'the {name} kernel takes float32 only; got '
+                            f'{sorted({str(a.dtype) for a in tensors})}')
+        if R > R_MAX:
+            raise ValueError(f'the {name} kernel takes R <= {R_MAX}; got '
+                             f'R={R}')
+    return dev
+
+
+def _stream(device):
+    s = torch.cuda.current_stream(device)
+    return s.device_index, s.cuda_stream
+
+
+@dispatch.kernel_wrapper('sparse_consensus_fwd')
+def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
+    """The delta ``[B, N_s, K]`` float32 (no gradient; see
+    :func:`fused_candidate_delta`)."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    args = [a.detach() for a in (o_s, o_t, w1, b1, w2, b2)]
+    dev = _check('sparse_consensus_fwd', args[0], args[1], sl, args[2:])
+    if dev.type == 'cpu':
+        dispatch.record('sparse_consensus_fwd', 'plain', 'device=cpu')
+        with torch.no_grad():
+            return plain_sparse_consensus_fwd(args[0], args[1], sl,
+                                              *args[2:])
+    dispatch.record('sparse_consensus_fwd', 'kernel', 'auto-cuda')
+    lib = _library()
+    o_s, o_t, w1, b1, w2, b2 = (a.contiguous() for a in args)
+    B, N_s, K = sl.shape
+    N_t, R = o_t.shape[1], o_s.shape[2]
+    u_s, u_t = torch.empty_like(o_s), torch.empty_like(o_t)
+    out = torch.empty((B, N_s, K), dtype=torch.float32, device=dev)
+    err = lib.dgmc_sc_fwd_f32(
+        o_s.data_ptr(), o_t.data_ptr(), sl.idx.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), u_s.data_ptr(),
+        u_t.data_ptr(), out.data_ptr(), B, N_s, N_t, K, R, *_stream(dev))
+    if err != 0:
+        raise RuntimeError(f'sparse_consensus_fwd kernel launch failed with '
+                           f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
+                           f'K={K}, R={R})')
+    sparse_consensus_fwd.launches += 1
+    return out
+
+
+@dispatch.kernel_wrapper('sparse_consensus_bwd')
+def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g):
+    """Gradients of ``sum(g * delta)`` →
+    ``(d_o_s, d_o_t, d_w1, d_b1, d_w2, d_b2)``."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    args = [a.detach() for a in (o_s, o_t, w1, b1, w2)]
+    g = g.detach()
+    # g stands in for b2 (no gradient depends on it) in the checks, so
+    # its device and dtype are checked too.
+    dev = _check('sparse_consensus_bwd', args[0], args[1], sl,
+                 args[2:] + [g.new_zeros(1)])
+    if tuple(g.shape) != sl.shape:
+        raise ValueError(f'sparse_consensus_bwd: g {tuple(g.shape)} does not '
+                         f'fit the shortlist {sl.shape}')
+    if dev.type == 'cpu':
+        dispatch.record('sparse_consensus_bwd', 'plain', 'device=cpu')
+        with torch.no_grad():
+            return plain_sparse_consensus_bwd(args[0], args[1], sl,
+                                              *args[2:], g)
+    dispatch.record('sparse_consensus_bwd', 'kernel', 'auto-cuda')
+    lib = _library()
+    o_s, o_t, w1, b1, w2, g = (a.contiguous() for a in (*args, g))
+    B, N_s, K = sl.shape
+    N_t, R = o_t.shape[1], o_s.shape[2]
+    u_s, d_us = torch.empty_like(o_s), torch.empty_like(o_s)
+    u_t, d_ut = torch.empty_like(o_t), torch.empty_like(o_t)
+    chunk_start, max_chunks = sl.chunks
+    partial = torch.empty((lib.dgmc_sc_partials(B * N_s), R + 1),
+                          dtype=torch.float32, device=dev)
+    tgt_partial = torch.empty((max_chunks, R), dtype=torch.float32,
+                              device=dev)
+    d_w2b2 = torch.empty(R + 1, dtype=torch.float32, device=dev)
+    err = lib.dgmc_sc_bwd_f32(
+        o_s.data_ptr(), o_t.data_ptr(), sl.idx.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), sl.order.data_ptr(),
+        sl.offsets.data_ptr(), chunk_start.data_ptr(), u_s.data_ptr(),
+        u_t.data_ptr(), d_us.data_ptr(), d_ut.data_ptr(), partial.data_ptr(),
+        tgt_partial.data_ptr(), d_w2b2.data_ptr(), B, N_s, N_t, K, R, CHUNK,
+        max_chunks, *_stream(dev))
+    if err != 0:
+        raise RuntimeError(f'sparse_consensus_bwd kernel launch failed with '
+                           f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
+                           f'K={K}, R={R})')
+    sparse_consensus_bwd.launches += 1
+    return (*_node_grads(o_s, o_t, w1, d_us, d_ut), d_w2b2[:R, None],
+            d_w2b2[R:])
+
+
+class _FusedCandidateDelta(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, o_s, o_t, w1, b1, w2, b2, sl):
+        ctx.sl = sl
+        ctx.save_for_backward(o_s, o_t, w1, b1, w2)
+        return sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        o_s, o_t, w1, b1, w2 = ctx.saved_tensors
+        grads = sparse_consensus_bwd(o_s, o_t, ctx.sl, w1, b1, w2, g)
+        return tuple(d if need else None for d, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
+def fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
+    """``mlp(o_s[:, :, None] - o_t[S_idx])`` → ``[B, N_s, K]``,
+    differentiable in every float argument; see the module docstring."""
+    sl = _shortlist(S_idx, o_t.shape[1])
+    return _FusedCandidateDelta.apply(o_s, o_t, w1, b1, w2, b2, sl)
+
+
+def sparse_consensus_delta(o_s, cand, w1, b1, w2, b2):
+    """``mlp(o_s[:, :, None] - cand)`` for pre-gathered candidates
+    ``cand [B, N_s, K, R]`` → ``[B, N_s, K]``, through the same kernels:
+    ``cand`` is a ``[B, N_s*K, R]`` table under the identity shortlist."""
+    B, N_s, K, R = cand.shape
+    sl = Shortlist.identity(B, N_s, K, cand.device)
+    return fused_candidate_delta(o_s, cand.reshape(B, N_s * K, R), sl, w1,
+                                 b1, w2, b2)

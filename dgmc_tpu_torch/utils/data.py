@@ -103,9 +103,14 @@ def pad_graphs(graphs: Sequence[Graph], num_nodes: int, num_edges: int,
 
 
 def pad_pair_batch(pairs: List[GraphPair], num_nodes_s, num_edges_s,
-                   num_nodes_t=None, num_edges_t=None):
+                   num_nodes_t=None, num_edges_t=None, pairs_per_step=1):
     """Collate :class:`GraphPair` lists into a :class:`PairBatch`; the
-    target side pads to the source's sizes unless given its own."""
+    target side pads to the source's sizes unless given its own.
+    ``pairs_per_step > 1`` tiles the pair list that many times along the
+    batch axis (``--pairs-per-step``: the replicas draw their own noise
+    and negatives, see :func:`~dgmc_tpu_torch.models.dgmc.draw_noise`)."""
+    if pairs_per_step > 1:
+        pairs = list(pairs) * pairs_per_step
     num_nodes_t = num_nodes_t or num_nodes_s
     num_edges_t = num_edges_t or num_edges_s
     g_s = pad_graphs([p.s for p in pairs], num_nodes_s, num_edges_s)

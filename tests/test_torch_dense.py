@@ -62,6 +62,17 @@ GRAPH_KEYS = ('x', 'senders', 'receivers', 'node_mask', 'edge_mask',
 ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread: the tensors here are small, and the suite's
+    parallel workers would otherwise oversubscribe the cores (a training
+    loop here ran ~40x slower with 8 threads per worker under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _datasets(length=B, seed=3):
     """The same small pair stream in both packages (5-10 inliers, 0-3
     outliers, the PascalPF transforms)."""

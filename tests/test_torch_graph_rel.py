@@ -149,3 +149,24 @@ def test_graph_upload_rejects_endpoints_outside_the_graph(key):
     a[key][1, 5] = 13
     with pytest.raises(ValueError, match=key):
         tgraph.GraphBatch.from_numpy(a, 'cpu')
+
+
+def test_gather_gradient_is_a_sorted_segment_sum_matching_jax():
+    """The gather's gradient sums each node's rows by the sorted segment
+    reduction (``torch.gather``'s own backward, ``scatter_add_``, uses
+    float atomics on CUDA), over every entry, padded edges included,
+    whether it sorts them itself or takes the graph's cached order of
+    every edge."""
+    a = _graph_arrays(8, C=4)
+    rng = np.random.RandomState(9)
+    g = rng.randn(2, 40, 4).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jgraph.gather_nodes(x, jnp.asarray(
+        a['senders'])), jnp.asarray(a['x']))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    graph = tgraph.GraphBatch.from_numpy(a, 'cpu')
+    for segs in (None, graph.csr('senders', masked=False)):
+        x = graph.x.clone().requires_grad_()
+        out = tgraph.gather_nodes(x, graph.senders, segs)
+        assert type(out.grad_fn).__name__ == '_GatherNodesBackward'
+        out.backward(torch.from_numpy(g))
+        np.testing.assert_allclose(x.grad.numpy(), want, atol=1e-6)

@@ -22,8 +22,12 @@ from dgmc_tpu_torch.ops.kernels.spline import (Routing,
                                                plain_route_aggregate,
                                                plain_route_d_t, route_d_t,
                                                route_fwd)
+from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+    plain_fused_candidate_delta, plain_sparse_consensus_bwd,
+    plain_sparse_consensus_fwd, sparse_consensus_bwd, sparse_consensus_fwd)
 from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
                                              streaming_topk)
+from dgmc_tpu_torch.ops.shortlist import Shortlist
 
 # (B, N_s, N_t, C, k, masked share): ties, tile boundaries, segments,
 # k above the valid targets and k at the kernel's limit.
@@ -156,3 +160,41 @@ def test_consensus_kernel_rejects_r_above_limit(cuda):
         consensus_fwd(z(1, 2, R, device=cuda), z(1, 2, R, device=cuda),
                       z(R, R, device=cuda), z(R, device=cuda),
                       z(R, 1, device=cuda), z(1, device=cuda))
+
+
+# (B, N_s, N_t, K, R, share of slots pointing at one target): ragged rows,
+# the duplicate-heavy shortlist, one row, K = 1, the kernels' R limit.
+SC_CASES = [(2, 300, 90, 20, 32, 0.0), (2, 200, 50, 6, 16, 0.9),
+            (1, 1, 1, 1, 1, 0.0), (2, 70, 30, 1, 8, 0.0),
+            (2, 33, 65, 7, 128, 0.3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SC_CASES)
+def test_sparse_consensus_kernels_match_plain(cuda, case):
+    B, N_s, N_t, K, R, dup = case
+    rng = np.random.RandomState(N_s + N_t + K + R)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.randint(-2, 3, shape).astype(
+            np.float32)).to(cuda)
+
+    idx = rng.randint(0, N_t, (B, N_s, K))
+    idx[rng.rand(B, N_s, K) < dup] = N_t // 2
+    sl = Shortlist(torch.from_numpy(idx).to(cuda), N_t)
+    args = (ints(B, N_s, R), ints(B, N_t, R), ints(R, R), ints(R),
+            ints(R, 1), ints(1))
+    g = ints(B, N_s, K)
+    before = (sparse_consensus_fwd.launches, sparse_consensus_bwd.launches)
+    out = sparse_consensus_fwd(args[0], args[1], sl, *args[2:])
+    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    torch.cuda.synchronize()
+    assert (sparse_consensus_fwd.launches,
+            sparse_consensus_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
+        assert torch.equal(out, plain(args[0], args[1], sl, *args[2:]))
+    want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w)
+    again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))

@@ -1,0 +1,238 @@
+"""The port's sparse consensus delta held against the JAX package's
+(``dgmc_tpu.ops.pallas.sparse_consensus``) on the CPU: the Pallas kernel
+in interpret mode and the unfused jnp reference, forward and every
+gradient, for the widened form (``fused_candidate_delta``) and the narrow
+one (``sparse_consensus_delta``), through the port's differentiable form
+(plain forward, factored plain backward: the kernels' arithmetic) and
+through autograd of its plain version.
+
+Cases mirror ``tests/ops/test_sparse_consensus.py``: a source axis that
+is no multiple of the TPU tile (150 rows), K = 1, B = 2 throughout, and a
+shortlist in which most slots point at one target (the ``d_o_t`` sum
+must add every one of them).
+
+Tolerances: the delta sums R float32 products in another order, rtol and
+atol 1e-5 on O(1) values. Gradients: the port's backward takes the
+factored form (``u_s - u_t``, as the CUDA kernels do), whose rounding
+differs from the direct form's, and sums up to hundreds of candidates per
+target: each tensor within rtol 1e-4 and atol 1e-4 x its largest
+|gradient|.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgmc_tpu.ops.pallas import sparse_consensus as jsc
+from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels import sparse_consensus as tsc
+from dgmc_tpu_torch.ops.shortlist import CHUNK, Shortlist
+
+# (B, N_s, N_t, K, R, share of slots pointing at target 3)
+FUSED_CASES = {'ragged': (2, 150, 90, 5, 16, 0.0),
+               'k_1': (2, 130, 40, 1, 8, 0.0),
+               'duplicates': (2, 140, 50, 6, 16, 0.8)}
+NARROW_CASES = {'ragged': (2, 150, 5, 16), 'k_1': (2, 130, 1, 8)}
+FLOAT_ARGS = ('o_s', 'o_t', 'w1', 'b1', 'w2', 'b2')
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread: the tensors here are small, and the suite's
+    parallel workers would otherwise oversubscribe the cores (a training
+    loop here ran ~40x slower with 8 threads per worker under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _weights(r, R):
+    return [(0.3 * r.randn(R, R)).astype(np.float32),
+            (0.1 * r.randn(R)).astype(np.float32),
+            (0.3 * r.randn(R, 1)).astype(np.float32),
+            (0.1 * r.randn(1)).astype(np.float32)]
+
+
+def _fused_case(name):
+    B, N_s, N_t, K, R, dup = FUSED_CASES[name]
+    r = np.random.RandomState(sum(FUSED_CASES[name][:5]))
+    o_s = r.randn(B, N_s, R).astype(np.float32)
+    o_t = r.randn(B, N_t, R).astype(np.float32)
+    idx = r.randint(0, N_t, (B, N_s, K))
+    idx[r.rand(B, N_s, K) < dup] = 3
+    return [o_s, o_t, *_weights(r, R)], idx
+
+
+def _jax_grads(fn, floats, *static):
+    def loss(*a):
+        out = fn(*a, *static)
+        return jnp.sum(jnp.sin(out)), out
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(floats))), has_aux=True))(
+            *map(jnp.asarray, floats))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_grads(fn, floats, *static):
+    ts = [torch.from_numpy(a).requires_grad_() for a in floats]
+    out = fn(*ts, *static)
+    torch.sin(out).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _assert_close(got, want, names):
+    (out, grads), (w_out, w_grads) = got, want
+    np.testing.assert_allclose(out, w_out, rtol=1e-5, atol=1e-5)
+    for g, w, name in zip(grads, w_grads, names):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def _fused_torch(impl, floats, idx):
+    fn = {'fused': tsc.fused_candidate_delta,
+          'plain': tsc.plain_fused_candidate_delta,
+          'factored': tsc.plain_sparse_consensus_fwd}[impl]
+    idx = torch.from_numpy(idx)
+
+    def call(o_s, o_t, w1, b1, w2, b2):
+        return fn(o_s, o_t, idx, w1, b1, w2, b2)
+    return _torch_grads(call, floats)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fused(name):
+    """JAX's forward and gradients of one case: the Pallas kernel in
+    interpret mode, then the jnp reference."""
+    floats, idx = _fused_case(name)
+    jidx = jnp.asarray(idx.astype(np.int32))
+
+    def kernel(o_s, o_t, w1, b1, w2, b2):
+        return jsc.fused_candidate_delta(o_s, o_t, jidx, w1, b1, w2, b2,
+                                         True)
+
+    def reference(o_s, o_t, w1, b1, w2, b2):
+        return jsc.fused_candidate_delta_reference(o_s, o_t, jidx, w1, b1,
+                                                   w2, b2)
+
+    return [_jax_grads(fn, floats) for fn in (kernel, reference)]
+
+
+@pytest.mark.parametrize('impl', ['fused', 'plain', 'factored'])
+@pytest.mark.parametrize('name', sorted(FUSED_CASES))
+def test_fused_candidate_delta_matches_jax(name, impl):
+    floats, idx = _fused_case(name)
+    got = _fused_torch(impl, floats, idx)
+    for want in _jax_fused(name):
+        _assert_close(got, want, FLOAT_ARGS)
+
+
+def _narrow_case(name):
+    B, N_s, K, R = NARROW_CASES[name]
+    r = np.random.RandomState(B + N_s + K + R)
+    return [r.randn(B, N_s, R).astype(np.float32),
+            r.randn(B, N_s, K, R).astype(np.float32), *_weights(r, R)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_narrow(name):
+    floats = _narrow_case(name)
+    return [_jax_grads(jsc.sparse_consensus_delta, floats, True),
+            _jax_grads(jsc.sparse_consensus_delta_reference, floats)]
+
+
+@pytest.mark.parametrize('impl', ['narrow', 'plain'])
+@pytest.mark.parametrize('name', sorted(NARROW_CASES))
+def test_sparse_consensus_delta_matches_jax(name, impl):
+    fn = {'narrow': tsc.sparse_consensus_delta,
+          'plain': tsc.plain_sparse_consensus_delta}[impl]
+    got = _torch_grads(fn, _narrow_case(name))
+    for want in _jax_narrow(name):
+        _assert_close(got, want, ('o_s', 'cand', 'w1', 'b1', 'w2', 'b2'))
+
+
+def test_wrappers_take_the_plain_versions_on_cpu():
+    floats, idx = _fused_case('duplicates')
+    o_s, o_t, w1, b1, w2, b2 = map(torch.from_numpy, floats)
+    sl = Shortlist(torch.from_numpy(idx), o_t.shape[1])
+    dispatch.reset()
+    out = tsc.sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2)
+    g = torch.ones_like(out)
+    grads = tsc.sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g)
+    d = dispatch.decisions()
+    for name in ('sparse_consensus_fwd', 'sparse_consensus_bwd'):
+        assert (d[name]['path'], d[name]['reason']) == ('plain', 'device=cpu')
+    assert dispatch.launch_counts()['sparse_consensus_fwd'] == 0
+    assert dispatch.launch_counts()['sparse_consensus_bwd'] == 0
+    assert torch.equal(out, tsc.plain_sparse_consensus_fwd(
+        o_s, o_t, sl, w1, b1, w2, b2))
+    assert [tuple(x.shape) for x in grads] == [tuple(a.shape)
+                                              for a in (o_s, o_t, w1, b1,
+                                                        w2, b2)]
+
+
+@pytest.mark.parametrize('name', sorted(FUSED_CASES))
+def test_cpu_backward_is_the_gradient_of_its_own_forward(name):
+    """On the CPU both wrappers take the factored form, so the backward
+    is the gradient of the forward they computed: it equals autograd of
+    :func:`plain_sparse_consensus_fwd` (up to summation order), ReLU
+    mask included."""
+    floats, idx = _fused_case(name)
+    got = _fused_torch('fused', floats, idx)
+    want = _fused_torch('factored', floats, idx)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w, n in zip(got[1], want[1], FLOAT_ARGS):
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=n)
+
+
+def test_wrappers_reject_mismatched_inputs():
+    floats, idx = _fused_case('k_1')
+    o_s, o_t, w1, b1, w2, b2 = map(torch.from_numpy, floats)
+    with pytest.raises(ValueError, match='shortlist'):
+        tsc.sparse_consensus_fwd(o_s, o_t[:, :-1], Shortlist(
+            torch.from_numpy(idx), o_t.shape[1]), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match='MLP'):
+        tsc.sparse_consensus_fwd(o_s, o_t, torch.from_numpy(idx), w1[:-1],
+                                 b1, w2, b2)
+
+
+def test_shortlist_scatter_and_gather_gradient_sum_duplicates():
+    """The receiver order sums every slot of a target, duplicates
+    included, as ``jax.ops.segment_sum`` does."""
+    r = np.random.RandomState(5)
+    idx = r.randint(0, 7, (2, 9, 4))
+    idx[:, :5] = 2
+    msgs = r.randn(2, 9, 4, 3).astype(np.float32)
+    sl = Shortlist(torch.from_numpy(idx), 7)
+    want = jax.vmap(lambda m, i: jax.ops.segment_sum(m, i, num_segments=7))(
+        jnp.asarray(msgs.reshape(2, 36, 3)), jnp.asarray(idx.reshape(2, 36)))
+    np.testing.assert_allclose(sl.scatter(torch.from_numpy(msgs)).numpy(),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)
+    feat = torch.from_numpy(r.randn(2, 7, 3).astype(np.float32))
+    feat.requires_grad_()
+    sl.gather(feat).mul(torch.from_numpy(msgs)).sum().backward()
+    np.testing.assert_allclose(feat.grad.numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_shortlist_chunks_cut_each_target_list():
+    """The backward's target pass takes each target's slots in chunks:
+    ``chunk_start`` counts ``ceil(slots / CHUNK)`` per target, within the
+    host bound the kernel's grid is sized by."""
+    r = np.random.RandomState(6)
+    idx = r.randint(0, 30, (2, 50, 7))
+    idx[:, :40, :5] = 4                          # a hub of 400 slots
+    sl = Shortlist(torch.from_numpy(idx), 30)
+    start, bound = sl.chunks
+    deg = np.stack([np.bincount(i.ravel(), minlength=30) for i in idx])
+    np.testing.assert_array_equal(np.diff(start.numpy()),
+                                  -(-deg.ravel() // CHUNK))
+    assert start[0] == 0 and int(start[-1]) <= bound
+    assert sl.chunks[0] is start
