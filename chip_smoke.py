@@ -12,20 +12,28 @@ Phases (any failure exits non-zero and prints no result line):
 - ``topk_kernel``: the CUDA top-k kernel against its plain PyTorch
   version on the card — bit-equal indices and values on integer-valued
   cases (ties, a random mask, k above the valid targets, tile
-  boundaries, B=2, k at the kernel's limit), and on random float32
+  boundaries, B=2, k at the kernel's limit, and 16, 17 and 33 rows
+  against 20000 targets: each small row tile through the segment merge,
+  once with k at the limit), and on random float32
   inputs at the serve path's shapes (16, 32, 64 and 15000 x 20000,
   C=256, k=10) indices equal except inside a near-tie (see
   :func:`hold_near_ties`). Times the kernel, the plain version and
   ``torch.topk(h_s @ h_t^T)`` (yardstick only) at each of those shapes:
-  median of CUDA-event timings after warm-up.
+  the small ones by device time (every launch of a call summed) beside
+  the CUDA-event time, the whole KG by CUDA events (median of 10 after
+  warm-up), each with its bound.
 - ``spline_kernel``: the SplineConv routing kernels (forward and the
   gradient w.r.t. t) against their plain versions — bit-equal on exact
   inputs (an all-masked batch, M not a multiple of any tile, B=1, no
-  edges), within rtol 1e-5 / atol 1e-5 x max|out| on float32 inputs and
-  on the four SplineConv shapes of the training path over a real
-  ``RandomGraphPairs`` batch; repeats bit-identical. Times the kernels,
-  the plain versions and ``torch.sparse.mm`` of the block-diagonal
-  routing matrix (yardstick only) at O=256 and O=64.
+  edges, the training width, and a hub row that 30% of the slots point
+  at beside empty rows, for d_t at O=64 and O=256), within rtol 1e-5 /
+  atol 1e-5 x max|out| on float32 inputs and on the four SplineConv
+  shapes of the training path over a real ``RandomGraphPairs`` batch;
+  repeats bit-identical; the d_t kernel's slot records, built by their
+  own kernel, bit-equal to their plain version. Times the kernels, the
+  plain versions and ``torch.sparse.mm`` of the block-diagonal routing
+  matrix (yardstick only) at O=256 and O=64, each with its bound, and
+  the slot records' build (once per routing, outside d_t's time).
 - ``consensus_kernel``: the dense consensus kernel against its plain
   factored version, the same way, at [64, 80, 80], R=64 and a ragged
   case; times the kernel and the plain version (no single PyTorch call
@@ -52,7 +60,8 @@ Phases (any failure exits non-zero and prints no result line):
   own ``main`` (one epoch of 16 steps of 64 pairs, 80 nodes / 640 edges,
   plus 128 held-out pairs): the dispatch ledger shows the kernels, the
   launch counters rise by 44/44/10 per train step and 44/0/10 per eval
-  batch, every loss is finite. Then: the first step's loss and gradients
+  batch, every loss is finite; the spline launches are also filed by
+  the width they ran at (:func:`spline_launches_by_width`). Then: the first step's loss and gradients
   against the CPU plain path on the same weights, batch and noise
   (``GRAD_TOL``, with a float64 CPU reference beyond it); two 2-step
   runs from one seed give bit-identical losses; the median step time,
@@ -72,14 +81,20 @@ Phases (any failure exits non-zero and prints no result line):
   one phase-2 step (informational).
 
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
-one JSON line listing every kernel (``ms_source`` says whether its
-``ms``, ``plain_ms`` and ``library_ms`` are profiler device times or
-CUDA-event times), and last
+one JSON line listing every kernel at its main shape, plus entries for
+the top-k at 16, 32 and 64 rows (``topk@16x20000`` ...; launches: the
+top-k counter read around each serve query of that size, its match and
+repeat) and the spline kernels at ψ₂'s O=64 (``...@O=64``; launches:
+the counters read around each of their calls at that width in the
+``train`` phase) (``ms_source`` says
+whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
+times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
 matrix products and cuDNN.
 """
 
 import concurrent.futures
+import contextlib
 import copy
 import json
 import os
@@ -198,7 +213,7 @@ def hold_near_ties(label, h_s, h_t, k, mask=None):
     return err
 
 
-def phase_topk_kernel(result):
+def phase_topk_kernel(result, small):
     from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
                                                  streaming_topk)
     gen = torch.Generator().manual_seed(0)
@@ -211,6 +226,12 @@ def phase_topk_kernel(result):
         'tile_129x129': _topk_case(gen, 1, 129, 129, 16, 5),
         'batch_2': _topk_case(gen, 2, 130, 1100, 16, 10, mask_p=0.5),
         'k_max': _topk_case(gen, 1, 200, 3000, 32, K_MAX, mask_p=0.9),
+        # Each small row tile, with the segments and their merge, against
+        # the serve path's 20000 targets.
+        'rows_16x20000': _topk_case(gen, 1, 16, 20000, 32, 10),
+        'rows_17x20000_masked': _topk_case(gen, 1, 17, 20000, 32, 10,
+                                           mask_p=0.5),
+        'rows_33x20000_k_max': _topk_case(gen, 1, 33, 20000, 32, K_MAX),
     }
     for name, (h_s, h_t, k, mask) in exact.items():
         v, i = streaming_topk(h_s, h_t, k, mask)
@@ -223,20 +244,35 @@ def phase_topk_kernel(result):
         log(f'topk_kernel: case {name} {tuple(h_s.shape)}x'
             f'{tuple(h_t.shape)} k={k}: bit-equal')
 
-    # The serve path's shapes: small queries (one row tile, the target
-    # axis cut into segments and merged) and the whole source KG.
+    # The serve path's shapes: small queries (a row tile of their size,
+    # the target axis cut into segments and merged) and the whole source
+    # KG. Small queries take microseconds on the card, so they are timed
+    # by device time (both launches summed) beside the CUDA-event time.
     B, N_s, N_t, C, k = TOPK_SHAPE
     err = 0.0
     for n in SMALL_ROWS:
         h_s, h_t, _, _ = _topk_case(gen, B, n, N_t, C, k, ints=False)
-        err = max(err, hold_near_ties('random', h_s, h_t, k))
-        ms = cuda_ms(lambda: streaming_topk(h_s, h_t, k))
-        plain_ms = cuda_ms(lambda: plain_topk(h_s, h_t, k))
-        lib_ms = cuda_ms(lambda: torch.topk(
-            torch.bmm(h_s, h_t.transpose(1, 2)), k))
-        log(f'topk_kernel: timing at {n}x{N_t} C={C} k={k} (median of 10): '
-            f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.topk(bmm) '
-            f'{lib_ms:.3f} ms')
+        e = hold_near_ties('random', h_s, h_t, k)
+        err = max(err, e)
+        got, src = timed({
+            'kernel': lambda: streaming_topk(h_s, h_t, k),
+            'plain': lambda: plain_topk(h_s, h_t, k),
+            'torch.topk(bmm)': lambda: torch.topk(
+                torch.bmm(h_s, h_t.transpose(1, 2)), k)})
+        b_ms, b_by = bound(2.0 * B * n * N_t * C,
+                           4.0 * B * (n + N_t) * C + 8.0 * B * n * k)
+        log(f'topk_kernel: at {n}x{N_t} C={C} k={k}: bound {b_ms:.4f} ms '
+            f'({b_by}); ms per call [{src}] / per-call wall ms (CUDA '
+            f'events, median of 10): '
+            + ', '.join(f'{key} {v[0]:.4f} / {v[1]:.4f}'
+                        for key, v in got.items()))
+        small[n].update(name=f'topk@{n}x{N_t}', route='cuda',
+                        source='dgmc_tpu_torch/csrc/topk.cu',
+                        replaces='dgmc_tpu/ops/pallas/topk.py:40',
+                        max_abs_err=e, ms=got['kernel'][0],
+                        plain_ms=got['plain'][0], bound_ms=b_ms,
+                        bound_by=b_by, library_ms=got['torch.topk(bmm)'][0],
+                        ms_source=src)
     h_s, h_t, _, _ = _topk_case(gen, B, N_s, N_t, C, k, ints=False)
     err = max(err, hold_near_ties('random', h_s, h_t, k))
 
@@ -433,14 +469,26 @@ def _spline_work(basis, routing, O):
     return fwd, bwd
 
 
-def phase_spline_kernel(fwd_res, bwd_res):
+def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
     from dgmc_tpu_torch.models.spline import spline_routing
     from dgmc_tpu_torch.ops.graph import GraphBatch
-    from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
+    from dgmc_tpu_torch.ops.kernels.spline import (Routing,
+                                                   build_slot_records,
+                                                   plain_route_aggregate,
                                                    plain_route_d_t,
+                                                   plain_slot_records,
                                                    route_d_t, route_fwd)
     from dgmc_tpu_torch.experiments import pascal_pf
     gen = torch.Generator().manual_seed(1)
+
+    def hold_records(label, basis, routing):
+        got = build_slot_records(routing, basis)
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, got, plain_slot_records(routing,
+                                                            basis))):
+            raise AssertionError(f'slot records {label}: the kernel differs '
+                                 f'from the plain version')
+
     exact = {'all_masked': (2, 11, 40, 16, 1.01),
              'm_275_rows': (3, 11, 50, 33, 0.2),
              'batch_1': (1, 24, 80, 64, 0.2),
@@ -454,10 +502,28 @@ def phase_spline_kernel(fwd_res, bwd_res):
         hold_equal(f'spline d_t {name}',
                    lambda: route_d_t(g, basis, routing),
                    lambda: plain_route_d_t(g, basis, routing))
+        hold_records(name, basis, routing)
         if name == 'all_masked' and bool(out.any()):
             raise AssertionError('an all-masked node did not give zeros')
-        log(f'spline_kernel: case {name} B,N,E,O={case[:4]}: fwd and d_t '
-            f'bit-equal, repeats identical')
+        log(f'spline_kernel: case {name} B,N,E,O={case[:4]}: fwd, d_t and '
+            f'slot records bit-equal, repeats identical')
+    # A hub: 30% of the slots point at row 7 of each graph (~770 slots,
+    # more than the d_t kernel stages per warp), beside empty rows.
+    for O in (64, 256):
+        t, g, basis, routing = _spline_exact(gen, 4, 80, 640, O, 0.3)
+        flat = routing.flat.clone()
+        flat[torch.rand(flat.shape, generator=gen).cuda() < 0.3] = 7
+        routing = Routing(flat, routing.receivers, routing.edge_mask, 80,
+                          routing.num_rows)
+        hold_equal(f'spline d_t hub O={O}',
+                   lambda: route_d_t(g, basis, routing),
+                   lambda: plain_route_d_t(g, basis, routing))
+        hold_records(f'hub O={O}', basis, routing)
+        _, offsets = routing.slot_records(basis)
+        counts = offsets[1:] - offsets[:-1]
+        log(f'spline_kernel: case hub O={O}: d_t bit-equal, repeat '
+            f'identical (largest row {int(counts.max())} slots, '
+            f'{int((counts == 0).sum())} of {counts.numel()} rows empty)')
 
     # The four SplineConv shapes of the training path on a real batch.
     args = _train_args()
@@ -467,9 +533,10 @@ def phase_spline_kernel(fwd_res, bwd_res):
     basis, routing = spline_routing(graph, 5)
     B, N = graph.x.shape[:2]
     M = routing.num_rows
-    err_f = err_b = 0.0
+    hold_records('training batch', basis, routing)
     for label, O in (('psi_1 conv_0/1', args.dim), ('psi_2 conv_0/1',
                                                     args.rnd_dim)):
+        err_f = err_b = 0.0
         for layer in (0, 1):
             t = torch.randn(B, M, O, generator=gen).cuda()
             g = torch.randn(B, N, O, generator=gen).cuda()
@@ -500,7 +567,9 @@ def phase_spline_kernel(fwd_res, bwd_res):
                  'fwd sparse.mm': lambda: torch.sparse.mm(R, t2),
                  'd_t': lambda: route_d_t(g, basis, routing),
                  'd_t plain': lambda: plain_route_d_t(g, basis, routing),
-                 'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2)}
+                 'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2),
+                 'slot records': lambda: build_slot_records(routing,
+                                                            basis)}
         got, src = timed(calls)
         dev = {k: v[0] for k, v in got.items()}
         log(f'spline_kernel: O={O}, bound fwd {fb:.4f} ms ({fby}), d_t '
@@ -509,21 +578,24 @@ def phase_spline_kernel(fwd_res, bwd_res):
             f'events, median of 10): '
             + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
                         for k, v in got.items()))
-        if O == args.dim:   # the JSON line carries the ψ₁ width (O=256)
-            fwd_res.update(ms=dev['fwd'], plain_ms=dev['fwd plain'],
-                           bound_ms=fb, bound_by=fby,
-                           library_ms=dev['fwd sparse.mm'], ms_source=src)
-            bwd_res.update(ms=dev['d_t'], plain_ms=dev['d_t plain'],
-                           bound_ms=bb, bound_by=bby,
-                           library_ms=dev['d_t sparse.mm'], ms_source=src)
-    fwd_res.update(name='spline_route_fwd', route='cuda',
+        # The JSON line carries ψ₁'s width (O=256) under the kernels'
+        # names and ψ₂'s (O=64) as extra entries.
+        f_res, b_res = ((fwd_res, bwd_res) if O == args.dim
+                        else (fwd64, bwd64))
+        f_res.update(ms=dev['fwd'], plain_ms=dev['fwd plain'],
+                     bound_ms=fb, bound_by=fby, max_abs_err=err_f,
+                     library_ms=dev['fwd sparse.mm'], ms_source=src)
+        b_res.update(ms=dev['d_t'], plain_ms=dev['d_t plain'],
+                     bound_ms=bb, bound_by=bby, max_abs_err=err_b,
+                     library_ms=dev['d_t sparse.mm'], ms_source=src)
+    for res, name, line in (
+            (fwd_res, 'spline_route_fwd', 72),
+            (bwd_res, 'spline_route_bwd', 96),
+            (fwd64, f'spline_route_fwd@O={args.rnd_dim}', 72),
+            (bwd64, f'spline_route_bwd@O={args.rnd_dim}', 96)):
+        res.update(name=name, route='cuda',
                    source='dgmc_tpu_torch/csrc/spline.cu',
-                   replaces='dgmc_tpu/ops/pallas/spline.py:72',
-                   max_abs_err=err_f)
-    bwd_res.update(name='spline_route_bwd', route='cuda',
-                   source='dgmc_tpu_torch/csrc/spline.cu',
-                   replaces='dgmc_tpu/ops/pallas/spline.py:96',
-                   max_abs_err=err_b)
+                   replaces=f'dgmc_tpu/ops/pallas/spline.py:{line}')
 
 
 def phase_consensus_kernel(result):
@@ -960,7 +1032,8 @@ def phase_kg_train(results):
         rows = profile(lambda: step(state, dev_b, 12345), 'one phase-2 step',
                        top=14)
         mine = [(m.group(1), dev_us, count) for dev_us, key, count in rows
-                if (m := re.search(r'::(sc_\w+|topk_tiles)\b', key))]
+                if (m := re.search(r'::(sc_\w+|topk_tiles|merge_lists)\b',
+                                   key))]
         log('profile: one phase-2 step: the port\'s kernels: ' + ', '.join(
             f'{name} {dev_us / 1e3:.3f} ms x{count}'
             for name, dev_us, count in mine))
@@ -969,7 +1042,7 @@ def phase_kg_train(results):
 
 
 
-def phase_serve(result):
+def phase_serve(result, small):
     from dgmc_tpu_torch.ops.graph import GraphBatch
     from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.serve.cli import dbp15k_kg, dbp15k_model
@@ -1003,12 +1076,14 @@ def phase_serve(result):
 
     # The main path: counters at 0 just before, read just after.
     steps = engine.model.num_steps
+    by_rows = {}   # top-k launches by the query's padded row count
     dispatch.reset()
     answers, answered = [], 0
     for qi, (graph, gt) in enumerate(queries):
         before = dispatch.launch_counts()
         ans = engine.match(graph)
         answered += 1
+        rows = router.route(graph.num_nodes, graph.num_edges).nodes
         latency_ms = engine.last_latency_s * 1e3
         after = dispatch.launch_counts()
         for name, per in (('topk', 1), ('sparse_consensus_fwd', steps)):
@@ -1018,6 +1093,8 @@ def phase_serve(result):
                                      f'{before[name]} -> {after[name]}')
         again = engine.match(graph)
         answered += 1
+        by_rows[rows] = (by_rows.get(rows, 0)
+                         + dispatch.launch_counts()['topk'] - before['topk'])
         if again != ans:
             raise AssertionError(f'query {qi}: a repeat gave another answer')
         hits1 = float(np.mean([m['target'] == int(t)
@@ -1043,6 +1120,9 @@ def phase_serve(result):
         f'{hits1_s0:.4f}, random weights); max_memory_allocated {peak} '
         f'bytes ({peak / 2**30:.3f} GiB)')
     result['launches'] = launches
+    for n in SMALL_ROWS:
+        small[n]['launches'] = by_rows.get(n, 0)
+    log(f'serve: topk launches by query rows {sorted(by_rows.items())}')
 
     # The kernel against its plain version on the inputs the main path
     # gave it: ψ₁ of each padded query against the corpus table.
@@ -1087,7 +1167,8 @@ def phase_serve(result):
 
 #: Launches per train step and per eval batch at full width:
 #: (spline_route_fwd, spline_route_bwd, consensus_fwd). ψ₁ runs 2 layers
-#: on 2 graphs, ψ₂ 2 layers on 2 graphs in each of 10 consensus steps.
+#: on 2 graphs (at O = 256), ψ₂ 2 layers on 2 graphs in each of 10
+#: consensus steps (at O = 64).
 TRAIN_KERNELS = ('spline_route_fwd', 'spline_route_bwd', 'consensus_fwd')
 PER_TRAIN_STEP = (44, 44, 10)
 PER_EVAL_BATCH = (44, 0, 10)
@@ -1099,6 +1180,34 @@ ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
 #: the CPU float64 path than twice the CPU float32 path is, and never
 #: farther than GRAD_F64_CAP.
 GRAD_TOL, GRAD_F64_CAP = 1e-3, 2e-3
+
+
+@contextlib.contextmanager
+def spline_launches_by_width():
+    """Within the block, file every spline kernel launch under the width
+    O it ran at: ``{(kernel, O): launches}``, the wrappers' counters read
+    around each forward and backward of ``route_aggregate``'s autograd
+    function (each calls one wrapper once)."""
+    from dgmc_tpu_torch.ops.kernels import spline
+    fn, tally = spline._RouteAggregate, {}
+    fwd, bwd = fn.forward, fn.backward
+
+    def counted(name, wrapper, call, x, *args):
+        before = wrapper.launches
+        out = call(*args)
+        key = (name, x.shape[-1])
+        tally[key] = tally.get(key, 0) + wrapper.launches - before
+        return out
+
+    fn.forward = staticmethod(lambda ctx, t, basis, routing: counted(
+        'spline_route_fwd', spline.route_fwd, fwd, t, ctx, t, basis,
+        routing))
+    fn.backward = staticmethod(lambda ctx, g: counted(
+        'spline_route_bwd', spline.route_d_t, bwd, g, ctx, g))
+    try:
+        yield tally
+    finally:
+        fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
 
 
 def _deltas(a, b):
@@ -1142,10 +1251,12 @@ def phase_train(results):
     argv = ['--seed', '0', '--epochs', '1', '--synthetic_eval', '128']
     torch.cuda.reset_peak_memory_stats()
     # The main path: counters at 0 just before, read just after.
-    dispatch.reset()
-    marks.append(('start', time.perf_counter(), dispatch.launch_counts()))
-    pascal_pf.main(argv, hook=hook)
-    counts = dispatch.launch_counts()
+    with spline_launches_by_width() as by_width:
+        dispatch.reset()
+        marks.append(('start', time.perf_counter(),
+                      dispatch.launch_counts()))
+        pascal_pf.main(argv, hook=hook)
+        counts = dispatch.launch_counts()
     decisions = dispatch.decisions()
     peak = torch.cuda.max_memory_allocated()
     kinds = [m[0] for m in marks[1:]]
@@ -1162,6 +1273,13 @@ def phase_train(results):
         if d['path'] != 'kernel' or d['counts']['plain']:
             raise AssertionError(f'{name}: dispatch {d}')
         results[name]['launches'] = counts[name]
+    for name in TRAIN_KERNELS[:2]:
+        widths = {o: n for (k, o), n in by_width.items() if k == name}
+        if sum(widths.values()) != counts[name]:
+            raise AssertionError(f'{name}: launches by width {widths} do not '
+                                 f'add up to {counts[name]}')
+        results[f'{name}@64']['launches'] = widths.get(64, 0)
+        log(f'train: {name} launches by width O: {sorted(widths.items())}')
     if not np.isfinite(losses).all():
         raise AssertionError(f'non-finite train loss: {losses}')
     step_ms = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
@@ -1225,7 +1343,15 @@ def phase_train(results):
         f'included) {collate_ms:.3f} ms, drawing and copying the '
         f'indicator noise {noise_ms:.3f} ms')
     try:
-        profile(lambda: step(state, batch, 12345), 'one train step', top=12)
+        rows = profile(lambda: step(state, batch, 12345), 'one train step',
+                       top=12)
+        mine = [(m.group(1), dev_us, count) for dev_us, key, count in rows
+                if (m := re.search(
+                    r'::(route_\w+|g_norm|slot_records|consensus_fwd)\b',
+                    key))]
+        log('profile: one train step: the port\'s kernels: ' + ', '.join(
+            f'{name} {dev_us / 1e3:.3f} ms x{count}'
+            for name, dev_us, count in mine))
     except Exception as e:   # the breakdown is informational only
         log(f'profile: one train step: not measured ({e!r})')
 
@@ -1250,18 +1376,22 @@ def main():
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
 
-    res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:])}
+    res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:],
+                           *(f'topk@{n}' for n in SMALL_ROWS),
+                           'spline_route_fwd@64', 'spline_route_bwd@64')}
+    small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     failed = []
     for name, fn in (
             ('build', phase_build),
-            ('topk_kernel', lambda: phase_topk_kernel(res['topk'])),
+            ('topk_kernel', lambda: phase_topk_kernel(res['topk'], small)),
             ('spline_kernel', lambda: phase_spline_kernel(
-                res['spline_route_fwd'], res['spline_route_bwd'])),
+                res['spline_route_fwd'], res['spline_route_bwd'],
+                res['spline_route_fwd@64'], res['spline_route_bwd@64'])),
             ('consensus_kernel', lambda: phase_consensus_kernel(
                 res['consensus_fwd'])),
             ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
                 res['sparse_consensus_fwd'], res['sparse_consensus_bwd'])),
-            ('serve', lambda: phase_serve(res['topk'])),
+            ('serve', lambda: phase_serve(res['topk'], small)),
             ('train', lambda: phase_train(res)),
             ('kg_train', lambda: phase_kg_train(res))):
         t0 = time.perf_counter()

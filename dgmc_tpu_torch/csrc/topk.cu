@@ -6,38 +6,65 @@
 // lowest target index first among equal values (the lax.top_k rule), and
 // never materializes the N_s x N_t score matrix.
 //
-// Bound on the H100: 2*N_s*N_t*C FLOPs at the card's float32 rate, with
-// device-memory traffic of only h_s + h_t + t_mask + out (each read or
-// written once). At the DBP15K shape (15000 x 20000, C = 256, k = 10)
-// that is 153.6 GFLOP against ~36 MB, so it is bound by operations.
+// Bound on the H100: 2*N_s*N_t*C FLOPs at the card's float32 rate (FMAs
+// outside the tensor cores: the port's float32 contract keeps TF32 off),
+// with device-memory traffic of h_s + h_t + t_mask + out, each read or
+// written once. At the DBP15K shape (15000 x 20000, C = 256, k = 10) that
+// is 153.6 GFLOP against ~36 MB: bound by operations. A 16-64-row query
+// against the same table is bound by the 20 MB read of h_t instead.
 //
 // Design. The TPU kernel keeps its running top-k in VMEM across a
 // sequential grid axis over target blocks; CUDA blocks run in no order,
-// so here each block owns TS source rows and LOOPS over its target tiles:
-//   1. a SIMT register-tiled product builds one TS x TT float32 score
-//      tile: 256 threads, each an 8 x 8 register tile fed by four 16-byte
-//      shared-memory loads per channel (64 FMAs), so the FMA units and
-//      not shared-memory bandwidth set the pace. Channel slices of h_s
-//      and h_t are staged in double-buffered shared memory (the next
-//      slice's global loads are in flight while the current one is
-//      multiplied); every score sums its channels in order;
-//   2. masked targets score -FLT_MAX (strictly below every real score,
-//      which DGMC's arithmetic entry mask relies on); targets past N_t
-//      are never candidates;
-//   3. one thread per row merges the tile into the row's sorted carry of
-//      k (value desc, index asc) held in shared memory. A candidate
-//      enters only when STRICTLY greater than the carry's k-th value and
-//      moves past every entry >= it; tile candidates always carry larger
-//      indices than the carry, so lowest-index-wins holds by
-//      construction. The carry starts at -inf, below -FLT_MAX, so when k
-//      exceeds the valid targets the masked ones fill in index order.
-
-// Small queries have one row tile, which alone would occupy one SM; the
-// target axis is therefore split into segments (blockIdx.y), each block
-// writes a partial top-k, and a second kernel merges the segments in
-// order with the same insertion rule (segment s holds larger indices
-// than segments < s). The result does not depend on the segmentation.
-// Both kernels are deterministic: no atomics, fixed summation order.
+// so each block owns TS source rows (TS in {16, 32, 64, 128}, the
+// wrapper's choice: a small query gets a row tile of its own size, so no
+// FMA goes to padding rows) and LOOPS over the TT = 128-target tiles of
+// one segment of the target axis:
+//   1. Product. A ring of 3 shared-memory slots (2 where a large carry
+//      leaves no room), each holding BK = 32 channels of the TS h_s rows
+//      and the TT h_t rows in their global (channel-contiguous) layout,
+//      filled by cp.async two slots ahead of the one being multiplied:
+//      one barrier per 32 channels, the loads of the next slots in flight
+//      meanwhile, across tile boundaries too. 256 threads in a 16 x 16
+//      grid, each a (TS/16) x 8 register tile: rows ty + 16i, targets
+//      tx + 16j, read as float4s along the channels (the row pitch of
+//      BK + 4 floats makes those reads conflict-free). Every score sums
+//      its channels in order. A block may use 255 registers, so the 64
+//      accumulators and 36 operand registers of TS = 128 do not spill.
+//   2. Selection from registers, no barrier. The 16 threads that hold a
+//      row's scores form one half-warp, so a row is selected there: only
+//      scores strictly above the row's k-th carried value are candidates
+//      (carried indices are all lower), and for k <= 16 a tile's scores
+//      below the k-th largest of the 16 threads' maxima are dropped too
+//      (they cannot reach the tile's own top k). After the first tiles a
+//      tile costs a comparison per score and one ballot per row. A row
+//      with candidates loads its carry (row-major in shared memory) into
+//      the half-warp's registers, entry e in lane e % 16. Where a
+//      half-warp has more than BATCH_MIN candidates (k <= 16; the first
+//      tiles of a segment), they go in batches of up to 16, one a lane: a
+//      16-lane bitonic sort, then the better of each (carry, batch) pair
+//      and a bitonic merge leave the best 16 of both in order, a fixed 15
+//      shuffle stages a batch instead of a chain of collectives per
+//      candidate. Otherwise (and for k > 16) each candidate is placed by
+//      a ballot count of the entries better than it, those behind it
+//      moving up a lane. Keys order by value descending, then index
+//      ascending, so the result does not depend on the order of
+//      insertion. With one block on the SM, every warp waits at the next
+//      barrier for the slowest warp's selection, so its cost shows in
+//      full (PERF.md).
+//   3. Masked targets score -FLT_MAX (strictly below every real score,
+//      which DGMC's arithmetic entry mask relies on); targets past the
+//      segment are never candidates. The carry starts at -inf, below
+//      -FLT_MAX, so when k exceeds the valid targets the masked ones fill
+//      in index order.
+// Small queries would occupy few SMs, so the wrapper cuts the target
+// axis into segments (blockIdx.y); each block writes the partial top-k of
+// its segment, and merge_lists merges the segments' lists: W warps per
+// row each fold a strided share of the lists into a running top-K2
+// (K2 = 32, 64 or 128 >= k) held in registers, a bitonic sort of each
+// batch of K2 candidates then a bitonic merge; batches that hold nothing
+// above the running k-th entry are skipped; warp 0 folds the W partial
+// lists. Keys are compared by value, then index, so every path gives the
+// same exact top-k. Deterministic: no atomics, fixed summation order.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -48,218 +75,613 @@
 
 namespace {
 
-constexpr int TS = 128;       // source rows per block
-constexpr int TT = 128;       // targets per score tile
-constexpr int BK = 8;         // channels staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int LD = TS + 4;    // staged row stride: 16-byte aligned, and
-                              // the transposing stores hit distinct banks
-constexpr int K_MAX = 128;    // carry: 8 * TS * k bytes of shared memory
+constexpr int TT = 128;        // targets per tile
+constexpr int BK = 32;         // channels per ring slot
+constexpr int PITCH = BK + 4;  // floats per staged row: 16-byte aligned,
+                               // PITCH / 4 odd (conflict-free float4 reads)
+constexpr int THREADS = 256;   // 16 x 16
+constexpr int K_MAX = 128;     // carry: 8 * TS * k bytes of shared memory
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_INDEX = 0x7fffffff;  // index of an empty carry entry
+constexpr int BATCH_MIN = 4;  // a half-warp inserts more candidates (k <= 16)
+constexpr int ROW_TILES[] = {16, 32, 64, 128};  // source rows per block
+constexpr int N_ROW_TILES = sizeof(ROW_TILES) / sizeof(ROW_TILES[0]);
 
-static_assert(TS == TT, "the staging loops assume square tiles");
+// Blocks of TS rows per SM that the launch bounds ask for: a 128-row
+// block takes the whole register file (255 registers a thread), smaller
+// row tiles share an SM two at a time. The wrapper's launch plan reads
+// this through dgmc_topk_blocks_per_sm.
+constexpr int blocks_per_sm(int ts) { return ts == 128 ? 1 : 2; }
+                              // as a sorted batch, fewer one at a time
 
-// Stage channels [c0, c0 + BK) of rows [r0, r0 + TS) (bounded by n rows
-// and C channels) into registers: thread t owns row t / 2, channels
-// (t % 2) * 4 .. + 3.
-__device__ __forceinline__ void load_slice(const float* __restrict__ src,
-                                           int r0, int n, int C, int c0,
-                                           int tid, float (&reg)[4]) {
-  const int r = r0 + tid / 2;
-  const int c = c0 + (tid % 2) * 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    reg[j] = (r < n && c + j < C) ? src[(size_t)r * C + c + j] : 0.f;
+__device__ __forceinline__ bool better(float v, int i, float w, int j) {
+  return v > w || (v == w && i < j);
 }
 
-__device__ __forceinline__ void store_slice(float* dst, int tid,
-                                            const float (&reg)[4]) {
-  const int r = tid / 2;
-  const int c = (tid % 2) * 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) dst[(c + j) * LD + r] = reg[j];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until the oldest of the ring's in-flight slots has landed.
+__device__ __forceinline__ void cp_wait_ring(int stages) {
+  if (stages == 3)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Copy channels [c0, c0 + BK) of rows [r0, r0 + rows) of src (bounded by
+// n rows and C channels; the rest zero-filled) into dst [rows][PITCH].
+// vec: 16-byte copies (C % 4 == 0 and 16-byte aligned rows), else 4-byte.
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int rows, int n, int C, int c0,
+                                      bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (BK / 4); e += THREADS) {
+      const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+      const bool ok = r0 + r < n && c0 + c < C;
+      cp_async16(dst + r * PITCH + c,
+                 ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * BK; e += THREADS) {
+      const int r = e / BK, c = e % BK;
+      const bool ok = r0 + r < n && c0 + c < C;
+      cp_async4(dst + r * PITCH + c,
+                ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
+    }
+  }
+}
+
+// Candidates of a half-warp (the set bits of `cand` over its 16 lanes).
+__device__ __forceinline__ int half_count(unsigned cand) {
+  int cnt = __popc(cand);
+#pragma unroll
+  for (int d = 8; d > 0; d >>= 1) cnt += __shfl_xor_sync(FULL, cnt, d, 16);
+  return cnt;
+}
+
+// One compare-exchange step of a bitonic network over the 16 lanes of
+// each half-warp: pairs (l, l ^ d); the lower lane keeps the better key
+// where `desc`, the worse one elsewhere.
+__device__ __forceinline__ void cx16(float& v, int& x, int d, bool desc,
+                                     int l16) {
+  const float ov = __shfl_xor_sync(FULL, v, d, 16);
+  const int ox = __shfl_xor_sync(FULL, x, d, 16);
+  if (better(ov, ox, v, x) == (((l16 & d) == 0) == desc)) {
+    v = ov;
+    x = ox;
+  }
+}
+
+// Fold one tile's scores (acc, rows ty + 16i, targets t0 + tx + 16j) into
+// the carry (cv/ci [TS][k], each row sorted by key); see the header, step
+// 2. Q = ceil(k / 16) carry entries per lane (1, or 8 for any k <= 128).
+// scr: 64 words of scratch per warp.
+template <int TS, int Q>
+__device__ __forceinline__ void select_tile(
+    const float (&acc)[TS / 16][8], float* cv, int* ci, int* scr, int k,
+    int t0, int t_end, const uint8_t* __restrict__ m) {
+  constexpr int RM = TS / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, l16 = lane % 16;
+  const unsigned hmask = 0xffffu << (lane & 16);
+  bool valid[8], masked[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int gt = t0 + tx + 16 * j;
+    valid[j] = gt < t_end;
+    masked[j] = valid[j] && m != nullptr && m[gt] == 0;
+  }
+  auto score = [&](float x, int j) {
+    return !valid[j] ? -INFINITY : (masked[j] ? -FLT_MAX : x);
+  };
+  // Which of the thread's rows have a candidate anywhere in the warp
+  // (warp-uniform); only those are selected, one row at a time.
+  unsigned rows = 0;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const float thr = cv[(ty + 16 * i) * k + k - 1];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) any |= valid[j] && score(acc[i][j], j) > thr;
+    if (__ballot_sync(FULL, any)) rows |= 1u << i;
+  }
+#pragma unroll 1
+  for (int i = 0; i < RM; ++i) {
+    if (!((rows >> i) & 1)) continue;
+    const int r = ty + 16 * i;
+    float s[8];
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii)
+      if (ii == i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j] = score(acc[ii][j], j);
+      }
+    const float thr = cv[r * k + k - 1];
+    unsigned cand = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (valid[j] && s[j] > thr) cand |= 1u << j;
+    float ev[Q];
+    int ei[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = q * 16 + l16;
+      ev[q] = e < k ? cv[r * k + e] : -INFINITY;
+      ei[q] = e < k ? ci[r * k + e] : NO_INDEX;
+    }
+    if constexpr (Q == 1) {
+      const int cnt = half_count(cand);
+      if (__any_sync(FULL, cnt > k)) {
+        // The k-th largest of the half-warp's 16 maxima bounds the tile's
+        // own k-th largest score from below.
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, s[j]);
+        int above = 0;
+#pragma unroll
+        for (int l = 0; l < 16; ++l)
+          above += __shfl_sync(FULL, mx, l, 16) > mx;
+        float theta = above < k ? mx : INFINITY;
+#pragma unroll
+        for (int d = 8; d > 0; d >>= 1)
+          theta = fminf(theta, __shfl_xor_sync(FULL, theta, d, 16));
+        if (cnt > k) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (!(s[j] >= theta)) cand &= ~(1u << j);
+        }
+      }
+    }
+    if (Q == 1 && __any_sync(FULL, half_count(cand) > BATCH_MIN)) {
+      // Batches of up to 16 candidates, one a lane (in lane order),
+      // sorted by a bitonic network and merged into the carry held one
+      // entry a lane: the better of each pair (carry descending, batch
+      // ascending) is the best 16 of both, then a bitonic merge.
+      const int own = __popc(cand);
+      int upto = own;
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1) {
+        const int t = __shfl_up_sync(FULL, upto, d, 16);
+        if (l16 >= d) upto += t;
+      }
+      const int total = __shfl_sync(FULL, upto, 15, 16);
+      float* sv = reinterpret_cast<float*>(scr) + (lane & 16);
+      int* sx = scr + 32 + (lane & 16);
+      for (int base = 0; __any_sync(FULL, base < total); base += 16) {
+        unsigned c = cand;
+        for (int slot = upto - own; c; ++slot) {
+          const int jj = __ffs(c) - 1;
+          c &= c - 1;
+          if (slot >= base && slot < base + 16) {
+            float v = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j == jj) v = s[j];
+            sv[slot - base] = v;
+            sx[slot - base] = t0 + tx + 16 * jj;
+          }
+        }
+        __syncwarp();
+        float bv = base + l16 < total ? sv[l16] : -INFINITY;
+        int bx = base + l16 < total ? sx[l16] : NO_INDEX;
+        __syncwarp();
+#pragma unroll
+        for (int size = 2; size <= 16; size <<= 1)
+#pragma unroll
+          for (int d = size / 2; d > 0; d >>= 1)
+            cx16(bv, bx, d, (l16 & size) != 0, l16);
+        if (better(bv, bx, ev[0], ei[0])) {
+          ev[0] = bv;
+          ei[0] = bx;
+        }
+#pragma unroll
+        for (int d = 8; d > 0; d >>= 1) cx16(ev[0], ei[0], d, true, l16);
+      }
+    } else {
+      // One candidate at a time (few of them, or k > 16): its position is
+      // a ballot count of the entries better than it; those behind it
+      // move up a lane.
+      for (;;) {
+        const unsigned all = __ballot_sync(FULL, cand != 0);
+        if (all == 0) break;
+        const unsigned mine = all & hmask;
+        const int src = mine ? __ffs(mine) - 1 : 0;
+        float v = 0.f;
+        int idx = 0;
+        if (mine && lane == src) {
+          const int jj = __ffs(cand) - 1;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (j == jj) v = s[j];
+          idx = t0 + tx + 16 * jj;
+          cand &= cand - 1;
+        }
+        v = __shfl_sync(FULL, v, src);
+        idx = __shfl_sync(FULL, idx, src);
+        int p = 0;
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          p += __popc(__ballot_sync(FULL, mine && q * 16 + l16 < k &&
+                                              better(ev[q], ei[q], v, idx)) &
+                      hmask);
+        float up_v[Q], last_v[Q];
+        int up_i[Q], last_i[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          up_v[q] = __shfl_up_sync(FULL, ev[q], 1, 16);
+          up_i[q] = __shfl_up_sync(FULL, ei[q], 1, 16);
+          last_v[q] = __shfl_sync(FULL, ev[q], 15, 16);
+          last_i[q] = __shfl_sync(FULL, ei[q], 15, 16);
+        }
+        if (mine && p < k) {
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int e = q * 16 + l16;
+            if (e == p) {
+              ev[q] = v;
+              ei[q] = idx;
+            } else if (e > p) {
+              ev[q] = l16 ? up_v[q] : (q ? last_v[q - 1] : ev[q]);
+              ei[q] = l16 ? up_i[q] : (q ? last_i[q - 1] : ei[q]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = q * 16 + l16;
+      if (e < k) {
+        cv[r * k + e] = ev[q];
+        ci[r * k + e] = ei[q];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <int TS, int Q>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm(TS))
 topk_tiles(const float* __restrict__ h_s, const float* __restrict__ h_t,
            const uint8_t* __restrict__ t_mask, float* __restrict__ out_v,
-           int* __restrict__ out_i, int B, int N_s, int N_t, int C, int k,
-           int tiles_per_seg) {
+           int* __restrict__ out_i, int N_s, int N_t, int C, int k,
+           int nseg, int tiles_per_seg, int stages, bool vec) {
+  constexpr int RM = TS / 16;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                     // [2][BK][LD] h_s slices
-  float* Bs = As + 2 * BK * LD;         // [2][BK][LD] h_t slices
-  float* S = Bs + 2 * BK * LD;          // [TS][TT + 1] score tile
-  float* cv = S + TS * (TT + 1);        // [k][TS] carry values
-  int* ci = reinterpret_cast<int*>(cv + k * TS);  // [k][TS] carry indices
+  float* As = smem;                          // [stages][TS][PITCH]
+  float* Bs = As + stages * TS * PITCH;      // [stages][TT][PITCH]
+  float* cv = Bs + stages * TT * PITCH;      // [TS][k] carry values
+  int* ci = reinterpret_cast<int*>(cv + k * TS);  // [TS][k] carry indices
+  int* scr = ci + k * TS + threadIdx.x / 32 * 64;  // selection scratch
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int row0 = blockIdx.x * TS;
   const int seg = blockIdx.y;
   const int b = blockIdx.z;
   const float* hs = h_s + (size_t)b * N_s * C;
   const float* ht = h_t + (size_t)b * N_t * C;
-  const uint8_t* m = t_mask + (size_t)b * N_t;
-  const int n_slices = (C + BK - 1) / BK;
+  const uint8_t* m = t_mask ? t_mask + (size_t)b * N_t : nullptr;
 
-  for (int e = tid; e < k * TS; e += THREADS) {
+  for (int e = threadIdx.x; e < k * TS; e += THREADS) {
     cv[e] = -INFINITY;
-    ci[e] = 0;
+    ci[e] = NO_INDEX;
   }
-  float thr = -INFINITY;  // row tid's k-th carry value (threads < TS)
-  __syncthreads();
 
   const int t_begin = seg * tiles_per_seg * TT;
   const int t_end = min(N_t, t_begin + tiles_per_seg * TT);
-  for (int t0 = t_begin; t0 < t_end; t0 += TT) {
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int nk = (C + BK - 1) / BK;             // ring slots per tile
+  const int steps = (t_end - t_begin + TT - 1) / TT * nk;
 
-    float ra[4], rb[4];
-    load_slice(hs, row0, N_s, C, 0, tid, ra);
-    load_slice(ht, t0, t_end, C, 0, tid, rb);
-    store_slice(As, tid, ra);
-    store_slice(Bs, tid, rb);
-    __syncthreads();
-    for (int sl = 0; sl < n_slices; ++sl) {
-      const int cur = sl & 1;
-      const bool more = sl + 1 < n_slices;
-      if (more) {  // in flight while this slice is multiplied
-        load_slice(hs, row0, N_s, C, (sl + 1) * BK, tid, ra);
-        load_slice(ht, t0, t_end, C, (sl + 1) * BK, tid, rb);
-      }
-      const float* a_s = As + cur * BK * LD;
-      const float* b_s = Bs + cur * BK * LD;
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(
-            a_s + kk * LD + ty * 4);
-        const float4 a1 = *reinterpret_cast<const float4*>(
-            a_s + kk * LD + 64 + ty * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(
-            b_s + kk * LD + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            b_s + kk * LD + 64 + tx * 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                             b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      if (more) {
-        store_slice(As + (cur ^ 1) * BK * LD, tid, ra);
-        store_slice(Bs + (cur ^ 1) * BK * LD, tid, rb);
-      }
-      __syncthreads();
-    }
+  auto load = [&](int g) {
+    const int slot = g % stages;
+    const int t0 = t_begin + g / nk * TT, c0 = g % nk * BK;
+    stage(As + slot * TS * PITCH, hs, row0, TS, N_s, C, c0, vec);
+    stage(Bs + slot * TT * PITCH, ht, t0, TT, t_end, C, c0, vec);
+  };
+  for (int g = 0; g < stages - 1; ++g) {
+    if (g < steps) load(g);
+    cp_commit();
+  }
 
-    // Thread (ty, tx) holds rows ty*4 + {0..3}, 64 + ty*4 + {0..3} and
-    // columns tx*4 + {0..3}, 64 + tx*4 + {0..3} of the tile.
+  float acc[RM][8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      const int gt = t0 + t;
-      const bool valid = gt < t_end && m[gt] != 0;
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-        S[r * (TT + 1) + t] = valid ? acc[i][j] : -FLT_MAX;
-      }
-    }
-    __syncthreads();
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    if (tid < TS) {
-      const int r = tid;
-      const int n = min(TT, t_end - t0);
-      for (int t = 0; t < n; ++t) {
-        const float v = S[r * (TT + 1) + t];
-        if (v > thr) {
-          int p = k - 1;
-          while (p > 0 && cv[(p - 1) * TS + r] < v) {
-            cv[p * TS + r] = cv[(p - 1) * TS + r];
-            ci[p * TS + r] = ci[(p - 1) * TS + r];
-            --p;
-          }
-          cv[p * TS + r] = v;
-          ci[p * TS + r] = t0 + t;
-          thr = cv[(k - 1) * TS + r];
+  for (int g = 0; g < steps; ++g) {
+    cp_wait_ring(stages);
+    __syncthreads();  // slot g landed for all; slot g - 1 free to refill
+    if (g + stages - 1 < steps) load(g + stages - 1);
+    cp_commit();
+    const float* a_s = As + (g % stages) * TS * PITCH;
+    const float* b_s = Bs + (g % stages) * TT * PITCH;
+#pragma unroll
+    for (int c = 0; c < BK; c += 4) {
+      float4 bq[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bq[j] = *reinterpret_cast<const float4*>(b_s + (tx + 16 * j) * PITCH
+                                                 + c);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            a_s + (ty + 16 * i) * PITCH + c);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, bq[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, bq[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, bq[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, bq[j].w, acc[i][j]);
         }
       }
     }
-    __syncthreads();
+    if (g % nk == nk - 1) {
+      select_tile<TS, Q>(acc, cv, ci, scr, k, t_begin + g / nk * TT, t_end,
+                         m);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
   }
+  __syncthreads();
 
-  // out layout: [segments][B][N_s][k]
-  const size_t base = ((size_t)seg * B + b) * N_s;
-  for (int e = tid; e < TS * k; e += THREADS) {
+  // out layout: [B * N_s][nseg][k] (with one segment, [B, N_s, k]).
+  for (int e = threadIdx.x; e < TS * k; e += THREADS) {
     const int r = e / k, j = e % k;
     const int gr = row0 + r;
     if (gr < N_s) {
-      out_v[(base + gr) * k + j] = cv[j * TS + r];
-      out_i[(base + gr) * k + j] = ci[j * TS + r];
+      const size_t o = (((size_t)b * N_s + gr) * nseg + seg) * k + j;
+      out_v[o] = cv[r * k + j];
+      out_i[o] = ci[r * k + j];
     }
   }
 }
 
-// Merge the per-segment partial lists of each row, in segment order.
-__global__ void merge_segments(const float* __restrict__ part_v,
-                               const int* __restrict__ part_i,
-                               float* __restrict__ out_v,
-                               int* __restrict__ out_i, int rows, int k,
-                               int nseg) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  float* ov = out_v + (size_t)row * k;
-  int* oi = out_i + (size_t)row * k;
-  for (int j = 0; j < k; ++j) {
-    ov[j] = part_v[(size_t)row * k + j];
-    oi[j] = part_i[(size_t)row * k + j];
-  }
-  float thr = ov[k - 1];
-  for (int s = 1; s < nseg; ++s) {
-    const float* pv = part_v + ((size_t)s * rows + row) * k;
-    const int* pi = part_i + ((size_t)s * rows + row) * k;
-    for (int j = 0; j < k; ++j) {
-      const float v = pv[j];
-      if (!(v > thr)) break;  // the partial list is sorted descending
-      int p = k - 1;
-      while (p > 0 && ov[p - 1] < v) {
-        ov[p] = ov[p - 1];
-        oi[p] = oi[p - 1];
-        --p;
+// One step of a bitonic network over K2 = 32 * P keys held by a warp,
+// element e = q * 32 + lane: pairs (e, e ^ d); the lower element of a
+// pair keeps the better key where `desc(e)`, the worse one elsewhere.
+template <int P, typename F>
+__device__ __forceinline__ void bitonic_step(float (&v)[P], int (&x)[P],
+                                             int d, F desc) {
+  const int lane = threadIdx.x % 32;
+  if (d < 32) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const float ov = __shfl_xor_sync(FULL, v[q], d);
+      const int ox = __shfl_xor_sync(FULL, x[q], d);
+      const int e = q * 32 + lane;
+      const bool lower = (e & d) == 0;
+      const bool keep_better = lower == desc(e);
+      if (better(ov, ox, v[q], x[q]) == keep_better) {
+        v[q] = ov;
+        x[q] = ox;
       }
-      ov[p] = v;
-      oi[p] = pi[j];
-      thr = ov[k - 1];
+    }
+  } else {
+    const int dq = d / 32;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int q2 = q ^ dq;
+      if (q2 > q) {
+        const bool b = better(v[q2], x[q2], v[q], x[q]);
+        if (b == desc(q * 32 + lane)) {
+          const float tv = v[q];
+          const int ti = x[q];
+          v[q] = v[q2];
+          x[q] = x[q2];
+          v[q2] = tv;
+          x[q2] = ti;
+        }
+      }
     }
   }
+}
+
+// Fold a batch of K2 candidates (bv, bx) into the running list (rv, rx,
+// sorted by key, best first) of one warp: afterwards rv holds the best K2
+// of both, sorted. Candidates not better than the running k-th are
+// dropped first; a batch with none left is skipped.
+template <int P>
+__device__ __forceinline__ void fold(float (&rv)[P], int (&rx)[P],
+                                     float (&bv)[P], int (&bx)[P], int k) {
+  constexpr int K2 = 32 * P;
+  const int qk = (k - 1) / 32;
+  float kv = 0.f;
+  int kx = 0;
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+    if (q == qk) {
+      kv = rv[q];
+      kx = rx[q];
+    }
+  kv = __shfl_sync(FULL, kv, (k - 1) % 32);
+  kx = __shfl_sync(FULL, kx, (k - 1) % 32);
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    if (!better(bv[q], bx[q], kv, kx)) {
+      bv[q] = -INFINITY;
+      bx[q] = NO_INDEX;
+    } else {
+      any = true;
+    }
+  }
+  if (!__any_sync(FULL, any)) return;
+  // Sort the batch ascending (worst first).
+  for (int size = 2; size <= K2; size <<= 1)
+    for (int d = size / 2; d > 0; d >>= 1)
+      bitonic_step<P>(bv, bx, d, [&](int e) { return (e & size) != 0; });
+  // Best of each pair (descending running list against ascending batch):
+  // the best K2 of both, as a bitonic sequence.
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+    if (better(bv[q], bx[q], rv[q], rx[q])) {
+      rv[q] = bv[q];
+      rx[q] = bx[q];
+    }
+  for (int d = K2 / 2; d > 0; d >>= 1)
+    bitonic_step<P>(rv, rx, d, [](int) { return true; });
+}
+
+// rows x nseg sorted lists of k (part_v/part_i [rows][nseg][k]) → the
+// top k of each row's nseg * k candidates (out [rows][k]). A block holds
+// blockDim.x / 32 / W rows, W warps each.
+template <int P>
+__global__ void merge_lists(const float* __restrict__ part_v,
+                            const int* __restrict__ part_i,
+                            float* __restrict__ out_v,
+                            int* __restrict__ out_i, int rows, int k,
+                            int nseg, int W) {
+  constexpr int K2 = 32 * P;
+  __shared__ float sv[THREADS / 32][K2];
+  __shared__ int sx[THREADS / 32][K2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w = warp % W;
+  const int row = blockIdx.x * (blockDim.x / 32 / W) + warp / W;
+  const bool live = row < rows;
+  const int n = nseg * k;
+  const float* pv = part_v + (size_t)row * n;
+  const int* pi = part_i + (size_t)row * n;
+
+  float rv[P], bv[P];
+  int rx[P], bx[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    rv[q] = -INFINITY;
+    rx[q] = NO_INDEX;
+  }
+  if (live) {
+    for (int base = w * K2; base < n; base += W * K2) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int e = base + q * 32 + lane;
+        bv[q] = e < n ? pv[e] : -INFINITY;
+        bx[q] = e < n ? pi[e] : NO_INDEX;
+      }
+      fold<P>(rv, rx, bv, bx, k);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    sv[warp][q * 32 + lane] = rv[q];
+    sx[warp][q * 32 + lane] = rx[q];
+  }
+  __syncthreads();
+  if (!live || w != 0) return;
+  for (int u = 1; u < W; ++u) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      bv[q] = sv[warp + u][q * 32 + lane];
+      bx[q] = sx[warp + u][q * 32 + lane];
+    }
+    fold<P>(rv, rx, bv, bx, k);
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int e = q * 32 + lane;
+    if (e < k) {
+      out_v[(size_t)row * k + e] = rv[q];
+      out_i[(size_t)row * k + e] = rx[q];
+    }
+  }
+}
+
+template <int TS, int Q>
+int launch_tiles(const float* h_s, const float* h_t, const uint8_t* t_mask,
+                 float* tv, int* ti, int B, int N_s, int N_t, int C, int k,
+                 int nseg, int tiles_per_seg, bool vec, cudaStream_t st) {
+  const size_t carry = (sizeof(float) + sizeof(int)) * (size_t)k * TS +
+                       sizeof(int) * 2 * THREADS;     // + selection scratch
+  const size_t slot = sizeof(float) * (TS + TT) * PITCH;
+  const int stages = carry + 3 * slot <= SMEM_MAX ? 3 : 2;
+  const size_t smem = carry + stages * slot;
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_tiles<TS, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N_s + TS - 1) / TS, nseg, B);
+  topk_tiles<TS, Q><<<grid, THREADS, smem, st>>>(
+      h_s, h_t, t_mask, tv, ti, N_s, N_t, C, k, nseg, tiles_per_seg, stages,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+template <int TS>
+int launch_tiles(const float* h_s, const float* h_t, const uint8_t* t_mask,
+                 float* tv, int* ti, int B, int N_s, int N_t, int C, int k,
+                 int nseg, int tiles_per_seg, bool vec, cudaStream_t st) {
+  return k <= 16 ? launch_tiles<TS, 1>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                       C, k, nseg, tiles_per_seg, vec, st)
+                 : launch_tiles<TS, K_MAX / 16>(h_s, h_t, t_mask, tv, ti, B,
+                                                N_s, N_t, C, k, nseg,
+                                                tiles_per_seg, vec, st);
+}
+
+template <int P>
+int launch_merge(const float* part_v, const int* part_i, float* out_v,
+                 int* out_i, int rows, int k, int nseg, cudaStream_t st) {
+  constexpr int K2 = 32 * P;
+  const int batches = (nseg * k + K2 - 1) / K2;
+  const int W = batches >= 16 ? 8 : batches >= 4 ? 4 : batches >= 2 ? 2 : 1;
+  const int per_block = THREADS / 32 / W;
+  merge_lists<P><<<(rows + per_block - 1) / per_block, THREADS, 0, st>>>(
+      part_v, part_i, out_v, out_i, rows, k, nseg, W);
+  return (int)cudaGetLastError();
 }
 
 int launch(const float* h_s, const float* h_t, const uint8_t* t_mask,
            float* part_v, int* part_i, float* out_v, int* out_i, int B,
-           int N_s, int N_t, int C, int k, int nseg, int tiles_per_seg,
-           cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (4 * BK * LD + TS * (TT + 1)) +
-      (sizeof(float) + sizeof(int)) * (size_t)k * TS;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N_s + TS - 1) / TS, nseg, B);
+           int N_s, int N_t, int C, int k, int ts, int nseg,
+           int tiles_per_seg, cudaStream_t st) {
+  const bool vec = C % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(h_s) |
+                     reinterpret_cast<uintptr_t>(h_t)) % 16) == 0;
   float* tv = nseg > 1 ? part_v : out_v;
   int* ti = nseg > 1 ? part_i : out_i;
-  topk_tiles<<<grid, THREADS, smem, st>>>(h_s, h_t, t_mask, tv, ti, B, N_s,
-                                          N_t, C, k, tiles_per_seg);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nseg == 1) return (int)err;
+  int err;
+  switch (ts) {
+    case 16:
+      err = launch_tiles<16>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
+                             nseg, tiles_per_seg, vec, st);
+      break;
+    case 32:
+      err = launch_tiles<32>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
+                             nseg, tiles_per_seg, vec, st);
+      break;
+    case 64:
+      err = launch_tiles<64>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
+                             nseg, tiles_per_seg, vec, st);
+      break;
+    default:
+      err = launch_tiles<128>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
+                              nseg, tiles_per_seg, vec, st);
+  }
+  if (err != cudaSuccess || nseg == 1) return err;
   const int rows = B * N_s;
-  merge_segments<<<(rows + 127) / 128, 128, 0, st>>>(part_v, part_i, out_v,
-                                                    out_i, rows, k, nseg);
-  return (int)cudaGetLastError();
+  if (k <= 32)
+    return launch_merge<1>(part_v, part_i, out_v, out_i, rows, k, nseg, st);
+  if (k <= 64)
+    return launch_merge<2>(part_v, part_i, out_v, out_i, rows, k, nseg, st);
+  return launch_merge<4>(part_v, part_i, out_v, out_i, rows, k, nseg, st);
 }
 
 }  // namespace
@@ -267,26 +689,32 @@ int launch(const float* h_s, const float* h_t, const uint8_t* t_mask,
 extern "C" {
 
 int dgmc_topk_k_max() { return K_MAX; }
-int dgmc_topk_rows_per_block() { return TS; }
 int dgmc_topk_targets_per_tile() { return TT; }
+// The i-th row tile the kernel is built for (ascending), 0 past the last.
+int dgmc_topk_row_tile(int i) {
+  return i >= 0 && i < N_ROW_TILES ? ROW_TILES[i] : 0;
+}
+int dgmc_topk_blocks_per_sm(int ts) { return blocks_per_sm(ts); }
 
 // h_s [B, N_s, C], h_t [B, N_t, C] float32 contiguous; t_mask [B, N_t]
-// uint8. Outputs out_v [B, N_s, k] float32 and out_i [B, N_s, k] int32.
-// With nseg > 1, part_v / part_i hold [nseg, B, N_s, k] scratch and the
-// target axis is cut into nseg segments of tiles_per_seg tiles of TT.
+// uint8, or null for no mask. Outputs out_v [B, N_s, k] float32 and out_i
+// [B, N_s, k] int32. ts (16, 32, 64 or 128) source rows per block; the
+// target axis is cut into nseg segments of tiles_per_seg tiles of TT, none
+// empty; with nseg > 1, part_v / part_i hold [B * N_s, nseg, k] scratch.
 // Launches on `stream` on `device`, does not synchronize, restores the
 // calling thread's current device, returns cudaGetLastError().
 int dgmc_topk_f32(const float* h_s, const float* h_t, const uint8_t* t_mask,
                   float* part_v, int* part_i, float* out_v, int* out_i,
-                  int B, int N_s, int N_t, int C, int k, int nseg,
+                  int B, int N_s, int N_t, int C, int k, int ts, int nseg,
                   int tiles_per_seg, int device, void* stream) {
-  if (k < 1 || k > K_MAX || k > N_t || nseg < 1 || tiles_per_seg < 1 ||
-      (long long)nseg * tiles_per_seg * TT < N_t || B < 1 || N_s < 1 ||
-      C < 1)
+  if (k < 1 || k > K_MAX || k > N_t || B < 1 || N_s < 1 || C < 1 ||
+      (ts != 16 && ts != 32 && ts != 64 && ts != 128) || nseg < 1 ||
+      tiles_per_seg < 1 || (long long)nseg * tiles_per_seg * TT < N_t ||
+      (long long)(nseg - 1) * tiles_per_seg * TT >= N_t)
     return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     return launch(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B, N_s,
-                  N_t, C, k, nseg, tiles_per_seg,
+                  N_t, C, k, ts, nseg, tiles_per_seg,
                   reinterpret_cast<cudaStream_t>(stream));
   });
 }

@@ -25,8 +25,11 @@ do not apply), so every CUDA call launches.
 
 Both kernels read CSR lists that :class:`Routing` builds once per graph
 batch with a stable sort (receiver-sorted edges, flat-sorted slots) and
-caches, so the layers of one SplineCNN call share them. Sums run in that
-fixed order without atomics: repeats are bit-identical.
+caches, so the layers of one SplineCNN call share them; the ``d_t``
+kernel reads the slots as 32-bit records (:meth:`Routing.slot_records`,
+one launch of a third kernel, once per routing and basis) and divides
+``g`` by the receivers' degrees once per node. Sums run in that fixed
+order without atomics: repeats are bit-identical.
 """
 
 import ctypes
@@ -36,8 +39,9 @@ import torch
 from dgmc_tpu_torch.ops.graph import scatter_to_nodes, segments
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['Routing', 'plain_route_aggregate', 'plain_route_d_t',
-           'route_fwd', 'route_d_t', 'route_aggregate']
+__all__ = ['Routing', 'build_slot_records', 'plain_route_aggregate',
+           'plain_route_d_t', 'plain_slot_records', 'route_fwd', 'route_d_t',
+           'route_aggregate']
 
 
 class Routing:
@@ -59,7 +63,7 @@ class Routing:
         self.edge_mask = edge_mask
         self.num_nodes = num_nodes
         self.num_rows = num_rows
-        self._rcv = self._slots = None
+        self._rcv = self._slots = self._records = None
 
     @property
     def device(self):
@@ -89,6 +93,59 @@ class Routing:
             bounds = torch.arange(B * M + 1, device=self.device)
             self._slots = (order, torch.searchsorted(sorted_key, bounds))
         return self._slots
+
+    def slot_records(self, basis):
+        """``(records, offsets)`` that the ``d_t`` kernel reads (see
+        :func:`build_slot_records`), built once per routing and ``basis``
+        tensor (its storage and version), like the CSR lists."""
+        key = (basis.data_ptr(), basis._version, tuple(basis.shape))
+        if self._records is None or self._records[0] != key:
+            # Holding basis keeps its storage (and so the key) its own.
+            self._records = (key, basis, *build_slot_records(self, basis))
+        return self._records[2:]
+
+
+def plain_slot_records(routing, basis):
+    """The plain version of :func:`build_slot_records`."""
+    order, offsets = routing.slot_csr()
+    E, A = routing.flat.shape[1:]
+    edge = order // A
+    node = (edge // E) * routing.num_nodes + routing.receivers.reshape(
+        -1)[edge]
+    weight = basis.detach().reshape(-1).to(torch.float32)[order]
+    records = torch.stack([node.to(torch.int32), weight.view(torch.int32)],
+                          dim=1)
+    return records, offsets.to(torch.int32)
+
+
+def build_slot_records(routing, basis):
+    """``(records, offsets)``: one record of two 32-bit words per slot, in
+    the order of :meth:`Routing.slot_csr` — the receiver node of the
+    flattened batch ``b*N + receivers[b, e]`` (int32) and the slot's
+    weight ``basis[b, e, a]`` (float32 bits) — ``[B*E*A, 2]`` int32
+    (masked slots last, never read), and the row offsets of
+    :meth:`Routing.slot_csr` as int32. One launch of the ``slot_records``
+    kernel on the card (uncached; :meth:`Routing.slot_records` caches
+    it), :func:`plain_slot_records` on the CPU."""
+    dev = _check(basis, basis, routing, 'slot_records')
+    B, E, A = routing.flat.shape
+    if B * E * A >= 2 ** 31:
+        raise ValueError(f'{B * E * A} slots exceed the int32 records of '
+                         f'the d_t kernel')
+    if dev.type == 'cpu':
+        return plain_slot_records(routing, basis)
+    order, offsets = routing.slot_csr()
+    basis = basis.detach().contiguous()
+    records = torch.empty((B * E * A, 2), dtype=torch.int32, device=dev)
+    off32 = torch.empty(offsets.shape, dtype=torch.int32, device=dev)
+    err = _library().dgmc_spline_slot_records(
+        order.data_ptr(), routing.receivers.data_ptr(), basis.data_ptr(),
+        offsets.data_ptr(), records.data_ptr(), off32.data_ptr(),
+        B * E * A, offsets.numel(), E, A, routing.num_nodes, *_stream(dev))
+    if err != 0:
+        raise RuntimeError(f'slot_records kernel launch failed with CUDA '
+                           f'error {err} (B={B}, E={E}, A={A})')
+    return records, off32
 
 
 def plain_route_aggregate(t, basis, routing):
@@ -150,10 +207,14 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dgmc_spline_route_fwd_f32.argtypes = [p] * 6 + [i, i, ll, i, i,
                                                            i, p]
-        lib.dgmc_spline_route_dt_f32.argtypes = [p] * 7 + [i, i, ll, i, i,
+        lib.dgmc_spline_route_dt_f32.argtypes = [p] * 6 + [i, i, ll, i, i,
+                                                          p]
+        lib.dgmc_spline_slot_records.argtypes = [p] * 6 + [ll, ll, i, i, i,
                                                           i, p]
-        lib.dgmc_spline_route_fwd_f32.restype = ctypes.c_int
-        lib.dgmc_spline_route_dt_f32.restype = ctypes.c_int
+        for fn in (lib.dgmc_spline_route_fwd_f32,
+                   lib.dgmc_spline_route_dt_f32,
+                   lib.dgmc_spline_slot_records):
+            fn.restype = ctypes.c_int
         lib.spline_bound = True
     return lib
 
@@ -225,19 +286,19 @@ def route_d_t(g, basis, routing):
         return plain_route_d_t(g, basis, routing)
     dispatch.record('spline_route_bwd', 'kernel', 'auto-cuda')
     lib = _library()
-    M, A = routing.num_rows, routing.flat.shape[2]
+    M = routing.num_rows
+    records, offsets = routing.slot_records(basis)
     _, rcv_offsets = routing.receiver_csr()
-    slot_order, slot_offsets = routing.slot_csr()
-    g, basis = g.contiguous(), basis.contiguous()
+    g = g.contiguous()
+    g_norm = torch.empty_like(g)       # scratch: g / max(deg, 1)
     d_t = torch.empty((B, M, O), dtype=torch.float32, device=dev)
     err = lib.dgmc_spline_route_dt_f32(
-        g.data_ptr(), routing.receivers.data_ptr(), basis.data_ptr(),
-        slot_order.data_ptr(), slot_offsets.data_ptr(),
-        rcv_offsets.data_ptr(), d_t.data_ptr(), B, N, M, O, A,
-        *_stream(dev))
+        g.data_ptr(), records.data_ptr(), offsets.data_ptr(),
+        rcv_offsets.data_ptr(), g_norm.data_ptr(), d_t.data_ptr(), B, N, M,
+        O, *_stream(dev))
     if err != 0:
         raise RuntimeError(f'spline_route_bwd kernel launch failed with CUDA '
-                           f'error {err} (B={B}, N={N}, M={M}, O={O}, A={A})')
+                           f'error {err} (B={B}, N={N}, M={M}, O={O})')
     route_d_t.launches += 1
     return d_t
 

@@ -19,25 +19,36 @@ carries no gradient.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['K_MAX', 'PLAIN_BLOCK', 'plain_topk', 'streaming_topk']
+__all__ = ['BLOCK_OVERHEAD_TILES', 'K_MAX', 'PLAIN_BLOCK', 'ROW_TILES',
+           'TARGETS_PER_TILE', 'blocks_per_sm', 'launch_plan', 'plain_topk',
+           'streaming_topk']
 
 #: Largest ``k`` the kernel takes: its per-row carry lives in shared
-#: memory (8 bytes x 128 rows x k) beside 81 KB of tiles, and k <= 128
-#: keeps a block within the 227 KB a block may use (at k = 10 two blocks
-#: share an SM). Checked against the compiled library at load.
+#: memory (8 bytes x rows per block x k) beside 108 KB of staging slots
+#: (72 KB where the carry needs the room), within the 227 KB a block may
+#: use. Checked against the compiled library at load.
 K_MAX = 128
 
 #: Target block of the plain scan.
 PLAIN_BLOCK = 256
 
-_ROWS_PER_BLOCK = 128
-_TARGETS_PER_TILE = 128
+#: Source rows per block the kernel is built for, and targets per tile
+#: (both checked against the compiled library at load).
+ROW_TILES = (16, 32, 64, 128)
+TARGETS_PER_TILE = 128
+
+#: A block's own cost in tiles (filling the staging ring, its first,
+#: candidate-heavy selection, writing its list), as measured on the H100:
+#: the whole DBP15K source KG takes 5.62 ms in one segment (118 blocks)
+#: and 5.75 ms in ten (1180 blocks, 9 waves), which fits about two.
+BLOCK_OVERHEAD_TILES = 2
 
 
 def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
@@ -78,32 +89,67 @@ def _library():
     lib = load_library('topk.cu')
     if not getattr(lib, 'topk_bound', False):
         fn = lib.dgmc_topk_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for name in ('dgmc_topk_k_max', 'dgmc_topk_rows_per_block',
-                     'dgmc_topk_targets_per_tile'):
+        for name in ('dgmc_topk_k_max', 'dgmc_topk_targets_per_tile',
+                     'dgmc_topk_row_tile', 'dgmc_topk_blocks_per_sm'):
             getattr(lib, name).restype = ctypes.c_int
-        got = (lib.dgmc_topk_k_max(), lib.dgmc_topk_rows_per_block(),
-               lib.dgmc_topk_targets_per_tile())
-        want = (K_MAX, _ROWS_PER_BLOCK, _TARGETS_PER_TILE)
+        tiles = tuple(t for t in map(lib.dgmc_topk_row_tile,
+                                     range(len(ROW_TILES) + 1)) if t)
+        got = (lib.dgmc_topk_k_max(), lib.dgmc_topk_targets_per_tile(),
+               tiles, tuple(map(lib.dgmc_topk_blocks_per_sm, tiles)))
+        want = (K_MAX, TARGETS_PER_TILE, ROW_TILES,
+                tuple(map(blocks_per_sm, ROW_TILES)))
         if got != want:
-            raise RuntimeError(f'csrc/topk.cu constants {got} differ from '
-                               f'the wrapper\'s {want}')
+            raise RuntimeError(f'csrc/topk.cu launch constants {got} differ '
+                               f'from the wrapper\'s {want}')
         lib.topk_bound = True
     return lib
 
 
-def _segments(B, N_s, N_t, device):
-    """Cut the target axis so that up to two blocks per SM are in flight
-    in one wave: a small query (one row tile) would otherwise run on one
-    SM."""
-    n_tiles = -(-N_t // _TARGETS_PER_TILE)
-    blocks = B * -(-N_s // _ROWS_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, 2 * sms // blocks))
-    tiles_per_seg = -(-n_tiles // want)
-    return -(-n_tiles // tiles_per_seg), tiles_per_seg
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def blocks_per_sm(ts):
+    """Blocks of ``ts`` rows that share an SM: the kernel's launch bounds
+    give a 128-row block the whole register file (255 registers a
+    thread), smaller row tiles two blocks. Checked against the compiled
+    library at load, with :data:`ROW_TILES`."""
+    return 1 if ts == 128 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(B, N_s, N_t, sms):
+    """``(rows_per_block, segments, tiles_per_segment)`` of one kernel
+    launch, a pure function of the shapes and the card's SM count.
+
+    The row tile is the smallest of :data:`ROW_TILES` that holds the
+    query (128 for larger ones), so no FMA goes to padding rows. The
+    ``n_tiles = ceil(N_t / 128)`` target tiles are cut into segments of
+    consecutive tiles, in index order, each covered by one block per row
+    tile; segment ``s`` holds tiles ``[s * tiles_per_segment, min((s + 1)
+    * tiles_per_segment, n_tiles))`` and none is empty. The segment length
+    minimizes the waves of blocks (:func:`blocks_per_sm` blocks per SM at
+    a time) times the time of a block: its tiles plus
+    :data:`BLOCK_OVERHEAD_TILES` of its own, the longest segments among
+    equals. So a small query spreads over the whole card, and a large
+    one is cut only where a fuller last wave pays for the extra blocks.
+    """
+    ts = next((t for t in ROW_TILES if N_s <= t), ROW_TILES[-1])
+    n_tiles = -(-N_t // TARGETS_PER_TILE)
+    row_blocks = B * -(-N_s // ts)
+    slots = sms * blocks_per_sm(ts)
+
+    def makespan(tiles_per_seg):
+        nseg = -(-n_tiles // tiles_per_seg)
+        return (-(-row_blocks * nseg // slots)
+                * (tiles_per_seg + BLOCK_OVERHEAD_TILES))
+
+    tiles_per_seg = min(range(n_tiles, 0, -1), key=makespan)
+    return ts, -(-n_tiles // tiles_per_seg), tiles_per_seg
 
 
 @dispatch.kernel_wrapper('topk')
@@ -145,26 +191,29 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     dispatch.record('topk', 'kernel', 'auto-cuda')
     lib = _library()
     h_s, h_t = h_s.contiguous(), h_t.contiguous()
-    mask = (torch.ones((B, N_t), dtype=torch.uint8, device=device)
-            if t_mask is None else t_mask.to(torch.uint8).contiguous())
+    mask = (None if t_mask is None
+            else t_mask.to(torch.uint8).contiguous())
     out_v = torch.empty((B, N_s, k), dtype=torch.float32, device=device)
     out_i = torch.empty((B, N_s, k), dtype=torch.int32, device=device)
-    nseg, tiles_per_seg = _segments(B, N_s, N_t, device)
-    if nseg > 1:
-        part_v = torch.empty((nseg, B, N_s, k), dtype=torch.float32,
-                             device=device)
-        part_i = torch.empty((nseg, B, N_s, k), dtype=torch.int32,
-                             device=device)
-    else:
-        part_v, part_i = out_v, out_i
     stream = torch.cuda.current_stream(device)
+    ts, nseg, tiles_per_seg = launch_plan(B, N_s, N_t,
+                                          _sm_count(stream.device_index))
+    part_v = part_i = None
+    if nseg > 1:
+        part_v = torch.empty((B * N_s, nseg, k), dtype=torch.float32,
+                             device=device)
+        part_i = torch.empty((B * N_s, nseg, k), dtype=torch.int32,
+                             device=device)
     err = lib.dgmc_topk_f32(
-        h_s.data_ptr(), h_t.data_ptr(), mask.data_ptr(), part_v.data_ptr(),
-        part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), B, N_s, N_t,
-        C, k, nseg, tiles_per_seg, stream.device_index, stream.cuda_stream)
+        h_s.data_ptr(), h_t.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if part_v is None else part_v.data_ptr(),
+        None if part_i is None else part_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), B, N_s, N_t, C, k, ts, nseg, tiles_per_seg,
+        stream.device_index, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f'topk kernel launch failed with CUDA error '
                            f'{err} (B={B}, N_s={N_s}, N_t={N_t}, C={C}, '
-                           f'k={k}, segments={nseg})')
+                           f'k={k}, rows per block={ts}, segments={nseg})')
     streaming_topk.launches += 1
     return out_v, out_i

@@ -19,8 +19,10 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
                                                   plain_consensus)
 from dgmc_tpu_torch.ops.kernels.spline import (Routing,
+                                               build_slot_records,
                                                plain_route_aggregate,
-                                               plain_route_d_t, route_d_t,
+                                               plain_route_d_t,
+                                               plain_slot_records, route_d_t,
                                                route_fwd)
 from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
     plain_fused_candidate_delta, plain_sparse_consensus_bwd,
@@ -30,10 +32,17 @@ from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 
 # (B, N_s, N_t, C, k, masked share): ties, tile boundaries, segments,
-# k above the valid targets and k at the kernel's limit.
+# k above the valid targets and k at the kernel's limit; then each row
+# tile (16, 32, 64, 128 rows) with the segment merge against 20000
+# targets, k at the limit through the merge, and channel counts that are
+# no multiple of 4 (4-byte staging).
 CASES = [(2, 300, 700, 8, 7, 0.3), (1, 64, 64, 8, 3, None),
          (1, 65, 65, 8, 3, None), (1, 16, 5000, 32, 10, 0.5),
-         (1, 40, 20, 4, 9, 0.8), (1, 200, 3000, 32, K_MAX, 0.9)]
+         (1, 40, 20, 4, 9, 0.8), (1, 200, 3000, 32, K_MAX, 0.9),
+         (1, 1, 20000, 32, 10, None), (1, 16, 20000, 32, 10, None),
+         (1, 17, 20000, 32, 10, 0.5), (1, 33, 20000, 32, 10, None),
+         (1, 64, 20000, 32, 10, 0.3), (1, 16, 20000, 8, K_MAX, None),
+         (2, 50, 300, 3, 5, 0.2), (1, 130, 2000, 7, 10, None)]
 
 
 @pytest.fixture
@@ -61,6 +70,25 @@ def test_topk_kernel_matches_plain(cuda, case):
     assert dispatch.decisions()['topk']['path'] == 'kernel'
     pv, pi = plain_topk(h_s, h_t, k, mask)
     assert torch.equal(i, pi) and torch.equal(v, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_s', [1, 16, 64])
+def test_topk_kernel_k_above_valid_targets_across_segments(cuda, n_s):
+    """Only 5 of 20000 targets valid, k = 10: each segment's list and the
+    merge must put the masked targets (finfo.min) after the valid ones,
+    lowest index first."""
+    rng = np.random.RandomState(n_s)
+    h_s = torch.from_numpy(rng.randint(-2, 3, (1, n_s, 32)).astype(
+        np.float32)).to(cuda)
+    h_t = torch.from_numpy(rng.randint(-2, 3, (1, 20000, 32)).astype(
+        np.float32)).to(cuda)
+    mask = torch.zeros(1, 20000, dtype=torch.bool, device=cuda)
+    mask[0, [3, 777, 5000, 12345, 19999]] = True
+    v, i = streaming_topk(h_s, h_t, 10, mask)
+    pv, pi = plain_topk(h_s, h_t, 10, mask)
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+    assert (v[..., 5:] == torch.finfo(torch.float32).min).all()
 
 
 @pytest.mark.cuda
@@ -123,6 +151,44 @@ def test_spline_kernels_match_plain(cuda, case):
     assert torch.equal(d_t, plain_route_d_t(g, basis, routing))
     assert torch.equal(out, route_fwd(t, basis, routing))
     assert torch.equal(d_t, route_d_t(g, basis, routing))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('O', [64, 256])
+@pytest.mark.parametrize('hub', [0.0, 0.3])
+def test_route_d_t_kernel_with_empty_rows_and_a_hub(cuda, O, hub):
+    """The training path's widths at B = 4, 80 nodes, 640 edges: most
+    rows of d_t have no slot; with ``hub`` 0.3 of the slots point at one
+    row per graph (~770 slots, more than a warp stages)."""
+    t, g, basis, routing = _spline_case(cuda, 4, 80, 640, O, 0.3)
+    if hub:
+        rng = np.random.RandomState(O)
+        flat = routing.flat.clone()
+        flat[torch.from_numpy(rng.rand(*flat.shape) < hub).to(cuda)] = 7
+        routing = Routing(flat, routing.receivers, routing.edge_mask, 80,
+                          routing.num_rows)
+    _, offsets = routing.slot_records(basis)
+    counts = offsets[1:] - offsets[:-1]
+    assert (counts == 0).any()
+    if hub:
+        assert int(counts.max()) > 128
+    before = route_d_t.launches
+    d_t = route_d_t(g, basis, routing)
+    torch.cuda.synchronize()
+    assert route_d_t.launches == before + 1
+    assert torch.equal(d_t, plain_route_d_t(g, basis, routing))
+    assert torch.equal(d_t, route_d_t(g, basis, routing))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SPLINE_CASES)
+def test_slot_records_kernel_matches_plain(cuda, case):
+    _, _, basis, routing = _spline_case(cuda, *case)
+    got = build_slot_records(routing, basis)
+    torch.cuda.synchronize()
+    want = plain_slot_records(routing, basis)
+    assert all(a.dtype == torch.int32 for a in got)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # (B, N_s, N_t, R): ragged tiles, one pair, the training path's shape and

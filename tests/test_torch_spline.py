@@ -184,3 +184,102 @@ def test_splineconv_routes_through_wrapper_and_matches_plain():
             + conv.bias)
     np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
                                atol=1e-6)
+
+
+def _receiver_degree(routing):
+    """``max(deg, 1)`` per receiver node, as the ``d_t`` kernel reads it
+    from the receiver CSR offsets."""
+    _, offsets = routing.receiver_csr()
+    B, N = routing.flat.shape[0], routing.num_nodes
+    return (offsets[1:] - offsets[:-1])[:B * N].float().clamp(min=1)
+
+
+def _records_d_t(g, routing, basis):
+    """``d_t`` in plain PyTorch from what the ``d_t`` kernel reads: the
+    slot records and the receivers' degrees; each row sums ``w *
+    (g / deg)[node]`` over its records."""
+    records, offsets = routing.slot_records(basis)
+    B, N, O = g.shape
+    M = routing.num_rows
+    n = int(offsets[-1])
+    node = records[:n, 0].long()
+    w = records[:n, 1].view(torch.float32)
+    g_norm = g.reshape(B * N, O) / _receiver_degree(routing)[:, None]
+    contrib = w[:, None] * g_norm[node]
+    rows = torch.repeat_interleave(torch.arange(B * M),
+                                   (offsets[1:] - offsets[:-1]).long())
+    return torch.zeros(B * M, O).index_add_(0, rows, contrib).reshape(
+        B, M, O)
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_slot_records_match_their_definition(name):
+    seed, N, E, mask_frac = CASES[name]
+    t_, basis_, routing = _torch_args(*_problem(N=N, E=E, seed=seed,
+                                                mask_frac=mask_frac))
+    records, offsets = routing.slot_records(basis_)
+    order, slot_offsets = routing.slot_csr()
+    B, E, A = routing.flat.shape
+    assert records.dtype == offsets.dtype == torch.int32
+    assert records.shape == (B * E * A, 2)
+    assert torch.equal(offsets.long(), slot_offsets)
+    edge = order // A
+    b = edge // E
+    rcv = routing.receivers.reshape(-1)[edge]
+    assert torch.equal(records[:, 0].long(), b * N + rcv)
+    assert torch.equal(records[:, 1].view(torch.float32),
+                       basis_.reshape(-1)[order])
+    deg = torch.zeros(B, N)
+    for bb in range(B):
+        for e in range(E):
+            if routing.edge_mask[bb, e]:
+                deg[bb, routing.receivers[bb, e]] += 1
+    assert torch.equal(_receiver_degree(routing),
+                       deg.clamp(min=1).reshape(-1))
+    # Every slot of a row points at it; masked slots lie past the end.
+    n = int(offsets[-1])
+    assert n == int(routing.edge_mask.sum()) * A
+    rows = torch.repeat_interleave(torch.arange(B * routing.num_rows),
+                                   (offsets[1:] - offsets[:-1]).long())
+    flat = routing.flat.reshape(-1)[order[:n]]
+    assert torch.equal(rows, b[:n] * routing.num_rows + flat)
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_d_t_from_slot_records_matches_jax_kernel(name):
+    """The records carry everything d_t needs: summed per row in plain
+    PyTorch they give the JAX kernel's gradient w.r.t. t (the cases and
+    tolerance of test_route_gradients_match_jax_kernel)."""
+    seed, N, E, mask_frac = CASES[name]
+    args = _problem(N=N, E=E, seed=seed + 1, mask_frac=mask_frac)
+    t, flat, basis, rcv, em, _ = args
+    j = dict(zip(('flat', 'rcv', 'em'), map(jnp.asarray, (flat, rcv, em))))
+
+    def loss(t):
+        out = jax_route(t, j['flat'], jnp.asarray(basis), j['rcv'], j['em'],
+                        N, True)
+        return (out ** 2).sum()
+
+    want = jax.grad(loss)(jnp.asarray(t))
+    out = jax_route(*map(jnp.asarray, (t, flat, basis, rcv, em)), N, True)
+    _, basis_, routing = _torch_args(*args)
+    g = torch.from_numpy(2 * np.asarray(out))
+    got = _records_d_t(g, routing, basis_)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_array_equal(got.numpy(), plain_route_d_t(
+        g, basis_, routing).numpy())
+
+
+def test_slot_records_are_cached_per_basis():
+    _, basis_, routing = _torch_args(*_problem(N=11, E=40, seed=3))
+    records, offsets = routing.slot_records(basis_)
+    again = routing.slot_records(basis_)
+    assert again[0] is records and again[1] is offsets
+    other = basis_.clone() * 2
+    doubled, _ = routing.slot_records(other)
+    assert torch.equal(doubled[:, 1].view(torch.float32),
+                       2 * records[:, 1].view(torch.float32))
+    basis_.mul_(3)                      # in place: a new version
+    tripled, _ = routing.slot_records(basis_)
+    assert torch.equal(tripled[:, 1].view(torch.float32),
+                       3 * records[:, 1].view(torch.float32))

@@ -19,8 +19,10 @@ from dgmc_tpu.ops.topk import chunked_topk as jax_chunked
 from dgmc_tpu.ops.topk import dense_topk as jax_dense
 from dgmc_tpu_torch.ops import topk as port
 from dgmc_tpu_torch.ops.kernels import dispatch
-from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
-                                             streaming_topk)
+from dgmc_tpu_torch.ops.kernels.topk import (BLOCK_OVERHEAD_TILES, K_MAX,
+                                             ROW_TILES, TARGETS_PER_TILE,
+                                             blocks_per_sm, launch_plan,
+                                             plain_topk, streaming_topk)
 
 
 def _case(name):
@@ -124,3 +126,89 @@ def test_search_carries_no_gradient():
     h_t = torch.randn(1, 9, 4, requires_grad=True)
     vals, _ = port.chunked_topk(h_s, h_t, 3, return_values=True)
     assert not vals.requires_grad
+
+
+# (B, N_s, N_t, SM count): the small serve queries (16, 32, 64 rows and
+# row counts just past a tile), one row, the whole DBP15K source KG, the
+# CPU comparison's 1500 x 2000, a batch of 2, fewer targets than a tile
+# and a smaller card.
+PLANS = [(1, 16, 20000, 132), (1, 32, 20000, 132), (1, 64, 20000, 132),
+         (1, 17, 20000, 132), (1, 33, 20000, 132), (1, 1, 20000, 132),
+         (1, 15000, 20000, 132), (1, 1500, 2000, 132), (2, 130, 1100, 132),
+         (1, 40, 20, 132), (1, 16, 20000, 80)]
+
+
+def _plan_segments(N_t, tiles_per_seg, nseg):
+    n_tiles = -(-N_t // TARGETS_PER_TILE)
+    return [list(range(s * tiles_per_seg,
+                       min((s + 1) * tiles_per_seg, n_tiles)))
+            for s in range(nseg)]
+
+
+@pytest.mark.parametrize('plan', PLANS)
+def test_launch_plan_sizes_the_row_tile_and_covers_targets_in_order(plan):
+    B, N_s, N_t, sms = plan
+    ts, nseg, tiles_per_seg = launch_plan(B, N_s, N_t, sms)
+    # The smallest row tile that holds the query: no padding-row tile.
+    assert ts == min([t for t in ROW_TILES if t >= N_s] or [128])
+    # Every target tile exactly once, segments in index order, none empty.
+    segs = _plan_segments(N_t, tiles_per_seg, nseg)
+    assert all(segs)
+    assert [t for seg in segs for t in seg] == list(
+        range(-(-N_t // TARGETS_PER_TILE)))
+    blocks = B * -(-N_s // ts) * nseg
+    if N_s <= 64 and N_t >= 2 * sms * TARGETS_PER_TILE:
+        assert blocks >= sms          # a small query fills the card
+    # No other segment length gives fewer waves x (tiles + the block's
+    # own cost).
+    n_tiles = len(_plan_segments(N_t, 1, -(-N_t // TARGETS_PER_TILE)))
+    slots = sms * blocks_per_sm(ts)
+
+    def cost(tps):
+        waves = -(-B * -(-N_s // ts) * -(-n_tiles // tps) // slots)
+        return waves * (tps + BLOCK_OVERHEAD_TILES)
+    assert cost(tiles_per_seg) == min(cost(t) for t in range(1, n_tiles + 1))
+
+
+@pytest.mark.parametrize('plan', [(1, 16, 1100, 132), (2, 130, 1100, 132),
+                                  (1, 40, 20, 132)])
+@pytest.mark.parametrize('name', ['ties_mask', 'continuous'])
+def test_segment_lists_merged_by_key_match_jax(plan, name):
+    """The kernel's split: each segment's own top-k (the plain scan over
+    its targets), then a merge of the lists by value descending and index
+    ascending, gives JAX's top-k, ties included."""
+    B, N_s, N_t, sms = plan
+    rng = np.random.RandomState(N_s + N_t)
+    k = 7
+    if name == 'ties_mask':
+        h_s = rng.randint(0, 3, (B, N_s, 8)).astype(np.float32)
+        h_t = rng.randint(0, 3, (B, N_t, 8)).astype(np.float32)
+        mask = rng.rand(B, N_t) > 0.6
+    else:
+        h_s = rng.randn(B, N_s, 8).astype(np.float32)
+        h_t = rng.randn(B, N_t, 8).astype(np.float32)
+        mask = None
+    _, nseg, tiles_per_seg = launch_plan(B, N_s, N_t, sms)
+    vals, idx = [], []
+    for seg in _plan_segments(N_t, tiles_per_seg, nseg):
+        lo = seg[0] * TARGETS_PER_TILE
+        hi = min(N_t, (seg[-1] + 1) * TARGETS_PER_TILE)
+        kk = min(k, hi - lo)
+        v, i = plain_topk(_torch(h_s), _torch(h_t[:, lo:hi]), kk,
+                          None if mask is None else _torch(mask[:, lo:hi]))
+        vals.append(v)
+        idx.append(i.long() + lo)
+    v, i = torch.cat(vals, -1), torch.cat(idx, -1)
+    by_index = torch.argsort(i, dim=-1, stable=True)
+    v, i = v.gather(-1, by_index), i.gather(-1, by_index)
+    order = torch.argsort(v, dim=-1, descending=True, stable=True)[..., :k]
+    want_v, want_i = jax_chunked(_jax(h_s), _jax(h_t), k, _jax(mask),
+                                 return_values=True, pallas=False)
+    np.testing.assert_array_equal(i.gather(-1, order).numpy(),
+                                  np.asarray(want_i))
+    if name == 'ties_mask':
+        np.testing.assert_array_equal(v.gather(-1, order).numpy(),
+                                      np.asarray(want_v))
+    else:
+        np.testing.assert_allclose(v.gather(-1, order).numpy(),
+                                   np.asarray(want_v), rtol=1e-5)
