@@ -4,6 +4,17 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --steps N [--root DIR]
+
+With ``--steps`` it runs none of the phases below: it builds the kernels
+of the ``dgmc_tpu_torch`` under ``DIR`` (default: beside this script),
+then times N synchronized steps (after 2 warm-up steps) of the dense
+PascalPF training step (the CLI's defaults, one fixed batch, so no
+collation) and of the KG phase-2 step, profiles one more of each and
+prints one JSON line of medians, device busy time, device ops and the
+port's kernels by name. Running it for two trees in turns in one call
+(say, an unpacked parent commit, then this one) compares them on one
+card.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -34,18 +45,26 @@ Phases (any failure exits non-zero and prints no result line):
   plain versions and ``torch.sparse.mm`` of the block-diagonal routing
   matrix (yardstick only) at O=256 and O=64, each with its bound, and
   the slot records' build (once per routing, outside d_t's time).
-- ``consensus_kernel``: the dense consensus kernel against its plain
-  factored version, the same way, at [64, 80, 80], R=64 and a ragged
-  case; times the kernel and the plain version (no single PyTorch call
-  computes it).
+- ``consensus_kernel``: the dense consensus kernels (the shared
+  projection, then the pair kernel) against their plain factored version,
+  the same way, at [64, 80, 80], R=64, ragged cases and R=33 and R=128;
+  times them (and each launch) and the plain version (no single PyTorch
+  call computes it), and the plain tile-recompute backward at the same
+  shape (device time per call and by op).
 - ``sparse_consensus_kernel``: the sparse consensus kernels (forward and
   backward) against their plain versions — bit-equal on exact inputs (a
-  duplicate-heavy shortlist, one row, K=1, R=128, B=2; the backward also
-  against autograd of the unfused plain form), within rtol 1e-5 / atol
-  1e-5 x max|out| on float32 at [1, 15000, 20, 32] and [1, 15000, 10, 32]
-  over 20000 targets; repeats bit-identical. Times both kernels and their
-  plain versions at both shapes (no single PyTorch call computes them).
-  Also shows that the port's gather gradient repeats bit-identically.
+  duplicate-heavy shortlist, one row, K=1, R=128, B=2, a Zipf hub
+  shortlist at the DBP15K shape, K=40 at R=33; the backward also against
+  autograd of the unfused plain form, given the forward's state as the
+  main path hands it over, while the plain version forms u itself; the
+  narrow form under the identity shortlist against autograd), within
+  rtol 1e-5 / atol 1e-5 x max|out| on float32 at [1, 15000, 20, 32] and
+  [1, 15000, 10, 32] over 20000 targets; repeats bit-identical. Times
+  both kernels (the forward with and without writing the state; the
+  JSON line carries the forward as training calls it, writing the state,
+  at K=20), each launch, and their plain versions at both shapes (no
+  single PyTorch call computes them). Also shows that the port's gather
+  gradient repeats bit-identically.
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
@@ -61,7 +80,8 @@ Phases (any failure exits non-zero and prints no result line):
   plus 128 held-out pairs): the dispatch ledger shows the kernels, the
   launch counters rise by 44/44/10 per train step and 44/0/10 per eval
   batch, every loss is finite; the spline launches are also filed by
-  the width they ran at (:func:`spline_launches_by_width`). Then: the first step's loss and gradients
+  the width they ran at (:func:`spline_launches_by_width`). Then: the
+  first step's loss and gradients
   against the CPU plain path on the same weights, batch and noise
   (``GRAD_TOL``, with a float64 CPU reference beyond it); two 2-step
   runs from one seed give bit-identical losses; the median step time,
@@ -78,7 +98,8 @@ Phases (any failure exits non-zero and prints no result line):
   full widths and 1500 / 2000 entities (``GRAD_TOL`` with a float64 CPU
   reference beyond it); two 2-step phase-2 runs from one seed give
   bit-identical losses; median step times, peak memory and a profile of
-  one phase-2 step (informational).
+  one phase-2 step (informational), with each of the port's kernels'
+  device time per launch on the real phase-2 shortlists.
 
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
 one JSON line listing every kernel at its main shape, plus entries for
@@ -93,9 +114,11 @@ times or CUDA-event times), and last
 matrix products and cuDNN.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import copy
+import itertools
 import json
 import os
 import re
@@ -598,8 +621,32 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
                    replaces=f'dgmc_tpu/ops/pallas/spline.py:{line}')
 
 
+def launch_split(fn, runs=10):
+    """Device ms per call of each kernel (and copy) that ``fn`` launches,
+    by name (``torch.profiler``, ``runs`` calls), or None where the
+    profiler recorded nothing."""
+    rows, _ = _profiled(fn, runs)
+    out = {}
+    for dev_us, key, _ in rows:
+        m = re.search(r'(\w+)(?:<[^>(]*>)?\(', key)
+        name = m.group(1) if m else key[:40]
+        out[name] = out.get(name, 0.0) + dev_us / 1e3 / runs
+    return out or None
+
+
+def fmt_split(split):
+    if split is None:
+        return 'not measured'
+    return ', '.join(f'{k} {v:.4f}' for k, v in sorted(
+        split.items(), key=lambda kv: -kv[1]))
+
+
 def phase_consensus_kernel(result):
-    from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
+    from dgmc_tpu_torch.ops.kernels import consensus
+    from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX,
+                                                      consensus_backward,
+                                                      consensus_fwd,
+                                                      launch_plan,
                                                       plain_consensus)
     gen = torch.Generator().manual_seed(2)
 
@@ -614,7 +661,8 @@ def phase_consensus_kernel(result):
             draw(1, scale=0.1))]
 
     shapes = {'ragged': (2, 20, 37, 8), 'one_pair': (1, 1, 1, 1),
-              'train_width': (64, 80, 80, 64), 'r_max': (2, 33, 65, R_MAX)}
+              'train_width': (64, 80, 80, 64), 'r_max': (2, 33, 65, R_MAX),
+              'r_33': (3, 80, 80, 33)}
     for name, shape in shapes.items():
         a = case(*shape, ints=True)
         hold_equal(f'consensus {name}', lambda: consensus_fwd(*a),
@@ -644,6 +692,42 @@ def phase_consensus_kernel(result):
         f'({flops / 1e9:.3f} GFLOP factored, against '
         f'{2.0 * B * N_s * N_t * R * R / 1e9:.2f} for the per-pair product; '
         f'{nbytes / 1e6:.2f} MB); no single PyTorch call computes it')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f'consensus_kernel: launch plan {launch_plan(B, N_s, N_t, sms)} '
+        f'(TS, TT) on {sms} SMs; device ms per call by launch: '
+        f'{fmt_split(launch_split(lambda: consensus_fwd(*a)))}')
+    # The plan against other tiles at the same shape (informational).
+    lib = consensus._library()
+    u_s, u_t = torch.empty_like(a[0]), torch.empty_like(a[1])
+    out = torch.empty(B, N_s, N_t, device='cuda')
+    want = consensus_fwd(*a)
+    sweep = []
+    for TS, TT in ((40, 80), (80, 40), (20, 80), (40, 40), (16, 80),
+                   (24, 80), (20, 40)):
+        def tiled():
+            err = lib.dgmc_consensus_fwd_f32(
+                *(x.data_ptr() for x in a), u_s.data_ptr(), u_t.data_ptr(),
+                out.data_ptr(), B, N_s, N_t, R, TS, TT, 0,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f'tile {TS}x{TT}: CUDA error {err}')
+        tiled()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f'consensus tile {TS}x{TT} differs')
+        split = launch_split(tiled) or {}
+        sweep.append(f'{TS}x{TT} {split.get("consensus_pairs", 0):.4f}')
+    log(f'consensus_kernel: consensus_pairs device ms by tile (TSxTT), '
+        f'bit-equal to the plan\'s: ' + ', '.join(sweep))
+    # The dense step's plain backward (the tile recompute, as JAX's jnp
+    # backward), at the same shape: is it worth a kernel of its own?
+    g = torch.randn(B, N_s, N_t, generator=gen).cuda()
+    bwd, src_b = timed({'backward': lambda: consensus_backward(*a[:5], g)})
+    split_b = launch_split(lambda: consensus_backward(*a[:5], g), runs=3)
+    log(f'consensus_kernel: plain consensus_backward at [{B}, {N_s}, {N_t}] '
+        f'R={R}: {bwd["backward"][0]:.4f} ms per call [{src_b}] / '
+        f'{bwd["backward"][1]:.4f} wall (CUDA events), x10 per dense step; '
+        f'by op: {fmt_split(split_b)}')
     result.update(name='consensus_fwd', route='cuda',
                   source='dgmc_tpu_torch/csrc/consensus.cu',
                   replaces='dgmc_tpu/ops/pallas/consensus.py:49',
@@ -654,16 +738,24 @@ def phase_consensus_kernel(result):
 def _sc_case(gen, B, N_s, N_t, K, R, dup=0.0, ints=True):
     """Inputs of the sparse consensus kernels: small integers (exact) or
     float32 at the model's scales; ``dup`` of the slots point at one
-    target. Returns ``(o_s, o_t, w1, b1, w2, b2)``, the Shortlist and the
-    output gradient g, on the card."""
+    target, or with ``dup='hub'`` the targets follow a Zipf law as top-k
+    hubs do (a few targets in thousands of lists, most in none). Returns
+    ``(o_s, o_t, w1, b1, w2, b2)``, the Shortlist and the output gradient
+    g, on the card."""
     from dgmc_tpu_torch.ops.shortlist import Shortlist
 
     def draw(*shape, scale=1.0, lo=-2, hi=3):
         if ints:
             return torch.randint(lo, hi, shape, generator=gen).float()
         return scale * torch.randn(*shape, generator=gen)
-    idx = torch.randint(0, N_t, (B, N_s, K), generator=gen)
-    idx[torch.rand(B, N_s, K, generator=gen) < dup] = N_t // 2
+    if dup == 'hub':
+        rng = np.random.RandomState(int(torch.randint(1 << 30, (1,),
+                                                      generator=gen)))
+        idx = torch.from_numpy(np.minimum(rng.zipf(1.3, (B, N_s, K)) - 1,
+                                          N_t - 1))
+    else:
+        idx = torch.randint(0, N_t, (B, N_s, K), generator=gen)
+        idx[torch.rand(B, N_s, K, generator=gen) < dup] = N_t // 2
     floats = [draw(B, N_s, R), draw(B, N_t, R), draw(R, R, scale=R ** -0.5),
               draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
               draw(1, scale=0.1), draw(B, N_s, K, lo=-1, hi=2)]
@@ -689,9 +781,12 @@ def _sc_work(B, N_s, N_t, K, R):
     2(N_s+N_t)R^2 each (u forward; u again, d_o and d_W1 backward); per
     candidate 3R forward (difference, product, sum) and 6R backward (the
     difference, g*w2 where positive, its sums into d_u_s and d_u_t, 2R for
-    d_w2). Bytes: o_s, o_t, the shortlist at 4 bytes a slot (top-k emits
-    int32; the kernels read int64), the weights (and g) read once, delta
-    (or d_o_s, d_o_t and the weight gradients) written once."""
+    d_w2). Bytes: o_s, o_t, the shortlist at 4 bytes a slot, the weights
+    (and g) read once, delta (or d_o_s, d_o_t and the weight gradients)
+    written once. The backward given the forward's u (as the main path
+    calls it) saves one node product but reads u_s and u_t too: at the
+    DBP15K shape its bound (bytes) lies above this one, so this one is
+    the least."""
     nodes = 2.0 * B * (N_s + N_t) * R * R
     cand = B * N_s * K
     rows = 4.0 * B * (N_s + N_t) * R
@@ -706,14 +801,16 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
     from dgmc_tpu_torch.ops.graph import gather_nodes
     from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
         plain_fused_candidate_delta, plain_sparse_consensus_bwd,
-        plain_sparse_consensus_fwd, sparse_consensus_bwd,
-        sparse_consensus_fwd)
+        plain_sparse_consensus_delta, plain_sparse_consensus_fwd,
+        sparse_consensus_bwd, sparse_consensus_delta, sparse_consensus_fwd)
     gen = torch.Generator().manual_seed(3)
     exact = {'duplicates': (2, 1000, 300, 20, 32, 0.9),
              'one_row': (1, 1, 7, 1, 32, 0.0),
              'k_1': (2, 300, 90, 1, 32, 0.0),
              'r_max': (2, 200, 150, 10, 128, 0.2),
-             'batch_2': (2, 1500, 2000, 20, 32, 0.0)}
+             'batch_2': (2, 1500, 2000, 20, 32, 0.0),
+             'hub': (1, 15000, 20000, 20, 32, 'hub'),
+             'k_40': (2, 300, 500, 40, 33, 0.3)}
     for name, case in exact.items():
         args, sl, g = _sc_case(gen, *case)
         for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
@@ -721,9 +818,17 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                        lambda: sparse_consensus_fwd(args[0], args[1], sl,
                                                     *args[2:]),
                        lambda: plain(args[0], args[1], sl, *args[2:]))
-        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        # The backward takes the forward's u and ReLU mask, as the main
+        # path hands them over; the plain version forms u itself.
+        out, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                          return_state=True)
+        if not torch.equal(out, plain_sparse_consensus_fwd(
+                args[0], args[1], sl, *args[2:])):
+            raise AssertionError(f'sparse consensus fwd {name}: the delta '
+                                 f'written with the state differs')
+        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         torch.cuda.synchronize()
-        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         for label, want in (('plain', plain_sparse_consensus_bwd(
                 *args[:2], sl, *args[2:5], g)),
                 ('autograd', _sc_autograd(args, sl, g))):
@@ -735,8 +840,22 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                     raise AssertionError(f'sparse consensus bwd {name}: {n} '
                                          f'differs on a repeat')
         log(f'sparse_consensus_kernel: case {name} B,N_s,N_t,K,R,dup={case}: '
-            f'fwd bit-equal (unfused and factored plain forms), all six '
-            f'gradients bit-equal (plain and autograd), repeats identical')
+            f'fwd bit-equal (unfused and factored plain forms; with and '
+            f'without the state), all six gradients from the forward\'s '
+            f'state bit-equal (plain, which forms u, and autograd), repeats '
+            f'identical')
+    # The narrow form: pre-gathered candidates under the identity
+    # shortlist, against autograd of the unfused plain form.
+    args, sl, g = _sc_case(gen, 2, 300, 300 * 6, 6, 32)
+    cand = args[1].reshape(2, 300, 6, 32)
+    ts = [a.clone().requires_grad_() for a in (args[0], cand, *args[2:])]
+    got = torch.autograd.grad(sparse_consensus_delta(*ts), ts, g)
+    want = torch.autograd.grad(plain_sparse_consensus_delta(*ts), ts, g)
+    if not all(map(torch.equal, got, want)):
+        raise AssertionError('sparse consensus narrow form: a gradient '
+                             'differs from autograd of the plain form')
+    log('sparse_consensus_kernel: case identity (narrow form, [2, 300, 6, '
+        '32]): all six gradients bit-equal to autograd of the unfused form')
 
     err_f = err_b = 0.0
     for K in (20, 10):
@@ -748,10 +867,12 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
             err_f = max(err_f, hold_close(
                 f'sparse consensus fwd K={K} vs {plain.__name__}', out,
                 plain(args[0], args[1], sl, *args[2:])))
-        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        out_s, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                            return_state=True)
+        got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
         auto = _sc_autograd(args, sl, g)
-        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         rel_auto = []
         for n, a, b, c, d in zip(SC_GRADS, got, want, again, auto):
             err_b = max(err_b, hold_close(f'sparse consensus {n} K={K}', a,
@@ -760,9 +881,11 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                 raise AssertionError(f'sparse consensus {n}: a repeat '
                                      f'differs')
             rel_auto.append(float((a - d).abs().max() / d.abs().max()))
-        if not torch.equal(out, sparse_consensus_fwd(args[0], args[1], sl,
-                                                     *args[2:])):
-            raise AssertionError('sparse consensus fwd: a repeat differs')
+        for o in (out_s, sparse_consensus_fwd(args[0], args[1], sl,
+                                              *args[2:])):
+            if not torch.equal(out, o):
+                raise AssertionError('sparse consensus fwd: a repeat (with '
+                                     'or without the state) differs')
         log(f'sparse_consensus_kernel: float32 [1, {N_s}, {K}, {R}] over '
             f'{N_t} targets: fwd and gradients within tolerance (max |err| '
             f'fwd {err_f:.3g}, bwd {err_b:.3g}), repeats bit-identical; '
@@ -770,17 +893,20 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
             + ', '.join(f'{n} {v:.2g}' for n, v in zip(SC_GRADS, rel_auto)))
         (ff, fb), (bf, bb) = _sc_work(B, N_s, N_t, K, R)
         (f_ms, f_by), (b_ms, b_by) = bound(ff, fb), bound(bf, bb)
-        got_t, src = timed({
+        calls = {
             'fwd': lambda: sparse_consensus_fwd(args[0], args[1], sl,
                                                 *args[2:]),
+            'fwd with state': lambda: sparse_consensus_fwd(
+                args[0], args[1], sl, *args[2:], return_state=True),
             'fwd plain': lambda: plain_fused_candidate_delta(
                 args[0], args[1], sl, *args[2:]),
             'fwd plain factored': lambda: plain_sparse_consensus_fwd(
                 args[0], args[1], sl, *args[2:]),
             'bwd': lambda: sparse_consensus_bwd(*args[:2], sl, *args[2:5],
-                                                g),
+                                                g, state),
             'bwd plain': lambda: plain_sparse_consensus_bwd(
-                *args[:2], sl, *args[2:5], g)})
+                *args[:2], sl, *args[2:5], g)}
+        got_t, src = timed(calls)
         log(f'sparse_consensus_kernel: K={K}: bound fwd {f_ms:.4f} ms '
             f'({f_by}; {ff / 1e9:.3f} GFLOP factored, {fb / 1e6:.2f} MB), '
             f'bwd {b_ms:.4f} ms ({b_by}; {bf / 1e9:.3f} GFLOP, '
@@ -788,8 +914,13 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
             f'(CUDA events, median of 10): '
             + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
                         for k, v in got_t.items()))
-        if K == 20:   # the JSON line carries the training shape
-            fwd_res.update(ms=got_t['fwd'][0], plain_ms=got_t['fwd plain'][0],
+        for k in ('fwd', 'fwd with state', 'bwd'):
+            log(f'sparse_consensus_kernel: K={K}: {k}, device ms per call '
+                f'by launch: {fmt_split(launch_split(calls[k]))}')
+        if K == 20:   # the JSON line carries the training shape, as the
+            # training path calls the forward: writing the state
+            fwd_res.update(ms=got_t['fwd with state'][0],
+                           plain_ms=got_t['fwd plain'][0],
                            bound_ms=f_ms, bound_by=f_by, ms_source=src)
             bwd_res.update(ms=got_t['bwd'][0], plain_ms=got_t['bwd plain'][0],
                            bound_ms=b_ms, bound_by=b_by, ms_source=src)
@@ -903,8 +1034,7 @@ def phase_kg_train(results):
     from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
     from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.ops.topk import chunked_topk
-    from dgmc_tpu_torch.train.state import create_train_state
-    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+    from dgmc_tpu_torch.train.steps import batch_to_device
 
     marks, losses = [], []
 
@@ -1013,12 +1143,8 @@ def phase_kg_train(results):
 
     # Informational: host work and a profile of one phase-2 step.
     args = dbp15k.parse_args(KG_ARGV)
-    train_b, _, in_dim = dbp15k.synthetic_batches(args)
-    model = dbp15k.build(args, in_dim).cuda()
-    state = create_train_state(model, learning_rate=args.lr)
-    step = make_train_step(model, num_steps=args.num_steps, detach=True)
-    dev_b = batch_to_device(train_b, 'cuda')
-    step(state, dev_b, 1)
+    run = kg_step()
+    run()
     t0 = time.perf_counter()
     draw_noise(args.num_steps, 1, args.syn_nodes_s, args.rnd_dim, seed=1,
                device='cuda')
@@ -1029,14 +1155,12 @@ def phase_kg_train(results):
         f'indicator noise and the negatives '
         f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
     try:
-        rows = profile(lambda: step(state, dev_b, 12345), 'one phase-2 step',
-                       top=14)
-        mine = [(m.group(1), dev_us, count) for dev_us, key, count in rows
-                if (m := re.search(r'::(sc_\w+|topk_tiles|merge_lists)\b',
-                                   key))]
-        log('profile: one phase-2 step: the port\'s kernels: ' + ', '.join(
-            f'{name} {dev_us / 1e3:.3f} ms x{count}'
-            for name, dev_us, count in mine))
+        rows = profile(run, 'one phase-2 step', top=14)
+        log('profile: one phase-2 step: the port\'s kernels (ms, launches, '
+            'ms a launch on the real phase-2 shortlists): ' + ', '.join(
+                f'{name} {dev_us / 1e3:.4f} ms x{count} = '
+                f'{dev_us / 1e3 / count:.4f}'
+                for name, dev_us, count in port_kernels(rows)))
     except Exception as e:   # the breakdown is informational only
         log(f'profile: one phase-2 step: not measured ({e!r})')
 
@@ -1323,10 +1447,9 @@ def phase_train(results):
         for i, batch in zip(range(2), loader):
             state, o = step(state, batch, pascal_pf.noise_seed(0, 0, 1, i))
             got.append(o['loss'].item())
-        return got, state, step, batch
+        return got
 
-    run_a, _, _, _ = two_steps()
-    run_b, state, step, batch = two_steps()
+    run_a, run_b = two_steps(), two_steps()
     if run_a != run_b:
         raise AssertionError(f'two 2-step runs differ: {run_a} vs {run_b}')
     log(f'train: two 2-step runs from one seed give bit-identical losses '
@@ -1343,24 +1466,114 @@ def phase_train(results):
         f'included) {collate_ms:.3f} ms, drawing and copying the '
         f'indicator noise {noise_ms:.3f} ms')
     try:
-        rows = profile(lambda: step(state, batch, 12345), 'one train step',
-                       top=12)
-        mine = [(m.group(1), dev_us, count) for dev_us, key, count in rows
-                if (m := re.search(
-                    r'::(route_\w+|g_norm|slot_records|consensus_fwd)\b',
-                    key))]
-        log('profile: one train step: the port\'s kernels: ' + ', '.join(
-            f'{name} {dev_us / 1e3:.3f} ms x{count}'
-            for name, dev_us, count in mine))
+        rows = profile(dense_step(), 'one train step', top=12)
+        log('profile: one train step: the port\'s kernels (ms, launches, '
+            'ms a launch): ' + ', '.join(
+                f'{name} {dev_us / 1e3:.4f} ms x{count} = '
+                f'{dev_us / 1e3 / count:.4f}'
+                for name, dev_us, count in port_kernels(rows)))
     except Exception as e:   # the breakdown is informational only
         log(f'profile: one train step: not measured ({e!r})')
 
 
-def main():
+#: The port's kernels among the device names a profile lists.
+PORT_KERNEL = re.compile(r'::(topk_tiles|merge_lists|route_\w+|g_norm|'
+                         r'slot_records|consensus_\w+|project_rows|sc_\w+)\b')
+
+
+def port_kernels(rows):
+    """``[(name, device_us, launches)]``: the port's kernels among a
+    profile's rows (:func:`_profiled`), summed by kernel name, largest
+    first."""
+    got = {}
+    for dev_us, key, count in rows:
+        if m := PORT_KERNEL.search(key):
+            us, n = got.get(m.group(1), (0.0, 0))
+            got[m.group(1)] = (us + dev_us, n + count)
+    return sorted(((k, *v) for k, v in got.items()), key=lambda r: -r[1])
+
+
+def dense_step():
+    """One dense PascalPF training step at the CLI's defaults on the
+    card, as a call: one fixed batch (no collation), a new noise seed
+    each call."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+    args = pascal_pf.parse_args(['--seed', '0'])
+    model, loader, _ = pascal_pf.build(args)
+    state = create_train_state(model.cuda(), learning_rate=args.lr)
+    step = make_train_step(model, loss_on_s0=True)
+    loader.dataset.set_epoch(1)
+    batch = next(iter(loader))
+    seeds = itertools.count(1)
+    return lambda: step(state, batch, next(seeds))
+
+
+def kg_step():
+    """One phase-2 step of the KG training path (``dbp15k`` at its
+    defaults on the synthetic alignment, ψ₁ detached) on the card, as a
+    call: the batch uploaded once, a new noise seed each call."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+    args = dbp15k.parse_args(KG_ARGV)
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim).cuda()
+    state = create_train_state(model, learning_rate=args.lr)
+    step = make_train_step(model, num_steps=args.num_steps, detach=True)
+    dev_b = batch_to_device(train_b, 'cuda')
+    seeds = itertools.count(1)
+    return lambda: step(state, dev_b, next(seeds))
+
+
+def steps(n):
+    """The ``--steps`` mode: ``{step: {...}}`` for the dense and the KG
+    phase-2 step, ``n`` synchronized steps each (host clock, after 2
+    warm-up steps) and one more under the profiler."""
+    out = {}
+    for name, make in (('dense', dense_step), ('kg_phase2', kg_step)):
+        run = make()
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rows, wall_ms = _profiled(run)
+        busy = sum(r[0] for r in rows) / 1e3
+        r = out[name] = {
+            'median_ms': statistics.median(ms), 'min_ms': min(ms),
+            'max_ms': max(ms), 'profiled_wall_ms': wall_ms,
+            'busy_ms': busy, 'device_ops': sum(r[2] for r in rows),
+            'kernels': {k: {'ms': us / 1e3, 'launches': c}
+                        for k, us, c in port_kernels(rows)}}
+        log(f'steps: {name}: step ms median {r["median_ms"]:.3f} (min '
+            f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); one step '
+            f'profiled: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, '
+            f'{r["device_ops"]} device ops; the port\'s kernels '
+            + ', '.join(f'{k} {v["ms"]:.4f} ms x{v["launches"]}'
+                        for k, v in r['kernels'].items()))
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    p.add_argument('--steps', type=int, default=0, metavar='N',
+                   help='only time N dense and N KG phase-2 training steps '
+                   'and profile one of each (no smoke phases)')
+    p.add_argument('--root', default=ROOT, metavar='DIR',
+                   help='the tree whose dgmc_tpu_torch is imported')
+    opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(opts.root))
     try:
         import dgmc_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1375,6 +1588,13 @@ def main():
         timeout=60).stdout.strip().splitlines()
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
+    if opts.steps:
+        phase_build()
+        got = steps(opts.steps)
+        log(smi[0] if smi else 'nvidia-smi: no output')
+        print(json.dumps({'root': os.path.abspath(opts.root), 'steps': got}),
+              flush=True)
+        return 0
 
     res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:],
                            *(f'topk@{n}' for n in SMALL_ROWS),

@@ -10,6 +10,7 @@ Nothing here runs at import time.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ['CSRC_DIR', 'BUILD_DIR', 'NVCC_FLAGS', 'load_library']
+__all__ = ['CSRC_DIR', 'BUILD_DIR', 'NVCC_FLAGS', 'load_library', 'sm_count']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -87,3 +88,11 @@ def load_library(source):
         lib.build_log = log
         _loaded[source] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """SMs of CUDA device ``index``: what the kernels' launch plans size
+    their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -21,18 +21,28 @@ for its design and bound.
 """
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels.build import sm_count
 
-__all__ = ['R_MAX', 'TILE_T', 'plain_consensus', 'consensus_fwd',
+__all__ = ['R_MAX', 'MICRO', 'TILE_MAX', 'MAX_THREADS', 'TILE_T',
+           'launch_plan', 'plain_consensus', 'consensus_fwd',
            'consensus_backward', 'consensus_update']
 
-#: Largest R the kernel takes: W1 and the tile's u_s / u_t rows live in
-#: shared memory (4 (R^2 + 130 R) bytes, 132 KB at R = 128). Checked
-#: against the compiled library at load.
+#: Largest R the kernels take: the projection keeps W1 in shared memory,
+#: the pair kernel a tile's u_s and u_t rows (about 4 (R + 4) (TS + TT)
+#: bytes, at most 85 KB at R = 128, where the thread limit keeps TS + TT
+#: <= 160). Checked against the compiled library at load, as are the three
+#: tile limits below.
 R_MAX = 128
+
+#: Pairs per thread along s and along t (a 4 x 4 micro-tile), the largest
+#: tile side, and the most threads a block (``TS/4 * TT/4``) may have.
+MICRO, TILE_MAX, MAX_THREADS = 4, 128, 256
 
 #: Target rows per backward tile: bounds the recomputed difference to
 #: ``B * N_s * TILE_T * R`` floats.
@@ -48,19 +58,53 @@ def plain_consensus(o_s, o_t, w1, b1, w2, b2):
     return (h @ w2)[..., 0] + b2[0]
 
 
+@functools.lru_cache(maxsize=None)
+def launch_plan(B, N_s, N_t, sms):
+    """``(TS, TT)``: the pair kernel's tile, a pure function of the shapes
+    and the card's SM count.
+
+    Each axis is cut into ``n`` near-equal tiles of a multiple of
+    :data:`MICRO` rows, at most :data:`TILE_MAX`, with at most
+    :data:`MAX_THREADS` threads a block. Blocks are equal, so the kernel
+    takes about ``ceil(blocks / sms)`` block times; a block's time is its
+    pairs (padding included) plus its staged rows. The plan minimizes
+    that product, then the number of blocks. At ``[64, 80, 80]`` on 132
+    SMs: 40 x 80, 128 blocks in one wave, no padded pair.
+    """
+    def cuts(n):
+        sizes = {MICRO * -(-n // (MICRO * k))
+                 for k in range(1, -(-n // MICRO) + 1)}
+        return sorted(t for t in sizes if t <= TILE_MAX)
+
+    best = None
+    for TS in cuts(N_s):
+        for TT in cuts(N_t):
+            if (TS // MICRO) * (TT // MICRO) > MAX_THREADS:
+                continue
+            blocks = B * -(-N_s // TS) * -(-N_t // TT)
+            cost = (math.ceil(blocks / sms) * (TS * TT + 2 * (TS + TT)),
+                    blocks)
+            if best is None or cost < best[0]:
+                best = (cost, (TS, TT))
+    return best[1]
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('consensus.cu')
     if not getattr(lib, 'consensus_bound', False):
         fn = lib.dgmc_consensus_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.dgmc_consensus_r_max.restype = ctypes.c_int
-        if lib.dgmc_consensus_r_max() != R_MAX:
-            raise RuntimeError(f'csrc/consensus.cu R_MAX '
-                               f'{lib.dgmc_consensus_r_max()} differs from '
-                               f'the wrapper\'s {R_MAX}')
+        got = (lib.dgmc_consensus_r_max(), lib.dgmc_consensus_micro(),
+               lib.dgmc_consensus_tile_max(),
+               lib.dgmc_consensus_max_threads())
+        want = (R_MAX, MICRO, TILE_MAX, MAX_THREADS)
+        if got != want:
+            raise RuntimeError(f'csrc/consensus.cu is built for (R_MAX, '
+                               f'MICRO, TILE_MAX, MAX_THREADS) = {got}, the '
+                               f'wrapper for {want}')
         lib.consensus_bound = True
     return lib
 
@@ -102,11 +146,14 @@ def consensus_fwd(o_s, o_t, w1, b1, w2, b2):
     dispatch.record('consensus_fwd', 'kernel', 'auto-cuda')
     lib = _library()
     args = [a.contiguous() for a in args]
+    u_s, u_t = torch.empty_like(args[0]), torch.empty_like(args[1])
     out = torch.empty((B, N_s, N_t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev)
+    TS, TT = launch_plan(B, N_s, N_t, sm_count(stream.device_index))
     err = lib.dgmc_consensus_fwd_f32(
-        *(a.data_ptr() for a in args), out.data_ptr(), B, N_s, N_t, R,
-        stream.device_index, stream.cuda_stream)
+        *(a.data_ptr() for a in args), u_s.data_ptr(), u_t.data_ptr(),
+        out.data_ptr(), B, N_s, N_t, R, TS, TT, stream.device_index,
+        stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f'consensus kernel launch failed with CUDA error '
                            f'{err} (B={B}, N_s={N_s}, N_t={N_t}, R={R})')

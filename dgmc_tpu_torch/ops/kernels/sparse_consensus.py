@@ -21,8 +21,10 @@ see the source for their design and bound.
   DGMC uses) and :func:`sparse_consensus_delta` (pre-gathered candidates
   ``[B, N_s, K, R]``, seen as a ``[B, N_s*K, R]`` table under the
   identity shortlist) are ``torch.autograd.Function`` s over the two
-  wrappers. Their residuals are ``o_s``, ``o_t`` and the weights; the
-  candidate tensor is never saved.
+  wrappers. Their residuals are ``o_s``, ``o_t``, the weights and, when
+  a gradient is needed, the forward's state (``u_s``, ``u_t`` and, on
+  CUDA, the ReLU mask bits): the backward runs no projection of its own.
+  The candidate tensor is never saved.
 - :func:`plain_sparse_consensus_delta` / :func:`plain_fused_candidate_delta`
   are the unfused forms of the JAX package's ``*_reference`` functions,
   differentiable by autograd: the forward's independent check.
@@ -35,20 +37,22 @@ once per forward. Indices must lie in ``[0, N_t)``: the kernels read
 """
 
 import ctypes
+import functools
 
 import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
-from dgmc_tpu_torch.ops.shortlist import CHUNK, Shortlist
+from dgmc_tpu_torch.ops.kernels.build import sm_count
+from dgmc_tpu_torch.ops.shortlist import Shortlist
 
-__all__ = ['R_MAX', 'plain_sparse_consensus_delta',
-           'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
+__all__ = ['R_MAX', 'BWD_WARPS', 'NODE_THREADS', 'node_rows', 'bwd_plan',
+           'plain_sparse_consensus_delta', 'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
            'plain_sparse_consensus_bwd', 'sparse_consensus_fwd',
            'sparse_consensus_bwd', 'fused_candidate_delta',
            'sparse_consensus_delta']
 
-#: Largest R the kernels take: a warp holds a row in registers, four
-#: channels per lane. Checked against the compiled library at load.
+#: Largest R the kernels take: a warp holds a row in registers, at most
+#: four channels per lane. Checked against the compiled library at load.
 R_MAX = 128
 
 
@@ -78,33 +82,39 @@ def _factored(o_s, o_t, w1, b1):
     return o_s @ w1 + b1, o_t @ w1
 
 
+def _plain_fwd(o_s, o_t, sl, w1, b1, w2, b2):
+    u_s, u_t = _factored(o_s, o_t, w1, b1)
+    pre = u_s[:, :, None, :] - sl.gather(u_t)
+    return (torch.relu(pre) @ w2)[..., 0] + b2[0], (u_s, u_t)
+
+
 def plain_sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
     """The delta in the kernels' factored form, in plain PyTorch:
     ``relu(u_s[s] - u_t[t]) @ w2 + b2``. Holds ``[B, N_s, K, R]`` while
     it runs."""
-    sl = _shortlist(S_idx, o_t.shape[1])
-    u_s, u_t = _factored(o_s, o_t, w1, b1)
-    pre = u_s[:, :, None, :] - sl.gather(u_t)
-    return (torch.relu(pre) @ w2)[..., 0] + b2[0]
+    return _plain_fwd(o_s, o_t, _shortlist(S_idx, o_t.shape[1]), w1, b1,
+                      w2, b2)[0]
 
 
 def _node_grads(o_s, o_t, w1, d_us, d_ut):
     """``(d_o_s, d_o_t, d_w1, d_b1)`` from the gradients w.r.t. ``u_s`` and
-    ``u_t``: node-level products, no per-candidate work."""
+    ``u_t``: node-level products, no per-candidate work (the kernel forms
+    them in its epilogues)."""
     d_w1 = (torch.einsum('bsr,bsq->rq', o_s, d_us)
             + torch.einsum('btr,btq->rq', o_t, d_ut))
     return d_us @ w1.T, d_ut @ w1.T, d_w1, d_us.sum(dim=(0, 1))
 
 
-def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g):
+def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     """Gradients of ``sum(g * delta)`` w.r.t. ``(o_s, o_t, w1, b1, w2,
     b2)`` in the kernels' factored form, in plain PyTorch: with ``pre =
     u_s[s] - u_t[t]`` and ``d_pre = g * w2`` where ``pre > 0``, ``d_u_s``
     sums ``d_pre`` over each row's candidates and ``d_u_t`` minus
     ``d_pre`` over the slots pointing at each target (the shortlist's
-    receiver order). Holds ``[B, N_s, K, R]`` while it runs."""
+    receiver order). ``state = (u_s, u_t)``: the forward's node rows, else
+    formed here. Holds ``[B, N_s, K, R]`` while it runs."""
     sl = _shortlist(S_idx, o_t.shape[1])
-    u_s, u_t = _factored(o_s, o_t, w1, b1)
+    u_s, u_t = _factored(o_s, o_t, w1, b1) if state is None else state
     pre = u_s[:, :, None, :] - sl.gather(u_t)
     d_pre = torch.where(pre > 0, g[..., None] * w2[:, 0], 0.0)
     d_us = d_pre.sum(dim=2)
@@ -114,28 +124,73 @@ def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g):
             g.sum().reshape(1))
 
 
+#: Warps (source rows at a time) per block of the backward's candidate
+#: kernel, and threads per block of its node pass.
+BWD_WARPS, NODE_THREADS = 8, 128
+
+
+def node_rows(R):
+    """Rows per block of the backward's node pass (as of the forward's
+    projection): each of the 128 threads owns 4 rows x 4 channels, so a
+    block takes ``4 * 128 / (ceil(R / 4))`` rows (64 at R = 32)."""
+    return 4 * (NODE_THREADS // -(-R // 4))
+
+
+def bwd_plan(rows_s, rows_t, R, n_chunks, cap):
+    """``(src_blocks, chunk_blocks, node_blocks)`` of one backward, a pure
+    function of the row and chunk counts, R and ``cap``, the candidate
+    kernel's blocks that the card holds at once (its SM count times the
+    blocks per SM the compiled kernel allows).
+
+    The candidate kernel's source blocks walk the source rows and its
+    chunk blocks the chunks, ``BWD_WARPS`` at a time, each pipelining the
+    next item's loads behind the current one's: the two share one wave of
+    ``cap`` blocks, three quarters for the source rows (their random u_t
+    rows are the kernel's bytes; a chunk costs a few small reads) and the
+    rest for the chunks, fewer where there are fewer items (each source
+    block also leaves one partial sum of ``d_w2`` and ``d_b2``).
+    The node pass takes one block per :func:`node_rows` source rows, then
+    one per as many target rows."""
+    br = node_rows(R)
+    src = max(1, min(-(-rows_s // BWD_WARPS), 3 * cap // 4))
+    chunk = max(1, min(-(-n_chunks // BWD_WARPS), cap - src))
+    return src, chunk, -(-rows_s // br) + -(-rows_t // br)
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('sparse_consensus.cu')
     if not getattr(lib, 'sc_bound', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        ll = ctypes.c_longlong
-        lib.dgmc_sc_fwd_f32.argtypes = [p] * 10 + [i] * 6 + [p]
-        lib.dgmc_sc_bwd_f32.argtypes = [p] * 17 + [i] * 6 + [ll, i, p]
-        lib.dgmc_sc_partials.argtypes = [ll]
-        for fn in (lib.dgmc_sc_fwd_f32, lib.dgmc_sc_bwd_f32,
-                   lib.dgmc_sc_partials, lib.dgmc_sc_r_max):
-            fn.restype = ctypes.c_int
-        if lib.dgmc_sc_r_max() != R_MAX:
-            raise RuntimeError(f'csrc/sparse_consensus.cu takes R <= '
-                               f'{lib.dgmc_sc_r_max()}, the wrapper '
-                               f'R <= {R_MAX}')
+        lib.dgmc_sc_fwd_f32.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.dgmc_sc_bwd_f32.argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.dgmc_sc_bwd_blocks_per_sm.argtypes = [i, i]
+        lib.dgmc_sc_node_rows.argtypes = [i]
+        if lib.dgmc_sc_r_max() != R_MAX or any(
+                lib.dgmc_sc_node_rows(R) != node_rows(R)
+                for R in range(1, R_MAX + 1)):
+            raise RuntimeError('csrc/sparse_consensus.cu is built for '
+                               'another R_MAX or node pass than the '
+                               'wrapper')
         lib.sc_bound = True
     return lib
 
 
-def _check(name, o_s, o_t, sl, weights):
-    """Shapes, devices and (on CUDA) dtypes and the R limit → device."""
+@functools.lru_cache(maxsize=None)
+def _bwd_cap(index, R):
+    """Blocks of the backward's candidate kernel the card holds at once
+    at this R."""
+    per_sm = _library().dgmc_sc_bwd_blocks_per_sm(R, index)
+    if per_sm < 1:
+        raise RuntimeError(f'sparse_consensus_bwd: no block fits on an SM '
+                           f'at R={R} (CUDA error {-per_sm})')
+    return per_sm * sm_count(index)
+
+
+def _check(name, o_s, o_t, sl, weights, g=None):
+    """Shapes, devices and (on CUDA) dtypes and the R limit → device.
+    ``weights``: ``(w1, b1, w2, b2)``, or ``(w1, b1, w2)`` and the output
+    gradient ``g`` (checked for device and dtype too)."""
     if o_s.dim() != 3 or o_t.dim() != 3 or o_s.shape[0] != o_t.shape[0] \
             or o_s.shape[2] != o_t.shape[2]:
         raise ValueError(f'{name} wants o_s [B, N_s, R] and o_t [B, N_t, R]; '
@@ -148,11 +203,12 @@ def _check(name, o_s, o_t, sl, weights):
                          f'{tuple(o_s.shape)} / o_t {tuple(o_t.shape)}')
     w1, b1, w2 = weights[:3]
     if (tuple(w1.shape) != (R, R) or tuple(b1.shape) != (R,)
-            or tuple(w2.shape) != (R, 1) or tuple(weights[3].shape) != (1,)):
+            or tuple(w2.shape) != (R, 1)
+            or any(tuple(b.shape) != (1,) for b in weights[3:])):
         raise ValueError(f'{name}: consensus MLP shapes '
                          f'{[tuple(w.shape) for w in weights]} do not fit '
                          f'R={R}')
-    tensors = (o_s, o_t, *weights)
+    tensors = (o_s, o_t, *weights) + (() if g is None else (g,))
     devs = {a.device for a in tensors} | {sl.device}
     if len(devs) != 1:
         raise ValueError(f'{name} inputs lie on several devices: '
@@ -176,17 +232,21 @@ def _stream(device):
 
 
 @dispatch.kernel_wrapper('sparse_consensus_fwd')
-def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
+def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
     """The delta ``[B, N_s, K]`` float32 (no gradient; see
-    :func:`fused_candidate_delta`)."""
+    :func:`fused_candidate_delta`). With ``return_state``: ``(delta,
+    state)``, what :func:`sparse_consensus_bwd` takes from its forward:
+    ``(u_s, u_t)``, the factored form's node rows, and on CUDA also
+    ``mask`` ``[B*N_s*K, ceil(R/32)]`` int32, the ReLU mask's bits per
+    candidate (bit l of word c: ``pre > 0`` in channel ``l + 32 c``)."""
     sl = _shortlist(S_idx, o_t.shape[1])
     args = [a.detach() for a in (o_s, o_t, w1, b1, w2, b2)]
     dev = _check('sparse_consensus_fwd', args[0], args[1], sl, args[2:])
     if dev.type == 'cpu':
         dispatch.record('sparse_consensus_fwd', 'plain', 'device=cpu')
         with torch.no_grad():
-            return plain_sparse_consensus_fwd(args[0], args[1], sl,
-                                              *args[2:])
+            out, state = _plain_fwd(args[0], args[1], sl, *args[2:])
+        return (out, state) if return_state else out
     dispatch.record('sparse_consensus_fwd', 'kernel', 'auto-cuda')
     lib = _library()
     o_s, o_t, w1, b1, w2, b2 = (a.contiguous() for a in args)
@@ -194,87 +254,121 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
     N_t, R = o_t.shape[1], o_s.shape[2]
     u_s, u_t = torch.empty_like(o_s), torch.empty_like(o_t)
     out = torch.empty((B, N_s, K), dtype=torch.float32, device=dev)
+    mask = (torch.empty((B * N_s * K, -(-R // 32)), dtype=torch.int32,
+                        device=dev) if return_state else None)
     err = lib.dgmc_sc_fwd_f32(
-        o_s.data_ptr(), o_t.data_ptr(), sl.idx.data_ptr(), w1.data_ptr(),
+        o_s.data_ptr(), o_t.data_ptr(), sl.idx32.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), u_s.data_ptr(),
-        u_t.data_ptr(), out.data_ptr(), B, N_s, N_t, K, R, *_stream(dev))
+        u_t.data_ptr(), out.data_ptr(),
+        None if mask is None else mask.data_ptr(), B, N_s, N_t, K, R,
+        *_stream(dev))
     if err != 0:
         raise RuntimeError(f'sparse_consensus_fwd kernel launch failed with '
                            f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
                            f'K={K}, R={R})')
     sparse_consensus_fwd.launches += 1
-    return out
+    return (out, (u_s, u_t, mask)) if return_state else out
 
 
 @dispatch.kernel_wrapper('sparse_consensus_bwd')
-def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g):
+def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     """Gradients of ``sum(g * delta)`` →
-    ``(d_o_s, d_o_t, d_w1, d_b1, d_w2, d_b2)``."""
+    ``(d_o_s, d_o_t, d_w1, d_b1, d_w2, d_b2)``. ``state``: the forward's
+    (``sparse_consensus_fwd(..., return_state=True)`` on the same device).
+    The kernel takes u and the ReLU mask from it and runs no projection,
+    so on CUDA it is required; without it the plain version forms u."""
     sl = _shortlist(S_idx, o_t.shape[1])
     args = [a.detach() for a in (o_s, o_t, w1, b1, w2)]
     g = g.detach()
-    # g stands in for b2 (no gradient depends on it) in the checks, so
-    # its device and dtype are checked too.
-    dev = _check('sparse_consensus_bwd', args[0], args[1], sl,
-                 args[2:] + [g.new_zeros(1)])
+    dev = _check('sparse_consensus_bwd', args[0], args[1], sl, args[2:], g)
     if tuple(g.shape) != sl.shape:
         raise ValueError(f'sparse_consensus_bwd: g {tuple(g.shape)} does not '
                          f'fit the shortlist {sl.shape}')
+    B, N_s, K = sl.shape
+    R = args[0].shape[2]
+    if state is None and dev.type == 'cuda':
+        raise ValueError('sparse_consensus_bwd on CUDA takes the forward\'s '
+                         'state: sparse_consensus_fwd(..., '
+                         'return_state=True)')
+    if state is not None:
+        state = tuple(x.detach() for x in state)
+        want = [(tuple(a.shape), a.device, a.dtype) for a in args[:2]]
+        if dev.type == 'cuda':
+            want.append(((B * N_s * K, -(-R // 32)), dev, torch.int32))
+        got = [(tuple(x.shape), x.device, x.dtype) for x in state]
+        if got != want:
+            raise ValueError(f'sparse_consensus_bwd: state must be the '
+                             f'forward\'s, {want}; got {got}')
     if dev.type == 'cpu':
         dispatch.record('sparse_consensus_bwd', 'plain', 'device=cpu')
         with torch.no_grad():
             return plain_sparse_consensus_bwd(args[0], args[1], sl,
-                                              *args[2:], g)
+                                              *args[2:], g, state)
     dispatch.record('sparse_consensus_bwd', 'kernel', 'auto-cuda')
     lib = _library()
-    o_s, o_t, w1, b1, w2, g = (a.contiguous() for a in (*args, g))
-    B, N_s, K = sl.shape
-    N_t, R = o_t.shape[1], o_s.shape[2]
-    u_s, d_us = torch.empty_like(o_s), torch.empty_like(o_s)
-    u_t, d_ut = torch.empty_like(o_t), torch.empty_like(o_t)
+    o_s, o_t, w1, w2, g = (a.contiguous() for a in (*args[:3], args[4], g))
+    N_t = o_t.shape[1]
+    u_s, u_t, mask = (x.contiguous() for x in state)
+    index, stream = _stream(dev)
     chunk_start, max_chunks = sl.chunks
-    partial = torch.empty((lib.dgmc_sc_partials(B * N_s), R + 1),
-                          dtype=torch.float32, device=dev)
-    tgt_partial = torch.empty((max_chunks, R), dtype=torch.float32,
-                              device=dev)
-    d_w2b2 = torch.empty(R + 1, dtype=torch.float32, device=dev)
+    src_blocks, chunk_blocks, node_blocks = bwd_plan(
+        B * N_s, B * N_t, R, max_chunks, _bwd_cap(index, R))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    d_us, d_os = empty(B, N_s, R), empty(B, N_s, R)
+    d_ut, d_ot = empty(B, N_t, R), empty(B, N_t, R)
+    tgt_partial = empty(max_chunks, R)
+    wpart, npart = empty(src_blocks, R + 1), empty(node_blocks, R * R + R)
+    grads = empty(R * R + 2 * R + 1)
     err = lib.dgmc_sc_bwd_f32(
-        o_s.data_ptr(), o_t.data_ptr(), sl.idx.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), sl.order.data_ptr(),
-        sl.offsets.data_ptr(), chunk_start.data_ptr(), u_s.data_ptr(),
-        u_t.data_ptr(), d_us.data_ptr(), d_ut.data_ptr(), partial.data_ptr(),
-        tgt_partial.data_ptr(), d_w2b2.data_ptr(), B, N_s, N_t, K, R, CHUNK,
-        max_chunks, *_stream(dev))
+        o_s.data_ptr(), o_t.data_ptr(), sl.idx32.data_ptr(), w1.data_ptr(),
+        w2.data_ptr(), g.data_ptr(), sl.order32.data_ptr(),
+        sl.chunk_map.data_ptr(), chunk_start.data_ptr(), u_s.data_ptr(),
+        u_t.data_ptr(), mask.data_ptr(), d_us.data_ptr(), d_ut.data_ptr(),
+        d_os.data_ptr(), d_ot.data_ptr(), tgt_partial.data_ptr(),
+        wpart.data_ptr(), npart.data_ptr(), grads.data_ptr(), B, N_s, N_t, K,
+        R, max_chunks, src_blocks, chunk_blocks, index, stream)
     if err != 0:
         raise RuntimeError(f'sparse_consensus_bwd kernel launch failed with '
                            f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
                            f'K={K}, R={R})')
     sparse_consensus_bwd.launches += 1
-    return (*_node_grads(o_s, o_t, w1, d_us, d_ut), d_w2b2[:R, None],
-            d_w2b2[R:])
+    return (d_os, d_ot, grads[:R * R].view(R, R), grads[R * R:R * R + R],
+            grads[R * R + R:R * R + 2 * R, None], grads[R * R + 2 * R:])
 
 
 class _FusedCandidateDelta(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, o_s, o_t, w1, b1, w2, b2, sl):
+    def forward(ctx, o_s, o_t, w1, b1, w2, b2, sl, keep_state):
         ctx.sl = sl
-        ctx.save_for_backward(o_s, o_t, w1, b1, w2)
-        return sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2)
+        out = sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2,
+                                   return_state=keep_state)
+        # The forward's state (u_s, u_t and, on CUDA, its ReLU mask bits):
+        # the backward runs no projection and reads the forward's own
+        # mask. Nothing is kept without a gradient to take.
+        out, state = out if keep_state else (out, ())
+        ctx.save_for_backward(o_s, o_t, w1, b1, w2, *state)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        o_s, o_t, w1, b1, w2 = ctx.saved_tensors
-        grads = sparse_consensus_bwd(o_s, o_t, ctx.sl, w1, b1, w2, g)
+        o_s, o_t, w1, b1, w2, *state = ctx.saved_tensors
+        grads = sparse_consensus_bwd(o_s, o_t, ctx.sl, w1, b1, w2, g,
+                                     tuple(state) or None)
         return tuple(d if need else None for d, need in
-                     zip(grads, ctx.needs_input_grad)) + (None,)
+                     zip(grads, ctx.needs_input_grad)) + (None, None)
 
 
 def fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
     """``mlp(o_s[:, :, None] - o_t[S_idx])`` → ``[B, N_s, K]``,
     differentiable in every float argument; see the module docstring."""
     sl = _shortlist(S_idx, o_t.shape[1])
-    return _FusedCandidateDelta.apply(o_s, o_t, w1, b1, w2, b2, sl)
+    floats = (o_s, o_t, w1, b1, w2, b2)
+    keep_state = torch.is_grad_enabled() and any(a.requires_grad
+                                                 for a in floats)
+    return _FusedCandidateDelta.apply(*floats, sl, keep_state)
 
 
 def sparse_consensus_delta(o_s, cand, w1, b1, w2, b2):

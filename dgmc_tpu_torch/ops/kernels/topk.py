@@ -25,6 +25,7 @@ import math
 import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels.build import sm_count
 
 __all__ = ['BLOCK_OVERHEAD_TILES', 'K_MAX', 'PLAIN_BLOCK', 'ROW_TILES',
            'TARGETS_PER_TILE', 'blocks_per_sm', 'launch_plan', 'plain_topk',
@@ -106,11 +107,6 @@ def _library():
                                f'from the wrapper\'s {want}')
         lib.topk_bound = True
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def blocks_per_sm(ts):
@@ -197,7 +193,7 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     out_i = torch.empty((B, N_s, k), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device)
     ts, nseg, tiles_per_seg = launch_plan(B, N_s, N_t,
-                                          _sm_count(stream.device_index))
+                                          sm_count(stream.device_index))
     part_v = part_i = None
     if nseg > 1:
         part_v = torch.empty((B * N_s, nseg, k), dtype=torch.float32,

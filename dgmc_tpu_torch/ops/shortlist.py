@@ -16,11 +16,22 @@ import torch
 
 from dgmc_tpu_torch.ops.graph import gather_nodes, segment_sum, segments
 
-__all__ = ['CHUNK', 'Shortlist']
+__all__ = ['CHUNK', 'Shortlist', 'chunk_len']
 
-#: Slots per chunk of a target's slot list (:attr:`Shortlist.chunks`):
-#: one warp of the sparse-consensus kernel's target pass sums one chunk.
+#: Slots per chunk of a target's slot list (:attr:`Shortlist.chunks`) are
+#: a multiple of CHUNK: one warp of the sparse-consensus backward sums one
+#: chunk, CHUNK slots at a time.
 CHUNK = 32
+
+
+def chunk_len(deg):
+    """Slots per chunk of a target with ``deg`` slots (int tensor):
+    ``CHUNK * ceil(sqrt(deg) / CHUNK)``, at least CHUNK. A hub of d slots
+    then has about sqrt(d) chunks of about sqrt(d) slots, so the warps
+    that sum its chunks and the warp that adds the chunk sums each take
+    about sqrt(d) / 32 rounds."""
+    root = torch.sqrt(deg.double()).ceil().long()
+    return CHUNK * torch.clamp((root + CHUNK - 1) // CHUNK, min=1)
 
 
 class Shortlist:
@@ -53,18 +64,57 @@ class Shortlist:
         return self.idx.device
 
     @functools.cached_property
+    def idx32(self):
+        """``idx`` as int32 ``[B, N_s, K]`` (the kernels' index type, as
+        top-k emits it), made once."""
+        return self.idx.int()
+
+    @functools.cached_property
+    def order32(self):
+        """``order`` as int32, made once."""
+        return self.order.int()
+
+    @functools.cached_property
+    def _deg(self):
+        rows = self.idx.shape[0] * self.num_targets
+        return self.offsets[1:rows + 1] - self.offsets[:rows]
+
+    @functools.cached_property
     def chunks(self):
         """``(chunk_start, max_chunks)``: each target's slot list cut into
-        chunks of :data:`CHUNK`; ``chunk_start [B*N_t + 1]`` is the
-        exclusive prefix sum of ``ceil(slots / CHUNK)`` per target (on the
-        device, computed once) and ``max_chunks`` a host bound on its last
-        entry (no device read)."""
+        chunks of :func:`chunk_len` slots; ``chunk_start [B*N_t + 1]``
+        int32 is the exclusive prefix sum of ``ceil(slots / chunk_len)``
+        per target (on the device, computed once) and ``max_chunks`` a
+        host bound on its last entry (no device read)."""
         B, N_s, K = self.idx.shape
-        rows = B * self.num_targets
-        deg = self.offsets[1:rows + 1] - self.offsets[:rows]
-        start = torch.zeros(rows + 1, dtype=torch.int64, device=self.device)
-        start[1:] = torch.cumsum((deg + CHUNK - 1) // CHUNK, dim=0)
-        return start, rows + -(-B * N_s * K // CHUNK)
+        deg = self._deg
+        start = torch.zeros(deg.numel() + 1, dtype=torch.int32,
+                            device=self.device)
+        start[1:] = torch.cumsum(-(-deg // chunk_len(deg)), dim=0)
+        return start, deg.numel() + -(-B * N_s * K // CHUNK)
+
+    @functools.cached_property
+    def chunk_map(self):
+        """``[max_chunks, 4]`` int32, one row per chunk of :attr:`chunks`:
+        ``(target row b*N_t + t, its first position in order, its slots,
+        0)``; rows past the last chunk are ``(-1, 0, 0, 0)``. The
+        sparse-consensus backward's chunk warps read their work from it,
+        made once per shortlist on the device (no host sync)."""
+        start, bound = self.chunks
+        rows = start.numel() - 1
+        c = torch.arange(bound, device=self.device, dtype=torch.int32)
+        tgt = torch.searchsorted(start[1:], c, right=True)
+        real = tgt < rows
+        t = tgt.clamp(max=rows - 1)
+        length = chunk_len(self._deg)[t]
+        first = self.offsets[t] + (c - start[t]).long() * length
+        slots = torch.minimum(self.offsets[t + 1] - first, length)
+        # torch.where, not a masked assignment: no device-to-host sync.
+        zero = torch.zeros_like(first)
+        out = torch.stack([torch.where(real, t.long(), -1),
+                           torch.where(real, first, zero),
+                           torch.where(real, slots, zero), zero], dim=1)
+        return out.int().contiguous()
 
     def gather(self, feat):
         """``feat [B, N_t, C]`` → candidate rows ``[B, N_s, K, C]``; the

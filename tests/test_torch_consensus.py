@@ -21,8 +21,11 @@ import torch
 from dgmc_tpu.ops.pallas import consensus_update as jax_consensus
 from dgmc_tpu.ops.pallas import consensus_update_reference as jax_reference
 from dgmc_tpu_torch.ops.kernels import dispatch
-from dgmc_tpu_torch.ops.kernels.consensus import (TILE_T, consensus_fwd,
+from dgmc_tpu_torch.ops.kernels.consensus import (MAX_THREADS, MICRO,
+                                                  TILE_MAX, TILE_T,
+                                                  consensus_fwd,
                                                   consensus_update,
+                                                  launch_plan,
                                                   plain_consensus)
 
 
@@ -99,3 +102,35 @@ def test_shape_errors_raise():
         consensus_fwd(o_s, o_t[..., :-1], w1, b1, w2, b2)
     with pytest.raises(ValueError):
         consensus_fwd(o_s, o_t, w1[:-1], b1, w2, b2)
+
+
+@pytest.mark.parametrize('shape', [(64, 80, 80), (1, 1, 1), (2, 20, 37),
+                                   (2, 33, 65), (1, 500, 700),
+                                   (8, 128, 128), (3, 129, 5),
+                                   (1, 3000, 3000)])
+@pytest.mark.parametrize('sms', [132, 1])
+def test_launch_plan_is_the_cheapest_legal_tile(shape, sms):
+    """The pair kernel's tile: sides a multiple of MICRO up to TILE_MAX,
+    at most MAX_THREADS threads, no larger than needed (one more row of
+    micro-tiles per cut would not lower the tile count), and no legal
+    tile has fewer waves times block cost (padded pairs plus staged
+    rows), then fewer blocks."""
+    B, N_s, N_t = shape
+    TS, TT = launch_plan(B, N_s, N_t, sms)
+
+    def legal(ts, tt):
+        return (ts % MICRO == tt % MICRO == 0 and MICRO <= ts <= TILE_MAX
+                and MICRO <= tt <= TILE_MAX
+                and (ts // MICRO) * (tt // MICRO) <= MAX_THREADS)
+
+    def cost(ts, tt):
+        blocks = B * -(-N_s // ts) * -(-N_t // tt)
+        return -(-blocks // sms) * (ts * tt + 2 * (ts + tt)), blocks
+
+    assert legal(TS, TT)
+    for ts in range(MICRO, TILE_MAX + 1, MICRO):
+        for tt in range(MICRO, TILE_MAX + 1, MICRO):
+            if legal(ts, tt):
+                assert cost(TS, TT) <= cost(ts, tt), (ts, tt)
+    if shape == (64, 80, 80) and sms == 132:
+        assert (TS, TT) in ((40, 80), (80, 40))

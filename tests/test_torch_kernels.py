@@ -191,10 +191,13 @@ def test_slot_records_kernel_matches_plain(cuda, case):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-# (B, N_s, N_t, R): ragged tiles, one pair, the training path's shape and
-# the kernel's R limit.
-CONSENSUS_CASES = [(2, 20, 37, 8), (1, 1, 1, 1), (64, 80, 80, 64),
-                   (2, 33, 65, R_MAX)]
+# (B, N_s, N_t, R): the training path's shape; then each of one pair,
+# ragged 20 x 37, 80 x 80 and 33 x 65 at R in {1, 8, 33, 64, R_MAX}
+# (ragged tiles of the launch plan, R below, at and across the 32-channel
+# steps of the projection).
+CONSENSUS_CASES = [(64, 80, 80, 64)] + [
+    (2, n_s, n_t, R) for n_s, n_t in ((1, 1), (20, 37), (80, 80), (33, 65))
+    for R in (1, 8, 33, 64, R_MAX)]
 
 
 @pytest.mark.cuda
@@ -252,15 +255,112 @@ def test_sparse_consensus_kernels_match_plain(cuda, case):
             ints(R, 1), ints(1))
     g = ints(B, N_s, K)
     before = (sparse_consensus_fwd.launches, sparse_consensus_bwd.launches)
-    out = sparse_consensus_fwd(args[0], args[1], sl, *args[2:])
-    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    out, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                      return_state=True)
+    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
     torch.cuda.synchronize()
     assert (sparse_consensus_fwd.launches,
             sparse_consensus_bwd.launches) == (before[0] + 1, before[1] + 1)
     for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
         assert torch.equal(out, plain(args[0], args[1], sl, *args[2:]))
+    assert torch.equal(out, sparse_consensus_fwd(args[0], args[1], sl,
+                                                 *args[2:]))
     want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
     for got, w in zip(grads, want):
         assert torch.equal(got, w)
-    again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    with pytest.raises(ValueError, match='forward\'s state'):
+        sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+
+
+def _sc_exact(cuda, rng, B, N_s, N_t, R, K):
+    def ints(*shape):
+        return torch.from_numpy(rng.randint(-2, 3, shape).astype(
+            np.float32)).to(cuda)
+    return ((ints(B, N_s, R), ints(B, N_t, R), ints(R, R), ints(R),
+             ints(R, 1), ints(1)), ints(B, N_s, K))
+
+
+def _sc_shortlist(name, rng, B, N_s, N_t, K):
+    """Top-k-like hubs (Zipf: a few targets in most lists, most targets
+    in none), duplicates within rows, K > 32, and the narrow form's
+    identity shortlist."""
+    if name == 'identity':
+        return Shortlist.identity(B, N_s, K, 'cuda')
+    if name == 'hub':
+        idx = np.minimum(rng.zipf(1.3, (B, N_s, K)) - 1, N_t - 1)
+    else:
+        idx = rng.randint(0, N_t, (B, N_s, K))
+    if name == 'duplicates':
+        idx[:, :, K // 2:] = idx[:, :, :1]
+    return Shortlist(torch.from_numpy(idx).cuda(), N_t)
+
+
+# name -> (B, N_s, N_t, K, R): hubs of thousands of slots (many chunks a
+# target), duplicates, K across one and two 32-slot rounds, R across the
+# 32-channel steps, and the identity shortlist (N_t = N_s * K).
+SC_SHORTLISTS = {'hub': (1, 3000, 4000, 20, 32),
+                 'hub_r_max': (2, 400, 300, 10, 128),
+                 'duplicates': (2, 500, 200, 12, 33),
+                 'k_40': (2, 300, 500, 40, 64),
+                 'k_70': (1, 200, 90, 70, 8),
+                 'identity': (2, 150, 150 * 6, 6, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(SC_SHORTLISTS))
+def test_sparse_consensus_backward_on_hard_shortlists(cuda, name):
+    B, N_s, N_t, K, R = SC_SHORTLISTS[name]
+    rng = np.random.RandomState(sum(SC_SHORTLISTS[name]))
+    sl = _sc_shortlist(name.split('_r_')[0], rng, B, N_s, N_t, K)
+    args, g = _sc_exact(cuda, rng, B, N_s, N_t, R, K)
+    _, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                    return_state=True)
+    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+    torch.cuda.synchronize()
+    want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape and torch.equal(got, w)
+    again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['hub', 'k_40'])
+def test_sparse_consensus_backward_reuses_the_forwards_u(cuda, name):
+    """The autograd form hands the forward's u_s, u_t and ReLU mask to
+    the backward kernel, which runs no projection: on exact inputs the
+    saved u equals the plain projection and the gradients equal the plain
+    backward, which forms u itself; on float32 inputs they equal the
+    kernels called directly, the backward given the forward's state."""
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        fused_candidate_delta)
+    B, N_s, N_t, K, R = SC_SHORTLISTS[name]
+    rng = np.random.RandomState(K + R)
+    sl = _sc_shortlist(name, rng, B, N_s, N_t, K)
+    for exact in (True, False):
+        args, g = _sc_exact(cuda, rng, B, N_s, N_t, R, K)
+        if not exact:
+            args = tuple(torch.randn_like(a) for a in args)
+            g = torch.randn_like(g)
+        ts = [a.clone().requires_grad_() for a in args]
+        before = (sparse_consensus_fwd.launches,
+                  sparse_consensus_bwd.launches)
+        out = fused_candidate_delta(ts[0], ts[1], sl, *ts[2:])
+        u_s, u_t, _ = out.grad_fn.saved_tensors[5:]
+        got = torch.autograd.grad(out, ts, g)
+        torch.cuda.synchronize()
+        assert (sparse_consensus_fwd.launches,
+                sparse_consensus_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        if exact:
+            assert torch.equal(u_s, args[0] @ args[2] + args[3])
+            assert torch.equal(u_t, args[1] @ args[2])
+            want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        else:
+            _, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                            return_state=True)
+            want = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -9,7 +9,13 @@ through autograd of its plain version.
 Cases mirror ``tests/ops/test_sparse_consensus.py``: a source axis that
 is no multiple of the TPU tile (150 rows), K = 1, B = 2 throughout, and a
 shortlist in which most slots point at one target (the ``d_o_t`` sum
-must add every one of them).
+must add every one of them); and a hub with K = 40 > 32 (a row's
+candidates span two 32-slot rounds, the hub's list many chunks).
+
+The host-side pieces of the CUDA path are held against their
+definitions here: the shortlist's int32 copies and chunk map, the
+backward's launch plan, and the autograd form keeping the forward's
+``u`` for its backward.
 
 Tolerances: the delta sums R float32 products in another order, rtol and
 atol 1e-5 on O(1) values. Gradients: the port's backward takes the
@@ -35,7 +41,8 @@ from dgmc_tpu_torch.ops.shortlist import CHUNK, Shortlist
 # (B, N_s, N_t, K, R, share of slots pointing at target 3)
 FUSED_CASES = {'ragged': (2, 150, 90, 5, 16, 0.0),
                'k_1': (2, 130, 40, 1, 8, 0.0),
-               'duplicates': (2, 140, 50, 6, 16, 0.8)}
+               'duplicates': (2, 140, 50, 6, 16, 0.8),
+               'hub_k40': (2, 60, 50, 40, 8, 0.5)}
 NARROW_CASES = {'ragged': (2, 150, 5, 16), 'k_1': (2, 130, 1, 8)}
 FLOAT_ARGS = ('o_s', 'o_t', 'w1', 'b1', 'w2', 'b2')
 
@@ -236,3 +243,142 @@ def test_shortlist_chunks_cut_each_target_list():
                                   -(-deg.ravel() // CHUNK))
     assert start[0] == 0 and int(start[-1]) <= bound
     assert sl.chunks[0] is start
+
+
+def _shortlists():
+    """Shortlists for the host-side checks: top-k-like hubs (a few
+    targets in most lists), duplicates within a row, K > 32, targets no
+    slot points at, and the narrow form's identity shortlist."""
+    r = np.random.RandomState(9)
+    hub = np.minimum(r.zipf(1.5, (2, 300, 10)) - 1, 199)
+    dup = r.randint(0, 40, (1, 80, 6))
+    dup[:, :, 3:] = dup[:, :, :1]
+    wide = r.randint(0, 25, (2, 30, 70))
+    wide[:, :20] = 7
+    sparse_t = r.randint(0, 5, (1, 40, 3)) * 13
+    return {'hub': Shortlist(torch.from_numpy(hub), 200),
+            'duplicates': Shortlist(torch.from_numpy(dup), 40),
+            'k_70': Shortlist(torch.from_numpy(wide), 25),
+            'empty_targets': Shortlist(torch.from_numpy(sparse_t), 60),
+            'identity': Shortlist.identity(2, 9, 4, 'cpu')}
+
+
+@pytest.mark.parametrize('name', sorted(_shortlists()))
+def test_shortlist_int32_copies_equal_the_int64_ones(name):
+    sl = _shortlists()[name]
+    assert sl.idx32.dtype == sl.order32.dtype == torch.int32
+    assert sl.idx32.is_contiguous() and sl.order32.is_contiguous()
+    assert torch.equal(sl.idx32.long(), sl.idx)
+    assert torch.equal(sl.order32.long(), sl.order)
+    assert sl.idx32 is sl.idx32 and sl.order32 is sl.order32   # made once
+
+
+@pytest.mark.parametrize('name', sorted(_shortlists()))
+def test_shortlist_chunk_map_matches_its_definition(name):
+    """Row c of the chunk map is (target, first position in ``order``,
+    slots, 0) of chunk c, chunks taken target by target and, within a
+    target of d slots, L = CHUNK * max(1, ceil(ceil(sqrt(d)) / CHUNK))
+    positions at a time; rows past the last chunk are (-1, 0, 0, 0).
+    Every position of ``order`` lies in exactly one chunk, which points at
+    that position's own target."""
+    sl = _shortlists()[name]
+    B, N_s, K = sl.shape
+    idx = sl.idx.numpy().reshape(B, N_s * K)
+    flat_t = (idx + np.arange(B)[:, None] * sl.num_targets).ravel()
+    deg = np.bincount(flat_t, minlength=B * sl.num_targets)
+    want, pos, per_target = [], 0, []
+    for t, d in enumerate(deg):
+        L = CHUNK * max(1, -(-int(np.ceil(np.sqrt(d))) // CHUNK))
+        for first in range(pos, pos + d, L):
+            want.append((t, first, min(L, pos + d - first), 0))
+        per_target.append(-(-d // L))
+        pos += d
+    start, bound = sl.chunks
+    want += [(-1, 0, 0, 0)] * (bound - len(want))
+    got = sl.chunk_map
+    assert got.dtype == torch.int32 and tuple(got.shape) == (bound, 4)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    np.testing.assert_array_equal(np.diff(start.numpy()), per_target)
+    covered = np.zeros(B * N_s * K, dtype=int)
+    order = sl.order.numpy()
+    for t, first, n, _ in got.numpy():
+        covered[first:first + n] += 1
+        assert (flat_t[order[first:first + n]] == t).all()
+    assert (covered == 1).all()
+    assert sl.chunk_map is got
+
+
+@pytest.mark.parametrize('rows_s,rows_t,R,n_chunks,cap', [
+    (15000, 20000, 32, 29375, 132 * 4), (1, 1, 1, 2, 264),
+    (16, 17, 33, 18, 5), (300, 90, 128, 120, 1), (66, 130, 64, 200, 1000),
+    (10 ** 6, 10, 7, 31260, 792)])
+def test_bwd_plan_covers_every_row_within_the_cap(rows_s, rows_t, R,
+                                                  n_chunks, cap):
+    """Source and chunk blocks: BWD_WARPS items a block at a time, the
+    source blocks at most three quarters of ``cap`` (one wave), the chunk
+    blocks at most the rest, each at least one; the warps' strided walks
+    cover every source row and every chunk once. Node blocks: ceil(rows /
+    node_rows(R)) for each side, where a block's 256 threads own 4 rows x
+    4 channels each."""
+    src, chunk, nodes = tsc.bwd_plan(rows_s, rows_t, R, n_chunks, cap)
+    W = tsc.BWD_WARPS
+    assert src == max(1, min(-(-rows_s // W), 3 * cap // 4))
+    assert chunk == max(1, min(-(-n_chunks // W), cap - src))
+    for blocks, items in ((src, rows_s), (chunk, n_chunks)):
+        walked = sorted(r for b in range(blocks) for w in range(W)
+                        for r in range(b * W + w, items, blocks * W))
+        assert walked == list(range(items))
+    br = tsc.node_rows(R)
+    assert (br // 4) * -(-R // 4) <= tsc.NODE_THREADS < (br // 4 + 1) * -(
+        -R // 4)
+    assert nodes == -(-rows_s // br) + -(-rows_t // br)
+
+
+def test_autograd_form_keeps_u_only_for_a_gradient():
+    """The forward keeps its u_s and u_t for the backward when a gradient
+    is asked for, and nothing when none is; the backward from the kept u
+    equals the backward that recomputes it."""
+    floats, idx = _fused_case('hub_k40')
+    ts = [torch.from_numpy(a).requires_grad_() for a in floats]
+    sl = Shortlist(torch.from_numpy(idx), floats[1].shape[1])
+    out = tsc.fused_candidate_delta(ts[0], ts[1], sl, *ts[2:])
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 7
+    u_s, u_t = saved[5:]
+    np.testing.assert_array_equal(u_s.numpy(), (ts[0] @ ts[2] + ts[3])
+                                  .detach().numpy())
+    np.testing.assert_array_equal(u_t.numpy(), (ts[1] @ ts[2]).detach()
+                                  .numpy())
+    g = torch.from_numpy(np.random.RandomState(4).randn(*out.shape)
+                         .astype(np.float32))
+    got = torch.autograd.grad(out, ts, g)
+    want = tsc.sparse_consensus_bwd(ts[0], ts[1], sl, *ts[2:5], g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    frozen = [torch.from_numpy(a) for a in floats]
+    assert tsc.fused_candidate_delta(frozen[0], frozen[1], sl,
+                                     *frozen[2:]).grad_fn is None
+    with torch.no_grad():
+        assert tsc.fused_candidate_delta(ts[0], ts[1], sl,
+                                         *ts[2:]).grad_fn is None
+
+
+def test_wrappers_hand_the_forwards_state_to_the_backward():
+    """``return_state`` gives the forward's node rows (on the CPU, no
+    mask); the backward given them equals the one that forms them
+    itself, and refuses a state of other shapes."""
+    floats, idx = _fused_case('duplicates')
+    o_s, o_t, w1, b1, w2, b2 = map(torch.from_numpy, floats)
+    sl = Shortlist(torch.from_numpy(idx), o_t.shape[1])
+    out, u = tsc.sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2,
+                                      return_state=True)
+    assert len(u) == 2
+    assert torch.equal(out, tsc.sparse_consensus_fwd(o_s, o_t, sl, w1, b1,
+                                                     w2, b2))
+    g = torch.from_numpy(np.random.RandomState(2).randn(*out.shape)
+                         .astype(np.float32))
+    for a, b in zip(tsc.sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g, u),
+                    tsc.sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match='state must be'):
+        tsc.sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g, u[::-1])
