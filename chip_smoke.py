@@ -5,6 +5,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --steps N [--root DIR]
+    python3 chip_smoke.py --kernels [--root DIR]
 
 With ``--steps`` it runs none of the phases below: it builds the kernels
 of the ``dgmc_tpu_torch`` under ``DIR`` (default: beside this script),
@@ -12,9 +13,12 @@ then times N synchronized steps (after 2 warm-up steps) of the dense
 PascalPF training step (the CLI's defaults, one fixed batch, so no
 collation) and of the KG phase-2 step, profiles one more of each and
 prints one JSON line of medians, device busy time, device ops and the
-port's kernels by name. Running it for two trees in turns in one call
-(say, an unpacked parent commit, then this one) compares them on one
-card.
+port's kernels by name. With ``--kernels`` it builds them and times,
+at the main path's shapes, the two sparse consensus kernels, a whole
+SplineCNN call's routing and ``route_fwd``, and the top-k kernel at a
+query's rows beside ``torch.topk(bmm)`` (:func:`kernel_times`). Running either for two trees in turns in one
+call (say, an unpacked parent commit, then this one) compares them on
+one card.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -36,15 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
 - ``spline_kernel``: the SplineConv routing kernels (forward and the
   gradient w.r.t. t) against their plain versions — bit-equal on exact
   inputs (an all-masked batch, M not a multiple of any tile, B=1, no
-  edges, the training width, and a hub row that 30% of the slots point
-  at beside empty rows, for d_t at O=64 and O=256), within rtol 1e-5 /
-  atol 1e-5 x max|out| on float32 inputs and on the four SplineConv
-  shapes of the training path over a real ``RandomGraphPairs`` batch;
-  repeats bit-identical; the d_t kernel's slot records, built by their
-  own kernel, bit-equal to their plain version. Times the kernels, the
-  plain versions and ``torch.sparse.mm`` of the block-diagonal routing
-  matrix (yardstick only) at O=256 and O=64, each with its bound, and
-  the slot records' build (once per routing, outside d_t's time).
+  edges, the training width, a hub row that 30% of the slots point at
+  beside empty rows, for d_t at O=64 and O=256, and a hub receiver that
+  30% of the edges go to beside rows without an edge, for the forward at
+  O=3, 64 and 256), within rtol 1e-5 / atol 1e-5 x max|out| on float32
+  inputs and on the four SplineConv shapes of the training path over a
+  real ``RandomGraphPairs`` batch; repeats bit-identical; the forward's
+  edge records and the d_t kernel's slot records, built by one launch of
+  a kernel of their own, bit-equal to their plain versions. Times the
+  kernels, the plain versions and ``torch.sparse.mm`` of the
+  block-diagonal routing matrix (yardstick only) at O=256 and O=64, each
+  with its bound, and the records' build (once per routing, outside the
+  routes' times, on a row of its own).
 - ``consensus_kernel``: the dense consensus kernels (the shared
   projection, then the pair kernel) against their plain factored version,
   the same way, at [64, 80, 80], R=64, ragged cases and R=33 and R=128;
@@ -54,23 +61,29 @@ Phases (any failure exits non-zero and prints no result line):
 - ``sparse_consensus_kernel``: the sparse consensus kernels (forward and
   backward) against their plain versions — bit-equal on exact inputs (a
   duplicate-heavy shortlist, one row, K=1, R=128, B=2, a Zipf hub
-  shortlist at the DBP15K shape, K=40 at R=33; the backward also against
-  autograd of the unfused plain form, given the forward's state as the
-  main path hands it over, while the plain version forms u itself; the
-  narrow form under the identity shortlist against autograd), within
-  rtol 1e-5 / atol 1e-5 x max|out| on float32 at [1, 15000, 20, 32] and
-  [1, 15000, 10, 32] over 20000 targets; repeats bit-identical. Times
-  both kernels (the forward with and without writing the state; the
-  JSON line carries the forward as training calls it, writing the state,
-  at K=20), each launch, and their plain versions at both shapes (no
-  single PyTorch call computes them). Also shows that the port's gather
+  shortlist at the DBP15K shape, K=40 at R=33; then a duplicate-heavy
+  shortlist, R=128, a Zipf hub and K=40 over more target rows than
+  candidates, so that the forward forms u_t of the touched rows only),
+  its ReLU mask equal to the plain ``pre > 0``; the backward from the
+  forward's state, as the main path hands it over, also against
+  autograd of the unfused plain form, while the plain version forms u
+  itself; the narrow form under the identity shortlist against
+  autograd), within rtol 1e-5 / atol 1e-5 x max|out| on float32 at [1,
+  15000, 20, 32] and [1, 15000, 10, 32] over 20000 targets and at the
+  serve query shapes (16, 32, 64 rows, K=10, touched rows only);
+  repeats bit-identical. Times both kernels
+  (the forward with and without writing the state; the JSON line carries
+  the forward as training calls it, writing the state, at K=20, and at
+  each serve shape), each launch, and their plain versions (no single
+  PyTorch call computes them). Also shows that the port's gather
   gradient repeats bit-identically.
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
   one query. Per query: the dispatch ledger shows the kernels, the top-k
   launch count rose once and the sparse-consensus forward's once per
-  consensus step (10), a repeat gives an identical answer. Then the kernel
+  consensus step (10), a repeat gives an identical answer; both counts
+  are filed by the query's padded rows. Then the kernel
   is held against its plain version on each query's own ψ₁ rows and the
   corpus table, and one small query answered on the CPU plain path must
   agree. A ``torch.profiler`` breakdown of a small and the whole-graph
@@ -78,8 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
 - ``train``: the PascalPF-width dense model trained through the CLI's
   own ``main`` (one epoch of 16 steps of 64 pairs, 80 nodes / 640 edges,
   plus 128 held-out pairs): the dispatch ledger shows the kernels, the
-  launch counters rise by 44/44/10 per train step and 44/0/10 per eval
-  batch, every loss is finite; the spline launches are also filed by
+  launch counters rise by 44/44/10/22 per train step and 44/0/10/22 per
+  eval batch (the last: the records' build, once per SplineCNN call),
+  every loss is finite; the spline launches are also filed by
   the width they ran at (:func:`spline_launches_by_width`). Then: the
   first step's loss and gradients
   against the CPU plain path on the same weights, batch and noise
@@ -103,11 +117,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
 one JSON line listing every kernel at its main shape, plus entries for
-the top-k at 16, 32 and 64 rows (``topk@16x20000`` ...; launches: the
-top-k counter read around each serve query of that size, its match and
-repeat) and the spline kernels at ψ₂'s O=64 (``...@O=64``; launches:
-the counters read around each of their calls at that width in the
-``train`` phase) (``ms_source`` says
+the top-k and the sparse-consensus forward at 16, 32 and 64 rows
+(``topk@16x20000``, ``sparse_consensus_fwd@16x20000`` ...; launches:
+their counters read around each serve query of that size, its match and
+repeat), the spline kernels at ψ₂'s O=64 (``...@O=64``; launches: the
+counters read around each of their calls at that width in the ``train``
+phase) and the spline records' build (``ms_source`` says
 whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
 times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
@@ -118,6 +133,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import os
@@ -177,7 +193,7 @@ def phase_build():
     for name, lib in libs.items():
         log(f'build: {name} nvcc {lib.build_seconds:.2f}s')
         for line in lib.build_log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(w in line for w in ('registers', 'spill', 'Compiling')):
                 log(f'build: {name} {line.strip()}')
 
 
@@ -489,14 +505,17 @@ def _spline_work(basis, routing, O):
     flops = 2.0 * slots * O
     fwd = bound(flops, 4.0 * rows * O + index_bytes + 4.0 * B * N * O)
     bwd = bound(flops, 4.0 * B * N * O + index_bytes + 4.0 * B * M * O)
+    log(f'spline_kernel: O={O}: {slots} real slots gather {rows} distinct t '
+        f'rows ({4.0 * slots * O / 1e6:.1f} MB of t rows read, '
+        f'{4.0 * rows * O / 1e6:.1f} MB distinct)')
     return fwd, bwd
 
 
-def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
+def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64, rec_res):
     from dgmc_tpu_torch.models.spline import spline_routing
     from dgmc_tpu_torch.ops.graph import GraphBatch
-    from dgmc_tpu_torch.ops.kernels.spline import (Routing,
-                                                   build_slot_records,
+    from dgmc_tpu_torch.ops.kernels.spline import (Routing, build_records,
+                                                   plain_edge_records,
                                                    plain_route_aggregate,
                                                    plain_route_d_t,
                                                    plain_slot_records,
@@ -505,12 +524,14 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
     gen = torch.Generator().manual_seed(1)
 
     def hold_records(label, basis, routing):
-        got = build_slot_records(routing, basis)
+        got = build_records(routing, basis)
         torch.cuda.synchronize()
-        if not all(map(torch.equal, got, plain_slot_records(routing,
-                                                            basis))):
-            raise AssertionError(f'slot records {label}: the kernel differs '
-                                 f'from the plain version')
+        for kind, have, plain in (
+                ('edge', got[:2], plain_edge_records),
+                ('slot', got[2:], plain_slot_records)):
+            if not all(map(torch.equal, have, plain(routing, basis))):
+                raise AssertionError(f'{kind} records {label}: the kernel '
+                                     f'differs from the plain version')
 
     exact = {'all_masked': (2, 11, 40, 16, 1.01),
              'm_275_rows': (3, 11, 50, 33, 0.2),
@@ -528,8 +549,8 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
         hold_records(name, basis, routing)
         if name == 'all_masked' and bool(out.any()):
             raise AssertionError('an all-masked node did not give zeros')
-        log(f'spline_kernel: case {name} B,N,E,O={case[:4]}: fwd, d_t and '
-            f'slot records bit-equal, repeats identical')
+        log(f'spline_kernel: case {name} B,N,E,O={case[:4]}: fwd, d_t, '
+            f'edge and slot records bit-equal, repeats identical')
     # A hub: 30% of the slots point at row 7 of each graph (~770 slots,
     # more than the d_t kernel stages per warp), beside empty rows.
     for O in (64, 256):
@@ -547,6 +568,26 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
         log(f'spline_kernel: case hub O={O}: d_t bit-equal, repeat '
             f'identical (largest row {int(counts.max())} slots, '
             f'{int((counts == 0).sum())} of {counts.numel()} rows empty)')
+    # A hub receiver: 30% of the edges go to node 7, the others to the
+    # first 60 nodes (20 rows of each graph without an edge), O = 3 (the
+    # 4-byte path), 64 and 256.
+    for O in (3, 64, 256):
+        t, _, basis, routing = _spline_exact(gen, 4, 80, 640, O, 0.3)
+        rcv = torch.randint(0, 60, (4, 640), generator=gen)
+        rcv[torch.rand(4, 640, generator=gen) < 0.3] = 7
+        routing = Routing(routing.flat, rcv.cuda(), routing.edge_mask, 80,
+                          routing.num_rows)
+        out = hold_equal(f'spline fwd hub receiver O={O}',
+                         lambda: route_fwd(t, basis, routing),
+                         lambda: plain_route_aggregate(t, basis, routing))
+        hold_records(f'hub receiver O={O}', basis, routing)
+        _, offsets = routing.edge_records(basis)
+        counts = (offsets[1:] - offsets[:-1])[:4 * 80]
+        if out.reshape(4 * 80, O)[counts == 0].any():
+            raise AssertionError('a row without an edge did not give zeros')
+        log(f'spline_kernel: case hub receiver O={O}: fwd bit-equal, repeat '
+            f'identical (largest row {int(counts.max())} slots, '
+            f'{int((counts == 0).sum())} of {counts.numel()} rows empty)')
 
     # The four SplineConv shapes of the training path on a real batch.
     args = _train_args()
@@ -557,6 +598,30 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
     B, N = graph.x.shape[:2]
     M = routing.num_rows
     hold_records('training batch', basis, routing)
+    # Both kernels' records, once per routing and basis: their operations
+    # are none, their bytes the two orders (8 a edge, 8 a slot), flat,
+    # basis and receivers (12 a slot, 8 a edge) and both offset lists (8
+    # a row) read, both record sets (16 a slot) and the int32 offsets (4 a
+    # row) written.
+    E, A = routing.flat.shape[1:]
+    n_off = (routing.receiver_csr()[1].numel()
+             + routing.slot_csr()[1].numel())
+    rec_bytes = 16.0 * B * E + 36.0 * B * E * A + 12.0 * n_off
+    rec_ms, rec_by = bound(0.0, rec_bytes)
+    got, src = timed({
+        'kernel': lambda: build_records(routing, basis),
+        'plain': lambda: (plain_edge_records(routing, basis),
+                          plain_slot_records(routing, basis))})
+    log(f'spline_kernel: edge and slot records [{B}, {E}, {A}] slots: bound '
+        f'{rec_ms:.4f} ms ({rec_by}, {rec_bytes / 1e6:.2f} MB); ms per call '
+        f'[{src}] / per-call wall ms (CUDA events, median of 10): '
+        + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in got.items()))
+    rec_res.update(name='spline_records', route='cuda',
+                   source='dgmc_tpu_torch/csrc/spline.cu',
+                   replaces='dgmc_tpu/ops/pallas/spline.py:72',
+                   max_abs_err=0.0, ms=got['kernel'][0],
+                   plain_ms=got['plain'][0], bound_ms=rec_ms,
+                   bound_by=rec_by, library_ms=None, ms_source=src)
     for label, O in (('psi_1 conv_0/1', args.dim), ('psi_2 conv_0/1',
                                                     args.rnd_dim)):
         err_f = err_b = 0.0
@@ -590,9 +655,7 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64):
                  'fwd sparse.mm': lambda: torch.sparse.mm(R, t2),
                  'd_t': lambda: route_d_t(g, basis, routing),
                  'd_t plain': lambda: plain_route_d_t(g, basis, routing),
-                 'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2),
-                 'slot records': lambda: build_slot_records(routing,
-                                                            basis)}
+                 'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2)}
         got, src = timed(calls)
         dev = {k: v[0] for k, v in got.items()}
         log(f'spline_kernel: O={O}, bound fwd {fb:.4f} ms ({fby}), d_t '
@@ -775,10 +838,13 @@ def _sc_autograd(args, sl, g):
 SC_GRADS = ('d_o_s', 'd_o_t', 'd_w1', 'd_b1', 'd_w2', 'd_b2')
 
 
-def _sc_work(B, N_s, N_t, K, R):
+def _sc_work(B, N_s, N_t, K, R, T=None):
     """``((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes))``: the least
-    work of the function in the factored form. Operations: node products
-    2(N_s+N_t)R^2 each (u forward; u again, d_o and d_W1 backward); per
+    work of the function in the factored form. ``T``: the target rows the
+    shortlist points at (all ``B*N_t`` if None), the only ones the
+    forward needs. Operations: node products 2(N_s+N_t)R^2 each (u
+    forward, over the touched target rows; u again, d_o and d_W1
+    backward); per
     candidate 3R forward (difference, product, sum) and 6R backward (the
     difference, g*w2 where positive, its sums into d_u_s and d_u_t, 2R for
     d_w2). Bytes: o_s, o_t, the shortlist at 4 bytes a slot, the weights
@@ -791,26 +857,56 @@ def _sc_work(B, N_s, N_t, K, R):
     cand = B * N_s * K
     rows = 4.0 * B * (N_s + N_t) * R
     weights = 4.0 * (R * R + 2 * R + 1)
-    fwd = (nodes + 3.0 * cand * R, rows + 4.0 * cand + 4.0 * cand + weights)
+    fwd_rows = B * N_s + (B * N_t if T is None else T)
+    fwd = (2.0 * fwd_rows * R * R + 3.0 * cand * R,
+           4.0 * fwd_rows * R + 4.0 * cand + 4.0 * cand + weights)
     bwd = (3 * nodes + 6.0 * cand * R,
            2 * rows + 4.0 * cand + 4.0 * cand + 2 * weights)
     return fwd, bwd
 
 
-def phase_sparse_consensus_kernel(fwd_res, bwd_res):
+def _sc_plain_mask(args, sl):
+    """The ReLU mask as the forward writes it, from the plain factored
+    form: bit l of word c of a candidate is ``pre > 0`` in channel
+    ``l + 32 c``, ``[B*N_s*K, ceil(R/32)]`` int32."""
+    o_s, o_t, w1, b1 = args[:4]
+    R = o_s.shape[2]
+    nc = -(-R // 32)
+    pre = (o_s @ w1 + b1)[:, :, None, :] - sl.gather(o_t @ w1)
+    bits = torch.zeros(pre.numel() // R, 32 * nc, dtype=torch.int64,
+                       device=pre.device)
+    bits[:, :R] = (pre.reshape(-1, R) > 0).long()
+    words = (bits.reshape(-1, nc, 32) << torch.arange(
+        32, device=pre.device)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
+
+
+def _touched_rows(sl):
+    """Target rows of the flattened batch that a shortlist points at."""
+    b = torch.arange(sl.shape[0], device=sl.device)[:, None]
+    return int(torch.unique(sl.flat + b * sl.num_targets).numel())
+
+
+def phase_sparse_consensus_kernel(fwd_res, bwd_res, serve_res):
     from dgmc_tpu_torch.ops.graph import gather_nodes
+    from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
         plain_fused_candidate_delta, plain_sparse_consensus_bwd,
         plain_sparse_consensus_delta, plain_sparse_consensus_fwd,
         sparse_consensus_bwd, sparse_consensus_delta, sparse_consensus_fwd)
     gen = torch.Generator().manual_seed(3)
     exact = {'duplicates': (2, 1000, 300, 20, 32, 0.9),
-             'one_row': (1, 1, 7, 1, 32, 0.0),
+             'one_row_touched': (1, 1, 7, 1, 32, 0.0),
              'k_1': (2, 300, 90, 1, 32, 0.0),
              'r_max': (2, 200, 150, 10, 128, 0.2),
              'batch_2': (2, 1500, 2000, 20, 32, 0.0),
              'hub': (1, 15000, 20000, 20, 32, 'hub'),
-             'k_40': (2, 300, 500, 40, 33, 0.3)}
+             'k_40': (2, 300, 500, 40, 33, 0.3),
+             # fewer candidates than target rows: u_t of the touched rows
+             'duplicates_touched': (2, 100, 5000, 20, 32, 0.9),
+             'r_max_touched': (2, 20, 1500, 10, 128, 0.2),
+             'hub_touched': (1, 1000, 30000, 20, 32, 'hub'),
+             'k_40_touched': (2, 30, 5000, 40, 33, 0.3)}
     for name, case in exact.items():
         args, sl, g = _sc_case(gen, *case)
         for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
@@ -818,6 +914,10 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                        lambda: sparse_consensus_fwd(args[0], args[1], sl,
                                                     *args[2:]),
                        lambda: plain(args[0], args[1], sl, *args[2:]))
+        form = dispatch.decisions()['sparse_consensus_fwd']['reason']
+        if ('touched rows' in form) != name.endswith('_touched'):
+            raise AssertionError(f'sparse consensus fwd {name}: dispatch '
+                                 f'{form!r}')
         # The backward takes the forward's u and ReLU mask, as the main
         # path hands them over; the plain version forms u itself.
         out, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
@@ -826,6 +926,9 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                 args[0], args[1], sl, *args[2:])):
             raise AssertionError(f'sparse consensus fwd {name}: the delta '
                                  f'written with the state differs')
+        if not torch.equal(state[2], _sc_plain_mask(args, sl)):
+            raise AssertionError(f'sparse consensus fwd {name}: the ReLU '
+                                 f'mask differs from pre > 0')
         got = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         torch.cuda.synchronize()
         again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
@@ -834,16 +937,19 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                 ('autograd', _sc_autograd(args, sl, g))):
             for n, a, b, c in zip(SC_GRADS, got, want, again):
                 if not torch.equal(a, b):
-                    raise AssertionError(f'sparse consensus bwd {name}: {n} '
-                                         f'differs from the {label} version')
+                    raise AssertionError(
+                        f'sparse consensus bwd {name}: {n} differs from '
+                        f'the {label} version')
                 if not torch.equal(a, c):
-                    raise AssertionError(f'sparse consensus bwd {name}: {n} '
-                                         f'differs on a repeat')
-        log(f'sparse_consensus_kernel: case {name} B,N_s,N_t,K,R,dup={case}: '
-            f'fwd bit-equal (unfused and factored plain forms; with and '
-            f'without the state), all six gradients from the forward\'s '
-            f'state bit-equal (plain, which forms u, and autograd), repeats '
-            f'identical')
+                    raise AssertionError(
+                        f'sparse consensus bwd {name}: {n} differs on a '
+                        f'repeat')
+        log(f'sparse_consensus_kernel: case {name} B,N_s,N_t,K,R,dup={case} '
+            f'({form.split(": ")[0].removeprefix("auto-cuda, ")}): fwd '
+            f'bit-equal (unfused and factored plain forms; with and without '
+            f'the state), ReLU mask equal to the plain pre > 0, all six '
+            f'gradients from its state bit-equal (plain, which forms u, and '
+            f'autograd), repeats identical')
     # The narrow form: pre-gathered candidates under the identity
     # shortlist, against autograd of the unfused plain form.
     args, sl, g = _sc_case(gen, 2, 300, 300 * 6, 6, 32)
@@ -891,7 +997,7 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
             f'fwd {err_f:.3g}, bwd {err_b:.3g}), repeats bit-identical; '
             f'|kernel - autograd of the unfused form| / max per gradient '
             + ', '.join(f'{n} {v:.2g}' for n, v in zip(SC_GRADS, rel_auto)))
-        (ff, fb), (bf, bb) = _sc_work(B, N_s, N_t, K, R)
+        (ff, fb), (bf, bb) = _sc_work(B, N_s, N_t, K, R, _touched_rows(sl))
         (f_ms, f_by), (b_ms, b_by) = bound(ff, fb), bound(bf, bb)
         calls = {
             'fwd': lambda: sparse_consensus_fwd(args[0], args[1], sl,
@@ -928,6 +1034,48 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res):
                    source='dgmc_tpu_torch/csrc/sparse_consensus.cu',
                    replaces='dgmc_tpu/ops/pallas/sparse_consensus.py:62',
                    max_abs_err=err_f, library_ms=None)
+
+    # The serve query shapes: 16, 32 and 64 rows x K = 10 over the 20000
+    # corpus rows, R = 32 (float32, uniform shortlists). The rule forms u_t
+    # of the touched rows only.
+    for n in SMALL_ROWS:
+        B, N_t, K, R = 1, 20000, 10, 32
+        args, sl, _ = _sc_case(gen, B, n, N_t, K, R, ints=False)
+        out = sparse_consensus_fwd(args[0], args[1], sl, *args[2:])
+        torch.cuda.synchronize()
+        reason = dispatch.decisions()['sparse_consensus_fwd']['reason']
+        if 'touched rows' not in reason:
+            raise AssertionError(f'serve shape {n}: dispatch {reason!r}')
+        err = 0.0
+        for plain in (plain_fused_candidate_delta, plain_sparse_consensus_fwd):
+            err = max(err, hold_close(
+                f'sparse consensus fwd {n}x{N_t} vs {plain.__name__}', out,
+                plain(args[0], args[1], sl, *args[2:])))
+        if not torch.equal(out, sparse_consensus_fwd(args[0], args[1], sl,
+                                                     *args[2:])):
+            raise AssertionError(f'serve shape {n}: a repeat differs')
+        T = _touched_rows(sl)
+        (ff, fb), _ = _sc_work(B, n, N_t, K, R, T)
+        b_ms, b_by = bound(ff, fb)
+        got_t, src = timed({
+            'kernel': lambda: sparse_consensus_fwd(args[0], args[1], sl,
+                                                   *args[2:]),
+            'plain': lambda: plain_fused_candidate_delta(
+                args[0], args[1], sl, *args[2:])})
+        log(f'sparse_consensus_kernel: serve shape [1, {n}, {K}, {R}] over '
+            f'{N_t} targets ({T} touched): within tolerance (max |err| '
+            f'{err:.3g}), a repeat bit-identical; bound '
+            f'{b_ms:.5f} ms ({b_by}); ms per call [{src}] / per-call wall ms '
+            f'(CUDA events, median of 10): '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got_t.items()))
+        serve_res[n].update(
+            name=f'sparse_consensus_fwd@{n}x{N_t}', route='cuda',
+            source='dgmc_tpu_torch/csrc/sparse_consensus.cu',
+            replaces='dgmc_tpu/ops/pallas/sparse_consensus.py:62',
+            max_abs_err=err, ms=got_t['kernel'][0],
+            plain_ms=got_t['plain'][0], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, ms_source=src)
     bwd_res.update(name='sparse_consensus_bwd', route='cuda',
                    source='dgmc_tpu_torch/csrc/sparse_consensus.cu',
                    replaces='dgmc_tpu/ops/pallas/sparse_consensus.py:77',
@@ -1166,7 +1314,7 @@ def phase_kg_train(results):
 
 
 
-def phase_serve(result, small):
+def phase_serve(result, small, sc_small):
     from dgmc_tpu_torch.ops.graph import GraphBatch
     from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.serve.cli import dbp15k_kg, dbp15k_model
@@ -1201,6 +1349,7 @@ def phase_serve(result, small):
     # The main path: counters at 0 just before, read just after.
     steps = engine.model.num_steps
     by_rows = {}   # top-k launches by the query's padded row count
+    sc_rows = {}   # sparse-consensus forward launches, the same way
     dispatch.reset()
     answers, answered = [], 0
     for qi, (graph, gt) in enumerate(queries):
@@ -1219,6 +1368,9 @@ def phase_serve(result, small):
         answered += 1
         by_rows[rows] = (by_rows.get(rows, 0)
                          + dispatch.launch_counts()['topk'] - before['topk'])
+        sc_rows[rows] = (sc_rows.get(rows, 0)
+                         + dispatch.launch_counts()['sparse_consensus_fwd']
+                         - before['sparse_consensus_fwd'])
         if again != ans:
             raise AssertionError(f'query {qi}: a repeat gave another answer')
         hits1 = float(np.mean([m['target'] == int(t)
@@ -1246,7 +1398,9 @@ def phase_serve(result, small):
     result['launches'] = launches
     for n in SMALL_ROWS:
         small[n]['launches'] = by_rows.get(n, 0)
-    log(f'serve: topk launches by query rows {sorted(by_rows.items())}')
+        sc_small[n]['launches'] = sc_rows.get(n, 0)
+    log(f'serve: topk launches by query rows {sorted(by_rows.items())}, '
+        f'sparse-consensus forward {sorted(sc_rows.items())}')
 
     # The kernel against its plain version on the inputs the main path
     # gave it: ψ₁ of each padded query against the corpus table.
@@ -1290,12 +1444,14 @@ def phase_serve(result, small):
 
 
 #: Launches per train step and per eval batch at full width:
-#: (spline_route_fwd, spline_route_bwd, consensus_fwd). ψ₁ runs 2 layers
-#: on 2 graphs (at O = 256), ψ₂ 2 layers on 2 graphs in each of 10
-#: consensus steps (at O = 64).
-TRAIN_KERNELS = ('spline_route_fwd', 'spline_route_bwd', 'consensus_fwd')
-PER_TRAIN_STEP = (44, 44, 10)
-PER_EVAL_BATCH = (44, 0, 10)
+#: (spline_route_fwd, spline_route_bwd, consensus_fwd, spline_records).
+#: ψ₁ runs 2 layers on 2 graphs (at O = 256), ψ₂ 2 layers on 2 graphs in
+#: each of 10 consensus steps (at O = 64); each of those 22 SplineCNN
+#: calls builds its routing's records once.
+TRAIN_KERNELS = ('spline_route_fwd', 'spline_route_bwd', 'consensus_fwd',
+                 'spline_records')
+PER_TRAIN_STEP = (44, 44, 10, 22)
+PER_EVAL_BATCH = (44, 0, 10, 22)
 #: Gradients that are zero but for rounding: ψ₂'s final bias shifts o_s
 #: and o_t alike, the MLP's output bias a whole row of S_hat.
 ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
@@ -1413,7 +1569,7 @@ def phase_train(results):
         f'pascal_pf.main; launches {[counts[k] for k in TRAIN_KERNELS]} '
         f'({"/".join(map(str, PER_TRAIN_STEP))} per step, '
         f'{"/".join(map(str, PER_EVAL_BATCH))} per eval batch); dispatch '
-        f'kernel for all three; losses {losses[0]:.4f} -> {losses[-1]:.4f}')
+        f'kernel for all four; losses {losses[0]:.4f} -> {losses[-1]:.4f}')
     log(f'train: step ms after 2 warm-up steps (host clock, synchronized, '
         f'collation included): median {med:.3f}, min {min(step_ms):.3f}, '
         f'max {max(step_ms):.3f}; {64 / med * 1e3:.1f} pairs/s; '
@@ -1478,7 +1634,8 @@ def phase_train(results):
 
 #: The port's kernels among the device names a profile lists.
 PORT_KERNEL = re.compile(r'::(topk_tiles|merge_lists|route_\w+|g_norm|'
-                         r'slot_records|consensus_\w+|project_rows|sc_\w+)\b')
+                         r'\w*records|consensus_\w+|'
+                         r'project_rows|sc_\w+)\b')
 
 
 def port_kernels(rows):
@@ -1562,11 +1719,123 @@ def steps(n):
     return out
 
 
+def _sc_floats(gen, B, N_s, N_t, K, R):
+    """Float32 inputs of the sparse consensus forward at the model's
+    scales and a uniform shortlist, on the card."""
+    from dgmc_tpu_torch.ops.shortlist import Shortlist
+    args = [s * torch.randn(*shape, generator=gen) for s, shape in (
+        (1.0, (B, N_s, R)), (1.0, (B, N_t, R)), (R ** -0.5, (R, R)),
+        (0.1, (R,)), (R ** -0.5, (R, 1)), (0.1, (1,)))]
+    idx = torch.randint(0, N_t, (B, N_s, K), generator=gen)
+    return [a.cuda() for a in args], Shortlist(idx.cuda(), N_t)
+
+
+def kernel_times():
+    """The ``--kernels`` mode: device ms per call (``timed``) at the main
+    path's shapes, only through entry points whose signatures the
+    port's earlier trees share too (the forward's state included), so
+    that two trees compare on one card:
+
+    - the sparse consensus forward at the KG training shape ([1, 15000,
+      K, 32] over 20000 targets; K = 20 writing the state, as training
+      calls it, and without; K = 10 without), at the serve query shapes
+      (16, 32, 64 rows, K = 10, over 20000), at the projection rule's
+      edge (1000 and 2000 rows x K = 10 over as many target rows as
+      candidates, every row projected, and over one more, only the
+      touched rows) and past it (3000, 4000 and 6000 rows x K = 10 over
+      20000);
+    - the sparse consensus backward at K = 20 and 10 from the forward's
+      state;
+    - ``route_fwd`` at O = 256 and 64 on a training batch (records
+      cached, as the two convolutions of a SplineCNN call share them),
+      and one whole SplineCNN call's routing on a new ``Routing`` each
+      call: its receiver and slot orders, the records' builds, two
+      forwards and two ``d_t`` at O = 64 (a dense step makes 22 such
+      calls; the host's wall time per call is what they cost it);
+    - the top-k kernel at 16, 32 and 64 query rows over 20000 targets
+      (C = 256, k = 10) beside ``torch.topk(bmm)``, its ``bmm`` and its
+      ``topk`` alone."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.models.spline import spline_routing
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.ops.kernels import spline
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        sparse_consensus_bwd, sparse_consensus_fwd)
+    from dgmc_tpu_torch.ops.kernels.topk import streaming_topk
+    gen = torch.Generator().manual_seed(6)
+    calls = {}
+    for K in (20, 10):
+        args, sl = _sc_floats(gen, 1, 15000, 20000, K, 32)
+        calls[f'sc_fwd K={K}'] = functools.partial(
+            sparse_consensus_fwd, args[0], args[1], sl, *args[2:])
+        if K == 20:
+            calls['sc_fwd K=20 state'] = functools.partial(
+                sparse_consensus_fwd, args[0], args[1], sl, *args[2:],
+                return_state=True)
+        _, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                        return_state=True)
+        g = torch.randn(sl.shape, generator=gen).cuda()
+        calls[f'sc_bwd K={K}'] = functools.partial(
+            sparse_consensus_bwd, *args[:2], sl, *args[2:5], g, state)
+    for n, N_t in [(n, 20000) for n in SMALL_ROWS] + [
+            (1000, 10000), (1000, 10001), (2000, 20000), (2000, 20001),
+            (3000, 20000), (4000, 20000), (6000, 20000)]:
+        args, sl = _sc_floats(gen, 1, n, N_t, 10, 32)
+        calls[f'sc_fwd {n}x{N_t}'] = functools.partial(
+            sparse_consensus_fwd, args[0], args[1], sl, *args[2:])
+    args = _train_args()
+    _, loader, _ = pascal_pf.build(args)
+    graph = GraphBatch.from_numpy(next(iter(loader)).s, 'cuda')
+    basis, routing = spline_routing(graph, 5)
+    B, M, N = graph.x.shape[0], routing.num_rows, routing.num_nodes
+    for O in (args.dim, args.rnd_dim):
+        t = torch.randn(B, M, O, generator=gen).cuda()
+        calls[f'route_fwd O={O}'] = functools.partial(spline.route_fwd, t,
+                                                      basis, routing)
+    t64 = torch.randn(B, M, args.rnd_dim, generator=gen).cuda()
+    g64 = torch.randn(B, N, args.rnd_dim, generator=gen).cuda()
+
+    def spline_call():
+        fresh = spline.Routing(routing.flat, routing.receivers,
+                               routing.edge_mask, N, M)
+        for _ in range(2):
+            spline.route_fwd(t64, basis, fresh)
+            spline.route_d_t(g64, basis, fresh)
+    calls['spline call O=64'] = spline_call
+    B_, _, N_t, C, k = TOPK_SHAPE
+    for n in SMALL_ROWS:
+        h_s, h_t, _, _ = _topk_case(gen, B_, n, N_t, C, k, ints=False)
+        scores = torch.bmm(h_s, h_t.transpose(1, 2))
+        calls[f'topk {n}x{N_t}'] = functools.partial(streaming_topk, h_s,
+                                                     h_t, k)
+        calls[f'torch.topk(bmm) {n}x{N_t}'] = functools.partial(
+            lambda a, b: torch.topk(torch.bmm(a, b.transpose(1, 2)), k),
+            h_s, h_t)
+        calls[f'bmm {n}x{N_t}'] = functools.partial(
+            lambda a, b: torch.bmm(a, b.transpose(1, 2)), h_s, h_t)
+        calls[f'topk of scores {n}x{N_t}'] = functools.partial(
+            torch.topk, scores, k)
+    got, src = timed(calls)
+    for key, (ms, wall) in got.items():
+        log(f'kernels: {key}: {ms:.4f} ms per call [{src}] / {wall:.4f} '
+            f'wall')
+    for key in ('sc_fwd K=20 state', 'sc_fwd 64x20000', 'sc_bwd K=10',
+                'spline call O=64', 'torch.topk(bmm) 64x20000',
+                'torch.topk(bmm) 16x20000'):
+        log(f'kernels: {key}: device ms by launch: '
+            f'{fmt_split(launch_split(calls[key]))}')
+    return {'ms_source': src, 'ms': {k: v[0] for k, v in got.items()},
+            'wall_ms': {k: v[1] for k, v in got.items()}}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
                    help='only time N dense and N KG phase-2 training steps '
                    'and profile one of each (no smoke phases)')
+    p.add_argument('--kernels', action='store_true',
+                   help='only time the sparse consensus forward and '
+                   'route_fwd at the main path\'s shapes (no smoke phases)')
     p.add_argument('--root', default=ROOT, metavar='DIR',
                    help='the tree whose dgmc_tpu_torch is imported')
     opts = p.parse_args(argv)
@@ -1588,30 +1857,35 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
-    if opts.steps:
+    if opts.steps or opts.kernels:
         phase_build()
-        got = steps(opts.steps)
+        got = kernel_times() if opts.kernels else steps(opts.steps)
         log(smi[0] if smi else 'nvidia-smi: no output')
-        print(json.dumps({'root': os.path.abspath(opts.root), 'steps': got}),
+        print(json.dumps({'root': os.path.abspath(opts.root),
+                          'kernels' if opts.kernels else 'steps': got}),
               flush=True)
         return 0
 
     res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:],
                            *(f'topk@{n}' for n in SMALL_ROWS),
+                           *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
                            'spline_route_fwd@64', 'spline_route_bwd@64')}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
+    sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
     for name, fn in (
             ('build', phase_build),
             ('topk_kernel', lambda: phase_topk_kernel(res['topk'], small)),
             ('spline_kernel', lambda: phase_spline_kernel(
                 res['spline_route_fwd'], res['spline_route_bwd'],
-                res['spline_route_fwd@64'], res['spline_route_bwd@64'])),
+                res['spline_route_fwd@64'], res['spline_route_bwd@64'],
+                res['spline_records'])),
             ('consensus_kernel', lambda: phase_consensus_kernel(
                 res['consensus_fwd'])),
             ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
-                res['sparse_consensus_fwd'], res['sparse_consensus_bwd'])),
-            ('serve', lambda: phase_serve(res['topk'], small)),
+                res['sparse_consensus_fwd'], res['sparse_consensus_bwd'],
+                sc_small)),
+            ('serve', lambda: phase_serve(res['topk'], small, sc_small)),
             ('train', lambda: phase_train(res)),
             ('kg_train', lambda: phase_kg_train(res))):
         t0 = time.perf_counter()

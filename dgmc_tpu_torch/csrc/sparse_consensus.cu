@@ -7,23 +7,31 @@
 //
 // Form. The first layer is linear, so (o_s - o_t) @ W1 + b1 = u_s - u_t
 // with u_s = o_s @ W1 + b1 and u_t = o_t @ W1 (the factored form that
-// csrc/consensus.cu uses too). The forward's first launch, project_rows
-// (csrc/project.cuh), forms u_s and u_t once per node row into the
-// wrapper's buffers; sc_fwd then does all the per-candidate work,
+// csrc/consensus.cu uses too). The per-candidate work is then
 // relu(u_s[s] - u_t[idx]) . w2 + b2, about 3R operations per candidate
 // instead of the 2R^2 of the direct form. The [B, N_s, K, R] candidate
 // tensor never exists. Asked for the state its backward needs, the
 // forward also writes the ReLU mask, one bit per candidate and channel
-// (pre > 0, ballot of the warp), and the wrapper keeps u_s and u_t: the
-// backward runs no projection, and its ReLU mask is the forward's.
+// (bit l of word c: pre > 0 in channel l + 32 c), and hands u_s and u_t
+// over: the backward runs no projection, and its ReLU mask is the
+// forward's.
 //
-// Layout. One warp per row, lane q holding channels q, q + 32, ...
-// (NC = ceil(R / 32) of them, R <= R_MAX = 128), so a candidate's u row is
-// one coalesced 128-byte read at R = 32. A warp loads up to 32 of its
-// row's candidate indices (and, backward, their output gradients) with one
-// read per lane and passes them on by shuffles. Indices are int32, as
-// top-k emits them. Dot products end in an XOR butterfly, which leaves the
-// same bits in every lane.
+// Forward, sc_fwd. A warp owns a source row. Its lanes split into groups
+// of L lanes sized to R (L = the power of two >= R / 4, lane j of a group
+// holding channels 4j..4j+3 as one 16-byte vector; R % 4 != 0 falls back
+// to L = 32 lanes of ceil(R / 32) scalar channels), so one warp load
+// covers 32 / L candidates: 4 at R = 32. A row's candidate indices come
+// in with one read per lane; all of its candidate rows are then loaded
+// (up to 8 rounds of 32 / L) before any is used, each group's dot product
+// ends in log2(L) XOR shuffles (3 at R = 32), and each candidate's mask
+// word is the OR of its group's bits. Where the shortlist holds fewer
+// candidates than there are target rows (B N_s K < B N_t: the serve and
+// query shapes), the same kernel forms u_s and u_t itself from o_s, o_t
+// and W1 staged in shared memory, one row per source row and one per
+// candidate, and no projection of all target rows runs; elsewhere
+// project_rows (csrc/project.cuh) forms u_s and u_t for every node row
+// first. Both forms sum each u in one order (r = 0, 1, ..., then b1), so
+// they agree bit for bit.
 //
 // Backward, with g = dL/d delta, pre = u_s[s] - u_t[t] and d_pre = g * w2
 // where pre > 0. Four launches, no atomics, repeats bit-identical:
@@ -57,18 +65,29 @@
 // Bound on the H100. At the DBP15K training shape (N_s = 15000, K = 20,
 // N_t = 20000, R = 32) the forward reads o_s, o_t and the shortlist and
 // writes delta, about 6.9 MB (2.1 us at 3.35 TB/s); its operations, the
-// u products included, are about 0.1 GFLOP (1.5 us at 67 TFLOP/s). The
-// backward's least work is that of the form that projects again: about
-// 0.27 GFLOP (4.1 us) against 11 MB; given the forward's u it would read
-// about 16 MB (4.7 us), more time than the product it saves. What limits
-// both is the random 128-byte u_t row per candidate (300000 at K = 20,
-// 38 MB from L2): the source blocks alone take about 0.02 ms with every block of the card in flight. On an
-// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) the backward takes
-// about 0.048 ms at K = 20, the forward 0.023 ms.
+// u products included, are about 0.1 GFLOP (1.5 us at 67 TFLOP/s). At a
+// query's shapes (16 to 64 rows, K = 10, over 20000 targets) only the
+// rows the shortlist touches count, under 0.1 MB. The backward's least
+// work is that of the form that projects again: about 0.27 GFLOP
+// (4.1 us) against 11 MB; given the forward's u it would read about
+// 16 MB (4.7 us), more time than the product it saves. What limits both
+// at the training shape is the random 128-byte u_t row per candidate
+// (300000 at K = 20, 38 MB from L2): without the mask sc_fwd gathers
+// them at about 3.7 TB/s. At a query's shapes it is the latency of two dependent reads (indices,
+// then candidate rows) and of the projection. On an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py) the forward takes about 0.019 ms at
+// K = 20 writing the ReLU mask (sc_fwd 0.013, project_rows 0.006) and
+// 0.003 ms at a query's shapes, the backward about 0.048 ms. (One
+// candidate at a time per warp, a dependent 128-byte load and a 5-step
+// butterfly each, took 0.025 ms at K = 20 and 0.008 ms at a query's
+// shapes, where the projection of all 20000 target rows came first.
+// Forming u_s in the candidate kernel at the training shape, in place of
+// project_rows, measured slower.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "launch.cuh"
@@ -81,13 +100,8 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int R_MAX = 128;
 constexpr int RED_WARPS = 32;            // warps per block of sc_reduce
 constexpr int TGT_PER_WARP = 4;          // target rows per warp of sc_bwd_tgt
+constexpr int PROJ_WARPS = 2;            // warps per block of sc_fwd projecting
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;
-}
 
 template <int NC>
 __device__ __forceinline__ void load_row(const float* row, int R, int lane,
@@ -99,54 +113,276 @@ __device__ __forceinline__ void load_row(const float* row, int R, int lane,
   }
 }
 
-// out = the delta; mask (unless null) [rows * K][NC]: bit l
-// of word c of a candidate is pre > 0 in channel l + 32 c, the ReLU mask
-// the backward's target side reads instead of u rows.
-template <int NC>
-__global__ void sc_fwd(const float* __restrict__ u_s,
-                       const float* __restrict__ u_t,
-                       const int* __restrict__ idx,
-                       const float* __restrict__ w2,
-                       const float* __restrict__ b2, float* __restrict__ out,
-                       unsigned* __restrict__ mask, int rows, int N_s,
-                       int N_t, int K, int R) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float us[NC], w[NC];
-  load_row(u_s + (int64_t)row * R, R, lane, us);
-  load_row(w2, R, lane, w);
-  const float bias = b2[0];
-  const float* ut_b = u_t + (int64_t)(row / N_s) * N_t * R;
-  const int* ids = idx + (int64_t)row * K;
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const int n = min(32, K - k0);
-    const int my_t = lane < n ? ids[k0 + lane] : 0;
-    float mine = 0.0f;
-    unsigned my_mask[NC] = {};
-    for (int j = 0; j < n; ++j) {
-      const int t = __shfl_sync(FULL, my_t, j);
-      float ut[NC];
-      load_row(ut_b + (int64_t)t * R, R, lane, ut);
-      float acc = 0.0f;
+// The forward's channel layout: a group of L lanes holds one row of R
+// channels, lane j of the group J vectors of V channels, channel
+// (i L + j) V + v in element [i][v] (V = 4 with J = 1, or V = 1 with L =
+// 32). Rows are read and written through it, zero past R.
+template <int V, int L, int J>
+struct Piece {
+  static constexpr int G = 32 / L;          // rows (candidates) a warp load
+  static constexpr int CS = J * L * V;      // channels a group spans
+  float x[J][V];
+
+  __device__ __forceinline__ static int ch(int j, int i, int v) {
+    return (i * L + j) * V + v;
+  }
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc += fmaxf(us[c] - ut[c], 0.0f) * w[c];
-        if (mask) {   // warp-uniform
-          const unsigned bits = __ballot_sync(FULL, us[c] - ut[c] > 0.0f);
-          if (lane == j) my_mask[c] = bits;
+    for (int i = 0; i < J; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) x[i][v] = 0.0f;
+  }
+  __device__ __forceinline__ void load(const float* row, int R, int j) {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int c = ch(j, i, 0);
+      if constexpr (V == 4) {
+        const float4 q = c < R ? *reinterpret_cast<const float4*>(row + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        x[i][0] = q.x; x[i][1] = q.y; x[i][2] = q.z; x[i][3] = q.w;
+      } else {
+        x[i][0] = c < R ? row[c] : 0.0f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* row, int R, int j) const {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int c = ch(j, i, 0);
+      if (c >= R) continue;
+      if constexpr (V == 4)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+      else
+        row[c] = x[i][0];
+    }
+  }
+};
+
+// Each u[k] = xs[k] times W1, for the N rows xs[k] (row k held as a
+// Piece by each group's lanes): element (i, v) of u[k] is the sum over r,
+// in order, of row[r] W1[r][channel] (fmaf), as project_rows sums (the
+// channels past R hold zeros, whose products leave a sum unchanged). sw:
+// W1 in shared memory, [CS][CS] row-major, zero past R. One W1 vector a
+// lane and r serves all N rows, whose N sums are independent chains.
+template <int V, int L, int J, int N>
+__device__ __forceinline__ void project(const Piece<V, L, J> (&xs)[N],
+                                        const float* sw, int lane,
+                                        Piece<V, L, J> (&u)[N]) {
+  using P = Piece<V, L, J>;
+  const int base = lane & ~(L - 1), j = lane & (L - 1);
+#pragma unroll
+  for (int k = 0; k < N; ++k) u[k].zero();
+#pragma unroll
+  for (int i2 = 0; i2 < J; ++i2)
+#pragma unroll
+    for (int jj = 0; jj < L; ++jj)
+#pragma unroll
+      for (int v2 = 0; v2 < V; ++v2) {
+        const float* wr = sw + ((i2 * L + jj) * V + v2) * P::CS;
+        float w[J][V];
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          if constexpr (V == 4) {
+            const float4 q =
+                *reinterpret_cast<const float4*>(wr + P::ch(j, i, 0));
+            w[i][0] = q.x; w[i][1] = q.y; w[i][2] = q.z; w[i][3] = q.w;
+          } else {
+            w[i][0] = wr[P::ch(j, i, 0)];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float xr = __shfl_sync(FULL, xs[k].x[i2][v2], base + jj);
+#pragma unroll
+          for (int i = 0; i < J; ++i)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              u[k].x[i][v] = fmaf(xr, w[i][v], u[k].x[i][v]);
         }
       }
-      acc = warp_sum(acc);
-      if (lane == j) mine = acc + bias;
-    }
-    const int64_t slot = (int64_t)row * K + k0 + lane;
-    if (lane < n) {
-      out[slot] = mine;
-      if (mask)
+}
+
+// Transposed reduction over the L lanes of a group of N values a lane
+// (N <= L, both powers of two; Op: + or |): after log2(N) halving steps
+// (masks L/2 ... L/N: a lane keeps half its values and adds its partner's
+// copy of them) and log2(L/N) plain ones, v[0] of lane j holds value j /
+// (L / N) summed over the group, in a fixed order. N - 1 + log2(L/N)
+// shuffles instead of N log2(L).
+template <int L, int N, class T, class Op>
+__device__ __forceinline__ T transpose_reduce(T (&v)[N], int lane, Op op) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) mask[slot * NC + c] = my_mask[c];
+  for (int n = N, m = L / 2; n > 1; n >>= 1, m >>= 1) {
+    const bool hi = lane & m;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const T send = hi ? v[i] : v[i + n / 2];
+      const T keep = hi ? v[i + n / 2] : v[i];
+      v[i] = op(keep, __shfl_xor_sync(FULL, send, m));
     }
+  }
+#pragma unroll
+  for (int m = L / N / 2; m > 0; m >>= 1)
+    v[0] = op(v[0], __shfl_xor_sync(FULL, v[0], m));
+  return v[0];
+}
+
+// delta and (MASK) the ReLU mask [rows * K][ceil(R / 32)] words. Warps
+// walk source rows row, row + stride, ...
+// PROJ = false: x_s, x_t are u_s, u_t (project_rows formed them); each
+// row's first 32 indices and its u_s row are loaded while the row before
+// is reduced.
+// PROJ = true: x_s, x_t are o_s, o_t; the grid covers the rows (a warp
+// each). Each block stages W1 in shared memory by cp.async while its
+// warps load their first candidate rows; each warp then forms its row's
+// u_s and each candidate's u_t itself (the row with the first batch of
+// candidates, in one pass over W1), writing them into st_s / st_t where
+// those are not null (the backward's state; a target row in several
+// lists gets the same bits from each).
+template <int V, int L, int J, bool PROJ, bool MASK, int RBMAX>
+__global__ void __launch_bounds__(THREADS)
+sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
+       const int* __restrict__ idx, const float* __restrict__ w1,
+       const float* __restrict__ b1, const float* __restrict__ w2,
+       const float* __restrict__ b2, float* __restrict__ out,
+       unsigned* __restrict__ mask, float* __restrict__ st_s,
+       float* __restrict__ st_t, int rows, int N_s, int N_t, int K, int R) {
+  using P = Piece<V, L, J>;
+  constexpr int G = P::G;
+  // A window of 32 candidates is 32 / G = L rounds of G; RB rounds are in
+  // flight at once, their sums and mask words reduced together (RBMAX: 4
+  // where K <= 16 or each candidate row is projected, K = 10 being 3
+  // rounds at R = 32, else 8). A mask word spans LM lanes.
+  constexpr int RB = L < RBMAX ? L : RBMAX;
+  constexpr int LM = L < 8 ? L : 8;
+  extern __shared__ float4 fwd_smem4[];
+  float* sw = reinterpret_cast<float*>(fwd_smem4);   // [CS][CS] W1
+  if constexpr (PROJ)
+    dgmc::copy_rows_async(w1, sw, R, P::CS, R, P::CS, threadIdx.x,
+                          blockDim.x);
+  const int lane = threadIdx.x & 31, j = lane & (L - 1), g = lane / L;
+  const int warps = blockDim.x >> 5, stride = gridDim.x * warps;
+  int row = blockIdx.x * warps + (threadIdx.x >> 5);
+  int my_t = 0, tt[RB];
+  P us, w, b, ut[RB];
+  us.zero();
+  // Loads the candidate rows of rounds r0 ... r0 + RB - 1 of a window of
+  // n candidates into ut (zeros past n).
+  auto load_batch = [&](int64_t tb, int r0, int n) {
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr) {
+      const int slot = (r0 + rr) * G + g;
+      tt[rr] = __shfl_sync(FULL, my_t, slot & 31);
+      if (slot < n)
+        ut[rr].load(x_t + tb + (int64_t)tt[rr] * R, R, j);
+      else
+        ut[rr].zero();
+    }
+  };
+  if (row < rows) {
+    my_t = lane < K ? idx[(int64_t)row * K + lane] : 0;
+    us.load(x_s + (int64_t)row * R, R, j);
+  }
+  w.load(w2, R, j);
+  bool loaded = false;   // the batch to come is in ut already
+  if constexpr (PROJ) {
+    b.load(b1, R, j);
+    if (row < rows) {
+      load_batch((int64_t)(row / N_s) * N_t * R, 0, min(32, K));
+      loaded = true;
+    }
+    dgmc::cp_wait_all();
+    __syncthreads();
+  }
+  const float bias = b2[0];
+  const int nc = (R + 31) / 32;
+  // The lanes that store: the sum of round j / (L / RB) of a batch, and
+  // word j / 8 of the mask of round (j % LM) / (LM / RB).
+  const int r_sum = j / (L / RB), r_word = (j % LM) / (LM / RB);
+  for (; row < rows; row += stride) {
+    const int next = row + stride;
+    int next_t = 0;
+    P next_us;
+    next_us.zero();
+    if (next < rows) {
+      next_t = lane < K ? idx[(int64_t)next * K + lane] : 0;
+      next_us.load(x_s + (int64_t)next * R, R, j);
+    }
+    const int64_t tb = (int64_t)(row / N_s) * N_t * R;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int n = min(32, K - k0);
+      if (k0) my_t = lane < n ? idx[(int64_t)row * K + k0 + lane] : 0;
+      const int64_t first = (int64_t)row * K + k0;
+      for (int r0 = 0; r0 * G < n; r0 += RB) {
+        // Every candidate row of the batch in flight before any use.
+        if (!loaded) load_batch(tb, r0, n);
+        loaded = false;
+        if constexpr (PROJ) {
+          if (k0 == 0 && r0 == 0) {   // the row's u_s with the first batch
+            P xin[RB + 1], u[RB + 1];
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr) xin[rr] = ut[rr];
+            xin[RB] = us;
+            project(xin, sw, lane, u);
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr) ut[rr] = u[rr];
+            us = u[RB];
+#pragma unroll
+            for (int i = 0; i < J; ++i)
+#pragma unroll
+              for (int v = 0; v < V; ++v) us.x[i][v] += b.x[i][v];
+            if (st_s && g == 0) us.store(st_s + (int64_t)row * R, R, j);
+          } else {
+            P xin[RB];
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr) xin[rr] = ut[rr];
+            project(xin, sw, lane, ut);
+          }
+          if (st_t)
+#pragma unroll
+            for (int rr = 0; rr < RB; ++rr)
+              if ((r0 + rr) * G + g < n)
+                ut[rr].store(st_t + tb + (int64_t)tt[rr] * R, R, j);
+        }
+        float acc[RB];
+        unsigned bits[RB];
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr) {
+          acc[rr] = 0.0f;
+          bits[rr] = 0u;
+          if ((r0 + rr) * G >= n) continue;   // warp-uniform: no candidate
+#pragma unroll
+          for (int i = 0; i < J; ++i)
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const float pre = us.x[i][v] - ut[rr].x[i][v];
+              acc[rr] += fmaxf(pre, 0.0f) * w.x[i][v];
+              if constexpr (MASK && V == 4) {
+                // channels 4j..4j+3: bits of word j / 8
+                bits[rr] |= (pre > 0.0f ? 1u : 0u) << ((4 * j + v) & 31);
+              } else if constexpr (MASK) {
+                // L = 32: word i is the warp's ballot of element i
+                const unsigned wd = __ballot_sync(FULL, pre > 0.0f);
+                if (lane == i) mask[(first + r0 + rr) * nc + i] = wd;
+              }
+            }
+        }
+        const float sum = transpose_reduce<L, RB>(
+            acc, lane, [](float a, float c) { return a + c; });
+        const int slot = (r0 + r_sum) * G + g;
+        if (slot < n && j % (L / RB) == 0) out[first + slot] = sum + bias;
+        if constexpr (MASK && V == 4) {
+          // OR over each LM lanes of one word.
+          const unsigned wd = transpose_reduce<LM, RB>(
+              bits, lane, [](unsigned a, unsigned c) { return a | c; });
+          const int ws = (r0 + r_word) * G + g;
+          if (ws < n && j % (LM / RB) == 0 && j / 8 < nc)
+            mask[(first + ws) * nc + j / 8] = wd;
+        }
+      }
+    }
+    my_t = next_t;
+    us = next_us;
   }
 }
 
@@ -559,13 +795,74 @@ int with_nc(int R, F&& f) {
   }
 }
 
-template <int NC>
-int fwd_nc(const float* u_s, const float* u_t, const int* idx,
-           const float* w2, const float* b2, float* out, unsigned* mask,
-           int rows, int N_s, int N_t, int K, int R, cudaStream_t st) {
-  sc_fwd<NC><<<(rows + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      u_s, u_t, idx, w2, b2, out, mask, rows, N_s, N_t, K, R);
+// f(std::integral_constant<int, L>()) for the forward's lanes per
+// candidate at R (R % 4 == 0): the power of two >= R / 4.
+template <class F>
+int with_lanes(int R, F&& f) {
+  const int v = R / 4;
+  if (v <= 1) return f(std::integral_constant<int, 1>());
+  if (v <= 2) return f(std::integral_constant<int, 2>());
+  if (v <= 4) return f(std::integral_constant<int, 4>());
+  if (v <= 8) return f(std::integral_constant<int, 8>());
+  if (v <= 16) return f(std::integral_constant<int, 16>());
+  return f(std::integral_constant<int, 32>());
+}
+
+template <int V, int L, int J, bool MASK>
+int fwd_launch(bool proj, const float* x_s, const float* x_t, const int* idx,
+               const float* w1, const float* b1, const float* w2,
+               const float* b2, float* out, unsigned* mask, float* st_s,
+               float* st_t, int rows, int N_s, int N_t, int K, int R,
+               int device, cudaStream_t st) {
+  if (!proj) {
+    // One block per WARPS rows, at most as many as the card holds at
+    // once: the warps then walk the rows.
+    const auto kernel = K > 16 ? sc_fwd<V, L, J, false, MASK, 8>
+                               : sc_fwd<V, L, J, false, MASK, 4>;
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, THREADS, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return (int)err;
+    const int want = (rows + WARPS - 1) / WARPS;
+    const int grid = want < per_sm * sms ? want : per_sm * sms;
+    kernel<<<grid, THREADS, 0, st>>>(x_s, x_t, idx, w1, b1, w2, b2, out,
+                                     mask, st_s, st_t, rows, N_s, N_t, K, R);
+    return (int)cudaGetLastError();
+  }
+  // Few rows (a query's): small blocks, so that they spread over the SMs.
+  const auto kernel = sc_fwd<V, L, J, true, MASK, 4>;
+  constexpr int CS = Piece<V, L, J>::CS;
+  const size_t smem = sizeof(float) * CS * CS;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(rows + PROJ_WARPS - 1) / PROJ_WARPS, 32 * PROJ_WARPS, smem,
+           st>>>(x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t, rows,
+                 N_s, N_t, K, R);
   return (int)cudaGetLastError();
+}
+
+template <int V, int L, int J>
+int fwd_launch(bool proj, const float* x_s, const float* x_t, const int* idx,
+               const float* w1, const float* b1, const float* w2,
+               const float* b2, float* out, unsigned* mask, float* st_s,
+               float* st_t, int rows, int N_s, int N_t, int K, int R,
+               int device, cudaStream_t st) {
+  return mask ? fwd_launch<V, L, J, true>(proj, x_s, x_t, idx, w1, b1, w2,
+                                          b2, out, mask, st_s, st_t, rows,
+                                          N_s, N_t, K, R, device, st)
+              : fwd_launch<V, L, J, false>(proj, x_s, x_t, idx, w1, b1, w2,
+                                           b2, out, mask, st_s, st_t, rows,
+                                           N_s, N_t, K, R, device, st);
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 template <int NC>
@@ -628,26 +925,45 @@ int dgmc_sc_bwd_blocks_per_sm(int R, int device) {
 
 // o_s [B, N_s, R], o_t [B, N_t, R], idx [B, N_s, K] int32 in [0, N_t)
 // (unchecked), w1 [R, R], b1 [R], w2 [R], b2 [1]: float32, contiguous.
-// Writes u_s [B, N_s, R], u_t [B, N_t, R] (the factored form's node rows,
-// which the backward takes), out [B, N_s, K] and, unless mask is null,
-// the ReLU mask [B*N_s*K][ceil(R / 32)] (uint32 words, for the backward).
-// Launches on `stream` on `device`, does not synchronize, restores the
-// calling thread's current device, returns the first CUDA error.
+// Writes out [B, N_s, K] and, unless mask is null, the ReLU mask
+// [B*N_s*K][ceil(R / 32)] (uint32 words, for the backward).
+// touched = 0: project_rows forms u_s [B, N_s, R] and u_t [B, N_t, R]
+// (the factored form's node rows, which the backward takes) into u_s and
+// u_t, both required, then sc_fwd reads them. touched = 1: sc_fwd forms
+// u_s and the u_t of each candidate itself and, where u_s / u_t are not
+// null, writes u_s and the u_t rows the shortlist touches (the caller
+// zeroes the others). Launches on `stream` on `device`, does not
+// synchronize, restores the calling thread's current device, returns the
+// first CUDA error.
 int dgmc_sc_fwd_f32(const float* o_s, const float* o_t, const int* idx,
                     const float* w1, const float* b1, const float* w2,
                     const float* b2, float* u_s, float* u_t, float* out,
                     unsigned* mask, int B, int N_s, int N_t, int K, int R,
-                    int device, void* stream) {
-  if (bad_shape(B, N_s, N_t, K, R)) return (int)cudaErrorInvalidValue;
+                    int touched, int device, void* stream) {
+  if (bad_shape(B, N_s, N_t, K, R) || (!touched && !(u_s && u_t)))
+    return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     const auto st = reinterpret_cast<cudaStream_t>(stream);
     const int rows = B * N_s;
-    cudaError_t err = dgmc::project(o_s, o_t, w1, b1, u_s, u_t, rows,
-                                    (int64_t)B * N_t, R, st);
-    if (err != cudaSuccess) return (int)err;
+    const float* x_s = touched ? o_s : u_s;
+    const float* x_t = touched ? o_t : u_t;
+    if (!touched) {
+      const cudaError_t err = dgmc::project(o_s, o_t, w1, b1, u_s, u_t, rows,
+                                            (int64_t)B * N_t, R, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    float* st_s = touched ? u_s : nullptr;
+    float* st_t = touched ? u_t : nullptr;
+    if (R % 4 == 0 && aligned16({x_s, x_t, w2, b1, st_s, st_t}))
+      return with_lanes(R, [&](auto l) {
+        return fwd_launch<4, decltype(l)::value, 1>(
+            touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t,
+            rows, N_s, N_t, K, R, device, st);
+      });
     return with_nc(R, [&](auto nc) {
-      return fwd_nc<decltype(nc)::value>(u_s, u_t, idx, w2, b2, out, mask,
-                                         rows, N_s, N_t, K, R, st);
+      return fwd_launch<1, 32, decltype(nc)::value>(
+          touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t, rows,
+          N_s, N_t, K, R, device, st);
     });
   });
 }

@@ -24,23 +24,45 @@
 // builds both lists with a stable sort (index preprocessing); masked
 // edges sort into a sentinel segment past the last row and are never read.
 //
-// route_fwd: a group of threads per receiver row (each thread 4
-// neighbouring channels through 16-byte loads and stores where O % 4 ==
-// 0, blockDim.y rows per block); edge metadata reads are the same address
-// across a row's threads (broadcasts).
+// Both kernels read 8-byte records built by one launch of `records` once
+// per routing and basis (the wrapper caches them: the two convolutions of
+// a SplineCNN call and their two backward launches share one build):
+//   - route_fwd's edge records, in receiver order, A a edge: the row of t
+//     in the flattened batch, b*M + flat[b,e,a], and the basis weight's
+//     bits, with int32 slot offsets;
+//   - route_dt's slot records, in slot order: the receiver node of the
+//     flattened batch and the basis weight's bits, with int32 row offsets.
+// So a slot costs one record and one t (or g) row instead of a chain of
+// dependent int64 loads (offsets -> order -> flat and basis -> t).
 //
+// route_fwd:
+//   - a block owns FW_ROWS (8) receiver rows, its warps 32 / L rows at a
+//     time: a group of L lanes a row, sized to O (16-byte vectors, one a
+//     lane up to 32 of them, two above: at O = 64 16 lanes a row and two
+//     rows a warp, at O = 256 the warp, two vectors a lane);
+//   - each group reads its slots' records straight from memory (L1) and
+//     loads the t rows of FW_VECTORS / NV slots (8 vectors a lane: two
+//     edges at O = 64, one at O = 256) before the first FMA;
+//   - a row without an edge stores its zeros at once; every output store
+//     streams (evict-first).
+// Staging a warp's records in shared memory first, one row a warp with
+// 8-byte vectors, more slots in flight, and blocks that own a whole
+// graph all measured slower on the H100. At the dense training batch the
+// gather of every slot's t row through L2 is what is left: 112000 real
+// slots read 28.7 MB at O = 64, 3.3 reads of each of 33954 distinct rows,
+// at about 4 TB/s (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W: 0.0072
+// ms at O = 64, 0.024 ms at O = 256). Sums keep the plain version's
+// order: an edge's A rows blended in slot order, edges added in receiver
+// order, then the division by max(deg, 1).
+
 // route_dt is bound by the write of d_t (B*M*O floats, most rows without a
 // slot: on the dense training batch 0.875 slots a row, 73.5% of rows
 // empty), so it is built to keep that write streaming:
 //   - g_norm first divides each receiver's g row by max(deg, 1) once
 //     (B*N*O divisions, against one per slot and channel otherwise, which
 //     made the kernel issue-bound), into a scratch buffer; deg is read
-//     from the receiver CSR offsets that route_fwd reads too;
-//   - each slot is one 8-byte record in slot order (receiver node of the
-//     flattened batch, basis weight), so a slot costs one record and one
-//     g row instead of a chain of dependent int64 loads. slot_records
-//     builds them, and the int32 row offsets, in one launch once per
-//     routing and basis (the wrapper caches them);
+//     from the receiver CSR offsets;
+//   - each slot is one slot record (above);
 //   - a warp owns 32 consecutive rows: one coalesced load of their 33
 //     offsets, one coalesced copy of their records into shared memory
 //     (handed out from there; a window with more than DT_CAP slots reads
@@ -85,38 +107,6 @@ __device__ __forceinline__ void store(float* p, const float (&x)[V]) {
 }
 
 template <int V>
-__global__ void route_fwd(const float* __restrict__ t,
-                          const int64_t* __restrict__ flat,
-                          const float* __restrict__ basis,
-                          const int64_t* __restrict__ order,
-                          const int64_t* __restrict__ offsets,
-                          float* __restrict__ out, int64_t rows, int N,
-                          int64_t M, int O, int A) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (r >= rows) return;
-  const int64_t b = r / N;
-  const int64_t beg = offsets[r], end = offsets[r + 1];
-  const float deg = fmaxf((float)(end - beg), 1.0f);
-  const float* tb = t + b * M * O;
-  for (int o = threadIdx.x * V; o < O; o += blockDim.x * V) {
-    float acc[V] = {};
-    for (int64_t j = beg; j < end; ++j) {
-      const int64_t e = order[j];           // edge id in the flat batch
-      float msg[V] = {};
-      for (int a = 0; a < A; ++a) {
-        const float w = basis[e * A + a];
-        float x[V];
-        load<V>(tb + flat[e * A + a] * O + o, x);
-        for (int v = 0; v < V; ++v) msg[v] += w * x[v];
-      }
-      for (int v = 0; v < V; ++v) acc[v] += msg[v];
-    }
-    for (int v = 0; v < V; ++v) acc[v] = acc[v] / deg;
-    store<V>(out + r * O + o, acc);
-  }
-}
-
-template <int V>
 __device__ __forceinline__ void store_stream(float* p, const float (&x)[V]) {
   if constexpr (V == 4)
     __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
@@ -125,27 +115,118 @@ __device__ __forceinline__ void store_stream(float* p, const float (&x)[V]) {
 }
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int FW_VECTORS = 8;    // route_fwd: t vectors in flight a lane
+constexpr int FW_THREADS = 256;  // route_fwd: most threads a block
+constexpr int FW_ROWS = 8;       // route_fwd: receiver rows a block
 constexpr int DT_ROWS = 32;  // rows of d_t per warp
 constexpr int DT_CAP = 128;  // slot records staged per warp
 constexpr int DT_NV = 2;     // vectors per lane per pass
 
-// The d_t kernel's slot records, a thread a slot: for slot j of the
-// flat-sorted order, rec[j] = (b*N + receivers[b, e], bits of
-// basis[b, e, a]) where order[j] = (b*E + e)*A + a; and the row offsets
-// as int32.
-__global__ void slot_records(const int64_t* __restrict__ order,
-                             const int64_t* __restrict__ receivers,
-                             const float* __restrict__ basis,
-                             const int64_t* __restrict__ offsets,
-                             int2* __restrict__ rec, int* __restrict__ off32,
-                             int64_t S, int64_t n_off, int E, int A, int N) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < S) {
-    const int64_t slot = order[j], e = slot / A;
-    rec[j] = make_int2((int)((e / E) * N + receivers[e]),
-                       __float_as_int(basis[slot]));
+// Both record sets, a thread a slot: edge record i of the receiver-sorted
+// edge order rcv_order[i / A] = b*E + e is (b*M + flat[b, e, a], bits of
+// basis[b, e, a]) with a = i % A; slot record j of the flat-sorted slot
+// order slot_order[j] = (b*E + e)*A + a is (b*N + receivers[b, e], bits
+// of basis[b, e, a]). Also both offset lists as int32: the slot offsets
+// of the forward (A times the receiver CSR's edge offsets) and the row
+// offsets of the slot CSR.
+__global__ void records(const int64_t* __restrict__ rcv_order,
+                        const int64_t* __restrict__ slot_order,
+                        const int64_t* __restrict__ flat,
+                        const int64_t* __restrict__ receivers,
+                        const float* __restrict__ basis,
+                        const int64_t* __restrict__ rcv_off,
+                        const int64_t* __restrict__ slot_off,
+                        int2* __restrict__ edge_rec, int* __restrict__ edge_off,
+                        int2* __restrict__ slot_rec, int* __restrict__ row_off,
+                        int64_t S, int64_t n_rcv, int64_t n_slot, int E,
+                        int A, int N, int64_t M) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < S) {
+    const int64_t jj = i / A, e = rcv_order[jj];
+    const int64_t slot = e * A + (i - jj * A);
+    edge_rec[i] = make_int2((int)((e / E) * M + flat[slot]),
+                            __float_as_int(basis[slot]));
+    const int64_t s2 = slot_order[i], e2 = s2 / A;
+    slot_rec[i] = make_int2((int)((e2 / E) * N + receivers[e2]),
+                            __float_as_int(basis[s2]));
   }
-  if (j < n_off) off32[j] = (int)offsets[j];
+  if (i < n_rcv) edge_off[i] = (int)(rcv_off[i] * A);
+  if (i < n_slot) row_off[i] = (int)slot_off[i];
+}
+
+// out[r] = (sum over r's edges in order of (sum over the edge's A slots
+// of w * t[row])) / max(deg, 1). Block b owns receiver rows [b FW_ROWS,
+// (b+1) FW_ROWS); its warps take 32 / L of them at a time, a group of L lanes a
+// row, NV vectors of V floats a lane (covering L * NV vectors of the row
+// a pass over columns). A group reads its slots' records straight from
+// memory, SB at a time, and each record's t row as soon as it has it.
+template <int V, int NV>
+__global__ void __launch_bounds__(FW_THREADS)
+route_fwd(const float* __restrict__ t, const int2* __restrict__ rec,
+          const int* __restrict__ off, float* __restrict__ out, int64_t rows,
+          int O, int L, int A) {
+  constexpr int SB = FW_VECTORS / NV;   // slots loaded ahead of their FMAs
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32, groups = 32 / L;
+  const int g = lane / L, sub = lane % L;
+  const int nvec = O / V;
+  for (int w0 = (warp * groups + g); w0 < FW_ROWS; w0 += warps * groups) {
+    const int64_t r = (int64_t)blockIdx.x * FW_ROWS + w0;
+    if (r >= rows) break;
+    const int beg = off[r], end = off[r + 1];
+    const float deg = fmaxf((float)((end - beg) / A), 1.0f);
+    float* o = out + r * O;
+    for (int c0 = sub; c0 < nvec; c0 += L * NV) {
+      float acc[NV][V] = {}, msg[NV][V] = {};
+      int a = 0;
+      for (int j0 = beg; j0 < end; j0 += SB) {
+        float x[SB][NV][V];
+        float w[SB];
+#pragma unroll
+        for (int s = 0; s < SB; ++s) {
+          const int j = j0 + s;
+          const int2 rc = j < end ? rec[j] : make_int2(0, 0);
+          w[s] = __int_as_float(rc.y);
+          const float* tr = t + (int64_t)rc.x * O;
+#pragma unroll
+          for (int u = 0; u < NV; ++u) {
+            const int c = c0 + u * L;
+            if (j < end && c < nvec) {
+              load<V>(tr + c * V, x[s][u]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < V; ++v) x[s][u][v] = 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < SB; ++s) {
+          if (j0 + s >= end) break;
+#pragma unroll
+          for (int u = 0; u < NV; ++u)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              msg[u][v] = a ? msg[u][v] + w[s] * x[s][u][v]
+                            : w[s] * x[s][u][v];
+          if (++a == A) {
+            a = 0;
+#pragma unroll
+            for (int u = 0; u < NV; ++u)
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[u][v] += msg[u][v];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        const int c = c0 + u * L;
+        if (c >= nvec) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[u][v] = acc[u][v] / deg;
+        store_stream<V>(o + c * V, acc[u]);
+      }
+    }
+  }
 }
 
 // gn[n, :] = g[n, :] / max(deg_n, 1) for the B*N receiver rows, deg_n
@@ -228,19 +309,6 @@ route_dt(const float* __restrict__ gn, const int* __restrict__ rec,
   }
 }
 
-// A row group of `tpr` threads (a power of two up to THREADS) covers the
-// O / V vectors of a row in one pass up to O = 256 V; a block holds
-// THREADS / tpr rows.
-dim3 block_of(int O, int V) {
-  int tpr = 1;
-  while (tpr < (O + V - 1) / V && tpr < THREADS) tpr *= 2;
-  return dim3(tpr, THREADS / tpr);
-}
-
-unsigned grid_of(int64_t rows, const dim3& block) {
-  return (unsigned)((rows + block.y - 1) / block.y);
-}
-
 int vec_width(int O, const void* a, const void* b) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
                          reinterpret_cast<uintptr_t>(b);
@@ -251,51 +319,71 @@ int vec_width(int O, const void* a, const void* b) {
 
 extern "C" {
 
-// t [B, M, O] float32; flat [B, E, A] int64 (< M); basis [B, E, A]
-// float32; order [B*E] int64 edge ids sorted by (b, receiver) with masked
-// edges last; offsets [B*N + 1] int64 CSR bounds into order. Writes out
+// t [B, M, O] float32; rec [B*E*A, 2] int32 and off [B*N + 1] int32 the
+// edge records and slot offsets dgmc_spline_records writes. Writes out
 // [B, N, O]. Launches on `stream` on `device`, does not synchronize,
-// restores the calling thread's current device, returns cudaGetLastError().
-int dgmc_spline_route_fwd_f32(const float* t, const int64_t* flat,
-                              const float* basis, const int64_t* order,
-                              const int64_t* offsets, float* out, int B,
-                              int N, long long M, int O, int A, int device,
-                              void* stream) {
+// restores the calling thread's current device, returns
+// cudaGetLastError().
+int dgmc_spline_route_fwd_f32(const float* t, const int* rec, const int* off,
+                              float* out, int B, int N, long long M, int O,
+                              int A, int device, void* stream) {
   if (B < 1 || N < 1 || M < 1 || O < 1 || A < 1)
     return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     const int64_t rows = (int64_t)B * N;
-    const int V = vec_width(O, t, out);
-    const dim3 block = block_of(O, V);
+    const int V = vec_width(O, t, out), nvec = O / V;
+    int L = 2;   // lanes a row: one vector a lane up to 32, then two
+    while (L < 32 && L < nvec) L *= 2;
+    const int NV = nvec > L ? 2 : 1, groups = 32 / L;
+    const int windows = (FW_ROWS + groups - 1) / groups;
+    const int threads =
+        32 * (windows < FW_THREADS / 32 ? windows : FW_THREADS / 32);
+    const unsigned grid = (unsigned)((rows + FW_ROWS - 1) / FW_ROWS);
     const auto st = reinterpret_cast<cudaStream_t>(stream);
-    if (V == 4)
-      route_fwd<4><<<grid_of(rows, block), block, 0, st>>>(
-          t, flat, basis, order, offsets, out, rows, N, M, O, A);
+    const auto r2 = reinterpret_cast<const int2*>(rec);
+    if (V == 4 && NV == 2)
+      route_fwd<4, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
+                                                A);
+    else if (V == 4)
+      route_fwd<4, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
+                                                A);
+    else if (NV == 2)
+      route_fwd<1, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
+                                                A);
     else
-      route_fwd<1><<<grid_of(rows, block), block, 0, st>>>(
-          t, flat, basis, order, offsets, out, rows, N, M, O, A);
+      route_fwd<1, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
+                                                A);
     return (int)cudaGetLastError();
   });
 }
 
-// order [S] int64 slot ids (b*E + e)*A + a sorted by (b, flat) with
-// masked slots last; receivers [B, E] int64; basis [B, E, A] float32;
-// offsets [n_off] int64 CSR bounds into order. Writes rec [S, 2] int32
-// (receiver node b*N + rcv, basis weight bits) and off32 [n_off] int32.
-int dgmc_spline_slot_records(const int64_t* order, const int64_t* receivers,
-                             const float* basis, const int64_t* offsets,
-                             int* rec, int* off32, long long S,
-                             long long n_off, int E, int A, int N,
-                             int device, void* stream) {
-  if (S < 0 || n_off < 1 || A < 1 || N < 1)
+// rcv_order [B*E] int64 edge ids sorted by (b, receiver) and slot_order
+// [S = B*E*A] int64 slot ids (b*E + e)*A + a sorted by (b, flat), masked
+// ones last in both; flat [B, E, A] int64 (< M); receivers [B, E] int64;
+// basis [B, E, A] float32; rcv_off [n_rcv] and slot_off [n_slot] int64
+// CSR bounds into the two orders. Writes edge_rec [S, 2] int32 (row b*M +
+// flat, basis weight bits, in receiver order), edge_off [n_rcv] int32 (A
+// times rcv_off), slot_rec [S, 2] int32 (receiver node b*N + rcv, basis
+// weight bits, in slot order) and row_off [n_slot] int32 (slot_off).
+int dgmc_spline_records(const int64_t* rcv_order, const int64_t* slot_order,
+                        const int64_t* flat, const int64_t* receivers,
+                        const float* basis, const int64_t* rcv_off,
+                        const int64_t* slot_off, int* edge_rec, int* edge_off,
+                        int* slot_rec, int* row_off, long long S,
+                        long long n_rcv, long long n_slot, int E, int A,
+                        int N, long long M, int device, void* stream) {
+  if (S < 0 || n_rcv < 1 || n_slot < 1 || A < 1 || N < 1 || M < 1)
     return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
-    const long long n = S > n_off ? S : n_off;
+    long long n = S > n_rcv ? S : n_rcv;
+    n = n > n_slot ? n : n_slot;
     const unsigned grid = (unsigned)((n + THREADS - 1) / THREADS);
     const auto st = reinterpret_cast<cudaStream_t>(stream);
-    slot_records<<<grid, THREADS, 0, st>>>(order, receivers, basis, offsets,
-                                           reinterpret_cast<int2*>(rec),
-                                           off32, S, n_off, E, A, N);
+    records<<<grid, THREADS, 0, st>>>(
+        rcv_order, slot_order, flat, receivers, basis, rcv_off, slot_off,
+        reinterpret_cast<int2*>(edge_rec), edge_off,
+        reinterpret_cast<int2*>(slot_rec), row_off, S, n_rcv, n_slot, E, A,
+        N, M);
     return (int)cudaGetLastError();
   });
 }

@@ -53,12 +53,20 @@ class GraphBatch:
         """Build from the arrays of :func:`~dgmc_tpu_torch.utils.data.
         pad_graphs` (or any dict with the same keys). Edge endpoints
         outside ``[0, N)`` raise: the kernels index node rows with them
-        unchecked."""
+        unchecked. So does a ``node_mask`` whose real nodes are not the
+        first of each graph: a candidate's validity and the negatives'
+        draw take node ``j`` as real when ``j`` is below the graph's
+        count of real nodes (as :func:`pad_graphs` pads, at the tail)."""
         N = np.shape(arrays['x'])[1]
         for key in ('senders', 'receivers'):
             ends = np.asarray(arrays[key])
             if ends.size and (ends.min() < 0 or ends.max() >= N):
                 raise ValueError(f'{key} outside [0, {N})')
+        mask = np.asarray(arrays['node_mask'], bool)
+        if (mask[:, 1:] & ~mask[:, :-1]).any():
+            raise ValueError('node_mask: the real nodes of a graph must '
+                             'come first (a padded tail), not interleave '
+                             'with padding')
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a)).to(device=device,
                                                      dtype=dtype)

@@ -9,7 +9,11 @@ the JAX package's Pallas TPU kernels
 see the source for their design and bound.
 
 - :func:`sparse_consensus_fwd` and :func:`sparse_consensus_bwd` are the
-  kernels' wrappers. Their CPU versions,
+  kernels' wrappers. On CUDA the forward forms u_t one of two ways,
+  chosen by :func:`projection` and recorded as the dispatch reason: for
+  every target row first (training and evaluation over a whole KG), or
+  only for the rows the shortlist points at, inside its candidate
+  kernel (a query's few rows over the corpus). Their CPU versions,
   :func:`plain_sparse_consensus_fwd` and :func:`plain_sparse_consensus_bwd`,
   compute the kernels' factored form in plain PyTorch, so on every device
   the backward is the gradient of its own forward (the direct and the
@@ -46,7 +50,8 @@ from dgmc_tpu_torch.ops.kernels.build import sm_count
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 
 __all__ = ['R_MAX', 'BWD_WARPS', 'NODE_THREADS', 'node_rows', 'bwd_plan',
-           'plain_sparse_consensus_delta', 'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
+           'projection', 'plain_sparse_consensus_delta',
+           'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
            'plain_sparse_consensus_bwd', 'sparse_consensus_fwd',
            'sparse_consensus_bwd', 'fused_candidate_delta',
            'sparse_consensus_delta']
@@ -157,12 +162,30 @@ def bwd_plan(rows_s, rows_t, R, n_chunks, cap):
     return src, chunk, -(-rows_s // br) + -(-rows_t // br)
 
 
+def projection(candidates, target_rows):
+    """``(touched, reason)``: how the CUDA forward forms u_t. With fewer
+    candidates (``B*N_s*K``) than target rows (``B*N_t``), as a serve or
+    eval query has, its candidate kernel forms u_s and each candidate's
+    u_t itself: fewer products than projecting every target row, and one
+    launch instead of two. Otherwise ``project_rows`` forms every u row
+    first and each is read by the candidates that point at it. Both sum
+    in one order, so the delta is the same to the bit either way. On the
+    H100 (``chip_smoke.py --kernels``, R = 32, K = 10) the touched form
+    is the faster at as many candidates as target rows and the slower
+    from one and a half times as many: the crossover lies between."""
+    if candidates < target_rows:
+        return True, (f'touched rows: {candidates} candidates < '
+                      f'{target_rows} target rows')
+    return False, (f'all rows: {candidates} candidates >= {target_rows} '
+                   f'target rows')
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('sparse_consensus.cu')
     if not getattr(lib, 'sc_bound', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgmc_sc_fwd_f32.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.dgmc_sc_fwd_f32.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.dgmc_sc_bwd_f32.argtypes = [p] * 20 + [i] * 9 + [p]
         lib.dgmc_sc_bwd_blocks_per_sm.argtypes = [i, i]
         lib.dgmc_sc_node_rows.argtypes = [i]
@@ -238,7 +261,11 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
     state)``, what :func:`sparse_consensus_bwd` takes from its forward:
     ``(u_s, u_t)``, the factored form's node rows, and on CUDA also
     ``mask`` ``[B*N_s*K, ceil(R/32)]`` int32, the ReLU mask's bits per
-    candidate (bit l of word c: ``pre > 0`` in channel ``l + 32 c``)."""
+    candidate (bit l of word c: ``pre > 0`` in channel ``l + 32 c``).
+
+    On CUDA, :func:`projection` chooses how u_t is formed; with touched
+    rows the state's ``u_t`` holds the rows the shortlist points at and
+    zeros elsewhere (the backward reads no other)."""
     sl = _shortlist(S_idx, o_t.shape[1])
     args = [a.detach() for a in (o_s, o_t, w1, b1, w2, b2)]
     dev = _check('sparse_consensus_fwd', args[0], args[1], sl, args[2:])
@@ -247,25 +274,33 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
         with torch.no_grad():
             out, state = _plain_fwd(args[0], args[1], sl, *args[2:])
         return (out, state) if return_state else out
-    dispatch.record('sparse_consensus_fwd', 'kernel', 'auto-cuda')
-    lib = _library()
-    o_s, o_t, w1, b1, w2, b2 = (a.contiguous() for a in args)
     B, N_s, K = sl.shape
     N_t, R = o_t.shape[1], o_s.shape[2]
-    u_s, u_t = torch.empty_like(o_s), torch.empty_like(o_t)
+    touched, reason = projection(B * N_s * K, B * N_t)
+    dispatch.record('sparse_consensus_fwd', 'kernel', f'auto-cuda, {reason}')
+    lib = _library()
+    o_s, o_t, w1, b1, w2, b2 = (a.contiguous() for a in args)
+    if not touched:
+        u_s, u_t = torch.empty_like(o_s), torch.empty_like(o_t)
+    elif return_state:
+        u_s, u_t = torch.empty_like(o_s), torch.zeros_like(o_t)
+    else:
+        u_s = u_t = None
     out = torch.empty((B, N_s, K), dtype=torch.float32, device=dev)
     mask = (torch.empty((B * N_s * K, -(-R // 32)), dtype=torch.int32,
                         device=dev) if return_state else None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
     err = lib.dgmc_sc_fwd_f32(
         o_s.data_ptr(), o_t.data_ptr(), sl.idx32.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), u_s.data_ptr(),
-        u_t.data_ptr(), out.data_ptr(),
-        None if mask is None else mask.data_ptr(), B, N_s, N_t, K, R,
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(u_s), ptr(u_t),
+        out.data_ptr(), ptr(mask), B, N_s, N_t, K, R, int(touched),
         *_stream(dev))
     if err != 0:
         raise RuntimeError(f'sparse_consensus_fwd kernel launch failed with '
                            f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
-                           f'K={K}, R={R})')
+                           f'K={K}, R={R}, touched={bool(touched)})')
     sparse_consensus_fwd.launches += 1
     return (out, (u_s, u_t, mask)) if return_state else out
 

@@ -25,11 +25,14 @@ do not apply), so every CUDA call launches.
 
 Both kernels read CSR lists that :class:`Routing` builds once per graph
 batch with a stable sort (receiver-sorted edges, flat-sorted slots) and
-caches, so the layers of one SplineCNN call share them; the ``d_t``
-kernel reads the slots as 32-bit records (:meth:`Routing.slot_records`,
-one launch of a third kernel, once per routing and basis) and divides
-``g`` by the receivers' degrees once per node. Sums run in that fixed
-order without atomics: repeats are bit-identical.
+caches, so the layers of one SplineCNN call share them. Each reads its
+list as records of two 32-bit words: the forward's edge records
+(:meth:`Routing.edge_records`) and the ``d_t`` kernel's slot records
+(:meth:`Routing.slot_records`), both built by one launch of a kernel of
+their own (:func:`build_records`, counted on its own) once per routing
+and basis and cached beside the lists; ``d_t`` also divides ``g`` by the
+receivers' degrees once per node. Sums run in that fixed order without
+atomics: repeats are bit-identical.
 """
 
 import ctypes
@@ -39,9 +42,9 @@ import torch
 from dgmc_tpu_torch.ops.graph import scatter_to_nodes, segments
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['Routing', 'build_slot_records', 'plain_route_aggregate',
-           'plain_route_d_t', 'plain_slot_records', 'route_fwd', 'route_d_t',
-           'route_aggregate']
+__all__ = ['Routing', 'build_records', 'plain_edge_records',
+           'plain_route_aggregate', 'plain_route_d_t', 'plain_slot_records',
+           'route_fwd', 'route_d_t', 'route_aggregate']
 
 
 class Routing:
@@ -94,19 +97,29 @@ class Routing:
             self._slots = (order, torch.searchsorted(sorted_key, bounds))
         return self._slots
 
-    def slot_records(self, basis):
-        """``(records, offsets)`` that the ``d_t`` kernel reads (see
-        :func:`build_slot_records`), built once per routing and ``basis``
-        tensor (its storage and version), like the CSR lists."""
+    def records(self, basis):
+        """``(edge_records, edge_offsets, slot_records, slot_offsets)``,
+        what the two kernels read (see :func:`build_records`), built once
+        per routing and ``basis`` tensor (its storage, version and shape),
+        like the CSR lists. Holding ``basis`` keeps its storage (and so
+        the key) its own."""
         key = (basis.data_ptr(), basis._version, tuple(basis.shape))
         if self._records is None or self._records[0] != key:
-            # Holding basis keeps its storage (and so the key) its own.
-            self._records = (key, basis, *build_slot_records(self, basis))
-        return self._records[2:]
+            self._records = (key, basis, build_records(self, basis))
+        return self._records[2]
+
+    def edge_records(self, basis):
+        """``(records, offsets)`` that the forward kernel reads."""
+        return self.records(basis)[:2]
+
+    def slot_records(self, basis):
+        """``(records, offsets)`` that the ``d_t`` kernel reads."""
+        return self.records(basis)[2:]
 
 
 def plain_slot_records(routing, basis):
-    """The plain version of :func:`build_slot_records`."""
+    """The plain version of :func:`build_records`' slot records and
+    offsets."""
     order, offsets = routing.slot_csr()
     E, A = routing.flat.shape[1:]
     edge = order // A
@@ -118,34 +131,68 @@ def plain_slot_records(routing, basis):
     return records, offsets.to(torch.int32)
 
 
-def build_slot_records(routing, basis):
-    """``(records, offsets)``: one record of two 32-bit words per slot, in
-    the order of :meth:`Routing.slot_csr` — the receiver node of the
-    flattened batch ``b*N + receivers[b, e]`` (int32) and the slot's
-    weight ``basis[b, e, a]`` (float32 bits) — ``[B*E*A, 2]`` int32
-    (masked slots last, never read), and the row offsets of
-    :meth:`Routing.slot_csr` as int32. One launch of the ``slot_records``
-    kernel on the card (uncached; :meth:`Routing.slot_records` caches
-    it), :func:`plain_slot_records` on the CPU."""
-    dev = _check(basis, basis, routing, 'slot_records')
+def plain_edge_records(routing, basis):
+    """The plain version of :func:`build_records`' edge records and
+    offsets."""
+    order, offsets = routing.receiver_csr()
     B, E, A = routing.flat.shape
-    if B * E * A >= 2 ** 31:
-        raise ValueError(f'{B * E * A} slots exceed the int32 records of '
-                         f'the d_t kernel')
+    row = ((order // E)[:, None] * routing.num_rows
+           + routing.flat.reshape(B * E, A)[order])
+    weight = basis.detach().reshape(B * E, A).to(torch.float32)[order]
+    records = torch.stack([row.to(torch.int32), weight.view(torch.int32)],
+                          dim=-1).reshape(B * E * A, 2)
+    return records, (offsets * A).to(torch.int32)
+
+
+@dispatch.kernel_wrapper('spline_records')
+def build_records(routing, basis):
+    """``(edge_records, edge_offsets, slot_records, slot_offsets)``, one
+    record of two 32-bit words per (edge, a) slot in each list (``[B*E*A,
+    2]`` int32, masked edges last, never read), with int32 offsets:
+
+    - the forward's edge records, edges in the order of
+      :meth:`Routing.receiver_csr` and each edge's A slots in order: the
+      row of ``t`` in the flattened batch ``b*M + flat[b, e, a]`` and the
+      weight ``basis[b, e, a]`` (float32 bits); node ``(b, n)`` owns
+      slots ``edge_offsets[b*N+n] : edge_offsets[b*N+n+1]`` (A times the
+      receiver CSR offsets);
+    - the ``d_t`` kernel's slot records, in the order of
+      :meth:`Routing.slot_csr`: the receiver node of the flattened batch
+      ``b*N + receivers[b, e]`` and the same weight bits; ``slot_offsets``
+      are the slot CSR's row offsets.
+
+    One launch of the ``records`` kernel on the card (uncached;
+    :meth:`Routing.records` caches it), :func:`plain_edge_records` and
+    :func:`plain_slot_records` on the CPU."""
+    dev = _check(basis, basis, routing, 'spline_records')
+    B, E, A = routing.flat.shape
+    M = routing.num_rows
+    if max(B * E * A, B * M) >= 2 ** 31:
+        raise ValueError(f'{B * E * A} slots over {B * M} rows exceed the '
+                         f'int32 records of the spline kernels')
     if dev.type == 'cpu':
-        return plain_slot_records(routing, basis)
-    order, offsets = routing.slot_csr()
+        dispatch.record('spline_records', 'plain', 'device=cpu')
+        return (*plain_edge_records(routing, basis),
+                *plain_slot_records(routing, basis))
+    dispatch.record('spline_records', 'kernel', 'auto-cuda')
+    rcv_order, rcv_off = routing.receiver_csr()
+    slot_order, slot_off = routing.slot_csr()
     basis = basis.detach().contiguous()
-    records = torch.empty((B * E * A, 2), dtype=torch.int32, device=dev)
-    off32 = torch.empty(offsets.shape, dtype=torch.int32, device=dev)
-    err = _library().dgmc_spline_slot_records(
-        order.data_ptr(), routing.receivers.data_ptr(), basis.data_ptr(),
-        offsets.data_ptr(), records.data_ptr(), off32.data_ptr(),
-        B * E * A, offsets.numel(), E, A, routing.num_nodes, *_stream(dev))
+    edge_rec = torch.empty((B * E * A, 2), dtype=torch.int32, device=dev)
+    slot_rec = torch.empty((B * E * A, 2), dtype=torch.int32, device=dev)
+    edge_off = torch.empty(rcv_off.shape, dtype=torch.int32, device=dev)
+    row_off = torch.empty(slot_off.shape, dtype=torch.int32, device=dev)
+    err = _library().dgmc_spline_records(
+        rcv_order.data_ptr(), slot_order.data_ptr(), routing.flat.data_ptr(),
+        routing.receivers.data_ptr(), basis.data_ptr(), rcv_off.data_ptr(),
+        slot_off.data_ptr(), edge_rec.data_ptr(), edge_off.data_ptr(),
+        slot_rec.data_ptr(), row_off.data_ptr(), B * E * A, rcv_off.numel(),
+        slot_off.numel(), E, A, routing.num_nodes, M, *_stream(dev))
     if err != 0:
-        raise RuntimeError(f'slot_records kernel launch failed with CUDA '
+        raise RuntimeError(f'spline_records kernel launch failed with CUDA '
                            f'error {err} (B={B}, E={E}, A={A})')
-    return records, off32
+    build_records.launches += 1
+    return edge_rec, edge_off, slot_rec, row_off
 
 
 def plain_route_aggregate(t, basis, routing):
@@ -205,15 +252,15 @@ def _library():
     lib = load_library('spline.cu')
     if not getattr(lib, 'spline_bound', False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dgmc_spline_route_fwd_f32.argtypes = [p] * 6 + [i, i, ll, i, i,
+        lib.dgmc_spline_route_fwd_f32.argtypes = [p] * 4 + [i, i, ll, i, i,
                                                            i, p]
+        lib.dgmc_spline_records.argtypes = [p] * 11 + [ll] * 3 + [i] * 3 + [
+            ll, i, p]
         lib.dgmc_spline_route_dt_f32.argtypes = [p] * 6 + [i, i, ll, i, i,
                                                           p]
-        lib.dgmc_spline_slot_records.argtypes = [p] * 6 + [ll, ll, i, i, i,
-                                                          i, p]
         for fn in (lib.dgmc_spline_route_fwd_f32,
                    lib.dgmc_spline_route_dt_f32,
-                   lib.dgmc_spline_slot_records):
+                   lib.dgmc_spline_records):
             fn.restype = ctypes.c_int
         lib.spline_bound = True
     return lib
@@ -258,13 +305,12 @@ def route_fwd(t, basis, routing):
     dispatch.record('spline_route_fwd', 'kernel', 'auto-cuda')
     lib = _library()
     N, A = routing.num_nodes, routing.flat.shape[2]
-    order, offsets = routing.receiver_csr()
-    t, basis = t.contiguous(), basis.contiguous()
+    records, offsets = routing.edge_records(basis)
+    t = t.contiguous()
     out = torch.empty((B, N, O), dtype=torch.float32, device=dev)
     err = lib.dgmc_spline_route_fwd_f32(
-        t.data_ptr(), routing.flat.data_ptr(), basis.data_ptr(),
-        order.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, N, M, O, A,
-        *_stream(dev))
+        t.data_ptr(), records.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        B, N, M, O, A, *_stream(dev))
     if err != 0:
         raise RuntimeError(f'spline_route_fwd kernel launch failed with CUDA '
                            f'error {err} (B={B}, N={N}, M={M}, O={O}, A={A})')

@@ -151,6 +151,27 @@ def test_graph_upload_rejects_endpoints_outside_the_graph(key):
         tgraph.GraphBatch.from_numpy(a, 'cpu')
 
 
+@pytest.mark.parametrize('gap', [None, 0, 5])
+def test_graph_upload_takes_only_a_padded_tail_node_mask(gap):
+    """Candidate validity and the negatives' draw take the real nodes as a
+    prefix of each graph: a mask with a hole (padding before a real
+    node) raises; padded tails, an empty graph and a full one pass."""
+    a = _graph_arrays(4)
+    mask = np.ones((2, 13), bool)
+    mask[0, 9:] = False      # padded tail
+    mask[1, :] = False       # an empty graph
+    a['node_mask'] = mask
+    if gap is not None:
+        mask = mask.copy()
+        mask[0, gap] = False  # padding before a real node
+        a['node_mask'] = mask
+        with pytest.raises(ValueError, match='node_mask'):
+            tgraph.GraphBatch.from_numpy(a, 'cpu')
+    else:
+        g = tgraph.GraphBatch.from_numpy(a, 'cpu')
+        assert torch.equal(g.node_mask, torch.from_numpy(mask))
+
+
 def test_gather_gradient_is_a_sorted_segment_sum_matching_jax():
     """The gather's gradient sums each node's rows by the sorted segment
     reduction (``torch.gather``'s own backward, ``scatter_add_``, uses

@@ -18,8 +18,8 @@ import torch
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
                                                   plain_consensus)
-from dgmc_tpu_torch.ops.kernels.spline import (Routing,
-                                               build_slot_records,
+from dgmc_tpu_torch.ops.kernels.spline import (Routing, build_records,
+                                               plain_edge_records,
                                                plain_route_aggregate,
                                                plain_route_d_t,
                                                plain_slot_records, route_d_t,
@@ -184,11 +184,58 @@ def test_route_d_t_kernel_with_empty_rows_and_a_hub(cuda, O, hub):
 @pytest.mark.parametrize('case', SPLINE_CASES)
 def test_slot_records_kernel_matches_plain(cuda, case):
     _, _, basis, routing = _spline_case(cuda, *case)
-    got = build_slot_records(routing, basis)
+    got = build_records(routing, basis)[2:]
     torch.cuda.synchronize()
     want = plain_slot_records(routing, basis)
     assert all(a.dtype == torch.int32 for a in got)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SPLINE_CASES)
+def test_edge_records_kernel_matches_plain(cuda, case):
+    """The edge records come from the launch that builds the slot records
+    (one launch a build)."""
+    _, _, basis, routing = _spline_case(cuda, *case)
+    before = build_records.launches
+    got = build_records(routing, basis)[:2]
+    torch.cuda.synchronize()
+    assert build_records.launches == before + 1
+    want = plain_edge_records(routing, basis)
+    assert all(a.dtype == torch.int32 for a in got)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('O', [3, 64, 256])
+@pytest.mark.parametrize('hub', [0.0, 0.3])
+def test_route_fwd_kernel_with_empty_rows_and_a_hub_receiver(cuda, O, hub):
+    """B = 4, 80 nodes, 640 edges, 30% of them masked: receivers drawn from
+    the first 60 nodes leave 20 rows of each graph without an edge; with
+    ``hub`` 0.3 of the edges point at node 7 (~770 slots, more than a
+    warp stages). O = 3 takes the 4-byte path, O = 64 two rows a warp,
+    O = 256 two vectors a lane. The records are built once and serve
+    every call."""
+    t, _, basis, routing = _spline_case(cuda, 4, 80, 640, O, 0.3)
+    rng = np.random.RandomState(O)
+    rcv = torch.from_numpy(rng.randint(0, 60, (4, 640)))
+    if hub:
+        rcv[torch.from_numpy(rng.rand(4, 640) < hub)] = 7
+    routing = Routing(routing.flat, rcv.to(cuda), routing.edge_mask, 80,
+                      routing.num_rows)
+    _, offsets = routing.edge_records(basis)
+    counts = (offsets[1:] - offsets[:-1])[:4 * 80]
+    assert (counts == 0).sum() >= 4 * 20
+    if hub:
+        assert int(counts.max()) > 256
+    before = (route_fwd.launches, build_records.launches)
+    out = route_fwd(t, basis, routing)
+    torch.cuda.synchronize()
+    assert (route_fwd.launches, build_records.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, plain_route_aggregate(t, basis, routing))
+    assert not out.reshape(4 * 80, O)[counts == 0].any()
+    assert torch.equal(out, route_fwd(t, basis, routing))
 
 
 # (B, N_s, N_t, R): the training path's shape; then each of one pair,
@@ -364,3 +411,158 @@ def test_sparse_consensus_backward_reuses_the_forwards_u(cuda, name):
             want = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _plain_mask(args, sl):
+    """The ReLU mask as the forward writes it, from the plain factored
+    form: bit l of word c of a candidate is ``pre > 0`` in channel
+    ``l + 32 c``, ``[B*N_s*K, ceil(R/32)]`` int32."""
+    o_s, o_t, w1, b1 = args[:4]
+    R = o_s.shape[2]
+    nc = -(-R // 32)
+    pre = (o_s @ w1 + b1)[:, :, None, :] - sl.gather(o_t @ w1)
+    bits = torch.zeros(pre.numel() // R, 32 * nc, dtype=torch.int64,
+                       device=pre.device)
+    bits[:, :R] = (pre.reshape(-1, R) > 0).long()
+    words = (bits.reshape(-1, nc, 32) << torch.arange(
+        32, device=pre.device)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()
+
+
+def _widen(args, sl, N_t):
+    """The same problem over ``N_t`` target rows: ``o_t`` padded with
+    rows that no candidate points at, so that only the projection rule's
+    side changes."""
+    pad = N_t - args[1].shape[1]
+    o_t = torch.cat([args[1], args[1][:, :1].expand(-1, pad, -1) + 1], 1)
+    return (args[0], o_t, *args[2:]), Shortlist(sl.idx, N_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('touched', [False, True])
+@pytest.mark.parametrize('K', [1, 10, 20, 33])
+@pytest.mark.parametrize('R', [7, 20, 32, 33, 64, 128])
+def test_sparse_consensus_forward_matches_plain_at_every_layout(cuda, R, K,
+                                                                touched):
+    """Every lane layout of the forward (16-byte vectors over 2 to 32
+    lanes at R = 20, 32, 64 and 128; scalar channels at R = 7 and 33,
+    one and two per lane), K within one round, across rounds and past one
+    32-candidate window, and both ways of forming u_t, each at a shape on
+    its side of the projection rule (40 source rows a graph over 20 K
+    target rows, or over 5000): the delta, the ReLU mask and the state
+    the backward takes, bit-equal to the plain versions on exact inputs,
+    and the backward from that state equal to the plain backward."""
+    B, N_s = 2, 40
+    N_t = 5000 if touched else 20 * K
+    rng = np.random.RandomState(R * 100 + K)
+    sl = Shortlist(torch.from_numpy(rng.randint(0, N_t, (B, N_s, K))).to(
+        cuda), N_t)
+    args, g = _sc_exact(cuda, rng, B, N_s, N_t, R, K)
+    out, (u_s, u_t, mask) = sparse_consensus_fwd(
+        args[0], args[1], sl, *args[2:], return_state=True)
+    torch.cuda.synchronize()
+    reason = dispatch.decisions()['sparse_consensus_fwd']['reason']
+    assert reason.startswith('auto-cuda, ' + ('touched rows' if touched
+                                              else 'all rows'))
+    assert torch.equal(out, plain_sparse_consensus_fwd(args[0], args[1], sl,
+                                                       *args[2:]))
+    assert torch.equal(mask, _plain_mask(args, sl))
+    assert torch.equal(u_s, args[0] @ args[2] + args[3])
+    want_t = args[1] @ args[2]
+    if touched:   # only the rows the shortlist points at; zeros elsewhere
+        hit = torch.zeros(B, N_t, dtype=torch.bool, device=cuda)
+        hit.scatter_(1, sl.flat, True)
+        want_t = torch.where(hit[..., None], want_t, 0.0)
+    assert torch.equal(u_t, want_t)
+    assert torch.equal(out, sparse_consensus_fwd(args[0], args[1], sl,
+                                                 *args[2:]))
+    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g,
+                                 (u_s, u_t, mask))
+    want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('R', [20, 32, 33, 128])
+def test_sparse_consensus_forward_projections_agree_to_the_bit(cuda, R):
+    """On float32 inputs the two ways of forming u_t sum in one order. At
+    the rule's edge (as many candidates as target rows) one more target
+    row that nothing points at turns the rule: delta, mask and u_s are
+    bit-identical either side, and u_t at every touched row."""
+    rng = np.random.RandomState(R)
+    B, N_s, K = 2, 60, 12
+    N_t = N_s * K
+    sl = Shortlist(torch.from_numpy(rng.randint(0, N_t, (B, N_s, K))).to(
+        cuda), N_t)
+    args = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+            for shape in ((B, N_s, R), (B, N_t, R), (R, R), (R,), (R, 1),
+                          (1,))]
+    a = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                             return_state=True)
+    assert 'all rows' in dispatch.decisions()[
+        'sparse_consensus_fwd']['reason']
+    wide, wide_sl = _widen(args, sl, N_t + 1)
+    b = sparse_consensus_fwd(wide[0], wide[1], wide_sl, *wide[2:],
+                             return_state=True)
+    assert 'touched rows' in dispatch.decisions()[
+        'sparse_consensus_fwd']['reason']
+    assert torch.equal(a[0], b[0])
+    assert torch.equal(a[1][0], b[1][0]) and torch.equal(a[1][2], b[1][2])
+    hit = torch.zeros(B, N_t, dtype=torch.bool, device=cuda)
+    hit.scatter_(1, sl.flat, True)
+    assert torch.equal(a[1][1][hit], b[1][1][:, :N_t][hit])
+    torch.testing.assert_close(a[0], plain_sparse_consensus_fwd(
+        args[0], args[1], sl, *args[2:]), rtol=1e-5,
+        atol=1e-5 * float(a[0].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [16, 32, 64])
+def test_sparse_consensus_forward_at_the_serve_shapes(cuda, n):
+    """A query's rows (16, 32, 64) x K = 10 over the 20000-row corpus,
+    R = 32: the rule forms u_t of the touched rows only, bit-equal to the
+    plain version; on float32 inputs within rtol 1e-5 / atol 1e-5 x
+    max|out| of it, and a repeat bit-identical."""
+    rng = np.random.RandomState(n)
+    N_t, K, R = 20000, 10, 32
+    sl = Shortlist(torch.from_numpy(rng.randint(0, N_t, (1, n, K))).to(
+        cuda), N_t)
+    args, _ = _sc_exact(cuda, rng, 1, n, N_t, R, K)
+    out = sparse_consensus_fwd(args[0], args[1], sl, *args[2:])
+    assert 'touched rows' in dispatch.decisions()[
+        'sparse_consensus_fwd']['reason']
+    assert torch.equal(out, plain_sparse_consensus_fwd(args[0], args[1], sl,
+                                                       *args[2:]))
+    floats = [torch.randn_like(a) for a in args]
+    got = sparse_consensus_fwd(floats[0], floats[1], sl, *floats[2:])
+    torch.testing.assert_close(got, plain_sparse_consensus_fwd(
+        floats[0], floats[1], sl, *floats[2:]), rtol=1e-5,
+        atol=1e-5 * float(got.abs().max()))
+    assert torch.equal(got, sparse_consensus_fwd(floats[0], floats[1], sl,
+                                                 *floats[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(SC_SHORTLISTS))
+def test_sparse_consensus_backward_from_the_touched_rows_state(cuda, name):
+    """The hard shortlists of the backward's tests over more target rows
+    than candidates (o_t padded with rows nothing points at), so that the
+    forward forms u_t of the touched rows only: its state gives the plain
+    backward."""
+    B, N_s, N_t, K, R = SC_SHORTLISTS[name]
+    rng = np.random.RandomState(sum(SC_SHORTLISTS[name]) + 1)
+    sl = _sc_shortlist(name.split('_r_')[0], rng, B, N_s, N_t, K)
+    args, g = _sc_exact(cuda, rng, B, N_s, N_t, R, K)
+    args, sl = _widen(args, sl, max(N_t, N_s * K + 1))
+    out, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                      return_state=True)
+    assert 'touched rows' in dispatch.decisions()[
+        'sparse_consensus_fwd']['reason']
+    assert torch.equal(out, plain_sparse_consensus_fwd(args[0], args[1], sl,
+                                                       *args[2:]))
+    assert torch.equal(state[2], _plain_mask(args, sl))
+    grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+    want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)

@@ -382,3 +382,42 @@ def test_wrappers_hand_the_forwards_state_to_the_backward():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match='state must be'):
         tsc.sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g, u[::-1])
+
+
+@pytest.mark.parametrize('candidates,target_rows,touched', [
+    (16 * 10, 20000, True), (64 * 10, 20000, True),
+    (15000 * 10, 20000, False), (15000 * 20, 20000, False),
+    (20000, 20000, False), (1, 7, True), (1, 1, False)])
+def test_projection_rule_forms_only_touched_rows_when_fewer(
+        candidates, target_rows, touched):
+    """The CUDA forward forms u_t per candidate where there are fewer
+    candidates than target rows (a query's shortlist over the corpus),
+    else every target row once; the reason names the side taken."""
+    got, reason = tsc.projection(candidates, target_rows)
+    assert got is touched
+    assert reason.startswith('touched rows' if touched else 'all rows')
+    assert f'{candidates} candidates' in reason
+
+
+def test_cpu_forward_takes_the_plain_version_whatever_the_projection():
+    """On the CPU the projection rule does not apply: over as many target
+    rows as the shortlist has candidates (the rule's all-rows side) and
+    over more (its touched-rows side, o_t padded with rows nothing points
+    at), the forward is the plain factored form with the full u_t state,
+    and the dispatch is recorded as plain."""
+    floats, idx = _fused_case('duplicates')
+    o_s, o_t, w1, b1, w2, b2 = map(torch.from_numpy, floats)
+    B, N_s, K = idx.shape
+    for N_t in (o_t.shape[1], N_s * K + 1):
+        assert tsc.projection(B * N_s * K, B * N_t)[0] is (N_t > N_s * K)
+        wide = torch.cat([o_t, torch.ones(B, N_t - o_t.shape[1],
+                                          o_t.shape[2])], 1)
+        sl = Shortlist(torch.from_numpy(idx), N_t)
+        out, state = tsc.sparse_consensus_fwd(o_s, wide, sl, w1, b1, w2, b2,
+                                              return_state=True)
+        assert torch.equal(out, tsc.plain_sparse_consensus_fwd(
+            o_s, wide, sl, w1, b1, w2, b2))
+        assert torch.equal(state[0], o_s @ w1 + b1)
+        assert torch.equal(state[1], wide @ w1)
+        d = dispatch.decisions()['sparse_consensus_fwd']
+        assert (d['path'], d['reason']) == ('plain', 'device=cpu')

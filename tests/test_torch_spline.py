@@ -283,3 +283,88 @@ def test_slot_records_are_cached_per_basis():
     tripled, _ = routing.slot_records(basis_)
     assert torch.equal(tripled[:, 1].view(torch.float32),
                        3 * records[:, 1].view(torch.float32))
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_edge_records_match_their_definition(name):
+    """The forward kernel's records: edges in the receiver order, each
+    edge's A slots in order, (row of t in the flattened batch, basis
+    weight bits); offsets A times the receiver CSR's, int32."""
+    seed, N, E, mask_frac = CASES[name]
+    _, basis_, routing = _torch_args(*_problem(N=N, E=E, seed=seed,
+                                               mask_frac=mask_frac))
+    records, offsets = routing.edge_records(basis_)
+    order, edge_offsets = routing.receiver_csr()
+    B, E, A = routing.flat.shape
+    M = routing.num_rows
+    assert records.dtype == offsets.dtype == torch.int32
+    assert records.shape == (B * E * A, 2)
+    assert torch.equal(offsets.long(), A * edge_offsets)
+    want_row = (order // E)[:, None] * M + routing.flat.reshape(B * E,
+                                                               A)[order]
+    assert torch.equal(records[:, 0].long(), want_row.reshape(-1))
+    assert torch.equal(records[:, 1].view(torch.float32),
+                       basis_.reshape(B * E, A)[order].reshape(-1))
+    # Every slot of a receiver row comes from one of its real edges.
+    n = int(offsets[B * N])
+    assert n == int(routing.edge_mask.sum()) * A
+    rows = torch.repeat_interleave(torch.arange(B * N),
+                                   (offsets[1:B * N + 1]
+                                    - offsets[:B * N]).long())
+    edge = order[torch.arange(n) // A]
+    assert torch.equal(rows, (edge // E) * N
+                       + routing.receivers.reshape(-1)[edge])
+
+
+def _records_route(t, routing, basis):
+    """The forward in plain PyTorch from what its kernel reads: the edge
+    records and slot offsets; each row sums its edges' blended rows in
+    order, then divides by max(deg, 1)."""
+    records, offsets = routing.edge_records(basis)
+    B, M, O = t.shape
+    N, A = routing.num_nodes, routing.flat.shape[2]
+    out = torch.zeros(B * N, O)
+    flat_t = t.reshape(B * M, O)
+    for r in range(B * N):
+        beg, end = int(offsets[r]), int(offsets[r + 1])
+        rec = records[beg:end]
+        w = rec[:, 1].view(torch.float32)[:, None]
+        msgs = (w * flat_t[rec[:, 0].long()]).reshape(-1, A, O).sum(1)
+        out[r] = msgs.sum(0) / max((end - beg) // A, 1)
+    return out.reshape(B, N, O)
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_route_from_edge_records_matches_jax_kernel(name):
+    """The records carry everything the forward needs: summed per row in
+    plain PyTorch they give the JAX kernel's output (the cases and
+    tolerance of test_plain_route_aggregate_matches_jax_kernel)."""
+    seed, N, E, mask_frac = CASES[name]
+    args = _problem(N=N, E=E, seed=seed, mask_frac=mask_frac)
+    t, flat, basis, rcv, em, _ = args
+    want = jax_route(*map(jnp.asarray, (t, flat, basis, rcv, em)), N, True)
+    t_, basis_, routing = _torch_args(*args)
+    got = _records_route(t_, routing, basis_)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_edge_records_are_cached_per_basis_and_plain_on_cpu():
+    """Edge and slot records come from one build, cached per basis
+    version; on the CPU it is the plain version, recorded as such."""
+    _, basis_, routing = _torch_args(*_problem(N=11, E=40, seed=4))
+    from dgmc_tpu_torch.ops.kernels.spline import build_records
+    dispatch.reset()
+    records, offsets = routing.edge_records(basis_)
+    slots = routing.slot_records(basis_)
+    assert routing.edge_records(basis_)[0] is records
+    d = dispatch.decisions()['spline_records']
+    assert (d['path'], d['reason'], d['counts']['plain']) == (
+        'plain', 'device=cpu', 1)
+    assert build_records.launches == 0
+    assert all(map(torch.equal, build_records(routing, basis_),
+                   (records, offsets, *slots)))
+    basis_.mul_(2)                      # in place: a new version
+    doubled, again = routing.edge_records(basis_)
+    assert torch.equal(doubled[:, 1].view(torch.float32),
+                       2 * records[:, 1].view(torch.float32))
+    assert torch.equal(again, offsets)
