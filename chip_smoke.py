@@ -10,17 +10,19 @@ Run from the repository root on a machine with an NVIDIA GPU:
 With ``--steps`` it runs none of the phases below: it builds the kernels
 of the ``dgmc_tpu_torch`` under ``DIR`` (default: beside this script),
 then times N synchronized steps (after 2 warm-up steps) of the dense
-PascalPF training step (the CLI's defaults, one fixed batch, so no
-collation) and of the KG phase-2 step, profiles one more of each and
-prints one JSON line of medians, device busy time, device ops and the
-port's kernels by name. With ``--kernels`` it builds them and times,
+PascalPF training step (the CLI's defaults under the float32 policy, one
+fixed batch, so no collation) and of the KG phase-2 step, profiles one
+more of each and prints one JSON line of medians, device busy time,
+device ops, the port's kernels by name and the dtype each ran in. With ``--kernels`` it builds them and times,
 at the main path's shapes, the two sparse consensus kernels, a whole
 SplineCNN call's routing and ``route_fwd``, and the top-k kernel at a
 query's rows beside ``torch.topk(bmm)`` (:func:`kernel_times`). Running either for two trees in turns in one
 call (say, an unpacked parent commit, then this one) compares them on
 one card.
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line). The
+float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
+``*_bf16`` phases run the bf16 policy:
 
 - ``build``: compiles every kernel source of ``dgmc_tpu_torch/csrc``
   (one ``nvcc`` per source, started together).
@@ -77,6 +79,22 @@ Phases (any failure exits non-zero and prints no result line):
   each serve shape), each launch, and their plain versions (no single
   PyTorch call computes them). Also shows that the port's gather
   gradient repeats bit-identically.
+- ``bf16_kernels``: each kernel's bf16 variant (the precision policy's)
+  against its plain bf16 version on the card: bit-equal on exact inputs
+  (small integers and quarters, exact in bf16; the sparse consensus
+  forward's ReLU mask too); on continuous inputs at the main path's
+  shapes (top-k at 15000 x 20000 x 256, the SplineConv routing at O=256
+  and O=64 on a real batch, the dense consensus at [64, 80, 80], R=64,
+  the sparse consensus at [1, 15000, 20, 32] over 20000 targets) a bf16
+  output within one bf16 ulp (:func:`hold_ulp`), a float32 one within
+  rtol 1e-5 / atol 1e-5 x max|out|, top-k's picks by
+  :func:`hold_bf16_topk` (a swap only inside a near-tie of the plain bf16
+  scores; values equal where the indices agree, an ulp where they
+  differ); top-k is also bit-equal on exact inputs at C = 256 and at the
+  main shape. Times each beside its float32 variant on the same
+  values, its plain version and the PyTorch call in bf16 where there is
+  one, each with its bound in bf16 bytes and operations at the bf16
+  peak.
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
@@ -115,6 +133,15 @@ Phases (any failure exits non-zero and prints no result line):
   one phase-2 step (informational), with each of the port's kernels'
   device time per launch on the real phase-2 shortlists.
 
+- ``train_bf16`` and ``kg_train_bf16``: the two training main paths
+  again under the bf16 policy at the same widths and depths: the launch
+  counters per step as above, the dispatch ledger showing every kernel
+  in bfloat16 (the spline records keep float32 basis weights), every
+  loss finite and falling (the dense epoch's last four steps below its
+  first four; KG phase 1's tenth loss below its first); then one step of
+  each profiled with its peak memory, as ``train`` and ``kg_train`` do
+  for float32 (informational).
+
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
 one JSON line listing every kernel at its main shape, plus entries for
 the top-k and the sparse-consensus forward at 16, 32 and 64 rows
@@ -122,7 +149,9 @@ the top-k and the sparse-consensus forward at 16, 32 and 64 rows
 their counters read around each serve query of that size, its match and
 repeat), the spline kernels at ψ₂'s O=64 (``...@O=64``; launches: the
 counters read around each of their calls at that width in the ``train``
-phase) and the spline records' build (``ms_source`` says
+phase), the spline records' build, and each bf16 variant
+(``topk_bf16``, ``spline_route_fwd_bf16``, ... ``sparse_consensus_bwd_bf16``;
+launches: the bf16 training phases' counters) (``ms_source`` says
 whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
 times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
@@ -150,8 +179,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (dense, no sparsity): float32 outside the
-# tensor cores and HBM3 bandwidth.
+# tensor cores, bf16 in them, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOPK_SHAPE = (1, 15000, 20000, 256, 10)   # B, N_s, N_t, C, k
@@ -249,6 +279,71 @@ def hold_near_ties(label, h_s, h_t, k, mask=None):
                              f'a near-tie')
     if not torch.allclose(v, pv_k, rtol=1e-5, atol=1e-5 * scale):
         raise AssertionError(f'{label}: values differ by {err}')
+    return err
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of ``x`` (float32 result): ``2^(e - 8)``
+    for ``x = m 2^e``, ``m`` in [0.5, 1) (8 significant bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+def hold_bf16_topk(label, h_s, h_t, k, mask=None):
+    """The bf16 top-k kernel against its plain bf16 version on continuous
+    inputs → max |value error|. Both sum each score in float32, in other
+    orders, then round it to bf16, so a score on a rounding boundary may
+    land one ulp from the other's; and rounding makes ties common. So:
+
+    - picks: distinct targets in range in every row;
+    - indices: equal, except at a position p whose plain score equals, or
+      lies one bf16 ulp from, a neighbour's in the plain top-(k+1) (p-1
+      or p+1; at p = k-1 that is the k-th against the (k+1)-th): a swap
+      inside a near-tie;
+    - values: equal wherever the indices agree; where they differ, the
+      kernel's value within one bf16 ulp of the plain value at that
+      position and of the plain bf16 score of the kernel's own pick
+      (float32 products and sums, rounded once).
+    """
+    from dgmc_tpu_torch.ops.kernels.topk import plain_topk, streaming_topk
+    v, i = streaming_topk(h_s, h_t, k, mask)
+    torch.cuda.synchronize()
+    pv, pi = plain_topk(h_s, h_t, k + 1, mask)
+    v, pv = v.float(), pv.float()
+    pv_k, pi_k = pv[..., :k], pi[..., :k]
+    B, N_t = h_t.shape[0], h_t.shape[1]
+    srt = i.sort(dim=-1).values
+    if bool((srt[..., 1:] == srt[..., :-1]).any()) or bool(
+            ((i < 0) | (i >= N_t)).any()):
+        raise AssertionError(f'{label}: repeated or out-of-range picks')
+    gap = pv[..., :-1] - pv[..., 1:]
+    tie_next = gap <= torch.maximum(bf16_ulp(pv[..., :-1]),
+                                    bf16_ulp(pv[..., 1:]))   # p with p+1
+    tie_prev = torch.cat([torch.zeros_like(tie_next[..., :1]),
+                          tie_next[..., :-1]], dim=-1)      # p with p-1
+    diff = i != pi_k
+    unexplained = int((diff & ~(tie_next | tie_prev)).any(-1).sum())
+    if not torch.equal(v[~diff], pv_k[~diff]):
+        raise AssertionError(f'{label}: values differ where the indices '
+                             f'agree')
+    rows = torch.arange(B, device=h_t.device)[:, None, None]
+    own = torch.einsum('bsc,bskc->bsk', h_s.float(),
+                       h_t[rows, i.long()].float()).to(BF16).float()
+    far = diff & (((v - pv_k).abs() > bf16_ulp(pv_k))
+                  | ((v - own).abs() > bf16_ulp(own)))
+    err = float((v - pv_k).abs().max())
+    log(f'bf16_kernels: topk {label} {tuple(h_s.shape)}x{tuple(h_t.shape)} '
+        f'k={k}: {int(diff.any(-1).sum())} rows differ, '
+        f'{int(tie_next[..., k - 1].sum())} rows with the k-th and '
+        f'(k+1)-th plain scores an ulp or less apart; max |value err| '
+        f'{err:.3g}')
+    if unexplained:
+        raise AssertionError(f'{label}: {unexplained} rows differ outside '
+                             f'a near-tie')
+    if bool(far.any()):
+        raise AssertionError(f'{label}: {int(far.sum())} picks where the '
+                             f'indices differ score more than an ulp from '
+                             f'the plain version')
     return err
 
 
@@ -416,10 +511,10 @@ def profile(run, label, top=8):
     return rows
 
 
-def bound(flops, nbytes):
-    """``(bound_ms, bound_by)``: the larger of operations at the float32
-    peak and bytes at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """``(bound_ms, bound_by)``: the larger of operations at the peak rate
+    of their type (float32 unless told) and bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes')
 
@@ -433,6 +528,26 @@ def hold_close(label, got, want):
         raise AssertionError(f'{label}: kernel and plain version differ by '
                              f'{err} (max |plain| {scale})')
     return err
+
+
+def hold_ulp(label, got, want):
+    """A bf16 kernel output against its plain bf16 version on continuous
+    inputs: within one bf16 ulp of the larger of the two (both sum in
+    float32 in other orders and round once, so a sum on a rounding
+    boundary may round the other way), plus 1e-5 x max|out| for sums
+    that cancel to nearly 0 → max |err|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not err.numel():
+        return 0.0
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    bad = err > ulp + 1e-5 * float(w.abs().max())
+    if bad.any():
+        raise AssertionError(f'{label}: {int(bad.sum())} of {err.numel()} '
+                             f'bf16 values differ by more than an ulp (max '
+                             f'|err| {float(err.max())})')
+    return float(err.max())
 
 
 def hold_equal(label, fn, plain):
@@ -449,7 +564,8 @@ def hold_equal(label, fn, plain):
 
 def _train_args(extra=()):
     from dgmc_tpu_torch.experiments import pascal_pf
-    return pascal_pf.parse_args(['--seed', '0', *extra])
+    return pascal_pf.parse_args(['--seed', '0', '--precision', 'f32',
+                                 *extra])
 
 
 def _spline_exact(gen, B, N, E, O, masked):
@@ -492,9 +608,11 @@ def _routing_matrix(basis, routing, transpose=False):
         ).to_sparse_csr()
 
 
-def _spline_work(basis, routing, O):
+def _spline_work(basis, routing, O, elem=4, peak=PEAK_F32_FLOPS):
     """Operations and bytes that this batch's routing needs: forward reads
-    each touched t row once, the gradient writes all of d_t."""
+    each touched t row once, the gradient writes all of d_t (``elem``
+    bytes a value of t, g and the outputs: 4, or 2 for bf16; operations
+    at ``peak``)."""
     B, E, A = routing.flat.shape
     N, M = routing.num_nodes, routing.num_rows
     keep = routing.edge_mask[..., None].expand(B, E, A)
@@ -503,11 +621,13 @@ def _spline_work(basis, routing, O):
     rows = int(torch.unique((b * M + routing.flat)[keep]).numel())
     index_bytes = 12.0 * slots + 9.0 * B * E     # flat+basis, rcv+mask
     flops = 2.0 * slots * O
-    fwd = bound(flops, 4.0 * rows * O + index_bytes + 4.0 * B * N * O)
-    bwd = bound(flops, 4.0 * B * N * O + index_bytes + 4.0 * B * M * O)
+    fwd = bound(flops, elem * rows * O + index_bytes + elem * B * N * O,
+                peak)
+    bwd = bound(flops, elem * B * N * O + index_bytes + elem * B * M * O,
+                peak)
     log(f'spline_kernel: O={O}: {slots} real slots gather {rows} distinct t '
-        f'rows ({4.0 * slots * O / 1e6:.1f} MB of t rows read, '
-        f'{4.0 * rows * O / 1e6:.1f} MB distinct)')
+        f'rows ({elem * slots * O / 1e6:.1f} MB of t rows read, '
+        f'{elem * rows * O / 1e6:.1f} MB distinct, {elem}-byte values)')
     return fwd, bwd
 
 
@@ -838,7 +958,7 @@ def _sc_autograd(args, sl, g):
 SC_GRADS = ('d_o_s', 'd_o_t', 'd_w1', 'd_b1', 'd_w2', 'd_b2')
 
 
-def _sc_work(B, N_s, N_t, K, R, T=None):
+def _sc_work(B, N_s, N_t, K, R, T=None, elem=4):
     """``((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes))``: the least
     work of the function in the factored form. ``T``: the target rows the
     shortlist points at (all ``B*N_t`` if None), the only ones the
@@ -852,14 +972,15 @@ def _sc_work(B, N_s, N_t, K, R, T=None):
     written once. The backward given the forward's u (as the main path
     calls it) saves one node product but reads u_s and u_t too: at the
     DBP15K shape its bound (bytes) lies above this one, so this one is
-    the least."""
+    the least. ``elem``: bytes a value of o, the weights and their
+    gradients (4, or 2 for bf16; delta and g stay float32)."""
     nodes = 2.0 * B * (N_s + N_t) * R * R
     cand = B * N_s * K
-    rows = 4.0 * B * (N_s + N_t) * R
-    weights = 4.0 * (R * R + 2 * R + 1)
+    rows = elem * B * (N_s + N_t) * R
+    weights = elem * (R * R + 2 * R + 1)
     fwd_rows = B * N_s + (B * N_t if T is None else T)
     fwd = (2.0 * fwd_rows * R * R + 3.0 * cand * R,
-           4.0 * fwd_rows * R + 4.0 * cand + 4.0 * cand + weights)
+           elem * fwd_rows * R + 4.0 * cand + 4.0 * cand + weights)
     bwd = (3 * nodes + 6.0 * cand * R,
            2 * rows + 4.0 * cand + 4.0 * cand + 2 * weights)
     return fwd, bwd
@@ -867,12 +988,18 @@ def _sc_work(B, N_s, N_t, K, R, T=None):
 
 def _sc_plain_mask(args, sl):
     """The ReLU mask as the forward writes it, from the plain factored
-    form: bit l of word c of a candidate is ``pre > 0`` in channel
-    ``l + 32 c``, ``[B*N_s*K, ceil(R/32)]`` int32."""
-    o_s, o_t, w1, b1 = args[:4]
+    form (for bf16 inputs rounded as the kernels round: u, then pre): bit
+    l of word c of a candidate is ``pre > 0`` in channel ``l + 32 c``,
+    ``[B*N_s*K, ceil(R/32)]`` int32."""
+    o_s, o_t, w1, b1 = (a.float() for a in args[:4])
+    dt = args[0].dtype
+
+    def rnd(x):
+        return x.to(dt).float()
     R = o_s.shape[2]
     nc = -(-R // 32)
-    pre = (o_s @ w1 + b1)[:, :, None, :] - sl.gather(o_t @ w1)
+    pre = rnd(rnd(rnd(o_s @ w1) + b1)[:, :, None, :]
+              - sl.gather(rnd(o_t @ w1)))
     bits = torch.zeros(pre.numel() // R, 32 * nc, dtype=torch.int64,
                        device=pre.device)
     bits[:, :R] = (pre.reshape(-1, R) > 0).long()
@@ -1105,12 +1232,360 @@ def phase_sparse_consensus_kernel(fwd_res, bwd_res, serve_res):
         f'{diff} of {native[0].numel()} entries')
 
 
+BF16 = torch.bfloat16
+#: The bf16 variants' entries in the kernels line: result key -> (source,
+#: the TPU kernel's line). Their launches are the bf16 training phases'.
+BF16_ROWS = {
+    'topk_bf16': ('topk.cu', 'topk.py:40'),
+    'spline_route_fwd_bf16': ('spline.cu', 'spline.py:72'),
+    'spline_route_bwd_bf16': ('spline.cu', 'spline.py:96'),
+    'spline_route_fwd_bf16@64': ('spline.cu', 'spline.py:72'),
+    'spline_route_bwd_bf16@64': ('spline.cu', 'spline.py:96'),
+    'consensus_fwd_bf16': ('consensus.cu', 'consensus.py:49'),
+    'sparse_consensus_fwd_bf16': ('sparse_consensus.cu',
+                                  'sparse_consensus.py:62'),
+    'sparse_consensus_bwd_bf16': ('sparse_consensus.cu',
+                                  'sparse_consensus.py:77')}
+
+
+def _bf16_row(res, key, **kw):
+    source, line = BF16_ROWS[key]
+    name = key.replace('@64', '@O=64')
+    res[key].update(name=name, route='cuda',
+                    source=f'dgmc_tpu_torch/csrc/{source}',
+                    replaces=f'dgmc_tpu/ops/pallas/{line}', **kw)
+
+
+def phase_bf16_kernels(res):
+    """Each kernel's bf16 variant (the precision policy's) against its
+    plain bf16 version on the card: bit-equal on exact inputs; on
+    continuous inputs at the main path's shapes a bf16 output within one
+    bf16 ulp (:func:`hold_ulp`), a float32 one within rtol 1e-5 / atol
+    1e-5 x max|out| (:func:`hold_close`), and top-k's picks by
+    :func:`hold_bf16_topk`. Times each beside its float32 variant on
+    the same values (informational) and, for the JSON line, beside its
+    plain version and the PyTorch call in bf16 where there is one, with
+    its bound in bf16 bytes and operations at the bf16 peak."""
+    from dgmc_tpu_torch.models.spline import spline_routing
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.ops.kernels.consensus import (consensus_fwd,
+                                                      plain_consensus)
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        plain_sparse_consensus_bwd, plain_sparse_consensus_fwd,
+        sparse_consensus_bwd, sparse_consensus_fwd)
+    from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
+                                                   plain_route_d_t,
+                                                   route_d_t, route_fwd)
+    from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
+                                                 streaming_topk)
+    gen = torch.Generator().manual_seed(7)
+
+    def b16(*xs):
+        return [x.to(BF16) for x in xs]
+
+    def dtype_of(name):
+        return dispatch.decisions()[name]['dtype']
+
+    # -- top-k
+    for name, (h_s, h_t, k, mask) in {
+            'ties_mask': _topk_case(gen, 2, 300, 700, 8, 7, mask_p=0.3),
+            'k_above_valid': _topk_case(gen, 1, 40, 20, 4, 9, valid=5),
+            'batch_2': _topk_case(gen, 2, 130, 1100, 16, 10, mask_p=0.5),
+            'k_max': _topk_case(gen, 1, 200, 3000, 32, K_MAX, mask_p=0.9),
+            'rows_17x20000_masked': _topk_case(gen, 1, 17, 20000, 32, 10,
+                                               mask_p=0.5),
+            # C = 256: eight channel slots, each landed slot widened in
+            # turn, as the main path runs them; then the main shape.
+            'c256_ties_mask': _topk_case(gen, 1, 300, 2000, 256, 10,
+                                         mask_p=0.3),
+            'c256_rows_17x20000': _topk_case(gen, 1, 17, 20000, 256, 10),
+            'c256_k_max': _topk_case(gen, 2, 130, 1100, 256, K_MAX,
+                                     mask_p=0.5),
+            'main_shape': _topk_case(gen, *TOPK_SHAPE)}.items():
+        h_s, h_t = b16(h_s, h_t)
+        v, i = streaming_topk(h_s, h_t, k, mask)
+        torch.cuda.synchronize()
+        pv, pi = plain_topk(h_s, h_t, k, mask)
+        if dtype_of('topk') != 'bfloat16' or not (
+                torch.equal(i, pi) and torch.equal(v, pv)):
+            raise AssertionError(f'topk bf16 case {name}: kernel differs '
+                                 f'from the plain version')
+        log(f'bf16_kernels: topk case {name}: bit-equal')
+    B, N_s, N_t, C, k = TOPK_SHAPE
+    h_s, h_t, _, _ = _topk_case(gen, B, N_s, N_t, C, k, ints=False)
+    h_s, h_t = b16(h_s, h_t)
+    h_s32, h_t32 = h_s.float(), h_t.float()   # the same values in float32
+    err = hold_bf16_topk('random', h_s, h_t, k)
+    ms = cuda_ms(lambda: streaming_topk(h_s, h_t, k))
+    ms32 = cuda_ms(lambda: streaming_topk(h_s32, h_t32, k))
+    plain_ms = cuda_ms(lambda: plain_topk(h_s, h_t, k), runs=3)
+    lib_ms = cuda_ms(lambda: torch.topk(torch.bmm(h_s, h_t.transpose(1, 2)),
+                                        k))
+    b_ms, b_by = bound(2.0 * B * N_s * N_t * C,
+                       2.0 * B * (N_s + N_t) * C + 8.0 * B * N_s * k,
+                       PEAK_BF16_FLOPS)
+    log(f'bf16_kernels: topk at {N_s}x{N_t} C={C} k={k} on random inputs '
+        f'(held above); CUDA events, median: kernel bf16 '
+        f'{ms:.3f} ms, float32 {ms32:.3f} ms (the same values), plain bf16 '
+        f'{plain_ms:.3f} ms, torch.topk(bmm) bf16 {lib_ms:.3f} ms; bound '
+        f'{b_ms:.4f} ms ({b_by}, bf16 peak)')
+    _bf16_row(res, 'topk_bf16', max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+              ms_source='cuda_events')
+    del h_s, h_t, h_s32, h_t32
+    torch.cuda.empty_cache()
+
+    # -- SplineConv routing
+    for name, shape in (('masked', (2, 11, 40, 16, 0.3)),
+                        ('train_width', (4, 80, 640, 64, 0.0)),
+                        ('o_256', (2, 80, 640, 256, 0.2))):
+        t, g, basis, routing = _spline_exact(gen, *shape)
+        t, g = b16(t, g)
+        hold_equal(f'spline fwd bf16 {name}',
+                   lambda: route_fwd(t, basis, routing),
+                   lambda: plain_route_aggregate(t, basis, routing))
+        hold_equal(f'spline d_t bf16 {name}',
+                   lambda: route_d_t(g, basis, routing),
+                   lambda: plain_route_d_t(g, basis, routing))
+        if dtype_of('spline_route_bwd') != 'bfloat16':
+            raise AssertionError('spline: the bf16 variant did not run')
+        log(f'bf16_kernels: spline case {name}: fwd and d_t bit-equal, '
+            f'repeats identical')
+    args = _train_args()
+    _, loader, _ = pascal_pf.build(args)
+    graph = GraphBatch.from_numpy(next(iter(loader)).s, 'cuda')
+    basis, routing = spline_routing(graph, 5)
+    B, N = graph.x.shape[:2]
+    M = routing.num_rows
+    for O, tag in ((args.dim, ''), (args.rnd_dim, '@64')):
+        t, g = b16(torch.randn(B, M, O, generator=gen).cuda(),
+                   torch.randn(B, N, O, generator=gen).cuda())
+        t32, g32 = t.float(), g.float()
+        err_f = hold_ulp(f'spline fwd bf16 O={O}', route_fwd(t, basis,
+                                                             routing),
+                         plain_route_aggregate(t, basis, routing))
+        err_b = hold_ulp(f'spline d_t bf16 O={O}', route_d_t(g, basis,
+                                                             routing),
+                         plain_route_d_t(g, basis, routing))
+        (fb, fby), (bb, bby) = _spline_work(basis, routing, O, 2,
+                                            PEAK_BF16_FLOPS)
+        calls = {'fwd': lambda: route_fwd(t, basis, routing),
+                 'fwd f32': lambda: route_fwd(t32, basis, routing),
+                 'fwd plain': lambda: plain_route_aggregate(t, basis,
+                                                            routing),
+                 'd_t': lambda: route_d_t(g, basis, routing),
+                 'd_t f32': lambda: route_d_t(g32, basis, routing),
+                 'd_t plain': lambda: plain_route_d_t(g, basis, routing)}
+        try:   # the yardstick in bf16, where cuSPARSE takes it
+            R = _routing_matrix(basis, routing).to(BF16)
+            RT = _routing_matrix(basis, routing, transpose=True).to(BF16)
+            t2, g2 = t.reshape(B * M, O), g.reshape(B * N, O)
+            torch.sparse.mm(R, t2), torch.sparse.mm(RT, g2)
+            calls.update({'fwd sparse.mm': lambda: torch.sparse.mm(R, t2),
+                          'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2)})
+        except RuntimeError as e:
+            log(f'bf16_kernels: torch.sparse.mm in bf16 not available: '
+                f'{str(e)[:120]}')
+        got, src = timed(calls)
+        log(f'bf16_kernels: spline O={O} [{B}, {M}, {O}] on a '
+            f'RandomGraphPairs batch: bf16 within an ulp of plain (max |err| '
+            f'fwd {err_f:.3g}, d_t {err_b:.3g}); bound fwd {fb:.4f} ms '
+            f'({fby}), d_t {bb:.4f} ms ({bby}); ms per call [{src}] / '
+            f'per-call wall ms (CUDA events, median of 10): '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got.items()))
+        lib = {key: got[key][0] if key in got else None
+               for key in ('fwd sparse.mm', 'd_t sparse.mm')}
+        _bf16_row(res, f'spline_route_fwd_bf16{tag}', max_abs_err=err_f,
+                  ms=got['fwd'][0], plain_ms=got['fwd plain'][0],
+                  bound_ms=fb, bound_by=fby, library_ms=lib['fwd sparse.mm'],
+                  ms_source=src)
+        _bf16_row(res, f'spline_route_bwd_bf16{tag}', max_abs_err=err_b,
+                  ms=got['d_t'][0], plain_ms=got['d_t plain'][0],
+                  bound_ms=bb, bound_by=bby, library_ms=lib['d_t sparse.mm'],
+                  ms_source=src)
+
+    # -- dense consensus
+    def cons_case(B, N_s, N_t, R, ints):
+        def draw(*shape, scale=1.0):
+            if ints:
+                return torch.randint(-2, 3, shape, generator=gen).float()
+            return scale * torch.randn(*shape, generator=gen)
+        return [x.cuda() for x in (
+            draw(B, N_s, R), draw(B, N_t, R), draw(R, R, scale=R ** -0.5),
+            draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
+            draw(1, scale=0.1))]
+
+    for name, shape in (('ragged', (2, 20, 37, 8)), ('r_33', (3, 80, 80, 33)),
+                        ('train_width', (64, 80, 80, 64)),
+                        ('r_max', (2, 33, 65, 128))):
+        a = b16(*cons_case(*shape, ints=True))
+        hold_equal(f'consensus bf16 {name}', lambda: consensus_fwd(*a),
+                   lambda: plain_consensus(*a))
+        if dtype_of('consensus_fwd') != 'bfloat16':
+            raise AssertionError('consensus: the bf16 variant did not run')
+        log(f'bf16_kernels: consensus case {name}: bit-equal, repeat '
+            f'identical')
+    B, N_s, N_t, R = 64, 80, 80, 64
+    a = b16(*cons_case(B, N_s, N_t, R, ints=False))
+    a32 = [x.float() for x in a]
+    err = hold_close('consensus bf16 train_width', consensus_fwd(*a),
+                     plain_consensus(*a))
+    got, src = timed({'kernel': lambda: consensus_fwd(*a),
+                      'kernel f32': lambda: consensus_fwd(*a32),
+                      'plain': lambda: plain_consensus(*a)})
+    flops = 2.0 * B * (N_s + N_t) * R * R + 3.0 * B * N_s * N_t * R
+    nbytes = (2.0 * (B * (N_s + N_t) * R + R * R + 2 * R + 1)
+              + 4.0 * B * N_s * N_t)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f'bf16_kernels: consensus at [{B}, {N_s}, {N_t}] R={R}: float32 '
+        f'output within tolerance (max |err| {err:.3g}); bound {b_ms:.4f} '
+        f'ms ({b_by}); ms per call [{src}] / per-call wall ms (CUDA events, '
+        f'median of 10): ' + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                                       for k, v in got.items())
+        + f'; by launch: {fmt_split(launch_split(lambda: consensus_fwd(*a)))}')
+    _bf16_row(res, 'consensus_fwd_bf16', max_abs_err=err,
+              ms=got['kernel'][0], plain_ms=got['plain'][0], bound_ms=b_ms,
+              bound_by=b_by, library_ms=None, ms_source=src)
+
+    # -- sparse consensus, forward (with its state, as training calls it)
+    # and backward
+    for name, shape in (('duplicates', (2, 1000, 300, 20, 32, 0.9)),
+                        ('hub', (1, 15000, 20000, 20, 32, 'hub')),
+                        ('k_40_r_33', (2, 300, 500, 40, 33, 0.0)),
+                        ('r_128_few_candidates', (2, 50, 3000, 10, 128, 0.0))):
+        a, sl, g = _sc_case(gen, *shape)
+        a = b16(*a)
+        out, state = sparse_consensus_fwd(a[0], a[1], sl, *a[2:],
+                                          return_state=True)
+        grads = sparse_consensus_bwd(*a[:2], sl, *a[2:5], g, state)
+        torch.cuda.synchronize()
+        if dtype_of('sparse_consensus_bwd') != 'bfloat16':
+            raise AssertionError('sparse consensus: the bf16 variant did '
+                                 'not run')
+        if not torch.equal(out, plain_sparse_consensus_fwd(a[0], a[1], sl,
+                                                           *a[2:])):
+            raise AssertionError(f'sparse bf16 {name}: forward differs')
+        if not torch.equal(state[2], _sc_plain_mask(a, sl)):
+            raise AssertionError(f'sparse bf16 {name}: ReLU mask differs')
+        want = plain_sparse_consensus_bwd(*a[:2], sl, *a[2:5], g)
+        again = sparse_consensus_bwd(*a[:2], sl, *a[2:5], g, state)
+        for label, x, w, y in zip(SC_GRADS, grads, want, again):
+            if not (torch.equal(x, w) and torch.equal(x, y)):
+                raise AssertionError(f'sparse bf16 {name}: {label} differs')
+        log(f'bf16_kernels: sparse consensus case {name}: forward, mask and '
+            f'gradients bit-equal, repeat identical')
+    B, N_s, N_t, K, R = 1, 15000, 20000, 20, 32
+    a, sl, g = _sc_case(gen, B, N_s, N_t, K, R, ints=False)
+    a = b16(*a)
+    a32 = [x.float() for x in a]
+    out, state = sparse_consensus_fwd(a[0], a[1], sl, *a[2:],
+                                      return_state=True)
+    _, state32 = sparse_consensus_fwd(a32[0], a32[1], sl, *a32[2:],
+                                      return_state=True)
+    grads = sparse_consensus_bwd(*a[:2], sl, *a[2:5], g, state)
+    torch.cuda.synchronize()
+    err_f = hold_close('sparse fwd bf16', out, plain_sparse_consensus_fwd(
+        a[0], a[1], sl, *a[2:]))
+    err_b = max(hold_ulp(f'sparse bwd bf16 {label}', x, w) for label, x, w in
+                zip(SC_GRADS, grads, plain_sparse_consensus_bwd(
+                    *a[:2], sl, *a[2:5], g)))
+    (ff, fbytes), (bf, bbytes) = _sc_work(B, N_s, N_t, K, R, elem=2)
+    fb_ms, fb_by = bound(ff, fbytes, PEAK_BF16_FLOPS)
+    bb_ms, bb_by = bound(bf, bbytes, PEAK_BF16_FLOPS)
+    def fwd():
+        return sparse_consensus_fwd(a[0], a[1], sl, *a[2:],
+                                    return_state=True)
+
+    def bwd():
+        return sparse_consensus_bwd(*a[:2], sl, *a[2:5], g, state)
+
+    got, src = timed({
+        'fwd': fwd,
+        'fwd f32': lambda: sparse_consensus_fwd(a32[0], a32[1], sl,
+                                                *a32[2:], return_state=True),
+        'fwd plain': lambda: plain_sparse_consensus_fwd(a[0], a[1], sl,
+                                                        *a[2:]),
+        'bwd': bwd,
+        'bwd f32': lambda: sparse_consensus_bwd(*a32[:2], sl, *a32[2:5], g,
+                                                state32),
+        'bwd plain': lambda: plain_sparse_consensus_bwd(*a[:2], sl, *a[2:5],
+                                                        g)})
+    log(f'bf16_kernels: sparse consensus at [{B}, {N_s}, {K}, {R}] over '
+        f'{N_t} targets: delta within tolerance (max |err| {err_f:.3g}), '
+        f'gradients within an ulp (max |err| {err_b:.3g}); bound fwd '
+        f'{fb_ms:.4f} ms ({fb_by}), bwd {bb_ms:.4f} ms ({bb_by}); ms per '
+        f'call [{src}] / per-call wall ms (CUDA events, median of 10): '
+        + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in got.items()))
+    log(f'bf16_kernels: sparse consensus device ms per call by launch: fwd '
+        f'{fmt_split(launch_split(fwd))}; bwd {fmt_split(launch_split(bwd))}')
+    _bf16_row(res, 'sparse_consensus_fwd_bf16', max_abs_err=err_f,
+              ms=got['fwd'][0], plain_ms=got['fwd plain'][0],
+              bound_ms=fb_ms, bound_by=fb_by, library_ms=None, ms_source=src)
+    _bf16_row(res, 'sparse_consensus_bwd_bf16', max_abs_err=err_b,
+              ms=got['bwd'][0], plain_ms=got['bwd plain'][0],
+              bound_ms=bb_ms, bound_by=bb_by, library_ms=None, ms_source=src)
+
+
+def phase_train_bf16(results):
+    """The dense training main path under the bf16 policy at the PascalPF
+    widths: kernels in bf16 at their launch counts, a finite and falling
+    loss; then one step profiled beside its peak memory (informational,
+    for the bf16 step against the float32 one of ``train``)."""
+    losses, _, _ = _dense_main_path(results, 'bf16')
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f'bf16 dense loss did not fall: {losses}')
+    _step_profile(dense_step('bf16'), 'one bf16 train step')
+
+
+def phase_kg_train_bf16(results):
+    """The KG training main path under the bf16 policy at the DBP15K
+    widths: kernels in bf16 at their launch counts, a finite loss that
+    falls over phase 1; then one phase-2 step profiled beside its peak
+    memory (informational)."""
+    losses, _, _ = _kg_main_path(results, 'bf16')
+    if not losses[9] < losses[0]:
+        raise AssertionError(f'bf16 KG loss did not fall in phase 1: '
+                             f'{losses}')
+    _step_profile(kg_step('bf16'), 'one bf16 phase-2 step')
+
+
+def _step_profile(run, label):
+    """Peak memory of one step after a warm-up one, then its profile and
+    the port's kernels in it, each with its launches and time a launch
+    (on a KG phase-2 step, the real shortlists) (informational: a profile
+    that fails prints 'not measured')."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f'{label}: max_memory_allocated over one step {peak} bytes '
+        f'({peak / 2**30:.3f} GiB)')
+    try:
+        rows = profile(run, label, top=12)
+        log(f'profile: {label}: the port\'s kernels (ms, launches, ms a '
+            f'launch): ' + ', '.join(
+                f'{name} {dev_us / 1e3:.4f} ms x{count} = '
+                f'{dev_us / 1e3 / count:.4f}'
+                for name, dev_us, count in port_kernels(rows)))
+    except Exception as e:   # the breakdown is informational only
+        log(f'profile: {label}: not measured ({e!r})')
+
+
 #: Launches per step of the KG training path: (topk, sparse-consensus
 #: forward, backward). One search per forward; 10 consensus steps.
 KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd')
 KG_PER = {('train', 1): (1, 0, 0), ('eval', 1): (1, 0, 0),
           ('train', 2): (1, 10, 10), ('eval', 2): (1, 10, 0)}
 KG_ARGV = ['--synthetic', '--seed', '0']
+#: Each phase pins its precision policy (the CLIs' default is bf16);
+#: ``--precision f32`` is also what the port's trees before the policy
+#: accept, so ``--steps`` and ``--kernels`` still time them.
+F32_ARGV = ['--precision', 'f32']
 #: The CPU comparison's reduced node and edge counts (widths unchanged).
 KG_SMALL = ['--syn_nodes_s', '1500', '--syn_nodes_t', '2000',
             '--syn_edges_s', '10000', '--syn_edges_t', '12000']
@@ -1177,13 +1652,18 @@ def _hold_grads(label, out):
         f'{by_f64 or "none"}')
 
 
-def phase_kg_train(results):
+def _kg_main_path(results, policy):
+    """The KG training main path through ``dbp15k.main`` under ``policy``
+    (10 phase-1 epochs, one eval, then 4 phase-2 epochs with their evals)
+    at the DBP15K widths: the counters set to 0 just before and read just
+    after, the launches per step, the dispatch ledger (kernel, in the
+    policy's dtype), finite losses. Files the launches under the kernels'
+    names (``_bf16`` appended under bf16) and returns ``(losses, peak
+    bytes, phase-1 / phase-2 step ms)``."""
     from dgmc_tpu_torch.experiments import dbp15k
-    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
     from dgmc_tpu_torch.ops.kernels import dispatch
-    from dgmc_tpu_torch.ops.topk import chunked_topk
-    from dgmc_tpu_torch.train.steps import batch_to_device
-
+    dtype = 'bfloat16' if policy == 'bf16' else 'float32'
+    tag = '_bf16' if policy == 'bf16' else ''
     marks, losses = [], []
 
     def hook(kind, epoch, out):
@@ -1194,7 +1674,8 @@ def phase_kg_train(results):
             losses.append(float(out['loss']))
 
     P1, EPOCHS = 10, 14
-    argv = KG_ARGV + ['--epochs', str(EPOCHS), '--phase1_epochs', str(P1)]
+    argv = ['--synthetic', '--seed', '0', '--precision', policy, '--epochs',
+            str(EPOCHS), '--phase1_epochs', str(P1)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # The main path: counters at 0 just before, read just after.
@@ -1218,10 +1699,11 @@ def phase_kg_train(results):
                                  f'{got}, expected {want}')
     for name in KG_KERNELS:
         d = decisions[name]
-        if d['path'] != 'kernel' or d['counts']['plain']:
+        if (d['path'] != 'kernel' or d['counts']['plain']
+                or set(d['dtypes']) != {f'kernel:{dtype}'}):
             raise AssertionError(f'{name}: dispatch {d}')
-    for name in KG_KERNELS[1:]:
-        results[name]['launches'] = counts[name]
+    for name in KG_KERNELS[1 if policy == 'f32' else 0:]:
+        results[name + tag]['launches'] = counts[name]
     if not np.isfinite(losses).all():
         raise AssertionError(f'non-finite train loss: {losses}')
     step_ms = {1: [], 2: []}
@@ -1229,22 +1711,33 @@ def phase_kg_train(results):
         if cur[0] == 'train':
             step_ms[1 if cur[1] <= P1 else 2].append(1e3 * (cur[2] - prev[2]))
     p1, p2 = step_ms[1][2:], step_ms[2][1:]
-    log(f'kg_train: {EPOCHS} epochs ({P1} phase 1) through dbp15k.main in '
-        f'{time.perf_counter() - t0:.1f}s; launches '
+    log(f'kg_train ({policy}): {EPOCHS} epochs ({P1} phase 1) through '
+        f'dbp15k.main in {time.perf_counter() - t0:.1f}s; launches '
         f'{[counts[k] for k in KG_KERNELS]} (per step: phase 1 1/0/0, phase '
-        f'2 1/10/10, phase-2 eval 1/10/0); dispatch kernel for all three; '
-        f'losses {losses[0]:.4f} -> {losses[P1 - 1]:.4f} (phase 1), '
-        f'{losses[P1]:.4f} -> {losses[-1]:.4f} (phase 2)')
-    log(f'kg_train: step ms (host clock, synchronized): phase 1 median '
-        f'{statistics.median(p1):.3f} (min {min(p1):.3f}, max {max(p1):.3f}'
-        f', steps 3-{P1}), phase 2 median {statistics.median(p2):.3f} '
-        f'(min {min(p2):.3f}, max {max(p2):.3f}, steps {P1 + 2}-{EPOCHS}); '
-        f'max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)')
+        f'2 1/10/10, phase-2 eval 1/10/0); dispatch kernel in {dtype} for '
+        f'all three; losses {losses[0]:.4f} -> {losses[P1 - 1]:.4f} (phase '
+        f'1), {losses[P1]:.4f} -> {losses[-1]:.4f} (phase 2)')
+    log(f'kg_train ({policy}): step ms (host clock, synchronized): phase 1 '
+        f'median {statistics.median(p1):.3f} (min {min(p1):.3f}, max '
+        f'{max(p1):.3f}, steps 3-{P1}), phase 2 median '
+        f'{statistics.median(p2):.3f} (min {min(p2):.3f}, max {max(p2):.3f}, '
+        f'steps {P1 + 2}-{EPOCHS}); max_memory_allocated {peak} bytes '
+        f'({peak / 2**30:.3f} GiB)')
+    return losses, peak, (p1, p2)
+
+
+def phase_kg_train(results):
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    from dgmc_tpu_torch.train.steps import batch_to_device
+
+    _kg_main_path(results, 'f32')
 
     # The first phase-2 step against the CPU plain path at 1500 / 2000
     # entities: same weights (ψ₁'s dropout off), shortlist, noise and
     # negatives.
-    args = dbp15k.parse_args(KG_ARGV + KG_SMALL)
+    args = dbp15k.parse_args(KG_ARGV + F32_ARGV + KG_SMALL)
     train_b, _, in_dim = dbp15k.synthetic_batches(args)
     model = dbp15k.build(args, in_dim)
     model.psi_1.dropout = 0.0
@@ -1278,7 +1771,8 @@ def phase_kg_train(results):
 
     def two_steps():
         got = []
-        dbp15k.main(KG_ARGV + ['--epochs', '2', '--phase1_epochs', '0'],
+        dbp15k.main(KG_ARGV + F32_ARGV + ['--epochs', '2',
+                                          '--phase1_epochs', '0'],
                     hook=lambda k, e, o: got.append(o['loss'].item())
                     if k == 'train' else None)
         return got
@@ -1290,7 +1784,7 @@ def phase_kg_train(results):
         f'losses {run_a}')
 
     # Informational: host work and a profile of one phase-2 step.
-    args = dbp15k.parse_args(KG_ARGV)
+    args = dbp15k.parse_args(KG_ARGV + F32_ARGV)
     run = kg_step()
     run()
     t0 = time.perf_counter()
@@ -1302,15 +1796,7 @@ def phase_kg_train(results):
     log(f'kg_train: host work per phase-2 step: drawing and copying the '
         f'indicator noise and the negatives '
         f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
-    try:
-        rows = profile(run, 'one phase-2 step', top=14)
-        log('profile: one phase-2 step: the port\'s kernels (ms, launches, '
-            'ms a launch on the real phase-2 shortlists): ' + ', '.join(
-                f'{name} {dev_us / 1e3:.4f} ms x{count} = '
-                f'{dev_us / 1e3 / count:.4f}'
-                for name, dev_us, count in port_kernels(rows)))
-    except Exception as e:   # the breakdown is informational only
-        log(f'profile: one phase-2 step: not measured ({e!r})')
+    _step_profile(run, 'one phase-2 step')
 
 
 
@@ -1513,13 +1999,19 @@ def _loss_and_grads(model, batch, r_s, device, dtype):
                          for n, p in model.named_parameters()}
 
 
-def phase_train(results):
+def _dense_main_path(results, policy):
+    """The dense training main path through ``pascal_pf.main`` under
+    ``policy`` (one epoch of 16 steps of 64 pairs, then 128 held-out
+    pairs) at the PascalPF widths: the counters set to 0 just before and
+    read just after, the launches per step and per width, the dispatch
+    ledger (kernel, the routing and consensus in the policy's dtype),
+    finite losses. Files the launches under the kernels' names
+    (``_bf16`` appended under bf16) and returns ``(losses, peak bytes,
+    step ms)``."""
     from dgmc_tpu_torch.experiments import pascal_pf
-    from dgmc_tpu_torch.models.dgmc import draw_noise
     from dgmc_tpu_torch.ops.kernels import dispatch
-    from dgmc_tpu_torch.train.state import create_train_state
-    from dgmc_tpu_torch.train.steps import make_train_step
-
+    dtype = 'bfloat16' if policy == 'bf16' else 'float32'
+    tag = '_bf16' if policy == 'bf16' else ''
     marks, losses = [], []
 
     def hook(kind, index, out):
@@ -1528,7 +2020,8 @@ def phase_train(results):
         if kind == 'train':
             losses.append(float(out['loss']))
 
-    argv = ['--seed', '0', '--epochs', '1', '--synthetic_eval', '128']
+    argv = ['--seed', '0', '--precision', policy, '--epochs', '1',
+            '--synthetic_eval', '128']
     torch.cuda.reset_peak_memory_stats()
     # The main path: counters at 0 just before, read just after.
     with spline_launches_by_width() as by_width:
@@ -1550,30 +2043,47 @@ def phase_train(results):
             raise AssertionError(f'{cur[0]} launches {got}, expected {want}')
     for name in TRAIN_KERNELS:
         d = decisions[name]
-        if d['path'] != 'kernel' or d['counts']['plain']:
+        # The records carry float32 basis weights under either policy.
+        want = 'float32' if name == 'spline_records' else dtype
+        if (d['path'] != 'kernel' or d['counts']['plain']
+                or set(d['dtypes']) != {f'kernel:{want}'}):
             raise AssertionError(f'{name}: dispatch {d}')
-        results[name]['launches'] = counts[name]
+        if name != 'spline_records' or policy == 'f32':
+            results[name + tag]['launches'] = counts[name]
     for name in TRAIN_KERNELS[:2]:
         widths = {o: n for (k, o), n in by_width.items() if k == name}
         if sum(widths.values()) != counts[name]:
             raise AssertionError(f'{name}: launches by width {widths} do not '
                                  f'add up to {counts[name]}')
-        results[f'{name}@64']['launches'] = widths.get(64, 0)
-        log(f'train: {name} launches by width O: {sorted(widths.items())}')
+        results[f'{name}{tag}@64']['launches'] = widths.get(64, 0)
+        log(f'train ({policy}): {name} launches by width O: '
+            f'{sorted(widths.items())}')
     if not np.isfinite(losses).all():
         raise AssertionError(f'non-finite train loss: {losses}')
     step_ms = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
                if b[0] == 'train'][2:]
     med = statistics.median(step_ms)
-    log(f'train: 16 steps of 64 pairs + 2 eval batches through '
+    log(f'train ({policy}): 16 steps of 64 pairs + 2 eval batches through '
         f'pascal_pf.main; launches {[counts[k] for k in TRAIN_KERNELS]} '
         f'({"/".join(map(str, PER_TRAIN_STEP))} per step, '
         f'{"/".join(map(str, PER_EVAL_BATCH))} per eval batch); dispatch '
-        f'kernel for all four; losses {losses[0]:.4f} -> {losses[-1]:.4f}')
-    log(f'train: step ms after 2 warm-up steps (host clock, synchronized, '
-        f'collation included): median {med:.3f}, min {min(step_ms):.3f}, '
-        f'max {max(step_ms):.3f}; {64 / med * 1e3:.1f} pairs/s; '
-        f'max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)')
+        f'kernel for all four, in {dtype}; losses {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}')
+    log(f'train ({policy}): step ms after 2 warm-up steps (host clock, '
+        f'synchronized, collation included): median {med:.3f}, min '
+        f'{min(step_ms):.3f}, max {max(step_ms):.3f}; {64 / med * 1e3:.1f} '
+        f'pairs/s; max_memory_allocated {peak} bytes ({peak / 2**30:.3f} '
+        f'GiB)')
+    return losses, peak, step_ms
+
+
+def phase_train(results):
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.models.dgmc import draw_noise
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+
+    _dense_main_path(results, 'f32')
 
     # The first step against the CPU plain path: same weights, batch and
     # noise (see _hold_grads).
@@ -1621,15 +2131,7 @@ def phase_train(results):
     log(f'train: host work per step: collating 64 pairs (transforms '
         f'included) {collate_ms:.3f} ms, drawing and copying the '
         f'indicator noise {noise_ms:.3f} ms')
-    try:
-        rows = profile(dense_step(), 'one train step', top=12)
-        log('profile: one train step: the port\'s kernels (ms, launches, '
-            'ms a launch): ' + ', '.join(
-                f'{name} {dev_us / 1e3:.4f} ms x{count} = '
-                f'{dev_us / 1e3 / count:.4f}'
-                for name, dev_us, count in port_kernels(rows)))
-    except Exception as e:   # the breakdown is informational only
-        log(f'profile: one train step: not measured ({e!r})')
+    _step_profile(dense_step(), 'one train step')
 
 
 #: The port's kernels among the device names a profile lists.
@@ -1650,14 +2152,14 @@ def port_kernels(rows):
     return sorted(((k, *v) for k, v in got.items()), key=lambda r: -r[1])
 
 
-def dense_step():
-    """One dense PascalPF training step at the CLI's defaults on the
-    card, as a call: one fixed batch (no collation), a new noise seed
-    each call."""
+def dense_step(policy='f32'):
+    """One dense PascalPF training step at the CLI's defaults under
+    ``policy`` on the card, as a call: one fixed batch (no collation), a
+    new noise seed each call."""
     from dgmc_tpu_torch.experiments import pascal_pf
     from dgmc_tpu_torch.train.state import create_train_state
     from dgmc_tpu_torch.train.steps import make_train_step
-    args = pascal_pf.parse_args(['--seed', '0'])
+    args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
     model, loader, _ = pascal_pf.build(args)
     state = create_train_state(model.cuda(), learning_rate=args.lr)
     step = make_train_step(model, loss_on_s0=True)
@@ -1667,14 +2169,15 @@ def dense_step():
     return lambda: step(state, batch, next(seeds))
 
 
-def kg_step():
+def kg_step(policy='f32'):
     """One phase-2 step of the KG training path (``dbp15k`` at its
-    defaults on the synthetic alignment, ψ₁ detached) on the card, as a
-    call: the batch uploaded once, a new noise seed each call."""
+    defaults on the synthetic alignment, ψ₁ detached) under ``policy`` on
+    the card, as a call: the batch uploaded once, a new noise seed each
+    call."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.train.state import create_train_state
     from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
-    args = dbp15k.parse_args(KG_ARGV)
+    args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
     train_b, _, in_dim = dbp15k.synthetic_batches(args)
     model = dbp15k.build(args, in_dim).cuda()
     state = create_train_state(model, learning_rate=args.lr)
@@ -1686,10 +2189,14 @@ def kg_step():
 
 def steps(n):
     """The ``--steps`` mode: ``{step: {...}}`` for the dense and the KG
-    phase-2 step, ``n`` synchronized steps each (host clock, after 2
-    warm-up steps) and one more under the profiler."""
+    phase-2 step (float32), ``n`` synchronized steps each (host clock,
+    after 2 warm-up steps) and one more under the profiler; with the
+    dtype each kernel ran in (the dispatch ledger's; None for a tree
+    before the precision policy)."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
     out = {}
     for name, make in (('dense', dense_step), ('kg_phase2', kg_step)):
+        dispatch.reset()
         run = make()
         for _ in range(2):
             run()
@@ -1707,13 +2214,16 @@ def steps(n):
             'max_ms': max(ms), 'profiled_wall_ms': wall_ms,
             'busy_ms': busy, 'device_ops': sum(r[2] for r in rows),
             'kernels': {k: {'ms': us / 1e3, 'launches': c}
-                        for k, us, c in port_kernels(rows)}}
+                        for k, us, c in port_kernels(rows)},
+            'dtypes': {k: d.get('dtype')
+                       for k, d in dispatch.decisions().items()}}
         log(f'steps: {name}: step ms median {r["median_ms"]:.3f} (min '
             f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); one step '
             f'profiled: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, '
             f'{r["device_ops"]} device ops; the port\'s kernels '
             + ', '.join(f'{k} {v["ms"]:.4f} ms x{v["launches"]}'
-                        for k, v in r['kernels'].items()))
+                        for k, v in r['kernels'].items())
+            + f'; dtypes {r["dtypes"]}')
         del run
         torch.cuda.empty_cache()
     return out
@@ -1851,6 +2361,9 @@ def main(argv=None):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The precision policy's float32 accumulation of bf16 products (the
+    # CLIs select it too): the bf16 yardsticks are timed under it.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1869,7 +2382,8 @@ def main(argv=None):
     res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:],
                            *(f'topk@{n}' for n in SMALL_ROWS),
                            *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
-                           'spline_route_fwd@64', 'spline_route_bwd@64')}
+                           'spline_route_fwd@64', 'spline_route_bwd@64',
+                           *BF16_ROWS)}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
@@ -1885,9 +2399,12 @@ def main(argv=None):
             ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
                 res['sparse_consensus_fwd'], res['sparse_consensus_bwd'],
                 sc_small)),
+            ('bf16_kernels', lambda: phase_bf16_kernels(res)),
             ('serve', lambda: phase_serve(res['topk'], small, sc_small)),
             ('train', lambda: phase_train(res)),
-            ('kg_train', lambda: phase_kg_train(res))):
+            ('kg_train', lambda: phase_kg_train(res)),
+            ('train_bf16', lambda: phase_train_bf16(res)),
+            ('kg_train_bf16', lambda: phase_kg_train_bf16(res))):
         t0 = time.perf_counter()
         try:
             fn()

@@ -13,6 +13,10 @@
 - DGMC's explicit consensus-MLP parameters (``mlp_hidden_kernel``,
   ``mlp_hidden_bias``, ``mlp_out_kernel``, ``mlp_out_bias``) keep their
   names and shapes.
+
+Parameters are float32 under both precision policies, in either package
+(a policy casts them where they are used, never where they are stored):
+a parameter of any other dtype raises instead of being converted.
 """
 
 import re
@@ -27,7 +31,11 @@ _MLP = ('mlp_hidden_kernel', 'mlp_hidden_bias', 'mlp_out_kernel',
 
 
 def _tensor(a):
-    return torch.tensor(np.asarray(a, np.float32))
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        raise TypeError(f'a parameter of dtype {a.dtype}: parameters are '
+                        f'float32 under both precision policies')
+    return torch.tensor(a)
 
 
 def _linear(dense, key, out):

@@ -1,5 +1,5 @@
 // Node-row projection shared by csrc/consensus.cu and
-// csrc/sparse_consensus.cu (float32, sm_90a).
+// csrc/sparse_consensus.cu (float32 or bfloat16 rows, sm_90a).
 //
 // Both consensus kernels use the factored form of the MLP's first layer:
 // (o_s - o_t) @ W1 + b1 = u_s - u_t with u_s = o_s @ W1 + b1 and
@@ -19,12 +19,52 @@
 // instead left the projection bound by the latency of its staging.
 // The helpers below also stage the tiles of consensus_pairs and of the
 // sparse backward's node pass.
+//
+// bf16 rows (the precision policy's variant): staged widened to float32
+// (plain loads; cp.async copies bytes as they are), products summed in
+// float32 in the same order, and u rounded where the JAX package's
+// factored form rounds it: u_s = bf16(bf16(o_s W1) + b1), u_t =
+// bf16(o_t W1) (round to nearest even). The kernels that read u widen it
+// again; each keeps its own sums in float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dgmc {
+
+using bf16 = __nv_bfloat16;
+
+// Element conversions: to float32, from float32 (bf16 rounds to nearest
+// even), and rounding a float32 through T (the identity for float).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// a - b rounded to the operands' dtype, as float32: for bf16 the bf16
+// subtraction, which rounds the exact difference to nearest even, as
+// rounding the float32 difference of two bf16 values would (see
+// relu_diff4), without a conversion instruction.
+__device__ __forceinline__ float sub_rounded(float a, float b) {
+  return a - b;
+}
+__device__ __forceinline__ float sub_rounded(bf16 a, bf16 b) {
+  return __bfloat162float(__hsub(a, b));
+}
 
 constexpr int PROJ_THREADS = 128;
 
@@ -84,12 +124,68 @@ __device__ __forceinline__ void copy_rows_async(const float* __restrict__ x,
   }
 }
 
+// relu(s - t) of four bf16 channels each (8 bytes as loaded), widened
+// to float32: the subtraction in bf16x2 rounds the exact difference to
+// nearest even, which for bf16 operands equals rounding their float32
+// difference (exact unless the exponents lie 17 or more apart, and then
+// both round to s); no conversion instruction a channel.
+__device__ __forceinline__ void relu_diff4(uint2 s, uint2 t,
+                                           float (&h)[4]) {
+  const bf16 z = __float2bfloat16_rn(0.0f);
+  const __nv_bfloat162 zero2 = __halves2bfloat162(z, z);
+  const __nv_bfloat162 lo = __hmax2(
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&s.x),
+              *reinterpret_cast<const __nv_bfloat162*>(&t.x)),
+      zero2);
+  const __nv_bfloat162 hi = __hmax2(
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&s.y),
+              *reinterpret_cast<const __nv_bfloat162*>(&t.y)),
+      zero2);
+  h[0] = __bfloat162float(lo.x);
+  h[1] = __bfloat162float(lo.y);
+  h[2] = __bfloat162float(hi.x);
+  h[3] = __bfloat162float(hi.y);
+}
+
+// Four bf16 values (8 bytes, aligned) widened to float32.
+__device__ __forceinline__ float4 widen4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
+                     __bfloat162float(hi.x), __bfloat162float(hi.y));
+}
+
+// The same for bf16 rows, widened to float32 in s: plain loads (cp.async
+// would copy the 2-byte elements as they are), 8 bytes each where R % 4
+// == 0 and x is 8-byte aligned; the caller's barrier (after cp_wait_all)
+// publishes them like the asynchronous copies.
+__device__ __forceinline__ void copy_rows_async(const bf16* __restrict__ x,
+                                                float* s, int n, int T,
+                                                int R, int LD, int tid,
+                                                int nthr) {
+  if (R % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+    const int per_row = LD / 4;
+    for (int i = tid; i < T * per_row; i += nthr) {
+      const int row = i / per_row, q = 4 * (i - row * per_row);
+      *reinterpret_cast<float4*>(s + row * LD + q) =
+          row < n && q < R ? widen4(x + row * R + q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = tid; i < T * LD; i += nthr) {
+      const int row = i / LD, q = i - row * LD;
+      s[row * LD + q] = row < n && q < R ? to_f(x[row * R + q]) : 0.0f;
+    }
+  }
+}
+
 // W1 [R, R] into s [R4][ld] transposed, s[q][r] = W1[r][q], zero past R
 // (ld % 4 == 0, ld >= R4; ld = R4 + 4 spreads the transposing stores over
 // 8 banks): coalesced loads, each thread's issued before its stores.
+template <typename T>
 __device__ __forceinline__ void stage_w_transposed(
-    const float* __restrict__ w1, float* s, int R, int ld, int tid,
-    int nthr) {
+    const T* __restrict__ w1, float* s, int R, int ld, int tid, int nthr) {
   constexpr int BATCH = 8;
   const int R4 = proj_r4(R);
   for (int i0 = tid; i0 < R4 * R4; i0 += BATCH * nthr) {
@@ -98,7 +194,7 @@ __device__ __forceinline__ void stage_w_transposed(
     for (int b = 0; b < BATCH; ++b) {
       const int i = i0 + b * nthr;
       const int r = i / R4, q = i - r * R4;
-      v[b] = r < R && q < R ? w1[r * R + q] : 0.0f;
+      v[b] = r < R && q < R ? to_f(w1[r * R + q]) : 0.0f;
     }
 #pragma unroll
     for (int b = 0; b < BATCH; ++b) {
@@ -142,11 +238,13 @@ __device__ __forceinline__ void tile_product(const float* a, int lda,
 // the others the rows of o_t after them: the rows and W1 land in shared
 // memory by cp.async, one wait, then each thread forms a 4-row x
 // 4-column tile of u. Every output sums over r = 0, 1, ... in order with
-// fmaf, then adds b1.
+// fmaf, then adds b1 (for bf16, to the sum rounded to bf16, and the total
+// rounded again).
+template <typename T>
 __global__ void __launch_bounds__(PROJ_THREADS)
-project_rows(const float* __restrict__ o_s, const float* __restrict__ o_t,
-             const float* __restrict__ w1, const float* __restrict__ b1,
-             float* __restrict__ u_s, float* __restrict__ u_t,
+project_rows(const T* __restrict__ o_s, const T* __restrict__ o_t,
+             const T* __restrict__ w1, const T* __restrict__ b1,
+             T* __restrict__ u_s, T* __restrict__ u_t,
              int64_t rows_s, int64_t rows_t, int R, int tiles_s) {
   extern __shared__ float4 proj_smem4[];
   const int R4 = proj_r4(R), cols = proj_cols(R), BR = proj_block_rows(R);
@@ -168,7 +266,7 @@ project_rows(const float* __restrict__ o_s, const float* __restrict__ o_t,
   if (ty * 4 >= BR) return;
   float acc[4][4] = {};
   tile_product(sx, LD, sw, R4, ty * 4, tx * 4, R4, acc);
-  float* u = (src ? u_s : u_t) + r0 * R;
+  T* u = (src ? u_s : u_t) + r0 * R;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = ty * 4 + i;
@@ -176,27 +274,31 @@ project_rows(const float* __restrict__ o_s, const float* __restrict__ o_t,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = tx * 4 + j;
-      if (q < R) u[(int64_t)row * R + q] = src ? acc[i][j] + b1[q]
-                                               : acc[i][j];
+      if (q < R)
+        u[(int64_t)row * R + q] =
+            src ? from_f<T>(rnd<T>(acc[i][j]) + to_f(b1[q]))
+                : from_f<T>(acc[i][j]);
     }
   }
 }
 
 // One launch: u_s [rows_s, R] and u_t [rows_t, R], 1 <= R <= 128.
-inline cudaError_t project(const float* o_s, const float* o_t,
-                           const float* w1, const float* b1, float* u_s,
-                           float* u_t, int64_t rows_s, int64_t rows_t, int R,
-                           cudaStream_t st) {
+template <typename T>
+inline cudaError_t project(const T* o_s, const T* o_t, const T* w1,
+                           const T* b1, T* u_s, T* u_t, int64_t rows_s,
+                           int64_t rows_t, int R, cudaStream_t st) {
   const int BR = proj_block_rows(R), R4 = proj_r4(R);
   const size_t smem = sizeof(float) * ((size_t)R4 * R4 +
                                        (size_t)BR * tile_ld(R));
   cudaError_t err = cudaFuncSetAttribute(
-      project_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      project_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const int64_t tiles_s = (rows_s + BR - 1) / BR;
   const int64_t tiles_t = (rows_t + BR - 1) / BR;
-  project_rows<<<(unsigned)(tiles_s + tiles_t), PROJ_THREADS, smem, st>>>(
-      o_s, o_t, w1, b1, u_s, u_t, rows_s, rows_t, R, (int)tiles_s);
+  project_rows<T><<<(unsigned)(tiles_s + tiles_t), PROJ_THREADS, smem,
+                    st>>>(o_s, o_t, w1, b1, u_s, u_t, rows_s, rows_t, R,
+                          (int)tiles_s);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Sparse consensus delta for Hopper (sm_90a), float32: forward and backward.
+// Sparse consensus delta for Hopper (sm_90a), float32 or bfloat16 inputs:
+// forward and backward.
 //
 // Replaces dgmc_tpu/ops/pallas/sparse_consensus.py::_fwd_kernel and
 // ::_bwd_kernel (behind fused_candidate_delta and sparse_consensus_delta):
@@ -32,6 +33,17 @@
 // project_rows (csrc/project.cuh) forms u_s and u_t for every node row
 // first. Both forms sum each u in one order (r = 0, 1, ..., then b1), so
 // they agree bit for bit.
+//
+// bf16 inputs (the precision policy's variant, the *_bf16 entry points):
+// o_s, o_t and the MLP's weights all bf16, u_s and u_t bf16 as
+// project.cuh rounds them (half the bytes of every candidate row the
+// kernels gather), pre = bf16(u_s - u_t) (the factored form's rounding:
+// the JAX package's sparse path takes the direct form, which rounds
+// elsewhere), and every sum in float32. The forward's delta is float32;
+// the backward's gradients leave its float32 sums rounded to bf16 once
+// (d_o_s and d_o_t by sc_bwd_nodes, the weights' by the wrapper). The
+// touched-row form is float32 only (the serve path, which stays float32):
+// bf16 always projects every row first.
 //
 // Backward, with g = dL/d delta, pre = u_s[s] - u_t[t] and d_pre = g * w2
 // where pre > 0. Four launches, no atomics, repeats bit-identical:
@@ -103,13 +115,24 @@ constexpr int TGT_PER_WARP = 4;          // target rows per warp of sc_bwd_tgt
 constexpr int PROJ_WARPS = 2;            // warps per block of sc_fwd projecting
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int NC>
-__device__ __forceinline__ void load_row(const float* row, int R, int lane,
+template <int NC, typename T>
+__device__ __forceinline__ void load_row(const T* row, int R, int lane,
                                          float (&x)[NC]) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int q = lane + 32 * c;
-    x[c] = q < R ? row[q] : 0.0f;
+    x[c] = q < R ? dgmc::to_f(row[q]) : 0.0f;
+  }
+}
+
+// The same, each element kept in its dtype.
+template <int NC, typename T>
+__device__ __forceinline__ void load_raw(const T* row, int R, int lane,
+                                         T (&x)[NC]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int q = lane + 32 * c;
+    x[c] = q < R ? row[q] : dgmc::from_f<T>(0.0f);
   }
 }
 
@@ -142,6 +165,25 @@ struct Piece {
         x[i][0] = q.x; x[i][1] = q.y; x[i][2] = q.z; x[i][3] = q.w;
       } else {
         x[i][0] = c < R ? row[c] : 0.0f;
+      }
+    }
+  }
+  // bf16 rows, widened: V = 4 reads 8 bytes a lane.
+  __device__ __forceinline__ void load(const dgmc::bf16* row, int R, int j) {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int c = ch(j, i, 0);
+      if constexpr (V == 4) {
+        uint2 q = make_uint2(0u, 0u);
+        if (c < R) q = *reinterpret_cast<const uint2*>(row + c);
+        const __nv_bfloat162 lo =
+            *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+        const __nv_bfloat162 hi =
+            *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+        x[i][0] = __bfloat162float(lo.x); x[i][1] = __bfloat162float(lo.y);
+        x[i][2] = __bfloat162float(hi.x); x[i][3] = __bfloat162float(hi.y);
+      } else {
+        x[i][0] = c < R ? __bfloat162float(row[c]) : 0.0f;
       }
     }
   }
@@ -238,15 +280,16 @@ __device__ __forceinline__ T transpose_reduce(T (&v)[N], int lane, Op op) {
 // u_s and each candidate's u_t itself (the row with the first batch of
 // candidates, in one pass over W1), writing them into st_s / st_t where
 // those are not null (the backward's state; a target row in several
-// lists gets the same bits from each).
-template <int V, int L, int J, bool PROJ, bool MASK, int RBMAX>
+// lists gets the same bits from each). PROJ is built for float only.
+// T: the dtype of x_s, x_t and the weights; pre rounds through it.
+template <typename T, int V, int L, int J, bool PROJ, bool MASK, int RBMAX>
 __global__ void __launch_bounds__(THREADS)
-sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
-       const int* __restrict__ idx, const float* __restrict__ w1,
-       const float* __restrict__ b1, const float* __restrict__ w2,
-       const float* __restrict__ b2, float* __restrict__ out,
-       unsigned* __restrict__ mask, float* __restrict__ st_s,
-       float* __restrict__ st_t, int rows, int N_s, int N_t, int K, int R) {
+sc_fwd(const T* __restrict__ x_s, const T* __restrict__ x_t,
+       const int* __restrict__ idx, const T* __restrict__ w1,
+       const T* __restrict__ b1, const T* __restrict__ w2,
+       const T* __restrict__ b2, float* __restrict__ out,
+       unsigned* __restrict__ mask, T* __restrict__ st_s,
+       T* __restrict__ st_t, int rows, int N_s, int N_t, int K, int R) {
   using P = Piece<V, L, J>;
   constexpr int G = P::G;
   // A window of 32 candidates is 32 / G = L rounds of G; RB rounds are in
@@ -266,6 +309,16 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
   int my_t = 0, tt[RB];
   P us, w, b, ut[RB];
   us.zero();
+  // bf16 rows of 4 channels a lane stay as loaded (8 bytes): the
+  // differences are formed in bf16x2 (rounded by the subtraction itself,
+  // as rounding their float32 difference would), no conversion a channel.
+  constexpr bool PACKED = !std::is_same<T, float>::value && V == 4;
+  uint2 us_h = make_uint2(0u, 0u), ut_h[RB];
+  auto load_h = [&](const T* row) {   // this lane's channels, 0 past R
+    const int c = P::ch(j, 0, 0);
+    return c < R ? *reinterpret_cast<const uint2*>(row + c)
+                 : make_uint2(0u, 0u);
+  };
   // Loads the candidate rows of rounds r0 ... r0 + RB - 1 of a window of
   // n candidates into ut (zeros past n).
   auto load_batch = [&](int64_t tb, int r0, int n) {
@@ -273,7 +326,10 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
     for (int rr = 0; rr < RB; ++rr) {
       const int slot = (r0 + rr) * G + g;
       tt[rr] = __shfl_sync(FULL, my_t, slot & 31);
-      if (slot < n)
+      if constexpr (PACKED)
+        ut_h[rr] = slot < n ? load_h(x_t + tb + (int64_t)tt[rr] * R)
+                            : make_uint2(0u, 0u);
+      else if (slot < n)
         ut[rr].load(x_t + tb + (int64_t)tt[rr] * R, R, j);
       else
         ut[rr].zero();
@@ -281,7 +337,10 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
   };
   if (row < rows) {
     my_t = lane < K ? idx[(int64_t)row * K + lane] : 0;
-    us.load(x_s + (int64_t)row * R, R, j);
+    if constexpr (PACKED)
+      us_h = load_h(x_s + (int64_t)row * R);
+    else
+      us.load(x_s + (int64_t)row * R, R, j);
   }
   w.load(w2, R, j);
   bool loaded = false;   // the batch to come is in ut already
@@ -294,7 +353,7 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
     dgmc::cp_wait_all();
     __syncthreads();
   }
-  const float bias = b2[0];
+  const float bias = dgmc::to_f(b2[0]);
   const int nc = (R + 31) / 32;
   // The lanes that store: the sum of round j / (L / RB) of a batch, and
   // word j / 8 of the mask of round (j % LM) / (LM / RB).
@@ -304,9 +363,13 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
     int next_t = 0;
     P next_us;
     next_us.zero();
+    uint2 next_us_h = make_uint2(0u, 0u);
     if (next < rows) {
       next_t = lane < K ? idx[(int64_t)next * K + lane] : 0;
-      next_us.load(x_s + (int64_t)next * R, R, j);
+      if constexpr (PACKED)
+        next_us_h = load_h(x_s + (int64_t)next * R);
+      else
+        next_us.load(x_s + (int64_t)next * R, R, j);
     }
     const int64_t tb = (int64_t)(row / N_s) * N_t * R;
     for (int k0 = 0; k0 < K; k0 += 32) {
@@ -351,11 +414,22 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
           acc[rr] = 0.0f;
           bits[rr] = 0u;
           if ((r0 + rr) * G >= n) continue;   // warp-uniform: no candidate
+          if constexpr (PACKED) {
+            float h[4];
+            dgmc::relu_diff4(us_h, ut_h[rr], h);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              acc[rr] += h[v] * w.x[0][v];
+              if constexpr (MASK)   // channels 4j..4j+3: bits of word j / 8
+                bits[rr] |= (h[v] > 0.0f ? 1u : 0u) << ((4 * j + v) & 31);
+            }
+            continue;
+          }
 #pragma unroll
           for (int i = 0; i < J; ++i)
 #pragma unroll
             for (int v = 0; v < V; ++v) {
-              const float pre = us.x[i][v] - ut[rr].x[i][v];
+              const float pre = dgmc::rnd<T>(us.x[i][v] - ut[rr].x[i][v]);
               acc[rr] += fmaxf(pre, 0.0f) * w.x[i][v];
               if constexpr (MASK && V == 4) {
                 // channels 4j..4j+3: bits of word j / 8
@@ -383,6 +457,7 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
     }
     my_t = next_t;
     us = next_us;
+    us_h = next_us_h;
   }
 }
 
@@ -392,10 +467,10 @@ sc_fwd(const float* __restrict__ x_s, const float* __restrict__ x_t,
 // and d_b2 = sum g into wpart[blockIdx] (the warps' sums in warp order).
 // Chunk blocks: one warp per chunk of the Shortlist's chunk map, the
 // chunk's sum of d_pre into tgt_partial[c].
-template <int NC>
+template <int NC, typename T>
 __global__ void __launch_bounds__(THREADS)
-sc_bwd_cand(const float* __restrict__ u_s, const float* __restrict__ u_t,
-            const int* __restrict__ idx, const float* __restrict__ w2,
+sc_bwd_cand(const T* __restrict__ u_s, const T* __restrict__ u_t,
+            const int* __restrict__ idx, const T* __restrict__ w2,
             const float* __restrict__ g, const unsigned* __restrict__ mask,
             const int* __restrict__ order,
             const int4* __restrict__ chunk_map, float* __restrict__ d_us,
@@ -483,19 +558,23 @@ sc_bwd_cand(const float* __restrict__ u_s, const float* __restrict__ u_t,
   const int stride = src_blocks * WARPS;
   int row = blockIdx.x * WARPS + warp;
   int my_t = 0;
-  float my_g = 0.0f, us[NC] = {};
+  // u rows stay in their dtype; each difference is rounded as the
+  // forward's (sub_rounded: in bf16, no conversion a channel).
+  float my_g = 0.0f;
+  T us[NC] = {};
   if (row < rows_s) {
     if (lane < K) {
       my_t = idx[(int64_t)row * K + lane];
       my_g = g[(int64_t)row * K + lane];
     }
-    load_row(u_s + (int64_t)row * R, R, lane, us);
+    load_raw(u_s + (int64_t)row * R, R, lane, us);
   }
   for (; row < rows_s; row += stride) {
     const int next = row + stride;
     int n_t = 0;
-    float n_g = 0.0f, n_us[NC] = {}, dus[NC] = {};
-    const float* ut_b = u_t + (int64_t)(row / N_s) * N_t * R;
+    float n_g = 0.0f, dus[NC] = {};
+    T n_us[NC] = {};
+    const T* ut_b = u_t + (int64_t)(row / N_s) * N_t * R;
     for (int k0 = 0; k0 < K; k0 += 32) {
       const int n = min(32, K - k0);
       if (k0) {   // K > 32: the next 32 candidates
@@ -503,18 +582,18 @@ sc_bwd_cand(const float* __restrict__ u_s, const float* __restrict__ u_t,
         my_g = lane < n ? g[(int64_t)row * K + k0 + lane] : 0.0f;
       }
       for (int j0 = 0; j0 < n; j0 += U) {
-        float ut[U][NC];
+        T ut[U][NC];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int t = __shfl_sync(FULL, my_t, (j0 + u) & 31);
-          if (j0 + u < n) load_row(ut_b + (int64_t)t * R, R, lane, ut[u]);
+          if (j0 + u < n) load_raw(ut_b + (int64_t)t * R, R, lane, ut[u]);
         }
         if (k0 == 0 && j0 == 0 && next < rows_s) {
           if (lane < K) {
             n_t = idx[(int64_t)next * K + lane];
             n_g = g[(int64_t)next * K + lane];
           }
-          load_row(u_s + (int64_t)next * R, R, lane, n_us);
+          load_raw(u_s + (int64_t)next * R, R, lane, n_us);
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -522,7 +601,7 @@ sc_bwd_cand(const float* __restrict__ u_s, const float* __restrict__ u_t,
           if (j0 + u < n) {
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
-              const float pre = us[c] - ut[u][c];
+              const float pre = dgmc::sub_rounded(us[c], ut[u][c]);
               if (pre > 0.0f) {
                 dus[c] += gk * w[c];
                 dw2[c] += gk * pre;
@@ -619,11 +698,13 @@ size_t node_smem(int R) {
           NODE_RED);
 }
 
+// T: the dtype of o_s, o_t, W1 and of d_o_s, d_o_t (rounded once).
+template <typename T>
 __global__ void __launch_bounds__(dgmc::PROJ_THREADS)
-sc_bwd_nodes(const float* __restrict__ o_s, const float* __restrict__ o_t,
+sc_bwd_nodes(const T* __restrict__ o_s, const T* __restrict__ o_t,
              const float* __restrict__ d_us, const float* __restrict__ d_ut,
-             const float* __restrict__ w1, float* __restrict__ d_os,
-             float* __restrict__ d_ot, float* __restrict__ npart,
+             const T* __restrict__ w1, T* __restrict__ d_os,
+             T* __restrict__ d_ot, float* __restrict__ npart,
              int rows_s, int rows_t, int R, int tiles_s) {
   constexpr int NT = dgmc::PROJ_THREADS;
   extern __shared__ float4 node_smem4[];
@@ -651,14 +732,15 @@ sc_bwd_nodes(const float* __restrict__ o_s, const float* __restrict__ o_t,
   if (ty * 4 < BR) {
     float acc[4][4] = {};
     dgmc::tile_product(sd, LD, swt, R4 + 4, ty * 4, tx * 4, R4, acc);
-    float* d_o = (src ? d_os : d_ot) + (int64_t)r0 * R;
+    T* d_o = (src ? d_os : d_ot) + (int64_t)r0 * R;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty * 4 + i;
       if (row >= n) break;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (tx * 4 + j < R) d_o[(int64_t)row * R + tx * 4 + j] = acc[i][j];
+        if (tx * 4 + j < R)
+          d_o[(int64_t)row * R + tx * 4 + j] = dgmc::from_f<T>(acc[i][j]);
     }
   }
 
@@ -775,11 +857,11 @@ bool bad_shape(int B, int N_s, int N_t, int K, int R) {
          (int64_t)B * N_s * K > INT32_MAX || (int64_t)B * N_t > INT32_MAX;
 }
 
-template <int NC>
+template <int NC, typename T>
 int cand_blocks_per_sm() {
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, sc_bwd_cand<NC>, THREADS, 0);
+      &n, sc_bwd_cand<NC, T>, THREADS, 0);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -808,17 +890,16 @@ int with_lanes(int R, F&& f) {
   return f(std::integral_constant<int, 32>());
 }
 
-template <int V, int L, int J, bool MASK>
-int fwd_launch(bool proj, const float* x_s, const float* x_t, const int* idx,
-               const float* w1, const float* b1, const float* w2,
-               const float* b2, float* out, unsigned* mask, float* st_s,
-               float* st_t, int rows, int N_s, int N_t, int K, int R,
-               int device, cudaStream_t st) {
+template <typename T, int V, int L, int J, bool MASK>
+int fwd_launch(bool proj, const T* x_s, const T* x_t, const int* idx,
+               const T* w1, const T* b1, const T* w2, const T* b2,
+               float* out, unsigned* mask, T* st_s, T* st_t, int rows,
+               int N_s, int N_t, int K, int R, int device, cudaStream_t st) {
   if (!proj) {
     // One block per WARPS rows, at most as many as the card holds at
     // once: the warps then walk the rows.
-    const auto kernel = K > 16 ? sc_fwd<V, L, J, false, MASK, 8>
-                               : sc_fwd<V, L, J, false, MASK, 4>;
+    const auto kernel = K > 16 ? sc_fwd<T, V, L, J, false, MASK, 8>
+                               : sc_fwd<T, V, L, J, false, MASK, 4>;
     int per_sm = 0, sms = 0;
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, kernel, THREADS, 0);
@@ -833,50 +914,56 @@ int fwd_launch(bool proj, const float* x_s, const float* x_t, const int* idx,
     return (int)cudaGetLastError();
   }
   // Few rows (a query's): small blocks, so that they spread over the SMs.
-  const auto kernel = sc_fwd<V, L, J, true, MASK, 4>;
-  constexpr int CS = Piece<V, L, J>::CS;
-  const size_t smem = sizeof(float) * CS * CS;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(rows + PROJ_WARPS - 1) / PROJ_WARPS, 32 * PROJ_WARPS, smem,
-           st>>>(x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t, rows,
-                 N_s, N_t, K, R);
-  return (int)cudaGetLastError();
+  // The touched-row form is built for float32 only (serving's dtype).
+  if constexpr (!std::is_same<T, float>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const auto kernel = sc_fwd<T, V, L, J, true, MASK, 4>;
+    constexpr int CS = Piece<V, L, J>::CS;
+    const size_t smem = sizeof(float) * CS * CS;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(rows + PROJ_WARPS - 1) / PROJ_WARPS, 32 * PROJ_WARPS, smem,
+             st>>>(x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t,
+                   rows, N_s, N_t, K, R);
+    return (int)cudaGetLastError();
+  }
 }
 
-template <int V, int L, int J>
-int fwd_launch(bool proj, const float* x_s, const float* x_t, const int* idx,
-               const float* w1, const float* b1, const float* w2,
-               const float* b2, float* out, unsigned* mask, float* st_s,
-               float* st_t, int rows, int N_s, int N_t, int K, int R,
-               int device, cudaStream_t st) {
-  return mask ? fwd_launch<V, L, J, true>(proj, x_s, x_t, idx, w1, b1, w2,
-                                          b2, out, mask, st_s, st_t, rows,
-                                          N_s, N_t, K, R, device, st)
-              : fwd_launch<V, L, J, false>(proj, x_s, x_t, idx, w1, b1, w2,
-                                           b2, out, mask, st_s, st_t, rows,
-                                           N_s, N_t, K, R, device, st);
+template <typename T, int V, int L, int J>
+int fwd_launch(bool proj, const T* x_s, const T* x_t, const int* idx,
+               const T* w1, const T* b1, const T* w2, const T* b2,
+               float* out, unsigned* mask, T* st_s, T* st_t, int rows,
+               int N_s, int N_t, int K, int R, int device, cudaStream_t st) {
+  return mask ? fwd_launch<T, V, L, J, true>(proj, x_s, x_t, idx, w1, b1,
+                                             w2, b2, out, mask, st_s, st_t,
+                                             rows, N_s, N_t, K, R, device,
+                                             st)
+              : fwd_launch<T, V, L, J, false>(proj, x_s, x_t, idx, w1, b1,
+                                              w2, b2, out, mask, st_s, st_t,
+                                              rows, N_s, N_t, K, R, device,
+                                              st);
 }
 
-bool aligned16(std::initializer_list<const void*> ptrs) {
+// True where every non-null pointer is aligned to `bytes`.
+bool aligned(std::initializer_list<const void*> ptrs, size_t bytes) {
   for (const void* p : ptrs)
-    if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+    if (p && reinterpret_cast<uintptr_t>(p) % bytes) return false;
   return true;
 }
 
-template <int NC>
-int bwd_nc(const float* o_s, const float* o_t, const int* idx,
-           const float* w1, const float* w2, const float* g,
-           const unsigned* mask, const int* order, const int4* chunk_map,
-           const int* chunk_start,
-           const float* u_s, const float* u_t, float* d_us, float* d_ut,
-           float* d_os, float* d_ot, float* tgt_partial, float* wpart,
-           float* npart, float* grads, int rows_s, int rows_t, int N_s,
-           int N_t, int K, int R, int n_chunks, int src_blocks,
-           int chunk_blocks, cudaStream_t st) {
+template <int NC, typename T>
+int bwd_nc(const T* o_s, const T* o_t, const int* idx, const T* w1,
+           const T* w2, const float* g, const unsigned* mask,
+           const int* order, const int4* chunk_map, const int* chunk_start,
+           const T* u_s, const T* u_t, float* d_us, float* d_ut, T* d_os,
+           T* d_ot, float* tgt_partial, float* wpart, float* npart,
+           float* grads, int rows_s, int rows_t, int N_s, int N_t, int K,
+           int R, int n_chunks, int src_blocks, int chunk_blocks,
+           cudaStream_t st) {
   cudaError_t err;
-  sc_bwd_cand<NC><<<src_blocks + chunk_blocks, THREADS, 0, st>>>(
+  sc_bwd_cand<NC, T><<<src_blocks + chunk_blocks, THREADS, 0, st>>>(
       u_s, u_t, idx, w2, g, mask, order, chunk_map, d_us, tgt_partial, wpart,
       rows_s, N_s, N_t, K, R, src_blocks, n_chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -888,11 +975,11 @@ int bwd_nc(const float* o_s, const float* o_t, const int* idx,
   const int tiles_s = (rows_s + BR - 1) / BR;
   const int node_blocks = tiles_s + (rows_t + BR - 1) / BR;
   const size_t smem = node_smem(R);
-  err = cudaFuncSetAttribute(sc_bwd_nodes,
+  err = cudaFuncSetAttribute(sc_bwd_nodes<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sc_bwd_nodes<<<node_blocks, dgmc::PROJ_THREADS, smem, st>>>(
+  sc_bwd_nodes<T><<<node_blocks, dgmc::PROJ_THREADS, smem, st>>>(
       o_s, o_t, d_us, d_ut, w1, d_os, d_ot, npart, rows_s, rows_t, R,
       tiles_s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -904,6 +991,67 @@ int bwd_nc(const float* o_s, const float* o_t, const int* idx,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int sc_fwd_entry(const T* o_s, const T* o_t, const int* idx, const T* w1,
+                 const T* b1, const T* w2, const T* b2, T* u_s, T* u_t,
+                 float* out, unsigned* mask, int B, int N_s, int N_t, int K,
+                 int R, int touched, int device, void* stream) {
+  if (bad_shape(B, N_s, N_t, K, R) || (!touched && !(u_s && u_t)) ||
+      (touched && !std::is_same<T, float>::value))
+    return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    const auto st = reinterpret_cast<cudaStream_t>(stream);
+    const int rows = B * N_s;
+    const T* x_s = touched ? o_s : u_s;
+    const T* x_t = touched ? o_t : u_t;
+    if (!touched) {
+      const cudaError_t err = dgmc::project<T>(o_s, o_t, w1, b1, u_s, u_t,
+                                               rows, (int64_t)B * N_t, R,
+                                               st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    T* st_s = touched ? u_s : nullptr;
+    T* st_t = touched ? u_t : nullptr;
+    if (R % 4 == 0 &&
+        aligned({x_s, x_t, w2, b1, st_s, st_t}, 4 * sizeof(T)))
+      return with_lanes(R, [&](auto l) {
+        return fwd_launch<T, 4, decltype(l)::value, 1>(
+            touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t,
+            rows, N_s, N_t, K, R, device, st);
+      });
+    return with_nc(R, [&](auto nc) {
+      return fwd_launch<T, 1, 32, decltype(nc)::value>(
+          touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t, rows,
+          N_s, N_t, K, R, device, st);
+    });
+  });
+}
+
+template <typename T>
+int sc_bwd_entry(const T* o_s, const T* o_t, const int* idx, const T* w1,
+                 const T* w2, const float* g, const int* order,
+                 const int* chunk_map, const int* chunk_start, const T* u_s,
+                 const T* u_t, const unsigned* mask, float* d_us,
+                 float* d_ut, T* d_os, T* d_ot, float* tgt_partial,
+                 float* wpart, float* npart, float* grads, int B, int N_s,
+                 int N_t, int K, int R, int n_chunks, int src_blocks,
+                 int chunk_blocks, int device, void* stream) {
+  if (bad_shape(B, N_s, N_t, K, R) || n_chunks < 1 || src_blocks < 1 ||
+      chunk_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    const auto st = reinterpret_cast<cudaStream_t>(stream);
+    const int rows_s = B * N_s, rows_t = B * N_t;
+    const auto map = reinterpret_cast<const int4*>(chunk_map);
+    return with_nc(R, [&](auto nc) {
+      return bwd_nc<decltype(nc)::value, T>(
+          o_s, o_t, idx, w1, w2, g, mask, order, map, chunk_start, u_s, u_t,
+          d_us, d_ut, d_os, d_ot, tgt_partial, wpart, npart, grads, rows_s,
+          rows_t, N_s, N_t, K, R, n_chunks, src_blocks, chunk_blocks, st);
+    });
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -912,75 +1060,70 @@ int dgmc_sc_r_max() { return R_MAX; }
 // Rows per block of the backward's node pass (and of project_rows).
 int dgmc_sc_node_rows(int R) { return dgmc::proj_block_rows(R); }
 
-// Blocks of the backward's candidate kernel that fit on one SM at this R,
-// or minus a CUDA error.
-int dgmc_sc_bwd_blocks_per_sm(int R, int device) {
+// Blocks of the backward's candidate kernel that fit on one SM at this R
+// for float32 (bf16 = 0) or bfloat16 (bf16 = 1) inputs, or minus a CUDA
+// error.
+int dgmc_sc_bwd_blocks_per_sm(int R, int bf16, int device) {
   if (R < 1 || R > R_MAX) return -(int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
-    return with_nc(R, [](auto nc) {
-      return cand_blocks_per_sm<decltype(nc)::value>();
+    return with_nc(R, [&](auto nc) {
+      constexpr int NC = decltype(nc)::value;
+      return bf16 ? cand_blocks_per_sm<NC, dgmc::bf16>()
+                  : cand_blocks_per_sm<NC, float>();
     });
   });
 }
 
 // o_s [B, N_s, R], o_t [B, N_t, R], idx [B, N_s, K] int32 in [0, N_t)
-// (unchecked), w1 [R, R], b1 [R], w2 [R], b2 [1]: float32, contiguous.
-// Writes out [B, N_s, K] and, unless mask is null, the ReLU mask
-// [B*N_s*K][ceil(R / 32)] (uint32 words, for the backward).
+// (unchecked), w1 [R, R], b1 [R], w2 [R], b2 [1]: all float32 (_f32) or
+// all bfloat16 (_bf16), contiguous. Writes out [B, N_s, K] float32 and,
+// unless mask is null, the ReLU mask [B*N_s*K][ceil(R / 32)] (uint32
+// words, for the backward).
 // touched = 0: project_rows forms u_s [B, N_s, R] and u_t [B, N_t, R]
-// (the factored form's node rows, which the backward takes) into u_s and
-// u_t, both required, then sc_fwd reads them. touched = 1: sc_fwd forms
-// u_s and the u_t of each candidate itself and, where u_s / u_t are not
-// null, writes u_s and the u_t rows the shortlist touches (the caller
-// zeroes the others). Launches on `stream` on `device`, does not
-// synchronize, restores the calling thread's current device, returns the
-// first CUDA error.
+// (the factored form's node rows in the inputs' dtype, which the backward
+// takes) into u_s and u_t, both required, then sc_fwd reads them.
+// touched = 1 (float32 only): sc_fwd forms u_s and the u_t of each
+// candidate itself and, where u_s / u_t are not null, writes u_s and the
+// u_t rows the shortlist touches (the caller zeroes the others). Launches
+// on `stream` on `device`, does not synchronize, restores the calling
+// thread's current device, returns the first CUDA error.
 int dgmc_sc_fwd_f32(const float* o_s, const float* o_t, const int* idx,
                     const float* w1, const float* b1, const float* w2,
                     const float* b2, float* u_s, float* u_t, float* out,
                     unsigned* mask, int B, int N_s, int N_t, int K, int R,
                     int touched, int device, void* stream) {
-  if (bad_shape(B, N_s, N_t, K, R) || (!touched && !(u_s && u_t)))
-    return (int)cudaErrorInvalidValue;
-  return dgmc::on_device(device, [&]() {
-    const auto st = reinterpret_cast<cudaStream_t>(stream);
-    const int rows = B * N_s;
-    const float* x_s = touched ? o_s : u_s;
-    const float* x_t = touched ? o_t : u_t;
-    if (!touched) {
-      const cudaError_t err = dgmc::project(o_s, o_t, w1, b1, u_s, u_t, rows,
-                                            (int64_t)B * N_t, R, st);
-      if (err != cudaSuccess) return (int)err;
-    }
-    float* st_s = touched ? u_s : nullptr;
-    float* st_t = touched ? u_t : nullptr;
-    if (R % 4 == 0 && aligned16({x_s, x_t, w2, b1, st_s, st_t}))
-      return with_lanes(R, [&](auto l) {
-        return fwd_launch<4, decltype(l)::value, 1>(
-            touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t,
-            rows, N_s, N_t, K, R, device, st);
-      });
-    return with_nc(R, [&](auto nc) {
-      return fwd_launch<1, 32, decltype(nc)::value>(
-          touched, x_s, x_t, idx, w1, b1, w2, b2, out, mask, st_s, st_t, rows,
-          N_s, N_t, K, R, device, st);
-    });
-  });
+  return sc_fwd_entry(o_s, o_t, idx, w1, b1, w2, b2, u_s, u_t, out, mask,
+                      B, N_s, N_t, K, R, touched, device, stream);
 }
 
-// o_s, o_t, idx, w1 and w2 as the forward's, plus g [B, N_s, K] (dL/d
-// delta) and the shortlist's receiver order: order [B*N_s*K] int32 slot
-// ids sorted by (b, target); chunk_map [n_chunks, 4] int32, one (target
-// row, first position in order, slots, unused) per chunk of a target's
-// list, (-1, 0, 0, 0) past the last; chunk_start [B*N_t + 1] int32, each
-// target's first chunk. u_s, u_t and mask [B*N_s*K][ceil(R / 32)]
-// (uint32) are the forward's (dgmc_sc_fwd_f32 with a mask). Scratch: d_us
-// [B*N_s, R], d_ut [B*N_t, R], tgt_partial [n_chunks, R], wpart
-// [src_blocks, R + 1] and npart [node_blocks, R*R + R], node_blocks =
-// ceil(B*N_s / BR) + ceil(B*N_t / BR), BR = dgmc_sc_node_rows(R);
-// src_blocks, chunk_blocks >= 1 (the wrapper's launch plan). Writes d_os
-// [B, N_s, R], d_ot [B, N_t, R] and grads [R*R + 2R + 1] (d_W1 row-major,
-// d_b1, d_w2, d_b2).
+int dgmc_sc_fwd_bf16(const void* o_s, const void* o_t, const int* idx,
+                     const void* w1, const void* b1, const void* w2,
+                     const void* b2, void* u_s, void* u_t, float* out,
+                     unsigned* mask, int B, int N_s, int N_t, int K, int R,
+                     int touched, int device, void* stream) {
+  using T = dgmc::bf16;
+  return sc_fwd_entry(
+      static_cast<const T*>(o_s), static_cast<const T*>(o_t), idx,
+      static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2),
+      static_cast<T*>(u_s), static_cast<T*>(u_t), out, mask, B, N_s, N_t, K,
+      R, touched, device, stream);
+}
+
+// o_s, o_t, idx, w1 and w2 as the forward's (one dtype), plus g
+// [B, N_s, K] float32 (dL/d delta) and the shortlist's receiver order:
+// order [B*N_s*K] int32 slot ids sorted by (b, target); chunk_map
+// [n_chunks, 4] int32, one (target row, first position in order, slots,
+// unused) per chunk of a target's list, (-1, 0, 0, 0) past the last;
+// chunk_start [B*N_t + 1] int32, each target's first chunk. u_s, u_t and
+// mask [B*N_s*K][ceil(R / 32)] (uint32) are the forward's (its entry point
+// of the same dtype, with a mask). Scratch, float32: d_us [B*N_s, R],
+// d_ut [B*N_t, R], tgt_partial [n_chunks, R], wpart [src_blocks, R + 1]
+// and npart [node_blocks, R*R + R], node_blocks = ceil(B*N_s / BR) +
+// ceil(B*N_t / BR), BR = dgmc_sc_node_rows(R); src_blocks, chunk_blocks
+// >= 1 (the wrapper's launch plan). Writes d_os [B, N_s, R] and d_ot
+// [B, N_t, R] in the inputs' dtype and grads [R*R + 2R + 1] float32
+// (d_W1 row-major, d_b1, d_w2, d_b2).
 int dgmc_sc_bwd_f32(const float* o_s, const float* o_t, const int* idx,
                     const float* w1, const float* w2, const float* g,
                     const int* order, const int* chunk_map,
@@ -991,20 +1134,30 @@ int dgmc_sc_bwd_f32(const float* o_s, const float* o_t, const int* idx,
                     float* grads, int B, int N_s, int N_t,
                     int K, int R, int n_chunks, int src_blocks,
                     int chunk_blocks, int device, void* stream) {
-  if (bad_shape(B, N_s, N_t, K, R) || n_chunks < 1 || src_blocks < 1 ||
-      chunk_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  return dgmc::on_device(device, [&]() {
-    const auto st = reinterpret_cast<cudaStream_t>(stream);
-    const int rows_s = B * N_s, rows_t = B * N_t;
-    const auto map = reinterpret_cast<const int4*>(chunk_map);
-    return with_nc(R, [&](auto nc) {
-      return bwd_nc<decltype(nc)::value>(
-          o_s, o_t, idx, w1, w2, g, mask, order, map, chunk_start, u_s, u_t,
-          d_us, d_ut, d_os, d_ot, tgt_partial, wpart, npart, grads, rows_s,
-          rows_t, N_s, N_t, K, R, n_chunks, src_blocks, chunk_blocks, st);
-    });
-  });
+  return sc_bwd_entry(o_s, o_t, idx, w1, w2, g, order, chunk_map,
+                      chunk_start, u_s, u_t, mask, d_us, d_ut, d_os, d_ot,
+                      tgt_partial, wpart, npart, grads, B, N_s, N_t, K, R,
+                      n_chunks, src_blocks, chunk_blocks, device, stream);
+}
+
+int dgmc_sc_bwd_bf16(const void* o_s, const void* o_t, const int* idx,
+                     const void* w1, const void* w2, const float* g,
+                     const int* order, const int* chunk_map,
+                     const int* chunk_start, const void* u_s,
+                     const void* u_t, const unsigned* mask, float* d_us,
+                     float* d_ut, void* d_os, void* d_ot,
+                     float* tgt_partial, float* wpart, float* npart,
+                     float* grads, int B, int N_s, int N_t,
+                     int K, int R, int n_chunks, int src_blocks,
+                     int chunk_blocks, int device, void* stream) {
+  using T = dgmc::bf16;
+  return sc_bwd_entry(
+      static_cast<const T*>(o_s), static_cast<const T*>(o_t), idx,
+      static_cast<const T*>(w1), static_cast<const T*>(w2), g, order,
+      chunk_map, chunk_start, static_cast<const T*>(u_s),
+      static_cast<const T*>(u_t), mask, d_us, d_ut, static_cast<T*>(d_os),
+      static_cast<T*>(d_ot), tgt_partial, wpart, npart, grads, B, N_s, N_t,
+      K, R, n_chunks, src_blocks, chunk_blocks, device, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // SplineConv routing and masked-mean aggregation for Hopper (sm_90a),
-// float32: the forward and its transpose (the gradient w.r.t. t).
+// float32 or bfloat16 t and g: the forward and its transpose (the
+// gradient w.r.t. t).
 //
 // Replaces dgmc_tpu/ops/pallas/spline.py::_fwd_kernel and ::_bwd_kernel
 // (behind route_aggregate). With t [B, M, O] the node features through all
@@ -10,6 +11,13 @@
 //                          basis[b,e,a] * t[b, flat[b,e,a], :] / max(deg_n, 1)
 //   backward d_t[b,m,:] = sum_{(e,a): flat[b,e,a] = m, mask_e}
 //                          basis[b,e,a] * g[b, rcv_e, :] / max(deg_rcv_e, 1)
+//
+// bf16 t and g (the precision policy's variant, the *_bf16 entry points):
+// the basis weights and every sum stay float32, and each output row is
+// rounded to bf16 once (round to nearest even), as the TPU kernel writes
+// its float32 sums in t's (g's) dtype. The forward gathers bf16 t rows
+// (half the bytes); route_dt's g / deg scratch stays float32 (the TPU
+// kernel divides g in float32), and it writes bf16 d_t rows.
 //
 // Bound on the H100: bytes. Each output row costs 2 operations per gathered
 // float, so the work is a gather of the touched t rows (forward) or a read
@@ -74,6 +82,7 @@
 // Each slot adds w * (g / deg) rounded as the plain version rounds it
 // (division, product, sum; no contraction into an FMA), in slot order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,9 +91,11 @@
 namespace {
 
 constexpr int THREADS = 256;
+using bf16 = __nv_bfloat16;
 
-// V consecutive channels per thread: 4 (16-byte loads and stores) when
-// O % 4 == 0 and the rows are 16-byte aligned, else 1.
+// V consecutive channels per thread: 4 (one 4-element load or store: 16
+// bytes of float32, 8 of bf16) when O % 4 == 0 and the rows are aligned to
+// 4 elements, else 1. Values are float32 in registers.
 template <int V>
 __device__ __forceinline__ void load(const float* p, float (&x)[V]) {
   if constexpr (V == 4) {
@@ -99,6 +110,21 @@ __device__ __forceinline__ void load(const float* p, float (&x)[V]) {
 }
 
 template <int V>
+__device__ __forceinline__ void load(const bf16* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    x[0] = __bfloat162float(lo.x);
+    x[1] = __bfloat162float(lo.y);
+    x[2] = __bfloat162float(hi.x);
+    x[3] = __bfloat162float(hi.y);
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
 __device__ __forceinline__ void store(float* p, const float (&x)[V]) {
   if constexpr (V == 4)
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -106,12 +132,30 @@ __device__ __forceinline__ void store(float* p, const float (&x)[V]) {
     *p = x[0];
 }
 
+// Streaming (evict-first) stores; bf16 rows are rounded to nearest even.
 template <int V>
 __device__ __forceinline__ void store_stream(float* p, const float (&x)[V]) {
   if constexpr (V == 4)
     __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
   else
     __stcs(p, x[0]);
+}
+
+template <int V>
+__device__ __forceinline__ void store_stream(bf16* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 lo, hi;
+    lo.x = __float2bfloat16_rn(x[0]);
+    lo.y = __float2bfloat16_rn(x[1]);
+    hi.x = __float2bfloat16_rn(x[2]);
+    hi.y = __float2bfloat16_rn(x[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&lo);
+    q.y = *reinterpret_cast<const unsigned*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(p), q);
+  } else {
+    *p = __float2bfloat16_rn(x[0]);
+  }
 }
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -160,10 +204,10 @@ __global__ void records(const int64_t* __restrict__ rcv_order,
 // row, NV vectors of V floats a lane (covering L * NV vectors of the row
 // a pass over columns). A group reads its slots' records straight from
 // memory, SB at a time, and each record's t row as soon as it has it.
-template <int V, int NV>
+template <typename T, int V, int NV>
 __global__ void __launch_bounds__(FW_THREADS)
-route_fwd(const float* __restrict__ t, const int2* __restrict__ rec,
-          const int* __restrict__ off, float* __restrict__ out, int64_t rows,
+route_fwd(const T* __restrict__ t, const int2* __restrict__ rec,
+          const int* __restrict__ off, T* __restrict__ out, int64_t rows,
           int O, int L, int A) {
   constexpr int SB = FW_VECTORS / NV;   // slots loaded ahead of their FMAs
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -175,7 +219,7 @@ route_fwd(const float* __restrict__ t, const int2* __restrict__ rec,
     if (r >= rows) break;
     const int beg = off[r], end = off[r + 1];
     const float deg = fmaxf((float)((end - beg) / A), 1.0f);
-    float* o = out + r * O;
+    T* o = out + r * O;
     for (int c0 = sub; c0 < nvec; c0 += L * NV) {
       float acc[NV][V] = {}, msg[NV][V] = {};
       int a = 0;
@@ -187,7 +231,7 @@ route_fwd(const float* __restrict__ t, const int2* __restrict__ rec,
           const int j = j0 + s;
           const int2 rc = j < end ? rec[j] : make_int2(0, 0);
           w[s] = __int_as_float(rc.y);
-          const float* tr = t + (int64_t)rc.x * O;
+          const T* tr = t + (int64_t)rc.x * O;
 #pragma unroll
           for (int u = 0; u < NV; ++u) {
             const int c = c0 + u * L;
@@ -231,8 +275,8 @@ route_fwd(const float* __restrict__ t, const int2* __restrict__ rec,
 
 // gn[n, :] = g[n, :] / max(deg_n, 1) for the B*N receiver rows, deg_n
 // from the receiver CSR offsets (V floats a thread; O % V == 0).
-template <int V>
-__global__ void g_norm(const float* __restrict__ g,
+template <typename T, int V>
+__global__ void g_norm(const T* __restrict__ g,
                        const int64_t* __restrict__ rcv_off,
                        float* __restrict__ gn, int64_t n, int O) {
   const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * V;
@@ -246,10 +290,10 @@ __global__ void g_norm(const float* __restrict__ g,
   store<V>(gn + e, x);
 }
 
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 route_dt(const float* __restrict__ gn, const int* __restrict__ rec,
-         const int* __restrict__ offsets, float* __restrict__ d_t,
+         const int* __restrict__ offsets, T* __restrict__ d_t,
          int64_t rows, int O, int L) {
   __shared__ int staged[THREADS / 32][2 * DT_CAP];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -275,7 +319,7 @@ route_dt(const float* __restrict__ gn, const int* __restrict__ rec,
     const int b_ = __shfl_sync(FULL, beg, rr);
     const int e_ = __shfl_sync(FULL, end, rr);
     if (rr >= nrows) continue;
-    float* out = d_t + (r0 + rr) * O;
+    T* out = d_t + (r0 + rr) * O;
     for (int c0 = sub; c0 < nvec; c0 += L * DT_NV) {
       float acc[DT_NV][V] = {};
       for (int j = b_; j < e_; ++j) {
@@ -309,29 +353,23 @@ route_dt(const float* __restrict__ gn, const int* __restrict__ rec,
   }
 }
 
+// 4 where O % 4 == 0 and both rows start aligned to 4 elements of T.
+template <typename T>
 int vec_width(int O, const void* a, const void* b) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
                          reinterpret_cast<uintptr_t>(b);
-  return (O % 4 == 0 && bits % 16 == 0) ? 4 : 1;
+  return (O % 4 == 0 && bits % (4 * sizeof(T)) == 0) ? 4 : 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// t [B, M, O] float32; rec [B*E*A, 2] int32 and off [B*N + 1] int32 the
-// edge records and slot offsets dgmc_spline_records writes. Writes out
-// [B, N, O]. Launches on `stream` on `device`, does not synchronize,
-// restores the calling thread's current device, returns
-// cudaGetLastError().
-int dgmc_spline_route_fwd_f32(const float* t, const int* rec, const int* off,
-                              float* out, int B, int N, long long M, int O,
-                              int A, int device, void* stream) {
+template <typename T>
+int route_fwd_entry(const T* t, const int* rec, const int* off, T* out,
+                    int B, int N, long long M, int O, int A, int device,
+                    void* stream) {
   if (B < 1 || N < 1 || M < 1 || O < 1 || A < 1)
     return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     const int64_t rows = (int64_t)B * N;
-    const int V = vec_width(O, t, out), nvec = O / V;
+    const int V = vec_width<T>(O, t, out), nvec = O / V;
     int L = 2;   // lanes a row: one vector a lane up to 32, then two
     while (L < 32 && L < nvec) L *= 2;
     const int NV = nvec > L ? 2 : 1, groups = 32 / L;
@@ -342,19 +380,73 @@ int dgmc_spline_route_fwd_f32(const float* t, const int* rec, const int* off,
     const auto st = reinterpret_cast<cudaStream_t>(stream);
     const auto r2 = reinterpret_cast<const int2*>(rec);
     if (V == 4 && NV == 2)
-      route_fwd<4, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
-                                                A);
+      route_fwd<T, 4, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O,
+                                                   L, A);
     else if (V == 4)
-      route_fwd<4, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
-                                                A);
+      route_fwd<T, 4, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O,
+                                                   L, A);
     else if (NV == 2)
-      route_fwd<1, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
-                                                A);
+      route_fwd<T, 1, 2><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O,
+                                                   L, A);
     else
-      route_fwd<1, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O, L,
-                                                A);
+      route_fwd<T, 1, 1><<<grid, threads, 0, st>>>(t, r2, off, out, rows, O,
+                                                   L, A);
     return (int)cudaGetLastError();
   });
+}
+
+template <typename T>
+int route_dt_entry(const T* g, const int* rec, const int* offsets,
+                   const int64_t* rcv_off, float* gn, T* d_t, int B, int N,
+                   long long M, int O, int device, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || O < 1) return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    const int64_t rows = (int64_t)B * M, n = (int64_t)B * N * O;
+    const int V = vec_width<T>(O, g, d_t) == 4 &&
+                          reinterpret_cast<uintptr_t>(gn) % 16 == 0
+                      ? 4
+                      : 1;
+    int L = 1;  // lanes per row: two vectors a lane cover the row
+    while (L < 32 && DT_NV * L < O / V) L *= 2;
+    const int64_t warps = (rows + DT_ROWS - 1) / DT_ROWS;
+    const unsigned grid = (unsigned)((warps + THREADS / 32 - 1) /
+                                     (THREADS / 32));
+    const unsigned ngrid = (unsigned)((n / V + THREADS - 1) / THREADS);
+    const auto st = reinterpret_cast<cudaStream_t>(stream);
+    if (V == 4) {
+      g_norm<T, 4><<<ngrid, THREADS, 0, st>>>(g, rcv_off, gn, n, O);
+      route_dt<T, 4><<<grid, THREADS, 0, st>>>(gn, rec, offsets, d_t, rows,
+                                                O, L);
+    } else {
+      g_norm<T, 1><<<ngrid, THREADS, 0, st>>>(g, rcv_off, gn, n, O);
+      route_dt<T, 1><<<grid, THREADS, 0, st>>>(gn, rec, offsets, d_t, rows,
+                                                O, L);
+    }
+    return (int)cudaGetLastError();
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+// t [B, M, O] float32 (_f32) or bfloat16 (_bf16); rec [B*E*A, 2] int32
+// and off [B*N + 1] int32 the edge records and slot offsets
+// dgmc_spline_records writes. Writes out [B, N, O] in t's dtype. Launches
+// on `stream` on `device`, does not synchronize, restores the calling
+// thread's current device, returns cudaGetLastError().
+int dgmc_spline_route_fwd_f32(const float* t, const int* rec, const int* off,
+                              float* out, int B, int N, long long M, int O,
+                              int A, int device, void* stream) {
+  return route_fwd_entry(t, rec, off, out, B, N, M, O, A, device, stream);
+}
+
+int dgmc_spline_route_fwd_bf16(const void* t, const int* rec, const int* off,
+                               void* out, int B, int N, long long M, int O,
+                               int A, int device, void* stream) {
+  return route_fwd_entry(static_cast<const bf16*>(t), rec, off,
+                         static_cast<bf16*>(out), B, N, M, O, A, device,
+                         stream);
 }
 
 // rcv_order [B*E] int64 edge ids sorted by (b, receiver) and slot_order
@@ -388,41 +480,27 @@ int dgmc_spline_records(const int64_t* rcv_order, const int64_t* slot_order,
   });
 }
 
-// g [B, N, O] float32; rec [S, 2] int32 slot records in the slot order
-// of the flat-sorted CSR list (receiver node b*N + rcv, basis weight
-// bits); offsets [B*M + 1] int32 row bounds into rec; rcv_off [B*N + 1]
-// int64 receiver CSR bounds (deg = rcv_off[n+1] - rcv_off[n]); gn
-// [B, N, O] float32 scratch. Writes every row of d_t [B, M, O] (zeros
-// where no slot points).
+// g [B, N, O] float32 (_f32) or bfloat16 (_bf16); rec [S, 2] int32 slot
+// records in the slot order of the flat-sorted CSR list (receiver node
+// b*N + rcv, basis weight bits); offsets [B*M + 1] int32 row bounds into
+// rec; rcv_off [B*N + 1] int64 receiver CSR bounds (deg = rcv_off[n+1] -
+// rcv_off[n]); gn [B, N, O] float32 scratch. Writes every row of d_t
+// [B, M, O] in g's dtype (zeros where no slot points).
 int dgmc_spline_route_dt_f32(const float* g, const int* rec,
                              const int* offsets, const int64_t* rcv_off,
                              float* gn, float* d_t, int B, int N,
                              long long M, int O, int device, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || O < 1) return (int)cudaErrorInvalidValue;
-  return dgmc::on_device(device, [&]() {
-    const int64_t rows = (int64_t)B * M, n = (int64_t)B * N * O;
-    const int V = vec_width(O, g, d_t) == 4 &&
-                          reinterpret_cast<uintptr_t>(gn) % 16 == 0
-                      ? 4
-                      : 1;
-    int L = 1;  // lanes per row: two vectors a lane cover the row
-    while (L < 32 && DT_NV * L < O / V) L *= 2;
-    const int64_t warps = (rows + DT_ROWS - 1) / DT_ROWS;
-    const unsigned grid = (unsigned)((warps + THREADS / 32 - 1) /
-                                     (THREADS / 32));
-    const unsigned ngrid = (unsigned)((n / V + THREADS - 1) / THREADS);
-    const auto st = reinterpret_cast<cudaStream_t>(stream);
-    if (V == 4) {
-      g_norm<4><<<ngrid, THREADS, 0, st>>>(g, rcv_off, gn, n, O);
-      route_dt<4><<<grid, THREADS, 0, st>>>(gn, rec, offsets, d_t, rows, O,
-                                             L);
-    } else {
-      g_norm<1><<<ngrid, THREADS, 0, st>>>(g, rcv_off, gn, n, O);
-      route_dt<1><<<grid, THREADS, 0, st>>>(gn, rec, offsets, d_t, rows, O,
-                                             L);
-    }
-    return (int)cudaGetLastError();
-  });
+  return route_dt_entry(g, rec, offsets, rcv_off, gn, d_t, B, N, M, O,
+                        device, stream);
+}
+
+int dgmc_spline_route_dt_bf16(const void* g, const int* rec,
+                              const int* offsets, const int64_t* rcv_off,
+                              float* gn, void* d_t, int B, int N,
+                              long long M, int O, int device, void* stream) {
+  return route_dt_entry(static_cast<const bf16*>(g), rec, offsets, rcv_off,
+                        gn, static_cast<bf16*>(d_t), B, N, M, O, device,
+                        stream);
 }
 
 }  // extern "C"

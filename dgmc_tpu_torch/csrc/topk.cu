@@ -1,4 +1,5 @@
-// Streaming exact top-k of h_s @ h_t^T for Hopper (sm_90a), float32.
+// Streaming exact top-k of h_s @ h_t^T for Hopper (sm_90a), float32 or
+// bfloat16 inputs.
 //
 // Replaces dgmc_tpu/ops/pallas/topk.py::_kernel (the Pallas TPU kernel
 // behind pallas_topk). For each source row it returns the k largest inner
@@ -6,8 +7,20 @@
 // lowest target index first among equal values (the lax.top_k rule), and
 // never materializes the N_s x N_t score matrix.
 //
+// bf16 inputs (the precision policy's variant, dgmc_topk_bf16): products
+// and sums in float32 as for float32 inputs, then each score rounded to
+// bf16 (round to nearest even) and carried in float32, masked targets at
+// -finfo(bf16).max, as the TPU kernel does (its scores round through the
+// input dtype); the wrapper returns the values in bf16. The ring stages
+// bf16 rows as they are (half the bytes a slot); each slot that lands is
+// widened once into a float32 slot that the product then reads as for
+// float32 inputs (a barrier more a slot), instead of every thread widening
+// each value it reads (16 times over: a quarter more instructions than the
+// FMAs they feed).
+//
 // Bound on the H100: 2*N_s*N_t*C FLOPs at the card's float32 rate (FMAs
-// outside the tensor cores: the port's float32 contract keeps TF32 off),
+// outside the tensor cores, for bf16 inputs too: no tensor-core tile
+// yet; the port's float32 contract keeps TF32 off),
 // with device-memory traffic of h_s + h_t + t_mask + out, each read or
 // written once. At the DBP15K shape (15000 x 20000, C = 256, k = 10) that
 // is 153.6 GFLOP against ~36 MB: bound by operations. A 16-64-row query
@@ -66,10 +79,13 @@
 // lists. Keys are compared by value, then index, so every path gives the
 // same exact top-k. Deterministic: no atomics, fixed summation order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "launch.cuh"
 
@@ -77,8 +93,9 @@ namespace {
 
 constexpr int TT = 128;        // targets per tile
 constexpr int BK = 32;         // channels per ring slot
-constexpr int PITCH = BK + 4;  // floats per staged row: 16-byte aligned,
-                               // PITCH / 4 odd (conflict-free float4 reads)
+constexpr int PITCH = BK + 4;  // elements per staged row: 4-element reads
+                               // (16 bytes float32, 8 bytes bf16) at an odd
+                               // multiple of their size (conflict-free)
 constexpr int THREADS = 256;   // 16 x 16
 constexpr int K_MAX = 128;     // carry: 8 * TS * k bytes of shared memory
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
@@ -99,18 +116,60 @@ __device__ __forceinline__ bool better(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
+using bf16 = __nv_bfloat16;
+
+// A score as selection sees it: float32 as summed, or rounded to bf16
+// (round to nearest even) for bf16 inputs; and the masked targets' score,
+// -finfo.max of the input dtype.
+__device__ __forceinline__ float as_score(float x, const float*) { return x; }
+__device__ __forceinline__ float as_score(float x, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float masked_score(const float*) { return -FLT_MAX; }
+__device__ __forceinline__ float masked_score(const bf16*) {
+  return -0x1.fep127f;   // -finfo(bfloat16).max
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
+// Four consecutive channels from a staged row, widened to float32.
+__device__ __forceinline__ float4 read4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read4(const bf16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
+                     __bfloat162float(hi.x), __bfloat162float(hi.y));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(pred ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES), "r"(pred ? BYTES : 0));
+}
+
+// Four elements (vec), or one, from src to staged dst: asynchronous,
+// zero-filled where !pred. A single bf16 (2 bytes, below cp.async's
+// least) is copied by the thread itself; the ring's barrier orders it.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool pred) {
+  cp_async<16>(dst, src, pred);
+}
+__device__ __forceinline__ void copy4(bf16* dst, const bf16* src, bool pred) {
+  cp_async<8>(dst, src, pred);
+}
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool pred) {
+  cp_async<4>(dst, src, pred);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, bool pred) {
+  *dst = pred ? *src : __float2bfloat16_rn(0.0f);
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -127,23 +186,25 @@ __device__ __forceinline__ void cp_wait_ring(int stages) {
 
 // Copy channels [c0, c0 + BK) of rows [r0, r0 + rows) of src (bounded by
 // n rows and C channels; the rest zero-filled) into dst [rows][PITCH].
-// vec: 16-byte copies (C % 4 == 0 and 16-byte aligned rows), else 4-byte.
-__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+// vec: copies of 4 elements (C % 4 == 0 and rows aligned to 4 elements),
+// else of one.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int r0,
                                       int rows, int n, int C, int c0,
                                       bool vec) {
   if (vec) {
     for (int e = threadIdx.x; e < rows * (BK / 4); e += THREADS) {
       const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
       const bool ok = r0 + r < n && c0 + c < C;
-      cp_async16(dst + r * PITCH + c,
-                 ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
+      copy4(dst + r * PITCH + c,
+            ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
     }
   } else {
     for (int e = threadIdx.x; e < rows * BK; e += THREADS) {
       const int r = e / BK, c = e % BK;
       const bool ok = r0 + r < n && c0 + c < C;
-      cp_async4(dst + r * PITCH + c,
-                ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
+      copy1(dst + r * PITCH + c,
+            ok ? src + (size_t)(r0 + r) * C + c0 + c : src, ok);
     }
   }
 }
@@ -172,8 +233,9 @@ __device__ __forceinline__ void cx16(float& v, int& x, int d, bool desc,
 // Fold one tile's scores (acc, rows ty + 16i, targets t0 + tx + 16j) into
 // the carry (cv/ci [TS][k], each row sorted by key); see the header, step
 // 2. Q = ceil(k / 16) carry entries per lane (1, or 8 for any k <= 128).
-// scr: 64 words of scratch per warp.
-template <int TS, int Q>
+// scr: 64 words of scratch per warp. T: the input dtype (its scores and
+// masked score, as_score and masked_score).
+template <typename T, int TS, int Q>
 __device__ __forceinline__ void select_tile(
     const float (&acc)[TS / 16][8], float* cv, int* ci, int* scr, int k,
     int t0, int t_end, const uint8_t* __restrict__ m) {
@@ -188,8 +250,10 @@ __device__ __forceinline__ void select_tile(
     valid[j] = gt < t_end;
     masked[j] = valid[j] && m != nullptr && m[gt] == 0;
   }
+  const T* const dtype = nullptr;
   auto score = [&](float x, int j) {
-    return !valid[j] ? -INFINITY : (masked[j] ? -FLT_MAX : x);
+    return !valid[j] ? -INFINITY
+                     : (masked[j] ? masked_score(dtype) : as_score(x, dtype));
   };
   // Which of the thread's rows have a candidate anywhere in the warp
   // (warp-uniform); only those are selected, one row at a time.
@@ -357,17 +421,21 @@ __device__ __forceinline__ void select_tile(
   }
 }
 
-template <int TS, int Q>
+template <typename T, int TS, int Q>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm(TS))
-topk_tiles(const float* __restrict__ h_s, const float* __restrict__ h_t,
+topk_tiles(const T* __restrict__ h_s, const T* __restrict__ h_t,
            const uint8_t* __restrict__ t_mask, float* __restrict__ out_v,
            int* __restrict__ out_i, int N_s, int N_t, int C, int k,
            int nseg, int tiles_per_seg, int stages, bool vec) {
   constexpr int RM = TS / 16;
+  constexpr bool WIDEN = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                          // [stages][TS][PITCH]
-  float* Bs = As + stages * TS * PITCH;      // [stages][TT][PITCH]
-  float* cv = Bs + stages * TT * PITCH;      // [TS][k] carry values
+  T* As = reinterpret_cast<T*>(smem);        // [stages][TS][PITCH]
+  T* Bs = As + stages * TS * PITCH;          // [stages][TT][PITCH]
+  // bf16: the landed slot widened, [TS + TT][PITCH] (the ring's bytes are
+  // a multiple of 16)
+  float* wide = reinterpret_cast<float*>(Bs + stages * TT * PITCH);
+  float* cv = wide + (WIDEN ? (TS + TT) * PITCH : 0);  // [TS][k] carry
   int* ci = reinterpret_cast<int*>(cv + k * TS);  // [TS][k] carry indices
   int* scr = ci + k * TS + threadIdx.x / 32 * 64;  // selection scratch
 
@@ -375,8 +443,8 @@ topk_tiles(const float* __restrict__ h_s, const float* __restrict__ h_t,
   const int row0 = blockIdx.x * TS;
   const int seg = blockIdx.y;
   const int b = blockIdx.z;
-  const float* hs = h_s + (size_t)b * N_s * C;
-  const float* ht = h_t + (size_t)b * N_t * C;
+  const T* hs = h_s + (size_t)b * N_s * C;
+  const T* ht = h_t + (size_t)b * N_t * C;
   const uint8_t* m = t_mask ? t_mask + (size_t)b * N_t : nullptr;
 
   for (int e = threadIdx.x; e < k * TS; e += THREADS) {
@@ -411,19 +479,33 @@ topk_tiles(const float* __restrict__ h_s, const float* __restrict__ h_t,
     __syncthreads();  // slot g landed for all; slot g - 1 free to refill
     if (g + stages - 1 < steps) load(g + stages - 1);
     cp_commit();
-    const float* a_s = As + (g % stages) * TS * PITCH;
-    const float* b_s = Bs + (g % stages) * TT * PITCH;
+    const T* a_s = As + (g % stages) * TS * PITCH;
+    const T* b_s = Bs + (g % stages) * TT * PITCH;
+    const float* a_f;
+    const float* b_f;
+    if constexpr (WIDEN) {
+      // Every thread is past the product that read `wide` last slot.
+      for (int e = threadIdx.x; e < (TS + TT) * (BK / 4); e += THREADS) {
+        const int r = e / (BK / 4), c = e % (BK / 4) * 4;
+        *reinterpret_cast<float4*>(wide + r * PITCH + c) =
+            read4(r < TS ? a_s + r * PITCH + c : b_s + (r - TS) * PITCH + c);
+      }
+      __syncthreads();
+      a_f = wide;
+      b_f = wide + TS * PITCH;
+    } else {
+      a_f = a_s;
+      b_f = b_s;
+    }
 #pragma unroll
     for (int c = 0; c < BK; c += 4) {
       float4 bq[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        bq[j] = *reinterpret_cast<const float4*>(b_s + (tx + 16 * j) * PITCH
-                                                 + c);
+        bq[j] = read4(b_f + (tx + 16 * j) * PITCH + c);
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            a_s + (ty + 16 * i) * PITCH + c);
+        const float4 a = read4(a_f + (ty + 16 * i) * PITCH + c);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           acc[i][j] = fmaf(a.x, bq[j].x, acc[i][j]);
@@ -434,8 +516,8 @@ topk_tiles(const float* __restrict__ h_s, const float* __restrict__ h_t,
       }
     }
     if (g % nk == nk - 1) {
-      select_tile<TS, Q>(acc, cv, ci, scr, k, t_begin + g / nk * TT, t_end,
-                         m);
+      select_tile<T, TS, Q>(acc, cv, ci, scr, k, t_begin + g / nk * TT,
+                            t_end, m);
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -605,35 +687,38 @@ __global__ void merge_lists(const float* __restrict__ part_v,
   }
 }
 
-template <int TS, int Q>
-int launch_tiles(const float* h_s, const float* h_t, const uint8_t* t_mask,
+template <typename T, int TS, int Q>
+int launch_tiles(const T* h_s, const T* h_t, const uint8_t* t_mask,
                  float* tv, int* ti, int B, int N_s, int N_t, int C, int k,
                  int nseg, int tiles_per_seg, bool vec, cudaStream_t st) {
   const size_t carry = (sizeof(float) + sizeof(int)) * (size_t)k * TS +
                        sizeof(int) * 2 * THREADS;     // + selection scratch
-  const size_t slot = sizeof(float) * (TS + TT) * PITCH;
-  const int stages = carry + 3 * slot <= SMEM_MAX ? 3 : 2;
-  const size_t smem = carry + stages * slot;
+  const size_t slot = sizeof(T) * (TS + TT) * PITCH;
+  const size_t wide = std::is_same<T, float>::value
+                          ? 0 : sizeof(float) * (TS + TT) * PITCH;
+  const int stages = carry + wide + 3 * slot <= SMEM_MAX ? 3 : 2;
+  const size_t smem = carry + wide + stages * slot;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_tiles<TS, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_tiles<T, TS, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N_s + TS - 1) / TS, nseg, B);
-  topk_tiles<TS, Q><<<grid, THREADS, smem, st>>>(
+  topk_tiles<T, TS, Q><<<grid, THREADS, smem, st>>>(
       h_s, h_t, t_mask, tv, ti, N_s, N_t, C, k, nseg, tiles_per_seg, stages,
       vec);
   return (int)cudaGetLastError();
 }
 
-template <int TS>
-int launch_tiles(const float* h_s, const float* h_t, const uint8_t* t_mask,
+template <typename T, int TS>
+int launch_tiles(const T* h_s, const T* h_t, const uint8_t* t_mask,
                  float* tv, int* ti, int B, int N_s, int N_t, int C, int k,
                  int nseg, int tiles_per_seg, bool vec, cudaStream_t st) {
-  return k <= 16 ? launch_tiles<TS, 1>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
-                                       C, k, nseg, tiles_per_seg, vec, st)
-                 : launch_tiles<TS, K_MAX / 16>(h_s, h_t, t_mask, tv, ti, B,
-                                                N_s, N_t, C, k, nseg,
-                                                tiles_per_seg, vec, st);
+  return k <= 16
+             ? launch_tiles<T, TS, 1>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                      C, k, nseg, tiles_per_seg, vec, st)
+             : launch_tiles<T, TS, K_MAX / 16>(h_s, h_t, t_mask, tv, ti, B,
+                                               N_s, N_t, C, k, nseg,
+                                               tiles_per_seg, vec, st);
 }
 
 template <int P>
@@ -648,32 +733,34 @@ int launch_merge(const float* part_v, const int* part_i, float* out_v,
   return (int)cudaGetLastError();
 }
 
-int launch(const float* h_s, const float* h_t, const uint8_t* t_mask,
+template <typename T>
+int launch(const T* h_s, const T* h_t, const uint8_t* t_mask,
            float* part_v, int* part_i, float* out_v, int* out_i, int B,
            int N_s, int N_t, int C, int k, int ts, int nseg,
            int tiles_per_seg, cudaStream_t st) {
   const bool vec = C % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(h_s) |
-                     reinterpret_cast<uintptr_t>(h_t)) % 16) == 0;
+                     reinterpret_cast<uintptr_t>(h_t)) % (4 * sizeof(T))) ==
+                       0;
   float* tv = nseg > 1 ? part_v : out_v;
   int* ti = nseg > 1 ? part_i : out_i;
   int err;
   switch (ts) {
     case 16:
-      err = launch_tiles<16>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
-                             nseg, tiles_per_seg, vec, st);
+      err = launch_tiles<T, 16>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                C, k, nseg, tiles_per_seg, vec, st);
       break;
     case 32:
-      err = launch_tiles<32>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
-                             nseg, tiles_per_seg, vec, st);
+      err = launch_tiles<T, 32>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                C, k, nseg, tiles_per_seg, vec, st);
       break;
     case 64:
-      err = launch_tiles<64>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
-                             nseg, tiles_per_seg, vec, st);
+      err = launch_tiles<T, 64>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                C, k, nseg, tiles_per_seg, vec, st);
       break;
     default:
-      err = launch_tiles<128>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t, C, k,
-                              nseg, tiles_per_seg, vec, st);
+      err = launch_tiles<T, 128>(h_s, h_t, t_mask, tv, ti, B, N_s, N_t,
+                                 C, k, nseg, tiles_per_seg, vec, st);
   }
   if (err != cudaSuccess || nseg == 1) return err;
   const int rows = B * N_s;
@@ -682,6 +769,23 @@ int launch(const float* h_s, const float* h_t, const uint8_t* t_mask,
   if (k <= 64)
     return launch_merge<2>(part_v, part_i, out_v, out_i, rows, k, nseg, st);
   return launch_merge<4>(part_v, part_i, out_v, out_i, rows, k, nseg, st);
+}
+
+template <typename T>
+int topk_entry(const T* h_s, const T* h_t, const uint8_t* t_mask,
+               float* part_v, int* part_i, float* out_v, int* out_i, int B,
+               int N_s, int N_t, int C, int k, int ts, int nseg,
+               int tiles_per_seg, int device, void* stream) {
+  if (k < 1 || k > K_MAX || k > N_t || B < 1 || N_s < 1 || C < 1 ||
+      (ts != 16 && ts != 32 && ts != 64 && ts != 128) || nseg < 1 ||
+      tiles_per_seg < 1 || (long long)nseg * tiles_per_seg * TT < N_t ||
+      (long long)(nseg - 1) * tiles_per_seg * TT >= N_t)
+    return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    return launch<T>(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B, N_s,
+                     N_t, C, k, ts, nseg, tiles_per_seg,
+                     reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace
@@ -696,27 +800,31 @@ int dgmc_topk_row_tile(int i) {
 }
 int dgmc_topk_blocks_per_sm(int ts) { return blocks_per_sm(ts); }
 
-// h_s [B, N_s, C], h_t [B, N_t, C] float32 contiguous; t_mask [B, N_t]
-// uint8, or null for no mask. Outputs out_v [B, N_s, k] float32 and out_i
-// [B, N_s, k] int32. ts (16, 32, 64 or 128) source rows per block; the
-// target axis is cut into nseg segments of tiles_per_seg tiles of TT, none
-// empty; with nseg > 1, part_v / part_i hold [B * N_s, nseg, k] scratch.
-// Launches on `stream` on `device`, does not synchronize, restores the
-// calling thread's current device, returns cudaGetLastError().
+// h_s [B, N_s, C], h_t [B, N_t, C] contiguous, float32 (dgmc_topk_f32) or
+// bfloat16 (dgmc_topk_bf16); t_mask [B, N_t] uint8, or null for no mask.
+// Outputs out_v [B, N_s, k] float32 (for bf16 inputs, values that bf16
+// holds exactly) and out_i [B, N_s, k] int32. ts (16, 32, 64 or 128)
+// source rows per block; the target axis is cut into nseg segments of
+// tiles_per_seg tiles of TT, none empty; with nseg > 1, part_v / part_i
+// hold [B * N_s, nseg, k] float32 / int32 scratch. Launches on `stream` on
+// `device`, does not synchronize, restores the calling thread's current
+// device, returns cudaGetLastError().
 int dgmc_topk_f32(const float* h_s, const float* h_t, const uint8_t* t_mask,
                   float* part_v, int* part_i, float* out_v, int* out_i,
                   int B, int N_s, int N_t, int C, int k, int ts, int nseg,
                   int tiles_per_seg, int device, void* stream) {
-  if (k < 1 || k > K_MAX || k > N_t || B < 1 || N_s < 1 || C < 1 ||
-      (ts != 16 && ts != 32 && ts != 64 && ts != 128) || nseg < 1 ||
-      tiles_per_seg < 1 || (long long)nseg * tiles_per_seg * TT < N_t ||
-      (long long)(nseg - 1) * tiles_per_seg * TT >= N_t)
-    return (int)cudaErrorInvalidValue;
-  return dgmc::on_device(device, [&]() {
-    return launch(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B, N_s,
-                  N_t, C, k, ts, nseg, tiles_per_seg,
-                  reinterpret_cast<cudaStream_t>(stream));
-  });
+  return topk_entry(h_s, h_t, t_mask, part_v, part_i, out_v, out_i, B, N_s,
+                    N_t, C, k, ts, nseg, tiles_per_seg, device, stream);
+}
+
+int dgmc_topk_bf16(const void* h_s, const void* h_t, const uint8_t* t_mask,
+                   float* part_v, int* part_i, float* out_v, int* out_i,
+                   int B, int N_s, int N_t, int C, int k, int ts, int nseg,
+                   int tiles_per_seg, int device, void* stream) {
+  return topk_entry(static_cast<const bf16*>(h_s),
+                    static_cast<const bf16*>(h_t), t_mask, part_v, part_i,
+                    out_v, out_i, B, N_s, N_t, C, k, ts, nseg, tiles_per_seg,
+                    device, stream);
 }
 
 }  // extern "C"

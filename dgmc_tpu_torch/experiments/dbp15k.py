@@ -12,9 +12,12 @@ feature matching alone (``num_steps=0``), the rest refine with
 active). Each epoch is one Adam step on loss(S_L) over the whole pair
 (``--pairs-per-step`` replicas, each drawing its own noise and
 negatives). The test alignments are evaluated with Hits@1 and Hits@10 at
-every 10th phase-1 epoch and every phase-2 epoch, one line each. The
-defaults are the JAX CLI's (``dgmc_tpu/experiments/dbp15k.py``) at
-float32.
+every 10th phase-1 epoch and every phase-2 epoch, one line each (and,
+with ``--metrics_log PATH``, one JSONL record each, the JAX CLI's:
+``loss``, ``hits1``, ``hits10``, ``phase``). The defaults are the JAX
+CLI's (``dgmc_tpu/experiments/dbp15k.py``), its precision policy
+included: bf16 compute with float32 accumulation (``--precision bf16``);
+``--f32`` computes in float32 throughout.
 
 ``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
 offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
@@ -29,10 +32,12 @@ import time
 import numpy as np
 import torch
 
-from dgmc_tpu_torch import resolve_device, set_exact_float32
+from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
+from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.rel import RelCNN
+from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
                                         make_train_step)
@@ -78,9 +83,9 @@ def parse_args(argv=None):
     p.add_argument('--device', default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         'PyTorch path)')
-    p.add_argument('--precision', choices=['f32'], default='f32',
-                   help='compute precision: float32 only (the kernels take '
-                        'float32; the bf16 policy is not ported yet)')
+    p.add_argument('--metrics_log', type=str, default=None,
+                   help='append per-evaluation metrics to this JSONL file')
+    precision.add_precision_args(p)
     return p.parse_args(argv)
 
 
@@ -113,13 +118,17 @@ def synthetic_batches(args):
 
 def build(args, in_dim):
     """The model on the CPU, flax-default weights drawn from a generator
-    seeded with ``args.seed``."""
+    seeded with ``args.seed``, computing under ``args``' precision policy
+    (its parameters float32 under either)."""
+    prec = precision.from_args(args)
     psi_1 = RelCNN(in_dim, args.dim, args.num_layers, batch_norm=False,
-                   cat=True, lin=True, dropout=0.5)
+                   cat=True, lin=True, dropout=0.5, dtype=prec)
     psi_2 = RelCNN(args.rnd_dim, args.rnd_dim, args.num_layers,
-                   batch_norm=False, cat=True, lin=True, dropout=0.0)
+                   batch_norm=False, cat=True, lin=True, dropout=0.0,
+                   dtype=prec)
     return DGMC(psi_1, psi_2, num_steps=args.num_steps, k=args.k,
-                generator=torch.Generator().manual_seed(args.seed))
+                generator=torch.Generator().manual_seed(args.seed),
+                dtype=prec)
 
 
 def noise_seed(seed, split, epoch):
@@ -140,7 +149,7 @@ def main(argv=None, hook=None):
               file=sys.stderr)
         raise SystemExit(2)
     device = resolve_device(args.device)
-    set_exact_float32()
+    precision.apply(precision.from_args(args))
     train_batch, test_batch, in_dim = synthetic_batches(args)
     model = build(args, in_dim).to(device)
     state = create_train_state(model, learning_rate=args.lr)
@@ -156,6 +165,15 @@ def main(argv=None, hook=None):
     test_dev = batch_to_device(test_batch, device)
 
     print('Optimize initial feature matching...', flush=True)
+    with MetricLogger(args.metrics_log) as logger:
+        return _train(args, state, (phase1, phase2), (eval1, eval2),
+                      train_dev, test_dev, logger, hook)
+
+
+def _train(args, state, phases, evals, train_dev, test_dev, logger, hook):
+    """The two-phase schedule: a step per epoch, the evaluations, their
+    printed lines and JSONL records."""
+    (phase1, phase2), (eval1, eval2) = phases, evals
     last_print, t_span = 0, time.time()
     for epoch in range(1, args.epochs + 1):
         refine = epoch > args.phase1_epochs
@@ -173,10 +191,14 @@ def main(argv=None, hook=None):
             count = max(float(ev['count']), 1.0)
             per_epoch = (time.time() - t_span) / (epoch - last_print)
             last_print, t_span = epoch, time.time()
-            print(f'{epoch:03d}: Loss: {float(out["loss"]):.4f}, '
-                  f'Hits@1: {float(ev["correct"]) / count:.4f}, '
-                  f'Hits@10: {float(ev["hits@10"]) / count:.4f} '
-                  f'({per_epoch:.2f}s/epoch)', flush=True)
+            loss = float(out['loss'])
+            hits1 = float(ev['correct']) / count
+            hits10 = float(ev['hits@10']) / count
+            print(f'{epoch:03d}: Loss: {loss:.4f}, Hits@1: {hits1:.4f}, '
+                  f'Hits@10: {hits10:.4f} ({per_epoch:.2f}s/epoch)',
+                  flush=True)
+            logger.log(epoch, loss=loss, hits1=hits1, hits10=hits10,
+                       phase=2 if refine else 1)
     return state
 
 

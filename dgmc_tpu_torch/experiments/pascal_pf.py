@@ -8,11 +8,15 @@ pseudo-coordinates, dense DGMC (``k = -1``) with ``--num_steps``
 consensus steps, trained with Adam on ``loss(S_0) + loss(S_L)`` over
 random point-cloud pairs (30-60 inliers, 0-20 outliers, sigma 0.05
 jitter), padded to 80 nodes / 640 edges, one line per epoch. The defaults
-are the JAX CLI's (``dgmc_tpu/experiments/pascal_pf.py``) at float32.
+are the JAX CLI's (``dgmc_tpu/experiments/pascal_pf.py``), its precision
+policy included: bf16 compute with float32 accumulation
+(``--precision bf16``); ``--f32`` computes in float32 throughout.
 
 ``--synthetic_eval N`` also evaluates on ``N`` held-out synthetic pairs
-per epoch. The real PascalPF zero-shot eval needs the dataset and its
-parser, which are not ported: it is skipped with a notice.
+per epoch. ``--metrics_log PATH`` appends the JAX CLI's per-epoch JSONL
+records (``loss``, ``train_acc``, ``synthetic_eval_acc``) to ``PATH``.
+The real PascalPF zero-shot eval needs the dataset and its parser, which
+are not ported: it is skipped with a notice.
 """
 
 import argparse
@@ -22,12 +26,14 @@ import time
 import numpy as np
 import torch
 
-from dgmc_tpu_torch import resolve_device, set_exact_float32
+from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.synthetic import RandomGraphPairs
 from dgmc_tpu_torch.data.transforms import (Cartesian, Compose, Constant,
                                             KNNGraph)
+from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.spline import SplineCNN
+from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import make_eval_step, make_train_step
 from dgmc_tpu_torch.utils.data import PairLoader
@@ -61,28 +67,31 @@ def parse_args(argv=None):
     p.add_argument('--device', default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         'PyTorch path)')
-    p.add_argument('--precision', choices=['f32'], default='f32',
-                   help='compute precision: float32 only (the kernels take '
-                        'float32; the bf16 policy is not ported yet)')
+    p.add_argument('--metrics_log', type=str, default=None,
+                   help='append per-epoch metrics to this JSONL file')
+    precision.add_precision_args(p)
     return p.parse_args(argv)
 
 
 def build(args):
     """``(model, train_loader, transform)``: the model on the CPU with
     flax-default weights drawn from a generator seeded with
-    ``args.seed``."""
+    ``args.seed``, computing under ``args``' precision policy (its
+    parameters float32 under either)."""
     transform = Compose([Constant(), KNNGraph(k=8), Cartesian()])
     train_dataset = RandomGraphPairs(30, 60, 0, 20, transform=transform,
                                      seed=args.seed)
     train_loader = PairLoader(train_dataset, args.batch_size, shuffle=True,
                               seed=args.seed, num_nodes=NUM_NODES,
                               num_edges=NUM_EDGES)
+    prec = precision.from_args(args)
     psi_1 = SplineCNN(1, args.dim, 2, args.num_layers, cat=False,
-                      dropout=0.0)
+                      dropout=0.0, dtype=prec)
     psi_2 = SplineCNN(args.rnd_dim, args.rnd_dim, 2, args.num_layers,
-                      cat=True, dropout=0.0)
+                      cat=True, dropout=0.0, dtype=prec)
     model = DGMC(psi_1, psi_2, num_steps=args.num_steps, k=-1,
-                 generator=torch.Generator().manual_seed(args.seed))
+                 generator=torch.Generator().manual_seed(args.seed),
+                 dtype=prec)
     return model, train_loader, transform
 
 
@@ -99,7 +108,7 @@ def main(argv=None, hook=None):
     metrics."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    set_exact_float32()
+    precision.apply(precision.from_args(args))
     model, train_loader, transform = build(args)
     model.to(device)
     state = create_train_state(model, learning_rate=args.lr)
@@ -119,39 +128,52 @@ def main(argv=None, hook=None):
                                    seed=args.seed + 10_000)
         eval_loader = PairLoader(eval_ds, args.batch_size, shuffle=False,
                                  num_nodes=NUM_NODES, num_edges=NUM_EDGES)
-        eval_step = make_eval_step(model)
 
-    for epoch in range(1, args.epochs + 1):
-        train_loader.dataset.set_epoch(epoch)
-        t0 = time.time()
-        tot_loss = torch.zeros((), device=device)
-        tot_correct = torch.zeros((), device=device)
-        tot_n = 0.0
-        for i, batch in enumerate(train_loader):
-            state, out = step(state, batch,
-                              noise_seed(args.seed, 0, epoch, i))
+    eval_step = make_eval_step(model) if eval_loader else None
+    with MetricLogger(args.metrics_log) as logger:
+        for epoch in range(1, args.epochs + 1):
+            state = _epoch(args, epoch, state, step, train_loader,
+                           eval_loader, eval_step, device, logger, hook)
+    return state
+
+
+def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
+           device, logger, hook):
+    """One training epoch and, with ``--synthetic_eval``, its held-out
+    evaluation: the printed lines and the JSONL records."""
+    train_loader.dataset.set_epoch(epoch)
+    t0 = time.time()
+    tot_loss = torch.zeros((), device=device)
+    tot_correct = torch.zeros((), device=device)
+    tot_n = 0.0
+    for i, batch in enumerate(train_loader):
+        state, out = step(state, batch,
+                          noise_seed(args.seed, 0, epoch, i))
+        if hook is not None:
+            hook('train', i, out)
+        n_b = float(batch.y_mask.sum())
+        tot_loss += out['loss']
+        tot_correct += out['acc'] * n_b
+        tot_n += n_b
+    loss = float(tot_loss) / len(train_loader)
+    acc = float(tot_correct) / max(tot_n, 1.0)
+    print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, Acc: {acc:.2f}, '
+          f'{time.time() - t0:.1f}s', flush=True)
+    logger.log(epoch, loss=loss, train_acc=acc)
+
+    if eval_loader is not None:
+        correct = torch.zeros((), device=device)
+        n = 0.0
+        for i, b in enumerate(eval_loader):
+            out = eval_step(b, noise_seed(args.seed, 1, epoch, i))
             if hook is not None:
-                hook('train', i, out)
-            n_b = float(batch.y_mask.sum())
-            tot_loss += out['loss']
-            tot_correct += out['acc'] * n_b
-            tot_n += n_b
-        loss = float(tot_loss) / len(train_loader)
-        acc = float(tot_correct) / max(tot_n, 1.0)
-        print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, Acc: {acc:.2f}, '
-              f'{time.time() - t0:.1f}s', flush=True)
-
-        if eval_loader is not None:
-            correct = torch.zeros((), device=device)
-            n = 0.0
-            for i, b in enumerate(eval_loader):
-                out = eval_step(b, noise_seed(args.seed, 1, epoch, i))
-                if hook is not None:
-                    hook('eval', i, out)
-                correct += out['correct']
-                n += float(np.asarray(b.y_mask).sum())
-            print(f'Held-out synthetic: '
-                  f'{100 * float(correct) / max(n, 1.0):.2f}', flush=True)
+                hook('eval', i, out)
+            correct += out['correct']
+            n += float(np.asarray(b.y_mask).sum())
+        eval_acc = float(correct) / max(n, 1.0)
+        print(f'Held-out synthetic: {100 * eval_acc:.2f}', flush=True)
+        # A 0-1 fraction, as the JAX CLI logs it.
+        logger.log(epoch, synthetic_eval_acc=eval_acc)
     return state
 
 

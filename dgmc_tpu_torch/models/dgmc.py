@@ -25,6 +25,15 @@ Ported here:
   (:class:`~dgmc_tpu_torch.ops.shortlist.Shortlist`) and serves every
   reduction onto the targets.
 
+Precision (``dtype``, a compute dtype or a precision policy,
+:mod:`~dgmc_tpu_torch.models.precision`), at the JAX package's places:
+under bf16, ``h_s``, ``h_t`` and ``h_t_cand`` are cast after ψ₁; the
+initial scores ``S_hat`` are float32 products of them; the indicator
+noise is drawn in float32 and rounded to bf16 once; ``r_t = Sᵀ r_s`` is
+float32 (``S`` is); ψ₂ computes in bf16 and the consensus MLP's weights
+are cast to its output's dtype, so the kernels take their bf16 variants;
+``S_hat``, the softmaxes and the loss stay float32, as do the parameters.
+
 Random streams: torch cannot reproduce JAX's threefry streams, so pair
 ``b`` draws its indicator noise and its negatives from CPU
 ``torch.Generator`` s seeded from ``(seed, pair_offset + b)``, one stream
@@ -41,6 +50,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.models.rel import lecun_normal_
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels import sparse_consensus
@@ -147,6 +157,9 @@ class DGMC(nn.Module):
         k: ``-1`` for the dense variant, else the top-k sparsity.
         generator: optional ``torch.Generator`` the initial weights are
             drawn from (:meth:`reset_parameters`).
+        dtype: the compute dtype or precision policy of the matching
+            itself (the casts after ψ₁ and of the noise and the consensus
+            MLP); ψ₁ and ψ₂ take their own, as in the JAX package.
 
     The consensus delta goes through :func:`consensus_update` (dense) or
     :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
@@ -156,7 +169,8 @@ class DGMC(nn.Module):
     recorded in the dispatch ledger.
     """
 
-    def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None):
+    def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None,
+                 dtype=None):
         super().__init__()
         if k >= 1 and not getattr(psi_2, 'supports_streams', False):
             raise NotImplementedError('the sparse variant needs a psi_2 with '
@@ -166,6 +180,7 @@ class DGMC(nn.Module):
         self.psi_2 = psi_2
         self.num_steps = num_steps
         self.k = k
+        self.dtype = compute_dtype_of(dtype)
         R = psi_2.out_channels
         # Explicit consensus-MLP parameters, in the JAX package's layout
         # ([in, out] kernels).
@@ -187,22 +202,33 @@ class DGMC(nn.Module):
             self.mlp_hidden_bias.zero_()
             self.mlp_out_bias.zero_()
 
-    @property
-    def _mlp(self):
-        return (self.mlp_hidden_kernel, self.mlp_hidden_bias,
-                self.mlp_out_kernel, self.mlp_out_bias)
+    def _mlp(self, dtype):
+        """The consensus MLP's parameters cast to ``dtype`` (ψ₂'s output
+        dtype), as the JAX package casts them for its kernels: anew in
+        each consensus step, so that each step's gradient of the cast
+        lands in float32 and the steps' gradients sum there (one cast
+        shared by the steps would sum them in ``dtype``)."""
+        return tuple(p.to(dtype) for p in (
+            self.mlp_hidden_kernel, self.mlp_hidden_bias,
+            self.mlp_out_kernel, self.mlp_out_bias))
+
+    def _cast(self, h):
+        """``h`` in the compute dtype (unchanged under float32)."""
+        return h if h is None or self.dtype is None else h.to(self.dtype)
 
     def _noise(self, r_s, num_steps, B, N_s, noise_seed, pair_offset,
                device):
+        """The indicator noise in the compute dtype: drawn in float32 and
+        rounded once, or ``r_s`` as given (rounded the same way)."""
         R_in = self.psi_2.in_channels
         if r_s is None:
-            return draw_noise(num_steps, B, N_s, R_in, noise_seed,
-                              pair_offset, device=device)
-        if tuple(r_s.shape) != (num_steps, B, N_s, R_in):
+            r_s = draw_noise(num_steps, B, N_s, R_in, noise_seed,
+                             pair_offset, device=device)
+        elif tuple(r_s.shape) != (num_steps, B, N_s, R_in):
             raise ValueError(f'r_s must be [num_steps, B, N_s, R_in] = '
                              f'{(num_steps, B, N_s, R_in)}; got '
                              f'{tuple(r_s.shape)}')
-        return r_s
+        return self._cast(r_s)
 
     def _delta_fn(self):
         """:func:`consensus_update`, or the factored plain form above the
@@ -231,10 +257,13 @@ class DGMC(nn.Module):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+        h_s, h_t = self._cast(h_s), self._cast(h_t)
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         B, N_s = s_mask.shape
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
-        S_hat = h_s @ h_t.transpose(1, 2)
+        # float32 logits of compute-dtype embeddings (exact products).
+        acc = torch.promote_types(h_s.dtype, torch.float32)
+        S_hat = h_s.to(acc) @ h_t.to(acc).transpose(1, 2)
         S_0 = masked_softmax(S_hat, S_mask)
         if num_steps > 0:
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
@@ -242,10 +271,10 @@ class DGMC(nn.Module):
             delta_fn = self._delta_fn()
             for step in range(num_steps):
                 S = masked_softmax(S_hat, S_mask)
-                r_t = S.transpose(1, 2) @ r_s[step]
+                r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
                 o_s = self.psi_2(r_s[step], graph_s, generator=generator)
                 o_t = self.psi_2(r_t, graph_t, generator=generator)
-                delta = delta_fn(o_s, o_t, *self._mlp)
+                delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
                 S_hat = S_hat + torch.where(S_mask, delta, 0.0)
         S_L = masked_softmax(S_hat, S_mask)
         return (Correspondence(S_0, None, s_mask, t_mask),
@@ -314,6 +343,8 @@ class DGMC(nn.Module):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             if h_t is None and h_t_cand is None:
                 h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+        h_s, h_t, h_t_cand = (self._cast(h_s), self._cast(h_t),
+                              self._cast(h_t_cand))
         if detach and h_t_cand is not None:
             h_t_cand = h_t_cand.detach()
 
@@ -368,7 +399,9 @@ class DGMC(nn.Module):
         row_mask = s_mask[..., None]
 
         h_t_rows = h_t_cand if h_t_cand is not None else shortlist.gather(h_t)
-        S_hat = torch.einsum('bsc,bskc->bsk', h_s, h_t_rows)
+        # float32 logits of compute-dtype embeddings (exact products).
+        acc = torch.promote_types(h_s.dtype, torch.float32)
+        S_hat = torch.einsum('bsc,bskc->bsk', h_s.to(acc), h_t_rows.to(acc))
         S_0 = masked_softmax(S_hat, entry_mask) * row_mask
 
         if num_steps > 0:
@@ -385,11 +418,12 @@ class DGMC(nn.Module):
             delta_fn = self._sparse_delta_fn()
             for step in range(num_steps):
                 S = masked_softmax(S_hat, entry_mask) * row_mask
+                # float32: S is; the noise is widened exactly.
                 r_t = shortlist.scatter(S[..., None]
-                                        * r_s[step][:, :, None, :])
+                                        * r_s[step].to(S.dtype)[:, :, None, :])
                 o_t = self.psi_2(r_t, graph_t, generator=generator)
-                S_hat = S_hat + delta_fn(o_s_all[step], o_t, shortlist,
-                                         *self._mlp)
+                S_hat = S_hat + delta_fn(o_s_all[step], o_t.to(o.dtype),
+                                         shortlist, *self._mlp(o.dtype))
 
         S_L = masked_softmax(S_hat, entry_mask) * row_mask
         return (Correspondence(S_0, shortlist.idx, s_mask, t_mask),

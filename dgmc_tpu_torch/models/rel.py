@@ -9,6 +9,12 @@ Ported: ``batch_norm=False``, with dropout after each layer's ReLU in
 training mode (masks from an explicit ``torch.Generator`` on the model's
 device). Masked batch norm is later work.
 
+``dtype`` (a compute dtype or a precision policy,
+:mod:`~dgmc_tpu_torch.models.precision`): under bf16 the input is cast
+once and every linear map runs in bf16 on its float32 weights cast where
+used (flax ``Dense(dtype=...)``: the product rounded, then the bias
+added); the aggregations sum in float32 and round once.
+
 The edge gathers and both aggregations of a layer read the graph's
 cached receiver and sender orders (:meth:`GraphBatch.csr`: every edge
 for a gather's gradient, the real edges for an aggregation), so their
@@ -19,10 +25,12 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
+from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
-__all__ = ['RelConv', 'RelCNN', 'dropout', 'init_linear_',
+__all__ = ['RelConv', 'RelCNN', 'dense', 'dropout', 'init_linear_',
            'lecun_normal_']
 
 # Standard deviation of a unit normal truncated to [-2, 2].
@@ -43,26 +51,40 @@ def init_linear_(lin, generator):
         nn.init.zeros_(lin.bias)
 
 
+def dense(lin, x, dtype=None):
+    """``lin(x)``, or flax's ``Dense(dtype=dtype)`` where ``dtype`` is
+    given: ``x``, the kernel and the bias cast to ``dtype``, the product
+    rounded to it, then the bias added (rounded again). The weights stay
+    float32; the gradient of the cast reaches them in float32."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
 def dropout(h, p, generator):
     """Flax's ``Dropout``: keep each entry with probability ``1 - p`` and
-    scale the kept ones by ``1 / (1 - p)``; the mask is drawn from
-    ``generator``, which lives on ``h``'s device."""
+    scale the kept ones by ``1 / (1 - p)`` in ``h``'s dtype; the mask is
+    drawn from ``generator``, which lives on ``h``'s device, as float32
+    uniforms under every precision policy (flax draws its Bernoulli mask
+    so; a bf16 uniform would quantize the keep probability)."""
     if generator is None:
         raise ValueError('training-mode dropout draws its masks from an '
                          'explicit generator; pass generator=')
     if p >= 1.0:
         return torch.zeros_like(h)
     keep = torch.rand(h.shape, generator=generator, device=h.device,
-                      dtype=h.dtype) >= p
+                      dtype=torch.float32) >= p
     return torch.where(keep, h / (1.0 - p), 0.0)
 
 
 class RelConv(nn.Module):
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, dtype=None):
         super().__init__()
         self.lin1 = nn.Linear(in_channels, out_channels, bias=False)
         self.lin2 = nn.Linear(in_channels, out_channels, bias=False)
         self.root = nn.Linear(in_channels, out_channels)
+        self.dtype = compute_dtype_of(dtype)
 
     def reset_parameters(self, generator=None):
         for lin in (self.lin1, self.lin2, self.root):
@@ -77,8 +99,9 @@ class RelConv(nn.Module):
 
         def grouped(lin, v):
             if streams == 1:
-                return lin(v)
-            return lin(v.reshape(B, N, streams, -1)).reshape(B, N, -1)
+                return dense(lin, v, self.dtype)
+            return dense(lin, v.reshape(B, N, streams, -1),
+                         self.dtype).reshape(B, N, -1)
 
         h1 = grouped(self.lin1, x)
         h2 = grouped(self.lin2, x)
@@ -106,7 +129,7 @@ class RelCNN(nn.Module):
     supports_streams = True
 
     def __init__(self, in_channels, channels, num_layers, batch_norm=False,
-                 cat=True, lin=True, dropout=0.0):
+                 cat=True, lin=True, dropout=0.0, dtype=None):
         super().__init__()
         if batch_norm:
             raise NotImplementedError(
@@ -119,8 +142,10 @@ class RelCNN(nn.Module):
         self.cat = cat
         self.lin = lin
         self.dropout = dropout
+        self.dtype = compute_dtype_of(dtype)
         self.convs = nn.ModuleList(
-            RelConv(in_channels if i == 0 else channels, channels)
+            RelConv(in_channels if i == 0 else channels, channels,
+                    dtype=self.dtype)
             for i in range(num_layers))
         if lin:
             width = (in_channels + num_layers * channels if cat
@@ -155,13 +180,16 @@ class RelCNN(nn.Module):
                 'evaluation draws ONE mask across the channel groups, '
                 'coupling what should be independent iterations')
         B, N = x.shape[0], x.shape[1]
-        xs = [x]
+        # Every consumer of x casts it to the compute dtype (the JAX
+        # package's Dense layers; its concat then rounds at the final
+        # Dense): once here is the same.
+        xs = [x if self.dtype is None else x.to(self.dtype)]
         for conv in self.convs:
             h = torch.relu(conv(xs[-1], graph, streams=streams))
             xs.append(dropout(h, self.dropout, generator) if active else h)
         if streams == 1:
             out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
-            return self.final(out) if self.lin else out
+            return dense(self.final, out, self.dtype) if self.lin else out
         # Grouped jumping-knowledge concat + final linear map: per group.
         if self.cat:
             out = torch.cat([v.reshape(B, N, streams, -1) for v in xs],
@@ -169,7 +197,7 @@ class RelCNN(nn.Module):
         else:
             out = xs[-1].reshape(B, N, streams, -1)
         if self.lin:
-            out = self.final(out)
+            out = dense(self.final, out, self.dtype)
         return out.reshape(B, N, -1)
 
     def extra_repr(self):

@@ -10,12 +10,20 @@ That routing step is :func:`~dgmc_tpu_torch.ops.kernels.spline.
 route_aggregate` (the CUDA kernel on CUDA tensors, its plain gather +
 blend + masked mean on the CPU). Layers are stacked with ReLU and an
 optional jumping-knowledge concat, dropout and a final linear map.
+
+``dtype`` (a compute dtype or a precision policy): under bf16 the input
+is cast once, the node GEMM, the root map and the final map run in bf16
+on their float32 weights cast where used, and the routing takes bf16
+``t`` with float32 basis weights and sums (its output rounded once), as
+the JAX package's ``SplineConv(dtype=...)`` and its kernel do.
 """
 
 import torch
 from torch import nn
 
-from dgmc_tpu_torch.models.rel import dropout, init_linear_, lecun_normal_
+from dgmc_tpu_torch.models.precision import compute_dtype_of
+from dgmc_tpu_torch.models.rel import (dense, dropout, init_linear_,
+                                       lecun_normal_)
 from dgmc_tpu_torch.ops.kernels.spline import Routing, route_aggregate
 from dgmc_tpu_torch.ops.spline import open_spline_basis
 
@@ -44,13 +52,14 @@ class SplineConv(nn.Module):
     added last)."""
 
     def __init__(self, in_channels, out_channels, dim, kernel_size=5,
-                 degree=1):
+                 degree=1, dtype=None):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.dim = dim
         self.kernel_size = kernel_size
         self.degree = degree
+        self.dtype = compute_dtype_of(dtype)
         KD = kernel_size ** dim
         self.weight = nn.Parameter(torch.empty(KD, in_channels,
                                                out_channels))
@@ -79,9 +88,14 @@ class SplineConv(nn.Module):
         if route.num_rows != N * KD:
             raise ValueError(f'the routing has {route.num_rows} rows per '
                              f'graph; this layer needs N * K^D = {N * KD}')
-        t = x @ self.weight.permute(1, 0, 2).reshape(C_in, KD * O)
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+            weight, bias = weight.to(self.dtype), bias.to(self.dtype)
+        t = x @ weight.permute(1, 0, 2).reshape(C_in, KD * O)
         t = t.reshape(B, N * KD, O)
-        return route_aggregate(t, basis, route) + self.root(x) + self.bias
+        return (route_aggregate(t, basis, route)
+                + dense(self.root, x, self.dtype) + bias)
 
     def extra_repr(self):
         return (f'{self.in_channels}, {self.out_channels}, dim={self.dim}, '
@@ -94,7 +108,7 @@ class SplineCNN(nn.Module):
     :attr:`out_channels`."""
 
     def __init__(self, in_channels, channels, dim, num_layers, cat=True,
-                 lin=True, dropout=0.0):
+                 lin=True, dropout=0.0, dtype=None):
         super().__init__()
         self.in_channels = in_channels
         self.channels = channels
@@ -103,8 +117,10 @@ class SplineCNN(nn.Module):
         self.cat = cat
         self.lin = lin
         self.dropout = dropout
+        self.dtype = compute_dtype_of(dtype)
         self.convs = nn.ModuleList(
-            SplineConv(in_channels if i == 0 else channels, channels, dim)
+            SplineConv(in_channels if i == 0 else channels, channels, dim,
+                       dtype=self.dtype)
             for i in range(num_layers))
         if lin:
             width = (in_channels + num_layers * channels if cat
@@ -132,13 +148,16 @@ class SplineCNN(nn.Module):
         training mode with ``dropout > 0``."""
         conv = self.convs[0]
         routing = spline_routing(graph, conv.kernel_size, conv.degree)
-        xs = [x]
+        # Each conv and the final map cast their input to the compute
+        # dtype (the JAX package's concat rounds at its final Dense): once
+        # here is the same.
+        xs = [x if self.dtype is None else x.to(self.dtype)]
         for conv in self.convs:
             xs.append(torch.relu(conv(xs[-1], graph, routing)))
         out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
         if self.training and self.dropout > 0:
             out = dropout(out, self.dropout, generator)
-        return self.final(out) if self.lin else out
+        return dense(self.final, out, self.dtype) if self.lin else out
 
     def extra_repr(self):
         return (f'{self.in_channels}, {self.out_channels}, dim={self.dim}, '

@@ -3,7 +3,12 @@ tile-recompute backward.
 
 ``delta[b, s, t] = relu((o_s[b, s] - o_t[b, t]) @ W1 + b1) @ W2 + b2``
 (float32, ``[B, N_s, N_t]``), never holding the ``[B, N_s, N_t, R]``
-difference tensor across the forward. The kernel (``csrc/consensus.cu``)
+difference tensor across the forward. The inputs are float32 or
+bfloat16 (the precision policy's variant), all in one dtype; every sum
+runs in float32. Under bfloat16 the factored form rounds where the JAX
+package's factored dense path rounds (``u_s = bf16(bf16(o_s W1) + b1)``,
+``u_t = bf16(o_t W1)``, ``h = relu(bf16(u_s - u_t))``), and the output
+``h · W2 + b2`` is float32. The kernel (``csrc/consensus.cu``)
 replaces the JAX package's Pallas TPU kernel
 ``dgmc_tpu/ops/pallas/consensus.py::_consensus_kernel``; see the source
 for its design and bound.
@@ -16,8 +21,9 @@ for its design and bound.
   plain form instead.
 - :func:`consensus_update` is differentiable: its backward recomputes
   the difference tile by tile over ``TILE_T`` targets in plain PyTorch
-  (float32 accumulation), as the JAX kernel's ``lax.scan`` backward does;
-  the JAX package has no Pallas backward to port.
+  (float32 accumulation, each gradient cast to its operand's dtype once),
+  as the JAX kernel's ``lax.scan`` backward does; the JAX package has no
+  Pallas backward to port.
 """
 
 import ctypes
@@ -31,7 +37,7 @@ from dgmc_tpu_torch.ops.kernels.build import sm_count
 
 __all__ = ['R_MAX', 'MICRO', 'TILE_MAX', 'MAX_THREADS', 'TILE_T',
            'launch_plan', 'plain_consensus', 'consensus_fwd',
-           'consensus_backward', 'consensus_update']
+           'consensus_backward', 'consensus_update', 'rounding']
 
 #: Largest R the kernels take: the projection keeps W1 in shared memory,
 #: the pair kernel a tile's u_s and u_t rows (about 4 (R + 4) (TS + TT)
@@ -49,13 +55,29 @@ MICRO, TILE_MAX, MAX_THREADS = 4, 128, 256
 TILE_T = 32
 
 
+def rounding(dtype):
+    """``(up, rnd)`` for inputs of ``dtype``: widen to the dtype the sums
+    run in (float32, or float64 inputs' own), and round a sum through
+    ``dtype`` (the identity for float32 and float64). The plain versions
+    of both consensus kernels (this module's and ``sparse_consensus``'s)
+    round with it."""
+    acc = torch.promote_types(dtype, torch.float32)
+    return (lambda a: a.to(acc)), (lambda a: a.to(dtype).to(acc))
+
+
+def _factored(o_s, o_t, w1, b1, rnd, up):
+    """``u_s = rnd(rnd(o_s W1) + b1)`` and ``u_t = rnd(o_t W1)``, widened."""
+    return (rnd(rnd(up(o_s) @ up(w1)) + up(b1)), rnd(up(o_t) @ up(w1)))
+
+
 def plain_consensus(o_s, o_t, w1, b1, w2, b2):
-    """The factored plain version → ``[B, N_s, N_t]``. Materializes the
-    ``[B, N_s, N_t, R]`` hidden layer; differentiable by autograd."""
-    u_s = o_s @ w1 + b1
-    u_t = o_t @ w1
-    h = torch.relu(u_s[:, :, None, :] - u_t[:, None, :, :])
-    return (h @ w2)[..., 0] + b2[0]
+    """The factored plain version → ``[B, N_s, N_t]``, rounded as the
+    kernel rounds for the inputs' dtype. Materializes the ``[B, N_s, N_t,
+    R]`` hidden layer; differentiable by autograd."""
+    up, rnd = rounding(o_s.dtype)
+    u_s, u_t = _factored(o_s, o_t, w1, b1, rnd, up)
+    h = torch.relu(rnd(u_s[:, :, None, :] - u_t[:, None, :, :]))
+    return (h @ up(w2))[..., 0] + up(b2)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,14 +111,20 @@ def launch_plan(B, N_s, N_t, sms):
     return best[1]
 
 
+#: The kernel's entry point for each input dtype it takes.
+_ENTRY = {torch.float32: 'dgmc_consensus_fwd_f32',
+          torch.bfloat16: 'dgmc_consensus_fwd_bf16'}
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('consensus.cu')
     if not getattr(lib, 'consensus_bound', False):
-        fn = lib.dgmc_consensus_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         got = (lib.dgmc_consensus_r_max(), lib.dgmc_consensus_micro(),
                lib.dgmc_consensus_tile_max(),
                lib.dgmc_consensus_max_threads())
@@ -130,33 +158,35 @@ def consensus_fwd(o_s, o_t, w1, b1, w2, b2):
     if len(devs) != 1:
         raise ValueError(f'consensus_fwd inputs lie on several devices: '
                          f'{sorted(map(str, devs))}')
-    dev = o_s.device
+    dev, dt = o_s.device, o_s.dtype
     if dev.type == 'cpu':
-        dispatch.record('consensus_fwd', 'plain', 'device=cpu')
+        dispatch.record('consensus_fwd', 'plain', 'device=cpu', dt)
         return plain_consensus(*args)
     if dev.type != 'cuda':
         raise ValueError(f'consensus_fwd runs on cpu or cuda, not '
                          f'{dev.type}')
-    if any(a.dtype != torch.float32 for a in args):
-        raise TypeError(f'the consensus kernel takes float32 only; got '
+    if dt not in _ENTRY or any(a.dtype != dt for a in args):
+        raise TypeError(f'the consensus kernel takes float32 or bfloat16, '
+                        f'every operand in one dtype; got '
                         f'{sorted({str(a.dtype) for a in args})}')
     if R > R_MAX or B > 65535:
         raise ValueError(f'the consensus kernel takes R <= {R_MAX} and '
                          f'B <= 65535; got R={R}, B={B}')
-    dispatch.record('consensus_fwd', 'kernel', 'auto-cuda')
+    dispatch.record('consensus_fwd', 'kernel', 'auto-cuda', dt)
     lib = _library()
     args = [a.contiguous() for a in args]
     u_s, u_t = torch.empty_like(args[0]), torch.empty_like(args[1])
     out = torch.empty((B, N_s, N_t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev)
     TS, TT = launch_plan(B, N_s, N_t, sm_count(stream.device_index))
-    err = lib.dgmc_consensus_fwd_f32(
+    err = getattr(lib, _ENTRY[dt])(
         *(a.data_ptr() for a in args), u_s.data_ptr(), u_t.data_ptr(),
         out.data_ptr(), B, N_s, N_t, R, TS, TT, stream.device_index,
         stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f'consensus kernel launch failed with CUDA error '
-                           f'{err} (B={B}, N_s={N_s}, N_t={N_t}, R={R})')
+                           f'{err} (B={B}, N_s={N_s}, N_t={N_t}, R={R}, '
+                           f'{dt})')
     consensus_fwd.launches += 1
     return out
 
@@ -164,28 +194,36 @@ def consensus_fwd(o_s, o_t, w1, b1, w2, b2):
 def consensus_backward(o_s, o_t, w1, b1, w2, g):
     """Gradients of ``sum(g * delta)`` w.r.t. ``(o_s, o_t, w1, b1, w2,
     b2)``: the hidden layer is recomputed per tile of ``TILE_T`` targets
-    and reduced at once, so at most ``[B, N_s, TILE_T, R]`` lives at a
-    time. Through the factored form: ``d_u_s`` / ``d_u_t`` first, then one
-    node-level product each for ``d_o_s``, ``d_o_t`` and ``d_w1``."""
+    (rounded as the forward rounds it) and reduced at once, so at most
+    ``[B, N_s, TILE_T, R]`` lives at a time. Through the factored form:
+    ``d_u_s`` / ``d_u_t`` first, then one node-level product each for
+    ``d_o_s``, ``d_o_t`` and ``d_w1``. Every sum runs in (at least)
+    float32; each gradient is cast to its operand's dtype once (``d_b2``
+    to ``w2``'s)."""
     N_t = o_t.shape[1]
-    u_s = o_s @ w1 + b1
-    u_t = o_t @ w1
-    w2v = w2[:, 0]
+    up, rnd = rounding(o_s.dtype)
+    u_s, u_t = _factored(o_s, o_t, w1, b1, rnd, up)
+    g = up(g)
+    w2v = up(w2)[:, 0]
     d_us = torch.zeros_like(u_s)
     d_ut = torch.empty_like(u_t)
     d_w2 = torch.zeros_like(w2v)
     for start in range(0, N_t, TILE_T):
         stop = min(start + TILE_T, N_t)
         g_b = g[:, :, start:stop]                                # [B,S,T]
-        pre = u_s[:, :, None, :] - u_t[:, None, start:stop, :]   # [B,S,T,R]
+        pre = rnd(u_s[:, :, None, :]
+                  - u_t[:, None, start:stop, :])                 # [B,S,T,R]
         d_w2 += torch.einsum('bstq,bst->q', torch.relu(pre), g_b)
         d_pre = torch.where(pre > 0, g_b[..., None] * w2v, 0.0)
         d_us += d_pre.sum(dim=2)
         d_ut[:, start:stop] = -d_pre.sum(dim=1)
-    d_w1 = (torch.einsum('bsr,bsq->rq', o_s, d_us)
-            + torch.einsum('btr,btq->rq', o_t, d_ut))
-    return (d_us @ w1.T, d_ut @ w1.T, d_w1, d_us.sum(dim=(0, 1)),
-            d_w2[:, None], g.sum().reshape(1))
+    w1a = up(w1)
+    d_w1 = (torch.einsum('bsr,bsq->rq', up(o_s), d_us)
+            + torch.einsum('btr,btq->rq', up(o_t), d_ut))
+    grads = (d_us @ w1a.T, d_ut @ w1a.T, d_w1, d_us.sum(dim=(0, 1)),
+             d_w2[:, None], g.sum().reshape(1))
+    return tuple(d.to(a.dtype) for d, a in
+                 zip(grads, (o_s, o_t, w1, b1, w2, w2)))
 
 
 class _ConsensusUpdate(torch.autograd.Function):

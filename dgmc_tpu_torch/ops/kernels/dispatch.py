@@ -2,8 +2,10 @@
 
 Every gate in front of a kernel reports its outcome here: ``kernel``
 (the CUDA kernel launched) or ``plain`` (the plain PyTorch version ran),
-with the reason — so a run shows which kernels its main path actually
-used instead of leaving it to inference from timings.
+with the reason and the dtype of the inputs it ran on (``float32`` or
+``bfloat16``: the precision policy's variant) — so a run shows which
+kernels its main path actually used, and in which dtype, instead of
+leaving it to inference from timings.
 
 Each kernel wrapper also carries a plain integer ``launches`` counter
 that it increments where it launches its kernel and nowhere else;
@@ -17,28 +19,36 @@ __all__ = ['record', 'decisions', 'reset', 'kernel_wrapper',
            'launch_counts']
 
 _lock = threading.Lock()
-_decisions = {}   # kernel name -> {'path', 'reason', 'counts'}
+_decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
+                  #                 'dtypes'}
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
 
 
-def record(kernel, path, reason):
-    """Record one gate decision: ``path`` is ``'kernel'`` or ``'plain'``."""
+def record(kernel, path, reason, dtype=None):
+    """Record one gate decision: ``path`` is ``'kernel'`` or ``'plain'``;
+    ``dtype`` the inputs' (a ``torch.dtype`` or its name, ``None`` where
+    the gate has no float input)."""
     if path not in ('kernel', 'plain'):
         raise ValueError(f'unknown dispatch path {path!r}')
+    name = None if dtype is None else str(dtype).replace('torch.', '')
     with _lock:
         entry = _decisions.setdefault(
-            kernel, {'path': path, 'reason': reason,
-                     'counts': {'kernel': 0, 'plain': 0}})
-        entry['path'], entry['reason'] = path, reason
+            kernel, {'path': path, 'reason': reason, 'dtype': name,
+                     'counts': {'kernel': 0, 'plain': 0}, 'dtypes': {}})
+        entry['path'], entry['reason'], entry['dtype'] = path, reason, name
         entry['counts'][path] += 1
+        key = f'{path}:{name}'
+        entry['dtypes'][key] = entry['dtypes'].get(key, 0) + 1
 
 
 def decisions():
-    """``{kernel: {'path', 'reason', 'counts'}}`` — the latest decision
-    per kernel and how often each path was taken."""
+    """``{kernel: {'path', 'reason', 'dtype', 'counts', 'dtypes'}}`` —
+    the latest decision per kernel (its path, reason and dtype), how
+    often each path was taken, and how often each ``'path:dtype'``."""
     with _lock:
         return {k: {'path': v['path'], 'reason': v['reason'],
-                    'counts': dict(v['counts'])}
+                    'dtype': v['dtype'], 'counts': dict(v['counts']),
+                    'dtypes': dict(v['dtypes'])}
                 for k, v in _decisions.items()}
 
 

@@ -3,7 +3,12 @@ versions, and its two differentiable forms.
 
 ``delta[b, s, k] = relu((o_s[b, s] - o_t[b, S_idx[b, s, k]]) @ W1 + b1)
 @ W2 + b2`` (float32, ``[B, N_s, K]``), the per-candidate MLP of every
-sparse consensus step. The kernels (``csrc/sparse_consensus.cu``) replace
+sparse consensus step. The inputs are float32 or bfloat16 (the precision
+policy's variant), all in one dtype; every sum runs in float32. Under
+bfloat16 the factored form rounds ``u_s = bf16(bf16(o_s W1) + b1)``,
+``u_t = bf16(o_t W1)`` and ``pre = bf16(u_s - u_t)`` (the JAX package's
+sparse path takes the direct form, which rounds elsewhere), and the
+gradients leave their float32 sums rounded to the operands' dtype once. The kernels (``csrc/sparse_consensus.cu``) replace
 the JAX package's Pallas TPU kernels
 ``dgmc_tpu/ops/pallas/sparse_consensus.py::_fwd_kernel`` / ``_bwd_kernel``;
 see the source for their design and bound.
@@ -20,7 +25,8 @@ see the source for their design and bound.
   factored form round differently, and a value near 0 may take the other
   side of the ReLU). On a CUDA tensor each launches its kernel or raises;
   ``R > R_MAX`` does not reach them (the model records that gate and takes
-  the plain form instead).
+  the plain form instead). The touched-row form is float32 only (the
+  serve path's dtype): bfloat16 always projects every row first.
 - :func:`fused_candidate_delta` (``o_t`` table plus shortlist, the form
   DGMC uses) and :func:`sparse_consensus_delta` (pre-gathered candidates
   ``[B, N_s, K, R]``, seen as a ``[B, N_s*K, R]`` table under the
@@ -47,6 +53,7 @@ import torch
 
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.build import sm_count
+from dgmc_tpu_torch.ops.kernels.consensus import rounding
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 
 __all__ = ['R_MAX', 'BWD_WARPS', 'NODE_THREADS', 'node_rows', 'bwd_plan',
@@ -63,9 +70,14 @@ R_MAX = 128
 
 def plain_sparse_consensus_delta(o_s, cand, w1, b1, w2, b2):
     """The unfused form: ``o_s [B, N_s, R]``, ``cand [B, N_s, K, R]`` →
-    ``[B, N_s, K]``, materializing the difference and hidden layer."""
-    h = torch.relu((o_s[:, :, None, :] - cand) @ w1 + b1)
-    return (h @ w2)[..., 0] + b2[0]
+    ``[B, N_s, K]``, materializing the difference and hidden layer. For
+    bfloat16 inputs it rounds where the JAX package's
+    ``sparse_consensus_delta_reference`` does: the difference and the
+    hidden layer, the sums in float32."""
+    up, rnd = rounding(o_s.dtype)
+    d = rnd(up(o_s)[:, :, None, :] - up(cand))
+    h = rnd(torch.relu(d @ up(w1) + up(b1)))
+    return (h @ up(w2))[..., 0] + up(b2)[0]
 
 
 def _shortlist(S_idx, num_targets):
@@ -83,14 +95,20 @@ def plain_fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
 
 def _factored(o_s, o_t, w1, b1):
     """``u_s = o_s W1 + b1`` and ``u_t = o_t W1``: ``(o_s - o_t) W1 + b1
-    = u_s - u_t``."""
-    return o_s @ w1 + b1, o_t @ w1
+    = u_s - u_t``; in the inputs' dtype, the sums in (at least) float32
+    and, for bfloat16, rounded as the kernel rounds them:
+    ``bf16(bf16(o_s W1) + b1)`` and ``bf16(o_t W1)``."""
+    up, rnd = rounding(o_s.dtype)
+    dt = o_s.dtype
+    return ((rnd(up(o_s) @ up(w1)) + up(b1)).to(dt),
+            (up(o_t) @ up(w1)).to(dt))
 
 
 def _plain_fwd(o_s, o_t, sl, w1, b1, w2, b2):
+    up, rnd = rounding(o_s.dtype)
     u_s, u_t = _factored(o_s, o_t, w1, b1)
-    pre = u_s[:, :, None, :] - sl.gather(u_t)
-    return (torch.relu(pre) @ w2)[..., 0] + b2[0], (u_s, u_t)
+    pre = rnd(up(u_s)[:, :, None, :] - up(sl.gather(u_t)))
+    return (torch.relu(pre) @ up(w2))[..., 0] + up(b2)[0], (u_s, u_t)
 
 
 def plain_sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
@@ -103,11 +121,13 @@ def plain_sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
 
 def _node_grads(o_s, o_t, w1, d_us, d_ut):
     """``(d_o_s, d_o_t, d_w1, d_b1)`` from the gradients w.r.t. ``u_s`` and
-    ``u_t``: node-level products, no per-candidate work (the kernel forms
-    them in its epilogues)."""
-    d_w1 = (torch.einsum('bsr,bsq->rq', o_s, d_us)
-            + torch.einsum('btr,btq->rq', o_t, d_ut))
-    return d_us @ w1.T, d_ut @ w1.T, d_w1, d_us.sum(dim=(0, 1))
+    ``u_t`` (in the sums' dtype): node-level products, no per-candidate
+    work (the kernel forms them in its epilogues)."""
+    up = lambda a: a.to(d_us.dtype)  # noqa: E731
+    d_w1 = (torch.einsum('bsr,bsq->rq', up(o_s), d_us)
+            + torch.einsum('btr,btq->rq', up(o_t), d_ut))
+    return (d_us @ up(w1).T, d_ut @ up(w1).T, d_w1,
+            d_us.sum(dim=(0, 1)))
 
 
 def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
@@ -117,16 +137,21 @@ def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     sums ``d_pre`` over each row's candidates and ``d_u_t`` minus
     ``d_pre`` over the slots pointing at each target (the shortlist's
     receiver order). ``state = (u_s, u_t)``: the forward's node rows, else
-    formed here. Holds ``[B, N_s, K, R]`` while it runs."""
+    formed here. Every sum runs in (at least) float32; each gradient is
+    cast to the operands' dtype once. Holds ``[B, N_s, K, R]`` while it
+    runs."""
     sl = _shortlist(S_idx, o_t.shape[1])
+    up, rnd = rounding(o_s.dtype)
     u_s, u_t = _factored(o_s, o_t, w1, b1) if state is None else state
-    pre = u_s[:, :, None, :] - sl.gather(u_t)
-    d_pre = torch.where(pre > 0, g[..., None] * w2[:, 0], 0.0)
+    g = up(g)
+    pre = rnd(up(u_s)[:, :, None, :] - up(sl.gather(u_t)))
+    d_pre = torch.where(pre > 0, g[..., None] * up(w2)[:, 0], 0.0)
     d_us = d_pre.sum(dim=2)
     d_ut = -sl.scatter(d_pre)
     d_w2 = torch.einsum('bskq,bsk->q', torch.relu(pre), g)[:, None]
-    return (*_node_grads(o_s, o_t, w1, d_us, d_ut), d_w2,
-            g.sum().reshape(1))
+    grads = (*_node_grads(o_s, o_t, w1, d_us, d_ut), d_w2,
+             g.sum().reshape(1))
+    return tuple(d.to(o_s.dtype) for d in grads)
 
 
 #: Warps (source rows at a time) per block of the backward's candidate
@@ -180,14 +205,21 @@ def projection(candidates, target_rows):
                    f'target rows')
 
 
+#: The kernels' entry points for each input dtype they take.
+_FWD = {torch.float32: 'dgmc_sc_fwd_f32', torch.bfloat16: 'dgmc_sc_fwd_bf16'}
+_BWD = {torch.float32: 'dgmc_sc_bwd_f32', torch.bfloat16: 'dgmc_sc_bwd_bf16'}
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('sparse_consensus.cu')
     if not getattr(lib, 'sc_bound', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgmc_sc_fwd_f32.argtypes = [p] * 11 + [i] * 7 + [p]
-        lib.dgmc_sc_bwd_f32.argtypes = [p] * 20 + [i] * 9 + [p]
-        lib.dgmc_sc_bwd_blocks_per_sm.argtypes = [i, i]
+        for name in _FWD.values():
+            getattr(lib, name).argtypes = [p] * 11 + [i] * 7 + [p]
+        for name in _BWD.values():
+            getattr(lib, name).argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.dgmc_sc_bwd_blocks_per_sm.argtypes = [i, i, i]
         lib.dgmc_sc_node_rows.argtypes = [i]
         if lib.dgmc_sc_r_max() != R_MAX or any(
                 lib.dgmc_sc_node_rows(R) != node_rows(R)
@@ -200,10 +232,11 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_cap(index, R):
+def _bwd_cap(index, R, dtype):
     """Blocks of the backward's candidate kernel the card holds at once
-    at this R."""
-    per_sm = _library().dgmc_sc_bwd_blocks_per_sm(R, index)
+    at this R and input dtype."""
+    per_sm = _library().dgmc_sc_bwd_blocks_per_sm(
+        R, int(dtype == torch.bfloat16), index)
     if per_sm < 1:
         raise RuntimeError(f'sparse_consensus_bwd: no block fits on an SM '
                            f'at R={R} (CUDA error {-per_sm})')
@@ -213,7 +246,8 @@ def _bwd_cap(index, R):
 def _check(name, o_s, o_t, sl, weights, g=None):
     """Shapes, devices and (on CUDA) dtypes and the R limit → device.
     ``weights``: ``(w1, b1, w2, b2)``, or ``(w1, b1, w2)`` and the output
-    gradient ``g`` (checked for device and dtype too)."""
+    gradient ``g`` (checked for device too; on CUDA it is float32, the
+    delta's dtype, or the operands')."""
     if o_s.dim() != 3 or o_t.dim() != 3 or o_s.shape[0] != o_t.shape[0] \
             or o_s.shape[2] != o_t.shape[2]:
         raise ValueError(f'{name} wants o_s [B, N_s, R] and o_t [B, N_t, R]; '
@@ -240,8 +274,12 @@ def _check(name, o_s, o_t, sl, weights, g=None):
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'{name} runs on cpu or cuda, not {dev.type}')
     if dev.type == 'cuda':
-        if any(a.dtype != torch.float32 for a in tensors):
-            raise TypeError(f'the {name} kernel takes float32 only; got '
+        floats = (o_s, o_t, *weights)
+        dt = o_s.dtype
+        if (dt not in _FWD or any(a.dtype != dt for a in floats)
+                or (g is not None and g.dtype not in (torch.float32, dt))):
+            raise TypeError(f'the {name} kernel takes float32 or bfloat16, '
+                            f'every operand in one dtype; got '
                             f'{sorted({str(a.dtype) for a in tensors})}')
         if R > R_MAX:
             raise ValueError(f'the {name} kernel takes R <= {R_MAX}; got '
@@ -269,15 +307,21 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
     sl = _shortlist(S_idx, o_t.shape[1])
     args = [a.detach() for a in (o_s, o_t, w1, b1, w2, b2)]
     dev = _check('sparse_consensus_fwd', args[0], args[1], sl, args[2:])
+    dt = o_s.dtype
     if dev.type == 'cpu':
-        dispatch.record('sparse_consensus_fwd', 'plain', 'device=cpu')
+        dispatch.record('sparse_consensus_fwd', 'plain', 'device=cpu', dt)
         with torch.no_grad():
             out, state = _plain_fwd(args[0], args[1], sl, *args[2:])
         return (out, state) if return_state else out
     B, N_s, K = sl.shape
     N_t, R = o_t.shape[1], o_s.shape[2]
-    touched, reason = projection(B * N_s * K, B * N_t)
-    dispatch.record('sparse_consensus_fwd', 'kernel', f'auto-cuda, {reason}')
+    if dt == torch.float32:
+        touched, reason = projection(B * N_s * K, B * N_t)
+    else:
+        touched, reason = False, ('all rows: the touched-row form is '
+                                  'float32 only')
+    dispatch.record('sparse_consensus_fwd', 'kernel', f'auto-cuda, {reason}',
+                    dt)
     lib = _library()
     o_s, o_t, w1, b1, w2, b2 = (a.contiguous() for a in args)
     if not touched:
@@ -292,7 +336,7 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
 
     def ptr(x):
         return None if x is None else x.data_ptr()
-    err = lib.dgmc_sc_fwd_f32(
+    err = getattr(lib, _FWD[dt])(
         o_s.data_ptr(), o_t.data_ptr(), sl.idx32.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(u_s), ptr(u_t),
         out.data_ptr(), ptr(mask), B, N_s, N_t, K, R, int(touched),
@@ -300,7 +344,7 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
     if err != 0:
         raise RuntimeError(f'sparse_consensus_fwd kernel launch failed with '
                            f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
-                           f'K={K}, R={R}, touched={bool(touched)})')
+                           f'K={K}, R={R}, touched={bool(touched)}, {dt})')
     sparse_consensus_fwd.launches += 1
     return (out, (u_s, u_t, mask)) if return_state else out
 
@@ -334,29 +378,31 @@ def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
         if got != want:
             raise ValueError(f'sparse_consensus_bwd: state must be the '
                              f'forward\'s, {want}; got {got}')
+    dt = args[0].dtype
     if dev.type == 'cpu':
-        dispatch.record('sparse_consensus_bwd', 'plain', 'device=cpu')
+        dispatch.record('sparse_consensus_bwd', 'plain', 'device=cpu', dt)
         with torch.no_grad():
             return plain_sparse_consensus_bwd(args[0], args[1], sl,
                                               *args[2:], g, state)
-    dispatch.record('sparse_consensus_bwd', 'kernel', 'auto-cuda')
+    dispatch.record('sparse_consensus_bwd', 'kernel', 'auto-cuda', dt)
     lib = _library()
-    o_s, o_t, w1, w2, g = (a.contiguous() for a in (*args[:3], args[4], g))
+    o_s, o_t, w1, w2 = (a.contiguous() for a in (*args[:3], args[4]))
+    g = g.to(torch.float32).contiguous()
     N_t = o_t.shape[1]
     u_s, u_t, mask = (x.contiguous() for x in state)
     index, stream = _stream(dev)
     chunk_start, max_chunks = sl.chunks
     src_blocks, chunk_blocks, node_blocks = bwd_plan(
-        B * N_s, B * N_t, R, max_chunks, _bwd_cap(index, R))
+        B * N_s, B * N_t, R, max_chunks, _bwd_cap(index, R, dt))
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    d_us, d_os = empty(B, N_s, R), empty(B, N_s, R)
-    d_ut, d_ot = empty(B, N_t, R), empty(B, N_t, R)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    d_us, d_os = empty(B, N_s, R), empty(B, N_s, R, dtype=dt)
+    d_ut, d_ot = empty(B, N_t, R), empty(B, N_t, R, dtype=dt)
     tgt_partial = empty(max_chunks, R)
     wpart, npart = empty(src_blocks, R + 1), empty(node_blocks, R * R + R)
     grads = empty(R * R + 2 * R + 1)
-    err = lib.dgmc_sc_bwd_f32(
+    err = getattr(lib, _BWD[dt])(
         o_s.data_ptr(), o_t.data_ptr(), sl.idx32.data_ptr(), w1.data_ptr(),
         w2.data_ptr(), g.data_ptr(), sl.order32.data_ptr(),
         sl.chunk_map.data_ptr(), chunk_start.data_ptr(), u_s.data_ptr(),
@@ -367,8 +413,11 @@ def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     if err != 0:
         raise RuntimeError(f'sparse_consensus_bwd kernel launch failed with '
                            f'CUDA error {err} (B={B}, N_s={N_s}, N_t={N_t}, '
-                           f'K={K}, R={R})')
+                           f'K={K}, R={R}, {dt})')
     sparse_consensus_bwd.launches += 1
+    # The weights' gradients leave their float32 sums in the operands'
+    # dtype (one rounding; d_o_s and d_o_t come out of the kernel so).
+    grads = grads.to(dt)
     return (d_os, d_ot, grads[:R * R].view(R, R), grads[R * R:R * R + R],
             grads[R * R + R:R * R + 2 * R, None], grads[R * R + 2 * R:])
 

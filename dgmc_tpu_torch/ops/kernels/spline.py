@@ -19,7 +19,10 @@ of ``t``, its receiver and mask):
   one.
 
 Each wrapper takes its plain version for CPU tensors; on a CUDA tensor it
-launches its kernel or raises. The kernels have no size gate: they hold
+launches its kernel or raises. ``t`` and ``g`` may be float32 or
+bfloat16 (the precision policy's variant); ``basis`` stays float32 and
+every sum runs in float32, the output rounded to ``t``'s (``g``'s) dtype
+once, as the JAX package's kernels write it. The kernels have no size gate: they hold
 no per-graph working set (the TPU kernel's VMEM limits ``MAX_E``/``MAX_N``
 do not apply), so every CUDA call launches.
 
@@ -171,10 +174,11 @@ def build_records(routing, basis):
         raise ValueError(f'{B * E * A} slots over {B * M} rows exceed the '
                          f'int32 records of the spline kernels')
     if dev.type == 'cpu':
-        dispatch.record('spline_records', 'plain', 'device=cpu')
+        dispatch.record('spline_records', 'plain', 'device=cpu',
+                        basis.dtype)
         return (*plain_edge_records(routing, basis),
                 *plain_slot_records(routing, basis))
-    dispatch.record('spline_records', 'kernel', 'auto-cuda')
+    dispatch.record('spline_records', 'kernel', 'auto-cuda', basis.dtype)
     rcv_order, rcv_off = routing.receiver_csr()
     slot_order, slot_off = routing.slot_csr()
     basis = basis.detach().contiguous()
@@ -195,18 +199,25 @@ def build_records(routing, basis):
     return edge_rec, edge_off, slot_rec, row_off
 
 
+def _acc(dtype):
+    """The dtype the sums run in: float32, or wider inputs' own."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def plain_route_aggregate(t, basis, routing):
     """The plain version of the forward: gather the ``A`` rows of every
     edge, blend them with ``basis``, masked mean over each receiver's
-    edges (differentiable by autograd)."""
+    edges, in (at least) float32, rounded to ``t``'s dtype once
+    (differentiable by autograd)."""
     B, M, O = t.shape
     E, A = routing.flat.shape[1:]
+    acc = _acc(t.dtype)
     picked = torch.gather(
-        t, 1, routing.flat.reshape(B, E * A, 1).expand(-1, -1, O))
-    msgs = torch.einsum('bea,beao->beo', basis.to(t.dtype),
+        t.to(acc), 1, routing.flat.reshape(B, E * A, 1).expand(-1, -1, O))
+    msgs = torch.einsum('bea,beao->beo', basis.to(acc),
                         picked.reshape(B, E, A, O))
     return scatter_to_nodes(msgs, routing.receivers, routing.edge_mask,
-                            routing.num_nodes, aggr='mean')
+                            routing.num_nodes, aggr='mean').to(t.dtype)
 
 
 def _g_norm(g, routing):
@@ -220,24 +231,28 @@ def _g_norm(g, routing):
 def plain_route_d_t(g, basis, routing):
     """The plain version of the backward w.r.t. ``t``: ``g [B, N, O]`` →
     ``d_t [B, M, O]``, each slot's ``basis * g[rcv] / deg`` summed into
-    its ``flat`` row in slot order."""
+    its ``flat`` row in slot order, in (at least) float32, rounded to
+    ``g``'s dtype once."""
     B, E, A = routing.flat.shape
     O = g.shape[-1]
-    gn = _g_norm(g, routing)
+    acc = _acc(g.dtype)
+    gn = _g_norm(g.to(acc), routing)
     rows = torch.gather(gn, 1, routing.receivers[..., None].expand(-1, -1,
                                                                     O))
-    contrib = basis.to(g.dtype)[..., None] * rows[:, :, None, :]
+    contrib = basis.to(acc)[..., None] * rows[:, :, None, :]
     mask = routing.edge_mask[..., None].expand(B, E, A).reshape(B, E * A)
     return scatter_to_nodes(contrib.reshape(B, E * A, O),
                             routing.flat.reshape(B, E * A), mask,
-                            routing.num_rows, aggr='sum')
+                            routing.num_rows, aggr='sum').to(g.dtype)
 
 
 def _d_basis(g, t, routing):
-    """Gradient w.r.t. ``basis`` (plain PyTorch): ``mask_e * sum_o
-    (g/deg)[b, rcv_e, o] * t[b, flat[b, e, a], o]``."""
+    """Gradient w.r.t. ``basis`` (plain PyTorch, in at least float32):
+    ``mask_e * sum_o (g/deg)[b, rcv_e, o] * t[b, flat[b, e, a], o]``."""
     B, E, A = routing.flat.shape
     O = g.shape[-1]
+    acc = _acc(g.dtype)
+    g, t = g.to(acc), t.to(acc)
     gn = _g_norm(g, routing)
     rows = torch.gather(gn, 1, routing.receivers[..., None].expand(-1, -1,
                                                                     O))
@@ -247,21 +262,27 @@ def _d_basis(g, t, routing):
     return d * routing.edge_mask[..., None].to(d.dtype)
 
 
+#: The kernels' entry points for each dtype of ``t`` (forward) and ``g``
+#: (``d_t``) they take.
+_FWD = {torch.float32: 'dgmc_spline_route_fwd_f32',
+        torch.bfloat16: 'dgmc_spline_route_fwd_bf16'}
+_DT = {torch.float32: 'dgmc_spline_route_dt_f32',
+       torch.bfloat16: 'dgmc_spline_route_dt_bf16'}
+
+
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('spline.cu')
     if not getattr(lib, 'spline_bound', False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dgmc_spline_route_fwd_f32.argtypes = [p] * 4 + [i, i, ll, i, i,
-                                                           i, p]
+        for fn in _FWD.values():
+            getattr(lib, fn).argtypes = [p] * 4 + [i, i, ll, i, i, i, p]
+        for fn in _DT.values():
+            getattr(lib, fn).argtypes = [p] * 6 + [i, i, ll, i, i, p]
         lib.dgmc_spline_records.argtypes = [p] * 11 + [ll] * 3 + [i] * 3 + [
             ll, i, p]
-        lib.dgmc_spline_route_dt_f32.argtypes = [p] * 6 + [i, i, ll, i, i,
-                                                          p]
-        for fn in (lib.dgmc_spline_route_fwd_f32,
-                   lib.dgmc_spline_route_dt_f32,
-                   lib.dgmc_spline_records):
-            fn.restype = ctypes.c_int
+        for fn in (*_FWD.values(), *_DT.values(), 'dgmc_spline_records'):
+            getattr(lib, fn).restype = ctypes.c_int
         lib.spline_bound = True
     return lib
 
@@ -274,9 +295,10 @@ def _check(t_or_g, basis, routing, name):
     dev = t_or_g.device
     if dev.type not in ('cpu', 'cuda'):
         raise ValueError(f'{name} runs on cpu or cuda, not {dev.type}')
-    if dev.type == 'cuda' and (t_or_g.dtype != torch.float32
+    if dev.type == 'cuda' and (t_or_g.dtype not in _FWD
                                or basis.dtype != torch.float32):
-        raise TypeError(f'the {name} kernel takes float32 only; got '
+        raise TypeError(f'the {name} kernel takes float32 or bfloat16 '
+                        f'rows and float32 basis weights; got '
                         f'{t_or_g.dtype} / {basis.dtype}')
     if tuple(basis.shape) != tuple(routing.flat.shape):
         raise ValueError(f'basis {tuple(basis.shape)} and flat '
@@ -300,20 +322,21 @@ def route_fwd(t, basis, routing):
                          f'{routing.num_rows}')
     t, basis = t.detach(), basis.detach()
     if dev.type == 'cpu':
-        dispatch.record('spline_route_fwd', 'plain', 'device=cpu')
+        dispatch.record('spline_route_fwd', 'plain', 'device=cpu', t.dtype)
         return plain_route_aggregate(t, basis, routing)
-    dispatch.record('spline_route_fwd', 'kernel', 'auto-cuda')
+    dispatch.record('spline_route_fwd', 'kernel', 'auto-cuda', t.dtype)
     lib = _library()
     N, A = routing.num_nodes, routing.flat.shape[2]
     records, offsets = routing.edge_records(basis)
     t = t.contiguous()
-    out = torch.empty((B, N, O), dtype=torch.float32, device=dev)
-    err = lib.dgmc_spline_route_fwd_f32(
+    out = torch.empty((B, N, O), dtype=t.dtype, device=dev)
+    err = getattr(lib, _FWD[t.dtype])(
         t.data_ptr(), records.data_ptr(), offsets.data_ptr(), out.data_ptr(),
         B, N, M, O, A, *_stream(dev))
     if err != 0:
         raise RuntimeError(f'spline_route_fwd kernel launch failed with CUDA '
-                           f'error {err} (B={B}, N={N}, M={M}, O={O}, A={A})')
+                           f'error {err} (B={B}, N={N}, M={M}, O={O}, A={A}, '
+                           f'{t.dtype})')
     route_fwd.launches += 1
     return out
 
@@ -328,23 +351,25 @@ def route_d_t(g, basis, routing):
                          f'{routing.num_nodes}')
     g, basis = g.detach(), basis.detach()
     if dev.type == 'cpu':
-        dispatch.record('spline_route_bwd', 'plain', 'device=cpu')
+        dispatch.record('spline_route_bwd', 'plain', 'device=cpu', g.dtype)
         return plain_route_d_t(g, basis, routing)
-    dispatch.record('spline_route_bwd', 'kernel', 'auto-cuda')
+    dispatch.record('spline_route_bwd', 'kernel', 'auto-cuda', g.dtype)
     lib = _library()
     M = routing.num_rows
     records, offsets = routing.slot_records(basis)
     _, rcv_offsets = routing.receiver_csr()
     g = g.contiguous()
-    g_norm = torch.empty_like(g)       # scratch: g / max(deg, 1)
-    d_t = torch.empty((B, M, O), dtype=torch.float32, device=dev)
-    err = lib.dgmc_spline_route_dt_f32(
+    # scratch: g / max(deg, 1) in float32 under either dtype of g
+    g_norm = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    d_t = torch.empty((B, M, O), dtype=g.dtype, device=dev)
+    err = getattr(lib, _DT[g.dtype])(
         g.data_ptr(), records.data_ptr(), offsets.data_ptr(),
         rcv_offsets.data_ptr(), g_norm.data_ptr(), d_t.data_ptr(), B, N, M,
         O, *_stream(dev))
     if err != 0:
         raise RuntimeError(f'spline_route_bwd kernel launch failed with CUDA '
-                           f'error {err} (B={B}, N={N}, M={M}, O={O})')
+                           f'error {err} (B={B}, N={N}, M={M}, O={O}, '
+                           f'{g.dtype})')
     route_d_t.launches += 1
     return d_t
 

@@ -6,16 +6,20 @@ design and bound. :func:`streaming_topk` is its wrapper:
 
 - a CPU tensor takes :func:`plain_topk`, the blockwise scan in plain
   PyTorch with the same contract;
-- a CUDA tensor launches the kernel, or raises on what the kernel does
-  not take (a dtype other than float32). Only ``k > K_MAX`` takes the
-  plain version on the card, and only through a recorded dispatch
-  decision with reason ``k>K_MAX``.
+- a CUDA tensor launches the kernel, float32 or bfloat16 (``h_s`` and
+  ``h_t`` in one dtype), or raises on what the kernel does not take (any
+  other dtype). Only ``k > K_MAX`` takes the plain version on the card,
+  and only through a recorded dispatch decision with reason
+  ``k>K_MAX``.
 
 Contract (both paths): values descending, lowest target index first
-among equal values; masked targets score ``finfo(float32).min``; the
+among equal values; masked targets score ``finfo(dtype).min``; the
 carry starts at ``-inf``, so when ``k`` exceeds the valid targets the
 masked ones fill the tail in index order. The search is selection and
-carries no gradient.
+carries no gradient. For bfloat16 inputs (the precision policy's
+variant) the products and sums run in float32 and each score is rounded
+to bfloat16 before selection, as the JAX package's kernel rounds them
+through the input dtype; the values come back in bfloat16.
 """
 
 import ctypes
@@ -60,17 +64,22 @@ def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
     target block's scores are merged with the running carry by one
     stable descending sort over (carry ‖ block), carry first, so earlier
     (lower) indices win ties exactly as in a top-k of the full matrix.
+    Scores are products and sums in (at least) float32, rounded to the
+    inputs' dtype (bfloat16) and carried in float32.
     """
     with torch.no_grad():
         B, N_s, _ = h_s.shape
         N_t = h_t.shape[1]
-        neg = torch.finfo(h_s.dtype).min
-        vals = torch.full((B, N_s, k), -math.inf, dtype=h_s.dtype,
+        dt = h_s.dtype
+        acc = torch.promote_types(dt, torch.float32)
+        neg = torch.finfo(dt).min
+        vals = torch.full((B, N_s, k), -math.inf, dtype=acc,
                           device=h_s.device)
         idx = torch.zeros((B, N_s, k), dtype=torch.int64, device=h_s.device)
         for start in range(0, N_t, block):
             stop = min(start + block, N_t)
-            scores = torch.bmm(h_s, h_t[:, start:stop].transpose(1, 2))
+            scores = torch.bmm(h_s.to(acc), h_t[:, start:stop].to(acc)
+                               .transpose(1, 2)).to(dt).to(acc)
             if t_mask is not None:
                 scores = scores.masked_fill(
                     ~t_mask[:, None, start:stop], neg)
@@ -82,17 +91,17 @@ def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
                                  stable=True)
             vals = sv[..., :k]
             idx = torch.gather(cand_i, -1, pos[..., :k])
-        return vals, idx.to(torch.int32)
+        return vals.to(dt), idx.to(torch.int32)
 
 
 def _library():
     from dgmc_tpu_torch.ops.kernels.build import load_library
     lib = load_library('topk.cu')
     if not getattr(lib, 'topk_bound', False):
-        fn = lib.dgmc_topk_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn in (lib.dgmc_topk_f32, lib.dgmc_topk_bf16):
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         for name in ('dgmc_topk_k_max', 'dgmc_topk_targets_per_tile',
                      'dgmc_topk_row_tile', 'dgmc_topk_blocks_per_sm'):
             getattr(lib, name).restype = ctypes.c_int
@@ -148,10 +157,15 @@ def launch_plan(B, N_s, N_t, sms):
     return ts, -(-n_tiles // tiles_per_seg), tiles_per_seg
 
 
+#: The kernel's entry point for each input dtype it takes.
+_ENTRY = {torch.float32: 'dgmc_topk_f32', torch.bfloat16: 'dgmc_topk_bf16'}
+
+
 @dispatch.kernel_wrapper('topk')
 def streaming_topk(h_s, h_t, k, t_mask=None):
     """Exact top-k of ``h_s @ h_t^T`` per source row → ``(vals, idx)``
-    (float32 / int32, ``[B, N_s, k]``). See the module docstring."""
+    (``h_s``'s dtype / int32, ``[B, N_s, k]``). See the module
+    docstring."""
     if h_s.dim() != 3 or h_t.dim() != 3 or h_s.shape[0] != h_t.shape[0] \
             or h_s.shape[2] != h_t.shape[2]:
         raise ValueError(f'streaming_topk wants h_s [B, N_s, C] and h_t '
@@ -170,21 +184,22 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     if len(devs) != 1:
         raise ValueError(f'streaming_topk inputs lie on several devices: '
                          f'{sorted(map(str, devs))}')
-    device = h_s.device
+    device, dt = h_s.device, h_s.dtype
     h_s, h_t = h_s.detach(), h_t.detach()
     if device.type == 'cpu':
-        dispatch.record('topk', 'plain', 'device=cpu')
+        dispatch.record('topk', 'plain', 'device=cpu', dt)
         return plain_topk(h_s, h_t, k, t_mask)
     if device.type != 'cuda':
         raise ValueError(f'streaming_topk runs on cpu or cuda, not '
                          f'{device.type}')
+    if h_t.dtype != dt or dt not in _ENTRY:
+        raise TypeError(f'the topk kernel takes float32 or bfloat16, both '
+                        f'inputs in one dtype; got {h_s.dtype} / '
+                        f'{h_t.dtype}')
     if k > K_MAX:
-        dispatch.record('topk', 'plain', f'k>{K_MAX}')
+        dispatch.record('topk', 'plain', f'k>{K_MAX}', dt)
         return plain_topk(h_s, h_t, k, t_mask)
-    if h_s.dtype != torch.float32 or h_t.dtype != torch.float32:
-        raise TypeError(f'the topk kernel takes float32 only; got '
-                        f'{h_s.dtype} / {h_t.dtype}')
-    dispatch.record('topk', 'kernel', 'auto-cuda')
+    dispatch.record('topk', 'kernel', 'auto-cuda', dt)
     lib = _library()
     h_s, h_t = h_s.contiguous(), h_t.contiguous()
     mask = (None if t_mask is None
@@ -200,7 +215,7 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
                              device=device)
         part_i = torch.empty((B * N_s, nseg, k), dtype=torch.int32,
                              device=device)
-    err = lib.dgmc_topk_f32(
+    err = getattr(lib, _ENTRY[dt])(
         h_s.data_ptr(), h_t.data_ptr(),
         None if mask is None else mask.data_ptr(),
         None if part_v is None else part_v.data_ptr(),
@@ -210,6 +225,9 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     if err != 0:
         raise RuntimeError(f'topk kernel launch failed with CUDA error '
                            f'{err} (B={B}, N_s={N_s}, N_t={N_t}, C={C}, '
-                           f'k={k}, rows per block={ts}, segments={nseg})')
+                           f'k={k}, {dt}, rows per block={ts}, '
+                           f'segments={nseg})')
     streaming_topk.launches += 1
-    return out_v, out_i
+    # Scores of bf16 inputs are carried in float32 but bf16 holds them
+    # exactly: the cast only narrows the storage.
+    return out_v.to(dt), out_i

@@ -28,7 +28,11 @@ def dense_topk(h_s, h_t, k, t_mask=None):
     h_t ``[B, N_t, C]`` → int32 indices ``[B, N_s, k]``; invalid target
     columns (``t_mask`` False) rank last."""
     with torch.no_grad():
-        scores = torch.bmm(h_s, h_t.transpose(1, 2))
+        # Products and sums in (at least) float32, each score rounded to
+        # the inputs' dtype (bfloat16), as the streaming search rounds it.
+        acc = torch.promote_types(h_s.dtype, torch.float32)
+        scores = torch.bmm(h_s.to(acc), h_t.to(acc).transpose(1, 2)).to(
+            h_s.dtype)
         if t_mask is not None:
             scores = scores.masked_fill(~t_mask[:, None, :],
                                         torch.finfo(scores.dtype).min)

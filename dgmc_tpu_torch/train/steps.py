@@ -30,6 +30,7 @@ import torch
 
 from dgmc_tpu_torch.models import metrics
 from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.train.state import apply_gradients
 
 __all__ = ['DeviceBatch', 'batch_to_device', 'dropout_generator',
            'loss_and_outputs', 'make_train_step', 'make_eval_step']
@@ -112,8 +113,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             generator=dropout_generator(noise_seed, dev))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
+        apply_gradients(state)
         with torch.no_grad():
             out = {'loss': loss.detach(),
                    'loss_per_pair': metrics.nll_loss(

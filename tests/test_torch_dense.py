@@ -47,7 +47,7 @@ from dgmc_tpu_torch.models import metrics
 from dgmc_tpu_torch.models.dgmc import DGMC, Correspondence
 from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.ops.kernels import dispatch
-from dgmc_tpu_torch.train.state import create_train_state
+from dgmc_tpu_torch.train.state import apply_gradients, create_train_state
 from dgmc_tpu_torch.train.steps import (batch_to_device, loss_and_outputs,
                                         make_eval_step, make_train_step)
 from dgmc_tpu_torch.utils.data import PairLoader, pad_pair_batch
@@ -314,6 +314,40 @@ def test_adam_matches_optax():
                                        atol=1e-6)
 
 
+def test_adam_updates_parameters_without_a_gradient_as_optax():
+    """DBP15K's two phases leave some parameters without a gradient (ψ₂
+    and the consensus MLP in phase 1, ψ₁ in phase 2): optax still updates
+    them, on one step count, from a zero gradient (moments decaying), and
+    ``apply_gradients`` does the same (``torch.optim.Adam`` alone skips
+    them). Tolerance as above."""
+    rng = np.random.RandomState(1)
+    p0 = {'a': rng.randn(4, 3).astype(np.float32),
+          'b': rng.randn(3).astype(np.float32)}
+    tx = optax.adam(1e-3)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    opt = tx.init(jp)
+    model = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for k, v in p0.items()})
+    state = create_train_state(model, learning_rate=1e-3)
+    for step in range(8):
+        live = 'a' if step < 4 else 'b'
+        g = {k: (rng.randn(*v.shape).astype(np.float32) if k == live
+                 else np.zeros_like(v)) for k, v in p0.items()}
+        upd, opt = tx.update({k: jnp.asarray(v) for k, v in g.items()}, opt,
+                             jp)
+        jp = optax.apply_updates(jp, upd)
+        state.optimizer.zero_grad(set_to_none=True)
+        model[live].grad = torch.from_numpy(g[live])
+        apply_gradients(state)
+        for k in p0:
+            np.testing.assert_allclose(model[k].detach().numpy(),
+                                       np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-6, err_msg=f'{k} {step}')
+    assert state.step == 8
+    assert not np.allclose(model['a'].detach().numpy(), p0['a'])
+
+
 def test_eval_step_sums(setup):
     out = make_eval_step(setup['model'](), hits_ks=(1, 3))(
         setup['tb'], 0, r_s=setup['r_s'])
@@ -336,8 +370,8 @@ def test_cli_loss_falls_on_cpu(capsys):
         if kind == 'train':
             losses.append(float(out['loss']))
 
-    pascal_pf.main(['--device', 'cpu', '--epochs', '1', '--dim', '16',
-                    '--rnd_dim', '8', '--num_steps', '2'], hook=hook)
+    pascal_pf.main(['--device', 'cpu', '--f32', '--epochs', '1', '--dim',
+                    '16', '--rnd_dim', '8', '--num_steps', '2'], hook=hook)
     assert len(losses) == 16 and np.isfinite(losses).all()
     assert np.mean(losses[-4:]) < np.mean(losses[:4])
     assert 'Epoch: 01, Loss: ' in capsys.readouterr().out

@@ -415,12 +415,18 @@ def test_sparse_consensus_backward_reuses_the_forwards_u(cuda, name):
 
 def _plain_mask(args, sl):
     """The ReLU mask as the forward writes it, from the plain factored
-    form: bit l of word c of a candidate is ``pre > 0`` in channel
-    ``l + 32 c``, ``[B*N_s*K, ceil(R/32)]`` int32."""
-    o_s, o_t, w1, b1 = args[:4]
+    form (for bf16 inputs rounded as the kernels round: u, then pre):
+    bit l of word c of a candidate is ``pre > 0`` in channel ``l + 32 c``,
+    ``[B*N_s*K, ceil(R/32)]`` int32."""
+    o_s, o_t, w1, b1 = (a.float() for a in args[:4])
+    dt = args[0].dtype
+
+    def rnd(x):
+        return x.to(dt).float()
     R = o_s.shape[2]
     nc = -(-R // 32)
-    pre = (o_s @ w1 + b1)[:, :, None, :] - sl.gather(o_t @ w1)
+    pre = rnd(rnd(rnd(o_s @ w1) + b1)[:, :, None, :]
+              - sl.gather(rnd(o_t @ w1)))
     bits = torch.zeros(pre.numel() // R, 32 * nc, dtype=torch.int64,
                        device=pre.device)
     bits[:, :R] = (pre.reshape(-1, R) > 0).long()
@@ -566,3 +572,170 @@ def test_sparse_consensus_backward_from_the_touched_rows_state(cuda, name):
     want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
     for a, b in zip(grads, want):
         assert torch.equal(a, b)
+
+
+# -- bf16 variants (the precision policy's): each kernel against its plain
+# bf16 version, bit-equal on the same exact inputs (small integers and
+# quarters are exact in bf16; every product and sum stays exact in
+# float32, so both sides round the same values at the same points).
+
+BF16 = torch.bfloat16
+
+# C = 256, the KG training width, and C = 200: several channel slots of
+# the bf16 ring (each landed slot widened in turn), the last one partial.
+BF16_WIDE_CASES = [(1, 300, 2000, 256, 10, 0.3),
+                   (1, 17, 20000, 256, 10, None),
+                   (2, 130, 1100, 256, K_MAX, 0.5),
+                   (1, 64, 5000, 200, 10, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', CASES + BF16_WIDE_CASES)
+def test_topk_kernel_bf16_matches_plain(cuda, case):
+    B, N_s, N_t, C, k, masked = case
+    rng = np.random.RandomState(N_s + N_t + 1)
+    h_s = torch.from_numpy(rng.randint(-3, 4, (B, N_s, C))).to(cuda, BF16)
+    h_t = torch.from_numpy(rng.randint(-3, 4, (B, N_t, C))).to(cuda, BF16)
+    mask = (None if masked is None
+            else torch.from_numpy(rng.rand(B, N_t) > masked).to(cuda))
+    before = streaming_topk.launches
+    v, i = streaming_topk(h_s, h_t, k, mask)
+    torch.cuda.synchronize()
+    assert streaming_topk.launches == before + 1 and v.dtype == BF16
+    d = dispatch.decisions()['topk']
+    assert (d['path'], d['dtype']) == ('kernel', 'bfloat16')
+    pv, pi = plain_topk(h_s, h_t, k, mask)
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', SPLINE_CASES)
+def test_spline_kernels_bf16_match_plain(cuda, case):
+    t, g, basis, routing = _spline_case(cuda, *case)
+    t, g = t.to(BF16), g.to(BF16)
+    before = (route_fwd.launches, route_d_t.launches)
+    out, d_t = route_fwd(t, basis, routing), route_d_t(g, basis, routing)
+    torch.cuda.synchronize()
+    assert (route_fwd.launches, route_d_t.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert out.dtype == d_t.dtype == BF16
+    assert dispatch.decisions()['spline_route_bwd']['dtype'] == 'bfloat16'
+    assert torch.equal(out, plain_route_aggregate(t, basis, routing))
+    assert torch.equal(d_t, plain_route_d_t(g, basis, routing))
+    assert torch.equal(out, route_fwd(t, basis, routing))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', CONSENSUS_CASES)
+def test_consensus_kernel_bf16_matches_plain(cuda, case):
+    B, N_s, N_t, R = case
+    rng = np.random.RandomState(N_s + N_t + R + 1)
+
+    def ints(*shape, lo=-2, hi=3):
+        return torch.from_numpy(rng.randint(lo, hi, shape)).to(cuda, BF16)
+
+    args = (ints(B, N_s, R), ints(B, N_t, R), ints(R, R), ints(R),
+            ints(R, 1), ints(1))
+    before = consensus_fwd.launches
+    out = consensus_fwd(*args)
+    torch.cuda.synchronize()
+    assert consensus_fwd.launches == before + 1
+    assert out.dtype == torch.float32
+    assert dispatch.decisions()['consensus_fwd']['dtype'] == 'bfloat16'
+    assert torch.equal(out, plain_consensus(*args))
+    assert torch.equal(out, consensus_fwd(*args))
+
+
+def _sc_bf16(args, g):
+    return tuple(a.to(BF16) for a in args), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(SC_SHORTLISTS))
+def test_sparse_consensus_kernels_bf16_match_plain(cuda, name):
+    """Forward (with the ReLU mask of the rounded pre-activations) and
+    backward on the hard shortlists; the touched-row form is float32
+    only, so bf16 projects every row even where candidates are fewer."""
+    B, N_s, N_t, K, R = SC_SHORTLISTS[name]
+    rng = np.random.RandomState(sum(SC_SHORTLISTS[name]) + 2)
+    sl = _sc_shortlist(name.split('_r_')[0], rng, B, N_s, N_t, K)
+    args, g = _sc_bf16(*_sc_exact(cuda, rng, B, N_s, N_t, R, K))
+    for widen in (False, True):
+        if widen:
+            args, sl = _widen(args, sl, max(N_t, N_s * K + 1))
+        before = (sparse_consensus_fwd.launches,
+                  sparse_consensus_bwd.launches)
+        out, state = sparse_consensus_fwd(args[0], args[1], sl, *args[2:],
+                                          return_state=True)
+        grads = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+        torch.cuda.synchronize()
+        assert (sparse_consensus_fwd.launches,
+                sparse_consensus_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        d = dispatch.decisions()['sparse_consensus_fwd']
+        assert d['dtype'] == 'bfloat16' and 'all rows' in d['reason']
+        assert out.dtype == torch.float32 and state[0].dtype == BF16
+        assert torch.equal(out, plain_sparse_consensus_fwd(
+            args[0], args[1], sl, *args[2:]))
+        assert torch.equal(state[2], _plain_mask(args, sl))
+        want = plain_sparse_consensus_bwd(*args[:2], sl, *args[2:5], g)
+        for got, w in zip(grads, want):
+            assert got.dtype == BF16 and torch.equal(got, w)
+        again = sparse_consensus_bwd(*args[:2], sl, *args[2:5], g, state)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_accumulate_f32(cuda):
+    """2048 cotangents of 0.5 onto one target row: exactly -1024 through
+    the sparse and the dense consensus kernels' autograd forms (a bf16
+    running sum would stall at -256)."""
+    from dgmc_tpu_torch.ops.kernels.consensus import consensus_update
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        fused_candidate_delta)
+    N_s, R = 2048, 8
+    idx = torch.zeros((1, N_s, 1), dtype=torch.int64, device=cuda)
+    for fn in (lambda *a: fused_candidate_delta(a[0], a[1], idx, *a[2:]),
+               consensus_update):
+        o_t = torch.zeros((1, 4, R), dtype=BF16, device=cuda,
+                          requires_grad=True)
+        out = fn(torch.zeros((1, N_s, R), dtype=BF16, device=cuda), o_t,
+                 torch.eye(R, dtype=BF16, device=cuda),
+                 torch.ones(R, dtype=BF16, device=cuda),
+                 torch.ones((R, 1), dtype=BF16, device=cuda),
+                 torch.zeros(1, dtype=BF16, device=cuda))
+        (0.5 * out.sum()).backward()
+        want = torch.full_like(o_t, -1024.0)
+        if out.shape[-1] == 1:   # sparse: every candidate on target 0
+            want[0, 1:] = 0
+        assert o_t.grad.dtype == BF16 and torch.equal(o_t.grad, want)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_half_and_mixed_dtypes(cuda):
+    """float32 or bfloat16, every float operand in one dtype: float16 and
+    a mix raise (no fallback)."""
+    def z(*shape, dtype=torch.float16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+    R = 8
+    sl = Shortlist(torch.zeros((1, 4, 2), dtype=torch.int64, device=cuda), 4)
+    basis = torch.ones(1, 3, 4, device=cuda)
+    routing = Routing(torch.zeros((1, 3, 4), dtype=torch.int64, device=cuda),
+                      torch.zeros((1, 3), dtype=torch.int64, device=cuda),
+                      torch.ones((1, 3), dtype=torch.bool, device=cuda),
+                      2, 50)
+    for dt in (torch.float16, None):
+        def f(*shape):
+            return z(*shape, dtype=dt or BF16)
+        last = z(1, dtype=torch.float16) if dt is None else f(1)
+        with pytest.raises(TypeError):
+            streaming_topk(f(1, 4, R), z(1, 6, R, dtype=dt or torch.float32),
+                           2)
+        with pytest.raises(TypeError):
+            route_fwd(z(1, 50, R, dtype=dt or torch.float64), basis, routing)
+        with pytest.raises(TypeError):
+            consensus_fwd(f(1, 4, R), f(1, 4, R), f(R, R), f(R), f(R, 1),
+                          last)
+        with pytest.raises(TypeError):
+            sparse_consensus_fwd(f(1, 4, R), f(1, 4, R), sl, f(R, R), f(R),
+                                 f(R, 1), last)

@@ -514,7 +514,8 @@ def test_cli_trains_both_phases_on_cpu(capsys):
         if kind == 'train':
             losses.append(float(out['loss']))
 
-    dbp15k.main(['--device', 'cpu', '--synthetic', '--syn_nodes_s', '120',
+    dbp15k.main(['--device', 'cpu', '--f32', '--synthetic',
+                 '--syn_nodes_s', '120',
                  '--syn_nodes_t', '150', '--syn_edges_s', '500',
                  '--syn_edges_t', '600', '--syn_dim', '24', '--dim', '16',
                  '--rnd_dim', '8', '--num_layers', '2', '--num_steps', '2',

@@ -172,8 +172,9 @@ def test_splineconv_routes_through_wrapper_and_matches_plain():
     dispatch.reset()
     got = conv(g.x, g)
     assert dispatch.decisions()['spline_route_fwd'] == {
-        'path': 'plain', 'reason': 'device=cpu',
-        'counts': {'kernel': 0, 'plain': 1}}
+        'path': 'plain', 'reason': 'device=cpu', 'dtype': 'float32',
+        'counts': {'kernel': 0, 'plain': 1},
+        'dtypes': {'plain:float32': 1}}
     B, N, _ = g.x.shape
     basis, combo = open_spline_basis(g.edge_attr, 5, 1)
     routing = Routing(g.senders[..., None] * 25 + combo, g.receivers,
