@@ -9,23 +9,30 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 With ``--steps`` it runs none of the phases below: it builds the kernels
 of the ``dgmc_tpu_torch`` under ``DIR`` (default: beside this script),
-then times N synchronized steps (after 2 warm-up steps) of the dense
-PascalPF training step (the CLI's defaults under the float32 policy, one
-fixed batch, so no collation) and of the KG phase-2 step, profiles one
-more of each and prints one JSON line of medians, device busy time,
-device ops, the port's kernels by name and the dtype each ran in. With ``--kernels`` it builds them and times,
-at the main path's shapes, the two sparse consensus kernels, a whole
-SplineCNN call's routing and ``route_fwd``, and the top-k kernel at a
-query's rows beside ``torch.topk(bmm)`` (:func:`kernel_times`). Running either for two trees in turns in one
-call (say, an unpacked parent commit, then this one) compares them on
-one card.
+then, under each precision policy, times N synchronized steps (after 2
+warm-up steps) of the dense PascalPF training loop (the CLI's defaults
+and loop: a new batch each step, collated in the step's thread; a tree
+with pinned host batches and ``PrefetchLoader`` also runs it with the
+batches made in the loader's thread) and of the KG phase-2 step, splits each
+step's host time into the draws, the wait for the batch, the upload and
+the rest (:func:`steps`), profiles one more of each and prints one JSON
+line of medians with min and max, the host split, device busy time and
+share, device ops, the port's kernels by name and the dtype each ran
+in. It takes any tree of the port with the precision policy. With
+``--kernels`` it builds them and times, at the main path's shapes, the
+two sparse consensus kernels, a whole SplineCNN call's routing and
+``route_fwd``, and the top-k kernel at a query's rows beside
+``torch.topk(bmm)`` (:func:`kernel_times`).
+Running either for two trees in turns in one call (say, an unpacked
+parent commit, then this one) compares them on one card.
 
 Phases (any failure exits non-zero and prints no result line). The
 float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 ``*_bf16`` phases run the bf16 policy:
 
 - ``build``: compiles every kernel source of ``dgmc_tpu_torch/csrc``
-  (one ``nvcc`` per source, started together).
+  (one ``nvcc`` per source, started together) and the C++ collation
+  (``dgmc_tpu_torch/native``, ``g++``).
 - ``topk_kernel``: the CUDA top-k kernel against its plain PyTorch
   version on the card — bit-equal indices and values on integer-valued
   cases (ties, a random mask, k above the valid targets, tile
@@ -95,13 +102,25 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   values, its plain version and the PyTorch call in bf16 where there is
   one, each with its bound in bf16 bytes and operations at the bf16
   peak.
+- ``rng_kernel``: the draw kernel (``csrc/rng.cu``, Philox4x32-10)
+  against its plain version on the CPU, the device the stream must not
+  depend on (:func:`phase_rng_kernel`): normals at the dense noise's
+  [10, 64, 80, 64], the KG and whole-graph query noise's [10, 1, 15000,
+  32] and the small queries' shapes within one float32 ulp (the count of
+  elements that differ at all printed), uniforms (negatives over 2^24
+  targets: the words' 24 bits) and negatives [1, 15000, 10] over 20000
+  targets bit-equal; repeats bit-identical; a batch of pairs equal to
+  each pair drawn alone at its offset. Times the kernel, its plain
+  version on the card and ``torch.randn`` / ``torch.randint`` (yardstick
+  only), each with its bound (the bytes written).
 - ``serve``: the DBP15K-width model (seed-initialized) serving through
   ``MatchEngine`` over the 20000-node / 120000-edge synthetic corpus:
   8 sampled queries of 16-64 nodes and the whole 15000-node source KG as
   one query. Per query: the dispatch ledger shows the kernels, the top-k
-  launch count rose once and the sparse-consensus forward's once per
-  consensus step (10), a repeat gives an identical answer; both counts
-  are filed by the query's padded rows. Then the kernel
+  launch count rose once, the sparse-consensus forward's once per
+  consensus step (10) and the draw's once (the query's noise), a repeat
+  gives an identical answer; the counts are filed by the query's padded
+  rows; every collation took the native path. Then the kernel
   is held against its plain version on each query's own ψ₁ rows and the
   corpus table, and one small query answered on the CPU plain path must
   agree. A ``torch.profiler`` breakdown of a small and the whole-graph
@@ -109,13 +128,17 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 - ``train``: the PascalPF-width dense model trained through the CLI's
   own ``main`` (one epoch of 16 steps of 64 pairs, 80 nodes / 640 edges,
   plus 128 held-out pairs): the dispatch ledger shows the kernels, the
-  launch counters rise by 44/44/10/22 per train step and 44/0/10/22 per
-  eval batch (the last: the records' build, once per SplineCNN call),
-  every loss is finite; the spline launches are also filed by
-  the width they ran at (:func:`spline_launches_by_width`). Then: the
-  first step's loss and gradients
-  against the CPU plain path on the same weights, batch and noise
-  (``GRAD_TOL``, with a float64 CPU reference beyond it); two 2-step
+  launch counters (route fwd / d_t / dense consensus / records / draw)
+  rise by 44/44/10/2/1 per train step and 44/0/10/2/1 per eval batch
+  (the records once per graph batch: the routing is cached on it), every
+  loss is finite, every collation took the native path; the spline
+  launches are also filed by the width they ran at
+  (:func:`spline_launches_by_width`). Then: the losses and gradients of
+  the CLI's first six steps (its batches, each device drawing the
+  step's noise itself) against the CPU plain path on the same weights
+  (:func:`_hold_grads`: ``GRAD_TOL``, with a float64 CPU reference
+  beyond it, over the six draws; the card's path without the port's
+  kernels printed beside); two 2-step
   runs from one seed give bit-identical losses; the median step time,
   pairs/s, peak memory and a profile of one step (informational).
 - ``kg_train``: sparse DGMC trained at the DBP15K width and shapes on the
@@ -123,12 +146,14 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   through the CLI's own ``dbp15k.main``: 10 phase-1 epochs (one eval),
   then 4 phase-2 epochs with their evals. The dispatch ledger shows the
   kernels; the launch counters (topk / sparse-consensus forward /
-  backward) rise by 1/0/0 per phase-1 step and eval, 1/10/10 per phase-2
-  step and 1/10/0 per phase-2 eval; every loss is finite. Then: the first
-  phase-2 step's loss and gradients against the CPU plain path on the
-  same weights, shortlist, noise and negatives, ψ₁'s dropout off, at the
-  full widths and 1500 / 2000 entities (``GRAD_TOL`` with a float64 CPU
-  reference beyond it); two 2-step phase-2 runs from one seed give
+  backward / draw) rise by 1/0/0/1 per phase-1 step, 1/0/0/0 per phase-1
+  eval, 1/10/10/2 per phase-2 step and 1/10/0/1 per phase-2 eval; every
+  loss is finite; the collation took the native path. Then: the losses
+  and gradients of a phase-2 step under the draws of the CLI's first six
+  phase-2 steps against the CPU plain path on the same weights and
+  shortlist, each device drawing the noise and negatives itself, ψ₁'s
+  dropout off, at the full widths and 1500 / 2000 entities (as in
+  ``train``); two 2-step phase-2 runs from one seed give
   bit-identical losses; median step times, peak memory and a profile of
   one phase-2 step (informational), with each of the port's kernels'
   device time per launch on the real phase-2 shortlists.
@@ -149,9 +174,11 @@ the top-k and the sparse-consensus forward at 16, 32 and 64 rows
 their counters read around each serve query of that size, its match and
 repeat), the spline kernels at ψ₂'s O=64 (``...@O=64``; launches: the
 counters read around each of their calls at that width in the ``train``
-phase), the spline records' build, and each bf16 variant
-(``topk_bf16``, ``spline_route_fwd_bf16``, ... ``sparse_consensus_bwd_bf16``;
-launches: the bf16 training phases' counters) (``ms_source`` says
+phase), the spline records' build, each bf16 variant (``topk_bf16``,
+``spline_route_fwd_bf16``, ... ``sparse_consensus_bwd_bf16``; launches:
+the bf16 training phases' counters) and the draw kernel at its three
+main shapes (``rng_normal@...``, ``rng_negatives@...``; launches: the
+float32 main paths' draws of that shape) (``ms_source`` says
 whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
 times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
@@ -159,6 +186,7 @@ matrix products and cuDNN.
 """
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -194,6 +222,13 @@ def log(msg):
     print(msg, flush=True)
 
 
+def _host_ms(fn):
+    """Host milliseconds of one call of ``fn``."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def cuda_ms(fn, runs=10, warmup=2):
     """Median milliseconds of ``fn`` over ``runs`` CUDA-event timings."""
     for _ in range(warmup):
@@ -211,7 +246,9 @@ def cuda_ms(fn, runs=10, warmup=2):
     return statistics.median(times)
 
 
-def phase_build():
+def phase_build(collation=True):
+    """Build every CUDA source (in parallel) and, with ``collation``, the
+    C++ collation library."""
     from dgmc_tpu_torch.ops.kernels import build
     sources = sorted(f for f in os.listdir(build.CSRC_DIR)
                      if f.endswith('.cu'))
@@ -225,6 +262,13 @@ def phase_build():
         for line in lib.build_log.splitlines():
             if any(w in line for w in ('registers', 'spill', 'Compiling')):
                 log(f'build: {name} {line.strip()}')
+    if not collation:
+        return
+    from dgmc_tpu_torch import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError('the C++ collation library did not build (g++)')
+    log(f'build: native/collate.cpp g++ in {time.perf_counter() - t0:.2f}s')
 
 
 def _topk_case(gen, B, N_s, N_t, C, k, mask_p=None, valid=None,
@@ -1248,6 +1292,169 @@ BF16_ROWS = {
                                   'sparse_consensus.py:77')}
 
 
+#: The draw kernel's rows: ``(main path, kind, [steps, B, N_s, R or
+#: num_rnd])`` at the main paths' shapes; each row's launches are its own
+#: path's (the whole-graph serve query draws the KG noise's shape too,
+#: filed under ``serve``).
+RNG_ROWS = {'rng': ('kg_train', 'normal', (10, 1, 15000, 32)),
+            'rng@dense': ('train', 'normal', (10, 64, 80, 64)),
+            'rng_negatives': ('kg_train', 'negatives', (1, 15000, 10))}
+#: ``{(path, kind, steps, B, P): launches}`` of the draw kernel on the
+#: float32 main paths (``serve``, ``train``, ``kg_train``), each read
+#: around its own run.
+RNG_MAIN = {}
+
+
+@contextlib.contextmanager
+def rng_launches(path):
+    """Within the block, file every launch of the draw kernel under
+    ``(path, kind, steps, B, P)`` in :data:`RNG_MAIN`: the wrapper's
+    counter (``rng._draw.launches``) read around each call of the model's
+    two entry points, ``philox_normal`` and ``philox_negatives``."""
+    from dgmc_tpu_torch.ops.kernels import rng
+    normal, negatives = rng.philox_normal, rng.philox_negatives
+
+    def counted(key, fn, *args, **kw):
+        before = rng._draw.launches
+        out = fn(*args, **kw)
+        RNG_MAIN[key] = RNG_MAIN.get(key, 0) + rng._draw.launches - before
+        return out
+
+    rng.philox_normal = lambda steps, B, P, *a, **kw: counted(
+        (path, 'normal', steps, B, P), normal, steps, B, P, *a, **kw)
+    rng.philox_negatives = lambda n_valid, P, *a, **kw: counted(
+        (path, 'negatives', 1, n_valid.shape[0], P), negatives, n_valid, P,
+        *a, **kw)
+    try:
+        yield
+    finally:
+        rng.philox_normal, rng.philox_negatives = normal, negatives
+
+
+def _rng_key(path, kind, shape):
+    steps, B, N, R = (shape if kind == 'normal' else (1, *shape))
+    return path, kind, steps, B, N * R
+
+
+def _ulps(got, want):
+    """Float32 ulps between two tensors of finite values (their bit
+    patterns as integers, the same sign assumed where they differ)."""
+    return (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+
+
+def phase_rng_kernel(res):
+    """The draw kernel (``csrc/rng.cu``) against its plain version on the
+    CPU, the device the stream must not depend on: uniforms and negatives
+    bit-equal, normals bit-equal or within one float32 ulp (the count of
+    elements that differ at all printed), at the main path's shapes (the
+    dense noise [10, 64, 80, 64], the KG and whole-graph serve noise [10,
+    1, 15000, 32], the small serve queries' [10, 1, 16-64, 32], the
+    negatives [1, 15000, 10] over 20000 valid targets) and on ragged
+    cases; repeats bit-identical; a batch of pairs equal to the same pairs
+    drawn one at a time at their offsets, on the card. Times the kernel,
+    its plain version on the card and ``torch.randn`` / ``torch.randint``
+    at the same shape (yardstick only), each with its bound (the bytes
+    written)."""
+    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
+    from dgmc_tpu_torch.ops.kernels import rng
+    seed = (7 << 40) + 12345          # both key words in use
+    cases = [('dense', (10, 64, 80, 64)), ('kg', (10, 1, 15000, 32)),
+             *((f'serve {n}', (10, 1, n, 32)) for n in SMALL_ROWS),
+             ('ragged', (3, 2, 7, 3)), ('one', (1, 1, 1, 1))]
+    for label, (T, B, N, R) in cases:
+        got = draw_noise(T, B, N, R, seed, pair_offset=5, device='cuda')
+        torch.cuda.synchronize()
+        want = draw_noise(T, B, N, R, seed, pair_offset=5)
+        ulps = _ulps(got.cpu(), want)
+        n_diff, worst = int((ulps > 0).sum()), int(ulps.max())
+        if worst > 1 or not torch.isfinite(got).all():
+            raise AssertionError(f'rng normals {label}: {n_diff} elements '
+                                 f'differ, by up to {worst} ulps')
+        if not torch.equal(got, draw_noise(T, B, N, R, seed, pair_offset=5,
+                                           device='cuda')):
+            raise AssertionError(f'rng normals {label}: a repeat differs')
+        log(f'rng_kernel: normals {label} [{T}, {B}, {N}, {R}]: {n_diff} of '
+            f'{got.numel()} elements differ from the CPU plain version '
+            f'(at most {worst} float32 ulp); mean {float(got.mean()):.5f}, '
+            f'std {float(got.std(correction=0)):.5f}')
+        for key, (_, kind, shape) in RNG_ROWS.items():
+            if kind == 'normal' and shape == (T, B, N, R):
+                res[key]['max_abs_err'] = float(
+                    (got.cpu() - want).abs().max())
+    # The uniforms' 24 bits exactly: negatives over n_valid = 2^24.
+    for label, (B, P) in (('kg', (1, 4800000)), ('ragged', (3, 9))):
+        nv = torch.full((B,), 1 << 24)
+        got = hold_equal(f'rng uniforms {label}', lambda: rng.philox_negatives(
+            nv.cuda(), P, seed, 2, 1).cpu(), lambda: rng.philox_negatives(
+                nv, P, seed, 2, 1))
+        if not torch.equal(got, rng.plain_philox_words(1, B, P, seed, 2,
+                                                       1)[:, :P] >> 8):
+            raise AssertionError(f'rng uniforms {label}: not the words\' '
+                                 f'24 bits')
+        log(f'rng_kernel: uniforms {label} [{B}, {P}] (negatives over 2^24 '
+            f'targets): bit-equal to x >> 8')
+    for label, n_valid, N, J in (('kg', [20000], 15000, 10),
+                                 ('ragged', [20000, 5, 0, 1], 37, 3)):
+        nv = torch.tensor(n_valid)
+        got = hold_equal(f'rng negatives {label}', lambda: draw_negatives(
+            nv.cuda(), N, J, seed, 9).cpu(), lambda: draw_negatives(
+                nv, N, J, seed, 9))
+        hi = (nv - 1).clamp(min=0)[:, None, None]
+        if got.dtype != torch.int64 or (got < 0).any() or (got > hi).any():
+            raise AssertionError(f'rng negatives {label}: out of range')
+        log(f'rng_kernel: negatives {label} over {n_valid} valid targets '
+            f'[{len(n_valid)}, {N}, {J}]: bit-equal, in range')
+    res['rng_negatives']['max_abs_err'] = 0.0
+    # A batch of pairs draws what the same pairs draw one at a time.
+    z = draw_noise(4, 5, 33, 8, seed, pair_offset=3, device='cuda')
+    nv = torch.tensor([50, 7, 1, 0, 3], device='cuda')
+    neg = draw_negatives(nv, 33, 5, seed, pair_offset=3)
+    for b in range(5):
+        if not (torch.equal(z[:, b:b + 1], draw_noise(
+                4, 1, 33, 8, seed, pair_offset=3 + b, device='cuda'))
+                and torch.equal(neg[b:b + 1], draw_negatives(
+                    nv[b:b + 1], 33, 5, seed, pair_offset=3 + b))):
+            raise AssertionError(f'rng: pair {b} of a batch differs from its '
+                                 f'draw alone')
+    log('rng_kernel: a batch of 5 pairs at offset 3 equals each pair drawn '
+        'alone at its offset (noise and negatives)')
+
+    for key, (path, kind, shape) in RNG_ROWS.items():
+        _, _, steps, B, P = _rng_key(path, kind, shape)
+        if kind == 'normal':
+            calls = {'kernel': lambda: rng.philox_normal(steps, B, P, seed,
+                                                         0, 0, 'cuda'),
+                     'plain': lambda: rng.plain_philox_normal(
+                         steps, B, P, seed, 0, 0, 'cuda'),
+                     'library': lambda: torch.randn(shape, device='cuda')}
+            nbytes = 4.0 * steps * B * P
+        else:
+            nv = torch.tensor([20000], device='cuda')
+            calls = {'kernel': lambda: rng.philox_negatives(nv, P, seed),
+                     'plain': lambda: rng.plain_philox_negatives(nv, P,
+                                                                 seed),
+                     'library': lambda: torch.randint(
+                         0, 20000, shape, device='cuda')}
+            nbytes = 8.0 * B * P + 8.0 * B
+        got, src = timed(calls)
+        b_ms, b_by = bound(0.0, nbytes)
+        log(f'rng_kernel: {kind} {list(shape)}: bound {b_ms:.4f} ms '
+            f'({nbytes / 1e6:.2f} MB written at {PEAK_BYTES / 1e12} TB/s; the '
+            f'float64 and integer operations are not bounded: the peak '
+            f'table has no rate for them); ms per call [{src}] / wall: '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got.items())
+            + f'; kernel at {nbytes / got["kernel"][0] / 1e9:.3f} TB/s')
+        res[key].update(name=f'rng_{kind}@{"x".join(map(str, shape))}',
+                        route='cuda', source='dgmc_tpu_torch/csrc/rng.cu',
+                        replaces=('dgmc_tpu/models/dgmc.py:525'
+                                  if kind == 'normal'
+                                  else 'dgmc_tpu/models/dgmc.py:736'),
+                        ms=got['kernel'][0], plain_ms=got['plain'][0],
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=got['library'][0], ms_source=src)
+
+
 def _bf16_row(res, key, **kw):
     source, line = BF16_ROWS[key]
     name = key.replace('@64', '@O=64')
@@ -1578,9 +1785,11 @@ def _step_profile(run, label):
 
 #: Launches per step of the KG training path: (topk, sparse-consensus
 #: forward, backward). One search per forward; 10 consensus steps.
-KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd')
-KG_PER = {('train', 1): (1, 0, 0), ('eval', 1): (1, 0, 0),
-          ('train', 2): (1, 10, 10), ('eval', 2): (1, 10, 0)}
+KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd', 'rng')
+#: ... and the draws: the negatives in every training step, the
+#: indicator noise wherever consensus steps run.
+KG_PER = {('train', 1): (1, 0, 0, 1), ('eval', 1): (1, 0, 0, 0),
+          ('train', 2): (1, 10, 10, 2), ('eval', 2): (1, 10, 0, 1)}
 KG_ARGV = ['--synthetic', '--seed', '0']
 #: Each phase pins its precision policy (the CLIs' default is bf16);
 #: ``--precision f32`` is also what the port's trees before the policy
@@ -1611,45 +1820,137 @@ def _kg_loss_and_grads(model, batch, S_idx, r_s, neg, device, dtype):
                          if p.grad is not None}
 
 
-def _hold_grads(label, out):
-    """The first step's loss (within 1e-4 relative) and gradients of
-    ``out['cuda']`` against ``out['cpu']``: each within GRAD_TOL of the
-    tensor's largest entry or else, held against ``out['cpu float64']``,
-    no farther from it than min(2 x the CPU float32 error, GRAD_F64_CAP).
+@contextlib.contextmanager
+def plain_on_card():
+    """Within the block the model's kernels give way to their plain
+    versions on the card too (the spline routing, the dense and the
+    sparse consensus, each differentiable by autograd): the card's
+    float32 path without the port's kernels, which tells a kernel's
+    rounding from that of the card's libraries (cuBLAS, atomics)."""
+    from dgmc_tpu_torch.models import dgmc as dgmc_mod
+    from dgmc_tpu_torch.models import spline as spline_mod
+    from dgmc_tpu_torch.ops.kernels import sparse_consensus, spline
+    swaps = [(dgmc_mod, 'consensus_update', dgmc_mod.plain_consensus),
+             (sparse_consensus, 'fused_candidate_delta',
+              sparse_consensus.plain_fused_candidate_delta),
+             (spline_mod, 'route_aggregate', spline.plain_route_aggregate)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+#: A first step's runs: label, device, dtype, the port's kernels on (on
+#: the CPU every wrapper takes its plain version anyway).
+FIRST_STEP_RUNS = (('cuda', 'cuda', torch.float32, True),
+                   ('cuda plain', 'cuda', torch.float32, False),
+                   ('cuda plain float64', 'cuda', torch.float64, False),
+                   ('cpu', 'cpu', torch.float32, True),
+                   ('cpu float64', 'cpu', torch.float64, True))
+
+
+def _first_steps(label, run):
+    """``{run label: (loss, grads)}`` of ``run(device, dtype)`` (one
+    training forward and backward) for each of :data:`FIRST_STEP_RUNS`."""
+    out = {}
+    for name, dev, dtype, kernels in FIRST_STEP_RUNS:
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if kernels else plain_on_card():
+            out[name] = run(dev, dtype)
+        log(f'{label}: forward+backward on {name}: loss {out[name][0]:.8f} '
+            f'in {time.perf_counter() - t0:.2f}s')
+    return out
+
+
+def _hold_grads(label, draws):
+    """The first step on the card against the CPU plain path over several
+    draws of the main path (``draws``: one :func:`_first_steps` each):
+
+    - on every draw the losses within 1e-4 relative (float32) and 1e-10
+      (float64), the same parameters with gradients, the
+      :data:`ZERO_GRAD` ones ~0;
+    - the card computes the CPU's function: in float64, its plain path
+      (``cuda plain float64``, :func:`plain_on_card`) gives each
+      gradient within GRAD_F64_TOL of the tensor's largest entry from
+      the CPU's;
+    - each gradient of the kernels' float32 path within GRAD_TOL of its
+      largest entry from the CPU's on every draw, or else, held against
+      the CPU float64 path (errors as fractions of the tensor's largest
+      float64 entry): no larger than GRAD_F64_RATIO x the error of the
+      card's own float32 path without the port's kernels (``cuda
+      plain``), in the mean over the draws and at the worst draw.
+
     At random init ψ₂'s gradients are small sums of large terms that
-    cancel, so float32 rounding alone moves them by up to a few 1e-3 of
-    their largest entry on either device; float64 says which side the
-    rounding is on."""
-    rel = abs(out['cuda'][0] - out['cpu'][0]) / abs(out['cpu'][0])
-    if rel > 1e-4:
-        raise AssertionError(f'{label}: CPU and CUDA losses differ: {rel}')
+    cancel, so float32 rounding alone moves them by 1e-3 to 1e-2 of their
+    largest entry, by different amounts on each draw and on each device:
+    the float32 runs differ by up to 12x on one draw, each way, and on
+    some draws all three err by the same amount. The card's plain path
+    shares every library call of the card's run but none of the port's
+    kernels: what the kernels' error is held against. The CPU float32
+    error is printed beside it."""
+    for i, out in enumerate(draws):
+        for card, cpu, tol in (('cuda', 'cpu', 1e-4),
+                               ('cuda plain float64', 'cpu float64', 1e-10)):
+            rel = abs(out[card][0] - out[cpu][0]) / abs(out[cpu][0])
+            if rel > tol:
+                raise AssertionError(f'{label} draw {i}: {card} and {cpu} '
+                                     f'losses differ: {rel}')
+        for name, ref in out['cpu float64'][1].items():
+            got = out['cuda plain float64'][1][name]
+            scale = max(float(ref.abs().max()), 1e-30)
+            err = float((got - ref).abs().max()) / scale
+            if name not in ZERO_GRAD and err > GRAD_F64_TOL:
+                raise AssertionError(f'{label} draw {i} {name}: the card\'s '
+                                     f'float64 gradient differs from the '
+                                     f'CPU\'s by {err:.3g} of max|grad|')
+        if set(out['cuda'][1]) != set(out['cpu'][1]):
+            raise AssertionError(f'{label} draw {i}: CPU and CUDA differ in '
+                                 f'which parameters have gradients')
+        for name in ZERO_GRAD:
+            got = [out[k][1][name] for k in ('cuda', 'cpu')
+                   if name in out[k][1]]
+            if any(float(g.abs().max()) > 1e-5 for g in got):
+                raise AssertionError(f'{label} draw {i} {name}: gradient '
+                                     f'not ~0')
     worst, by_f64 = 0.0, []
-    for name, ref in out['cpu float64'][1].items():
-        got, want = out['cuda'][1][name], out['cpu'][1][name]
+    for name in draws[0]['cpu float64'][1]:
         if name in ZERO_GRAD:
-            if max(float(got.abs().max()), float(want.abs().max())) > 1e-5:
-                raise AssertionError(f'{name}: gradient not ~0')
             continue
-        scale = float(ref.abs().max())
-        diff = float((got - want).abs().max()) / scale
-        worst = max(worst, diff)
-        if diff <= GRAD_TOL:
+        diff, errs = [], {k: [] for k in ('cuda', 'cuda plain', 'cpu')}
+        for out in draws:
+            ref = out['cpu float64'][1][name]
+            scale = float(ref.abs().max())
+            diff.append(float((out['cuda'][1][name]
+                               - out['cpu'][1][name]).abs().max()) / scale)
+            for k, e in errs.items():
+                e.append(float((out[k][1][name] - ref).abs().max()) / scale)
+        worst = max(worst, max(diff))
+        if max(diff) <= GRAD_TOL:
             continue
-        e_cuda = float((got - ref).abs().max()) / scale
-        e_cpu = float((want - ref).abs().max()) / scale
-        by_f64.append(f'{name} (|cuda-cpu| {diff:.3g}, |cuda-f64| '
-                      f'{e_cuda:.3g}, |cpu-f64| {e_cpu:.3g})')
-        if e_cuda > min(2 * e_cpu, GRAD_F64_CAP):
-            raise AssertionError(f'{label} {name}: CUDA gradient off by '
-                                 f'{e_cuda:.3g} of max against float64, the '
-                                 f'CPU by {e_cpu:.3g}')
-    if set(out['cuda'][1]) != set(out['cpu'][1]):
-        raise AssertionError(f'{label}: CPU and CUDA differ in which '
-                             f'parameters have gradients')
-    log(f'{label}: CUDA agrees with the CPU plain path: loss rel {rel:.3g}; '
-        f'{len(out["cuda"][1])} gradients within {GRAD_TOL:g} x max|grad| '
-        f'per tensor (worst {worst:.3g}) except, held against float64: '
-        f'{by_f64 or "none"}')
+        mean = {k: statistics.mean(e) for k, e in errs.items()}
+        top = {k: max(e) for k, e in errs.items()}
+        by_f64.append(name)
+        log(f'{label}: {name} against float64 over {len(draws)} draws (of '
+            f'max|grad|): ' + '; '.join(
+                f'{k} mean {mean[k]:.3g} worst {top[k]:.3g} ['
+                + ', '.join(f'{x:.3g}' for x in e) + ']'
+                for k, e in errs.items()))
+        for stat, v in (('mean', mean), ('worst draw', top)):
+            if v['cuda'] > GRAD_F64_RATIO * v['cuda plain']:
+                raise AssertionError(
+                    f'{label} {name}: the CUDA gradient\'s error against '
+                    f'float64 ({stat} {v["cuda"]:.3g}) exceeds '
+                    f'{GRAD_F64_RATIO:g} x that of the card\'s path '
+                    f'without the port\'s kernels ({v["cuda plain"]:.3g})')
+    log(f'{label}: CUDA agrees with the CPU plain path on {len(draws)} '
+        f'draws: in float64 every gradient within {GRAD_F64_TOL:g} x '
+        f'max|grad|; in float32 {len(draws[0]["cuda"][1])} gradients within '
+        f'{GRAD_TOL:g} x max|grad| per tensor (worst {worst:.3g}) except, '
+        f'held against float64: {by_f64 or "none"}')
 
 
 def _kg_main_path(results, policy):
@@ -1679,10 +1980,12 @@ def _kg_main_path(results, policy):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # The main path: counters at 0 just before, read just after.
-    dispatch.reset()
-    marks.append(('start', 0, t0, dispatch.launch_counts()))
-    dbp15k.main(argv, hook=hook)
-    counts = dispatch.launch_counts()
+    with (rng_launches('kg_train') if policy == 'f32'
+          else contextlib.nullcontext()):
+        dispatch.reset()
+        marks.append(('start', 0, t0, dispatch.launch_counts()))
+        dbp15k.main(argv, hook=hook)
+        counts = dispatch.launch_counts()
     decisions = dispatch.decisions()
     peak = torch.cuda.max_memory_allocated()
     want_kinds = ([('train', e) for e in range(1, P1 + 1)] + [('eval', P1)]
@@ -1699,11 +2002,15 @@ def _kg_main_path(results, policy):
                                  f'{got}, expected {want}')
     for name in KG_KERNELS:
         d = decisions[name]
+        # The draws: float32 noise, int64 negatives.
+        want = ({'kernel:float32', 'kernel:int64'} if name == 'rng'
+                else {f'kernel:{dtype}'})
         if (d['path'] != 'kernel' or d['counts']['plain']
-                or set(d['dtypes']) != {f'kernel:{dtype}'}):
+                or set(d['dtypes']) != want):
             raise AssertionError(f'{name}: dispatch {d}')
-    for name in KG_KERNELS[1 if policy == 'f32' else 0:]:
+    for name in KG_KERNELS[1 if policy == 'f32' else 0:-1]:
         results[name + tag]['launches'] = counts[name]
+    _hold_native_collation(f'kg_train ({policy})', decisions)
     if not np.isfinite(losses).all():
         raise AssertionError(f'non-finite train loss: {losses}')
     step_ms = {1: [], 2: []}
@@ -1713,10 +2020,12 @@ def _kg_main_path(results, policy):
     p1, p2 = step_ms[1][2:], step_ms[2][1:]
     log(f'kg_train ({policy}): {EPOCHS} epochs ({P1} phase 1) through '
         f'dbp15k.main in {time.perf_counter() - t0:.1f}s; launches '
-        f'{[counts[k] for k in KG_KERNELS]} (per step: phase 1 1/0/0, phase '
-        f'2 1/10/10, phase-2 eval 1/10/0); dispatch kernel in {dtype} for '
-        f'all three; losses {losses[0]:.4f} -> {losses[P1 - 1]:.4f} (phase '
-        f'1), {losses[P1]:.4f} -> {losses[-1]:.4f} (phase 2)')
+        f'{[counts[k] for k in KG_KERNELS]} (topk / sparse consensus fwd / '
+        f'bwd / rng per step: phase 1 1/0/0/1, its eval 1/0/0/0, phase 2 '
+        f'1/10/10/2, phase-2 eval 1/10/0/1); dispatch kernel in {dtype} '
+        f'(the draws float32); losses {losses[0]:.4f} -> '
+        f'{losses[P1 - 1]:.4f} (phase 1), {losses[P1]:.4f} -> '
+        f'{losses[-1]:.4f} (phase 2)')
     log(f'kg_train ({policy}): step ms (host clock, synchronized): phase 1 '
         f'median {statistics.median(p1):.3f} (min {min(p1):.3f}, max '
         f'{max(p1):.3f}, steps 3-{P1}), phase 2 median '
@@ -1751,23 +2060,28 @@ def phase_kg_train(results):
         diff_rows = int((chunked_topk(hc[0], hc[1], args.k).long()
                          != S_idx.long()).any(-1).sum())
     N_s, N_t = args.syn_nodes_s, args.syn_nodes_t
-    r_s = draw_noise(args.num_steps, 1, N_s, args.rnd_dim, seed=11)
-    neg = draw_negatives(torch.tensor([N_t]), N_s, min(args.k, N_t - args.k),
-                         seed=11)
-    out = {}
-    for label, dev, dtype in (('cuda', 'cuda', torch.float32),
-                              ('cpu', 'cpu', torch.float32),
-                              ('cpu float64', 'cpu', torch.float64)):
-        t0 = time.perf_counter()
-        out[label] = _kg_loss_and_grads(copy.deepcopy(model), train_b,
-                                        S_idx, r_s, neg, dev, dtype)
-        log(f'kg_train: first phase-2 step at {N_s}/{N_t} entities on '
-            f'{label}: loss {out[label][0]:.8f} in '
-            f'{time.perf_counter() - t0:.2f}s')
+
+    def run(dev, dtype, seed):
+        # Each device draws the noise and negatives itself (one stream),
+        # as the CLI's step draws them from its seed.
+        r_s = draw_noise(args.num_steps, 1, N_s, args.rnd_dim, seed=seed,
+                         device=dev)
+        neg = draw_negatives(torch.tensor([N_t], device=dev), N_s,
+                             min(args.k, N_t - args.k), seed=seed)
+        return _kg_loss_and_grads(copy.deepcopy(model), train_b, S_idx,
+                                  r_s, neg, dev, dtype)
+
+    # The draws of the CLI's first GRAD_DRAWS phase-2 steps.
+    draws = [_first_steps(
+        f'kg_train: phase-2 step {e} at {N_s}/{N_t} entities',
+        lambda dev, dtype, seed=dbp15k.noise_seed(args.seed, 0, e): run(
+            dev, dtype, seed))
+        for e in range(args.phase1_epochs + 1,
+                       args.phase1_epochs + 1 + GRAD_DRAWS)]
     log(f'kg_train: the CPU plain top-k differs from the kernel\'s '
         f'shortlist in {diff_rows} of {N_s} rows (near ties; both runs '
         f'take the kernel\'s)')
-    _hold_grads('kg_train', out)
+    _hold_grads('kg_train', draws)
 
     def two_steps():
         got = []
@@ -1793,8 +2107,8 @@ def phase_kg_train(results):
     draw_negatives(torch.tensor([args.syn_nodes_t], device='cuda'),
                    args.syn_nodes_s, args.k, seed=1)
     torch.cuda.synchronize()
-    log(f'kg_train: host work per phase-2 step: drawing and copying the '
-        f'indicator noise and the negatives '
+    log(f'kg_train: drawing the indicator noise and the negatives of a '
+        f'phase-2 step on the card (host clock, synchronized) '
         f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
     _step_profile(run, 'one phase-2 step')
 
@@ -1838,47 +2152,56 @@ def phase_serve(result, small, sc_small):
     sc_rows = {}   # sparse-consensus forward launches, the same way
     dispatch.reset()
     answers, answered = [], 0
-    for qi, (graph, gt) in enumerate(queries):
-        before = dispatch.launch_counts()
-        ans = engine.match(graph)
-        answered += 1
-        rows = router.route(graph.num_nodes, graph.num_edges).nodes
-        latency_ms = engine.last_latency_s * 1e3
-        after = dispatch.launch_counts()
-        for name, per in (('topk', 1), ('sparse_consensus_fwd', steps)):
-            d = dispatch.decisions()[name]
-            if d['path'] != 'kernel' or after[name] != before[name] + per:
-                raise AssertionError(f'query {qi}: {name} {d} with launches '
-                                     f'{before[name]} -> {after[name]}')
-        again = engine.match(graph)
-        answered += 1
-        by_rows[rows] = (by_rows.get(rows, 0)
-                         + dispatch.launch_counts()['topk'] - before['topk'])
-        sc_rows[rows] = (sc_rows.get(rows, 0)
-                         + dispatch.launch_counts()['sparse_consensus_fwd']
-                         - before['sparse_consensus_fwd'])
-        if again != ans:
-            raise AssertionError(f'query {qi}: a repeat gave another answer')
-        hits1 = float(np.mean([m['target'] == int(t)
-                               for m, t in zip(ans['matches'], gt)]))
-        hits1_s0 = float(np.mean([m['initial'][0] == int(t)
-                                  for m, t in zip(ans['matches'], gt)]))
-        log(f'serve: query {qi} {graph.num_nodes} nodes / '
-            f'{graph.num_edges} edges -> bucket {ans["bucket"]}: '
-            f'{latency_ms:.3f} ms (repeat '
-            f'{engine.last_latency_s * 1e3:.3f} ms, identical), hits@1 '
-            f'{hits1:.4f} (S_0 {hits1_s0:.4f})')
-        answers.append(ans)
+    with rng_launches('serve'):
+        for qi, (graph, gt) in enumerate(queries):
+            before = dispatch.launch_counts()
+            ans = engine.match(graph)
+            answered += 1
+            rows = router.route(graph.num_nodes, graph.num_edges).nodes
+            latency_ms = engine.last_latency_s * 1e3
+            after = dispatch.launch_counts()
+            for name, per in (('topk', 1), ('sparse_consensus_fwd', steps),
+                              ('rng', 1)):
+                d = dispatch.decisions()[name]
+                if d['path'] != 'kernel' or after[name] != before[name] + per:
+                    raise AssertionError(f'query {qi}: {name} {d} with '
+                                         f'launches {before[name]} -> '
+                                         f'{after[name]}')
+            again = engine.match(graph)
+            answered += 1
+            by_rows[rows] = (by_rows.get(rows, 0) - before['topk']
+                             + dispatch.launch_counts()['topk'])
+            sc_rows[rows] = (sc_rows.get(rows, 0)
+                             + dispatch.launch_counts()['sparse_consensus_fwd']
+                             - before['sparse_consensus_fwd'])
+            if again != ans:
+                raise AssertionError(f'query {qi}: a repeat gave another '
+                                     f'answer')
+            hits1 = float(np.mean([m['target'] == int(t)
+                                   for m, t in zip(ans['matches'], gt)]))
+            hits1_s0 = float(np.mean([m['initial'][0] == int(t)
+                                      for m, t in zip(ans['matches'], gt)]))
+            log(f'serve: query {qi} {graph.num_nodes} nodes / '
+                f'{graph.num_edges} edges -> bucket {ans["bucket"]}: '
+                f'{latency_ms:.3f} ms (repeat '
+                f'{engine.last_latency_s * 1e3:.3f} ms, identical), hits@1 '
+                f'{hits1:.4f} (S_0 {hits1_s0:.4f})')
+            answers.append(ans)
     launches = dispatch.launch_counts()['topk']
     sc_launches = dispatch.launch_counts()['sparse_consensus_fwd']
+    rng_count = dispatch.launch_counts()['rng']
+    _hold_native_collation('serve', dispatch.decisions())
     peak = torch.cuda.max_memory_allocated()
-    if launches != answered or sc_launches != steps * answered:
-        raise AssertionError(f'topk launched {launches} times and the '
-                             f'sparse-consensus forward {sc_launches} for '
-                             f'{answered} queries answered')
+    if (launches != answered or sc_launches != steps * answered
+            or rng_count != answered):
+        raise AssertionError(f'topk launched {launches} times, the '
+                             f'sparse-consensus forward {sc_launches} and '
+                             f'the draw {rng_count} for {answered} queries '
+                             f'answered')
     log(f'serve: {answered} queries answered, topk kernel launches '
         f'{launches}, sparse-consensus forward launches {sc_launches} '
-        f'({steps} per query); whole-graph hits@1 {hits1:.4f} (S_0 '
+        f'({steps} per query), draw launches {rng_count} (the noise, 1 '
+        f'per query); whole-graph hits@1 {hits1:.4f} (S_0 '
         f'{hits1_s0:.4f}, random weights); max_memory_allocated {peak} '
         f'bytes ({peak / 2**30:.3f} GiB)')
     result['launches'] = launches
@@ -1930,22 +2253,29 @@ def phase_serve(result, small, sc_small):
 
 
 #: Launches per train step and per eval batch at full width:
-#: (spline_route_fwd, spline_route_bwd, consensus_fwd, spline_records).
-#: ψ₁ runs 2 layers on 2 graphs (at O = 256), ψ₂ 2 layers on 2 graphs in
-#: each of 10 consensus steps (at O = 64); each of those 22 SplineCNN
-#: calls builds its routing's records once.
+#: (spline_route_fwd, spline_route_bwd, consensus_fwd, spline_records,
+#: rng). ψ₁ runs 2 layers on 2 graphs (at O = 256), ψ₂ 2 layers on 2
+#: graphs in each of 10 consensus steps (at O = 64); the 22 SplineCNN calls
+#: share one routing a graph batch, so its records are built twice (source
+#: and target); the indicator noise is one draw.
 TRAIN_KERNELS = ('spline_route_fwd', 'spline_route_bwd', 'consensus_fwd',
-                 'spline_records')
-PER_TRAIN_STEP = (44, 44, 10, 22)
-PER_EVAL_BATCH = (44, 0, 10, 22)
+                 'spline_records', 'rng')
+PER_TRAIN_STEP = (44, 44, 10, 2, 1)
+PER_EVAL_BATCH = (44, 0, 10, 2, 1)
+#: Kernels whose inputs stay float32 under either policy: the records'
+#: basis weights and the draws.
+F32_ALWAYS = ('spline_records', 'rng')
 #: Gradients that are zero but for rounding: ψ₂'s final bias shifts o_s
 #: and o_t alike, the MLP's output bias a whole row of S_hat.
 ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
-#: First-step gradients, as fractions of each tensor's largest |entry|:
-#: CUDA within GRAD_TOL of the CPU float32 path, or else no farther from
-#: the CPU float64 path than twice the CPU float32 path is, and never
-#: farther than GRAD_F64_CAP.
-GRAD_TOL, GRAD_F64_CAP = 1e-3, 2e-3
+#: First-step gradients over GRAD_DRAWS draws of the main path, as
+#: fractions of each tensor's largest |entry| (:func:`_hold_grads`): the
+#: card's float64 plain path within GRAD_F64_TOL of the CPU's; the
+#: kernels' float32 path within GRAD_TOL of the CPU float32 path, or else
+#: no farther from the CPU float64 path than GRAD_F64_RATIO x the card's
+#: float32 path without the port's kernels, in the mean over the draws
+#: and at the worst draw.
+GRAD_TOL, GRAD_F64_TOL, GRAD_F64_RATIO, GRAD_DRAWS = 1e-3, 1e-8, 2.0, 6
 
 
 @contextlib.contextmanager
@@ -1974,6 +2304,16 @@ def spline_launches_by_width():
         yield tally
     finally:
         fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+def _hold_native_collation(label, decisions):
+    """The main path collated through the C++ library only."""
+    d = decisions.get('collate')
+    if d is None or d['counts']['numpy'] or not d['counts']['native']:
+        raise AssertionError(f'{label}: collation {d}; expected the native '
+                             f'path only')
+    log(f'{label}: collation native in {d["counts"]["native"]} calls, numpy '
+        f'in none')
 
 
 def _deltas(a, b):
@@ -2024,7 +2364,9 @@ def _dense_main_path(results, policy):
             '--synthetic_eval', '128']
     torch.cuda.reset_peak_memory_stats()
     # The main path: counters at 0 just before, read just after.
-    with spline_launches_by_width() as by_width:
+    with spline_launches_by_width() as by_width, (
+            rng_launches('train') if policy == 'f32'
+            else contextlib.nullcontext()):
         dispatch.reset()
         marks.append(('start', time.perf_counter(),
                       dispatch.launch_counts()))
@@ -2043,13 +2385,13 @@ def _dense_main_path(results, policy):
             raise AssertionError(f'{cur[0]} launches {got}, expected {want}')
     for name in TRAIN_KERNELS:
         d = decisions[name]
-        # The records carry float32 basis weights under either policy.
-        want = 'float32' if name == 'spline_records' else dtype
+        want = 'float32' if name in F32_ALWAYS else dtype
         if (d['path'] != 'kernel' or d['counts']['plain']
                 or set(d['dtypes']) != {f'kernel:{want}'}):
             raise AssertionError(f'{name}: dispatch {d}')
-        if name != 'spline_records' or policy == 'f32':
+        if name not in F32_ALWAYS or (name != 'rng' and policy == 'f32'):
             results[name + tag]['launches'] = counts[name]
+    _hold_native_collation(f'train ({policy})', decisions)
     for name in TRAIN_KERNELS[:2]:
         widths = {o: n for (k, o), n in by_width.items() if k == name}
         if sum(widths.values()) != counts[name]:
@@ -2085,24 +2427,22 @@ def phase_train(results):
 
     _dense_main_path(results, 'f32')
 
-    # The first step against the CPU plain path: same weights, batch and
-    # noise (see _hold_grads).
+    # The CLI's first GRAD_DRAWS steps (its batches and its draws, each
+    # device drawing its own noise: one stream) on the card against the
+    # CPU plain path on the same weights (see _hold_grads).
     args = _train_args()
     model, loader, _ = pascal_pf.build(args)
     loader.dataset.set_epoch(1)
-    batch = next(iter(loader))
-    r_s = draw_noise(args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
-                     args.rnd_dim, seed=pascal_pf.noise_seed(0, 0, 1, 0))
-    out = {}
-    for label, dev, dtype in (('cuda', 'cuda', torch.float32),
-                              ('cpu', 'cpu', torch.float32),
-                              ('cpu float64', 'cpu', torch.float64)):
-        t0 = time.perf_counter()
-        out[label] = _loss_and_grads(copy.deepcopy(model), batch, r_s, dev,
-                                     dtype)
-        log(f'train: first step forward+backward on {label}: loss '
-            f'{out[label][0]:.8f} in {time.perf_counter() - t0:.2f}s')
-    _hold_grads('train', out)
+    draws = []
+    for i, batch in zip(range(GRAD_DRAWS), loader):
+        seed = pascal_pf.noise_seed(0, 0, 1, i)
+        draws.append(_first_steps(
+            f'train: step {i}',
+            lambda dev, dtype, batch=batch, seed=seed: _loss_and_grads(
+                copy.deepcopy(model), batch, draw_noise(
+                    args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
+                    args.rnd_dim, seed=seed, device=dev), dev, dtype)))
+    _hold_grads('train', draws)
 
     def two_steps():
         model, loader, _ = pascal_pf.build(args)
@@ -2123,21 +2463,32 @@ def phase_train(results):
     t0 = time.perf_counter()
     next(iter(loader))
     collate_ms = (time.perf_counter() - t0) * 1e3
+    # The padding alone, the C++ library against the NumPy loop, on one
+    # batch.s 64 pairs (median of 50 each, host clock).
+    from dgmc_tpu_torch.utils.data import pad_pair_batch
+    pairs = [loader.dataset[i] for i in range(args.batch_size)]
+    pad_ms = {mode: statistics.median(
+        _host_ms(lambda: pad_pair_batch(pairs, pascal_pf.NUM_NODES,
+                                        pascal_pf.NUM_EDGES, native=mode))
+        for _ in range(50)) for mode in ('require', 'never')}
+    log(f'train: padding 64 pairs (median of 50): native '
+        f'{pad_ms["require"]:.3f} ms, numpy {pad_ms["never"]:.3f} ms')
     t0 = time.perf_counter()
     draw_noise(args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
                args.rnd_dim, seed=1, device='cuda')
     torch.cuda.synchronize()
     noise_ms = (time.perf_counter() - t0) * 1e3
     log(f'train: host work per step: collating 64 pairs (transforms '
-        f'included) {collate_ms:.3f} ms, drawing and copying the '
-        f'indicator noise {noise_ms:.3f} ms')
+        f'included; the CLI does it in the step\'s thread) '
+        f'{collate_ms:.3f} ms; drawing the indicator noise on the card '
+        f'(synchronized) {noise_ms:.3f} ms')
     _step_profile(dense_step(), 'one train step')
 
 
 #: The port's kernels among the device names a profile lists.
 PORT_KERNEL = re.compile(r'::(topk_tiles|merge_lists|route_\w+|g_norm|'
                          r'\w*records|consensus_\w+|'
-                         r'project_rows|sc_\w+)\b')
+                         r'project_rows|sc_\w+|draw)\b')
 
 
 def port_kernels(rows):
@@ -2169,6 +2520,45 @@ def dense_step(policy='f32'):
     return lambda: step(state, batch, next(seeds))
 
 
+def dense_loop_step(policy, spent, prefetch=False):
+    """One step of the dense CLI's own loop under ``policy``, as a call:
+    the next batch of the epoch's loader (collated in the step's thread,
+    as ``pascal_pf.main`` does: pinned host batches where the tree has
+    ``HostBatches``; with ``prefetch``, those made in a
+    ``PrefetchLoader``'s thread), then the train step. The wait for the
+    batch adds to ``spent['collate']``."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.train import steps as steps_mod
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.utils import data as data_mod
+    args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
+    model, loader, _ = pascal_pf.build(args)
+    state = create_train_state(model.cuda(), learning_rate=args.lr)
+    step = steps_mod.make_train_step(model, loss_on_s0=True)
+    prefetch_loader = getattr(data_mod, 'PrefetchLoader', None)
+    host = getattr(steps_mod, 'HostBatches', None)
+    if host is None:
+        batches = loader
+    elif prefetch and prefetch_loader is not None:
+        batches = prefetch_loader(host(loader, 'cuda'), 2)
+    else:
+        batches = host(loader, 'cuda')
+
+    def epochs():
+        for epoch in itertools.count(1):
+            loader.dataset.set_epoch(epoch)
+            yield from batches
+
+    it, seeds = epochs(), itertools.count(1)
+
+    def run():
+        t0 = time.perf_counter()
+        batch = next(it)
+        spent['collate'] += time.perf_counter() - t0
+        step(state, batch, next(seeds))
+    return run
+
+
 def kg_step(policy='f32'):
     """One phase-2 step of the KG training path (``dbp15k`` at its
     defaults on the synthetic alignment, ψ₁ detached) under ``policy`` on
@@ -2187,45 +2577,114 @@ def kg_step(policy='f32'):
     return lambda: step(state, dev_b, next(seeds))
 
 
-def steps(n):
-    """The ``--steps`` mode: ``{step: {...}}`` for the dense and the KG
-    phase-2 step (float32), ``n`` synchronized steps each (host clock,
-    after 2 warm-up steps) and one more under the profiler; with the
-    dtype each kernel ran in (the dispatch ledger's; None for a tree
-    before the precision policy)."""
-    from dgmc_tpu_torch.ops.kernels import dispatch
-    out = {}
-    for name, make in (('dense', dense_step), ('kg_phase2', kg_step)):
-        dispatch.reset()
-        run = make()
-        for _ in range(2):
-            run()
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(n):
+@contextlib.contextmanager
+def host_timers():
+    """Within the block, add the host time spent in the model's draws
+    (``draw_noise``, ``draw_negatives``) to ``spent['draw']`` and in the
+    train step's upload (``batch_to_device``) to ``spent['upload']``:
+    those module functions wrapped by a timer (every tree of the port has
+    them)."""
+    from dgmc_tpu_torch.models import dgmc as dgmc_mod
+    from dgmc_tpu_torch.train import steps as steps_mod
+    spent = collections.defaultdict(float)
+    wrapped = [(dgmc_mod, 'draw_noise', 'draw'),
+               (dgmc_mod, 'draw_negatives', 'draw'),
+               (steps_mod, 'batch_to_device', 'upload')]
+    originals = []
+    for mod, name, part in wrapped:
+        fn = getattr(mod, name)
+        originals.append((mod, name, fn))
+
+        def timed_fn(*args, _fn=fn, _part=part, **kw):
             t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        rows, wall_ms = _profiled(run)
-        busy = sum(r[0] for r in rows) / 1e3
-        r = out[name] = {
-            'median_ms': statistics.median(ms), 'min_ms': min(ms),
-            'max_ms': max(ms), 'profiled_wall_ms': wall_ms,
-            'busy_ms': busy, 'device_ops': sum(r[2] for r in rows),
-            'kernels': {k: {'ms': us / 1e3, 'launches': c}
-                        for k, us, c in port_kernels(rows)},
-            'dtypes': {k: d.get('dtype')
-                       for k, d in dispatch.decisions().items()}}
-        log(f'steps: {name}: step ms median {r["median_ms"]:.3f} (min '
-            f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); one step '
-            f'profiled: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, '
-            f'{r["device_ops"]} device ops; the port\'s kernels '
-            + ', '.join(f'{k} {v["ms"]:.4f} ms x{v["launches"]}'
-                        for k, v in r['kernels'].items())
-            + f'; dtypes {r["dtypes"]}')
-        del run
-        torch.cuda.empty_cache()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_part] += time.perf_counter() - t0
+        setattr(mod, name, timed_fn)
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+#: The parts of a step's host time that ``--steps`` splits out.
+HOST_PARTS = ('draw', 'collate', 'upload')
+
+
+def steps(n):
+    """The ``--steps`` mode: ``{step: {...}}`` for the dense step (the
+    CLI's loop: a new batch each step, collated in the step's thread;
+    ``dense_prefetch``, where the tree has ``PrefetchLoader`` and pinned
+    host batches, makes them in the loader's thread instead) and the KG
+    phase-2 step (one uploaded batch), under each precision
+    policy: ``n`` synchronized steps each (host clock, after 2 warm-up
+    steps), the host time of each step split into the draws, the wait for
+    the batch (collation), the upload and the rest (medians over the
+    steps), then one more step under the profiler (device busy time and
+    share, ops, the port's kernels) and the dtype each kernel ran in (the
+    dispatch ledger's)."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train import steps as steps_mod
+    from dgmc_tpu_torch.utils import data as data_mod
+    # Trees with pinned host batches and PrefetchLoader also time the loop
+    # with the batches made in its thread: what the thread takes off the
+    # step.
+    prefetch = (hasattr(steps_mod, 'HostBatches')
+                and hasattr(data_mod, 'PrefetchLoader'))
+    names = ('dense', *(('dense_prefetch',) if prefetch else ()),
+             'kg_phase2')
+    out = {}
+    for policy in ('f32', 'bf16'):
+        for name in names:
+            with host_timers() as spent:
+                dispatch.reset()
+                run = (kg_step(policy) if name == 'kg_phase2' else
+                       dense_loop_step(policy, spent,
+                                       name == 'dense_prefetch'))
+                for _ in range(2):
+                    run()
+                torch.cuda.synchronize()
+                ms, split = [], {k: [] for k in (*HOST_PARTS, 'rest')}
+                for _ in range(n):
+                    spent.clear()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    for k in HOST_PARTS:
+                        split[k].append(spent[k] * 1e3)
+                    split['rest'].append(
+                        ms[-1] - sum(spent[k] * 1e3 for k in HOST_PARTS))
+                rows, wall_ms = _profiled(run)
+            busy = sum(r[0] for r in rows) / 1e3
+            key = f'{name} {policy}'
+            r = out[key] = {
+                'median_ms': statistics.median(ms), 'min_ms': min(ms),
+                'max_ms': max(ms),
+                'host_split_ms': {k: statistics.median(v)
+                                  for k, v in split.items()},
+                'profiled_wall_ms': wall_ms, 'busy_ms': busy,
+                'busy_share': busy / wall_ms,
+                'device_ops': sum(r[2] for r in rows),
+                'kernels': {k: {'ms': us / 1e3, 'launches': c}
+                            for k, us, c in port_kernels(rows)},
+                'dtypes': {k: d.get('dtype')
+                           for k, d in dispatch.decisions().items()}}
+            log(f'steps: {key}: step ms median {r["median_ms"]:.3f} (min '
+                f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); host '
+                f'split (median ms) '
+                + ', '.join(f'{k} {v:.3f}'
+                            for k, v in r['host_split_ms'].items())
+                + f'; one step profiled: wall {wall_ms:.3f} ms, device busy '
+                f'{busy:.3f} ms ({100 * r["busy_share"]:.1f}%), '
+                f'{r["device_ops"]} device ops; the port\'s kernels '
+                + ', '.join(f'{k} {v["ms"]:.4f} ms x{v["launches"]}'
+                            for k, v in r['kernels'].items())
+                + f'; dtypes {r["dtypes"]}')
+            del run
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2371,7 +2830,9 @@ def main(argv=None):
     log(f'chip_smoke: torch {torch.__version__} CUDA {torch.version.cuda} '
         f'on {torch.cuda.get_device_name(0)}; TF32 off')
     if opts.steps or opts.kernels:
-        phase_build()
+        # A tree before the port's C++ collation has none to build; this
+        # one builds it at first use.
+        phase_build(collation=False)
         got = kernel_times() if opts.kernels else steps(opts.steps)
         log(smi[0] if smi else 'nvidia-smi: no output')
         print(json.dumps({'root': os.path.abspath(opts.root),
@@ -2383,7 +2844,7 @@ def main(argv=None):
                            *(f'topk@{n}' for n in SMALL_ROWS),
                            *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
                            'spline_route_fwd@64', 'spline_route_bwd@64',
-                           *BF16_ROWS)}
+                           *BF16_ROWS, *RNG_ROWS)}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
@@ -2399,6 +2860,7 @@ def main(argv=None):
             ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
                 res['sparse_consensus_fwd'], res['sparse_consensus_bwd'],
                 sc_small)),
+            ('rng_kernel', lambda: phase_rng_kernel(res)),
             ('bf16_kernels', lambda: phase_bf16_kernels(res)),
             ('serve', lambda: phase_serve(res['topk'], small, sc_small)),
             ('train', lambda: phase_train(res)),
@@ -2415,6 +2877,12 @@ def main(argv=None):
             log(f'phase {name}: FAILED')
             if name == 'build':
                 break
+    for key, (path, kind, shape) in RNG_ROWS.items():
+        res[key]['launches'] = RNG_MAIN.get(_rng_key(path, kind, shape), 0)
+        if not failed and not res[key]['launches']:
+            failed.append(f'rng launches ({key})')
+    log(f'rng: draw launches on the float32 main paths by (path, kind, '
+        f'steps, B, P): {sorted(RNG_MAIN.items())}')
     if failed:
         print(f'chip_smoke: failed phases: {failed}', file=sys.stderr)
         return 1

@@ -12,6 +12,13 @@ are the JAX CLI's (``dgmc_tpu/experiments/pascal_pf.py``), its precision
 policy included: bf16 compute with float32 accumulation
 (``--precision bf16``); ``--f32`` computes in float32 throughout.
 
+Batches are collated (through the port's C++ collation) and prepared as
+pinned host tensors in the step's own thread, as the JAX CLI collates
+them; the step copies its batch to the card without blocking. A
+background thread (``utils.data.PrefetchLoader``) gives the same batches
+but no time back: the step's Python and the worker's share the GIL, and
+the step waited longer for it than the collation took.
+
 ``--synthetic_eval N`` also evaluates on ``N`` held-out synthetic pairs
 per epoch. ``--metrics_log PATH`` appends the JAX CLI's per-epoch JSONL
 records (``loss``, ``train_acc``, ``synthetic_eval_acc``) to ``PATH``.
@@ -23,7 +30,6 @@ import argparse
 import os
 import time
 
-import numpy as np
 import torch
 
 from dgmc_tpu_torch import resolve_device
@@ -35,7 +41,8 @@ from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
-from dgmc_tpu_torch.train.steps import make_eval_step, make_train_step
+from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
+                                        make_train_step)
 from dgmc_tpu_torch.utils.data import PairLoader
 
 __all__ = ['NUM_NODES', 'NUM_EDGES', 'parse_args', 'build', 'noise_seed',
@@ -130,18 +137,21 @@ def main(argv=None, hook=None):
                                  num_nodes=NUM_NODES, num_edges=NUM_EDGES)
 
     eval_step = make_eval_step(model) if eval_loader else None
+    train_batches = HostBatches(train_loader, device)
+    eval_batches = HostBatches(eval_loader, device) if eval_loader else None
     with MetricLogger(args.metrics_log) as logger:
         for epoch in range(1, args.epochs + 1):
-            state = _epoch(args, epoch, state, step, train_loader,
-                           eval_loader, eval_step, device, logger, hook)
+            train_loader.dataset.set_epoch(epoch)
+            state = _epoch(args, epoch, state, step, train_batches,
+                           eval_batches, eval_step, device, logger, hook)
     return state
 
 
 def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
            device, logger, hook):
     """One training epoch and, with ``--synthetic_eval``, its held-out
-    evaluation: the printed lines and the JSONL records."""
-    train_loader.dataset.set_epoch(epoch)
+    evaluation: the printed lines and the JSONL records. The loaders
+    yield host :class:`~dgmc_tpu_torch.train.steps.DeviceBatch` es."""
     t0 = time.time()
     tot_loss = torch.zeros((), device=device)
     tot_correct = torch.zeros((), device=device)
@@ -169,7 +179,7 @@ def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
             if hook is not None:
                 hook('eval', i, out)
             correct += out['correct']
-            n += float(np.asarray(b.y_mask).sum())
+            n += float(b.y_mask.sum())
         eval_acc = float(correct) / max(n, 1.0)
         print(f'Held-out synthetic: {100 * eval_acc:.2f}', flush=True)
         # A 0-1 fraction, as the JAX CLI logs it.

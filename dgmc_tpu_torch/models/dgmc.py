@@ -34,14 +34,17 @@ float32 (``S`` is); ψ₂ computes in bf16 and the consensus MLP's weights
 are cast to its output's dtype, so the kernels take their bf16 variants;
 ``S_hat``, the softmaxes and the loss stay float32, as do the parameters.
 
-Random streams: torch cannot reproduce JAX's threefry streams, so pair
-``b`` draws its indicator noise and its negatives from CPU
-``torch.Generator`` s seeded from ``(seed, pair_offset + b)``, one stream
-each — the same numbers on every device, so the CPU and CUDA paths of
-one call see the same draws, and a batch of pairs draws what the same
-pairs would draw one at a time. Tests inject JAX's own draws through
-``r_s`` and ``negatives``. Dropout masks come from the ``generator``
-passed to the forward, on the model's device.
+Random streams: torch cannot reproduce JAX's threefry streams. Pair
+``b`` draws its indicator noise and its negatives on the model's device,
+as the JAX package draws them inside its step, from a counter-based
+Philox stream keyed by the step's seed at ``(pair_offset + b, stream)``
+(:mod:`~dgmc_tpu_torch.ops.kernels.rng`: one launch of its kernel per
+draw on the card, its plain version on the CPU). Card and CPU compute the
+same stream, so the CPU and CUDA paths of one call see the same draws,
+and a batch of pairs draws what the same pairs would draw one at a time.
+Tests inject JAX's own draws through ``r_s`` and ``negatives``. Dropout
+masks come from the ``generator`` passed to the forward, on the model's
+device.
 """
 
 import dataclasses
@@ -52,7 +55,7 @@ from torch import nn
 
 from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.models.rel import lecun_normal_
-from dgmc_tpu_torch.ops.kernels import dispatch
+from dgmc_tpu_torch.ops.kernels import dispatch, rng
 from dgmc_tpu_torch.ops.kernels import sparse_consensus
 from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_update,
                                                   plain_consensus)
@@ -60,8 +63,8 @@ from dgmc_tpu_torch.ops.shortlist import Shortlist
 from dgmc_tpu_torch.ops.softmax import masked_softmax
 from dgmc_tpu_torch.ops.topk import chunked_topk
 
-__all__ = ['Correspondence', 'DGMC', 'draw_noise', 'draw_negatives',
-           'include_gt']
+__all__ = ['Correspondence', 'DGMC', 'NOISE_STREAM', 'NEGATIVES_STREAM',
+           'draw_noise', 'draw_negatives', 'include_gt']
 
 
 @dataclasses.dataclass
@@ -93,39 +96,31 @@ class Correspondence:
         return out.scatter(-1, self.idx.long(), summed)
 
 
-def _pair_generator(seed, index, stream=0):
-    """The CPU generator of pair ``index`` in random stream ``stream``
-    (0: indicator noise, 1: negatives)."""
-    return torch.Generator().manual_seed(
-        int(seed) * 1_000_003 + int(index) + (int(stream) << 40))
+#: The counter words of the two random streams of a pair
+#: (:mod:`~dgmc_tpu_torch.ops.kernels.rng`).
+NOISE_STREAM, NEGATIVES_STREAM = 0, 1
 
 
 def draw_noise(num_steps, B, N_s, R, seed=0, pair_offset=0, device='cpu'):
-    """Indicator noise ``[num_steps, B, N_s, R]``: pair ``b`` from its own
-    CPU generator seeded by ``(seed, pair_offset + b)``, then moved to
-    ``device``."""
-    out = torch.empty((num_steps, B, N_s, R), dtype=torch.float32)
-    for b in range(B):
-        g = _pair_generator(seed, pair_offset + b)
-        out[:, b] = torch.randn((num_steps, N_s, R), generator=g)
-    return out.to(device)
+    """Indicator noise ``[num_steps, B, N_s, R]`` float32, drawn on
+    ``device`` (one launch of the draw kernel on the card): pair ``b``'s
+    from the Philox stream keyed by ``seed`` at counters
+    ``(q, pair_offset + b, NOISE_STREAM)``."""
+    z = rng.philox_normal(num_steps, B, N_s * R, seed, pair_offset,
+                          NOISE_STREAM, device)
+    return z.view(num_steps, B, N_s, R)
 
 
 def draw_negatives(n_valid, N_s, num_rnd, seed=0, pair_offset=0):
     """Random negative columns ``[B, N_s, num_rnd]`` int64 on
-    ``n_valid``'s device: ``floor(u * n_valid[b])``, with ``u`` uniform in
-    ``[0, 1)`` drawn on the CPU by pair ``b``'s own generator (seeded by
-    ``(seed, pair_offset + b)``, a stream apart from the noise's), so every
-    column is a valid target. ``n_valid`` ``[B]`` counts each pair's valid
-    targets; it is not read on the host."""
-    B = n_valid.shape[0]
-    u = torch.empty((B, N_s, num_rnd), dtype=torch.float32)
-    for b in range(B):
-        u[b] = torch.rand((N_s, num_rnd), generator=_pair_generator(
-            seed, pair_offset + b, stream=1))
-    n = n_valid.to(torch.float32)[:, None, None]
-    cols = torch.floor(u.to(n_valid.device) * n)
-    return torch.minimum(cols, (n - 1).clamp(min=0)).long()
+    ``n_valid``'s device: ``floor(u * n_valid[b])`` with ``u`` uniform in
+    ``[0, 1)`` from pair ``b``'s Philox stream ``NEGATIVES_STREAM``
+    (keyed by ``seed``, at ``pair_offset + b``), so every column is a
+    valid target. ``n_valid`` ``[B]`` counts each pair's valid targets; it
+    is not read on the host."""
+    cols = rng.philox_negatives(n_valid, N_s * num_rnd, seed, pair_offset,
+                                NEGATIVES_STREAM)
+    return cols.view(n_valid.shape[0], N_s, num_rnd)
 
 
 def include_gt(S_idx, y_col, y_mask, return_replaced=False):

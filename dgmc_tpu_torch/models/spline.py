@@ -34,16 +34,31 @@ def spline_routing(graph, kernel_size, degree=1):
     """``(basis, routing)`` of a graph batch for SplineConv: the basis
     weights ``[B, E, 2^D]`` of ``graph.edge_attr`` and the
     :class:`~dgmc_tpu_torch.ops.kernels.spline.Routing` of the fused
-    ``(sender, knot)`` rows ``sender * K^D + knot``. The same for every
-    layer of a stack, so SplineCNN builds it once per call."""
+    ``(sender, knot)`` rows ``sender * K^D + knot``.
+
+    Built once per graph batch and ``(kernel_size, degree)`` and cached on
+    it (:meth:`~dgmc_tpu_torch.ops.graph.GraphBatch.memo`), so every
+    layer of every SplineCNN call on the batch shares one routing and its
+    records: a dense step's ψ₁ and its ten ψ₂ calls on a graph build one.
+    The routing carries no gradient (pseudo-coordinates are constants);
+    edge attributes that require a gradient get a routing of their own,
+    uncached."""
     if graph.edge_attr is None:
         raise ValueError('SplineConv needs edge pseudo-coordinates '
                          '(graph.edge_attr)')
-    KD = kernel_size ** graph.edge_attr.shape[-1]
-    basis, combo = open_spline_basis(graph.edge_attr, kernel_size, degree)
-    flat = graph.senders[..., None] * KD + combo
-    N = graph.num_nodes
-    return basis, Routing(flat, graph.receivers, graph.edge_mask, N, N * KD)
+
+    def build():
+        KD = kernel_size ** graph.edge_attr.shape[-1]
+        basis, combo = open_spline_basis(graph.edge_attr, kernel_size,
+                                         degree)
+        flat = graph.senders[..., None] * KD + combo
+        N = graph.num_nodes
+        return basis, Routing(flat, graph.receivers, graph.edge_mask, N,
+                              N * KD)
+
+    if graph.edge_attr.requires_grad:
+        return build()
+    return graph.memo(('spline_routing', kernel_size, degree), build)
 
 
 class SplineConv(nn.Module):

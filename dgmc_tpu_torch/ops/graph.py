@@ -17,8 +17,24 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ['GraphBatch', 'gather_nodes', 'segments', 'segment_sum',
-           'scatter_to_nodes', 'degree']
+__all__ = ['GraphBatch', 'canonical_device', 'host_tensor', 'gather_nodes',
+           'segments', 'segment_sum', 'scatter_to_nodes', 'degree']
+
+
+def canonical_device(device):
+    """``device`` as a ``torch.device``, a CUDA one with its index."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def host_tensor(array, dtype, pin_memory=False):
+    """A fresh CPU tensor of ``dtype`` holding ``array`` (in pinned memory
+    with ``pin_memory``): one copy, the conversion included."""
+    array = np.asarray(array)
+    out = torch.empty(array.shape, dtype=dtype, pin_memory=pin_memory)
+    return out.copy_(torch.from_numpy(array))
 
 
 @dataclasses.dataclass
@@ -34,10 +50,21 @@ class GraphBatch:
         edge_attr: optional ``[B, E, D]`` float32 edge features (the
             pseudo-coordinates of SplineCNN).
 
-    :meth:`csr` caches the sorted edge orders per endpoint array, so every
-    aggregation and gather gradient over one batch sorts each endpoint
-    array at most twice (real edges; every edge). The endpoint arrays and
-    masks are not to be modified after that.
+    A batch is immutable once built: :meth:`csr` caches the sorted edge
+    orders per endpoint array, so every aggregation and gather gradient
+    over one batch sorts each endpoint array at most twice (real edges;
+    every edge), and :meth:`memo` caches what a model derives from the
+    graph alone (SplineCNN's routing,
+    :func:`~dgmc_tpu_torch.models.spline.spline_routing`). Neither the
+    endpoint arrays, the masks nor the edge attributes are to be modified
+    after a batch is built.
+
+    The upload is split in two (:meth:`from_numpy`): :meth:`host`
+    validates the arrays and converts them to CPU tensors (in pinned
+    memory for a copy to the card), on any thread; then
+    :meth:`to` copies them to the device on the caller's current stream,
+    without blocking. Each host batch gets fresh pinned tensors: torch's
+    host allocator keeps them from reuse until their copy is done.
     """
     x: torch.Tensor
     senders: torch.Tensor
@@ -45,18 +72,20 @@ class GraphBatch:
     node_mask: torch.Tensor
     edge_mask: torch.Tensor
     edge_attr: Optional[torch.Tensor] = None
-    _csr: dict = dataclasses.field(default_factory=dict, repr=False,
+    _memo: dict = dataclasses.field(default_factory=dict, repr=False,
                                    compare=False)
 
     @classmethod
-    def from_numpy(cls, arrays, device):
-        """Build from the arrays of :func:`~dgmc_tpu_torch.utils.data.
-        pad_graphs` (or any dict with the same keys). Edge endpoints
-        outside ``[0, N)`` raise: the kernels index node rows with them
-        unchecked. So does a ``node_mask`` whose real nodes are not the
-        first of each graph: a candidate's validity and the negatives'
-        draw take node ``j`` as real when ``j`` is below the graph's
-        count of real nodes (as :func:`pad_graphs` pads, at the tail)."""
+    def host(cls, arrays, pin_memory=False):
+        """The host part of an upload: a batch of CPU tensors (pinned with
+        ``pin_memory``) from the arrays of
+        :func:`~dgmc_tpu_torch.utils.data.pad_graphs` (or any dict with
+        the same keys). Edge endpoints outside ``[0, N)`` raise: the
+        kernels index node rows with them unchecked. So does a
+        ``node_mask`` whose real nodes are not the first of each graph: a
+        candidate's validity and the negatives' draw take node ``j`` as
+        real when ``j`` is below the graph's count of real nodes (as
+        :func:`pad_graphs` pads, at the tail)."""
         N = np.shape(arrays['x'])[1]
         for key in ('senders', 'receivers'):
             ends = np.asarray(arrays[key])
@@ -67,17 +96,40 @@ class GraphBatch:
             raise ValueError('node_mask: the real nodes of a graph must '
                              'come first (a padded tail), not interleave '
                              'with padding')
-        def t(a, dtype):
-            return torch.as_tensor(np.asarray(a)).to(device=device,
-                                                     dtype=dtype)
         attr = arrays.get('edge_attr')
-        return cls(x=t(arrays['x'], torch.float32),
-                   senders=t(arrays['senders'], torch.int64),
-                   receivers=t(arrays['receivers'], torch.int64),
-                   node_mask=t(arrays['node_mask'], torch.bool),
-                   edge_mask=t(arrays['edge_mask'], torch.bool),
-                   edge_attr=(None if attr is None
-                              else t(attr, torch.float32)))
+        return cls(x=host_tensor(arrays['x'], torch.float32, pin_memory),
+                   senders=host_tensor(arrays['senders'], torch.int64,
+                                       pin_memory),
+                   receivers=host_tensor(arrays['receivers'], torch.int64,
+                                         pin_memory),
+                   node_mask=host_tensor(mask, torch.bool, pin_memory),
+                   edge_mask=host_tensor(arrays['edge_mask'], torch.bool,
+                                         pin_memory),
+                   edge_attr=(None if attr is None else host_tensor(
+                       attr, torch.float32, pin_memory)))
+
+    def to(self, device):
+        """This batch on ``device``: itself where it lies there already,
+        else a copy (``non_blocking``, on the current stream) with empty
+        caches."""
+        device = canonical_device(device)
+        if self.x.device == device:
+            return self
+
+        def copy(t):
+            return None if t is None else t.to(device, non_blocking=True)
+        return GraphBatch(x=copy(self.x), senders=copy(self.senders),
+                          receivers=copy(self.receivers),
+                          node_mask=copy(self.node_mask),
+                          edge_mask=copy(self.edge_mask),
+                          edge_attr=copy(self.edge_attr))
+
+    @classmethod
+    def from_numpy(cls, arrays, device):
+        """:meth:`host` (pinned for a CUDA ``device``), then :meth:`to`
+        ``device``."""
+        device = canonical_device(device)
+        return cls.host(arrays, device.type == 'cuda').to(device)
 
     @property
     def num_nodes(self):
@@ -87,16 +139,20 @@ class GraphBatch:
     def num_edges(self):
         return self.senders.shape[1]
 
+    def memo(self, key, build):
+        """``build()``, computed once per batch under ``key``."""
+        if key not in self._memo:
+            self._memo[key] = build()
+        return self._memo[key]
+
     def csr(self, key, masked=True):
         """:func:`segments` of the edges by ``key`` (``'senders'`` or
         ``'receivers'``), computed once per batch: of the real edges
         (``masked``, for :func:`scatter_to_nodes`) or of every edge (for
         :func:`gather_nodes`)."""
-        if (key, masked) not in self._csr:
-            self._csr[key, masked] = segments(
-                getattr(self, key), self.edge_mask if masked else None,
-                self.num_nodes)
-        return self._csr[key, masked]
+        return self.memo(('csr', key, masked), lambda: segments(
+            getattr(self, key), self.edge_mask if masked else None,
+            self.num_nodes))
 
 
 class _GatherNodes(torch.autograd.Function):

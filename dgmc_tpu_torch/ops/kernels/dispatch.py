@@ -2,6 +2,7 @@
 
 Every gate in front of a kernel reports its outcome here: ``kernel``
 (the CUDA kernel launched) or ``plain`` (the plain PyTorch version ran),
+or, for the host's C++ collation (``collate``), ``native`` or ``numpy``,
 with the reason and the dtype of the inputs it ran on (``float32`` or
 ``bfloat16``: the precision policy's variant) — so a run shows which
 kernels its main path actually used, and in which dtype, instead of
@@ -22,19 +23,23 @@ _lock = threading.Lock()
 _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
                   #                 'dtypes'}
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
+#: The two paths of each kind of gate.
+_PATHS = (('kernel', 'plain'), ('native', 'numpy'))
 
 
 def record(kernel, path, reason, dtype=None):
-    """Record one gate decision: ``path`` is ``'kernel'`` or ``'plain'``;
-    ``dtype`` the inputs' (a ``torch.dtype`` or its name, ``None`` where
-    the gate has no float input)."""
-    if path not in ('kernel', 'plain'):
+    """Record one gate decision: ``path`` is ``'kernel'`` or ``'plain'``
+    (``'native'`` or ``'numpy'`` for the host's collation); ``dtype`` the
+    inputs' (a ``torch.dtype`` or its name, ``None`` where the gate has no
+    float input)."""
+    pair = next((p for p in _PATHS if path in p), None)
+    if pair is None:
         raise ValueError(f'unknown dispatch path {path!r}')
     name = None if dtype is None else str(dtype).replace('torch.', '')
     with _lock:
         entry = _decisions.setdefault(
             kernel, {'path': path, 'reason': reason, 'dtype': name,
-                     'counts': {'kernel': 0, 'plain': 0}, 'dtypes': {}})
+                     'counts': dict.fromkeys(pair, 0), 'dtypes': {}})
         entry['path'], entry['reason'], entry['dtype'] = path, reason, name
         entry['counts'][path] += 1
         key = f'{path}:{name}'

@@ -18,9 +18,12 @@ from a generator on the model's device seeded from it. ``r_s`` and
 across batches exactly.
 
 A batch is a host :class:`~dgmc_tpu_torch.utils.data.PairBatch`, uploaded
-per call, or a :class:`DeviceBatch` from :func:`batch_to_device`, which a
-loop over one fixed pair uploads once (its graphs then also keep their
-sorted edge orders across steps).
+per call, or a :class:`DeviceBatch`: from :func:`batch_to_device`, which
+a loop over one fixed pair uploads once (its graphs then also keep their
+sorted edge orders and routings across steps), or from
+:func:`batch_to_host`, the host part of an upload (validated CPU tensors,
+pinned for the card; :class:`HostBatches`), which the step copies to the
+device without blocking.
 """
 
 from typing import NamedTuple
@@ -29,11 +32,12 @@ import numpy as np
 import torch
 
 from dgmc_tpu_torch.models import metrics
-from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device, host_tensor
 from dgmc_tpu_torch.train.state import apply_gradients
 
-__all__ = ['DeviceBatch', 'batch_to_device', 'dropout_generator',
-           'loss_and_outputs', 'make_train_step', 'make_eval_step']
+__all__ = ['DeviceBatch', 'HostBatches', 'batch_to_host', 'batch_to_device',
+           'dropout_generator', 'loss_and_outputs', 'make_train_step',
+           'make_eval_step']
 
 
 class DeviceBatch(NamedTuple):
@@ -47,23 +51,57 @@ def _device_of(model):
     return next(model.parameters()).device
 
 
-def batch_to_device(batch, device):
-    """A :class:`DeviceBatch` on ``device`` from a host
-    :class:`~dgmc_tpu_torch.utils.data.PairBatch` (a DeviceBatch passes
-    through). Ground truths outside ``[0, N_t)`` under ``y_mask`` raise:
-    the sparse variant injects them into the shortlist, whose kernels
-    index target rows unchecked."""
+def batch_to_host(batch, pin_memory=False):
+    """The host part of an upload: a :class:`DeviceBatch` of CPU tensors
+    (pinned with ``pin_memory``) from a host
+    :class:`~dgmc_tpu_torch.utils.data.PairBatch`, validated as
+    :meth:`GraphBatch.host` says (a DeviceBatch passes through). Ground
+    truths outside ``[0, N_t)`` under ``y_mask`` raise: the sparse variant
+    injects them into the shortlist, whose kernels index target rows
+    unchecked."""
     if isinstance(batch, DeviceBatch):
         return batch
     y, y_mask = np.asarray(batch.y), np.asarray(batch.y_mask, bool)
     N_t = np.shape(batch.t['x'])[1]
     if y_mask.any() and (y[y_mask].min() < 0 or y[y_mask].max() >= N_t):
         raise ValueError(f'ground truth outside [0, {N_t}) under y_mask')
-    return DeviceBatch(GraphBatch.from_numpy(batch.s, device),
-                       GraphBatch.from_numpy(batch.t, device),
-                       torch.as_tensor(y).to(device=device,
-                                             dtype=torch.int64),
-                       torch.as_tensor(y_mask).to(device=device))
+    return DeviceBatch(GraphBatch.host(batch.s, pin_memory),
+                       GraphBatch.host(batch.t, pin_memory),
+                       host_tensor(y, torch.int64, pin_memory),
+                       host_tensor(y_mask, torch.bool, pin_memory))
+
+
+def batch_to_device(batch, device):
+    """A :class:`DeviceBatch` on ``device``: a host
+    :class:`~dgmc_tpu_torch.utils.data.PairBatch` through
+    :func:`batch_to_host` (pinned for the card), then copied without
+    blocking on the current stream; a DeviceBatch already on ``device``
+    passes through unchanged."""
+    device = canonical_device(device)
+    batch = batch_to_host(batch, pin_memory=device.type == 'cuda')
+    if batch.y.device == device:
+        return batch
+    return DeviceBatch(batch.graph_s.to(device), batch.graph_t.to(device),
+                       batch.y.to(device, non_blocking=True),
+                       batch.y_mask.to(device, non_blocking=True))
+
+
+class HostBatches:
+    """The batches of ``loader`` through :func:`batch_to_host`, pinned
+    when ``device`` is a card: a training loop's host batches, which a
+    :class:`~dgmc_tpu_torch.utils.data.PrefetchLoader` can also produce
+    in a background thread."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.pin_memory = canonical_device(device).type == 'cuda'
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield batch_to_host(batch, self.pin_memory)
 
 
 def dropout_generator(noise_seed, device):

@@ -1,22 +1,37 @@
-"""Host-side graph containers, padded collation and the pair loader
-(NumPy).
+"""Host-side pair-data layer (NumPy): graph containers, pair datasets,
+padded collation, the pair loader and its background prefetch — the port
+of the JAX package's ``dgmc_tpu/utils/data.py``.
 
-``pad_graphs`` produces the arrays of a padded ``[B, N, ...]`` /
-``[B, E, ...]`` batch with boolean validity masks and graph-local edge
-endpoints; :meth:`dgmc_tpu_torch.ops.graph.GraphBatch.from_numpy` moves
-them onto a device. Padded edges point at node 0 under
-``edge_mask=False``. ``pad_pair_batch`` collates (source, target) pairs
-with padded ground-truth columns ``y``/``y_mask``; ``PairLoader`` emits
-fixed-shape batches from a pair dataset, as the JAX package's does.
+- :class:`Graph`, :class:`GraphPair`: ragged host graphs and pairs.
+- :class:`PairDataset` (the product or a sampled pairing of two graph
+  datasets), :class:`ValidPairDataset` (the pairs whose source classes
+  all occur in the target, with the induced ground truth),
+  :class:`ConcatDataset` and :func:`graph_limits` (the padding a loader
+  needs).
+- :func:`pad_graphs` produces the arrays of a padded ``[B, N, ...]`` /
+  ``[B, E, ...]`` batch with boolean validity masks and graph-local edge
+  endpoints, through the port's C++ collation (``dgmc_tpu_torch/native``,
+  built with ``g++`` at first use) or its NumPy loop (``native=``; each
+  call records the path in the dispatch ledger under ``collate``).
+  Padded edges point at node 0 under ``edge_mask=False``.
+  :meth:`dgmc_tpu_torch.ops.graph.GraphBatch.from_numpy` moves them onto
+  a device. :func:`pad_pair_batch` collates (source, target) pairs with
+  padded ground-truth columns ``y``/``y_mask``.
+- :class:`PairLoader` emits fixed-shape batches from a pair dataset;
+  :class:`PrefetchLoader` runs any batch iterable in a background thread,
+  so batch b+1 is collated while batch b trains.
 """
 
 import dataclasses
+import queue
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ['Graph', 'GraphPair', 'PairBatch', 'PairLoader', 'pad_graphs',
-           'pad_pair_batch']
+__all__ = ['Graph', 'GraphPair', 'PairDataset', 'ValidPairDataset',
+           'ConcatDataset', 'graph_limits', 'PairBatch', 'PairLoader',
+           'PrefetchLoader', 'pad_graphs', 'pad_pair_batch']
 
 
 @dataclasses.dataclass
@@ -26,6 +41,9 @@ class Graph:
     x: Optional[np.ndarray] = None          # [N, C] float
     edge_attr: Optional[np.ndarray] = None  # [E, D] float
     pos: Optional[np.ndarray] = None        # [N, d] float
+    y: Optional[np.ndarray] = None          # [N] int (keypoint classes etc.)
+    face: Optional[np.ndarray] = None       # [3, F] int (Delaunay triangles)
+    name: Optional[str] = None
 
     @property
     def num_nodes(self):
@@ -49,6 +67,121 @@ class GraphPair:
     y_col: Optional[np.ndarray] = None
 
 
+class PairDataset:
+    """All (or sampled) source x target combinations of two graph
+    datasets: ``sample=False`` holds the full product; ``sample=True``
+    pairs each source with one uniformly random target per access."""
+
+    def __init__(self, dataset_s, dataset_t, sample=False, seed=0):
+        self.dataset_s = dataset_s
+        self.dataset_t = dataset_t
+        self.sample = sample
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        if self.sample:
+            return len(self.dataset_s)
+        return len(self.dataset_s) * len(self.dataset_t)
+
+    def __getitem__(self, idx):
+        if self.sample:
+            g_s = self.dataset_s[idx]
+            g_t = self.dataset_t[self._rng.randint(len(self.dataset_t))]
+        else:
+            g_s = self.dataset_s[idx // len(self.dataset_t)]
+            g_t = self.dataset_t[idx % len(self.dataset_t)]
+        return GraphPair(s=g_s, t=g_t)
+
+    def __repr__(self):
+        return (f'{type(self).__name__}({self.dataset_s}, {self.dataset_t}, '
+                f'sample={self.sample})')
+
+
+class ValidPairDataset:
+    """Pairs in which every source node class (``Graph.y``) also occurs in
+    the target, with the induced ground truth: each source node maps to
+    the target node holding its class. Validity is precomputed from
+    per-graph class-membership masks."""
+
+    def __init__(self, dataset_s, dataset_t, sample=False, seed=0):
+        self.dataset_s = dataset_s
+        self.dataset_t = dataset_t
+        self.sample = sample
+        self._rng = np.random.RandomState(seed)
+        self.pairs, self.cumdeg = self._compute_pairs()
+
+    def _compute_pairs(self):
+        num_classes = 0
+        for g in list(self.dataset_s) + list(self.dataset_t):
+            if g.y is not None and g.y.size:
+                num_classes = max(num_classes, int(g.y.max()) + 1)
+        mask_s = np.zeros((len(self.dataset_s), num_classes), bool)
+        mask_t = np.zeros((len(self.dataset_t), num_classes), bool)
+        for i, g in enumerate(self.dataset_s):
+            mask_s[i, g.y] = True
+        for i, g in enumerate(self.dataset_t):
+            mask_t[i, g.y] = True
+        # (i, j) is valid iff classes(i) ⊆ classes(j).
+        subset = (mask_s[:, None, :] & ~mask_t[None, :, :]).sum(-1) == 0
+        pairs = np.argwhere(subset)
+        counts = np.bincount(pairs[:, 0], minlength=len(self.dataset_s))
+        cumdeg = np.concatenate([[0], np.cumsum(counts)])
+        return pairs, cumdeg
+
+    def __len__(self):
+        return len(self.dataset_s) if self.sample else len(self.pairs)
+
+    def __getitem__(self, idx):
+        if self.sample:
+            lo, hi = self.cumdeg[idx], self.cumdeg[idx + 1]
+            if hi <= lo:
+                raise IndexError(f'source graph {idx} has no valid partner')
+            g_s = self.dataset_s[idx]
+            g_t = self.dataset_t[self.pairs[self._rng.randint(lo, hi)][1]]
+        else:
+            i, j = self.pairs[idx]
+            g_s = self.dataset_s[int(i)]
+            g_t = self.dataset_t[int(j)]
+        # Target position of each class, then look up the source classes.
+        class_to_pos = np.full(int(g_t.y.max()) + 1, -1, np.int64)
+        class_to_pos[g_t.y] = np.arange(g_t.num_nodes)
+        return GraphPair(s=g_s, t=g_t, y_col=class_to_pos[g_s.y])
+
+    def __repr__(self):
+        return (f'{type(self).__name__}({self.dataset_s}, {self.dataset_t}, '
+                f'sample={self.sample})')
+
+
+def graph_limits(datasets):
+    """Max node / edge counts across graph datasets: the static padding a
+    :class:`PairLoader` needs so one shape serves every batch."""
+    n = e = 1
+    for ds in datasets:
+        for i in range(len(ds)):
+            g = ds[i]
+            n = max(n, g.num_nodes)
+            e = max(e, g.num_edges)
+    return n, e
+
+
+class ConcatDataset:
+    """Concatenation of several pair datasets (the reference concatenates
+    the PascalVOC categories this way)."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._cum = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._cum[-1])
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        d = int(np.searchsorted(self._cum, idx, side='right')) - 1
+        return self.datasets[d][idx - int(self._cum[d])]
+
+
 @dataclasses.dataclass
 class PairBatch:
     """A padded batch of graph pairs: ``s`` / ``t`` are
@@ -60,21 +193,60 @@ class PairBatch:
     y_mask: np.ndarray
 
 
+def _check_native(native):
+    if native not in ('auto', 'never', 'require'):
+        raise ValueError(f"native must be 'auto', 'never' or 'require'; got "
+                         f'{native!r}')
+
+
+def _native_module(native, what):
+    """The native collation module, or None for the NumPy path (recorded
+    in the dispatch ledger with the reason); ``'require'`` without the
+    library raises."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    _check_native(native)
+    if native == 'never':
+        dispatch.record('collate', 'numpy', f'{what}:native=never')
+        return None
+    from dgmc_tpu_torch import native as native_mod
+    if native_mod.available():
+        dispatch.record('collate', 'native', f'{what}:native={native}')
+        return native_mod
+    if native == 'require':
+        raise RuntimeError('native collation library unavailable (no g++, '
+                           'or its build failed)')
+    dispatch.record('collate', 'numpy', f'{what}:library unavailable')
+    return None
+
+
 def pad_graphs(graphs: Sequence[Graph], num_nodes: int, num_edges: int,
-               feat_dim: Optional[int] = None):
+               feat_dim: Optional[int] = None, native: str = 'auto'):
     """Collate host graphs into padded arrays.
 
     Returns a dict with ``x [B, N, C]`` float32, ``senders`` /
     ``receivers [B, E]`` int32, ``node_mask [B, N]`` and
     ``edge_mask [B, E]`` bool, and ``edge_attr [B, E, D]`` float32 when
     any graph carries edge attributes. A graph larger than the padding
-    raises.
+    raises, and so does a feature or edge-attribute width that differs
+    from the first graph's.
+
+    ``native='auto'`` collates through the C++ library
+    (:mod:`dgmc_tpu_torch.native`) when it is available and the NumPy loop
+    below otherwise; ``'never'`` forces NumPy, ``'require'`` raises
+    without the library. Both paths give the same arrays.
     """
     B = len(graphs)
     if feat_dim is None:
         feat_dim = next(g.x.shape[1] for g in graphs if g.x is not None)
     edge_dim = next((g.edge_attr.shape[1] for g in graphs
                      if g.edge_attr is not None), None)
+    lib = _native_module(native, 'graphs')
+    if lib is not None:
+        out = lib.pad_graphs_native(graphs, num_nodes, num_edges, feat_dim,
+                                    edge_dim)
+        if out['edge_attr'] is None:
+            del out['edge_attr']
+        return out
     x = np.zeros((B, num_nodes, feat_dim), np.float32)
     senders = np.zeros((B, num_edges), np.int32)
     receivers = np.zeros((B, num_edges), np.int32)
@@ -87,6 +259,12 @@ def pad_graphs(graphs: Sequence[Graph], num_nodes: int, num_edges: int,
         if n > num_nodes or e > num_edges:
             raise ValueError(f'graph {b} ({n} nodes / {e} edges) exceeds '
                              f'padding ({num_nodes} / {num_edges})')
+        # NumPy would broadcast a one-wide edge_attr into the batch's.
+        for key, width in (('x', feat_dim), ('edge_attr', edge_dim)):
+            a = getattr(g, key)
+            if a is not None and (a.ndim != 2 or a.shape[1] != width):
+                raise ValueError(f'graph {b}: {key} has shape {a.shape}, '
+                                 f'expected [*, {width}]')
         if g.x is not None:
             x[b, :n] = g.x
         senders[b, :e] = g.edge_index[0]
@@ -103,9 +281,11 @@ def pad_graphs(graphs: Sequence[Graph], num_nodes: int, num_edges: int,
 
 
 def pad_pair_batch(pairs: List[GraphPair], num_nodes_s, num_edges_s,
-                   num_nodes_t=None, num_edges_t=None, pairs_per_step=1):
+                   num_nodes_t=None, num_edges_t=None, native='auto',
+                   pairs_per_step=1):
     """Collate :class:`GraphPair` lists into a :class:`PairBatch`; the
     target side pads to the source's sizes unless given its own.
+    ``native`` as in :func:`pad_graphs` (the ground truth too).
     ``pairs_per_step > 1`` tiles the pair list that many times along the
     batch axis (``--pairs-per-step``: the replicas draw their own noise
     and negatives, see :func:`~dgmc_tpu_torch.models.dgmc.draw_noise`)."""
@@ -113,8 +293,15 @@ def pad_pair_batch(pairs: List[GraphPair], num_nodes_s, num_edges_s,
         pairs = list(pairs) * pairs_per_step
     num_nodes_t = num_nodes_t or num_nodes_s
     num_edges_t = num_edges_t or num_edges_s
-    g_s = pad_graphs([p.s for p in pairs], num_nodes_s, num_edges_s)
-    g_t = pad_graphs([p.t for p in pairs], num_nodes_t, num_edges_t)
+    g_s = pad_graphs([p.s for p in pairs], num_nodes_s, num_edges_s,
+                     native=native)
+    g_t = pad_graphs([p.t for p in pairs], num_nodes_t, num_edges_t,
+                     native=native)
+    lib = _native_module(native, 'ground_truth')
+    if lib is not None:
+        y, y_mask = lib.pad_ground_truth_native([p.y_col for p in pairs],
+                                                num_nodes_s)
+        return PairBatch(s=g_s, t=g_t, y=y, y_mask=y_mask)
     B = len(pairs)
     y = np.full((B, num_nodes_s), -1, np.int32)
     y_mask = np.zeros((B, num_nodes_s), bool)
@@ -177,3 +364,61 @@ class PairLoader:
                 return
             yield pad_pair_batch([self.dataset[int(i)] for i in chunk],
                                  self.num_nodes, self.num_edges)
+
+
+class PrefetchLoader:
+    """Background-thread prefetch around any batch iterable: batch b+1 is
+    produced (collated, and whatever else the iterable does) while batch b
+    trains — the role the reference gives torch DataLoader workers.
+
+    At most ``depth`` batches wait in a bounded queue. An iteration the
+    consumer abandons (``break``, an exception) sets a stop event that
+    frees the worker thread; an exception in the worker is raised on the
+    consumer's side. ``len`` is the wrapped loader's.
+    """
+
+    def __init__(self, loader, depth=2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        q = queue.Queue(maxsize=self.depth)
+        done = object()
+        stop = threading.Event()
+
+        def put(item):
+            # A bounded put that gives up once the consumer is gone, so an
+            # abandoned iteration cannot pin the worker and its batches.
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+                put(done)
+            except BaseException as e:  # surfaced on the consumer's side
+                put(e)
+
+        thread = threading.Thread(target=worker, daemon=True,
+                                  name='PrefetchLoader')
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()

@@ -543,3 +543,51 @@ def test_negatives_are_drawn_per_pair_and_valid():
     one = dgmc_module.draw_negatives(n_valid[1:], 40, 3, seed=1,
                                      pair_offset=3)
     assert torch.equal(one[0], neg[1])
+
+
+def test_dbp15k_initial_weights_follow_jax_initializer():
+    """The DBP15K CLI's model at its widths (RelCNN ψ₁ 300 → 256, ψ₂
+    32 → 32, the consensus MLP) draws each parameter from the JAX CLI's
+    distribution: over seeds 0-2 the same shapes, the biases zero, each
+    kernel's standard deviation within five of its standard errors
+    (``std / sqrt(2 n)`` over the ``n`` pooled entries) of JAX's, and no
+    entry beyond flax's two-sigma truncation (to the same margin). (torch's generator and
+    threefry draw different numbers from one seed; only the
+    distributions can agree.)"""
+    from dgmc_tpu.experiments import dbp15k as jax_dbp15k
+    from dgmc_tpu.train.state import create_train_state as jax_state
+    argv = ['--synthetic', '--syn_nodes_s', '40', '--syn_nodes_t', '50',
+            '--syn_edges_s', '120', '--syn_edges_t', '150', '--f32']
+    pooled = {}
+    for seed in range(3):
+        args = jax_dbp15k.parse_args(argv + ['--seed', str(seed)])
+        batch, _, in_dim = jax_dbp15k.synthetic_batches(args)
+        model = JaxDGMC(
+            JaxRelCNN(in_dim, args.dim, args.num_layers, batch_norm=False,
+                      cat=True, lin=True, dropout=0.5),
+            JaxRelCNN(args.rnd_dim, args.rnd_dim, args.num_layers,
+                      batch_norm=False, cat=True, lin=True, dropout=0.0),
+            num_steps=args.num_steps, k=args.k)
+        state = jax_state(model, jax.random.key(seed), batch,
+                          learning_rate=args.lr)
+        want = dgmc_from_flax(jax.device_get(state.params))
+        targs = dbp15k.parse_args(argv + ['--seed', str(seed)])
+        got = dbp15k.build(targs, in_dim).state_dict()
+        assert set(got) == set(want)
+        for name, t in got.items():
+            j = torch.as_tensor(np.asarray(want[name]))
+            assert tuple(j.shape) == tuple(t.shape), name
+            pooled.setdefault(name, ([], []))
+            pooled[name][0].append(j.double().flatten())
+            pooled[name][1].append(t.detach().double().flatten())
+    for name, (js, ts) in pooled.items():
+        j, t = torch.cat(js), torch.cat(ts)
+        if not j.any():
+            assert not t.any(), name
+            continue
+        sj, st = float(j.std()), float(t.std())
+        err = 5 / np.sqrt(2 * j.numel())
+        assert abs(st - sj) <= err * sj, (name, st, sj)
+        # Two standard deviations of the untruncated normal, whose
+        # truncation at two leaves 0.8796 of its standard deviation.
+        assert float(t.abs().max()) <= 2 * sj / 0.87962566 * (1 + err), name

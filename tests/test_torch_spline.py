@@ -369,3 +369,76 @@ def test_edge_records_are_cached_per_basis_and_plain_on_cpu():
     assert torch.equal(doubled[:, 1].view(torch.float32),
                        2 * records[:, 1].view(torch.float32))
     assert torch.equal(again, offsets)
+
+
+def _dense_batch_and_model():
+    """A small dense PascalPF batch (4 pairs at 24 nodes / 192 edges) and
+    a dense DGMC over SplineCNN ψ₁ and ψ₂ at narrow widths, 3 steps."""
+    from dgmc_tpu_torch.data.synthetic import RandomGraphPairs
+    from dgmc_tpu_torch.data.transforms import (Cartesian, Compose,
+                                                Constant, KNNGraph)
+    from dgmc_tpu_torch.models.dgmc import DGMC
+    from dgmc_tpu_torch.utils.data import pad_pair_batch
+    ds = RandomGraphPairs(8, 12, 0, 4, length=4, seed=2,
+                          transform=Compose([Constant(), KNNGraph(k=8),
+                                             Cartesian()]))
+    batch = pad_pair_batch([ds[i] for i in range(4)], 24, 192)
+    model = DGMC(SplineCNN(1, 8, 2, 2, cat=False),
+                 SplineCNN(4, 4, 2, 2, cat=True), num_steps=3, k=-1,
+                 generator=torch.Generator().manual_seed(1))
+    return batch, model
+
+
+def _forward_and_grads(batch, model):
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    g_s, g_t, y, y_mask = batch_to_device(batch, 'cpu')
+    model.zero_grad()
+    S_0, S_L = model(g_s, g_t, noise_seed=5)
+    (S_L.val.square().sum() + S_0.val.square().sum()).backward()
+    return (S_0.val, S_L.val,
+            {n: p.grad.clone() for n, p in model.named_parameters()})
+
+
+def test_dense_forward_builds_each_graphs_routing_once(monkeypatch):
+    """A dense DGMC forward and backward builds SplineCNN's routing once
+    per graph batch: twice (source, target), not once per SplineCNN call
+    (2 + 2 x 3 calls here; counted at the ``Routing`` constructor), and
+    computes bit for bit what the uncached forward computes. On the card
+    the routing's records are built as often (``chip_smoke.py``: 2
+    launches a dense step)."""
+    from dgmc_tpu_torch.models import spline as spline_model
+    built = []
+
+    class Counted(Routing):
+        def __init__(self, *args):
+            built.append(1)
+            super().__init__(*args)
+
+    monkeypatch.setattr(spline_model, 'Routing', Counted)
+    batch, model = _dense_batch_and_model()
+    dispatch.reset()
+    S_0, S_L, grads = _forward_and_grads(batch, model)
+    assert len(built) == 2
+    assert dispatch.decisions()['spline_route_fwd']['counts']['plain'] == 16
+
+    memo = GraphBatch.memo
+    monkeypatch.setattr(GraphBatch, 'memo', lambda self, key, build: (
+        build() if key[0] == 'spline_routing' else memo(self, key, build)))
+    built.clear()
+    U_0, U_L, u_grads = _forward_and_grads(batch, model)
+    assert len(built) == 8
+    assert torch.equal(S_0, U_0) and torch.equal(S_L, U_L)
+    for name, g in grads.items():
+        assert torch.equal(g, u_grads[name]), name
+
+
+def test_routing_with_a_gradient_on_the_edge_attributes_is_not_cached():
+    batch, _ = _dense_batch_and_model()
+    graph = GraphBatch.from_numpy(batch.s, 'cpu')
+    from dgmc_tpu_torch.models.spline import spline_routing
+    assert spline_routing(graph, 5) is spline_routing(graph, 5)
+    assert spline_routing(graph, 5) is not spline_routing(graph, 3)
+    graph.edge_attr.requires_grad_(True)
+    basis, _ = spline_routing(graph, 4)
+    assert basis.requires_grad
+    assert spline_routing(graph, 4) is not spline_routing(graph, 4)
