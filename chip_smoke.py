@@ -10,15 +10,18 @@ Run from the repository root on a machine with an NVIDIA GPU:
 With ``--steps`` it runs none of the phases below: it builds the kernels
 of the ``dgmc_tpu_torch`` under ``DIR`` (default: beside this script),
 then, under each precision policy, times N synchronized steps (after 2
-warm-up steps) of the dense PascalPF training loop (the CLI's defaults
-and loop: a new batch each step, collated in the step's thread; a tree
-with pinned host batches and ``PrefetchLoader`` also runs it with the
-batches made in the loader's thread) and of the KG phase-2 step, splits each
-step's host time into the draws, the wait for the batch, the upload and
+warm-up steps) of the dense PascalPF training loop (the CLI's defaults:
+a new batch each step, collated in the step's thread; a tree with pinned
+host batches and ``PrefetchLoader`` also runs it with the batches made
+in the loader's thread, as its CLI does since the steps are captured)
+and of the KG phase-2 step (on a
+tree with captured steps, the CLIs' default, also the eager loops of
+both, ``jit=False``), splits each step's time into the draws, the wait
+for the batch, the upload, the replay call, the wait for the device and
 the rest (:func:`steps`), profiles one more of each and prints one JSON
-line of medians with min and max, the host split, device busy time and
-share, device ops, the port's kernels by name and the dtype each ran
-in. It takes any tree of the port with the precision policy. With
+line of medians with min and max, the split, device busy time and
+share, device ops, the port's kernels by name, the dtype each ran in and
+each captured graph's static memory. It takes any tree of the port with the precision policy. With
 ``--kernels`` it builds them and times, at the main path's shapes, the
 two sparse consensus kernels, a whole SplineCNN call's routing and
 ``route_fwd``, and the top-k kernel at a query's rows beside
@@ -167,6 +170,29 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   each profiled with its peak memory, as ``train`` and ``kg_train`` do
   for float32 (informational).
 
+- ``capture``: the captured steps (``jit=True``, the CLIs' default: one
+  CUDA graph per step function and input signature, every capture under
+  ``torch.cuda.set_sync_debug_mode('error')``) against the eager ones
+  (``jit=False``) on the card, from one initial state, under both
+  policies: the dense train step over the CLI's first 5 batches and
+  seeds and the eval step over 2 held-out batches; the KG phase-1,
+  eval1, phase-2 and eval2 steps, 5 each at the CLI's seeds (ψ₁'s
+  dropout masks included). Every loss and metric, then every parameter
+  and Adam tensor, bit-identical; the launches per replay equal to the
+  eager step's (and to the main paths' counts above); each graph's
+  capture seconds and static memory printed. Then one short
+  ``dbp15k.main --aot_compile`` (12 epochs, 10 of phase 1): its four
+  ``aot_memory_*`` events and losses bit-identical to ``kg_train``'s
+  first 12. (The ``serve`` phase holds each bucket's replayed answer,
+  with the engine's noise and with a query's own, bit-identical to the
+  eager query path on the card.)
+
+The main paths above run the CLIs' captured steps and the serve engine's
+captured buckets; a replay counts the launches its capture made, so the
+launch counts per step are the eager step's. Counts filed by a key the
+wrappers do not know (a draw's shape, a spline kernel's width) use
+stand-in counters that replays advance too (:class:`Tally`).
+
 Output: the numbers, then the ``nvidia-smi`` name/power-limit line, then
 one JSON line listing every kernel at its main shape, plus entries for
 the top-k and the sparse-consensus forward at 16, 32 and 64 rows
@@ -191,6 +217,7 @@ import concurrent.futures
 import contextlib
 import copy
 import functools
+import gc
 import itertools
 import json
 import os
@@ -200,6 +227,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -1305,19 +1333,51 @@ RNG_ROWS = {'rng': ('kg_train', 'normal', (10, 1, 15000, 32)),
 RNG_MAIN = {}
 
 
+class Tally:
+    """Launches filed by a key the kernel wrappers do not know (a draw's
+    shape, a spline kernel's width): a stand-in counter per key,
+    registered with the dispatch ledger (``tally <label> <n>: <key>``), so
+    that a captured step's replays add to it as they add to the wrappers'
+    own counters, and a capture's warm-up sets it back as it sets them
+    back (``dispatch.add_launches``, ``set_launch_counts``). Each tally's
+    counters are its own (``n`` numbers them)."""
+
+    ids = itertools.count()
+
+    def __init__(self, label):
+        self.prefix = f'tally {label} {next(self.ids)}: '
+        self.counters = {}
+
+    def add(self, key, n):
+        from dgmc_tpu_torch.ops.kernels import dispatch
+        if not n:
+            return
+        c = self.counters.get(key)
+        if c is None:
+            c = self.counters[key] = dispatch.kernel_wrapper(
+                self.prefix + repr(key))(types.SimpleNamespace())
+        c.launches += n
+
+    def counts(self):
+        return {k: c.launches for k, c in self.counters.items()}
+
+
 @contextlib.contextmanager
 def rng_launches(path):
     """Within the block, file every launch of the draw kernel under
     ``(path, kind, steps, B, P)`` in :data:`RNG_MAIN`: the wrapper's
     counter (``rng._draw.launches``) read around each call of the model's
-    two entry points, ``philox_normal`` and ``philox_negatives``."""
+    two entry points, ``philox_normal`` and ``philox_negatives``, into a
+    :class:`Tally` (so the replays of a captured step count too), added to
+    :data:`RNG_MAIN` at the end of the block."""
     from dgmc_tpu_torch.ops.kernels import rng
     normal, negatives = rng.philox_normal, rng.philox_negatives
+    tally = Tally(path)
 
     def counted(key, fn, *args, **kw):
         before = rng._draw.launches
         out = fn(*args, **kw)
-        RNG_MAIN[key] = RNG_MAIN.get(key, 0) + rng._draw.launches - before
+        tally.add(key, rng._draw.launches - before)
         return out
 
     rng.philox_normal = lambda steps, B, P, *a, **kw: counted(
@@ -1329,6 +1389,8 @@ def rng_launches(path):
         yield
     finally:
         rng.philox_normal, rng.philox_negatives = normal, negatives
+        for key, n in tally.counts().items():
+            RNG_MAIN[key] = RNG_MAIN.get(key, 0) + n
 
 
 def _rng_key(path, kind, shape):
@@ -1418,24 +1480,43 @@ def phase_rng_kernel(res):
                                  f'draw alone')
     log('rng_kernel: a batch of 5 pairs at offset 3 equals each pair drawn '
         'alone at its offset (noise and negatives)')
+    # A seed tensor (a captured step's seed, read on the card) against
+    # the int seed of the same key (written into a tensor by a fill):
+    # the same stream, bit for bit, keys at and past 2^63 too.
+    for key in (seed, (1 << 63) + 17, (1 << 64) - 1):
+        dev_key = rng.seed_tensor(key, 'cuda')
+        for label, fn in (
+                ('noise', lambda k: draw_noise(10, 1, 15000, 32, k,
+                                               device='cuda')),
+                ('negatives', lambda k: draw_negatives(
+                    torch.tensor([20000], device='cuda'), 15000, 10, k))):
+            if not torch.equal(fn(key), fn(dev_key)):
+                raise AssertionError(f'rng {label}: the key {key:#x} as a '
+                                     f'seed tensor draws another stream than '
+                                     f'as an int')
+    log('rng_kernel: a seed tensor draws the stream of the int seed of the '
+        'same key, bit for bit (noise and negatives at the KG shapes, keys '
+        '7 << 40 + 12345, 2^63 + 17 and 2^64 - 1)')
 
+    # Timed with the key already on the card, as a captured step holds it.
+    dev_seed = rng.seed_tensor(seed, 'cuda')
     for key, (path, kind, shape) in RNG_ROWS.items():
         _, _, steps, B, P = _rng_key(path, kind, shape)
         if kind == 'normal':
-            calls = {'kernel': lambda: rng.philox_normal(steps, B, P, seed,
-                                                         0, 0, 'cuda'),
+            calls = {'kernel': lambda: rng.philox_normal(
+                         steps, B, P, dev_seed, 0, 0, 'cuda'),
                      'plain': lambda: rng.plain_philox_normal(
-                         steps, B, P, seed, 0, 0, 'cuda'),
+                         steps, B, P, dev_seed, 0, 0, 'cuda'),
                      'library': lambda: torch.randn(shape, device='cuda')}
-            nbytes = 4.0 * steps * B * P
+            nbytes = 4.0 * steps * B * P + 8.0
         else:
             nv = torch.tensor([20000], device='cuda')
-            calls = {'kernel': lambda: rng.philox_negatives(nv, P, seed),
-                     'plain': lambda: rng.plain_philox_negatives(nv, P,
-                                                                 seed),
+            calls = {'kernel': lambda: rng.philox_negatives(nv, P, dev_seed),
+                     'plain': lambda: rng.plain_philox_negatives(
+                         nv, P, dev_seed),
                      'library': lambda: torch.randint(
                          0, 20000, shape, device='cuda')}
-            nbytes = 8.0 * B * P + 8.0 * B
+            nbytes = 8.0 * B * P + 8.0 * B + 8.0
         got, src = timed(calls)
         b_ms, b_by = bound(0.0, nbytes)
         log(f'rng_kernel: {kind} {list(shape)}: bound {b_ms:.4f} ms '
@@ -2041,7 +2122,7 @@ def phase_kg_train(results):
     from dgmc_tpu_torch.ops.topk import chunked_topk
     from dgmc_tpu_torch.train.steps import batch_to_device
 
-    _kg_main_path(results, 'f32')
+    KG_LOSSES['f32'] = _kg_main_path(results, 'f32')[0]
 
     # The first phase-2 step against the CPU plain path at 1500 / 2000
     # entities: same weights (ψ₁'s dropout off), shortlist, noise and
@@ -2112,6 +2193,246 @@ def phase_kg_train(results):
         f'{(time.perf_counter() - t0) * 1e3:.3f} ms')
     _step_profile(run, 'one phase-2 step')
 
+
+
+#: The float32 KG main path's losses (``phase_kg_train``), which the
+#: ``--aot_compile`` run of ``phase_capture`` must repeat.
+KG_LOSSES = {}
+#: Steps each comparison of ``phase_capture`` runs on both paths.
+CAPTURE_STEPS = 5
+
+
+def _clone(out):
+    return {k: v.clone() for k, v in out.items()}
+
+
+def _hold_identical(label, eager, captured):
+    """Two dicts of tensors bit-identical; else name the first that
+    differs and by how much."""
+    if set(eager) != set(captured):
+        raise AssertionError(f'{label}: keys {sorted(eager)} against '
+                             f'{sorted(captured)}')
+    for k, v in eager.items():
+        w = captured[k]
+        if v.shape != w.shape or v.dtype != w.dtype or not torch.equal(v, w):
+            diff = ((v.double() - w.double()).abs().max().item()
+                    if v.shape == w.shape else 'shape')
+            raise AssertionError(f'{label}: {k} differs between the eager '
+                                 f'step and the replay (max |diff| {diff})')
+
+
+def _hold_states(label, models, states):
+    """Parameters and Adam moments (and step counts) of the eager
+    (``False``) and captured (``True``) runs bit-identical."""
+    got = {}
+    for jit in (False, True):
+        opt = states[jit].optimizer
+        got[jit] = {}
+        for name, p in models[jit].named_parameters():
+            got[jit][name] = p.detach()
+            for k, v in opt.state[p].items():
+                got[jit][f'{name} adam {k}'] = v
+    _hold_identical(f'{label}: parameters and Adam state', got[False],
+                    got[True])
+    if states[False].step != states[True].step:
+        raise AssertionError(f'{label}: host step counts differ')
+    return len(got[True])
+
+
+def _both(label, kernels, runs, want=None):
+    """Run each call of ``runs`` (``[(name, {jit: fn})]``) on the eager
+    (``False``) and the captured (``True``) path in turn: outputs
+    bit-identical, the launches of ``kernels`` per call equal on both (and
+    to ``want[name]`` where given)."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    for name, fns in runs:
+        outs, launches = {}, {}
+        for jit in (False, True):
+            before = dispatch.launch_counts()
+            outs[jit] = _clone(fns[jit]())
+            torch.cuda.synchronize()
+            after = dispatch.launch_counts()
+            launches[jit] = tuple(after[k] - before[k] for k in kernels)
+        _hold_identical(f'{label} {name}', outs[False], outs[True])
+        if launches[False] != launches[True]:
+            raise AssertionError(f'{label} {name}: launches {launches[True]} '
+                                 f'per replay, {launches[False]} per eager '
+                                 f'step ({kernels})')
+        if want is not None and launches[True] != want(name):
+            raise AssertionError(f'{label} {name}: launches '
+                                 f'{launches[True]}, expected {want(name)}')
+
+
+def _graph_report(label, step):
+    """Log each record of a compiled step: its signature's capture
+    seconds (warm-up included), launches per replay and static memory;
+    returns the memory of each."""
+    from dgmc_tpu_torch.obs.memory import captured_memory
+    mems = []
+    for rec in step.jit.compiled.records.values():
+        mem = captured_memory(rec)
+        mems.append(mem)
+        log(f'capture: {label}: captured in {rec.capture_s:.3f}s, '
+            f'{sum(rec.launches.values())} launches of the port\'s kernels '
+            f'a replay, static memory ' + ', '.join(
+                f'{k} {v}' for k, v in mem.items()))
+    return mems
+
+
+def _capture_dense(policy):
+    """The dense train and eval steps, eager (``jit=False``) and captured,
+    from one initial state over the CLI's first CAPTURE_STEPS batches and
+    seeds and two held-out batches."""
+    from dgmc_tpu_torch.data.synthetic import RandomGraphPairs
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
+                                            make_train_step)
+    from dgmc_tpu_torch.utils.data import PairLoader
+    args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
+    model, loader, transform = pascal_pf.build(args)
+    models = {jit: copy.deepcopy(model).cuda() for jit in (False, True)}
+    states = {jit: create_train_state(m, args.lr)
+              for jit, m in models.items()}
+    train = {jit: make_train_step(m, loss_on_s0=True, jit=jit)
+             for jit, m in models.items()}
+    evals = {jit: make_eval_step(m, jit=jit) for jit, m in models.items()}
+    loader.dataset.set_epoch(1)
+    batches = list(itertools.islice(HostBatches(loader, 'cuda'),
+                                    CAPTURE_STEPS))
+    eval_ds = RandomGraphPairs(30, 60, 0, 20, transform=transform,
+                               length=128, seed=args.seed + 10_000)
+    eval_batches = list(HostBatches(PairLoader(
+        eval_ds, args.batch_size, shuffle=False,
+        num_nodes=pascal_pf.NUM_NODES, num_edges=pascal_pf.NUM_EDGES),
+        'cuda'))
+
+    def train_run(i, batch):
+        seed = pascal_pf.noise_seed(args.seed, 0, 1, i)
+        return {jit: functools.partial(
+            lambda jit, b, s: train[jit](states[jit], b, s)[1], jit, batch,
+            seed) for jit in (False, True)}
+
+    def eval_run(i, batch):
+        seed = pascal_pf.noise_seed(args.seed, 1, 1, i)
+        return {jit: functools.partial(evals[jit], batch, seed)
+                for jit in (False, True)}
+
+    label = f'dense {policy}'
+    _both(label, TRAIN_KERNELS,
+          [(f'train step {i}', train_run(i, b))
+           for i, b in enumerate(batches)]
+          + [(f'eval batch {i}', eval_run(i, b))
+             for i, b in enumerate(eval_batches)],
+          want=lambda name: PER_TRAIN_STEP if name.startswith('train')
+          else PER_EVAL_BATCH)
+    n = _hold_states(label, models, states)
+    log(f'capture: {label}: {CAPTURE_STEPS} train steps and '
+        f'{len(eval_batches)} eval batches bit-identical to the eager '
+        f'steps (losses, metrics; then {n} parameters and Adam tensors); '
+        f'launches per step {PER_TRAIN_STEP} / per eval batch '
+        f'{PER_EVAL_BATCH} on both')
+    _graph_report(f'{label} train step', train[True])
+    _graph_report(f'{label} eval step', evals[True])
+
+
+def _capture_kg(policy):
+    """The four KG steps (phase 1, its eval, phase 2, its eval), eager
+    (``jit=False``) and captured, from one initial state, CAPTURE_STEPS
+    each at the CLI's seeds (ψ₁'s dropout masks included)."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
+                                            make_train_step)
+    args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
+    train_b, test_b, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim)
+    models = {jit: copy.deepcopy(model).cuda() for jit in (False, True)}
+    states = {jit: create_train_state(m, args.lr)
+              for jit, m in models.items()}
+    steps_ = {(name, jit): fn for jit, m in models.items() for name, fn in (
+        ('phase1', make_train_step(m, num_steps=0, jit=jit)),
+        ('phase2', make_train_step(m, num_steps=args.num_steps, detach=True,
+                                   jit=jit)),
+        ('eval1', make_eval_step(m, hits_ks=(10,), num_steps=0, jit=jit)),
+        ('eval2', make_eval_step(m, hits_ks=(10,),
+                                 num_steps=args.num_steps, jit=jit)))}
+    train_dev = batch_to_device(train_b, 'cuda')
+    test_dev = batch_to_device(test_b, 'cuda')
+    runs, phase_of = [], {}
+    for phase, split, first in (('phase1', 0, 1), ('eval1', 1, 1),
+                                ('phase2', 0, args.phase1_epochs + 1),
+                                ('eval2', 1, args.phase1_epochs + 1)):
+        for e in range(first, first + CAPTURE_STEPS):
+            seed = dbp15k.noise_seed(args.seed, split, e)
+            fns = {}
+            for jit in (False, True):
+                fn = steps_[(phase, jit)]
+                fns[jit] = (functools.partial(
+                    lambda fn, jit, s: fn(states[jit], train_dev, s)[1], fn,
+                    jit, seed) if phase.startswith('phase') else
+                    functools.partial(fn, test_dev, seed))
+            runs.append((f'{phase} epoch {e}', fns))
+            phase_of[f'{phase} epoch {e}'] = phase
+    per = {'phase1': KG_PER[('train', 1)], 'eval1': KG_PER[('eval', 1)],
+           'phase2': KG_PER[('train', 2)], 'eval2': KG_PER[('eval', 2)]}
+    label = f'KG {policy}'
+    _both(label, KG_KERNELS, runs, want=lambda name: per[phase_of[name]])
+    n = _hold_states(label, models, states)
+    log(f'capture: {label}: phase 1, eval1, phase 2 and eval2, '
+        f'{CAPTURE_STEPS} steps each, bit-identical to the eager steps '
+        f'(losses, metrics, ψ₁\'s dropout included; then {n} parameters '
+        f'and Adam tensors); launches per step as kg_train\'s on both')
+    for name in ('phase1', 'eval1', 'phase2', 'eval2'):
+        _graph_report(f'{label} {name}', steps_[(name, True)])
+
+
+def _capture_aot():
+    """``dbp15k.main --aot_compile`` (float32, 12 epochs, 10 of phase 1):
+    the four ``aot_memory_*`` events logged with their memory, one
+    printed line each, and losses bit-identical to the first 12 of the
+    float32 KG main path without the flag."""
+    import tempfile
+    from dgmc_tpu_torch.experiments import dbp15k
+    losses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'metrics.jsonl')
+        dbp15k.main(KG_ARGV + F32_ARGV + [
+            '--epochs', '12', '--phase1_epochs', '10', '--aot_compile',
+            '--metrics_log', path],
+            hook=lambda k, e, o: losses.append(float(o['loss']))
+            if k == 'train' else None)
+        with open(path) as f:
+            events = [json.loads(line) for line in f]
+    aot = {e['event']: e for e in events if 'event' in e}
+    names = [f'aot_memory_{n}' for n in ('phase1_step', 'eval1_step',
+                                         'train_step', 'eval_step')]
+    if sorted(aot) != sorted(names):
+        raise AssertionError(f'--aot_compile logged {sorted(aot)}')
+    for name in names:
+        e = aot[name]
+        if not (e['total_bytes'] == e['argument_bytes'] + e['output_bytes']
+                + e['temp_bytes'] and e['temp_bytes'] > 0):
+            raise AssertionError(f'{name}: {e}')
+        log(f'capture: --aot_compile {name}: ' + ', '.join(
+            f'{k} {e[k]}' for k in ('argument_bytes', 'output_bytes',
+                                    'temp_bytes', 'total_bytes',
+                                    'capture_s')))
+    want = KG_LOSSES.get('f32', [])[:12]
+    if losses != want:
+        raise AssertionError(f'--aot_compile losses {losses} differ from '
+                             f'the run without the flag {want}')
+    log(f'capture: dbp15k.main --aot_compile: 4 aot_memory events, losses '
+        f'of its 12 epochs bit-identical to kg_train\'s without the flag')
+
+
+def phase_capture():
+    """The captured steps against the eager ones on the card (see the
+    module docstring)."""
+    for policy in ('f32', 'bf16'):
+        _capture_dense(policy)
+        _capture_kg(policy)
+    _capture_aot()
 
 
 def phase_serve(result, small, sc_small):
@@ -2251,6 +2572,35 @@ def phase_serve(result, small, sc_small):
     log(f'serve: CPU plain path agrees on query 0 (shortlist and '
         f'candidates equal, max |prob diff| {err:.3g})')
 
+    # Each bucket's graph against the eager query path on the card, with
+    # the engine's own noise and with a query's (a second graph, captured
+    # at its first use).
+    for sig, w in warm.items():
+        log(f'serve: bucket {sig}: warm {w["warm_s"]}s, captured in '
+            f'{w["capture_s"]}s, static memory ' + ', '.join(
+                f'{k} {v}' for k, v in w['memory'].items()))
+    eager = MatchEngine(copy.deepcopy(model), index, router, device='cuda',
+                        jit=False)
+    eager.warm()
+    seen, gen = set(), torch.Generator().manual_seed(5)
+    R_in = engine.model.psi_2.in_channels
+    for qi, (graph, _) in enumerate(queries):
+        bucket = router.route(graph.num_nodes, graph.num_edges)
+        if bucket.nodes in seen:
+            continue
+        seen.add(bucket.nodes)
+        r_s = torch.randn(steps, 1, bucket.nodes, R_in, generator=gen)
+        for noise in (None, r_s):
+            got, want = (e.match(graph, r_s=noise) for e in (engine, eager))
+            if got != want:
+                raise AssertionError(f'query {qi} (bucket {bucket.nodes}, '
+                                     f'{"own" if noise is None else "its"} '
+                                     f'noise): the replay\'s answer differs '
+                                     f'from the eager path\'s')
+    log(f'serve: every bucket\'s replayed answer ({sorted(seen)} rows, the '
+        f'engine\'s noise and a query\'s own r_s) bit-identical to the '
+        f'eager query path on the card')
+
 
 #: Launches per train step and per eval batch at full width:
 #: (spline_route_fwd, spline_route_bwd, consensus_fwd, spline_records,
@@ -2281,19 +2631,20 @@ GRAD_TOL, GRAD_F64_TOL, GRAD_F64_RATIO, GRAD_DRAWS = 1e-3, 1e-8, 2.0, 6
 @contextlib.contextmanager
 def spline_launches_by_width():
     """Within the block, file every spline kernel launch under the width
-    O it ran at: ``{(kernel, O): launches}``, the wrappers' counters read
-    around each forward and backward of ``route_aggregate``'s autograd
-    function (each calls one wrapper once)."""
+    O it ran at: ``{(kernel, O): launches}``, filled at the end of the
+    block, from the wrappers' counters read around each forward and
+    backward of ``route_aggregate``'s autograd function (each calls one
+    wrapper once) into a :class:`Tally` (so the replays of a captured
+    step count too)."""
     from dgmc_tpu_torch.ops.kernels import spline
-    fn, tally = spline._RouteAggregate, {}
+    fn, tally, out = spline._RouteAggregate, Tally('spline'), {}
     fwd, bwd = fn.forward, fn.backward
 
     def counted(name, wrapper, call, x, *args):
         before = wrapper.launches
-        out = call(*args)
-        key = (name, x.shape[-1])
-        tally[key] = tally.get(key, 0) + wrapper.launches - before
-        return out
+        result = call(*args)
+        tally.add((name, x.shape[-1]), wrapper.launches - before)
+        return result
 
     fn.forward = staticmethod(lambda ctx, t, basis, routing: counted(
         'spline_route_fwd', spline.route_fwd, fwd, t, ctx, t, basis,
@@ -2301,9 +2652,10 @@ def spline_launches_by_width():
     fn.backward = staticmethod(lambda ctx, g: counted(
         'spline_route_bwd', spline.route_d_t, bwd, g, ctx, g))
     try:
-        yield tally
+        yield out
     finally:
         fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+        out.update(tally.counts())
 
 
 def _hold_native_collation(label, decisions):
@@ -2479,7 +2831,7 @@ def phase_train(results):
     torch.cuda.synchronize()
     noise_ms = (time.perf_counter() - t0) * 1e3
     log(f'train: host work per step: collating 64 pairs (transforms '
-        f'included; the CLI does it in the step\'s thread) '
+        f'included; the CLI does it in a prefetch thread) '
         f'{collate_ms:.3f} ms; drawing the indicator noise on the card '
         f'(synchronized) {noise_ms:.3f} ms')
     _step_profile(dense_step(), 'one train step')
@@ -2520,13 +2872,16 @@ def dense_step(policy='f32'):
     return lambda: step(state, batch, next(seeds))
 
 
-def dense_loop_step(policy, spent, prefetch=False):
-    """One step of the dense CLI's own loop under ``policy``, as a call:
-    the next batch of the epoch's loader (collated in the step's thread,
-    as ``pascal_pf.main`` does: pinned host batches where the tree has
-    ``HostBatches``; with ``prefetch``, those made in a
-    ``PrefetchLoader``'s thread), then the train step. The wait for the
-    batch adds to ``spent['collate']``."""
+def dense_loop_step(policy, spent, prefetch=False, jit=None):
+    """One step of the dense CLI's loop under ``policy``, as a call: the
+    next batch of the epoch's loader (collated in the step's thread:
+    pinned host batches where the tree has ``HostBatches``; with
+    ``prefetch``, those made in a ``PrefetchLoader``'s thread, as
+    ``pascal_pf.main`` does since its steps are captured), then the train
+    step. The wait for the
+    batch adds to ``spent['collate']``. ``jit`` (trees that have it) picks
+    the step's path; the CLI's (captured) where ``None``. The call carries
+    the step (``run.step``)."""
     from dgmc_tpu_torch.experiments import pascal_pf
     from dgmc_tpu_torch.train import steps as steps_mod
     from dgmc_tpu_torch.train.state import create_train_state
@@ -2534,7 +2889,8 @@ def dense_loop_step(policy, spent, prefetch=False):
     args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
     model, loader, _ = pascal_pf.build(args)
     state = create_train_state(model.cuda(), learning_rate=args.lr)
-    step = steps_mod.make_train_step(model, loss_on_s0=True)
+    step = steps_mod.make_train_step(model, loss_on_s0=True,
+                                     **_jit_kw(jit))
     prefetch_loader = getattr(data_mod, 'PrefetchLoader', None)
     host = getattr(steps_mod, 'HostBatches', None)
     if host is None:
@@ -2556,10 +2912,16 @@ def dense_loop_step(policy, spent, prefetch=False):
         batch = next(it)
         spent['collate'] += time.perf_counter() - t0
         step(state, batch, next(seeds))
+    run.step = step
     return run
 
 
-def kg_step(policy='f32'):
+def _jit_kw(jit):
+    """``{'jit': jit}`` unless ``jit`` is None (the tree's default)."""
+    return {} if jit is None else {'jit': jit}
+
+
+def kg_step(policy='f32', jit=None):
     """One phase-2 step of the KG training path (``dbp15k`` at its
     defaults on the synthetic alignment, ψ₁ detached) under ``policy`` on
     the card, as a call: the batch uploaded once, a new noise seed each
@@ -2571,25 +2933,36 @@ def kg_step(policy='f32'):
     train_b, _, in_dim = dbp15k.synthetic_batches(args)
     model = dbp15k.build(args, in_dim).cuda()
     state = create_train_state(model, learning_rate=args.lr)
-    step = make_train_step(model, num_steps=args.num_steps, detach=True)
+    step = make_train_step(model, num_steps=args.num_steps, detach=True,
+                           **_jit_kw(jit))
     dev_b = batch_to_device(train_b, 'cuda')
     seeds = itertools.count(1)
-    return lambda: step(state, dev_b, next(seeds))
+
+    def run():
+        return step(state, dev_b, next(seeds))
+    run.step = step
+    return run
 
 
 @contextlib.contextmanager
 def host_timers():
     """Within the block, add the host time spent in the model's draws
-    (``draw_noise``, ``draw_negatives``) to ``spent['draw']`` and in the
-    train step's upload (``batch_to_device``) to ``spent['upload']``:
-    those module functions wrapped by a timer (every tree of the port has
-    them)."""
+    (``draw_noise``, ``draw_negatives``) to ``spent['draw']``, in the
+    eager train step's upload (``batch_to_device``) to ``spent['upload']``
+    and, where the tree has captured steps, in a graph's replay call
+    (``Captured.replay``: the launch, returning before the device ends)
+    to ``spent['replay']``: those functions wrapped by a timer."""
     from dgmc_tpu_torch.models import dgmc as dgmc_mod
     from dgmc_tpu_torch.train import steps as steps_mod
     spent = collections.defaultdict(float)
     wrapped = [(dgmc_mod, 'draw_noise', 'draw'),
                (dgmc_mod, 'draw_negatives', 'draw'),
                (steps_mod, 'batch_to_device', 'upload')]
+    try:   # trees with captured steps: the host's time in a replay call
+        from dgmc_tpu_torch.train import compiled
+        wrapped.append((compiled.Captured, 'replay', 'replay'))
+    except ImportError:
+        pass
     originals = []
     for mod, name, part in wrapped:
         fn = getattr(mod, name)
@@ -2609,22 +2982,29 @@ def host_timers():
             setattr(mod, name, fn)
 
 
-#: The parts of a step's host time that ``--steps`` splits out.
-HOST_PARTS = ('draw', 'collate', 'upload')
+#: The parts of a step's time that ``--steps`` splits out (host clock):
+#: the draws, the wait for the batch, the eager step's upload, a
+#: captured step's replay call, and ``wait``, the wait for the device
+#: after the step call returned; ``rest`` is the remainder, the step's own
+#: host work.
+HOST_PARTS = ('draw', 'collate', 'upload', 'replay')
 
 
 def steps(n):
-    """The ``--steps`` mode: ``{step: {...}}`` for the dense step (the
-    CLI's loop: a new batch each step, collated in the step's thread;
-    ``dense_prefetch``, where the tree has ``PrefetchLoader`` and pinned
-    host batches, makes them in the loader's thread instead) and the KG
-    phase-2 step (one uploaded batch), under each precision
-    policy: ``n`` synchronized steps each (host clock, after 2 warm-up
-    steps), the host time of each step split into the draws, the wait for
-    the batch (collation), the upload and the rest (medians over the
-    steps), then one more step under the profiler (device busy time and
-    share, ops, the port's kernels) and the dtype each kernel ran in (the
-    dispatch ledger's)."""
+    """The ``--steps`` mode: ``{step: {...}}`` for the dense step (a new
+    batch each step, collated in the step's thread; ``dense_prefetch``,
+    where the tree has ``PrefetchLoader`` and pinned host batches, makes
+    them in the loader's thread instead, the CLI's loop since its steps
+    are captured) and the KG
+    phase-2 step (one uploaded batch), under each precision policy; on a
+    tree with captured steps (the CLIs' default) also their eager loops,
+    ``dense_eager`` and ``kg_phase2_eager``: ``n`` synchronized steps each
+    (host clock, after 2 warm-up steps), each step's time split as
+    :data:`HOST_PARTS` says (medians over the steps), then one more step
+    under the profiler (device busy time and share, ops, the port's
+    kernels), the dtype each kernel ran in (the dispatch ledger's) and
+    each captured graph's static memory."""
+    import inspect
     from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.train import steps as steps_mod
     from dgmc_tpu_torch.utils import data as data_mod
@@ -2633,30 +3013,36 @@ def steps(n):
     # step.
     prefetch = (hasattr(steps_mod, 'HostBatches')
                 and hasattr(data_mod, 'PrefetchLoader'))
-    names = ('dense', *(('dense_prefetch',) if prefetch else ()),
-             'kg_phase2')
+    jit = 'jit' in inspect.signature(steps_mod.make_train_step).parameters
+    names = ('dense', *(('dense_eager',) if jit else ()),
+             *(('dense_prefetch',) if prefetch else ()), 'kg_phase2',
+             *(('kg_phase2_eager',) if jit else ()))
     out = {}
     for policy in ('f32', 'bf16'):
         for name in names:
+            eager = False if name.endswith('_eager') else None
             with host_timers() as spent:
                 dispatch.reset()
-                run = (kg_step(policy) if name == 'kg_phase2' else
-                       dense_loop_step(policy, spent,
-                                       name == 'dense_prefetch'))
+                run = (kg_step(policy, eager) if name.startswith('kg')
+                       else dense_loop_step(policy, spent,
+                                            name == 'dense_prefetch', eager))
                 for _ in range(2):
                     run()
                 torch.cuda.synchronize()
-                ms, split = [], {k: [] for k in (*HOST_PARTS, 'rest')}
+                ms = []
+                split = {k: [] for k in (*HOST_PARTS, 'wait', 'rest')}
                 for _ in range(n):
                     spent.clear()
                     t0 = time.perf_counter()
                     run()
+                    t1 = time.perf_counter()
                     torch.cuda.synchronize()
                     ms.append((time.perf_counter() - t0) * 1e3)
                     for k in HOST_PARTS:
                         split[k].append(spent[k] * 1e3)
-                    split['rest'].append(
-                        ms[-1] - sum(spent[k] * 1e3 for k in HOST_PARTS))
+                    split['wait'].append(ms[-1] - (t1 - t0) * 1e3)
+                    split['rest'].append((t1 - t0) * 1e3 - sum(
+                        spent[k] * 1e3 for k in HOST_PARTS))
                 rows, wall_ms = _profiled(run)
             busy = sum(r[0] for r in rows) / 1e3
             key = f'{name} {policy}'
@@ -2671,9 +3057,10 @@ def steps(n):
                 'kernels': {k: {'ms': us / 1e3, 'launches': c}
                             for k, us, c in port_kernels(rows)},
                 'dtypes': {k: d.get('dtype')
-                           for k, d in dispatch.decisions().items()}}
+                           for k, d in dispatch.decisions().items()},
+                'graphs': _graph_memory(run.step)}
             log(f'steps: {key}: step ms median {r["median_ms"]:.3f} (min '
-                f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); host '
+                f'{r["min_ms"]:.3f}, max {r["max_ms"]:.3f}, {n} steps); '
                 f'split (median ms) '
                 + ', '.join(f'{k} {v:.3f}'
                             for k, v in r['host_split_ms'].items())
@@ -2682,10 +3069,21 @@ def steps(n):
                 f'{r["device_ops"]} device ops; the port\'s kernels '
                 + ', '.join(f'{k} {v["ms"]:.4f} ms x{v["launches"]}'
                             for k, v in r['kernels'].items())
-                + f'; dtypes {r["dtypes"]}')
+                + f'; dtypes {r["dtypes"]}; graphs {r["graphs"]}')
             del run
+            gc.collect()
             torch.cuda.empty_cache()
     return out
+
+
+def _graph_memory(step):
+    """Static memory of each graph a captured step holds (none on a tree
+    or path without)."""
+    jitted = getattr(step, 'jit', None)
+    if jitted is None or jitted.compiled is None:
+        return []
+    from dgmc_tpu_torch.obs.memory import captured_memory
+    return [captured_memory(rec) for rec in jitted.compiled.records.values()]
 
 
 def _sc_floats(gen, B, N_s, N_t, K, R):
@@ -2866,7 +3264,8 @@ def main(argv=None):
             ('train', lambda: phase_train(res)),
             ('kg_train', lambda: phase_kg_train(res)),
             ('train_bf16', lambda: phase_train_bf16(res)),
-            ('kg_train_bf16', lambda: phase_kg_train_bf16(res))):
+            ('kg_train_bf16', lambda: phase_kg_train_bf16(res)),
+            ('capture', phase_capture)):
         t0 = time.perf_counter()
         try:
             fn()
@@ -2877,6 +3276,10 @@ def main(argv=None):
             log(f'phase {name}: FAILED')
             if name == 'build':
                 break
+        # A phase's captured graphs hold their memory pools until they
+        # are collected (steps and engines sit in reference cycles).
+        gc.collect()
+        torch.cuda.empty_cache()
     for key, (path, kind, shape) in RNG_ROWS.items():
         res[key]['launches'] = RNG_MAIN.get(_rng_key(path, kind, shape), 0)
         if not failed and not res[key]['launches']:

@@ -35,9 +35,14 @@
 // negatives: steps = 1, [B, N_s * num_rnd]). One thread per Philox block,
 // four outputs.
 //
+// The key is read from device memory (a 0-d int64 tensor holding the 64
+// bits in two's complement), so that a captured CUDA graph of a step reads
+// each replay's seed instead of the one it was captured with.
+//
 // Bound on the H100: bytes written (each output once; nothing is read but
-// n_valid). The dense step's noise [10, 64, 80, 64] float32 is 13.1 MB,
-// about 3.9 us at 3.35 TB/s; the KG step's [10, 1, 15000, 32] 19.2 MB.
+// n_valid and the key). The dense step's noise [10, 64, 80, 64] float32 is
+// 13.1 MB, about 3.9 us at 3.35 TB/s; the KG step's [10, 1, 15000, 32]
+// 19.2 MB.
 // Normals also spend a float64 log, sqrt, sin and cos per two outputs.
 
 #include <cuda_runtime.h>
@@ -89,10 +94,13 @@ enum Kind { NORMAL = 0, NEGATIVES = 1 };
 template <int KIND, typename Out>
 __global__ void __launch_bounds__(THREADS)
     draw(Out* __restrict__ out, const int64_t* __restrict__ n_valid,
-         long long P, long long n, long long Q, int B, uint32_t k0,
-         uint32_t k1, uint32_t pair_offset, uint32_t stream) {
+         long long P, long long n, long long Q, int B,
+         const unsigned long long* __restrict__ key, uint32_t pair_offset,
+         uint32_t stream) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (t >= Q * B) return;
+  const unsigned long long k = *key;
+  const uint32_t k0 = (uint32_t)k, k1 = (uint32_t)(k >> 32);
   const int b = (int)(t / Q);
   const long long q = t - (long long)b * Q;
   const Block blk = philox((uint32_t)q, (uint32_t)(q >> 32),
@@ -133,7 +141,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int KIND, typename Out>
 int launch(Out* out, const int64_t* n_valid, long long steps, long long P,
-           int B, unsigned long long seed, unsigned pair_offset,
+           int B, const unsigned long long* key, unsigned pair_offset,
            unsigned stream_id, int device, void* stream) {
   const long long n = steps * P;
   const long long Q = (n + 3) / 4;
@@ -143,8 +151,7 @@ int launch(Out* out, const int64_t* n_valid, long long steps, long long P,
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     draw<KIND, Out><<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-        out, n_valid, P, n, Q, B, (uint32_t)seed, (uint32_t)(seed >> 32),
-        pair_offset, stream_id);
+        out, n_valid, P, n, Q, B, key, pair_offset, stream_id);
     return (int)cudaGetLastError();
   });
 }
@@ -155,11 +162,12 @@ extern "C" {
 
 // Each entry writes pair b's draw of `steps` blocks of P elements at
 // out[step, b, :] ([steps, B, P], contiguous) from counter
-// (q, pair_offset + b, stream) under key `seed` (see above). Launches on
-// `stream` on `device`, does not synchronize, restores the calling
-// thread's current device, returns the first CUDA error.
+// (q, pair_offset + b, stream) under the key at `seed` (one 64-bit word on
+// the device; see above). Launches on `stream` on `device`, does not
+// synchronize, restores the calling thread's current device, returns the
+// first CUDA error.
 int dgmc_philox_normal(float* out, long long steps, long long P, int B,
-                       unsigned long long seed, unsigned pair_offset,
+                       const unsigned long long* seed, unsigned pair_offset,
                        unsigned stream_id, int device, void* stream) {
   return launch<NORMAL, float>(out, nullptr, steps, P, B, seed, pair_offset,
                                stream_id, device, stream);
@@ -168,7 +176,7 @@ int dgmc_philox_normal(float* out, long long steps, long long P, int B,
 // n_valid [B] int64 on the device; out [B, P] int64 (steps = 1). With
 // n_valid = 2^24 a negative is the uniform's 24 bits, x >> 8, exactly.
 int dgmc_philox_negatives(long long* out, const long long* n_valid,
-                          long long P, int B, unsigned long long seed,
+                          long long P, int B, const unsigned long long* seed,
                           unsigned pair_offset, unsigned stream_id,
                           int device, void* stream) {
   return launch<NEGATIVES, long long>(

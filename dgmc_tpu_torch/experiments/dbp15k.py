@@ -19,6 +19,13 @@ CLI's (``dgmc_tpu/experiments/dbp15k.py``), its precision policy
 included: bf16 compute with float32 accumulation (``--precision bf16``);
 ``--f32`` computes in float32 throughout.
 
+Every step runs compiled (``jit=True``): on the card each of the four
+(phase 1, phase 2 and their evaluations) is a CUDA graph captured at its
+first call and replayed after, reading the pair uploaded once in place;
+on the CPU the same static-buffer code runs eagerly.
+``--aot_compile`` captures the steps the schedule will run before epoch
+1 and logs each one's static memory, as the JAX CLI does.
+
 ``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
 offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
 default). The real DBP15K data needs the dataset's parser, which is not
@@ -37,6 +44,7 @@ from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
 from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.rel import RelCNN
+from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
@@ -85,6 +93,14 @@ def parse_args(argv=None):
                         'PyTorch path)')
     p.add_argument('--metrics_log', type=str, default=None,
                    help='append per-evaluation metrics to this JSONL file')
+    p.add_argument('--aot_compile', action='store_true',
+                   help='capture the executed phase/eval steps up front '
+                        '(each a CUDA graph on the card, replacing the '
+                        'capture at first call; the static-buffer steps on '
+                        'the CPU) and record each one\'s static memory '
+                        '(argument + output + temp bytes, the temps its '
+                        'graph\'s private pool) into the metrics log as '
+                        'aot_memory_<name> events')
     precision.add_precision_args(p)
     return p.parse_args(argv)
 
@@ -164,10 +180,43 @@ def main(argv=None, hook=None):
     train_dev = batch_to_device(train_batch, device)
     test_dev = batch_to_device(test_batch, device)
 
-    print('Optimize initial feature matching...', flush=True)
     with MetricLogger(args.metrics_log) as logger:
+        if args.aot_compile:
+            _aot_compile(args, logger, state, (phase1, phase2),
+                         (eval1, eval2), train_dev, test_dev)
+        print('Optimize initial feature matching...', flush=True)
         return _train(args, state, (phase1, phase2), (eval1, eval2),
                       train_dev, test_dev, logger, hook)
+
+
+def _aot_compile(args, logger, state, phases, evals, train_dev, test_dev):
+    """Capture the steps this schedule will execute (eval1 runs only on
+    phase-1 epochs divisible by 10) and log each one's static memory as
+    an ``aot_memory_<name>`` event (with the host's resident set beside
+    it), as the JAX CLI's ``--aot_compile`` does. Capturing leaves the
+    state as it found it, so training from the same seed follows."""
+    (phase1, phase2), (eval1, eval2) = phases, evals
+
+    def aot(name, record):
+        mem = captured_memory(record)
+        logger.log(0, event=f'aot_memory_{name}', **mem,
+                   capture_s=record.capture_s,
+                   **memory_snapshot(name)['host'])
+        print(f'# {name}: per-device static memory '
+              f'{mem["total_bytes"] / 2**30:.3f} GiB '
+              f'(args {mem["argument_bytes"] >> 20} MiB, '
+              f'temps {mem["temp_bytes"] >> 20} MiB)', flush=True)
+
+    # Clamp both gates to the epochs that will run: phase 1 ends at
+    # min(phase1_epochs, epochs).
+    p1_last = min(args.phase1_epochs, args.epochs)
+    if p1_last >= 1:
+        aot('phase1_step', phase1.capture(state, train_dev, 0))
+        if any(e % 10 == 0 for e in range(1, p1_last + 1)):
+            aot('eval1_step', eval1.capture(test_dev, 0))
+    if args.epochs > args.phase1_epochs:
+        aot('train_step', phase2.capture(state, train_dev, 0))
+        aot('eval_step', eval2.capture(test_dev, 0))
 
 
 def _train(args, state, phases, evals, train_dev, test_dev, logger, hook):
@@ -182,12 +231,13 @@ def _train(args, state, phases, evals, train_dev, test_dev, logger, hook):
         step = phase2 if refine else phase1
         state, out = step(state, train_dev, noise_seed(args.seed, 0, epoch))
         if hook is not None:
-            hook('train', epoch, out)
+            # The step's metrics are static: the next step overwrites them.
+            hook('train', epoch, {k: v.clone() for k, v in out.items()})
         if epoch % 10 == 0 or refine:
             ev = (eval2 if refine else eval1)(
                 test_dev, noise_seed(args.seed, 1, epoch))
             if hook is not None:
-                hook('eval', epoch, ev)
+                hook('eval', epoch, {k: v.clone() for k, v in ev.items()})
             count = max(float(ev['count']), 1.0)
             per_epoch = (time.time() - t_span) / (epoch - last_print)
             last_print, t_span = epoch, time.time()

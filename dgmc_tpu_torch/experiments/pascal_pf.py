@@ -12,12 +12,19 @@ are the JAX CLI's (``dgmc_tpu/experiments/pascal_pf.py``), its precision
 policy included: bf16 compute with float32 accumulation
 (``--precision bf16``); ``--f32`` computes in float32 throughout.
 
+The train and eval steps run compiled (``jit=True``): on the card each is
+a CUDA graph captured at its first call, each batch copied into its
+static buffers and the graph replayed (its SplineCNN routing and edge
+orders built inside the graph, from the batch copied in); on the CPU the
+same static-buffer code runs eagerly.
+
 Batches are collated (through the port's C++ collation) and prepared as
-pinned host tensors in the step's own thread, as the JAX CLI collates
-them; the step copies its batch to the card without blocking. A
-background thread (``utils.data.PrefetchLoader``) gives the same batches
-but no time back: the step's Python and the worker's share the GIL, and
-the step waited longer for it than the collation took.
+pinned host tensors two batches ahead in a background thread
+(``utils.data.PrefetchLoader``), the role the reference gives its
+DataLoader workers; the step copies each to the card without blocking. A
+replayed step holds the GIL for a few calls only, so the thread's
+collation overlaps the device's work (an eager step's Python held it
+for most of the step, and the thread then cost more than it saved).
 
 ``--synthetic_eval N`` also evaluates on ``N`` held-out synthetic pairs
 per epoch. ``--metrics_log PATH`` appends the JAX CLI's per-epoch JSONL
@@ -43,7 +50,7 @@ from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
                                         make_train_step)
-from dgmc_tpu_torch.utils.data import PairLoader
+from dgmc_tpu_torch.utils.data import PairLoader, PrefetchLoader
 
 __all__ = ['NUM_NODES', 'NUM_EDGES', 'parse_args', 'build', 'noise_seed',
            'main']
@@ -137,8 +144,9 @@ def main(argv=None, hook=None):
                                  num_nodes=NUM_NODES, num_edges=NUM_EDGES)
 
     eval_step = make_eval_step(model) if eval_loader else None
-    train_batches = HostBatches(train_loader, device)
-    eval_batches = HostBatches(eval_loader, device) if eval_loader else None
+    train_batches = PrefetchLoader(HostBatches(train_loader, device), 2)
+    eval_batches = (PrefetchLoader(HostBatches(eval_loader, device), 2)
+                    if eval_loader else None)
     with MetricLogger(args.metrics_log) as logger:
         for epoch in range(1, args.epochs + 1):
             train_loader.dataset.set_epoch(epoch)
@@ -160,7 +168,8 @@ def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
         state, out = step(state, batch,
                           noise_seed(args.seed, 0, epoch, i))
         if hook is not None:
-            hook('train', i, out)
+            # The step's metrics are static: the next step overwrites them.
+            hook('train', i, {k: v.clone() for k, v in out.items()})
         n_b = float(batch.y_mask.sum())
         tot_loss += out['loss']
         tot_correct += out['acc'] * n_b
@@ -177,7 +186,7 @@ def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
         for i, b in enumerate(eval_loader):
             out = eval_step(b, noise_seed(args.seed, 1, epoch, i))
             if hook is not None:
-                hook('eval', i, out)
+                hook('eval', i, {k: v.clone() for k, v in out.items()})
             correct += out['correct']
             n += float(b.y_mask.sum())
         eval_acc = float(correct) / max(n, 1.0)

@@ -9,6 +9,9 @@ are instead stable-sorted by receiver and each node's messages summed in
 edge order by one segment reduction. The same holds for the gradient of
 a gather (``torch.gather``'s backward is ``scatter_add_``):
 :func:`gather_nodes` sums it by the same sorted segment reduction.
+The sort, ``searchsorted`` and ``segment_reduce`` read nothing back to
+the host, so a captured CUDA graph records them (the captures run under
+``torch.cuda.set_sync_debug_mode('error')``).
 """
 
 import dataclasses
@@ -65,6 +68,14 @@ class GraphBatch:
     :meth:`to` copies them to the device on the caller's current stream,
     without blocking. Each host batch gets fresh pinned tensors: torch's
     host allocator keeps them from reuse until their copy is done.
+
+    A captured step's static input batch (:meth:`static_like`) is the one
+    exception to immutability: :meth:`copy_from` writes each step's batch
+    into it. Its caches are derived data, so it holds none across a copy:
+    :meth:`copy_from` refuses a batch with a non-empty memo, and the step
+    clears it (:meth:`clear_memo`) after each run and capture, so that a
+    graph builds its routing and CSR orders inside the captured region,
+    from the data each replay copies in.
     """
     x: torch.Tensor
     senders: torch.Tensor
@@ -130,6 +141,48 @@ class GraphBatch:
         ``device``."""
         device = canonical_device(device)
         return cls.host(arrays, device.type == 'cuda').to(device)
+
+    def fields(self):
+        """The batch's tensors, ``edge_attr`` last where present."""
+        return [t for t in (self.x, self.senders, self.receivers,
+                            self.node_mask, self.edge_mask, self.edge_attr)
+                if t is not None]
+
+    def static_like(self, device):
+        """An uninitialized batch of this one's shapes and dtypes on
+        ``device``, with an empty memo: a captured step's input buffers
+        (:meth:`copy_from`)."""
+        def empty(t):
+            return None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, device=canonical_device(device))
+        return GraphBatch(x=empty(self.x), senders=empty(self.senders),
+                          receivers=empty(self.receivers),
+                          node_mask=empty(self.node_mask),
+                          edge_mask=empty(self.edge_mask),
+                          edge_attr=empty(self.edge_attr))
+
+    def copy_from(self, src):
+        """Copy ``src``'s data into this batch's tensors (without blocking
+        from pinned host memory, on the current stream). Refuses a
+        non-empty memo: a cache built from the data being replaced would go
+        stale."""
+        if self._memo:
+            raise RuntimeError(f'copy_from into a batch with cached '
+                               f'{sorted(map(str, self._memo))}: clear_memo '
+                               f'first, so that caches are rebuilt from the '
+                               f'new data')
+        dst, new = self.fields(), src.fields()
+        if [(t.shape, t.dtype) for t in dst] != [(t.shape, t.dtype)
+                                                 for t in new]:
+            raise ValueError('copy_from: the batches differ in shape, dtype '
+                             'or edge attributes')
+        for d, t in zip(dst, new):
+            d.copy_(t, non_blocking=True)
+        return self
+
+    def clear_memo(self):
+        """Drop every cache (:meth:`memo`, :meth:`csr`)."""
+        self._memo.clear()
 
     @property
     def num_nodes(self):

@@ -11,13 +11,19 @@ leaving it to inference from timings.
 Each kernel wrapper also carries a plain integer ``launches`` counter
 that it increments where it launches its kernel and nowhere else;
 :func:`launch_counts` reads them and :func:`reset` clears them for every
-wrapper registered with :func:`kernel_wrapper`.
+wrapper registered with :func:`kernel_wrapper`. A CUDA graph's replay
+runs no Python, so the captured step (:mod:`dgmc_tpu_torch.train.
+compiled`) reads the ledger around its capture (:func:`snapshot`,
+:func:`changes`), sets it back to what it was before its warm-up runs
+(:func:`restore`), and adds what the capture recorded on every replay
+(:func:`replay`): the counts and decisions are those of the steps
+executed, on either path.
 """
 
 import threading
 
 __all__ = ['record', 'decisions', 'reset', 'kernel_wrapper',
-           'launch_counts']
+           'launch_counts', 'snapshot', 'restore', 'changes', 'replay']
 
 _lock = threading.Lock()
 _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
@@ -80,3 +86,64 @@ def launch_counts():
     """``{kernel: launches}`` for every registered wrapper."""
     with _lock:
         return {k: fn.launches for k, fn in _wrappers.items()}
+
+
+def snapshot():
+    """The whole ledger as it stands: ``(decisions, launch counts)``."""
+    return decisions(), launch_counts()
+
+
+def restore(state):
+    """Set the ledger back to a :func:`snapshot` (a wrapper registered
+    since then back to 0 launches)."""
+    recorded, counts = state
+    with _lock:
+        _decisions.clear()
+        for k, v in recorded.items():
+            _decisions[k] = {**v, 'counts': dict(v['counts']),
+                             'dtypes': dict(v['dtypes'])}
+        for k, fn in _wrappers.items():
+            fn.launches = counts.get(k, 0)
+
+
+def changes(before, after):
+    """What the ledger recorded between two snapshots: ``(launches,
+    decisions)``, ``{kernel: launches}`` and, per gate, its latest
+    decision with the counts by path and by ``'path:dtype'`` that it
+    added."""
+    (dec0, cnt0), (dec1, cnt1) = before, after
+    launches = {k: n - cnt0.get(k, 0) for k, n in cnt1.items()
+                if n != cnt0.get(k, 0)}
+    added = {}
+    for k, v in dec1.items():
+        old = dec0.get(k, {'counts': {}, 'dtypes': {}})
+        counts = {p: n - old['counts'].get(p, 0)
+                  for p, n in v['counts'].items()}
+        if any(counts.values()):
+            added[k] = {'path': v['path'], 'reason': v['reason'],
+                        'dtype': v['dtype'], 'counts': counts,
+                        'dtypes': {d: n - old['dtypes'].get(d, 0)
+                                   for d, n in v['dtypes'].items()
+                                   if n != old['dtypes'].get(d, 0)}}
+    return launches, added
+
+
+def replay(launches, recorded=None):
+    """Add what one replay of a captured graph executed: ``launches``
+    (``{kernel: launches}``) to the wrappers' counters and ``recorded``
+    (:func:`changes`' decisions) to the ledger."""
+    with _lock:
+        for k, n in launches.items():
+            _wrappers[k].launches += n
+        for k, v in (recorded or {}).items():
+            pair = next(p for p in _PATHS if v['path'] in p)
+            entry = _decisions.setdefault(
+                k, {'path': v['path'], 'reason': v['reason'],
+                    'dtype': v['dtype'], 'counts': dict.fromkeys(pair, 0),
+                    'dtypes': {}})
+            entry['path'], entry['reason'] = v['path'], v['reason']
+            entry['dtype'] = v['dtype']
+            for p, n in v['counts'].items():
+                entry['counts'][p] = entry['counts'].get(p, 0) + n
+            for d, n in v['dtypes'].items():
+                entry['dtypes'][d] = entry['dtypes'].get(d, 0) + n

@@ -11,7 +11,10 @@ device. JAX draws them inside its jitted step
 (``dgmc_tpu/models/dgmc.py:515-526``, ``:733-738``); threefry's bits are
 not reproduced.
 
-The stream (see the source): key = the 64-bit ``seed``; element ``e`` of
+The stream (see the source): key = the 64-bit ``seed``, a Python int or
+a 0-d int64 tensor holding its bits in two's complement
+(:func:`seed_tensor`; read on its device, never on the host: a captured
+CUDA graph of a step reads each replay's seed from it); element ``e`` of
 pair ``b``'s draw (its flat index within that pair's draw) is word
 ``e % 4`` of the Philox block at counter
 ``(e // 4 low, e // 4 high, pair_offset + b, stream)``. So a batch of
@@ -47,7 +50,8 @@ import torch
 from dgmc_tpu_torch.ops.graph import canonical_device
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['PHILOX_M', 'PHILOX_W', 'philox4x32', 'plain_philox_words',
+__all__ = ['PHILOX_M', 'PHILOX_W', 'key_bits', 'seed_tensor', 'philox4x32',
+           'plain_philox_words',
            'plain_philox_normal', 'plain_philox_uniform',
            'plain_philox_negatives', 'philox_normal', 'philox_negatives']
 
@@ -72,8 +76,9 @@ def _mulhilo(m, c):
 
 def philox4x32(counter, key):
     """Philox4x32-10 of ``counter`` (four int64 tensors of 32-bit values,
-    or ints) under ``key`` (two 32-bit ints): the four 32-bit words of
-    each block as int64 tensors."""
+    or ints) under ``key`` (two 32-bit ints, or two 0-d int64 tensors on
+    the counters' device): the four 32-bit words of each block as int64
+    tensors."""
     dev = next((c.device for c in counter if torch.is_tensor(c)), 'cpu')
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64, device=dev)
                       for c in counter)
@@ -88,7 +93,34 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def _key(seed):
+def key_bits(seed):
+    """The int64 whose two's-complement bits are the 64-bit key of the
+    int ``seed`` (its low 64 bits)."""
+    seed = int(seed) & _U64
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
+def seed_tensor(seed, device='cpu'):
+    """``seed`` as the key's device form: a 0-d int64 tensor on
+    ``device`` holding :func:`key_bits` (written by a fill: no copy from
+    the host)."""
+    return torch.full((), key_bits(seed), dtype=torch.int64, device=device)
+
+
+def _check_seed(seed, device):
+    if torch.is_tensor(seed) and (seed.dim() != 0 or seed.dtype
+                                  != torch.int64 or seed.device != device):
+        raise ValueError(f'a seed tensor is 0-d int64 on {device}; got '
+                         f'{tuple(seed.shape)} {seed.dtype} on '
+                         f'{seed.device}')
+
+
+def _key(seed, device):
+    """The key's two 32-bit words: ints for an int ``seed``, 0-d int64
+    tensors on ``device`` for a seed tensor (no host read)."""
+    if torch.is_tensor(seed):
+        seed = seed.to(device=device, dtype=torch.int64)
+        return seed & _U32, (seed >> 32) & _U32
     seed = int(seed) & _U64
     return seed & _U32, seed >> 32
 
@@ -110,7 +142,7 @@ def plain_philox_words(steps, B, P, seed, pair_offset=0, stream=0,
     q = torch.arange(Q, dtype=torch.int64, device=device)[None, :]
     b = torch.arange(B, dtype=torch.int64, device=device)[:, None]
     words = philox4x32((q & _U32, q >> 32, b + pair_offset, int(stream)),
-                       _key(seed))
+                       _key(seed, device))
     return torch.stack(words, dim=-1).reshape(B, 4 * Q)
 
 
@@ -165,10 +197,9 @@ def _library():
     lib = load_library('rng.cu')
     if not getattr(lib, 'rng_bound', False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        u64, u32 = ctypes.c_ulonglong, ctypes.c_uint
-        lib.dgmc_philox_normal.argtypes = [p, ll, ll, i, u64, u32, u32, i, p]
-        lib.dgmc_philox_negatives.argtypes = [p, p, ll, i, u64, u32, u32, i,
-                                              p]
+        u32 = ctypes.c_uint
+        lib.dgmc_philox_normal.argtypes = [p, ll, ll, i, p, u32, u32, i, p]
+        lib.dgmc_philox_negatives.argtypes = [p, p, ll, i, p, u32, u32, i, p]
         lib.dgmc_philox_normal.restype = ctypes.c_int
         lib.dgmc_philox_negatives.restype = ctypes.c_int
         lib.rng_bound = True
@@ -187,8 +218,10 @@ def _draw(kind, steps, B, P, seed, pair_offset, stream, device,
           n_valid=None):
     """One draw of ``kind`` (``'normal'`` or ``'negatives'``) on
     ``device``: the plain version on the CPU, one kernel launch on the
-    card."""
+    card, which reads the key from a seed tensor (an int ``seed`` is
+    written into one by a fill launch first)."""
     _check_pairs(B, pair_offset)
+    _check_seed(seed, device)
     if device.type == 'cpu':
         if kind == 'normal':
             dispatch.record('rng', 'plain', 'device=cpu', torch.float32)
@@ -197,19 +230,20 @@ def _draw(kind, steps, B, P, seed, pair_offset, stream, device,
         dispatch.record('rng', 'plain', 'device=cpu', torch.int64)
         return plain_philox_negatives(n_valid, P, seed, pair_offset, stream)
     s = torch.cuda.current_stream(device)
-    key = int(seed) & _U64
+    if not torch.is_tensor(seed):
+        seed = seed_tensor(seed, device)
     if kind == 'normal':
         dispatch.record('rng', 'kernel', 'auto-cuda', torch.float32)
         out = torch.empty((steps, B, P), dtype=torch.float32, device=device)
         err = _library().dgmc_philox_normal(
-            out.data_ptr(), steps, P, B, key, pair_offset, stream,
-            s.device_index, s.cuda_stream)
+            out.data_ptr(), steps, P, B, seed.data_ptr(), pair_offset,
+            stream, s.device_index, s.cuda_stream)
     else:
         dispatch.record('rng', 'kernel', 'auto-cuda', torch.int64)
         out = torch.empty((B, P), dtype=torch.int64, device=device)
         err = _library().dgmc_philox_negatives(
-            out.data_ptr(), n_valid.data_ptr(), P, B, key, pair_offset,
-            stream, s.device_index, s.cuda_stream)
+            out.data_ptr(), n_valid.data_ptr(), P, B, seed.data_ptr(),
+            pair_offset, stream, s.device_index, s.cuda_stream)
     if err != 0:
         raise RuntimeError(f'rng {kind} kernel launch failed with CUDA '
                            f'error {err} (steps={steps}, B={B}, P={P})')
@@ -220,7 +254,8 @@ def _draw(kind, steps, B, P, seed, pair_offset, stream, device,
 def philox_normal(steps, B, P, seed, pair_offset=0, stream=0,
                   device='cpu'):
     """Standard normals ``[steps, B, P]`` float32 on ``device``: pair
-    ``b``'s from counters ``(q, pair_offset + b, stream)``."""
+    ``b``'s from counters ``(q, pair_offset + b, stream)``; ``seed`` an int
+    or a seed tensor on ``device`` (:func:`seed_tensor`)."""
     return _draw('normal', steps, B, P, seed, pair_offset, stream,
                  _device(device))
 
@@ -228,7 +263,7 @@ def philox_normal(steps, B, P, seed, pair_offset=0, stream=0,
 def philox_negatives(n_valid, P, seed, pair_offset=0, stream=1):
     """Random columns ``[B, P]`` int64 on ``n_valid``'s device, each in
     ``[0, n_valid[b])`` (0 where ``n_valid[b]`` is 0); ``n_valid`` ``[B]``
-    is read on its device, never on the host."""
+    is read on its device, never on the host, as is a seed tensor."""
     if n_valid.dim() != 1:
         raise ValueError(f'n_valid must be [B]; got {tuple(n_valid.shape)}')
     return _draw('negatives', 1, n_valid.shape[0], P, seed, pair_offset,

@@ -87,10 +87,14 @@ def main(argv=None):
     engine = MatchEngine(model, index, router,
                          max_results=args.max_results, device=device)
     t0 = time.perf_counter()
-    engine.warm()
+    report = engine.warm()
     log(f'{engine.buckets_warm} buckets warm in '
         f'{time.perf_counter() - t0:.2f}s (cache {info["cache"]}) on '
         f'{device}')
+    for sig, r in report.items():
+        log(f'bucket {sig}: captured in {r["capture_s"]}s, static memory '
+            f'{r["memory"]["total_bytes"] >> 20} MiB (temps '
+            f'{r["memory"]["temp_bytes"] >> 20} MiB)')
     largest = max(b.nodes for b in router.buckets)
     rng = np.random.RandomState(args.seed)
     for i in range(args.num_queries):

@@ -4,9 +4,17 @@ Each query runs the model's own forward
 (:meth:`dgmc_tpu_torch.models.dgmc.DGMC.forward`) with the corpus ψ₁
 table passed in precomputed (``h_t=...``): ψ₁ on the query, the top-k
 shortlist against the device-resident table (the CUDA top-k kernel on
-the card), and the sparse consensus rerank. Every declared bucket is run
-once by :meth:`MatchEngine.warm` before the first query, so the kernels
-are built and the allocator is primed off the query path.
+the card), the sparse consensus rerank and :func:`ranked`. On the card
+:meth:`MatchEngine.warm` captures one CUDA graph of that whole query per
+declared bucket (:mod:`~dgmc_tpu_torch.train.compiled`; the corpus graph,
+``h_t`` and the weights are its fixed inputs, read in place); after it
+returns the query path executes only: :meth:`MatchEngine.match` copies
+the padded query into the bucket's buffers, replays the graph and copies
+the answer to the host. A query that brings its own noise (``r_s``) is
+served by a second graph for its bucket, captured at its first use. On
+the CPU the same static-buffer code runs eagerly (``warm`` runs each
+bucket once). ``jit=False`` runs every query eagerly (the comparison
+``chip_smoke.py`` makes on the card).
 
 Answers are bit-identical across repeats and across concurrent callers:
 execution is serialized under one lock, the indicator noise comes from a
@@ -26,8 +34,10 @@ import torch
 
 from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.obs import probes
+from dgmc_tpu_torch.obs.memory import captured_memory
 from dgmc_tpu_torch.ops.graph import GraphBatch
 from dgmc_tpu_torch.ops.topk import stable_topk
+from dgmc_tpu_torch.train.compiled import Fixed, compiled
 
 __all__ = ['MatchEngine', 'UnknownExecutableError', 'ranked']
 
@@ -92,10 +102,12 @@ class MatchEngine:
             seed, so identical queries get identical answers.
         device: ``cuda`` by default; raises where CUDA is absent unless
             ``'cpu'`` is passed.
+        jit: serve each bucket through its captured graph (the default);
+            ``False`` runs every query eagerly.
     """
 
     def __init__(self, model, index, router, max_results=5, noise_seed=0,
-                 device=None):
+                 device=None, jit=True):
         self.device = resolve_device(device)
         if router.corpus_nodes != index.corpus.num_nodes \
                 or router.corpus_edges != index.corpus.num_edges:
@@ -112,6 +124,7 @@ class MatchEngine:
         self._h_t = torch.as_tensor(index.h_t, dtype=torch.float32).to(
             self.device)
         self._warm = {}   # signature -> {'bucket', 'warm_s', 'queries'}
+        self._compiled = compiled(self._query, self.device) if jit else None
         self.query_count = 0
         self.last_latency_s = None
 
@@ -126,18 +139,25 @@ class MatchEngine:
                 'edge_mask': np.zeros((1, e), bool)}
 
     def warm(self):
-        """Run every declared bucket once; returns ``{signature: info}``
-        with each bucket's warm-up seconds."""
+        """Capture every declared bucket's graph (on the CPU: run it
+        once); returns ``{signature: info}`` with each bucket's seconds
+        (``warm_s``), those of its capture (``capture_s``, warm-up runs
+        included; 0 without ``jit``) and its graph's static memory
+        (``memory``, :func:`~dgmc_tpu_torch.obs.memory.captured_memory`;
+        ``None`` without ``jit``)."""
         report = {}
         for bucket in self.router.buckets:
             sig = self.router.signature(bucket)
             t0 = time.perf_counter()
             with self._lock:
-                self._execute(self._template(bucket))
+                rec = self._capture(self._template(bucket))
             warm_s = round(time.perf_counter() - t0, 3)
             self._warm[sig] = {'bucket': bucket, 'warm_s': warm_s,
                                'queries': 0}
-            report[sig] = {'bucket': sig, 'warm_s': warm_s}
+            report[sig] = {
+                'bucket': sig, 'warm_s': warm_s,
+                'capture_s': round(rec.capture_s, 3) if rec else 0.0,
+                'memory': captured_memory(rec) if rec else None}
         return report
 
     @property
@@ -179,16 +199,50 @@ class MatchEngine:
             self.query_count += 1
         return self._answer(bucket, n_real, out)
 
-    def _execute(self, arrays, r_s=None):
-        q = GraphBatch.from_numpy(arrays, self.device)
+    def _query(self, model, q, t_graph, h_t, r_s):
+        """The query path of one padded query: what a bucket's graph
+        records."""
+        S_0, S_L = model(q, t_graph, h_t=h_t, noise_seed=self.noise_seed,
+                         r_s=r_s)
+        return ranked(S_0, S_L, q.node_mask, self.max_results)
+
+    def _inputs(self, arrays, r_s=None):
+        """The compiled query's inputs: the padded query's host part
+        (pinned for the card) and ``r_s`` are copied, the rest is read in
+        place."""
+        q = GraphBatch.host(arrays, pin_memory=self.device.type == 'cuda')
         if r_s is not None:
-            r_s = torch.as_tensor(r_s, dtype=torch.float32).to(self.device)
+            r_s = torch.as_tensor(r_s, dtype=torch.float32)
+        return (Fixed(self.model), q, Fixed(self._t_graph),
+                Fixed(self._h_t), r_s)
+
+    def _capture(self, arrays):
+        """The bucket's record, built ahead of its first query (without
+        ``jit``: one eager run, and ``None``)."""
+        if self._compiled is None:
+            self._execute(arrays)
+            return None
         with torch.inference_mode():
-            S_0, S_L = self.model(q, self._t_graph, h_t=self._h_t,
-                                  noise_seed=self.noise_seed, r_s=r_s)
-            out = ranked(S_0, S_L, q.node_mask, self.max_results)
-            # .cpu() waits for the device: the answer is complete here.
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            return self._compiled.capture(*self._inputs(arrays))
+
+    def _execute(self, arrays, r_s=None):
+        """The answer arrays of one padded query."""
+        inputs = self._inputs(arrays, r_s)
+        with torch.inference_mode():
+            if self._compiled is not None:
+                out = self._compiled(*inputs)
+            else:
+                q, r_s = inputs[1].to(self.device), inputs[4]
+                out = self._query(self.model, q, self._t_graph, self._h_t,
+                                  None if r_s is None else r_s.to(self.device))
+            # Non-blocking copies into pinned host memory, then one wait:
+            # the answer is complete here. Fresh host tensors: the next
+            # replay overwrites the static outputs, not these.
+            host = {k: v.to('cpu', non_blocking=True)
+                    for k, v in out.items()}
+            if self.device.type == 'cuda':
+                torch.cuda.current_stream(self.device).synchronize()
+            return {k: v.numpy() for k, v in host.items()}
 
     def _answer(self, bucket, n_real, out):
         matches = []

@@ -1,6 +1,6 @@
 """Train and eval steps.
 
-``make_train_step(model, ...)`` returns
+``make_train_step(model, ..., jit=True)`` returns
 ``step(state, batch, noise_seed, r_s=None, negatives=None) ->
 (state, metrics)``: one forward in training mode on the padded batch, the
 NLL of ``S_L`` (plus that of ``S_0`` with ``loss_on_s0``, as the keypoint
@@ -17,6 +17,22 @@ from a generator on the model's device seeded from it. ``r_s`` and
 ``count``, ``correct`` and ``hits@k`` as sums, so callers aggregate
 across batches exactly.
 
+``jit`` (the JAX signature's switch, on by default) compiles the step
+once per input signature (:mod:`~dgmc_tpu_torch.train.compiled`): on the
+card a CUDA graph of the whole step (forward, backward and the Adam
+update) captured at the first call and replayed after, on the CPU the
+same static-buffer code run eagerly. The seed is then a static device
+input (the draw kernel reads it there) and the dropout masks come from
+one generator per step function on the model's device, reseeded before
+each call with the seed :func:`dropout_generator` derives and
+registered with each graph, so they equal the eager step's. The metrics
+of a compiled step are static: the next call overwrites them, so a
+caller that keeps one clones it. ``jit=False`` runs the eager step
+(``chip_smoke.py`` and the card tests hold the two equal bit for bit).
+Under ``jit`` on the card, injected ``negatives`` are refused: their range
+check reads the device, which a captured step may not (tests inject
+them on the CPU or with ``jit=False``).
+
 A batch is a host :class:`~dgmc_tpu_torch.utils.data.PairBatch`, uploaded
 per call, or a :class:`DeviceBatch`: from :func:`batch_to_device`, which
 a loop over one fixed pair uploads once (its graphs then also keep their
@@ -24,7 +40,18 @@ sorted edge orders and routings across steps), or from
 :func:`batch_to_host`, the host part of an upload (validated CPU tensors,
 pinned for the card; :class:`HostBatches`), which the step copies to the
 device without blocking.
+
+Which batch a compiled step copies: a batch already on the model's card
+(a :class:`DeviceBatch` from :func:`batch_to_device`, as the KG CLI
+uploads its one pair) is read in place, so its caches (CSR orders) are
+built once, by the warm-up, outside the graph, and each such batch object
+gets a graph of its own; any other batch (host batches, as the dense CLI
+makes one per step, and every batch on the CPU) is copied into the
+step's static buffers, whose caches the graph builds from the data each
+call copies in.
 """
+
+import operator
 
 from typing import NamedTuple
 
@@ -33,11 +60,12 @@ import torch
 
 from dgmc_tpu_torch.models import metrics
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device, host_tensor
-from dgmc_tpu_torch.train.state import apply_gradients
+from dgmc_tpu_torch.train.compiled import Fixed, compiled
+from dgmc_tpu_torch.train.state import optimizer_update, snapshot
 
 __all__ = ['DeviceBatch', 'HostBatches', 'batch_to_host', 'batch_to_device',
-           'dropout_generator', 'loss_and_outputs', 'make_train_step',
-           'make_eval_step']
+           'dropout_seed', 'dropout_generator', 'loss_and_outputs',
+           'make_train_step', 'make_eval_step']
 
 
 class DeviceBatch(NamedTuple):
@@ -104,10 +132,16 @@ class HostBatches:
             yield batch_to_host(batch, self.pin_memory)
 
 
+def dropout_seed(noise_seed):
+    """The dropout masks' generator seed of the step seeded
+    ``noise_seed``."""
+    return (int(noise_seed) * 1_000_003 + 7) % (1 << 63)
+
+
 def dropout_generator(noise_seed, device):
-    """The dropout masks' generator of one step, on ``device``."""
+    """The dropout masks' generator of one eager step, on ``device``."""
     return torch.Generator(device=device).manual_seed(
-        (int(noise_seed) * 1_000_003 + 7) % (1 << 63))
+        dropout_seed(noise_seed))
 
 
 def loss_and_outputs(model, batch, loss_on_s0=False, noise_seed=0,
@@ -132,43 +166,121 @@ def _hits(out, hits_ks, S_L, y, y_mask, reduction):
     return out
 
 
+def _step_input(batch, device):
+    """A compiled step's batch input: in place where it lies on the card
+    already, else its host part, to be copied."""
+    if (isinstance(batch, DeviceBatch) and device.type == 'cuda'
+            and batch.y.device == device):
+        return Fixed(batch)
+    return batch_to_host(batch, pin_memory=device.type == 'cuda')
+
+
+class _Jit:
+    """A step compiled on first use on the model's device (the device is
+    known only once the model is on it)."""
+
+    def __init__(self, model, body, train):
+        self.model = model
+        self.body = body
+        self.train = train
+        self.compiled = None
+        self.generator = None
+
+    def _compiled(self):
+        dev = canonical_device(_device_of(self.model))
+        if self.compiled is None or self.compiled.device != dev:
+            kw = {}
+            if self.train:
+                gen = self.generator = torch.Generator(device=dev)
+                # The train inputs: (Fixed(state), batch, seed, r_s,
+                # negatives).
+                kw = {'snapshot': lambda state, *_: snapshot(state.value),
+                      'prepare': lambda *inputs: gen.manual_seed(
+                          dropout_seed(inputs[2])),
+                      'generators': (gen,) if dev.type == 'cuda' else ()}
+            self.compiled = compiled(
+                lambda *a: self.body(*a, self.generator), dev, **kw)
+        return self.compiled
+
+    def inputs(self, batch, noise_seed, r_s, negatives=None):
+        c = self._compiled()
+        if negatives is not None and c.on_card:
+            raise ValueError('injected negatives are range-checked on the '
+                             'host, which a captured step cannot do: pass '
+                             'them with jit=False or on the CPU')
+        return c, (_step_input(batch, c.device),
+                   operator.index(noise_seed), r_s, negatives)
+
+
 def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
-                    pair_offset=0, hits_ks=()):
+                    pair_offset=0, hits_ks=(), jit=True):
     """Build ``step(state, batch, noise_seed, r_s=None, negatives=None)``
     for ``model``, whose parameters ``state``'s optimizer updates. The
     metrics are ``loss`` (the scalar trained on), ``loss_per_pair``
     ``[B]``, ``acc`` and ``hits@k`` for ``hits_ks`` (device tensors).
     ``pair_offset`` is the first pair's index in the per-pair random
     streams: a ``B = 1`` step at offset ``i`` draws what pair ``i`` of a
-    batched step draws."""
+    batched step draws. ``jit`` compiles it (see the module docstring);
+    ``step.capture(state, batch, noise_seed, ...)`` then builds a
+    signature's record ahead of the first call and returns it, and
+    ``step.jit.compiled.records`` holds the records built so far."""
 
-    def train_step(state, batch, noise_seed, r_s=None, negatives=None):
+    def body(state, batch, noise_seed, r_s, negatives, generator):
         model.train()
-        dev = _device_of(model)
         loss, _, S_L, y, y_mask = loss_and_outputs(
             model, batch, loss_on_s0, noise_seed, r_s, num_steps=num_steps,
             detach=detach, pair_offset=pair_offset, negatives=negatives,
-            generator=dropout_generator(noise_seed, dev))
+            generator=generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        apply_gradients(state)
+        optimizer_update(state)
         with torch.no_grad():
             out = {'loss': loss.detach(),
                    'loss_per_pair': metrics.nll_loss(
                        S_L, y, y_mask, reduction='per_pair'),
                    'acc': metrics.acc(S_L, y, y_mask)}
             _hits(out, hits_ks, S_L, y, y_mask, 'mean')
+        return out
+
+    if not jit:
+        def train_step(state, batch, noise_seed, r_s=None, negatives=None):
+            out = body(state, batch, noise_seed, r_s, negatives,
+                       dropout_generator(noise_seed, _device_of(model)))
+            state.step += 1
+            return state, out
+
+        return train_step
+
+    jitted = _Jit(model, body, train=True)
+
+    def inputs(state, batch, noise_seed, r_s, negatives):
+        c, (b, seed, r_s, negatives) = jitted.inputs(batch, noise_seed, r_s,
+                                                     negatives)
+        return c, (Fixed(state), b, seed, r_s, negatives)
+
+    def train_step(state, batch, noise_seed, r_s=None, negatives=None):
+        c, args = inputs(state, batch, noise_seed, r_s, negatives)
+        out = c(*args)
+        state.step += 1
         return state, out
 
+    def capture(state, batch, noise_seed, r_s=None, negatives=None):
+        c, args = inputs(state, batch, noise_seed, r_s, negatives)
+        return c.capture(*args)
+
+    train_step.capture = capture
+    train_step.jit = jitted
     return train_step
 
 
-def make_eval_step(model, hits_ks=(1,), num_steps=None):
+def make_eval_step(model, hits_ks=(1,), num_steps=None, jit=True):
     """Build ``step(batch, noise_seed, r_s=None) -> metrics`` with
     ``count``, ``correct`` and ``hits@k`` summed over the batch. The
-    consensus steps draw indicator noise at eval time too."""
+    consensus steps draw indicator noise at eval time too. ``jit`` as for
+    :func:`make_train_step` (``step.capture(batch, noise_seed, r_s=None)``
+    builds a record ahead of time)."""
 
-    def eval_step(batch, noise_seed, r_s=None):
+    def body(batch, noise_seed, r_s, negatives, generator):
         model.eval()
         with torch.no_grad():
             _, _, S_L, y, y_mask = loss_and_outputs(
@@ -178,4 +290,22 @@ def make_eval_step(model, hits_ks=(1,), num_steps=None):
             _hits(out, hits_ks, S_L, y, y_mask, 'sum')
         return out
 
+    if not jit:
+        def eval_step(batch, noise_seed, r_s=None):
+            return body(batch, noise_seed, r_s, None, None)
+
+        return eval_step
+
+    jitted = _Jit(model, body, train=False)
+
+    def eval_step(batch, noise_seed, r_s=None):
+        c, args = jitted.inputs(batch, noise_seed, r_s)
+        return c(*args)
+
+    def capture(batch, noise_seed, r_s=None):
+        c, args = jitted.inputs(batch, noise_seed, r_s)
+        return c.capture(*args)
+
+    eval_step.capture = capture
+    eval_step.jit = jitted
     return eval_step

@@ -165,6 +165,24 @@ def test_seeds_use_both_key_words():
     assert not torch.equal(a, b) and torch.equal(a, c)
 
 
+@pytest.mark.parametrize('seed', [0, 12345, (7 << 40) + 3, (1 << 63) + 17,
+                                  (1 << 64) - 1])
+def test_seed_tensor_draws_the_int_seeds_stream(seed):
+    """The key as a 0-d int64 tensor (its bits in two's complement, as a
+    captured step reads it on the card) draws the stream of the int seed,
+    bit for bit: noise and negatives, keys at and past 2^63 too."""
+    key = rng.seed_tensor(seed)
+    assert key.dtype == torch.int64 and key.dim() == 0
+    assert int(key) & ((1 << 64) - 1) == seed
+    assert torch.equal(dgmc_module.draw_noise(3, 2, 7, 5, key, 4),
+                       dgmc_module.draw_noise(3, 2, 7, 5, seed, 4))
+    n_valid = torch.tensor([9, 1, 0])
+    assert torch.equal(dgmc_module.draw_negatives(n_valid, 6, 3, key, 2),
+                       dgmc_module.draw_negatives(n_valid, 6, 3, seed, 2))
+    with pytest.raises(ValueError, match='0-d int64'):
+        rng.philox_normal(1, 1, 4, key.to(torch.int32))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -196,3 +214,12 @@ def test_kernel_matches_the_plain_version(cuda, shape):
     assert torch.equal(neg.cpu(), dgmc_module.draw_negatives(n_valid, N, R,
                                                              seed=4))
     assert rng._draw.launches == before + 3
+    key = rng.seed_tensor((1 << 63) + 4, cuda)
+    assert torch.equal(dgmc_module.draw_noise(T, B, N, R, seed=key,
+                                              pair_offset=2, device=cuda),
+                       dgmc_module.draw_noise(T, B, N, R, seed=(1 << 63) + 4,
+                                              pair_offset=2, device=cuda))
+    assert torch.equal(
+        dgmc_module.draw_negatives(n_valid.to(cuda), N, R, seed=key),
+        dgmc_module.draw_negatives(n_valid.to(cuda), N, R,
+                                   seed=(1 << 63) + 4))
