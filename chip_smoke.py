@@ -100,11 +100,17 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   rtol 1e-5 / atol 1e-5 x max|out|, top-k's picks by
   :func:`hold_bf16_topk` (a swap only inside a near-tie of the plain bf16
   scores; values equal where the indices agree, an ulp where they
-  differ); top-k is also bit-equal on exact inputs at C = 256 and at the
-  main shape. Times each beside its float32 variant on the same
+  differ). Top-k's exact cases each assert the route the dispatch
+  ledger records: the tensor-core tile (``tensor-core``; its edges: rows
+  and targets no multiple of a tile, C = 200 and 264, k = 1 and 16,
+  whole masked blocks, k above the valid targets, B = 2, C = 256 and the
+  main shape) or the FMA kernel with its reason (C % 8 != 0, k > 16,
+  C > 640). Times each beside its float32 variant on the same
   values, its plain version and the PyTorch call in bf16 where there is
   one, each with its bound in bf16 bytes and operations at the bf16
-  peak.
+  peak; top-k in one row, the same values: the tensor-core kernel, the
+  bf16 FMA entry, the float32 kernel, ``torch.topk(bmm)`` in bf16 and
+  the plain version, with the share of the bound reached.
 - ``rng_kernel``: the draw kernel (``csrc/rng.cu``, Philox4x32-10)
   against its plain version on the CPU, the device the stream must not
   depend on (:func:`phase_rng_kernel`): normals at the dense noise's
@@ -164,9 +170,12 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 - ``train_bf16`` and ``kg_train_bf16``: the two training main paths
   again under the bf16 policy at the same widths and depths: the launch
   counters per step as above, the dispatch ledger showing every kernel
-  in bfloat16 (the spline records keep float32 basis weights), every
+  in bfloat16 (the spline records keep float32 basis weights) and all
+  19 top-k launches on the tensor-core route, every
   loss finite and falling (the dense epoch's last four steps below its
-  first four; KG phase 1's tenth loss below its first); then one step of
+  first four; KG phase 1's tenth loss below its first); the top-k
+  kernel held by :func:`hold_bf16_topk` on the trained KG model's own
+  ψ₁ outputs; then one step of
   each profiled with its peak memory, as ``train`` and ``kg_train`` do
   for float32 (informational).
 
@@ -288,7 +297,8 @@ def phase_build(collation=True):
     for name, lib in libs.items():
         log(f'build: {name} nvcc {lib.build_seconds:.2f}s')
         for line in lib.build_log.splitlines():
-            if any(w in line for w in ('registers', 'spill', 'Compiling')):
+            if any(w in line for w in ('registers', 'spill', 'Compiling',
+                                       'wgmma')):
                 log(f'build: {name} {line.strip()}')
     if not collation:
         return
@@ -1566,6 +1576,7 @@ def phase_bf16_kernels(res):
     from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
                                                    plain_route_d_t,
                                                    route_d_t, route_fwd)
+    from dgmc_tpu_torch.ops.kernels import topk as topk_kernels
     from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
                                                  streaming_topk)
     gen = torch.Generator().manual_seed(7)
@@ -1576,37 +1587,76 @@ def phase_bf16_kernels(res):
     def dtype_of(name):
         return dispatch.decisions()[name]['dtype']
 
-    # -- top-k
-    for name, (h_s, h_t, k, mask) in {
-            'ties_mask': _topk_case(gen, 2, 300, 700, 8, 7, mask_p=0.3),
-            'k_above_valid': _topk_case(gen, 1, 40, 20, 4, 9, valid=5),
-            'batch_2': _topk_case(gen, 2, 130, 1100, 16, 10, mask_p=0.5),
-            'k_max': _topk_case(gen, 1, 200, 3000, 32, K_MAX, mask_p=0.9),
-            'rows_17x20000_masked': _topk_case(gen, 1, 17, 20000, 32, 10,
-                                               mask_p=0.5),
-            # C = 256: eight channel slots, each landed slot widened in
-            # turn, as the main path runs them; then the main shape.
-            'c256_ties_mask': _topk_case(gen, 1, 300, 2000, 256, 10,
-                                         mask_p=0.3),
-            'c256_rows_17x20000': _topk_case(gen, 1, 17, 20000, 256, 10),
-            'c256_k_max': _topk_case(gen, 2, 130, 1100, 256, K_MAX,
-                                     mask_p=0.5),
-            'main_shape': _topk_case(gen, *TOPK_SHAPE)}.items():
+    # -- top-k: each case with the route the wrapper must record (the
+    # tensor-core tile, or the FMA kernel for a shape the tile does not
+    # take).
+    TC, C8, KBIG, CBIG = ('tensor-core', 'fma, C%8!=0', 'fma, k>16',
+                          'fma, C>640')
+    masked_block = _topk_case(gen, 2, 300, 1000, 64, 10)
+    mask = torch.ones(2, 1000, dtype=torch.bool, device='cuda')
+    mask[0] = False                  # batch 0: every target masked
+    mask[1, 128:384] = False         # batch 1: two whole target tiles
+    masked_block = (*masked_block[:3], mask)
+    for name, want, (h_s, h_t, k, mask) in (
+            ('ties_mask', TC, _topk_case(gen, 2, 300, 700, 8, 7,
+                                         mask_p=0.3)),
+            ('k_above_valid', C8, _topk_case(gen, 1, 40, 20, 4, 9, valid=5)),
+            ('k_above_valid_c8', TC, _topk_case(gen, 1, 40, 20, 8, 9,
+                                                valid=5)),
+            ('batch_2', TC, _topk_case(gen, 2, 130, 1100, 16, 10,
+                                       mask_p=0.5)),
+            ('k_max', KBIG, _topk_case(gen, 1, 200, 3000, 32, K_MAX,
+                                       mask_p=0.9)),
+            ('rows_17x20000_masked', TC, _topk_case(gen, 1, 17, 20000, 32,
+                                                    10, mask_p=0.5)),
+            # The tensor-core tile's edges: rows no multiple of 64 or 128,
+            # targets no multiple of a tile, a ragged last k16 slice of
+            # channels (C = 200, 264), k = 1 and 16, whole masked blocks.
+            ('rows_200', TC, _topk_case(gen, 1, 200, 1024, 64, 10)),
+            ('targets_1000', TC, _topk_case(gen, 1, 128, 1000, 64, 10)),
+            ('c200', TC, _topk_case(gen, 1, 300, 1000, 200, 10,
+                                    mask_p=0.3)),
+            ('c264', TC, _topk_case(gen, 1, 257, 700, 264, 10)),
+            ('k1', TC, _topk_case(gen, 1, 200, 3000, 64, 1)),
+            ('k16', TC, _topk_case(gen, 2, 130, 1100, 256, 16,
+                                   mask_p=0.5)),
+            ('masked_blocks', TC, masked_block),
+            ('c648', CBIG, _topk_case(gen, 1, 130, 500, 648, 10)),
+            ('c256_ties_mask', TC, _topk_case(gen, 1, 300, 2000, 256, 10,
+                                              mask_p=0.3)),
+            ('c256_rows_17x20000', TC, _topk_case(gen, 1, 17, 20000, 256,
+                                                  10)),
+            ('c256_k_max', KBIG, _topk_case(gen, 2, 130, 1100, 256, K_MAX,
+                                            mask_p=0.5)),
+            ('main_shape', TC, _topk_case(gen, *TOPK_SHAPE))):
         h_s, h_t = b16(h_s, h_t)
         v, i = streaming_topk(h_s, h_t, k, mask)
         torch.cuda.synchronize()
         pv, pi = plain_topk(h_s, h_t, k, mask)
-        if dtype_of('topk') != 'bfloat16' or not (
-                torch.equal(i, pi) and torch.equal(v, pv)):
+        d = dispatch.decisions()['topk']
+        if (d['dtype'] != 'bfloat16' or d['path'] != 'kernel'
+                or d['reason'] != want):
+            raise AssertionError(f'topk bf16 case {name}: dispatch {d}, '
+                                 f'expected the route {want!r}')
+        if not (torch.equal(i, pi) and torch.equal(v, pv)):
             raise AssertionError(f'topk bf16 case {name}: kernel differs '
-                                 f'from the plain version')
-        log(f'bf16_kernels: topk case {name}: bit-equal')
+                                 f'from the plain version in '
+                                 f'{int((i != pi).any(-1).sum())} rows')
+        log(f'bf16_kernels: topk case {name} {tuple(h_s.shape)}x'
+            f'{tuple(h_t.shape)} k={k} ({want}): bit-equal')
     B, N_s, N_t, C, k = TOPK_SHAPE
     h_s, h_t, _, _ = _topk_case(gen, B, N_s, N_t, C, k, ints=False)
     h_s, h_t = b16(h_s, h_t)
     h_s32, h_t32 = h_s.float(), h_t.float()   # the same values in float32
     err = hold_bf16_topk('random', h_s, h_t, k)
+    if dispatch.decisions()['topk']['reason'] != TC:
+        raise AssertionError('topk bf16 at the main shape: not the '
+                             'tensor-core route')
+    # One call, the same values: the tensor-core tile, the bf16 FMA entry
+    # (the route before it), the float32 kernel, torch.topk(bmm) in bf16,
+    # the plain version.
     ms = cuda_ms(lambda: streaming_topk(h_s, h_t, k))
+    fma_ms = cuda_ms(lambda: topk_kernels._launch('bf16_fma', h_s, h_t, k))
     ms32 = cuda_ms(lambda: streaming_topk(h_s32, h_t32, k))
     plain_ms = cuda_ms(lambda: plain_topk(h_s, h_t, k), runs=3)
     lib_ms = cuda_ms(lambda: torch.topk(torch.bmm(h_s, h_t.transpose(1, 2)),
@@ -1615,10 +1665,12 @@ def phase_bf16_kernels(res):
                        2.0 * B * (N_s + N_t) * C + 8.0 * B * N_s * k,
                        PEAK_BF16_FLOPS)
     log(f'bf16_kernels: topk at {N_s}x{N_t} C={C} k={k} on random inputs '
-        f'(held above); CUDA events, median: kernel bf16 '
-        f'{ms:.3f} ms, float32 {ms32:.3f} ms (the same values), plain bf16 '
-        f'{plain_ms:.3f} ms, torch.topk(bmm) bf16 {lib_ms:.3f} ms; bound '
-        f'{b_ms:.4f} ms ({b_by}, bf16 peak)')
+        f'(held above); CUDA events, median of 10: tensor-core kernel '
+        f'{ms:.3f} ms ({2.0 * B * N_s * N_t * C / ms / 1e9:.1f} TFLOP/s, '
+        f'{100 * b_ms / ms:.1f}% of the bound), bf16 FMA entry '
+        f'{fma_ms:.3f} ms, float32 kernel {ms32:.3f} ms (the same values), '
+        f'torch.topk(bmm) bf16 {lib_ms:.3f} ms, plain bf16 {plain_ms:.3f} '
+        f'ms (median of 3); bound {b_ms:.4f} ms ({b_by}, bf16 peak)')
     _bf16_row(res, 'topk_bf16', max_abs_err=err, ms=ms, plain_ms=plain_ms,
               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
               ms_source='cuda_events')
@@ -1830,13 +1882,45 @@ def phase_train_bf16(results):
 
 def phase_kg_train_bf16(results):
     """The KG training main path under the bf16 policy at the DBP15K
-    widths: kernels in bf16 at their launch counts, a finite loss that
-    falls over phase 1; then one phase-2 step profiled beside its peak
-    memory (informational)."""
-    losses, _, _ = _kg_main_path(results, 'bf16')
+    widths: kernels in bf16 at their launch counts, the top-k on the
+    tensor-core route, a finite loss that falls over phase 1; the top-k
+    kernel held by :func:`hold_bf16_topk` on the trained model's own
+    ψ₁ outputs (as its phase-2 eval step feeds them); then one phase-2
+    step profiled beside its peak memory (informational)."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.ops.kernels.topk import route
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    losses, _, _, state = _kg_main_path(results, 'bf16')
+    d = dispatch.decisions()['topk']
+    args = dbp15k.parse_args(KG_ARGV + ['--precision', 'bf16'])
+    want = route(BF16, 1, args.syn_nodes_s, args.syn_nodes_t, args.dim,
+                 args.k)
+    if (d['reason'] != 'tensor-core' or want != ('bf16_tc', 'tensor-core')
+            or d['dtypes'] != {'kernel:bfloat16': 19}
+            or results['topk_bf16']['launches'] != 19):
+        raise AssertionError(f'kg_train (bf16): top-k dispatch {d}, '
+                             f'launches {results["topk_bf16"]["launches"]}'
+                             f'; expected 19 on the tensor-core route')
+    log(f'kg_train (bf16): top-k {d["dtypes"]} on the route '
+        f'{d["reason"]!r}')
     if not losses[9] < losses[0]:
         raise AssertionError(f'bf16 KG loss did not fall in phase 1: '
                              f'{losses}')
+    # The trained model's ψ₁ outputs, cast as the forward casts them.
+    _, test_b, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim).cuda().eval()
+    with torch.no_grad():
+        for p, q in zip(model.parameters(),
+                        state.optimizer.param_groups[0]['params']):
+            p.copy_(q)
+        g_s, g_t = batch_to_device(test_b, 'cuda')[:2]
+        h_s = model._cast(model.psi_1(g_s.x, g_s))
+        h_t = model._cast(model.psi_1(g_t.x, g_t))
+    if h_s.dtype != BF16:
+        raise AssertionError(f'phase-2 inputs in {h_s.dtype}')
+    hold_bf16_topk('trained phase-2 inputs', h_s, h_t, args.k,
+                   g_t.node_mask)
     _step_profile(kg_step('bf16'), 'one bf16 phase-2 step')
 
 
@@ -2041,7 +2125,7 @@ def _kg_main_path(results, policy):
     after, the launches per step, the dispatch ledger (kernel, in the
     policy's dtype), finite losses. Files the launches under the kernels'
     names (``_bf16`` appended under bf16) and returns ``(losses, peak
-    bytes, phase-1 / phase-2 step ms)``."""
+    bytes, phase-1 / phase-2 step ms, the trained state)``."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.ops.kernels import dispatch
     dtype = 'bfloat16' if policy == 'bf16' else 'float32'
@@ -2065,7 +2149,7 @@ def _kg_main_path(results, policy):
           else contextlib.nullcontext()):
         dispatch.reset()
         marks.append(('start', 0, t0, dispatch.launch_counts()))
-        dbp15k.main(argv, hook=hook)
+        state = dbp15k.main(argv, hook=hook)
         counts = dispatch.launch_counts()
     decisions = dispatch.decisions()
     peak = torch.cuda.max_memory_allocated()
@@ -2113,7 +2197,7 @@ def _kg_main_path(results, policy):
         f'{statistics.median(p2):.3f} (min {min(p2):.3f}, max {max(p2):.3f}, '
         f'steps {P1 + 2}-{EPOCHS}); max_memory_allocated {peak} bytes '
         f'({peak / 2**30:.3f} GiB)')
-    return losses, peak, (p1, p2)
+    return losses, peak, (p1, p2), state
 
 
 def phase_kg_train(results):
@@ -2838,7 +2922,8 @@ def phase_train(results):
 
 
 #: The port's kernels among the device names a profile lists.
-PORT_KERNEL = re.compile(r'::(topk_tiles|merge_lists|route_\w+|g_norm|'
+PORT_KERNEL = re.compile(r'::(topk_tiles|topk_tc|merge_lists|route_\w+|'
+                         r'g_norm|'
                          r'\w*records|consensus_\w+|'
                          r'project_rows|sc_\w+|draw)\b')
 

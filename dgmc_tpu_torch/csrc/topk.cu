@@ -7,24 +7,27 @@
 // lowest target index first among equal values (the lax.top_k rule), and
 // never materializes the N_s x N_t score matrix.
 //
-// bf16 inputs (the precision policy's variant, dgmc_topk_bf16): products
-// and sums in float32 as for float32 inputs, then each score rounded to
-// bf16 (round to nearest even) and carried in float32, masked targets at
-// -finfo(bf16).max, as the TPU kernel does (its scores round through the
-// input dtype); the wrapper returns the values in bf16. The ring stages
-// bf16 rows as they are (half the bytes a slot); each slot that lands is
-// widened once into a float32 slot that the product then reads as for
-// float32 inputs (a barrier more a slot), instead of every thread widening
-// each value it reads (16 times over: a quarter more instructions than the
-// FMAs they feed).
+// bf16 inputs (the precision policy's variant): products and sums in
+// float32, then each score rounded to bf16 (round to nearest even) and
+// carried in float32, masked targets at -finfo(bf16).max, as the TPU
+// kernel does (its scores round through the input dtype); the wrapper
+// returns the values in bf16. Two entries:
+//   - dgmc_topk_bf16_tc, the tensor-core tile (the main path's: the
+//     wrapper's route sends it every shape with C % 8 == 0, C <= 640 and
+//     k <= 16; "Tensor-core tile" below);
+//   - dgmc_topk_bf16, the FMA tiles below for the other shapes: the ring
+//     stages bf16 rows as they are and widens each landed slot once into
+//     a float32 slot that the product reads as for float32 inputs.
 //
-// Bound on the H100: 2*N_s*N_t*C FLOPs at the card's float32 rate (FMAs
-// outside the tensor cores, for bf16 inputs too: no tensor-core tile
-// yet; the port's float32 contract keeps TF32 off),
-// with device-memory traffic of h_s + h_t + t_mask + out, each read or
-// written once. At the DBP15K shape (15000 x 20000, C = 256, k = 10) that
-// is 153.6 GFLOP against ~36 MB: bound by operations. A 16-64-row query
-// against the same table is bound by the 20 MB read of h_t instead.
+// Bounds on the H100: 2*N_s*N_t*C FLOPs, with device-memory traffic of
+// h_s + h_t + t_mask + out, each read or written once. The float32 entry
+// and the bf16 FMA entry run at the card's float32 rate outside the
+// tensor cores (67 TFLOP/s; the port's float32 contract keeps TF32 off):
+// at the DBP15K shape (15000 x 20000, C = 256, k = 10), 153.6 GFLOP
+// against ~36 MB, 2.29 ms, bound by operations. The tensor-core entry
+// runs at the bf16 peak (989 TFLOP/s): 0.155 ms at that shape, still
+// bound by operations (~18 MB in bf16). A 16-64-row query against the
+// same table is bound by the read of h_t instead.
 //
 // Design. The TPU kernel keeps its running top-k in VMEM across a
 // sequential grid axis over target blocks; CUDA blocks run in no order,
@@ -78,7 +81,43 @@
 // above the running k-th entry are skipped; warp 0 folds the W partial
 // lists. Keys are compared by value, then index, so every path gives the
 // same exact top-k. Deterministic: no atomics, fixed summation order.
+//
+// Tensor-core tile (dgmc_topk_bf16_tc). The FMA entry held bf16 inputs to
+// the float32 rate (6.7 ms at the DBP15K shape on the H100, above the
+// float32 kernel on the same values): every product ran on FMAs after a
+// widening pass. Here the product runs on wgmma and selection reads the
+// accumulators where they land:
+//   1. A block owns 128 source rows (two consumer warpgroups of 64) and
+//      loops over the 128-target tiles of its segment. A producer warp
+//      loads by TMA (3D boxes of 64 channels x 128 rows of one batch,
+//      128-byte swizzled, zero-filled past N and C, so a ragged C, N_s or
+//      N_t needs no code): the block's h_s stripe once (C <= 640: at most
+//      160 KB, resident for all its tiles), then each tile's h_t in
+//      64-channel chunks through a ring of 4 slots of 16 KB on mbarriers
+//      (full: the TMA's bytes; empty: one arrival a consumer warp).
+//   2. Each warpgroup multiplies its 64 rows by the tile with
+//      wgmma.m64n128k16 (bf16 operands, K-major from shared memory, f32
+//      accumulators: 64 a thread), 4 a chunk, and releases the slot.
+//   3. Selection from the accumulators: in wgmma's layout a thread holds
+//      32 scores of each of 2 rows, a row's 128 in the 4 lanes of a quad.
+//      Each row's carry (its best 16, sorted by key) sits in registers,
+//      the same in the quad's 4 lanes. A thread rounds the maximum of its
+//      32 scores (rounding is monotone) and compares it with the row's
+//      k-th carried value: once the first tiles have passed that is the
+//      whole cost of a tile. Only scores strictly above the k-th are
+//      candidates (the tile's indices all follow the carried ones); a
+//      masked target (looked up only for candidates) scores -bf16 max;
+//      where a quad has more than k, the k-th largest of its 16 group
+//      maxima (8 targets a group) drops the scores below it; the rest
+//      enter one a round, broadcast from their lane and inserted by a
+//      compare-and-swap pass down the carry. Keys order by value
+//      descending, then index ascending, so the result does not depend
+//      on the order of insertion.
+// Segments and their merge are the FMA path's (merge_lists); one block an
+// SM (288 threads may take the whole register file); no atomics, so
+// repeats are bit-identical.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -788,6 +827,650 @@ int topk_entry(const T* h_s, const T* h_t, const uint8_t* t_mask,
   });
 }
 
+// ---------------------------------------------------------------------------
+// bf16 inputs on the tensor cores (dgmc_topk_bf16_tc); see the header.
+namespace tc {
+
+constexpr int ROWS = 128;             // source rows a block: 2 warpgroups
+constexpr int TGT = 128;              // targets a tile: wgmma's N
+constexpr int KC = 64;                // channels a chunk: one 128-byte row
+constexpr int CHUNK = 128 * KC * 2;   // bytes of a chunk of 128 rows
+constexpr int STAGES = 4;             // h_t chunks in flight
+constexpr int C_MAX = 640;            // the resident h_s stripe: 10 chunks
+constexpr int K_CAP = 16;             // carry entries a row, in registers
+constexpr int CONSUMERS = 256;        // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int ALIGN = 1024;           // the 128-byte swizzle's period
+constexpr float NEG = -0x1.fep127f;   // -finfo(bfloat16).max
+
+constexpr size_t smem_bytes(int C) {
+  return ALIGN + (size_t)((C + KC - 1) / KC + STAGES) * CHUNK +
+         8 * (2 * STAGES + 1);
+}
+
+__device__ __forceinline__ float rnd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of {64 channels, 128 rows, 1 batch} from `map` into shared dst
+// (128-byte swizzled), completing on `bar`; rows and channels past the
+// tensor's edge land as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c, int row, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(row), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// Orders the accumulators' ordinary reads and writes against the
+// asynchronous wgmma (the compiler sees them as written here).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A[64 x 16] B[128 x 16]^T, both K-major bf16 in shared memory,
+// f32 accumulators; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The thread's u-th score of its row I (u < 32: target 8(u/2) + 2q + u%2
+// of the tile, q = lane % 4; wgmma's accumulator layout), as summed.
+template <int I>
+__device__ __forceinline__ float at(const float (&acc)[64], int u) {
+  return acc[4 * (u >> 1) + 2 * I + (u & 1)];
+}
+
+// The thread's u-th score of its row i (0 or 1 at run time).
+__device__ __forceinline__ float at(const float (&acc)[64], int i, int u) {
+  return i ? at<1>(acc, u) : at<0>(acc, u);
+}
+
+// at() with a runtime u: a tree of selects, no local memory.
+__device__ __forceinline__ float pick(const float (&acc)[64], int i, int u) {
+  float s[32];
+#pragma unroll
+  for (int h = 0; h < 32; ++h) s[h] = at(acc, i, h);
+  // Constant trip counts: a loop on w >>= 1 is not unrolled, and an
+  // array it indexes would live in local memory.
+#pragma unroll
+  for (int lvl = 0; lvl < 5; ++lvl)
+#pragma unroll
+    for (int h = 0; h < 16; ++h)
+      if (h < 16 >> lvl) s[h] = (u & 16 >> lvl) ? s[h + (16 >> lvl)] : s[h];
+  return s[0];
+}
+
+__device__ __forceinline__ int target_of(int t0, int q, int u) {
+  return t0 + 8 * (u >> 1) + 2 * q + (u & 1);
+}
+
+// A row's carry, spread over the 4 lanes of its quad: entry e (its best
+// K_CAP, sorted by key) in lane e % 4, slot e / 4.
+constexpr int SLOTS = K_CAP / 4;
+
+// Insert (v, x) (the same in the quad's 4 lanes) into the quad's carry,
+// keeping the best K_CAP: its place p is the count of entries better than
+// it; the entries from p on move one place down (from the lane before, the
+// last lane's wrapping into the next slot). Every lane of the warp calls
+// this; quads that are not `active` keep their carry.
+__device__ __forceinline__ void insert(float (&cv)[SLOTS], int (&cx)[SLOTS],
+                                       float v, int x, bool active) {
+  const int lane = threadIdx.x % 32, q = lane & 3, quad = lane & ~3;
+  int p = 0;
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) p += better(cv[j], cx[j], v, x);
+  p += __shfl_xor_sync(FULL, p, 1);
+  p += __shfl_xor_sync(FULL, p, 2);
+  float up_v[SLOTS];
+  int up_x[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    up_v[j] = __shfl_sync(FULL, cv[j], quad | ((q + 3) & 3));
+    up_x[j] = __shfl_sync(FULL, cx[j], quad | ((q + 3) & 3));
+  }
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int e = 4 * j + q;
+    if (e == p) {
+      cv[j] = v;
+      cx[j] = x;
+    } else if (e > p) {   // e >= 1: the entry before it
+      cv[j] = q ? up_v[j] : up_v[j > 0 ? j - 1 : 0];
+      cx[j] = q ? up_x[j] : up_x[j > 0 ? j - 1 : 0];
+    }
+  }
+}
+
+// Entry e of the quad's carry (e < K_CAP), in every lane of the quad.
+__device__ __forceinline__ float entry(const float (&cv)[SLOTS], int e) {
+  float t = cv[0];
+#pragma unroll
+  for (int j = 1; j < SLOTS; ++j)
+    if (e >> 2 == j) t = cv[j];
+  return __shfl_sync(FULL, t, (threadIdx.x % 32 & ~3) | (e & 3));
+}
+
+// The least float32 whose bf16 rounding lies above thr (a bf16 value or
+// -inf): the scores x that round above thr are exactly x >= bound(thr),
+// so the hot path compares sums as they land, unrounded. Round to nearest
+// even sends the midpoint between thr and the next bf16 up to whichever
+// of the two is even (their last bits differ); above +inf, or at NaN, the
+// bound is NaN and nothing compares above it.
+__device__ __forceinline__ float bound(float thr) {
+  if (thr == -INFINITY) return -INFINITY;
+  const uint32_t u = __float_as_uint(thr == 0.f ? 0.f : thr);  // -0 as +0
+  const bool neg = u >> 31;
+  const uint32_t mid = neg ? u - 0x8000u : u + 0x8000u;
+  // An odd thr: the midpoint rounds up, away from it; an even one: the
+  // next float above the midpoint is the least that does.
+  return __uint_as_float((u >> 16) & 1 ? mid : (neg ? mid - 1 : mid + 1));
+}
+
+// Maximum of the thread's 32 sums of its row I, as a tree.
+template <int I>
+__device__ __forceinline__ float row_max(const float (&acc)[64]) {
+  float t[16];
+#pragma unroll
+  for (int h = 0; h < 16; ++h) t[h] = fmaxf(at<I>(acc, h), at<I>(acc, h + 16));
+#pragma unroll
+  for (int lvl = 0; lvl < 4; ++lvl)
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+      if (h < 8 >> lvl) t[h] = fmaxf(t[h], t[h + (8 >> lvl)]);
+  return t[0];
+}
+
+// The rare parts of selection stay out of line, so that the code a tile
+// runs fits the instruction cache.
+
+// The bits u of a thread's 32 targets that lie before t_end.
+__device__ __noinline__ unsigned valid_bits(int t0, int t_end, int q) {
+  unsigned bits = 0;
+  for (int u = 0; u < 32; ++u)
+    if (target_of(t0, q, u) < t_end) bits |= 1u << u;
+  return bits;
+}
+
+// The bits u of a thread's 32 targets (before t_end) that m masks.
+__device__ __noinline__ unsigned masked_bits(const uint8_t* m, int t0,
+                                             int t_end, int q) {
+  unsigned bits = 0;
+  for (int u = 0; u < 32; ++u) {
+    const int gt = target_of(t0, q, u);
+    if (gt < t_end && m[gt] == 0) bits |= 1u << u;
+  }
+  return bits;
+}
+
+// The k-th largest of the quad's 16 values g (4 a lane), in every lane;
+// every lane of the warp calls it.
+__device__ __noinline__ float kth_of_quad(float g0, float g1, float g2,
+                                          float g3, int k) {
+  const int quad = threadIdx.x % 32 & ~3;
+  const float own[4] = {g0, g1, g2, g3};
+  float all[16];
+#pragma unroll
+  for (int src = 0; src < 4; ++src)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      all[4 * src + g] = __shfl_sync(FULL, own[g], quad | src);
+  float theta = INFINITY;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    int above = 0;
+#pragma unroll
+    for (int h = 0; h < 16; ++h) above += all[h] > own[g];
+    if (above < k) theta = fminf(theta, own[g]);
+  }
+  theta = fminf(theta, __shfl_xor_sync(FULL, theta, 1));
+  return fminf(theta, __shfl_xor_sync(FULL, theta, 2));
+}
+
+// Fold the tile's scores of the thread's row i (hot in the warp: some
+// lane's maximum reached lo = bound(thr)) into its quad's carry (cv, cx;
+// thr its k-th value). pre: this lane's maximum did. valid: the bits u
+// whose target lies before t_end; mk: those masked (loaded once a tile,
+// at the first candidate). Every lane of the warp calls it.
+__device__ __forceinline__ void select_row(
+    const float (&acc)[64], int i, bool pre, float (&cv)[SLOTS],
+    int (&cx)[SLOTS], float& thr, float& lo, int k, int t0, int t_end,
+    unsigned valid, const uint8_t* __restrict__ m, unsigned& mk,
+    bool& mk_loaded) {
+  const int lane = threadIdx.x % 32, q = lane & 3, quad = lane & ~3;
+  unsigned cand = 0;
+  if (pre) {
+#pragma unroll
+    for (int u = 0; u < 32; ++u)
+      cand |= (unsigned)(at(acc, i, u) >= lo) << u;
+    cand &= valid;
+    if (cand && m != nullptr) {
+      if (!mk_loaded) {
+        mk = masked_bits(m, t0, t_end, q);
+        mk_loaded = true;
+      }
+      // A masked target scores NEG: a candidate only while the carry is
+      // not full (thr = -inf).
+      if (!(NEG > thr)) cand &= ~mk;
+    }
+  }
+  // A quad with more than k candidates has a lane with more than k / 4.
+  if (__any_sync(FULL, 4 * __popc(cand) > k)) {
+    int cnt = __popc(cand);
+    cnt += __shfl_xor_sync(FULL, cnt, 1);
+    cnt += __shfl_xor_sync(FULL, cnt, 2);
+    // More candidates than k (the first tiles): the k-th largest of the
+    // quad's 16 group maxima (8 targets a group) bounds the tile's own
+    // k-th largest from below; scores under it cannot reach the top k.
+    float gm[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float x = -INFINITY;
+      bool masked = false;
+#pragma unroll
+      for (int u = 8 * g; u < 8 * g + 8; ++u)
+        if ((cand >> u) & 1) {
+          if ((mk >> u) & 1)
+            masked = true;
+          else
+            x = fmaxf(x, at(acc, i, u));
+        }
+      // Rounding is monotone: the rounded maximum is the maximum rounded.
+      gm[g] = fmaxf(x == -INFINITY ? x : rnd(x), masked ? NEG : -INFINITY);
+    }
+    const float theta = kth_of_quad(gm[0], gm[1], gm[2], gm[3], k);
+    if (cnt > k) {
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (!((((mk >> u) & 1) ? NEG : rnd(at(acc, i, u))) >= theta))
+          cand &= ~(1u << u);
+    }
+  }
+  // One candidate of each quad a round: the quad's lowest lane with one
+  // left hands its lowest to the four lanes, which insert it.
+  unsigned has = __ballot_sync(FULL, cand != 0);
+  if (!has) return;
+  do {
+    const unsigned qm = (has >> quad) & 0xFu;
+    const int src = qm ? __ffs(qm) - 1 : 0;
+    float v = 0.f;
+    int x = 0;
+    if (qm && q == src) {
+      const int u = __ffs(cand) - 1;
+      cand &= cand - 1;
+      v = ((mk >> u) & 1) ? NEG : rnd(pick(acc, i, u));
+      x = target_of(t0, q, u);
+    }
+    v = __shfl_sync(FULL, v, quad | src);
+    x = __shfl_sync(FULL, x, quad | src);
+    insert(cv, cx, v, x, qm != 0);
+    has = __ballot_sync(FULL, cand != 0);
+  } while (has);
+  thr = entry(cv, k - 1);
+  lo = bound(thr);
+}
+
+// out[j] = the sum of a[c] b_j[c] over c < C (C % 8 == 0, 16-byte
+// aligned rows), each by float32 FMAs in channel order: the FMA kernels'
+// summation, which is also that of cuBLAS's float32 product on the plain
+// side. The SLOTS sums run side by side (one read of a).
+__device__ __forceinline__ void dots_in_order(const bf16* a,
+                                              const bf16* const (&b)[SLOTS],
+                                              int C, float (&out)[SLOTS]) {
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) out[j] = 0.f;
+  for (int c = 0; c < C; c += 8) {
+    const uint4 qa = *reinterpret_cast<const uint4*>(a + c);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&qa);
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const uint4 qb = *reinterpret_cast<const uint4*>(b[j] + c);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&qb);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        out[j] = fmaf(__bfloat162float(pa[h].x), __bfloat162float(pb[h].x),
+                      out[j]);
+        out[j] = fmaf(__bfloat162float(pa[h].y), __bfloat162float(pb[h].y),
+                      out[j]);
+      }
+    }
+  }
+}
+
+// Block: 128 source rows (blockIdx.x) of batch blockIdx.z against the
+// target tiles of segment blockIdx.y. Warps 0-7 (two warpgroups, 64 rows
+// each) multiply and select; warp 8 loads.
+__global__ void __launch_bounds__(THREADS, 1)
+topk_tc(const __grid_constant__ CUtensorMap map_s,
+        const __grid_constant__ CUtensorMap map_t,
+        const bf16* __restrict__ h_s, const bf16* __restrict__ h_t,
+        const uint8_t* __restrict__ t_mask, float* __restrict__ out_v,
+        int* __restrict__ out_i, int N_s, int N_t, int C, int k, int nseg,
+        int tiles_per_seg) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + ALIGN -
+       1) & ~(uint32_t)(ALIGN - 1);
+  const int nk = (C + KC - 1) / KC;
+  const uint32_t hs = base;                     // [nk][128 rows][64]
+  const uint32_t ring = hs + nk * CHUNK;        // [STAGES][128 targets][64]
+  const uint32_t full = ring + STAGES * CHUNK;  // mbarriers [STAGES]
+  const uint32_t empty = full + 8 * STAGES;     // [STAGES]
+  const uint32_t hs_bar = empty + 8 * STAGES;
+
+  const int row0 = blockIdx.x * ROWS, seg = blockIdx.y, b = blockIdx.z;
+  const int t_begin = seg * tiles_per_seg * TGT;
+  const int t_end = min(N_t, t_begin + tiles_per_seg * TGT);
+  const int ntiles = (t_end - t_begin + TGT - 1) / TGT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS / 32);
+    }
+    mbar_init(hs_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // Producer: the block's h_s stripe once, then the h_t chunks in
+    // order, each into the ring slot its consumers have released.
+    if (lane == 0) {
+      mbar_expect(hs_bar, nk * CHUNK);
+      for (int c = 0; c < nk; ++c)
+        tma_load(hs + c * CHUNK, &map_s, c * KC, row0, b, hs_bar);
+      const int steps = ntiles * nk;
+      for (int g = 0; g < steps; ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) mbar_wait(empty + 8 * s, ((g / STAGES) - 1) & 1);
+        mbar_expect(full + 8 * s, CHUNK);
+        tma_load(ring + s * CHUNK, &map_t, (g % nk) * KC,
+                 t_begin + (g / nk) * TGT, b, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // Consumers. Warpgroup wg multiplies rows 64 wg .. 64 wg + 63 of the
+  // stripe; thread (warp w, lane l) holds rows 16 (w % 4) + l / 4 (+ 8)
+  // of them, 32 targets of each row a tile.
+  const int wg = warp / 4, q = lane & 3, quad = lane & ~3;
+  const int r0 = row0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const uint8_t* m = t_mask ? t_mask + (size_t)b * N_t : nullptr;
+  float cv[2][SLOTS];
+  int cx[2][SLOTS];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      cv[i][j] = -INFINITY;
+      cx[i][j] = NO_INDEX;
+    }
+  float thr[2] = {-INFINITY, -INFINITY};
+  float lo[2] = {-INFINITY, -INFINITY};
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  const uint32_t a_base = hs + wg * 64 * (KC * 2);
+  mbar_wait(hs_bar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    // One chunk's wgmma group in flight behind the next: a slot is
+    // released once the group that read it has completed.
+    for (int c = 0; c < nk; ++c) {
+      const int g = j * nk + c, s = g % STAGES;
+      mbar_wait(full + 8 * s, (g / STAGES) & 1);
+      __syncwarp();
+      fence_acc(acc);
+      wgmma_fence();
+      const uint32_t a = a_base + c * CHUNK, bt = ring + s * CHUNK;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_128(acc, sw128(a + 32 * kk), sw128(bt + 32 * kk), c | kk);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait1();
+        if (lane == 0) mbar_arrive(empty + 8 * ((g - 1) % STAGES));
+      }
+    }
+    wgmma_wait0();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * ((j * nk + nk - 1) % STAGES));
+    // Selection: a tile costs each thread the maxima of its two rows'
+    // 32 sums, unless some lane of the warp has a candidate.
+    const bool pre0 = row_max<0>(acc) >= lo[0];
+    const bool pre1 = row_max<1>(acc) >= lo[1];
+    const unsigned hot = (__any_sync(FULL, pre0) ? 1u : 0u) |
+                         (__any_sync(FULL, pre1) ? 2u : 0u);
+    if (hot) {
+      const int t0 = t_begin + j * TGT;
+      const unsigned valid =
+          t0 + TGT > t_end ? valid_bits(t0, t_end, q) : ~0u;
+      unsigned mk = 0;
+      bool mk_loaded = false;
+      // One copy of the code for both rows: their carries pass through
+      // selects, not local memory.
+#pragma unroll 1
+      for (int i = 0; i < 2; ++i) {
+        if (!((hot >> i) & 1)) continue;
+        float rv[SLOTS];
+        int rx[SLOTS];
+#pragma unroll
+        for (int e = 0; e < SLOTS; ++e) {
+          rv[e] = i ? cv[1][e] : cv[0][e];
+          rx[e] = i ? cx[1][e] : cx[0][e];
+        }
+        float t = i ? thr[1] : thr[0], l = i ? lo[1] : lo[0];
+        select_row(acc, i, i ? pre1 : pre0, rv, rx, t, l, k, t0, t_end,
+                   valid, m, mk, mk_loaded);
+#pragma unroll
+        for (int e = 0; e < SLOTS; ++e) {
+          cv[0][e] = i ? cv[0][e] : rv[e];
+          cx[0][e] = i ? cx[0][e] : rx[e];
+          cv[1][e] = i ? rv[e] : cv[1][e];
+          cx[1][e] = i ? rx[e] : cx[1][e];
+        }
+        thr[0] = i ? thr[0] : t;
+        thr[1] = i ? t : thr[1];
+        lo[0] = i ? lo[0] : l;
+        lo[1] = i ? l : lo[1];
+      }
+    }
+  }
+
+  // The carry was selected by the tensor cores' sums, whose rounding
+  // differs from an in-order float32 sum's; each carried pick is scored
+  // again in order, and the row keeps the best k of its K_CAP by those
+  // scores. Lane q writes each of its entries at its rank among the
+  // quad's, out layout [B * N_s][nseg][k].
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = r0 + 8 * i;
+    if (gr < N_s) {
+      const bf16* bt[SLOTS];
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j)
+        bt[j] = h_t + ((size_t)b * N_t + (cx[i][j] != NO_INDEX ? cx[i][j]
+                                                                : 0)) * C;
+      float d[SLOTS];
+      dots_in_order(h_s + ((size_t)b * N_s + gr) * C, bt, C, d);
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int x = cx[i][j];
+        if (x != NO_INDEX)
+          cv[i][j] = m != nullptr && m[x] == 0 ? NEG : rnd(d[j]);
+      }
+    }
+    float av[K_CAP];
+    int ax[K_CAP];
+#pragma unroll
+    for (int src = 0; src < 4; ++src)
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        av[4 * j + src] = __shfl_sync(FULL, cv[i][j], quad | src);
+        ax[4 * j + src] = __shfl_sync(FULL, cx[i][j], quad | src);
+      }
+    if (gr >= N_s) continue;
+    const size_t o = (((size_t)b * N_s + gr) * nseg + seg) * k;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      int rank = 0;
+#pragma unroll
+      for (int e = 0; e < K_CAP; ++e)
+        rank += better(av[e], ax[e], cv[i][j], cx[i][j]);
+      if (rank < k) {
+        out_v[o + rank] = cv[i][j];
+        out_i[o + rank] = cx[i][j];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [B, N, C] bf16 as TMA boxes of {64 channels, 128 rows, 1 batch}, 128-byte
+// swizzled; what lies past N rows or C channels loads as zeros.
+bool make_map(CUtensorMap* map, const bf16* x, int B, int N, int C) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(bf16),
+                                 (cuuint64_t)N * C * sizeof(bf16)};
+  const cuuint32_t box[3] = {KC, 128, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<bf16*>(x), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const bf16* h_s, const bf16* h_t, const uint8_t* t_mask,
+           float* part_v, int* part_i, float* out_v, int* out_i, int B,
+           int N_s, int N_t, int C, int k, int nseg, int tiles_per_seg,
+           cudaStream_t st) {
+  CUtensorMap map_s, map_t;
+  if (!make_map(&map_s, h_s, B, N_s, C) || !make_map(&map_t, h_t, B, N_t, C))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  float* tv = nseg > 1 ? part_v : out_v;
+  int* ti = nseg > 1 ? part_i : out_i;
+  dim3 grid((N_s + ROWS - 1) / ROWS, nseg, B);
+  topk_tc<<<grid, THREADS, smem, st>>>(map_s, map_t, h_s, h_t, t_mask, tv,
+                                       ti, N_s, N_t, C, k, nseg,
+                                       tiles_per_seg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nseg == 1) return (int)err;
+  return launch_merge<1>(part_v, part_i, out_v, out_i, B * N_s, k, nseg, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -825,6 +1508,39 @@ int dgmc_topk_bf16(const void* h_s, const void* h_t, const uint8_t* t_mask,
                     static_cast<const bf16*>(h_t), t_mask, part_v, part_i,
                     out_v, out_i, B, N_s, N_t, C, k, ts, nseg, tiles_per_seg,
                     device, stream);
+}
+
+// The tensor-core tile's constants (the wrapper's route and launch plan
+// read them): rows a block, targets a tile, ring stages, largest k and C,
+// and the dynamic shared memory of a block at C channels.
+int dgmc_topk_tc_rows() { return tc::ROWS; }
+int dgmc_topk_tc_targets_per_tile() { return tc::TGT; }
+int dgmc_topk_tc_stages() { return tc::STAGES; }
+int dgmc_topk_tc_k_max() { return tc::K_CAP; }
+int dgmc_topk_tc_c_max() { return tc::C_MAX; }
+int dgmc_topk_tc_smem_bytes(int C) { return (int)tc::smem_bytes(C); }
+
+// As dgmc_topk_bf16, on the tensor cores: the same arguments and outputs,
+// 128 source rows a block (no ts), target segments of tiles_per_seg tiles
+// of 128. Takes 1 <= k <= 16, C % 8 == 0 (TMA's 16-byte row stride),
+// C <= 640, h_s and h_t 16-byte aligned.
+int dgmc_topk_bf16_tc(const void* h_s, const void* h_t, const uint8_t* t_mask,
+                      float* part_v, int* part_i, float* out_v, int* out_i,
+                      int B, int N_s, int N_t, int C, int k, int nseg,
+                      int tiles_per_seg, int device, void* stream) {
+  if (k < 1 || k > tc::K_CAP || k > N_t || B < 1 || N_s < 1 || C < 8 ||
+      C % 8 != 0 || C > tc::C_MAX || nseg < 1 || tiles_per_seg < 1 ||
+      (long long)nseg * tiles_per_seg * tc::TGT < N_t ||
+      (long long)(nseg - 1) * tiles_per_seg * tc::TGT >= N_t ||
+      ((reinterpret_cast<uintptr_t>(h_s) | reinterpret_cast<uintptr_t>(h_t)) %
+       16) != 0)
+    return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    return tc::launch(static_cast<const bf16*>(h_s),
+                      static_cast<const bf16*>(h_t), t_mask, part_v, part_i,
+                      out_v, out_i, B, N_s, N_t, C, k, nseg, tiles_per_seg,
+                      reinterpret_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -27,7 +27,8 @@ from dgmc_tpu_torch.ops.kernels.spline import (Routing, build_records,
 from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
     plain_fused_candidate_delta, plain_sparse_consensus_bwd,
     plain_sparse_consensus_fwd, sparse_consensus_bwd, sparse_consensus_fwd)
-from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, plain_topk,
+from dgmc_tpu_torch.ops.kernels.topk import (K_MAX, TC_C_MAX, TC_K_MAX,
+                                             plain_topk, route,
                                              streaming_topk)
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 
@@ -581,8 +582,9 @@ def test_sparse_consensus_backward_from_the_touched_rows_state(cuda, name):
 
 BF16 = torch.bfloat16
 
-# C = 256, the KG training width, and C = 200: several channel slots of
-# the bf16 ring (each landed slot widened in turn), the last one partial.
+# C = 256, the KG training width, and C = 200: several 64-channel chunks
+# of the tensor-core tile, the last one partial (and, with k = K_MAX,
+# several channel slots of the bf16 FMA kernel's ring).
 BF16_WIDE_CASES = [(1, 300, 2000, 256, 10, 0.3),
                    (1, 17, 20000, 256, 10, None),
                    (2, 130, 1100, 256, K_MAX, 0.5),
@@ -604,8 +606,73 @@ def test_topk_kernel_bf16_matches_plain(cuda, case):
     assert streaming_topk.launches == before + 1 and v.dtype == BF16
     d = dispatch.decisions()['topk']
     assert (d['path'], d['dtype']) == ('kernel', 'bfloat16')
+    assert d['reason'] == route(BF16, B, N_s, N_t, C, k)[1]
     pv, pi = plain_topk(h_s, h_t, k, mask)
     assert torch.equal(i, pi) and torch.equal(v, pv)
+
+
+# (B, N_s, N_t, C, k, masked share or a mask's name, the route's reason):
+# the tensor-core tile's edges (rows no multiple of 64 or 128, targets no
+# multiple of a tile, a ragged last k16 slice at C = 200 and 264, k = 1
+# and its carry's limit, whole masked blocks, k above the valid targets,
+# B = 2), then a shape past each of its limits, which the FMA kernel
+# takes with the reason recorded.
+TC_EDGE_CASES = [(1, 200, 1024, 64, 10, None, 'tensor-core'),
+                 (1, 128, 1000, 64, 10, 0.3, 'tensor-core'),
+                 (1, 300, 1000, 200, 10, 0.3, 'tensor-core'),
+                 (1, 257, 700, 264, 10, None, 'tensor-core'),
+                 (1, 200, 3000, 64, 1, None, 'tensor-core'),
+                 (2, 130, 1100, 256, TC_K_MAX, 0.5, 'tensor-core'),
+                 (2, 300, 1000, 64, 10, 'blocks', 'tensor-core'),
+                 (1, 40, 20, 8, 9, 'five_valid', 'tensor-core'),
+                 (1, 17, 20000, 32, 10, 0.5, 'tensor-core'),
+                 (1, 64, 700, 12, 10, None, 'fma, C%8!=0'),
+                 (1, 64, 700, 64, TC_K_MAX + 1, None, 'fma, k>16'),
+                 (1, 64, 700, TC_C_MAX + 8, 10, None, 'fma, C>640')]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', TC_EDGE_CASES)
+def test_topk_bf16_route_edges_match_plain(cuda, case):
+    B, N_s, N_t, C, k, masked, reason = case
+    rng = np.random.RandomState(N_s + N_t + C)
+    h_s = torch.from_numpy(rng.randint(-3, 4, (B, N_s, C))).to(cuda, BF16)
+    h_t = torch.from_numpy(rng.randint(-3, 4, (B, N_t, C))).to(cuda, BF16)
+    if masked == 'blocks':           # batch 0 all masked, 2 tiles of 1
+        mask = torch.ones(B, N_t, dtype=torch.bool, device=cuda)
+        mask[0] = False
+        mask[1, 128:384] = False
+    elif masked == 'five_valid':
+        mask = (torch.arange(N_t, device=cuda) < 5).expand(B, N_t)
+    else:
+        mask = (None if masked is None
+                else torch.from_numpy(rng.rand(B, N_t) > masked).to(cuda))
+    before = streaming_topk.launches
+    v, i = streaming_topk(h_s, h_t, k, mask)
+    torch.cuda.synchronize()
+    assert streaming_topk.launches == before + 1
+    d = dispatch.decisions()['topk']
+    assert (d['path'], d['dtype'], d['reason']) == ('kernel', 'bfloat16',
+                                                    reason)
+    pv, pi = plain_topk(h_s, h_t, k, mask)
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+    v2, i2 = streaming_topk(h_s, h_t, k, mask)
+    assert torch.equal(i2, i) and torch.equal(v2, v)    # repeats
+
+
+@pytest.mark.cuda
+def test_topk_bf16_tc_reads_a_view_at_an_odd_offset(cuda):
+    """TMA wants 16-byte aligned rows: a view one row into its storage
+    (C = 8: 16 bytes a row) is aligned, one element in is not and is
+    copied first; both give the plain version's answer."""
+    rng = np.random.RandomState(3)
+    base = torch.from_numpy(rng.randint(-3, 4, (1, 401, 8))).to(cuda, BF16)
+    h_t = torch.from_numpy(rng.randint(-3, 4, (1, 300, 8))).to(cuda, BF16)
+    for h_s in (base[:, 1:], base.flatten()[1:3201].view(1, 400, 8)):
+        v, i = streaming_topk(h_s, h_t, 10)
+        assert dispatch.decisions()['topk']['reason'] == 'tensor-core'
+        pv, pi = plain_topk(h_s, h_t, 10)
+        assert torch.equal(i, pi) and torch.equal(v, pv)
 
 
 @pytest.mark.cuda

@@ -391,11 +391,21 @@ def test_dense_backward_d_o_t_accumulates_f32():
 
 # -- Each kernel's plain bf16 version against the JAX kernel --------------
 
-@pytest.mark.parametrize('k, masked', [(7, 0.3), (10, None), (25, 0.9)])
-def test_topk_plain_bf16_matches_jax_kernel_on_exact_inputs(k, masked):
+# (k, masked share, C, N_t): the earlier cases keep their ids; then the
+# tensor-core tile's edges: C = 200 (a ragged last 64-channel chunk), a
+# target count no multiple of its 128-target tile, k = 1.
+@pytest.mark.parametrize('k, masked, C, N_t', [
+    pytest.param(7, 0.3, 24, 600, id='7-0.3'),
+    pytest.param(10, None, 24, 600, id='10-None'),
+    pytest.param(25, 0.9, 24, 600, id='25-0.9'),
+    pytest.param(10, 0.3, 200, 600, id='c200'),
+    pytest.param(7, None, 24, 333, id='ragged_n_t'),
+    pytest.param(1, 0.5, 200, 333, id='k1')])
+def test_topk_plain_bf16_matches_jax_kernel_on_exact_inputs(k, masked, C,
+                                                           N_t):
     r = np.random.RandomState(k)
-    h_s, h_t = r.randint(-3, 4, (2, 40, 24)), r.randint(-3, 4, (2, 600, 24))
-    mask = None if masked is None else r.rand(2, 600) > masked
+    h_s, h_t = r.randint(-3, 4, (2, 40, C)), r.randint(-3, 4, (2, N_t, C))
+    mask = None if masked is None else r.rand(2, N_t) > masked
     jv, ji = pallas_topk(_j16(h_s), _j16(h_t), k,
                          t_mask=None if mask is None else jnp.asarray(mask),
                          return_values=True, interpret=True)
