@@ -21,7 +21,9 @@ for the batch, the upload, the replay call, the wait for the device and
 the rest (:func:`steps`), profiles one more of each and prints one JSON
 line of medians with min and max, the split, device busy time and
 share, device ops, the port's kernels by name, the dtype each ran in and
-each captured graph's static memory. It takes any tree of the port with the precision policy. With
+each captured graph's static memory; on a tree with batch norm also the
+captured KG phase-2 step of the ``backbones`` phase (``kg_phase2_bn``:
+ψ₂ once per step on each side). It takes any tree of the port with the precision policy. With
 ``--kernels`` it builds them and times, at the main path's shapes, the
 two sparse consensus kernels, a whole SplineCNN call's routing and
 ``route_fwd``, and the top-k kernel at a query's rows beside
@@ -195,6 +197,25 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   first 12. (The ``serve`` phase holds each bucket's replayed answer,
   with the engine's noise and with a query's own, bit-identical to the
   eager query path on the card.)
+- ``backbones``: the backbones without a CLI of their own, each eager
+  (``jit=False``) against captured from one state, outputs, parameters,
+  Adam state and batch-norm buffers bit-identical, the launch counters
+  at 0 just before each part and every kernel of the part launched:
+  (a) the KG path with batch norm in ψ₁ and ψ₂ (:func:`bn_kg_model`, the
+  DBP15K widths and sizes), 3 phase-1 steps, 3 phase-2 steps and a
+  phase-2 eval under each policy, launches as ``kg_train``'s, ψ₂ called
+  20 times a phase-2 call (per step on each side) where the CLI's packed
+  model makes 11; (b) dense DGMC with GIN ψ₁ (1 → 256, batch norm,
+  ``cat=False``) and ψ₂ (64 → 64, batch norm) on PascalPF's batches,
+  2 train steps and an eval batch under each policy, 10
+  ``consensus_update`` launches a call; (c) sparse DGMC (k = 10) with the
+  dense CLI's SplineCNN ψ₁ and ψ₂, one training step (top-k, sparse
+  consensus, ``route_aggregate`` forward and ``d_t``); (d)
+  ``MatchEngine`` over (a)'s trained float32 model, buckets
+  ``16x48,64x192``: three queries, each captured answer bit-identical to
+  the eager engine's. Each part's kernels are held against their plain
+  versions on the card on the inputs the path gave them
+  (:func:`hold_path_kernels`).
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -227,6 +248,7 @@ import contextlib
 import copy
 import functools
 import gc
+import importlib.util
 import itertools
 import json
 import os
@@ -2306,8 +2328,9 @@ def _hold_identical(label, eager, captured):
 
 
 def _hold_states(label, models, states):
-    """Parameters and Adam moments (and step counts) of the eager
-    (``False``) and captured (``True``) runs bit-identical."""
+    """Parameters, Adam moments, buffers (batch norm's running averages)
+    and step counts of the eager (``False``) and captured (``True``) runs
+    bit-identical."""
     got = {}
     for jit in (False, True):
         opt = states[jit].optimizer
@@ -2316,8 +2339,10 @@ def _hold_states(label, models, states):
             got[jit][name] = p.detach()
             for k, v in opt.state[p].items():
                 got[jit][f'{name} adam {k}'] = v
-    _hold_identical(f'{label}: parameters and Adam state', got[False],
-                    got[True])
+        for name, b in models[jit].named_buffers():
+            got[jit][f'{name} buffer'] = b
+    _hold_identical(f'{label}: parameters, Adam state and buffers',
+                    got[False], got[True])
     if states[False].step != states[True].step:
         raise AssertionError(f'{label}: host step counts differ')
     return len(got[True])
@@ -2517,6 +2542,383 @@ def phase_capture():
         _capture_dense(policy)
         _capture_kg(policy)
     _capture_aot()
+
+
+# ---- The backbones phase: batch norm, GIN, and ψ₂ once per step ----
+
+#: Buckets of the backbones phase's serving part.
+BN_BUCKETS = '16x48,64x192'
+#: The batch-norm KG model's steps of each kind, eager and captured.
+BN_KG_SCHEDULE = (('phase1', 3), ('phase2', 3), ('eval2', 1))
+
+
+def bn_kg_model(args, in_dim):
+    """The KG CLI's model (:func:`dbp15k.build`: its widths, depth, k and
+    seeded weights) with batch norm in ψ₁ and ψ₂, which the JAX package's
+    ``RelCNN(batch_norm=True)`` has and its CLI leaves off. ψ₂ with batch
+    norm is not channel-packed: each consensus step calls it on the
+    source and then on the target."""
+    from dgmc_tpu_torch.models import DGMC, RelCNN, precision
+    prec = precision.from_args(args)
+    psi_1 = RelCNN(in_dim, args.dim, args.num_layers, batch_norm=True,
+                   dropout=0.5, dtype=prec)
+    psi_2 = RelCNN(args.rnd_dim, args.rnd_dim, args.num_layers,
+                   batch_norm=True, dtype=prec)
+    return DGMC(psi_1, psi_2, num_steps=args.num_steps, k=args.k,
+                generator=torch.Generator().manual_seed(args.seed),
+                dtype=prec)
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Within the block, each kernel wrapper the model calls (the top-k
+    search, the dense and the sparse consensus, the spline routing)
+    files the inputs of its first call in ``calls`` by kernel, then runs
+    as it would: the path's own shapes and values, for
+    :func:`hold_path_kernels` after the step."""
+    from dgmc_tpu_torch.models import dgmc as dgmc_mod
+    from dgmc_tpu_torch.models import spline as spline_mod
+    from dgmc_tpu_torch.ops.kernels import sparse_consensus
+    sites = [(dgmc_mod, 'chunked_topk', 'topk'),
+             (dgmc_mod, 'consensus_update', 'consensus'),
+             (sparse_consensus, 'fused_candidate_delta', 'sparse_consensus'),
+             (spline_mod, 'route_aggregate', 'spline')]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for (mod, name, key), (_, _, fn) in zip(sites, saved):
+        def filed(*args, _fn=fn, _key=key, **kw):
+            calls.setdefault(_key, (tuple(
+                a.detach() if torch.is_tensor(a) else a for a in args), kw))
+            return _fn(*args, **kw)
+        setattr(mod, name, filed)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def hold_path_kernels(label, calls):
+    """Each kernel a path called (:func:`recording`), held against its
+    plain version on the card on the inputs the path gave it: top-k by
+    :func:`hold_near_ties` (float32) or :func:`hold_bf16_topk`; the
+    sparse consensus forward and, for a random float32 cotangent, its
+    backward; the dense consensus forward; the spline routing forward
+    and ``d_t``; float32 outputs by :func:`hold_close`, bf16 ones by
+    :func:`hold_ulp` → ``{kernel: max |err|}``."""
+    from dgmc_tpu_torch.ops.kernels.consensus import (consensus_fwd,
+                                                      plain_consensus)
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import (
+        plain_sparse_consensus_bwd, plain_sparse_consensus_fwd,
+        sparse_consensus_bwd, sparse_consensus_fwd)
+    from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
+                                                   plain_route_d_t,
+                                                   route_d_t, route_fwd)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    errs = {}
+    if 'topk' in calls:
+        (h_s, h_t, k), kw = calls['topk']
+        hold = hold_bf16_topk if h_s.dtype == BF16 else hold_near_ties
+        errs['topk'] = hold(label, h_s, h_t, k, kw.get('t_mask'))
+    if 'sparse_consensus' in calls:
+        (o_s, o_t, sl, w1, b1, w2, b2), _ = calls['sparse_consensus']
+        out, state = sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2,
+                                          return_state=True)
+        errs['sparse_consensus_fwd'] = hold_close(
+            f'{label} sparse consensus forward', out,
+            plain_sparse_consensus_fwd(o_s, o_t, sl, w1, b1, w2, b2))
+        g = torch.randn(out.shape, generator=gen, device='cuda')
+        hold = hold_ulp if o_s.dtype == BF16 else hold_close
+        errs['sparse_consensus_bwd'] = max(
+            hold(f'{label} sparse consensus backward {name}', x, w)
+            for name, x, w in zip(
+                SC_GRADS,
+                sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g, state),
+                plain_sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g)))
+    if 'consensus' in calls:
+        a, _ = calls['consensus']
+        errs['consensus_fwd'] = hold_close(f'{label} consensus',
+                                           consensus_fwd(*a),
+                                           plain_consensus(*a))
+    if 'spline' in calls:
+        (t, basis, routing), _ = calls['spline']
+        hold = hold_ulp if t.dtype == BF16 else hold_close
+        out = route_fwd(t, basis, routing)
+        errs['spline_route_fwd'] = hold(f'{label} route_fwd', out,
+                                        plain_route_aggregate(t, basis,
+                                                              routing))
+        g = torch.randn(out.shape, generator=gen, device='cuda').to(
+            out.dtype)
+        errs['spline_route_bwd'] = hold(f'{label} route_d_t',
+                                        route_d_t(g, basis, routing),
+                                        plain_route_d_t(g, basis, routing))
+    torch.cuda.synchronize()
+    log(f'backbones: {label}: each kernel against its plain version on the '
+        f'path\'s own inputs (max |err|): '
+        + ', '.join(f'{k} {v:.3g}' for k, v in errs.items()))
+    return errs
+
+
+def _eager_and_captured(label, model, lr, make_steps, schedule, kernels,
+                        want):
+    """``schedule`` (``[(name, step key, batch, seed)]``; keys starting
+    with ``train`` or ``phase`` are train steps) on the eager
+    (``jit=False``) and the captured path, each from a copy of ``model``
+    (:func:`_both`: outputs bit-identical, launches of ``kernels`` per
+    call equal on both and to ``want[key]``), the launch counters at 0
+    just before and read just after, every kernel of ``kernels`` that
+    ``want`` expects launched; then parameters, Adam state and batch-norm
+    buffers bit-identical (:func:`_hold_states`). The eager calls record
+    the kernels' inputs (:func:`recording`). Returns ``(models, calls,
+    psi_2 calls of each eager call, launches)``."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train.state import create_train_state
+    models = {jit: copy.deepcopy(model).cuda() for jit in (False, True)}
+    states = {jit: create_train_state(m, lr) for jit, m in models.items()}
+    steps_ = {jit: make_steps(m, jit) for jit, m in models.items()}
+    seen, per_call, calls, key_of = [], {}, {}, {}
+    models[False].psi_2.register_forward_hook(lambda *_: seen.append(1))
+
+    def run(jit, name, key, batch, seed):
+        step = steps_[jit][key]
+        n0 = len(seen)
+        with recording(calls) if not jit else contextlib.nullcontext():
+            out = (step(states[jit], batch, seed)[1]
+                   if key.startswith(('train', 'phase'))
+                   else step(batch, seed))
+        if not jit:
+            per_call[name] = len(seen) - n0
+        return out
+
+    runs = []
+    for name, key, batch, seed in schedule:
+        key_of[name] = key
+        runs.append((name, {jit: functools.partial(run, jit, name, key,
+                                                   batch, seed)
+                            for jit in (False, True)}))
+    dispatch.reset()
+    _both(label, kernels, runs, want=lambda name: want[key_of[name]])
+    counts = dispatch.launch_counts()
+    used = {k for per in want.values() for k, n in zip(kernels, per) if n}
+    idle = [k for k in sorted(used) if not counts[k]]
+    if idle:
+        raise AssertionError(f'{label}: {idle} never launched')
+    n = _hold_states(label, models, states)
+    log(f'backbones: {label}: {len(schedule)} calls '
+        f'({", ".join(name for name, *_ in schedule)}) bit-identical to '
+        f'the eager ones (outputs, then {n} parameters, Adam tensors and '
+        f'batch-norm buffers); launches of {kernels} per call: '
+        + ', '.join(f'{k} {want[k]}' for k in sorted(want))
+        + f' on both; in all {dict((k, counts[k]) for k in kernels)}; '
+        f'ψ₂ calls per eager call {per_call}; dispatch dtypes '
+        + str({k: d.get('dtypes') for k, d in dispatch.decisions().items()
+               if k in kernels}))
+    return models, calls, per_call, counts
+
+
+def _bn_kg_part(policy):
+    """(a) The KG training path with batch norm (:func:`bn_kg_model`) at
+    the DBP15K widths and sizes: phase-1 steps, phase-2 steps and a
+    phase-2 eval pass, eager against captured; ψ₂ called 2 x num_steps
+    times a phase-2 step, where the CLI's packed model makes num_steps +
+    1 calls; the top-k and sparse consensus kernels held on the path's
+    inputs. Returns the captured model (trained)."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
+                                            make_train_step)
+    args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
+    train_b, test_b, in_dim = dbp15k.synthetic_batches(args)
+    model = bn_kg_model(args, in_dim)
+    if model.packs_source(args.num_steps):
+        raise AssertionError('a ψ₂ with batch norm was channel-packed')
+
+    def make_steps(m, jit):
+        return {'phase1': make_train_step(m, num_steps=0, jit=jit),
+                'phase2': make_train_step(m, num_steps=args.num_steps,
+                                          detach=True, jit=jit),
+                'eval2': make_eval_step(m, hits_ks=(10,),
+                                        num_steps=args.num_steps, jit=jit)}
+
+    train_dev = batch_to_device(train_b, 'cuda')
+    test_dev = batch_to_device(test_b, 'cuda')
+    schedule, epoch = [], 1
+    for key, count in BN_KG_SCHEDULE:
+        split = 1 if key.startswith('eval') else 0
+        for _ in range(count):
+            schedule.append((f'{key} epoch {epoch}', key,
+                             test_dev if split else train_dev,
+                             dbp15k.noise_seed(args.seed, split, epoch)))
+            epoch += 1
+    want = {'phase1': KG_PER[('train', 1)], 'phase2': KG_PER[('train', 2)],
+            'eval2': KG_PER[('eval', 2)]}
+    label = f'(a) KG batch norm {policy}'
+    models, calls, per_call, _ = _eager_and_captured(
+        label, model, args.lr, make_steps, schedule, KG_KERNELS, want)
+    psi2 = {per_call[name] for name, key, *_ in schedule
+            if key != 'phase1'}
+    if psi2 != {2 * args.num_steps}:
+        raise AssertionError(f'{label}: ψ₂ calls per phase-2 call {psi2}')
+    d = dispatch.decisions()
+    # The packed form's count, on the CLI's own model and batch.
+    packed = dbp15k.build(args, in_dim).cuda().train()
+    seen = []
+    packed.psi_2.register_forward_hook(lambda *_: seen.append(1))
+    with torch.no_grad():
+        packed(train_dev.graph_s, train_dev.graph_t, y=train_dev.y,
+               y_mask=train_dev.y_mask, num_steps=args.num_steps,
+               detach=True, generator=torch.Generator(device='cuda'))
+    if len(seen) != args.num_steps + 1:
+        raise AssertionError(f'{label}: the packed model called ψ₂ '
+                             f'{len(seen)} times')
+    log(f'backbones: {label}: ψ₂ calls per phase-2 step and eval '
+        f'{2 * args.num_steps} (per step, batch norm) where the CLI\'s '
+        f'packed model makes {len(seen)}')
+    hold_path_kernels(label, calls)
+    if policy == 'bf16' and (
+            d['topk']['reason'] != 'tensor-core'
+            or 'kernel:bfloat16' not in d['sparse_consensus_fwd']['dtypes']):
+        raise AssertionError(f'{label}: dispatch {d}')
+    return models[True]
+
+
+def _gin_dense_part(policy):
+    """(b) Dense DGMC with GIN ψ₁ and ψ₂ (batch norm) on PascalPF's
+    batches (64 pairs, 80 nodes / 640 edges), eager against captured:
+    train steps and an eval batch, ``consensus_update`` 10 times a step;
+    the consensus kernel held on the path's inputs."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.models import DGMC, GIN, precision
+    from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
+                                            make_train_step)
+    args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
+    _, loader, _ = pascal_pf.build(args)
+    prec = precision.from_args(args)
+    model = DGMC(GIN(1, args.dim, args.num_layers, batch_norm=True,
+                     cat=False, dtype=prec),
+                 GIN(args.rnd_dim, args.rnd_dim, args.num_layers,
+                     batch_norm=True, dtype=prec),
+                 num_steps=args.num_steps, k=-1,
+                 generator=torch.Generator().manual_seed(args.seed),
+                 dtype=prec)
+    loader.dataset.set_epoch(1)
+    batches = list(itertools.islice(HostBatches(loader, 'cuda'), 3))
+
+    def make_steps(m, jit):
+        return {'train': make_train_step(m, loss_on_s0=True, jit=jit),
+                'eval': make_eval_step(m, jit=jit)}
+
+    schedule = [(f'train step {i}', 'train', b,
+                 pascal_pf.noise_seed(args.seed, 0, 1, i))
+                for i, b in enumerate(batches[:2])]
+    schedule.append(('eval batch 0', 'eval', batches[2],
+                     pascal_pf.noise_seed(args.seed, 1, 1, 0)))
+    label = f'(b) dense GIN {policy}'
+    _, calls, per_call, _ = _eager_and_captured(
+        label, model, args.lr, make_steps, schedule, ('consensus_fwd', 'rng'),
+        {'train': (args.num_steps, 1), 'eval': (args.num_steps, 1)})
+    if set(per_call.values()) != {2 * args.num_steps}:
+        raise AssertionError(f'{label}: ψ₂ calls {per_call}')
+    hold_path_kernels(label, calls)
+
+
+def _spline_sparse_part():
+    """(c) Sparse DGMC (k = 10) with the dense CLI's SplineCNN ψ₁ and ψ₂
+    on its batches: one training step, eager against captured; top-k,
+    the sparse consensus and the spline routing held on the path's
+    inputs."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    from dgmc_tpu_torch.models import DGMC
+    from dgmc_tpu_torch.train.steps import HostBatches, make_train_step
+    args = _train_args()
+    dense, loader, _ = pascal_pf.build(args)
+    model = DGMC(dense.psi_1, dense.psi_2, num_steps=args.num_steps, k=10,
+                 generator=torch.Generator().manual_seed(args.seed))
+    loader.dataset.set_epoch(1)
+    batch = next(iter(HostBatches(loader, 'cuda')))
+    kernels = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd',
+               'spline_route_fwd', 'spline_route_bwd', 'spline_records',
+               'rng')
+    label = '(c) sparse SplineCNN f32'
+    _, calls, per_call, _ = _eager_and_captured(
+        label, model, args.lr,
+        lambda m, jit: {'train': make_train_step(m, loss_on_s0=True,
+                                                 jit=jit)},
+        [('train step 0', 'train', batch,
+          pascal_pf.noise_seed(args.seed, 0, 1, 0))],
+        kernels, {'train': (1, args.num_steps, args.num_steps, 44, 44, 2, 2)})
+    if set(per_call.values()) != {2 * args.num_steps}:
+        raise AssertionError(f'{label}: ψ₂ calls {per_call}')
+    hold_path_kernels(label, calls)
+
+
+def _bn_serve_part(model):
+    """(d) ``MatchEngine`` over the trained batch-norm KG model (eval
+    mode: the running averages; ψ₂ once per step inside each bucket's
+    graph): each query's answer from the captured bucket bit-identical to
+    the eager engine's, 1 / 10 / 1 top-k / sparse-consensus / draw
+    launches and 20 ψ₂ calls a query."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.serve.cli import dbp15k_kg
+    from dgmc_tpu_torch.serve.client import sample_query
+    from dgmc_tpu_torch.serve.corpus import Corpus, load_or_build
+    from dgmc_tpu_torch.serve.engine import MatchEngine
+    from dgmc_tpu_torch.serve.router import QueryRouter
+    kg = dbp15k_kg(seed=0)
+    corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
+    model = copy.deepcopy(model).eval()
+    index, _ = load_or_build(None, copy.deepcopy(model.psi_1), corpus,
+                             device='cuda')
+    router = QueryRouter(BN_BUCKETS, corpus.num_nodes, corpus.num_edges)
+    engines = {jit: MatchEngine(copy.deepcopy(model), index, router,
+                                device='cuda', jit=jit)
+               for jit in (False, True)}
+    for e in engines.values():
+        e.warm()
+    seen = []
+    engines[False].model.psi_2.register_forward_hook(
+        lambda *_: seen.append(1))
+    steps = model.num_steps
+    dispatch.reset()
+    for qi, n in enumerate((16, 41, 64)):
+        graph, _ = sample_query(corpus.x, n, 3 * n, seed=300 + qi)
+        ans, lat = {}, {}
+        for jit, engine in engines.items():
+            before, n0 = dispatch.launch_counts(), len(seen)
+            ans[jit] = engine.match(graph)
+            lat[jit] = engine.last_latency_s * 1e3
+            after = dispatch.launch_counts()
+            got = tuple(after[k] - before[k] for k in
+                        ('topk', 'sparse_consensus_fwd', 'rng'))
+            if got != (1, steps, 1):
+                raise AssertionError(f'(d) query {qi}: launches {got}')
+            if not jit and len(seen) - n0 != 2 * steps:
+                raise AssertionError(f'(d) query {qi}: ψ₂ calls '
+                                     f'{len(seen) - n0}')
+        if ans[True] != ans[False]:
+            raise AssertionError(f'(d) query {qi}: the captured bucket\'s '
+                                 f'answer differs from the eager one')
+        log(f'backbones: (d) serve query {qi} ({n} nodes, bucket '
+            f'{ans[True]["bucket"]}): captured answer bit-identical to the '
+            f'eager one; latency {lat[True]:.3f} ms captured, '
+            f'{lat[False]:.3f} ms eager; launches 1 / {steps} / 1 (top-k / '
+            f'sparse consensus / draw), ψ₂ calls {2 * steps}')
+
+
+def phase_backbones():
+    """The remaining backbones on the card (see the module docstring):
+    (a) the batch-norm KG path under both policies, (b) dense GIN under
+    both, (c) sparse with a SplineCNN ψ₂, (d) serving the model of (a)."""
+    trained = None
+    for policy in ('f32', 'bf16'):
+        model = _bn_kg_part(policy)
+        if policy == 'f32':
+            trained = model
+        gc.collect()
+        _gin_dense_part(policy)
+        gc.collect()
+    _spline_sparse_part()
+    gc.collect()
+    _bn_serve_part(trained)
 
 
 def phase_serve(result, small, sc_small):
@@ -3006,17 +3408,18 @@ def _jit_kw(jit):
     return {} if jit is None else {'jit': jit}
 
 
-def kg_step(policy='f32', jit=None):
+def kg_step(policy='f32', jit=None, batch_norm=False):
     """One phase-2 step of the KG training path (``dbp15k`` at its
     defaults on the synthetic alignment, ψ₁ detached) under ``policy`` on
     the card, as a call: the batch uploaded once, a new noise seed each
-    call."""
+    call. ``batch_norm``: the model of the ``backbones`` phase
+    (:func:`bn_kg_model`), whose ψ₂ runs once per step on each side."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.train.state import create_train_state
     from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
     args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
     train_b, _, in_dim = dbp15k.synthetic_batches(args)
-    model = dbp15k.build(args, in_dim).cuda()
+    model = (bn_kg_model if batch_norm else dbp15k.build)(args, in_dim).cuda()
     state = create_train_state(model, learning_rate=args.lr)
     step = make_train_step(model, num_steps=args.num_steps, detach=True,
                            **_jit_kw(jit))
@@ -3099,16 +3502,21 @@ def steps(n):
     prefetch = (hasattr(steps_mod, 'HostBatches')
                 and hasattr(data_mod, 'PrefetchLoader'))
     jit = 'jit' in inspect.signature(steps_mod.make_train_step).parameters
+    # Trees with batch norm also time the captured KG phase-2 step of the
+    # backbones phase, ψ₂ once per step on each side.
+    bn = importlib.util.find_spec('dgmc_tpu_torch.models.norm') is not None
     names = ('dense', *(('dense_eager',) if jit else ()),
              *(('dense_prefetch',) if prefetch else ()), 'kg_phase2',
-             *(('kg_phase2_eager',) if jit else ()))
+             *(('kg_phase2_eager',) if jit else ()),
+             *(('kg_phase2_bn',) if bn else ()))
     out = {}
     for policy in ('f32', 'bf16'):
         for name in names:
             eager = False if name.endswith('_eager') else None
             with host_timers() as spent:
                 dispatch.reset()
-                run = (kg_step(policy, eager) if name.startswith('kg')
+                run = (kg_step(policy, eager, name == 'kg_phase2_bn')
+                       if name.startswith('kg')
                        else dense_loop_step(policy, spent,
                                             name == 'dense_prefetch', eager))
                 for _ in range(2):
@@ -3350,7 +3758,8 @@ def main(argv=None):
             ('kg_train', lambda: phase_kg_train(res)),
             ('train_bf16', lambda: phase_train_bf16(res)),
             ('kg_train_bf16', lambda: phase_kg_train_bf16(res)),
-            ('capture', phase_capture)):
+            ('capture', phase_capture),
+            ('backbones', phase_backbones)):
         t0 = time.perf_counter()
         try:
             fn()

@@ -16,14 +16,21 @@ Ported here:
 - the sparse variant (``k >= 1``), trained and evaluated: the top-k
   shortlist (its CUDA kernel on the card), in training extended by
   ``min(k, N_t - k)`` random negatives per row and the injected ground
-  truth (:func:`include_gt`), the channel-packed source side of ψ₂, and
-  the consensus delta through
+  truth (:func:`include_gt`), and the consensus delta through
   :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
   fused_candidate_delta` (its CUDA kernels, forward and backward, on the
   card); plus the serving arguments ``h_t``, ``S_idx`` and ``h_t_cand``.
   The shortlist's receiver order is built once per forward
   (:class:`~dgmc_tpu_torch.ops.shortlist.Shortlist`) and serves every
   reduction onto the targets.
+
+ψ₂ in both variants (:meth:`DGMC.packs_source`): the source side's input
+is noise, independent of ``S``, so where the JAX package's
+``prefetch_source`` packs, all steps' source sides run as one
+channel-packed ψ₂ call (``streams``); where it does not (one step, a ψ₂
+with batch norm, with active dropout or without ``streams``), each step
+calls ψ₂ on the source and then on the target, the order in which batch
+norm updates its running averages.
 
 Precision (``dtype``, a compute dtype or a precision policy,
 :mod:`~dgmc_tpu_torch.models.precision`), at the JAX package's places:
@@ -146,8 +153,7 @@ class DGMC(nn.Module):
         psi_1: feature GNN, called as ``psi_1(x, graph, generator=...)``
             (the dropout masks' generator).
         psi_2: consensus GNN exposing ``in_channels``/``out_channels``
-            (``SplineCNN``, ``RelCNN``). The sparse variant also needs
-            channel-packed evaluation (``streams``), as RelCNN has.
+            (``SplineCNN``, ``RelCNN``, ``GIN``).
         num_steps: default number of consensus iterations.
         k: ``-1`` for the dense variant, else the top-k sparsity.
         generator: optional ``torch.Generator`` the initial weights are
@@ -167,10 +173,6 @@ class DGMC(nn.Module):
     def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None,
                  dtype=None):
         super().__init__()
-        if k >= 1 and not getattr(psi_2, 'supports_streams', False):
-            raise NotImplementedError('the sparse variant needs a psi_2 with '
-                                      'channel-packed evaluation (streams), '
-                                      'as RelCNN has')
         self.psi_1 = psi_1
         self.psi_2 = psi_2
         self.num_steps = num_steps
@@ -225,6 +227,30 @@ class DGMC(nn.Module):
                              f'{tuple(r_s.shape)}')
         return self._cast(r_s)
 
+    def packs_source(self, num_steps):
+        """Whether ψ₂'s source side of all ``num_steps`` steps runs as
+        one channel-packed call: exactly where the JAX package's
+        ``prefetch_source`` packs (``dgmc_tpu/models/dgmc.py:551-558``),
+        with more than one step and a ψ₂ that has no batch norm, no
+        active dropout (training mode with ``dropout > 0``) and
+        channel-packed evaluation (``supports_streams``)."""
+        psi_2 = self.psi_2
+        return (num_steps > 1
+                and not getattr(psi_2, 'batch_norm', False)
+                and not (self.training and getattr(psi_2, 'dropout', 0.0))
+                and getattr(psi_2, 'supports_streams', False))
+
+    def _packed_source(self, r_s, graph_s, generator):
+        """ψ₂ of every step's source-side noise in one channel-packed
+        call, ``[T, B, N_s, R_out]``, where :meth:`packs_source`; else
+        ``None`` (each step then calls ψ₂ itself)."""
+        T, B, N_s, R_in = r_s.shape
+        if not self.packs_source(T):
+            return None
+        o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(B, N_s, T * R_in),
+                       graph_s, streams=T, generator=generator)
+        return o.reshape(B, N_s, T, -1).permute(2, 0, 1, 3)
+
     def _delta_fn(self):
         """:func:`consensus_update`, or the factored plain form above the
         kernel's ``R <= R_MAX`` limit. The JAX package's auto gate also
@@ -263,11 +289,13 @@ class DGMC(nn.Module):
         if num_steps > 0:
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
                               pair_offset, h_s.device)
+            o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._delta_fn()
             for step in range(num_steps):
                 S = masked_softmax(S_hat, S_mask)
                 r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
-                o_s = self.psi_2(r_s[step], graph_s, generator=generator)
+                o_s = (self.psi_2(r_s[step], graph_s, generator=generator)
+                       if o_s_all is None else o_s_all[step])
                 o_t = self.psi_2(r_t, graph_t, generator=generator)
                 delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
                 S_hat = S_hat + torch.where(S_mask, delta, 0.0)
@@ -402,23 +430,18 @@ class DGMC(nn.Module):
         if num_steps > 0:
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
                               pair_offset, dev)
-            # The source-side ψ₂ input is noise, independent of S: all
-            # steps run as ONE channel-packed ψ₂ call on the source graph
-            # (RelCNN refuses it with active dropout, which would draw one
-            # mask across the steps).
-            T, R_in = num_steps, self.psi_2.in_channels
-            o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(B, N_s, T * R_in),
-                           graph_s, streams=T, generator=generator)
-            o_s_all = o.reshape(B, N_s, T, -1).permute(2, 0, 1, 3)
+            o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._sparse_delta_fn()
             for step in range(num_steps):
                 S = masked_softmax(S_hat, entry_mask) * row_mask
                 # float32: S is; the noise is widened exactly.
                 r_t = shortlist.scatter(S[..., None]
                                         * r_s[step].to(S.dtype)[:, :, None, :])
+                o_s = (self.psi_2(r_s[step], graph_s, generator=generator)
+                       if o_s_all is None else o_s_all[step])
                 o_t = self.psi_2(r_t, graph_t, generator=generator)
-                S_hat = S_hat + delta_fn(o_s_all[step], o_t.to(o.dtype),
-                                         shortlist, *self._mlp(o.dtype))
+                S_hat = S_hat + delta_fn(o_s, o_t.to(o_s.dtype), shortlist,
+                                         *self._mlp(o_s.dtype))
 
         S_L = masked_softmax(S_hat, entry_mask) * row_mask
         return (Correspondence(S_0, shortlist.idx, s_mask, t_mask),

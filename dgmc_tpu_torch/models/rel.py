@@ -2,12 +2,12 @@
 
 Per layer ``root(x) + mean_{j->i} lin1(x_j) + mean_{i->j} lin2(x_j)``:
 separate linear maps for the incoming and outgoing neighbourhoods, two
-masked mean reductions with swapped sender/receiver roles. Stacked with
-ReLU and jumping-knowledge concat, then a final linear map.
-
-Ported: ``batch_norm=False``, with dropout after each layer's ReLU in
-training mode (masks from an explicit ``torch.Generator`` on the model's
-device). Masked batch norm is later work.
+masked mean reductions with swapped sender/receiver roles. Stacked as
+conv → ReLU → optional
+:class:`~dgmc_tpu_torch.models.norm.MaskedBatchNorm` over the node mask
+(``bns.<i>``) → dropout in training mode (masks from an explicit
+``torch.Generator`` on the model's device), with the jumping-knowledge
+concat and a final linear map.
 
 ``dtype`` (a compute dtype or a precision policy,
 :mod:`~dgmc_tpu_torch.models.precision`): under bf16 the input is cast
@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from dgmc_tpu_torch.models.norm import MaskedBatchNorm
 from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
@@ -124,17 +125,14 @@ class RelCNN(nn.Module):
 
     The output width is :attr:`out_channels`. ``supports_streams`` tells
     DGMC that all consensus steps' source-side inputs can be evaluated
-    in one channel-packed pass.
+    in one channel-packed pass (refused with batch norm or active
+    dropout, which would couple the packed groups).
     """
     supports_streams = True
 
     def __init__(self, in_channels, channels, num_layers, batch_norm=False,
                  cat=True, lin=True, dropout=0.0, dtype=None):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                'RelCNN(batch_norm=True) needs MaskedBatchNorm, which is '
-                'not ported yet')
         self.in_channels = in_channels
         self.channels = channels
         self.num_layers = num_layers
@@ -147,6 +145,9 @@ class RelCNN(nn.Module):
             RelConv(in_channels if i == 0 else channels, channels,
                     dtype=self.dtype)
             for i in range(num_layers))
+        self.bns = nn.ModuleList(
+            MaskedBatchNorm(channels) for _ in range(num_layers)
+        ) if batch_norm else None
         if lin:
             width = (in_channels + num_layers * channels if cat
                      else channels)
@@ -165,15 +166,21 @@ class RelCNN(nn.Module):
     def reset_parameters(self, generator=None):
         for conv in self.convs:
             conv.reset_parameters(generator)
+        for bn in self.bns or ():
+            bn.reset_parameters()
         if self.final is not None:
             init_linear_(self.final, generator)
 
     def forward(self, x, graph, streams=1, generator=None):
         """``generator``: the source of the dropout masks, needed in
         training mode with ``dropout > 0``. ``streams > 1`` (see
-        :class:`RelConv`) is refused with active dropout, which would
-        draw one mask across the channel groups."""
+        :class:`RelConv`) is refused with batch norm, whose statistics
+        would span the channel groups, and with active dropout, which
+        would draw one mask across them."""
         active = self.training and self.dropout > 0
+        if streams > 1 and self.batch_norm:
+            raise ValueError('streams>1 is invalid with batch_norm=True: '
+                             'batch statistics would couple the streams')
         if streams > 1 and active:
             raise ValueError(
                 'streams>1 is invalid with active dropout: a packed '
@@ -182,10 +189,13 @@ class RelCNN(nn.Module):
         B, N = x.shape[0], x.shape[1]
         # Every consumer of x casts it to the compute dtype (the JAX
         # package's Dense layers; its concat then rounds at the final
-        # Dense): once here is the same.
+        # Dense): once here is the same. Batch norm returns float32,
+        # which the next layer's maps and the final map cast again.
         xs = [x if self.dtype is None else x.to(self.dtype)]
-        for conv in self.convs:
+        for i, conv in enumerate(self.convs):
             h = torch.relu(conv(xs[-1], graph, streams=streams))
+            if self.batch_norm:
+                h = self.bns[i](h, graph.node_mask)
             xs.append(dropout(h, self.dropout, generator) if active else h)
         if streams == 1:
             out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
@@ -202,5 +212,6 @@ class RelCNN(nn.Module):
 
     def extra_repr(self):
         return (f'{self.in_channels}, {self.out_channels}, '
-                f'num_layers={self.num_layers}, cat={self.cat}, '
+                f'num_layers={self.num_layers}, '
+                f'batch_norm={self.batch_norm}, cat={self.cat}, '
                 f'lin={self.lin}, dropout={self.dropout}')

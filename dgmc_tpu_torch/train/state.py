@@ -64,24 +64,27 @@ def apply_gradients(state):
     state.step += 1
 
 
-def snapshot(state):
-    """Save the state's parameters, optimizer moments and step counts and
-    return ``restore()``, which writes them back in place (the tensors
-    keep their storage, which a captured graph reads). Moments that did
-    not exist yet (Adam creates them at its first step) are reset to
-    zeros, Adam's fresh state. What a capture's warm-up runs use, so that
-    the captured run starts from the state the eager one would."""
+def snapshot(state, model=None):
+    """Save the state's parameters, optimizer moments and step counts
+    (and ``model``'s buffers: batch norm's running averages, which a
+    training step updates too) and return ``restore()``, which writes
+    them back in place (the tensors keep their storage, which a captured
+    graph reads). Moments that did not exist yet (Adam creates them at
+    its first step) are reset to zeros, Adam's fresh state. What a
+    capture's warm-up runs use, so that the captured run starts from the
+    state the eager one would."""
     opt = state.optimizer
-    params = [p for g in opt.param_groups for p in g['params']]
-    saved = [p.detach().clone() for p in params]
+    tensors = [p for g in opt.param_groups for p in g['params']]
+    tensors += [] if model is None else list(model.buffers())
+    saved = [t.detach().clone() for t in tensors]
     moments = {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
                for p, st in opt.state.items()}
     step = state.step
 
     def restore():
         with torch.no_grad():
-            for p, v in zip(params, saved):
-                p.copy_(v)
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
             for p, st in opt.state.items():
                 old = moments.get(p)
                 for k, v in st.items():

@@ -177,7 +177,10 @@ def _step_input(batch, device):
 
 class _Jit:
     """A step compiled on first use on the model's device (the device is
-    known only once the model is on it)."""
+    known only once the model is on it). The model is its first input,
+    read in place (its parameters and buffers count among the step's
+    arguments); the warm-ups of a train step's capture restore the
+    model's buffers with the train state."""
 
     def __init__(self, model, body, train):
         self.model = model
@@ -192,14 +195,15 @@ class _Jit:
             kw = {}
             if self.train:
                 gen = self.generator = torch.Generator(device=dev)
-                # The train inputs: (Fixed(state), batch, seed, r_s,
-                # negatives).
-                kw = {'snapshot': lambda state, *_: snapshot(state.value),
+                # The train inputs: (Fixed(model), Fixed(state), batch,
+                # seed, r_s, negatives).
+                kw = {'snapshot': lambda model, state, *_: snapshot(
+                          state.value, model.value),
                       'prepare': lambda *inputs: gen.manual_seed(
-                          dropout_seed(inputs[2])),
+                          dropout_seed(inputs[3])),
                       'generators': (gen,) if dev.type == 'cuda' else ()}
             self.compiled = compiled(
-                lambda *a: self.body(*a, self.generator), dev, **kw)
+                lambda _model, *a: self.body(*a, self.generator), dev, **kw)
         return self.compiled
 
     def inputs(self, batch, noise_seed, r_s, negatives=None):
@@ -208,7 +212,7 @@ class _Jit:
             raise ValueError('injected negatives are range-checked on the '
                              'host, which a captured step cannot do: pass '
                              'them with jit=False or on the CPU')
-        return c, (_step_input(batch, c.device),
+        return c, (Fixed(self.model), _step_input(batch, c.device),
                    operator.index(noise_seed), r_s, negatives)
 
 
@@ -254,9 +258,9 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     jitted = _Jit(model, body, train=True)
 
     def inputs(state, batch, noise_seed, r_s, negatives):
-        c, (b, seed, r_s, negatives) = jitted.inputs(batch, noise_seed, r_s,
-                                                     negatives)
-        return c, (Fixed(state), b, seed, r_s, negatives)
+        c, (model_, b, seed, r_s, negatives) = jitted.inputs(
+            batch, noise_seed, r_s, negatives)
+        return c, (model_, Fixed(state), b, seed, r_s, negatives)
 
     def train_step(state, batch, noise_seed, r_s=None, negatives=None):
         c, args = inputs(state, batch, noise_seed, r_s, negatives)

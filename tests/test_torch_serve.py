@@ -232,6 +232,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             dirs.remove('_build')
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     assert len(files) > 10
+    assert {os.path.join(REPO, 'dgmc_tpu_torch', 'models', f'{m}.py')
+            for m in ('norm', 'mlp', 'gin', 'rel', 'dgmc')} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]

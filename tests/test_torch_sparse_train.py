@@ -367,9 +367,14 @@ class _IdentityPsi1(torch.nn.Module):
 
 
 class _DegreePsi2(torch.nn.Module):
-    """Colours node i with its in-degree, ignoring its input."""
-    supports_streams = True
+    """Colours node i with its in-degree, ignoring its input; with
+    channel-packed evaluation where ``supports_streams`` (JAX's
+    ``DegreePsi2`` has none)."""
     in_channels = out_channels = 3
+
+    def __init__(self, supports_streams=False):
+        super().__init__()
+        self.supports_streams = supports_streams
 
     def reset_parameters(self, generator=None):
         pass
@@ -389,12 +394,16 @@ def _line(feats):
         'edge_mask': np.ones((1, n - 1), bool)}, 'cpu')
 
 
-def test_consensus_iteration_golden_sparse():
+@pytest.mark.parametrize('streams', [True, False],
+                         ids=['streams', 'no-streams'])
+def test_consensus_iteration_golden_sparse(streams):
     """``test_golden.py:111``: the sparse path with k = N lands on the
-    hand-computed dense values."""
+    hand-computed dense values, with a ψ₂ with or without channel-packed
+    evaluation."""
     g_s = _line([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
     g_t = _line([[1.0, 1.0], [1.0, 0.0], [0.0, 2.0]])
-    tm = DGMC(_IdentityPsi1(), _DegreePsi2(), num_steps=1, k=3).eval()
+    tm = DGMC(_IdentityPsi1(), _DegreePsi2(streams), num_steps=1,
+              k=3).eval()
     with torch.no_grad():
         tm.mlp_hidden_kernel.copy_(torch.eye(3))
         tm.mlp_out_kernel.fill_(1.0 / 3)
