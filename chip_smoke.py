@@ -113,6 +113,16 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   peak; top-k in one row, the same values: the tensor-core kernel, the
   bf16 FMA entry, the float32 kernel, ``torch.topk(bmm)`` in bf16 and
   the plain version, with the share of the bound reached.
+- ``blocked_kernel``: the blocked aggregation kernel
+  (``csrc/blocked.cu``; no Pallas counterpart: JAX's one-hot einsums of
+  ``dgmc_tpu/ops/blocked.py``) against its plain version
+  (:func:`phase_blocked_kernel`): bit-equal on integer-valued rows (a hub
+  range beside padded blocks, an edgeless graph), within rtol 1e-5 /
+  atol 1e-5 x max|out| on the synthetic KGs' tables at ψ₁'s C = 256, the
+  packed ψ₂'s C = 320 and the per-step ψ₂'s C = 32, both directions,
+  forward and backward, float32 and bf16 rows; repeats bit-identical.
+  Times the kernel, the plain version, ``torch.sparse.mm`` (yardstick
+  only) and the gather + segment path it replaces, each with its bound.
 - ``rng_kernel``: the draw kernel (``csrc/rng.cu``, Philox4x32-10)
   against its plain version on the CPU, the device the stream must not
   depend on (:func:`phase_rng_kernel`): normals at the dense noise's
@@ -134,7 +144,11 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   rows; every collation took the native path. Then the kernel
   is held against its plain version on each query's own ψ₁ rows and the
   corpus table, and one small query answered on the CPU plain path must
-  agree. A ``torch.profiler`` breakdown of a small and the whole-graph
+  agree. Then the streamed (``stream_chunk`` 4096) and the offload tier
+  (host table, 4096-row target chunks through the ring, the rerank graph
+  fed the shortlist): every answer bit-identical to the device tier's,
+  top-k launches one a chunk. A ``torch.profiler`` breakdown of a small
+  and the whole-graph
   query follows (informational).
 - ``train``: the PascalPF-width dense model trained through the CLI's
   own ``main`` (one epoch of 16 steps of 64 pairs, 80 nodes / 640 edges,
@@ -158,7 +172,9 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   then 4 phase-2 epochs with their evals. The dispatch ledger shows the
   kernels; the launch counters (topk / sparse-consensus forward /
   backward / draw) rise by 1/0/0/1 per phase-1 step, 1/0/0/0 per phase-1
-  eval, 1/10/10/2 per phase-2 step and 1/10/0/1 per phase-2 eval; every
+  eval, 1/10/10/2 per phase-2 step and 1/10/0/1 per phase-2 eval (the
+  blocked aggregation, the CLI's default ``--blocked_adjacency auto``, 24
+  / 12 / 144 / 78, filed by width and rows dtype); every
   loss is finite; the collation took the native path. Then: the losses
   and gradients of a phase-2 step under the draws of the CLI's first six
   phase-2 steps against the CPU plain path on the same weights and
@@ -181,6 +197,12 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   each profiled with its peak memory, as ``train`` and ``kg_train`` do
   for float32 (informational).
 
+- ``kg_tiers``: the KG path's other memory tiers through
+  ``dbp15k.main`` at full width (:func:`phase_kg_tiers`):
+  ``--blocked_adjacency off`` (4 epochs, its phase-1 losses within 1e-4
+  of ``kg_train``'s), ``--stream_chunk 4096 --offload-corpus`` (2
+  epochs, 4 top-k launches a step, ``equal=True``), and
+  ``python -m dgmc_tpu_torch.ops.offload`` at its default sizes.
 - ``capture``: the captured steps (``jit=True``, the CLIs' default: one
   CUDA graph per step function and input signature, every capture under
   ``torch.cuda.set_sync_debug_mode('error')``) against the eager ones
@@ -1972,11 +1994,16 @@ def _step_profile(run, label):
 
 #: Launches per step of the KG training path: (topk, sparse-consensus
 #: forward, backward). One search per forward; 10 consensus steps.
-KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd', 'rng')
-#: ... and the draws: the negatives in every training step, the
-#: indicator noise wherever consensus steps run.
-KG_PER = {('train', 1): (1, 0, 0, 1), ('eval', 1): (1, 0, 0, 0),
-          ('train', 2): (1, 10, 10, 2), ('eval', 2): (1, 10, 0, 1)}
+KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd',
+              'blocked', 'rng')
+#: ... the blocked aggregation (the CLI's default, 2 a RelConv layer:
+#: ψ₁'s 3 layers on both graphs, 12, with as many backward launches in
+#: phase 1; in phase 2 ψ₁ detached, the packed ψ₂ on the source, 6, and ψ₂
+#: on the target in each of 10 steps, 60, each with its backward) and the
+#: draws: the negatives in every training step, the indicator noise
+#: wherever consensus steps run.
+KG_PER = {('train', 1): (1, 0, 0, 24, 1), ('eval', 1): (1, 0, 0, 12, 0),
+          ('train', 2): (1, 10, 10, 144, 2), ('eval', 2): (1, 10, 0, 78, 1)}
 KG_ARGV = ['--synthetic', '--seed', '0']
 #: Each phase pins its precision policy (the CLIs' default is bf16);
 #: ``--precision f32`` is also what the port's trees before the policy
@@ -2011,16 +2038,19 @@ def _kg_loss_and_grads(model, batch, S_idx, r_s, neg, device, dtype):
 def plain_on_card():
     """Within the block the model's kernels give way to their plain
     versions on the card too (the spline routing, the dense and the
-    sparse consensus, each differentiable by autograd): the card's
+    sparse consensus, each differentiable by autograd; the blocked
+    aggregation, whose backward is itself): the card's
     float32 path without the port's kernels, which tells a kernel's
     rounding from that of the card's libraries (cuBLAS, atomics)."""
     from dgmc_tpu_torch.models import dgmc as dgmc_mod
     from dgmc_tpu_torch.models import spline as spline_mod
-    from dgmc_tpu_torch.ops.kernels import sparse_consensus, spline
+    from dgmc_tpu_torch.ops import blocked as blocked_ops
+    from dgmc_tpu_torch.ops.kernels import blocked, sparse_consensus, spline
     swaps = [(dgmc_mod, 'consensus_update', dgmc_mod.plain_consensus),
              (sparse_consensus, 'fused_candidate_delta',
               sparse_consensus.plain_fused_candidate_delta),
-             (spline_mod, 'route_aggregate', spline.plain_route_aggregate)]
+             (spline_mod, 'route_aggregate', spline.plain_route_aggregate),
+             (blocked, 'aggregate', blocked_ops.plain_aggregate)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2168,7 +2198,8 @@ def _kg_main_path(results, policy):
     t0 = time.perf_counter()
     # The main path: counters at 0 just before, read just after.
     with (rng_launches('kg_train') if policy == 'f32'
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), blocked_launches(
+              'kg_train' + tag):
         dispatch.reset()
         marks.append(('start', 0, t0, dispatch.launch_counts()))
         state = dbp15k.main(argv, hook=hook)
@@ -2190,12 +2221,16 @@ def _kg_main_path(results, policy):
     for name in KG_KERNELS:
         d = decisions[name]
         # The draws: float32 noise, int64 negatives.
+        # The blocked kernel's rows: ψ₂'s 32-wide bf16 ones are widened to
+        # float32.
         want = ({'kernel:float32', 'kernel:int64'} if name == 'rng'
+                else {'kernel:float32', 'kernel:bfloat16'}
+                if name == 'blocked' and policy == 'bf16'
                 else {f'kernel:{dtype}'})
         if (d['path'] != 'kernel' or d['counts']['plain']
                 or set(d['dtypes']) != want):
             raise AssertionError(f'{name}: dispatch {d}')
-    for name in KG_KERNELS[1 if policy == 'f32' else 0:-1]:
+    for name in KG_KERNELS[1 if policy == 'f32' else 0:-2]:
         results[name + tag]['launches'] = counts[name]
     _hold_native_collation(f'kg_train ({policy})', decisions)
     if not np.isfinite(losses).all():
@@ -2208,9 +2243,11 @@ def _kg_main_path(results, policy):
     log(f'kg_train ({policy}): {EPOCHS} epochs ({P1} phase 1) through '
         f'dbp15k.main in {time.perf_counter() - t0:.1f}s; launches '
         f'{[counts[k] for k in KG_KERNELS]} (topk / sparse consensus fwd / '
-        f'bwd / rng per step: phase 1 1/0/0/1, its eval 1/0/0/0, phase 2 '
-        f'1/10/10/2, phase-2 eval 1/10/0/1); dispatch kernel in {dtype} '
-        f'(the draws float32); losses {losses[0]:.4f} -> '
+        f'bwd / blocked / rng per step: phase 1 1/0/0/24/1, its eval '
+        f'1/0/0/12/0, phase 2 1/10/10/144/2, phase-2 eval 1/10/0/78/1); '
+        f'dispatch kernel in {dtype} (the draws float32); blocked '
+        f'launches by (path, C, rows) {BLOCKED_MAIN}; losses '
+        f'{losses[0]:.4f} -> '
         f'{losses[P1 - 1]:.4f} (phase 1), {losses[P1]:.4f} -> '
         f'{losses[-1]:.4f} (phase 2)')
     log(f'kg_train ({policy}): step ms (host clock, synchronized): phase 1 '
@@ -2572,17 +2609,20 @@ def bn_kg_model(args, in_dim):
 @contextlib.contextmanager
 def recording(calls):
     """Within the block, each kernel wrapper the model calls (the top-k
-    search, the dense and the sparse consensus, the spline routing)
+    search, the dense and the sparse consensus, the spline routing, the
+    blocked aggregation)
     files the inputs of its first call in ``calls`` by kernel, then runs
     as it would: the path's own shapes and values, for
     :func:`hold_path_kernels` after the step."""
     from dgmc_tpu_torch.models import dgmc as dgmc_mod
     from dgmc_tpu_torch.models import spline as spline_mod
+    from dgmc_tpu_torch.ops import blocked
     from dgmc_tpu_torch.ops.kernels import sparse_consensus
     sites = [(dgmc_mod, 'chunked_topk', 'topk'),
              (dgmc_mod, 'consensus_update', 'consensus'),
              (sparse_consensus, 'fused_candidate_delta', 'sparse_consensus'),
-             (spline_mod, 'route_aggregate', 'spline')]
+             (spline_mod, 'route_aggregate', 'spline'),
+             (blocked, '_aggregate', 'blocked')]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for (mod, name, key), (_, _, fn) in zip(sites, saved):
         def filed(*args, _fn=fn, _key=key, **kw):
@@ -2603,7 +2643,7 @@ def hold_path_kernels(label, calls):
     :func:`hold_near_ties` (float32) or :func:`hold_bf16_topk`; the
     sparse consensus forward and, for a random float32 cotangent, its
     backward; the dense consensus forward; the spline routing forward
-    and ``d_t``; float32 outputs by :func:`hold_close`, bf16 ones by
+    and ``d_t``; the blocked aggregation; float32 outputs by :func:`hold_close`, bf16 ones by
     :func:`hold_ulp` → ``{kernel: max |err|}``."""
     from dgmc_tpu_torch.ops.kernels.consensus import (consensus_fwd,
                                                       plain_consensus)
@@ -2634,6 +2674,13 @@ def hold_path_kernels(label, calls):
                 SC_GRADS,
                 sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g, state),
                 plain_sparse_consensus_bwd(o_s, o_t, sl, w1, b1, w2, g)))
+    if 'blocked' in calls:
+        from dgmc_tpu_torch.ops import blocked as blocked_ops
+        from dgmc_tpu_torch.ops.kernels import blocked
+        (h, blocks), _ = calls['blocked']
+        errs['blocked'] = hold_close(f'{label} blocked',
+                                     blocked.aggregate(h, blocks),
+                                     blocked_ops.plain_aggregate(h, blocks))
     if 'consensus' in calls:
         a, _ = calls['consensus']
         errs['consensus_fwd'] = hold_close(f'{label} consensus',
@@ -2749,8 +2796,14 @@ def _bn_kg_part(policy):
                              test_dev if split else train_dev,
                              dbp15k.noise_seed(args.seed, split, epoch)))
             epoch += 1
-    want = {'phase1': KG_PER[('train', 1)], 'phase2': KG_PER[('train', 2)],
-            'eval2': KG_PER[('eval', 2)]}
+    # ψ₂ runs per step on each side: 12 blocked launches a step's forward
+    # where the packed model makes 6 + 6 / step.
+    blocked = {'phase1': 24, 'phase2': 12 + 2 * 120, 'eval2': 12 + 120}
+    want = {key: tuple(blocked[key] if k == 'blocked' else v
+                       for k, v in zip(KG_KERNELS, KG_PER[per]))
+            for key, per in (('phase1', ('train', 1)),
+                             ('phase2', ('train', 2)),
+                             ('eval2', ('eval', 2)))}
     label = f'(a) KG batch norm {policy}'
     models, calls, per_call, _ = _eager_and_captured(
         label, model, args.lr, make_steps, schedule, KG_KERNELS, want)
@@ -3086,6 +3139,50 @@ def phase_serve(result, small, sc_small):
     log(f'serve: every bucket\'s replayed answer ({sorted(seen)} rows, the '
         f'engine\'s noise and a query\'s own r_s) bit-identical to the '
         f'eager query path on the card')
+    del eager, cpu
+    gc.collect()
+
+    # The streamed and the offload tiers: every query's answer
+    # bit-identical to the device tier's (the main path's above); top-k
+    # launches per query: one a source chunk of 4096 rows (streamed), one a
+    # 4096-row target chunk of the host table (offload).
+    chunk = 4096
+    for tier in ('streamed', 'offload'):
+        m = copy.deepcopy(model)
+        if tier == 'streamed':
+            m.stream_chunk = chunk
+        t0 = time.perf_counter()
+        eng = MatchEngine(m, index, router, device='cuda',
+                          offload=tier == 'offload', offload_chunk=chunk)
+        eng.warm()
+        warm_s = time.perf_counter() - t0
+        per, lat = {}, {}
+        for qi, (graph, _) in enumerate(queries):
+            rows = router.route(graph.num_nodes, graph.num_edges).nodes
+            before = dispatch.launch_counts()['topk']
+            ans = eng.match(graph)
+            n = dispatch.launch_counts()['topk'] - before
+            want = -(-(rows if tier == 'streamed' else corpus.num_nodes)
+                     // chunk)
+            if ans != answers[qi] or n != want:
+                raise AssertionError(f'serve {tier}: query {qi} ({rows} '
+                                     f'rows): {n} top-k launches (expected '
+                                     f'{want}), answer identical to the '
+                                     f'device tier\'s: {ans == answers[qi]}')
+            per[rows] = n
+            lat.setdefault(rows, []).append(eng.last_latency_s * 1e3)
+        log(f'serve: {tier} tier ({chunk}-row chunks'
+            + (f', ring depth {eng.prefetch_depth}, the host table '
+               f'{eng._h_t_host.numel() * eng._h_t_host.element_size()} '
+               f'bytes, no device copy' if tier == 'offload' else '')
+            + f'): warm {warm_s:.1f}s; {len(queries)} answers bit-identical '
+            f'to the device tier\'s; top-k launches a query by rows {per}; '
+            f'latency ms by rows (host clock) '
+            + ', '.join(f'{r} {statistics.median(v):.3f}'
+                        for r, v in sorted(lat.items())))
+        del eng, m
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 #: Launches per train step and per eval batch at full width:
@@ -3327,7 +3424,7 @@ def phase_train(results):
 PORT_KERNEL = re.compile(r'::(topk_tiles|topk_tc|merge_lists|route_\w+|'
                          r'g_norm|'
                          r'\w*records|consensus_\w+|'
-                         r'project_rows|sc_\w+|draw)\b')
+                         r'project_rows|sc_\w+|draw|blocked_aggregate)\b')
 
 
 def port_kernels(rows):
@@ -3408,16 +3505,20 @@ def _jit_kw(jit):
     return {} if jit is None else {'jit': jit}
 
 
-def kg_step(policy='f32', jit=None, batch_norm=False):
+def kg_step(policy='f32', jit=None, batch_norm=False, unblocked=False):
     """One phase-2 step of the KG training path (``dbp15k`` at its
     defaults on the synthetic alignment, ψ₁ detached) under ``policy`` on
     the card, as a call: the batch uploaded once, a new noise seed each
     call. ``batch_norm``: the model of the ``backbones`` phase
-    (:func:`bn_kg_model`), whose ψ₂ runs once per step on each side."""
+    (:func:`bn_kg_model`), whose ψ₂ runs once per step on each side.
+    ``unblocked``: ``--blocked_adjacency off`` (the gather + segment
+    branch; a tree without the flag has no other)."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.train.state import create_train_state
     from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
-    args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
+    args = dbp15k.parse_args(
+        KG_ARGV + ['--precision', policy]
+        + (['--blocked_adjacency', 'off'] if unblocked else []))
     train_b, _, in_dim = dbp15k.synthetic_batches(args)
     model = (bn_kg_model if batch_norm else dbp15k.build)(args, in_dim).cuda()
     state = create_train_state(model, learning_rate=args.lr)
@@ -3486,7 +3587,9 @@ def steps(n):
     are captured) and the KG
     phase-2 step (one uploaded batch), under each precision policy; on a
     tree with captured steps (the CLIs' default) also their eager loops,
-    ``dense_eager`` and ``kg_phase2_eager``: ``n`` synchronized steps each
+    ``dense_eager`` and ``kg_phase2_eager``; on a tree with blocked
+    adjacency also the KG steps with it off (``kg_phase2_unblocked``,
+    ``kg_phase2_bn_unblocked``): ``n`` synchronized steps each
     (host clock, after 2 warm-up steps), each step's time split as
     :data:`HOST_PARTS` says (medians over the steps), then one more step
     under the profiler (device busy time and share, ops, the port's
@@ -3505,17 +3608,24 @@ def steps(n):
     # Trees with batch norm also time the captured KG phase-2 step of the
     # backbones phase, ψ₂ once per step on each side.
     bn = importlib.util.find_spec('dgmc_tpu_torch.models.norm') is not None
+    # Trees with blocked adjacency (the CLI's default) also time the KG
+    # steps with it off (``*_unblocked``: the gather + segment branch).
+    blocked = importlib.util.find_spec(
+        'dgmc_tpu_torch.ops.blocked') is not None
     names = ('dense', *(('dense_eager',) if jit else ()),
              *(('dense_prefetch',) if prefetch else ()), 'kg_phase2',
+             *(('kg_phase2_unblocked',) if blocked else ()),
              *(('kg_phase2_eager',) if jit else ()),
-             *(('kg_phase2_bn',) if bn else ()))
+             *(('kg_phase2_bn',) if bn else ()),
+             *(('kg_phase2_bn_unblocked',) if bn and blocked else ()))
     out = {}
     for policy in ('f32', 'bf16'):
         for name in names:
             eager = False if name.endswith('_eager') else None
             with host_timers() as spent:
                 dispatch.reset()
-                run = (kg_step(policy, eager, name == 'kg_phase2_bn')
+                run = (kg_step(policy, eager, '_bn' in name,
+                               name.endswith('_unblocked'))
                        if name.startswith('kg')
                        else dense_loop_step(policy, spent,
                                             name == 'dense_prefetch', eager))
@@ -3688,6 +3798,310 @@ def kernel_times():
             'wall_ms': {k: v[1] for k, v in got.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Blocked adjacency and the memory tiers
+# ---------------------------------------------------------------------------
+
+#: The blocked kernel's rows: ``(main path, C, rows dtype)`` of the launches
+#: filed under each (:func:`blocked_launches`): ψ₁ at C = 256 (both
+#: directions, forward and backward), the packed ψ₂ (all 10 steps' source
+#: sides, C = 320) and the per-step ψ₂ (C = 32) on the float32 KG path; the
+#: bf16 rows at C = 256 on the bf16 path.
+BLOCKED_ROWS = {'blocked': ('kg_train', 256, 'float32'),
+                'blocked@C=320': ('kg_train', 320, 'float32'),
+                'blocked@C=32': ('kg_train', 32, 'float32'),
+                'blocked_bf16': ('kg_train_bf16', 256, 'bfloat16')}
+#: ``{(path, C, rows dtype): launches}`` of the blocked kernel on the KG
+#: main paths.
+BLOCKED_MAIN = {}
+@contextlib.contextmanager
+def blocked_launches(path):
+    """Within the block, file every launch of the blocked kernel under
+    ``(path, C, rows dtype)`` in :data:`BLOCKED_MAIN`, through a
+    :class:`Tally` (so the replays of a captured step count too)."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    site = ob._aggregate   # adj_matmul's call of the wrapper
+    tally = Tally(f'blocked {path}')
+
+    def counted(h, blocks):
+        before = kb.aggregate.launches
+        out = site(h, blocks)
+        dt = ob.operand_dtype(h.dtype, h.shape[-1], blocks.gather_dtype)
+        tally.add((path, h.shape[-1], str(dt).replace('torch.', '')),
+                  kb.aggregate.launches - before)
+        return out
+
+    ob._aggregate = counted
+    try:
+        yield
+    finally:
+        ob._aggregate = site
+        for key, n in tally.counts().items():
+            BLOCKED_MAIN[key] = BLOCKED_MAIN.get(key, 0) + n
+
+
+def _blocked_work(blocks, C, elem):
+    """``(flops, bytes)`` of one aggregation over ``blocks``: an add per
+    real edge and channel; the h table read once (``elem`` bytes a value),
+    the float32 output written once, the tables the kernel reads
+    (``src``, ``dst_local``, ``mask``, ``range_ptr``) once."""
+    B, M = blocks.inv_degree.shape[:2]
+    tables = sum(t.numel() * t.element_size() for t in (
+        blocks.src, blocks.dst_local, blocks.mask, blocks.range_ptr))
+    return (float(blocks.mask.sum()) * C,
+            float(B * M * C * (elem + 4) + tables))
+
+
+def _hub_blocks(B=2, N=1000, E=20000, seed=0):
+    """Blocks of a batch with a hub (half of element 0's edges into node
+    3: many blocks in one range), element 1 without (fewer blocks: padded
+    ones), N no multiple of the 128-row range, and a graph without an
+    edge."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    rng = np.random.RandomState(seed)
+    snd = rng.randint(0, N, (B, E))
+    rcv = rng.randint(0, N, (B, E))
+    rcv[0, :E // 2] = 3
+    mask = rng.rand(B, E) > 0.1
+    hub = ob.build_edge_blocks(snd, rcv, mask, N)
+    empty = ob.build_edge_blocks(snd[:1], rcv[:1], np.zeros((1, E), bool),
+                                 N)
+    return [b.map(lambda t: t.cuda()) for b in (*hub, *empty)]
+
+
+def phase_blocked_kernel(res):
+    """The blocked kernel (``csrc/blocked.cu``) against its plain version
+    (JAX's one-hot form, ``ops/blocked.py::plain_aggregate``) on the card:
+    bit-equal on integer-valued rows (every sum exact in float32; a hub
+    range of many blocks beside padded blocks of a batch, 1000 nodes, an
+    edgeless graph, C = 1 and 40); on the source and target KGs' tables
+    (100000 / 120000 edges) at the path's widths — ψ₁ C = 256, the packed
+    ψ₂ C = 320, the per-step ψ₂ C = 32 — in both directions (the backward
+    is the forward over the transposed tables), float32 and bf16 rows
+    (``gather_dtype``: bf16 at C >= 256, widened to float32 at C = 32),
+    within rtol 1e-5 / atol 1e-5 x max|out|; every repeat bit-identical.
+    Times the kernel, the plain version, ``torch.sparse.mm`` of the CSR
+    adjacency (yardstick only) and the path it replaces (the port's
+    ``gather_nodes`` + ``scatter_to_nodes``) at each width on the source
+    KG, each with its bound."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.graph import (GraphBatch, gather_nodes,
+                                          scatter_to_nodes)
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    gen = torch.Generator(device='cuda').manual_seed(0)
+
+    def ints(shape, dtype=torch.float32):
+        return torch.randint(-4, 5, shape, generator=gen,
+                             device='cuda').to(dtype)
+
+    n_exact = 0
+    for blocks in _hub_blocks():
+        B, M = blocks.inv_degree.shape[:2]
+        for C in (1, 40, 256):
+            for dt, gd in ((torch.float32, None), (BF16, 'bfloat16')):
+                blk = blocks.replace(gather_dtype=gd)
+                h = ints((B, M, C), dt)
+                hold_equal(f'blocked exact B={B} M={M} C={C} {dt}',
+                           lambda: kb.aggregate(h, blk),
+                           lambda: ob.plain_aggregate(h, blk))
+                n_exact += 1
+    args = dbp15k.parse_args(KG_ARGV + F32_ARGV)
+    train_b, _, _ = dbp15k.synthetic_batches(args)
+    sides = {s: GraphBatch.host(getattr(train_b, s)).to('cuda')
+             for s in ('s', 't')}
+    errs = {}
+    for side, g in sides.items():
+        for name, fwd, bwd in (('in', g.blocks_in, g.blocks_out),
+                               ('out', g.blocks_out, g.blocks_in)):
+            for C in (256, 320, 32):
+                for dt, gd in ((torch.float32, None), (BF16, 'bfloat16')):
+                    f_blk = fwd.replace(gather_dtype=gd)
+                    b_blk = bwd.replace(gather_dtype=gd)
+                    h = torch.randn((1, g.num_nodes, C), generator=gen,
+                                    device='cuda').to(dt)
+                    d_out = torch.randn((1, g.num_nodes, C), generator=gen,
+                                        device='cuda')
+                    rows = str(ob.operand_dtype(dt, C, gd)).replace(
+                        'torch.', '')
+                    for what, x, blk in (('forward', h, f_blk),
+                                         ('backward', d_out, b_blk)):
+                        label = (f'blocked {side} {name} C={C} {what} '
+                                 f'{rows} rows')
+                        got = kb.aggregate(x, blk)
+                        if not torch.equal(got, kb.aggregate(x, blk)):
+                            raise AssertionError(f'{label}: a repeat gave '
+                                                 f'another result')
+                        err = hold_close(label, got,
+                                         ob.plain_aggregate(x, blk))
+                        key = (C, rows)
+                        errs[key] = max(errs.get(key, 0.0), err)
+    log(f'blocked_kernel: {n_exact} exact cases bit-equal to the plain '
+        f'version; the source and target KGs ({sides["s"].num_edges} / '
+        f'{sides["t"].num_edges} edges, {sides["s"].blocks_in.src.shape[1]} '
+        f'/ {sides["t"].blocks_in.src.shape[1]} blocks of 512) in both '
+        f'directions, forward and backward, within rtol 1e-5 / atol 1e-5 x '
+        f'max|out|, repeats '
+        f'bit-identical; max |err| by (C, rows): {errs}')
+
+    # Times on the source KG, incoming direction (ψ₁'s first aggregation).
+    g = sides['s']
+    n = g.num_nodes
+    adj = torch.sparse_coo_tensor(
+        torch.stack([g.receivers[0], g.senders[0]]),
+        torch.ones(g.num_edges, device='cuda'), (n, n)).coalesce()
+    all_edges = g.csr('senders', masked=False)
+    real = g.csr('receivers')
+    for key, (_, C, rows) in BLOCKED_ROWS.items():
+        dt = BF16 if rows == 'bfloat16' else torch.float32
+        blk = g.blocks_in.replace(
+            gather_dtype='bfloat16' if dt == BF16 else None)
+        h = torch.randn((1, n, C), generator=gen, device='cuda').to(dt)
+        x = ob.operand(h, blk.gather_dtype)
+        csr = adj.to(dt).to_sparse_csr()
+        calls = {'kernel': lambda: kb.launch(x, blk),
+                 'plain': lambda: ob.plain_aggregate(h, blk),
+                 'library': lambda: torch.sparse.mm(csr, x[0]),
+                 'replaced': lambda: scatter_to_nodes(
+                     gather_nodes(h, g.senders, all_edges), g.receivers,
+                     g.edge_mask, n, aggr='sum', segs=real)}
+        try:
+            calls['library']()
+        except RuntimeError as e:   # the yardstick only
+            log(f'blocked_kernel: torch.sparse.mm in {dt} not measured '
+                f'({e!r})')
+            del calls['library']
+        got, src = timed(calls)
+        flops, nbytes = _blocked_work(blk, C, x.element_size())
+        b_ms, b_by = bound(flops, nbytes)
+        log(f'blocked_kernel: {key} (source KG, {g.num_edges} edges, C={C}, '
+            f'{rows} rows): bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} '
+            f'MB at {PEAK_BYTES / 1e12} TB/s, {flops / 1e6:.1f} Mflop); ms '
+            f'per call [{src}] / wall: '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in got.items())
+            + f'; kernel at {b_ms / got["kernel"][0]:.3f} of the bound, '
+            f'{got["replaced"][0] / got["kernel"][0]:.2f}x faster than the '
+            f'gather + segment path it replaces')
+        res[key].update(
+            name=key, route='cuda', source='dgmc_tpu_torch/csrc/blocked.cu',
+            replaces='dgmc_tpu/ops/blocked.py:148 (XLA one-hot einsums; no '
+                     'pallas_call)',
+            max_abs_err=errs[(C, rows)], ms=got['kernel'][0],
+            plain_ms=got['plain'][0], bound_ms=b_ms, bound_by=b_by,
+            library_ms=got['library'][0] if 'library' in got else None,
+            replaced_ms=got['replaced'][0], ms_source=src)
+
+
+def _kg_cli(argv, hook=None):
+    """``dbp15k.main(argv)`` with its standard output captured and echoed
+    → ``(state, stdout)``."""
+    import io
+    from dgmc_tpu_torch.experiments import dbp15k
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = dbp15k.main(argv, hook=hook)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f'  | {line}')
+    return state, out
+
+
+def phase_kg_tiers(res):
+    """The KG path's other memory tiers at full width, each through
+    ``dbp15k.main``:
+
+    - ``--blocked_adjacency off``: the gather + segment branch, 3 phase-1
+      epochs and 1 phase-2 epoch with its eval; no blocked launch, the
+      other kernels at the KG path's counts, the losses finite and the
+      phase-1 ones within 1e-4 relative of the blocked main path's first
+      three (``kg_train``: same weights, draws and dropout masks; the two
+      branches sum in other orders).
+    - ``--stream_chunk 4096 --offload-corpus``: the search over 4 source
+      chunks (one top-k launch each: 4 per step and eval, 8 in the offload
+      pass), blocked off by ``auto``; 2 epochs (1 of phase 1); the pass
+      prints ``equal=True``.
+    - ``python -m dgmc_tpu_torch.ops.offload`` at its default sizes (2^23
+      host rows of 16 channels against 2^17 targets, chunks of 2^15, ring
+      depth 2): one top-k launch per chunk, the verified prefix equal.
+    """
+    from dgmc_tpu_torch.ops import offload
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    base = KG_ARGV + F32_ARGV
+    marks = []
+
+    def hook(kind, epoch, out):
+        marks.append((kind, epoch, dispatch.launch_counts(),
+                      float(out['loss']) if kind == 'train' else None))
+    dispatch.reset()
+    t0 = time.perf_counter()
+    _kg_cli(base + ['--blocked_adjacency', 'off', '--epochs', '4',
+                    '--phase1_epochs', '3'], hook)
+    counts = dispatch.launch_counts()
+    losses = [m[3] for m in marks if m[0] == 'train']
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'kg unblocked: non-finite losses {losses}')
+    prev = {k: 0 for k in KG_KERNELS}
+    for kind, epoch, cnt, _ in marks:
+        w = KG_PER[('train' if kind == 'train' else 'eval',
+                    1 if epoch <= 3 else 2)]
+        w = tuple(0 if k == 'blocked' else v for k, v in zip(KG_KERNELS, w))
+        got = tuple(cnt[k] - prev[k] for k in KG_KERNELS)
+        if got != w:
+            raise AssertionError(f'kg unblocked {kind} epoch {epoch}: '
+                                 f'launches {got}, expected {w}')
+        prev = cnt
+    # The main path's first three epochs are the same phase-1 steps.
+    ref = KG_LOSSES['f32'][:3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:3], ref)]
+    if max(rel) > 1e-4:
+        raise AssertionError(f'kg: unblocked phase-1 losses {losses[:3]} '
+                             f'differ from the blocked main path\'s {ref} by '
+                             f'{rel}')
+    log(f'kg_tiers: --blocked_adjacency off: 4 epochs (3 of phase 1) '
+        f'through dbp15k.main in {time.perf_counter() - t0:.1f}s, launches '
+        f'{dict((k, counts[k]) for k in KG_KERNELS)} (no blocked launch), '
+        f'losses {losses}; phase-1 losses within {max(rel):.3g} relative of '
+        f'the blocked main path\'s {ref}')
+
+    marks = []
+    dispatch.reset()
+    t0 = time.perf_counter()
+    _, out = _kg_cli(base + ['--stream_chunk', '4096', '--offload-corpus',
+                             '--epochs', '2', '--phase1_epochs', '1'],
+                     lambda kind, epoch, o: marks.append(
+                         (kind, epoch, dispatch.launch_counts()['topk'])))
+    counts = dispatch.launch_counts()
+    per = [b[2] - a[2] for a, b in zip([(0, 0, 0)] + marks, marks)]
+    pass_launches = counts['topk'] - marks[-1][2]
+    if ('equal=True' not in out or counts['blocked'] or per != [4, 4, 4]
+            or pass_launches != 8):
+        raise AssertionError(f'kg streamed + offload: top-k launches per '
+                             f'step {per}, in the offload pass '
+                             f'{pass_launches}, blocked {counts["blocked"]}')
+    log(f'kg_tiers: --stream_chunk 4096 --offload-corpus: 2 epochs in '
+        f'{time.perf_counter() - t0:.1f}s, top-k launches per step and eval '
+        f'{per} (4 source chunks), {pass_launches} in the offload pass (the '
+        f'device-resident streamed search and the ring\'s), no blocked '
+        f'launch; the pass printed equal=True')
+
+    dispatch.reset()
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = offload.main([])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    n = dispatch.launch_counts()['topk']
+    want = rec['offload']['chunks'] + 1
+    if rc or not rec['verified_equal'] or n != want:
+        raise AssertionError(f'ops.offload: rc {rc}, {rec}, top-k launches '
+                             f'{n} (expected {want})')
+    log(f'kg_tiers: ops.offload at its defaults in '
+        f'{time.perf_counter() - t0:.1f}s: {json.dumps(rec)}; top-k launches '
+        f'{n} (one a chunk, one for the verified prefix)')
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -3735,7 +4149,7 @@ def main(argv=None):
                            *(f'topk@{n}' for n in SMALL_ROWS),
                            *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
                            'spline_route_fwd@64', 'spline_route_bwd@64',
-                           *BF16_ROWS, *RNG_ROWS)}
+                           *BF16_ROWS, *RNG_ROWS, *BLOCKED_ROWS)}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
@@ -3753,11 +4167,13 @@ def main(argv=None):
                 sc_small)),
             ('rng_kernel', lambda: phase_rng_kernel(res)),
             ('bf16_kernels', lambda: phase_bf16_kernels(res)),
+            ('blocked_kernel', lambda: phase_blocked_kernel(res)),
             ('serve', lambda: phase_serve(res['topk'], small, sc_small)),
             ('train', lambda: phase_train(res)),
             ('kg_train', lambda: phase_kg_train(res)),
             ('train_bf16', lambda: phase_train_bf16(res)),
             ('kg_train_bf16', lambda: phase_kg_train_bf16(res)),
+            ('kg_tiers', lambda: phase_kg_tiers(res)),
             ('capture', phase_capture),
             ('backbones', phase_backbones)):
         t0 = time.perf_counter()
@@ -3780,6 +4196,12 @@ def main(argv=None):
             failed.append(f'rng launches ({key})')
     log(f'rng: draw launches on the float32 main paths by (path, kind, '
         f'steps, B, P): {sorted(RNG_MAIN.items())}')
+    for key, where in BLOCKED_ROWS.items():
+        res[key]['launches'] = BLOCKED_MAIN.get(where, 0)
+        if not failed and not res[key]['launches']:
+            failed.append(f'blocked launches ({key})')
+    log(f'blocked: launches on the KG main paths by (path, C, rows dtype): '
+        f'{sorted(BLOCKED_MAIN.items())}')
     if failed:
         print(f'chip_smoke: failed phases: {failed}', file=sys.stderr)
         return 1

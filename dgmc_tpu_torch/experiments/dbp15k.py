@@ -26,6 +26,20 @@ on the CPU the same static-buffer code runs eagerly.
 ``--aot_compile`` captures the steps the schedule will run before epoch
 1 and logs each one's static memory, as the JAX CLI does.
 
+Memory tiers (the JAX CLI's flags): ``--blocked_adjacency {auto,on,off}``
+attaches the blocked adjacency tables (:mod:`~dgmc_tpu_torch.ops.blocked`,
+RelCNN then aggregates through the blocked kernel); ``auto``, the
+default, is on unless ``--stream_chunk`` is set, as in the JAX CLI.
+``--stream_chunk N`` streams the candidate search over source chunks of N
+rows (one top-k launch per chunk), ``--topk_block`` sets the plain scan's
+target block. ``--offload-corpus`` adds a pass after training: the test
+pair's source ψ₁ table in host RAM, re-shortlisted through the
+``--prefetch-depth``-deep ring (:func:`~dgmc_tpu_torch.ops.offload.
+offloaded_streamed_topk`) and compared bit for bit with the
+device-resident streamed search; it prints ``# offload shortlist:
+equal=...``, logs an ``offload_shortlist`` record under ``--metrics_log``
+and exits non-zero when the two differ.
+
 ``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
 offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
 default). The real DBP15K data needs the dataset's parser, which is not
@@ -46,12 +60,16 @@ from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.rel import RelCNN
 from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger
+from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
+from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
                                         make_train_step)
-from dgmc_tpu_torch.utils.data import Graph, GraphPair, pad_pair_batch
+from dgmc_tpu_torch.utils.data import (Graph, GraphPair, PairBatch,
+                                       pad_pair_batch)
 
-__all__ = ['parse_args', 'synthetic_batches', 'build', 'noise_seed', 'main']
+__all__ = ['parse_args', 'use_blocked_adjacency', 'synthetic_batches',
+           'build', 'noise_seed', 'offload_pass', 'main']
 
 
 def parse_args(argv=None):
@@ -101,8 +119,43 @@ def parse_args(argv=None):
                         '(argument + output + temp bytes, the temps its '
                         'graph\'s private pool) into the metrics log as '
                         'aot_memory_<name> events')
+    p.add_argument('--stream_chunk', type=int, default=0,
+                   help='stream the sparse candidate search over source-node '
+                        'chunks of this many rows, one search each (0 = '
+                        'off)')
+    p.add_argument('--blocked_adjacency', choices=['auto', 'on', 'off'],
+                   default='auto',
+                   help='aggregate RelCNN through the blocked adjacency '
+                        'tables and the blocked kernel (ops/blocked.py); '
+                        '"auto" = on, except with --stream_chunk (the JAX '
+                        "CLI's rule: the tables are O(E) per device, "
+                        'dropped where memory is the budget)')
+    p.add_argument('--offload-corpus', '--offload_corpus',
+                   dest='offload_corpus', action='store_true',
+                   help='after training, re-shortlist the test pair with '
+                        'the source ψ₁ table in host RAM through the '
+                        'prefetch ring and require it bit-equal to the '
+                        'device-resident streamed search')
+    p.add_argument('--prefetch-depth', '--prefetch_depth',
+                   dest='prefetch_depth', type=int, default=0, metavar='N',
+                   help='prefetch ring depth for --offload-corpus (0 = '
+                        'ops/offload.DEFAULT_PREFETCH_DEPTH)')
+    p.add_argument('--topk_block', type=int, default=0,
+                   help='candidate-search target block of the plain scan '
+                        '(0 = ops/topk.DEFAULT_TOPK_BLOCK; the kernels '
+                        'ignore it)')
     precision.add_precision_args(p)
     return p.parse_args(argv)
+
+
+def use_blocked_adjacency(args):
+    """``--blocked_adjacency`` resolved as the JAX CLI resolves it:
+    ``auto`` is on unless the search is streamed (``--stream_chunk``)."""
+    if args.blocked_adjacency == 'on':
+        return True
+    if args.blocked_adjacency == 'off':
+        return False
+    return not args.stream_chunk
 
 
 def synthetic_batches(args):
@@ -110,7 +163,9 @@ def synthetic_batches(args):
     host :class:`~dgmc_tpu_torch.utils.data.PairBatch` es, the seed
     alignments as the train ground truth (``--pairs-per-step`` replicas)
     and the rest as the test ground truth (one pair). Same arrays as the
-    JAX CLI's for the same flags."""
+    JAX CLI's for the same flags, the blocked tables included
+    (:func:`use_blocked_adjacency`): built once on the one pair under the
+    precision policy's gather dtype, then repeated for the replicas."""
     kg = synthetic_kg_alignment(
         args.syn_nodes_s, args.syn_nodes_t, args.syn_edges_s,
         args.syn_edges_t, args.syn_dim, noise_min=args.syn_noise_min,
@@ -123,13 +178,22 @@ def synthetic_batches(args):
     sizes = (args.syn_nodes_s, args.syn_edges_s, args.syn_nodes_t,
              args.syn_edges_t)
 
-    def batch(mask, reps=1):
+    def batch(mask):
         y = np.where(mask, kg.perm, -1).astype(np.int64)
-        return pad_pair_batch([GraphPair(s=g_s, t=g_t, y_col=y)], *sizes,
-                              pairs_per_step=reps)
+        return pad_pair_batch([GraphPair(s=g_s, t=g_t, y_col=y)], *sizes)
 
-    return (batch(kg.train_mask, max(1, args.pairs_per_step)),
-            batch(~kg.train_mask), args.syn_dim)
+    train, test = batch(kg.train_mask), batch(~kg.train_mask)
+    s, t = train.s, train.t
+    if use_blocked_adjacency(args):
+        prec = precision.from_args(args)
+        s = attach_blocks(s, gather_dtype=prec)
+        t = attach_blocks(t, gather_dtype=prec)
+    reps = max(1, args.pairs_per_step)
+    train = PairBatch(s=repeat_graph(s, reps), t=repeat_graph(t, reps),
+                      y=np.repeat(train.y, reps, axis=0),
+                      y_mask=np.repeat(train.y_mask, reps, axis=0))
+    return (train, PairBatch(s=s, t=t, y=test.y, y_mask=test.y_mask),
+            args.syn_dim)
 
 
 def build(args, in_dim):
@@ -144,7 +208,9 @@ def build(args, in_dim):
                    dtype=prec)
     return DGMC(psi_1, psi_2, num_steps=args.num_steps, k=args.k,
                 generator=torch.Generator().manual_seed(args.seed),
-                dtype=prec)
+                dtype=prec,
+                topk_block=args.topk_block or DEFAULT_TOPK_BLOCK,
+                stream_chunk=args.stream_chunk or None)
 
 
 def noise_seed(seed, split, epoch):
@@ -185,8 +251,57 @@ def main(argv=None, hook=None):
             _aot_compile(args, logger, state, (phase1, phase2),
                          (eval1, eval2), train_dev, test_dev)
         print('Optimize initial feature matching...', flush=True)
-        return _train(args, state, (phase1, phase2), (eval1, eval2),
-                      train_dev, test_dev, logger, hook)
+        state = _train(args, state, (phase1, phase2), (eval1, eval2),
+                       train_dev, test_dev, logger, hook)
+        if args.offload_corpus:
+            offload_pass(args, model, test_dev, logger)
+        return state
+
+
+def offload_pass(args, model, test_dev, logger):
+    """The host-RAM offload pass after training (the JAX CLI's): the test
+    pair's ψ₁ tables (eval mode, in the compute dtype), the source one
+    moved to host RAM and re-shortlisted through the prefetch ring, then
+    compared bit for bit with the device-resident streamed search. Prints
+    the ``# offload shortlist`` line, logs ``offload_shortlist`` and exits
+    non-zero when they differ; returns ``(equal, stats)``."""
+    from dgmc_tpu_torch.ops.offload import (DEFAULT_PREFETCH_DEPTH,
+                                            offloaded_streamed_topk)
+    from dgmc_tpu_torch.ops.topk import streamed_topk
+    g_s, g_t = test_dev.graph_s, test_dev.graph_t
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            h_s = model._cast(model.psi_1(g_s.x, g_s))
+            h_t = model._cast(model.psi_1(g_t.x, g_t))
+    finally:
+        model.train(training)
+    chunk = min(args.stream_chunk or DEFAULT_STREAM_CHUNK, h_s.shape[1])
+    block = args.topk_block or model.topk_block
+    depth = args.prefetch_depth or DEFAULT_PREFETCH_DEPTH
+    ref_v, ref_i = streamed_topk(h_s, h_t, args.k, chunk, block=block,
+                                 return_values=True)
+    ov, oi, stats = offloaded_streamed_topk(h_s.cpu(), h_t, args.k, chunk,
+                                            block=block, depth=depth,
+                                            device=h_s.device)
+    equal = bool(torch.equal(oi, ref_i.cpu()) and torch.equal(ov,
+                                                              ref_v.cpu()))
+    print(f'# offload shortlist: equal={equal} rows={stats.rows} '
+          f'chunks={stats.chunks} depth={stats.prefetch_depth} host '
+          f'{stats.host_resident_bytes >> 20} MiB '
+          f'misses={stats.ring_misses} wall {stats.wall_s:.3f}s', flush=True)
+    logger.log(args.epochs, event='offload_shortlist',
+               offload_equal=float(equal),
+               offload_host_bytes=stats.host_resident_bytes,
+               offload_prefetch_depth=stats.prefetch_depth,
+               offload_ring_misses=stats.ring_misses,
+               offload_wall_s=stats.wall_s)
+    if not equal:
+        raise SystemExit('offloaded shortlist diverged from the '
+                         'device-resident streamed search: the offload tier '
+                         'must be pure scheduling')
+    return equal, stats
 
 
 def _aot_compile(args, logger, state, phases, evals, train_dev, test_dev):

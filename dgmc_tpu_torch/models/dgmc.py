@@ -14,7 +14,8 @@ Ported here:
   :func:`~dgmc_tpu_torch.ops.kernels.consensus.consensus_update` (its
   CUDA kernel on the card) or the factored plain form;
 - the sparse variant (``k >= 1``), trained and evaluated: the top-k
-  shortlist (its CUDA kernel on the card), in training extended by
+  shortlist (its CUDA kernel on the card; streamed over source chunks
+  with ``stream_chunk``), in training extended by
   ``min(k, N_t - k)`` random negatives per row and the injected ground
   truth (:func:`include_gt`), and the consensus delta through
   :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
@@ -68,7 +69,8 @@ from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_update,
                                                   plain_consensus)
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 from dgmc_tpu_torch.ops.softmax import masked_softmax
-from dgmc_tpu_torch.ops.topk import chunked_topk
+from dgmc_tpu_torch.ops.topk import (DEFAULT_TOPK_BLOCK, chunked_topk,
+                                     streamed_topk)
 
 __all__ = ['Correspondence', 'DGMC', 'NOISE_STREAM', 'NEGATIVES_STREAM',
            'draw_noise', 'draw_negatives', 'include_gt']
@@ -161,6 +163,13 @@ class DGMC(nn.Module):
         dtype: the compute dtype or precision policy of the matching
             itself (the casts after ψ₁ and of the noise and the consensus
             MLP); ψ₁ and ψ₂ take their own, as in the JAX package.
+        topk_block: the candidate search's target block (the plain scan's
+            tile; the kernels ignore it).
+        stream_chunk: ``None``, or the source rows per search of the
+            candidate search streamed over source chunks
+            (:func:`~dgmc_tpu_torch.ops.topk.streamed_topk`: one top-k
+            launch per chunk on the card, the same shortlist). Sparse
+            (``k >= 1``) only.
 
     The consensus delta goes through :func:`consensus_update` (dense) or
     :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
@@ -171,12 +180,16 @@ class DGMC(nn.Module):
     """
 
     def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None,
-                 dtype=None):
+                 dtype=None, topk_block=DEFAULT_TOPK_BLOCK,
+                 stream_chunk=None):
         super().__init__()
         self.psi_1 = psi_1
         self.psi_2 = psi_2
         self.num_steps = num_steps
         self.k = k
+        self.topk_block = int(topk_block)
+        self.stream_chunk = None if stream_chunk is None else int(
+            stream_chunk)
         self.dtype = compute_dtype_of(dtype)
         R = psi_2.out_channels
         # Explicit consensus-MLP parameters, in the JAX package's layout
@@ -306,7 +319,7 @@ class DGMC(nn.Module):
     def forward(self, graph_s, graph_t, y=None, y_mask=None, h_t=None,
                 S_idx=None, h_t_cand=None, num_steps=None, detach=False,
                 noise_seed=0, pair_offset=0, r_s=None, negatives=None,
-                generator=None):
+                generator=None, check_idx=True):
         """Compute ``(S_0, S_L)``: dense ``[B, N_s, N_t]`` correspondences
         for ``k = -1``, sparse ``[B, N_s, K]`` ones otherwise.
 
@@ -339,8 +352,17 @@ class DGMC(nn.Module):
                 them (sparse training only).
             generator: the dropout masks' ``torch.Generator`` on the
                 model's device (training with dropout only).
+            check_idx: check a precomputed ``S_idx`` against ``[0, N_t)``
+                (a read on the host); a caller that checked it before it
+                reached the device (the serve engine's offload tier, whose
+                rerank is a captured graph) passes ``False``.
         """
         num_steps = self.num_steps if num_steps is None else num_steps
+        if self.stream_chunk is not None and self.k < 1:
+            raise ValueError(
+                'stream_chunk streams the sparse candidate search; the '
+                'dense variant (k=-1) materializes S and cannot stream '
+                '(set k >= 1 or stream_chunk=None)')
         if self.k < 1:
             if h_t is not None or S_idx is not None or h_t_cand is not None:
                 raise ValueError('h_t / S_idx / h_t_cand are serving '
@@ -378,12 +400,17 @@ class DGMC(nn.Module):
             if h_t is None:
                 raise ValueError('the candidate search needs the full h_t '
                                  'table (or a precomputed S_idx)')
-            S_idx = chunked_topk(h_s, h_t, self.k, t_mask=t_mask)
+            if self.stream_chunk is not None:
+                S_idx = streamed_topk(h_s, h_t, self.k, self.stream_chunk,
+                                      t_mask=t_mask, block=self.topk_block)
+            else:
+                S_idx = chunked_topk(h_s, h_t, self.k, t_mask=t_mask,
+                                     block=self.topk_block)
         elif S_idx.shape[-1] != self.k:
             raise ValueError(f'precomputed S_idx carries {S_idx.shape[-1]} '
                              f'candidates but the model was built with '
                              f'k={self.k}')
-        elif bool(((S_idx < 0) | (S_idx >= N_t)).any()):
+        elif check_idx and bool(((S_idx < 0) | (S_idx >= N_t)).any()):
             # The kernels index target rows unchecked.
             raise ValueError(f'precomputed S_idx outside [0, {N_t})')
         S_idx = S_idx.long()

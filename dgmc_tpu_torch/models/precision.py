@@ -14,10 +14,9 @@ package's ``models/precision.py`` does:
 - **parameters and Adam state**: float32 under every policy. Modules
   cast their weights to the compute dtype where they use them, so the
   gradient of that cast lands in float32.
-- **gather dtype**: the dtype the JAX package's blocked-aggregation
-  message tables travel in (``ops/blocked.py``). The port has no blocked
-  aggregation yet; the field is kept so a policy means the same in both
-  packages.
+- **gather dtype**: the dtype blocked-aggregation rows travel in
+  (:mod:`~dgmc_tpu_torch.ops.blocked`, where they stay at least 512 bytes
+  wide), read by :func:`gather_dtype_of`.
 
 The training CLIs take ``--precision {bf16,f32}`` (default bf16),
 ``--f32`` as the opt-out and ``--bf16`` as an alias of the default
@@ -34,7 +33,7 @@ import torch
 from dgmc_tpu_torch import set_exact_float32
 
 __all__ = ['Precision', 'BF16', 'F32', 'get', 'compute_dtype_of',
-           'add_precision_args', 'from_args', 'apply']
+           'gather_dtype_of', 'add_precision_args', 'from_args', 'apply']
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +86,20 @@ def compute_dtype_of(spec):
     if isinstance(spec, torch.dtype):
         return None if spec == torch.float32 else spec
     return get(spec).compute_dtype
+
+
+def gather_dtype_of(spec):
+    """The blocked aggregation's gather dtype name for ``spec``: a policy,
+    a policy name, a torch dtype, or a dtype name such as
+    ``'bfloat16'`` (returned as it is); ``None`` for float32 rows."""
+    if spec is None:
+        return None
+    if isinstance(spec, Precision):
+        return spec.gather_dtype
+    if isinstance(spec, str) and spec not in ('bf16', 'f32', 'fp32',
+                                              'float32'):
+        return spec
+    return get(spec).gather_dtype
 
 
 def add_precision_args(parser):

@@ -15,10 +15,17 @@ once and every linear map runs in bf16 on its float32 weights cast where
 used (flax ``Dense(dtype=...)``: the product rounded, then the bias
 added); the aggregations sum in float32 and round once.
 
-The edge gathers and both aggregations of a layer read the graph's
-cached receiver and sender orders (:meth:`GraphBatch.csr`: every edge
-for a gather's gradient, the real edges for an aggregation), so their
-gradients, like their forwards, sum in a fixed order.
+Where the graph carries blocked adjacency (``blocks_in`` /
+``blocks_out``, :func:`~dgmc_tpu_torch.ops.blocked.attach_blocks`), both
+aggregations go through :func:`~dgmc_tpu_torch.ops.blocked.adj_matmul`
+(the blocked kernel on the card), as the JAX package's RelConv does:
+``adj_matmul(h, in, out) * in.inv_degree`` and its transpose, summed in
+float32 and rounded once to ``root``'s dtype. Otherwise the edge gathers
+and both aggregations of a layer read the graph's cached receiver and
+sender orders (:meth:`GraphBatch.csr`: every edge for a gather's
+gradient, the real edges for an aggregation), so their gradients, like
+their forwards, sum in a fixed order; the means are rounded to the
+messages' dtype before they are summed.
 """
 
 import math
@@ -29,6 +36,7 @@ from torch.nn import functional as F
 
 from dgmc_tpu_torch.models.norm import MaskedBatchNorm
 from dgmc_tpu_torch.models.precision import compute_dtype_of
+from dgmc_tpu_torch.ops.blocked import adj_matmul
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
 __all__ = ['RelConv', 'RelCNN', 'dense', 'dropout', 'init_linear_',
@@ -106,6 +114,17 @@ class RelConv(nn.Module):
 
         h1 = grouped(self.lin1, x)
         h2 = grouped(self.lin2, x)
+        root = grouped(self.root, x)
+        if graph.blocks_in is not None:
+            # The blocked tables (ops/blocked.py), as the JAX package
+            # orders it: each mean in float32, their sum rounded once to
+            # root's dtype.
+            a_in = (adj_matmul(h1, graph.blocks_in, graph.blocks_out)
+                    * graph.blocks_in.inv_degree)
+            a_out = (adj_matmul(h2, graph.blocks_out, graph.blocks_in)
+                     * graph.blocks_out.inv_degree)
+            return root + (a_in + a_out).to(root.dtype)
+
         def gather(h, key):
             return gather_nodes(h, getattr(graph, key),
                                 graph.csr(key, masked=False))
@@ -117,7 +136,7 @@ class RelConv(nn.Module):
         a_out = scatter_to_nodes(gather(h2, 'receivers'), graph.senders,
                                  graph.edge_mask, N, aggr='mean',
                                  segs=graph.csr('senders'))
-        return grouped(self.root, x) + (a_in + a_out)
+        return root + (a_in + a_out)
 
 
 class RelCNN(nn.Module):

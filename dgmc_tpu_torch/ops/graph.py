@@ -52,6 +52,13 @@ class GraphBatch:
             point at node 0 and are masked out of every aggregation.
         edge_attr: optional ``[B, E, D]`` float32 edge features (the
             pseudo-coordinates of SplineCNN).
+        blocks_in / blocks_out: optional blocked adjacency
+            (:class:`~dgmc_tpu_torch.ops.blocked.EdgeBlocks`, attached on
+            the host by :func:`~dgmc_tpu_torch.ops.blocked.attach_blocks`):
+            the tables RelConv aggregates through where they are present.
+            Their tensors travel with the batch's (:meth:`fields`), so a
+            captured step takes them as static inputs and never rebuilds
+            them.
 
     A batch is immutable once built: :meth:`csr` caches the sorted edge
     orders per endpoint array, so every aggregation and gather gradient
@@ -83,8 +90,14 @@ class GraphBatch:
     node_mask: torch.Tensor
     edge_mask: torch.Tensor
     edge_attr: Optional[torch.Tensor] = None
+    blocks_in: Optional[object] = None
+    blocks_out: Optional[object] = None
     _memo: dict = dataclasses.field(default_factory=dict, repr=False,
                                    compare=False)
+
+    #: The data fields, in order.
+    FIELDS = ('x', 'senders', 'receivers', 'node_mask', 'edge_mask',
+              'edge_attr', 'blocks_in', 'blocks_out')
 
     @classmethod
     def host(cls, arrays, pin_memory=False):
@@ -108,6 +121,12 @@ class GraphBatch:
                              'come first (a padded tail), not interleave '
                              'with padding')
         attr = arrays.get('edge_attr')
+
+        def blocks(key):
+            b = arrays.get(key)
+            if b is None or not pin_memory:
+                return b
+            return b.map(lambda t: t.pin_memory())
         return cls(x=host_tensor(arrays['x'], torch.float32, pin_memory),
                    senders=host_tensor(arrays['senders'], torch.int64,
                                        pin_memory),
@@ -117,7 +136,9 @@ class GraphBatch:
                    edge_mask=host_tensor(arrays['edge_mask'], torch.bool,
                                          pin_memory),
                    edge_attr=(None if attr is None else host_tensor(
-                       attr, torch.float32, pin_memory)))
+                       attr, torch.float32, pin_memory)),
+                   blocks_in=blocks('blocks_in'),
+                   blocks_out=blocks('blocks_out'))
 
     def to(self, device):
         """This batch on ``device``: itself where it lies there already,
@@ -127,13 +148,16 @@ class GraphBatch:
         if self.x.device == device:
             return self
 
-        def copy(t):
-            return None if t is None else t.to(device, non_blocking=True)
-        return GraphBatch(x=copy(self.x), senders=copy(self.senders),
-                          receivers=copy(self.receivers),
-                          node_mask=copy(self.node_mask),
-                          edge_mask=copy(self.edge_mask),
-                          edge_attr=copy(self.edge_attr))
+        return self._mapped(lambda t: t.to(device, non_blocking=True))
+
+    def _mapped(self, fn):
+        """A batch of ``fn`` of each tensor (the blocks' tables
+        included), with empty caches."""
+        def one(v):
+            if v is None:
+                return None
+            return fn(v) if torch.is_tensor(v) else v.map(fn)
+        return GraphBatch(**{f: one(getattr(self, f)) for f in self.FIELDS})
 
     @classmethod
     def from_numpy(cls, arrays, device):
@@ -143,23 +167,32 @@ class GraphBatch:
         return cls.host(arrays, device.type == 'cuda').to(device)
 
     def fields(self):
-        """The batch's tensors, ``edge_attr`` last where present."""
-        return [t for t in (self.x, self.senders, self.receivers,
-                            self.node_mask, self.edge_mask, self.edge_attr)
-                if t is not None]
+        """The batch's tensors: ``edge_attr`` where present, then the
+        blocks' tables where present."""
+        out = [t for t in (self.x, self.senders, self.receivers,
+                           self.node_mask, self.edge_mask, self.edge_attr)
+               if t is not None]
+        for b in (self.blocks_in, self.blocks_out):
+            if b is not None:
+                out += b.tensors()
+        return out
+
+    @property
+    def meta(self):
+        """What a captured step's signature takes from the batch beside
+        its tensors' shapes: whether it has edge attributes and which
+        blocks."""
+        return (self.edge_attr is not None,
+                *(None if b is None else b.meta
+                  for b in (self.blocks_in, self.blocks_out)))
 
     def static_like(self, device):
         """An uninitialized batch of this one's shapes and dtypes on
         ``device``, with an empty memo: a captured step's input buffers
         (:meth:`copy_from`)."""
-        def empty(t):
-            return None if t is None else torch.empty(
-                t.shape, dtype=t.dtype, device=canonical_device(device))
-        return GraphBatch(x=empty(self.x), senders=empty(self.senders),
-                          receivers=empty(self.receivers),
-                          node_mask=empty(self.node_mask),
-                          edge_mask=empty(self.edge_mask),
-                          edge_attr=empty(self.edge_attr))
+        device = canonical_device(device)
+        return self._mapped(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                  device=device))
 
     def copy_from(self, src):
         """Copy ``src``'s data into this batch's tensors (without blocking
@@ -173,9 +206,10 @@ class GraphBatch:
                                f'new data')
         dst, new = self.fields(), src.fields()
         if [(t.shape, t.dtype) for t in dst] != [(t.shape, t.dtype)
-                                                 for t in new]:
-            raise ValueError('copy_from: the batches differ in shape, dtype '
-                             'or edge attributes')
+                                                 for t in new] \
+                or self.meta != src.meta:
+            raise ValueError('copy_from: the batches differ in shape, dtype, '
+                             'edge attributes or blocks')
         for d, t in zip(dst, new):
             d.copy_(t, non_blocking=True)
         return self

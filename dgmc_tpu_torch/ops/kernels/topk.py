@@ -38,7 +38,8 @@ import torch
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.build import sm_count
 
-__all__ = ['BLOCK_OVERHEAD_TILES', 'K_MAX', 'PLAIN_BLOCK', 'ROW_TILES',
+__all__ = ['BLOCK_OVERHEAD_TILES', 'K_MAX', 'PLAIN_BLOCK',
+           'PLAIN_TILE_ELEMS', 'ROW_TILES',
            'TARGETS_PER_TILE', 'TC_BLOCK_OVERHEAD_TILES', 'TC_C_MAX',
            'TC_K_MAX', 'TC_ROWS', 'TC_STAGES', 'SMEM_MAX', 'blocks_per_sm',
            'launch_plan', 'plain_topk', 'route', 'streaming_topk',
@@ -52,6 +53,9 @@ K_MAX = 128
 
 #: Target block of the plain scan.
 PLAIN_BLOCK = 256
+
+#: Elements of the plain scan's largest product tile (64 MB of float32).
+PLAIN_TILE_ELEMS = 1 << 24
 
 #: Source rows per block the kernel is built for, and targets per tile
 #: (both checked against the compiled library at load).
@@ -93,7 +97,13 @@ def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
     stable descending sort over (carry ‖ block), carry first, so earlier
     (lower) indices win ties exactly as in a top-k of the full matrix.
     Scores are products and sums in (at least) float32, rounded to the
-    inputs' dtype (bfloat16) and carried in float32.
+    inputs' dtype (bfloat16) and carried in float32 (:func:`_scores`). On
+    the CPU each score is its products summed over the channel axis alone,
+    so a row's scores do not depend on the other rows: a search over any
+    subset of the rows (a source chunk) gives those rows the same picks and
+    values, as the kernels do (a CPU matrix product does not promise that:
+    its summation order follows the shapes). On the card the scores are
+    cuBLAS's product, whose in-order float32 sums are the kernels'.
     """
     with torch.no_grad():
         B, N_s, _ = h_s.shape
@@ -106,8 +116,7 @@ def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
         idx = torch.zeros((B, N_s, k), dtype=torch.int64, device=h_s.device)
         for start in range(0, N_t, block):
             stop = min(start + block, N_t)
-            scores = torch.bmm(h_s.to(acc), h_t[:, start:stop].to(acc)
-                               .transpose(1, 2)).to(dt).to(acc)
+            scores = _scores(h_s, h_t[:, start:stop], acc).to(dt).to(acc)
             if t_mask is not None:
                 scores = scores.masked_fill(
                     ~t_mask[:, None, start:stop], neg)
@@ -120,6 +129,20 @@ def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
             vals = sv[..., :k]
             idx = torch.gather(cand_i, -1, pos[..., :k])
         return vals.to(dt), idx.to(torch.int32)
+
+
+def _scores(h_s, h_t, acc):
+    """``[B, N_s, N_t]`` inner products in ``acc``: on the CPU elementwise
+    products summed over the channel axis, in tiles of rows that bound the
+    product tile at :data:`PLAIN_TILE_ELEMS` elements; elsewhere a batched
+    matrix product."""
+    if h_s.device.type != 'cpu':
+        return torch.bmm(h_s.to(acc), h_t.to(acc).transpose(1, 2))
+    B, N_s, C = h_s.shape
+    rows = max(1, PLAIN_TILE_ELEMS // max(1, B * h_t.shape[1] * C))
+    h_t = h_t.to(acc)[:, None]
+    return torch.cat([(h_s[:, lo:lo + rows, None, :].to(acc) * h_t).sum(-1)
+                      for lo in range(0, N_s, rows)], dim=1)
 
 
 def tc_smem_bytes(C):
@@ -299,10 +322,11 @@ def _launch(entry, h_s, h_t, k, t_mask=None):
 
 
 @dispatch.kernel_wrapper('topk')
-def streaming_topk(h_s, h_t, k, t_mask=None):
+def streaming_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
     """Exact top-k of ``h_s @ h_t^T`` per source row → ``(vals, idx)``
     (``h_s``'s dtype / int32, ``[B, N_s, k]``). See the module
-    docstring."""
+    docstring. ``block`` tiles the plain scan's targets only; the kernels
+    ignore it, as the JAX package's Pallas kernel does."""
     if h_s.dim() != 3 or h_t.dim() != 3 or h_s.shape[0] != h_t.shape[0] \
             or h_s.shape[2] != h_t.shape[2]:
         raise ValueError(f'streaming_topk wants h_s [B, N_s, C] and h_t '
@@ -325,7 +349,7 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     h_s, h_t = h_s.detach(), h_t.detach()
     if device.type == 'cpu':
         dispatch.record('topk', 'plain', 'device=cpu', dt)
-        return plain_topk(h_s, h_t, k, t_mask)
+        return plain_topk(h_s, h_t, k, t_mask, block)
     if device.type != 'cuda':
         raise ValueError(f'streaming_topk runs on cpu or cuda, not '
                          f'{device.type}')
@@ -336,7 +360,7 @@ def streaming_topk(h_s, h_t, k, t_mask=None):
     entry, reason = route(dt, B, N_s, N_t, C, k)
     if entry == 'plain':
         dispatch.record('topk', 'plain', reason, dt)
-        return plain_topk(h_s, h_t, k, t_mask)
+        return plain_topk(h_s, h_t, k, t_mask, block)
     dispatch.record('topk', 'kernel', reason, dt)
     out_v, out_i = _launch(entry, h_s, h_t, k, t_mask)
     streaming_topk.launches += 1

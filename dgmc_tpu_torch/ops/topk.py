@@ -2,7 +2,12 @@
 
 ``dense_topk`` ranks the full score matrix; ``chunked_topk`` streams the
 target axis (the CUDA kernel on the card, the plain blockwise scan on
-the CPU, :mod:`dgmc_tpu_torch.ops.kernels.topk`). Both keep the JAX
+the CPU, :mod:`dgmc_tpu_torch.ops.kernels.topk`); ``streamed_topk`` also
+streams the source axis, in chunks of rows, each through
+``chunked_topk``: rows are independent, so each chunk's picks are its
+rows' global answer and the result is bit-identical to the unchunked
+search (the kernels select each row's exact top-k whatever the launch
+plan cuts, and merge by value, then index). All keep the JAX
 package's rules: values descending with the lowest index first among
 equal values, masked columns at ``finfo.min``, and a running carry that
 starts at ``-inf``. ``torch.topk`` does not promise that tie order, so
@@ -13,7 +18,18 @@ import torch
 
 from dgmc_tpu_torch.ops.kernels.topk import streaming_topk
 
-__all__ = ['stable_topk', 'dense_topk', 'chunked_topk']
+__all__ = ['DEFAULT_BLOCK', 'DEFAULT_TOPK_BLOCK', 'DEFAULT_STREAM_CHUNK',
+           'stable_topk', 'dense_topk', 'chunked_topk', 'streamed_topk']
+
+#: The JAX package's target block of the blockwise scan
+#: (``dgmc_tpu/ops/topk.py``): it tiles the plain scan only; the CUDA
+#: kernels ignore it, as the Pallas kernel does.
+DEFAULT_BLOCK = 256
+#: The JAX package's partition-rule names of the two defaults
+#: (``dgmc_tpu/parallel/rules.py``): the candidate search's target block
+#: and the source chunk of the streamed search.
+DEFAULT_TOPK_BLOCK = DEFAULT_BLOCK
+DEFAULT_STREAM_CHUNK = 8192
 
 
 def stable_topk(x, k, dim=-1):
@@ -39,10 +55,27 @@ def dense_topk(h_s, h_t, k, t_mask=None):
         return stable_topk(scores, k)[1].to(torch.int32)
 
 
-def chunked_topk(h_s, h_t, k, t_mask=None, return_values=False):
+def chunked_topk(h_s, h_t, k, t_mask=None, block=DEFAULT_BLOCK,
+                 return_values=False):
     """Running top-k of ``h_s @ h_t^T`` along the target axis, identical
     to :func:`dense_topk` (tie order included) while never holding the
-    full score matrix. ``return_values`` also returns the scores
-    (``(vals, idx)``)."""
-    vals, idx = streaming_topk(h_s, h_t, k, t_mask)
+    full score matrix. ``block`` tiles the plain scan's targets.
+    ``return_values`` also returns the scores (``(vals, idx)``)."""
+    vals, idx = streaming_topk(h_s, h_t, k, t_mask, block)
+    return (vals, idx) if return_values else idx
+
+
+def streamed_topk(h_s, h_t, k, chunk, t_mask=None, block=DEFAULT_BLOCK,
+                  return_values=False):
+    """:func:`chunked_topk` over chunks of ``chunk`` source rows (the last
+    one ragged), one search each, in order: bit-identical to the unchunked
+    search, while a search only holds ``chunk`` rows' scores."""
+    chunk = int(chunk)
+    if chunk < 1:
+        raise ValueError(f'stream chunk must be >= 1; got {chunk}')
+    parts = [chunked_topk(h_s[:, lo:lo + chunk], h_t, k, t_mask, block,
+                          return_values=True)
+             for lo in range(0, h_s.shape[1], chunk)]
+    vals = torch.cat([v for v, _ in parts], dim=1)
+    idx = torch.cat([i for _, i in parts], dim=1)
     return (vals, idx) if return_values else idx

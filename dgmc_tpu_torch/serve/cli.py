@@ -6,6 +6,9 @@ corpus index over the target KG of the synthetic DBP15K alignment
 (20000 nodes, 120000 edges, 300 features), warms the declared buckets,
 then answers ``--num-queries`` sampled queries and prints each answer as
 one JSON line on standard output. Progress goes to standard error.
+``--stream-chunk`` and ``--offload-corpus`` (with ``--offload-chunk`` and
+``--prefetch-depth``) select the streamed and the host-RAM corpus tiers
+(:mod:`~dgmc_tpu_torch.serve.engine`).
 """
 
 import argparse
@@ -64,6 +67,22 @@ def parse_args(argv=None):
     p.add_argument('--max-results', type=int, default=5)
     p.add_argument('--cache-dir', default=None,
                    help='corpus-table cache directory (default: none)')
+    p.add_argument('--stream-chunk', '--stream_chunk', dest='stream_chunk',
+                   type=int, default=0,
+                   help='streamed tier: the shortlist search over source '
+                        'chunks of this many rows (0 = off)')
+    p.add_argument('--offload-corpus', '--offload_corpus',
+                   dest='offload_corpus', action='store_true',
+                   help='host-RAM corpus tier: the ψ₁ table stays in host '
+                        'memory; the shortlist streams target chunks '
+                        'through the prefetch ring and the rerank graph '
+                        'takes the shortlist and its candidate rows')
+    p.add_argument('--offload-chunk', '--offload_chunk', dest='offload_chunk',
+                   type=int, default=4096)
+    p.add_argument('--prefetch-depth', '--prefetch_depth',
+                   dest='prefetch_depth', type=int, default=0,
+                   help='prefetch ring depth for --offload-corpus (0 = '
+                        'ops/offload.DEFAULT_PREFETCH_DEPTH)')
     p.add_argument('--device', default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         'PyTorch path)')
@@ -81,11 +100,15 @@ def main(argv=None):
     kg = dbp15k_kg(args.seed)
     corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
     model = dbp15k_model(args.seed).to(device)
+    model.stream_chunk = args.stream_chunk or None
     index, info = load_or_build(args.cache_dir, model.psi_1, corpus,
                                 device=device, log=log)
     router = QueryRouter(args.buckets, corpus.num_nodes, corpus.num_edges)
     engine = MatchEngine(model, index, router,
-                         max_results=args.max_results, device=device)
+                         max_results=args.max_results, device=device,
+                         offload=args.offload_corpus,
+                         offload_chunk=args.offload_chunk,
+                         prefetch_depth=args.prefetch_depth or None)
     t0 = time.perf_counter()
     report = engine.warm()
     log(f'{engine.buckets_warm} buckets warm in '

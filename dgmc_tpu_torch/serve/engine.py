@@ -22,8 +22,29 @@ fixed seed, aggregation has a fixed summation order (``ops/graph.py``),
 the kernel uses no atomics, and every ranking is a stable
 lowest-index-first selection.
 
-Ported: the device tier. The host-RAM offload tier, the shadow audit,
-the goodput/capacity accounting and the HTTP front end are later work.
+Corpus tiers (the JAX engine's):
+
+- **device** (default): ``h_t`` on the device; the search runs inside the
+  bucket's graph.
+- **streamed**: the same, with the model's ``stream_chunk`` set: the
+  search inside the graph runs over source chunks (one top-k launch per
+  chunk).
+- **offload** (``offload=True``): ``h_t`` stays in host RAM (pinned). A
+  query runs in three parts: ψ₁ of the query (a captured graph per
+  bucket), the host-driven shortlist
+  :func:`~dgmc_tpu_torch.ops.offload.offloaded_corpus_topk` (target chunks
+  of ``offload_chunk`` rows through the ``prefetch_depth``-deep ring, one
+  top-k launch per chunk, eager: the loop is the host's), then the
+  rerank, a second captured graph per bucket that takes the shortlist
+  ``S_idx`` and the candidate rows ``h_t_cand`` (gathered on the host
+  from the host table, checked against ``[0, N_t)`` there) as static
+  inputs, as the JAX engine's rerank executable does. The device never
+  holds more of the table than the ring's chunks and the candidates.
+
+Each tier's answers are bit-identical to the device tier's.
+
+Not ported: the shadow audit, the goodput/capacity accounting and the
+HTTP front end.
 """
 
 import threading
@@ -36,6 +57,8 @@ from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.obs import probes
 from dgmc_tpu_torch.obs.memory import captured_memory
 from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.ops.offload import (DEFAULT_PREFETCH_DEPTH,
+                                        offloaded_corpus_topk)
 from dgmc_tpu_torch.ops.topk import stable_topk
 from dgmc_tpu_torch.train.compiled import Fixed, compiled
 
@@ -104,10 +127,15 @@ class MatchEngine:
             ``'cpu'`` is passed.
         jit: serve each bucket through its captured graph (the default);
             ``False`` runs every query eagerly.
+        offload: the host-RAM corpus tier (see the module docstring);
+            ``offload_chunk`` / ``prefetch_depth``: its target chunk and
+            ring depth (``None``: ``ops/offload.DEFAULT_PREFETCH_DEPTH``).
+            The streamed tier is the model's ``stream_chunk``.
     """
 
     def __init__(self, model, index, router, max_results=5, noise_seed=0,
-                 device=None, jit=True):
+                 device=None, jit=True, offload=False, offload_chunk=4096,
+                 prefetch_depth=None):
         self.device = resolve_device(device)
         if router.corpus_nodes != index.corpus.num_nodes \
                 or router.corpus_edges != index.corpus.num_edges:
@@ -121,10 +149,26 @@ class MatchEngine:
         self._lock = threading.Lock()
         self._t_graph = GraphBatch.from_numpy(index.corpus.graph_arrays(),
                                               self.device)
-        self._h_t = torch.as_tensor(index.h_t, dtype=torch.float32).to(
-            self.device)
+        self.offload = bool(offload)
+        self.offload_chunk = int(offload_chunk)
+        self.prefetch_depth = int(prefetch_depth or DEFAULT_PREFETCH_DEPTH)
+        h_t = torch.as_tensor(index.h_t, dtype=torch.float32)
+        if self.offload:
+            # The host table in the compute dtype, as the model casts it.
+            self._h_t = None
+            self._h_t_host = model._cast(h_t).contiguous()
+            if self.device.type == 'cuda':
+                self._h_t_host = self._h_t_host.pin_memory()
+        else:
+            self._h_t = h_t.to(self.device)
         self._warm = {}   # signature -> {'bucket', 'warm_s', 'queries'}
-        self._compiled = compiled(self._query, self.device) if jit else None
+        self._compiled = self._embed = None
+        if jit:
+            self._compiled = compiled(self._rerank if self.offload
+                                      else self._query, self.device)
+            if self.offload:
+                self._embed = compiled(self._embed_query, self.device)
+        self.last_offload = None
         self.query_count = 0
         self.last_latency_s = None
 
@@ -201,24 +245,60 @@ class MatchEngine:
 
     def _query(self, model, q, t_graph, h_t, r_s):
         """The query path of one padded query: what a bucket's graph
-        records."""
+        records (device and streamed tiers)."""
         S_0, S_L = model(q, t_graph, h_t=h_t, noise_seed=self.noise_seed,
                          r_s=r_s)
         return ranked(S_0, S_L, q.node_mask, self.max_results)
 
+    def _embed_query(self, model, q):
+        """ψ₁ of the query in the compute dtype (offload tier)."""
+        return model._cast(model.psi_1(q.x, q))
+
+    def _rerank(self, model, q, t_graph, S_idx, h_t_cand, r_s):
+        """The rerank over a shortlist made outside the graph (offload
+        tier), checked on the host before it was copied in."""
+        S_0, S_L = model(q, t_graph, S_idx=S_idx, h_t_cand=h_t_cand,
+                         noise_seed=self.noise_seed, r_s=r_s,
+                         check_idx=False)
+        return ranked(S_0, S_L, q.node_mask, self.max_results)
+
+    def _shortlist(self, q):
+        """The offload tier's host-driven part: ψ₁ of the query, the
+        ring-fed search over the host table, the candidate rows gathered
+        on the host → ``(S_idx, h_t_cand)`` host tensors."""
+        if self._embed is not None:
+            h_s = self._embed(Fixed(self.model), q)
+        else:
+            h_s = self._embed_query(self.model, q.to(self.device))
+        _, idx, stats = offloaded_corpus_topk(
+            h_s, self._h_t_host, self.model.k, self.offload_chunk,
+            depth=self.prefetch_depth, device=self.device)
+        self.last_offload = stats
+        N_t = self._h_t_host.shape[1]
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= N_t):
+            raise RuntimeError(f'offloaded shortlist outside [0, {N_t})')
+        h_t_cand = self._h_t_host[0][idx[0].long()][None]
+        return idx, h_t_cand
+
     def _inputs(self, arrays, r_s=None):
         """The compiled query's inputs: the padded query's host part
         (pinned for the card) and ``r_s`` are copied, the rest is read in
-        place."""
+        place. The offload tier's rerank also takes the shortlist and the
+        candidate rows, made here."""
         q = GraphBatch.host(arrays, pin_memory=self.device.type == 'cuda')
         if r_s is not None:
             r_s = torch.as_tensor(r_s, dtype=torch.float32)
+        if self.offload:
+            return (Fixed(self.model), q, Fixed(self._t_graph),
+                    *self._shortlist(q), r_s)
         return (Fixed(self.model), q, Fixed(self._t_graph),
                 Fixed(self._h_t), r_s)
 
     def _capture(self, arrays):
         """The bucket's record, built ahead of its first query (without
-        ``jit``: one eager run, and ``None``)."""
+        ``jit``: one eager run, and ``None``). The offload tier captures
+        the query's ψ₁ and the rerank, and runs the ring-fed search once
+        between them."""
         if self._compiled is None:
             self._execute(arrays)
             return None
@@ -227,14 +307,15 @@ class MatchEngine:
 
     def _execute(self, arrays, r_s=None):
         """The answer arrays of one padded query."""
-        inputs = self._inputs(arrays, r_s)
         with torch.inference_mode():
+            inputs = self._inputs(arrays, r_s)
             if self._compiled is not None:
                 out = self._compiled(*inputs)
             else:
-                q, r_s = inputs[1].to(self.device), inputs[4]
-                out = self._query(self.model, q, self._t_graph, self._h_t,
-                                  None if r_s is None else r_s.to(self.device))
+                fn = self._rerank if self.offload else self._query
+                out = fn(*(x.value if isinstance(x, Fixed) else
+                           None if x is None else x.to(self.device)
+                           for x in inputs))
             # Non-blocking copies into pinned host memory, then one wait:
             # the answer is complete here. Fresh host tensors: the next
             # replay overwrites the static outputs, not these.

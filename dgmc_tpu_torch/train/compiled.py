@@ -108,7 +108,7 @@ def _signature(x):
         return ('tensor', tuple(x.shape), x.dtype)
     if isinstance(x, GraphBatch):
         return ('graph', tuple((tuple(t.shape), t.dtype)
-                               for t in x.fields()), x.edge_attr is not None)
+                               for t in x.fields()), x.meta)
     if isinstance(x, tuple):
         return (type(x).__name__, tuple(_signature(e) for e in x))
     raise TypeError(f'a compiled step takes tensors, graph batches, ints, '

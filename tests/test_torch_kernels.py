@@ -806,3 +806,82 @@ def test_kernels_refuse_half_and_mixed_dtypes(cuda):
         with pytest.raises(TypeError):
             sparse_consensus_fwd(f(1, 4, R), f(1, 4, R), sl, f(R, R), f(R),
                                  f(R, 1), last)
+
+
+def _blocked_case(rng, B, N, E, hub):
+    from dgmc_tpu_torch.ops.blocked import build_edge_blocks
+    snd = rng.randint(0, N, (B, E))
+    rcv = rng.randint(0, N, (B, E))
+    if hub:
+        rcv[0, :E // 2] = 3
+    return build_edge_blocks(snd, rcv, rng.rand(B, E) > 0.1, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C', [1, 32, 40, 256, 320])
+@pytest.mark.parametrize('rows', ['float32', 'bfloat16'])
+def test_blocked_kernel_matches_plain(cuda, C, rows):
+    """The blocked aggregation on integer-valued rows (every sum exact):
+    bit-equal to the plain version, a hub's range of many blocks beside a
+    batch element with fewer (padded) blocks, both directions; a repeat
+    bit-identical; one launch a call."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    rng = np.random.RandomState(C)
+    gd = None if rows == 'float32' else 'bfloat16'
+    dt = getattr(torch, rows)
+    for blocks in _blocked_case(rng, 2, 700, 9000, hub=True):
+        blk = blocks.map(lambda t: t.to(cuda)).replace(gather_dtype=gd)
+        h = torch.from_numpy(rng.randint(-4, 5, (2, 700, C))).to(
+            cuda, dt)
+        before = kb.aggregate.launches
+        got = kb.aggregate(h, blk)
+        assert kb.aggregate.launches == before + 1
+        assert got.dtype == torch.float32
+        assert torch.equal(got, ob.plain_aggregate(h, blk))
+        assert torch.equal(got, kb.aggregate(h, blk))
+
+
+@pytest.mark.cuda
+def test_blocked_adj_matmul_gradient_on_the_card(cuda):
+    """adj_matmul's backward is the kernel over the transposed tables:
+    bit-equal to the plain version's on integer cotangents."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    rng = np.random.RandomState(1)
+    inc, outg = (b.map(lambda t: t.to(cuda)) for b in
+                 _blocked_case(rng, 1, 500, 4000, hub=False))
+    h = torch.from_numpy(rng.randint(-3, 4, (1, 500, 64))).to(
+        cuda, torch.float32).requires_grad_()
+    g = torch.from_numpy(rng.randint(-3, 4, (1, 500, 64))).to(
+        cuda, torch.float32)
+    ob.adj_matmul(h, inc, outg).backward(g)
+    assert torch.equal(h.grad, ob.plain_aggregate(g, outg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_streamed_and_offloaded_topk_match_the_device_search(cuda, dtype):
+    """streamed_topk, offloaded_streamed_topk and offloaded_corpus_topk
+    on the card: indices and values bit-identical to one chunked_topk,
+    ties (duplicated targets) and a mask included, ragged chunks."""
+    from dgmc_tpu_torch.ops.offload import (offloaded_corpus_topk,
+                                            offloaded_streamed_topk)
+    from dgmc_tpu_torch.ops.topk import chunked_topk, streamed_topk
+    rng = np.random.RandomState(2)
+    base = rng.randn(1, 1000, 64).astype(np.float32)
+    h_t = torch.from_numpy(np.concatenate([base, base], 1)).to(cuda, dtype)
+    h_s = torch.from_numpy(rng.randn(1, 3001, 64)).to(cuda, dtype)
+    mask = torch.from_numpy(rng.rand(1, 2000) > 0.2).to(cuda)
+    v, i = chunked_topk(h_s, h_t, 10, mask, return_values=True)
+    for chunk in (1000, 777):
+        sv, si = streamed_topk(h_s, h_t, 10, chunk, mask,
+                               return_values=True)
+        assert torch.equal(si, i) and torch.equal(sv, v)
+    ov, oi, stats = offloaded_streamed_topk(h_s.cpu(), h_t, 10, 777, mask,
+                                            depth=2, device=cuda)
+    assert torch.equal(oi, i.cpu()) and torch.equal(ov, v.cpu())
+    assert stats.chunks == 4 and stats.ring_misses == 1
+    cv, ci, stats = offloaded_corpus_topk(h_s, h_t.cpu(), 10, 300, mask,
+                                          depth=3, device=cuda)
+    assert torch.equal(ci, i.cpu()) and torch.equal(cv, v.cpu())
+    assert stats.chunks == 7 and stats.ring_misses == 1

@@ -234,6 +234,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     assert {os.path.join(REPO, 'dgmc_tpu_torch', 'models', f'{m}.py')
             for m in ('norm', 'mlp', 'gin', 'rel', 'dgmc')} <= set(files)
+    assert {os.path.join(REPO, 'dgmc_tpu_torch', *m)
+            for m in (('ops', 'blocked.py'), ('ops', 'offload.py'),
+                      ('ops', 'kernels', 'blocked.py'))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]
