@@ -116,13 +116,16 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 - ``blocked_kernel``: the blocked aggregation kernel
   (``csrc/blocked.cu``; no Pallas counterpart: JAX's one-hot einsums of
   ``dgmc_tpu/ops/blocked.py``) against its plain version
-  (:func:`phase_blocked_kernel`): bit-equal on integer-valued rows (a hub
-  range beside padded blocks, an edgeless graph), within rtol 1e-5 /
-  atol 1e-5 x max|out| on the synthetic KGs' tables at ψ₁'s C = 256, the
-  packed ψ₂'s C = 320 and the per-step ψ₂'s C = 32, both directions,
-  forward and backward, float32 and bf16 rows; repeats bit-identical.
-  Times the kernel, the plain version, ``torch.sparse.mm`` (yardstick
-  only) and the gather + segment path it replaces, each with its bound.
+  (:func:`phase_blocked_kernel`): bit-identical to
+  ``ordered_aggregate`` (torch over the row table, the kernel's order and
+  rounding) on every case, and bit-equal to the plain version on
+  integer-valued rows (a hub range beside padded blocks, an edgeless
+  graph), within rtol 1e-5 / atol 1e-5 x max|out| of it on the synthetic
+  KGs' tables at C = 1, 32 (the per-step ψ₂), 40, 256 (ψ₁) and 320 (the
+  packed ψ₂), both directions, forward and backward, float32 and bf16
+  rows; repeats bit-identical. Times the kernel, the plain version,
+  ``torch.sparse.mm`` (yardstick only) and the gather + segment path it
+  replaces, each with its bound, and the hub case.
 - ``rng_kernel``: the draw kernel (``csrc/rng.cu``, Philox4x32-10)
   against its plain version on the CPU, the device the stream must not
   depend on (:func:`phase_rng_kernel`): normals at the dense noise's
@@ -3724,7 +3727,13 @@ def kernel_times():
       calls; the host's wall time per call is what they cost it);
     - the top-k kernel at 16, 32 and 64 query rows over 20000 targets
       (C = 256, k = 10) beside ``torch.topk(bmm)``, its ``bmm`` and its
-      ``topk`` alone."""
+      ``topk`` alone;
+    - where the tree has blocked adjacency, its kernel (``launch``, each
+      tree's tables) on the synthetic source KG's incoming tables at the
+      widths of :data:`BLOCKED_ROWS` and on the hub batch at C = 256 and
+      32, float32;
+    - the normal draw at the two main-path shapes of :data:`RNG_ROWS`,
+      the key on the card."""
     from dgmc_tpu_torch.experiments import pascal_pf
     from dgmc_tpu_torch.models.spline import spline_routing
     from dgmc_tpu_torch.ops.graph import GraphBatch
@@ -3785,6 +3794,16 @@ def kernel_times():
             lambda a, b: torch.bmm(a, b.transpose(1, 2)), h_s, h_t)
         calls[f'topk of scores {n}x{N_t}'] = functools.partial(
             torch.topk, scores, k)
+    if importlib.util.find_spec('dgmc_tpu_torch.ops.blocked') is not None:
+        calls.update(_blocked_kernel_calls(gen))
+    from dgmc_tpu_torch.ops.kernels import rng
+    dev_seed = rng.seed_tensor((7 << 40) + 12345, 'cuda')
+    for key, (path, kind, shape) in RNG_ROWS.items():
+        if kind == 'normal':
+            _, _, steps_, B, P = _rng_key(path, kind, shape)
+            calls[f'draw normals {"x".join(map(str, shape))}'] = (
+                functools.partial(rng.philox_normal, steps_, B, P, dev_seed,
+                                  0, 0, 'cuda'))
     got, src = timed(calls)
     for key, (ms, wall) in got.items():
         log(f'kernels: {key}: {ms:.4f} ms per call [{src}] / {wall:.4f} '
@@ -3806,11 +3825,12 @@ def kernel_times():
 #: filed under each (:func:`blocked_launches`): ψ₁ at C = 256 (both
 #: directions, forward and backward), the packed ψ₂ (all 10 steps' source
 #: sides, C = 320) and the per-step ψ₂ (C = 32) on the float32 KG path; the
-#: bf16 rows at C = 256 on the bf16 path.
+#: bf16 rows at C = 256 and 320 on the bf16 path.
 BLOCKED_ROWS = {'blocked': ('kg_train', 256, 'float32'),
                 'blocked@C=320': ('kg_train', 320, 'float32'),
                 'blocked@C=32': ('kg_train', 32, 'float32'),
-                'blocked_bf16': ('kg_train_bf16', 256, 'bfloat16')}
+                'blocked_bf16': ('kg_train_bf16', 256, 'bfloat16'),
+                'blocked_bf16@C=320': ('kg_train_bf16', 320, 'bfloat16')}
 #: ``{(path, C, rows dtype): launches}`` of the blocked kernel on the KG
 #: main paths.
 BLOCKED_MAIN = {}
@@ -3842,15 +3862,13 @@ def blocked_launches(path):
 
 
 def _blocked_work(blocks, C, elem):
-    """``(flops, bytes)`` of one aggregation over ``blocks``: an add per
-    real edge and channel; the h table read once (``elem`` bytes a value),
-    the float32 output written once, the tables the kernel reads
-    (``src``, ``dst_local``, ``mask``, ``range_ptr``) once."""
+    """``(flops, bytes)`` of one aggregation over ``blocks``, the work's
+    least whatever implements it: an add per real edge and channel; the
+    h table read once (``elem`` bytes a value), the float32 output
+    written once, the E real edges' int32 sources read once."""
     B, M = blocks.inv_degree.shape[:2]
-    tables = sum(t.numel() * t.element_size() for t in (
-        blocks.src, blocks.dst_local, blocks.mask, blocks.range_ptr))
-    return (float(blocks.mask.sum()) * C,
-            float(B * M * C * (elem + 4) + tables))
+    E = float(blocks.mask.sum())
+    return E * C, float(B * M * C * (elem + 4)) + 4.0 * E
 
 
 def _hub_blocks(B=2, N=1000, E=20000, seed=0):
@@ -3871,20 +3889,24 @@ def _hub_blocks(B=2, N=1000, E=20000, seed=0):
 
 
 def phase_blocked_kernel(res):
-    """The blocked kernel (``csrc/blocked.cu``) against its plain version
-    (JAX's one-hot form, ``ops/blocked.py::plain_aggregate``) on the card:
-    bit-equal on integer-valued rows (every sum exact in float32; a hub
-    range of many blocks beside padded blocks of a batch, 1000 nodes, an
-    edgeless graph, C = 1 and 40); on the source and target KGs' tables
-    (100000 / 120000 edges) at the path's widths — ψ₁ C = 256, the packed
-    ψ₂ C = 320, the per-step ψ₂ C = 32 — in both directions (the backward
-    is the forward over the transposed tables), float32 and bf16 rows
-    (``gather_dtype``: bf16 at C >= 256, widened to float32 at C = 32),
-    within rtol 1e-5 / atol 1e-5 x max|out|; every repeat bit-identical.
+    """The blocked kernel (``csrc/blocked.cu``) on the card against
+    ``ordered_aggregate`` (torch over the row table in the kernel's order
+    and rounding): bit-identical on every case; and against its plain
+    version (JAX's one-hot form, ``ops/blocked.py::plain_aggregate``):
+    bit-equal on integer-valued rows (every sum exact in float32), within
+    rtol 1e-5 / atol 1e-5 x max|out| on random ones. The cases: a batch
+    of 1000 nodes (no multiple of the 128-row range) with a hub range of
+    many blocks beside an element with fewer, padded, blocks, and an
+    edgeless graph; the source and target KGs' tables (100000 / 120000
+    edges); each in both directions (the backward is the forward over the
+    transposed tables), at C = 1, 32 (the per-step ψ₂), 40, 256 (ψ₁) and
+    320 (the packed ψ₂), float32 and bf16 rows (``gather_dtype``: bf16 at
+    C >= 256, widened to float32 below); every repeat bit-identical.
     Times the kernel, the plain version, ``torch.sparse.mm`` of the CSR
     adjacency (yardstick only) and the path it replaces (the port's
-    ``gather_nodes`` + ``scatter_to_nodes``) at each width on the source
-    KG, each with its bound."""
+    ``gather_nodes`` + ``scatter_to_nodes``) at the main path's widths on
+    the source KG, each with its bound, and the kernel on the hub batch
+    beside its bound."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.ops import blocked as ob
     from dgmc_tpu_torch.ops.graph import (GraphBatch, gather_nodes,
@@ -3896,17 +3918,36 @@ def phase_blocked_kernel(res):
         return torch.randint(-4, 5, shape, generator=gen,
                              device='cuda').to(dtype)
 
-    n_exact = 0
+    widths = (1, 32, 40, 256, 320)
+    n_exact = n_ordered = 0
+
+    def hold_ordered(label, got, x, blk):
+        nonlocal n_ordered
+        if not torch.equal(got, ob.ordered_aggregate(x, blk)):
+            raise AssertionError(f'{label}: the kernel differs from '
+                                 f'ordered_aggregate')
+        n_ordered += 1
+
     for blocks in _hub_blocks():
         B, M = blocks.inv_degree.shape[:2]
-        for C in (1, 40, 256):
+        for C in widths:
             for dt, gd in ((torch.float32, None), (BF16, 'bfloat16')):
                 blk = blocks.replace(gather_dtype=gd)
+                label = f'blocked B={B} M={M} C={C} {dt}'
                 h = ints((B, M, C), dt)
-                hold_equal(f'blocked exact B={B} M={M} C={C} {dt}',
-                           lambda: kb.aggregate(h, blk),
-                           lambda: ob.plain_aggregate(h, blk))
+                got = hold_equal(f'{label} exact',
+                                 lambda: kb.aggregate(h, blk),
+                                 lambda: ob.plain_aggregate(h, blk))
+                hold_ordered(f'{label} exact', got, h, blk)
                 n_exact += 1
+                h = torch.randn((B, M, C), generator=gen,
+                                device='cuda').to(dt)
+                got = kb.aggregate(h, blk)
+                if not torch.equal(got, kb.aggregate(h, blk)):
+                    raise AssertionError(f'{label}: a repeat gave another '
+                                         f'result')
+                hold_ordered(label, got, h, blk)
+                hold_close(label, got, ob.plain_aggregate(h, blk))
     args = dbp15k.parse_args(KG_ARGV + F32_ARGV)
     train_b, _, _ = dbp15k.synthetic_batches(args)
     sides = {s: GraphBatch.host(getattr(train_b, s)).to('cuda')
@@ -3915,7 +3956,7 @@ def phase_blocked_kernel(res):
     for side, g in sides.items():
         for name, fwd, bwd in (('in', g.blocks_in, g.blocks_out),
                                ('out', g.blocks_out, g.blocks_in)):
-            for C in (256, 320, 32):
+            for C in widths:
                 for dt, gd in ((torch.float32, None), (BF16, 'bfloat16')):
                     f_blk = fwd.replace(gather_dtype=gd)
                     b_blk = bwd.replace(gather_dtype=gd)
@@ -3933,16 +3974,18 @@ def phase_blocked_kernel(res):
                         if not torch.equal(got, kb.aggregate(x, blk)):
                             raise AssertionError(f'{label}: a repeat gave '
                                                  f'another result')
+                        hold_ordered(label, got, x, blk)
                         err = hold_close(label, got,
                                          ob.plain_aggregate(x, blk))
                         key = (C, rows)
                         errs[key] = max(errs.get(key, 0.0), err)
-    log(f'blocked_kernel: {n_exact} exact cases bit-equal to the plain '
+    log(f'blocked_kernel: {n_ordered} cases bit-identical to '
+        f'ordered_aggregate; {n_exact} exact cases bit-equal to the plain '
         f'version; the source and target KGs ({sides["s"].num_edges} / '
         f'{sides["t"].num_edges} edges, {sides["s"].blocks_in.src.shape[1]} '
         f'/ {sides["t"].blocks_in.src.shape[1]} blocks of 512) in both '
-        f'directions, forward and backward, within rtol 1e-5 / atol 1e-5 x '
-        f'max|out|, repeats '
+        f'directions, forward and backward, at C = {widths}, within rtol '
+        f'1e-5 / atol 1e-5 x max|out| of the plain version, repeats '
         f'bit-identical; max |err| by (C, rows): {errs}')
 
     # Times on the source KG, incoming direction (ψ₁'s first aggregation).
@@ -3975,8 +4018,10 @@ def phase_blocked_kernel(res):
         got, src = timed(calls)
         flops, nbytes = _blocked_work(blk, C, x.element_size())
         b_ms, b_by = bound(flops, nbytes)
+        plan = kb.launch_plan(n, C, x.element_size(), x.data_ptr())
         log(f'blocked_kernel: {key} (source KG, {g.num_edges} edges, C={C}, '
-            f'{rows} rows): bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} '
+            f'{rows} rows; launch {plan}): bound {b_ms:.4f} ms ({b_by}: '
+            f'{nbytes / 1e6:.2f} '
             f'MB at {PEAK_BYTES / 1e12} TB/s, {flops / 1e6:.1f} Mflop); ms '
             f'per call [{src}] / wall: '
             + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in got.items())
@@ -3991,6 +4036,58 @@ def phase_blocked_kernel(res):
             plain_ms=got['plain'][0], bound_ms=b_ms, bound_by=b_by,
             library_ms=got['library'][0] if 'library' in got else None,
             replaced_ms=got['replaced'][0], ms_source=src)
+
+    # The hub batch: half of element 0's 20000 edges into node 3, one
+    # lane group's serial sum; the yardstick is torch.sparse.mm of the
+    # batch's block-diagonal adjacency.
+    blk = _hub_blocks()[0]
+    B, M = blk.inv_degree.shape[:2]
+    deg = (blk.row_ptr[:, 1:] - blk.row_ptr[:, :-1]).reshape(-1)
+    dst = torch.repeat_interleave(torch.arange(B * M, device='cuda'), deg)
+    src = torch.cat([blk.row_src[b, :int(blk.row_ptr[b, -1])] + b * M
+                     for b in range(B)]).long()
+    csr = torch.sparse_coo_tensor(
+        torch.stack([dst, src]), torch.ones(len(src), device='cuda'),
+        (B * M, B * M)).coalesce().to_sparse_csr()
+    for C in (256, 32):
+        x = torch.randn((B, M, C), generator=gen, device='cuda')
+        got, how = timed({'kernel': lambda: kb.launch(x, blk),
+                          'library': lambda: torch.sparse.mm(
+                              csr, x.reshape(B * M, C))})
+        b_ms, _ = bound(*_blocked_work(blk, C, 4))
+        log(f'blocked_kernel: hub batch (B={B}, M={M}, '
+            f'{int(blk.mask.sum())} edges, {int(deg.max())} into one '
+            f'node, C={C}, float32 rows): ms per call [{how}]: '
+            f'kernel {got["kernel"][0]:.4f}, torch.sparse.mm '
+            f'{got["library"][0]:.4f}; bound {b_ms:.4f} ms')
+
+
+def _blocked_kernel_calls(gen):
+    """``{name: call}`` of the blocked kernel's ``launch`` on the synthetic
+    source KG's incoming tables at the widths of :data:`BLOCKED_ROWS`
+    and on the hub batch (:func:`_hub_blocks`) at C = 256 and 32, float32
+    rows, built by whichever tree is imported; each name carries the
+    call's bound."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    train_b, _, _ = dbp15k.synthetic_batches(
+        dbp15k.parse_args(KG_ARGV + F32_ARGV))
+    g = GraphBatch.host(train_b.s).to('cuda')
+    cases = [(key, g.blocks_in, C, rows)
+             for key, (_, C, rows) in BLOCKED_ROWS.items()]
+    cases += [(f'blocked hub C={C}', _hub_blocks()[0], C, 'float32')
+              for C in (256, 32)]
+    calls = {}
+    for key, blocks, C, rows in cases:
+        B, M = blocks.inv_degree.shape[:2]
+        x = torch.randn((B, M, C), generator=gen).to(
+            'cuda', getattr(torch, rows))
+        b_ms, _ = bound(*_blocked_work(blocks, C, x.element_size()))
+        calls[f'{key} (bound {b_ms:.4f})'] = functools.partial(
+            kb.launch, x, blocks)
+    return calls
 
 
 def _kg_cli(argv, hook=None):

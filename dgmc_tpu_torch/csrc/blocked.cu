@@ -1,43 +1,44 @@
 // Blocked edge->node aggregation for Hopper (sm_90a).
 //
 // out[b, n, c] = sum over the edges e with destination n of h[b, src_e, c],
-// read straight from the blocked adjacency tables of ops/blocked.py (the JAX
-// package's dgmc_tpu/ops/blocked.py, which computes the same sum as XLA
-// one-hot einsums, ops/blocked.py:148-218; there is no Pallas kernel). The
-// tables: edges stable-sorted by destination, cut into blocks of at most
-// E_b edges whose destinations lie in one aligned range of `rows` nodes,
-// source order within a block; src / dst_local [B, NB, E_b] int32,
-// mask [B, NB, E_b] uint8, range_ptr [B, num_ranges + 1] int32 (range r's
-// blocks are range_ptr[r] .. range_ptr[r + 1] - 1). The same entry serves
-// the backward: the gradient of h is this sum over the transposed tables.
+// the sum of the JAX package's blocked adjacency (dgmc_tpu/ops/blocked.py,
+// which computes it as XLA one-hot einsums, ops/blocked.py:148-218; there
+// is no Pallas kernel). It reads the row table that ops/blocked.py builds
+// beside JAX's blocks, a CSR over destination rows: row_ptr [B, M + 1]
+// int32, row_src [B, E_max] int32, node n's sources
+// row_src[row_ptr[n] .. row_ptr[n + 1] - 1] in the blocks' order (the
+// node's range's blocks in order, each block's slots in order). The same
+// entry serves the backward: the gradient of h is this sum over the
+// transposed direction's table.
 //
-// Design. One block of threads per (range, channel tile, batch element):
-// the range's output rows x a tile of CT = 32 V channels live in shared
-// memory as float32 accumulators ([rows][CT], 64 KB at rows = 128, V = 4).
-// Warp w owns the rows whose offset in the range is w modulo 8. The warps
-// walk the range's blocks in order, 32 edges at a time: each lane reads
-// one edge's (mask, src, dst_local), a ballot marks the warp's own edges,
-// and the warp takes them lowest lane first, GROUP at a time: it loads
-// their rows (lane l reads channels c0 + l + 32 j, coalesced: 128 bytes a
-// warp per j for float32, 64 for bf16) and then adds them to the owned
-// accumulator rows in edge order. Each (row, channel) therefore has one
-// fixed summation order — the range's blocks in order, each block's edges
-// in order — and one thread: no atomics, repeats bit-identical. The
-// range combine of the JAX form is folded in (a block of threads owns its
-// range's rows), and neither the one-hot matrix nor the [E, C] message
-// tensor exists. The accumulators are written once, rows past M cut.
+// Design. One output row per group of L lanes: L = 32 (a warp a row)
+// where a row is at least 32 16-byte vectors wide (C = 256 / 320 in
+// float32, 256 in bf16), fewer at narrow C (C = 32 float32: 8 lanes, four
+// rows a warp), at least 4. Lanes span the channels with 16-byte loads
+// (float4, or 8 bf16 as one uint4 widened in registers; narrower where C
+// or the base address does not allow them), TT vectors a lane; wider rows
+// take several channel tiles (grid.y). The group reads its row's sources
+// coalesced, L at a time, the next L already in flight, and broadcasts
+// them by shuffles; it loads the rows of UNROLL edges a stage, and issues
+// the next stage's loads before it adds the current stage's, so 2 x UNROLL
+// rows a group (at least 8 a warp) are in flight. Each (row, channel) is
+// summed by one thread into a float32 register that starts at 0, in the
+// table's order: the summation order of the earlier shared-memory kernel
+// (blocks in order, slots in order), so the result is the same bit for bit
+// on every input. No shared memory, no ballot, no atomics; repeats
+// bit-identical; each output element written once, coalesced. A hub row
+// is one group's serial sum.
 //
 // Rows are float32, or bf16 where ops/blocked.py casts them (gather_dtype
-// at C * 2 >= 512), widened to float32 as they are read; sums in float32.
+// at C * 2 >= 512), widened to float32 exactly (the bits shifted up).
 //
-// Bound on the H100 (bytes): the h table read once, the output written
-// once, the tables read once. psi_1 at C = 256 on the synthetic DBP15K
-// source KG (15000 nodes, 100000 edges, ~250 blocks of 512): 15.4 MB + 15.4
-// MB + ~1.2 MB, about 9.5 us at 3.35 TB/s; the h table fits in the 50 MB
-// L2, so the gather's repeated row reads (each row ~6.7 times) are L2
-// traffic.
+// Bound on the H100 (bytes, the work's least, whatever implements it): h
+// read once, the float32 output written once, the E sources read once.
+// psi_1 at C = 256 on the synthetic DBP15K source KG (15000 nodes, 100000
+// edges): 15.4 MB + 15.4 MB + 0.4 MB, about 9.3 us at 3.35 TB/s. The h
+// table fits in the 50 MB L2, so the gather's repeated row reads (each
+// row ~6.7 times) are L2 traffic.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,159 +48,295 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-// Edges whose rows a warp loads before it adds them (loads in flight).
-constexpr int GROUP = 4;
-constexpr int V_MAX = 4;
+// Edges whose rows a lane group loads per stage (two stages in flight);
+// also the fewest lanes a row, so that a stage never straddles a batch
+// of sources.
+constexpr int UNROLL = 4;
+// Vectors a lane holds per row at most; wider rows take channel tiles.
+constexpr int TT_MAX = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float widen(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float widen(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// VW elements of type T as one load.
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+
+__device__ __forceinline__ void words(uint4 r, unsigned (&w)[4]) {
+  w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+}
+__device__ __forceinline__ void words(uint2 r, unsigned (&w)[2]) {
+  w[0] = r.x, w[1] = r.y;
+}
+__device__ __forceinline__ void words(unsigned r, unsigned (&w)[1]) {
+  w[0] = r;
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-    blocked_aggregate(const T* __restrict__ h, const int* __restrict__ src,
-                      const int* __restrict__ dst,
-                      const uint8_t* __restrict__ mask,
-                      const int* __restrict__ range_ptr,
-                      float* __restrict__ out, int M, int NB, int E_b,
-                      int num_ranges, int rows, int C) {
-  constexpr int CT = 32 * V;
-  extern __shared__ float acc[];  // [rows][CT]
-  const int range = blockIdx.x, b = blockIdx.z;
-  const int c0 = blockIdx.y * CT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < rows * CT; i += THREADS) acc[i] = 0.f;
-  __syncthreads();
-
-  const T* hb = h + (size_t)b * M * C;
-  const int* ptr = range_ptr + (size_t)b * (num_ranges + 1);
-  const int first = ptr[range], last = ptr[range + 1];
-  for (int blk = first; blk < last; ++blk) {
-    const size_t base = ((size_t)b * NB + blk) * E_b;
-    for (int e0 = 0; e0 < E_b; e0 += 32) {
-      const int e = e0 + lane;
-      int s = 0, d = 0;
-      bool real = false;
-      if (e < E_b && mask[base + e]) {
-        s = src[base + e];
-        d = dst[base + e];
-        real = true;
-      }
-      // Warp-uniform from here on: `mine` is a ballot.
-      unsigned mine = __ballot_sync(FULL, real && d % WARPS == warp);
-      while (mine) {
-        int gs[GROUP], gd[GROUP];
+// The VW values of a raw load of T as float32 (bf16: the bits shifted
+// up, exact).
+template <typename T, int VW, typename Raw>
+__device__ __forceinline__ void widen(Raw r, float (&v)[VW]) {
+  if constexpr (sizeof(Raw) == 2) {
+    v[0] = __uint_as_float((unsigned)r << 16);
+  } else {
+    unsigned w[sizeof(Raw) / 4];
+    words(r, w);
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-        for (int u = 0; u < GROUP; ++u) {
-          const int l = mine ? __ffs(mine) - 1 : 0;
-          const int su = __shfl_sync(FULL, s, l);
-          const int du = __shfl_sync(FULL, d, l);
-          gs[u] = su;
-          gd[u] = mine ? du : -1;
-          mine &= mine - 1;
-        }
-        float v[GROUP][V];
+      for (int i = 0; i < VW; ++i) v[i] = __uint_as_float(w[i]);
+    } else {
 #pragma unroll
-        for (int u = 0; u < GROUP; ++u) {
-#pragma unroll
-          for (int j = 0; j < V; ++j) {
-            const int c = c0 + lane + 32 * j;
-            v[u][j] = (gd[u] >= 0 && c < C)
-                          ? widen(hb + (size_t)gs[u] * C + c)
-                          : 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < GROUP; ++u) {
-          if (gd[u] >= 0) {
-#pragma unroll
-            for (int j = 0; j < V; ++j)
-              acc[gd[u] * CT + lane + 32 * j] += v[u][j];
-          }
-        }
+      for (int i = 0; i < VW / 2; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
       }
     }
   }
-  __syncthreads();
+}
 
-  const int row0 = range * rows;
-  float* ob = out + (size_t)b * M * C;
-  for (int i = threadIdx.x; i < rows * CT; i += THREADS) {
-    const int r = i / CT, c = c0 + i % CT, n = row0 + r;
-    if (n < M && c < C) ob[(size_t)n * C + c] = acc[i];
+template <int VW>
+__device__ __forceinline__ void store(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
   }
 }
 
-template <typename T, int V>
-int launch_v(const T* h, const int* src, const int* dst, const uint8_t* mask,
-             const int* range_ptr, float* out, int B, int M, int NB, int E_b,
-             int num_ranges, int rows, int C, cudaStream_t stream) {
-  constexpr int CT = 32 * V;
-  const size_t smem = (size_t)rows * CT * sizeof(float);
-  auto kernel = blocked_aggregate<T, V>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_ranges, (C + CT - 1) / CT, B);
-  kernel<<<grid, THREADS, smem, stream>>>(h, src, dst, mask, range_ptr, out,
-                                          M, NB, E_b, num_ranges, rows, C);
+// T: float (float32 rows) or unsigned short (bf16 rows' bits).
+template <typename T, int VW, int TT>
+struct Stage {
+  using Raw = typename RawOf<sizeof(T) * VW>::type;
+  Raw r[UNROLL][TT];
+};
+
+// Loads the rows of the stage's UNROLL edges k = kk .. kk + UNROLL - 1
+// (sources: lane (k mod L) of the group holds edge k's in `src`).
+template <typename T, int VW, int TT>
+__device__ __forceinline__ void issue(Stage<T, VW, TT>& st, int src, int kk,
+                                      int deg, int L, const T* hb, int C,
+                                      int c_first, int c_step) {
+  using Raw = typename Stage<T, VW, TT>::Raw;
+#pragma unroll
+  for (int j = 0; j < UNROLL; ++j) {
+    const int k = kk + j;
+    const int s = __shfl_sync(FULL, src, k & (L - 1), L);
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const int c = c_first + t * c_step;
+      st.r[j][t] = Raw{};
+      if (k < deg && c < C)
+        st.r[j][t] =
+            __ldg(reinterpret_cast<const Raw*>(hb + (size_t)s * C + c));
+    }
+  }
+}
+
+// Adds the stage's real edges, in order.
+template <typename T, int VW, int TT>
+__device__ __forceinline__ void add(const Stage<T, VW, TT>& st, int kk, int deg,
+                                    float (&acc)[TT][VW]) {
+#pragma unroll
+  for (int j = 0; j < UNROLL; ++j) {
+    if (kk + j < deg) {
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        float v[VW];
+        widen<T, VW>(st.r[j][t], v);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) acc[t][i] += v[i];
+      }
+    }
+  }
+}
+
+// Grid: (row groups' blocks, channel tiles, B). Lane group g of warp w
+// of block x owns row (x * WARPS + w) * (32 / L) + g; lane `sub` of it
+// the vectors sub + L * t (t < TT) of the block's channel tile.
+template <typename T, int VW, int TT>
+__global__ void __launch_bounds__(THREADS)
+    blocked_aggregate(const T* __restrict__ h, const int* __restrict__ row_ptr,
+                      const int* __restrict__ row_src, float* __restrict__ out,
+                      int M, int E_max, int C, int L) {
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (L - 1);
+  const int row = ((blockIdx.x * WARPS + (threadIdx.x >> 5)) * 32 + lane) / L;
+  const int c_step = L * VW;
+  const int c_first = blockIdx.y * TT * c_step + sub * VW;
+
+  const int* ptr = row_ptr + (size_t)b * (M + 1);
+  const int* rs = row_src + (size_t)b * E_max;
+  int beg = 0, deg = 0;
+  if (row < M) {
+    beg = ptr[row];
+    deg = ptr[row + 1] - beg;
+  }
+  // Warp-uniform trip count: the shuffles take every lane.
+  const int steps = __reduce_max_sync(FULL, deg);
+
+  float acc[TT][VW];
+#pragma unroll
+  for (int t = 0; t < TT; ++t)
+#pragma unroll
+    for (int i = 0; i < VW; ++i) acc[t][i] = 0.f;
+
+  if (steps > 0) {
+    const T* hb = h + (size_t)b * M * C;
+    // Sources of edges [base, base + L) and [base + L, base + 2L).
+    int src = sub < deg ? rs[beg + sub] : 0;
+    int src_next = L + sub < deg ? rs[beg + L + sub] : 0;
+    Stage<T, VW, TT> a, n;
+    issue(a, src, 0, deg, L, hb, C, c_first, c_step);
+    // Stage kk's loads are in `a` on entry; each pass adds two stages.
+    for (int kk = 0; kk < steps; kk += 2 * UNROLL) {
+      int k1 = kk + UNROLL;
+      if (k1 < steps) {
+        if ((k1 & (L - 1)) == 0) {
+          src = src_next;
+          src_next = k1 + L + sub < deg ? rs[beg + k1 + L + sub] : 0;
+        }
+        issue(n, src, k1, deg, L, hb, C, c_first, c_step);
+      }
+      add(a, kk, deg, acc);
+      if (k1 >= steps) break;
+      const int k2 = k1 + UNROLL;
+      if (k2 < steps) {
+        if ((k2 & (L - 1)) == 0) {
+          src = src_next;
+          src_next = k2 + L + sub < deg ? rs[beg + k2 + L + sub] : 0;
+        }
+        issue(a, src, k2, deg, L, hb, C, c_first, c_step);
+      }
+      add(n, k1, deg, acc);
+    }
+  }
+
+  if (row < M) {
+    float* ob = out + ((size_t)b * M + row) * C;
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      const int c = c_first + t * c_step;
+      if (c < C) store<VW>(ob + c, acc[t]);
+    }
+  }
+}
+
+template <typename T, int VW, int TT>
+int launch_tt(const T* h, const int* row_ptr, const int* row_src, float* out,
+              int B, int M, int E_max, int C, int L, cudaStream_t stream) {
+  const int vectors = C / VW;
+  const int tiles = (vectors + L * TT - 1) / (L * TT);
+  const int rows_per_block = WARPS * 32 / L;
+  const long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, tiles, B);
+  blocked_aggregate<T, VW, TT><<<grid, THREADS, 0, stream>>>(
+      h, row_ptr, row_src, out, M, E_max, C, L);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* h, const int* src, const int* dst, const uint8_t* mask,
-           const int* range_ptr, float* out, int B, int M, int NB, int E_b,
-           int num_ranges, int rows, int C, cudaStream_t stream) {
-  const int v = (C + 31) / 32 < V_MAX ? (C + 31) / 32 : V_MAX;
-  switch (v) {
+template <typename T, int VW>
+int launch_vw(const T* h, const int* row_ptr, const int* row_src, float* out,
+              int B, int M, int E_max, int C, cudaStream_t stream) {
+  const int vectors = C / VW;
+  int L = UNROLL;
+  while (L < 32 && L < vectors) L *= 2;
+  const int tt = (vectors + L - 1) / L;
+  switch (tt < TT_MAX ? tt : TT_MAX) {
     case 1:
-      return launch_v<T, 1>(h, src, dst, mask, range_ptr, out, B, M, NB, E_b,
-                            num_ranges, rows, C, stream);
+      return launch_tt<T, VW, 1>(h, row_ptr, row_src, out, B, M, E_max, C, L,
+                                 stream);
     case 2:
-      return launch_v<T, 2>(h, src, dst, mask, range_ptr, out, B, M, NB, E_b,
-                            num_ranges, rows, C, stream);
+      return launch_tt<T, VW, 2>(h, row_ptr, row_src, out, B, M, E_max, C, L,
+                                 stream);
     case 3:
-      return launch_v<T, 3>(h, src, dst, mask, range_ptr, out, B, M, NB, E_b,
-                            num_ranges, rows, C, stream);
+      return launch_tt<T, VW, 3>(h, row_ptr, row_src, out, B, M, E_max, C, L,
+                                 stream);
     default:
-      return launch_v<T, 4>(h, src, dst, mask, range_ptr, out, B, M, NB, E_b,
-                            num_ranges, rows, C, stream);
+      return launch_tt<T, VW, TT_MAX>(h, row_ptr, row_src, out, B, M, E_max,
+                                      C, L, stream);
   }
+}
+
+// The widest load of 16, 8, 4 or `elem` bytes that C and the base address
+// allow, in elements.
+int vector_width(const void* h, int C, int elem) {
+  for (int vw = 16 / elem; vw > 1; vw /= 2)
+    if (C % vw == 0 && (uintptr_t)h % (vw * elem) == 0) return vw;
+  return 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Warps a block of threads, edges a warp loads before it adds them, and
-// the largest channel tile (checked by the wrapper at load).
+// Warps a block of threads, edges a lane group loads per stage (the
+// fewest lanes a row), and vectors a lane holds per row and channel tile
+// at most (checked by the wrapper at load).
 int dgmc_blocked_warps() { return WARPS; }
-int dgmc_blocked_group() { return GROUP; }
-int dgmc_blocked_channel_tile() { return 32 * V_MAX; }
+int dgmc_blocked_unroll() { return UNROLL; }
+int dgmc_blocked_vectors_per_lane() { return TT_MAX; }
 
-// h [B, M, C] float32 (bf16 = 0) or bf16 (bf16 = 1); out [B, M, C] float32,
-// every element written. Launches on `stream` on `device`, does not
-// synchronize, restores the calling thread's current device, returns the
-// first CUDA error.
-int dgmc_blocked_aggregate(const void* h, int bf16, const int* src,
-                           const int* dst_local, const uint8_t* mask,
-                           const int* range_ptr, float* out, int B, int M,
-                           int NB, int E_b, int num_ranges, int rows, int C,
-                           int device, void* stream) {
+// h [B, M, C] float32 (bf16 = 0) or bf16 (bf16 = 1); row_ptr [B, M + 1],
+// row_src [B, E_max] int32; out [B, M, C] float32, every element written.
+// Launches on `stream` on `device`, does not synchronize, restores the
+// calling thread's current device, returns the first CUDA error.
+int dgmc_blocked_aggregate(const void* h, int bf16, const int* row_ptr,
+                           const int* row_src, float* out, int B, int M,
+                           int E_max, int C, int device, void* stream) {
   if (B <= 0 || M <= 0 || C <= 0) return (int)cudaSuccess;
-  if (num_ranges <= 0 || rows <= 0 || B > 65535 ||
-      (size_t)rows * 32 * V_MAX * sizeof(float) > 227 * 1024)
-    return (int)cudaErrorInvalidValue;
+  if (E_max <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     const cudaStream_t s = (cudaStream_t)stream;
-    if (bf16)
-      return launch(static_cast<const __nv_bfloat16*>(h), src, dst_local,
-                    mask, range_ptr, out, B, M, NB, E_b, num_ranges, rows, C,
-                    s);
-    return launch(static_cast<const float*>(h), src, dst_local, mask,
-                  range_ptr, out, B, M, NB, E_b, num_ranges, rows, C, s);
+    if (bf16) {
+      const auto* x = static_cast<const unsigned short*>(h);
+      switch (vector_width(h, C, 2)) {
+        case 8:
+          return launch_vw<unsigned short, 8>(x, row_ptr, row_src, out, B, M,
+                                              E_max, C, s);
+        case 4:
+          return launch_vw<unsigned short, 4>(x, row_ptr, row_src, out, B, M,
+                                              E_max, C, s);
+        case 2:
+          return launch_vw<unsigned short, 2>(x, row_ptr, row_src, out, B, M,
+                                              E_max, C, s);
+        default:
+          return launch_vw<unsigned short, 1>(x, row_ptr, row_src, out, B, M,
+                                              E_max, C, s);
+      }
+    }
+    const auto* x = static_cast<const float*>(h);
+    switch (vector_width(h, C, 4)) {
+      case 4:
+        return launch_vw<float, 4>(x, row_ptr, row_src, out, B, M, E_max, C,
+                                   s);
+      case 2:
+        return launch_vw<float, 2>(x, row_ptr, row_src, out, B, M, E_max, C,
+                                   s);
+      default:
+        return launch_vw<float, 1>(x, row_ptr, row_src, out, B, M, E_max, C,
+                                   s);
+    }
   });
 }
 

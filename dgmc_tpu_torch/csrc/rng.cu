@@ -23,17 +23,23 @@
 //            float64: u1 = ((x0 >> 8) + 1) * 2^-24 in (0, 1],
 //            u2 = (x1 >> 8) * 2^-24, r = sqrt(-2 log u1),
 //            z0 = r cos(2 pi u2), z1 = r sin(2 pi u2), each rounded to
-//            float32 once.
+//            float32 once. The kernel takes cos and sin from one
+//            sincospi(2 u2) (2 u2 is exact, so no reduction by pi); the
+//            plain version from float64 cos and sin of 2 pi u2.
 // Uniforms and negatives are integer and IEEE-exact arithmetic (no
 // product is followed by an add, so no FMA contraction changes them):
 // bit-equal to the plain version. Normals agree unless CUDA's and the
-// CPU's float64 log / sin / cos (each within an ulp or two of float64)
-// straddle a float32 rounding boundary.
+// CPU's float64 log / sincospi / sin / cos (each within an ulp or two of
+// float64) straddle a float32 rounding boundary: at most one float32 ulp.
+// float32 transcendentals would miss that contract, so log and sqrt stay
+// float64.
 //
 // Layout. A draw is `steps` blocks of P elements per pair, stored
 // [steps, B, P] (noise: [num_steps, B, N_s * R], e = step * P + i * R + c;
 // negatives: steps = 1, [B, N_s * num_rnd]). One thread per Philox block,
-// four outputs.
+// four outputs; where P is a multiple of 4 (so a block's four normals lie
+// in one row, 16-byte aligned: both main-path shapes, P = 480000 and 5120)
+// they go out as one 16-byte store, else as four scalar ones.
 //
 // The key is read from device memory (a 0-d int64 tensor holding the 64
 // bits in two's complement), so that a captured CUDA graph of a step reads
@@ -43,7 +49,7 @@
 // n_valid and the key). The dense step's noise [10, 64, 80, 64] float32 is
 // 13.1 MB, about 3.9 us at 3.35 TB/s; the KG step's [10, 1, 15000, 32]
 // 19.2 MB.
-// Normals also spend a float64 log, sqrt, sin and cos per two outputs.
+// Normals also spend a float64 log, sqrt and sincospi per two outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,13 +96,14 @@ enum Kind { NORMAL = 0, NEGATIVES = 1 };
 
 // Thread t draws block q = t % Q of pair b = t / Q (Q blocks a pair) and
 // stores its (up to) four elements e = 4q .. 4q + 3 < n = steps * P at
-// [e / P, b, e % P].
+// [e / P, b, e % P]; with `vec4` (normals, P % 4 == 0, `out` 16-byte
+// aligned) as one float4.
 template <int KIND, typename Out>
 __global__ void __launch_bounds__(THREADS)
     draw(Out* __restrict__ out, const int64_t* __restrict__ n_valid,
          long long P, long long n, long long Q, int B,
          const unsigned long long* __restrict__ key, uint32_t pair_offset,
-         uint32_t stream) {
+         uint32_t stream, bool vec4) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (t >= Q * B) return;
   const unsigned long long k = *key;
@@ -112,9 +119,16 @@ __global__ void __launch_bounds__(THREADS)
       const double u1 = (double)((blk.x[2 * h] >> 8) + 1u) * 0x1p-24;
       const double u2 = (double)(blk.x[2 * h + 1] >> 8) * 0x1p-24;
       const double r = sqrt(-2.0 * log(u1));
-      const double theta = 6.283185307179586 * u2;
-      v[2 * h] = (float)(r * cos(theta));
-      v[2 * h + 1] = (float)(r * sin(theta));
+      double s, c;
+      sincospi(2.0 * u2, &s, &c);
+      v[2 * h] = (float)(r * c);
+      v[2 * h + 1] = (float)(r * s);
+    }
+    if (vec4) {
+      const long long e = 4 * q, step = e / P;
+      *reinterpret_cast<float4*>(out + (step * B + b) * P + (e - step * P)) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      return;
     }
   } else {
 #pragma unroll
@@ -143,6 +157,8 @@ template <int KIND, typename Out>
 int launch(Out* out, const int64_t* n_valid, long long steps, long long P,
            int B, const unsigned long long* key, unsigned pair_offset,
            unsigned stream_id, int device, void* stream) {
+  const bool vec4 =
+      KIND == NORMAL && P % 4 == 0 && (uintptr_t)out % 16 == 0;
   const long long n = steps * P;
   const long long Q = (n + 3) / 4;
   if (B <= 0 || Q <= 0) return (int)cudaSuccess;
@@ -151,7 +167,7 @@ int launch(Out* out, const int64_t* n_valid, long long steps, long long P,
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
     draw<KIND, Out><<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-        out, n_valid, P, n, Q, B, key, pair_offset, stream_id);
+        out, n_valid, P, n, Q, B, key, pair_offset, stream_id, vec4);
     return (int)cudaGetLastError();
   });
 }

@@ -14,13 +14,15 @@ with its tables bit for bit:
    static scale.
 2. Device (:func:`adj_matmul`): ``out[b, n] = Σ_{e: dst_e = n}
    h[b, src_e]``. On the card the hand-written kernel
-   (:mod:`~dgmc_tpu_torch.ops.kernels.blocked`, ``csrc/blocked.cu``) reads
-   the tables directly: one block of threads per node range and channel
-   tile sums each output row over the range's blocks in order, each
-   block's edges in order, in float32, deterministically (no atomics). On
-   the CPU the plain version (:func:`plain_aggregate`) is JAX's ``_routed``:
-   the flattened row gather, the ``[E_b, rows]`` one-hot contraction and
-   the ``[num_ranges, NB]`` combine.
+   (:mod:`~dgmc_tpu_torch.ops.kernels.blocked`, ``csrc/blocked.cu``)
+   reads the row table below: one warp (or, at narrow widths, a group of
+   lanes) per output row sums the row's sources in the table's order, in
+   float32, deterministically (no atomics). On the CPU the plain version
+   (:func:`plain_aggregate`) is JAX's ``_routed``: the flattened row
+   gather, the ``[E_b, rows]`` one-hot contraction and the
+   ``[num_ranges, NB]`` combine. :func:`ordered_aggregate` is torch over
+   the row table, rounding as the kernel does (the tests' and the card
+   check's reference for bit equality; on no main path).
 3. Backward: the gradient of ``h`` is the same aggregation over the
    transposed tables (incoming ↔ outgoing), so it is the same kernel.
 
@@ -31,10 +33,13 @@ wide (``C * 2 >= 512``: ψ₁'s C = 256, the packed ψ₂'s C = 320, and the
 backward's float32 ``d_out`` at those widths); low-precision rows
 narrower than 128 bytes are widened to float32 (exact).
 
-Beside JAX's tables each :class:`EdgeBlocks` carries ``range_ptr``, the
-first block of each range (the kernel's index into the tables), built on
-the host with the rest. ``UnionPair`` / ``batch_pair`` are not ported:
-nothing in the JAX package's CLIs enables them.
+Beside JAX's tables each :class:`EdgeBlocks` carries, built on the host
+with the rest: ``range_ptr``, the first block of each range; and the row
+table the kernel reads, a CSR over destination rows (``row_ptr``,
+``row_src``) whose order within a row is the blocks' own: the range's
+blocks in order, each block's slots in order. ``UnionPair`` /
+``batch_pair`` are not ported: nothing in the JAX package's CLIs enables
+them.
 """
 
 import dataclasses
@@ -44,11 +49,11 @@ import numpy as np
 import torch
 
 __all__ = ['EdgeBlocks', 'build_edge_blocks', 'operand_dtype', 'operand',
-           'plain_aggregate',
+           'plain_aggregate', 'ordered_aggregate',
            'adj_matmul', 'repeat_graph', 'attach_blocks']
 
 _TENSORS = ('src', 'dst_local', 'mask', 'range_id', 'inv_degree',
-            'range_ptr')
+            'range_ptr', 'row_ptr', 'row_src')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +67,13 @@ class EdgeBlocks:
     float32 reciprocal destination in-degree (1 where empty);
     ``range_ptr [B, num_ranges + 1]`` int32: range ``r``'s blocks are
     ``range_ptr[r]:range_ptr[r + 1]`` (blocks past the last pointer pad
-    the batch). ``rows`` and ``num_ranges`` are ints; ``gather_dtype`` the
-    name of the dtype rows travel in (``None``: as they are).
+    the batch). The row table: ``row_ptr [B, N + 1]`` int32 and
+    ``row_src [B, E_max]`` int32, node ``n``'s sources
+    ``row_src[row_ptr[n]:row_ptr[n + 1]]`` in the blocks' order (the
+    range's blocks in order, each block's slots in order; ``E_max`` the
+    batch's most real edges, at least 1, zeros past them). ``rows`` and
+    ``num_ranges`` are ints; ``gather_dtype`` the name of the dtype rows
+    travel in (``None``: as they are).
     """
     src: torch.Tensor
     dst_local: torch.Tensor
@@ -71,6 +81,8 @@ class EdgeBlocks:
     range_id: torch.Tensor
     inv_degree: torch.Tensor
     range_ptr: torch.Tensor
+    row_ptr: torch.Tensor
+    row_src: torch.Tensor
     rows: int
     num_ranges: int
     gather_dtype: Optional[str] = None
@@ -96,7 +108,7 @@ class EdgeBlocks:
 
 def _build_one(src, dst, mask, num_nodes, rows, block_edges):
     """Block one graph's edge list (numpy, on the host): JAX's
-    ``_build_one`` plus the range pointers."""
+    ``_build_one`` plus the range pointers and the row table."""
     src = np.asarray(src)[mask]
     dst = np.asarray(dst)[mask]
     order = np.argsort(dst, kind='stable')
@@ -134,7 +146,14 @@ def _build_one(src, dst, mask, num_nodes, rows, block_edges):
     inv_deg = (1.0 / np.maximum(deg, 1.0))[:, None]
     ptr = np.searchsorted(b_rid, np.arange(num_ranges + 1),
                           side='left').astype(np.int32)
-    return b_src, b_loc, b_msk, b_rid, inv_deg, ptr, num_ranges
+    # The row table: the real slots, blocks in order and slots in order,
+    # stable-sorted by destination node.
+    slot_dst = (b_rid[:, None] * rows + b_loc)[b_msk]
+    row_src = b_src[b_msk][np.argsort(slot_dst, kind='stable')]
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        slot_dst, minlength=num_nodes))]).astype(np.int32)
+    return (b_src, b_loc, b_msk, b_rid, inv_deg, ptr, num_ranges, row_ptr,
+            row_src)
 
 
 def _numpy(a):
@@ -157,6 +176,7 @@ def build_edge_blocks(senders, receivers, edge_mask, num_nodes, rows=128,
         per = [_build_one(src[b], dst[b], edge_mask[b], num_nodes, rows,
                           block_edges) for b in range(dst.shape[0])]
         nb = max(p[0].shape[0] for p in per)
+        e_max = max(1, max(p[8].shape[0] for p in per))
 
         def pad(a, n=nb):
             return np.pad(a, ((0, n - a.shape[0]),) + ((0, 0),) *
@@ -170,7 +190,8 @@ def build_edge_blocks(senders, receivers, edge_mask, num_nodes, rows=128,
             range_id=stack(3),
             inv_degree=torch.from_numpy(np.stack([p[4] for p in per])),
             range_ptr=torch.from_numpy(np.stack([p[5] for p in per])),
-            rows=rows, num_ranges=per[0][6]))
+            row_ptr=torch.from_numpy(np.stack([p[7] for p in per])),
+            row_src=stack(8, e_max), rows=rows, num_ranges=per[0][6]))
     return out[0], out[1]
 
 
@@ -213,6 +234,38 @@ def plain_aggregate(h, blocks):
                == torch.arange(blocks.num_ranges, device=dev)[None, :, None])
     out = torch.einsum('anb,abrc->anrc', combine.to(acc), per_block)
     return out.reshape(B, blocks.num_ranges * blocks.rows, C)[:, :M]
+
+
+def ordered_aggregate(h, blocks):
+    """``out[b, n] = Σ_{e: dst=n} h[b, src_e]`` in the kernel's order and
+    rounding: over the row table, each row's k-th source added at step
+    ``k`` by one elementwise add into a sum that starts at 0, in
+    ``promote(h, float32)`` (the output's dtype), the rows read as
+    :func:`operand` gives them (bf16 widened exactly). The CUDA kernel
+    computes the same sum bit for bit; this is its reference in the
+    tests and on the card, on no main path. ``h [B, M, C]`` →
+    ``[B, M, C]``."""
+    B, M, C = h.shape
+    acc = torch.promote_types(h.dtype, torch.float32)
+    x = operand(h, blocks.gather_dtype).to(acc).reshape(B * M, C)
+    dev = h.device
+    ptr = blocks.row_ptr.to(dev, torch.int64)
+    E = blocks.row_src.shape[1]
+    # Rows by falling degree (stable), so that step k touches a prefix.
+    deg = (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)
+    order = torch.argsort(deg, descending=True, stable=True)
+    first = (ptr[:, :-1] + torch.arange(B, device=dev)[:, None] * E
+             ).reshape(-1)[order]
+    base = (order // M) * M   # the row's batch element's first row
+    src = blocks.row_src.to(dev, torch.int64).reshape(-1)
+    active = torch.bincount(deg, minlength=1).flip(0).cumsum(0).flip(0)
+    active = active.cpu().tolist()   # active[k]: rows of degree >= k
+    out = torch.zeros(B * M, C, dtype=acc, device=dev)
+    for k in range(1, len(active)):
+        n = active[k]
+        out[:n] = out[:n] + x[base[:n] + src[first[:n] + (k - 1)]]
+    return torch.empty_like(out).index_copy_(0, order, out).reshape(
+        B, M, C)
 
 
 def _aggregate(h, blocks):

@@ -1,14 +1,19 @@
-"""Blocked edge→node aggregation: CUDA kernel and plain version.
+"""Blocked edge→node aggregation: CUDA kernel and plain versions.
 
 The kernel (``csrc/blocked.cu``) sums ``out[b, n] = Σ_{e: dst=n}
-h[b, src_e]`` straight from the tables of
-:class:`~dgmc_tpu_torch.ops.blocked.EdgeBlocks`: one block of threads per
-node range and channel tile, float32 accumulators in shared memory, each
-output row summed over its range's blocks in order and each block's edges
-in order, by one thread per channel — deterministic, no atomics. It has
-no Pallas counterpart: the JAX package computes the same sum as XLA
-one-hot einsums (``dgmc_tpu/ops/blocked.py:148-218``), which is the plain
-version here (:func:`~dgmc_tpu_torch.ops.blocked.plain_aggregate`).
+h[b, src_e]`` from the row table of
+:class:`~dgmc_tpu_torch.ops.blocked.EdgeBlocks` (``row_ptr``,
+``row_src``: each row's sources in the blocks' order): one output row per
+group of lanes (a warp where the row has at least 32 16-byte vectors;
+fewer lanes, several rows a warp, at narrow C), 16-byte loads across the
+channels, the next stage's rows loaded before the current stage's are
+added, each (row, channel) summed by one thread into float32 in the
+table's order — deterministic, no atomics, no shared memory. It has no
+Pallas counterpart: the JAX package computes the same sum as XLA one-hot
+einsums (``dgmc_tpu/ops/blocked.py:148-218``), which is the plain version
+of record here (:func:`~dgmc_tpu_torch.ops.blocked.plain_aggregate`);
+:func:`~dgmc_tpu_torch.ops.blocked.ordered_aggregate` rounds exactly as
+the kernel does.
 
 :func:`aggregate` is the wrapper: a CPU tensor takes the plain version; a
 CUDA tensor of float32 or bfloat16 launches the kernel on the rows
@@ -25,14 +30,40 @@ import torch
 from dgmc_tpu_torch.ops import blocked as blocked_ops
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['WARPS', 'GROUP', 'CHANNEL_TILE', 'aggregate', 'launch']
+__all__ = ['WARPS', 'UNROLL', 'VECTORS_PER_LANE', 'launch_plan',
+           'aggregate', 'launch']
 
-#: Warps a block of threads, edges a warp loads before it adds them, the
-#: widest channel tile (32 channels a lane column, at most 4 columns;
-#: checked against the compiled library at load).
+#: Warps a block of threads, edges a lane group loads per stage (two
+#: stages in flight; also the fewest lanes a row), 16-byte vectors a lane
+#: holds per row and channel tile at most (checked against the compiled
+#: library at load).
 WARPS = 8
-GROUP = 4
-CHANNEL_TILE = 128
+UNROLL = 4
+VECTORS_PER_LANE = 4
+
+
+def launch_plan(M, C, itemsize, address=0):
+    """The kernel's launch for ``M`` rows of ``C`` values of ``itemsize``
+    bytes at ``address`` (as ``csrc/blocked.cu`` computes it): ``vw``
+    values a load (the widest of 16, 8, 4 bytes or one value that ``C``
+    and the address allow), ``lanes`` a row (a power of two from
+    :data:`UNROLL` to 32, at least the row's vectors where it can),
+    ``tt`` vectors a lane, ``tiles`` channel tiles and ``blocks`` blocks
+    of ``32 * WARPS`` threads per batch element."""
+    vw = 1
+    for w in (16 // itemsize, 8 // itemsize, 4 // itemsize):
+        if w > 1 and C % w == 0 and address % (w * itemsize) == 0:
+            vw = w
+            break
+    vectors = C // vw
+    lanes = UNROLL
+    while lanes < 32 and lanes < vectors:
+        lanes *= 2
+    tt = min(-(-vectors // lanes), VECTORS_PER_LANE)
+    rows_per_block = WARPS * 32 // lanes
+    return {'vw': vw, 'lanes': lanes, 'tt': tt,
+            'tiles': -(-vectors // (lanes * tt)),
+            'blocks': -(-M // rows_per_block)}
 
 
 def _library():
@@ -40,18 +71,18 @@ def _library():
     lib = load_library('blocked.cu')
     if not getattr(lib, 'blocked_bound', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgmc_blocked_aggregate.argtypes = ([p, i] + [p] * 5 + [i] * 7
-                                               + [i, p])
+        lib.dgmc_blocked_aggregate.argtypes = ([p, i] + [p] * 3 + [i] * 5
+                                               + [p])
         lib.dgmc_blocked_aggregate.restype = i
-        for name in ('dgmc_blocked_warps', 'dgmc_blocked_group',
-                     'dgmc_blocked_channel_tile'):
+        names = ('dgmc_blocked_warps', 'dgmc_blocked_unroll',
+                 'dgmc_blocked_vectors_per_lane')
+        for name in names:
             getattr(lib, name).restype = i
-        got = (lib.dgmc_blocked_warps(), lib.dgmc_blocked_group(),
-               lib.dgmc_blocked_channel_tile())
-        if got != (WARPS, GROUP, CHANNEL_TILE):
+        got = tuple(getattr(lib, name)() for name in names)
+        want = (WARPS, UNROLL, VECTORS_PER_LANE)
+        if got != want:
             raise RuntimeError(f'csrc/blocked.cu launch constants {got} '
-                               f'differ from the wrapper\'s '
-                               f'{(WARPS, GROUP, CHANNEL_TILE)}')
+                               f'differ from the wrapper\'s {want}')
         lib.blocked_bound = True
     return lib
 
@@ -64,7 +95,8 @@ def _check(h, blocks):
     if blocks.src.dim() != 3 or blocks.src.shape[0] != B:
         raise ValueError(f'blocks of {tuple(blocks.src.shape)} do not match '
                          f'h of {tuple(h.shape)}')
-    if tuple(blocks.inv_degree.shape[:2]) != (B, M):
+    if (tuple(blocks.inv_degree.shape[:2]) != (B, M)
+            or tuple(blocks.row_ptr.shape) != (B, M + 1)):
         raise ValueError(f'blocks built for {blocks.inv_degree.shape[1]} '
                          f'nodes; h has {M} rows')
     devs = {t.device for t in blocks.tensors()} | {h.device}
@@ -78,25 +110,24 @@ def launch(x, blocks):
     :func:`~dgmc_tpu_torch.ops.blocked.operand` gives them) →
     ``[B, M, C]`` float32; counts nothing (timing)."""
     B, M, C = x.shape
-    NB, E_b = blocks.src.shape[1], blocks.src.shape[2]
     x = x.contiguous()
-    tabs = [t.contiguous() for t in (blocks.src, blocks.dst_local,
-                                     blocks.mask, blocks.range_ptr)]
-    if any(t.dtype != want for t, want in zip(
-            tabs, (torch.int32, torch.int32, torch.bool, torch.int32))):
-        raise TypeError('blocked tables must be int32 (src, dst_local, '
-                        'range_ptr) and bool (mask)')
+    ptr, src = blocks.row_ptr.contiguous(), blocks.row_src.contiguous()
+    if ptr.dtype != torch.int32 or src.dtype != torch.int32:
+        raise TypeError('the blocked row table (row_ptr, row_src) must be '
+                        'int32')
+    if src.dim() != 2 or src.shape[0] != B or src.shape[1] < 1:
+        raise ValueError(f'row_src of {tuple(src.shape)} does not match h '
+                         f'of {tuple(x.shape)}')
     out = torch.empty((B, M, C), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device)
     err = _library().dgmc_blocked_aggregate(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        *(t.data_ptr() for t in tabs[:3]), tabs[3].data_ptr(),
-        out.data_ptr(), B, M, NB, E_b, blocks.num_ranges, blocks.rows, C,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr.data_ptr(),
+        src.data_ptr(), out.data_ptr(), B, M, src.shape[1], C,
         stream.device_index, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f'blocked kernel launch failed with CUDA error '
-                           f'{err} (B={B}, M={M}, C={C}, NB={NB}, '
-                           f'E_b={E_b}, rows={blocks.rows}, {x.dtype})')
+                           f'{err} (B={B}, M={M}, C={C}, '
+                           f'E_max={src.shape[1]}, {x.dtype})')
     return out
 
 

@@ -13,6 +13,15 @@ Tolerances, stated per check:
   correspondences atol 1e-5, gradients rtol 1e-4 / atol 1e-4 x max|grad|
   per tensor (the tolerances of tests/test_torch_graph_rel.py and
   tests/test_torch_sparse_train.py for the unblocked path).
+- the row table (``row_ptr``, ``row_src``): equal to a pure-Python walk
+  of the blocks in the kernel's order (ranges, then blocks, then slots).
+- ``ordered_aggregate`` (the kernel's order and rounding): bit-equal to
+  the plain version and to JAX's ``adj_matmul`` on integer-valued rows
+  (every sum exact); within rtol 1e-5 / atol 1e-5 x max|out| of both on
+  random float32 rows (the same float32 terms in another order); with
+  bf16 rows under ``gather_dtype``, within one bf16 ulp of the float64
+  sum of the widened rows, plus 1e-5 x max|out| for sums that cancel
+  (an ulp of a value near 0 is smaller than float32 summation error).
 - bf16 policy with ``gather_dtype='bfloat16'``: the forward within 2^-6
   relative plus 1e-2 of the largest |value| (bf16 products in another
   order, each output rounded to bf16 once), the gradients within 2e-2 of
@@ -113,6 +122,148 @@ def test_build_edge_blocks_tables_equal_jax(hub):
     if hub:
         # The hub's range takes several blocks of one range.
         assert (t_in.range_ptr[0, 1] - t_in.range_ptr[0, 0]) > 5
+
+
+def _walk_row_table(blocks, num_nodes):
+    """The row table by a pure-Python walk of the blocks in the order
+    the kernel sums them: ranges in order, each range's blocks in order,
+    each block's slots in order, a row's edges in slot order."""
+    B = blocks.src.shape[0]
+    ptrs, srcs = [], []
+    for b in range(B):
+        per_row = [[] for _ in range(num_nodes)]
+        rp = blocks.range_ptr[b].tolist()
+        for r in range(blocks.num_ranges):
+            for blk in range(rp[r], rp[r + 1]):
+                for e in range(blocks.src.shape[2]):
+                    if blocks.mask[b, blk, e]:
+                        row = r * blocks.rows + int(blocks.dst_local[b, blk,
+                                                                     e])
+                        per_row[row].append(int(blocks.src[b, blk, e]))
+        ptrs.append(np.cumsum([0] + [len(r) for r in per_row]))
+        srcs.append([s for r in per_row for s in r])
+    return ptrs, srcs
+
+
+@pytest.mark.parametrize('case', ['hub', 'padded', 'edgeless', 'ragged_n'])
+def test_row_table_is_the_kernels_walk_of_the_blocks(case):
+    """row_ptr / row_src in both directions equal the walk of the blocks
+    the shared-memory kernel summed in: a hub batch (one range of many
+    blocks), a batch padded to one block count (its second element has
+    fewer blocks), an edgeless graph beside a full one, and N no multiple
+    of the range (130 nodes in ranges of 32)."""
+    n = 130 if case == 'ragged_n' else 200
+    a = _arrays(14, 2, n, 1300, 4, hub=case == 'hub')
+    if case == 'padded':
+        a['edge_mask'][1, 400:] = False
+    if case == 'edgeless':
+        a['edge_mask'][0] = False
+    t_in, t_out = tb.build_edge_blocks(a['senders'], a['receivers'],
+                                       a['edge_mask'], n, rows=32,
+                                       block_edges=64)
+    for blocks in (t_in, t_out):
+        ptrs, srcs = _walk_row_table(blocks, n)
+        assert blocks.row_ptr.dtype == blocks.row_src.dtype == torch.int32
+        assert tuple(blocks.row_ptr.shape) == (2, n + 1)
+        assert blocks.row_src.shape[1] == max(1, max(map(len, srcs)))
+        for b in range(2):
+            np.testing.assert_array_equal(blocks.row_ptr[b].numpy(),
+                                          ptrs[b])
+            got = blocks.row_src[b].numpy()
+            np.testing.assert_array_equal(got[:len(srcs[b])], srcs[b])
+            assert not got[len(srcs[b]):].any()
+    if case == 'padded':
+        assert int(t_in.mask[1].any(-1).sum()) < t_in.src.shape[1]
+    if case == 'edgeless':
+        assert int(t_in.row_ptr[0, -1]) == 0 and int(t_in.row_ptr[1, -1]) > 0
+
+
+def _bf16_ulp(x):
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - 8)
+
+
+@pytest.mark.parametrize('hub', [False, True])
+@pytest.mark.parametrize('C', [1, 32, 40])
+def test_ordered_aggregate_matches_plain_and_jax(C, hub):
+    """The kernel's reference, both directions: bit-equal to the plain
+    version and to JAX's adj_matmul on integer rows, within rtol 1e-5 /
+    atol 1e-5 x max|out| on random float32 rows."""
+    a = _arrays(15 + C, 2, 130, 1300, C, hub=hub)
+    args = (a['senders'], a['receivers'], a['edge_mask'], 130)
+    j_in, j_out = jb.build_edge_blocks(*args, rows=32, block_edges=64)
+    t_in, t_out = tb.build_edge_blocks(*args, rows=32, block_edges=64)
+    ints = np.random.RandomState(C).randint(-4, 5, (2, 130, C)).astype(
+        np.float32)
+    for jf, jr, tf in ((j_in, j_out, t_in), (j_out, j_in, t_out)):
+        for x, exact in ((ints, True), (a['x'], False)):
+            got = tb.ordered_aggregate(torch.from_numpy(x), tf)
+            plain = tb.plain_aggregate(torch.from_numpy(x), tf)
+            want = torch.from_numpy(np.array(
+                jb.adj_matmul(jnp.asarray(x), jf, jr)))
+            assert got.dtype == torch.float32
+            for other in (plain, want):
+                if exact:
+                    assert torch.equal(got, other)
+                else:
+                    torch.testing.assert_close(
+                        got, other, rtol=1e-5,
+                        atol=1e-5 * float(other.abs().max()))
+
+
+def test_ordered_aggregate_bf16_rows_within_an_ulp_of_the_widened_sum():
+    """gather_dtype bf16 at C = 256 and 320: the rows are rounded to
+    bf16, widened exactly and summed in float32; within one bf16 ulp
+    (plus 1e-5 x max|out|) of the float64 sum of the widened rows, as
+    JAX's adj_matmul under the same gather_dtype is."""
+    for C in (256, 320):
+        a = _arrays(16, 1, 150, 800, C, hub=True)
+        args = (a['senders'], a['receivers'], a['edge_mask'], 150)
+        j_in, j_out = (b.replace(gather_dtype='bfloat16') for b in
+                       jb.build_edge_blocks(*args, rows=32, block_edges=64))
+        t_in, _ = (b.replace(gather_dtype='bfloat16') for b in
+                   tb.build_edge_blocks(*args, rows=32, block_edges=64))
+        x = torch.from_numpy(a['x'])
+        got = tb.ordered_aggregate(x, t_in)
+        widened = x.to(BF16).double().numpy()
+        ref = torch.from_numpy(_dense_reference(a, widened))
+        jax_out = torch.from_numpy(np.array(
+            jb.adj_matmul(jnp.asarray(a['x']), j_in, j_out))).double()
+        for out in (got.double(), jax_out):
+            tol = _bf16_ulp(ref) + 1e-5 * float(ref.abs().max())
+            assert bool(((out - ref).abs() <= tol).all())
+        assert not torch.equal(got, tb.ordered_aggregate(
+            x, t_in.replace(gather_dtype=None)))
+
+
+def test_launch_plan_follows_the_kernel_source():
+    """The wrapper's constants are the source's, and its launch plan
+    gives the grid the kernel computes at the main path's widths."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tb.__file__).parent.parent / 'csrc' /
+           'blocked.cu').read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r'constexpr int (\w+) = (\d+);', src)}
+    assert (consts['WARPS'], consts['UNROLL'], consts['TT_MAX']) == (
+        kb.WARPS, kb.UNROLL, kb.VECTORS_PER_LANE)
+    plan = kb.launch_plan
+    # C = 32 float32 on the 15000-node source KG: 8 lanes a row, 469
+    # blocks of 256 threads.
+    assert plan(15000, 32, 4) == {'vw': 4, 'lanes': 8, 'tt': 1, 'tiles': 1,
+                                  'blocks': 469}
+    assert plan(15000, 256, 4) == {'vw': 4, 'lanes': 32, 'tt': 2,
+                                   'tiles': 1, 'blocks': 1875}
+    assert plan(15000, 320, 4)['tt'] == 3
+    assert plan(15000, 256, 2) == {'vw': 8, 'lanes': 32, 'tt': 1,
+                                   'tiles': 1, 'blocks': 1875}
+    assert plan(15000, 320, 2)['tt'] == 2
+    assert plan(10, 1, 4) == {'vw': 1, 'lanes': 4, 'tt': 1, 'tiles': 1,
+                              'blocks': 1}
+    assert plan(10, 40, 4)['lanes'] == 16
+    assert plan(10, 600, 4) == {'vw': 4, 'lanes': 32, 'tt': 4, 'tiles': 2,
+                                'blocks': 2}
+    assert plan(10, 256, 4, address=8)['vw'] == 2
+    assert plan(10, 256, 2, address=2)['vw'] == 1
 
 
 @pytest.mark.parametrize('default_sizes', [False, True])
@@ -408,7 +559,9 @@ def test_blocked_graph_round_trip_and_static_copy():
     a = tb.attach_blocks(_arrays(10, 1, 80, 400, 4), rows=16,
                          block_edges=32, min_nodes=1)
     g = GraphBatch.from_numpy(a, 'cpu')
-    assert len(g.fields()) == 5 + 2 * 6
+    assert len(g.fields()) == 5 + 2 * 8
+    assert torch.equal(g.blocks_in.row_src, a['blocks_in'].row_src)
+    assert torch.equal(g.blocks_out.row_ptr, a['blocks_out'].row_ptr)
     s = g.static_like('cpu')
     assert s.blocks_in.meta == g.blocks_in.meta
     s.copy_from(g)
@@ -421,8 +574,16 @@ def test_blocked_graph_round_trip_and_static_copy():
     r = tb.repeat_graph(g, 3)
     assert r.x.shape[0] == 3 and r.blocks_out.src.shape[0] == 3
     assert torch.equal(r.blocks_out.range_ptr[2], g.blocks_out.range_ptr[0])
+    assert torch.equal(r.blocks_out.row_ptr[2], g.blocks_out.row_ptr[0])
+    assert torch.equal(r.blocks_in.row_src[1], g.blocks_in.row_src[0])
+    torch.testing.assert_close(
+        tb.ordered_aggregate(r.x, r.blocks_in),
+        tb.ordered_aggregate(g.x, g.blocks_in).repeat(3, 1, 1), rtol=0,
+        atol=0)
     rd = tb.repeat_graph(a, 2)
     assert rd['blocks_in'].inv_degree.shape[0] == 2
+    assert rd['blocks_in'].row_src.shape[0] == 2
+    assert s.blocks_in.row_src.data_ptr() != g.blocks_in.row_src.data_ptr()
 
     # A compiled function reads the tables from its static buffers.
     m = RelCNN(4, 8, 2).eval()

@@ -843,6 +843,32 @@ def test_blocked_kernel_matches_plain(cuda, C, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('C', [1, 32, 40, 256, 320])
+@pytest.mark.parametrize('rows', ['float32', 'bfloat16'])
+def test_blocked_kernel_matches_ordered_aggregate(cuda, C, rows):
+    """The kernel bit-identical to ordered_aggregate (its order and
+    rounding, in torch) on random rows: a hub batch beside a padded
+    element and an edgeless graph, both directions, the rows also as a
+    view at an odd element offset (narrower loads)."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.blocked import build_edge_blocks
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    rng = np.random.RandomState(100 + C)
+    gd = None if rows == 'float32' else 'bfloat16'
+    dt = getattr(torch, rows)
+    snd = rng.randint(0, 700, (1, 3000))
+    edgeless = build_edge_blocks(snd, snd, np.zeros((1, 3000), bool), 700)
+    for blocks in (*_blocked_case(rng, 2, 700, 9000, hub=True), *edgeless):
+        blk = blocks.map(lambda t: t.to(cuda)).replace(gather_dtype=gd)
+        B = blk.src.shape[0]
+        flat = torch.from_numpy(rng.randn(B * 700 * C + 1)).to(cuda, dt)
+        for h in (flat[:-1].view(B, 700, C), flat[1:].view(B, 700, C)):
+            got = kb.aggregate(h, blk)
+            assert torch.equal(got, ob.ordered_aggregate(h, blk))
+            assert torch.equal(got, kb.aggregate(h, blk))
+
+
+@pytest.mark.cuda
 def test_blocked_adj_matmul_gradient_on_the_card(cuda):
     """adj_matmul's backward is the kernel over the transposed tables:
     bit-equal to the plain version's on integer cotangents."""
