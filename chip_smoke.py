@@ -241,6 +241,24 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   the eager engine's. Each part's kernels are held against their plain
   versions on the card on the inputs the path gave them
   (:func:`hold_path_kernels`).
+- ``resume``: checkpoints, the guard and resume at the DBP15K width
+  (float32, captured; :func:`phase_resume`): (a) an uninterrupted
+  6-epoch run (3 of phase 1) with ``--ckpt_dir``, launches as
+  ``kg_train``'s; (b) the same run killed by ``sigkill@5`` after
+  ``ckpt-corrupt@4``, then resumed in a second process past the corrupt
+  step: its step-6 checkpoint (every model tensor and Adam tensor) and
+  last eval line bit-identical to (a)'s; (c) ``--guard-bad-steps 1
+  --inject-fault nan-grads@5``: the bad step skipped in the graph, the
+  rollback to (a)'s step-4 parameters bit for bit, the guarded step eager
+  against captured bit for bit, the device ops of an unguarded replay,
+  one with the guard alone and one with the fault armed too; then
+  ``--guard-bad-steps 3`` with no fault, resumed from (a)'s step 2
+  through both phases: its steps 4 and 6 bit-identical to (a)'s; (d) the
+  serve CLI over (a)'s checkpoint twice (cache
+  miss, then hit, the same answers) and ``--init-missing`` answering as
+  the seeded CLI. Each save's seconds and bytes, the restore's seconds
+  and the seconds to the first step after it, beside the card's name and
+  power limit.
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -278,6 +296,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2352,9 +2371,10 @@ def _clone(out):
     return {k: v.clone() for k, v in out.items()}
 
 
-def _hold_identical(label, eager, captured):
+def _hold_identical(label, eager, captured,
+                    what='the eager step and the replay'):
     """Two dicts of tensors bit-identical; else name the first that
-    differs and by how much."""
+    differs (between ``what``) and by how much."""
     if set(eager) != set(captured):
         raise AssertionError(f'{label}: keys {sorted(eager)} against '
                              f'{sorted(captured)}')
@@ -2363,8 +2383,8 @@ def _hold_identical(label, eager, captured):
         if v.shape != w.shape or v.dtype != w.dtype or not torch.equal(v, w):
             diff = ((v.double() - w.double()).abs().max().item()
                     if v.shape == w.shape else 'shape')
-            raise AssertionError(f'{label}: {k} differs between the eager '
-                                 f'step and the replay (max |diff| {diff})')
+            raise AssertionError(f'{label}: {k} differs between {what} '
+                                 f'(max |diff| {diff})')
 
 
 def _hold_states(label, models, states):
@@ -4199,6 +4219,357 @@ def phase_kg_tiers(res):
         f'{n} (one a chunk, one for the verified prefix)')
 
 
+#: The resume phase's schedule: 6 epochs, 3 of phase 1, a checkpoint every
+#: 2 (the guard's run every epoch, so that the step after its rollback is
+#: on disk).
+RESUME_ARGV = ['--epochs', '6', '--phase1_epochs', '3', '--ckpt_every', '2']
+
+
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _eval_lines(out):
+    """The printed eval lines without their seconds per epoch."""
+    return [re.sub(r' \([0-9.]+s/epoch\)', '', line)
+            for line in out.splitlines() if re.match(r'\d{3}: Loss', line)]
+
+
+def _hold_checkpoints(label, a, b):
+    """Two checkpoint payloads bit-identical: every model tensor, every
+    Adam moment and count, the steps."""
+    if (a['step'], a['state_step']) != (b['step'], b['state_step']):
+        raise AssertionError(f'{label}: steps {a["step"]}/{a["state_step"]} '
+                             f'against {b["step"]}/{b["state_step"]}')
+    want = dict(a['model'])
+    got = dict(b['model'])
+    for i, st in a['optimizer']['state'].items():
+        for k, v in st.items():
+            want[f'adam {i} {k}'] = v
+            got[f'adam {i} {k}'] = b['optimizer']['state'][i][k]
+    _hold_identical(label, want, got, 'the two checkpoints')
+    return len(want)
+
+
+def _kg_marks(label, marks, phase1_epochs, first=1):
+    """The KG path's launches per step and eval from the hook's marks
+    (``(kind, epoch, counts)``, the counters set to 0 before the run) at
+    ``KG_PER``'s counts."""
+    prev = {k: 0 for k in KG_KERNELS}
+    for kind, epoch, cnt in marks:
+        w = KG_PER[('train' if kind == 'train' else 'eval',
+                    1 if epoch <= phase1_epochs else 2)]
+        got = tuple(cnt[k] - prev[k] for k in KG_KERNELS)
+        if got != w:
+            raise AssertionError(f'{label} {kind} epoch {epoch}: launches '
+                                 f'{got}, expected {w} {KG_KERNELS}')
+        prev = cnt
+    return prev
+
+
+def phase_resume(smi_line):
+    """Checkpoints, resume and the guard at the DBP15K width (float32,
+    captured), each run through ``dbp15k`` with ``RESUME_ARGV``:
+
+    (a) an uninterrupted run, ``--ckpt_dir A`` (in this process, the
+    launch counters set to 0 before it: ``KG_PER``'s counts a step);
+    (b) the same run crashed and resumed in two processes of
+    ``python -m dgmc_tpu_torch.experiments.dbp15k``, ``--ckpt_dir B
+    --inject-fault ckpt-corrupt@4 --inject-fault sigkill@5``: the first
+    dies by SIGKILL, the second falls back past step 4 (its manifest
+    mismatch), resumes at epoch 3 and finishes; B's step-6 checkpoint
+    equals A's bit for bit (every model tensor and Adam moment and count)
+    and so does its last eval line;
+    (c) ``--ckpt_dir C --ckpt_every 1 --guard-bad-steps 1 --inject-fault
+    nan-grads@5``: epoch 5 reports ``bad_step`` with ``skip_count`` 1, the
+    rollback restores the epoch-4 snapshot (C's step 5, saved after it,
+    equals A's step-4 parameters bit for bit, its Adam state zeros),
+    epoch 6's loss is finite, C's step 4 equals A's (the guarded captured
+    step changes no bit of a clean update); then the guarded phase-2 step
+    eager and captured from C's step 4, on the bad epoch 5 and the clean
+    epoch 6: outputs, parameters, Adam state and counters bit-identical,
+    launches equal; the device ops and device time of one replay of the
+    captured phase-2 step unguarded, with the guard alone and with the
+    fault armed too, printed (the profiler must record each, and each
+    adds ops); then ``--ckpt_dir D --guard-bad-steps 3`` with no fault
+    over a copy of A's step 2: it resumes at epoch 3, runs both phases
+    (each leaves some parameters without a gradient) with no bad step,
+    prints A's eval lines with the counters at 0, and its steps 4 and 6
+    equal A's bit for bit;
+    (d) ``python -m dgmc_tpu_torch.serve --ckpt_dir A --num-queries 4``
+    twice (the corpus cache missed, then hit; the answers identical; the
+    restored ψ₁'s ``params_fingerprint`` not the seeded model's), and
+    ``--init-missing`` on an empty directory answering exactly as the
+    seeded CLI without ``--ckpt_dir``.
+
+    Prints each save's seconds and bytes, the restore's seconds and the
+    seconds from the restore's start to the end of the first step run
+    after it, beside the card's name and power limit."""
+    import io
+    import tempfile
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.serve import cli as serve_cli
+    from dgmc_tpu_torch.serve.corpus import params_fingerprint
+    from dgmc_tpu_torch.train.checkpoint import Checkpointer, STATE_FILE
+    from dgmc_tpu_torch.train.state import (create_train_state,
+                                            with_guard_counters)
+    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+    import dgmc_tpu_torch
+    base = KG_ARGV + F32_ARGV + RESUME_ARGV
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        dgmc_tpu_torch.__file__)))
+
+    def payload(d, step):
+        return torch.load(os.path.join(d, str(step), STATE_FILE),
+                          map_location='cpu', weights_only=True)
+
+    def marked_run(argv):
+        marks, outs = [], {}
+
+        def hook(kind, epoch, out):
+            marks.append((kind, epoch, dispatch.launch_counts()))
+            outs[(kind, epoch)] = out
+        dispatch.reset()
+        _, out = _kg_cli(argv, hook)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return marks, outs, out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        A, B, C = (os.path.join(tmp, n) for n in 'ABC')
+        # (a) uninterrupted
+        t0 = time.perf_counter()
+        marks, _, out_a = marked_run(base + ['--ckpt_dir', A,
+                                             '--metrics_log', A + '.jsonl'])
+        counts = _kg_marks('resume (a)', marks, 3)
+        saves = [(e['step'], e['save_s'], e['save_bytes'])
+                 for e in _read_jsonl(A + '.jsonl')
+                 if e.get('event') == 'checkpoint']
+        if [s[0] for s in saves] != [2, 4, 6] or \
+                Checkpointer(A).all_steps() != [2, 4, 6]:
+            raise AssertionError(f'resume (a): saves {saves}')
+        log(f'resume (a): 6 epochs (3 of phase 1) through dbp15k.main in '
+            f'{time.perf_counter() - t0:.1f}s, launches '
+            f'{dict((k, counts[k]) for k in KG_KERNELS)} at KG_PER\'s counts '
+            f'a step; saves (step, seconds, bytes) {saves} on {smi_line}')
+
+        # (b) crashed and resumed, in two processes
+        cmd = [sys.executable, '-m', 'dgmc_tpu_torch.experiments.dbp15k',
+               *base, '--ckpt_dir', B, '--metrics_log', B + '.jsonl',
+               '--inject-fault', 'ckpt-corrupt@4',
+               '--inject-fault', 'sigkill@5']
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                               text=True, timeout=900)
+            runs.append(r)
+            for line in (r.stdout + r.stderr).splitlines():
+                log(f'  | {line}')
+            log(f'resume (b): process {len(runs)} exited {r.returncode} '
+                f'after {time.perf_counter() - t0:.1f}s')
+        if runs[0].returncode != -9:
+            raise AssertionError(f'resume (b): the first process exited '
+                                 f'{runs[0].returncode}, not by SIGKILL')
+        if runs[1].returncode != 0 or \
+                'at epoch 2. (latest step 4 was unrestorable)' \
+                not in runs[1].stdout or \
+                'step 4 failed verification' not in runs[1].stderr:
+            raise AssertionError('resume (b): the second process did not '
+                                 'fall back past step 4 and finish')
+        n = _hold_checkpoints('resume (b): B step 6 against A step 6',
+                              payload(A, 6), payload(B, 6))
+        la, lb = _eval_lines(out_a), _eval_lines(runs[1].stdout)
+        if la[-1] != lb[-1] or lb != la[-len(lb):]:
+            raise AssertionError(f'resume (b): eval lines {lb} against {la}')
+        ev = {e.get('event'): e for e in _read_jsonl(B + '.jsonl')}
+        log(f'resume (b): SIGKILL at epoch 5, then resumed at epoch 3 past '
+            f'the corrupt step 4: step 6 bit-identical to A\'s ({n} model '
+            f'tensors and Adam tensors), last eval line equal '
+            f'({lb[-1]!r}); restore {ev["resume"]["restore_s"]:.4f} s, '
+            f'restore to the end of the first step '
+            f'{ev["resume_first_step"]["seconds"]:.3f} s (the phase-1 '
+            f'graph\'s capture included) on {smi_line}')
+
+        # (c) the guard inside the graph
+        t0 = time.perf_counter()
+        marks, outs, out_c = marked_run(
+            base + ['--ckpt_dir', C, '--ckpt_every', '1',
+                    '--guard-bad-steps', '1', '--inject-fault',
+                    'nan-grads@5', '--metrics_log', C + '.jsonl'])
+        _kg_marks('resume (c)', marks, 3)
+        bad = {e: bool(o['bad_step']) for (k, e), o in outs.items()
+               if k == 'train'}
+        if bad != {e: e == 5 for e in range(1, 7)} or \
+                int(outs[('train', 5)]['skip_count']) != 1 or \
+                not np.isfinite(float(outs[('train', 6)]['loss'])):
+            raise AssertionError(f'resume (c): bad steps {bad}')
+        rb = [e for e in _read_jsonl(C + '.jsonl')
+              if e.get('event') == 'rollback']
+        if [(e['step'], e['rollback_to']) for e in rb] != [(5, 4)]:
+            raise AssertionError(f'resume (c): rollbacks {rb}')
+        _hold_checkpoints('resume (c): C step 4 against A step 4',
+                          payload(A, 4), payload(C, 4))
+        c5, a4 = payload(C, 5), payload(A, 4)
+        _hold_identical('resume (c): the rollback against A step 4',
+                        a4['model'], c5['model'], 'the two checkpoints')
+        if any(v.any() for st in c5['optimizer']['state'].values()
+               for v in st.values()) or c5['guard']['skip_count'] != 1:
+            raise AssertionError('resume (c): the rollback did not reset '
+                                 'the optimizer or lost the ledger')
+        log(f'resume (c): nan-grads@5 skipped in the graph (bad_step at '
+            f'epoch 5 only, skip_count 1), rolled back to the epoch-4 '
+            f'snapshot (bit-identical to A\'s step 4, fresh Adam state), '
+            f'epoch 6 loss {float(outs[("train", 6)]["loss"]):.4f}; the '
+            f'guarded steps 1-4 bit-identical to the unguarded A\'s; '
+            f'{time.perf_counter() - t0:.1f}s')
+
+        # (c) eager against captured, and the device ops per replay
+        args = dbp15k.parse_args(base)
+        train_b, _, in_dim = dbp15k.synthetic_batches(args)
+        train_dev = batch_to_device(train_b, 'cuda')
+        models, states = {}, {}
+        for jit in (False, True):
+            models[jit] = dbp15k.build(args, in_dim).cuda()
+            states[jit] = with_guard_counters(create_train_state(
+                models[jit], args.lr))
+            Checkpointer(C).restore(models[jit], states[jit], step=4)
+        guarded = {jit: make_train_step(models[jit],
+                                        num_steps=args.num_steps,
+                                        detach=True, guard=True,
+                                        fault_nan_step=5, jit=jit)
+                   for jit in (False, True)}
+        runs_ = [(f'guarded phase 2 epoch {e}', {jit: functools.partial(
+            lambda jit, e: guarded[jit](
+                states[jit], train_dev,
+                dbp15k.noise_seed(args.seed, 0, e))[1], jit, e)
+            for jit in (False, True)}) for e in (5, 6)]
+        _both('resume (c)', KG_KERNELS, runs_,
+              want=lambda name: KG_PER[('train', 2)])
+        n = _hold_states('resume (c) guarded', models, states)
+        for name in ('skip_count', 'consec_bad'):
+            if not torch.equal(getattr(states[False], name),
+                               getattr(states[True], name)):
+                raise AssertionError(f'resume (c): {name} differs')
+        plain_model = dbp15k.build(args, in_dim).cuda()
+        plain_state = create_train_state(plain_model, args.lr)
+        Checkpointer(C).restore(plain_model, plain_state, step=4)
+        plain = make_train_step(plain_model, num_steps=args.num_steps,
+                                detach=True)
+        guard_only = make_train_step(models[True], num_steps=args.num_steps,
+                                     detach=True, guard=True)
+        seed = dbp15k.noise_seed(args.seed, 0, 6)
+        ops = {}
+        for label, fn in (
+                ('unguarded', lambda: plain(plain_state, train_dev, seed)),
+                ('guard alone', lambda: guard_only(states[True], train_dev,
+                                                   seed)),
+                ('guard and nan-grads armed', lambda: guarded[True](
+                    states[True], train_dev, seed))):
+            for _ in range(3):   # the profiler now and then records none
+                rows, _ = _profiled(fn)
+                if rows:
+                    break
+            else:
+                raise AssertionError(f'resume (c): the profiler recorded no '
+                                     f'device op of the {label} replay')
+            ops[label] = (sum(r[2] for r in rows),
+                          sum(r[0] for r in rows) / 1e3)
+        counts_ = [v[0] for v in ops.values()]
+        if not counts_[0] < counts_[1] < counts_[2]:
+            raise AssertionError(f'resume (c): device ops per replay {ops}')
+        log(f'resume (c): the guarded phase-2 step eager and captured from '
+            f'C\'s step 4, epoch 5 (bad, frozen) and 6 (clean): outputs and '
+            f'{n} parameters and Adam tensors, counters bit-identical, '
+            f'launches as KG_PER\'s; one replay each (device ops, device '
+            f'ms under the profiler): ' + ', '.join(
+                f'{k} {v[0]} ops {v[1]:.3f} ms' for k, v in ops.items())
+            + f' on {smi_line}')
+        del models, states, guarded, guard_only, runs_, plain, plain_model
+        del plain_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the guard alone, no fault armed, from A's step 2: both phases
+        # leave parameters without a gradient, which the guard takes as
+        # zeros; the run changes no bit of A's.
+        D = os.path.join(tmp, 'D')
+        os.makedirs(os.path.join(D, 'manifests'))
+        shutil.copytree(os.path.join(A, '2'), os.path.join(D, '2'))
+        shutil.copy(os.path.join(A, 'manifests', '2.json'),
+                    os.path.join(D, 'manifests'))
+        t0 = time.perf_counter()
+        marks, outs, out_d = marked_run(base + ['--ckpt_dir', D,
+                                                '--guard-bad-steps', '3'])
+        counts = _kg_marks('resume (c) guard alone', marks, 3)
+        ld = _eval_lines(out_d)
+        want = [f'{line}, skipped_steps: 0, consec_bad: 0'
+                for line in _eval_lines(out_a)[-len(ld):]]
+        if 'at epoch 2.' not in out_d or not ld or ld != want or any(
+                bool(o['bad_step']) for (k, _), o in outs.items()
+                if k == 'train'):
+            raise AssertionError(f'resume (c) guard alone: eval lines {ld} '
+                                 f'against {want}')
+        for step in (4, 6):
+            _hold_checkpoints(f'resume (c) guard alone: D step {step} '
+                              f'against A', payload(A, step), payload(D, step))
+        log(f'resume (c): --guard-bad-steps 3 with no fault, resumed from '
+            f'A\'s step 2 (epochs 3-6, both phases): launches '
+            f'{dict((k, counts[k]) for k in KG_KERNELS)} at KG_PER\'s counts '
+            f'a step, no bad step, eval lines A\'s with the counters at 0, '
+            f'steps 4 and 6 bit-identical to A\'s; '
+            f'{time.perf_counter() - t0:.1f}s')
+
+        # (d) serving the trained checkpoint
+        def serve(argv):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = serve_cli.main(['--num-queries', '4'] + argv)
+            answers = [json.loads(line) for line in
+                       out.getvalue().splitlines()]
+            for a in answers:
+                a.pop('latency_ms')
+            cache = re.search(r'\(cache ([^)]*)\)', err.getvalue())
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rc or len(answers) != 4 or cache is None:
+                raise AssertionError(f'resume (d): serve {argv}: rc {rc}, '
+                                     f'{err.getvalue()[-2000:]}')
+            return answers, cache.group(1), time.perf_counter() - t0
+
+        first = serve(['--ckpt_dir', A])
+        second = serve(['--ckpt_dir', A])
+        if not (first[1].startswith('miss') and second[1] == 'hit'
+                and first[0] == second[0]):
+            raise AssertionError(f'resume (d): cache {first[1]} then '
+                                 f'{second[1]}, answers equal '
+                                 f'{first[0] == second[0]}')
+        with open(os.path.join(A, 'corpus_cache', 'manifest.json')) as f:
+            meta = json.load(f)
+        seeded_fp = params_fingerprint(serve_cli.dbp15k_model(0).psi_1)
+        if meta['checkpoint_step'] != 6 or \
+                meta['params_fingerprint'] == seeded_fp:
+            raise AssertionError(f'resume (d): cache meta {meta}')
+        init = serve(['--ckpt_dir', os.path.join(tmp, 'empty'),
+                      '--init-missing'])
+        seeded = serve([])
+        if init[0] != seeded[0] or init[0] == first[0]:
+            raise AssertionError('resume (d): --init-missing answers differ '
+                                 'from the seeded CLI\'s')
+        log(f'resume (d): serve --ckpt_dir A (step 6): cache {first[1]} '
+            f'({first[2]:.1f}s) then {second[2]:.1f}s with cache hit, '
+            f'4 answers identical, restored psi_1 fingerprint '
+            f'{meta["params_fingerprint"][:12]} (seeded {seeded_fp[:12]}); '
+            f'--init-missing on an empty directory answers as the seeded '
+            f'CLI')
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -4272,7 +4643,9 @@ def main(argv=None):
             ('kg_train_bf16', lambda: phase_kg_train_bf16(res)),
             ('kg_tiers', lambda: phase_kg_tiers(res)),
             ('capture', phase_capture),
-            ('backbones', phase_backbones)):
+            ('backbones', phase_backbones),
+            ('resume', lambda: phase_resume(
+                smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:
             fn()

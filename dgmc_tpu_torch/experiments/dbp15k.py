@@ -40,6 +40,24 @@ device-resident streamed search; it prints ``# offload shortlist:
 equal=...``, logs an ``offload_shortlist`` record under ``--metrics_log``
 and exits non-zero when the two differ.
 
+Checkpoints (the JAX CLI's flags): ``--ckpt_dir DIR`` saves the model,
+the Adam state and the step every ``--ckpt_every`` epochs and at the
+last (:mod:`~dgmc_tpu_torch.train.checkpoint`), and a run started over
+a directory that holds steps resumes from the newest restorable one,
+before any step is captured: the phase is a function of the epoch and
+every draw a function of (seed, split, epoch), so a resumed run
+continues as the uninterrupted one would, bit for bit. ``--guard-bad-steps
+M`` turns on the in-graph non-finite guard (a bad step keeps the old
+state, its counters printed at each eval) and rolls back to the last
+good eval's parameters, with a fresh optimizer, after M consecutive bad
+steps (:mod:`~dgmc_tpu_torch.resilience.guard`). ``--inject-fault SPEC``
+arms a deterministic fault (:mod:`~dgmc_tpu_torch.resilience.faults`).
+With ``--metrics_log`` a resume logs ``event='resume'`` (with the
+restore's seconds) and ``'resume_first_step'`` (the seconds from the
+restore's start to the end of the first step run), each save
+``event='checkpoint'`` (its seconds and bytes) and each rollback
+``event='rollback'``.
+
 ``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
 offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
 default). The real DBP15K data needs the dataset's parser, which is not
@@ -57,12 +75,16 @@ from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
 from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
+from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.rel import RelCNN
 from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
 from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
-from dgmc_tpu_torch.train.state import create_train_state
+from dgmc_tpu_torch.resilience import (FaultPlan, RollbackGuard,
+                                       add_fault_args)
+from dgmc_tpu_torch.train.checkpoint import resume_or_init
+from dgmc_tpu_torch.train.state import create_train_state, with_guard_counters
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
                                         make_train_step)
 from dgmc_tpu_torch.utils.data import (Graph, GraphPair, PairBatch,
@@ -144,8 +166,24 @@ def parse_args(argv=None):
                    help='candidate-search target block of the plain scan '
                         '(0 = ops/topk.DEFAULT_TOPK_BLOCK; the kernels '
                         'ignore it)')
+    p.add_argument('--ckpt_dir', type=str, default=None,
+                   help='periodic checkpoint and resume directory (a run '
+                        'over saved steps resumes at the newest restorable '
+                        'one)')
+    p.add_argument('--ckpt_every', type=int, default=10)
+    p.add_argument('--guard-bad-steps', '--guard_bad_steps',
+                   dest='guard_bad_steps', type=int, default=0, metavar='M',
+                   help='in-graph non-finite guard: a step with a '
+                        'non-finite loss or gradient keeps the old state '
+                        '(skip counted); M consecutive bad steps roll back '
+                        'to the last good snapshot with a fresh optimizer '
+                        '(0 = off). See dgmc_tpu_torch/resilience/guard.py')
+    add_fault_args(p)
     precision.add_precision_args(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.ckpt_every < 1:
+        p.error('--ckpt_every must be at least 1')
+    return args
 
 
 def use_blocked_adjacency(args):
@@ -231,14 +269,21 @@ def main(argv=None, hook=None):
               file=sys.stderr)
         raise SystemExit(2)
     device = resolve_device(args.device)
+    plan = FaultPlan.from_args(args, state_dir=args.ckpt_dir)
     precision.apply(precision.from_args(args))
     train_batch, test_batch, in_dim = synthetic_batches(args)
     model = build(args, in_dim).to(device)
     state = create_train_state(model, learning_rate=args.lr)
+    guard = args.guard_bad_steps > 0
+    if guard:
+        state = with_guard_counters(state)
     # Phase 1: feature matching only. Phase 2: refinement with ψ₁'s
     # gradients cut (detach), its dropout still active.
-    phase1 = make_train_step(model, num_steps=0)
-    phase2 = make_train_step(model, num_steps=args.num_steps, detach=True)
+    fault = plan.nan_grads_step
+    phase1 = make_train_step(model, num_steps=0, guard=guard,
+                             fault_nan_step=fault)
+    phase2 = make_train_step(model, num_steps=args.num_steps, detach=True,
+                             guard=guard, fault_nan_step=fault)
     eval1 = make_eval_step(model, hits_ks=(10,), num_steps=0)
     eval2 = make_eval_step(model, hits_ks=(10,), num_steps=args.num_steps)
     # One pair throughout: upload it once (its graphs keep their sorted
@@ -247,12 +292,26 @@ def main(argv=None, hook=None):
     test_dev = batch_to_device(test_batch, device)
 
     with MetricLogger(args.metrics_log) as logger:
+        # Resume before anything is captured: the restore writes in place
+        # either way, and a capture's warm-ups start from the restored
+        # state.
+        t_resume = time.perf_counter()
+        ckpt, state, start_epoch = resume_or_init(args.ckpt_dir, state,
+                                                  model)
+        if start_epoch > 1:
+            logger.log(start_epoch - 1, event='resume',
+                       restore_s=ckpt.last_restore['seconds'])
+        else:
+            t_resume = None
         if args.aot_compile:
-            _aot_compile(args, logger, state, (phase1, phase2),
+            _aot_compile(args, start_epoch, logger, state, (phase1, phase2),
                          (eval1, eval2), train_dev, test_dev)
         print('Optimize initial feature matching...', flush=True)
-        state = _train(args, state, (phase1, phase2), (eval1, eval2),
-                       train_dev, test_dev, logger, hook)
+        rollback = RollbackGuard(args.guard_bad_steps, logger) \
+            if guard else None
+        state = _train(args, model, state, start_epoch, (phase1, phase2),
+                       (eval1, eval2), train_dev, test_dev, logger, hook,
+                       ckpt, plan, rollback, t_resume)
         if args.offload_corpus:
             offload_pass(args, model, test_dev, logger)
         return state
@@ -304,12 +363,14 @@ def offload_pass(args, model, test_dev, logger):
     return equal, stats
 
 
-def _aot_compile(args, logger, state, phases, evals, train_dev, test_dev):
-    """Capture the steps this schedule will execute (eval1 runs only on
-    phase-1 epochs divisible by 10) and log each one's static memory as
-    an ``aot_memory_<name>`` event (with the host's resident set beside
-    it), as the JAX CLI's ``--aot_compile`` does. Capturing leaves the
-    state as it found it, so training from the same seed follows."""
+def _aot_compile(args, start_epoch, logger, state, phases, evals,
+                 train_dev, test_dev):
+    """Capture the steps this schedule will execute from ``start_epoch``
+    on (eval1 runs only on phase-1 epochs divisible by 10) and log each
+    one's static memory as an ``aot_memory_<name>`` event (with the
+    host's resident set beside it), as the JAX CLI's ``--aot_compile``
+    does. Capturing leaves the state as it found it, so training from the
+    same seed follows."""
     (phase1, phase2), (eval1, eval2) = phases, evals
 
     def aot(name, record):
@@ -323,28 +384,38 @@ def _aot_compile(args, logger, state, phases, evals, train_dev, test_dev):
               f'temps {mem["temp_bytes"] >> 20} MiB)', flush=True)
 
     # Clamp both gates to the epochs that will run: phase 1 ends at
-    # min(phase1_epochs, epochs).
+    # min(phase1_epochs, epochs), and a run resumed past the last epoch
+    # runs nothing.
     p1_last = min(args.phase1_epochs, args.epochs)
-    if p1_last >= 1:
+    if start_epoch <= p1_last:
         aot('phase1_step', phase1.capture(state, train_dev, 0))
-        if any(e % 10 == 0 for e in range(1, p1_last + 1)):
+        if any(e % 10 == 0 for e in range(start_epoch, p1_last + 1)):
             aot('eval1_step', eval1.capture(test_dev, 0))
-    if args.epochs > args.phase1_epochs:
+    if args.epochs > args.phase1_epochs and start_epoch <= args.epochs:
         aot('train_step', phase2.capture(state, train_dev, 0))
         aot('eval_step', eval2.capture(test_dev, 0))
 
 
-def _train(args, state, phases, evals, train_dev, test_dev, logger, hook):
-    """The two-phase schedule: a step per epoch, the evaluations, their
-    printed lines and JSONL records."""
+def _train(args, model, state, start_epoch, phases, evals, train_dev,
+           test_dev, logger, hook, ckpt, plan, rollback, t_resume):
+    """The two-phase schedule from ``start_epoch``: a step per epoch, the
+    evaluations, their printed lines and JSONL records, the guard's
+    counters and rollbacks, the checkpoints and the armed faults."""
     (phase1, phase2), (eval1, eval2) = phases, evals
-    last_print, t_span = 0, time.time()
-    for epoch in range(1, args.epochs + 1):
+    last_print, t_span = start_epoch - 1, time.time()
+    for epoch in range(start_epoch, args.epochs + 1):
         refine = epoch > args.phase1_epochs
         if epoch == args.phase1_epochs + 1:
             print('Refine correspondence matrix...', flush=True)
+        # Armed host-side faults fire here, on epochs that run only.
+        plan.before_step(epoch)
         step = phase2 if refine else phase1
         state, out = step(state, train_dev, noise_seed(args.seed, 0, epoch))
+        if t_resume is not None:
+            float(out['loss'])  # the first step run, to its end
+            logger.log(epoch, event='resume_first_step',
+                       seconds=time.perf_counter() - t_resume)
+            t_resume = None
         if hook is not None:
             # The step's metrics are static: the next step overwrites them.
             hook('train', epoch, {k: v.clone() for k, v in out.items()})
@@ -353,17 +424,38 @@ def _train(args, state, phases, evals, train_dev, test_dev, logger, hook):
                 test_dev, noise_seed(args.seed, 1, epoch))
             if hook is not None:
                 hook('eval', epoch, {k: v.clone() for k, v in ev.items()})
-            count = max(float(ev['count']), 1.0)
             per_epoch = (time.time() - t_span) / (epoch - last_print)
             last_print, t_span = epoch, time.time()
-            loss = float(out['loss'])
-            hits1 = float(ev['correct']) / count
-            hits10 = float(ev['hits@10']) / count
+            summary = eval_summary(ev['count'], loss=out['loss'],
+                                   hits1=ev['correct'], hits10=ev['hits@10'])
+            loss, hits1, hits10 = (summary['loss'], summary['hits1'],
+                                   summary['hits10'])
+            guard_metrics = {}
+            if rollback is not None:
+                consec_bad = int(out['consec_bad'])
+                guard_metrics = {'skipped_steps': int(out['skip_count']),
+                                 'consec_bad': consec_bad}
+                if consec_bad == 0 and np.isfinite(loss):
+                    rollback.note_good(state, model, step=epoch)
+                else:
+                    state, _ = rollback.maybe_rollback(state, model,
+                                                       consec_bad,
+                                                       step=epoch)
             print(f'{epoch:03d}: Loss: {loss:.4f}, Hits@1: {hits1:.4f}, '
-                  f'Hits@10: {hits10:.4f} ({per_epoch:.2f}s/epoch)',
+                  f'Hits@10: {hits10:.4f} ({per_epoch:.2f}s/epoch)'
+                  + ''.join(f', {k}: {v}' for k, v in guard_metrics.items()),
                   flush=True)
             logger.log(epoch, loss=loss, hits1=hits1, hits10=hits10,
-                       phase=2 if refine else 1)
+                       phase=2 if refine else 1, **guard_metrics)
+        if ckpt is not None and (epoch % args.ckpt_every == 0
+                                 or epoch == args.epochs):
+            ckpt.save(epoch, model, state)
+            logger.log(epoch, event='checkpoint',
+                       save_s=ckpt.last_save['seconds'],
+                       save_bytes=ckpt.last_save['bytes'])
+            # Armed ckpt-truncate / ckpt-corrupt faults damage the step
+            # just saved.
+            plan.after_checkpoint(ckpt, epoch)
     return state
 
 

@@ -9,10 +9,19 @@ one JSON line on standard output. Progress goes to standard error.
 ``--stream-chunk`` and ``--offload-corpus`` (with ``--offload-chunk`` and
 ``--prefetch-depth``) select the streamed and the host-RAM corpus tiers
 (:mod:`~dgmc_tpu_torch.serve.engine`).
+
+``--ckpt_dir DIR`` serves trained weights: the newest good step under
+``DIR`` (:mod:`~dgmc_tpu_torch.train.checkpoint`, as the DBP15K CLI's
+``--ckpt_dir`` writes it) is restored into the model, parameters and
+buffers, with a strict state dict, and the corpus cache defaults to
+``DIR/corpus_cache``, its meta recording the step. An empty ``DIR``
+exits with a notice unless ``--init-missing`` saves the seeded model as
+step 0 first. Without ``--ckpt_dir`` the weights are seeded.
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -27,8 +36,10 @@ from dgmc_tpu_torch.serve.client import sample_query
 from dgmc_tpu_torch.serve.corpus import Corpus, load_or_build
 from dgmc_tpu_torch.serve.engine import MatchEngine
 from dgmc_tpu_torch.serve.router import QueryRouter
+from dgmc_tpu_torch.train.checkpoint import Checkpointer
+from dgmc_tpu_torch.train.state import create_train_state
 
-__all__ = ['DBP15K', 'dbp15k_model', 'dbp15k_kg', 'main']
+__all__ = ['DBP15K', 'dbp15k_model', 'dbp15k_kg', 'restore', 'main']
 
 #: The DBP15K configuration (``dgmc_tpu/experiments/dbp15k.py``: model
 #: widths and the synthetic KG's CLI defaults).
@@ -65,8 +76,18 @@ def parse_args(argv=None):
     p.add_argument('--buckets', default='16x48,32x96,64x192')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--max-results', type=int, default=5)
+    p.add_argument('--ckpt_dir', '--ckpt-dir', dest='ckpt_dir', default=None,
+                   help='serve the newest good checkpoint under this '
+                        'directory (train/checkpoint.py layout; default: '
+                        'seeded weights)')
+    p.add_argument('--init-missing', '--init_missing', dest='init_missing',
+                   action='store_true',
+                   help='if --ckpt_dir holds no checkpoint, save the seeded '
+                        'model there as step 0 before serving')
     p.add_argument('--cache-dir', default=None,
-                   help='corpus-table cache directory (default: none)')
+                   help='corpus-table cache directory (default: '
+                        '<ckpt_dir>/corpus_cache with --ckpt_dir, else '
+                        'none)')
     p.add_argument('--stream-chunk', '--stream_chunk', dest='stream_chunk',
                    type=int, default=0,
                    help='streamed tier: the shortlist search over source '
@@ -89,6 +110,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def restore(model, ckpt_dir, init_missing=False):
+    """Restore ``model`` in place from the newest good step under
+    ``ckpt_dir`` (parameters and buffers, strict); returns the step. An
+    empty directory raises ``SystemExit`` unless ``init_missing``, which
+    saves ``model`` as it is (with a fresh optimizer) as step 0 first."""
+    ckpt = Checkpointer(ckpt_dir)
+    if not ckpt.all_steps():
+        if not init_missing:
+            raise SystemExit(f'serve: no checkpoint under {ckpt_dir} (pass '
+                             f'--init-missing to save the seeded weights as '
+                             f'step 0)')
+        ckpt.save(0, model, create_train_state(model))
+    ckpt.restore(model)
+    return ckpt.restored_step
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -101,8 +138,15 @@ def main(argv=None):
     corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
     model = dbp15k_model(args.seed).to(device)
     model.stream_chunk = args.stream_chunk or None
-    index, info = load_or_build(args.cache_dir, model.psi_1, corpus,
-                                device=device, log=log)
+    step, cache_dir = None, args.cache_dir
+    if args.ckpt_dir:
+        step = restore(model, args.ckpt_dir, args.init_missing)
+        log(f'restored checkpoint step {step} from {args.ckpt_dir}')
+        if cache_dir is None:
+            cache_dir = os.path.join(args.ckpt_dir, 'corpus_cache')
+    index, info = load_or_build(cache_dir, model.psi_1, corpus,
+                                device=device, log=log,
+                                checkpoint_step=step)
     router = QueryRouter(args.buckets, corpus.num_nodes, corpus.num_edges)
     engine = MatchEngine(model, index, router,
                          max_results=args.max_results, device=device,

@@ -183,12 +183,15 @@ def load_cache(cache_dir, corpus_fp, params_fp):
     return h_t, meta
 
 
-def load_or_build(cache_dir, psi_1, corpus, device=None, log=None):
+def load_or_build(cache_dir, psi_1, corpus, device=None, log=None,
+                  checkpoint_step=None):
     """The worker's startup path: verified cache hit, or build + persist.
 
     Returns ``(CorpusIndex, info)`` with
     ``info = {'cache': 'hit' | 'miss:<reason>', 'seconds': ...}``.
-    ``cache_dir=None`` disables the cache.
+    ``cache_dir=None`` disables the cache. ``checkpoint_step``, the step
+    the weights were restored from, is recorded in the meta of a table
+    built here (the parameters' fingerprint is what a hit must match).
     """
     corpus_fp = corpus.fingerprint()
     params_fp = params_fingerprint(psi_1)
@@ -211,6 +214,7 @@ def load_or_build(cache_dir, psi_1, corpus, device=None, log=None):
         'version': 1,
         'corpus_fingerprint': corpus_fp,
         'params_fingerprint': params_fp,
+        'checkpoint_step': checkpoint_step,
         'shape': list(h_t.shape),
         'dtype': str(h_t.dtype),
         'built_unix': round(time.time(), 3),

@@ -14,20 +14,57 @@ optax's is, so that a CUDA graph can record the update
 (:mod:`~dgmc_tpu_torch.train.compiled`); the eager step on the card uses
 the same optimizer, so the two compare bit for bit. torch refuses
 ``capturable`` for CPU tensors, so the CPU keeps the plain one.
+
+:class:`GuardedTrainState` adds the non-finite guard's counters
+(``make_train_step(guard=True)``), 0-d int32 tensors on the
+parameters' device that the step updates in place; the host reads them
+at print and eval boundaries only. :func:`snapshot_params` and
+:func:`restore_params` are the willow protocol's reset (the JAX
+package's ``train/checkpoint.py``): parameters and buffers come back, the
+optimizer starts afresh. Every restore of a state writes in place,
+since a captured graph reads that storage: :func:`write_state` is the
+one writer.
 """
 
 import dataclasses
 
 import torch
 
-__all__ = ['TrainState', 'create_train_state', 'optimizer_update',
-           'apply_gradients', 'snapshot']
+__all__ = ['TrainState', 'GuardedTrainState', 'create_train_state',
+           'with_guard_counters', 'fill_grads', 'optimizer_update',
+           'apply_gradients', 'write_state', 'save_in_place',
+           'snapshot', 'snapshot_params', 'restore_params']
 
 
 @dataclasses.dataclass
 class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+@dataclasses.dataclass
+class GuardedTrainState(TrainState):
+    """A :class:`TrainState` with the non-finite guard's ledger: how many
+    optimizer updates were skipped for a non-finite loss or gradient
+    (``skip_count``) and how many of those are consecutive now
+    (``consec_bad``, the rollback's trigger,
+    :class:`~dgmc_tpu_torch.resilience.guard.RollbackGuard`)."""
+    skip_count: torch.Tensor = None
+    consec_bad: torch.Tensor = None
+
+
+def _params(state):
+    return [p for g in state.optimizer.param_groups for p in g['params']]
+
+
+def with_guard_counters(state):
+    """``state`` as a :class:`GuardedTrainState`, its counters 0-d int32
+    zeros on the parameters' device."""
+    dev = _params(state)[0].device
+    return GuardedTrainState(
+        optimizer=state.optimizer, step=state.step,
+        skip_count=torch.zeros((), dtype=torch.int32, device=dev),
+        consec_bad=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def create_train_state(model, learning_rate=1e-3):
@@ -41,6 +78,14 @@ def create_train_state(model, learning_rate=1e-3):
     return TrainState(optimizer=opt)
 
 
+def fill_grads(state):
+    """Give every parameter without a ``.grad`` a zero one (see
+    :func:`optimizer_update`)."""
+    for p in _params(state):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def optimizer_update(state):
     """One Adam update of the state's parameters from their ``.grad``, as
     optax updates them: every parameter every step, one step count for
@@ -51,10 +96,7 @@ def optimizer_update(state):
     would skip it and count its steps apart (another bias correction
     once it takes part). Leaves the host's ``state.step`` alone: this is
     the part of a step a CUDA graph records."""
-    for group in state.optimizer.param_groups:
-        for p in group['params']:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    fill_grads(state)
     state.optimizer.step()
 
 
@@ -64,36 +106,133 @@ def apply_gradients(state):
     state.step += 1
 
 
-def snapshot(state, model=None):
-    """Save the state's parameters, optimizer moments and step counts
-    (and ``model``'s buffers: batch norm's running averages, which a
-    training step updates too) and return ``restore()``, which writes
-    them back in place (the tensors keep their storage, which a captured
-    graph reads). Moments that did not exist yet (Adam creates them at
-    its first step) are reset to zeros, Adam's fresh state. What a
-    capture's warm-up runs use, so that the captured run starts from the
-    state the eager one would."""
+def _counters(state):
+    """A guarded state's counters by name (none for a plain state)."""
+    return {k: getattr(state, k) for k in ('skip_count', 'consec_bad')
+            if getattr(state, k, None) is not None}
+
+
+def _adam_tensor(group, p, name, value):
+    """Adam's tensor ``name`` of parameter ``p`` from ``value``, made as
+    Adam makes it: the step count in float32, on the device under
+    ``capturable`` (else on the host), a moment in the parameter's device
+    and dtype."""
+    if name == 'step':
+        return value.to(p.device if group.get('capturable') else 'cpu',
+                        torch.float32, copy=True)
+    return value.to(p.device, p.dtype, copy=True)
+
+
+def write_state(state, model, model_sd, adam=None, counters=None,
+                pick=None):
+    """Write a train state in place: the one writer behind a capture's
+    warm-up restore, the guard's select of a bad step, the willow reset
+    and a checkpoint's restore. Each tensor takes ``pick(tensor, new)``
+    (default ``new``) by ``copy_``, so it keeps its storage, which a
+    captured graph reads.
+
+    - ``model_sd``: a ``state_dict`` of ``model`` (parameters and
+      buffers) with every name and shape; else a ``KeyError`` or
+      ``ValueError`` before anything is written.
+    - ``adam``: Adam's state as an optimizer ``state_dict`` holds it,
+      ``{parameter index: {name: tensor}}``; ``None`` is Adam's fresh
+      state. One rule for what does not match: an Adam tensor without a
+      value in ``adam`` is written zeros (a zeroed state takes the same
+      next update as none), and a value whose tensor Adam has not made
+      yet is made as Adam would make it.
+    - ``counters``: a guarded state's ``skip_count`` and ``consec_bad``;
+      ``None`` leaves them.
+
+    ``state`` ``None`` writes the model alone."""
+    pick = pick or (lambda _tensor, new: new)
+    current = model.state_dict()
+    if set(model_sd) != set(current):
+        raise KeyError(f'state_dict keys differ: missing '
+                       f'{sorted(set(current) - set(model_sd))}, unexpected '
+                       f'{sorted(set(model_sd) - set(current))}')
+    for k, t in current.items():
+        if model_sd[k].shape != t.shape:
+            raise ValueError(f'{k}: shape {tuple(model_sd[k].shape)} where '
+                             f'the model has {tuple(t.shape)}')
+    with torch.no_grad():
+        for k, t in current.items():
+            t.copy_(pick(t, model_sd[k]))
+        if state is None:
+            return
+        opt, adam = state.optimizer, adam or {}
+        i = 0
+        for group in opt.param_groups:
+            for p in group['params']:
+                st, new = opt.state[p], adam.get(i, {})
+                for k, v in st.items():
+                    if torch.is_tensor(v):
+                        v.copy_(pick(v, new[k] if k in new
+                                     else torch.zeros_like(v)))
+                for k, v in new.items():
+                    if k not in st:
+                        st[k] = _adam_tensor(group, p, k, v)
+                if not st:
+                    del opt.state[p]
+                i += 1
+        if counters is not None:
+            for k, t in _counters(state).items():
+                t.copy_(pick(t, counters[k]))
+
+
+def _cloned(tensors):
+    return {k: v.detach().clone() for k, v in tensors.items()
+            if torch.is_tensor(v)}
+
+
+def save_in_place(state, model):
+    """Save what a training step changes in place (``model``'s parameters
+    and buffers, batch norm's running averages among them, Adam's moments
+    and step counts, and a guarded state's counters) and return
+    ``write_back(pick)``, which writes them back through
+    :func:`write_state` with ``pick``: an Adam tensor made since the save
+    (Adam makes them at its first step) takes zeros, Adam's fresh
+    state."""
     opt = state.optimizer
-    tensors = [p for g in opt.param_groups for p in g['params']]
-    tensors += [] if model is None else list(model.buffers())
-    saved = [t.detach().clone() for t in tensors]
-    moments = {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
-               for p, st in opt.state.items()}
+    model_sd = _cloned(model.state_dict())
+    adam = {i: _cloned(opt.state[p]) for i, p in enumerate(_params(state))
+            if p in opt.state}
+    counters = _cloned(_counters(state))
+
+    def write_back(pick):
+        write_state(state, model, model_sd, adam, counters, pick)
+
+    return write_back
+
+
+def snapshot(state, model):
+    """:func:`save_in_place` and the host's step count; returns
+    ``restore()``, which writes them back. What a capture's warm-up runs
+    use, so that the captured run starts from the state the eager one
+    would."""
+    write_back = save_in_place(state, model)
     step = state.step
 
     def restore():
-        with torch.no_grad():
-            for t, v in zip(tensors, saved):
-                t.copy_(v)
-            for p, st in opt.state.items():
-                old = moments.get(p)
-                for k, v in st.items():
-                    if not torch.is_tensor(v):
-                        continue
-                    if old is None:
-                        v.zero_()
-                    else:
-                        v.copy_(old[k])
+        write_back(lambda _tensor, saved: saved)
         state.step = step
 
     return restore
+
+
+def snapshot_params(model):
+    """An in-memory copy of ``model``'s parameters and buffers (its
+    ``state_dict``, cloned): the willow protocol's snapshot and the
+    rollback guard's last good state."""
+    return _cloned(model.state_dict())
+
+
+def restore_params(state, model, snapshot):
+    """Roll ``model`` back to ``snapshot`` with a fresh optimizer (the
+    willow protocol's per-run reset) through :func:`write_state`: the
+    parameters and buffers are copied in place (every name and shape
+    must match), Adam's moments and step counts are zeroed in place, and
+    ``state.step`` goes back to 0. The snapshot stays intact for the next
+    restore. Returns ``state``."""
+    write_state(state, model, snapshot)
+    state.step = 0
+    return state

@@ -13,6 +13,19 @@ drawn from it per pair (:func:`~dgmc_tpu_torch.models.dgmc.draw_noise`,
 from a generator on the model's device seeded from it. ``r_s`` and
 ``negatives`` replace the drawn ones (tests inject JAX's).
 
+``guard=True`` adds the in-graph non-finite guard (a
+:class:`~dgmc_tpu_torch.train.state.GuardedTrainState`): a step whose
+loss or gradients' global norm is not finite keeps the old parameters,
+Adam moments and step counts and batch-norm buffers wholesale (the
+update is made, then the old values selected back into place on the
+device; no host read), counts ``skip_count`` and ``consec_bad``, and
+reports ``bad_step``; a finite step resets ``consec_bad``. The host's
+``state.step`` advances either way, as the JAX package's does.
+``fault_nan_step=N`` (the ``nan-grads@N`` fault) poisons every gradient
+with NaN on optimizer step N (``state.step == N - 1`` before it); the
+step number reaches the compiled step as a device input written before
+each call. With both off the step records the graph it always did.
+
 ``make_eval_step`` returns ``step(batch, noise_seed, r_s=None)`` with
 ``count``, ``correct`` and ``hits@k`` as sums, so callers aggregate
 across batches exactly.
@@ -61,7 +74,8 @@ import torch
 from dgmc_tpu_torch.models import metrics
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device, host_tensor
 from dgmc_tpu_torch.train.compiled import Fixed, compiled
-from dgmc_tpu_torch.train.state import optimizer_update, snapshot
+from dgmc_tpu_torch.train.state import (fill_grads, optimizer_update,
+                                        save_in_place, snapshot)
 
 __all__ = ['DeviceBatch', 'HostBatches', 'batch_to_host', 'batch_to_device',
            'dropout_seed', 'dropout_generator', 'loss_and_outputs',
@@ -196,7 +210,7 @@ class _Jit:
             if self.train:
                 gen = self.generator = torch.Generator(device=dev)
                 # The train inputs: (Fixed(model), Fixed(state), batch,
-                # seed, r_s, negatives).
+                # seed, r_s, negatives, step number).
                 kw = {'snapshot': lambda model, state, *_: snapshot(
                           state.value, model.value),
                       'prepare': lambda *inputs: gen.manual_seed(
@@ -216,8 +230,29 @@ class _Jit:
                    operator.index(noise_seed), r_s, negatives)
 
 
+def _count_bad(state, good):
+    """Count the step in the state's ledger: ``skip_count`` +1 and
+    ``consec_bad`` +1 where ``good`` is false, ``consec_bad`` 0 where it
+    is true."""
+    with torch.no_grad():
+        bad = (~good).to(torch.int32)
+        state.skip_count.add_(bad)
+        state.consec_bad.copy_((state.consec_bad + 1) * bad)
+
+
+def _grads_finite(state, loss):
+    """``isfinite(loss) & isfinite(global norm of the gradients)``, on the
+    device."""
+    grads = [p.grad for g in state.optimizer.param_groups
+             for p in g['params']]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads]))
+    return torch.isfinite(loss) & torch.isfinite(norm)
+
+
 def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
-                    pair_offset=0, hits_ks=(), jit=True):
+                    pair_offset=0, hits_ks=(), jit=True, guard=False,
+                    fault_nan_step=None):
     """Build ``step(state, batch, noise_seed, r_s=None, negatives=None)``
     for ``model``, whose parameters ``state``'s optimizer updates. The
     metrics are ``loss`` (the scalar trained on), ``loss_per_pair``
@@ -227,29 +262,66 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     batched step draws. ``jit`` compiles it (see the module docstring);
     ``step.capture(state, batch, noise_seed, ...)`` then builds a
     signature's record ahead of the first call and returns it, and
-    ``step.jit.compiled.records`` holds the records built so far."""
+    ``step.jit.compiled.records`` holds the records built so far.
+    ``guard`` and ``fault_nan_step``: see the module docstring (with
+    ``guard`` the metrics also carry ``bad_step``, ``skip_count`` and
+    ``consec_bad``)."""
 
-    def body(state, batch, noise_seed, r_s, negatives, generator):
+    def body(state, batch, noise_seed, r_s, negatives, step_no, generator):
         model.train()
+        # Saved before the forward: batch norm's buffers move in it.
+        kept = save_in_place(state, model) if guard else None
         loss, _, S_L, y, y_mask = loss_and_outputs(
             model, batch, loss_on_s0, noise_seed, r_s, num_steps=num_steps,
             detach=detach, pair_offset=pair_offset, negatives=negatives,
             generator=generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if guard or fault_nan_step is not None:
+            # A parameter this phase leaves without a gradient takes a
+            # zero one now, as optax's global norm sees it.
+            fill_grads(state)
+        if fault_nan_step is not None:
+            fire = step_no == fault_nan_step - 1
+            for g in state.optimizer.param_groups:
+                for p in g['params']:
+                    p.grad.masked_fill_(fire, float('nan'))
+        good = _grads_finite(state, loss.detach()) if guard else None
         optimizer_update(state)
+        if guard:
+            # A bad step gives everything back (selected on the device).
+            kept(lambda tensor, saved: torch.where(good, tensor, saved))
+            _count_bad(state, good)
         with torch.no_grad():
             out = {'loss': loss.detach(),
                    'loss_per_pair': metrics.nll_loss(
                        S_L, y, y_mask, reduction='per_pair'),
                    'acc': metrics.acc(S_L, y, y_mask)}
             _hits(out, hits_ks, S_L, y, y_mask, 'mean')
+            if guard:
+                out.update(bad_step=~good,
+                           skip_count=state.skip_count.clone(),
+                           consec_bad=state.consec_bad.clone())
         return out
+
+    if fault_nan_step is not None and operator.index(fault_nan_step) < 1:
+        raise ValueError(f'fault_nan_step is a 1-based optimizer step; got '
+                         f'{fault_nan_step}')
+
+    def step_number(state):
+        """The host's step count as an input (``fault_nan_step`` only)."""
+        if fault_nan_step is None:
+            return None
+        return torch.tensor(state.step, dtype=torch.int64)
 
     if not jit:
         def train_step(state, batch, noise_seed, r_s=None, negatives=None):
+            _check_guarded(state, guard)
+            dev = _device_of(model)
+            step_no = step_number(state)
             out = body(state, batch, noise_seed, r_s, negatives,
-                       dropout_generator(noise_seed, _device_of(model)))
+                       None if step_no is None else step_no.to(dev),
+                       dropout_generator(noise_seed, dev))
             state.step += 1
             return state, out
 
@@ -258,9 +330,11 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     jitted = _Jit(model, body, train=True)
 
     def inputs(state, batch, noise_seed, r_s, negatives):
+        _check_guarded(state, guard)
         c, (model_, b, seed, r_s, negatives) = jitted.inputs(
             batch, noise_seed, r_s, negatives)
-        return c, (model_, Fixed(state), b, seed, r_s, negatives)
+        return c, (model_, Fixed(state), b, seed, r_s, negatives,
+                   step_number(state))
 
     def train_step(state, batch, noise_seed, r_s=None, negatives=None):
         c, args = inputs(state, batch, noise_seed, r_s, negatives)
@@ -275,6 +349,12 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     train_step.capture = capture
     train_step.jit = jitted
     return train_step
+
+
+def _check_guarded(state, guard):
+    if guard and getattr(state, 'skip_count', None) is None:
+        raise TypeError('a guarded step takes a GuardedTrainState (see '
+                        'train.state.with_guard_counters)')
 
 
 def make_eval_step(model, hits_ks=(1,), num_steps=None, jit=True):

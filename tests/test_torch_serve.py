@@ -14,6 +14,7 @@ fields, rounded to 6 decimals in the answer, to atol 2e-5.
 """
 
 import ast
+import json
 import os
 
 import jax
@@ -236,9 +237,138 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for m in ('norm', 'mlp', 'gin', 'rel', 'dgmc')} <= set(files)
     assert {os.path.join(REPO, 'dgmc_tpu_torch', *m)
             for m in (('ops', 'blocked.py'), ('ops', 'offload.py'),
-                      ('ops', 'kernels', 'blocked.py'))} <= set(files)
+                      ('ops', 'kernels', 'blocked.py'),
+                      ('resilience', '__init__.py'),
+                      ('resilience', 'faults.py'),
+                      ('resilience', 'guard.py'),
+                      ('train', 'checkpoint.py'),
+                      ('models', 'evalsum.py'))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]
             assert top not in ('jax', 'jaxlib', 'flax', 'dgmc_tpu'), \
                 f'{os.path.relpath(path, REPO)} imports {mod}'
+
+
+# -- serving a checkpoint -----------------------------------------------------
+
+#: The serve CLI's DBP15K configuration cut to a CPU test's size (its
+#: architecture kept: RelCNN ψ₁ and ψ₂, three layers).
+SMALL_DBP15K = {'feat_dim': 12, 'dim': 16, 'rnd_dim': 8, 'num_steps': 2,
+                'k': 5, 'nodes_s': 60, 'nodes_t': 150, 'edges_s': 200,
+                'edges_t': 450}
+SERVE_ARGV = ['--device', 'cpu', '--num-queries', '2', '--buckets',
+              '16x48,64x192']
+
+
+@pytest.fixture(scope='module')
+def served(tmp_path_factory):
+    """The serve CLI (small configuration) over: a checkpoint of other
+    weights than the seeded ones (twice, then once more after a step of
+    yet other weights is saved), an empty directory with
+    ``--init-missing``, and no ``--ckpt_dir``."""
+    import contextlib
+    import io
+    from dgmc_tpu_torch.serve import cli
+    from dgmc_tpu_torch.train.checkpoint import Checkpointer
+    from dgmc_tpu_torch.train.state import create_train_state
+    root = tmp_path_factory.mktemp('serve')
+    trained = str(root / 'trained')
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, 'DBP15K', dict(cli.DBP15K, **SMALL_DBP15K))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+        def run(name, argv):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                cli.main(SERVE_ARGV + argv)
+            answers = [json.loads(line) for line in
+                       out.getvalue().splitlines()]
+            for a in answers:
+                a.pop('latency_ms')
+            runs[name] = (answers, err.getvalue())
+
+        try:
+            other = cli.dbp15k_model(seed=7)
+            Checkpointer(trained).save(3, other, create_train_state(other))
+            runs['model_3'] = other
+            run('first', ['--ckpt_dir', trained])
+            with open(os.path.join(trained, 'corpus_cache',
+                                   'manifest.json')) as f:
+                runs['meta_first'] = json.load(f)
+            run('second', ['--ckpt_dir', trained])
+            newer = cli.dbp15k_model(seed=8)
+            Checkpointer(trained).save(4, newer, create_train_state(newer))
+            run('newer', ['--ckpt_dir', trained])
+            run('init', ['--ckpt_dir', str(root / 'empty'),
+                         '--init-missing'])
+            run('seeded', [])
+            with pytest.raises(SystemExit, match='--init-missing'):
+                cli.main(SERVE_ARGV + ['--ckpt_dir', str(root / 'none')])
+            runs['engine_3'] = _engine_answers(cli, trained, 3)
+        finally:
+            torch.set_num_threads(threads)
+    runs['root'] = root
+    return runs
+
+
+def _engine_answers(cli, ckpt_dir, step):
+    """The CLI's queries answered by a ``MatchEngine`` over the step's
+    weights, read with ``torch.load`` (not through the restore)."""
+    from dgmc_tpu_torch.serve.corpus import Corpus
+    payload = torch.load(os.path.join(ckpt_dir, str(step), 'state.pt'),
+                         weights_only=True)
+    model = cli.dbp15k_model(seed=0)
+    model.load_state_dict(payload['model'])
+    kg = cli.dbp15k_kg(0)
+    corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
+    index, _ = load_or_build(None, model.psi_1, corpus, device='cpu')
+    router = QueryRouter('16x48,64x192', corpus.num_nodes, corpus.num_edges)
+    engine = MatchEngine(model, index, router, max_results=5, device='cpu')
+    engine.warm()
+    rng = np.random.RandomState(0)
+    answers = []
+    for i in range(2):
+        n = int(rng.randint(16, 65))
+        graph, _ = sample_query(corpus.x, n, 3 * n, seed=1 + i)
+        answers.append(engine.match(graph))
+    return answers
+
+
+def test_serve_restores_the_trained_checkpoint(served):
+    from dgmc_tpu_torch.serve.corpus import params_fingerprint
+    answers, err = served['first']
+    assert 'restored checkpoint step 3' in err
+    for got, want in zip(answers, served['engine_3']):
+        for key in ('matches', 'shortlist', 'quality', 'bucket'):
+            assert got[key] == want[key], key
+    assert answers != served['seeded'][0]
+    meta = served['meta_first']
+    assert meta['checkpoint_step'] == 3
+    assert meta['params_fingerprint'] == params_fingerprint(
+        served['model_3'].psi_1)
+
+
+def test_serve_cache_records_the_step_and_misses_another_checkpoint(
+        served):
+    assert 'cache miss:no-manifest' in served['first'][1]
+    assert 'cache hit' in served['second'][1]
+    assert served['second'][0] == served['first'][0]
+    assert 'restored checkpoint step 4' in served['newer'][1]
+    assert 'cache miss:params-mismatch' in served['newer'][1]
+    assert served['newer'][0] != served['first'][0]
+    with open(os.path.join(served['root'], 'trained', 'corpus_cache',
+                           'manifest.json')) as f:
+        assert json.load(f)['checkpoint_step'] == 4
+
+
+def test_serve_init_missing_saves_step_zero_and_answers_as_seeded(served):
+    from dgmc_tpu_torch.train.checkpoint import Checkpointer
+    answers, err = served['init']
+    assert 'restored checkpoint step 0' in err
+    assert Checkpointer(os.path.join(served['root'], 'empty')) \
+        .all_steps() == [0]
+    assert answers == served['seeded'][0]
