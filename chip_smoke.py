@@ -259,6 +259,17 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   the seeded CLI. Each save's seconds and bytes, the restore's seconds
   and the seconds to the first step after it, beside the card's name and
   power limit.
+- ``keypoints``: the PascalVOC and WILLOW experiments on a fixture tree
+  written in a temporary directory (:func:`phase_keypoints`): (a) the
+  dense consensus at [512, N, N], R = 128, and the routing kernels at
+  O = 256 and 128, D = 2 and 1, float32 and bf16, on the ``pascal``
+  loader's own batches, held and timed as the kernel phases hold and
+  time theirs; (b) the VGG16 extractor on the card against the CPU; (c)
+  ``pascal.main`` at the JAX CLI's widths under both policies, (d)
+  ``--isotropic``, (e) ``willow.main`` (run 2's first replayed step
+  bit-identical to an eager one from the snapshot), (f) ``pascal_pf.main
+  --data_root``, each with the launches of the formula a step and eval
+  batch.
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -275,9 +286,12 @@ repeat), the spline kernels at ψ₂'s O=64 (``...@O=64``; launches: the
 counters read around each of their calls at that width in the ``train``
 phase), the spline records' build, each bf16 variant (``topk_bf16``,
 ``spline_route_fwd_bf16``, ... ``sparse_consensus_bwd_bf16``; launches:
-the bf16 training phases' counters) and the draw kernel at its three
+the bf16 training phases' counters), the draw kernel at its three
 main shapes (``rng_normal@...``, ``rng_negatives@...``; launches: the
-float32 main paths' draws of that shape) (``ms_source`` says
+float32 main paths' draws of that shape) and the ``keypoints`` phase's
+shapes (``consensus_fwd@512xNxN,R=128``, ``spline_route_fwd@512xMxO,D=2``
+...; launches: the keypoint CLIs' counters at that shape and dtype,
+:data:`KP_MAIN`) (``ms_source`` says
 whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
 times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
@@ -716,11 +730,12 @@ def _train_args(extra=()):
                                  *extra])
 
 
-def _spline_exact(gen, B, N, E, O, masked):
+def _spline_exact(gen, B, N, E, O, masked, D=2):
     """Exact inputs: small-integer t, dyadic basis, and g an integer
-    multiple of each node's degree (so g / deg is exact)."""
+    multiple of each node's degree (so g / deg is exact); ``D``
+    pseudo-coordinates (2^D slots an edge, 5^D knot rows a node)."""
     from dgmc_tpu_torch.ops.kernels.spline import Routing
-    A, M = 4, N * 25
+    A, M = 2 ** D, N * 5 ** D
     t = torch.randint(-3, 4, (B, M, O), generator=gen).float()
     basis = torch.randint(0, 5, (B, E, A), generator=gen).float() / 4
     flat = torch.randint(0, M, (B, E, A), generator=gen)
@@ -4570,6 +4585,572 @@ def phase_resume(smi_line):
             f'CLI')
 
 
+#: The keypoint fixture (``phase_keypoints``): PascalVOC instances per
+#: category in the train and val lists, WILLOW items per category, the
+#: images' size where PIL writes them, PascalPF items per category, and
+#: the keypoints each category's test pairs are sampled until
+#: (``--test_samples``; the JAX CLI's 1000 would sample the fixture's 15
+#: test instances a category about 7 times over, each a batch of 512
+#: pairs whose 1024 graphs the host triangulates anew).
+KP_VOC = (60, 15)
+KP_WILLOW_ITEMS = 24
+KP_IMAGE = (180, 240)
+KP_PF_ITEMS = 4
+KP_TEST_SAMPLES = 100
+#: The rows of this slice's shapes in the JSON line: the key its
+#: launches are filed under on the keypoint main paths (``KP_MAIN``):
+#: (kernel, O or R, D, dtype).
+KP_ROWS = {
+    'consensus_fwd@kp': ('consensus_fwd', 128, None, 'float32'),
+    'consensus_fwd_bf16@kp': ('consensus_fwd', 128, None, 'bfloat16'),
+    **{f'spline_route_{k}{tag}@kp,O={O}{",D=1" if D == 1 else ""}':
+       (f'spline_route_{k}', O, D, dtype)
+       for k in ('fwd', 'bwd') for O in (256, 128)
+       for D, dtype, tag in ((2, 'float32', ''), (1, 'float32', ''),
+                             (2, 'bfloat16', '_bf16'))}}
+#: ``{(kernel, O or R, D, dtype): launches}`` on the keypoint main paths
+#: (``pascal`` under both policies and isotropic, ``willow``).
+KP_MAIN = {}
+
+
+@contextlib.contextmanager
+def keypoint_launches(tally):
+    """Within the block, file every launch of the routing kernels under
+    ``(kernel, O, D, dtype)`` and of the dense consensus under
+    ``('consensus_fwd', R, None, dtype)`` in ``tally`` (a
+    :class:`Tally`, so that replays count): the wrappers' counters read
+    around each call of the autograd functions that call them."""
+    from dgmc_tpu_torch.ops.kernels import consensus, spline
+    fn, cons = spline._RouteAggregate, consensus._ConsensusUpdate
+    fwd, bwd, cfwd = fn.forward, fn.backward, cons.forward
+
+    def counted(key, wrapper, call, *args):
+        before = wrapper.launches
+        out = call(*args)
+        tally.add(key, wrapper.launches - before)
+        return out
+
+    def dims(basis):
+        return basis.shape[-1].bit_length() - 1
+
+    fn.forward = staticmethod(lambda ctx, t, basis, routing: counted(
+        ('spline_route_fwd', t.shape[-1], dims(basis), str(t.dtype)[6:]),
+        spline.route_fwd, fwd, ctx, t, basis, routing))
+    fn.backward = staticmethod(lambda ctx, g: counted(
+        ('spline_route_bwd', g.shape[-1], dims(ctx.saved_tensors[1]),
+         str(g.dtype)[6:]), spline.route_d_t, bwd, ctx, g))
+    cons.forward = staticmethod(lambda ctx, o_s, *rest: counted(
+        ('consensus_fwd', o_s.shape[-1], None, str(o_s.dtype)[6:]),
+        consensus.consensus_fwd, cfwd, ctx, o_s, *rest))
+    try:
+        yield
+    finally:
+        fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+        cons.forward = staticmethod(cfwd)
+
+
+def _kp_batches(root):
+    """The first training batch of the ``pascal`` loader (512 pairs) under
+    Cartesian (D = 2) and Distance (D = 1) pseudo-coordinates, and the
+    padded node and edge counts: node features are not read
+    (``vgg_weights='none'``)."""
+    from dgmc_tpu_torch.datasets import PascalVOCKeypoints, VGG16Features
+    from dgmc_tpu_torch.datasets.pascal_voc import CATEGORIES
+    from dgmc_tpu_torch.experiments import pascal
+    from dgmc_tpu_torch.utils.data import (ConcatDataset, PairLoader,
+                                           ValidPairDataset, graph_limits)
+    none = VGG16Features('none')
+    out = {}
+    for D in (2, 1):
+        tr = pascal.keypoint_transform(D == 1)
+        sets = {t: [PascalVOCKeypoints(root, c, train=t, transform=tr,
+                                       features=none) for c in CATEGORIES]
+                for t in (True, False)}
+        N, E = graph_limits(sets[True] + sets[False])
+        loader = PairLoader(ConcatDataset(
+            [ValidPairDataset(d, d, sample=True) for d in sets[True]]), 512,
+            num_nodes=N, num_edges=E)
+        out[D] = next(iter(loader))
+    return out, N, E
+
+
+def _kp_kernels(res, root):
+    """(a) The dense consensus at ``[512, N, N]``, R = 128 (its limit), and
+    the routing kernels at O = 256 and 128, D = 2 and 1, on this slice's
+    batches, each policy's variant against its plain version on the card
+    (exact inputs bit-equal; float32 within :func:`hold_close`, bf16
+    outputs within :func:`hold_ulp`), timed beside the plain version and
+    ``torch.sparse.mm`` with its bound."""
+    from dgmc_tpu_torch.models.spline import spline_routing
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_fwd,
+                                                      plain_consensus)
+    from dgmc_tpu_torch.ops.kernels.spline import (plain_route_aggregate,
+                                                   plain_route_d_t,
+                                                   route_d_t, route_fwd)
+    gen = torch.Generator().manual_seed(15)
+    batches, N, E = _kp_batches(root)
+    B, R = 512, R_MAX
+    log(f'keypoints (a): the fixture pads to N = {N} nodes, E = {E} edges; '
+        f'consensus at [{B}, {N}, {N}] R = {R}')
+
+    def cons_case(ints):
+        def draw(*shape, scale=1.0):
+            if ints:
+                return torch.randint(-2, 3, shape, generator=gen).float()
+            return scale * torch.randn(*shape, generator=gen)
+        return [x.cuda() for x in (
+            draw(B, N, R), draw(B, N, R), draw(R, R, scale=R ** -0.5),
+            draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
+            draw(1, scale=0.1))]
+
+    flops = 2.0 * B * 2 * N * R * R + 3.0 * B * N * N * R
+    for dtype, key, peak in ((torch.float32, 'consensus_fwd@kp',
+                              PEAK_F32_FLOPS),
+                             (BF16, 'consensus_fwd_bf16@kp',
+                              PEAK_BF16_FLOPS)):
+        a = [x.to(dtype) for x in cons_case(True)]
+        hold_equal(f'keypoints consensus {dtype} exact',
+                   lambda: consensus_fwd(*a), lambda: plain_consensus(*a))
+        if dispatch.decisions()['consensus_fwd']['dtype'] != str(dtype)[6:]:
+            raise AssertionError('keypoints: the consensus variant of '
+                                 f'{dtype} did not run')
+        a = [x.to(dtype) for x in cons_case(False)]
+        out = consensus_fwd(*a)
+        torch.cuda.synchronize()
+        err = hold_close(f'keypoints consensus {dtype}', out,
+                         plain_consensus(*a))
+        if not torch.equal(out, consensus_fwd(*a)):
+            raise AssertionError('keypoints consensus: a repeat differs')
+        got, src = timed({'kernel': lambda: consensus_fwd(*a),
+                          'plain': lambda: plain_consensus(*a)})
+        elem = a[0].element_size()
+        nbytes = (elem * (2 * B * N * R + R * R + 2 * R + 1)
+                  + 4.0 * B * N * N)
+        b_ms, b_by = bound(flops, nbytes, peak)
+        log(f'keypoints (a): consensus {str(dtype)[6:]} at [{B}, {N}, {N}] '
+            f'R={R}: exact bit-equal, random within tolerance (max |err| '
+            f'{err:.3g}); bound {b_ms:.4f} ms ({b_by}); ms per call [{src}] '
+            f'/ wall: ' + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                                    for k, v in got.items())
+            + f'; by launch: '
+            f'{fmt_split(launch_split(lambda: consensus_fwd(*a)))}')
+        res[key].update(
+            name=f'{key.split("@")[0]}@{B}x{N}x{N},R={R}', route='cuda',
+            source='dgmc_tpu_torch/csrc/consensus.cu',
+            replaces='dgmc_tpu/ops/pallas/consensus.py:49',
+            max_abs_err=err, ms=got['kernel'][0], plain_ms=got['plain'][0],
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_source=src)
+
+    for D in (2, 1):
+        graph = GraphBatch.from_numpy(batches[D].s, 'cuda')
+        basis, routing = spline_routing(graph, 5)
+        if basis.shape[-1] != 2 ** D:
+            raise AssertionError(f'keypoints: D = {D} routed '
+                                 f'{basis.shape[-1]} slots an edge')
+        M = routing.num_rows
+        for dtype in (torch.float32, BF16):
+            tag = '' if dtype == torch.float32 else '_bf16'
+            # Exact inputs at the slice's sizes, then this batch's routing.
+            t, g, eb, er = _spline_exact(gen, B, N, E, 128, 0.2, D=D)
+            t, g = t.to(dtype), g.to(dtype)
+            hold_equal(f'keypoints spline fwd D={D} {dtype} exact',
+                       lambda: route_fwd(t, eb, er),
+                       lambda: plain_route_aggregate(t, eb, er))
+            hold_equal(f'keypoints spline d_t D={D} {dtype} exact',
+                       lambda: route_d_t(g, eb, er),
+                       lambda: plain_route_d_t(g, eb, er))
+            if dispatch.decisions()['spline_route_bwd']['dtype'] != \
+                    str(dtype)[6:]:
+                raise AssertionError('keypoints: the spline variant of '
+                                     f'{dtype} did not run')
+            hold = hold_close if dtype == torch.float32 else hold_ulp
+            for O in (256, 128):
+                t = torch.randn(B, M, O, generator=gen).cuda().to(dtype)
+                g = torch.randn(B, N, O, generator=gen).cuda().to(dtype)
+                out = route_fwd(t, basis, routing)
+                torch.cuda.synchronize()
+                err_f = hold(f'keypoints spline fwd D={D} O={O}', out,
+                             plain_route_aggregate(t, basis, routing))
+                err_b = hold(f'keypoints spline d_t D={D} O={O}',
+                             route_d_t(g, basis, routing),
+                             plain_route_d_t(g, basis, routing))
+                if not torch.equal(out, route_fwd(t, basis, routing)):
+                    raise AssertionError('keypoints spline: a repeat '
+                                         'differs')
+                calls = {'fwd': lambda: route_fwd(t, basis, routing),
+                         'fwd plain': lambda: plain_route_aggregate(
+                             t, basis, routing),
+                         'd_t': lambda: route_d_t(g, basis, routing),
+                         'd_t plain': lambda: plain_route_d_t(g, basis,
+                                                              routing)}
+                try:   # the yardstick, where cuSPARSE takes the dtype
+                    Rm = _routing_matrix(basis, routing).to(dtype)
+                    RT = _routing_matrix(basis, routing,
+                                         transpose=True).to(dtype)
+                    t2, g2 = t.reshape(B * M, O), g.reshape(B * N, O)
+                    torch.sparse.mm(Rm, t2), torch.sparse.mm(RT, g2)
+                    calls.update({
+                        'fwd sparse.mm': lambda: torch.sparse.mm(Rm, t2),
+                        'd_t sparse.mm': lambda: torch.sparse.mm(RT, g2)})
+                except RuntimeError as e:
+                    log(f'keypoints (a): torch.sparse.mm in {dtype} not '
+                        f'available: {str(e)[:120]}')
+                got, src = timed(calls)
+                peak = PEAK_F32_FLOPS if dtype == torch.float32 \
+                    else PEAK_BF16_FLOPS
+                (fb, fby), (bb, bby) = _spline_work(
+                    basis, routing, O, t.element_size(), peak)
+                log(f'keypoints (a): spline {str(dtype)[6:]} D={D} O={O} '
+                    f'[{B}, {M}, {O}]: exact bit-equal, random within '
+                    f'tolerance (max |err| fwd {err_f:.3g}, d_t '
+                    f'{err_b:.3g}); bound fwd {fb:.4f} ms ({fby}), d_t '
+                    f'{bb:.4f} ms ({bby}); ms per call [{src}] / wall: '
+                    + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                                for k, v in got.items()))
+                # No call can beat the least time its work takes: a time
+                # below it means the profiler missed part of that call's
+                # kernels (seen for cuSPARSE's), so it is no time.
+                low = [k for k, v in got.items()
+                       if v[0] < (fb if k.startswith('fwd') else bb)]
+                if low:
+                    log(f'keypoints (a): spline {str(dtype)[6:]} D={D} '
+                        f'O={O}: {low} read below the bound [{src}]: not '
+                        f'a time (part of the work went unrecorded); their '
+                        f'CUDA-event times stand in')
+                    got.update({k: (got[k][1], got[k][1]) for k in low})
+                suffix = f'@kp,O={O}{",D=1" if D == 1 else ""}'
+                for k, line, b_ms, b_by, err in (
+                        ('fwd', 72, fb, fby, err_f),
+                        ('bwd', 96, bb, bby, err_b)):
+                    key = f'spline_route_{k}{tag}{suffix}'
+                    name = 'fwd' if k == 'fwd' else 'd_t'
+                    row = {'name': f'spline_route_{k}{tag}@{B}x{M}x{O},'
+                                   f'D={D}',
+                           'route': 'cuda',
+                           'source': 'dgmc_tpu_torch/csrc/spline.cu',
+                           'replaces': f'dgmc_tpu/ops/pallas/spline.py:'
+                                       f'{line}',
+                           'max_abs_err': err, 'ms': got[name][0],
+                           'plain_ms': got[f'{name} plain'][0],
+                           'bound_ms': b_ms, 'bound_by': b_by,
+                           'library_ms': (got[f'{name} sparse.mm'][0]
+                                          if f'{name} sparse.mm' in got
+                                          else None),
+                           'ms_source': src}
+                    if key in res:
+                        res[key].update(row)
+
+
+def _kp_extractor():
+    """(b) ``VGG16Features('random')`` on the card against the CPU on
+    random images at crop sizes: the resize within one uint8 level, the
+    features of one prepared image within rtol 1e-4 / atol 1e-4 x
+    max|out|, from the image within 2e-3 x max|out| (the resize's level
+    steps); one call timed."""
+    from dgmc_tpu_torch.datasets import VGG16Features
+    gpu = VGG16Features('random', device='cuda')
+    cpu = VGG16Features('random', device='cpu')
+    rng = np.random.RandomState(15)
+    worst = {'levels': 0.0, 'share': 0.0, 'same': 0.0, 'image': 0.0}
+    for h, w in ((97, 131), (160, 213), (60, 75)):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        kps = np.stack([rng.rand(15) * (w - 1), rng.rand(15) * (h - 1)], 1)
+        with torch.no_grad():
+            x_gpu, x_cpu = gpu.prepare(img).cpu(), cpu.prepare(img)
+            levels = (255 * (x_gpu - x_cpu)).abs().round()
+            if levels.max() > 1:
+                raise AssertionError(f'extractor: the card\'s resize is '
+                                     f'{levels.max()} levels off the CPU\'s')
+            coords = torch.from_numpy(np.clip(kps / [w - 1, h - 1], 0, 1)
+                                      .astype(np.float32))
+            a = gpu.extract(x_cpu.cuda(), coords.cuda()).cpu()
+            b = cpu.extract(x_cpu, coords)
+        scale = float(b.abs().max())
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(f'extractor: card and CPU features of one '
+                                 f'image differ by {(a - b).abs().max()}')
+        fa, fb = gpu(img, kps), cpu(img, kps)
+        e2e = float(np.abs(fa - fb).max()) / float(np.abs(fb).max())
+        if e2e > 2e-3:
+            raise AssertionError(f'extractor: from the image, card and CPU '
+                                 f'differ by {e2e} x max|out|')
+        worst = {'levels': max(worst['levels'], float(levels.max())),
+                 'share': max(worst['share'],
+                              float((levels > 0).float().mean())),
+                 'same': max(worst['same'],
+                             float((a - b).abs().max()) / scale),
+                 'image': max(worst['image'], e2e)}
+    prepared = gpu.prepare(img)
+    coords = coords.cuda()
+    ms = cuda_ms(lambda: gpu(img, kps))
+    dev = device_ms(lambda: gpu.extract(prepared, coords))
+    log(f'keypoints (b): VGG16Features(random) on the card against the CPU '
+        f'at 3 crop sizes: resize within {worst["levels"]:.0f} level '
+        f'({100 * worst["share"]:.3f}% of values off), one prepared image '
+        f'within {worst["same"]:.2e} x max|out|, from the image within '
+        f'{worst["image"]:.2e} x max|out|; one call (256 x 256, 15 '
+        f'keypoints, host to host) {ms:.3f} ms wall, the conv stack and '
+        f'sampling {dev if dev is None else round(dev, 4)} ms device')
+
+
+@contextlib.contextmanager
+def _last_step(module):
+    """Within the block, record the last call of every train step that
+    ``module.make_train_step`` makes; yields ``run()``, which calls it
+    again (a replay, once the step is captured) with the same state,
+    batch and seed, for a profile after the CLI has returned."""
+    make = module.make_train_step
+    last = {}
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        @functools.wraps(step)     # its .jit too
+        def recorded(*args):
+            last['call'] = (step, args)
+            return step(*args)
+
+        return recorded
+
+    def run():
+        step, args = last['call']
+        return step(*args)
+
+    module.make_train_step = recording
+    try:
+        yield run
+    finally:
+        module.make_train_step = make
+
+
+def _kp_run(label, main, argv, policy, tally, hook=None):
+    """One keypoint CLI ``main(argv)`` with the launch counters at 0 just
+    before and read just after (those at this slice's shapes also filed
+    in :data:`KP_MAIN` through ``tally``, unless it is None): every train
+    step (``'train'`` /
+    ``'pretrain'``) launches :data:`PER_TRAIN_STEP`, every eval batch
+    :data:`PER_EVAL_BATCH`; the dispatch ledger shows every kernel in the
+    policy's dtype; finite losses. Returns ``(losses, main's result)``,
+    ``losses`` a list of ``(kind, [loss of each step])``, one an epoch (a
+    run's epoch for ``willow``)."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    dtype = 'bfloat16' if policy == 'bf16' else 'float32'
+    marks, losses = [], []
+
+    def mark(kind, index, out):
+        if hook is not None:
+            hook(kind, index, out)
+        if kind not in ('train', 'pretrain', 'eval', 'real_eval'):
+            return
+        torch.cuda.synchronize()
+        marks.append((kind, time.perf_counter(), dispatch.launch_counts()))
+        if kind in ('train', 'pretrain'):
+            if (index[-1] if isinstance(index, tuple) else index) == 0:
+                losses.append((kind, []))
+            losses[-1][1].append(float(out['loss']))
+
+    torch.cuda.reset_peak_memory_stats()
+    with (keypoint_launches(tally) if tally is not None
+          else contextlib.nullcontext()):
+        dispatch.reset()
+        marks.append(('start', time.perf_counter(),
+                      dispatch.launch_counts()))
+        result = main(argv, hook=mark)
+    # The next run's reset sets the tally's counters back to 0 too.
+    for key, n in (tally.counts().items() if tally is not None else ()):
+        KP_MAIN[key] = KP_MAIN.get(key, 0) + n
+    decisions = dispatch.decisions()
+    peak = torch.cuda.max_memory_allocated()
+    for prev, cur in zip(marks, marks[1:]):
+        want = (PER_EVAL_BATCH if cur[0] in ('eval', 'real_eval')
+                else PER_TRAIN_STEP)
+        got = _deltas(prev[2], cur[2])
+        if got != want:
+            raise AssertionError(f'{label}: {cur[0]} launches {got}, '
+                                 f'expected {want}')
+    for name in TRAIN_KERNELS:
+        d = decisions[name]
+        want = 'float32' if name in F32_ALWAYS else dtype
+        if (d['path'] != 'kernel' or d['counts']['plain']
+                or set(d['dtypes']) != {f'kernel:{want}'}):
+            raise AssertionError(f'{label}: {name}: dispatch {d}')
+    _hold_native_collation(label, decisions)
+    flat = [v for _, vs in losses for v in vs]
+    if not flat or not np.isfinite(flat).all():
+        raise AssertionError(f'{label}: losses {losses}')
+    step_ms = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
+               if b[0] in ('train', 'pretrain') and a[0] == b[0]]
+    n = collections.Counter(m[0] for m in marks[1:])
+    log(f'{label}: {dict(n)} steps and eval batches, each with the '
+        f'formula\'s launches ({"/".join(map(str, PER_TRAIN_STEP))} a train '
+        f'step, {"/".join(map(str, PER_EVAL_BATCH))} an eval batch: route '
+        f'fwd / d_t / consensus / records / draw), every kernel in {dtype}; '
+        f'mean loss by epoch '
+        + ', '.join(f'{k} {np.mean(v):.4f}' for k, v in losses)
+        + (f'; step ms (synchronized, host clock, a new batch each, the '
+           f'capture left out): median {statistics.median(step_ms):.3f}, '
+           f'min {min(step_ms):.3f}, max {max(step_ms):.3f}'
+           if step_ms else '')
+        + f'; max_memory_allocated {peak / 2**30:.3f} GiB')
+    return losses, result
+
+
+def phase_keypoints(res):
+    """The keypoint experiments (PascalVOC and WILLOW) on the card, on a
+    fixture tree written here (:mod:`dgmc_tpu_torch.datasets.fixtures`:
+    ``KP_VOC`` instances per category, 6-20 keypoint names each, a
+    visible subset per instance; ``KP_WILLOW_ITEMS`` WILLOW items per
+    category; images where PIL imports, else none, so that the zero
+    images feed the VGG stack): (a) :func:`_kp_kernels`; (b)
+    :func:`_kp_extractor`; (c) ``pascal.main`` at the JAX CLI's widths,
+    2 epochs, ``--test_samples KP_TEST_SAMPLES``, bf16 then ``--f32``: the
+    launches of the formula, the loss falls, then one replayed train step
+    profiled with its peak memory; (d) ``--isotropic --f32``, 1 epoch
+    (D = 1 in the trainer); (e)
+    ``willow.main`` at its widths, ``--pre_epochs 1 --epochs 1 --runs
+    2``: run 2's first replayed step bit-identical to an eager step from
+    the snapshot; (f) ``pascal_pf.main --data_root`` on a PascalPF
+    fixture, 1 epoch: one captured eval graph per category size, every
+    pair evaluated. Launches at this slice's shapes go to
+    :data:`KP_MAIN`."""
+    import tempfile
+    from dgmc_tpu_torch.datasets.fixtures import (write_pascal_pf,
+                                                  write_voc, write_willow)
+    from dgmc_tpu_torch.experiments import pascal, pascal_pf, willow
+    try:
+        import PIL.Image  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    tmp = tempfile.mkdtemp(prefix='dgmc_keypoints_')
+    try:
+        t0 = time.perf_counter()
+        size = KP_IMAGE if pil else None
+        voc = write_voc(os.path.join(tmp, 'voc'), seed=0, train=KP_VOC[0],
+                        val=KP_VOC[1], image_size=size)
+        wil = write_willow(os.path.join(tmp, 'willow'), seed=1,
+                           items=KP_WILLOW_ITEMS, image_size=size)
+        pf = write_pascal_pf(os.path.join(tmp, 'pf'), seed=2,
+                             items=KP_PF_ITEMS)
+        log(f'keypoints: PIL {"imports" if pil else "does not import"} '
+            f'here: the fixture {"has" if pil else "has no"} images '
+            f'({KP_IMAGE[0]} x {KP_IMAGE[1]}, JPEG for PascalVOC, PNG for '
+            f'WILLOW); {KP_VOC} PascalVOC instances a category (train, '
+            f'val), {KP_WILLOW_ITEMS} WILLOW items, {KP_PF_ITEMS} PascalPF '
+            f'items; written in {time.perf_counter() - t0:.1f}s; '
+            f'--test_samples {KP_TEST_SAMPLES}')
+        _kp_kernels(res, voc)
+        _kp_extractor()
+        tally = Tally('keypoints')
+        cut = ['--data_root', voc, '--test_samples', str(KP_TEST_SAMPLES)]
+        for policy in ('bf16', 'f32'):
+            with _last_step(pascal) as last:
+                losses, _ = _kp_run(
+                    f'keypoints (c) pascal {policy}', pascal.main,
+                    cut + ['--epochs', '2', '--precision', policy], policy,
+                    tally)
+            by_epoch = [np.mean(v) for k, v in losses if k == 'train']
+            if len(by_epoch) != 2 or not by_epoch[1] < by_epoch[0]:
+                raise AssertionError(f'keypoints (c) {policy}: the loss did '
+                                     f'not fall: {by_epoch}')
+            _step_profile(last, f'keypoints (c) pascal {policy}: one '
+                          f'replayed train step')
+            del last
+        _kp_run('keypoints (d) pascal --isotropic f32', pascal.main,
+                cut + ['--epochs', '1', '--isotropic', '--f32'], 'f32',
+                tally)
+        _kp_willow(voc, wil, tally)
+        _kp_pascal_pf(pf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _kp_willow(voc, wil, tally):
+    """(e) ``willow.main`` at its widths: the CLI's run 2 first replayed
+    step against an eager step (``jit=False``) from the snapshot on the
+    same batch and seed, outputs and parameters bit-identical."""
+    from dgmc_tpu_torch.experiments import pascal, willow
+    from dgmc_tpu_torch.train.state import create_train_state, restore_params
+    from dgmc_tpu_torch.train.steps import make_train_step
+    argv = ['--voc_root', voc, '--willow_root', wil,
+            '--pre_epochs', '1', '--epochs', '1', '--runs', '2']
+    seen = {}
+
+    def hook(kind, index, out):
+        if kind == 'snapshot':
+            seen.update(out)
+        elif kind == 'train' and index == (2, 1, 0):
+            seen['out'] = _clone(out)
+            seen['after'] = {k: v.clone() for k, v in
+                             seen['model'].state_dict().items()}
+
+    loaders = willow.run_loader
+    kept = {}
+
+    def run_loader(args, datasets, run, num_nodes, num_edges):
+        kept.update(args=args, datasets=datasets,
+                    limits=(num_nodes, num_edges))
+        return loaders(args, datasets, run, num_nodes, num_edges)
+
+    willow.run_loader = run_loader
+    try:
+        _, accs = _kp_run('keypoints (e) willow bf16', willow.main, argv,
+                             'bf16', tally, hook=hook)
+    finally:
+        willow.run_loader = loaders
+    if accs.shape != (2, 5) or not np.isfinite(accs).all():
+        raise AssertionError(f'keypoints (e): accuracies {accs}')
+    args = kept['args']
+    model = pascal.build_model(args, 1024).cuda()
+    state = create_train_state(model, learning_rate=args.lr)
+    restore_params(state, model, seen['params'])
+    batch = next(iter(loaders(args, kept['datasets'], 2, *kept['limits'])))
+    _, out = make_train_step(model, loss_on_s0=True, jit=False)(
+        state, batch, willow.noise_seed(args.seed, 0, 2, 1, 0))
+    torch.cuda.synchronize()
+    _hold_identical('keypoints (e) run 2 step 1', _clone(out), seen['out'],
+                    'the eager step from the snapshot and the replay')
+    _hold_identical('keypoints (e) run 2 step 1 parameters',
+                    {k: v for k, v in model.state_dict().items()},
+                    seen['after'],
+                    'the eager step from the snapshot and the replay')
+    log(f'keypoints (e): willow.main (bf16, --runs 2): run 2\'s first '
+        f'replayed step bit-identical to an eager step from the snapshot '
+        f'(outputs and {len(seen["after"])} parameters); accuracies '
+        f'{accs.round(2).tolist()}')
+
+
+def _kp_pascal_pf(pf):
+    """(f) ``pascal_pf.main --data_root`` on the PascalPF fixture: every
+    category's pairs evaluated one at a time, one captured eval graph for
+    each padded size."""
+    from dgmc_tpu_torch.datasets.pascal_pf import CATEGORIES, PascalPF
+    from dgmc_tpu_torch.experiments import pascal_pf
+    made = []
+    make = pascal_pf.make_eval_step
+
+    def recording(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
+
+    pascal_pf.make_eval_step = recording
+    try:
+        _kp_run('keypoints (f) pascal_pf --data_root', pascal_pf.main,
+                ['--data_root', pf, '--epochs', '1'], 'bf16', None)
+    finally:
+        pascal_pf.make_eval_step = make
+    sizes = {max(g.pos.shape[0] for g in PascalPF(pf, c).items.values())
+             for c in CATEGORIES}
+    records = made[0].jit.compiled.records
+    if len(records) != len(sizes):
+        raise AssertionError(f'keypoints (f): {len(records)} eval graphs '
+                             f'for {len(sizes)} category sizes')
+    log(f'keypoints (f): {len(records)} captured eval graphs, one per '
+        f'category size {sorted(sizes)}')
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -4613,11 +5194,12 @@ def main(argv=None):
               flush=True)
         return 0
 
+    t_start = time.perf_counter()
     res = {k: {} for k in ('topk', *TRAIN_KERNELS, *KG_KERNELS[1:],
                            *(f'topk@{n}' for n in SMALL_ROWS),
                            *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
                            'spline_route_fwd@64', 'spline_route_bwd@64',
-                           *BF16_ROWS, *RNG_ROWS, *BLOCKED_ROWS)}
+                           *BF16_ROWS, *RNG_ROWS, *BLOCKED_ROWS, *KP_ROWS)}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
@@ -4645,7 +5227,8 @@ def main(argv=None):
             ('capture', phase_capture),
             ('backbones', phase_backbones),
             ('resume', lambda: phase_resume(
-                smi[0] if smi else 'nvidia-smi: no output'))):
+                smi[0] if smi else 'nvidia-smi: no output')),
+            ('keypoints', lambda: phase_keypoints(res))):
         t0 = time.perf_counter()
         try:
             fn()
@@ -4672,6 +5255,13 @@ def main(argv=None):
             failed.append(f'blocked launches ({key})')
     log(f'blocked: launches on the KG main paths by (path, C, rows dtype): '
         f'{sorted(BLOCKED_MAIN.items())}')
+    for key, where in KP_ROWS.items():
+        res[key]['launches'] = KP_MAIN.get(where, 0)
+        if not failed and not res[key]['launches']:
+            failed.append(f'keypoint launches ({key})')
+    log(f'keypoints: launches on the keypoint main paths by (kernel, O or '
+        f'R, D, dtype): {sorted(KP_MAIN.items(), key=str)}')
+    log(f'chip_smoke: all phases in {time.perf_counter() - t_start:.1f}s')
     if failed:
         print(f'chip_smoke: failed phases: {failed}', file=sys.stderr)
         return 1

@@ -1,17 +1,21 @@
-"""Host-side keypoint-graph transforms (NumPy).
+"""Host-side keypoint-graph transforms (NumPy / SciPy).
 
-The transforms the PascalPF training pipeline applies to every point
-cloud: a constant node feature, a k-nearest-neighbour graph and
-Cartesian edge pseudo-coordinates. Copies of the JAX package's, with the
-same ``argpartition`` neighbour order, so one graph gives the same edge
-list in both.
+The transforms the keypoint experiments apply to every point cloud:
+PascalPF's constant node feature, k-nearest-neighbour graph and
+Cartesian edge pseudo-coordinates; PascalVOC's and WILLOW's Delaunay
+triangulation (SciPy's Qhull), its faces turned into undirected edges,
+and Cartesian or (``--isotropic``) Distance pseudo-coordinates. Copies of
+the JAX package's, with the same ``argpartition`` neighbour order, the
+same Qhull options and the same degenerate cases, so one graph gives the
+same faces, edges and attributes in both.
 """
 
 import dataclasses
 
 import numpy as np
 
-__all__ = ['Compose', 'Constant', 'KNNGraph', 'Cartesian']
+__all__ = ['Compose', 'Constant', 'KNNGraph', 'Delaunay', 'FaceToEdge',
+           'Cartesian', 'Distance']
 
 
 class Compose:
@@ -66,6 +70,72 @@ class KNNGraph:
         return g
 
 
+class Delaunay:
+    """Delaunay triangulation of ``pos`` into faces (SciPy's Qhull with
+    ``QJ``, joggled input, so that every point lands in a triangle).
+
+    Degenerate sizes: fewer than 2 nodes give no face and no edge, exactly
+    2 one edge each way, exactly 3 one triangle. A layout Qhull rejects
+    (collinear points) becomes a chain through the points in x order,
+    both directions, and no face.
+    """
+
+    def __call__(self, g):
+        n = g.pos.shape[0]
+        if n < 2:
+            g.face = np.zeros((3, 0), np.int64)
+            g.edge_index = np.zeros((2, 0), np.int64)
+            return g
+        if n == 2:
+            g.face = None
+            g.edge_index = np.array([[0, 1], [1, 0]], np.int64)
+            return g
+        if n == 3:
+            g.face = np.array([[0], [1], [2]], np.int64)
+            return g
+        from scipy.spatial import Delaunay as SciPyDelaunay
+        from scipy.spatial import QhullError
+        try:
+            tri = SciPyDelaunay(g.pos, qhull_options='QJ')
+            g.face = tri.simplices.T.astype(np.int64)
+        except QhullError:
+            order = np.argsort(g.pos[:, 0] + 1e-9 * g.pos[:, 1])
+            src, dst = order[:-1], order[1:]
+            g.edge_index = np.stack([
+                np.concatenate([src, dst]),
+                np.concatenate([dst, src])]).astype(np.int64)
+            g.face = None
+        return g
+
+
+class FaceToEdge:
+    """Triangle faces → undirected edges: both directions of each side,
+    deduplicated and sorted (``np.unique`` over columns)."""
+
+    def __init__(self, remove_faces=True):
+        self.remove_faces = remove_faces
+
+    def __call__(self, g):
+        face = g.face
+        if face is not None and face.size:
+            pairs = np.concatenate(
+                [face[[0, 1]], face[[1, 2]], face[[2, 0]]], axis=1)
+            und = np.unique(np.concatenate([pairs, pairs[::-1]], axis=1),
+                            axis=1)
+            g.edge_index = und.astype(np.int64)
+        if self.remove_faces:
+            g.face = None
+        return g
+
+
+def _append_attr(g, attr):
+    if g.edge_attr is not None:
+        g.edge_attr = np.concatenate([g.edge_attr, attr], axis=1)
+    else:
+        g.edge_attr = attr
+    return g
+
+
 class Cartesian:
     """Edge pseudo-coordinates: relative node positions, normalized to
     ``[0, 1]``."""
@@ -80,9 +150,21 @@ class Cartesian:
         if self.norm and cart.size:
             scale = self.max_value or np.abs(cart).max()
             cart = cart / (2 * max(scale, 1e-12)) + 0.5
-        attr = cart.astype(np.float32)
-        if g.edge_attr is not None:
-            g.edge_attr = np.concatenate([g.edge_attr, attr], axis=1)
-        else:
-            g.edge_attr = attr
-        return g
+        return _append_attr(g, cart.astype(np.float32))
+
+
+class Distance:
+    """Edge pseudo-coordinates: the Euclidean length of each edge,
+    divided by the longest (``--isotropic``: one coordinate)."""
+
+    def __init__(self, norm=True, max_value=None):
+        self.norm = norm
+        self.max_value = max_value
+
+    def __call__(self, g):
+        src, dst = g.edge_index
+        d = np.linalg.norm(g.pos[src] - g.pos[dst], axis=1, keepdims=True)
+        if self.norm and d.size:
+            scale = self.max_value or d.max()
+            d = d / max(scale, 1e-12)
+        return _append_attr(g, d.astype(np.float32))

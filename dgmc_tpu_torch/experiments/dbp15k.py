@@ -58,14 +58,18 @@ restore's start to the end of the first step run), each save
 ``event='checkpoint'`` (its seconds and bytes) and each rollback
 ``event='rollback'``.
 
-``--synthetic`` trains on the synthetic KG alignment (the JAX CLI's
-offline stand-in, 15000 / 20000 entities and 100000 / 120000 edges by
-default). The real DBP15K data needs the dataset's parser, which is not
-ported: without ``--synthetic`` the CLI exits with a notice.
+``--category {zh_en,ja_en,fr_en}`` trains on that language pair of
+DBP15K, parsed from the JAPE release under ``--data_root``
+(:class:`~dgmc_tpu_torch.datasets.DBP15K`: word vectors summed per
+entity, the ``sup`` alignments as the train ground truth, the ``ref``
+ones as the test's). ``--synthetic`` trains on the synthetic KG
+alignment instead (the JAX CLI's offline stand-in, 15000 / 20000
+entities and 100000 / 120000 edges by default). One of the two is
+required.
 """
 
 import argparse
-import sys
+import os
 import time
 
 import numpy as np
@@ -91,16 +95,21 @@ from dgmc_tpu_torch.utils.data import (Graph, GraphPair, PairBatch,
                                        pad_pair_batch)
 
 __all__ = ['parse_args', 'use_blocked_adjacency', 'synthetic_batches',
-           'build', 'noise_seed', 'offload_pass', 'main']
+           'load_batches', 'build', 'noise_seed', 'offload_pass', 'main']
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog='python -m dgmc_tpu_torch.experiments.dbp15k',
         description=__doc__.split('\n\n')[0])
+    p.add_argument('--category', type=str, default=None,
+                   choices=['zh_en', 'ja_en', 'fr_en'],
+                   help='the DBP15K language pair to train on')
+    p.add_argument('--data_root', type=str,
+                   default=os.path.join('data', 'DBP15K'),
+                   help='the DBP15K (JAPE) release directory')
     p.add_argument('--synthetic', action='store_true',
-                   help='train on the synthetic KG alignment (the real '
-                        'DBP15K parser is not ported)')
+                   help='train on the synthetic KG alignment instead')
     p.add_argument('--syn_nodes_s', type=int, default=15000)
     p.add_argument('--syn_nodes_t', type=int, default=20000)
     p.add_argument('--syn_edges_s', type=int, default=100000)
@@ -196,31 +205,19 @@ def use_blocked_adjacency(args):
     return not args.stream_chunk
 
 
-def synthetic_batches(args):
-    """``(train_batch, test_batch, in_dim)``: the synthetic alignment as
-    host :class:`~dgmc_tpu_torch.utils.data.PairBatch` es, the seed
-    alignments as the train ground truth (``--pairs-per-step`` replicas)
-    and the rest as the test ground truth (one pair). Same arrays as the
-    JAX CLI's for the same flags, the blocked tables included
-    (:func:`use_blocked_adjacency`): built once on the one pair under the
-    precision policy's gather dtype, then repeated for the replicas."""
-    kg = synthetic_kg_alignment(
-        args.syn_nodes_s, args.syn_nodes_t, args.syn_edges_s,
-        args.syn_edges_t, args.syn_dim, noise_min=args.syn_noise_min,
-        noise_max=args.syn_noise, rewire=args.syn_rewire,
-        seed_frac=args.syn_seed_frac, rng=np.random.RandomState(args.seed))
-    g_s = Graph(edge_index=np.stack([kg.senders_s, kg.receivers_s]),
-                x=kg.x_s)
-    g_t = Graph(edge_index=np.stack([kg.senders_t, kg.receivers_t]),
-                x=kg.x_t)
-    sizes = (args.syn_nodes_s, args.syn_edges_s, args.syn_nodes_t,
-             args.syn_edges_t)
+def _pair_batches(args, g_s, g_t, y_train, y_test):
+    """``(train_batch, test_batch)`` of one KG pair with the ground truths
+    ``y_train`` / ``y_test`` (``[N_s]``, -1 where unaligned), each graph
+    padded to its own size: the blocked tables attached as
+    :func:`use_blocked_adjacency` says (built once on the one pair under
+    the precision policy's gather dtype), the train batch repeated for
+    ``--pairs-per-step``."""
+    sizes = (g_s.num_nodes, g_s.num_edges, g_t.num_nodes, g_t.num_edges)
 
-    def batch(mask):
-        y = np.where(mask, kg.perm, -1).astype(np.int64)
+    def batch(y):
         return pad_pair_batch([GraphPair(s=g_s, t=g_t, y_col=y)], *sizes)
 
-    train, test = batch(kg.train_mask), batch(~kg.train_mask)
+    train, test = batch(y_train), batch(y_test)
     s, t = train.s, train.t
     if use_blocked_adjacency(args):
         prec = precision.from_args(args)
@@ -230,8 +227,46 @@ def synthetic_batches(args):
     train = PairBatch(s=repeat_graph(s, reps), t=repeat_graph(t, reps),
                       y=np.repeat(train.y, reps, axis=0),
                       y_mask=np.repeat(train.y_mask, reps, axis=0))
-    return (train, PairBatch(s=s, t=t, y=test.y, y_mask=test.y_mask),
-            args.syn_dim)
+    return train, PairBatch(s=s, t=t, y=test.y, y_mask=test.y_mask)
+
+
+def synthetic_batches(args):
+    """``(train_batch, test_batch, in_dim)``: the synthetic alignment as
+    host :class:`~dgmc_tpu_torch.utils.data.PairBatch` es, the seed
+    alignments as the train ground truth (``--pairs-per-step`` replicas)
+    and the rest as the test ground truth (one pair). Same arrays as the
+    JAX CLI's for the same flags, the blocked tables included."""
+    kg = synthetic_kg_alignment(
+        args.syn_nodes_s, args.syn_nodes_t, args.syn_edges_s,
+        args.syn_edges_t, args.syn_dim, noise_min=args.syn_noise_min,
+        noise_max=args.syn_noise, rewire=args.syn_rewire,
+        seed_frac=args.syn_seed_frac, rng=np.random.RandomState(args.seed))
+    g_s = Graph(edge_index=np.stack([kg.senders_s, kg.receivers_s]),
+                x=kg.x_s)
+    g_t = Graph(edge_index=np.stack([kg.senders_t, kg.receivers_t]),
+                x=kg.x_t)
+    y = kg.perm.astype(np.int64)
+    return (*_pair_batches(args, g_s, g_t, np.where(kg.train_mask, y, -1),
+                           np.where(~kg.train_mask, y, -1)), args.syn_dim)
+
+
+def load_batches(args):
+    """``(train_batch, test_batch, in_dim)`` of ``--synthetic`` or of
+    ``--category``'s DBP15K pair under ``--data_root``, as the JAX CLI
+    builds them."""
+    if args.synthetic:
+        return synthetic_batches(args)
+    if args.category is None:
+        raise SystemExit('--category is required unless --synthetic')
+    from dgmc_tpu_torch.datasets import DBP15K
+    data = DBP15K(args.data_root, args.category)
+    g_s, g_t = data.graphs(sum_embedding=True)
+    y_train = np.full(g_s.num_nodes, -1, np.int64)
+    y_train[data.train_y[0]] = data.train_y[1]
+    y_test = np.full(g_s.num_nodes, -1, np.int64)
+    y_test[data.test_y[0]] = data.test_y[1]
+    return (*_pair_batches(args, g_s, g_t, y_train, y_test),
+            g_s.x.shape[1])
 
 
 def build(args, in_dim):
@@ -263,15 +298,10 @@ def main(argv=None, hook=None):
     step (``kind='train'``) and evaluation (``'eval'``) with its
     metrics."""
     args = parse_args(argv)
-    if not args.synthetic:
-        print('[dbp15k] the DBP15K dataset parser is not ported yet; run '
-              'with --synthetic to train on the synthetic KG alignment',
-              file=sys.stderr)
-        raise SystemExit(2)
     device = resolve_device(args.device)
     plan = FaultPlan.from_args(args, state_dir=args.ckpt_dir)
     precision.apply(precision.from_args(args))
-    train_batch, test_batch, in_dim = synthetic_batches(args)
+    train_batch, test_batch, in_dim = load_batches(args)
     model = build(args, in_dim).to(device)
     state = create_train_state(model, learning_rate=args.lr)
     guard = args.guard_bad_steps > 0

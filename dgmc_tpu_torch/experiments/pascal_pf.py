@@ -27,10 +27,14 @@ collation overlaps the device's work (an eager step's Python held it
 for most of the step, and the thread then cost more than it saved).
 
 ``--synthetic_eval N`` also evaluates on ``N`` held-out synthetic pairs
-per epoch. ``--metrics_log PATH`` appends the JAX CLI's per-epoch JSONL
-records (``loss``, ``train_acc``, ``synthetic_eval_acc``) to ``PATH``.
-The real PascalPF zero-shot eval needs the dataset and its parser, which
-are not ported: it is skipped with a notice.
+per epoch. With the PF-PASCAL release at ``--data_root``
+(:class:`~dgmc_tpu_torch.datasets.PascalPF`), every epoch also evaluates
+zero-shot on its pairs, one pair a step, padded to its category's
+largest item (``8 x`` that many edges: one compiled eval step per
+category size), and prints the per-category and mean accuracies; without
+it a notice says the real-data eval is disabled. ``--metrics_log PATH``
+appends the JAX CLI's per-epoch JSONL records (``loss``, ``train_acc``,
+``synthetic_eval_acc``, ``mean_acc``) to ``PATH``.
 """
 
 import argparse
@@ -43,17 +47,20 @@ from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.synthetic import RandomGraphPairs
 from dgmc_tpu_torch.data.transforms import (Cartesian, Compose, Constant,
                                             KNNGraph)
+from dgmc_tpu_torch.datasets.pascal_pf import CATEGORIES, PascalPF
 from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
+from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.obs.observe import MetricLogger
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
                                         make_train_step)
-from dgmc_tpu_torch.utils.data import PairLoader, PrefetchLoader
+from dgmc_tpu_torch.utils.data import (GraphPair, PairLoader, PrefetchLoader,
+                                       pad_pair_batch)
 
 __all__ = ['NUM_NODES', 'NUM_EDGES', 'parse_args', 'build', 'noise_seed',
-           'main']
+           'real_eval', 'main']
 
 #: The padded graph size of every batch (the JAX CLI's).
 NUM_NODES, NUM_EDGES = 80, 640
@@ -72,8 +79,8 @@ def parse_args(argv=None):
     p.add_argument('--epochs', type=int, default=32)
     p.add_argument('--data_root', type=str,
                    default=os.path.join('data', 'PascalPF'),
-                   help='PascalPF dataset directory (the real-data eval '
-                        'is not ported yet: only a notice is printed)')
+                   help='PF-PASCAL dataset directory (the zero-shot eval '
+                        'is disabled when it is missing)')
     p.add_argument('--synthetic_eval', type=int, default=0,
                    help='also evaluate on this many held-out synthetic '
                         'pairs per epoch (a disjoint generator stream)')
@@ -111,15 +118,16 @@ def build(args):
 
 def noise_seed(seed, split, epoch, index):
     """The indicator-noise seed of one batch: disjoint for the train
-    (``split`` 0) and eval (1) streams, every epoch and batch."""
+    (``split`` 0), synthetic eval (1) and real eval (2) streams, every
+    epoch and batch."""
     return ((seed * 2 + split) * 10_007 + epoch) * 100_003 + index
 
 
 def main(argv=None, hook=None):
     """Train as the module docstring says; returns the train state.
     ``hook(kind, index, out)``, if given, is called after every train
-    step (``kind='train'``) and eval batch (``'eval'``) with its
-    metrics."""
+    step (``kind='train'``), synthetic eval batch (``'eval'``) and real
+    eval pair (``'real_eval'``) with its metrics."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     precision.apply(precision.from_args(args))
@@ -128,12 +136,12 @@ def main(argv=None, hook=None):
     state = create_train_state(model, learning_rate=args.lr)
     step = make_train_step(model, loss_on_s0=True)
 
-    if os.path.isdir(args.data_root):
-        print(f'[pascal_pf] real-data eval skipped: the PascalPF parser is '
-              f'not ported yet ({args.data_root})')
-    else:
-        print(f'[pascal_pf] real-data eval disabled: no dataset at '
-              f'{args.data_root}')
+    try:
+        test_datasets = [PascalPF(args.data_root, c, transform)
+                         for c in CATEGORIES]
+    except FileNotFoundError as e:
+        print(f'[pascal_pf] real-data eval disabled: {e}')
+        test_datasets = []
 
     eval_loader = None
     if args.synthetic_eval:
@@ -143,7 +151,8 @@ def main(argv=None, hook=None):
         eval_loader = PairLoader(eval_ds, args.batch_size, shuffle=False,
                                  num_nodes=NUM_NODES, num_edges=NUM_EDGES)
 
-    eval_step = make_eval_step(model) if eval_loader else None
+    eval_step = make_eval_step(model) if eval_loader or test_datasets \
+        else None
     train_batches = PrefetchLoader(HostBatches(train_loader, device), 2)
     eval_batches = (PrefetchLoader(HostBatches(eval_loader, device), 2)
                     if eval_loader else None)
@@ -152,7 +161,36 @@ def main(argv=None, hook=None):
             train_loader.dataset.set_epoch(epoch)
             state = _epoch(args, epoch, state, step, train_batches,
                            eval_batches, eval_step, device, logger, hook)
+            if test_datasets:
+                seeds = (noise_seed(args.seed, 2, epoch, i)
+                         for i in range(1 << 30))
+                accs = [100 * real_eval(ds, eval_step, device, seeds, hook)
+                        for ds in test_datasets]
+                accs.append(sum(accs) / len(accs))
+                print(' '.join(c[:5].ljust(5) for c in CATEGORIES) + ' mean')
+                print(' '.join(f'{a:.1f}'.ljust(5) for a in accs),
+                      flush=True)
+                logger.log(epoch, mean_acc=accs[-1])
     return state
+
+
+def real_eval(ds, eval_step, device, seeds, hook=None):
+    """Zero-shot accuracy on one PascalPF category: each pair alone,
+    padded to the category's largest item and 8 edges a node (one
+    compiled eval step for each such size), keypoint i matched to
+    keypoint i. ``seeds`` yields each pair's seed."""
+    n_pad = max(g.pos.shape[0] for g in ds.items.values())
+    correct = torch.zeros((), device=device)
+    n = 0.0
+    for i, (g_s, g_t, y) in enumerate(ds.pair_graphs()):
+        b = pad_pair_batch([GraphPair(s=g_s, t=g_t, y_col=y)], n_pad,
+                           8 * n_pad)
+        out = eval_step(b, next(seeds))
+        if hook is not None:
+            hook('real_eval', i, {k: v.clone() for k, v in out.items()})
+        correct += out['correct']
+        n += float(b.y_mask.sum())
+    return eval_summary(n, hits1=correct)['hits1']
 
 
 def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,

@@ -242,7 +242,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       ('resilience', 'faults.py'),
                       ('resilience', 'guard.py'),
                       ('train', 'checkpoint.py'),
-                      ('models', 'evalsum.py'))} <= set(files)
+                      ('models', 'evalsum.py'),
+                      ('data', 'transforms.py'),
+                      ('datasets', '__init__.py'),
+                      ('datasets', 'features.py'),
+                      ('datasets', 'convert_vgg.py'),
+                      ('datasets', 'pascal_voc.py'),
+                      ('datasets', 'willow.py'),
+                      ('datasets', 'pascal_pf.py'),
+                      ('datasets', 'dbp15k.py'),
+                      ('datasets', 'fixtures.py'),
+                      ('experiments', 'pascal.py'),
+                      ('experiments', 'willow.py'))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]
