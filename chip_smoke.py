@@ -270,6 +270,26 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   bit-identical to an eager one from the snapshot), (f) ``pascal_pf.main
   --data_root``, each with the launches of the formula a step and eval
   batch.
+- ``obs``: the run plane (``dgmc_tpu_torch/obs``, :func:`phase_obs`):
+  (a) ``dbp15k.main`` at full width, bf16, 13 epochs (10 of phase 1)
+  with ``--obs-dir --obs-port 0 --probes --watchdog-deadline --slo``,
+  the launch counters at 0 before it and at ``KG_PER``'s counts: after
+  every step ``/healthz``, ``/metrics`` and ``/status`` answer 200 and
+  count the steps; every artifact with JAX's top-level keys
+  (:data:`OBS_KEYS`); each phase-2 step's probe series complete; one
+  capture per step function; (b) the captured KG phase-2 and PascalPF
+  steps under each policy: an observer with probes off changes no
+  output bit and no launch, the captured step's probe tape equals the
+  eager step's bit for bit; (c) ``pascal_pf.main --profile-dir
+  --profile-steps 1:3``: the trace names the steps and the port's
+  kernels; (d) the run in (a) with ``--guard-bad-steps 1 --inject-fault
+  nan-grads@12`` names ``grad`` at step 11 as the first offender and
+  dumps ``flight.json`` at the rollback, and a device-side stall
+  (``torch.cuda._sleep``) turns ``/healthz`` 503 and writes
+  ``hang_report.json`` with the main thread in the synchronize; (e) the
+  observer's cost on the captured bf16 KG phase-2 step: no observer,
+  probes off, probes on (30 synchronized steps each in turns, then 30
+  back to back, and one profiled replay's device ops and busy time).
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -306,6 +326,7 @@ import copy
 import functools
 import gc
 import importlib.util
+import io
 import itertools
 import json
 import os
@@ -595,6 +616,10 @@ def phase_topk_kernel(result, small):
                    'library_ms': lib_ms, 'ms_source': 'cuda_events'})
 
 
+#: The model's ``record_function`` stage ranges (JAX's scope names).
+RANGES = ('psi1', 'initial_corr', 'topk', 'consensus_iter', 'psi2')
+
+
 def _profiled(run, calls=1):
     """``(rows, wall_ms)``: the device-side events (kernels, copies,
     memsets) that ``calls`` calls of ``run`` produce under torch.profiler,
@@ -613,7 +638,11 @@ def _profiled(run, calls=1):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # A record_function range (the model's stage ranges, a step's
+        # range) has a device-side twin spanning its kernels: not an op.
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, 'is_user_annotation', False) or ev.key in RANGES \
+                or ev.key.startswith('dgmc_step#'):
             continue
         dev_us = getattr(ev, 'self_device_time_total',
                          getattr(ev, 'self_cuda_time_total', 0))
@@ -3477,21 +3506,26 @@ def port_kernels(rows):
     return sorted(((k, *v) for k, v in got.items()), key=lambda r: -r[1])
 
 
-def dense_step(policy='f32'):
+def dense_step(policy='f32', jit=None):
     """One dense PascalPF training step at the CLI's defaults under
     ``policy`` on the card, as a call: one fixed batch (no collation), a
-    new noise seed each call."""
+    new noise seed each call. ``jit`` as for :func:`kg_step`; the call
+    carries the step (``run.step``)."""
     from dgmc_tpu_torch.experiments import pascal_pf
     from dgmc_tpu_torch.train.state import create_train_state
     from dgmc_tpu_torch.train.steps import make_train_step
     args = pascal_pf.parse_args(['--seed', '0', '--precision', policy])
     model, loader, _ = pascal_pf.build(args)
     state = create_train_state(model.cuda(), learning_rate=args.lr)
-    step = make_train_step(model, loss_on_s0=True)
+    step = make_train_step(model, loss_on_s0=True, **_jit_kw(jit))
     loader.dataset.set_epoch(1)
     batch = next(iter(loader))
     seeds = itertools.count(1)
-    return lambda: step(state, batch, next(seeds))
+
+    def run():
+        return step(state, batch, next(seeds))
+    run.step = step
+    return run
 
 
 def dense_loop_step(policy, spent, prefetch=False, jit=None):
@@ -5151,6 +5185,428 @@ def _kp_pascal_pf(pf):
         f'category size {sorted(sizes)}')
 
 
+#: The run plane's artifacts and the top-level keys each has in the JAX
+#: package (``tests/test_torch_obs_run.py`` holds the port's equal to
+#: JAX's on the CPU; this machine has no JAX); a ``.jsonl`` maps to the
+#: keys every record has.
+OBS_KEYS = {
+    'metrics.jsonl': {'step', 'time'},
+    'timings.json': {'wall_s', 'argv', 'steps', 'compile',
+                     'padding_buckets', 'flight', 'events_truncated'},
+    'memory.json': {'snapshots'},
+    'dispatch.json': {'counts'},
+    'quality.json': {'schema', 'headline', 'scenarios', 'consensus',
+                     'serve'},
+    'trace.json': {'traceEvents', 'displayTimeUnit', 'otherData'},
+    'anomalies.json': {'version', 'capacity', 'truncated', 'signals',
+                       'events'},
+    'slo.json': {'version', 'slo', 'time', 'spec', 'objectives', 'floors',
+                 'breaches'},
+    'heartbeat.json': {'time', 'pid', 'last_event', 'in_flight', 'port',
+                       'host'},
+    'hang_report.json': {'reason', 'time', 'pid', 'argv', 'deadline_s',
+                         'stalled_for_s', 'in_flight', 'last_completed',
+                         'context', 'threads'},
+    'flight.json': {'reason', 'time', 'pid', 'argv', 'capacity',
+                    'events_seen', 'events_recorded', 'events_truncated',
+                    'events'},
+}
+#: The obs phase's KG run: 10 phase-1 epochs, then 3 of phase 2, the
+#: second of which has its gradients poisoned.
+OBS_KG_ARGV = ['--epochs', '13', '--phase1_epochs', '10',
+               '--guard-bad-steps', '1', '--inject-fault', 'nan-grads@12']
+OBS_STEPS = 30
+
+
+def _hold_artifact(label, directory, name):
+    """``name`` exists in ``directory`` with (at least) JAX's top-level
+    keys (:data:`OBS_KEYS`); returns the parsed payload (a list of
+    records for a ``.jsonl``)."""
+    path = os.path.join(directory, name)
+    if not os.path.isfile(path):
+        raise AssertionError(f'{label}: {name} was not written')
+    with open(path) as f:
+        if name.endswith('.jsonl'):
+            payload = [json.loads(line) for line in f]
+            missing = [OBS_KEYS[name] - set(r) for r in payload]
+            missing = set().union(*missing) if missing else OBS_KEYS[name]
+        else:
+            payload = json.load(f)
+            missing = OBS_KEYS[name] - set(payload)
+    if missing:
+        raise AssertionError(f'{label}: {name} lacks {sorted(missing)}')
+    return payload
+
+
+def _scrape(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f'http://127.0.0.1:{port}{path}',
+                                    timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _obs_kg(tmp):
+    """(a) DBP15K at full width (bf16, the CLI's default, blocked
+    adjacency), observed, with the guard and a poisoned phase-2 step;
+    (d)'s guard half."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    d = os.path.join(tmp, 'kg')
+    spec = os.path.join(tmp, 'slo.json')
+    with open(spec, 'w') as f:
+        json.dump({'name': 'kg', 'availability': {'objective': 0.99},
+                   'latency': [{'name': 'step', 'threshold_ms': 1000.0,
+                                'objective': 0.9}]}, f)
+    marks, scrapes = [], []
+
+    def hook(kind, epoch, out):
+        marks.append((kind, epoch, dispatch.launch_counts()))
+        if kind != 'train':
+            return
+        with open(os.path.join(d, 'heartbeat.json')) as f:
+            port = json.load(f)['port']
+        code, _ = _scrape(port, '/healthz')
+        m_code, metrics = _scrape(port, '/metrics')
+        s_code, status = _scrape(port, '/status')
+        count = re.search(r'^dgmc_step_latency_seconds_count (\d+)$',
+                          metrics, re.M)
+        scrapes.append((epoch, code, m_code, s_code,
+                        int(count.group(1)) if count else None,
+                        json.loads(status)['steps'].get('steps')))
+
+    # Every flight.json dump's reason (a later anomaly dump, say of the
+    # phase-2 steps' longer latency, may replace the rollback's file).
+    from dgmc_tpu_torch.obs import live
+    reasons, dump = [], live.FlightRecorder.dump
+
+    def recorded_dump(self, reason, **kw):
+        reasons.append(reason)
+        return dump(self, reason, **kw)
+    live.FlightRecorder.dump = recorded_dump
+    dispatch.reset()
+    t0 = time.perf_counter()
+    try:
+        _kg_cli(KG_ARGV + OBS_KG_ARGV + [
+            '--obs-dir', d, '--obs-port', '0', '--probes',
+            '--watchdog-deadline', '120', '--slo', spec,
+            '--metrics_log', os.path.join(tmp, 'kg.jsonl')], hook)
+    finally:
+        live.FlightRecorder.dump = dump
+    seconds = time.perf_counter() - t0
+    counts = _kg_marks('obs (a)', marks, 10)
+    bad = [s for s in scrapes
+           if s[1:4] != (200, 200, 200) or s[4] != s[0] or s[5] != s[0]]
+    if len(scrapes) != 13 or bad:
+        raise AssertionError(f'obs (a): scrapes (epoch, /healthz, /metrics, '
+                             f'/status, histogram count, status steps) '
+                             f'{bad or scrapes}')
+    got = {n: _hold_artifact('obs (a)', d, n) for n in OBS_KEYS
+           if n != 'hang_report.json'}
+    timings = got['timings.json']
+    per_step = collections.defaultdict(collections.Counter)
+    for r in got['metrics.jsonl']:
+        if 'probe' in r:
+            per_step[r['step']][r['probe']] += 1
+    L = 10
+    want = {'corr_entropy': 2 + L, 'topk_mass': 2, 'consensus_delta': L,
+            'grad_norm': 1}
+    for step in (10, 11, 12):
+        have = {k: per_step[step][k] for k in want}
+        if have != want:
+            raise AssertionError(f'obs (a): phase-2 step {step} probes '
+                                 f'{have}, expected {want}')
+    nonfinite = timings['probes']['nonfinite']['count']
+    if nonfinite != 10 * 4 + 3 * (4 + L):
+        raise AssertionError(f'obs (a): {nonfinite} nonfinite checks, '
+                             f'expected {10 * 4 + 3 * (4 + L)}')
+    first = timings.get('first_nonfinite')
+    if first != {'step': 11, 'stage': 'grad', 'order': 1001}:
+        raise AssertionError(f'obs (d): first offender {first}, expected '
+                             f'grad at step 11 (optimizer step 12)')
+    flight = got['flight.json']
+    if 'guard-rollback' not in reasons:
+        raise AssertionError(f'obs (d): flight.json dumps {reasons}, none '
+                             f'at the rollback')
+    comp = timings['compile']
+    by_label = {k: v['events'] for k, v in comp['by_label'].items()}
+    if by_label != {'phase1': 1, 'phase2': 1, 'run': 2}:
+        raise AssertionError(f'obs (a): compile events by label {by_label}, '
+                             f'expected one capture per step function')
+    log(f'obs (a): dbp15k.main, 13 epochs (10 of phase 1), bf16, '
+        f'observed, in {seconds:.1f}s: launches '
+        f'{dict((k, counts[k]) for k in KG_KERNELS)} at KG_PER\'s counts; '
+        f'13 scrapes: /healthz, /metrics, /status 200, the step '
+        f'histogram counting each step; artifacts '
+        f'{sorted(os.listdir(d))} with JAX\'s top-level keys; probes per '
+        f'phase-2 step {want} and {4 + L} nonfinite checks; captures '
+        f'{by_label} ({comp["compile_s"]:.2f}s), none in steady state; '
+        f'step p50 {timings["steps"]["p50_s"] * 1e3:.3f} ms (host: the '
+        f'replay call)')
+    log(f'obs (d): nan-grads@12 under --guard-bad-steps 1: first offender '
+        f'{first}, flight.json dumps {reasons} ({flight["events_recorded"]} '
+        f'events in the last)')
+
+
+def _obs_variants(label, make, calls, policy):
+    """(b) for one captured step: ``make(jit)`` builds a fresh model (the
+    same seed) and returns ``run()``. A: no observer; B: an observer with
+    probes off; C: an observer with probes on; E: the eager step with
+    probes on. A and B: outputs bit-identical, the same launches a
+    replay (the record's and the counters'). C and E: the probe tapes
+    bit-identical. Returns the three captured calls and observers for
+    (e)."""
+    import tempfile
+    from dgmc_tpu_torch.obs import probes
+    from dgmc_tpu_torch.obs.run import RunObserver
+    from dgmc_tpu_torch.ops.kernels import dispatch
+
+    def drive(run, obs, n):
+        outs = []
+        dispatch.reset()
+        for _ in range(n):
+            with obs.step():
+                outs.append(_clone(run()[1]))
+        torch.cuda.synchronize()
+        return outs, dispatch.launch_counts()
+
+    def record(run):
+        (rec,) = run.step.jit.compiled.records.values()
+        return rec
+
+    tmp = tempfile.mkdtemp(prefix='dgmc_obs_')
+    no_obs = RunObserver(None)
+    run_a = make(True)
+    out_a, cnt_a = drive(run_a, no_obs, calls)
+    obs_b = RunObserver(os.path.join(tmp, 'b'))
+    run_b = make(True)
+    out_b, cnt_b = drive(run_b, obs_b, calls)
+    for i, (a, b) in enumerate(zip(out_a, out_b)):
+        _hold_identical(f'obs (b) {label} {policy} call {i}', a, b,
+                        'no observer and probes off')
+    if record(run_a).launches != record(run_b).launches or cnt_a != cnt_b:
+        raise AssertionError(f'obs (b) {label} {policy}: launches '
+                             f'{record(run_b).launches} / {cnt_b} against '
+                             f'{record(run_a).launches} / {cnt_a}')
+    obs_c = RunObserver(os.path.join(tmp, 'c'), probes=True)
+    tape = probes.ProbeLog()
+    probes.add_sink(tape)
+    try:
+        run_c = make(True)
+        drive(run_c, no_obs, calls)
+        probes.drain(wait=True)
+        captured, tape.records = tape.records, []
+        drive(make(False), no_obs, calls)
+        probes.drain(wait=True)
+        eager = tape.records
+    finally:
+        probes.remove_sink(tape)
+
+    def values(records):
+        return [(r['probe'], r.get('stage'), r.get('iteration'), r['value'])
+                for r in records]
+    if not captured or values(captured) != values(eager):
+        raise AssertionError(f'obs (b) {label} {policy}: the captured '
+                             f'tape differs from the eager one')
+    log(f'obs (b): {label} {policy}: {calls} replays with an observer and '
+        f'probes off bit-identical to no observer, launches a replay '
+        f'{record(run_a).launches}; with probes on {len(captured)} probe '
+        f'values, the captured tape bit-identical to the eager one, '
+        f'launches a replay {record(run_c).launches}')
+    return (run_a, run_b, run_c), (no_obs, obs_b, obs_c)
+
+
+def _obs_cost(runs, observers, smi_line):
+    """(e): the medians of ``OBS_STEPS`` synchronized steps each, three
+    ways (no observer, an observer with probes off, one with probes on),
+    in turns A B C C B A, each step's probe records delivered inside its
+    window; then, the same ways in turns, ``OBS_STEPS`` steps back to
+    back with one synchronization and the last drain at the end (the
+    CLI's loop, whose host work overlaps the card's) and one profiled
+    replay each: its device ops and device busy time."""
+    from dgmc_tpu_torch.obs import probes
+    keys = ('none', 'probes off', 'probes on')
+    order = list(zip(keys, runs, observers))
+
+    def observed(run, obs):
+        with obs.step():
+            run()
+
+    def step_and_records(run, obs):
+        # A step's records delivered inside its own window: the drain is
+        # process-wide, so a later step of another way would pay for them.
+        observed(run, obs)
+        torch.cuda.synchronize()
+        probes.drain(wait=True)
+
+    times = {k: [] for k in keys}
+    for _ in range(OBS_STEPS // 2):
+        for key, run, obs in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_and_records(run, obs)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    loops = {k: [] for k in keys}
+    for key, run, obs in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_STEPS):
+            observed(run, obs)
+        torch.cuda.synchronize()
+        probes.drain(wait=True)
+        loops[key].append((time.perf_counter() - t0) * 1e3 / OBS_STEPS)
+    parts = []
+    for key, run, obs in order:
+        ts = sorted(times[key])
+        q1, q3 = ts[len(ts) // 4], ts[(3 * len(ts)) // 4]
+        rows, _ = _profiled(functools.partial(observed, run, obs))
+        busy = sum(r[0] for r in rows) / 1e3
+        parts.append(f'{key}: median {statistics.median(ts):.3f} ms (min '
+                     f'{ts[0]:.3f}, max {ts[-1]:.3f}, quartiles {q1:.3f}-'
+                     f'{q3:.3f}), back to back {loops[key][0]:.3f} / '
+                     f'{loops[key][1]:.3f} ms a step, one replay '
+                     f'{sum(r[2] for r in rows)} device ops, busy '
+                     f'{busy:.3f} ms')
+    log(f'obs (e): KG phase-2 step, bf16, captured, {OBS_STEPS} '
+        f'synchronized steps each, in turns: {"; ".join(parts)} on '
+        f'{smi_line}')
+
+
+def _obs_stall(tmp):
+    """(d)'s watchdog half: a device-side stall (``torch.cuda._sleep``
+    keeps the stream busy past the deadline) while the main thread
+    synchronizes: ``/healthz`` turns 503, ``hang_report.json`` shows the
+    main thread in the synchronize, ``flight.json`` is dumped; the plane
+    answers 200 again after it."""
+    import threading
+    from dgmc_tpu_torch.obs.run import RunObserver
+    d = os.path.join(tmp, 'stall')
+    deadline = 0.5
+    obs = RunObserver(d, watchdog_deadline_s=deadline, obs_port=0)
+    codes, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            codes.append(_scrape(obs.live_port, '/healthz')[0])
+            time.sleep(0.1)
+
+    cycles = 8 * 10 ** 9      # ~4 s at the H100's ~2 GHz
+    poller = threading.Thread(target=poll, daemon=True)
+    try:
+        with obs.step():
+            poller.start()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+            stalled = time.perf_counter() - t0
+        stop.set()
+        poller.join(10)
+        after = _scrape(obs.live_port, '/healthz')[0]
+    finally:
+        stop.set()
+        obs.close()
+    report = _hold_artifact('obs (d)', d, 'hang_report.json')
+    flight = _hold_artifact('obs (d)', d, 'flight.json')
+    (main,) = [t for t in report['threads'] if t['name'] == 'MainThread']
+    in_sync = any('synchronize' in line for line in main['stack'][-3:])
+    if stalled < 2.5 * deadline or 503 not in codes or 200 not in codes \
+            or after != 200 or not in_sync or report['reason'] != 'deadline':
+        raise AssertionError(f'obs (d): a {stalled:.2f}s device stall: '
+                             f'/healthz {codes} then {after}, report '
+                             f'{report["reason"]}, main thread '
+                             f'{main["stack"][-2:]}')
+    log(f'obs (d): a {stalled:.2f}s device stall (torch.cuda._sleep) under '
+        f'a {deadline}s deadline: /healthz {codes.count(200)} x 200 then '
+        f'{codes.count(503)} x 503, 200 after; hang_report.json with the '
+        f'main thread in torch.cuda.synchronize; flight.json '
+        f'({flight["reason"]})')
+
+
+def _obs_profile(tmp):
+    """(c): ``pascal_pf.main`` at the CLI's width with ``--profile-dir
+    --profile-steps 1:3``: one trace, with the two steps' ranges and the
+    port's kernels by name."""
+    from dgmc_tpu_torch.experiments import pascal_pf
+    d = os.path.join(tmp, 'prof')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pascal_pf.main(['--epochs', '1', '--seed', '0', '--profile-dir', d,
+                        '--profile-steps', '1:3'])
+    files = os.listdir(d)
+    if len(files) != 1:
+        raise AssertionError(f'obs (c): trace files {files}')
+    with open(os.path.join(d, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    names = collections.Counter(e.get('name', '') for e in events)
+    kernels = collections.Counter()
+    for e in events:
+        m = PORT_KERNEL.search('::' + e.get('name', '').split('::')[-1])
+        if m and e.get('cat') == 'kernel':
+            kernels[m.group(1)] += 1
+    steps = sorted(n for n in names if n.startswith('dgmc_step#'))
+    need = {'route_fwd', 'route_dt', 'consensus_pairs', 'project_rows'}
+    have = {k.split('<')[0] for k in kernels}
+    if steps != ['dgmc_step#1', 'dgmc_step#2'] or not need <= have:
+        raise AssertionError(f'obs (c): steps {steps}, port kernels '
+                             f'{dict(kernels)}')
+    log(f'obs (c): pascal_pf.main --profile-dir --profile-steps 1:3 in '
+        f'{time.perf_counter() - t0:.1f}s: {files[0]} with {len(events)} '
+        f'events, ranges {steps}, the port\'s kernels by name '
+        f'{dict(sorted(kernels.items()))}')
+
+
+def phase_obs(smi_line):
+    """The run plane on the card (``dgmc_tpu_torch/obs``):
+
+    (a) ``dbp15k.main`` at full width (synthetic 15000 / 20000 entities,
+    bf16, blocked adjacency), 13 epochs of which 10 of phase 1, with
+    ``--obs-dir --obs-port 0 --probes --watchdog-deadline --slo
+    --metrics_log`` (the launch counters at 0 just before it, every step
+    and eval at ``KG_PER``'s counts): after each step ``/healthz``,
+    ``/metrics`` and ``/status`` answer 200, the step histogram and
+    ``/status`` count the steps taken; after it every artifact with JAX's
+    top-level keys (:data:`OBS_KEYS`), each phase-2 step's probe series
+    complete (``corr_entropy`` 2 + L, ``topk_mass`` 2,
+    ``consensus_delta`` L, ``grad_norm`` 1; ``nonfinite`` 4 + L), one
+    capture per step function and none after;
+    (b) the captured KG phase-2 step and PascalPF step under each policy:
+    an observer with probes off changes no output bit and no launch; with
+    probes on the captured step's tape equals the eager step's bit for
+    bit (:func:`_obs_variants`);
+    (c) ``pascal_pf.main --profile-dir --profile-steps 1:3``: the trace
+    names the steps and the port's kernels;
+    (d) the run in (a) has ``--guard-bad-steps 1 --inject-fault
+    nan-grads@12``: the first offender is ``grad`` at step 11 (optimizer
+    step 12) and ``flight.json`` is dumped at the rollback; a device-side
+    stall makes ``/healthz`` answer 503 and writes ``hang_report.json``
+    (:func:`_obs_stall`);
+    (e) the observer's cost on the captured bf16 KG phase-2 step, three
+    ways (:func:`_obs_cost`)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        _obs_kg(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for policy in ('f32', 'bf16'):
+            runs, observers = _obs_variants(
+                'KG phase 2', lambda jit: kg_step(policy, jit=jit), 2,
+                policy)
+            if policy == 'bf16':
+                _obs_cost(runs, observers, smi_line)
+            for obs in observers:
+                obs.close()
+            _, observers = _obs_variants(
+                'PascalPF', lambda jit: dense_step(policy, jit), 2, policy)
+            for obs in observers:
+                obs.close()
+            gc.collect()
+            torch.cuda.empty_cache()
+        _obs_profile(tmp)
+        _obs_stall(tmp)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -5228,7 +5684,9 @@ def main(argv=None):
             ('backbones', phase_backbones),
             ('resume', lambda: phase_resume(
                 smi[0] if smi else 'nvidia-smi: no output')),
-            ('keypoints', lambda: phase_keypoints(res))):
+            ('keypoints', lambda: phase_keypoints(res)),
+            ('obs', lambda: phase_obs(
+                smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:
             fn()

@@ -66,6 +66,21 @@ ones as the test's). ``--synthetic`` trains on the synthetic KG
 alignment instead (the JAX CLI's offline stand-in, 15000 / 20000
 entities and 100000 / 120000 edges by default). One of the two is
 required.
+
+The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
+``--obs-dir DIR`` writes the run's telemetry there (``metrics.jsonl``,
+``timings.json``, ``memory.json``, ``dispatch.json``, ``quality.json``,
+``trace.json``, ``anomalies.json``; ``--slo FILE`` adds ``slo.json``),
+``--probes`` streams the in-graph probes of every train step,
+``--watchdog-deadline SEC`` arms the watchdog (``heartbeat.json``, and
+``hang_report.json`` with ``flight.json`` on a stall or SIGTERM) and
+``--obs-port PORT`` serves ``/healthz``, ``/metrics`` and ``/status``.
+The observer is built before any step is captured (``--aot_compile``'s
+too). Each step is timed on the host (its replay call: no step is
+fenced, as in the JAX CLI); each eval epoch reads the loss as the
+device's completion fence. ``--profile-dir DIR`` (``--profile-steps
+A:B``) and ``--profile DIR`` (one step of the second epoch run) write
+``torch.profiler`` Chrome traces.
 """
 
 import argparse
@@ -82,7 +97,9 @@ from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.rel import RelCNN
 from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
-from dgmc_tpu_torch.obs.observe import MetricLogger
+from dgmc_tpu_torch.obs.observe import MetricLogger, trace
+from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
+from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
 from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
 from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
 from dgmc_tpu_torch.resilience import (FaultPlan, RollbackGuard,
@@ -142,6 +159,11 @@ def parse_args(argv=None):
                         'PyTorch path)')
     p.add_argument('--metrics_log', type=str, default=None,
                    help='append per-evaluation metrics to this JSONL file')
+    p.add_argument('--profile', type=str, default=None,
+                   help='write a torch.profiler trace of one training step '
+                        '(of the second epoch run) into this directory; a '
+                        'captured step shows as its graph launch and '
+                        'kernels')
     p.add_argument('--aot_compile', action='store_true',
                    help='capture the executed phase/eval steps up front '
                         '(each a CUDA graph on the card, replacing the '
@@ -189,6 +211,8 @@ def parse_args(argv=None):
                         '(0 = off). See dgmc_tpu_torch/resilience/guard.py')
     add_fault_args(p)
     precision.add_precision_args(p)
+    add_obs_flag(p)
+    add_profile_flag(p)
     args = p.parse_args(argv)
     if args.ckpt_every < 1:
         p.error('--ckpt_every must be at least 1')
@@ -333,21 +357,38 @@ def main(argv=None, hook=None):
                        restore_s=ckpt.last_restore['seconds'])
         else:
             t_resume = None
-        if args.aot_compile:
-            _aot_compile(args, start_epoch, logger, state, (phase1, phase2),
-                         (eval1, eval2), train_dev, test_dev)
-        print('Optimize initial feature matching...', flush=True)
-        rollback = RollbackGuard(args.guard_bad_steps, logger) \
-            if guard else None
-        state = _train(args, model, state, start_epoch, (phase1, phase2),
-                       (eval1, eval2), train_dev, test_dev, logger, hook,
-                       ckpt, plan, rollback, t_resume)
-        if args.offload_corpus:
-            offload_pass(args, model, test_dev, logger)
+        # Before any capture: the probe switch is read when a step's
+        # graph is captured.
+        obs = RunObserver(args.obs_dir, probes=args.probes,
+                          watchdog_deadline_s=args.watchdog_deadline,
+                          obs_port=args.obs_port)
+        prof = None
+        try:
+            obs.attach_anomaly()
+            obs.attach_slo(args.slo)
+            if args.aot_compile:
+                _aot_compile(args, start_epoch, logger, obs, state,
+                             (phase1, phase2), (eval1, eval2), train_dev,
+                             test_dev)
+            prof = obs.attach_profiler(
+                start_profile(args.profile_dir, steps=args.profile_steps))
+            print('Optimize initial feature matching...', flush=True)
+            rollback = RollbackGuard(args.guard_bad_steps, logger, obs=obs) \
+                if guard else None
+            state = _train(args, model, state, start_epoch,
+                           (phase1, phase2), (eval1, eval2), train_dev,
+                           test_dev, logger, obs, hook, ckpt, plan, rollback,
+                           t_resume)
+            if args.offload_corpus:
+                offload_pass(args, model, test_dev, logger, obs)
+        finally:
+            if prof is not None:
+                prof.close()
+            obs.close()
         return state
 
 
-def offload_pass(args, model, test_dev, logger):
+def offload_pass(args, model, test_dev, logger, obs=None):
     """The host-RAM offload pass after training (the JAX CLI's): the test
     pair's ψ₁ tables (eval mode, in the compute dtype), the source one
     moved to host RAM and re-shortlisted through the prefetch ring, then
@@ -380,12 +421,14 @@ def offload_pass(args, model, test_dev, logger):
           f'chunks={stats.chunks} depth={stats.prefetch_depth} host '
           f'{stats.host_resident_bytes >> 20} MiB '
           f'misses={stats.ring_misses} wall {stats.wall_s:.3f}s', flush=True)
-    logger.log(args.epochs, event='offload_shortlist',
-               offload_equal=float(equal),
-               offload_host_bytes=stats.host_resident_bytes,
-               offload_prefetch_depth=stats.prefetch_depth,
-               offload_ring_misses=stats.ring_misses,
-               offload_wall_s=stats.wall_s)
+    record = {'offload_equal': float(equal),
+              'offload_host_bytes': stats.host_resident_bytes,
+              'offload_prefetch_depth': stats.prefetch_depth,
+              'offload_ring_misses': stats.ring_misses,
+              'offload_wall_s': stats.wall_s}
+    logger.log(args.epochs, event='offload_shortlist', **record)
+    if obs is not None:
+        obs.log(args.epochs, event='offload_shortlist', **record)
     if not equal:
         raise SystemExit('offloaded shortlist diverged from the '
                          'device-resident streamed search: the offload tier '
@@ -393,7 +436,7 @@ def offload_pass(args, model, test_dev, logger):
     return equal, stats
 
 
-def _aot_compile(args, start_epoch, logger, state, phases, evals,
+def _aot_compile(args, start_epoch, logger, obs, state, phases, evals,
                  train_dev, test_dev):
     """Capture the steps this schedule will execute from ``start_epoch``
     on (eval1 runs only on phase-1 epochs divisible by 10) and log each
@@ -408,6 +451,7 @@ def _aot_compile(args, start_epoch, logger, state, phases, evals,
         logger.log(0, event=f'aot_memory_{name}', **mem,
                    capture_s=record.capture_s,
                    **memory_snapshot(name)['host'])
+        obs.log(0, event=f'aot_memory_{name}', **mem)
         print(f'# {name}: per-device static memory '
               f'{mem["total_bytes"] / 2**30:.3f} GiB '
               f'(args {mem["argument_bytes"] >> 20} MiB, '
@@ -427,12 +471,15 @@ def _aot_compile(args, start_epoch, logger, state, phases, evals,
 
 
 def _train(args, model, state, start_epoch, phases, evals, train_dev,
-           test_dev, logger, hook, ckpt, plan, rollback, t_resume):
+           test_dev, logger, obs, hook, ckpt, plan, rollback, t_resume):
     """The two-phase schedule from ``start_epoch``: a step per epoch, the
-    evaluations, their printed lines and JSONL records, the guard's
-    counters and rollbacks, the checkpoints and the armed faults."""
+    evaluations, their printed lines and JSONL records, the observer's
+    records, the guard's counters and rollbacks, the checkpoints and the
+    armed faults."""
     (phase1, phase2), (eval1, eval2) = phases, evals
     last_print, t_span = start_epoch - 1, time.time()
+    # --profile: the second epoch run (the first captures its step).
+    profile_epoch = min(start_epoch + 1, args.epochs)
     for epoch in range(start_epoch, args.epochs + 1):
         refine = epoch > args.phase1_epochs
         if epoch == args.phase1_epochs + 1:
@@ -440,7 +487,14 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
         # Armed host-side faults fire here, on epochs that run only.
         plan.before_step(epoch)
         step = phase2 if refine else phase1
-        state, out = step(state, train_dev, noise_seed(args.seed, 0, epoch))
+        profile = args.profile if epoch == profile_epoch else None
+        with trace(profile), \
+                obs.compile_label(f'phase{2 if refine else 1}'):
+            with obs.step():
+                state, out = step(state, train_dev,
+                                  noise_seed(args.seed, 0, epoch))
+            if profile:
+                float(out['loss'])  # the trace ends after the step ran
         if t_resume is not None:
             float(out['loss'])  # the first step run, to its end
             logger.log(epoch, event='resume_first_step',
@@ -454,17 +508,24 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
                 test_dev, noise_seed(args.seed, 1, epoch))
             if hook is not None:
                 hook('eval', epoch, {k: v.clone() for k, v in ev.items()})
+            # The device's completion fence (the read below waits anyway).
+            obs.fence_devices(out['loss'], tag=epoch)
             per_epoch = (time.time() - t_span) / (epoch - last_print)
             last_print, t_span = epoch, time.time()
             summary = eval_summary(ev['count'], loss=out['loss'],
                                    hits1=ev['correct'], hits10=ev['hits@10'])
             loss, hits1, hits10 = (summary['loss'], summary['hits1'],
                                    summary['hits10'])
+            obs.quality_eval('dbp15k', summary, step=epoch)
             guard_metrics = {}
             if rollback is not None:
                 consec_bad = int(out['consec_bad'])
                 guard_metrics = {'skipped_steps': int(out['skip_count']),
                                  'consec_bad': consec_bad}
+                # The live plane's gauges (/healthz, dgmc_guard_*).
+                obs.set_gauge('guard_skip_count',
+                              guard_metrics['skipped_steps'])
+                obs.set_gauge('guard_consec_bad', consec_bad)
                 if consec_bad == 0 and np.isfinite(loss):
                     rollback.note_good(state, model, step=epoch)
                 else:
@@ -477,6 +538,10 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
                   flush=True)
             logger.log(epoch, loss=loss, hits1=hits1, hits10=hits10,
                        phase=2 if refine else 1, **guard_metrics)
+            obs.log(epoch, loss=loss, hits1=hits1, hits10=hits10,
+                    phase=2 if refine else 1, epoch_s=round(per_epoch, 3),
+                    **guard_metrics)
+            obs.snapshot_memory(f'epoch{epoch}')
         if ckpt is not None and (epoch % args.ckpt_every == 0
                                  or epoch == args.epochs):
             ckpt.save(epoch, model, state)

@@ -31,6 +31,15 @@ access) and collated two ahead in a background thread; the epoch line
 prints the seconds the loop waited for them. ``--ckpt_dir`` saves every
 epoch and resumes from the newest restorable one; ``--metrics_log PATH``
 appends one JSONL record an epoch (``loss``, ``mean_acc``).
+
+The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
+``--slo`` as in ``dbp15k``, built after a resume and before the first
+capture; each train step is timed on the host (the replay call), the
+epoch's summed loss is the device's completion fence.
+``--profile-dir`` / ``--profile-steps`` and ``--profile DIR`` (the
+second epoch run's training loop) write ``torch.profiler`` Chrome
+traces.
 """
 
 import argparse
@@ -48,7 +57,9 @@ from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.obs.memory import captured_memory
-from dgmc_tpu_torch.obs.observe import MetricLogger
+from dgmc_tpu_torch.obs.observe import MetricLogger, trace
+from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
+from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
@@ -87,7 +98,12 @@ def parse_args(argv=None):
                    help='per-epoch checkpoint and resume directory')
     p.add_argument('--metrics_log', type=str, default=None,
                    help='append per-epoch metrics to this JSONL file')
+    p.add_argument('--profile', type=str, default=None,
+                   help='write a torch.profiler trace of one training epoch '
+                        '(the second run) into this directory')
     precision.add_precision_args(p)
+    add_obs_flag(p)
+    add_profile_flag(p)
     return p.parse_args(argv)
 
 
@@ -227,36 +243,71 @@ def main(argv=None, hook=None):
     with MetricLogger(args.metrics_log) as logger:
         ckpt, state, start_epoch = resume_or_init(args.ckpt_dir, state,
                                                   model)
-        if start_epoch > 1:
-            logger.log(start_epoch - 1, event='resume')
-        for epoch in range(start_epoch, args.epochs + 1):
-            t0 = time.perf_counter()
-            total = torch.zeros((), device=device)
-            waits = []
+        obs = RunObserver(args.obs_dir, probes=args.probes,
+                          watchdog_deadline_s=args.watchdog_deadline,
+                          obs_port=args.obs_port)
+        with obs:
+            state = _train(args, start_epoch, state, model, step, eval_step,
+                           report, batches, train_loader, test_sets,
+                           num_nodes, num_edges, device, logger, obs, ckpt,
+                           hook)
+    return state
+
+
+def _train(args, start_epoch, state, model, step, eval_step, report,
+           batches, train_loader, test_sets, num_nodes, num_edges, device,
+           logger, obs, ckpt, hook):
+    """The epochs from ``start_epoch``: training, the sampled evaluation,
+    the printed lines, the JSONL and observer records, the checkpoints."""
+    from dgmc_tpu_torch.datasets.pascal_voc import CATEGORIES
+    obs.attach_anomaly()
+    obs.attach_slo(args.slo)
+    prof = obs.attach_profiler(
+        start_profile(args.profile_dir, steps=args.profile_steps))
+    if start_epoch > 1:
+        logger.log(start_epoch - 1, event='resume')
+    profile_epoch = min(start_epoch + 1, args.epochs)
+    for epoch in range(start_epoch, args.epochs + 1):
+        t0 = time.perf_counter()
+        total = torch.zeros((), device=device)
+        waits = []
+        profile = args.profile if epoch == profile_epoch else None
+        with trace(profile), obs.compile_label(f'epoch{epoch}'):
             for i, batch in enumerate(timed_batches(batches, waits)):
-                state, out = step(state, batch,
-                                  noise_seed(args.seed, 0, epoch, i))
+                with obs.step():
+                    state, out = step(state, batch,
+                                      noise_seed(args.seed, 0, epoch, i))
                 if hook is not None:
                     hook('train', i, {k: v.clone() for k, v in out.items()})
                 total += out['loss']
-            loss = float(total) / len(train_loader)
-            print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, '
-                  f'{time.perf_counter() - t0:.1f}s (waited {sum(waits):.1f}s '
-                  f'for {len(waits)} batches)', flush=True)
-            report()
+            if profile:
+                float(total)  # the trace ends after the steps ran
+        # The device's completion fence (the read below waits anyway).
+        obs.fence_devices(total)
+        loss = float(total) / len(train_loader)
+        print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, '
+              f'{time.perf_counter() - t0:.1f}s (waited {sum(waits):.1f}s '
+              f'for {len(waits)} batches)', flush=True)
+        report()
 
-            seeds = (noise_seed(args.seed, 1, epoch, j)
-                     for j in range(1 << 30))
-            accs = [100 * sample_eval(eval_step, ds, args, num_nodes,
-                                      num_edges, device, seeds, hook)
-                    for ds in test_sets]
-            accs.append(sum(accs) / len(accs))
-            print(' '.join(c[:5].ljust(5) for c in CATEGORIES) + ' mean')
-            print(' '.join(f'{a:.1f}'.ljust(5) for a in accs), flush=True)
-            report()
-            logger.log(epoch, loss=loss, mean_acc=accs[-1])
-            if ckpt is not None:
-                ckpt.save(epoch, model, state)
+        seeds = (noise_seed(args.seed, 1, epoch, j)
+                 for j in range(1 << 30))
+        accs = [100 * sample_eval(eval_step, ds, args, num_nodes,
+                                  num_edges, device, seeds, hook)
+                for ds in test_sets]
+        accs.append(sum(accs) / len(accs))
+        print(' '.join(c[:5].ljust(5) for c in CATEGORIES) + ' mean')
+        print(' '.join(f'{a:.1f}'.ljust(5) for a in accs), flush=True)
+        report()
+        logger.log(epoch, loss=loss, mean_acc=accs[-1])
+        obs.log(epoch, loss=loss, mean_acc=accs[-1],
+                epoch_s=round(time.perf_counter() - t0, 3))
+        obs.quality_eval('pascal', step=epoch, loss=loss,
+                         hits1=accs[-1] / 100)
+        obs.snapshot_memory(f'epoch{epoch}')
+        if ckpt is not None:
+            ckpt.save(epoch, model, state)
+    prof.close()
     return state
 
 

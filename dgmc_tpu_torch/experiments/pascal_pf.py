@@ -35,6 +35,13 @@ category size), and prints the per-category and mean accuracies; without
 it a notice says the real-data eval is disabled. ``--metrics_log PATH``
 appends the JAX CLI's per-epoch JSONL records (``loss``, ``train_acc``,
 ``synthetic_eval_acc``, ``mean_acc``) to ``PATH``.
+
+The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
+``--slo`` as in ``dbp15k``; each train step is timed on the host (the
+replay call), the epoch's summed loss is the device's completion fence.
+``--profile-dir`` / ``--profile-steps`` and ``--profile DIR`` (the
+second epoch's training loop) write ``torch.profiler`` Chrome traces.
 """
 
 import argparse
@@ -52,7 +59,9 @@ from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
 from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.spline import SplineCNN
-from dgmc_tpu_torch.obs.observe import MetricLogger
+from dgmc_tpu_torch.obs.observe import MetricLogger, trace
+from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
+from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
                                         make_train_step)
@@ -90,7 +99,12 @@ def parse_args(argv=None):
                         'PyTorch path)')
     p.add_argument('--metrics_log', type=str, default=None,
                    help='append per-epoch metrics to this JSONL file')
+    p.add_argument('--profile', type=str, default=None,
+                   help='write a torch.profiler trace of one training epoch '
+                        '(the second) into this directory')
     precision.add_precision_args(p)
+    add_obs_flag(p)
+    add_profile_flag(p)
     return p.parse_args(argv)
 
 
@@ -156,11 +170,20 @@ def main(argv=None, hook=None):
     train_batches = PrefetchLoader(HostBatches(train_loader, device), 2)
     eval_batches = (PrefetchLoader(HostBatches(eval_loader, device), 2)
                     if eval_loader else None)
-    with MetricLogger(args.metrics_log) as logger:
+    # Before the first step is captured (the probe switch is read then).
+    obs = RunObserver(args.obs_dir, probes=args.probes,
+                      watchdog_deadline_s=args.watchdog_deadline,
+                      obs_port=args.obs_port)
+    with MetricLogger(args.metrics_log) as logger, obs:
+        obs.attach_anomaly()
+        obs.attach_slo(args.slo)
+        prof = obs.attach_profiler(
+            start_profile(args.profile_dir, steps=args.profile_steps))
         for epoch in range(1, args.epochs + 1):
             train_loader.dataset.set_epoch(epoch)
-            state = _epoch(args, epoch, state, step, train_batches,
-                           eval_batches, eval_step, device, logger, hook)
+            state, loss = _epoch(args, epoch, state, step, train_batches,
+                                 eval_batches, eval_step, device, logger,
+                                 obs, hook)
             if test_datasets:
                 seeds = (noise_seed(args.seed, 2, epoch, i)
                          for i in range(1 << 30))
@@ -171,6 +194,9 @@ def main(argv=None, hook=None):
                 print(' '.join(f'{a:.1f}'.ljust(5) for a in accs),
                       flush=True)
                 logger.log(epoch, mean_acc=accs[-1])
+                obs.quality_eval('pascal_pf', step=epoch, loss=loss,
+                                 hits1=accs[-1] / 100)
+        prof.close()
     return state
 
 
@@ -194,29 +220,44 @@ def real_eval(ds, eval_step, device, seeds, hook=None):
 
 
 def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
-           device, logger, hook):
+           device, logger, obs, hook):
     """One training epoch and, with ``--synthetic_eval``, its held-out
-    evaluation: the printed lines and the JSONL records. The loaders
-    yield host :class:`~dgmc_tpu_torch.train.steps.DeviceBatch` es."""
+    evaluation: the printed lines, the JSONL records and the observer's;
+    returns ``(state, mean train loss)``. The loaders yield host
+    :class:`~dgmc_tpu_torch.train.steps.DeviceBatch` es."""
     t0 = time.time()
     tot_loss = torch.zeros((), device=device)
     tot_correct = torch.zeros((), device=device)
     tot_n = 0.0
-    for i, batch in enumerate(train_loader):
-        state, out = step(state, batch,
-                          noise_seed(args.seed, 0, epoch, i))
-        if hook is not None:
-            # The step's metrics are static: the next step overwrites them.
-            hook('train', i, {k: v.clone() for k, v in out.items()})
-        n_b = float(batch.y_mask.sum())
-        tot_loss += out['loss']
-        tot_correct += out['acc'] * n_b
-        tot_n += n_b
+    profile = args.profile if epoch == min(2, args.epochs) else None
+    with trace(profile), obs.compile_label(f'epoch{epoch}'):
+        for i, batch in enumerate(train_loader):
+            with obs.step():
+                state, out = step(state, batch,
+                                  noise_seed(args.seed, 0, epoch, i))
+            if hook is not None:
+                # The step's metrics are static: the next step overwrites
+                # them.
+                hook('train', i, {k: v.clone() for k, v in out.items()})
+            n_b = float(batch.y_mask.sum())
+            tot_loss += out['loss']
+            tot_correct += out['acc'] * n_b
+            tot_n += n_b
+        if profile:
+            float(tot_loss)  # the trace ends after the steps ran
+    # The device's completion fence (the read below waits anyway).
+    obs.fence_devices(tot_loss)
     loss = float(tot_loss) / len(train_loader)
     acc = float(tot_correct) / max(tot_n, 1.0)
     print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, Acc: {acc:.2f}, '
           f'{time.time() - t0:.1f}s', flush=True)
     logger.log(epoch, loss=loss, train_acc=acc)
+    obs.log(epoch, loss=loss, train_acc=acc,
+            epoch_s=round(time.time() - t0, 3))
+    # The train split first: an eval split below overwrites the
+    # headline, so the headline is the most meaningful split run.
+    obs.quality_eval('pascal_pf_train', step=epoch, loss=loss, hits1=acc)
+    obs.snapshot_memory(f'epoch{epoch}')
 
     if eval_loader is not None:
         correct = torch.zeros((), device=device)
@@ -231,7 +272,9 @@ def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
         print(f'Held-out synthetic: {100 * eval_acc:.2f}', flush=True)
         # A 0-1 fraction, as the JAX CLI logs it.
         logger.log(epoch, synthetic_eval_acc=eval_acc)
-    return state
+        obs.log(epoch, synthetic_eval_acc=eval_acc)
+        obs.quality_eval('pascal_pf', step=epoch, loss=loss, hits1=eval_acc)
+    return state, loss
 
 
 if __name__ == '__main__':

@@ -29,6 +29,15 @@ evaluate different pair orders.
 run's accuracies in ``runs.json`` (written atomically); a restart over
 the directory restores the snapshot, skips pretraining and the runs
 already done, and continues with the next run.
+
+The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
+``--slo`` as in ``dbp15k``; each train step is timed on the host (the
+replay call), each pretraining epoch's summed loss is the device's
+completion fence. ``--profile-dir`` / ``--profile-steps`` and
+``--profile DIR`` (the first step of the second pretraining epoch, or
+of the first run when pretraining is resumed) write ``torch.profiler``
+Chrome traces.
 """
 
 import argparse
@@ -45,7 +54,9 @@ from dgmc_tpu_torch.experiments.pascal import (GraphReport, build_model,
                                                timed_batches)
 from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.evalsum import eval_summary
-from dgmc_tpu_torch.obs.observe import MetricLogger
+from dgmc_tpu_torch.obs.observe import MetricLogger, trace
+from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
+from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
 from dgmc_tpu_torch.train.checkpoint import Checkpointer
 from dgmc_tpu_torch.train.state import (create_train_state, restore_params,
                                         snapshot_params)
@@ -99,7 +110,14 @@ def parse_args(argv=None):
     p.add_argument('--metrics_log', type=str, default=None,
                    help='append per-epoch and per-run metrics to this '
                         'JSONL file')
+    p.add_argument('--profile', type=str, default=None,
+                   help='write a torch.profiler trace of one training step '
+                        'into this directory (the first of the second '
+                        'pretraining epoch, or of the first run when '
+                        'pretraining is resumed)')
     precision.add_precision_args(p)
+    add_obs_flag(p)
+    add_profile_flag(p)
     return p.parse_args(argv)
 
 
@@ -241,7 +259,26 @@ def main(argv=None, hook=None):
         with open(runs_path) as f:
             done = json.load(f)
 
-    with MetricLogger(args.metrics_log) as logger:
+    # Before the first step is captured (the probe switch is read then).
+    obs = RunObserver(args.obs_dir, probes=args.probes,
+                      watchdog_deadline_s=args.watchdog_deadline,
+                      obs_port=args.obs_port)
+    # One --profile trace an invocation: see the module docstring.
+    need_profile = args.profile
+
+    def observed_step(state, batch, seed, arm):
+        with trace(arm):
+            with obs.step():
+                state, out = step(state, batch, seed)
+            if arm:
+                float(out['loss'])  # the trace ends after the step ran
+        return state, out
+
+    with MetricLogger(args.metrics_log) as logger, obs:
+        obs.attach_anomaly()
+        obs.attach_slo(args.slo)
+        prof = obs.attach_profiler(
+            start_profile(args.profile_dir, steps=args.profile_steps))
         if ckpt is not None and ckpt.latest_step() is not None:
             state = ckpt.restore(model, state, 0)
             print(f'Resumed pretrained snapshot from {args.ckpt_dir} '
@@ -253,13 +290,21 @@ def main(argv=None, hook=None):
                 t0 = time.perf_counter()
                 total = torch.zeros((), device=device)
                 waits = []
-                for i, batch in enumerate(timed_batches(batches, waits)):
-                    state, out = step(state, batch, noise_seed(
-                        args.seed, 0, 0, epoch, i))
-                    if hook is not None:
-                        hook('pretrain', (epoch, i),
-                             {k: v.clone() for k, v in out.items()})
-                    total += out['loss']
+                with obs.compile_label('pretrain'):
+                    for i, batch in enumerate(timed_batches(batches,
+                                                            waits)):
+                        arm = need_profile if epoch == 2 and i == 0 \
+                            else None
+                        state, out = observed_step(state, batch, noise_seed(
+                            args.seed, 0, 0, epoch, i), arm)
+                        if arm:
+                            need_profile = None
+                        if hook is not None:
+                            hook('pretrain', (epoch, i),
+                                 {k: v.clone() for k, v in out.items()})
+                        total += out['loss']
+                # The device's completion fence (the read below waits).
+                obs.fence_devices(total)
                 loss = float(total) / len(pretrain_loader)
                 print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, '
                       f'{time.perf_counter() - t0:.1f}s (waited '
@@ -267,6 +312,9 @@ def main(argv=None, hook=None):
                       flush=True)
                 report()
                 logger.log(epoch, loss=loss, stage='pretrain')
+                obs.log(epoch, loss=loss, stage='pretrain',
+                        epoch_s=round(time.perf_counter() - t0, 3))
+                obs.snapshot_memory(f'pretrain_epoch{epoch}')
             if ckpt is not None:
                 ckpt.save(0, model, state)
         snapshot = snapshot_params(model)
@@ -281,13 +329,15 @@ def main(argv=None, hook=None):
                 hook('run_start', run, None)
             loader = PrefetchLoader(HostBatches(run_loader(
                 args, willow, run, num_nodes, num_edges), device), 2)
-            for epoch in range(1, args.epochs + 1):
-                for i, batch in enumerate(loader):
-                    state, out = step(state, batch, noise_seed(
-                        args.seed, 0, run, epoch, i))
-                    if hook is not None:
-                        hook('train', (run, epoch, i),
-                             {k: v.clone() for k, v in out.items()})
+            with obs.compile_label(f'run{run}'):
+                for epoch in range(1, args.epochs + 1):
+                    for i, batch in enumerate(loader):
+                        state, out = observed_step(state, batch, noise_seed(
+                            args.seed, 0, run, epoch, i), need_profile)
+                        need_profile = None
+                        if hook is not None:
+                            hook('train', (run, epoch, i),
+                                 {k: v.clone() for k, v in out.items()})
             seeds = (noise_seed(args.seed, 1, run, 0, j)
                      for j in range(1 << 30))
             accs = []
@@ -304,10 +354,15 @@ def main(argv=None, hook=None):
             print(' '.join(c.ljust(13) for c in WILLOW))
             print(' '.join(f'{a:.2f}'.ljust(13) for a in accs), flush=True)
             logger.log(run, stage='run', accs=accs)
+            obs.log(run, stage='run', mean_acc=sum(accs) / len(accs))
+            obs.quality_eval('willow', step=run,
+                             hits1=sum(accs) / len(accs) / 100)
+            obs.snapshot_memory(f'run{run}')
             done.append(accs)
             if runs_path:
                 write_json_atomic(runs_path,
                                   [list(map(float, a)) for a in done])
+        prof.close()
     all_accs = np.array(done)
     mean = all_accs.mean(axis=0)
     std = (all_accs.std(axis=0, ddof=1) if len(all_accs) > 1

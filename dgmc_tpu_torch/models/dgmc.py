@@ -53,6 +53,15 @@ and a batch of pairs draws what the same pairs would draw one at a time.
 Tests inject JAX's own draws through ``r_s`` and ``negatives``. Dropout
 masks come from the ``generator`` passed to the forward, on the model's
 device.
+
+Observability, at the JAX package's places: the stages run under
+``torch.profiler.record_function`` ranges named as JAX's scopes
+(``psi1``, ``initial_corr``, ``topk``, ``consensus_iter``, ``psi2``),
+and in training mode with probes on (:mod:`~dgmc_tpu_torch.obs.probes`)
+the forward emits ``check_finite`` at ψ₁, the initial scores and each
+consensus iteration, the entropy and top-``PROBE_TOPK`` mass of ``S_0``
+and ``S_L``, and each iteration's ``consensus_delta`` and entropy. With
+probes off none of it runs.
 """
 
 import dataclasses
@@ -60,8 +69,10 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from dgmc_tpu_torch.models.precision import compute_dtype_of
+from dgmc_tpu_torch.obs import probes as _probes
 from dgmc_tpu_torch.models.rel import lecun_normal_
 from dgmc_tpu_torch.ops.kernels import dispatch, rng
 from dgmc_tpu_torch.ops.kernels import sparse_consensus
@@ -73,7 +84,29 @@ from dgmc_tpu_torch.ops.topk import (DEFAULT_TOPK_BLOCK, chunked_topk,
                                      streamed_topk)
 
 __all__ = ['Correspondence', 'DGMC', 'NOISE_STREAM', 'NEGATIVES_STREAM',
-           'draw_noise', 'draw_negatives', 'include_gt']
+           'PROBE_TOPK', 'draw_noise', 'draw_negatives', 'include_gt']
+
+#: Row-mass window of the ``topk_mass`` probe: the probability the 10 best
+#: entries of each correspondence row hold (the JAX package's).
+PROBE_TOPK = 10
+
+
+def _probe_corr_stage(S, row_mask, stage):
+    """Entropy and top-k mass of a correspondence snapshot (S0 / SL)."""
+    _probes.emit('corr_entropy', lambda: _probes.entropy(S, row_mask),
+                 stage=stage)
+    _probes.emit('topk_mass',
+                 lambda: _probes.topk_mass(S, PROBE_TOPK, row_mask),
+                 stage=stage)
+
+
+def _probe_consensus_iter(S_next, S, row_mask, step):
+    """One iteration's correction norm and sharpening entropy."""
+    _probes.emit('consensus_delta',
+                 lambda: _probes.delta_norm(S_next, S, row_mask),
+                 iteration=step)
+    _probes.emit('corr_entropy', lambda: _probes.entropy(S_next, row_mask),
+                 iteration=step)
 
 
 @dataclasses.dataclass
@@ -260,8 +293,9 @@ class DGMC(nn.Module):
         T, B, N_s, R_in = r_s.shape
         if not self.packs_source(T):
             return None
-        o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(B, N_s, T * R_in),
-                       graph_s, streams=T, generator=generator)
+        with record_function('psi2'):
+            o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(
+                B, N_s, T * R_in), graph_s, streams=T, generator=generator)
         return o.reshape(B, N_s, T, -1).permute(2, 0, 1, 3)
 
     def _delta_fn(self):
@@ -286,33 +320,55 @@ class DGMC(nn.Module):
             return sparse_consensus.plain_fused_candidate_delta
         return sparse_consensus.fused_candidate_delta
 
+    def _psi2(self, x, graph, generator):
+        with record_function('psi2'):
+            return self.psi_2(x, graph, generator=generator)
+
     def _dense(self, graph_s, graph_t, num_steps, detach, noise_seed,
                pair_offset, r_s, generator):
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
+                record_function('psi1'):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+        # Probes document the train step only (the JAX package's rule).
+        probe = _probes.enabled() and self.training
+        if probe:
+            _probes.check_finite('psi1', h_s, h_t, order=0)
         h_s, h_t = self._cast(h_s), self._cast(h_t)
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         B, N_s = s_mask.shape
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
-        # float32 logits of compute-dtype embeddings (exact products).
-        acc = torch.promote_types(h_s.dtype, torch.float32)
-        S_hat = h_s.to(acc) @ h_t.to(acc).transpose(1, 2)
-        S_0 = masked_softmax(S_hat, S_mask)
+        with record_function('initial_corr'):
+            # float32 logits of compute-dtype embeddings (exact products).
+            acc = torch.promote_types(h_s.dtype, torch.float32)
+            S_hat = h_s.to(acc) @ h_t.to(acc).transpose(1, 2)
+            S_0 = masked_softmax(S_hat, S_mask)
+        if probe:
+            _probes.check_finite('initial_corr', S_hat, order=1)
+            _probe_corr_stage(S_0, s_mask, 'S0')
         if num_steps > 0:
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
                               pair_offset, h_s.device)
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._delta_fn()
             for step in range(num_steps):
-                S = masked_softmax(S_hat, S_mask)
-                r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
-                o_s = (self.psi_2(r_s[step], graph_s, generator=generator)
-                       if o_s_all is None else o_s_all[step])
-                o_t = self.psi_2(r_t, graph_t, generator=generator)
-                delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
-                S_hat = S_hat + torch.where(S_mask, delta, 0.0)
+                with record_function('consensus_iter'):
+                    S = masked_softmax(S_hat, S_mask)
+                    r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
+                    o_s = (self._psi2(r_s[step], graph_s, generator)
+                           if o_s_all is None else o_s_all[step])
+                    o_t = self._psi2(r_t, graph_t, generator)
+                    delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
+                    S_hat = S_hat + torch.where(S_mask, delta, 0.0)
+                if probe:
+                    with torch.no_grad():
+                        _probe_consensus_iter(masked_softmax(S_hat, S_mask),
+                                              S, s_mask, step)
+                    _probes.check_finite('consensus_iter', S_hat,
+                                         order=2 + step, iteration=step)
         S_L = masked_softmax(S_hat, S_mask)
+        if probe:
+            _probe_corr_stage(S_L, s_mask, 'SL')
         return (Correspondence(S_0, None, s_mask, t_mask),
                 Correspondence(S_L, None, s_mask, t_mask))
 
@@ -384,10 +440,15 @@ class DGMC(nn.Module):
                              '(with y)')
         # detach: ψ₁ runs without a graph, still in its own mode (the
         # same dropout masks as with one).
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
+                record_function('psi1'):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             if h_t is None and h_t_cand is None:
                 h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+        probe = _probes.enabled() and self.training
+        if probe:
+            _probes.check_finite('psi1', h_s,
+                                 *(() if h_t is None else (h_t,)), order=0)
         h_s, h_t, h_t_cand = (self._cast(h_s), self._cast(h_t),
                               self._cast(h_t_cand))
         if detach and h_t_cand is not None:
@@ -400,12 +461,14 @@ class DGMC(nn.Module):
             if h_t is None:
                 raise ValueError('the candidate search needs the full h_t '
                                  'table (or a precomputed S_idx)')
-            if self.stream_chunk is not None:
-                S_idx = streamed_topk(h_s, h_t, self.k, self.stream_chunk,
-                                      t_mask=t_mask, block=self.topk_block)
-            else:
-                S_idx = chunked_topk(h_s, h_t, self.k, t_mask=t_mask,
-                                     block=self.topk_block)
+            with record_function('topk'):
+                if self.stream_chunk is not None:
+                    S_idx = streamed_topk(h_s, h_t, self.k,
+                                          self.stream_chunk, t_mask=t_mask,
+                                          block=self.topk_block)
+                else:
+                    S_idx = chunked_topk(h_s, h_t, self.k, t_mask=t_mask,
+                                         block=self.topk_block)
         elif S_idx.shape[-1] != self.k:
             raise ValueError(f'precomputed S_idx carries {S_idx.shape[-1]} '
                              f'candidates but the model was built with '
@@ -448,11 +511,17 @@ class DGMC(nn.Module):
         shortlist = Shortlist(S_idx, N_t)
         row_mask = s_mask[..., None]
 
-        h_t_rows = h_t_cand if h_t_cand is not None else shortlist.gather(h_t)
-        # float32 logits of compute-dtype embeddings (exact products).
-        acc = torch.promote_types(h_s.dtype, torch.float32)
-        S_hat = torch.einsum('bsc,bskc->bsk', h_s.to(acc), h_t_rows.to(acc))
-        S_0 = masked_softmax(S_hat, entry_mask) * row_mask
+        with record_function('initial_corr'):
+            h_t_rows = (h_t_cand if h_t_cand is not None
+                        else shortlist.gather(h_t))
+            # float32 logits of compute-dtype embeddings (exact products).
+            acc = torch.promote_types(h_s.dtype, torch.float32)
+            S_hat = torch.einsum('bsc,bskc->bsk', h_s.to(acc),
+                                 h_t_rows.to(acc))
+            S_0 = masked_softmax(S_hat, entry_mask) * row_mask
+        if probe:
+            _probes.check_finite('initial_corr', S_hat, order=1)
+            _probe_corr_stage(S_0, s_mask, 'S0')
 
         if num_steps > 0:
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
@@ -460,16 +529,26 @@ class DGMC(nn.Module):
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._sparse_delta_fn()
             for step in range(num_steps):
-                S = masked_softmax(S_hat, entry_mask) * row_mask
-                # float32: S is; the noise is widened exactly.
-                r_t = shortlist.scatter(S[..., None]
-                                        * r_s[step].to(S.dtype)[:, :, None, :])
-                o_s = (self.psi_2(r_s[step], graph_s, generator=generator)
-                       if o_s_all is None else o_s_all[step])
-                o_t = self.psi_2(r_t, graph_t, generator=generator)
-                S_hat = S_hat + delta_fn(o_s, o_t.to(o_s.dtype), shortlist,
-                                         *self._mlp(o_s.dtype))
+                with record_function('consensus_iter'):
+                    S = masked_softmax(S_hat, entry_mask) * row_mask
+                    # float32: S is; the noise is widened exactly.
+                    r_t = shortlist.scatter(
+                        S[..., None] * r_s[step].to(S.dtype)[:, :, None, :])
+                    o_s = (self._psi2(r_s[step], graph_s, generator)
+                           if o_s_all is None else o_s_all[step])
+                    o_t = self._psi2(r_t, graph_t, generator)
+                    S_hat = S_hat + delta_fn(o_s, o_t.to(o_s.dtype),
+                                             shortlist, *self._mlp(o_s.dtype))
+                if probe:
+                    with torch.no_grad():
+                        _probe_consensus_iter(
+                            masked_softmax(S_hat, entry_mask) * row_mask, S,
+                            s_mask, step)
+                    _probes.check_finite('consensus_iter', S_hat,
+                                         order=2 + step, iteration=step)
 
         S_L = masked_softmax(S_hat, entry_mask) * row_mask
+        if probe:
+            _probe_corr_stage(S_L, s_mask, 'SL')
         return (Correspondence(S_0, shortlist.idx, s_mask, t_mask),
                 Correspondence(S_L, shortlist.idx, s_mask, t_mask))

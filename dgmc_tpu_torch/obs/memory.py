@@ -15,8 +15,6 @@ import time
 
 import torch
 
-from dgmc_tpu_torch.train.compiled import tensors_of
-
 __all__ = ['memory_snapshot', 'captured_memory']
 
 
@@ -87,6 +85,8 @@ def captured_memory(record):
     outputs), ``temp_bytes`` (what its graph's private pool reserved
     beyond the outputs: every intermediate and gradient of the step; 0 on
     the CPU, where nothing is captured) and ``total_bytes``."""
+    # Here, not at the top: train.compiled imports the obs package.
+    from dgmc_tpu_torch.train.compiled import tensors_of
     args = _nbytes(tensors_of(record.static))
     outs = _nbytes(tensors_of(record.outputs))
     temp = max(record.pool_bytes - outs, 0) if record.graph is not None \

@@ -61,7 +61,9 @@ def load_library(source):
     """Compile ``csrc/<source>`` (once per content hash) and return the
     loaded ``ctypes.CDLL``. The library object carries ``build_seconds``
     (0.0 when an earlier build was reused) and ``build_log`` (nvcc's
-    ``-Xptxas=-v`` report of registers, shared memory and spills)."""
+    ``-Xptxas=-v`` report of registers, shared memory and spills). A
+    build is a compile event of the run plane
+    (:func:`~dgmc_tpu_torch.obs.registry.record_compile`)."""
     with _lock:
         lib = _loaded.get(source)
         if lib is not None:
@@ -83,6 +85,8 @@ def load_library(source):
                 raise RuntimeError(f'nvcc failed on {source} '
                                    f'(rc {proc.returncode}):\n{log}')
             os.replace(tmp, out)
+            from dgmc_tpu_torch.obs.registry import record_compile
+            record_compile('nvcc', seconds)
         lib = ctypes.CDLL(out)
         lib.build_seconds = seconds
         lib.build_log = log

@@ -18,14 +18,23 @@ compiled`) reads the ledger around its capture (:func:`snapshot`,
 (:func:`restore`), and adds what the capture recorded on every replay
 (:func:`replay`): the counts and decisions are those of the steps
 executed, on either path.
+
+Every decision executed also feeds the telemetry registry
+(:func:`dgmc_tpu_torch.obs.registry.record_dispatch`: ``dispatch.json``
+and ``/metrics``), a replay its capture's decisions; a capture's
+warm-up runs and the capture itself run under :func:`quiet` and feed
+nothing, as they count nothing here.
 """
 
+import contextlib
 import threading
 
 __all__ = ['record', 'decisions', 'reset', 'kernel_wrapper',
-           'launch_counts', 'snapshot', 'restore', 'changes', 'replay']
+           'launch_counts', 'snapshot', 'restore', 'changes', 'replay',
+           'quiet']
 
 _lock = threading.Lock()
+_local = threading.local()   # .quiet: depth of quiet() on this thread
 _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
                   #                 'dtypes'}
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
@@ -50,6 +59,28 @@ def record(kernel, path, reason, dtype=None):
         entry['counts'][path] += 1
         key = f'{path}:{name}'
         entry['dtypes'][key] = entry['dtypes'].get(key, 0) + 1
+    _feed(kernel, path, reason, 1)
+
+
+def _feed(kernel, path, reason, count):
+    """Forward executed decisions to the telemetry registry (imported
+    here: the obs package imports this module's importers)."""
+    if getattr(_local, 'quiet', 0):
+        return
+    from dgmc_tpu_torch.obs.registry import record_dispatch
+    record_dispatch(kernel, path, reason, count)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Decisions recorded on this thread inside the block are not fed to
+    the telemetry registry (a capture's warm-up runs and its capture,
+    whose decisions the ledger sets back too)."""
+    _local.quiet = getattr(_local, 'quiet', 0) + 1
+    try:
+        yield
+    finally:
+        _local.quiet -= 1
 
 
 def decisions():
@@ -147,3 +178,7 @@ def replay(launches, recorded=None):
                 entry['counts'][p] = entry['counts'].get(p, 0) + n
             for d, n in v['dtypes'].items():
                 entry['dtypes'][d] = entry['dtypes'].get(d, 0) + n
+    for k, v in (recorded or {}).items():
+        for p, n in v['counts'].items():
+            if n:
+                _feed(k, p, v['reason'], n)

@@ -8,7 +8,9 @@ with no host read. Restoring the last good parameters is a host
 decision: :class:`RollbackGuard` makes it where the training loop
 already reads its metrics (the CLI's eval boundaries), so it adds no
 device round trip of its own. A rollback is logged to the run's
-``--metrics_log`` as ``event='rollback'``.
+``--metrics_log`` and, with an observer, to its ``metrics.jsonl`` as
+``event='rollback'``, and dumps the observer's flight recorder
+(``flight.json``, reason ``guard-rollback``).
 """
 
 import sys
@@ -26,11 +28,15 @@ class RollbackGuard:
             counter reaches M (0 disables).
         logger: optional :class:`~dgmc_tpu_torch.obs.observe.MetricLogger`
             that records each rollback.
+        obs: optional :class:`~dgmc_tpu_torch.obs.run.RunObserver`: each
+            rollback is logged to it and dumps its flight recorder (the
+            probe values and spans that led into the non-finite streak).
     """
 
-    def __init__(self, max_consecutive, logger=None):
+    def __init__(self, max_consecutive, logger=None, obs=None):
         self.max_consecutive = int(max_consecutive)
         self.logger = logger
+        self.obs = obs
         self.rollbacks = 0
         self._snapshot = None
         self._snapshot_step = None
@@ -67,10 +73,13 @@ class RollbackGuard:
         print(f'[guard] {int(consec_bad)} consecutive non-finite steps: '
               f'rolled back to the step-{self._snapshot_step} snapshot '
               f'(fresh optimizer)', file=sys.stderr, flush=True)
+        record = {'rollback_to': self._snapshot_step,
+                  'consec_bad': int(consec_bad), 'rollbacks': self.rollbacks}
         if self.logger is not None:
             self.logger.log(step if step is not None else -1,
-                            event='rollback',
-                            rollback_to=self._snapshot_step,
-                            consec_bad=int(consec_bad),
-                            rollbacks=self.rollbacks)
+                            event='rollback', **record)
+        if self.obs is not None:
+            self.obs.log(step if step is not None else -1, event='rollback',
+                         **record)
+            self.obs.flight_dump('guard-rollback', extra=record)
         return state, True

@@ -50,6 +50,10 @@ Inputs (positional, nested in tuples and NamedTuples):
 On the CPU nothing is captured: each call copies its inputs into the
 same static buffers and runs the function eagerly on them, caches
 dropped after each run, and returns that run's outputs.
+
+Each record built is one compile event of the run plane
+(:func:`~dgmc_tpu_torch.obs.registry.record_compile`, kind ``capture``,
+its ``capture_s``), so a warm steady state records none.
 """
 
 import contextlib
@@ -58,6 +62,7 @@ import time
 
 import torch
 
+from dgmc_tpu_torch.obs.registry import record_compile
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.rng import key_bits
@@ -245,6 +250,9 @@ class Compiled:
         rec = self.records.get(key)
         if rec is None:
             rec = self.records[key] = self._build(inputs)
+            # A compile event of the run plane (``timings.json``'s
+            # compile summary, ``/metrics``), under the label in force.
+            record_compile('capture', rec.capture_s)
         return rec
 
     def capture(self, *inputs):
@@ -286,6 +294,11 @@ class Compiled:
         static = _static(inputs, self.device)
         if not self.on_card:
             return Captured(static, capture_s=time.perf_counter() - t0)
+        with dispatch.quiet():
+            return self._capture(inputs, static, t0)
+
+    def _capture(self, inputs, static, t0):
+        """The card's record: warm-up runs, then the capture."""
         dev = self.device
         ledger = dispatch.snapshot()
         restore = self.snapshot(*inputs) if self.snapshot else None

@@ -26,6 +26,15 @@ with NaN on optimizer step N (``state.step == N - 1`` before it); the
 step number reaches the compiled step as a device input written before
 each call. With both off the step records the graph it always did.
 
+With probes on (:mod:`~dgmc_tpu_torch.obs.probes`, read when the step
+runs eagerly or is captured) a train step records the model's probes and
+its own (the gradients' global norm ``grad_norm``, ``check_finite`` of
+the loss, order 1000, and of that norm, order 1001, after the fault and
+before the guard, as in the JAX package) onto a probe tape, a static
+output of a captured step, which the step's wrapper hands to
+:func:`~dgmc_tpu_torch.obs.probes.submit` after every call; the metrics
+a caller gets carry no tape. Eval steps carry no probes.
+
 ``make_eval_step`` returns ``step(batch, noise_seed, r_s=None)`` with
 ``count``, ``correct`` and ``hits@k`` as sums, so callers aggregate
 across batches exactly.
@@ -72,6 +81,7 @@ import numpy as np
 import torch
 
 from dgmc_tpu_torch.models import metrics
+from dgmc_tpu_torch.obs import probes
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device, host_tensor
 from dgmc_tpu_torch.train.compiled import Fixed, compiled
 from dgmc_tpu_torch.train.state import (fill_grads, optimizer_update,
@@ -268,6 +278,16 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     ``consec_bad``)."""
 
     def body(state, batch, noise_seed, r_s, negatives, step_no, generator):
+        with probes.recording() as recorder:
+            out = update(state, batch, noise_seed, r_s, negatives, step_no,
+                         generator)
+        tape = recorder.tape() if recorder is not None else None
+        if tape is not None:
+            out[probes.PROBE_KEY] = tape
+        return out
+
+    def update(state, batch, noise_seed, r_s, negatives, step_no,
+               generator):
         model.train()
         # Saved before the forward: batch norm's buffers move in it.
         kept = save_in_place(state, model) if guard else None
@@ -286,6 +306,14 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             for g in state.optimizer.param_groups:
                 for p in g['params']:
                     p.grad.masked_fill_(fire, float('nan'))
+        if probes.enabled():
+            gnorm = probes.global_norm(
+                [p.grad for g in state.optimizer.param_groups
+                 for p in g['params'] if p.grad is not None])
+            probes.emit('grad_norm', gnorm)
+            # The loss precedes the gradient in the pipeline.
+            probes.check_finite('loss', loss.detach(), order=1000)
+            probes.check_finite('grad', gnorm, order=1001)
         good = _grads_finite(state, loss.detach()) if guard else None
         optimizer_update(state)
         if guard:
@@ -323,7 +351,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
                        None if step_no is None else step_no.to(dev),
                        dropout_generator(noise_seed, dev))
             state.step += 1
-            return state, out
+            return state, probes.take(out)
 
         return train_step
 
@@ -338,7 +366,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
 
     def train_step(state, batch, noise_seed, r_s=None, negatives=None):
         c, args = inputs(state, batch, noise_seed, r_s, negatives)
-        out = c(*args)
+        out = probes.take(c(*args))
         state.step += 1
         return state, out
 

@@ -293,6 +293,17 @@ def pad_pair_batch(pairs: List[GraphPair], num_nodes_s, num_edges_s,
         pairs = list(pairs) * pairs_per_step
     num_nodes_t = num_nodes_t or num_nodes_s
     num_edges_t = num_edges_t or num_edges_s
+    # The run plane's padding account (``timings.json``'s
+    # ``padding_buckets``): one count per collation into its bucket, with
+    # the real sizes beside it.
+    from dgmc_tpu_torch.obs.registry import record_padding
+    record_padding(batch=len(pairs),
+                   nodes=f'{num_nodes_s}x{num_nodes_t}',
+                   edges=f'{num_edges_s}x{num_edges_t}',
+                   real={'nodes_s': sum(p.s.num_nodes for p in pairs),
+                         'nodes_t': sum(p.t.num_nodes for p in pairs),
+                         'edges_s': sum(p.s.num_edges for p in pairs),
+                         'edges_t': sum(p.t.num_edges for p in pairs)})
     g_s = pad_graphs([p.s for p in pairs], num_nodes_s, num_edges_s,
                      native=native)
     g_t = pad_graphs([p.t for p in pairs], num_nodes_t, num_edges_t,

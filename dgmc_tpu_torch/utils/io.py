@@ -25,11 +25,21 @@ def sha256_file(path, chunk=1 << 20):
     return h.hexdigest()
 
 
-def write_json_atomic(path, payload, *, indent=None, sort_keys=False):
+def write_json_atomic(path, payload, *, indent=None, sort_keys=False,
+                      quiet=False, default=None):
     """Write ``payload`` as JSON to ``path`` via tmp+rename. Creates
-    parent directories."""
+    parent directories. With ``quiet=True`` an ``OSError`` is reported as
+    a ``False`` return instead of raised (telemetry writers must never
+    take the run down); ``default`` goes to ``json.dump``."""
     tmp = f'{path}.tmp.{os.getpid()}'
-    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-    with open(tmp, 'w') as f:
-        json.dump(payload, f, indent=indent, sort_keys=sort_keys)
-    os.replace(tmp, path)
+    try:
+        os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+        with open(tmp, 'w') as f:
+            json.dump(payload, f, indent=indent, sort_keys=sort_keys,
+                      default=default)
+        os.replace(tmp, path)
+        return True
+    except OSError:
+        if quiet:
+            return False
+        raise
