@@ -290,6 +290,21 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   observer's cost on the captured bf16 KG phase-2 step: no observer,
   probes off, probes on (30 synchronized steps each in turns, then 30
   back to back, and one profiled replay's device ops and busy time).
+- ``serve_worker``: the serving worker under the supervisor
+  (:func:`phase_serve_worker`; ``python -m dgmc_tpu_torch.serve
+  --supervise`` at DBP15K's widths, float32, buckets
+  ``16x48,32x96,64x192``, the synthetic alignment's target KG as the
+  corpus): (a) nine queries through HTTP bit-identical to the in-process
+  engine, repeated and from 4 concurrent clients, every error class,
+  ``/metrics`` strict-parsed, ``/status``'s ``qtrace`` and ``capacity``,
+  the worker's ``dispatch.json`` (top-k and the sparse consensus forward
+  launched, per query), the shadow audit on the card (recall 1.0), and
+  latency over 100 queries a bucket beside the in-process engine's;
+  (b) SIGKILL: restarted, a corpus-cache hit, the same answers; (c)
+  SIGSTOP: killed as stale, restarted; (d) SIGTERM: a clean exit, the
+  artifacts on disk, no CUDA context in the monitor; (e) ``dbp15k
+  --supervise`` with ``sigkill@5`` bit-identical to the ``resume``
+  phase's uninterrupted run.
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -332,6 +347,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2136,17 +2152,43 @@ FIRST_STEP_RUNS = (('cuda', 'cuda', torch.float32, True),
                    ('cpu float64', 'cpu', torch.float64, True))
 
 
-def _first_steps(label, run):
-    """``{run label: (loss, grads)}`` of ``run(device, dtype)`` (one
-    training forward and backward) for each of :data:`FIRST_STEP_RUNS`."""
-    out = {}
-    for name, dev, dtype, kernels in FIRST_STEP_RUNS:
+#: Threads the CPU's first-step references run in at once, each with its
+#: share of the cores (one draw's runs are independent of another's).
+CPU_REF_THREADS = 4
+
+
+def _first_steps(jobs):
+    """For each ``(label, run)`` of ``jobs``, ``{run label: (loss,
+    grads)}`` of ``run(device, dtype)`` (one training forward and
+    backward) for each of :data:`FIRST_STEP_RUNS`. The card's runs go one
+    after another (:func:`plain_on_card` swaps module functions while it
+    lasts); then the CPU's, each on its own copy of the model, run
+    :data:`CPU_REF_THREADS` at a time."""
+    outs = [{} for _ in jobs]
+
+    def one(out, label, run, name, dev, dtype):
         t0 = time.perf_counter()
-        with contextlib.nullcontext() if kernels else plain_on_card():
-            out[name] = run(dev, dtype)
+        out[name] = run(dev, dtype)
         log(f'{label}: forward+backward on {name}: loss {out[name][0]:.8f} '
             f'in {time.perf_counter() - t0:.2f}s')
-    return out
+
+    cpu = []
+    for out, (label, run) in zip(outs, jobs):
+        for name, dev, dtype, kernels in FIRST_STEP_RUNS:
+            if dev == 'cpu':
+                cpu.append((out, label, run, name, dev, dtype))
+                continue
+            with contextlib.nullcontext() if kernels else plain_on_card():
+                one(out, label, run, name, dev, dtype)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // CPU_REF_THREADS))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(CPU_REF_THREADS) as pool:
+            for f in [pool.submit(one, *job) for job in cpu]:
+                f.result()
+    finally:
+        torch.set_num_threads(threads)
+    return outs
 
 
 def _hold_grads(label, draws):
@@ -2362,12 +2404,12 @@ def phase_kg_train(results):
                                   r_s, neg, dev, dtype)
 
     # The draws of the CLI's first GRAD_DRAWS phase-2 steps.
-    draws = [_first_steps(
+    draws = _first_steps([(
         f'kg_train: phase-2 step {e} at {N_s}/{N_t} entities',
         lambda dev, dtype, seed=dbp15k.noise_seed(args.seed, 0, e): run(
             dev, dtype, seed))
         for e in range(args.phase1_epochs + 1,
-                       args.phase1_epochs + 1 + GRAD_DRAWS)]
+                       args.phase1_epochs + 1 + GRAD_DRAWS)])
     log(f'kg_train: the CPU plain top-k differs from the kernel\'s '
         f'shortlist in {diff_rows} of {N_s} rows (near ties; both runs '
         f'take the kernel\'s)')
@@ -3163,7 +3205,7 @@ def phase_serve(result, small, sc_small):
     cpu.warm()
     want = cpu.match(queries[0][0])
     got = answers[0]
-    if want['shortlist'] != got['shortlist']:
+    if want['_audit'] != got['_audit']:
         raise AssertionError('CPU and CUDA shortlists differ')
     err = 0.0
     for mg, mw in zip(got['matches'], want['matches']):
@@ -3435,16 +3477,16 @@ def phase_train(results):
     args = _train_args()
     model, loader, _ = pascal_pf.build(args)
     loader.dataset.set_epoch(1)
-    draws = []
+    jobs = []
     for i, batch in zip(range(GRAD_DRAWS), loader):
         seed = pascal_pf.noise_seed(0, 0, 1, i)
-        draws.append(_first_steps(
+        jobs.append((
             f'train: step {i}',
             lambda dev, dtype, batch=batch, seed=seed: _loss_and_grads(
                 copy.deepcopy(model), batch, draw_noise(
                     args.num_steps, args.batch_size, pascal_pf.NUM_NODES,
                     args.rnd_dim, seed=seed, device=dev), dev, dtype)))
-    _hold_grads('train', draws)
+    _hold_grads('train', _first_steps(jobs))
 
     def two_steps():
         model, loader, _ = pascal_pf.build(args)
@@ -4393,6 +4435,8 @@ def phase_resume(smi_line):
         marks, _, out_a = marked_run(base + ['--ckpt_dir', A,
                                              '--metrics_log', A + '.jsonl'])
         counts = _kg_marks('resume (a)', marks, 3)
+        RESUME_A.update(payload=payload(A, 6),
+                        eval=_eval_lines(out_a)[-1])
         saves = [(e['step'], e['save_s'], e['save_bytes'])
                  for e in _read_jsonl(A + '.jsonl')
                  if e.get('event') == 'checkpoint']
@@ -5607,6 +5651,492 @@ def phase_obs(smi_line):
         _obs_stall(tmp)
 
 
+#: The worker's configuration in the ``serve_worker`` phase: the DBP15K
+#: widths (ψ₁ RelCNN 300 → 256, ψ₂ 32 → 32, 3 layers, k = 10, 10 steps),
+#: float32, the three query buckets.
+WORKER_FLAGS = ['--dim', '256', '--rnd_dim', '32', '--num_layers', '3',
+                '--num_steps', '10', '--k', '10', '--max-results', '5',
+                '--buckets', '16x48,32x96,64x192', '--seed', '0',
+                '--obs-port', '0', '--watchdog-deadline', '15',
+                '--restart-backoff', '0.5']
+#: Query sizes of the ``serve_worker`` phase, three a bucket.
+WORKER_NODES = (10, 13, 16, 20, 27, 32, 40, 51, 64)
+#: The resume phase's uninterrupted run, for the supervised DBP15K run of
+#: the ``serve_worker`` phase: its step-6 payload and last eval line.
+RESUME_A = {}
+#: What the worker answers beside the engine's answer (trace and timing).
+WORKER_TRACE_KEYS = ('latency_ms', 'client_ms', 'trace_id', 'trace_ms',
+                     'stages_ms', 'server_traceparent')
+
+
+def _parse_exposition(text):
+    """The Prometheus text format, strictly: ``{family: {'type',
+    'samples': [(name, labels, value)]}}``; raises on any line outside
+    the grammar."""
+    if not text.endswith('\n'):
+        raise AssertionError('exposition must end with a newline')
+    fams, name_re = {}, r'[a-zA-Z_:][a-zA-Z0-9_:]*'
+    for line in text.split('\n')[:-1]:
+        m = re.fullmatch(rf'# (HELP|TYPE) ({name_re}) (.*)', line)
+        if m:
+            fam = fams.setdefault(m.group(2), {'type': None, 'samples': []})
+            if m.group(1) == 'TYPE':
+                if m.group(3) not in ('counter', 'gauge', 'histogram'):
+                    raise AssertionError(f'bad type: {line!r}')
+                fam['type'] = m.group(3)
+            continue
+        m = re.fullmatch(rf'({name_re})(?:\{{(.*)\}})? (\S+)', line)
+        if not m:
+            raise AssertionError(f'bad sample line: {line!r}')
+        labels = dict(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|'
+                                 r'\\.)*)"', m.group(2) or ''))
+        value = float(m.group(3))
+        base = re.sub(r'_(bucket|sum|count)$', '', m.group(1))
+        fam = fams.get(base) or fams.get(m.group(1))
+        if fam is None or fam['type'] is None:
+            raise AssertionError(f'sample without TYPE: {line!r}')
+        fam['samples'].append((m.group(1), labels, value))
+    return fams
+
+
+def _worker_strip(answer):
+    return {k: v for k, v in answer.items() if k not in WORKER_TRACE_KEYS}
+
+
+def _worker_ready(obs, attempt, proc, probe, timeout_s=300):
+    """Wait for attempt ``attempt`` of the supervised worker under
+    ``obs`` to answer ``probe`` with 200 → ``(port, pid, gauges,
+    codes)``, ``codes`` the ``/match`` codes seen while it warmed."""
+    from dgmc_tpu_torch.serve.client import get_json, post_match
+    hb_path = os.path.join(obs, f'attempt_{attempt}', 'heartbeat.json')
+    codes, deadline = [], time.time() + timeout_s
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f'the supervisor exited {proc.returncode}')
+        try:
+            with open(hb_path) as f:
+                hb = json.load(f)
+        except (OSError, ValueError):
+            hb = {}
+        if hb.get('port'):
+            res = post_match(hb['port'], probe, timeout_s=60)
+            if res is not None:
+                codes.append((res[0], res[1].get('error')))
+                if res[0] == 200:
+                    _, health = get_json(hb['port'], '/healthz')
+                    return hb['port'], hb['pid'], health['gauges'], codes
+        time.sleep(0.1)
+    raise AssertionError(f'attempt {attempt} was not ready in {timeout_s}s')
+
+
+def _worker_answers(port, payloads, label, want):
+    """POST each payload; every answer equal to ``want``'s bit for bit
+    (less the trace and timing fields) → the answers."""
+    from dgmc_tpu_torch.serve.client import post_match
+    got = []
+    for i, p in enumerate(payloads):
+        code, ans = post_match(port, p, timeout_s=60)
+        if code != 200 or _worker_strip(ans) != want[i]:
+            raise AssertionError(f'{label}: query {i} answered {code}, '
+                                 f'not the in-process engine\'s answer')
+        got.append(ans)
+    return got
+
+
+def _worker_inprocess(ckpt, corpus, payloads, graphs):
+    """The in-process engine over the worker's checkpoint (the ``serve``
+    phase's path, with the audit's host table), its answers to
+    ``graphs``, and a worker shell around it that drives the service's
+    ``/match`` handler in this process: the two 503s and the 500 that no
+    live worker gives, and the shadow audit on the card (every query
+    audited; recall must be 1.0)."""
+    import argparse
+    import tempfile
+    from dgmc_tpu_torch.obs import RunObserver
+    from dgmc_tpu_torch.serve.audit import ShadowAuditor
+    from dgmc_tpu_torch.serve.cli import dbp15k_model
+    from dgmc_tpu_torch.serve.corpus import load_or_build
+    from dgmc_tpu_torch.serve.engine import MatchEngine
+    from dgmc_tpu_torch.serve.router import QueryRouter
+    from dgmc_tpu_torch.serve.service import ServeService, add_serve_args
+    from dgmc_tpu_torch.train.checkpoint import Checkpointer
+    model = dbp15k_model(seed=1)
+    Checkpointer(ckpt).restore(model)
+    index, _ = load_or_build(None, copy.deepcopy(model.psi_1), corpus,
+                             device='cuda')
+    engine = MatchEngine(model, index, QueryRouter(
+        '16x48,32x96,64x192', corpus.num_nodes, corpus.num_edges),
+        max_results=5, device='cuda', audit=True)
+    engine.warm()
+    want = []
+    for g in graphs:
+        ans = engine.match(g)
+        ans.pop('_audit')
+        want.append(ans)
+    parser = argparse.ArgumentParser()
+    add_serve_args(parser)
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = ServeService(parser.parse_args(
+            ['--ckpt_dir', ckpt, '--obs-dir', tmp, '--device', 'cuda']))
+        svc.obs = RunObserver(tmp)
+        svc.engine, svc.ready = engine, True
+        svc.auditor = ShadowAuditor(engine, svc.obs.quality, 1.0)
+        body = json.dumps(payloads[0]).encode()
+        codes = {}
+        for p in payloads:
+            code, ans, _ = svc.handle_match('POST', json.dumps(p).encode())
+            if code != 200:
+                raise AssertionError(f'worker shell: {code} {ans}')
+        svc.ready = False
+        codes['warming-503'] = svc.handle_match('POST', body)[:2]
+        svc.ready = True
+        saved = dict(engine._exec)
+        engine._exec.clear()
+        codes['bucket-not-warm-503'] = svc.handle_match('POST', body)[:2]
+        engine._exec.update(saved)
+        match = engine.match
+
+        def boom(*_a, **_k):
+            raise RuntimeError('injected engine fault')
+        engine.match = boom
+        codes['engine-500'] = svc.handle_match('POST', body)[:2]
+        engine.match = match
+        if not svc.auditor.drain(timeout_s=120):
+            raise AssertionError('worker shell: the audit did not drain')
+        audit = svc.obs.quality.payload()['serve']['audit']
+        svc.auditor.close()
+        svc.obs.close()
+    for cls, (code, payload) in codes.items():
+        if (code, payload.get('error')) != {
+                'warming-503': (503, 'warming-up'),
+                'bucket-not-warm-503': (503, 'bucket-not-warm'),
+                'engine-500': (500, 'engine-fault')}[cls]:
+            raise AssertionError(f'worker shell: {cls} gave {code} '
+                                 f'{payload}')
+    if audit['audited'] != len(payloads) or audit['recall_min'] != 1.0 \
+            or svc.auditor.errors:
+        raise AssertionError(f'worker shell: audit {audit}')
+    log(f'serve_worker: the worker shell in this process: warming-503, '
+        f'bucket-not-warm-503 and engine-500 structured; the shadow audit '
+        f'on its own stream, {audit["audited"]} queries audited, recall@10 '
+        f'min {audit["recall_min"]}')
+    return engine, want
+
+
+def _worker_latency(port, engine, corpus, smi_line):
+    """``/match`` latency over 100 new queries a bucket through HTTP
+    (client round trip, the worker's ``latency_ms``, its
+    ``device_execute`` span), beside the in-process engine's
+    ``last_latency_s`` for the same queries."""
+    from dgmc_tpu_torch.serve.client import (post_match, query_payload,
+                                             sample_query)
+
+    def pct(xs):
+        xs = sorted(xs)
+        return (f'p50 {statistics.median(xs):.3f} p99 '
+                f'{xs[min(len(xs) - 1, int(0.99 * len(xs)))]:.3f}')
+
+    for lo, hi in ((10, 16), (17, 32), (33, 64)):
+        rows = collections.defaultdict(list)
+        for i in range(100):
+            n = lo + i % (hi - lo + 1)
+            g, _ = sample_query(corpus.x, n, 3 * n, seed=10_000 + 100 * hi
+                                + i)
+            code, ans = post_match(port, query_payload(g), timeout_s=60)
+            if code != 200:
+                raise AssertionError(f'latency: {code} {ans}')
+            rows['client'].append(ans['client_ms'])
+            rows['server'].append(ans['latency_ms'])
+            rows['device_execute'].append(ans['stages_ms']['device_execute'])
+            engine.match(g)
+            rows['engine'].append(engine.last_latency_s * 1e3)
+        log(f'serve_worker: bucket {ans["bucket"]} ({lo}-{hi} nodes, 100 '
+            f'queries, ms): HTTP round trip {pct(rows["client"])}; the '
+            f'worker\'s latency_ms {pct(rows["server"])}; its '
+            f'device_execute span {pct(rows["device_execute"])}; the '
+            f'in-process engine\'s last_latency_s {pct(rows["engine"])} '
+            f'on {smi_line}')
+
+
+def _worker_dispatch(attempt_dir):
+    """The worker's ``dispatch.json``: every gate on ``kernel``, top-k
+    and the sparse consensus forward launched → launches by kernel."""
+    with open(os.path.join(attempt_dir, 'dispatch.json')) as f:
+        rows = [r for r in json.load(f)['counts'] if r['kernel'] != 'collate']
+    per = collections.defaultdict(int)
+    for r in rows:
+        if r['outcome'] != 'kernel':
+            raise AssertionError(f'serve_worker (a): {r}')
+        per[r['kernel']] += r['count']
+    if not per.get('topk') or not per.get('sparse_consensus_fwd'):
+        raise AssertionError(f'serve_worker (a): dispatch {rows}')
+    return per
+
+
+def _worker_events(obs, attempt):
+    """The worker's ``serve_ready`` record of attempt ``attempt``."""
+    for rec in _read_jsonl(os.path.join(obs, f'attempt_{attempt}',
+                                        'metrics.jsonl')):
+        if rec.get('event') == 'serve_ready':
+            return rec
+    raise AssertionError(f'attempt {attempt}: no serve_ready record')
+
+
+def phase_serve_worker(smi_line):
+    """The serving worker and the supervisor on the card
+    (``python -m dgmc_tpu_torch.serve --supervise``, the DBP15K widths,
+    float32, buckets ``16x48,32x96,64x192``, the target KG of the
+    synthetic DBP15K alignment as the corpus through ``--corpus-npz``,
+    ``--init-missing``):
+
+    (a) answer: the in-process engine over the worker's checkpoint answers
+    nine queries (three a bucket); through HTTP each answer equals it bit
+    for bit, repeats too, and 4 concurrent clients x the 9 queries give
+    the sequential answers; the error classes a live worker gives (405,
+    bad-query and bucket-miss 400s, ``warming-up`` 503 while it warms)
+    and, through the service's handler in this process, the other three;
+    ``/metrics`` strict-parsed with every class; ``/status`` with
+    ``qtrace`` and ``capacity``; the worker's ``dispatch.json``: top-k and
+    the sparse consensus forward on ``kernel`` and launched (per query);
+    the shadow audit on the card (the handler's, recall 1.0); latency
+    over 100 queries a bucket;
+    (b) crash: SIGKILL the worker; the supervisor restarts it, the new
+    worker reports ``corpus_cache_hit`` 1 and answers (a)'s queries bit
+    for bit; ``recovery.json`` holds the crash and the restart;
+    (c) hang: SIGSTOP the worker (watchdog deadline 15 s); the supervisor
+    kills it as stale and the restarted worker answers again;
+    (d) stop: SIGTERM the supervisor: it and its worker exit cleanly
+    (128 + 15, outcome ``preempted``), ``qtrace.jsonl``,
+    ``capacity.json`` and ``quality.json`` on disk, and the monitor never
+    created a CUDA context;
+    (e) ``dbp15k --supervise`` cut as the ``resume`` phase cuts it, with
+    ``sigkill@5``: one crash, one restart, the fault fired once, its
+    step-6 checkpoint and last eval line bit-identical to the resume
+    phase's uninterrupted run; its child runs beside (c)'s wait.
+
+    Prints cold and warm ``ready_s`` with their phases, the latencies and
+    the seconds from a kill to the restarted worker's first answer,
+    beside the card's name and power limit."""
+    import tempfile
+    from dgmc_tpu_torch.serve.cli import dbp15k_kg
+    from dgmc_tpu_torch.serve.client import (get_json, post_match,
+                                             query_payload, sample_query)
+    from dgmc_tpu_torch.serve.corpus import Corpus
+    from dgmc_tpu_torch.serve.service import ERROR_CLASSES
+    kg = dbp15k_kg(seed=0)
+    corpus = Corpus(kg.x_t, kg.senders_t, kg.receivers_t)
+    graphs = [sample_query(corpus.x, n, 3 * n, seed=500 + i)[0]
+              for i, n in enumerate(WORKER_NODES)]
+    payloads = [query_payload(g) for g in graphs]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, 'corpus.npz')
+        np.savez(npz, x=corpus.x, senders=corpus.senders,
+                 receivers=corpus.receivers)
+        ckpt, obs = os.path.join(tmp, 'ckpt'), os.path.join(tmp, 'obs')
+        argv = ['--supervise', '--ckpt_dir', ckpt, '--init-missing',
+                '--corpus-npz', npz, '--obs-dir', obs] + WORKER_FLAGS
+        monitor = ('import json, sys, torch\n'
+                   'from dgmc_tpu_torch.serve.service import main\n'
+                   'rc = main(sys.argv[1:])\n'
+                   'print(json.dumps({"monitor_cuda_initialized": '
+                   'torch.cuda.is_initialized()}), flush=True)\n'
+                   'sys.exit(rc)\n')
+        logs = open(os.path.join(tmp, 'supervisor.log'), 'w+')
+        t_spawn = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, '-c', monitor] + argv,
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=logs, text=True)
+        side = []
+        try:
+            # (a) answer
+            port, pid, gauges, warming = _worker_ready(obs, 0, proc,
+                                                       payloads[0])
+            cold = _worker_events(obs, 0)
+            log(f'serve_worker (a): cold start, spawn to the first answer '
+                f'{time.perf_counter() - t_spawn:.1f}s; ready_s '
+                f'{cold["ready_s"]} (corpus {cold["corpus_s"]}, checkpoint '
+                f'{cold["checkpoint_s"]}, cache {cold["cache_s"]} '
+                f'[{cold["cache"]}], warm {cold["warm_s"]} of which '
+                f'captures {cold["capture_s"]}), /match codes while it '
+                f'warmed {sorted(set(warming))} on {smi_line}')
+            if gauges['corpus_cache_hit'] != 0 \
+                    or gauges['serve_buckets_warm'] != 3:
+                raise AssertionError(f'serve_worker (a): gauges {gauges}')
+            engine, want = _worker_inprocess(ckpt, corpus, payloads, graphs)
+            first = _worker_answers(port, payloads, '(a)', want)
+            _worker_answers(port, payloads, '(a) repeat', want)
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                rounds = list(pool.map(
+                    lambda _: [_worker_strip(post_match(port, p)[1])
+                               for p in payloads], range(4)))
+            if any(r != want for r in rounds):
+                raise AssertionError('serve_worker (a): concurrent clients '
+                                     'differ from the sequential answers')
+            if sorted({b['bucket'] for b in first}) \
+                    != ['16x48', '32x96', '64x192']:
+                raise AssertionError('serve_worker (a): buckets not all hit')
+            errors = {
+                'method-405': get_json(port, '/match'),
+                'bad-query-400': post_match(port, {'nodes': 'nope'}),
+                'bucket-miss-400': post_match(port, query_payload(
+                    sample_query(corpus.x, 100, 300, seed=1)[0]))}
+            if [c for c, _ in errors.values()] != [405, 400, 400] or \
+                    errors['bucket-miss-400'][1]['error'] != 'unknown-bucket':
+                raise AssertionError(f'serve_worker (a): errors {errors}')
+            code, text = get_json(port, '/metrics')
+            fams = _parse_exposition(text)
+            classes = {lab['class']: v for _, lab, v in
+                       fams['dgmc_query_errors_total']['samples']}
+            if set(classes) != set(ERROR_CLASSES) or any(
+                    classes[c] < 1 for c in errors) or \
+                    (503, 'warming-up') in warming and \
+                    classes['warming-503'] < 1:
+                raise AssertionError(f'serve_worker (a): classes {classes}')
+            _, status = get_json(port, '/status')
+            if not {'qtrace', 'capacity'} <= set(status) or \
+                    status['capacity']['queries'] < 4 * len(payloads):
+                raise AssertionError('serve_worker (a): /status lacks '
+                                     'qtrace or capacity')
+            _worker_latency(port, engine, corpus, smi_line)
+            _, health = get_json(port, '/healthz')
+            served = health['gauges']['queries_served']
+            get_json(port, '/status')
+            time.sleep(6)       # the idle loop's flush (every 5 s)
+            per = _worker_dispatch(os.path.join(obs, 'attempt_0'))
+            per_query = {k: round(per[k] / served, 3) for k in
+                         ('topk', 'sparse_consensus_fwd', 'rng') if k in per}
+            cap = status['capacity']
+            log(f'serve_worker (a): {served} queries served; the worker\'s '
+                f'dispatch.json: launches a query {per_query}, all of its '
+                f'launches (the corpus table\'s build included) '
+                f'{dict(sorted(per.items()))}; capacity: saturation '
+                f'{cap["saturation_qps"]} QPS, mean service '
+                f'{cap["mean_service_ms"]} ms')
+
+            # (b) crash
+            os.kill(pid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            port, pid, gauges, _ = _worker_ready(obs, 1, proc, payloads[0])
+            to_answer = time.perf_counter() - t_kill
+            warm = _worker_events(obs, 1)
+            if gauges['corpus_cache_hit'] != 1 or warm['cache'] != 'hit':
+                raise AssertionError(f'serve_worker (b): gauges {gauges}')
+            _worker_answers(port, payloads, '(b)', want)
+            with open(os.path.join(obs, 'recovery.json')) as f:
+                rec = json.load(f)
+            if [a.get('reason') for a in rec['attempts'][:1]] \
+                    != ['signal:SIGKILL'] or 'restart' not in \
+                    [e['event'] for e in rec['events']]:
+                raise AssertionError(f'serve_worker (b): {rec["events"]}')
+            log(f'serve_worker (b): SIGKILL to the first answer of the '
+                f'restarted worker {to_answer:.1f}s; warm ready_s '
+                f'{warm["ready_s"]} (cache {warm["cache_s"]} [hit], warm '
+                f'{warm["warm_s"]} of which captures {warm["capture_s"]}); '
+                f'the answers bit-identical on {smi_line}')
+
+            # (c) hang; (e)'s child runs beside its wait (the
+            # supervisor's stale verdict is a fixed 2 x 15 s + 10 s).
+            if not RESUME_A:
+                raise AssertionError('serve_worker (e): the resume phase '
+                                     'left no uninterrupted run to compare '
+                                     'with')
+            side = [_supervised_kg(tmp, env)]
+            os.kill(pid, signal.SIGSTOP)
+            t_stop = time.perf_counter()
+            port, pid, gauges, _ = _worker_ready(obs, 2, proc, payloads[0])
+            to_answer = time.perf_counter() - t_stop
+            _worker_answers(port, payloads, '(c)', want)
+            with open(os.path.join(obs, 'recovery.json')) as f:
+                rec = json.load(f)
+            reason = rec['attempts'][1].get('reason')
+            if reason not in ('healthz-stale', 'heartbeat-stale'):
+                raise AssertionError(f'serve_worker (c): attempt 1 {reason}')
+            log(f'serve_worker (c): SIGSTOP killed as {reason}; stop to the '
+                f'first answer of the restarted worker {to_answer:.1f}s '
+                f'(deadline 15 s, stale at 2x, 10 s SIGTERM grace; (e) '
+                f'running beside it)')
+        except BaseException:
+            for p in side:
+                p.kill()
+                p.wait()
+            raise
+        finally:
+            # (d) stop
+            proc.send_signal(signal.SIGTERM)
+            try:
+                out, _ = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            logs.seek(0)
+            for line in logs.read().splitlines()[-40:]:
+                log(f'  | {line}')
+            logs.close()
+        if proc.returncode != 128 + signal.SIGTERM or \
+                '"monitor_cuda_initialized": false' not in out:
+            raise AssertionError(f'serve_worker (d): the supervisor exited '
+                                 f'{proc.returncode}, {out!r}')
+        with open(os.path.join(obs, 'recovery.json')) as f:
+            rec = json.load(f)
+        last = os.path.join(obs, f'attempt_{len(rec["attempts"]) - 1}')
+        missing = [n for n in ('qtrace.jsonl', 'capacity.json',
+                               'quality.json')
+                   if not os.path.exists(os.path.join(last, n))]
+        if rec['outcome'] != 'preempted' or missing:
+            raise AssertionError(f'serve_worker (d): outcome '
+                                 f'{rec["outcome"]}, missing {missing}')
+        log(f'serve_worker (d): SIGTERM: exit 143, outcome preempted, '
+            f'{len(rec["attempts"])} attempts, the last worker\'s '
+            f'artifacts on disk, the monitor without a CUDA context')
+
+        # (e) the training CLI under supervision
+        run_e, = side
+        rc = run_e.wait(timeout=900)
+        run_e.out.seek(0)
+        out = run_e.out.read()
+        run_e.out.close()
+        with open(os.path.join(run_e.obs, 'recovery.json')) as f:
+            rec = json.load(f)
+        if rc != 0 or [a['reason'] for a in rec['attempts']] \
+                != ['signal:SIGKILL', 'completed'] or \
+                out.count('[faults] firing sigkill@5') != 1:
+            for line in out.splitlines()[-40:]:
+                log(f'  | {line}')
+            raise AssertionError(f'serve_worker (e): exit {rc}, attempts '
+                                 f'{rec["attempts"]}')
+        from dgmc_tpu_torch.train.checkpoint import STATE_FILE
+        got = torch.load(os.path.join(run_e.ckpt, '6', STATE_FILE),
+                         map_location='cpu', weights_only=True)
+        n = _hold_checkpoints('serve_worker (e): E step 6 against resume A '
+                              'step 6', RESUME_A['payload'], got)
+        if _eval_lines(out)[-1] != RESUME_A['eval']:
+            raise AssertionError('serve_worker (e): last eval line differs')
+        done_s = os.path.getmtime(os.path.join(run_e.obs,
+                                               'recovery.json')) - run_e.t0
+        log(f'serve_worker (e): dbp15k --supervise, sigkill@5 fired once, '
+            f'one restart, done in {done_s:.1f}s (beside (c)); step 6 '
+            f'bit-identical to the resume phase\'s uninterrupted run ({n} '
+            f'tensors), last eval line equal')
+
+
+def _supervised_kg(tmp, env):
+    """(e)'s child: ``dbp15k --supervise`` cut as the ``resume`` phase
+    cuts it, with ``sigkill@5``; its output to a file."""
+    out = open(os.path.join(tmp, 'kg.log'), 'w+')
+    ckpt, obs = os.path.join(tmp, 'E'), os.path.join(tmp, 'O')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'dgmc_tpu_torch.experiments.dbp15k',
+         '--supervise', '--restart-backoff', '0.5', *KG_ARGV, *F32_ARGV,
+         *RESUME_ARGV, '--ckpt_dir', ckpt, '--obs-dir', obs,
+         '--inject-fault', 'sigkill@5'],
+        cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+    proc.out, proc.ckpt, proc.obs = out, ckpt, obs
+    proc.t0 = time.time()
+    return proc
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -5686,6 +6216,8 @@ def main(argv=None):
                 smi[0] if smi else 'nvidia-smi: no output')),
             ('keypoints', lambda: phase_keypoints(res)),
             ('obs', lambda: phase_obs(
+                smi[0] if smi else 'nvidia-smi: no output')),
+            ('serve_worker', lambda: phase_serve_worker(
                 smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:

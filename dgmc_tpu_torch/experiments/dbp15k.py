@@ -100,10 +100,12 @@ from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
+                                                  supervise_cli)
 from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
 from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
 from dgmc_tpu_torch.resilience import (FaultPlan, RollbackGuard,
-                                       add_fault_args)
+                                       add_fault_args, ledger_dir)
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
 from dgmc_tpu_torch.train.state import create_train_state, with_guard_counters
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
@@ -213,6 +215,7 @@ def parse_args(argv=None):
     precision.add_precision_args(p)
     add_obs_flag(p)
     add_profile_flag(p)
+    add_supervisor_args(p)
     args = p.parse_args(argv)
     if args.ckpt_every < 1:
         p.error('--ckpt_every must be at least 1')
@@ -322,8 +325,17 @@ def main(argv=None, hook=None):
     step (``kind='train'``) and evaluation (``'eval'``) with its
     metrics."""
     args = parse_args(argv)
+    if args.supervise:
+        # This process becomes the monitor, before anything touches the
+        # device; the run executes in children that resume through
+        # --ckpt_dir. Of JAX's ladder only f32: the port has no
+        # shrink-mesh and no disable-fused rung (resilience/supervisor.py).
+        raise SystemExit(supervise_cli(
+            'dgmc_tpu_torch.experiments.dbp15k', args, argv,
+            ladder=('f32',)))
     device = resolve_device(args.device)
-    plan = FaultPlan.from_args(args, state_dir=args.ckpt_dir)
+    plan = FaultPlan.from_args(
+        args, state_dir=ledger_dir(args.ckpt_dir, args.obs_dir))
     precision.apply(precision.from_args(args))
     train_batch, test_batch, in_dim = load_batches(args)
     model = build(args, in_dim).to(device)

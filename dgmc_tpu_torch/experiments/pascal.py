@@ -60,6 +60,8 @@ from dgmc_tpu_torch.obs.memory import captured_memory
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
+                                                  supervise_cli)
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
@@ -104,6 +106,7 @@ def parse_args(argv=None):
     precision.add_precision_args(p)
     add_obs_flag(p)
     add_profile_flag(p)
+    add_supervisor_args(p)
     return p.parse_args(argv)
 
 
@@ -199,6 +202,13 @@ def main(argv=None, hook=None):
     step (``kind='train'``) and eval batch (``'eval'``) with its
     metrics."""
     args = parse_args(argv)
+    if args.supervise:
+        # Crash/hang/preemption recovery (resilience/supervisor.py)
+        # before anything touches the device; restarts resume through
+        # --ckpt_dir.
+        raise SystemExit(supervise_cli(
+            'dgmc_tpu_torch.experiments.pascal', args, argv,
+            ladder=('f32',)))
     device = resolve_device(args.device)
     precision.apply(precision.from_args(args))
     from dgmc_tpu_torch.datasets import PascalVOCKeypoints, VGG16Features

@@ -62,6 +62,8 @@ from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
+                                                  supervise_cli)
 from dgmc_tpu_torch.train.state import create_train_state
 from dgmc_tpu_torch.train.steps import (HostBatches, make_eval_step,
                                         make_train_step)
@@ -105,6 +107,7 @@ def parse_args(argv=None):
     precision.add_precision_args(p)
     add_obs_flag(p)
     add_profile_flag(p)
+    add_supervisor_args(p)
     return p.parse_args(argv)
 
 
@@ -143,6 +146,13 @@ def main(argv=None, hook=None):
     step (``kind='train'``), synthetic eval batch (``'eval'``) and real
     eval pair (``'real_eval'``) with its metrics."""
     args = parse_args(argv)
+    if args.supervise:
+        # Crash/hang recovery (resilience/supervisor.py) before anything
+        # touches the device. This CLI has no --ckpt_dir, so a restart
+        # re-runs from scratch.
+        raise SystemExit(supervise_cli(
+            'dgmc_tpu_torch.experiments.pascal_pf', args, argv,
+            ladder=('f32',)))
     device = resolve_device(args.device)
     precision.apply(precision.from_args(args))
     model, train_loader, transform = build(args)

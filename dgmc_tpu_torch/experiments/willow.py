@@ -57,6 +57,8 @@ from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
+                                                  supervise_cli)
 from dgmc_tpu_torch.train.checkpoint import Checkpointer
 from dgmc_tpu_torch.train.state import (create_train_state, restore_params,
                                         snapshot_params)
@@ -118,6 +120,7 @@ def parse_args(argv=None):
     precision.add_precision_args(p)
     add_obs_flag(p)
     add_profile_flag(p)
+    add_supervisor_args(p)
     return p.parse_args(argv)
 
 
@@ -205,6 +208,13 @@ def main(argv=None, hook=None):
     after each run's restore, and with each step's metrics: ``'pretrain'``
     ((epoch, batch)), ``'train'`` ((run, epoch, batch)) and ``'eval'``."""
     args = parse_args(argv)
+    if args.supervise:
+        # Crash/hang/preemption recovery (resilience/supervisor.py)
+        # before anything touches the device; restarts resume at the
+        # next unfinished run through --ckpt_dir.
+        raise SystemExit(supervise_cli(
+            'dgmc_tpu_torch.experiments.willow', args, argv,
+            ladder=('f32',)))
     device = resolve_device(args.device)
     precision.apply(precision.from_args(args))
     from dgmc_tpu_torch.datasets import (PascalVOCKeypoints, VGG16Features,

@@ -21,6 +21,9 @@ JAX's package exports, where the port has them):
   :mod:`~dgmc_tpu_torch.obs.slo` — the watchdog, the live plane and
   flight recorder, and the quality, anomaly and SLO planes (copies of
   the JAX package's jax-free modules).
+- :mod:`~dgmc_tpu_torch.obs.qtrace`, :mod:`~dgmc_tpu_torch.obs.capacity`,
+  :mod:`~dgmc_tpu_torch.obs.goodput` — the serving worker's per-query
+  traces, its queueing model and its padding account (copies too).
 """
 
 from dgmc_tpu_torch.obs import probes

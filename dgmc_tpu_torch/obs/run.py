@@ -67,6 +67,7 @@ from dgmc_tpu_torch.obs import live as live_mod
 from dgmc_tpu_torch.obs import probes as probes_mod
 from dgmc_tpu_torch.obs import quality as quality_mod
 from dgmc_tpu_torch.obs import slo as slo_mod
+from dgmc_tpu_torch.obs.goodput import merge_real_rows
 from dgmc_tpu_torch.obs.memory import memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger, StepTimer, percentile
 from dgmc_tpu_torch.obs.registry import (CompileWatcher, add_dispatch_sink,
@@ -134,22 +135,6 @@ def add_obs_flag(parser):
 #: oldest fall off (metrics.jsonl still holds the full series, and the
 #: aggregates cover every event).
 MAX_TRACE_PROBES = 20000
-
-
-def _merge_real_rows(bucket_rows, real_rows):
-    """The padding-bucket rows with their real (pre-padding) totals
-    joined on as ``real_<axis>`` fields (the JAX package's
-    ``goodput.merge_real_rows``)."""
-    reals = {}
-    for r in real_rows or []:
-        key = (r.get('batch'), r.get('nodes'), r.get('edges'))
-        reals.setdefault(key, {})[f'real_{r.get("axis")}'] = r.get('count')
-    out = []
-    for row in bucket_rows or []:
-        extra = reals.get((row.get('batch'), row.get('nodes'),
-                           row.get('edges')))
-        out.append(dict(row, **extra) if extra else dict(row))
-    return out
 
 
 class RunObserver:
@@ -490,6 +475,13 @@ class RunObserver:
             json.dump(payload, f, indent=1)
         os.replace(tmp, path)
 
+    def write_artifact(self, name, payload):
+        """Write one extra JSON artifact into the obs dir (atomic, like
+        the built-in ones): the hook behind the serving worker's
+        ``capacity.json``."""
+        if self.enabled:
+            self._write(name, payload)
+
     def probe_summary(self):
         """Per-probe aggregates ``{name: {count, mean, last, min, max}}``."""
         with self._probe_lock:
@@ -773,7 +765,7 @@ class RunObserver:
     def _padding_rows(self):
         """This run's padding-bucket rows with their real totals
         joined."""
-        return _merge_real_rows(
+        return merge_real_rows(
             self._since(padding_bucket_table(), self._buckets_base),
             self._since(padding_real_table(), self._real_base))
 

@@ -18,7 +18,7 @@ repeatable) and fire at exact, reproducible points:
                        checkpoint right after it is saved
 =====================  ==================================================
 
-The JAX package's other kinds need other hosts, the obs plane or
+The JAX package's other kinds need other hosts, the obs fence or
 downloads, which the port does not have yet; :func:`parse_spec` refuses
 them by name (:data:`NOT_PORTED`), never ignoring one silently.
 
@@ -26,7 +26,10 @@ them by name (:data:`NOT_PORTED`), never ignoring one silently.
 the checkpoint; a ``sigkill@5`` that fired again on the replayed epoch 5
 would crash forever. The process-killing and checkpoint faults record
 themselves in ``<state_dir>/faults_fired.json`` the moment they fire
-(before the kill), and a restarted process skips them. ``nan-grads`` is
+(before the kill), and a restarted process skips them. The CLIs place
+the ledger with :func:`ledger_dir` (the checkpoint directory, else the
+obs root above a supervised attempt's ``attempt_<k>``, else the
+directory the supervisor exports in :data:`LEDGER_ENV`). ``nan-grads`` is
 deliberately not recorded: it is part of the deterministic step stream,
 and a resumed run must replay it to follow the uninterrupted one.
 """
@@ -40,7 +43,8 @@ import time
 from dgmc_tpu_torch.utils.io import write_json_atomic
 
 __all__ = ['FaultInjected', 'FaultSpec', 'FaultPlan', 'KINDS', 'NOT_PORTED',
-           'add_fault_args', 'parse_spec', 'corrupt_checkpoint']
+           'LEDGER_ENV', 'add_fault_args', 'ledger_dir', 'parse_spec',
+           'corrupt_checkpoint']
 
 FIRED_LEDGER = 'faults_fired.json'
 
@@ -50,8 +54,10 @@ _CKPT_KINDS = ('ckpt-truncate', 'ckpt-corrupt')
 KINDS = _STEP_KINDS + _CKPT_KINDS + ('nan-grads',)
 #: The JAX package's kinds the port refuses, and what they wait for.
 NOT_PORTED = {
-    'peer-death': 'multi-GPU runs and the supervisor (ROADMAP A8/A9)',
-    'coord-partition': 'multi-GPU runs and the supervisor (ROADMAP A8/A9)',
+    'peer-death': 'multi-GPU runs and the supervisor\'s elastic restart '
+                  '(ROADMAP A8)',
+    'coord-partition': 'multi-GPU runs and the supervisor\'s elastic '
+                       'restart (ROADMAP A8)',
     'collective-stall': 'multi-GPU runs and the obs fence (ROADMAP A8/A9)',
     'straggler': 'multi-GPU runs and the obs plane (ROADMAP A8/A9)',
     'download-fail': 'the dataset downloads (ROADMAP A6)',
@@ -114,10 +120,31 @@ def add_fault_args(parser):
         help='deterministic fault injection (repeatable): raise@N, '
              'sigterm@N, sigkill@N, stall@N[:SEC], nan-grads@N, '
              'ckpt-truncate@N, ckpt-corrupt@N. Process-killing and '
-             'checkpoint faults fire once across restarts (a ledger in '
-             'the checkpoint directory); nan-grads replays '
+             'checkpoint faults fire once across supervised restarts (a '
+             'ledger in the checkpoint or obs dir); nan-grads replays '
              'deterministically. See dgmc_tpu_torch/resilience/faults.py')
     return parser
+
+
+LEDGER_ENV = 'DGMC_TPU_FAULT_LEDGER_DIR'
+
+
+def ledger_dir(ckpt_dir, obs_dir):
+    """Where the fire-once ledger lives: the checkpoint dir, else the
+    obs ROOT — a supervised child's ``--obs-dir`` is rewritten to
+    ``<root>/attempt_<k>`` per attempt, and a ledger inside one attempt
+    would be invisible to the next — else :data:`LEDGER_ENV`, which the
+    supervisor exports to every child, so a run with neither flag still
+    fires each fault once."""
+    if ckpt_dir:
+        return ckpt_dir
+    if not obs_dir:
+        return os.environ.get(LEDGER_ENV) or None
+    from dgmc_tpu_torch.resilience.supervisor import is_attempt_dirname
+    base = os.path.basename(os.path.normpath(obs_dir))
+    if is_attempt_dirname(base):
+        return os.path.dirname(os.path.normpath(obs_dir))
+    return obs_dir
 
 
 class FaultPlan:
@@ -125,8 +152,8 @@ class FaultPlan:
 
     Args:
         specs: spec strings (or :class:`FaultSpec`).
-        state_dir: where ``faults_fired.json`` lives (the CLI's
-            checkpoint directory); ``None`` keeps the record in memory
+        state_dir: where ``faults_fired.json`` lives
+            (:func:`ledger_dir`); ``None`` keeps the record in memory
             only.
     """
 

@@ -1,4 +1,6 @@
-"""``python -m dgmc_tpu_torch.serve``: answer sampled queries at DBP15K width.
+"""``python -m dgmc_tpu_torch.serve.cli``: answer sampled queries at DBP15K
+width and exit (the serving worker is ``python -m dgmc_tpu_torch.serve``,
+:mod:`~dgmc_tpu_torch.serve.service`).
 
 Seed-initializes the DBP15K-configuration DGMC (ψ₁ = ``RelCNN(300, 256,
 3)``, ψ₂ = ``RelCNN(32, 32, 3)``, ``k=10``, ``num_steps=10``), builds the
@@ -70,7 +72,7 @@ def dbp15k_kg(seed=0):
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(prog='python -m dgmc_tpu_torch.serve',
+    p = argparse.ArgumentParser(prog='python -m dgmc_tpu_torch.serve.cli',
                                 description=__doc__.split('\n\n')[0])
     p.add_argument('--num-queries', type=int, default=8)
     p.add_argument('--buckets', default='16x48,32x96,64x192')
@@ -169,9 +171,14 @@ def main(argv=None):
         graph, gt = sample_query(corpus.x, n, 3 * n,
                                  seed=args.seed + 1 + i)
         answer = engine.match(graph)
+        answer['shortlist'] = answer.pop('_audit')['shortlist_idx']
         answer['query'] = i
         answer['latency_ms'] = round(engine.last_latency_s * 1e3, 3)
         answer['hits1'] = float(np.mean(
             [m['target'] == g for m, g in zip(answer['matches'], gt)]))
         print(json.dumps(answer), flush=True)
     return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

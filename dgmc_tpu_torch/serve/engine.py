@@ -43,10 +43,19 @@ Corpus tiers (the JAX engine's):
 
 Each tier's answers are bit-identical to the device tier's.
 
-Not ported: the shadow audit, the goodput/capacity accounting and the
-HTTP front end.
+The engine keeps the JAX engine's saturation account
+(:meth:`MatchEngine.capacity_stats`: the in-flight count, the lock's
+wait and hold histograms, each bucket's pad fraction and goodput ratio;
+:mod:`~dgmc_tpu_torch.obs.capacity` models it), runs each phase of a
+query under its span of the serve vocabulary when given a
+:class:`~dgmc_tpu_torch.obs.qtrace.QueryTrace`, and with ``audit=True``
+serves the shadow audit's exhaustive search
+(:meth:`MatchEngine.exhaustive_topk`, :mod:`~dgmc_tpu_torch.serve.audit`)
+on its own CUDA stream without taking the lock. The HTTP worker around
+it is :mod:`~dgmc_tpu_torch.serve.service`.
 """
 
+import contextlib
 import threading
 import time
 
@@ -54,8 +63,11 @@ import numpy as np
 import torch
 
 from dgmc_tpu_torch import resolve_device
+from dgmc_tpu_torch.obs import goodput as goodput_mod
 from dgmc_tpu_torch.obs import probes
+from dgmc_tpu_torch.obs.live import StreamingHistogram
 from dgmc_tpu_torch.obs.memory import captured_memory
+from dgmc_tpu_torch.obs.qtrace import QTRACE_LATENCY_BOUNDS
 from dgmc_tpu_torch.ops.graph import GraphBatch
 from dgmc_tpu_torch.ops.offload import (DEFAULT_PREFETCH_DEPTH,
                                         offloaded_corpus_topk)
@@ -131,11 +143,17 @@ class MatchEngine:
             ``offload_chunk`` / ``prefetch_depth``: its target chunk and
             ring depth (``None``: ``ops/offload.DEFAULT_PREFETCH_DEPTH``).
             The streamed tier is the model's ``stream_chunk``.
+        obs: optional :class:`~dgmc_tpu_torch.obs.run.RunObserver`: each
+            bucket's capture is a compile event under the label
+            ``serve_bucket_<N>x<E>``, logged as ``serve_warm_<label>``,
+            and each query's execution is one observer step.
+        audit: keep the host table the shadow audit's exhaustive search
+            scans (:meth:`exhaustive_topk`).
     """
 
     def __init__(self, model, index, router, max_results=5, noise_seed=0,
                  device=None, jit=True, offload=False, offload_chunk=4096,
-                 prefetch_depth=None):
+                 prefetch_depth=None, obs=None, audit=False):
         self.device = resolve_device(device)
         if router.corpus_nodes != index.corpus.num_nodes \
                 or router.corpus_edges != index.corpus.num_edges:
@@ -146,22 +164,29 @@ class MatchEngine:
         self.router = router
         self.max_results = int(min(max_results, model.k))
         self.noise_seed = int(noise_seed)
+        self._obs = obs
         self._lock = threading.Lock()
         self._t_graph = GraphBatch.from_numpy(index.corpus.graph_arrays(),
                                               self.device)
         self.offload = bool(offload)
+        self.audit = bool(audit)
         self.offload_chunk = int(offload_chunk)
         self.prefetch_depth = int(prefetch_depth or DEFAULT_PREFETCH_DEPTH)
         h_t = torch.as_tensor(index.h_t, dtype=torch.float32)
-        if self.offload:
-            # The host table in the compute dtype, as the model casts it.
-            self._h_t = None
+        self._h_t = None if self.offload else h_t.to(self.device)
+        self._h_t_host = None
+        if self.offload or self.audit:
+            # The host table in the compute dtype, as the model casts it:
+            # the offload tier's corpus, and the audit's exhaustive scan.
             self._h_t_host = model._cast(h_t).contiguous()
             if self.device.type == 'cuda':
                 self._h_t_host = self._h_t_host.pin_memory()
-        else:
-            self._h_t = h_t.to(self.device)
-        self._warm = {}   # signature -> {'bucket', 'warm_s', 'queries'}
+        # The audit's own stream: its search never waits behind, or
+        # holds up, a query's replay on the default stream.
+        self._audit_stream = (torch.cuda.Stream(self.device)
+                              if self.audit and self.device.type == 'cuda'
+                              else None)
+        self._exec = {}   # signature -> per-bucket record
         self._compiled = self._embed = None
         if jit:
             self._compiled = compiled(self._rerank if self.offload
@@ -171,6 +196,17 @@ class MatchEngine:
         self.last_offload = None
         self.query_count = 0
         self.last_latency_s = None
+        # The saturation account (obs.capacity's input): the in-flight
+        # gauge and the engine lock split into wait and hold. The wait
+        # histogram measures the region qtrace's admission_queue_wait
+        # span wraps, for every query, traced or not; both use qtrace's
+        # bounds so the two accounts quantize alike.
+        self._stats_lock = threading.Lock()
+        self.inflight = 0
+        self.lock_wait_hist = StreamingHistogram(QTRACE_LATENCY_BOUNDS)
+        self.lock_hold_hist = StreamingHistogram(QTRACE_LATENCY_BOUNDS)
+        self._t_first_query = None
+        self._t_last_query = None
 
     def _template(self, bucket):
         """Zero-filled query arrays of the bucket's padded shape."""
@@ -192,56 +228,155 @@ class MatchEngine:
         report = {}
         for bucket in self.router.buckets:
             sig = self.router.signature(bucket)
+            label = f'serve_bucket_{bucket.nodes}x{bucket.edges}'
             t0 = time.perf_counter()
-            with self._lock:
-                rec = self._capture(self._template(bucket))
+            tpl = self._template(bucket)
+            with (self._obs.compile_label(label) if self._obs
+                  else contextlib.nullcontext()):
+                with self._lock:
+                    rec = self._capture(tpl)
             warm_s = round(time.perf_counter() - t0, 3)
-            self._warm[sig] = {'bucket': bucket, 'warm_s': warm_s,
-                               'queries': 0}
+            mem = captured_memory(rec) if rec else None
+            self._exec[sig] = {'bucket': bucket, 'warm_s': warm_s,
+                               'queries': 0, 'pad_sum': 0.0,
+                               'goodput_sum': 0.0, 'stages': None}
             report[sig] = {
                 'bucket': sig, 'warm_s': warm_s,
                 'capture_s': round(rec.capture_s, 3) if rec else 0.0,
-                'memory': captured_memory(rec) if rec else None}
+                'memory': mem}
+            if self._obs:
+                self._obs.log(0, event=f'serve_warm_{label}',
+                              compile_s=warm_s,
+                              capture_s=report[sig]['capture_s'],
+                              **({'static_bytes': mem['total_bytes']}
+                                 if mem else {}))
         return report
 
     @property
     def buckets_warm(self):
-        return len(self._warm)
+        return len(self._exec)
 
     def bucket_stats(self):
         return {info['bucket']: info['queries']
-                for info in self._warm.values()}
+                for info in self._exec.values()}
 
-    def match(self, graph, r_s=None):
+    def capacity_stats(self):
+        """The saturation and goodput account
+        (:func:`~dgmc_tpu_torch.obs.capacity.live_summary`'s input): the
+        in-flight count, the lock wait and hold histogram snapshots, the
+        measured arrival window, and each bucket's pad-fraction and
+        goodput-ratio running means."""
+        with self._stats_lock:
+            wait = self.lock_wait_hist.snapshot()
+            hold = self.lock_hold_hist.snapshot()
+            inflight = self.inflight
+            t0, t1 = self._t_first_query, self._t_last_query
+            buckets = {}
+            pad_sum = good_sum = queries = 0
+            for info in self._exec.values():
+                b = info['bucket']
+                q = info['queries']
+                buckets[f'{b.nodes}x{b.edges}'] = {
+                    'queries': q,
+                    'pad_fraction': (round(info['pad_sum'] / q, 6)
+                                     if q else None),
+                    'goodput_ratio': (round(info['goodput_sum'] / q, 6)
+                                      if q else None),
+                }
+                pad_sum += info['pad_sum']
+                good_sum += info['goodput_sum']
+                queries += q
+        window_s = (t1 - t0) if (t0 is not None and t1 is not None
+                                 and t1 > t0) else None
+        return {
+            'inflight': inflight,
+            'queries': queries,
+            'window_s': round(window_s, 6) if window_s else None,
+            'lock_wait': wait,
+            'lock_hold': hold,
+            'pad_fraction': (round(pad_sum / queries, 6)
+                             if queries else None),
+            'goodput_ratio': (round(good_sum / queries, 6)
+                              if queries else None),
+            'buckets': buckets,
+        }
+
+    def match(self, graph, trace=None, r_s=None):
         """Answer one query :class:`~dgmc_tpu_torch.utils.data.Graph`.
 
         Routes, pads, executes and returns the structured answer (host
         Python). Raises :class:`~dgmc_tpu_torch.serve.router.
-        UnknownBucketError` for a query outside the declared buckets and
-        ``ValueError`` for a malformed one. Thread-safe; execution is
-        serialized. ``r_s`` (``[num_steps, 1, bucket nodes, R_in]``)
-        replaces the drawn indicator noise.
+        UnknownBucketError` for a query outside the declared buckets,
+        :class:`UnknownExecutableError` for a bucket not warmed and
+        ``ValueError`` for a malformed query. Thread-safe; execution is
+        serialized. ``trace`` (a :class:`~dgmc_tpu_torch.obs.qtrace.
+        QueryTrace`) times each phase under its serve span, the lock
+        acquire included (``admission_queue_wait``). ``r_s``
+        (``[num_steps, 1, bucket nodes, R_in]``) replaces the drawn
+        indicator noise.
         """
-        if graph.x is None:
-            raise ValueError('query graphs need node features x')
-        if graph.x.shape[1] != self.index.corpus.feat_dim:
-            raise ValueError(
-                f'query feature width {graph.x.shape[1]} != corpus '
-                f'feature width {self.index.corpus.feat_dim}')
-        n_real = graph.num_nodes
-        bucket = self.router.route(n_real, graph.num_edges)
-        sig = self.router.signature(bucket)
-        info = self._warm.get(sig)
-        if info is None:
-            raise UnknownExecutableError(bucket, sig)
-        arrays = self.router.pad_query(graph, bucket)
-        with self._lock:
+        span = trace.span if trace is not None else contextlib.nullcontext
+        with span('bucket_resolve'):
+            if graph.x is None:
+                raise ValueError('query graphs need node features x')
+            if graph.x.shape[1] != self.index.corpus.feat_dim:
+                raise ValueError(
+                    f'query feature width {graph.x.shape[1]} != corpus '
+                    f'feature width {self.index.corpus.feat_dim}')
+            n_real = graph.num_nodes
+            bucket = self.router.route(n_real, graph.num_edges)
+            sig = self.router.signature(bucket)
+            info = self._exec.get(sig)
+            if info is None:
+                raise UnknownExecutableError(bucket, sig)
+        with span('pad_and_stage'):
+            arrays = self.router.pad_query(graph, bucket)
+        # The routed bucket against the query's real shape (the corpus
+        # side is real by construction). The port has no per-stage FLOP
+        # table, so the ratio is goodput's mask-only account.
+        fills = goodput_mod.pair_fills(
+            {'nodes_real': n_real, 'nodes_padded': bucket.nodes,
+             'edges_real': graph.num_edges, 'edges_padded': bucket.edges},
+            {'nodes_real': self.router.corpus_nodes,
+             'nodes_padded': self.router.corpus_nodes,
+             'edges_real': self.router.corpus_edges,
+             'edges_padded': self.router.corpus_edges})
+        good = goodput_mod.goodput_ratio(fills, info.get('stages'))
+        with self._stats_lock:
+            self.inflight += 1
+        t_wait = time.perf_counter()
+        with span('admission_queue_wait'):
+            self._lock.acquire()
+        t_hold = time.perf_counter()
+        done = False
+        try:
+            step = (self._obs.step() if self._obs is not None
+                    else contextlib.nullcontext())
             t0 = time.perf_counter()
-            out = self._execute(arrays, r_s)
+            with step:
+                out = self._execute(arrays, r_s, span)
             self.last_latency_s = time.perf_counter() - t0
-            info['queries'] += 1
-            self.query_count += 1
-        return self._answer(bucket, n_real, out)
+            done = True
+        finally:
+            self._lock.release()
+            t_done = time.perf_counter()
+            with self._stats_lock:
+                self.inflight -= 1
+                self.lock_wait_hist.observe(t_hold - t_wait)
+                self.lock_hold_hist.observe(t_done - t_hold)
+                if self._t_first_query is None:
+                    self._t_first_query = t_wait
+                self._t_last_query = t_done
+                if done:
+                    # Answered queries only, the population `queries`
+                    # counts.
+                    info['queries'] += 1
+                    self.query_count += 1
+                    info['pad_sum'] += 1.0 - (n_real / bucket.nodes)
+                    if good is not None:
+                        info['goodput_sum'] += good
+        with span('serialize'):
+            return self._answer(bucket, n_real, out)
 
     def _query(self, model, q, t_graph, h_t, r_s):
         """The query path of one padded query: what a bucket's graph
@@ -262,10 +397,10 @@ class MatchEngine:
                          check_idx=False)
         return ranked(S_0, S_L, q.node_mask, self.max_results)
 
-    def _shortlist(self, q):
-        """The offload tier's host-driven part: ψ₁ of the query, the
-        ring-fed search over the host table, the candidate rows gathered
-        on the host → ``(S_idx, h_t_cand)`` host tensors."""
+    def _search(self, q):
+        """The offload tier's host-driven search: ψ₁ of the query, then
+        the ring-fed search over the host table → the shortlist, a host
+        ``[1, N, k]`` int32 tensor checked against ``[0, N_t)``."""
         if self._embed is not None:
             h_s = self._embed(Fixed(self.model), q)
         else:
@@ -277,20 +412,28 @@ class MatchEngine:
         N_t = self._h_t_host.shape[1]
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= N_t):
             raise RuntimeError(f'offloaded shortlist outside [0, {N_t})')
-        h_t_cand = self._h_t_host[0][idx[0].long()][None]
-        return idx, h_t_cand
+        return idx
 
-    def _inputs(self, arrays, r_s=None):
-        """The compiled query's inputs: the padded query's host part
-        (pinned for the card) and ``r_s`` are copied, the rest is read in
-        place. The offload tier's rerank also takes the shortlist and the
-        candidate rows, made here."""
-        q = GraphBatch.host(arrays, pin_memory=self.device.type == 'cuda')
+    def _candidates(self, idx):
+        """The shortlist's rows of the host table (offload tier)."""
+        return self._h_t_host[0][idx[0].long()][None]
+
+    @staticmethod
+    def _stage(arrays, r_s=None, pin_memory=False):
+        """The padded query's host tensors (pinned for the card) and
+        ``r_s``, what a compiled call copies into its buffers."""
+        q = GraphBatch.host(arrays, pin_memory=pin_memory)
         if r_s is not None:
             r_s = torch.as_tensor(r_s, dtype=torch.float32)
+        return q, r_s
+
+    def _inputs(self, q, r_s, shortlist=None):
+        """The compiled query's inputs: ``q`` and ``r_s`` are copied, the
+        rest is read in place; the offload tier's rerank also takes the
+        shortlist and its candidate rows (``shortlist``)."""
         if self.offload:
-            return (Fixed(self.model), q, Fixed(self._t_graph),
-                    *self._shortlist(q), r_s)
+            return (Fixed(self.model), q, Fixed(self._t_graph), *shortlist,
+                    r_s)
         return (Fixed(self.model), q, Fixed(self._t_graph),
                 Fixed(self._h_t), r_s)
 
@@ -303,27 +446,71 @@ class MatchEngine:
             self._execute(arrays)
             return None
         with torch.inference_mode():
-            return self._compiled.capture(*self._inputs(arrays))
+            q, r_s = self._stage(arrays)
+            shortlist = None
+            if self.offload:
+                idx = self._search(q)
+                shortlist = (idx, self._candidates(idx))
+            return self._compiled.capture(*self._inputs(q, r_s, shortlist))
 
-    def _execute(self, arrays, r_s=None):
-        """The answer arrays of one padded query."""
+    def _execute(self, arrays, r_s=None, span=contextlib.nullcontext):
+        """The answer arrays of one padded query, each phase under its
+        serve span."""
         with torch.inference_mode():
-            inputs = self._inputs(arrays, r_s)
-            if self._compiled is not None:
-                out = self._compiled(*inputs)
-            else:
-                fn = self._rerank if self.offload else self._query
-                out = fn(*(x.value if isinstance(x, Fixed) else
-                           None if x is None else x.to(self.device)
-                           for x in inputs))
-            # Non-blocking copies into pinned host memory, then one wait:
-            # the answer is complete here. Fresh host tensors: the next
-            # replay overwrites the static outputs, not these.
-            host = {k: v.to('cpu', non_blocking=True)
-                    for k, v in out.items()}
-            if self.device.type == 'cuda':
-                torch.cuda.current_stream(self.device).synchronize()
-            return {k: v.numpy() for k, v in host.items()}
+            with span('pad_and_stage'):
+                q, r_s = self._stage(arrays, r_s,
+                                     self.device.type == 'cuda')
+            if not self.offload:
+                with span('device_execute'):
+                    return self._run(self._inputs(q, r_s))
+            with span('device_execute'):
+                idx = self._search(q)
+            with span('shortlist_merge'):
+                h_t_cand = self._candidates(idx)
+            with span('consensus_rerank'):
+                return self._run(self._inputs(q, r_s, (idx, h_t_cand)))
+
+    def _run(self, inputs):
+        """Run the query (replay its graph, or eagerly) and copy the
+        answer to the host."""
+        if self._compiled is not None:
+            out = self._compiled(*inputs)
+        else:
+            fn = self._rerank if self.offload else self._query
+            out = fn(*(x.value if isinstance(x, Fixed) else
+                       None if x is None else x.to(self.device)
+                       for x in inputs))
+        # Non-blocking copies into pinned host memory, then one wait: the
+        # answer is complete here. Fresh host tensors: the next replay
+        # overwrites the static outputs, not these.
+        host = {k: v.to('cpu', non_blocking=True) for k, v in out.items()}
+        if self.device.type == 'cuda':
+            torch.cuda.current_stream(self.device).synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    def exhaustive_topk(self, q_padded):
+        """Exhaustive corpus top-k of one padded query (the router's
+        arrays): the shadow audit's reference search. ψ₁ of the query
+        runs eagerly (nothing is built: the bucket's capture built every
+        kernel it reaches), then the offloaded search over the FULL host
+        table, the same top-k kernel and tie-breaking as the shortlist.
+        Takes no lock: on the card it runs on the engine's audit stream,
+        from its own buffers, never from a bucket's static ones. Returns
+        the ``[1, N, k]`` candidate indices (host NumPy)."""
+        if self._h_t_host is None:
+            raise RuntimeError('exhaustive_topk needs the host table: '
+                               'build the engine with audit=True or '
+                               'offload=True')
+        stream = (torch.cuda.stream(self._audit_stream)
+                  if self._audit_stream is not None
+                  else contextlib.nullcontext())
+        with torch.inference_mode(), stream:
+            q = GraphBatch.from_numpy(q_padded, self.device)
+            h_s = self._embed_query(self.model, q)
+            _, idx, _ = offloaded_corpus_topk(
+                h_s, self._h_t_host, self.model.k, self.offload_chunk,
+                depth=self.prefetch_depth, device=self.device)
+        return idx.numpy()
 
     def _answer(self, bucket, n_real, out):
         matches = []
@@ -353,8 +540,11 @@ class MatchEngine:
                 'saturated_frac': round(float(out['q_saturated_frac']),
                                         6),
             },
-            # The shortlist each node was reranked over (plain ints, so
-            # answers stay ==-comparable).
-            'shortlist': [[int(t) for t in row]
-                          for row in out['shortlist_idx'][0, :n_real]],
+            # Popped by the HTTP layer before serialization: the served
+            # shortlist rows the shadow audit compares against the
+            # exhaustive search (plain ints, so answers stay
+            # ==-comparable).
+            '_audit': {'shortlist_idx': [
+                [int(t) for t in row]
+                for row in out['shortlist_idx'][0, :n_real]]},
         }

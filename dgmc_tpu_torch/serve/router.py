@@ -12,7 +12,11 @@ from typing import List, NamedTuple
 
 from dgmc_tpu_torch.utils.data import pad_graphs
 
-__all__ = ['Bucket', 'QueryRouter', 'UnknownBucketError', 'parse_buckets']
+__all__ = ['Bucket', 'DEFAULT_BUCKETS', 'QueryRouter', 'UnknownBucketError',
+           'parse_buckets']
+
+#: The worker's declared buckets unless ``--buckets`` says otherwise.
+DEFAULT_BUCKETS = ((16, 48), (32, 96), (64, 192))
 
 
 class Bucket(NamedTuple):
@@ -86,8 +90,17 @@ class QueryRouter:
         """The bucket's executable-table key."""
         return f'{bucket.nodes}x{bucket.edges}'
 
-    @staticmethod
-    def pad_query(graph, bucket):
+    def pad_query(self, graph, bucket):
         """Collate one host :class:`~dgmc_tpu_torch.utils.data.Graph` into
-        ``bucket``'s padded arrays (B=1)."""
+        ``bucket``'s padded arrays (B=1), counting the collation in the
+        registry (the run plane's ``padding_buckets``) with the query's
+        real sizes beside it; the corpus side is real by construction."""
+        from dgmc_tpu_torch.obs.registry import record_padding
+        record_padding(
+            batch=1, nodes=f'{bucket.nodes}x{self.corpus_nodes}',
+            edges=f'{bucket.edges}x{self.corpus_edges}',
+            real={'nodes_s': int(graph.num_nodes),
+                  'edges_s': int(graph.num_edges),
+                  'nodes_t': self.corpus_nodes,
+                  'edges_t': self.corpus_edges})
         return pad_graphs([graph], bucket.nodes, bucket.edges)

@@ -157,8 +157,8 @@ def test_engine_answer_matches_jax(pair, jax_run, engine):
     ans = engine.match(pair['q'], r_s=jax_run['r_s'])
     n = pair['q'].num_nodes
     assert ans['bucket'] == BUCKET and ans['nodes'] == n
-    np.testing.assert_array_equal(np.array(ans['shortlist']),
-                                  jax_run['S_L'][1][0, :n])
+    np.testing.assert_array_equal(
+        np.array(ans['_audit']['shortlist_idx']), jax_run['S_L'][1][0, :n])
     want = _ranked_numpy(jax_run['S_0'], jax_run['S_L'],
                          pair['q_arrays']['node_mask'], 3)
     cands = np.array([[c[0] for c in m['candidates']]
@@ -241,6 +241,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       ('resilience', '__init__.py'),
                       ('resilience', 'faults.py'),
                       ('resilience', 'guard.py'),
+                      ('resilience', 'supervisor.py'),
+                      *(('serve', f'{m}.py') for m in (
+                          '__init__', '__main__', 'service', 'audit',
+                          'client', 'cli', 'engine')),
                       ('train', 'checkpoint.py'),
                       ('models', 'evalsum.py'),
                       ('data', 'transforms.py'),
@@ -257,7 +261,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       *(('obs', f'{m}.py') for m in (
                           '__init__', 'observe', 'registry', 'live',
                           'watchdog', 'probes', 'quality', 'anomaly', 'slo',
-                          'trace', 'run', 'memory')))} <= set(files)
+                          'trace', 'run', 'memory', 'qtrace', 'capacity',
+                          'goodput')))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]
@@ -349,7 +354,10 @@ def _engine_answers(cli, ckpt_dir, step):
     for i in range(2):
         n = int(rng.randint(16, 65))
         graph, _ = sample_query(corpus.x, n, 3 * n, seed=1 + i)
-        answers.append(engine.match(graph))
+        ans = engine.match(graph)
+        # The CLI prints the audit rows as `shortlist`.
+        ans['shortlist'] = ans.pop('_audit')['shortlist_idx']
+        answers.append(ans)
     return answers
 
 
