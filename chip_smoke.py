@@ -592,8 +592,7 @@ def phase_topk_kernel(result, small):
             'plain': lambda: plain_topk(h_s, h_t, k),
             'torch.topk(bmm)': lambda: torch.topk(
                 torch.bmm(h_s, h_t.transpose(1, 2)), k)})
-        b_ms, b_by = bound(2.0 * B * n * N_t * C,
-                           4.0 * B * (n + N_t) * C + 8.0 * B * n * k)
+        b_ms, b_by = work_bound(topk_work(B, n, N_t, C, k))
         log(f'topk_kernel: at {n}x{N_t} C={C} k={k}: bound {b_ms:.4f} ms '
             f'({b_by}); ms per call [{src}] / per-call wall ms (CUDA '
             f'events, median of 10): '
@@ -613,8 +612,8 @@ def phase_topk_kernel(result, small):
     plain_ms = cuda_ms(lambda: plain_topk(h_s, h_t, k))
     lib_ms = cuda_ms(lambda: torch.topk(
         torch.bmm(h_s, h_t.transpose(1, 2)), k))
-    flops = 2.0 * B * N_s * N_t * C
-    nbytes = 4.0 * B * (N_s + N_t) * C + B * N_t + 8.0 * B * N_s * k
+    work = topk_work(B, N_s, N_t, C, k)
+    flops, nbytes = work['flops'], work['bytes']
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
     log(f'topk_kernel: timing at {N_s}x{N_t} C={C} k={k} (median of 10): '
@@ -726,6 +725,25 @@ def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
+def work_bound(work, peak=PEAK_F32_FLOPS):
+    """:func:`bound` of a kernel's work (the ``*_work`` functions of its
+    wrapper module: ``{'flops', 'bytes', ...}``)."""
+    return bound(work['flops'], work['bytes'], peak)
+
+
+def topk_work(*args):
+    """``ops/kernels/topk.py``'s ``topk_work``: the search's least work."""
+    from dgmc_tpu_torch.ops.kernels.topk import topk_work as work
+    return work(*args)
+
+
+def consensus_work(*args):
+    """``ops/kernels/consensus.py``'s ``consensus_work``: the dense delta's
+    least work in the factored form."""
+    from dgmc_tpu_torch.ops.kernels.consensus import consensus_work as work
+    return work(*args)
+
+
 def hold_close(label, got, want):
     """Kernel against plain on float32 inputs: rtol 1e-5 and atol 1e-5 x
     the largest |value| (the two sum in other orders) → max |err|."""
@@ -817,26 +835,18 @@ def _routing_matrix(basis, routing, transpose=False):
 
 
 def _spline_work(basis, routing, O, elem=4, peak=PEAK_F32_FLOPS):
-    """Operations and bytes that this batch's routing needs: forward reads
-    each touched t row once, the gradient writes all of d_t (``elem``
-    bytes a value of t, g and the outputs: 4, or 2 for bf16; operations
-    at ``peak``)."""
-    B, E, A = routing.flat.shape
-    N, M = routing.num_nodes, routing.num_rows
-    keep = routing.edge_mask[..., None].expand(B, E, A)
-    slots = int(keep.sum())
-    b = torch.arange(B, device=basis.device)[:, None, None]
-    rows = int(torch.unique((b * M + routing.flat)[keep]).numel())
-    index_bytes = 12.0 * slots + 9.0 * B * E     # flat+basis, rcv+mask
-    flops = 2.0 * slots * O
-    fwd = bound(flops, elem * rows * O + index_bytes + elem * B * N * O,
-                peak)
-    bwd = bound(flops, elem * B * N * O + index_bytes + elem * B * M * O,
-                peak)
+    """The bounds of the forward and of ``d_t`` on this batch's routing
+    (``route_work`` of ``ops/kernels/spline.py``: forward reads each
+    touched t row once, the gradient writes all of d_t; ``elem`` bytes a
+    value of t, g and the outputs: 4, or 2 for bf16; operations at
+    ``peak``)."""
+    from dgmc_tpu_torch.ops.kernels.spline import route_work
+    work = route_work(basis, routing, O, elem)
+    slots, rows = work['slots'], work['rows']
     log(f'spline_kernel: O={O}: {slots} real slots gather {rows} distinct t '
         f'rows ({elem * slots * O / 1e6:.1f} MB of t rows read, '
         f'{elem * rows * O / 1e6:.1f} MB distinct, {elem}-byte values)')
-    return fwd, bwd
+    return work_bound(work, peak), work_bound(work['bwd'], peak)
 
 
 def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64, rec_res):
@@ -926,15 +936,10 @@ def phase_spline_kernel(fwd_res, bwd_res, fwd64, bwd64, rec_res):
     B, N = graph.x.shape[:2]
     M = routing.num_rows
     hold_records('training batch', basis, routing)
-    # Both kernels' records, once per routing and basis: their operations
-    # are none, their bytes the two orders (8 a edge, 8 a slot), flat,
-    # basis and receivers (12 a slot, 8 a edge) and both offset lists (8
-    # a row) read, both record sets (16 a slot) and the int32 offsets (4 a
-    # row) written.
+    # Both kernels' records, once per routing and basis (records_work).
+    from dgmc_tpu_torch.ops.kernels.spline import records_work
     E, A = routing.flat.shape[1:]
-    n_off = (routing.receiver_csr()[1].numel()
-             + routing.slot_csr()[1].numel())
-    rec_bytes = 16.0 * B * E + 36.0 * B * E * A + 12.0 * n_off
+    rec_bytes = records_work(routing)['bytes']
     rec_ms, rec_by = bound(0.0, rec_bytes)
     got, src = timed({
         'kernel': lambda: build_records(routing, basis),
@@ -1071,9 +1076,8 @@ def phase_consensus_kernel(result):
     got, src = timed({'kernel': lambda: consensus_fwd(*a),
                       'plain': lambda: plain_consensus(*a)})
     (ms, wall), (plain_ms, wall_plain) = got['kernel'], got['plain']
-    flops = 2.0 * B * (N_s + N_t) * R * R + 3.0 * B * N_s * N_t * R
-    nbytes = 4.0 * (B * (N_s + N_t) * R + R * R + 2 * R + 1
-                    + B * N_s * N_t)
+    work = consensus_work(B, N_s, N_t, R)
+    flops, nbytes = work['flops'], work['bytes']
     b_ms, b_by = bound(flops, nbytes)
     log(f'consensus_kernel: float32 within tolerance (max |err| {err:.3g}); '
         f'at [{B}, {N_s}, {N_t}] R={R}, ms per call [{src}] / per-call '
@@ -1167,31 +1171,13 @@ SC_GRADS = ('d_o_s', 'd_o_t', 'd_w1', 'd_b1', 'd_w2', 'd_b2')
 
 
 def _sc_work(B, N_s, N_t, K, R, T=None, elem=4):
-    """``((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes))``: the least
-    work of the function in the factored form. ``T``: the target rows the
-    shortlist points at (all ``B*N_t`` if None), the only ones the
-    forward needs. Operations: node products 2(N_s+N_t)R^2 each (u
-    forward, over the touched target rows; u again, d_o and d_W1
-    backward); per
-    candidate 3R forward (difference, product, sum) and 6R backward (the
-    difference, g*w2 where positive, its sums into d_u_s and d_u_t, 2R for
-    d_w2). Bytes: o_s, o_t, the shortlist at 4 bytes a slot, the weights
-    (and g) read once, delta (or d_o_s, d_o_t and the weight gradients)
-    written once. The backward given the forward's u (as the main path
-    calls it) saves one node product but reads u_s and u_t too: at the
-    DBP15K shape its bound (bytes) lies above this one, so this one is
-    the least. ``elem``: bytes a value of o, the weights and their
-    gradients (4, or 2 for bf16; delta and g stay float32)."""
-    nodes = 2.0 * B * (N_s + N_t) * R * R
-    cand = B * N_s * K
-    rows = elem * B * (N_s + N_t) * R
-    weights = elem * (R * R + 2 * R + 1)
-    fwd_rows = B * N_s + (B * N_t if T is None else T)
-    fwd = (2.0 * fwd_rows * R * R + 3.0 * cand * R,
-           elem * fwd_rows * R + 4.0 * cand + 4.0 * cand + weights)
-    bwd = (3 * nodes + 6.0 * cand * R,
-           2 * rows + 4.0 * cand + 4.0 * cand + 2 * weights)
-    return fwd, bwd
+    """``((fwd_flops, fwd_bytes), (bwd_flops, bwd_bytes))`` of ``sc_work``
+    (``ops/kernels/sparse_consensus.py``: the least work of the function
+    in the factored form)."""
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import sc_work
+    work = sc_work(B, N_s, N_t, K, R, T, elem)
+    return ((work['flops'], work['bytes']),
+            (work['bwd']['flops'], work['bwd']['bytes']))
 
 
 def _sc_plain_mask(args, sl):
@@ -1218,8 +1204,8 @@ def _sc_plain_mask(args, sl):
 
 def _touched_rows(sl):
     """Target rows of the flattened batch that a shortlist points at."""
-    b = torch.arange(sl.shape[0], device=sl.device)[:, None]
-    return int(torch.unique(sl.flat + b * sl.num_targets).numel())
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import touched_rows
+    return touched_rows(sl)
 
 
 def phase_sparse_consensus_kernel(fwd_res, bwd_res, serve_res):
@@ -1644,7 +1630,7 @@ def phase_rng_kernel(res):
                      'plain': lambda: rng.plain_philox_normal(
                          steps, B, P, dev_seed, 0, 0, 'cuda'),
                      'library': lambda: torch.randn(shape, device='cuda')}
-            nbytes = 4.0 * steps * B * P + 8.0
+            nbytes = rng.draw_work(kind, steps, B, P)['bytes']
         else:
             nv = torch.tensor([20000], device='cuda')
             calls = {'kernel': lambda: rng.philox_negatives(nv, P, dev_seed),
@@ -1652,7 +1638,7 @@ def phase_rng_kernel(res):
                          nv, P, dev_seed),
                      'library': lambda: torch.randint(
                          0, 20000, shape, device='cuda')}
-            nbytes = 8.0 * B * P + 8.0 * B + 8.0
+            nbytes = rng.draw_work(kind, steps, B, P)['bytes']
         got, src = timed(calls)
         b_ms, b_by = bound(0.0, nbytes)
         log(f'rng_kernel: {kind} {list(shape)}: bound {b_ms:.4f} ms '
@@ -1787,9 +1773,8 @@ def phase_bf16_kernels(res):
     plain_ms = cuda_ms(lambda: plain_topk(h_s, h_t, k), runs=3)
     lib_ms = cuda_ms(lambda: torch.topk(torch.bmm(h_s, h_t.transpose(1, 2)),
                                         k))
-    b_ms, b_by = bound(2.0 * B * N_s * N_t * C,
-                       2.0 * B * (N_s + N_t) * C + 8.0 * B * N_s * k,
-                       PEAK_BF16_FLOPS)
+    b_ms, b_by = work_bound(topk_work(B, N_s, N_t, C, k, 2),
+                            PEAK_BF16_FLOPS)
     log(f'bf16_kernels: topk at {N_s}x{N_t} C={C} k={k} on random inputs '
         f'(held above); CUDA events, median of 10: tensor-core kernel '
         f'{ms:.3f} ms ({2.0 * B * N_s * N_t * C / ms / 1e9:.1f} TFLOP/s, '
@@ -1902,10 +1887,8 @@ def phase_bf16_kernels(res):
     got, src = timed({'kernel': lambda: consensus_fwd(*a),
                       'kernel f32': lambda: consensus_fwd(*a32),
                       'plain': lambda: plain_consensus(*a)})
-    flops = 2.0 * B * (N_s + N_t) * R * R + 3.0 * B * N_s * N_t * R
-    nbytes = (2.0 * (B * (N_s + N_t) * R + R * R + 2 * R + 1)
-              + 4.0 * B * N_s * N_t)
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    b_ms, b_by = work_bound(consensus_work(B, N_s, N_t, R, 2),
+                            PEAK_BF16_FLOPS)
     log(f'bf16_kernels: consensus at [{B}, {N_s}, {N_t}] R={R}: float32 '
         f'output within tolerance (max |err| {err:.3g}); bound {b_ms:.4f} '
         f'ms ({b_by}); ms per call [{src}] / per-call wall ms (CUDA events, '
@@ -3566,7 +3549,7 @@ def dense_step(policy='f32', jit=None):
 
     def run():
         return step(state, batch, next(seeds))
-    run.step = step
+    run.step, run.state, run.batch = step, state, batch
     return run
 
 
@@ -3643,7 +3626,7 @@ def kg_step(policy='f32', jit=None, batch_norm=False, unblocked=False):
 
     def run():
         return step(state, dev_b, next(seeds))
-    run.step = step
+    run.step, run.state, run.batch = step, state, dev_b
     return run
 
 
@@ -3973,13 +3956,11 @@ def blocked_launches(path):
 
 
 def _blocked_work(blocks, C, elem):
-    """``(flops, bytes)`` of one aggregation over ``blocks``, the work's
-    least whatever implements it: an add per real edge and channel; the
-    h table read once (``elem`` bytes a value), the float32 output
-    written once, the E real edges' int32 sources read once."""
-    B, M = blocks.inv_degree.shape[:2]
-    E = float(blocks.mask.sum())
-    return E * C, float(B * M * C * (elem + 4)) + 4.0 * E
+    """``(flops, bytes)`` of ``blocked_work`` (``ops/kernels/blocked.py``:
+    one aggregation's least work, whatever implements it)."""
+    from dgmc_tpu_torch.ops.kernels.blocked import blocked_work
+    work = blocked_work(blocks, C, elem)
+    return work['flops'], work['bytes']
 
 
 def _hub_blocks(B=2, N=1000, E=20000, seed=0):
@@ -4195,9 +4176,12 @@ def _blocked_kernel_calls(gen):
         B, M = blocks.inv_degree.shape[:2]
         x = torch.randn((B, M, C), generator=gen).to(
             'cuda', getattr(torch, rows))
-        b_ms, _ = bound(*_blocked_work(blocks, C, x.element_size()))
-        calls[f'{key} (bound {b_ms:.4f})'] = functools.partial(
-            kb.launch, x, blocks)
+        try:
+            b_ms, _ = bound(*_blocked_work(blocks, C, x.element_size()))
+            label = f'{key} (bound {b_ms:.4f})'
+        except ImportError:   # a tree before the kernels' work functions
+            label = key
+        calls[label] = functools.partial(kb.launch, x, blocks)
     return calls
 
 
@@ -4783,7 +4767,6 @@ def _kp_kernels(res, root):
             draw(R, scale=0.1), draw(R, 1, scale=R ** -0.5),
             draw(1, scale=0.1))]
 
-    flops = 2.0 * B * 2 * N * R * R + 3.0 * B * N * N * R
     for dtype, key, peak in ((torch.float32, 'consensus_fwd@kp',
                               PEAK_F32_FLOPS),
                              (BF16, 'consensus_fwd_bf16@kp',
@@ -4803,10 +4786,8 @@ def _kp_kernels(res, root):
             raise AssertionError('keypoints consensus: a repeat differs')
         got, src = timed({'kernel': lambda: consensus_fwd(*a),
                           'plain': lambda: plain_consensus(*a)})
-        elem = a[0].element_size()
-        nbytes = (elem * (2 * B * N * R + R * R + 2 * R + 1)
-                  + 4.0 * B * N * N)
-        b_ms, b_by = bound(flops, nbytes, peak)
+        b_ms, b_by = work_bound(
+            consensus_work(B, N, N, R, a[0].element_size()), peak)
         log(f'keypoints (a): consensus {str(dtype)[6:]} at [{B}, {N}, {N}] '
             f'R={R}: exact bit-equal, random within tolerance (max |err| '
             f'{err:.3g}); bound {b_ms:.4f} ms ({b_by}); ms per call [{src}] '
@@ -5304,7 +5285,8 @@ def _obs_kg(tmp):
         json.dump({'name': 'kg', 'availability': {'objective': 0.99},
                    'latency': [{'name': 'step', 'threshold_ms': 1000.0,
                                 'objective': 0.9}]}, f)
-    marks, scrapes = [], []
+    marks, scrapes, mfus = [], [], []
+    prof = os.path.join(tmp, 'kg_prof')
 
     def hook(kind, epoch, out):
         marks.append((kind, epoch, dispatch.launch_counts()))
@@ -5314,6 +5296,10 @@ def _obs_kg(tmp):
             port = json.load(f)['port']
         code, _ = _scrape(port, '/healthz')
         m_code, metrics = _scrape(port, '/metrics')
+        # dgmc_mfu against the efficiency.json of the same flush (the
+        # observer flushes at epoch ends, after this hook).
+        with open(os.path.join(d, 'efficiency.json')) as f:
+            mfus.append((_mfu_sample(metrics), json.load(f).get('mfu')))
         s_code, status = _scrape(port, '/status')
         count = re.search(r'^dgmc_step_latency_seconds_count (\d+)$',
                           metrics, re.M)
@@ -5336,7 +5322,8 @@ def _obs_kg(tmp):
         _kg_cli(KG_ARGV + OBS_KG_ARGV + [
             '--obs-dir', d, '--obs-port', '0', '--probes',
             '--watchdog-deadline', '120', '--slo', spec,
-            '--metrics_log', os.path.join(tmp, 'kg.jsonl')], hook)
+            '--metrics_log', os.path.join(tmp, 'kg.jsonl'),
+            '--profile-dir', prof, '--profile-steps', '11:13'], hook)
     finally:
         live.FlightRecorder.dump = dump
     seconds = time.perf_counter() - t0
@@ -5392,6 +5379,178 @@ def _obs_kg(tmp):
     log(f'obs (d): nan-grads@12 under --guard-bad-steps 1: first offender '
         f'{first}, flight.json dumps {reasons} ({flight["events_recorded"]} '
         f'events in the last)')
+    t0 = time.perf_counter()
+    if all(a is None for a, _ in mfus) or any(a != b for a, b in mfus):
+        raise AssertionError(f'obs (a): /metrics dgmc_mfu against '
+                             f'efficiency.json: {mfus}')
+    eff = _hold_efficiency('obs (a)', d, {
+        'phase1_step': ('psi1', 'initial_corr', 'topk', 'loss',
+                        'optimizer'),
+        'train_step': ('psi1', 'initial_corr', 'topk', 'consensus_iter',
+                       'psi2', 'loss', 'optimizer')})
+    _hold_kg_counts(eff['programs']['train_step'])
+    _hold_attribution('obs (a) KG phase 2', prof, d,
+                      ('psi1', 'topk', 'consensus_iter', 'psi2', 'loss',
+                       'optimizer'))
+    summary = json.loads(_python_m('dgmc_tpu_torch.obs.report', d, '--json'))
+    if summary.get('mfu') != eff['mfu']:
+        raise AssertionError(f'obs (a): the report\'s mfu '
+                             f'{summary.get("mfu")} against '
+                             f'efficiency.json\'s {eff["mfu"]}')
+    log(f'obs (a): python -m dgmc_tpu_torch.obs.report --json: mfu '
+        f'{summary["mfu"]} as efficiency.json, measured_mfu '
+        f'{summary.get("measured_mfu")}, goodput '
+        f'{summary.get("goodput_ratio")}; the cost checks took '
+        f'{time.perf_counter() - t0:.1f}s')
+
+
+def _mfu_sample(text):
+    m = re.search(r'^dgmc_mfu (\S+)$', text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def _python_m(module, *args):
+    """``python -m module args`` from the checkout → its standard output
+    (raises on a non-zero exit)."""
+    out = subprocess.run([sys.executable, '-m', module, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f'python -m {module} exited {out.returncode}: '
+                             f'{out.stderr[-2000:]}')
+    return out.stdout
+
+
+def _hold_efficiency(label, d, need):
+    """``efficiency.json`` of the run in ``d`` has each program of
+    ``need`` with a stage table naming its stages, the headline MFU is
+    flops / (step p50 x peak) to 4 significant digits (within 2e-3, the
+    payload keeping p50 to the microsecond) and lies in (0, 1], and
+    ``goodput.json``'s ratio lies in (0, 1] → the efficiency payload."""
+    with open(os.path.join(d, 'efficiency.json')) as f:
+        eff = json.load(f)
+    with open(os.path.join(d, 'goodput.json')) as f:
+        good = json.load(f)
+    for name, stages in need.items():
+        have = set((eff['programs'].get(name) or {}).get('stages') or ())
+        if not set(stages) <= have:
+            raise AssertionError(f'{label}: efficiency.json {name} stages '
+                                 f'{sorted(have)}, expected {stages}')
+    ts = eff['programs']['train_step']
+    want = ts['flops'] / (ts['step_time_s'] * eff['peak_flops'])
+    if not (0 < eff['mfu'] <= 1 and abs(eff['mfu'] - want) <= 2e-3 * want):
+        raise AssertionError(f'{label}: mfu {eff["mfu"]}, flops / (p50 x '
+                             f'peak) {want}')
+    if not 0 < good['goodput_ratio'] <= 1:
+        raise AssertionError(f'{label}: goodput.json {good}')
+    for name, p in eff['programs'].items():
+        log(f'{label}: efficiency.json {name}: {p["flops"] / 1e12:.4f} '
+            f'TFLOP, {p["bytes"] / 1e9:.3f} GB, intensity '
+            f'{p.get("arith_intensity")}, step p50 '
+            f'{p["step_time_s"] * 1e3:.3f} ms (the replay call on the '
+            f'host), mfu {p.get("mfu")} against {eff["peak_flops_ref"]}; '
+            f'stage TFLOP ' + ', '.join(
+                f'{s} {r["flops"] / 1e12:.4f}'
+                for s, r in p['stages'].items()))
+    log(f'{label}: goodput.json ratio {good["goodput_ratio"]} '
+        f'(FLOP-weighted: {good["composed_with_stage_flops"]})')
+    return eff
+
+
+def _hold_kg_counts(counted):
+    """The KG phase-2 step's counted kernels (``efficiency.json``'s
+    ``train_step``) against each kernel's formula at the step's shapes x
+    its launches a step (:data:`KG_PER`); then the same step's count
+    with the kernels and with their plain versions on the card
+    (:func:`plain_on_card`) from one state and seed: the same account,
+    and the CLI's."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.obs.cost import cost_summary
+    from dgmc_tpu_torch.ops.graph import GraphBatch
+    from dgmc_tpu_torch.ops.kernels.blocked import blocked_work
+    from dgmc_tpu_torch.ops.kernels.sparse_consensus import sc_work
+    from dgmc_tpu_torch.ops.kernels.topk import topk_work
+    args = dbp15k.parse_args(KG_ARGV)
+    train_b, _, _ = dbp15k.synthetic_batches(args)
+    g_s, g_t = GraphBatch.host(train_b.s), GraphBatch.host(train_b.t)
+    N_s, N_t = g_s.num_nodes, g_t.num_nodes
+    K, R, L = args.k + min(args.k, N_t - args.k), args.rnd_dim, args.num_steps
+    n_topk, n_fwd, n_bwd, n_blocked, _ = KG_PER[('train', 2)]
+    E_s, E_t = (blocked_work(g.blocks_in, 1, 4)['flops'] for g in (g_s, g_t))
+    # ψ₁ (detached) forward on both graphs, 3 layers of 2 aggregations;
+    # ψ₂ packed on the source (T x R channels) and per step on the
+    # target, each forward and backward.
+    blocked = (6 * (E_s + E_t) * args.dim + 12 * E_s * L * R
+               + 12 * L * E_t * R)
+    want = {'topk': (n_topk, topk_work(1, N_s, N_t, args.dim,
+                                       args.k)['flops']),
+            'sparse_consensus_bwd': (n_bwd, n_bwd * sc_work(
+                1, N_s, N_t, K, R)['bwd']['flops']),
+            'blocked': (n_blocked, blocked)}
+    got = {k: (v['calls'], v['flops']) for k, v in counted['kernels'].items()}
+    bad = {k: (got.get(k), w) for k, w in want.items() if got.get(k) != w}
+    fwd = got.get('sparse_consensus_fwd', (0, 0))
+    # The forward reads the touched target rows T only: T from its count.
+    per = fwd[1] / max(fwd[0], 1) - 3.0 * N_s * K * R
+    T = per / (2.0 * R * R) - N_s
+    if bad or fwd[0] != n_fwd or T != int(T) or not 0 < T <= N_t:
+        raise AssertionError(f'obs (a): counted kernels {bad or got}, the '
+                             f'forward\'s touched rows {T}')
+    log(f'obs (a): counted kernels of the phase-2 step at their formulas x '
+        f'launches: {dict(sorted(got.items()))} (the forward over {int(T)} '
+        f'touched target rows of {N_t})')
+    run = kg_step('bf16', jit=False)
+    seed = dbp15k.noise_seed(0, 0, 11)
+    eager = cost_summary(run.step, run.state, run.batch, seed)
+    with plain_on_card():
+        plain = cost_summary(run.step, run.state, run.batch, seed)
+    # The CLI counted with its probes on (their ops, no FLOPs or kernels).
+    def flops(summary):
+        return ({s: r['flops'] for s, r in summary['stages'].items()},
+                summary['kernels'])
+    if plain != eager or flops(eager) != flops(counted):
+        diff = {k: (eager[k], plain[k]) for k in eager
+                if eager[k] != plain.get(k)}
+        raise AssertionError(f'obs (a): the count with kernels against '
+                             f'plain versions: {diff}; stage FLOPs and '
+                             f'kernels {flops(eager)} against the CLI\'s '
+                             f'{flops(counted)}')
+    log(f'obs (a): the eager phase-2 step counts {eager["flops"]:.6g} FLOP '
+        f'with the kernels and with their plain versions on the card, as '
+        f'the CLI\'s account')
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hold_attribution(label, prof, obs_dir, need):
+    """``python -m dgmc_tpu_torch.obs.attribution`` on the profiled steps
+    in ``prof``: the stage sums no more than the card's busy time, each
+    stage of ``need`` nonzero, every replay matched to its warm-up (the
+    unmatched share 0), the measured MFU in (0, 1] → the payload."""
+    payload = json.loads(_python_m('dgmc_tpu_torch.obs.attribution', prof,
+                                   '--obs-dir', obs_dir, '--json'))
+    occ, stages = payload['occupancy'], payload['stages']
+    busy, steps = occ['device_active_s'], payload['steps']['observed']
+    total = sum(r['wall_s'] for r in stages.values())
+    mfu = (payload['reconciliation'] or {}).get('measured_mfu')
+    missing = [s for s in need if not (stages.get(s) or {}).get('wall_s')]
+    log(f'{label}: attribution over {steps} profiled steps: busy '
+        f'{busy * 1e3 / steps:.3f} ms a step, idle '
+        f'{occ["device_idle_fraction"]} of the window, host waits '
+        f'{occ["host_wait_s"]} s; replays {payload["replays"]}, unmatched '
+        f'share {payload["unmatched_share"]}; measured mfu {mfu}; sources '
+        f'{payload["stage_sources"]}; ms a step by stage: ' + ', '.join(
+            f'{s} {r["wall_s"] * 1e3 / steps:.3f}'
+            for s, r in stages.items()))
+    if total > busy + 1e-6 * len(stages) or missing \
+            or payload['unmatched_share'] != 0 \
+            or not payload['replays']['count'] \
+            or not (mfu and 0 < mfu <= 1):
+        raise AssertionError(f'{label}: stage sum {total} s against busy '
+                             f'{busy} s, stages without time {missing}, '
+                             f'unmatched share {payload["unmatched_share"]}'
+                             f', measured mfu {mfu}')
+    return payload
 
 
 def _obs_variants(label, make, calls, policy):
@@ -5574,13 +5733,17 @@ def _obs_profile(tmp):
     port's kernels by name."""
     from dgmc_tpu_torch.experiments import pascal_pf
     d = os.path.join(tmp, 'prof')
+    obs_dir = os.path.join(tmp, 'pf_obs')
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         pascal_pf.main(['--epochs', '1', '--seed', '0', '--profile-dir', d,
-                        '--profile-steps', '1:3'])
-    files = os.listdir(d)
-    if len(files) != 1:
-        raise AssertionError(f'obs (c): trace files {files}')
+                        '--profile-steps', '1:3', '--obs-dir', obs_dir])
+    # The run's trace, and the warm-up trace of each capture outside the
+    # window.
+    warmups = [f for f in os.listdir(d) if f.startswith('dgmc_warmup.')]
+    files = [f for f in os.listdir(d) if f.startswith('dgmc_torch.')]
+    if len(files) != 1 or not warmups:
+        raise AssertionError(f'obs (c): trace files {os.listdir(d)}')
     with open(os.path.join(d, files[0])) as f:
         events = json.load(f)['traceEvents']
     names = collections.Counter(e.get('name', '') for e in events)
@@ -5598,7 +5761,16 @@ def _obs_profile(tmp):
     log(f'obs (c): pascal_pf.main --profile-dir --profile-steps 1:3 in '
         f'{time.perf_counter() - t0:.1f}s: {files[0]} with {len(events)} '
         f'events, ranges {steps}, the port\'s kernels by name '
-        f'{dict(sorted(kernels.items()))}')
+        f'{dict(sorted(kernels.items()))}; {len(warmups)} warm-up traces')
+    eff = _hold_efficiency('obs (c) PascalPF', obs_dir, {'train_step': (
+        'psi1', 'initial_corr', 'consensus_iter', 'psi2', 'loss',
+        'optimizer')})
+    if not eff['programs']['train_step']['kernels'].get('consensus_fwd'):
+        raise AssertionError(f'obs (c): counted kernels '
+                             f'{eff["programs"]["train_step"]["kernels"]}')
+    _hold_attribution('obs (c) PascalPF', d, obs_dir,
+                      ('psi1', 'initial_corr', 'consensus_iter', 'psi2',
+                       'loss', 'optimizer'))
 
 
 def phase_obs(smi_line):
@@ -6008,12 +6180,24 @@ def phase_serve_worker(smi_line):
             per_query = {k: round(per[k] / served, 3) for k in
                          ('topk', 'sparse_consensus_fwd', 'rng') if k in per}
             cap = status['capacity']
+            # The goodput ratio weighted by each bucket's counted stage
+            # FLOPs (the engine's count at warm), on disk as live.
+            with open(os.path.join(obs, 'attempt_0', 'capacity.json')) as f:
+                disk = json.load(f)
+            sources = {b: v.get('stages_source')
+                       for b, v in disk['buckets'].items()}
+            if set(sources.values()) != {'counted'} \
+                    or not 0 < disk['goodput_ratio'] <= 1:
+                raise AssertionError(f'serve_worker (a): capacity.json '
+                                     f'goodput {disk["goodput_ratio"]}, '
+                                     f'stage tables {sources}')
             log(f'serve_worker (a): {served} queries served; the worker\'s '
                 f'dispatch.json: launches a query {per_query}, all of its '
                 f'launches (the corpus table\'s build included) '
                 f'{dict(sorted(per.items()))}; capacity: saturation '
                 f'{cap["saturation_qps"]} QPS, mean service '
-                f'{cap["mean_service_ms"]} ms')
+                f'{cap["mean_service_ms"]} ms; capacity.json goodput ratio '
+                f'{disk["goodput_ratio"]} (FLOP-weighted: {sources})')
 
             # (b) crash
             os.kill(pid, signal.SIGKILL)

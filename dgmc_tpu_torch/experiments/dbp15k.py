@@ -98,7 +98,8 @@ from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.models.rel import RelCNN
 from dgmc_tpu_torch.obs.memory import captured_memory, memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
-from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
+from dgmc_tpu_torch.obs.run import (RunObserver, add_obs_flag,
+                                    padding_baseline)
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
 from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
                                                   supervise_cli)
@@ -337,6 +338,8 @@ def main(argv=None, hook=None):
     plan = FaultPlan.from_args(
         args, state_dir=ledger_dir(args.ckpt_dir, args.obs_dir))
     precision.apply(precision.from_args(args))
+    # The pair's two collations belong to the run's padding account.
+    padding_since = padding_baseline()
     train_batch, test_batch, in_dim = load_batches(args)
     model = build(args, in_dim).to(device)
     state = create_train_state(model, learning_rate=args.lr)
@@ -373,11 +376,18 @@ def main(argv=None, hook=None):
         # graph is captured.
         obs = RunObserver(args.obs_dir, probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
-                          obs_port=args.obs_port)
+                          obs_port=args.obs_port, padding_since=padding_since)
         prof = None
         try:
             obs.attach_anomaly()
             obs.attach_slo(args.slo)
+            # The per-stage FLOPs and bytes and the MFU account of both
+            # phases (obs/cost.py), before their captures: the
+            # refinement step is the headline 'train_step'.
+            obs.record_cost('phase1_step', phase1, state, train_dev,
+                            noise_seed(args.seed, 0, 1))
+            obs.record_cost('train_step', phase2, state, train_dev,
+                            noise_seed(args.seed, 0, args.phase1_epochs + 1))
             if args.aot_compile:
                 _aot_compile(args, start_epoch, logger, obs, state,
                              (phase1, phase2), (eval1, eval2), train_dev,

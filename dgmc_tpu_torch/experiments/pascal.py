@@ -253,10 +253,18 @@ def main(argv=None, hook=None):
     with MetricLogger(args.metrics_log) as logger:
         ckpt, state, start_epoch = resume_or_init(args.ckpt_dir, state,
                                                   model)
+        # The cost count's example batch, collated before the observer
+        # and without moving the loader's streams.
+        batch0 = train_loader.first_batch() if args.obs_dir else None
         obs = RunObserver(args.obs_dir, probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
                           obs_port=args.obs_port)
         with obs:
+            # The per-stage FLOPs and bytes and the MFU account in
+            # <obs-dir>/efficiency.json (obs/cost.py), before the capture.
+            if batch0 is not None:
+                obs.record_cost('train_step', step, state, batch0,
+                                noise_seed(args.seed, 0, start_epoch, 0))
             state = _train(args, start_epoch, state, model, step, eval_step,
                            report, batches, train_loader, test_sets,
                            num_nodes, num_edges, device, logger, obs, ckpt,

@@ -180,6 +180,9 @@ def main(argv=None, hook=None):
     train_batches = PrefetchLoader(HostBatches(train_loader, device), 2)
     eval_batches = (PrefetchLoader(HostBatches(eval_loader, device), 2)
                     if eval_loader else None)
+    # The cost count's example batch, collated before the observer (its
+    # collation is not the run's) and without moving the loader's streams.
+    batch0 = train_loader.first_batch() if args.obs_dir else None
     # Before the first step is captured (the probe switch is read then).
     obs = RunObserver(args.obs_dir, probes=args.probes,
                       watchdog_deadline_s=args.watchdog_deadline,
@@ -187,6 +190,11 @@ def main(argv=None, hook=None):
     with MetricLogger(args.metrics_log) as logger, obs:
         obs.attach_anomaly()
         obs.attach_slo(args.slo)
+        # The per-stage FLOPs and bytes and the MFU account in
+        # <obs-dir>/efficiency.json (obs/cost.py), before the capture.
+        if batch0 is not None:
+            obs.record_cost('train_step', step, state, batch0,
+                            noise_seed(args.seed, 0, 1, 0))
         prof = obs.attach_profiler(
             start_profile(args.profile_dir, steps=args.profile_steps))
         for epoch in range(1, args.epochs + 1):

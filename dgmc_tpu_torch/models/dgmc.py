@@ -56,7 +56,8 @@ device.
 
 Observability, at the JAX package's places: the stages run under
 ``torch.profiler.record_function`` ranges named as JAX's scopes
-(``psi1``, ``initial_corr``, ``topk``, ``consensus_iter``, ``psi2``),
+(``psi1``, ``initial_corr``, ``topk``, ``consensus_iter``, ``psi2``;
+:func:`~dgmc_tpu_torch.obs.stages.stage`, which the work counter reads),
 and in training mode with probes on (:mod:`~dgmc_tpu_torch.obs.probes`)
 the forward emits ``check_finite`` at ψ₁, the initial scores and each
 consensus iteration, the entropy and top-``PROBE_TOPK`` mass of ``S_0``
@@ -69,10 +70,10 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.obs import probes as _probes
+from dgmc_tpu_torch.obs.stages import stage
 from dgmc_tpu_torch.models.rel import lecun_normal_
 from dgmc_tpu_torch.ops.kernels import dispatch, rng
 from dgmc_tpu_torch.ops.kernels import sparse_consensus
@@ -293,7 +294,7 @@ class DGMC(nn.Module):
         T, B, N_s, R_in = r_s.shape
         if not self.packs_source(T):
             return None
-        with record_function('psi2'):
+        with stage('psi2'):
             o = self.psi_2(r_s.permute(1, 2, 0, 3).reshape(
                 B, N_s, T * R_in), graph_s, streams=T, generator=generator)
         return o.reshape(B, N_s, T, -1).permute(2, 0, 1, 3)
@@ -321,13 +322,13 @@ class DGMC(nn.Module):
         return sparse_consensus.fused_candidate_delta
 
     def _psi2(self, x, graph, generator):
-        with record_function('psi2'):
+        with stage('psi2'):
             return self.psi_2(x, graph, generator=generator)
 
     def _dense(self, graph_s, graph_t, num_steps, detach, noise_seed,
                pair_offset, r_s, generator):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
-                record_function('psi1'):
+                stage('psi1'):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
         # Probes document the train step only (the JAX package's rule).
@@ -338,7 +339,7 @@ class DGMC(nn.Module):
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         B, N_s = s_mask.shape
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
-        with record_function('initial_corr'):
+        with stage('initial_corr'):
             # float32 logits of compute-dtype embeddings (exact products).
             acc = torch.promote_types(h_s.dtype, torch.float32)
             S_hat = h_s.to(acc) @ h_t.to(acc).transpose(1, 2)
@@ -352,7 +353,7 @@ class DGMC(nn.Module):
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._delta_fn()
             for step in range(num_steps):
-                with record_function('consensus_iter'):
+                with stage('consensus_iter'):
                     S = masked_softmax(S_hat, S_mask)
                     r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
                     o_s = (self._psi2(r_s[step], graph_s, generator)
@@ -441,7 +442,7 @@ class DGMC(nn.Module):
         # detach: ψ₁ runs without a graph, still in its own mode (the
         # same dropout masks as with one).
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
-                record_function('psi1'):
+                stage('psi1'):
             h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             if h_t is None and h_t_cand is None:
                 h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
@@ -461,7 +462,7 @@ class DGMC(nn.Module):
             if h_t is None:
                 raise ValueError('the candidate search needs the full h_t '
                                  'table (or a precomputed S_idx)')
-            with record_function('topk'):
+            with stage('topk'):
                 if self.stream_chunk is not None:
                     S_idx = streamed_topk(h_s, h_t, self.k,
                                           self.stream_chunk, t_mask=t_mask,
@@ -511,7 +512,7 @@ class DGMC(nn.Module):
         shortlist = Shortlist(S_idx, N_t)
         row_mask = s_mask[..., None]
 
-        with record_function('initial_corr'):
+        with stage('initial_corr'):
             h_t_rows = (h_t_cand if h_t_cand is not None
                         else shortlist.gather(h_t))
             # float32 logits of compute-dtype embeddings (exact products).
@@ -529,7 +530,7 @@ class DGMC(nn.Module):
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._sparse_delta_fn()
             for step in range(num_steps):
-                with record_function('consensus_iter'):
+                with stage('consensus_iter'):
                     S = masked_softmax(S_hat, entry_mask) * row_mask
                     # float32: S is; the noise is widened exactly.
                     r_t = shortlist.scatter(

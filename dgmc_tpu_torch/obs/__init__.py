@@ -24,6 +24,13 @@ JAX's package exports, where the port has them):
 - :mod:`~dgmc_tpu_torch.obs.qtrace`, :mod:`~dgmc_tpu_torch.obs.capacity`,
   :mod:`~dgmc_tpu_torch.obs.goodput` — the serving worker's per-query
   traces, its queueing model and its padding account (copies too).
+- :mod:`~dgmc_tpu_torch.obs.stages`, :mod:`~dgmc_tpu_torch.obs.cost` —
+  the stage ranges and the counted FLOP and byte account per stage
+  (``efficiency.json``, MFU).
+- :mod:`~dgmc_tpu_torch.obs.trace_events`,
+  :mod:`~dgmc_tpu_torch.obs.attribution`, :mod:`~dgmc_tpu_torch.obs.report`
+  — the measured per-stage account from profiler traces and the run
+  report (CLIs over files).
 """
 
 from dgmc_tpu_torch.obs import probes

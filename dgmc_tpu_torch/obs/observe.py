@@ -23,9 +23,25 @@ import os
 import time
 
 __all__ = ['MetricLogger', 'StepTimer', 'trace', 'percentile',
-           'fmt_seconds', 'fmt_si', 'read_json_artifact', 'profiler_span']
+           'fmt_seconds', 'fmt_si', 'read_json_artifact', 'profiler_span',
+           'settle_profiler']
 
 _trace_files = itertools.count()
+
+
+def settle_profiler(torch):
+    """Let a profiler that has just started on the card settle before the
+    profiled work: the card's records of the first kernels after a start
+    can be lost (on the H100, the first 4 of a warm-up and the first 23
+    of a replayed dense step), which would leave a replay unmatched to
+    its warm-up. A few tiny kernels and 50 ms, with the card idle."""
+    if not torch.cuda.is_available():
+        return
+    x = torch.zeros(1, device='cuda')
+    for _ in range(64):
+        x.add_(1)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
 
 
 @contextlib.contextmanager
@@ -44,6 +60,7 @@ def profiler_span(log_dir):
     path = os.path.join(log_dir, f'dgmc_torch.{os.getpid()}.'
                                  f'{next(_trace_files)}.pt.trace.json')
     with profile(activities=activities) as prof:
+        settle_profiler(torch)
         yield path
     if torch.cuda.is_available():
         torch.cuda.synchronize()

@@ -23,11 +23,17 @@ names and top-level keys:
 - ``flight.json`` — the flight recorder's dump on an anomaly
   (:mod:`~dgmc_tpu_torch.obs.live`).
 
+- ``efficiency.json`` — the cost account of the programs
+  :meth:`RunObserver.record_cost` counted (:mod:`~dgmc_tpu_torch.obs.cost`:
+  FLOPs and bytes per stage), with the MFU from the run's observed step
+  p50.
+- ``goodput.json`` — pad waste and the goodput ratio of the run's padded
+  batches (:mod:`~dgmc_tpu_torch.obs.goodput`), weighted by the stage
+  FLOPs of the last efficiency account.
+
 With ``--obs-port`` the observer serves the live plane (``/healthz``,
-``/metrics``, ``/status``) and advertises the bound port in
-``heartbeat.json``. ``efficiency.json`` and ``goodput.json`` are not
-written: the port records no program cost yet, and JAX writes them only
-from one.
+``/metrics`` with ``dgmc_mfu`` and ``dgmc_arith_intensity``, ``/status``)
+and advertises the bound port in ``heartbeat.json``.
 
 Every method is a no-op when constructed with a falsy directory, so CLIs
 call the observer unconditionally::
@@ -67,7 +73,7 @@ from dgmc_tpu_torch.obs import live as live_mod
 from dgmc_tpu_torch.obs import probes as probes_mod
 from dgmc_tpu_torch.obs import quality as quality_mod
 from dgmc_tpu_torch.obs import slo as slo_mod
-from dgmc_tpu_torch.obs.goodput import merge_real_rows
+from dgmc_tpu_torch.obs import goodput as goodput_mod
 from dgmc_tpu_torch.obs.memory import memory_snapshot
 from dgmc_tpu_torch.obs.observe import MetricLogger, StepTimer, percentile
 from dgmc_tpu_torch.obs.registry import (CompileWatcher, add_dispatch_sink,
@@ -77,7 +83,8 @@ from dgmc_tpu_torch.obs.registry import (CompileWatcher, add_dispatch_sink,
 from dgmc_tpu_torch.obs.trace import export_chrome_trace
 from dgmc_tpu_torch.obs.watchdog import DEFAULT_SIGNALS, Watchdog
 
-__all__ = ['add_obs_flag', 'RunObserver', 'MAX_TRACE_PROBES']
+__all__ = ['add_obs_flag', 'RunObserver', 'MAX_TRACE_PROBES',
+           'padding_baseline']
 
 
 def add_obs_flag(parser):
@@ -131,6 +138,15 @@ def add_obs_flag(parser):
     return parser
 
 
+def padding_baseline():
+    """The padding account as it stands: pass it to
+    :class:`RunObserver` as ``padding_since`` to make the collations
+    since then the run's (a CLI that collates its batches before it
+    builds the observer)."""
+    return (RunObserver._count_index(padding_bucket_table()),
+            RunObserver._count_index(padding_real_table()))
+
+
 #: Probe records kept in memory for the trace timeline; past this the
 #: oldest fall off (metrics.jsonl still holds the full series, and the
 #: aggregates cover every event).
@@ -147,11 +163,13 @@ class RunObserver:
     into ``trace.json``. Build the observer before the first step is
     captured: the switch is read when a graph is captured. The switch is
     flipped even when ``obs_dir`` is falsy (only the sink needs a
-    directory).
+    directory). ``padding_since`` (:func:`padding_baseline`) counts the
+    collations made since then as the run's; by default the run's are
+    those made after the observer is built.
     """
 
     def __init__(self, obs_dir, probes=False, watchdog_deadline_s=None,
-                 obs_port=None, routes=None):
+                 obs_port=None, routes=None, padding_since=None):
         self.dir = obs_dir
         self.enabled = bool(obs_dir)
         self.timer = StepTimer()
@@ -189,6 +207,8 @@ class RunObserver:
         self._last_activity = time.time()
         self._dispatch_sink = None
         self._profiler = None
+        self._costs = {}
+        self._last_efficiency = None
         if probes:
             self._probes_enabled_by_me = not probes_mod.enabled()
             if self.enabled:
@@ -220,8 +240,8 @@ class RunObserver:
             # Registry counters are process-lifetime; baseline them so the
             # artifacts attribute only this run's activity.
             self._dispatch_base = self._count_index(dispatch_table())
-            self._buckets_base = self._count_index(padding_bucket_table())
-            self._real_base = self._count_index(padding_real_table())
+            self._buckets_base, self._real_base = (
+                padding_since or padding_baseline())
             self._watcher = CompileWatcher(
                 on_event=self._on_compile_event).__enter__()
             self._dispatch_sink = self._on_dispatch
@@ -367,6 +387,33 @@ class RunObserver:
             self.watchdog.done()
             self.watchdog.beat('idle')
         return times
+
+    def record_cost(self, name, step, *args, step_time_s=None):
+        """Register one program's cost account (``efficiency.json``):
+        ``step`` a train step (its ``cost_pass`` is counted: one eager
+        forward and backward that leaves the run as it was) or any
+        callable, with its example ``*args``. Call it before the step's
+        capture. MFU is derived at flush time from ``step_time_s`` when
+        given, else from the run's observed step p50. A count that fails
+        is recorded as ``{'error': ...}``, never raised. See
+        :mod:`~dgmc_tpu_torch.obs.cost`."""
+        if not self.enabled:
+            return None
+        from dgmc_tpu_torch.obs import cost as cost_mod
+        if self.watchdog is not None:
+            self.watchdog.beat('cost', name)
+        try:
+            summary = cost_mod.cost_summary(step, *args,
+                                            step_time_s=step_time_s)
+        except Exception as e:
+            # A program the count refuses must not kill the run it
+            # observes; record the refusal instead.
+            summary = {'error': f'{type(e).__name__}: {e}'}
+        self._costs[name] = summary
+        if self.watchdog is not None:
+            self.watchdog.done()
+        self.flush()
+        return summary
 
     def _on_probe(self, rec):
         """Probe sink: series -> metrics.jsonl, aggregates ->
@@ -616,6 +663,20 @@ class RunObserver:
             out['flight'] = self.flight.counters()
         return out
 
+    def _efficiency_headline(self):
+        """``(mfu, arith_intensity)`` from the last flushed efficiency
+        snapshot, the headline convention ``obs.report`` uses."""
+        eff = self._last_efficiency or {}
+        mfu = eff.get('mfu')
+        intensity = None
+        programs = eff.get('programs', {})
+        for name in ('train_step', *sorted(programs)):
+            ai = programs.get(name, {}).get('arith_intensity')
+            if ai is not None:
+                intensity = ai
+                break
+        return mfu, intensity
+
     def prometheus_metrics(self):
         """The ``/metrics`` exposition text (Prometheus 0.0.4)."""
         steps = self.timer.summary()
@@ -681,6 +742,17 @@ class RunObserver:
                     'dgmc_probe_last', 'gauge',
                     'Most recent value per in-graph probe.',
                     last_samples))
+        mfu, intensity = self._efficiency_headline()
+        if mfu is not None:
+            families.append((
+                'dgmc_mfu', 'gauge',
+                'Model FLOPs utilization (last efficiency snapshot).',
+                [('', {}, mfu)]))
+        if intensity is not None:
+            families.append((
+                'dgmc_arith_intensity', 'gauge',
+                'Achieved arithmetic intensity, FLOPs/byte (last '
+                'efficiency snapshot).', [('', {}, intensity)]))
         if self.flight is not None:
             counters = self.flight.counters()
             families.append((
@@ -765,9 +837,25 @@ class RunObserver:
     def _padding_rows(self):
         """This run's padding-bucket rows with their real totals
         joined."""
-        return merge_real_rows(
+        return goodput_mod.merge_real_rows(
             self._since(padding_bucket_table(), self._buckets_base),
             self._since(padding_real_table(), self._real_base))
+
+    def goodput_payload(self):
+        """The ``goodput.json`` body for this run: pad waste and the
+        goodput ratio from the merged padding rows, composed with the
+        last efficiency snapshot's per-stage FLOPs (``train_step``
+        first) when the run recorded a cost account. ``None`` when
+        nothing recorded a real-size account."""
+        programs = (self._last_efficiency or {}).get('programs') or {}
+        stages = (programs.get('train_step') or {}).get('stages')
+        if not stages:
+            for p in programs.values():
+                if p.get('stages'):
+                    stages = p['stages']
+                    break
+        return goodput_mod.payload_from_rows(self._padding_rows(),
+                                             stages=stages)
 
     def timings(self):
         out = {
@@ -795,8 +883,9 @@ class RunObserver:
     def flush(self):
         """Deliver the probe tapes that have landed, then rewrite
         ``timings.json``, ``quality.json``, ``memory.json``,
-        ``dispatch.json``, ``anomalies.json``, ``slo.json`` and
-        ``trace.json`` from the current state (atomic per file)."""
+        ``dispatch.json``, ``efficiency.json``, ``goodput.json``,
+        ``anomalies.json``, ``slo.json`` and ``trace.json`` from the
+        current state (atomic per file)."""
         if not self.enabled:
             return
         probes_mod.drain()
@@ -808,6 +897,20 @@ class RunObserver:
         self._write('memory.json', {'snapshots': self._snapshots})
         self._write('dispatch.json', {'counts': self._since(
             dispatch_table(), self._dispatch_base)})
+        if self._costs:
+            from dgmc_tpu_torch.obs import cost as cost_mod
+            payload = cost_mod.efficiency_payload(
+                self._costs,
+                fallback_step_time_s=self.timer.summary().get('p50_s'))
+            # /metrics serves MFU and intensity from exactly what
+            # efficiency.json last said.
+            self._last_efficiency = payload
+            self._write('efficiency.json', payload)
+        # After the efficiency write, so the ratio composes with the
+        # freshest stage FLOPs; no real-size account, no goodput.json.
+        goodput = self.goodput_payload()
+        if goodput is not None:
+            self._write('goodput.json', goodput)
         if self.anomaly is not None:
             # Per-flush compile-event delta: 0 once warm, so a mid-run
             # capture burst stands out as a spike.
@@ -823,8 +926,9 @@ class RunObserver:
         if self.slo is not None:
             headline = ((quality_payload or {}).get('headline')
                         or {}).get('metrics') or {}
-            self.slo.update_gauges(hits1=headline.get('hits1'),
-                                   goodput=None)
+            self.slo.update_gauges(
+                hits1=headline.get('hits1'),
+                goodput=(goodput or {}).get('goodput_ratio'))
             self._write('slo.json', self.slo.snapshot())
         if self.anomaly is not None:
             self._write('anomalies.json', self.anomaly.snapshot())

@@ -36,18 +36,22 @@ import os
 import re
 import sys
 
-from dgmc_tpu_torch.obs.observe import profiler_span
+from dgmc_tpu_torch.obs.observe import profiler_span, settle_profiler
 # JAX's name for the profiler context over a region (a no-op without a
 # directory): the same function.
 from dgmc_tpu_torch.obs.observe import trace as profile_span
 
 __all__ = ['chrome_events', 'export_chrome_trace', 'add_profile_flag',
            'parse_step_window', 'profile_span', 'ProfileHandle',
-           'start_profile', 'STEP_ANNOTATION']
+           'start_profile', 'STEP_ANNOTATION', 'warmup_profile']
 
 #: The per-step range name in a profiler trace (``dgmc_step#<n>``; the
 #: JAX package's step annotation).
 STEP_ANNOTATION = 'dgmc_step'
+
+#: Where captured steps profile their last warm-up (the open
+#: ``--profile-dir``), or None.
+_warmup_dir = None
 
 #: Track ids inside the single "dgmc run" process row.
 _TID_STEPS = 1
@@ -254,6 +258,9 @@ class ProfileHandle:
         self._fired = False
         #: The trace files written, in order.
         self.paths = []
+        if self._dir:
+            global _warmup_dir
+            _warmup_dir = self._dir
         if self._dir and self._window is None:
             self._enter()
         atexit.register(self.close)
@@ -301,8 +308,48 @@ class ProfileHandle:
         return record_function(f'{STEP_ANNOTATION}#{step}')
 
     def close(self):
-        """Finalize the trace if a span is open. Idempotent."""
+        """Finalize the trace if a span is open; captures no longer
+        profile their warm-ups. Idempotent."""
         self._exit()
+        global _warmup_dir
+        if _warmup_dir == self._dir:
+            _warmup_dir = None
+
+
+@contextlib.contextmanager
+def warmup_profile(key, device):
+    """A captured step's warm-up runs: yields ``last()``, the range
+    ``dgmc_warmup#<key>`` to run the last of them under. While a
+    :class:`ProfileHandle` has a directory open but no profiler runs (a
+    ``--profile-steps`` window that has not started), every warm-up run
+    is profiled by a profiler of its own into
+    ``<dir>/dgmc_warmup.<key>.pt.trace.json``, which names the stages of
+    the replays' kernels (:mod:`~dgmc_tpu_torch.obs.trace_events`). The
+    earlier runs are in it because the card's records of the first
+    kernels after a profiler starts can be lost (on the H100 the first
+    four of a dense step's warm-up were)."""
+    import torch
+    from torch.profiler import record_function
+    from dgmc_tpu_torch.obs.trace_events import WARMUP_RANGE
+
+    def last():
+        return record_function(f'{WARMUP_RANGE}#{key}')
+    if _warmup_dir is None or torch.autograd.profiler._is_profiler_enabled:
+        yield last
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        if torch.device(device).type == 'cuda':
+            settle_profiler(torch)
+        yield last
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize(device)
+    os.makedirs(_warmup_dir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(_warmup_dir, f'{WARMUP_RANGE}.{key}.pt.trace.json'))
 
 
 def start_profile(profile_dir, steps=None):

@@ -48,6 +48,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dgmc_tpu_torch.ops.kernels import dispatch
+
 __all__ = ['EdgeBlocks', 'build_edge_blocks', 'operand_dtype', 'operand',
            'plain_aggregate', 'ordered_aggregate',
            'adj_matmul', 'repeat_graph', 'attach_blocks']
@@ -213,6 +215,19 @@ def operand(h, gather_dtype):
     return h.to(operand_dtype(h.dtype, h.shape[-1], gather_dtype))
 
 
+def _aggregate_work(h, blocks):
+    from dgmc_tpu_torch.ops.kernels.blocked import call_work
+    return call_work(h, blocks)
+
+
+def _adj_work(h, fwd_blocks, bwd_blocks):
+    """The aggregation's work forward and, over the transposed tables,
+    backward."""
+    return dict(_aggregate_work(h, fwd_blocks),
+                bwd=_aggregate_work(h, bwd_blocks))
+
+
+@dispatch.counted('plain_aggregate', _aggregate_work)
 def plain_aggregate(h, blocks):
     """The plain version: JAX's ``_routed`` — ``out[b, n] = Σ_{e: dst=n}
     h[b, src_e]`` as the flattened row gather, the one-hot contraction
@@ -288,6 +303,7 @@ class _AdjMatmul(torch.autograd.Function):
         return _aggregate(d_out, ctx.bwd_blocks), None, None
 
 
+@dispatch.counted('adj_matmul', _adj_work)
 def adj_matmul(h, fwd_blocks, bwd_blocks):
     """``out[b, n, :] = Σ_{edges e with dst = n} h[b, src_e, :]`` over
     ``fwd_blocks``, in ``promote(h, float32)``; the gradient is the same

@@ -21,6 +21,10 @@ CUDA tensor of float32 or bfloat16 launches the kernel on the rows
 under ``gather_dtype`` where the rows stay >= 512 bytes), and any other
 dtype raises. The output is float32 (``promote(h, float32)``), as the
 plain version's.
+
+:func:`blocked_work` is the aggregation's least work on one table (the
+work counter's count in :mod:`~dgmc_tpu_torch.obs.cost` and
+``chip_smoke.py``'s bound), the same whichever path runs.
 """
 
 import ctypes
@@ -31,7 +35,27 @@ from dgmc_tpu_torch.ops import blocked as blocked_ops
 from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['WARPS', 'UNROLL', 'VECTORS_PER_LANE', 'launch_plan',
-           'aggregate', 'launch']
+           'aggregate', 'launch', 'blocked_work']
+
+
+def blocked_work(blocks, C, elem):
+    """The least work of one aggregation over ``blocks`` whatever
+    implements it: an add per real edge and channel; the h table read once
+    (``elem`` bytes a value), the float32 output written once, the E real
+    edges' int32 sources read once. Reads the edge mask's sum."""
+    B, M = blocks.inv_degree.shape[:2]
+    E = float(blocks.mask.sum())
+    return {'kernel': 'blocked', 'flops': E * C,
+            'bytes': float(B * M * C * (elem + 4)) + 4.0 * E,
+            'out_bytes': 4.0 * B * M * C, 'dot': False}
+
+
+def call_work(h, blocks):
+    """:func:`blocked_work` of one call on rows ``h``."""
+    x_dtype = blocked_ops.operand_dtype(h.dtype, h.shape[-1],
+                                        blocks.gather_dtype)
+    return blocked_work(blocks, h.shape[-1],
+                        torch.empty((), dtype=x_dtype).element_size())
 
 #: Warps a block of threads, edges a lane group loads per stage (two
 #: stages in flight; also the fewest lanes a row), 16-byte vectors a lane
@@ -132,6 +156,7 @@ def launch(x, blocks):
 
 
 @dispatch.kernel_wrapper('blocked')
+@dispatch.counted('blocked', call_work)
 def aggregate(h, blocks):
     """``out[b, n] = Σ_{e: dst=n} h[b, src_e]`` over ``blocks`` →
     ``[B, M, C]`` in ``promote(h, float32)`` (see the module

@@ -24,6 +24,9 @@ for its design and bound.
   (float32 accumulation, each gradient cast to its operand's dtype once),
   as the JAX kernel's ``lax.scan`` backward does; the JAX package has no
   Pallas backward to port.
+- :func:`consensus_work`: the function's least work in the factored form
+  (the work counter's count and ``chip_smoke.py``'s bound), forward and
+  backward, the same whichever path runs.
 """
 
 import ctypes
@@ -37,7 +40,8 @@ from dgmc_tpu_torch.ops.kernels.build import sm_count
 
 __all__ = ['R_MAX', 'MICRO', 'TILE_MAX', 'MAX_THREADS', 'TILE_T',
            'launch_plan', 'plain_consensus', 'consensus_fwd',
-           'consensus_backward', 'consensus_update', 'rounding']
+           'consensus_backward', 'consensus_update', 'consensus_work',
+           'rounding']
 
 #: Largest R the kernels take: the projection keeps W1 in shared memory,
 #: the pair kernel a tile's u_s and u_t rows (about 4 (R + 4) (TS + TT)
@@ -70,6 +74,33 @@ def _factored(o_s, o_t, w1, b1, rnd, up):
     return (rnd(rnd(up(o_s) @ up(w1)) + up(b1)), rnd(up(o_t) @ up(w1)))
 
 
+def consensus_work(B, N_s, N_t, R, elem=4):
+    """The least work of the delta in the factored form: the node
+    products ``2 B (N_s + N_t) R^2`` and per pair ``3 R`` (difference,
+    product, sum); bytes ``o_s``, ``o_t`` and the weights read once
+    (``elem`` bytes a value), the float32 delta written once. ``'bwd'``:
+    the gradients given ``g``: the node products three times (``u``
+    again, ``d_o`` and ``d_W1``) and per pair ``6 R``; bytes the rows
+    twice, ``g``, and the weights and their gradients."""
+    pairs = B * N_s * N_t
+    nodes = 2.0 * B * (N_s + N_t) * R * R
+    rows = elem * B * (N_s + N_t) * R
+    weights = elem * (R * R + 2 * R + 1)
+    return {'kernel': 'consensus_fwd', 'flops': nodes + 3.0 * pairs * R,
+            'bytes': rows + weights + 4.0 * pairs, 'out_bytes': 4.0 * pairs,
+            'dot': True,
+            'bwd': {'kernel': 'consensus_bwd',
+                    'flops': 3 * nodes + 6.0 * pairs * R,
+                    'bytes': 2 * rows + 4.0 * pairs + 2 * weights,
+                    'out_bytes': rows + weights, 'dot': True}}
+
+
+def _call_work(o_s, o_t, w1, b1, w2, b2):
+    B, N_s, R = o_s.shape
+    return consensus_work(B, N_s, o_t.shape[1], R, o_s.element_size())
+
+
+@dispatch.counted('consensus', _call_work)
 def plain_consensus(o_s, o_t, w1, b1, w2, b2):
     """The factored plain version → ``[B, N_s, N_t]``, rounded as the
     kernel rounds for the inputs' dtype. Materializes the ``[B, N_s, N_t,
@@ -138,6 +169,7 @@ def _library():
 
 
 @dispatch.kernel_wrapper('consensus_fwd')
+@dispatch.counted('consensus_fwd', _call_work)
 def consensus_fwd(o_s, o_t, w1, b1, w2, b2):
     """The consensus delta → ``[B, N_s, N_t]`` float32 (no gradient; see
     :func:`consensus_update`)."""
@@ -240,6 +272,7 @@ class _ConsensusUpdate(torch.autograd.Function):
                      for d, need in zip(grads, ctx.needs_input_grad))
 
 
+@dispatch.counted('consensus')
 def consensus_update(o_s, o_t, w1, b1, w2, b2):
     """``mlp(o_s[:, :, None] - o_t[:, None, :])`` → ``[B, N_s, N_t]``,
     differentiable in every argument; see the module docstring."""

@@ -19,6 +19,12 @@ compiled`) reads the ledger around its capture (:func:`snapshot`,
 (:func:`replay`): the counts and decisions are those of the steps
 executed, on either path.
 
+Each kernel entry also carries its work (:func:`counted`): a function
+of the call's arguments that gives the FLOPs and bytes of the kernel's
+contract (its shapes, k, R, dtype), which the work counter of
+:mod:`~dgmc_tpu_torch.obs.cost` adds in place of the operations inside
+the call, so a kernel and its plain version count the same work.
+
 Every decision executed also feeds the telemetry registry
 (:func:`dgmc_tpu_torch.obs.registry.record_dispatch`: ``dispatch.json``
 and ``/metrics``), a replay its capture's decisions; a capture's
@@ -27,11 +33,12 @@ nothing, as they count nothing here.
 """
 
 import contextlib
+import functools
 import threading
 
 __all__ = ['record', 'decisions', 'reset', 'kernel_wrapper',
            'launch_counts', 'snapshot', 'restore', 'changes', 'replay',
-           'quiet']
+           'quiet', 'counted', 'WORK']
 
 _lock = threading.Lock()
 _local = threading.local()   # .quiet: depth of quiet() on this thread
@@ -40,6 +47,10 @@ _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
 #: The two paths of each kind of gate.
 _PATHS = (('kernel', 'plain'), ('native', 'numpy'))
+#: The active work counter (``obs.cost.WorkCounter``), or None.
+counter = None
+#: Kernel entry name -> its work function (:func:`counted`).
+WORK = {}
 
 
 def record(kernel, path, reason, dtype=None):
@@ -111,6 +122,29 @@ def kernel_wrapper(name):
             _wrappers[name] = fn
         return fn
     return register
+
+
+def counted(name, work=None):
+    """Decorator giving a kernel entry (a wrapper, its plain version or
+    the differentiable function around it) its work: ``work(*args,
+    **kw)`` → ``{'kernel', 'flops', 'bytes', 'out_bytes', 'dot'}`` and,
+    for a differentiable function, ``'bwd'``, the same for its backward
+    kernel (counted once if the nodes the call made run backward).
+    ``work`` defaults to the one registered under ``name`` before.
+    Without an active counter the call costs one global read."""
+    if work is not None:
+        WORK[name] = work
+    work = WORK[name]
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            c = counter
+            if c is None:
+                return fn(*args, **kw)
+            return c.kernel(work, fn, args, kw)
+        return call
+    return wrap
 
 
 def launch_counts():

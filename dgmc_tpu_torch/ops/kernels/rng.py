@@ -53,7 +53,8 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 __all__ = ['PHILOX_M', 'PHILOX_W', 'key_bits', 'seed_tensor', 'philox4x32',
            'plain_philox_words',
            'plain_philox_normal', 'plain_philox_uniform',
-           'plain_philox_negatives', 'philox_normal', 'philox_negatives']
+           'plain_philox_negatives', 'philox_normal', 'philox_negatives',
+           'draw_work']
 
 #: Philox4x32-10's round multipliers and key increments (Random123).
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -213,7 +214,23 @@ def _device(device):
     return dev
 
 
+def draw_work(kind, steps, B, P):
+    """A draw's least work: no floating-point operations counted (the
+    integer rounds of Philox and the float64 Box-Muller have no peak of
+    their own in the bound); bytes written: ``[steps, B, P]`` float32
+    normals or ``[B, P]`` int64 negatives (with the ``[B]`` counts read),
+    and the 8-byte key read."""
+    if kind == 'normal':
+        nbytes, out = 4.0 * steps * B * P + 8.0, 4.0 * steps * B * P
+    else:
+        nbytes, out = 8.0 * B * P + 8.0 * B + 8.0, 8.0 * B * P
+    return {'kernel': 'rng', 'flops': 0.0, 'bytes': nbytes,
+            'out_bytes': out, 'dot': False}
+
+
 @dispatch.kernel_wrapper('rng')
+@dispatch.counted('rng', lambda kind, steps, B, P, *_a, **_k:
+                  draw_work(kind, steps, B, P))
 def _draw(kind, steps, B, P, seed, pair_offset, stream, device,
           n_valid=None):
     """One draw of ``kind`` (``'normal'`` or ``'negatives'``) on

@@ -44,6 +44,10 @@ see the source for their design and bound.
 backward's ``d_o_t`` pass walks; pass the Shortlist to build that order
 once per forward. Indices must lie in ``[0, N_t)``: the kernels read
 ``o_t`` rows unchecked.
+
+:func:`sc_work` is the delta's least work in the factored form, forward
+and backward (the work counter's count in :mod:`~dgmc_tpu_torch.obs.cost`
+and ``chip_smoke.py``'s bounds), the same whichever path runs.
 """
 
 import ctypes
@@ -61,7 +65,7 @@ __all__ = ['R_MAX', 'BWD_WARPS', 'NODE_THREADS', 'node_rows', 'bwd_plan',
            'plain_fused_candidate_delta', 'plain_sparse_consensus_fwd',
            'plain_sparse_consensus_bwd', 'sparse_consensus_fwd',
            'sparse_consensus_bwd', 'fused_candidate_delta',
-           'sparse_consensus_delta']
+           'sparse_consensus_delta', 'sc_work', 'touched_rows']
 
 #: Largest R the kernels take: a warp holds a row in registers, at most
 #: four channels per lane. Checked against the compiled library at load.
@@ -86,6 +90,55 @@ def _shortlist(S_idx, num_targets):
     return Shortlist(S_idx, num_targets)
 
 
+def sc_work(B, N_s, N_t, K, R, T=None, elem=4):
+    """The least work of the function in the factored form, forward and
+    (``'bwd'``) backward. ``T``: the target rows the shortlist points at
+    (all ``B*N_t`` if None), the only ones the forward needs. Operations:
+    node products 2(N_s+N_t)R^2 each (u forward, over the touched target
+    rows; u again, d_o and d_W1 backward); per candidate 3R forward
+    (difference, product, sum) and 6R backward (the difference, g*w2
+    where positive, its sums into d_u_s and d_u_t, 2R for d_w2). Bytes:
+    o_s, o_t, the shortlist at 4 bytes a slot, the weights (and g) read
+    once, delta (or d_o_s, d_o_t and the weight gradients) written once.
+    The backward given the forward's u (as the main path calls it) saves
+    one node product but reads u_s and u_t too: at the DBP15K shape its
+    bound (bytes) lies above this one, so this one is the least.
+    ``elem``: bytes a value of o, the weights and their gradients (4, or
+    2 for bf16; delta and g stay float32)."""
+    nodes = 2.0 * B * (N_s + N_t) * R * R
+    cand = B * N_s * K
+    rows = elem * B * (N_s + N_t) * R
+    weights = elem * (R * R + 2 * R + 1)
+    fwd_rows = B * N_s + (B * N_t if T is None else T)
+    return {'kernel': 'sparse_consensus_fwd',
+            'flops': 2.0 * fwd_rows * R * R + 3.0 * cand * R,
+            'bytes': elem * fwd_rows * R + 4.0 * cand + 4.0 * cand + weights,
+            'out_bytes': 4.0 * cand, 'dot': True,
+            'bwd': {'kernel': 'sparse_consensus_bwd',
+                    'flops': 3 * nodes + 6.0 * cand * R,
+                    'bytes': 2 * rows + 4.0 * cand + 4.0 * cand
+                    + 2 * weights,
+                    'out_bytes': rows + weights, 'dot': True}}
+
+
+def touched_rows(sl):
+    """Target rows of the flattened batch that a shortlist points at."""
+    b = torch.arange(sl.shape[0], device=sl.flat.device)[:, None]
+    return int(torch.unique(sl.flat + b * sl.num_targets).numel())
+
+
+def _call_work(o_s, o_t, S_idx, *_weights, **_kw):
+    sl = _shortlist(S_idx, o_t.shape[1])
+    B, N_s, R = o_s.shape
+    return sc_work(B, N_s, o_t.shape[1], sl.shape[2], R, touched_rows(sl),
+                   o_s.element_size())
+
+
+def _bwd_work(*args, **kw):
+    return _call_work(*args, **kw)['bwd']
+
+
+@dispatch.counted('fused_candidate_delta', _call_work)
 def plain_fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
     """Gather the candidate rows of ``o_t [B, N_t, R]``, then
     :func:`plain_sparse_consensus_delta`."""
@@ -111,6 +164,7 @@ def _plain_fwd(o_s, o_t, sl, w1, b1, w2, b2):
     return (torch.relu(pre) @ up(w2))[..., 0] + up(b2)[0], (u_s, u_t)
 
 
+@dispatch.counted('sparse_consensus_fwd', _call_work)
 def plain_sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2):
     """The delta in the kernels' factored form, in plain PyTorch:
     ``relu(u_s[s] - u_t[t]) @ w2 + b2``. Holds ``[B, N_s, K, R]`` while
@@ -130,6 +184,7 @@ def _node_grads(o_s, o_t, w1, d_us, d_ut):
             d_us.sum(dim=(0, 1)))
 
 
+@dispatch.counted('sparse_consensus_bwd', _bwd_work)
 def plain_sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     """Gradients of ``sum(g * delta)`` w.r.t. ``(o_s, o_t, w1, b1, w2,
     b2)`` in the kernels' factored form, in plain PyTorch: with ``pre =
@@ -293,6 +348,7 @@ def _stream(device):
 
 
 @dispatch.kernel_wrapper('sparse_consensus_fwd')
+@dispatch.counted('sparse_consensus_fwd')
 def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
     """The delta ``[B, N_s, K]`` float32 (no gradient; see
     :func:`fused_candidate_delta`). With ``return_state``: ``(delta,
@@ -350,6 +406,7 @@ def sparse_consensus_fwd(o_s, o_t, S_idx, w1, b1, w2, b2, return_state=False):
 
 
 @dispatch.kernel_wrapper('sparse_consensus_bwd')
+@dispatch.counted('sparse_consensus_bwd')
 def sparse_consensus_bwd(o_s, o_t, S_idx, w1, b1, w2, g, state=None):
     """Gradients of ``sum(g * delta)`` →
     ``(d_o_s, d_o_t, d_w1, d_b1, d_w2, d_b2)``. ``state``: the forward's
@@ -445,6 +502,7 @@ class _FusedCandidateDelta(torch.autograd.Function):
                      zip(grads, ctx.needs_input_grad)) + (None, None)
 
 
+@dispatch.counted('fused_candidate_delta')
 def fused_candidate_delta(o_s, o_t, S_idx, w1, b1, w2, b2):
     """``mlp(o_s[:, :, None] - o_t[S_idx])`` → ``[B, N_s, K]``,
     differentiable in every float argument; see the module docstring."""

@@ -36,6 +36,11 @@ their own (:func:`build_records`, counted on its own) once per routing
 and basis and cached beside the lists; ``d_t`` also divides ``g`` by the
 receivers' degrees once per node. Sums run in that fixed order without
 atomics: repeats are bit-identical.
+
+:func:`route_work` and :func:`records_work` are the least work of these
+functions on one routing (the work counter's count in
+:mod:`~dgmc_tpu_torch.obs.cost` and ``chip_smoke.py``'s bounds), the same
+whichever path runs.
 """
 
 import ctypes
@@ -47,7 +52,54 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['Routing', 'build_records', 'plain_edge_records',
            'plain_route_aggregate', 'plain_route_d_t', 'plain_slot_records',
-           'route_fwd', 'route_d_t', 'route_aggregate']
+           'route_fwd', 'route_d_t', 'route_aggregate', 'route_work',
+           'records_work']
+
+
+def route_work(basis, routing, O, elem=4):
+    """The least work of the forward on this routing, and (``'bwd'``)
+    of ``d_t``: an add and a product per real slot and channel; the
+    forward reads each touched row of ``t`` once, the gradient writes all
+    of ``d_t`` (``elem`` bytes a value of ``t``, ``g`` and the outputs:
+    4, or 2 for bf16), each reads the slots' rows and weights (12 bytes a
+    slot) and the edges' receivers and masks (9 bytes an edge). Reads the
+    routing's mask and rows on its device."""
+    B, E, A = routing.flat.shape
+    N, M = routing.num_nodes, routing.num_rows
+    keep = routing.edge_mask[..., None].expand(B, E, A)
+    slots = int(keep.sum())
+    b = torch.arange(B, device=routing.flat.device)[:, None, None]
+    rows = int(torch.unique((b * M + routing.flat)[keep]).numel())
+    index_bytes = 12.0 * slots + 9.0 * B * E
+    flops = 2.0 * slots * O
+    return {'kernel': 'spline_route_fwd', 'flops': flops,
+            'bytes': elem * rows * O + index_bytes + elem * B * N * O,
+            'out_bytes': elem * B * N * O, 'dot': True, 'slots': slots,
+            'rows': rows,
+            'bwd': {'kernel': 'spline_route_bwd', 'flops': flops,
+                    'bytes': elem * B * N * O + index_bytes
+                    + elem * B * M * O,
+                    'out_bytes': elem * B * M * O, 'dot': True}}
+
+
+def records_work(routing):
+    """The records' least work: no operations; bytes the two orders (8
+    an edge, 8 a slot), flat, basis and receivers (12 a slot, 8 an edge)
+    and both offset lists (8 a row) read, both record sets (16 a slot)
+    and the int32 offsets (4 a row) written."""
+    B, E, A = routing.flat.shape
+    n_off = routing.receiver_csr()[1].numel() + routing.slot_csr()[1].numel()
+    return {'kernel': 'spline_records', 'flops': 0.0,
+            'bytes': 16.0 * B * E + 36.0 * B * E * A + 12.0 * n_off,
+            'out_bytes': 16.0 * B * E * A + 4.0 * n_off, 'dot': False}
+
+
+def _route_work(t, basis, routing):
+    return route_work(basis, routing, t.shape[-1], t.element_size())
+
+
+def _d_t_work(g, basis, routing):
+    return _route_work(g, basis, routing)['bwd']
 
 
 class Routing:
@@ -148,6 +200,8 @@ def plain_edge_records(routing, basis):
 
 
 @dispatch.kernel_wrapper('spline_records')
+@dispatch.counted('spline_records', lambda routing, basis:
+                  records_work(routing))
 def build_records(routing, basis):
     """``(edge_records, edge_offsets, slot_records, slot_offsets)``, one
     record of two 32-bit words per (edge, a) slot in each list (``[B*E*A,
@@ -204,6 +258,7 @@ def _acc(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
+@dispatch.counted('route_aggregate', _route_work)
 def plain_route_aggregate(t, basis, routing):
     """The plain version of the forward: gather the ``A`` rows of every
     edge, blend them with ``basis``, masked mean over each receiver's
@@ -228,6 +283,7 @@ def _g_norm(g, routing):
     return g / deg.clamp(min=1.0).reshape(B, N, 1)
 
 
+@dispatch.counted('spline_route_bwd', _d_t_work)
 def plain_route_d_t(g, basis, routing):
     """The plain version of the backward w.r.t. ``t``: ``g [B, N, O]`` →
     ``d_t [B, M, O]``, each slot's ``basis * g[rcv] / deg`` summed into
@@ -312,6 +368,7 @@ def _stream(device):
 
 
 @dispatch.kernel_wrapper('spline_route_fwd')
+@dispatch.counted('spline_route_fwd', _route_work)
 def route_fwd(t, basis, routing):
     """Forward routing ``t [B, M, O]`` → ``[B, N, O]`` (no gradient; see
     :func:`route_aggregate`)."""
@@ -342,6 +399,7 @@ def route_fwd(t, basis, routing):
 
 
 @dispatch.kernel_wrapper('spline_route_bwd')
+@dispatch.counted('spline_route_bwd')
 def route_d_t(g, basis, routing):
     """Backward routing w.r.t. ``t``: ``g [B, N, O]`` → ``[B, M, O]``."""
     dev = _check(g, basis, routing, 'spline_route_bwd')
@@ -393,6 +451,7 @@ class _RouteAggregate(torch.autograd.Function):
         return d_t, d_basis, None
 
 
+@dispatch.counted('route_aggregate')
 def route_aggregate(t, basis, routing):
     """Masked-mean aggregation of basis-blended ``t`` rows, differentiable
     in ``t`` (the :func:`route_d_t` kernel) and in ``basis`` (plain

@@ -27,6 +27,10 @@ carries no gradient. For bfloat16 inputs (the precision policy's
 variant) the products and sums run in float32 and each score is rounded
 to bfloat16 before selection, as the JAX package's kernel rounds them
 through the input dtype; the values come back in bfloat16.
+
+:func:`topk_work` is the search's work by its contract (the count of the
+work counter in :mod:`~dgmc_tpu_torch.obs.cost` and the bound in
+``chip_smoke.py``), the same whichever path runs.
 """
 
 import ctypes
@@ -88,6 +92,23 @@ TC_BLOCK_OVERHEAD_TILES = 8
 SMEM_MAX = 232448
 
 
+def topk_work(B, N_s, N_t, C, k, elem=4):
+    """The search's least work: ``2 B N_s N_t C`` operations (the product
+    ``h_s h_t^T``); bytes ``h_s`` and ``h_t`` read once (``elem`` bytes a
+    value: 4, or 2 for bf16), the target mask (a byte a target) and the
+    ``[B, N_s, k]`` picks written (a float32 value and an int32 index
+    each)."""
+    return {'kernel': 'topk', 'flops': 2.0 * B * N_s * N_t * C,
+            'bytes': elem * B * (N_s + N_t) * C + B * N_t + 8.0 * B * N_s * k,
+            'out_bytes': (elem + 4.0) * B * N_s * k, 'dot': True}
+
+
+def _call_work(h_s, h_t, k, t_mask=None, block=None):
+    B, N_s, C = h_s.shape
+    return topk_work(B, N_s, h_t.shape[1], C, k, h_s.element_size())
+
+
+@dispatch.counted('topk', _call_work)
 def plain_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
     """Blockwise running top-k in plain PyTorch → ``(vals, idx)``.
 
@@ -322,6 +343,7 @@ def _launch(entry, h_s, h_t, k, t_mask=None):
 
 
 @dispatch.kernel_wrapper('topk')
+@dispatch.counted('topk')
 def streaming_topk(h_s, h_t, k, t_mask=None, block=PLAIN_BLOCK):
     """Exact top-k of ``h_s @ h_t^T`` per source row → ``(vals, idx)``
     (``h_s``'s dtype / int32, ``[B, N_s, k]``). See the module

@@ -45,7 +45,9 @@ Each tier's answers are bit-identical to the device tier's.
 
 The engine keeps the JAX engine's saturation account
 (:meth:`MatchEngine.capacity_stats`: the in-flight count, the lock's
-wait and hold histograms, each bucket's pad fraction and goodput ratio;
+wait and hold histograms, each bucket's pad fraction and goodput ratio,
+the ratio weighted by the bucket's per-stage FLOPs, counted on its eager
+forward at :meth:`MatchEngine.warm` (:mod:`~dgmc_tpu_torch.obs.cost`);
 :mod:`~dgmc_tpu_torch.obs.capacity` models it), runs each phase of a
 query under its span of the serve vocabulary when given a
 :class:`~dgmc_tpu_torch.obs.qtrace.QueryTrace`, and with ``audit=True``
@@ -64,11 +66,13 @@ import torch
 
 from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.obs import goodput as goodput_mod
+from dgmc_tpu_torch.obs.cost import cost_summary
 from dgmc_tpu_torch.obs import probes
 from dgmc_tpu_torch.obs.live import StreamingHistogram
 from dgmc_tpu_torch.obs.memory import captured_memory
 from dgmc_tpu_torch.obs.qtrace import QTRACE_LATENCY_BOUNDS
 from dgmc_tpu_torch.ops.graph import GraphBatch
+from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.offload import (DEFAULT_PREFETCH_DEPTH,
                                         offloaded_corpus_topk)
 from dgmc_tpu_torch.ops.topk import stable_topk
@@ -234,12 +238,13 @@ class MatchEngine:
             with (self._obs.compile_label(label) if self._obs
                   else contextlib.nullcontext()):
                 with self._lock:
+                    stages = self._stage_flops(tpl)
                     rec = self._capture(tpl)
             warm_s = round(time.perf_counter() - t0, 3)
             mem = captured_memory(rec) if rec else None
             self._exec[sig] = {'bucket': bucket, 'warm_s': warm_s,
                                'queries': 0, 'pad_sum': 0.0,
-                               'goodput_sum': 0.0, 'stages': None}
+                               'goodput_sum': 0.0, 'stages': stages}
             report[sig] = {
                 'bucket': sig, 'warm_s': warm_s,
                 'capture_s': round(rec.capture_s, 3) if rec else 0.0,
@@ -251,6 +256,32 @@ class MatchEngine:
                               **({'static_bytes': mem['total_bytes']}
                                  if mem else {}))
         return report
+
+    def _stage_flops(self, arrays):
+        """Per-stage FLOP table of one bucket's query
+        (:func:`~dgmc_tpu_torch.obs.cost.cost_summary` of its eager
+        forward on the template, before the capture): what the per-query
+        goodput ratio composes with. The launch counters and the dispatch
+        ledger are set back and nothing reaches the telemetry registry.
+        ``None`` when the count fails: the ratio then falls back to the
+        mask-only account."""
+        ledger = dispatch.snapshot()
+        try:
+            with torch.inference_mode(), dispatch.quiet():
+                q, r_s = self._stage(arrays)
+                shortlist = None
+                if self.offload:
+                    idx = self._search(q)
+                    shortlist = (idx, self._candidates(idx))
+                args = [x.value if isinstance(x, Fixed) else
+                        None if x is None else x.to(self.device)
+                        for x in self._inputs(q, r_s, shortlist)]
+                fn = self._rerank if self.offload else self._query
+                return cost_summary(fn, *args)['stages'] or None
+        except Exception:
+            return None
+        finally:
+            dispatch.restore(ledger)
 
     @property
     def buckets_warm(self):
@@ -282,6 +313,8 @@ class MatchEngine:
                                      if q else None),
                     'goodput_ratio': (round(info['goodput_sum'] / q, 6)
                                       if q else None),
+                    'stages_source': ('counted' if info.get('stages')
+                                      else 'mask_only'),
                 }
                 pad_sum += info['pad_sum']
                 good_sum += info['goodput_sum']
@@ -332,8 +365,8 @@ class MatchEngine:
         with span('pad_and_stage'):
             arrays = self.router.pad_query(graph, bucket)
         # The routed bucket against the query's real shape (the corpus
-        # side is real by construction). The port has no per-stage FLOP
-        # table, so the ratio is goodput's mask-only account.
+        # side is real by construction), composed with the bucket's
+        # counted per-stage FLOPs.
         fills = goodput_mod.pair_fills(
             {'nodes_real': n_real, 'nodes_padded': bucket.nodes,
              'edges_real': graph.num_edges, 'edges_padded': bucket.edges},

@@ -442,8 +442,8 @@ class ServeService:
              '(router bucket vs real query shape).', pad_samples),
             ('dgmc_goodput_ratio', 'gauge',
              'Useful FLOPs / executed FLOPs across answered queries '
-             '(obs.goodput; the mask-only account: the port has no '
-             'per-stage FLOP table).',
+             '(obs.goodput, weighted by each bucket\'s counted '
+             'per-stage FLOPs).',
              good_samples),
             histogram_family(
                 'dgmc_lock_wait_seconds',

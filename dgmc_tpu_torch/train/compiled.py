@@ -54,15 +54,27 @@ dropped after each run, and returns that run's outputs.
 Each record built is one compile event of the run plane
 (:func:`~dgmc_tpu_torch.obs.registry.record_compile`, kind ``capture``,
 its ``capture_s``), so a warm steady state records none.
+
+For the measured per-stage account (:mod:`~dgmc_tpu_torch.obs.trace_events`)
+each record has a key: its last warm-up runs under the range
+``dgmc_warmup#<key>`` (with ``--profile-dir`` and no profiler running,
+profiled into a trace of its own, :func:`~dgmc_tpu_torch.obs.trace.
+warmup_profile`) and, while a profiler runs, each replay under
+``dgmc_replay#<key>``: a replay's kernels take their stages from the
+warm-up's.
 """
 
 import contextlib
 import gc
+import itertools
+import os
 import time
 
 import torch
 
 from dgmc_tpu_torch.obs.registry import record_compile
+from dgmc_tpu_torch.obs.trace import warmup_profile
+from dgmc_tpu_torch.obs.trace_events import REPLAY_RANGE
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device
 from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.kernels.rng import key_bits
@@ -184,6 +196,9 @@ def tensors_of(x):
     return []
 
 
+#: Record keys, unique in the process.
+_keys = itertools.count()
+
 class Captured:
     """One input signature's record.
 
@@ -194,10 +209,10 @@ class Captured:
     ``decisions``: the dispatch decisions the capture recorded;
     ``pool_bytes``: what the graph's private memory pool reserved;
     ``capture_s``: the seconds the record took to build, warm-up
-    included."""
+    included; ``key``: the name of its warm-up and replay ranges."""
 
     def __init__(self, static, graph=None, outputs=None, launches=None,
-                 decisions=None, pool_bytes=0, capture_s=0.0):
+                 decisions=None, pool_bytes=0, capture_s=0.0, key=None):
         self.static = static
         self.graph = graph
         self.outputs = outputs
@@ -205,11 +220,17 @@ class Captured:
         self.decisions = dict(decisions or {})
         self.pool_bytes = pool_bytes
         self.capture_s = capture_s
+        self.key = key
 
     def replay(self):
         """Replay the graph and count its launches and decisions; returns
         the static outputs."""
-        self.graph.replay()
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(
+                    f'{REPLAY_RANGE}#{self.key}'):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         dispatch.replay(self.launches, self.decisions)
         return self.outputs
 
@@ -306,12 +327,17 @@ class Compiled:
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
+        key = f'{os.getpid()}-{next(_keys)}'
+        with torch.cuda.stream(side), warmup_profile(key, dev) as last:
+            for i in range(WARMUP):
                 if self.prepare is not None:
                     self.prepare(*inputs)
-                with sync_errors(dev):
-                    self.fn(*static)
+                # The last warm-up names the stages of the replays'
+                # kernels (obs/trace_events.py).
+                with (last() if i == WARMUP - 1
+                      else contextlib.nullcontext()):
+                    with sync_errors(dev):
+                        self.fn(*static)
                 for g in _graphs(static, inputs):
                     g.clear_memo()
         main.wait_stream(side)
@@ -346,7 +372,7 @@ class Compiled:
         torch.cuda.synchronize(dev)
         return Captured(static, graph, outputs, launches, decisions,
                         torch.cuda.memory_reserved(dev) - reserved,
-                        time.perf_counter() - t0)
+                        time.perf_counter() - t0, key)
 
 
 def compiled(fn, device, **kw):

@@ -35,6 +35,14 @@ output of a captured step, which the step's wrapper hands to
 :func:`~dgmc_tpu_torch.obs.probes.submit` after every call; the metrics
 a caller gets carry no tape. Eval steps carry no probes.
 
+The train step runs its loss, optimizer update and metrics under the
+stage ranges ``loss``, ``optimizer`` and ``metrics``
+(:func:`~dgmc_tpu_torch.obs.stages.stage`, JAX's scopes), beside the
+model's. ``step.cost_pass(state, batch, noise_seed, ...)`` runs the
+forward, the loss, ``torch.autograd.grad`` and the metrics of one step
+for the work counter (:func:`~dgmc_tpu_torch.obs.cost.cost_summary`)
+and leaves the run as it was (see :func:`_cost_pass`).
+
 ``make_eval_step`` returns ``step(batch, noise_seed, r_s=None)`` with
 ``count``, ``correct`` and ``hits@k`` as sums, so callers aggregate
 across batches exactly.
@@ -82,6 +90,8 @@ import torch
 
 from dgmc_tpu_torch.models import metrics
 from dgmc_tpu_torch.obs import probes
+from dgmc_tpu_torch.obs.stages import stage
+from dgmc_tpu_torch.ops.kernels import dispatch
 from dgmc_tpu_torch.ops.graph import GraphBatch, canonical_device, host_tensor
 from dgmc_tpu_torch.train.compiled import Fixed, compiled
 from dgmc_tpu_torch.train.state import (fill_grads, optimizer_update,
@@ -177,9 +187,10 @@ def loss_and_outputs(model, batch, loss_on_s0=False, noise_seed=0,
     g_s, g_t, y, y_mask = batch_to_device(batch, _device_of(model))
     S_0, S_L = model(g_s, g_t, y=y, y_mask=y_mask, noise_seed=noise_seed,
                      r_s=r_s, **kw)
-    loss = metrics.nll_loss(S_L, y, y_mask)
-    if loss_on_s0:
-        loss = loss + metrics.nll_loss(S_0, y, y_mask)
+    with stage('loss'):
+        loss = metrics.nll_loss(S_L, y, y_mask)
+        if loss_on_s0:
+            loss = loss + metrics.nll_loss(S_0, y, y_mask)
     return loss, S_0, S_L, y, y_mask
 
 
@@ -315,17 +326,14 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             probes.check_finite('loss', loss.detach(), order=1000)
             probes.check_finite('grad', gnorm, order=1001)
         good = _grads_finite(state, loss.detach()) if guard else None
-        optimizer_update(state)
+        with stage('optimizer'):
+            optimizer_update(state)
         if guard:
             # A bad step gives everything back (selected on the device).
             kept(lambda tensor, saved: torch.where(good, tensor, saved))
             _count_bad(state, good)
         with torch.no_grad():
-            out = {'loss': loss.detach(),
-                   'loss_per_pair': metrics.nll_loss(
-                       S_L, y, y_mask, reduction='per_pair'),
-                   'acc': metrics.acc(S_L, y, y_mask)}
-            _hits(out, hits_ks, S_L, y, y_mask, 'mean')
+            out = _metrics(loss, S_L, y, y_mask, hits_ks)
             if guard:
                 out.update(bad_step=~good,
                            skip_count=state.skip_count.clone(),
@@ -342,6 +350,12 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             return None
         return torch.tensor(state.step, dtype=torch.int64)
 
+    def cost_pass(state, batch, noise_seed, r_s=None, negatives=None):
+        return _cost_pass(model, state, batch, noise_seed, r_s, negatives,
+                          {'num_steps': num_steps, 'detach': detach,
+                           'pair_offset': pair_offset}, loss_on_s0,
+                          hits_ks)
+
     if not jit:
         def train_step(state, batch, noise_seed, r_s=None, negatives=None):
             _check_guarded(state, guard)
@@ -353,6 +367,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             state.step += 1
             return state, probes.take(out)
 
+        train_step.cost_pass = cost_pass
         return train_step
 
     jitted = _Jit(model, body, train=True)
@@ -375,8 +390,63 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
         return c.capture(*args)
 
     train_step.capture = capture
+    train_step.cost_pass = cost_pass
     train_step.jit = jitted
     return train_step
+
+
+def _metrics(loss, S_L, y, y_mask, hits_ks):
+    """A train step's metrics, under the ``metrics`` range (JAX's scope,
+    counted as ``other``)."""
+    with stage('metrics'):
+        out = {'loss': loss.detach(),
+               'loss_per_pair': metrics.nll_loss(S_L, y, y_mask,
+                                                 reduction='per_pair'),
+               'acc': metrics.acc(S_L, y, y_mask)}
+        return _hits(out, hits_ks, S_L, y, y_mask, 'mean')
+
+
+def _cost_pass(model, state, batch, noise_seed, r_s, negatives, kw,
+               loss_on_s0, hits_ks):
+    """The forward, loss, ``torch.autograd.grad`` and metrics of one step
+    for the work counter (:func:`~dgmc_tpu_torch.obs.cost.cost_summary`),
+    leaving the run as it was: no update, no ``.grad`` written, the
+    batch-norm buffers, the model's mode, the random states and the
+    dispatch ledger set back, the probes recorded onto a tape that is
+    dropped, the dropout masks from a generator of its own. Returns the
+    parameters that took a gradient."""
+    dev = _device_of(model)
+    params = [p for g in state.optimizer.param_groups for p in g['params']]
+    training = model.training
+    buffers = [(b, b.clone()) for b in model.buffers()]
+    ledger = dispatch.snapshot()
+    cpu_rng = torch.get_rng_state()
+    cuda_rng = (torch.cuda.get_rng_state(dev) if dev.type == 'cuda'
+                else None)
+    try:
+        with dispatch.quiet(), probes.recording(), torch.enable_grad():
+            model.train()
+            loss, _, S_L, y, y_mask = loss_and_outputs(
+                model, batch, loss_on_s0, noise_seed, r_s,
+                negatives=negatives,
+                generator=dropout_generator(noise_seed, dev), **kw)
+            grads = torch.autograd.grad(
+                loss, [p for p in params if p.requires_grad],
+                allow_unused=True)
+            with torch.no_grad():
+                _metrics(loss, S_L, y, y_mask, hits_ks)
+    finally:
+        with torch.no_grad():
+            for b, saved in buffers:
+                b.copy_(saved)
+        model.train(training)
+        dispatch.restore(ledger)
+        torch.set_rng_state(cpu_rng)
+        if cuda_rng is not None:
+            torch.cuda.set_rng_state(cuda_rng, dev)
+    trained = iter(grads)
+    return [p for p in params
+            if p.requires_grad and next(trained) is not None]
 
 
 def _check_guarded(state, guard):

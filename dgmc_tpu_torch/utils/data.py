@@ -357,6 +357,22 @@ class PairLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def first_batch(self):
+        """The first batch an iteration would give now, with the
+        shuffle's and the datasets' random states set back after it, so
+        the run's batches are the ones it gives without this call (the
+        example input of a cost count)."""
+        owners = [self, self.dataset,
+                  *getattr(self.dataset, 'datasets', ())]
+        saved = [(o, o._rng.get_state()) for o in owners
+                 if isinstance(getattr(o, '_rng', None),
+                               np.random.RandomState)]
+        try:
+            return next(iter(self))
+        finally:
+            for o, state in saved:
+                o._rng.set_state(state)
+
     def __iter__(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:

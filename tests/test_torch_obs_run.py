@@ -409,3 +409,137 @@ def test_willow_cli_observed(roots, tmp_path):
     assert set(t['compile']['by_label']) >= {'pretrain'}
     with open(os.path.join(obs_dir, 'quality.json')) as f:
         assert json.load(f)['headline']['scenario'] == 'willow'
+
+
+# -- the cost account ----------------------------------------------------------
+
+#: ``efficiency.json``'s top-level keys, as the JAX package writes them.
+EFFICIENCY_KEYS = {'device_kind', 'platform', 'peak_flops', 'peak_flops_ref',
+                   'peak_flops_source', 'programs', 'mfu'}
+
+
+def _sample(text, family):
+    for line in text.splitlines():
+        if line.startswith(family + ' '):
+            return float(line.split()[-1])
+    return None
+
+
+@pytest.mark.parametrize('k', [-1, 3], ids=['dense', 'sparse'])
+def test_cost_account_goodput_and_gauges(k, tmp_path):
+    """``record_cost`` → ``efficiency.json`` (JAX's keys; MFU from the
+    observed step p50 against the CPU's nominal peak), ``goodput.json``
+    weighted by the counted stage FLOPs, ``dgmc_mfu`` and
+    ``dgmc_arith_intensity`` on ``/metrics`` from the same snapshot, and
+    the SLO tracker fed the goodput ratio."""
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+    from dgmc_tpu_torch.utils.data import Graph, GraphPair, pad_pair_batch
+    obs_dir = str(tmp_path / 'obs')
+    model = _model(k)
+    state = create_train_state(model, learning_rate=1e-2)
+    step = make_train_step(model)
+    with RunObserver(obs_dir) as obs:
+        obs.attach_slo({'name': 't', 'availability': {'objective': 0.9},
+                        'goodput_floor': 0.5})
+        summary = obs.record_cost('train_step', step, state, _pair(), 0)
+        r = np.random.RandomState(1)
+        pair = GraphPair(Graph(r.randint(0, 6, (2, 9)), r.randn(6, 4)),
+                         Graph(r.randint(0, 7, (2, 11)), r.randn(7, 4)))
+        pad_pair_batch([pair], 8, 16, 10, 20)
+        for i in range(3):
+            with obs.step():
+                state, _ = step(state, _pair(), i)
+        obs.flush()
+        metrics = obs.prometheus_metrics()
+        with open(os.path.join(obs_dir, 'efficiency.json')) as f:
+            eff = json.load(f)
+        with open(os.path.join(obs_dir, 'goodput.json')) as f:
+            good = json.load(f)
+        with open(os.path.join(obs_dir, 'slo.json')) as f:
+            slo = json.load(f)
+    assert set(eff) == EFFICIENCY_KEYS
+    ts = eff['programs']['train_step']
+    assert {s: r['flops'] for s, r in ts['stages'].items()} == {
+        s: r['flops'] for s, r in summary['stages'].items()}
+    p50 = ts['step_time_s']
+    assert ts['step_time_source'] == 'observed_p50'
+    # 4 significant digits of flops / (p50 x peak); the payload keeps p50
+    # to the microsecond.
+    assert eff['mfu'] == ts['mfu']
+    assert ts['mfu'] == pytest.approx(ts['flops'] / (p50 * 48e9), rel=2e-3)
+    assert _sample(metrics, 'dgmc_mfu') == eff['mfu']
+    assert _sample(metrics, 'dgmc_arith_intensity') == ts['arith_intensity']
+    assert good['composed_with_stage_flops'] is True
+    assert 0 < good['goodput_ratio'] < 1
+    (bucket,) = good['buckets']
+    assert (bucket['nodes'], bucket['edges']) == ('8x10', '16x20')
+    assert slo['floors']['goodput']['value'] == good['goodput_ratio']
+
+
+def test_cost_refusal_is_recorded_not_raised(tmp_path):
+    def broken(*args):
+        raise RuntimeError('no count')
+    with RunObserver(str(tmp_path / 'obs')) as obs:
+        assert obs.record_cost('train_step', broken) == {
+            'error': 'RuntimeError: no count'}
+    with open(tmp_path / 'obs' / 'efficiency.json') as f:
+        eff = json.load(f)
+    assert eff['programs'] == {'train_step': {'error':
+                                              'RuntimeError: no count'}}
+    assert 'mfu' not in eff
+
+
+def _hooked(main, argv):
+    got = []
+
+    def hook(kind, i, out):
+        if isinstance(out, dict):   # metrics (willow also hands its model)
+            got.append((kind, i, {k: v.clone() for k, v in out.items()
+                                  if torch.is_tensor(v)}))
+    main(argv, hook=hook)
+    return got
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(
+        x[:2] == y[:2] and x[2].keys() == y[2].keys()
+        and all(torch.equal(x[2][k], y[2][k]) for k in x[2])
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize('cli', ['dbp15k', 'pascal_pf', 'pascal', 'willow'])
+def test_cli_losses_bit_identical_with_and_without_obs_dir(cli, roots,
+                                                          tmp_path):
+    """The cost count runs before each capture and leaves the run as it
+    was: every step's and evaluation's metrics equal a run without
+    ``--obs-dir``, and the observed run writes ``efficiency.json`` and
+    ``goodput.json``."""
+    import importlib
+    main = importlib.import_module(f'dgmc_tpu_torch.experiments.{cli}').main
+    argv = {
+        'dbp15k': TINY_KG + ['--epochs', '3', '--phase1_epochs', '1'],
+        'pascal_pf': ['--device', 'cpu', '--epochs', '1', '--dim', '16',
+                      '--rnd_dim', '8', '--num_steps', '2', '--batch_size',
+                      '256', '--synthetic_eval', '16', '--data_root',
+                      str(tmp_path / 'none')],
+        'pascal': TINY_KP + ['--data_root', roots['voc'], '--batch_size',
+                             '16', '--epochs', '1', '--test_samples', '6'],
+        'willow': TINY_KP + ['--voc_root', roots['voc'], '--willow_root',
+                             roots['willow'], '--batch_size', '256',
+                             '--pre_epochs', '1', '--epochs', '1', '--runs',
+                             '1', '--test_samples', '4'],
+    }[cli]
+    obs_dir = str(tmp_path / 'obs')
+    plain = _hooked(main, argv)
+    observed = _hooked(main, argv + ['--obs-dir', obs_dir])
+    assert plain and _same(plain, observed)
+    with open(os.path.join(obs_dir, 'efficiency.json')) as f:
+        eff = json.load(f)
+    assert set(eff) == EFFICIENCY_KEYS
+    assert eff['programs']['train_step']['flops'] > 0
+    assert 'psi1' in eff['programs']['train_step']['stages']
+    if cli == 'dbp15k':
+        assert set(eff['programs']) == {'phase1_step', 'train_step'}
+    with open(os.path.join(obs_dir, 'goodput.json')) as f:
+        assert 0 < json.load(f)['goodput_ratio'] <= 1

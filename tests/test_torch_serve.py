@@ -262,7 +262,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           '__init__', 'observe', 'registry', 'live',
                           'watchdog', 'probes', 'quality', 'anomaly', 'slo',
                           'trace', 'run', 'memory', 'qtrace', 'capacity',
-                          'goodput')))} <= set(files)
+                          'goodput', 'stages', 'cost', 'trace_events',
+                          'attribution', 'report')))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]

@@ -371,7 +371,12 @@ def test_status_capacity_section_and_artifact(service):
     assert rec['engine_count'] >= rec['qtrace_count'] >= 1
     service._flush_capacity()
     with open(os.path.join(service.obs.dir, 'capacity.json')) as f:
-        assert json.load(f)['queries'] == cap['queries']
+        disk = json.load(f)
+    assert disk['queries'] == cap['queries']
+    # Each bucket's ratio weighted by its counted stage FLOPs.
+    assert {b['stages_source'] for b in disk['buckets'].values()} == {
+        'counted'}
+    assert 0 < disk['goodput_ratio'] <= 1
 
 
 def test_warm_restart_hits_cache(root, service):
