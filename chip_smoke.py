@@ -289,7 +289,15 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   ``hang_report.json`` with the main thread in the synchronize; (e) the
   observer's cost on the captured bf16 KG phase-2 step: no observer,
   probes off, probes on (30 synchronized steps each in turns, then 30
-  back to back, and one profiled replay's device ops and busy time).
+  back to back, and one profiled replay's device ops and busy time); (f)
+  the run-comparison readers: ``aggregate`` over (a)'s dir (one host, one
+  device, a step-time ratio of 1.0), ``diff`` of (a) against itself
+  (every gated key and launched kernel ``ok``, the poisoned step its one
+  regression, rc 1), ``calibrate`` over three tiny observed
+  ``pascal_pf.main`` runs (the JAX CI's flags) and their calibrated
+  ``diff`` (rc 0), the same run with ``--device cpu`` against the card's
+  (a ``dispatch[...]`` regression per dense kernel, memory and idle
+  skipped), each reader's seconds printed.
 - ``serve_worker``: the serving worker under the supervisor
   (:func:`phase_serve_worker`; ``python -m dgmc_tpu_torch.serve
   --supervise`` at DBP15K's widths, float32, buckets
@@ -304,7 +312,9 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   SIGSTOP: killed as stale, restarted; (d) SIGTERM: a clean exit, the
   artifacts on disk, no CUDA context in the monitor; (e) ``dbp15k
   --supervise`` with ``sigkill@5`` bit-identical to the ``resume``
-  phase's uninterrupted run.
+  phase's uninterrupted run; (f) ``diff`` of the worker's dir against
+  itself with the serve gates armed (rc 0) and of (e) against its
+  completed attempt read alone (rc 1: ``restarts``).
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -5773,6 +5783,201 @@ def _obs_profile(tmp):
                        'loss', 'optimizer'))
 
 
+#: The JAX CI's tiny observed PascalPF run (``.github/workflows/ci.yml``),
+#: steps 1-4 profiled as the CI's candidate is.
+PF_TINY = ['--epochs', '1', '--batch_size', '8', '--dim', '16',
+           '--rnd_dim', '8', '--num_steps', '1', '--seed', '0',
+           '--profile-steps', '1:5']
+#: The calibrated diff's significance. With three repeats the MAD is the
+#: smaller of two deviations from the median, so (x2 - x1) / (1.4826 MAD)
+#: of two of the repeats has heavy tails: under normal noise it passes 3
+#: in 10% of draws and 100 in 0.4% (by simulation), and the default z = 3
+#: fails one of five such gates in about two diffs of five.
+CALIBRATION_Z = '100'
+#: Seconds of each run-comparison reader on the card's artifacts.
+READER_S = collections.defaultdict(float)
+
+
+def _reader(name, *argv):
+    """``dgmc_tpu_torch.obs.<name>.main(argv)`` in this process, its
+    output captured and its seconds added to :data:`READER_S` →
+    ``(rc, stdout)``."""
+    mod = importlib.import_module(f'dgmc_tpu_torch.obs.{name}')
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    READER_S[name] += time.perf_counter() - t0
+    return rc, buf.getvalue()
+
+
+def _diff_rows(label, want_rc, *argv):
+    """``diff --json`` of ``argv`` → its rows by metric; raises unless it
+    exits ``want_rc`` (``None``: any exit code)."""
+    rc, out = _reader('diff', *argv, '--json')
+    rows = {r['metric']: r for r in json.loads(out)['rows']}
+    if want_rc is not None and rc != want_rc:
+        bad = {m: (r['a'], r['b'], r['status'], r['note'])
+               for m, r in rows.items() if r['status'] == 'REGRESSION'}
+        raise AssertionError(f'{label}: diff exited {rc}, expected '
+                             f'{want_rc}; regressions {bad}')
+    return rows
+
+
+def _launched(d):
+    """The kernels whose CUDA kernel launched in the run in ``d``."""
+    with open(os.path.join(d, 'dispatch.json')) as f:
+        return sorted({r['kernel'] for r in json.load(f)['counts']
+                       if r['outcome'] == 'kernel' and r['count']})
+
+
+def _tiny_pf(tmp, name, cpu=False):
+    """The tiny observed, profiled ``pascal_pf`` run in ``tmp/name``, its
+    attribution merged into its ``efficiency.json``: on the card in this
+    process (the allocator's peak reset first), or with ``cpu`` as
+    ``python -m ... --device cpu`` with no card visible → the obs dir."""
+    d, prof = os.path.join(tmp, name), os.path.join(tmp, f'{name}_prof')
+    argv = PF_TINY + ['--obs-dir', d, '--profile-dir', prof,
+                      '--data_root', os.path.join(tmp, 'none')]
+    if cpu:
+        out = subprocess.run(
+            [sys.executable, '-m', 'dgmc_tpu_torch.experiments.pascal_pf',
+             '--device', 'cpu', *argv], cwd=ROOT, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=''))
+        if out.returncode:
+            raise AssertionError(f'obs (f): the CPU run exited '
+                                 f'{out.returncode}: {out.stderr[-2000:]}')
+    else:
+        from dgmc_tpu_torch.experiments import pascal_pf
+        # The last run's graphs sit in reference cycles: the peak is this
+        # run's alone once they are collected.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            pascal_pf.main(argv)
+    from dgmc_tpu_torch.obs import attribution
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = attribution.main([prof, '--obs-dir', d])
+    if rc:
+        raise AssertionError(f'obs (f): attribution of {name} exited {rc}')
+    return d
+
+
+def _obs_readers(tmp):
+    """(f) the run-comparison readers over this phase's artifacts:
+    ``aggregate`` and ``diff A A`` over (a)'s KG dir, ``calibrate`` over
+    three tiny PascalPF runs on the card and the calibrated diff of two
+    of them, and the same run on the CPU against the card's."""
+    from dgmc_tpu_torch.obs.report import load_run, summarize
+    t0 = time.perf_counter()
+    kg = os.path.join(tmp, 'kg')
+    rc, _ = _reader('aggregate', kg)
+    with open(os.path.join(kg, 'aggregate.json')) as f:
+        agg = json.load(f)
+    skew = summarize(load_run(kg)).get('skew') or {}
+    if rc or agg['hosts'] != 1 or len(agg['devices']) != 1 \
+            or agg['skew']['step_time_ratio'] != 1.0 \
+            or skew.get('step_time_ratio') != 1.0:
+        raise AssertionError(f'obs (f): aggregate exited {rc}: hosts '
+                             f'{agg["hosts"]}, devices {agg["devices"]}, '
+                             f'skew {agg["skew"]}, the report\'s {skew}')
+    # (a) poisons a step (nan-grads@12): a candidate that went
+    # non-finite fails the diff whatever its baseline (JAX's rule), so
+    # the run against itself exits 1 with that row its one regression.
+    rows = _diff_rows('obs (f) KG against itself', 1, kg, kg)
+    failed = [m for m, r in rows.items() if r['status'] == 'REGRESSION']
+    if failed != ['first_nonfinite'] \
+            or "step 11 stage 'grad'" not in rows[failed[0]]['note']:
+        raise AssertionError(f'obs (f): KG against itself: regressions '
+                             f'{failed}')
+    launched = _launched(kg)
+    need = ['mfu', 'idle_fraction', 'peak_memory_bytes', 'compile_events',
+            'skew_step_time_ratio'] + [f'dispatch[{k}]' for k in launched]
+    bad = {m: rows.get(m) for m in need
+           if (rows.get(m) or {}).get('status') != 'ok'}
+    notes = (rows['idle_fraction']['note'],
+             rows['peak_memory_bytes']['note'])
+    if bad or not launched or not all(n.endswith('source=device')
+                                      for n in notes):
+        raise AssertionError(f'obs (f): KG diff rows {bad or notes}')
+    log(f'obs (f): aggregate over (a): 1 host, device '
+        f'{agg["devices"][0]["device"]} ({agg["devices"][0]["steps"]} '
+        f'fences), step-time ratio {agg["skew"]["step_time_ratio"]}, '
+        f'the report carries it; diff (a) (a): rc 1, the one regression '
+        f'first_nonfinite ({rows["first_nonfinite"]["note"]}), ok rows '
+        f'{sorted(need)}')
+
+    runs = [_tiny_pf(tmp, f'pf{i}') for i in (1, 2, 3)]
+    cal = os.path.join(tmp, 'calibration.json')
+    rc, _ = _reader('calibrate', *itertools.chain.from_iterable(
+        ('--obs-dir', d) for d in runs), '--out', cal)
+    with open(cal) as f:
+        fit = json.load(f)['metrics']
+    if rc or fit['step_p50_s']['n'] != 3:
+        raise AssertionError(f'obs (f): calibrate exited {rc}')
+    for key in ('step_p50_s', 'mfu', 'peak_memory_bytes', 'idle_fraction'):
+        log(f'obs (f): calibrate over three tiny PascalPF runs: {key} '
+            f'median {fit[key]["median"]}, rel_sigma {fit[key]["rel_sigma"]}'
+            f' (min {fit[key]["min"]}, max {fit[key]["max"]})')
+    rows = _diff_rows('obs (f) run 1 against run 2, calibrated', 0,
+                      runs[0], runs[1], '--calibration', cal,
+                      '--calibration-z', CALIBRATION_Z)
+    calibrated = sorted(m for m in rows if m.startswith('calibrated:'))
+    if not calibrated:
+        raise AssertionError('obs (f): no calibrated: rows')
+    log(f'obs (f): diff run 1 run 2 --calibration --calibration-z '
+        f'{CALIBRATION_Z}: rc 0, ' + ', '.join(
+            f'{m} {rows[m]["b"]}' for m in calibrated))
+
+    cpu = _tiny_pf(tmp, 'pf_cpu', cpu=True)
+    dense = _launched(runs[0])
+    want = {f'dispatch[{k}]' for k in dense}
+    # The CPU's plain routing builds no records: that decision is absent
+    # from its ledger, which the gate counts as lost too. Under
+    # --allow-kernel-fallback the step rows (the CPU's steps against the
+    # card's launches) may still fail: any exit code.
+    for flags, status, want_rc in (((), 'REGRESSION', 1),
+                                   (('--allow-kernel-fallback',), 'note',
+                                    None)):
+        rows = _diff_rows(f'obs (f) CPU against the card {flags}', want_rc,
+                          runs[0], cpu, *flags)
+        got = {m: (r['b'], r['status']) for m, r in rows.items()
+               if m.startswith('dispatch[')}
+        if not flags:
+            outcomes = {m: b for m, (b, _) in got.items()}
+        plain = {m[9:-1] for m, (b, _) in got.items() if b == 'plain'}
+        skipped = {m: rows[m]['note'] for m in ('peak_memory_bytes',
+                                                'idle_fraction')}
+        if set(got) != want or any(b not in ('plain', 'absent')
+                                   or st != status
+                                   for b, st in got.values()) \
+                or not {'consensus_fwd', 'spline_route_fwd',
+                        'spline_route_bwd', 'rng'} <= plain \
+                or any(rows[m]['status'] != 'skipped'
+                       or n != 'sources differ (device vs host)'
+                       for m, n in skipped.items()):
+            raise AssertionError(f'obs (f): CPU candidate: dispatch rows '
+                                 f'{got}, expected {sorted(want)} '
+                                 f'{status}; {skipped}')
+    rows = _diff_rows('obs (f) the card against the CPU', None, cpu,
+                      runs[0])
+    back = [m for m, r in rows.items()
+            if m.startswith('dispatch[') and r['status'] == 'REGRESSION']
+    if back:
+        raise AssertionError(f'obs (f): card against CPU: {back}')
+    log(f'obs (f): the tiny run with --device cpu against the card\'s run '
+        f'1: rc 1, REGRESSION {dict(sorted(outcomes.items()))} (the '
+        f'candidate\'s outcome), note under --allow-kernel-fallback; '
+        f'peak_memory_bytes '
+        f'and idle_fraction skipped (sources differ: device vs host); '
+        f'reversed, no dispatch regression')
+    log(f'obs (f): in {time.perf_counter() - t0:.1f}s; the readers\' '
+        f'seconds ' + ', '.join(f'{k} {v:.4f}'
+                               for k, v in sorted(READER_S.items())))
+
+
 def phase_obs(smi_line):
     """The run plane on the card (``dgmc_tpu_torch/obs``):
 
@@ -5799,7 +6004,18 @@ def phase_obs(smi_line):
     stall makes ``/healthz`` answer 503 and writes ``hang_report.json``
     (:func:`_obs_stall`);
     (e) the observer's cost on the captured bf16 KG phase-2 step, three
-    ways (:func:`_obs_cost`)."""
+    ways (:func:`_obs_cost`);
+    (f) the run-comparison readers (:func:`_obs_readers`): ``aggregate``
+    over (a)'s dir (one host, one device, step-time ratio 1.0, read back
+    by the report), ``diff`` of (a) against itself (an ``ok`` row for
+    each gated key and each kernel launched; rc 1, its one regression
+    ``first_nonfinite``: (a)'s poisoned step), ``calibrate`` over
+    three tiny observed PascalPF runs on the card (the JAX CI's flags)
+    and the calibrated ``diff`` of run 1 against run 2 (rc 0,
+    ``calibrated:`` rows), the same run with ``--device cpu`` against run
+    1 (a ``dispatch[...]`` regression per kernel, notes under
+    ``--allow-kernel-fallback``, memory and idle skipped) and reversed
+    (no dispatch regression)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         _obs_kg(tmp)
@@ -5821,6 +6037,7 @@ def phase_obs(smi_line):
             torch.cuda.empty_cache()
         _obs_profile(tmp)
         _obs_stall(tmp)
+        _obs_readers(tmp)
 
 
 #: The worker's configuration in the ``serve_worker`` phase: the DBP15K
@@ -6084,7 +6301,11 @@ def phase_serve_worker(smi_line):
     (e) ``dbp15k --supervise`` cut as the ``resume`` phase cuts it, with
     ``sigkill@5``: one crash, one restart, the fault fired once, its
     step-6 checkpoint and last eval line bit-identical to the resume
-    phase's uninterrupted run; its child runs beside (c)'s wait.
+    phase's uninterrupted run; its child runs beside (c)'s wait;
+    (f) ``diff`` of the worker's dir against itself with the serve gates
+    armed (rc 0, the qtrace stage, goodput and utilization rows ``ok``),
+    and of (e)'s supervised run against its completed attempt read alone
+    (rc 1, ``restarts`` the one regression) (:func:`_worker_diffs`).
 
     Prints cold and warm ``ready_s`` with their phases, the latencies and
     the seconds from a kill to the restarted worker's first answer,
@@ -6303,6 +6524,39 @@ def phase_serve_worker(smi_line):
             f'one restart, done in {done_s:.1f}s (beside (c)); step 6 '
             f'bit-identical to the resume phase\'s uninterrupted run ({n} '
             f'tensors), last eval line equal')
+        _worker_diffs(obs, run_e.obs)
+
+
+def _worker_diffs(obs, kg_obs):
+    """(f): ``diff`` of the worker's supervised dir against itself with
+    the serve gates armed; ``diff`` of (e)'s supervised run against its
+    completed attempt's dir read alone (the CLI's artifacts without the
+    supervisor's ``recovery.json``, as an unsupervised run leaves them)."""
+    t0 = time.perf_counter()
+    rows = _diff_rows('serve_worker (f) the worker against itself', 0, obs,
+                      obs, '--max-stage-p95-regression', '0.5',
+                      '--min-goodput', '0', '--max-utilization', '1.0')
+    stages = sorted(m for m in rows if m.startswith('qtrace['))
+    need = stages + ['goodput_ratio', 'utilization', 'restarts']
+    bad = {m: rows.get(m) for m in need
+           if (rows.get(m) or {}).get('status') != 'ok'}
+    if not stages or bad:
+        raise AssertionError(f'serve_worker (f): worker diff rows '
+                             f'{bad or sorted(rows)}')
+    with open(os.path.join(kg_obs, 'recovery.json')) as f:
+        last = len(json.load(f)['attempts']) - 1
+    alone = os.path.join(kg_obs, f'attempt_{last}')
+    rows = _diff_rows('serve_worker (f) supervised KG against its attempt',
+                      1, alone, kg_obs)
+    failed = {m: (r['a'], r['b']) for m, r in rows.items()
+              if r['status'] == 'REGRESSION'}
+    if failed != {'restarts': (0, 1)}:
+        raise AssertionError(f'serve_worker (f): regressions {failed}, '
+                             f'expected restarts 0 -> 1 alone')
+    log(f'serve_worker (f): diff of the worker\'s dir against itself with '
+        f'the serve gates: rc 0, ok rows {need}; dbp15k --supervise (e) '
+        f'against its attempt_{last} read alone: rc 1, the one regression '
+        f'restarts 0 -> 1; in {time.perf_counter() - t0:.3f}s')
 
 
 def _supervised_kg(tmp, env):

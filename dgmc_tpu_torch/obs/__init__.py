@@ -31,6 +31,12 @@ JAX's package exports, where the port has them):
   :mod:`~dgmc_tpu_torch.obs.attribution`, :mod:`~dgmc_tpu_torch.obs.report`
   — the measured per-stage account from profiler traces and the run
   report (CLIs over files).
+- :mod:`~dgmc_tpu_torch.obs.diff`, :mod:`~dgmc_tpu_torch.obs.calibrate`,
+  :mod:`~dgmc_tpu_torch.obs.aggregate`, :mod:`~dgmc_tpu_torch.obs.timeline`
+  — run comparison: the regression gate between two runs, its noise
+  floors from repeat runs, the per-host and per-device skew, and the
+  trajectory of round records (CLIs over files; copies of the JAX
+  package's readers, the dispatch gate on the port's outcomes).
 """
 
 from dgmc_tpu_torch.obs import probes

@@ -235,9 +235,9 @@ def attribute_events(payloads, warmups=()):
             else 0.0)
 
     # One comparable idle headline per run: device idle when measured,
-    # host idle otherwise — with the source named so obs.diff refuses
-    # to compare a device-idle run against a host-idle one (the same
-    # contract as the memory row).
+    # host idle otherwise — with the source named so
+    # dgmc_tpu_torch.obs.diff refuses to compare a device-idle run
+    # against a host-idle one (the same contract as the memory row).
     if occupancy['device_idle_fraction'] is not None:
         occupancy['idle_fraction'] = occupancy['device_idle_fraction']
         occupancy['idle_source'] = 'device'
@@ -421,8 +421,8 @@ def build_attribution(path, obs_dir=None):
         # Host idle from the obs run trace (gaps between step/section
         # spans) and host idle from a profiler capture (python-tracer
         # coverage) are different quantities: name the source so
-        # obs.diff refuses to compare them, the same way it refuses
-        # device-vs-host memory peaks.
+        # dgmc_tpu_torch.obs.diff refuses to compare them, the same way
+        # it refuses device-vs-host memory peaks.
         occ['idle_source'] = 'host-trace'
     payload = {
         'schema': SCHEMA_VERSION,
@@ -453,8 +453,9 @@ def merge_into_efficiency(obs_dir, payload):
     headline fields (``measured_overlap_fraction``, ``measured_mfu``,
     ``device_idle_fraction``, ``idle_fraction``/``idle_source``) merge
     top-level ONLY when actually measured — an unavailable device
-    field stays absent so ``obs.report``/``obs.diff`` see "no
-    account", never a fabricated zero. Idempotent: a rerun replaces
+    field stays absent so :mod:`dgmc_tpu_torch.obs.report` and
+    :mod:`dgmc_tpu_torch.obs.diff` see "no account", never a fabricated
+    zero. Idempotent: a rerun replaces
     the measured block wholesale. Existing run rows are preserved
     verbatim (the same contract as ``obs.cost --obs-dir``).
     """
@@ -482,8 +483,8 @@ def merge_into_efficiency(obs_dir, payload):
             eff[key] = value
         else:
             # A rerun that LOST a measurement must also lose the stale
-            # headline — obs.diff's lost-account rule needs absence to
-            # mean absence.
+            # headline — dgmc_tpu_torch.obs.diff's lost-account rule
+            # needs absence to mean absence.
             eff.pop(key, None)
     os.makedirs(obs_dir, exist_ok=True)
     tmp = path + '.tmp'

@@ -518,7 +518,8 @@ def probe_healthz(port, host='127.0.0.1', timeout_s=2.0):
     unreachable (connection refused, timeout, non-JSON garbage): the
     caller falls back to file heartbeats, it does not condemn the run
     on a failed scrape. Shared by the run supervisor and
-    ``obs.aggregate`` so both apply the same scrape semantics.
+    :mod:`dgmc_tpu_torch.obs.aggregate` so both apply the same scrape
+    semantics.
     """
     import urllib.error
     import urllib.request

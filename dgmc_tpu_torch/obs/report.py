@@ -245,17 +245,19 @@ def summarize(run):
         # Headline per-program fields (arithmetic intensity, the
         # modeled overlap fraction, the static peak-live bound): one
         # shared picking convention (cost.headline_of — train_step
-        # first) so obs.diff and the attribution reconciliation can
-        # never gate on different programs than this summary reports.
+        # first) so dgmc_tpu_torch.obs.diff and the attribution
+        # reconciliation can never gate on different programs than this
+        # summary reports.
         from dgmc_tpu_torch.obs.cost import headline_of
         for key in ('arith_intensity', 'overlap_fraction',
                     'static_peak_bytes'):
             val = headline_of(eff, key)
             if val is not None:
                 out[key] = val
-        # Measured headline (obs.attribution's efficiency merge): the
-        # profiler-trace truth next to the static models, so obs.diff
-        # can gate measured overlap and idle growth from artifacts.
+        # Measured headline (dgmc_tpu_torch.obs.attribution's
+        # efficiency merge): the profiler-trace truth next to the static
+        # models, so dgmc_tpu_torch.obs.diff can gate measured overlap
+        # and idle growth from artifacts.
         # TOP-LEVEL keys only, deliberately: the merge pops a headline
         # whose measurement vanished, and falling back into the
         # `measured` block here would resurrect the stale value and
@@ -273,8 +275,9 @@ def summarize(run):
     qtrace = run.get('qtrace')
     if qtrace:
         # The serve plane's per-query account: per-stage quantiles for
-        # the diff's --max-stage-p95-regression gate, plus the gap
-        # attribution headline the timeline's SERVE rows render.
+        # dgmc_tpu_torch.obs.diff's --max-stage-p95-regression gate,
+        # plus the gap attribution headline (the SERVE rows of
+        # dgmc_tpu_torch.obs.timeline render its round-record form).
         out['qtrace_queries'] = qtrace.get('queries')
         out['qtrace_errors'] = qtrace.get('errors')
         e2e = qtrace.get('end_to_end') or {}
@@ -297,8 +300,8 @@ def summarize(run):
     if quality:
         # The quality plane (quality.json): the run's headline eval
         # metrics become FLAT summary keys — hits1/hits10/mrr/loss are
-        # what obs.diff's --max-hits1-regression / --min-hits1 gates
-        # read, and a run that stopped emitting them must LOSE the keys
+        # what dgmc_tpu_torch.obs.diff's --max-hits1-regression /
+        # --min-hits1 gates read, and a run that stopped emitting them must LOSE the keys
         # (lost-account-fails), never inherit stale ones.
         headline = (quality.get('headline') or {}).get('metrics') or {}
         for key, val in headline.items():
@@ -330,8 +333,8 @@ def summarize(run):
     goodput = run.get('goodput')
     if goodput:
         # The capacity/goodput plane (goodput.json): flat keys so
-        # obs.diff's --min-goodput / --max-pad-regression gates read the
-        # same artifact the observer recorded — a run that stopped
+        # dgmc_tpu_torch.obs.diff's --min-goodput / --max-pad-regression
+        # gates read the same artifact the observer recorded — a run that stopped
         # writing the account loses the keys (lost-account-fails).
         if goodput.get('goodput_ratio') is not None:
             out['goodput_ratio'] = goodput['goodput_ratio']

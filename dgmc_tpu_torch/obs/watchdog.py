@@ -108,9 +108,10 @@ class Watchdog:
             layer below the in-process deadline dump.
         advertise: extra keys merged into every heartbeat payload —
             how the run advertises its live-telemetry ``port``
-            (``--obs-port``) so the supervisor and ``obs.aggregate``
-            can discover per-attempt endpoints from the heartbeat file
-            alone, without out-of-band configuration.
+            (``--obs-port``) so the supervisor and
+            :mod:`dgmc_tpu_torch.obs.aggregate` can discover per-attempt
+            endpoints from the heartbeat file alone, without out-of-band
+            configuration.
         on_dump: callable ``(reason)`` invoked after every hang-report
             dump (deadline and signal paths alike) — the flight
             recorder's anomaly trigger. Runs on the dumping thread,

@@ -263,7 +263,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           'watchdog', 'probes', 'quality', 'anomaly', 'slo',
                           'trace', 'run', 'memory', 'qtrace', 'capacity',
                           'goodput', 'stages', 'cost', 'trace_events',
-                          'attribution', 'report')))} <= set(files)
+                          'attribution', 'report', 'timeline', 'calibrate',
+                          'diff', 'aggregate')))} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split('.')[0]
