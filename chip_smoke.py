@@ -315,6 +315,14 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   phase's uninterrupted run; (f) ``diff`` of the worker's dir against
   itself with the serve gates armed (rc 0) and of (e) against its
   completed attempt read alone (rc 1: ``restarts``).
+- ``lint``: the port's static analysis (``dgmc_tpu_torch/analysis``,
+  :func:`phase_lint`): (a) ``python -m dgmc_tpu_torch.analysis.lint
+  --json --fail-on new`` over this checkout, ``_build/`` skipped: rc 0
+  against ``lint-baseline-torch.json``; (b) the recompile pass over the
+  ``obs`` KG dir and the worker's attempt dirs: buckets, compile events
+  by kind (captures, ``nvcc`` builds, the build phase's cold count
+  beside), no RCP202; (c) a captured ``.item()`` raises on the card at
+  the line the SRC tier flags (SRC102).
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -410,15 +418,28 @@ def cuda_ms(fn, runs=10, warmup=2):
     return statistics.median(times)
 
 
+#: ``{kind: count}`` of the compile events the build phase recorded.
+BUILD_EVENTS = {}
+#: ``{label: timings.json text}`` of the obs dirs the ``obs`` and
+#: ``serve_worker`` phases wrote, for the ``lint`` phase's recompile pass.
+LINT_OBS = {}
+
+
 def phase_build(collation=True):
     """Build every CUDA source (in parallel) and, with ``collation``, the
     C++ collation library."""
+    from dgmc_tpu_torch.obs.registry import CompileWatcher
     from dgmc_tpu_torch.ops.kernels import build
     sources = sorted(f for f in os.listdir(build.CSRC_DIR)
                      if f.endswith('.cu'))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with CompileWatcher() as watcher, \
+            concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(build.load_library, sources)))
+    # The compile events a cold ``_build/`` adds (the lint phase's RCP
+    # account): one ``nvcc`` event a source it found unbuilt.
+    # (A tree before the kind split, under --root, has none.)
+    BUILD_EVENTS.update(watcher.summary().get('by_kind', {}))
     log(f'build: {len(libs)} kernel source(s) in '
         f'{time.perf_counter() - t0:.2f}s wall')
     for name, lib in libs.items():
@@ -3099,7 +3120,7 @@ def phase_serve(result, small, sc_small):
     log(f'serve: corpus {corpus.num_nodes} nodes / {corpus.num_edges} '
         f'edges / {corpus.feat_dim} features, index built in '
         f'{info["seconds"]}s, warm-up '
-        + ', '.join(f'{s} {w["warm_s"]}s' for s, w in warm.items())
+        + ', '.join(f'{w["bucket"]} {w["warm_s"]}s' for w in warm.values())
         + f', setup {time.perf_counter() - t0:.1f}s')
 
     queries = [sample_query(corpus.x, n, 3 * n, seed=100 + i)
@@ -3216,8 +3237,8 @@ def phase_serve(result, small, sc_small):
     # Each bucket's graph against the eager query path on the card, with
     # the engine's own noise and with a query's (a second graph, captured
     # at its first use).
-    for sig, w in warm.items():
-        log(f'serve: bucket {sig}: warm {w["warm_s"]}s, captured in '
+    for w in warm.values():
+        log(f'serve: bucket {w["bucket"]}: warm {w["warm_s"]}s, captured in '
             f'{w["capture_s"]}s, static memory ' + ', '.join(
                 f'{k} {v}' for k, v in w['memory'].items()))
     eager = MatchEngine(copy.deepcopy(model), index, router, device='cuda',
@@ -5289,12 +5310,14 @@ def _obs_kg(tmp):
     adjacency), observed, with the guard and a poisoned phase-2 step;
     (d)'s guard half."""
     from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.utils.io import write_json_atomic
     d = os.path.join(tmp, 'kg')
     spec = os.path.join(tmp, 'slo.json')
-    with open(spec, 'w') as f:
-        json.dump({'name': 'kg', 'availability': {'objective': 0.99},
-                   'latency': [{'name': 'step', 'threshold_ms': 1000.0,
-                                'objective': 0.9}]}, f)
+    write_json_atomic(spec, {'name': 'kg',
+                             'availability': {'objective': 0.99},
+                             'latency': [{'name': 'step',
+                                          'threshold_ms': 1000.0,
+                                          'objective': 0.9}]})
     marks, scrapes, mfus = [], [], []
     prof = os.path.join(tmp, 'kg_prof')
 
@@ -5376,6 +5399,8 @@ def _obs_kg(tmp):
     if by_label != {'phase1': 1, 'phase2': 1, 'run': 2}:
         raise AssertionError(f'obs (a): compile events by label {by_label}, '
                              f'expected one capture per step function')
+    with open(os.path.join(d, 'timings.json')) as f:
+        LINT_OBS['obs (a) KG'] = f.read()
     log(f'obs (a): dbp15k.main, 13 epochs (10 of phase 1), bf16, '
         f'observed, in {seconds:.1f}s: launches '
         f'{dict((k, counts[k]) for k in KG_KERNELS)} at KG_PER\'s counts; '
@@ -6495,6 +6520,11 @@ def phase_serve_worker(smi_line):
         log(f'serve_worker (d): SIGTERM: exit 143, outcome preempted, '
             f'{len(rec["attempts"])} attempts, the last worker\'s '
             f'artifacts on disk, the monitor without a CUDA context')
+        for i in range(len(rec['attempts'])):
+            path = os.path.join(obs, f'attempt_{i}', 'timings.json')
+            if os.path.exists(path):
+                with open(path) as f:
+                    LINT_OBS[f'serve_worker attempt_{i}'] = f.read()
 
         # (e) the training CLI under supervision
         run_e, = side
@@ -6573,6 +6603,156 @@ def _supervised_kg(tmp, env):
     proc.out, proc.ckpt, proc.obs = out, ckpt, obs
     proc.t0 = time.time()
     return proc
+
+
+#: The ``lint`` phase's (c): a step whose captured function reads the
+#: device from the host (written to a file, imported, and linted there).
+LINT_SYNC_SRC = """\
+from dgmc_tpu_torch.train.compiled import compiled
+
+
+def scaled(x):
+    total = x.sum()
+    return x * total.item()
+
+
+step = compiled(scaled, 'cuda')
+"""
+
+
+def phase_lint(smi_line):
+    """The port's static analysis (``dgmc_tpu_torch/analysis``) on the
+    card's machine, over what the earlier phases left:
+
+    (a) ``python -m dgmc_tpu_torch.analysis.lint --json --fail-on new``
+    over this checkout (the package and ``chip_smoke.py``), with the
+    kernels' ``_build/`` present (and ``__pycache__`` dirs, where the
+    interpreter writes bytecode), none of their files scanned: rc 0
+    against ``lint-baseline-torch.json``;
+    (b) the recompile pass (the CLI's RCP tier) over the KG obs dir of
+    ``obs`` (a) and each worker attempt's dir of ``serve_worker``: the
+    padding buckets, the compile events by kind (captures, ``nvcc``
+    builds) and the findings; no RCP202. The build phase's ``nvcc``
+    events (this checkout's cold ``_build/``) are printed beside, with
+    the verdict RCP202 would give if the budget counted them;
+    (c) SRC102 against the card: a few-line function that calls
+    ``.item()``, passed to ``compiled(..., 'cuda')``: its capture raises
+    (``sync_errors``) at the line that the SRC tier flags statically.
+
+    Prints the phase's seconds beside the card's name and power limit."""
+    import tempfile
+    from dgmc_tpu_torch.analysis import lint as lint_mod
+    from dgmc_tpu_torch.analysis.recompile import (analyze_buckets,
+                                                   bucket_signature,
+                                                   load_obs_buckets)
+    from dgmc_tpu_torch.analysis.source_rules import (iter_source_files,
+                                                      lint_source_file)
+    from dgmc_tpu_torch.utils.io import write_json_atomic
+    t_phase = time.perf_counter()
+    # (a) the CLI over the checkout
+    pkg = os.path.join(ROOT, 'dgmc_tpu_torch')
+    built = os.listdir(os.path.join(pkg, '_build'))
+    caches = [dp for dp, _, _ in os.walk(pkg)
+              if os.path.basename(dp) == '__pycache__']
+    scanned = list(iter_source_files(pkg))
+    stray = [p for p in scanned
+             if {'_build', '__pycache__'} & set(p.split(os.sep))]
+    if not built or stray:
+        raise AssertionError(f'lint (a): _build/ holds {len(built)} files; '
+                             f'scanned from _build/ or __pycache__: '
+                             f'{stray}')
+    baseline = os.path.join(ROOT, 'lint-baseline-torch.json')
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-m', 'dgmc_tpu_torch.analysis.lint', '--json',
+         '--fail-on', 'new', '--baseline', baseline], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f'lint (a): rc {out.returncode}: '
+                             f'{out.stdout[-3000:]} {out.stderr[-2000:]}')
+    report = json.loads(out.stdout)
+    log(f'lint (a): python -m dgmc_tpu_torch.analysis.lint --json '
+        f'--fail-on new: rc 0 in {cli_s:.2f}s over {len(scanned)} package '
+        f'files and chip_smoke.py (_build/ with {len(built)} files and '
+        f'{len(caches)} __pycache__ dirs skipped); summary '
+        f'{report["summary"]}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the recompile pass over the phases' obs dirs
+        labels = sorted(LINT_OBS)
+        if 'obs (a) KG' not in labels or not any(
+                k.startswith('serve_worker') for k in labels):
+            raise AssertionError(f'lint (b): obs dirs kept: {labels} (the '
+                                 f'obs and serve_worker phases keep them)')
+        nvcc_cold = BUILD_EVENTS.get('nvcc', 0)
+        for i, label in enumerate(labels):
+            d = os.path.join(tmp, f'obs_{i}')
+            timings = json.loads(LINT_OBS[label])
+            write_json_atomic(os.path.join(d, 'timings.json'), timings)
+            kinds = timings['compile'].get('by_kind')
+            buckets, captures = load_obs_buckets(d)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = lint_mod.main(['--json', '--skip-source',
+                                    '--skip-concurrency', '--obs-dir', d,
+                                    '--baseline',
+                                    os.path.join(tmp, 'none.json'),
+                                    '--fail-on', 'none'])
+            found = json.loads(buf.getvalue())['findings']
+            rules = [f['rule'] for f in found]
+            if rc != 0 or 'RCP202' in rules or kinds is None:
+                raise AssertionError(f'lint (b) {label}: rc {rc}, '
+                                     f'findings {found}, by_kind {kinds}')
+            distinct = len({bucket_signature(b) for b in buckets}) or 1
+            cold = analyze_buckets(buckets,
+                                   compile_events=captures + nvcc_cold)
+            rows = [(b['batch'], b['nodes'], b['edges'], b['count'])
+                    for b in buckets]
+            log(f'lint (b) {label}: buckets (B, nodes, edges, count) '
+                f'{rows}; '
+                f'compile events {kinds} -> {captures} captures for '
+                f'{distinct} signature(s) ({captures / distinct:g} a '
+                f'bucket, budget 8); findings {rules or "none"}; with '
+                f'this checkout\'s cold-_build/ nvcc events added '
+                f'({nvcc_cold}): {[f.rule for f in cold] or "none"}')
+        log(f'lint (b): the build phase recorded {BUILD_EVENTS} (cold '
+            f'_build/: one nvcc event a source); the obs dirs above were '
+            f'written on a warm _build/')
+
+        # (c) SRC102 against the card
+        path = os.path.join(tmp, 'lint_sync_step.py')
+        with open(f'{path}.tmp', 'w') as f:
+            f.write(LINT_SYNC_SRC)
+        os.replace(f'{path}.tmp', path)
+        static = [(f.rule, int(f.where.rsplit(':', 1)[1]))
+                  for f in lint_source_file(path)]
+        if [r for r, _ in static] != ['SRC102']:
+            raise AssertionError(f'lint (c): static findings {static}')
+        spec = importlib.util.spec_from_file_location('lint_sync_step', path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        try:
+            mod.step(torch.ones(4, device='cuda'))
+        except RuntimeError as e:
+            lines = [fr.lineno for fr in traceback.extract_tb(e.__traceback__)
+                     if fr.filename == path]
+            if lines[-1:] != [static[0][1]] or 'synchroniz' not in str(e):
+                raise AssertionError(f'lint (c): the capture raised at '
+                                     f'lines {lines}: {e}') from e
+            raised = str(e).splitlines()[0]
+        else:
+            raise AssertionError('lint (c): a captured .item() did not '
+                                 'raise')
+        torch.cuda.synchronize()
+        if mod.step.records:
+            raise AssertionError('lint (c): the failed capture left a '
+                                 'record')
+        log(f'lint (c): compiled(scaled, \'cuda\') raised at line '
+            f'{static[0][1]} ({raised!r}); the SRC tier flags the same '
+            f'line statically: {static}')
+    log(f'lint: phase in {time.perf_counter() - t_phase:.2f}s on '
+        f'{smi_line}')
 
 
 def main(argv=None):
@@ -6656,6 +6836,8 @@ def main(argv=None):
             ('obs', lambda: phase_obs(
                 smi[0] if smi else 'nvidia-smi: no output')),
             ('serve_worker', lambda: phase_serve_worker(
+                smi[0] if smi else 'nvidia-smi: no output')),
+            ('lint', lambda: phase_lint(
                 smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:

@@ -9,9 +9,11 @@ Hopper (``csrc/``). The package imports neither JAX nor anything of
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 asking for CUDA where there is none raises instead of falling back.
-"""
 
-import torch
+Importing the package imports no torch (its modules do, each for
+itself), so the static analysis (:mod:`dgmc_tpu_torch.analysis`) starts
+without it.
+"""
 
 __version__ = '0.1.0'
 
@@ -25,6 +27,7 @@ def resolve_device(device=None):
     ``RuntimeError`` (no silent CPU fallback). ``'cpu'`` is always
     honoured.
     """
+    import torch
     dev = torch.device('cuda' if device is None else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
@@ -36,5 +39,6 @@ def resolve_device(device=None):
 def set_exact_float32():
     """Full float32 on the card: no TF32 in matrix products or cuDNN, so
     results compare against the float32 plain versions."""
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

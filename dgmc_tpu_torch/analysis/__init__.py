@@ -1,0 +1,55 @@
+"""Static analysis of the port: hazards caught before a run is launched.
+
+The port's counterpart of the JAX package's ``dgmc_tpu/analysis`` for
+three of its tiers, with the same rule ids, :class:`Finding` records,
+fingerprints, baseline format and CLI contract:
+
+- **source tier** (:mod:`~dgmc_tpu_torch.analysis.source_rules`):
+  ``ast`` lints over *captured code* — the functions a compiled step
+  (:mod:`~dgmc_tpu_torch.train.compiled`) captures into a CUDA graph,
+  and ``with torch.cuda.graph(...)`` blocks — for stores that a replay
+  overwrites (SRC101), host syncs (SRC102) and captures built in a loop
+  (SRC103).
+- **concurrency tier** (:mod:`~dgmc_tpu_torch.analysis.con_rules`, on
+  the thread-entry/lock model :mod:`~dgmc_tpu_torch.analysis.
+  concurrency`; copies of the JAX modules): unlocked read-modify-writes
+  from threads, lock-order inversions, non-atomic artifact writes,
+  unsafe signal-handler work, unbounded shared container growth.
+- **recompile pass** (:mod:`~dgmc_tpu_torch.analysis.recompile`):
+  signatures of padding buckets (:func:`bucket_signature`, also the
+  serving router's executable key) and their churn, cross-checked
+  against the capture telemetry of a recorded run's ``timings.json``.
+
+CLI: ``python -m dgmc_tpu_torch.analysis.lint`` (``--json``,
+``--select``/``--ignore``, ``--explain``, ``--fail-on new`` against the
+committed ``lint-baseline-torch.json``). The modules here import neither
+torch nor anything of the JAX package.
+"""
+
+from dgmc_tpu_torch.analysis.findings import (Finding, Severity,
+                                              load_baseline, write_baseline,
+                                              split_by_baseline)
+from dgmc_tpu_torch.analysis.source_rules import (lint_source_tree,
+                                                  lint_source_file,
+                                                  lint_source_paths)
+from dgmc_tpu_torch.analysis.con_rules import (lint_concurrency_tree,
+                                               lint_concurrency_file,
+                                               lint_concurrency_paths)
+from dgmc_tpu_torch.analysis.recompile import (analyze_buckets,
+                                               bucket_signature)
+
+__all__ = [
+    'Finding',
+    'Severity',
+    'load_baseline',
+    'write_baseline',
+    'split_by_baseline',
+    'lint_source_tree',
+    'lint_source_file',
+    'lint_source_paths',
+    'lint_concurrency_tree',
+    'lint_concurrency_file',
+    'lint_concurrency_paths',
+    'analyze_buckets',
+    'bucket_signature',
+]

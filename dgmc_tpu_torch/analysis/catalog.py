@@ -1,0 +1,211 @@
+"""The rule catalog: every lint rule's id, tier, severity, and doc.
+
+The port's counterpart of the JAX package's ``dgmc_tpu/analysis/
+catalog.py`` for the three tiers the port has: source (SRC, rewritten
+for captured code), recompile (RCP) and concurrency (CON, copied). One
+structured table owns what a rule IS (``--list-rules``) and what it
+means (``--explain RULE`` — what/why/fix). Pure data, so the CLI can
+answer ``--explain`` without importing torch's backends.
+"""
+
+import dataclasses
+from typing import Dict
+
+__all__ = ['RuleDoc', 'RULES', 'RULE_CATALOG', 'TIERS', 'explain_rule']
+
+#: Tier key -> human name (the order tiers report in).
+TIERS = {
+    'SRC': 'source (ast lints over the package source)',
+    'RCP': 'recompile (padding-bucket churn + obs telemetry)',
+    'CON': 'concurrency (thread-entry/lock model over serving source)',
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RuleDoc:
+    """One rule's documentation: a one-line title plus what/why/fix."""
+    rule: str
+    severity: str
+    title: str
+    what: str
+    why: str
+    fix: str
+
+    @property
+    def tier(self) -> str:
+        return TIERS[self.rule[:3]]
+
+
+def _r(rule, severity, title, what, why, fix):
+    return RuleDoc(rule=rule, severity=severity, title=title, what=what,
+                   why=why, fix=fix)
+
+
+RULES: Dict[str, RuleDoc] = {d.rule: d for d in [
+    # --- source tier -----------------------------------------------------
+    _r('SRC100', 'error', 'source file failed to parse',
+       'The source tier could not ast-parse a .py file.',
+       'An unparseable file is invisible to every source rule — the '
+       'lint would silently stop covering it.',
+       'Fix the syntax error (the finding carries the location).'),
+    _r('SRC101', 'error',
+       'captured function stores to self/global',
+       'Captured code (the def passed to compiled(...) / Compiled(...), '
+       'or the body of a `with torch.cuda.graph(...)` block) assigns '
+       'self.<attr> or a declared module global.',
+       'The capture runs the Python once; replays run only the graph. '
+       'A stored tensor is a static buffer that the next replay '
+       'overwrites in place, and any other stored value is set at '
+       'capture and never updated again.',
+       'Return the value from the step (and clone it to keep it past '
+       'the next call), or move the store outside the captured '
+       'function.'),
+    _r('SRC102', 'warning',
+       'host sync inside captured code (.item/.cpu/float/np.asarray/'
+       'synchronize)',
+       'x.item() / x.tolist() / x.cpu() / x.numpy(), float(x) / int(x) / '
+       'bool(x) on a non-constant, np.asarray(x) / np.array(x), or a '
+       '.synchronize() inside captured code.',
+       'Each reads the device from the host. A capture runs under '
+       "set_sync_debug_mode('error') and raises on it, but only on the "
+       'branch its warm-up reaches: a sync on another branch waits '
+       'for the data that selects it.',
+       'Keep the value on the device (torch ops, torch.where for '
+       'control flow); read it on the host after the step returns.'),
+    _r('SRC103', 'warning',
+       'compiled(...) / CUDAGraph constructed inside a loop',
+       'compiled(...), Compiled(...) or torch.cuda.CUDAGraph() is '
+       'called inside a loop body.',
+       'Every iteration builds a fresh wrapper and throws away the '
+       "records the last one captured (graphs, static buffers, their "
+       'private memory pools): a capture per iteration, the recompile '
+       'churn of the port.',
+       'Build the compiled step once, outside the loop, and call it in '
+       'the loop.'),
+    _r('SRC104', 'warning',
+       'static arg with an unhashable (mutable) default',
+       'Kept for the rule id only: it cannot fire on the port. The JAX '
+       "package's rule flags static_argnums/static_argnames naming a "
+       'parameter with a mutable default; compiled(...) takes no static '
+       'argument.',
+       'A compiled step keys its records on a signature it builds from '
+       'its inputs: a tensor or graph batch by shapes and dtypes, a '
+       'Python int as the word int (its value becomes a 0-d device '
+       'tensor), a Fixed input by identity, None as absent; any other '
+       'input raises TypeError at the call. No input value is a cache '
+       'key, so no default can explode as one.',
+       'Nothing to fix; the id stays so that a baseline or --select '
+       'naming it keeps its meaning in both packages.'),
+    # --- recompile pass --------------------------------------------------
+    _r('RCP201', 'warning',
+       'padding bucket dominated by another (avoidable compile churn)',
+       'A padding bucket every one of whose padded dimensions is <= '
+       'another bucket of the SAME pair-batch size.',
+       'Collating into the bigger padding serves both batches with ONE '
+       'captured graph at the cost of a few masked rows; the dominated '
+       'bucket is pure capture churn. The pair-batch axis (B, '
+       '--pairs-per-step) is deliberately NOT a padding axis: padding '
+       'B replicates the whole per-pair cost and changes how many '
+       'gradient samples a step averages.',
+       'Collate into the larger node/edge padding (utils/data.'
+       'pad_pair_batch limits) so the dominated bucket disappears.'),
+    _r('RCP202', 'warning',
+       'compile events exceed what padding buckets explain',
+       'An obs-recorded run captured more graphs than its distinct '
+       'padding signatures * the per-bucket budget. The count is the '
+       "captures (timings.json's compile.by_kind.capture): a kernel "
+       "source's nvcc build is not a program of a bucket.",
+       'Recaptures are coming from somewhere the padding analysis '
+       'cannot see: an input whose identity changes per call (a Fixed '
+       'input rebuilt each step), a dtype flip, an optional input that '
+       'comes and goes.',
+       'Diff the compile-event labels in the obs run (timings.json) '
+       'against the padding buckets; stabilize whatever input is '
+       'changing identity.'),
+    # --- concurrency tier ------------------------------------------------
+    _r('CON501', 'error',
+       'shared attribute read-modify-written from a thread with no lock',
+       'A class attribute is read-modify-written (`+=` / `self.x = '
+       'self.x + ...`) from a method reachable from a thread entry '
+       'point (Thread/Timer target, do_GET/do_POST handler, '
+       'signal/atexit hook) while no write site of that attribute in '
+       'the class holds a lock. Plain rebinding is exempt: a single '
+       'STORE_ATTR is atomic under the GIL.',
+       'Python `+=` on an attribute is read-op-write, not atomic: '
+       'concurrent handler threads interleave between the read and the '
+       'store and increments vanish silently — the serve-counter race '
+       '(queries_served undercounted under load) as a rule class.',
+       'Guard every write of the attribute with the class lock '
+       '(`with self._lock: self.n += 1` — StreamingHistogram.observe '
+       'in obs/live.py is the in-repo model), or make the state '
+       'thread-local and merge on read.'),
+    _r('CON502', 'error',
+       'nested lock acquisition order inconsistent across call paths',
+       'Two locks of one class are acquired nested in both orders — '
+       'A then B on one path, B then A on another — lexically or one '
+       '`self.<m>()` call level deep.',
+       'Opposite acquisition orders deadlock by construction: the '
+       'first time two threads interleave between the outer and inner '
+       'acquire, each holds what the other needs, forever. The serve '
+       'engine already carries two locks and the continuous batcher '
+       'adds a queue lock — order discipline has to be mechanical.',
+       'Pick one canonical order for every pair of locks and '
+       'restructure the second path to match (or release the first '
+       'lock before taking the second, as engine.match does between '
+       'its admission and stats sections).'),
+    _r('CON503', 'warning',
+       'consumed artifact written in place (no tmp+rename)',
+       "open(path, 'w') on an artifact path in a function that never "
+       'calls os.replace/os.rename and whose path expression does not '
+       'name a temp file.',
+       'The write is torn twice over: a concurrent reader (supervisor, '
+       'scraper, restarted worker) can open the file mid-write, and a '
+       'crash leaves a truncated artifact that poisons the next run. '
+       'Every obs artifact writer in this repo uses tmp+os.replace for '
+       'exactly this reason.',
+       'Write through utils/io.write_json_atomic, or an explicit '
+       "f'{path}.tmp.{pid}' + os.replace; append mode is exempt."),
+    _r('CON504', 'error',
+       'unsafe work inside a signal handler',
+       'A registered signal.signal handler acquires a lock, performs '
+       'buffered IO (open/print/logging), or builds allocation-heavy '
+       'formatted output (json.dumps, str.format, traceback.format_*) '
+       'directly in its body.',
+       'The handler runs with the interrupted thread stopped at an '
+       'arbitrary bytecode: any lock it takes may already be held '
+       '(instant deadlock), and buffered IO can re-enter stream '
+       'internals mid-update. The watchdog signal path is lock-free '
+       'by contract for exactly this reason.',
+       'Set a flag/Event and do the work on a thread, or restrict the '
+       'handler to pre-cached state and lock-free writes (the '
+       'watchdog `_on_signal` -> `dump(use_locks=False)` model).'),
+    _r('CON505', 'warning',
+       'shared container grows without bound from a serving thread',
+       'A list/dict/set/deque attribute built in __init__ grows '
+       '(.append/.add/keyed store) from a thread-entry method while '
+       'the class shows no cap: no deque(maxlen=...), no len() check, '
+       'no eviction or rotation.',
+       'A long-lived serving process accretes per-query state forever '
+       'until the OOM killer arrives — hours or days after the deploy, '
+       'far from the cause. The bounded-ring discipline (FlightRecorder '
+       'deque(maxlen), qtrace capacity with drop accounting) exists '
+       'for this.',
+       'Use collections.deque(maxlen=...) for rings, or an explicit '
+       'capacity check with drop/evict accounting on every growth '
+       'path.'),
+]}
+
+#: ``{rule: one-line title}`` — the ``--list-rules`` table (lint.py
+#: re-exports it).
+RULE_CATALOG = {rule: doc.title for rule, doc in RULES.items()}
+
+
+def explain_rule(rule: str) -> str:
+    """The ``--explain`` rendering of one rule (raises KeyError on an
+    unknown id)."""
+    d = RULES[rule]
+    return (f'{d.rule} — {d.title}\n'
+            f'  severity: {d.severity}    tier: {d.tier}\n'
+            f'  What: {d.what}\n'
+            f'  Why:  {d.why}\n'
+            f'  Fix:  {d.fix}')

@@ -42,6 +42,15 @@ WILLOW_DIRS = ('Face', 'Motorbike', 'Car', 'Duck', 'Winebottle')
 JITTER = 0.03
 
 
+def _write_text(path, text):
+    """Write ``text`` to ``path`` whole: a temporary file beside it,
+    then ``os.replace``, so no reader sees a part of it."""
+    tmp = f'{path}.tmp.{os.getpid()}'
+    with open(tmp, 'w') as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
 def _image(path, rng, h, w):
     """A random RGB image, in the format the path's suffix names."""
     from PIL import Image
@@ -88,8 +97,8 @@ def write_voc(root, seed=0, train=4, val=2, image_size=None):
                    f'x="{x0 + pts[j, 0] * bw:.2f}" '
                    f'y="{y0 + pts[j, 1] * bh:.2f}" z="0.0"/>'
                    for j, n in enumerate(names)]
-            with open(os.path.join(ann, f'{image_id}_1.xml'), 'w') as f:
-                f.write(f'<?xml version="1.0" encoding="utf-8"?>\n'
+            _write_text(os.path.join(ann, f'{image_id}_1.xml'),
+                        f'<?xml version="1.0" encoding="utf-8"?>\n'
                         f'<annotation>\n\t<image>{image_id}</image>\n'
                         f'\t<category>{cat}</category>\n'
                         f'\t<visible_bounds height="{bh:.2f}" '
@@ -100,10 +109,10 @@ def write_voc(root, seed=0, train=4, val=2, image_size=None):
             if image_size is not None:
                 _image(os.path.join(images, f'{image_id}.jpg'), rng, h, w)
         for split, part in (('train', ids[:train]), ('val', ids[train:])):
-            with open(os.path.join(sets, f'{cat}_{split}.txt'), 'w') as f:
-                f.write(''.join(f'{i} {rng.choice([0, 1]):2d}\n'
-                                for i in part))
-                f.write(f'2008_99{c:04d} -1\n')
+            _write_text(os.path.join(sets, f'{cat}_{split}.txt'),
+                        ''.join(f'{i} {rng.choice([0, 1]):2d}\n'
+                                for i in part)
+                        + f'2008_99{c:04d} -1\n')
     return root
 
 
@@ -174,8 +183,7 @@ def write_dbp15k(root, n1=12, n2=14, e1=30, e2=36, dim=8, train=6, test=6,
     os.makedirs(d, exist_ok=True)
 
     def write(name, text):
-        with open(os.path.join(d, name), 'w') as f:
-            f.write(text)
+        _write_text(os.path.join(d, name), text)
 
     write('ent_ids_1', ''.join(f'{i}\te{i}\n' for i in range(n1)))
     write('ent_ids_2', ''.join(f'{100 + i}\tf{i}\n' for i in range(n2)))

@@ -275,20 +275,26 @@ class CompileWatcher:
         return len(self.events)
 
     def summary(self):
-        """``{'events', 'compile_s', 'cache_hits', 'by_label'}`` for
-        ``timings.json`` (``cache_hits`` is always 0: the port has no
+        """``{'events', 'compile_s', 'cache_hits', 'by_label', 'by_kind'}``
+        for ``timings.json`` (``cache_hits`` is always 0: the port has no
         persistent compilation cache; a kernel library found built is
-        no event)."""
+        no event). ``by_kind`` counts the events of each kind
+        (``capture``, ``nvcc``): the recompile pass's RCP202 budget
+        counts the captures alone (:mod:`~dgmc_tpu_torch.analysis.
+        recompile`)."""
         evs = self.events
         by_label = {}
+        by_kind = {}
         for e in evs:
             d = by_label.setdefault(e['label'], {'events': 0,
                                                  'compile_s': 0.0})
             d['events'] += 1
             d['compile_s'] = round(d['compile_s'] + e['duration_s'], 4)
+            by_kind[e['kind']] = by_kind.get(e['kind'], 0) + 1
         return {
             'events': len(evs),
             'compile_s': round(sum(e['duration_s'] for e in evs), 4),
             'cache_hits': 0,
             'by_label': by_label,
+            'by_kind': by_kind,
         }

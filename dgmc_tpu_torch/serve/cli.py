@@ -160,8 +160,9 @@ def main(argv=None):
     log(f'{engine.buckets_warm} buckets warm in '
         f'{time.perf_counter() - t0:.2f}s (cache {info["cache"]}) on '
         f'{device}')
-    for sig, r in report.items():
-        log(f'bucket {sig}: captured in {r["capture_s"]}s, static memory '
+    for r in report.values():
+        log(f'bucket {r["bucket"]}: captured in {r["capture_s"]}s, static '
+            f'memory '
             f'{r["memory"]["total_bytes"] >> 20} MiB (temps '
             f'{r["memory"]["temp_bytes"] >> 20} MiB)')
     largest = max(b.nodes for b in router.buckets)

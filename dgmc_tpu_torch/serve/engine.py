@@ -246,7 +246,8 @@ class MatchEngine:
                                'queries': 0, 'pad_sum': 0.0,
                                'goodput_sum': 0.0, 'stages': stages}
             report[sig] = {
-                'bucket': sig, 'warm_s': warm_s,
+                'bucket': f'{bucket.nodes}x{bucket.edges}',
+                'warm_s': warm_s,
                 'capture_s': round(rec.capture_s, 3) if rec else 0.0,
                 'memory': mem}
             if self._obs:

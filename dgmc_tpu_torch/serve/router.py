@@ -3,13 +3,20 @@
 The bucket space is declared at startup (``--buckets 32x96,64x192``),
 every declared bucket is warmed before the first query, and a query that
 fits no declared bucket is a structured error
-(:class:`UnknownBucketError`). Executables are keyed on the
-``(nodes, edges)`` bucket.
+(:class:`UnknownBucketError`).
+
+Executables are keyed on the bucket's signature: the recompile pass's
+:func:`~dgmc_tpu_torch.analysis.recompile.bucket_signature` over the
+bucket's telemetry row (:meth:`QueryRouter.bucket_row`, the row format
+the collation records in ``timings.json``'s ``padding_buckets``), the
+same 16-hex key the JAX package's router gives the same bucket. An
+answer's ``bucket`` field stays the readable ``'NxE'``.
 """
 
 import re
 from typing import List, NamedTuple
 
+from dgmc_tpu_torch.analysis.recompile import bucket_signature
 from dgmc_tpu_torch.utils.data import pad_graphs
 
 __all__ = ['Bucket', 'DEFAULT_BUCKETS', 'QueryRouter', 'UnknownBucketError',
@@ -85,10 +92,17 @@ class QueryRouter:
                 return b
         raise UnknownBucketError(nodes, edges, self.buckets)
 
-    @staticmethod
-    def signature(bucket) -> str:
-        """The bucket's executable-table key."""
-        return f'{bucket.nodes}x{bucket.edges}'
+    def bucket_row(self, bucket) -> dict:
+        """The padding-bucket row this bucket collates as (the run
+        plane's ``padding_buckets`` format, B=1 against the corpus)."""
+        return {'batch': 1,
+                'nodes': f'{bucket.nodes}x{self.corpus_nodes}',
+                'edges': f'{bucket.edges}x{self.corpus_edges}'}
+
+    def signature(self, bucket) -> str:
+        """The bucket's executable-table key: the recompile pass's
+        signature hash of :meth:`bucket_row`."""
+        return bucket_signature(self.bucket_row(bucket))
 
     def pad_query(self, graph, bucket):
         """Collate one host :class:`~dgmc_tpu_torch.utils.data.Graph` into
@@ -97,8 +111,7 @@ class QueryRouter:
         real sizes beside it; the corpus side is real by construction."""
         from dgmc_tpu_torch.obs.registry import record_padding
         record_padding(
-            batch=1, nodes=f'{bucket.nodes}x{self.corpus_nodes}',
-            edges=f'{bucket.edges}x{self.corpus_edges}',
+            **self.bucket_row(bucket),
             real={'nodes_s': int(graph.num_nodes),
                   'edges_s': int(graph.num_edges),
                   'nodes_t': self.corpus_nodes,

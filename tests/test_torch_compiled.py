@@ -457,7 +457,9 @@ def _warm_and_answer(device):
     corpus, (engine, eager) = _engines(device, (True, False))
     report = engine.warm()
     eager.warm()
-    assert set(report) == {'16x48', '32x96'}
+    assert set(report) == {engine.router.signature(b)
+                           for b in engine.router.buckets}
+    assert {r['bucket'] for r in report.values()} == {'16x48', '32x96'}
     for r in report.values():
         assert r['capture_s'] >= 0 and set(r['memory']) == MEMORY_KEYS
         assert r['memory']['argument_bytes'] > 0

@@ -149,7 +149,9 @@ def engine(pair):
                          corpus.num_edges)
     eng = MatchEngine(pair['tm'], index, router, max_results=3,
                       device='cpu')
-    assert set(eng.warm()) == {'16x48', BUCKET}
+    report = eng.warm()
+    assert set(report) == {router.signature(b) for b in router.buckets}
+    assert {r['bucket'] for r in report.values()} == {'16x48', BUCKET}
     return eng
 
 
@@ -175,6 +177,22 @@ def test_engine_answer_matches_jax(pair, jax_run, engine):
     for key, val in want['quality'].items():
         np.testing.assert_allclose(ans['quality'][key], val, atol=2e-5,
                                    err_msg=key)
+
+
+def test_engine_answer_signature_matches_jax_router(pair, engine):
+    """An answer's ``signature`` is the JAX package's key for the same
+    bucket (the recompile pass's hash of the bucket's telemetry row);
+    its ``bucket`` stays the readable ``'NxE'``."""
+    from tests.torch_jax_worker import jax_worker
+    ans = engine.match(pair['q'])
+    corpus = pair['corpus']
+    with jax_worker('dgmc_tpu.serve.router') as m:
+        router = m['router'].QueryRouter(f'16x48,{BUCKET}',
+                                         corpus.num_nodes, corpus.num_edges)
+        want = router.signature(router.route(pair['q'].num_nodes,
+                                             pair['q'].num_edges))
+    assert ans['bucket'] == BUCKET
+    assert ans['signature'] == want and len(want) == 16
 
 
 def test_repeat_query_gives_identical_answer(pair, engine):
@@ -258,6 +276,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       ('datasets', 'fixtures.py'),
                       ('experiments', 'pascal.py'),
                       ('experiments', 'willow.py'),
+                      *(('analysis', f'{m}.py') for m in (
+                          '__init__', 'findings', 'catalog', 'concurrency',
+                          'source_rules', 'con_rules', 'recompile',
+                          'lint')),
                       *(('obs', f'{m}.py') for m in (
                           '__init__', 'observe', 'registry', 'live',
                           'watchdog', 'probes', 'quality', 'anomaly', 'slo',
