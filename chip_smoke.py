@@ -35,9 +35,14 @@ Phases (any failure exits non-zero and prints no result line). The
 float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 ``*_bf16`` phases run the bf16 policy:
 
-- ``build``: compiles every kernel source of ``dgmc_tpu_torch/csrc``
-  (one ``nvcc`` per source, started together) and the C++ collation
-  (``dgmc_tpu_torch/native``, ``g++``).
+- ``build``: starts compiling every kernel source of
+  ``dgmc_tpu_torch/csrc`` (one ``nvcc`` per source, all side by side)
+  and builds the C++ collation (``dgmc_tpu_torch/native``, ``g++``).
+  Each later phase waits for the sources it needs (:func:`await_builds`):
+  the kernel phases run in the order their sources finish (spline,
+  consensus, rng, blocked, topk, sparse consensus; the phases below are
+  listed by kernel, not in that order), while the slower sources still
+  compile.
 - ``topk_kernel``: the CUDA top-k kernel against its plain PyTorch
   version on the card — bit-equal indices and values on integer-valued
   cases (ties, a random mask, k above the valid targets, tile
@@ -162,10 +167,10 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   loss is finite, every collation took the native path; the spline
   launches are also filed by the width they ran at
   (:func:`spline_launches_by_width`). Then: the losses and gradients of
-  the CLI's first six steps (its batches, each device drawing the
+  the CLI's first four steps (its batches, each device drawing the
   step's noise itself) against the CPU plain path on the same weights
   (:func:`_hold_grads`: ``GRAD_TOL``, with a float64 CPU reference
-  beyond it, over the six draws; the card's path without the port's
+  beyond it, over the four draws; the card's path without the port's
   kernels printed beside); two 2-step
   runs from one seed give bit-identical losses; the median step time,
   pairs/s, peak memory and a profile of one step (informational).
@@ -206,6 +211,22 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   of ``kg_train``'s), ``--stream_chunk 4096 --offload-corpus`` (2
   epochs, 4 top-k launches a step, ``equal=True``), and
   ``python -m dgmc_tpu_torch.ops.offload`` at its default sizes.
+- ``union_route``: the routed candidate sums and the pair union on the
+  DBP15K model at the JAX CLI's widths (:func:`phase_union_route`): (a)
+  the blocked kernel's routed entry (``csrc/blocked.cu``,
+  ``dgmc_blocked_route``; ``ops/corr_route.py``) at the phase-2 training
+  shape ([1, 15000, 20] over 20000 targets, the model's own shortlist):
+  the scaled projection and the gather's backward at C = 32,
+  bit-identical to the scaled ``ordered_aggregate``, within rtol / atol
+  1e-5 of JAX's one-hot plain version, exact small cases bit-equal;
+  times beside the bound, the plain version and ``torch.sparse.mm``; the
+  largest target in-degree; (b) the captured phase-2 step with
+  ``route_sparse=True`` under both policies, bit-identical to eager,
+  launches per step, loss and gradients against the default path, the
+  median of 20 steps beside the default's; (c) ``batch_pair`` in
+  {'psi_1', 'psi_2', True}: the forward against the two-call model (rtol
+  5e-4, atol 5e-5), a captured training step each; (d) the refusals on
+  CUDA tensors.
 - ``capture``: the captured steps (``jit=True``, the CLIs' default: one
   CUDA graph per step function and input signature, every capture under
   ``torch.cuda.set_sync_debug_mode('error')``) against the eager ones
@@ -344,7 +365,9 @@ main shapes (``rng_normal@...``, ``rng_negatives@...``; launches: the
 float32 main paths' draws of that shape) and the ``keypoints`` phase's
 shapes (``consensus_fwd@512xNxN,R=128``, ``spline_route_fwd@512xMxO,D=2``
 ...; launches: the keypoint CLIs' counters at that shape and dtype,
-:data:`KP_MAIN`) (``ms_source`` says
+:data:`KP_MAIN`), the routed sums (``corr_project``,
+``corr_gather_bwd``; launches: the ``union_route`` phase's routed
+steps) (``ms_source`` says
 whether its ``ms``, ``plain_ms`` and ``library_ms`` are profiler device
 times or CUDA-event times), and last
 ``{"ok": true, "device": {...}}``. Float32 is exact: TF32 is off for
@@ -358,6 +381,7 @@ import contextlib
 import copy
 import functools
 import gc
+import importlib
 import importlib.util
 import io
 import itertools
@@ -423,38 +447,76 @@ BUILD_EVENTS = {}
 #: ``{label: timings.json text}`` of the obs dirs the ``obs`` and
 #: ``serve_worker`` phases wrote, for the ``lint`` phase's recompile pass.
 LINT_OBS = {}
+#: The kernel builds :func:`phase_build` started: ``futures`` (source
+#: file name -> its ``load_library`` future), ``logged`` (the sources
+#: whose build lines are printed), the compile-event ``watcher`` and the
+#: start ``t0``.
+BUILDS = {}
 
 
-def phase_build(collation=True):
-    """Build every CUDA source (in parallel) and, with ``collation``, the
-    C++ collation library."""
+def phase_build(collation=True, wait=True):
+    """Start every CUDA source's build, each ``nvcc`` in a thread of its
+    own so that all run side by side, and, with ``collation``, build the
+    C++ collation library. With ``wait``, wait for every source;
+    otherwise each later phase waits for the sources it needs
+    (:func:`await_builds`), so that the first kernel phases run while the
+    slowest sources still compile."""
     from dgmc_tpu_torch.obs.registry import CompileWatcher
     from dgmc_tpu_torch.ops.kernels import build
     sources = sorted(f for f in os.listdir(build.CSRC_DIR)
                      if f.endswith('.cu'))
+    watcher = CompileWatcher().__enter__()
+    pool = concurrent.futures.ThreadPoolExecutor(len(sources))
+    BUILDS.update(futures={s: pool.submit(build.load_library, s)
+                           for s in sources},
+                  logged=set(), watcher=watcher, t0=time.perf_counter())
+    pool.shutdown(wait=False)
+    log(f'build: {len(sources)} kernel source(s) started side by side')
+    if collation:
+        from dgmc_tpu_torch import native
+        t0 = time.perf_counter()
+        if not native.available():
+            raise RuntimeError('the C++ collation library did not build '
+                               '(g++)')
+        log(f'build: native/collate.cpp g++ in '
+            f'{time.perf_counter() - t0:.2f}s')
+    if wait:
+        await_builds()
+
+
+def await_builds(sources=None):
+    """Wait for the builds of ``sources`` (default: every source that
+    :func:`phase_build` started) and print each one's ``nvcc`` seconds
+    and ``ptxas`` lines once; a failed build raises here, in the phase
+    that needs it. When the last build is in, the compile events they
+    recorded go to :data:`BUILD_EVENTS`."""
+    futures = BUILDS['futures']
     t0 = time.perf_counter()
-    with CompileWatcher() as watcher, \
-            concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        libs = dict(zip(sources, pool.map(build.load_library, sources)))
-    # The compile events a cold ``_build/`` adds (the lint phase's RCP
-    # account): one ``nvcc`` event a source it found unbuilt.
-    # (A tree before the kind split, under --root, has none.)
-    BUILD_EVENTS.update(watcher.summary().get('by_kind', {}))
-    log(f'build: {len(libs)} kernel source(s) in '
-        f'{time.perf_counter() - t0:.2f}s wall')
-    for name, lib in libs.items():
+    for name in sorted(futures if sources is None else sources):
+        lib = futures[name].result()
+        if name in BUILDS['logged']:
+            continue
+        BUILDS['logged'].add(name)
         log(f'build: {name} nvcc {lib.build_seconds:.2f}s')
         for line in lib.build_log.splitlines():
             if any(w in line for w in ('registers', 'spill', 'Compiling',
                                        'wgmma')):
                 log(f'build: {name} {line.strip()}')
-    if not collation:
-        return
-    from dgmc_tpu_torch import native
-    t0 = time.perf_counter()
-    if not native.available():
-        raise RuntimeError('the C++ collation library did not build (g++)')
-    log(f'build: native/collate.cpp g++ in {time.perf_counter() - t0:.2f}s')
+    waited = time.perf_counter() - t0
+    if waited >= 0.05:
+        log(f'build: waited {waited:.2f}s for '
+            f'{", ".join(sorted(sources or futures))}')
+    if BUILDS['logged'] == set(futures) and 'watcher' in BUILDS:
+        watcher = BUILDS.pop('watcher')
+        watcher.close()
+        # The compile events a cold ``_build/`` adds (the lint phase's RCP
+        # account): one ``nvcc`` event a source it found unbuilt. (A tree
+        # before the kind split, under --root, has none.)
+        BUILD_EVENTS.update(
+            (k, v) for k, v in watcher.summary().get('by_kind', {}).items()
+            if k == 'nvcc')
+        log(f'build: {len(futures)} kernel source(s) in '
+            f'{time.perf_counter() - BUILDS["t0"]:.2f}s wall')
 
 
 def _topk_case(gen, B, N_s, N_t, C, k, mask_p=None, valid=None,
@@ -2177,7 +2239,8 @@ def _first_steps(jobs):
     backward) for each of :data:`FIRST_STEP_RUNS`. The card's runs go one
     after another (:func:`plain_on_card` swaps module functions while it
     lasts); then the CPU's, each on its own copy of the model, run
-    :data:`CPU_REF_THREADS` at a time."""
+    :data:`CPU_REF_THREADS` at a time, the float64 runs (the longer ones)
+    first."""
     outs = [{} for _ in jobs]
 
     def one(out, label, run, name, dev, dtype):
@@ -2194,6 +2257,7 @@ def _first_steps(jobs):
                 continue
             with contextlib.nullcontext() if kernels else plain_on_card():
                 one(out, label, run, name, dev, dtype)
+    cpu.sort(key=lambda job: job[5] != torch.float64)    # stable
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, threads // CPU_REF_THREADS))
     try:
@@ -3324,7 +3388,9 @@ F32_ALWAYS = ('spline_records', 'rng')
 #: Gradients that are zero but for rounding: ψ₂'s final bias shifts o_s
 #: and o_t alike, the MLP's output bias a whole row of S_hat.
 ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
-#: First-step gradients over GRAD_DRAWS draws of the main path, as
+#: First-step gradients over GRAD_DRAWS draws of the main path
+#: (TRAIN_GRAD_DRAWS for the dense path, whose CPU runs take 20-35 s
+#: each on the card's host), as
 #: fractions of each tensor's largest |entry| (:func:`_hold_grads`): the
 #: card's float64 plain path within GRAD_F64_TOL of the CPU's; the
 #: kernels' float32 path within GRAD_TOL of the CPU float32 path, or else
@@ -3332,6 +3398,7 @@ ZERO_GRAD = ('psi_2.final.bias', 'mlp_out_bias')
 #: float32 path without the port's kernels, in the mean over the draws
 #: and at the worst draw.
 GRAD_TOL, GRAD_F64_TOL, GRAD_F64_RATIO, GRAD_DRAWS = 1e-3, 1e-8, 2.0, 6
+TRAIN_GRAD_DRAWS = 4
 
 
 @contextlib.contextmanager
@@ -3485,14 +3552,14 @@ def phase_train(results):
 
     _dense_main_path(results, 'f32')
 
-    # The CLI's first GRAD_DRAWS steps (its batches and its draws, each
-    # device drawing its own noise: one stream) on the card against the
-    # CPU plain path on the same weights (see _hold_grads).
+    # The CLI's first TRAIN_GRAD_DRAWS steps (its batches and its draws,
+    # each device drawing its own noise: one stream) on the card against
+    # the CPU plain path on the same weights (see _hold_grads).
     args = _train_args()
     model, loader, _ = pascal_pf.build(args)
     loader.dataset.set_epoch(1)
     jobs = []
-    for i, batch in zip(range(GRAD_DRAWS), loader):
+    for i, batch in zip(range(TRAIN_GRAD_DRAWS), loader):
         seed = pascal_pf.noise_seed(0, 0, 1, i)
         jobs.append((
             f'train: step {i}',
@@ -4325,6 +4392,437 @@ def phase_kg_tiers(res):
         f'{n} (one a chunk, one for the verified prefix)')
 
 
+#: The routed sums' rows of the kernels line (``phase_union_route``): the
+#: scaled projection over ``r_s``'s rows and the candidate gather's
+#: backward, at the phase-2 training shape.
+ROUTE_ROWS = ('corr_project', 'corr_gather_bwd')
+#: The routed phase-2 step's launches per step (``KG_KERNELS`` as
+#: ``KG_PER``'s phase-2 step, then the routed sums: a projection and an
+#: ``o_t`` gather's backward per consensus step; ψ₁ is detached, so the
+#: ``h_t`` gather has no backward).
+ROUTE_KERNELS = KG_KERNELS + ROUTE_ROWS
+ROUTE_PER = KG_PER[('train', 2)] + (10, 10)
+ROUTE_STEPS = 20
+
+
+def _route_exact_cases(gen):
+    """The routed kernel on small exact cases (integer rows, quarter
+    scales): a duplicate in every third row, a hub target, padded source
+    rows; float32 rows at C = 1, 32 and 40, bf16 rows at C = 64 (read as
+    bf16, the product rounded to bf16); scaled and not. Bit-identical to
+    ``ordered_aggregate`` and bit-equal to the plain version; repeats
+    bit-identical. Returns the number of cases."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.corr_route import build_corr_route
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    n = 0
+    B, N_s, K, n_t = 2, 300, 6, 700
+    idx = torch.randint(0, n_t, (B, N_s, K), generator=gen, device='cuda')
+    idx[:, ::3, -1] = idx[:, ::3, 0]
+    idx[0, 40:] = 3                               # a hub target
+    route = build_corr_route(idx, n_t, rows=64, block_entries=128)
+    S = torch.randint(-8, 9, (B, N_s, K), generator=gen,
+                      device='cuda').float() / 4
+    S[1, -50:] = 0                                # padded source rows
+    for C, dt in ((1, torch.float32), (32, torch.float32),
+                  (40, torch.float32), (64, BF16)):
+        for which in ('src', 'ent'):
+            M = N_s if which == 'src' else N_s * K
+            x = torch.randint(-4, 5, (B, M, C), generator=gen,
+                              device='cuda').to(dt)
+            label = f'routed {which} C={C} {dt}'
+            if which == 'src':
+                got = hold_equal(label, lambda: kb.route_project(x, S, route),
+                                 lambda: route.plain_sum(
+                                     x, 'src', route.block_scale(S)))
+                want = ob.ordered_aggregate(x, route.table('src'),
+                                            route.row_scale(S, dt))
+            else:
+                got = hold_equal(label, lambda: kb.route_gather_bwd(x, route),
+                                 lambda: route.plain_sum(x, 'ent'))
+                want = ob.ordered_aggregate(x, route.table('ent'))
+            if not torch.equal(got, want):
+                raise AssertionError(f'{label}: the kernel differs from '
+                                     f'ordered_aggregate')
+            n += 1
+    return n
+
+
+def _route_sums(res, model, dev_b):
+    """(a): the routed sums at the phase-2 training shape, on a real
+    phase-2 shortlist (the model's own, negatives and ground truth in)."""
+    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.corr_route import build_corr_route
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    n_exact = _route_exact_cases(gen)
+    g_s, g_t, y, y_mask = dev_b
+    N_s, N_t = g_s.num_nodes, g_t.num_nodes
+    probe = copy.deepcopy(model).train()
+    probe.psi_1.dropout = 0.0
+    with torch.no_grad():
+        r_s = draw_noise(probe.num_steps, 1, N_s, probe.psi_2.in_channels,
+                         seed=1, device='cuda')
+        neg = draw_negatives(torch.tensor([N_t], device='cuda'), N_s,
+                             probe.k, seed=1)
+        _, S_L = probe(g_s, g_t, y=y, y_mask=y_mask, num_steps=1,
+                       detach=True, r_s=r_s[:1], negatives=neg)
+    S_idx, S = S_L.idx, S_L.val.float()
+    K = S_idx.shape[-1]
+    t0 = time.perf_counter()
+    route = build_corr_route(S_idx, N_t)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    deg = route.row_ptr[0, 1:] - route.row_ptr[0, :-1]
+    max_deg, hub = int(deg.max()), int(deg.argmax())
+    R = model.psi_2.in_channels
+    x_s = r_s[0]                                       # [1, N_s, R]
+    g = torch.randn((1, N_s * K, R), generator=gen, device='cuda')
+    dst = S_idx.reshape(-1).long()
+    rows = torch.arange(N_s * K, device='cuda')
+    ones = torch.ones(N_s * K, device='cuda')
+    cases = {
+        'corr_project': dict(
+            kernel=lambda: kb.route_project(x_s, S, route),
+            ordered=lambda: ob.ordered_aggregate(
+                x_s, route.table('src'), route.row_scale(S)),
+            plain=lambda: route.plain_sum(x_s, 'src', route.block_scale(S)),
+            launch=functools.partial(kb.launch_route, x_s, route.row_ptr,
+                                     route.row_src, route.row_scale(S)),
+            adj=torch.sparse_coo_tensor(torch.stack([dst, rows // K]),
+                                        S.reshape(-1), (N_t, N_s)),
+            table=x_s[0], work=kb.project_work(x_s, S, route)),
+        'corr_gather_bwd': dict(
+            kernel=lambda: kb.route_gather_bwd(g, route),
+            ordered=lambda: ob.ordered_aggregate(g, route.table('ent')),
+            plain=lambda: route.plain_sum(g, 'ent'),
+            launch=functools.partial(kb.launch_route, g, route.row_ptr,
+                                     route.row_ent),
+            adj=torch.sparse_coo_tensor(torch.stack([dst, rows]), ones,
+                                        (N_t, N_s * K)),
+            table=g[0], work=kb.gather_bwd_work(g, route))}
+    for key, c in cases.items():
+        got = c['kernel']()
+        if not torch.equal(got, c['kernel']()):
+            raise AssertionError(f'{key}: a repeat gave another result')
+        if not torch.equal(got, c['ordered']()):
+            raise AssertionError(f'{key}: the kernel differs from the '
+                                 f'scaled ordered_aggregate')
+        err = hold_close(key, got, c['plain']())
+        csr = c['adj'].coalesce().to_sparse_csr()
+        table = c['table']
+        got_t, src = timed({'kernel': c['launch'], 'plain': c['plain'],
+                            'library': lambda: torch.sparse.mm(csr, table)})
+        b_ms, b_by = work_bound(c['work'])
+        log(f'union_route: (a) {key} at [1, {N_s}, {K}] over {N_t} targets, '
+            f'C={R}, float32 rows: bit-identical to ordered_aggregate, '
+            f'within rtol 1e-5 / atol 1e-5 x max|out| of the plain version '
+            f'(max |err| {err:.3g}); bound {b_ms:.4f} ms ({b_by}: '
+            f'{c["work"]["bytes"] / 1e6:.2f} MB, {c["work"]["flops"] / 1e6:.1f}'
+            f' Mflop); ms per call [{src}] / wall: '
+            + ', '.join(f'{k} {v[0]:.4f} / {v[1]:.4f}'
+                        for k, v in got_t.items())
+            + f'; kernel at {b_ms / got_t["kernel"][0]:.3f} of the bound')
+        res[key].update(
+            name=key, route='cuda', source='dgmc_tpu_torch/csrc/blocked.cu',
+            replaces=('dgmc_tpu/ops/corr_route.py:124 (sparse_project: XLA '
+                      'one-hot einsums, dgmc_tpu/ops/blocked.py:148; no '
+                      'pallas_call)' if key == 'corr_project' else
+                      'dgmc_tpu/ops/corr_route.py:170 (sparse_gather\'s '
+                      'backward: XLA one-hot einsums, dgmc_tpu/ops/'
+                      'blocked.py:148; no pallas_call)'),
+            max_abs_err=err, ms=got_t['kernel'][0],
+            plain_ms=got_t['plain'][0], bound_ms=b_ms, bound_by=b_by,
+            library_ms=got_t['library'][0], ms_source=src)
+    log(f'union_route: (a) {n_exact} exact cases bit-equal to the plain '
+        f'version and bit-identical to ordered_aggregate; the route built '
+        f'in {build_ms:.3f} ms (host clock, synchronized); the shortlist\'s '
+        f'largest target in-degree {max_deg} (target {hub}; '
+        f'{int((deg > 0).sum())} of {N_t} targets hit, mean '
+        f'{float(deg.float().mean()):.2f})')
+
+
+def _route_losses(model, batch, policy):
+    """(b): loss and gradients of one phase-2 forward and backward, routed
+    and not, from the same weights, shortlist, noise and negatives (ψ₁'s
+    dropout off), against each other: float32 within the CPU test's
+    tolerance (loss rtol 1e-5, each gradient rtol 1e-4 / atol 1e-4 x its
+    largest entry, the two zero analytically below 1e-6), bf16 within
+    1e-2 relative for the loss and 2e-2 of each gradient's norm (the two
+    zero analytically below 1e-2 of the largest gradient entry)."""
+    from dgmc_tpu_torch.models.dgmc import draw_negatives, draw_noise
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    base = copy.deepcopy(model).cpu()
+    base.psi_1.dropout = 0.0
+    g_s, g_t = batch_to_device(batch, 'cuda')[:2]
+    N_s, N_t = g_s.num_nodes, g_t.num_nodes
+    probe = copy.deepcopy(base).cuda().eval()
+    with torch.no_grad():
+        S_idx = chunked_topk(probe.psi_1(g_s.x, g_s).to(torch.float32),
+                             probe.psi_1(g_t.x, g_t).to(torch.float32),
+                             probe.k).cpu()
+    r_s = draw_noise(probe.num_steps, 1, N_s, probe.psi_2.in_channels,
+                     seed=3, device='cuda')
+    neg = draw_negatives(torch.tensor([N_t], device='cuda'), N_s, probe.k,
+                         seed=3)
+    got = {}
+    for routed in (False, True):
+        m = copy.deepcopy(base)
+        m.route_sparse = routed
+        got[routed] = _kg_loss_and_grads(m, batch, S_idx, r_s, neg, 'cuda',
+                                         torch.float32)
+    (l0, g0), (l1, g1) = got[False], got[True]
+    worst = 0.0
+    # Zero analytically: rounding noise only, below 1e-6 in float32 and
+    # below 1e-2 of the largest gradient entry under bf16.
+    zero_tol = 1e-6 if policy == 'f32' else 1e-2 * max(
+        float(w.abs().max()) for w in g0.values())
+    for name, w in g0.items():
+        d = g1[name]
+        if name in ZERO_GRAD:
+            if max(float(d.abs().max()), float(w.abs().max())) > zero_tol:
+                raise AssertionError(f'union_route {policy}: {name} '
+                                     f'gradient not ~0')
+            continue
+        if policy == 'f32':
+            if not torch.allclose(d, w, rtol=1e-4,
+                                  atol=1e-4 * float(w.abs().max())):
+                raise AssertionError(f'union_route {policy}: gradient {name} '
+                                     f'routed against default differs by '
+                                     f'{float((d - w).abs().max())}')
+            worst = max(worst, float((d - w).abs().max()
+                                     / max(float(w.abs().max()), 1e-30)))
+        else:
+            rel = float((d - w).norm() / max(float(w.norm()), 1e-30))
+            if rel > 2e-2:
+                raise AssertionError(f'union_route {policy}: gradient {name} '
+                                     f'routed against default: relative '
+                                     f'norm error {rel}')
+            worst = max(worst, rel)
+    rel_loss = abs(l1 - l0) / abs(l0)
+    if rel_loss > (1e-5 if policy == 'f32' else 1e-2):
+        raise AssertionError(f'union_route {policy}: routed loss {l1} against '
+                             f'default {l0}')
+    return l0, l1, worst
+
+
+def _median_step_ms(run, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def _route_step(policy, res_counts):
+    """(b) under ``policy``: the captured routed phase-2 step against the
+    eager one (5 steps at the CLI's seeds, outputs, then parameters and
+    Adam state bit-identical; launches per step ``ROUTE_PER``), loss and
+    gradients against the default path (:func:`_route_losses`), and the
+    median of ``ROUTE_STEPS`` synchronized captured steps beside the
+    default path's, in turns."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+    args = dbp15k.parse_args(KG_ARGV + ['--precision', policy])
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    model = dbp15k.build(args, in_dim)
+    l0, l1, worst = _route_losses(model, train_b, policy)
+    log(f'union_route: (b) {policy}: one phase-2 forward and backward, '
+        f'routed against default from the same weights, shortlist, noise '
+        f'and negatives: loss {l1!r} against {l0!r}, worst gradient '
+        f'{"error / max|grad|" if policy == "f32" else "relative norm error"}'
+        f' {worst:.3g}')
+    dev_b = batch_to_device(train_b, 'cuda')
+    routed = copy.deepcopy(model)
+    routed.route_sparse = True
+    models = {jit: copy.deepcopy(routed).cuda() for jit in (False, True)}
+    states = {jit: create_train_state(m, args.lr)
+              for jit, m in models.items()}
+    steps_ = {jit: make_train_step(m, num_steps=args.num_steps, detach=True,
+                                   jit=jit) for jit, m in models.items()}
+    runs = []
+    for e in range(args.phase1_epochs + 1, args.phase1_epochs + 6):
+        seed = dbp15k.noise_seed(args.seed, 0, e)
+        runs.append((f'phase2 epoch {e}', {jit: functools.partial(
+            lambda jit, s: steps_[jit](states[jit], dev_b, s)[1], jit, seed)
+            for jit in (False, True)}))
+    # This slice's main path: the counters at 0 just before, read just
+    # after.
+    dispatch.reset()
+    _both(f'union_route {policy}', ROUTE_KERNELS, runs,
+          want=lambda name: ROUTE_PER)
+    counts = dispatch.launch_counts()
+    for k in ROUTE_ROWS:
+        res_counts[k] = res_counts.get(k, 0) + counts[k]
+    _hold_states(f'union_route {policy}', models, states)
+    d = dispatch.decisions()
+    for k in ROUTE_ROWS:
+        if d[k]['path'] != 'kernel' or d[k]['dtype'] != 'float32':
+            raise AssertionError(f'union_route {policy}: {k} {d[k]}')
+    default = kg_step(policy)
+    default()
+    seeds = itertools.count(100)
+
+    def routed_run():
+        return steps_[True](states[True], dev_b, next(seeds))
+    half = ROUTE_STEPS // 2
+    times = {'default': [], 'routed': []}
+    for name in ('default', 'routed', 'routed', 'default'):
+        run = default if name == 'default' else routed_run
+        med, lo, hi = _median_step_ms(run, half)
+        times[name].append((med, lo, hi))
+    summary = {k: (statistics.median([t[0] for t in v]),
+                   min(t[1] for t in v), max(t[2] for t in v))
+               for k, v in times.items()}
+    log(f'union_route: (b) {policy}: the captured routed phase-2 step '
+        f'bit-identical to the eager one over 5 steps (outputs, then '
+        f'parameters and Adam state), launches per step '
+        f'{dict(zip(ROUTE_KERNELS, ROUTE_PER))}; rows in float32 (ψ₂\'s '
+        f'R = 32 widened); median ms of {ROUTE_STEPS} synchronized captured '
+        f'steps (min, max), in turns: routed '
+        f'{summary["routed"][0]:.3f} ({summary["routed"][1]:.3f}, '
+        f'{summary["routed"][2]:.3f}), default {summary["default"][0]:.3f} '
+        f'({summary["default"][1]:.3f}, {summary["default"][2]:.3f})')
+    return model, dev_b, args
+
+
+def _batch_pair_part(model, dev_b, args):
+    """(c): ``batch_pair`` in {'psi_1', 'psi_2', True} on the DBP15K model:
+    the eval forward (dropout off) against the two-call model on the same
+    weights and noise, within JAX's test tolerance (rtol 5e-4, atol 5e-5)
+    where the shortlists agree (rows that differ are near ties, at most
+    0.1%); then one captured training step each (after its capture), ψ₁'s
+    dropout as the CLI has it, beside the two-call model's."""
+    from dgmc_tpu_torch.models.dgmc import draw_noise
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+    g_s, g_t = dev_b[:2]
+    r_s = draw_noise(args.num_steps, 1, g_s.num_nodes, args.rnd_dim, seed=5,
+                     device='cuda')
+    base = copy.deepcopy(model).cuda().eval()
+    with torch.no_grad():
+        _, want = base(g_s, g_t, r_s=r_s)
+    step_ms = {}
+    for bp in (None, 'psi_1', 'psi_2', True):
+        m = copy.deepcopy(model).cuda()
+        m.batch_pair = bp
+        if bp is not None:
+            with torch.no_grad():
+                _, got = m.eval()(g_s, g_t, r_s=r_s)
+            same = (got.idx == want.idx).all(-1)[0]
+            n_diff = int((~same).sum())
+            if n_diff > 1e-3 * g_s.num_nodes:
+                raise AssertionError(f'union_route batch_pair={bp!r}: '
+                                     f'{n_diff} shortlists differ')
+            a, b = got.val[0][same], want.val[0][same]
+            if not torch.allclose(a, b, rtol=5e-4, atol=5e-5):
+                raise AssertionError(f'union_route batch_pair={bp!r}: S_L '
+                                     f'differs by {float((a - b).abs().max())}')
+            log(f'union_route: (c) batch_pair={bp!r}: S_L within rtol 5e-4 '
+                f'/ atol 5e-5 of the two-call model (max |diff| '
+                f'{float((a - b).abs().max()):.3g}) on the {int(same.sum())} '
+                f'rows whose shortlist agrees, {n_diff} near-tie rows '
+                f'differ')
+        m.train()
+        state = create_train_state(m, args.lr)
+        step = make_train_step(m, num_steps=args.num_steps, detach=True)
+        before = dispatch.launch_counts()
+        step(state, dev_b, 1)                          # the capture
+        torch.cuda.synchronize()
+        after = dispatch.launch_counts()
+        med, lo, hi = _median_step_ms(lambda: step(state, dev_b, 2), 3)
+        step_ms[bp] = med
+        log(f'union_route: (c) batch_pair={bp!r}: a captured phase-2 '
+            f'training step {med:.3f} ms (median of 3, {lo:.3f}-{hi:.3f}); '
+            f'launches of the first step '
+            f'{ {k: after[k] - before[k] for k in KG_KERNELS} }')
+    return step_ms
+
+
+def _refusals(model, args):
+    """(d): the refusals on CUDA tensors."""
+    import dataclasses
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.train.steps import batch_to_device
+    unblocked = dbp15k.parse_args(KG_ARGV + F32_ARGV
+                                  + ['--blocked_adjacency', 'off'])
+    train_u, _, in_dim = dbp15k.synthetic_batches(unblocked)
+    g_s, g_t = batch_to_device(train_u, 'cuda')[:2]
+    cases = []
+    m = copy.deepcopy(model).cuda().eval()
+    m.batch_pair = True
+    cases.append(('an unblocked side', m, (g_s, g_t), 'cannot be stacked'))
+    train_b, _, _ = dbp15k.synthetic_batches(args)
+    b_s, b_t = batch_to_device(train_b, 'cuda')[:2]
+    bn = bn_kg_model(args, in_dim).cuda().eval()
+    bn.batch_pair = 'psi_1'
+    cases.append(('batch norm', bn, (b_s, b_t), 'BatchNorm'))
+    narrow = dataclasses.replace(b_t, x=b_t.x[..., :-1], _memo={})
+    m = copy.deepcopy(model).cuda().eval()
+    m.batch_pair = 'psi_1'
+    cases.append(('a width mismatch', m, (b_s, narrow), 'widths differ'))
+    for label, m, graphs, match in cases:
+        try:
+            with torch.no_grad():
+                m(*graphs)
+        except ValueError as e:
+            if not re.search(match, str(e)):
+                raise AssertionError(f'union_route (d) {label}: {e}')
+            log(f'union_route: (d) {label}: ValueError ({str(e)[:60]}...)')
+        else:
+            raise AssertionError(f'union_route (d) {label}: no refusal')
+
+
+def phase_union_route(res):
+    """This slice's paths on the DBP15K model at the JAX CLI's widths
+    (RelCNN ψ₁ 300→256, ψ₂ 32→32, k = 10, 10 steps, blocked) on the
+    synthetic 15000 / 20000 entities, in-process:
+
+    (a) the routed sums (``ops/corr_route.py`` through ``csrc/blocked.cu``'s
+        routed entry) at the phase-2 training shape, ``S_idx [1, 15000,
+        20]`` over 20000 targets from the model's own phase-2 shortlist:
+        the scaled projection at C = 32 and the gather's backward at
+        R = 32, bit-identical to the scaled ``ordered_aggregate`` and
+        within rtol / atol 1e-5 of JAX's one-hot plain version; exact
+        small cases (hub, duplicates, padded rows, bf16 rows) bit-equal;
+        each timed beside its bound, the plain version and
+        ``torch.sparse.mm`` of the ``[n_t, N_s]`` (or ``[n_t, N_s K]``)
+        matrix; the largest target in-degree;
+    (b) the captured phase-2 training step with ``route_sparse=True``,
+        float32 and bf16: captured bit-identical to eager, launches per
+        step (the counters at 0 before, read after: the routed rows'
+        ``launches``), loss and gradients against the default path from
+        the same weights, noise and negatives, the median of 20 steps
+        beside the default path's;
+    (c) ``batch_pair`` in {'psi_1', 'psi_2', True}: the forward against the
+        two-call model (rtol 5e-4, atol 5e-5), one captured training step
+        each;
+    (d) the refusals on CUDA tensors: an unblocked side, batch norm, a
+        width mismatch.
+    """
+    counts = {}
+    model = None
+    for policy in ('f32', 'bf16'):
+        m, dev_b, args = _route_step(policy, counts)
+        if policy == 'f32':
+            model, f32_b, f32_args = m, dev_b, args
+    for k in ROUTE_ROWS:
+        res[k]['launches'] = counts.get(k, 0)
+    log(f'union_route: (b) launches of the routed sums over both policies\' '
+        f'5 eager and 5 captured steps: {counts}')
+    _route_sums(res, model.cuda(), f32_b)
+    _batch_pair_part(model, f32_b, f32_args)
+    _refusals(model, f32_args)
+
+
 #: The resume phase's schedule: 6 epochs, 3 of phase 1, a checkpoint every
 #: 2 (the guard's run every epoch, so that the step after its rollback is
 #: on disk).
@@ -4374,9 +4872,12 @@ def _kg_marks(label, marks, phase1_epochs, first=1):
     return prev
 
 
-def phase_resume(smi_line):
+def phase_resume(smi_line, beside=None):
     """Checkpoints, resume and the guard at the DBP15K width (float32,
-    captured), each run through ``dbp15k`` with ``RESUME_ARGV``:
+    captured), each run through ``dbp15k`` with ``RESUME_ARGV``
+    (``beside``, if given, is called as (b) starts and returns a future:
+    host work of a later phase that runs while (b) waits on its
+    processes, waited for when they are done):
 
     (a) an uninterrupted run, ``--ckpt_dir A`` (in this process, the
     launch counters set to 0 before it: ``KG_PER``'s counts a step);
@@ -4471,6 +4972,7 @@ def phase_resume(smi_line):
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
         runs = []
+        side = beside() if beside is not None else None
         for _ in range(2):
             t0 = time.perf_counter()
             r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
@@ -4480,6 +4982,11 @@ def phase_resume(smi_line):
                 log(f'  | {line}')
             log(f'resume (b): process {len(runs)} exited {r.returncode} '
                 f'after {time.perf_counter() - t0:.1f}s')
+        if side is not None:
+            t0 = time.perf_counter()
+            concurrent.futures.wait([side])
+            log(f'resume (b): waited {time.perf_counter() - t0:.2f}s for '
+                f'the work beside it')
         if runs[0].returncode != -9:
             raise AssertionError(f'resume (b): the first process exited '
                                  f'{runs[0].returncode}, not by SIGKILL')
@@ -4684,12 +5191,14 @@ def phase_resume(smi_line):
 #: the keypoints each category's test pairs are sampled until
 #: (``--test_samples``; the JAX CLI's 1000 would sample the fixture's 15
 #: test instances a category about 7 times over, each a batch of 512
-#: pairs whose 1024 graphs the host triangulates anew).
+#: pairs whose 1024 graphs the host triangulates anew; 100 took 27
+#: batches an evaluation, 0.37 s each on the card's host, where one
+#: pass a category is 20).
 KP_VOC = (60, 15)
 KP_WILLOW_ITEMS = 24
 KP_IMAGE = (180, 240)
 KP_PF_ITEMS = 4
-KP_TEST_SAMPLES = 100
+KP_TEST_SAMPLES = 40
 #: The rows of this slice's shapes in the JSON line: the key its
 #: launches are filed under on the keypoint main paths (``KP_MAIN``):
 #: (kernel, O or R, D, dtype).
@@ -4767,12 +5276,13 @@ def _kp_batches(root):
     return out, N, E
 
 
-def _kp_kernels(res, root):
+def _kp_kernels(res, kp_batches):
     """(a) The dense consensus at ``[512, N, N]``, R = 128 (its limit), and
     the routing kernels at O = 256 and 128, D = 2 and 1, on this slice's
-    batches, each policy's variant against its plain version on the card
-    (exact inputs bit-equal; float32 within :func:`hold_close`, bf16
-    outputs within :func:`hold_ulp`), timed beside the plain version and
+    batches (``kp_batches``, :func:`_kp_batches`' result), each policy's
+    variant against its plain version on the card (exact inputs
+    bit-equal; float32 within :func:`hold_close`, bf16 outputs within
+    :func:`hold_ulp`), timed beside the plain version and
     ``torch.sparse.mm`` with its bound."""
     from dgmc_tpu_torch.models.spline import spline_routing
     from dgmc_tpu_torch.ops.graph import GraphBatch
@@ -4783,7 +5293,7 @@ def _kp_kernels(res, root):
                                                    plain_route_d_t,
                                                    route_d_t, route_fwd)
     gen = torch.Generator().manual_seed(15)
-    batches, N, E = _kp_batches(root)
+    batches, N, E = kp_batches
     B, R = 512, R_MAX
     log(f'keypoints (a): the fixture pads to N = {N} nodes, E = {E} edges; '
         f'consensus at [{B}, {N}, {N}] R = {R}')
@@ -5087,9 +5597,10 @@ def _kp_run(label, main, argv, policy, tally, hook=None):
     return losses, result
 
 
-def phase_keypoints(res):
+def phase_keypoints(res, prepared=None):
     """The keypoint experiments (PascalVOC and WILLOW) on the card, on a
-    fixture tree written here (:mod:`dgmc_tpu_torch.datasets.fixtures`:
+    fixture tree written by :func:`_kp_prepare` (here, or beforehand in
+    the future ``prepared``; :mod:`dgmc_tpu_torch.datasets.fixtures`:
     ``KP_VOC`` instances per category, 6-20 keypoint names each, a
     visible subset per instance; ``KP_WILLOW_ITEMS`` WILLOW items per
     category; images where PIL imports, else none, so that the zero
@@ -5105,33 +5616,21 @@ def phase_keypoints(res):
     fixture, 1 epoch: one captured eval graph per category size, every
     pair evaluated. Launches at this slice's shapes go to
     :data:`KP_MAIN`."""
-    import tempfile
-    from dgmc_tpu_torch.datasets.fixtures import (write_pascal_pf,
-                                                  write_voc, write_willow)
-    from dgmc_tpu_torch.experiments import pascal, pascal_pf, willow
+    from dgmc_tpu_torch.experiments import pascal
+    prep = prepared.result() if prepared is not None else _kp_prepare()
+    pil = prep['pil']
     try:
-        import PIL.Image  # noqa: F401
-        pil = True
-    except ImportError:
-        pil = False
-    tmp = tempfile.mkdtemp(prefix='dgmc_keypoints_')
-    try:
-        t0 = time.perf_counter()
-        size = KP_IMAGE if pil else None
-        voc = write_voc(os.path.join(tmp, 'voc'), seed=0, train=KP_VOC[0],
-                        val=KP_VOC[1], image_size=size)
-        wil = write_willow(os.path.join(tmp, 'willow'), seed=1,
-                           items=KP_WILLOW_ITEMS, image_size=size)
-        pf = write_pascal_pf(os.path.join(tmp, 'pf'), seed=2,
-                             items=KP_PF_ITEMS)
         log(f'keypoints: PIL {"imports" if pil else "does not import"} '
             f'here: the fixture {"has" if pil else "has no"} images '
             f'({KP_IMAGE[0]} x {KP_IMAGE[1]}, JPEG for PascalVOC, PNG for '
             f'WILLOW); {KP_VOC} PascalVOC instances a category (train, '
             f'val), {KP_WILLOW_ITEMS} WILLOW items, {KP_PF_ITEMS} PascalPF '
-            f'items; written in {time.perf_counter() - t0:.1f}s; '
+            f'items; written in {prep["written_s"]:.1f}s, (a)\'s batches '
+            f'in {prep["batches_s"]:.1f}s'
+            f'{" beside the resume phase" if prepared is not None else ""}; '
             f'--test_samples {KP_TEST_SAMPLES}')
-        _kp_kernels(res, voc)
+        voc, wil, pf = prep['voc'], prep['wil'], prep['pf']
+        _kp_kernels(res, prep['batches'])
         _kp_extractor()
         tally = Tally('keypoints')
         cut = ['--data_root', voc, '--test_samples', str(KP_TEST_SAMPLES)]
@@ -5154,7 +5653,40 @@ def phase_keypoints(res):
         _kp_willow(voc, wil, tally)
         _kp_pascal_pf(pf)
     finally:
+        shutil.rmtree(prep['tmp'], ignore_errors=True)
+
+
+def _kp_prepare():
+    """The keypoint phase's host work that needs no card: the fixture tree
+    in a new temporary directory and (a)'s two training batches
+    (:func:`_kp_batches`) → ``{tmp, voc, wil, pf, pil, written_s,
+    batches, batches_s}``."""
+    import tempfile
+    from dgmc_tpu_torch.datasets.fixtures import (write_pascal_pf,
+                                                  write_voc, write_willow)
+    try:
+        import PIL.Image  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    tmp = tempfile.mkdtemp(prefix='dgmc_keypoints_')
+    try:
+        t0 = time.perf_counter()
+        size = KP_IMAGE if pil else None
+        voc = write_voc(os.path.join(tmp, 'voc'), seed=0, train=KP_VOC[0],
+                        val=KP_VOC[1], image_size=size)
+        wil = write_willow(os.path.join(tmp, 'willow'), seed=1,
+                           items=KP_WILLOW_ITEMS, image_size=size)
+        pf = write_pascal_pf(os.path.join(tmp, 'pf'), seed=2,
+                             items=KP_PF_ITEMS)
+        t1 = time.perf_counter()
+        batches = _kp_batches(voc)
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return {'tmp': tmp, 'voc': voc, 'wil': wil, 'pf': pf, 'pil': pil,
+            'written_s': t1 - t0, 'batches': batches,
+            'batches_s': time.perf_counter() - t1}
 
 
 def _kp_willow(voc, wil, tally):
@@ -5427,12 +5959,14 @@ def _obs_kg(tmp):
     _hold_attribution('obs (a) KG phase 2', prof, d,
                       ('psi1', 'topk', 'consensus_iter', 'psi2', 'loss',
                        'optimizer'))
-    summary = json.loads(_python_m('dgmc_tpu_torch.obs.report', d, '--json'))
+    summary = json.loads(_module_main('dgmc_tpu_torch.obs.report', d,
+                                      '--json'))
     if summary.get('mfu') != eff['mfu']:
         raise AssertionError(f'obs (a): the report\'s mfu '
                              f'{summary.get("mfu")} against '
                              f'efficiency.json\'s {eff["mfu"]}')
-    log(f'obs (a): python -m dgmc_tpu_torch.obs.report --json: mfu '
+    log(f'obs (a): python -m dgmc_tpu_torch.obs.report --json (its main, '
+        f'in this process): mfu '
         f'{summary["mfu"]} as efficiency.json, measured_mfu '
         f'{summary.get("measured_mfu")}, goodput '
         f'{summary.get("goodput_ratio")}; the cost checks took '
@@ -5444,15 +5978,16 @@ def _mfu_sample(text):
     return float(m.group(1)) if m else None
 
 
-def _python_m(module, *args):
-    """``python -m module args`` from the checkout → its standard output
-    (raises on a non-zero exit)."""
-    out = subprocess.run([sys.executable, '-m', module, *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode:
-        raise AssertionError(f'python -m {module} exited {out.returncode}: '
-                             f'{out.stderr[-2000:]}')
-    return out.stdout
+def _module_main(module, *args):
+    """The command line ``python -m module args`` run in this process,
+    through the module's ``main`` (no interpreter start-up) → its
+    standard output (raises on a non-zero exit)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = importlib.import_module(module).main(list(args))
+    if rc:
+        raise AssertionError(f'python -m {module} exited {rc}')
+    return out.getvalue()
 
 
 def _hold_efficiency(label, d, need):
@@ -5558,12 +6093,13 @@ def _hold_kg_counts(counted):
 
 
 def _hold_attribution(label, prof, obs_dir, need):
-    """``python -m dgmc_tpu_torch.obs.attribution`` on the profiled steps
-    in ``prof``: the stage sums no more than the card's busy time, each
-    stage of ``need`` nonzero, every replay matched to its warm-up (the
-    unmatched share 0), the measured MFU in (0, 1] → the payload."""
-    payload = json.loads(_python_m('dgmc_tpu_torch.obs.attribution', prof,
-                                   '--obs-dir', obs_dir, '--json'))
+    """``python -m dgmc_tpu_torch.obs.attribution`` (its ``main``, in this
+    process) on the profiled steps in ``prof``: the stage sums no more
+    than the card's busy time, each stage of ``need`` nonzero, every
+    replay matched to its warm-up (the unmatched share 0), the measured
+    MFU in (0, 1] → the payload."""
+    payload = json.loads(_module_main('dgmc_tpu_torch.obs.attribution',
+                                      prof, '--obs-dir', obs_dir, '--json'))
     occ, stages = payload['occupancy'], payload['stages']
     busy, steps = occ['device_active_s'], payload['steps']['observed']
     total = sum(r['wall_s'] for r in stages.values())
@@ -5856,23 +6392,45 @@ def _launched(d):
                        if r['outcome'] == 'kernel' and r['count']})
 
 
-def _tiny_pf(tmp, name, cpu=False):
+def _tiny_pf_argv(tmp, name):
+    """The obs dir, the profile dir and the flags of :func:`_tiny_pf`'s
+    run ``name`` in ``tmp``."""
+    d, prof = os.path.join(tmp, name), os.path.join(tmp, f'{name}_prof')
+    return d, prof, PF_TINY + ['--obs-dir', d, '--profile-dir', prof,
+                               '--data_root', os.path.join(tmp, 'none')]
+
+
+def _start_cpu_pf(tmp, name):
+    """:func:`_tiny_pf`'s run ``name`` as ``python -m ... --device cpu``
+    with no card visible, started in the background with one intra-op
+    thread (it runs beside the phase's work on the card) → the process,
+    its output in ``tmp/name.log``."""
+    _, _, argv = _tiny_pf_argv(tmp, name)
+    out = open(os.path.join(tmp, f'{name}.log'), 'w+')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'dgmc_tpu_torch.experiments.pascal_pf',
+         '--device', 'cpu', *argv], cwd=ROOT, stdout=out,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1'))
+    proc.out = out
+    return proc
+
+
+def _tiny_pf(tmp, name, cpu=None):
     """The tiny observed, profiled ``pascal_pf`` run in ``tmp/name``, its
     attribution merged into its ``efficiency.json``: on the card in this
-    process (the allocator's peak reset first), or with ``cpu`` as
-    ``python -m ... --device cpu`` with no card visible → the obs dir."""
-    d, prof = os.path.join(tmp, name), os.path.join(tmp, f'{name}_prof')
-    argv = PF_TINY + ['--obs-dir', d, '--profile-dir', prof,
-                      '--data_root', os.path.join(tmp, 'none')]
-    if cpu:
-        out = subprocess.run(
-            [sys.executable, '-m', 'dgmc_tpu_torch.experiments.pascal_pf',
-             '--device', 'cpu', *argv], cwd=ROOT, capture_output=True,
-            text=True, timeout=600,
-            env=dict(os.environ, CUDA_VISIBLE_DEVICES=''))
-        if out.returncode:
-            raise AssertionError(f'obs (f): the CPU run exited '
-                                 f'{out.returncode}: {out.stderr[-2000:]}')
+    process (the allocator's peak reset first), or the run on the CPU
+    that ``cpu`` (:func:`_start_cpu_pf`) is, once it has exited → the obs
+    dir."""
+    d, prof, argv = _tiny_pf_argv(tmp, name)
+    if cpu is not None:
+        rc = cpu.wait(timeout=600)
+        cpu.out.seek(0)
+        text = cpu.out.read()
+        cpu.out.close()
+        if rc:
+            raise AssertionError(f'obs (f): the CPU run exited {rc}: '
+                                 f'{text[-2000:]}')
     else:
         from dgmc_tpu_torch.experiments import pascal_pf
         # The last run's graphs sit in reference cycles: the peak is this
@@ -5890,11 +6448,12 @@ def _tiny_pf(tmp, name, cpu=False):
     return d
 
 
-def _obs_readers(tmp):
+def _obs_readers(tmp, cpu_run):
     """(f) the run-comparison readers over this phase's artifacts:
     ``aggregate`` and ``diff A A`` over (a)'s KG dir, ``calibrate`` over
     three tiny PascalPF runs on the card and the calibrated diff of two
-    of them, and the same run on the CPU against the card's."""
+    of them, and the same run on the CPU (``cpu_run``, started with the
+    phase) against the card's."""
     from dgmc_tpu_torch.obs.report import load_run, summarize
     t0 = time.perf_counter()
     kg = os.path.join(tmp, 'kg')
@@ -5956,7 +6515,7 @@ def _obs_readers(tmp):
         f'{CALIBRATION_Z}: rc 0, ' + ', '.join(
             f'{m} {rows[m]["b"]}' for m in calibrated))
 
-    cpu = _tiny_pf(tmp, 'pf_cpu', cpu=True)
+    cpu = _tiny_pf(tmp, 'pf_cpu', cpu=cpu_run)
     dense = _launched(runs[0])
     want = {f'dispatch[{k}]' for k in dense}
     # The CPU's plain routing builds no records: that decision is absent
@@ -6043,26 +6602,34 @@ def phase_obs(smi_line):
     (no dispatch regression)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        _obs_kg(tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
-        for policy in ('f32', 'bf16'):
-            runs, observers = _obs_variants(
-                'KG phase 2', lambda jit: kg_step(policy, jit=jit), 2,
-                policy)
-            if policy == 'bf16':
-                _obs_cost(runs, observers, smi_line)
-            for obs in observers:
-                obs.close()
-            _, observers = _obs_variants(
-                'PascalPF', lambda jit: dense_step(policy, jit), 2, policy)
-            for obs in observers:
-                obs.close()
+        # (f)'s run on the CPU, a process of its own, goes beside (a)-(e).
+        cpu_run = _start_cpu_pf(tmp, 'pf_cpu')
+        try:
+            _obs_kg(tmp)
             gc.collect()
             torch.cuda.empty_cache()
-        _obs_profile(tmp)
-        _obs_stall(tmp)
-        _obs_readers(tmp)
+            for policy in ('f32', 'bf16'):
+                runs, observers = _obs_variants(
+                    'KG phase 2', lambda jit: kg_step(policy, jit=jit), 2,
+                    policy)
+                if policy == 'bf16':
+                    _obs_cost(runs, observers, smi_line)
+                for obs in observers:
+                    obs.close()
+                _, observers = _obs_variants(
+                    'PascalPF', lambda jit: dense_step(policy, jit), 2,
+                    policy)
+                for obs in observers:
+                    obs.close()
+                gc.collect()
+                torch.cuda.empty_cache()
+            _obs_profile(tmp)
+            _obs_stall(tmp)
+            _obs_readers(tmp, cpu_run)
+        finally:
+            if cpu_run.poll() is None:
+                cpu_run.kill()
+            cpu_run.wait()
 
 
 #: The worker's configuration in the ``serve_worker`` phase: the DBP15K
@@ -6803,44 +7370,66 @@ def main(argv=None):
                            *(f'topk@{n}' for n in SMALL_ROWS),
                            *(f'sparse_consensus_fwd@{n}' for n in SMALL_ROWS),
                            'spline_route_fwd@64', 'spline_route_bwd@64',
-                           *BF16_ROWS, *RNG_ROWS, *BLOCKED_ROWS, *KP_ROWS)}
+                           *BF16_ROWS, *RNG_ROWS, *BLOCKED_ROWS, *KP_ROWS,
+                           *ROUTE_ROWS)}
     small = {n: res[f'topk@{n}'] for n in SMALL_ROWS}
     sc_small = {n: res[f'sparse_consensus_fwd@{n}'] for n in SMALL_ROWS}
     failed = []
-    for name, fn in (
-            ('build', phase_build),
-            ('topk_kernel', lambda: phase_topk_kernel(res['topk'], small)),
-            ('spline_kernel', lambda: phase_spline_kernel(
+    # The keypoints phase's host work that needs no card, done in a thread
+    # while the resume phase waits on its subprocesses.
+    helper = concurrent.futures.ThreadPoolExecutor(1)
+    kp_prep = []
+
+    def prepare_keypoints():
+        kp_prep.append(helper.submit(_kp_prepare))
+        return kp_prep[-1]
+
+    # Each phase with the CUDA sources it waits for (None: every source).
+    # The kernel phases go in the order their sources finish compiling,
+    # so that they run while the slower ones still compile.
+    for name, needs, fn in (
+            ('build', (), lambda: phase_build(wait=False)),
+            ('spline_kernel', ('spline.cu',), lambda: phase_spline_kernel(
                 res['spline_route_fwd'], res['spline_route_bwd'],
                 res['spline_route_fwd@64'], res['spline_route_bwd@64'],
                 res['spline_records'])),
-            ('consensus_kernel', lambda: phase_consensus_kernel(
-                res['consensus_fwd'])),
-            ('sparse_consensus_kernel', lambda: phase_sparse_consensus_kernel(
-                res['sparse_consensus_fwd'], res['sparse_consensus_bwd'],
-                sc_small)),
-            ('rng_kernel', lambda: phase_rng_kernel(res)),
-            ('bf16_kernels', lambda: phase_bf16_kernels(res)),
-            ('blocked_kernel', lambda: phase_blocked_kernel(res)),
-            ('serve', lambda: phase_serve(res['topk'], small, sc_small)),
-            ('train', lambda: phase_train(res)),
-            ('kg_train', lambda: phase_kg_train(res)),
-            ('train_bf16', lambda: phase_train_bf16(res)),
-            ('kg_train_bf16', lambda: phase_kg_train_bf16(res)),
-            ('kg_tiers', lambda: phase_kg_tiers(res)),
-            ('capture', phase_capture),
-            ('backbones', phase_backbones),
-            ('resume', lambda: phase_resume(
+            ('consensus_kernel', ('consensus.cu',),
+             lambda: phase_consensus_kernel(res['consensus_fwd'])),
+            ('rng_kernel', ('rng.cu',), lambda: phase_rng_kernel(res)),
+            ('blocked_kernel', ('blocked.cu',),
+             lambda: phase_blocked_kernel(res)),
+            ('topk_kernel', ('topk.cu',),
+             lambda: phase_topk_kernel(res['topk'], small)),
+            ('sparse_consensus_kernel', ('sparse_consensus.cu',),
+             lambda: phase_sparse_consensus_kernel(
+                 res['sparse_consensus_fwd'], res['sparse_consensus_bwd'],
+                 sc_small)),
+            ('bf16_kernels', None, lambda: phase_bf16_kernels(res)),
+            ('serve', None, lambda: phase_serve(res['topk'], small,
+                                                sc_small)),
+            ('train', None, lambda: phase_train(res)),
+            ('kg_train', None, lambda: phase_kg_train(res)),
+            ('train_bf16', None, lambda: phase_train_bf16(res)),
+            ('kg_train_bf16', None, lambda: phase_kg_train_bf16(res)),
+            ('kg_tiers', None, lambda: phase_kg_tiers(res)),
+            ('union_route', None, lambda: phase_union_route(res)),
+            ('capture', None, phase_capture),
+            ('backbones', None, phase_backbones),
+            ('resume', None, lambda: phase_resume(
+                smi[0] if smi else 'nvidia-smi: no output',
+                beside=prepare_keypoints)),
+            ('keypoints', None, lambda: phase_keypoints(
+                res, kp_prep[0] if kp_prep else None)),
+            ('obs', None, lambda: phase_obs(
                 smi[0] if smi else 'nvidia-smi: no output')),
-            ('keypoints', lambda: phase_keypoints(res)),
-            ('obs', lambda: phase_obs(
+            ('serve_worker', None, lambda: phase_serve_worker(
                 smi[0] if smi else 'nvidia-smi: no output')),
-            ('serve_worker', lambda: phase_serve_worker(
-                smi[0] if smi else 'nvidia-smi: no output')),
-            ('lint', lambda: phase_lint(
+            ('lint', None, lambda: phase_lint(
                 smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:
+            if needs != ():
+                await_builds(needs)
             fn()
             log(f'phase {name}: ok in {time.perf_counter() - t0:.1f}s')
         except Exception:
@@ -6853,6 +7442,7 @@ def main(argv=None):
         # are collected (steps and engines sit in reference cycles).
         gc.collect()
         torch.cuda.empty_cache()
+    helper.shutdown(wait=True)
     for key, (path, kind, shape) in RNG_ROWS.items():
         res[key]['launches'] = RNG_MAIN.get(_rng_key(path, kind, shape), 0)
         if not failed and not res[key]['launches']:
@@ -6865,6 +7455,9 @@ def main(argv=None):
             failed.append(f'blocked launches ({key})')
     log(f'blocked: launches on the KG main paths by (path, C, rows dtype): '
         f'{sorted(BLOCKED_MAIN.items())}')
+    for key in ROUTE_ROWS:
+        if not failed and not res[key].get('launches'):
+            failed.append(f'routed launches ({key})')
     for key, where in KP_ROWS.items():
         res[key]['launches'] = KP_MAIN.get(where, 0)
         if not failed and not res[key]['launches']:

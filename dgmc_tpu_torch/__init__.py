@@ -12,12 +12,20 @@ asking for CUDA where there is none raises instead of falling back.
 
 Importing the package imports no torch (its modules do, each for
 itself), so the static analysis (:mod:`dgmc_tpu_torch.analysis`) starts
-without it.
+without it. ``dgmc_tpu_torch.DGMC``, as the JAX package exports it, is
+imported at its first access.
 """
 
 __version__ = '0.1.0'
 
-__all__ = ['resolve_device', 'set_exact_float32', '__version__']
+__all__ = ['DGMC', 'resolve_device', 'set_exact_float32', '__version__']
+
+
+def __getattr__(name):
+    if name == 'DGMC':
+        from dgmc_tpu_torch.models.dgmc import DGMC
+        return DGMC
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 def resolve_device(device=None):

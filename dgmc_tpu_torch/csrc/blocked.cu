@@ -32,6 +32,18 @@
 // Rows are float32, or bf16 where ops/blocked.py casts them (gather_dtype
 // at C * 2 >= 512), widened to float32 exactly (the bits shifted up).
 //
+// The second entry, dgmc_blocked_route, serves the sparse correspondence
+// routing of ops/corr_route.py (JAX's dgmc_tpu/ops/corr_route.py, whose
+// routed sums are the same one-hot einsums): the table has its own row
+// count (N_s rows for the indicator projection, N_s * K for the candidate
+// gather's backward, against n_t output rows), and an optional float32
+// row_scale [B, E_max], aligned with row_src, multiplies each row before
+// it is added: acc = acc + scale * x as a rounded multiply and a rounded
+// add (__fmul_rn, __fadd_rn: no FMA contraction), so that torch's
+// ordered_aggregate with the same scale is its bit-for-bit reference. With
+// bf16 rows the product is rounded to bf16 (the rows' dtype, as JAX's
+// `g * scale.astype(g.dtype)`), the scale arriving rounded to bf16 too.
+//
 // Bound on the H100 (bytes, the work's least, whatever implements it): h
 // read once, the float32 output written once, the E sources read once.
 // psi_1 at C = 256 on the synthetic DBP15K source KG (15000 nodes, 100000
@@ -39,6 +51,7 @@
 // table fits in the 50 MB L2, so the gather's repeated row reads (each
 // row ~6.7 times) are L2 traffic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -122,24 +135,28 @@ __device__ __forceinline__ void store(float* p, const float (&v)[VW]) {
   }
 }
 
-// T: float (float32 rows) or unsigned short (bf16 rows' bits).
+// T: float (float32 rows) or unsigned short (bf16 rows' bits); s: the
+// stage's scales (the scaled entry only).
 template <typename T, int VW, int TT>
 struct Stage {
   using Raw = typename RawOf<sizeof(T) * VW>::type;
   Raw r[UNROLL][TT];
+  float s[UNROLL];
 };
 
 // Loads the rows of the stage's UNROLL edges k = kk .. kk + UNROLL - 1
-// (sources: lane (k mod L) of the group holds edge k's in `src`).
-template <typename T, int VW, int TT>
-__device__ __forceinline__ void issue(Stage<T, VW, TT>& st, int src, int kk,
-                                      int deg, int L, const T* hb, int C,
-                                      int c_first, int c_step) {
+// (sources and scales: lane (k mod L) of the group holds edge k's in `src`
+// and `scl`).
+template <bool SCALED, typename T, int VW, int TT>
+__device__ __forceinline__ void issue(Stage<T, VW, TT>& st, int src, float scl,
+                                      int kk, int deg, int L, const T* hb,
+                                      int C, int c_first, int c_step) {
   using Raw = typename Stage<T, VW, TT>::Raw;
 #pragma unroll
   for (int j = 0; j < UNROLL; ++j) {
     const int k = kk + j;
     const int s = __shfl_sync(FULL, src, k & (L - 1), L);
+    if constexpr (SCALED) st.s[j] = __shfl_sync(FULL, scl, k & (L - 1), L);
 #pragma unroll
     for (int t = 0; t < TT; ++t) {
       const int c = c_first + t * c_step;
@@ -151,8 +168,9 @@ __device__ __forceinline__ void issue(Stage<T, VW, TT>& st, int src, int kk,
   }
 }
 
-// Adds the stage's real edges, in order.
-template <typename T, int VW, int TT>
+// Adds the stage's real edges, in order (scaled: the rounded product,
+// rounded again to bf16 for bf16 rows, then the rounded add).
+template <bool SCALED, typename T, int VW, int TT>
 __device__ __forceinline__ void add(const Stage<T, VW, TT>& st, int kk, int deg,
                                     float (&acc)[TT][VW]) {
 #pragma unroll
@@ -163,7 +181,16 @@ __device__ __forceinline__ void add(const Stage<T, VW, TT>& st, int kk, int deg,
         float v[VW];
         widen<T, VW>(st.r[j][t], v);
 #pragma unroll
-        for (int i = 0; i < VW; ++i) acc[t][i] += v[i];
+        for (int i = 0; i < VW; ++i) {
+          if constexpr (SCALED) {
+            float p = __fmul_rn(st.s[j], v[i]);
+            if constexpr (sizeof(T) == 2)
+              p = __bfloat162float(__float2bfloat16_rn(p));
+            acc[t][i] = __fadd_rn(acc[t][i], p);
+          } else {
+            acc[t][i] += v[i];
+          }
+        }
       }
     }
   }
@@ -171,12 +198,15 @@ __device__ __forceinline__ void add(const Stage<T, VW, TT>& st, int kk, int deg,
 
 // Grid: (row groups' blocks, channel tiles, B). Lane group g of warp w
 // of block x owns row (x * WARPS + w) * (32 / L) + g; lane `sub` of it
-// the vectors sub + L * t (t < TT) of the block's channel tile.
-template <typename T, int VW, int TT>
+// the vectors sub + L * t (t < TT) of the block's channel tile. M output
+// rows, M_tab table rows; row_scale is read only when SCALED.
+template <bool SCALED, typename T, int VW, int TT>
 __global__ void __launch_bounds__(THREADS)
     blocked_aggregate(const T* __restrict__ h, const int* __restrict__ row_ptr,
-                      const int* __restrict__ row_src, float* __restrict__ out,
-                      int M, int E_max, int C, int L) {
+                      const int* __restrict__ row_src,
+                      const float* __restrict__ row_scale,
+                      float* __restrict__ out, int M, int M_tab, int E_max,
+                      int C, int L) {
   const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int sub = lane & (L - 1);
@@ -186,6 +216,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int* ptr = row_ptr + (size_t)b * (M + 1);
   const int* rs = row_src + (size_t)b * E_max;
+  const float* sc = SCALED ? row_scale + (size_t)b * E_max : nullptr;
   int beg = 0, deg = 0;
   if (row < M) {
     beg = ptr[row];
@@ -201,12 +232,18 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < VW; ++i) acc[t][i] = 0.f;
 
   if (steps > 0) {
-    const T* hb = h + (size_t)b * M * C;
-    // Sources of edges [base, base + L) and [base + L, base + 2L).
+    const T* hb = h + (size_t)b * M_tab * C;
+    // Sources (and scales) of edges [base, base + L) and [base + L,
+    // base + 2L).
     int src = sub < deg ? rs[beg + sub] : 0;
     int src_next = L + sub < deg ? rs[beg + L + sub] : 0;
+    float scl = 0.f, scl_next = 0.f;
+    if constexpr (SCALED) {
+      scl = sub < deg ? sc[beg + sub] : 0.f;
+      scl_next = L + sub < deg ? sc[beg + L + sub] : 0.f;
+    }
     Stage<T, VW, TT> a, n;
-    issue(a, src, 0, deg, L, hb, C, c_first, c_step);
+    issue<SCALED>(a, src, scl, 0, deg, L, hb, C, c_first, c_step);
     // Stage kk's loads are in `a` on entry; each pass adds two stages.
     for (int kk = 0; kk < steps; kk += 2 * UNROLL) {
       int k1 = kk + UNROLL;
@@ -214,20 +251,28 @@ __global__ void __launch_bounds__(THREADS)
         if ((k1 & (L - 1)) == 0) {
           src = src_next;
           src_next = k1 + L + sub < deg ? rs[beg + k1 + L + sub] : 0;
+          if constexpr (SCALED) {
+            scl = scl_next;
+            scl_next = k1 + L + sub < deg ? sc[beg + k1 + L + sub] : 0.f;
+          }
         }
-        issue(n, src, k1, deg, L, hb, C, c_first, c_step);
+        issue<SCALED>(n, src, scl, k1, deg, L, hb, C, c_first, c_step);
       }
-      add(a, kk, deg, acc);
+      add<SCALED>(a, kk, deg, acc);
       if (k1 >= steps) break;
       const int k2 = k1 + UNROLL;
       if (k2 < steps) {
         if ((k2 & (L - 1)) == 0) {
           src = src_next;
           src_next = k2 + L + sub < deg ? rs[beg + k2 + L + sub] : 0;
+          if constexpr (SCALED) {
+            scl = scl_next;
+            scl_next = k2 + L + sub < deg ? sc[beg + k2 + L + sub] : 0.f;
+          }
         }
-        issue(a, src, k2, deg, L, hb, C, c_first, c_step);
+        issue<SCALED>(a, src, scl, k2, deg, L, hb, C, c_first, c_step);
       }
-      add(n, k1, deg, acc);
+      add<SCALED>(n, k1, deg, acc);
     }
   }
 
@@ -241,49 +286,81 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int VW, int TT>
-int launch_tt(const T* h, const int* row_ptr, const int* row_src, float* out,
-              int B, int M, int E_max, int C, int L, cudaStream_t stream) {
-  const int vectors = C / VW;
-  const int tiles = (vectors + L * TT - 1) / (L * TT);
-  const int rows_per_block = WARPS * 32 / L;
-  const long long blocks = ((long long)M + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, tiles, B);
-  blocked_aggregate<T, VW, TT><<<grid, THREADS, 0, stream>>>(
-      h, row_ptr, row_src, out, M, E_max, C, L);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int VW>
-int launch_vw(const T* h, const int* row_ptr, const int* row_src, float* out,
-              int B, int M, int E_max, int C, cudaStream_t stream) {
-  const int vectors = C / VW;
-  int L = UNROLL;
-  while (L < 32 && L < vectors) L *= 2;
-  const int tt = (vectors + L - 1) / L;
-  switch (tt < TT_MAX ? tt : TT_MAX) {
-    case 1:
-      return launch_tt<T, VW, 1>(h, row_ptr, row_src, out, B, M, E_max, C, L,
-                                 stream);
-    case 2:
-      return launch_tt<T, VW, 2>(h, row_ptr, row_src, out, B, M, E_max, C, L,
-                                 stream);
-    case 3:
-      return launch_tt<T, VW, 3>(h, row_ptr, row_src, out, B, M, E_max, C, L,
-                                 stream);
-    default:
-      return launch_tt<T, VW, TT_MAX>(h, row_ptr, row_src, out, B, M, E_max,
-                                      C, L, stream);
-  }
-}
-
 // The widest load of 16, 8, 4 or `elem` bytes that C and the base address
 // allow, in elements.
 int vector_width(const void* h, int C, int elem) {
   for (int vw = 16 / elem; vw > 1; vw /= 2)
     if (C % vw == 0 && (uintptr_t)h % (vw * elem) == 0) return vw;
   return 1;
+}
+
+// One launch's arguments beside the rows.
+struct Args {
+  const int* row_ptr;
+  const int* row_src;
+  const float* row_scale;  // null: unscaled
+  float* out;
+  int B, M, M_tab, E_max, C;
+  cudaStream_t stream;
+};
+
+template <bool SCALED, typename T, int VW, int TT>
+int launch_tt(const T* h, const Args& a, int L) {
+  const int vectors = a.C / VW;
+  const int tiles = (vectors + L * TT - 1) / (L * TT);
+  const int rows_per_block = WARPS * 32 / L;
+  const long long blocks =
+      ((long long)a.M + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, tiles, a.B);
+  blocked_aggregate<SCALED, T, VW, TT><<<grid, THREADS, 0, a.stream>>>(
+      h, a.row_ptr, a.row_src, a.row_scale, a.out, a.M, a.M_tab, a.E_max, a.C,
+      L);
+  return (int)cudaGetLastError();
+}
+
+template <bool SCALED, typename T, int VW>
+int launch_vw(const T* h, const Args& a) {
+  const int vectors = a.C / VW;
+  int L = UNROLL;
+  while (L < 32 && L < vectors) L *= 2;
+  const int tt = (vectors + L - 1) / L;
+  switch (tt < TT_MAX ? tt : TT_MAX) {
+    case 1:
+      return launch_tt<SCALED, T, VW, 1>(h, a, L);
+    case 2:
+      return launch_tt<SCALED, T, VW, 2>(h, a, L);
+    case 3:
+      return launch_tt<SCALED, T, VW, 3>(h, a, L);
+    default:
+      return launch_tt<SCALED, T, VW, TT_MAX>(h, a, L);
+  }
+}
+
+template <bool SCALED>
+int launch_rows(const void* h, int bf16, const Args& a) {
+  if (bf16) {
+    const auto* x = static_cast<const unsigned short*>(h);
+    switch (vector_width(h, a.C, 2)) {
+      case 8:
+        return launch_vw<SCALED, unsigned short, 8>(x, a);
+      case 4:
+        return launch_vw<SCALED, unsigned short, 4>(x, a);
+      case 2:
+        return launch_vw<SCALED, unsigned short, 2>(x, a);
+      default:
+        return launch_vw<SCALED, unsigned short, 1>(x, a);
+    }
+  }
+  const auto* x = static_cast<const float*>(h);
+  switch (vector_width(h, a.C, 4)) {
+    case 4:
+      return launch_vw<SCALED, float, 4>(x, a);
+    case 2:
+      return launch_vw<SCALED, float, 2>(x, a);
+    default:
+      return launch_vw<SCALED, float, 1>(x, a);
+  }
 }
 
 }  // namespace
@@ -307,36 +384,27 @@ int dgmc_blocked_aggregate(const void* h, int bf16, const int* row_ptr,
   if (B <= 0 || M <= 0 || C <= 0) return (int)cudaSuccess;
   if (E_max <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   return dgmc::on_device(device, [&]() {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (bf16) {
-      const auto* x = static_cast<const unsigned short*>(h);
-      switch (vector_width(h, C, 2)) {
-        case 8:
-          return launch_vw<unsigned short, 8>(x, row_ptr, row_src, out, B, M,
-                                              E_max, C, s);
-        case 4:
-          return launch_vw<unsigned short, 4>(x, row_ptr, row_src, out, B, M,
-                                              E_max, C, s);
-        case 2:
-          return launch_vw<unsigned short, 2>(x, row_ptr, row_src, out, B, M,
-                                              E_max, C, s);
-        default:
-          return launch_vw<unsigned short, 1>(x, row_ptr, row_src, out, B, M,
-                                              E_max, C, s);
-      }
-    }
-    const auto* x = static_cast<const float*>(h);
-    switch (vector_width(h, C, 4)) {
-      case 4:
-        return launch_vw<float, 4>(x, row_ptr, row_src, out, B, M, E_max, C,
-                                   s);
-      case 2:
-        return launch_vw<float, 2>(x, row_ptr, row_src, out, B, M, E_max, C,
-                                   s);
-      default:
-        return launch_vw<float, 1>(x, row_ptr, row_src, out, B, M, E_max, C,
-                                   s);
-    }
+    const Args a{row_ptr, row_src, nullptr, out, B, M, M, E_max, C,
+                 (cudaStream_t)stream};
+    return launch_rows<false>(h, bf16, a);
+  });
+}
+
+// The routed sum: h [B, M_tab, C] (float32 or bf16 as above), row_ptr
+// [B, M_out + 1], row_src [B, E_max] int32 rows of h, row_scale [B, E_max]
+// float32 aligned with row_src or null; out [B, M_out, C] float32, every
+// element written. As dgmc_blocked_aggregate otherwise.
+int dgmc_blocked_route(const void* h, int bf16, const int* row_ptr,
+                       const int* row_src, const float* row_scale, float* out,
+                       int B, int M_out, int M_tab, int E_max, int C,
+                       int device, void* stream) {
+  if (B <= 0 || M_out <= 0 || C <= 0) return (int)cudaSuccess;
+  if (E_max <= 0 || M_tab <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  return dgmc::on_device(device, [&]() {
+    const Args a{row_ptr, row_src, row_scale, out, B, M_out, M_tab, E_max, C,
+                 (cudaStream_t)stream};
+    return row_scale ? launch_rows<true>(h, bf16, a)
+                     : launch_rows<false>(h, bf16, a);
   });
 }
 

@@ -23,7 +23,21 @@ Ported here:
   card); plus the serving arguments ``h_t``, ``S_idx`` and ``h_t_cand``.
   The shortlist's receiver order is built once per forward
   (:class:`~dgmc_tpu_torch.ops.shortlist.Shortlist`) and serves every
-  reduction onto the targets.
+  reduction onto the targets. With ``route_sparse`` the final shortlist
+  is routed instead (:func:`~dgmc_tpu_torch.ops.corr_route.
+  build_corr_route`, once per forward): ``r_t`` is
+  :func:`~dgmc_tpu_torch.ops.corr_route.sparse_project`, the candidate
+  rows of ``h_t`` and of each step's ``o_t`` are
+  :func:`~dgmc_tpu_torch.ops.corr_route.sparse_gather`, whose sums run
+  through the blocked kernel's routed entry, and the delta is the narrow
+  :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
+  sparse_consensus_delta` over the gathered candidates (JAX's ``use_sc
+  and use_route`` branch).
+
+``batch_pair`` (JAX's, default off as there): ψ₁ (``'psi_1'``), ψ₂
+(``'psi_2'``) or both (``True``) run once on the node-axis union of the
+pair (:class:`~dgmc_tpu_torch.ops.blocked.UnionPair`) instead of once a
+side; blocked graphs on both sides only, with JAX's refusals.
 
 ψ₂ in both variants (:meth:`DGMC.packs_source`): the source side's input
 is noise, independent of ``S``, so where the JAX package's
@@ -79,6 +93,9 @@ from dgmc_tpu_torch.ops.kernels import dispatch, rng
 from dgmc_tpu_torch.ops.kernels import sparse_consensus
 from dgmc_tpu_torch.ops.kernels.consensus import (R_MAX, consensus_update,
                                                   plain_consensus)
+from dgmc_tpu_torch.ops.blocked import UnionPair
+from dgmc_tpu_torch.ops.corr_route import (build_corr_route, sparse_gather,
+                                           sparse_project)
 from dgmc_tpu_torch.ops.shortlist import Shortlist
 from dgmc_tpu_torch.ops.softmax import masked_softmax
 from dgmc_tpu_torch.ops.topk import (DEFAULT_TOPK_BLOCK, chunked_topk,
@@ -204,6 +221,18 @@ class DGMC(nn.Module):
             (:func:`~dgmc_tpu_torch.ops.topk.streamed_topk`: one top-k
             launch per chunk on the card, the same shortlist). Sparse
             (``k >= 1``) only.
+        route_sparse: route the sparse consensus loop's sums onto the
+            targets through a once-per-forward blocked sort of the final
+            shortlist (:mod:`~dgmc_tpu_torch.ops.corr_route`) instead of
+            the shortlist's receiver order; off by default, as in JAX.
+        batch_pair: ``None`` / ``False`` (off, the default), ``True``,
+            ``'psi_1'`` or ``'psi_2'``: run that backbone once on the
+            node-axis union of the pair
+            (:class:`~dgmc_tpu_torch.ops.blocked.UnionPair`). It needs
+            blocked graphs on both sides with matching ``rows`` and edge
+            attribute widths, and refuses (``ValueError``, JAX's
+            wording) a backbone with batch norm, a ψ₁ union of differing
+            feature widths, and the serving ``h_t`` / ``h_t_cand``.
 
     The consensus delta goes through :func:`consensus_update` (dense) or
     :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
@@ -215,12 +244,14 @@ class DGMC(nn.Module):
 
     def __init__(self, psi_1, psi_2, num_steps, k=-1, generator=None,
                  dtype=None, topk_block=DEFAULT_TOPK_BLOCK,
-                 stream_chunk=None):
+                 stream_chunk=None, route_sparse=None, batch_pair=None):
         super().__init__()
         self.psi_1 = psi_1
         self.psi_2 = psi_2
         self.num_steps = num_steps
         self.k = k
+        self.route_sparse = route_sparse
+        self.batch_pair = batch_pair
         self.topk_block = int(topk_block)
         self.stream_chunk = None if stream_chunk is None else int(
             stream_chunk)
@@ -278,11 +309,13 @@ class DGMC(nn.Module):
         """Whether ψ₂'s source side of all ``num_steps`` steps runs as
         one channel-packed call: exactly where the JAX package's
         ``prefetch_source`` packs (``dgmc_tpu/models/dgmc.py:551-558``),
-        with more than one step and a ψ₂ that has no batch norm, no
-        active dropout (training mode with ``dropout > 0``) and
-        channel-packed evaluation (``supports_streams``)."""
+        with more than one step, ψ₂ not merged by ``batch_pair`` and a ψ₂
+        that has no batch norm, no active dropout (training mode with
+        ``dropout > 0``) and channel-packed evaluation
+        (``supports_streams``)."""
         psi_2 = self.psi_2
         return (num_steps > 1
+                and self.batch_pair not in (True, 'psi_2')
                 and not getattr(psi_2, 'batch_norm', False)
                 and not (self.training and getattr(psi_2, 'dropout', 0.0))
                 and getattr(psi_2, 'supports_streams', False))
@@ -311,26 +344,100 @@ class DGMC(nn.Module):
             return plain_consensus
         return consensus_update
 
-    def _sparse_delta_fn(self):
-        """:func:`fused_candidate_delta`, or its plain form above the
-        kernels' ``R <= R_MAX`` limit (recorded)."""
+    def _sparse_delta_fn(self, narrow=False):
+        """:func:`fused_candidate_delta` (``narrow``:
+        :func:`~dgmc_tpu_torch.ops.kernels.sparse_consensus.
+        sparse_consensus_delta` over gathered candidates, ``route_sparse``'s
+        form), or its plain form above the kernels' ``R <= R_MAX`` limit
+        (recorded)."""
+        sc = sparse_consensus
         R = self.mlp_hidden_kernel.shape[0]
-        if R > sparse_consensus.R_MAX:
-            dispatch.record('sparse_consensus_fwd', 'plain',
-                            f'R>{sparse_consensus.R_MAX}')
-            return sparse_consensus.plain_fused_candidate_delta
-        return sparse_consensus.fused_candidate_delta
+        if R > sc.R_MAX:
+            dispatch.record('sparse_consensus_fwd', 'plain', f'R>{sc.R_MAX}')
+            return (sc.plain_sparse_consensus_delta if narrow
+                    else sc.plain_fused_candidate_delta)
+        return sc.sparse_consensus_delta if narrow else sc.fused_candidate_delta
+
+    def _union(self, graph_s, graph_t, serving):
+        """``(pair, merge_1, merge_2)``: the :class:`UnionPair` and which
+        backbones run on it, under JAX's rules and refusals
+        (``dgmc_tpu/models/dgmc.py:373-420``); ``serving``: a precomputed
+        ``h_t`` or ``h_t_cand`` was passed."""
+        bp = self.batch_pair
+        if bp not in (None, False, True, 'psi_1', 'psi_2'):
+            raise ValueError(
+                f"batch_pair must be None/False/True/'psi_1'/'psi_2', "
+                f'got {bp!r}')
+        if bp not in (True, 'psi_1', 'psi_2'):
+            return None, False, False
+        ea_s, ea_t = graph_s.edge_attr, graph_t.edge_attr
+        bs, bt = graph_s.blocks_in, graph_t.blocks_in
+        if ((ea_s is None) != (ea_t is None)
+                or (ea_s is not None and ea_s.shape[-1] != ea_t.shape[-1])
+                or bs is None or bt is None or bs.rows != bt.rows):
+            raise ValueError(
+                'batch_pair requires blocked-adjacency graphs on both '
+                'sides (ops/blocked.attach_blocks) with matching block '
+                'rows and edge_attr widths; this pair cannot be stacked')
+
+        def merges(m, role):
+            if bp not in (True, role):
+                return False
+            if getattr(m, 'batch_norm', False):
+                raise ValueError(
+                    'batch_pair is invalid with a BatchNorm '
+                    'backbone: merged batch statistics would span '
+                    'both graphs')
+            return True
+
+        merge_1 = merges(self.psi_1, 'psi_1')
+        if merge_1 and graph_s.x.shape[-1] != graph_t.x.shape[-1]:
+            raise ValueError(
+                f'batch_pair={bp!r} cannot union psi_1: '
+                f'source/target feature widths differ '
+                f'({graph_s.x.shape[-1]} vs {graph_t.x.shape[-1]})')
+        merge_2 = merges(self.psi_2, 'psi_2')
+        if (merge_1 or merge_2) and serving:
+            raise ValueError(
+                'precomputed h_t / h_t_cand are incompatible with '
+                'batch_pair union evaluation: the union stacks both '
+                'sides through one backbone call, but a precomputed '
+                'target table means the target side never runs ψ₁')
+        return UnionPair(graph_s, graph_t), merge_1, merge_2
+
+    @staticmethod
+    def _on_pair(m, x_s, x_t, graph_s, graph_t, pair, generator):
+        """``m`` on both sides: once on the union where ``pair`` is given,
+        else on the source, then on the target."""
+        if pair is None:
+            return (m(x_s, graph_s, generator=generator),
+                    m(x_t, graph_t, generator=generator))
+        return pair.apply(lambda x, g: m(x, g, generator=generator), x_s,
+                          x_t)
 
     def _psi2(self, x, graph, generator):
         with stage('psi2'):
             return self.psi_2(x, graph, generator=generator)
 
+    def _step_psi2(self, r_s, r_t, o_s_all, step, graph_s, graph_t, pair,
+                   generator):
+        """One consensus step's ψ₂ outputs ``(o_s, o_t)``: the packed
+        source side's, or ψ₂ on the union (``pair``), or ψ₂ on the
+        source, then on the target."""
+        if o_s_all is not None:
+            return o_s_all[step], self._psi2(r_t, graph_t, generator)
+        with stage('psi2'):
+            return self._on_pair(self.psi_2, r_s, r_t, graph_s, graph_t,
+                                 pair, generator)
+
     def _dense(self, graph_s, graph_t, num_steps, detach, noise_seed,
                pair_offset, r_s, generator):
+        pair, merge_1, merge_2 = self._union(graph_s, graph_t, False)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
                 stage('psi1'):
-            h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
-            h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+            h_s, h_t = self._on_pair(self.psi_1, graph_s.x, graph_t.x,
+                                     graph_s, graph_t,
+                                     pair if merge_1 else None, generator)
         # Probes document the train step only (the JAX package's rule).
         probe = _probes.enabled() and self.training
         if probe:
@@ -356,9 +463,10 @@ class DGMC(nn.Module):
                 with stage('consensus_iter'):
                     S = masked_softmax(S_hat, S_mask)
                     r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
-                    o_s = (self._psi2(r_s[step], graph_s, generator)
-                           if o_s_all is None else o_s_all[step])
-                    o_t = self._psi2(r_t, graph_t, generator)
+                    o_s, o_t = self._step_psi2(r_s[step], r_t, o_s_all,
+                                               step, graph_s, graph_t,
+                                               pair if merge_2 else None,
+                                               generator)
                     delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
                     S_hat = S_hat + torch.where(S_mask, delta, 0.0)
                 if probe:
@@ -439,13 +547,19 @@ class DGMC(nn.Module):
         if negatives is not None and not train:
             raise ValueError('negatives are drawn in training mode only '
                              '(with y)')
+        pair, merge_1, merge_2 = self._union(
+            graph_s, graph_t, h_t is not None or h_t_cand is not None)
         # detach: ψ₁ runs without a graph, still in its own mode (the
         # same dropout masks as with one).
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
                 stage('psi1'):
-            h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
             if h_t is None and h_t_cand is None:
-                h_t = self.psi_1(graph_t.x, graph_t, generator=generator)
+                h_s, h_t = self._on_pair(self.psi_1, graph_s.x, graph_t.x,
+                                         graph_s, graph_t,
+                                         pair if merge_1 else None,
+                                         generator)
+            else:
+                h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
         probe = _probes.enabled() and self.training
         if probe:
             _probes.check_finite('psi1', h_s,
@@ -509,12 +623,21 @@ class DGMC(nn.Module):
                                          return_replaced=True)
             entry_mask = entry_mask.clone()
             entry_mask[..., -1] |= replaced
-        shortlist = Shortlist(S_idx, N_t)
+        # The final shortlist's order onto the targets, built once: the
+        # routed tables, or the shortlist's receiver order.
+        if self.route_sparse:
+            route, shortlist = build_corr_route(S_idx, N_t), None
+
+            def cand_rows(feat):
+                return sparse_gather(feat, S_idx, route)
+        else:
+            shortlist = Shortlist(S_idx, N_t)
+            S_idx, cand_rows = shortlist.idx, shortlist.gather
         row_mask = s_mask[..., None]
 
         with stage('initial_corr'):
             h_t_rows = (h_t_cand if h_t_cand is not None
-                        else shortlist.gather(h_t))
+                        else cand_rows(h_t))
             # float32 logits of compute-dtype embeddings (exact products).
             acc = torch.promote_types(h_s.dtype, torch.float32)
             S_hat = torch.einsum('bsc,bskc->bsk', h_s.to(acc),
@@ -528,18 +651,29 @@ class DGMC(nn.Module):
             r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
                               pair_offset, dev)
             o_s_all = self._packed_source(r_s, graph_s, generator)
-            delta_fn = self._sparse_delta_fn()
+            delta_fn = self._sparse_delta_fn(narrow=shortlist is None)
             for step in range(num_steps):
                 with stage('consensus_iter'):
                     S = masked_softmax(S_hat, entry_mask) * row_mask
                     # float32: S is; the noise is widened exactly.
-                    r_t = shortlist.scatter(
-                        S[..., None] * r_s[step].to(S.dtype)[:, :, None, :])
-                    o_s = (self._psi2(r_s[step], graph_s, generator)
-                           if o_s_all is None else o_s_all[step])
-                    o_t = self._psi2(r_t, graph_t, generator)
-                    S_hat = S_hat + delta_fn(o_s, o_t.to(o_s.dtype),
-                                             shortlist, *self._mlp(o_s.dtype))
+                    if shortlist is None:
+                        r_t = sparse_project(S, r_s[step], S_idx, route)
+                    else:
+                        r_t = shortlist.scatter(
+                            S[..., None]
+                            * r_s[step].to(S.dtype)[:, :, None, :])
+                    o_s, o_t = self._step_psi2(r_s[step], r_t, o_s_all,
+                                               step, graph_s, graph_t,
+                                               pair if merge_2 else None,
+                                               generator)
+                    o_t = o_t.to(o_s.dtype)
+                    if shortlist is None:
+                        delta = delta_fn(o_s, cand_rows(o_t),
+                                         *self._mlp(o_s.dtype))
+                    else:
+                        delta = delta_fn(o_s, o_t, shortlist,
+                                         *self._mlp(o_s.dtype))
+                    S_hat = S_hat + delta
                 if probe:
                     with torch.no_grad():
                         _probe_consensus_iter(
@@ -551,5 +685,5 @@ class DGMC(nn.Module):
         S_L = masked_softmax(S_hat, entry_mask) * row_mask
         if probe:
             _probe_corr_stage(S_L, s_mask, 'SL')
-        return (Correspondence(S_0, shortlist.idx, s_mask, t_mask),
-                Correspondence(S_L, shortlist.idx, s_mask, t_mask))
+        return (Correspondence(S_0, S_idx, s_mask, t_mask),
+                Correspondence(S_L, S_idx, s_mask, t_mask))

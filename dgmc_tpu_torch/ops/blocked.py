@@ -37,9 +37,18 @@ Beside JAX's tables each :class:`EdgeBlocks` carries, built on the host
 with the rest: ``range_ptr``, the first block of each range; and the row
 table the kernel reads, a CSR over destination rows (``row_ptr``,
 ``row_src``) whose order within a row is the blocks' own: the range's
-blocks in order, each block's slots in order. ``UnionPair`` /
-``batch_pair`` are not ported: nothing in the JAX package's CLIs enables
-them.
+blocks in order, each block's slots in order.
+
+The same sums serve the sparse correspondence routing
+(:mod:`~dgmc_tpu_torch.ops.corr_route`): :func:`plain_aggregate` and
+:func:`ordered_aggregate` read any tables with these fields (a route's
+:class:`~dgmc_tpu_torch.ops.corr_route.RouteTable` too), whose row table
+may sum a table of another row count than the output's, each row times
+an optional per-entry scale.
+
+:class:`UnionPair` (JAX's, ``dgmc_tpu/ops/blocked.py:261-332``) merges a
+blocked source and target graph into one graph along the node axis, so
+that one backbone call covers both sides (DGMC's ``batch_pair``).
 """
 
 import dataclasses
@@ -52,7 +61,7 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['EdgeBlocks', 'build_edge_blocks', 'operand_dtype', 'operand',
            'plain_aggregate', 'ordered_aggregate',
-           'adj_matmul', 'repeat_graph', 'attach_blocks']
+           'adj_matmul', 'UnionPair', 'repeat_graph', 'attach_blocks']
 
 _TENSORS = ('src', 'dst_local', 'mask', 'range_id', 'inv_degree',
             'range_ptr', 'row_ptr', 'row_src')
@@ -228,12 +237,15 @@ def _adj_work(h, fwd_blocks, bwd_blocks):
 
 
 @dispatch.counted('plain_aggregate', _aggregate_work)
-def plain_aggregate(h, blocks):
+def plain_aggregate(h, blocks, scale=None):
     """The plain version: JAX's ``_routed`` — ``out[b, n] = Σ_{e: dst=n}
     h[b, src_e]`` as the flattened row gather, the one-hot contraction
     ``[B, NB, E_b, rows] x [B, NB, E_b, C] -> [B, NB, rows, C]`` and the
     range combine, accumulated in ``promote(h, float32)``, which is also
-    the output's dtype. ``h [B, M, C]`` → ``[B, M, C]``."""
+    the output's dtype. ``h [B, M, C]`` → ``[B, N, C]``, ``N`` the row
+    table's rows (``row_ptr [B, N + 1]``; ``N = M`` for a graph's
+    blocks). ``scale`` (optional ``[B, NB, E_b]``) multiplies each
+    gathered row, in the rows' dtype, before the contraction."""
     B, M, C = h.shape
     acc = torch.promote_types(h.dtype, torch.float32)
     h = operand(h, blocks.gather_dtype)
@@ -241,6 +253,8 @@ def plain_aggregate(h, blocks):
     src = blocks.src.to(dev, torch.int64)
     gidx = src + (torch.arange(B, device=dev) * M)[:, None, None]
     g = h.reshape(B * M, C)[gidx.reshape(-1)].reshape(*src.shape, C)
+    if scale is not None:
+        g = g * scale.to(dev, g.dtype)[..., None]
     onehot = ((blocks.dst_local.to(dev)[..., None]
                == torch.arange(blocks.rows, device=dev))
               & blocks.mask.to(dev)[..., None])
@@ -248,39 +262,51 @@ def plain_aggregate(h, blocks):
     combine = (blocks.range_id.to(dev)[:, None, :]
                == torch.arange(blocks.num_ranges, device=dev)[None, :, None])
     out = torch.einsum('anb,abrc->anrc', combine.to(acc), per_block)
-    return out.reshape(B, blocks.num_ranges * blocks.rows, C)[:, :M]
+    n_out = blocks.row_ptr.shape[1] - 1
+    return out.reshape(B, blocks.num_ranges * blocks.rows, C)[:, :n_out]
 
 
-def ordered_aggregate(h, blocks):
+def ordered_aggregate(h, blocks, scale=None):
     """``out[b, n] = Σ_{e: dst=n} h[b, src_e]`` in the kernel's order and
     rounding: over the row table, each row's k-th source added at step
     ``k`` by one elementwise add into a sum that starts at 0, in
     ``promote(h, float32)`` (the output's dtype), the rows read as
-    :func:`operand` gives them (bf16 widened exactly). The CUDA kernel
-    computes the same sum bit for bit; this is its reference in the
-    tests and on the card, on no main path. ``h [B, M, C]`` →
-    ``[B, M, C]``."""
+    :func:`operand` gives them (bf16 widened exactly). With ``scale``
+    (``[B, E_max]``, aligned with ``row_src``) each row is first
+    multiplied by its scale rounded to the rows' dtype, the product
+    rounded to that dtype (one rounded multiply, then the add). The CUDA
+    kernel computes the same sum bit for bit; this is its reference in
+    the tests and on the card, on no main path. ``h [B, M, C]`` →
+    ``[B, N, C]``, ``N`` the row table's rows."""
     B, M, C = h.shape
     acc = torch.promote_types(h.dtype, torch.float32)
-    x = operand(h, blocks.gather_dtype).to(acc).reshape(B * M, C)
+    rows = operand(h, blocks.gather_dtype)
+    x = rows.to(acc).reshape(B * M, C)
     dev = h.device
     ptr = blocks.row_ptr.to(dev, torch.int64)
+    N = ptr.shape[1] - 1
     E = blocks.row_src.shape[1]
     # Rows by falling degree (stable), so that step k touches a prefix.
     deg = (ptr[:, 1:] - ptr[:, :-1]).reshape(-1)
     order = torch.argsort(deg, descending=True, stable=True)
     first = (ptr[:, :-1] + torch.arange(B, device=dev)[:, None] * E
              ).reshape(-1)[order]
-    base = (order // M) * M   # the row's batch element's first row
+    base = (order // N) * M   # the row's batch element's first table row
     src = blocks.row_src.to(dev, torch.int64).reshape(-1)
+    if scale is not None:
+        scale = scale.to(dev).to(rows.dtype).to(acc).reshape(-1)
     active = torch.bincount(deg, minlength=1).flip(0).cumsum(0).flip(0)
     active = active.cpu().tolist()   # active[k]: rows of degree >= k
-    out = torch.zeros(B * M, C, dtype=acc, device=dev)
+    out = torch.zeros(B * N, C, dtype=acc, device=dev)
     for k in range(1, len(active)):
         n = active[k]
-        out[:n] = out[:n] + x[base[:n] + src[first[:n] + (k - 1)]]
+        at = first[:n] + (k - 1)
+        add = x[base[:n] + src[at]]
+        if scale is not None:
+            add = (add * scale[at][:, None]).to(rows.dtype).to(acc)
+        out[:n] = out[:n] + add
     return torch.empty_like(out).index_copy_(0, order, out).reshape(
-        B, M, C)
+        B, N, C)
 
 
 def _aggregate(h, blocks):
@@ -309,6 +335,97 @@ def adj_matmul(h, fwd_blocks, bwd_blocks):
     ``fwd_blocks``, in ``promote(h, float32)``; the gradient is the same
     aggregation over ``bwd_blocks`` (the transpose)."""
     return _AdjMatmul.apply(h, fwd_blocks, bwd_blocks)
+
+
+class UnionPair:
+    """A (source, target) graph pair joined along the node axis: per batch
+    element one graph of ``N_s' + N_t`` nodes, ``N_s'`` the source's nodes
+    padded up to whole ranges of ``rows``, the target's endpoints offset
+    by ``N_s'`` (JAX's ``UnionPair``, ``dgmc_tpu/ops/blocked.py:261-332``).
+    One backbone call on :attr:`graph` then covers both sides (DGMC's
+    ``batch_pair``). Both sides need blocked adjacency with the same
+    ``rows``.
+
+    The merged tables: JAX's, bit for bit (``src`` and ``range_id`` of the
+    target offset by ``N_s'`` and the source's range count,
+    ``inv_degree`` 1 on the padded rows), and the port's own:
+    ``range_ptr``, the target's offset by the source's block count; the
+    row table compact per batch element, the target's ``row_ptr`` offset
+    by that element's real source edges (``row_ptr_s[b, N_s]``, so the
+    padded rows are empty) and its ``row_src`` by ``N_s'``. Built from
+    the two sides' tensors on their device, without reading them on the
+    host, so a captured step builds it too.
+    """
+
+    def __init__(self, g_s, g_t):
+        from dgmc_tpu_torch.ops.graph import GraphBatch
+        bs, bt = g_s.blocks_in, g_t.blocks_in
+        if bs is None or bt is None:
+            raise ValueError('UnionPair requires blocked graphs '
+                             '(ops/blocked.py)')
+        if bs.rows != bt.rows:
+            raise ValueError(f'UnionPair: block rows differ ({bs.rows} vs '
+                             f'{bt.rows})')
+        self.n_s, self.n_t = g_s.num_nodes, g_t.num_nodes
+        self.pad = bs.num_ranges * bs.rows - self.n_s
+        off = self.n_s + self.pad
+
+        def cat(a, b):
+            return None if a is None else torch.cat([a, b], dim=1)
+
+        self.graph = GraphBatch(
+            x=self._cat(g_s.x, g_t.x),
+            senders=torch.cat([g_s.senders, g_t.senders + off], dim=1),
+            receivers=torch.cat([g_s.receivers, g_t.receivers + off],
+                                dim=1),
+            node_mask=self._cat(g_s.node_mask, g_t.node_mask),
+            edge_mask=torch.cat([g_s.edge_mask, g_t.edge_mask], dim=1),
+            edge_attr=cat(g_s.edge_attr, g_t.edge_attr),
+            blocks_in=self._merge(g_s.blocks_in, g_t.blocks_in),
+            blocks_out=self._merge(g_s.blocks_out, g_t.blocks_out))
+
+    def _merge(self, a, b):
+        off, nr_s = self.n_s + self.pad, a.num_ranges
+        B = a.src.shape[0]
+        ones = torch.ones((B, self.pad, 1), dtype=a.inv_degree.dtype,
+                          device=a.inv_degree.device)
+        # The row table, compact per element: the source's real edges,
+        # then the target's, then zeros.
+        e_s = a.row_ptr[:, self.n_s:self.n_s + 1]            # [B, 1]
+        width = a.row_src.shape[1] + b.row_src.shape[1]
+        pos = torch.arange(width, device=a.row_src.device)[None]
+        from_s = pos < e_s
+        t_pos = (pos - e_s).clamp(0, b.row_src.shape[1] - 1)
+        s_pos = pos.clamp(max=a.row_src.shape[1] - 1).expand(B, -1)
+        row_src = torch.where(
+            from_s, a.row_src.gather(1, s_pos),
+            b.row_src.gather(1, t_pos) + off)
+        row_src = torch.where(pos < e_s + b.row_ptr[:, -1:], row_src,
+                              torch.zeros_like(row_src))
+        return EdgeBlocks(
+            src=torch.cat([a.src, b.src + off], dim=1),
+            dst_local=torch.cat([a.dst_local, b.dst_local], dim=1),
+            mask=torch.cat([a.mask, b.mask], dim=1),
+            range_id=torch.cat([a.range_id, b.range_id + nr_s], dim=1),
+            inv_degree=torch.cat([a.inv_degree, ones, b.inv_degree], dim=1),
+            range_ptr=torch.cat([a.range_ptr[:, :nr_s],
+                                 b.range_ptr + a.src.shape[1]], dim=1),
+            row_ptr=torch.cat([a.row_ptr, e_s.expand(B, self.pad),
+                               b.row_ptr[:, 1:] + e_s], dim=1),
+            row_src=row_src, rows=a.rows, num_ranges=nr_s + b.num_ranges,
+            gather_dtype=a.gather_dtype)
+
+    def _cat(self, a_s, a_t):
+        if self.pad:
+            a_s = torch.cat([a_s, a_s.new_zeros(
+                (a_s.shape[0], self.pad) + tuple(a_s.shape[2:]))], dim=1)
+        return torch.cat([a_s, a_t], dim=1)
+
+    def apply(self, fn, x_s, x_t):
+        """Run ``fn(x, graph) -> [B, N, C]`` once over the union; split
+        the result back into the two sides."""
+        out = fn(self._cat(x_s, x_t), self.graph)
+        return out[:, :self.n_s], out[:, self.n_s + self.pad:]
 
 
 def _repeat(a, reps):

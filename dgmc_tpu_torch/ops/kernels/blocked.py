@@ -22,9 +22,26 @@ under ``gather_dtype`` where the rows stay >= 512 bytes), and any other
 dtype raises. The output is float32 (``promote(h, float32)``), as the
 plain version's.
 
+The routed sums of the sparse correspondence
+(:mod:`~dgmc_tpu_torch.ops.corr_route`) run through the same kernel's
+second entry, ``dgmc_blocked_route``: the table has its own row count
+(``M_tab``: ``N_s`` rows for the indicator projection, ``N_s * K`` for
+the candidate gather's backward, against ``n_t`` output rows), and the
+projection multiplies each row by a float32 ``row_scale [B, N_s * K]``
+aligned with ``row_src`` (the correspondence ``S`` at the route's order),
+as a rounded multiply and a rounded add (bf16 rows: the scale and the
+product rounded to bf16, as JAX's ``_routed`` multiplies in the rows'
+dtype), so that the scaled
+:func:`~dgmc_tpu_torch.ops.blocked.ordered_aggregate` is its bit-for-bit
+reference. Its wrappers :func:`route_project` and
+:func:`route_gather_bwd` (counters ``corr_project``, ``corr_gather_bwd``)
+dispatch as :func:`aggregate` does; the unscaled entry and its launch
+plan are unchanged.
+
 :func:`blocked_work` is the aggregation's least work on one table (the
 work counter's count in :mod:`~dgmc_tpu_torch.obs.cost` and
-``chip_smoke.py``'s bound), the same whichever path runs.
+``chip_smoke.py``'s bound), the same whichever path runs;
+:func:`route_work` the routed sums'.
 """
 
 import ctypes
@@ -35,7 +52,8 @@ from dgmc_tpu_torch.ops import blocked as blocked_ops
 from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['WARPS', 'UNROLL', 'VECTORS_PER_LANE', 'launch_plan',
-           'aggregate', 'launch', 'blocked_work']
+           'aggregate', 'launch', 'blocked_work', 'route_work',
+           'route_project', 'route_gather_bwd', 'launch_route']
 
 
 def blocked_work(blocks, C, elem):
@@ -43,7 +61,7 @@ def blocked_work(blocks, C, elem):
     implements it: an add per real edge and channel; the h table read once
     (``elem`` bytes a value), the float32 output written once, the E real
     edges' int32 sources read once. Reads the edge mask's sum."""
-    B, M = blocks.inv_degree.shape[:2]
+    B, M = blocks.row_ptr.shape[0], blocks.row_ptr.shape[1] - 1
     E = float(blocks.mask.sum())
     return {'kernel': 'blocked', 'flops': E * C,
             'bytes': float(B * M * C * (elem + 4)) + 4.0 * E,
@@ -56,6 +74,38 @@ def call_work(h, blocks):
                                         blocks.gather_dtype)
     return blocked_work(blocks, h.shape[-1],
                         torch.empty((), dtype=x_dtype).element_size())
+
+def route_work(kernel, B, M_tab, M_out, E, C, elem, scaled):
+    """The least work of one routed sum whatever implements it: an add
+    per entry and channel (and a multiply where ``scaled``); the
+    ``[B, M_tab, C]`` table read once (``elem`` bytes a value), the
+    float32 ``[B, M_out, C]`` output written once, the ``E`` entries'
+    int32 rows (and float32 scales) read once."""
+    per = 2 if scaled else 1
+    return {'kernel': kernel, 'flops': float(per * E * C),
+            'bytes': float(B * (M_tab * C * elem + M_out * C * 4))
+            + 4.0 * per * E,
+            'out_bytes': 4.0 * B * M_out * C, 'dot': False}
+
+
+def _rows_elem(h):
+    return torch.empty((), dtype=blocked_ops.operand_dtype(
+        h.dtype, h.shape[-1], None)).element_size()
+
+
+def project_work(r_s, S, route):
+    """:func:`route_work` of :func:`route_project`."""
+    B, N_s, C = r_s.shape
+    return route_work('corr_project', B, N_s, route.n_t,
+                      route.row_src.numel(), C, _rows_elem(r_s), True)
+
+
+def gather_bwd_work(g, route):
+    """:func:`route_work` of :func:`route_gather_bwd`."""
+    B, E, C = g.shape
+    return route_work('corr_gather_bwd', B, E, route.n_t, B * E, C,
+                      _rows_elem(g), False)
+
 
 #: Warps a block of threads, edges a lane group loads per stage (two
 #: stages in flight; also the fewest lanes a row), 16-byte vectors a lane
@@ -98,6 +148,8 @@ def _library():
         lib.dgmc_blocked_aggregate.argtypes = ([p, i] + [p] * 3 + [i] * 5
                                                + [p])
         lib.dgmc_blocked_aggregate.restype = i
+        lib.dgmc_blocked_route.argtypes = [p, i] + [p] * 4 + [i] * 6 + [p]
+        lib.dgmc_blocked_route.restype = i
         names = ('dgmc_blocked_warps', 'dgmc_blocked_unroll',
                  'dgmc_blocked_vectors_per_lane')
         for name in names:
@@ -180,4 +232,103 @@ def aggregate(h, blocks):
     dispatch.record('blocked', 'kernel', 'auto-cuda', x.dtype)
     out = launch(x, blocks)
     aggregate.launches += 1
+    return out
+
+
+def launch_route(x, row_ptr, row_src, scale=None):
+    """One launch of the routed entry on CUDA rows ``x [B, M_tab, C]``
+    (float32 or bf16, as :func:`~dgmc_tpu_torch.ops.blocked.operand`
+    gives them), the row table ``row_ptr [B, M_out + 1]`` /
+    ``row_src [B, E]`` (int32 rows of ``x``) and an optional float32
+    ``scale [B, E]`` (already rounded to the rows' dtype) →
+    ``[B, M_out, C]`` float32; counts nothing (timing)."""
+    B, M_tab, C = x.shape
+    x = x.contiguous()
+    ptr, src = row_ptr.contiguous(), row_src.contiguous()
+    if ptr.dtype != torch.int32 or src.dtype != torch.int32:
+        raise TypeError('the route\'s row table (row_ptr, row_src) must be '
+                        'int32')
+    if (src.dim() != 2 or src.shape[0] != B or src.shape[1] < 1
+            or ptr.shape[0] != B):
+        raise ValueError(f'row table {tuple(ptr.shape)} / '
+                         f'{tuple(src.shape)} does not match rows of '
+                         f'{tuple(x.shape)}')
+    if scale is not None:
+        scale = scale.contiguous()
+        if scale.dtype != torch.float32 or scale.shape != src.shape:
+            raise ValueError(f'row_scale must be float32 '
+                             f'{tuple(src.shape)}; got {scale.dtype} '
+                             f'{tuple(scale.shape)}')
+    M_out = ptr.shape[1] - 1
+    out = torch.empty((B, M_out, C), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    err = _library().dgmc_blocked_route(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr.data_ptr(),
+        src.data_ptr(), None if scale is None else scale.data_ptr(),
+        out.data_ptr(), B, M_out, M_tab, src.shape[1], C,
+        stream.device_index, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'routed blocked kernel launch failed with CUDA '
+                           f'error {err} (B={B}, M_out={M_out}, '
+                           f'M_tab={M_tab}, C={C}, E={src.shape[1]}, '
+                           f'{x.dtype}, scaled={scale is not None})')
+    return out
+
+
+def _route_rows(name, h, tensors):
+    """The rows a routed sum reads, after the device checks: the plain
+    version's decision recorded and ``None`` for a CPU tensor."""
+    if h.dim() != 3:
+        raise ValueError(f'{name} wants a table [B, M, C]; got '
+                         f'{tuple(h.shape)}')
+    devs = {t.device for t in tensors} | {h.device}
+    if len(devs) != 1:
+        raise ValueError(f'{name} inputs lie on several devices: '
+                         f'{sorted(map(str, devs))}')
+    x_dtype = blocked_ops.operand_dtype(h.dtype, h.shape[-1], None)
+    if h.device.type == 'cpu':
+        dispatch.record(name, 'plain', 'device=cpu', x_dtype)
+        return None
+    if h.device.type != 'cuda':
+        raise ValueError(f'{name} runs on cpu or cuda, not '
+                         f'{h.device.type}')
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'the routed kernel takes float32 or bfloat16 '
+                        f'rows; got {h.dtype}')
+    dispatch.record(name, 'kernel', 'auto-cuda', x_dtype)
+    return blocked_ops.operand(h, None)
+
+
+@dispatch.kernel_wrapper('corr_project')
+@dispatch.counted('corr_project', project_work)
+def route_project(r_s, S, route):
+    """``r_t[b, t] = Σ_{s,k: S_idx[b,s,k] = t} S[b,s,k] * r_s[b,s]`` over a
+    :class:`~dgmc_tpu_torch.ops.corr_route.CorrRoute` → ``[B, n_t, C]``
+    float32: the plain version (JAX's scaled ``_routed``) for a CPU
+    tensor, the scaled kernel for a CUDA one. No gradient of its own
+    (:func:`~dgmc_tpu_torch.ops.corr_route.sparse_project` is the
+    differentiable form)."""
+    r_s, S = r_s.detach(), S.detach()
+    x = _route_rows('corr_project', r_s, route.tensors() + [S])
+    if x is None:
+        return route.plain_sum(r_s, 'src', route.block_scale(S))
+    out = launch_route(x, route.row_ptr, route.row_src,
+                       route.row_scale(S, x.dtype))
+    route_project.launches += 1
+    return out
+
+
+@dispatch.kernel_wrapper('corr_gather_bwd')
+@dispatch.counted('corr_gather_bwd', gather_bwd_work)
+def route_gather_bwd(g, route):
+    """The candidate gather's transpose, ``out[b, t] = Σ_{e: S_idx_e = t}
+    g[b, e]`` for ``g [B, N_s * K, C]`` over a route → ``[B, n_t, C]``
+    float32: the plain version for a CPU tensor, the unscaled routed
+    kernel (an ``N_s * K``-row table) for a CUDA one."""
+    g = g.detach()
+    x = _route_rows('corr_gather_bwd', g, route.tensors())
+    if x is None:
+        return route.plain_sum(g, 'ent')
+    out = launch_route(x, route.row_ptr, route.row_ent)
+    route_gather_bwd.launches += 1
     return out

@@ -29,8 +29,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-lineinfo', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas=-v')
 
-_lock = threading.Lock()
-_loaded = {}   # source file name -> ctypes.CDLL
+_lock = threading.Lock()      # guards the two tables below
+_loaded = {}                  # source file name -> ctypes.CDLL
+_building = {}                # source file name -> its own build lock
 
 
 def _nvcc():
@@ -63,8 +64,15 @@ def load_library(source):
     (0.0 when an earlier build was reused) and ``build_log`` (nvcc's
     ``-Xptxas=-v`` report of registers, shared memory and spills). A
     build is a compile event of the run plane
-    (:func:`~dgmc_tpu_torch.obs.registry.record_compile`)."""
+    (:func:`~dgmc_tpu_torch.obs.registry.record_compile`). Each source
+    has its own lock, so that threads building different sources run
+    their ``nvcc`` processes side by side."""
     with _lock:
+        lib = _loaded.get(source)
+        if lib is not None:
+            return lib
+        source_lock = _building.setdefault(source, threading.Lock())
+    with source_lock:
         lib = _loaded.get(source)
         if lib is not None:
             return lib
@@ -90,7 +98,8 @@ def load_library(source):
         lib = ctypes.CDLL(out)
         lib.build_seconds = seconds
         lib.build_log = log
-        _loaded[source] = lib
+        with _lock:
+            _loaded[source] = lib
         return lib
 
 

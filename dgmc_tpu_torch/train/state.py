@@ -31,7 +31,7 @@ import dataclasses
 import torch
 
 __all__ = ['TrainState', 'GuardedTrainState', 'create_train_state',
-           'with_guard_counters', 'fill_grads', 'optimizer_update',
+           'init_variables', 'with_guard_counters', 'fill_grads', 'optimizer_update',
            'apply_gradients', 'write_state', 'save_in_place',
            'snapshot', 'snapshot_params', 'restore_params']
 
@@ -65,6 +65,21 @@ def with_guard_counters(state):
         optimizer=state.optimizer, step=state.step,
         skip_count=torch.zeros((), dtype=torch.int32, device=dev),
         consec_bad=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def init_variables(model, key=0):
+    """Every variable of ``model`` initialized afresh by its own
+    initializer (``reset_parameters``) from ``key``, a seed or a
+    ``torch.Generator`` on the model's device → ``model.state_dict()``.
+    JAX's ``init_variables`` builds the parameters on a sample batch and
+    forces a consensus step so that ψ₂ and the consensus MLP exist from a
+    ``num_steps=0`` phase on; the port's modules build all of theirs at
+    construction, so it needs no batch."""
+    if not isinstance(key, torch.Generator):
+        device = next(model.parameters()).device
+        key = torch.Generator(device=device).manual_seed(int(key))
+    model.reset_parameters(key)
+    return model.state_dict()
 
 
 def create_train_state(model, learning_rate=1e-3):

@@ -99,7 +99,7 @@ from dgmc_tpu_torch.train.state import (fill_grads, optimizer_update,
 
 __all__ = ['DeviceBatch', 'HostBatches', 'batch_to_host', 'batch_to_device',
            'dropout_seed', 'dropout_generator', 'loss_and_outputs',
-           'make_train_step', 'make_eval_step']
+           'make_train_step', 'make_eval_step', 'aggregate_eval']
 
 
 class DeviceBatch(NamedTuple):
@@ -491,3 +491,18 @@ def make_eval_step(model, hits_ks=(1,), num_steps=None, jit=True):
     eval_step.capture = capture
     eval_step.jit = jitted
     return eval_step
+
+
+def aggregate_eval(totals):
+    """Fold a list of summed eval-step outputs (``count``, ``correct`` and
+    other sums) into rates: ``acc`` and each other sum per counted row,
+    beside ``count`` (JAX's ``aggregate_eval``)."""
+    if not totals:
+        return {}
+    summed = {k: float(sum(t[k] for t in totals)) for k in totals[0]}
+    count = summed.pop('count')
+    n = max(count, 1.0)
+    out = {'acc': summed.pop('correct') / n}
+    out.update({k: v / n for k, v in summed.items()})
+    out['count'] = count
+    return out

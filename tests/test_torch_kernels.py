@@ -884,6 +884,87 @@ def test_blocked_adj_matmul_gradient_on_the_card(cuda):
     assert torch.equal(h.grad, ob.plain_aggregate(g, outg))
 
 
+def _route_case(rng, cuda, B=2, N_s=400, K=6, n_t=900):
+    """A route over a shortlist with a duplicate in every third row and a
+    hub target (node 3 in most of element 0's rows), on the card."""
+    from dgmc_tpu_torch.ops.corr_route import build_corr_route
+    idx = rng.randint(0, n_t, (B, N_s, K))
+    idx[:, ::3, -1] = idx[:, ::3, 0]
+    idx[0, 50:] = 3
+    return build_corr_route(torch.from_numpy(idx).to(cuda), n_t, rows=64,
+                            block_entries=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C', [1, 32, 40, 64])
+@pytest.mark.parametrize('rows', ['float32', 'bfloat16'])
+def test_routed_kernel_matches_plain_and_ordered(cuda, C, rows):
+    """The blocked kernel's routed entry (csrc/blocked.cu,
+    dgmc_blocked_route): the scaled projection and the gather's backward
+    bit-equal to the plain version on integer rows and quarter scales,
+    bit-identical to the scaled ordered_aggregate on random ones (bf16
+    rows at C = 64 read as bf16, the product rounded to bf16); one launch
+    a call; a repeat bit-identical."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    rng = np.random.RandomState(200 + C)
+    route = _route_case(rng, cuda)
+    dt = getattr(torch, rows)
+    S = torch.from_numpy(rng.randint(-8, 9, (2, 400, 6)) / 4).to(
+        cuda, torch.float32)
+    for which, M in (('src', 400), ('ent', 2400)):
+        for x in (torch.from_numpy(rng.randint(-4, 5, (2, M, C))),
+                  torch.from_numpy(rng.randn(2, M, C))):
+            x = x.to(cuda, dt)
+            rows_dt = ob.operand(x, None).dtype
+            if which == 'src':
+                before = kb.route_project.launches
+                got = kb.route_project(x, S, route)
+                assert kb.route_project.launches == before + 1
+                plain = route.plain_sum(x, 'src', route.block_scale(S))
+                want = ob.ordered_aggregate(x, route.table('src'),
+                                            route.row_scale(S, rows_dt))
+                again = kb.route_project(x, S, route)
+            else:
+                before = kb.route_gather_bwd.launches
+                got = kb.route_gather_bwd(x, route)
+                assert kb.route_gather_bwd.launches == before + 1
+                plain = route.plain_sum(x, 'ent')
+                want = ob.ordered_aggregate(x, route.table('ent'))
+                again = kb.route_gather_bwd(x, route)
+            assert got.shape == (2, 900, C) and got.dtype == torch.float32
+            assert torch.equal(got, want) and torch.equal(got, again)
+            if bool((x == x.round()).all()):   # every sum exact
+                assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_routed_sparse_project_and_gather_gradients_on_the_card(cuda):
+    """sparse_project and sparse_gather on the card against the CPU's plain
+    path, values and gradients, rtol 1e-5 / atol 1e-5 x max|out|."""
+    from dgmc_tpu_torch.ops.corr_route import (build_corr_route,
+                                               sparse_gather, sparse_project)
+    rng = np.random.RandomState(3)
+    idx = torch.from_numpy(rng.randint(0, 900, (2, 400, 6)))
+    S = torch.from_numpy(rng.randn(2, 400, 6).astype(np.float32))
+    r_s = torch.from_numpy(rng.randn(2, 400, 32).astype(np.float32))
+    feat = torch.from_numpy(rng.randn(2, 900, 32).astype(np.float32))
+    outs = {}
+    for dev in ('cpu', cuda):
+        route = build_corr_route(idx.to(dev), 900)
+        a = S.to(dev).requires_grad_()
+        b = r_s.to(dev).requires_grad_()
+        f = feat.to(dev).requires_grad_()
+        out = sparse_project(a, b, idx.to(dev), route)
+        cand = sparse_gather(f, idx.to(dev), route)
+        (out.sin().sum() + cand.cos().sum()).backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (out, cand, a.grad,
+                                                       b.grad, f.grad)]
+    for got, want in zip(outs[str(cuda)], outs['cpu']):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_streamed_and_offloaded_topk_match_the_device_search(cuda, dtype):
