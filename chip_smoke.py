@@ -265,13 +265,17 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
 - ``resume``: checkpoints, the guard and resume at the DBP15K width
   (float32, captured; :func:`phase_resume`): (a) an uninterrupted
   6-epoch run (3 of phase 1) with ``--ckpt_dir``, launches as
-  ``kg_train``'s; (b) the same run killed by ``sigkill@5`` after
-  ``ckpt-corrupt@4``, then resumed in a second process past the corrupt
-  step: its step-6 checkpoint (every model tensor and Adam tensor) and
-  last eval line bit-identical to (a)'s; (c) ``--guard-bad-steps 1
+  ``kg_train``'s, its saves asynchronous (the blocking seconds printed);
+  (b) the same run with a save every epoch, killed by ``sigkill@5`` with
+  step 4's write in flight after ``ckpt-corrupt@3``, then resumed in a
+  second process from step 2, the last committed good step: its step-6
+  checkpoint (every model tensor and Adam tensor) and last eval line
+  bit-identical to (a)'s; (c) ``--guard-bad-steps 1
   --inject-fault nan-grads@5``: the bad step skipped in the graph, the
   rollback to (a)'s step-4 parameters bit for bit, the guarded step eager
-  against captured bit for bit, the device ops of an unguarded replay,
+  against captured bit for bit, an asynchronous save followed at once by
+  a replay that writes the state in place restoring the state at the
+  save bit for bit, the device ops of an unguarded replay,
   one with the guard alone and one with the fault armed too; then
   ``--guard-bad-steps 3`` with no fault, resumed from (a)'s step 2
   through both phases: its steps 4 and 6 bit-identical to (a)'s; (d) the
@@ -343,7 +347,13 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   ``obs`` KG dir and the worker's attempt dirs: buckets, compile events
   by kind (captures, ``nvcc`` builds, the build phase's cold count
   beside), no RCP202; (c) a captured ``.item()`` raises on the card at
-  the line the SRC tier flags (SRC102).
+  the line the SRC tier flags (SRC102); (d) the trace tier over the
+  eight specimens on the card in this process, rc 0 against the
+  baseline, no TRC003 or TRC004, each specimen's kernel launches, and a
+  ``.item()`` and an ``index_add_`` step flagged at their lines (TRC003,
+  TRC005); (e) the specimen cost rows into an obs dir (each
+  ``static_peak_bytes`` beside the allocator's measured peak) and
+  ``obs.diff --max-peak-regression`` over them.
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -4883,9 +4893,12 @@ def phase_resume(smi_line, beside=None):
     launch counters set to 0 before it: ``KG_PER``'s counts a step);
     (b) the same run crashed and resumed in two processes of
     ``python -m dgmc_tpu_torch.experiments.dbp15k``, ``--ckpt_dir B
-    --inject-fault ckpt-corrupt@4 --inject-fault sigkill@5``: the first
-    dies by SIGKILL, the second falls back past step 4 (its manifest
-    mismatch), resumes at epoch 3 and finishes; B's step-6 checkpoint
+    --ckpt_every 1 --inject-fault ckpt-corrupt@3 --inject-fault
+    sigkill@5`` (the saves asynchronous, the CLI's default; the fault
+    waits for step 3's commit): the first dies by SIGKILL with step 4's
+    write in flight (B holds its ``.tmp-4-*`` directory and no step 4),
+    the second removes it, falls back past step 3 (its manifest mismatch)
+    to step 2, resumes at epoch 3 and finishes; B's step-6 checkpoint
     equals A's bit for bit (every model tensor and Adam moment and count)
     and so does its last eval line;
     (c) ``--ckpt_dir C --ckpt_every 1 --guard-bad-steps 1 --inject-fault
@@ -4896,7 +4909,9 @@ def phase_resume(smi_line, beside=None):
     step changes no bit of a clean update); then the guarded phase-2 step
     eager and captured from C's step 4, on the bad epoch 5 and the clean
     epoch 6: outputs, parameters, Adam state and counters bit-identical,
-    launches equal; the device ops and device time of one replay of the
+    launches equal; an asynchronous save of that state, then at once a
+    replay that writes it in place: the restore equals the state at the
+    save bit for bit; the device ops and device time of one replay of the
     captured phase-2 step unguarded, with the guard alone and with the
     fault armed too, printed (the profiler must record each, and each
     adds ops); then ``--ckpt_dir D --guard-bad-steps 3`` with no fault
@@ -4953,7 +4968,8 @@ def phase_resume(smi_line, beside=None):
         counts = _kg_marks('resume (a)', marks, 3)
         RESUME_A.update(payload=payload(A, 6),
                         eval=_eval_lines(out_a)[-1])
-        saves = [(e['step'], e['save_s'], e['save_bytes'])
+        saves = [(e['step'], round(e['save_s'], 4), round(e['write_s'], 4),
+                  e['save_bytes'])
                  for e in _read_jsonl(A + '.jsonl')
                  if e.get('event') == 'checkpoint']
         if [s[0] for s in saves] != [2, 4, 6] or \
@@ -4962,12 +4978,15 @@ def phase_resume(smi_line, beside=None):
         log(f'resume (a): 6 epochs (3 of phase 1) through dbp15k.main in '
             f'{time.perf_counter() - t0:.1f}s, launches '
             f'{dict((k, counts[k]) for k in KG_KERNELS)} at KG_PER\'s counts '
-            f'a step; saves (step, seconds, bytes) {saves} on {smi_line}')
+            f'a step; asynchronous saves (step, seconds the loop was '
+            f'blocked, the background write\'s seconds, bytes) {saves}, '
+            f'beside the synchronous save\'s 0.037-0.118 s (PRs 1-16) on '
+            f'{smi_line}')
 
         # (b) crashed and resumed, in two processes
         cmd = [sys.executable, '-m', 'dgmc_tpu_torch.experiments.dbp15k',
                *base, '--ckpt_dir', B, '--metrics_log', B + '.jsonl',
-               '--inject-fault', 'ckpt-corrupt@4',
+               '--ckpt_every', '1', '--inject-fault', 'ckpt-corrupt@3',
                '--inject-fault', 'sigkill@5']
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
@@ -4982,6 +5001,17 @@ def phase_resume(smi_line, beside=None):
                 log(f'  | {line}')
             log(f'resume (b): process {len(runs)} exited {r.returncode} '
                 f'after {time.perf_counter() - t0:.1f}s')
+            if len(runs) == 1:
+                # Killed before epoch 5, right after step 4's save
+                # returned: its write was in flight.
+                left = sorted(os.listdir(B))
+                if '4' in left or not any(n.startswith('.tmp-4-')
+                                          for n in left):
+                    raise AssertionError(f'resume (b): after the SIGKILL B '
+                                         f'holds {left}: step 4\'s write was '
+                                         f'not in flight')
+                log(f'resume (b): after the SIGKILL B holds {left}: step '
+                    f'4\'s write was in flight')
         if side is not None:
             t0 = time.perf_counter()
             concurrent.futures.wait([side])
@@ -4991,19 +5021,22 @@ def phase_resume(smi_line, beside=None):
             raise AssertionError(f'resume (b): the first process exited '
                                  f'{runs[0].returncode}, not by SIGKILL')
         if runs[1].returncode != 0 or \
-                'at epoch 2. (latest step 4 was unrestorable)' \
+                'at epoch 2. (latest step 3 was unrestorable)' \
                 not in runs[1].stdout or \
-                'step 4 failed verification' not in runs[1].stderr:
+                'step 3 failed verification' not in runs[1].stderr or \
+                any(n.startswith('.tmp-') for n in os.listdir(B)):
             raise AssertionError('resume (b): the second process did not '
-                                 'fall back past step 4 and finish')
+                                 'fall back past step 3 and finish')
         n = _hold_checkpoints('resume (b): B step 6 against A step 6',
                               payload(A, 6), payload(B, 6))
         la, lb = _eval_lines(out_a), _eval_lines(runs[1].stdout)
         if la[-1] != lb[-1] or lb != la[-len(lb):]:
             raise AssertionError(f'resume (b): eval lines {lb} against {la}')
         ev = {e.get('event'): e for e in _read_jsonl(B + '.jsonl')}
-        log(f'resume (b): SIGKILL at epoch 5, then resumed at epoch 3 past '
-            f'the corrupt step 4: step 6 bit-identical to A\'s ({n} model '
+        log(f'resume (b): SIGKILL at epoch 5 with step 4\'s write in '
+            f'flight, then resumed at epoch 3 from the last committed good '
+            f'step (2: step 3 corrupt): step 6 bit-identical to A\'s ({n} '
+            f'model '
             f'tensors and Adam tensors), last eval line equal '
             f'({lb[-1]!r}); restore {ev["resume"]["restore_s"]:.4f} s, '
             f'restore to the end of the first step '
@@ -5070,6 +5103,44 @@ def phase_resume(smi_line, beside=None):
             if not torch.equal(getattr(states[False], name),
                                getattr(states[True], name)):
                 raise AssertionError(f'resume (c): {name} differs')
+        # An asynchronous save, then at once a replay that writes the
+        # parameters and Adam's state in place: the step restores as it
+        # was at the save.
+        E = os.path.join(tmp, 'E')
+        ck = Checkpointer(E)
+        want = {k: v.detach().clone()
+                for k, v in models[True].state_dict().items()}
+        for i, st in enumerate(states[True].optimizer.state.values()):
+            for k, v in st.items():
+                want[f'adam {i} {k}'] = v.detach().clone()
+        t0 = time.perf_counter()
+        ck.save(1, models[True], states[True])
+        blocking = time.perf_counter() - t0
+        guarded[True](states[True], train_dev,
+                      dbp15k.noise_seed(args.seed, 0, 7))
+        ck.close()
+        back_model = dbp15k.build(args, in_dim).cuda()
+        back = with_guard_counters(create_train_state(back_model, args.lr))
+        Checkpointer(E).restore(back_model, back)
+        got = dict(back_model.state_dict())
+        for i, st in enumerate(back.optimizer.state.values()):
+            for k, v in st.items():
+                got[f'adam {i} {k}'] = v
+        moved = sum(not torch.equal(v, models[True].state_dict()[k])
+                    for k, v in want.items() if not k.startswith('adam'))
+        _hold_identical('resume (c): the asynchronous save against the '
+                        'state at the save', want, got, 'the restore')
+        if not moved:
+            raise AssertionError('resume (c): the replay after the save '
+                                 'changed no parameter')
+        log(f'resume (c): an asynchronous save of the guarded state '
+            f'({ck.last_save["seconds"]:.4f}s blocking, {blocking:.4f}s on '
+            f'the caller\'s clock, write {ck.last_save["write_s"]:.4f}s, '
+            f'{ck.last_save["bytes"]} bytes), then a replay that moved '
+            f'{moved} parameter tensors in place: the restore equals the '
+            f'state at the save bit for bit ({len(want)} tensors) on '
+            f'{smi_line}')
+        del back_model, back
         plain_model = dbp15k.build(args, in_dim).cuda()
         plain_state = create_train_state(plain_model, args.lr)
         Checkpointer(C).restore(plain_model, plain_state, step=4)
@@ -7187,12 +7258,182 @@ step = compiled(scaled, 'cuda')
 """
 
 
+#: The hazard steps of ``lint`` (d): a host read and a float
+#: accumulation through atomics, run on the card under the trace tier's
+#: tape.
+LINT_TRACE_SRC = """\
+import torch
+
+
+def scaled(x):
+    total = x.sum()
+    return x * total.item()
+
+
+def pooled(x, index):
+    out = torch.zeros(4, x.shape[1], device=x.device)
+    return out.index_add_(0, index, x)
+"""
+
+#: The kernels each trace-tier specimen must launch on the card
+#: (``PERF.md``'s kernel table: the TPU kernels "on this slice's path").
+SPECIMEN_KERNELS = {
+    'forward_dense': ('consensus_fwd',),
+    'forward_sparse_k3': ('topk', 'sparse_consensus_fwd'),
+    'train_step_dense': ('consensus_fwd',),
+    'train_step_sparse_k3': ('topk', 'sparse_consensus_fwd',
+                             'sparse_consensus_bwd', 'rng'),
+    'eval_step_dense': ('consensus_fwd',),
+    'ops.chunked_topk_f32': ('topk',),
+}
+
+
+def _lint_trace(tmp, smi_line):
+    """``lint`` (d): the trace tier over the eight specimens on the card,
+    in this process (see :func:`phase_lint`). Returns its seconds."""
+    from dgmc_tpu_torch.analysis import lint as lint_mod
+    from dgmc_tpu_torch.analysis.registry import (default_specimens,
+                                                  shared_cache)
+    from dgmc_tpu_torch.analysis.trace_rules import (TapeRecorder,
+                                                     TraceContext,
+                                                     analyze_tape)
+    baseline = os.path.join(ROOT, 'lint-baseline-torch.json')
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_mod.main(['--json', '--fail-on', 'new', '--baseline',
+                            baseline, '--skip-source', '--skip-concurrency',
+                            '--device', 'cuda'])
+    torch.cuda.synchronize()
+    tier_s = time.perf_counter() - t0
+    report = json.loads(buf.getvalue())
+    rules = collections.Counter(f['rule'] for f in report['findings'])
+    if rc != 0 or rules['TRC003'] or rules['TRC004']:
+        new = set(report['new'])
+        raise AssertionError(f'lint (d): rc {rc}, findings by rule '
+                             f'{dict(rules)}, new: ' + '; '.join(
+                                 f'{f["rule"]} {f["where"]} '
+                                 f'({f["message"]}: {f.get("context")})'
+                                 for f in report['findings']
+                                 if f['fingerprint'] in new))
+    cache = shared_cache('cuda')
+    rows = []
+    for spec in default_specimens():
+        art = cache.artifacts(spec)
+        rec = art.recorded()
+        got = rec['launches']
+        missing = [k for k in SPECIMEN_KERNELS.get(spec.name, ())
+                   if not got.get(k)]
+        if missing or art.stats['builds'] != 1 or art.stats['runs'] != 1:
+            raise AssertionError(f'lint (d) {spec.name}: launches {got} '
+                                 f'(none of {missing}), stats {art.stats}')
+        rows.append(f'{spec.name} {dict(sorted(got.items())) or "none"} '
+                    f'({len(rec["tape"].ops)} ops, run '
+                    f'{rec["seconds"]:.3f}s)')
+    log(f'lint (d): the trace tier over the 8 specimens on the card in '
+        f'{tier_s:.2f}s: rc 0 against lint-baseline-torch.json with '
+        f'--fail-on new, findings by rule {dict(sorted(rules.items()))} '
+        f'(no TRC003, no TRC004); launches by specimen: '
+        + '; '.join(rows) + f' on {smi_line}')
+
+    # Two hazard steps on the card.
+    path = os.path.join(tmp, 'lint_trace_step.py')
+    with open(f'{path}.tmp', 'w') as f:
+        f.write(LINT_TRACE_SRC)
+    os.replace(f'{path}.tmp', path)
+    lines = LINT_TRACE_SRC.splitlines()
+    want = {'TRC003': 1 + next(i for i, s in enumerate(lines)
+                               if '.item()' in s),
+            'TRC005': 1 + next(i for i, s in enumerate(lines)
+                               if 'index_add_' in s)}
+    spec = importlib.util.spec_from_file_location('lint_trace_step', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    x = torch.randn(8, 3, device='cuda')
+    index = torch.randint(0, 4, (8,), device='cuda')
+    got = {}
+    for rule, fn, args in (('TRC003', mod.scaled, (x,)),
+                           ('TRC005', mod.pooled, (x, index))):
+        with TapeRecorder(args) as rec:
+            fn(*args)
+        found = analyze_tape(rec.tape, TraceContext(specimen='hazard'))
+        got[rule] = [(f.rule, int(f.where.rsplit(':', 1)[1]))
+                     for f in found]
+        if got[rule] != [(rule, want[rule])]:
+            raise AssertionError(f'lint (d) hazard {rule}: {got[rule]}, '
+                                 f'expected line {want[rule]}')
+    log(f'lint (d): hazard steps on the card: .item() -> '
+        f'{got["TRC003"]}, index_add_ -> {got["TRC005"]}')
+    return tier_s
+
+
+def _lint_costs(tmp, smi_line):
+    """``lint`` (e): ``obs.cost``'s specimen rows merged into the obs dir
+    of a tiny observed PascalPF run (:func:`_tiny_pf`, on the card), and
+    ``obs.diff --max-peak-regression`` over it (see :func:`phase_lint`).
+    Returns its seconds."""
+    from dgmc_tpu_torch.obs import cost as cost_mod
+    from dgmc_tpu_torch.obs import diff as diff_mod
+    from dgmc_tpu_torch.utils.io import write_json_atomic
+    t0 = time.perf_counter()
+    d = _tiny_pf(tmp, 'cost_obs')
+    with open(os.path.join(d, 'efficiency.json')) as f:
+        run_rows = set(json.load(f)['programs'])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cost_mod.main(['--obs-dir', d, '--json', '--device', 'cuda'])
+    payload = json.loads(buf.getvalue())
+    rows = {k[len('specimen.'):]: v for k, v in payload['programs'].items()
+            if k.startswith('specimen.')}
+    bad = [k for k, v in rows.items()
+           if 'error' in v or not v.get('static_peak_bytes')
+           or v.get('measured_peak_bytes') is None]
+    if rc != 0 or len(rows) != 8 or bad or not run_rows or \
+            not run_rows <= set(payload['programs']):
+        raise AssertionError(f'lint (e): rc {rc}, rows {sorted(rows)}, '
+                             f'bad {bad}: {payload}')
+    peaks = '; '.join(
+        f'{k} static {v["static_peak_bytes"]} B (arguments '
+        f'{v["argument_bytes"]} B) against measured '
+        f'{v["measured_peak_bytes"]} B above the arguments, '
+        f'{v["flops"]} FLOP' for k, v in rows.items())
+    raised = os.path.join(tmp, 'cost_obs_raised')
+    shutil.copytree(d, raised)
+    eff_path = os.path.join(raised, 'efficiency.json')
+    with open(eff_path) as f:
+        eff = json.load(f)
+    for v in eff['programs'].values():
+        if v.get('static_peak_bytes'):
+            v['static_peak_bytes'] = int(v['static_peak_bytes'] * 1.5)
+    write_json_atomic(eff_path, eff)
+    out = {}
+    for name, cand in (('itself', d), ('raised 50%', raised)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = diff_mod.main([d, cand, '--json',
+                                '--max-peak-regression', '0.25'])
+        row = [r for r in json.loads(buf.getvalue())['rows']
+               if r['metric'] == 'static_peak_bytes']
+        out[name] = (rc, row[0]['status'] if row else None)
+    if out != {'itself': (0, 'ok'), 'raised 50%': (1, 'REGRESSION')}:
+        raise AssertionError(f'lint (e): obs.diff --max-peak-regression '
+                             f'{out}')
+    seconds = time.perf_counter() - t0
+    log(f'lint (e): python -m dgmc_tpu_torch.obs.cost --obs-dir (in this '
+        f'process, the trace tier\'s runs) into a tiny PascalPF run\'s obs '
+        f'dir (its rows {sorted(run_rows)} kept) in {seconds:.2f}s: '
+        f'{peaks}; '
+        f'obs.diff --max-peak-regression 0.25 against itself {out["itself"]}'
+        f', against the copy raised 50% {out["raised 50%"]} on {smi_line}')
+    return seconds
+
+
 def phase_lint(smi_line):
     """The port's static analysis (``dgmc_tpu_torch/analysis``) on the
     card's machine, over what the earlier phases left:
 
-    (a) ``python -m dgmc_tpu_torch.analysis.lint --json --fail-on new``
-    over this checkout (the package and ``chip_smoke.py``), with the
+    (a) ``python -m dgmc_tpu_torch.analysis.lint --json --skip-trace
+    --fail-on new`` over this checkout (the trace tier runs in (d)) (the package and ``chip_smoke.py``), with the
     kernels' ``_build/`` present (and ``__pycache__`` dirs, where the
     interpreter writes bytecode), none of their files scanned: rc 0
     against ``lint-baseline-torch.json``;
@@ -7204,7 +7445,21 @@ def phase_lint(smi_line):
     the verdict RCP202 would give if the budget counted them;
     (c) SRC102 against the card: a few-line function that calls
     ``.item()``, passed to ``compiled(..., 'cuda')``: its capture raises
-    (``sync_errors``) at the line that the SRC tier flags statically.
+    (``sync_errors``) at the line that the SRC tier flags statically;
+    (d) the trace tier over the eight specimens on the card, in this
+    process (:func:`_lint_trace`): rc 0 against
+    ``lint-baseline-torch.json`` with ``--fail-on new``, no TRC003 and no
+    TRC004, each specimen built and run once, its kernel launches from
+    the ledger printed and non-zero where :data:`SPECIMEN_KERNELS` says;
+    then two hazard steps on the card, a ``.item()`` and an
+    ``index_add_``, give TRC003 and TRC005 at their lines;
+    (e) ``python -m dgmc_tpu_torch.obs.cost`` (its ``main``, sharing (d)'s
+    runs) into the obs dir of a tiny observed PascalPF run on the card,
+    its run rows kept (:func:`_lint_costs`): each specimen's
+    ``static_peak_bytes`` printed
+    beside the allocator's measured peak of its run; ``obs.diff
+    --max-peak-regression`` passes on the dir against itself and fails on
+    a copy whose static peaks are raised 50%.
 
     Prints the phase's seconds beside the card's name and power limit."""
     import tempfile
@@ -7232,7 +7487,8 @@ def phase_lint(smi_line):
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, '-m', 'dgmc_tpu_torch.analysis.lint', '--json',
-         '--fail-on', 'new', '--baseline', baseline], cwd=ROOT,
+         '--skip-trace', '--fail-on', 'new', '--baseline', baseline],
+        cwd=ROOT,
         capture_output=True, text=True, timeout=300)
     cli_s = time.perf_counter() - t0
     if out.returncode != 0:
@@ -7240,7 +7496,7 @@ def phase_lint(smi_line):
                              f'{out.stdout[-3000:]} {out.stderr[-2000:]}')
     report = json.loads(out.stdout)
     log(f'lint (a): python -m dgmc_tpu_torch.analysis.lint --json '
-        f'--fail-on new: rc 0 in {cli_s:.2f}s over {len(scanned)} package '
+        f'--skip-trace --fail-on new: rc 0 in {cli_s:.2f}s over {len(scanned)} package '
         f'files and chip_smoke.py (_build/ with {len(built)} files and '
         f'{len(caches)} __pycache__ dirs skipped); summary '
         f'{report["summary"]}')
@@ -7262,7 +7518,8 @@ def phase_lint(smi_line):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = lint_mod.main(['--json', '--skip-source',
-                                    '--skip-concurrency', '--obs-dir', d,
+                                    '--skip-concurrency', '--skip-trace',
+                                    '--obs-dir', d,
                                     '--baseline',
                                     os.path.join(tmp, 'none.json'),
                                     '--fail-on', 'none'])
@@ -7318,6 +7575,11 @@ def phase_lint(smi_line):
         log(f'lint (c): compiled(scaled, \'cuda\') raised at line '
             f'{static[0][1]} ({raised!r}); the SRC tier flags the same '
             f'line statically: {static}')
+
+        # (d) the trace tier on the card, (e) the specimen cost rows
+        trace_s = _lint_trace(tmp, smi_line)
+        cost_s = _lint_costs(tmp, smi_line)
+        log(f'lint: (d) {trace_s:.2f}s, (e) {cost_s:.2f}s')
     log(f'lint: phase in {time.perf_counter() - t_phase:.2f}s on '
         f'{smi_line}')
 

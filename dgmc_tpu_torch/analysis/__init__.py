@@ -1,8 +1,19 @@
 """Static analysis of the port: hazards caught before a run is launched.
 
 The port's counterpart of the JAX package's ``dgmc_tpu/analysis`` for
-three of its tiers, with the same rule ids, :class:`Finding` records,
+four of its tiers, with the same rule ids, :class:`Finding` records,
 fingerprints, baseline format and CLI contract:
+
+- **trace tier** (:mod:`~dgmc_tpu_torch.analysis.trace_rules` over the
+  specimens of :mod:`~dgmc_tpu_torch.analysis.registry`): one recorded
+  run of each registered hot function (JAX's eight single-device
+  specimens) on the card or the CPU, op by op, for float64 drift
+  (TRC001), closed-over constants (TRC002), host reads with probes off
+  (TRC003), state updated out of place (TRC004), accumulations through
+  atomics (TRC005) and large sorts (TRC006);
+  :mod:`~dgmc_tpu_torch.analysis.liveness` gives the same run's static
+  peak-live bytes (``static_peak_bytes``, which ``python -m
+  dgmc_tpu_torch.obs.cost`` writes into ``efficiency.json``).
 
 - **source tier** (:mod:`~dgmc_tpu_torch.analysis.source_rules`):
   ``ast`` lints over *captured code* — the functions a compiled step
@@ -22,8 +33,10 @@ fingerprints, baseline format and CLI contract:
 
 CLI: ``python -m dgmc_tpu_torch.analysis.lint`` (``--json``,
 ``--select``/``--ignore``, ``--explain``, ``--fail-on new`` against the
-committed ``lint-baseline-torch.json``). The modules here import neither
-torch nor anything of the JAX package.
+committed ``lint-baseline-torch.json``). Importing this package imports
+neither torch nor anything of the JAX package: the trace tier imports
+torch when it runs. JAX's SCH, MEM and SHD tiers analyze only its mesh
+specimens and wait for multi-GPU work.
 """
 
 from dgmc_tpu_torch.analysis.findings import (Finding, Severity,
@@ -37,6 +50,10 @@ from dgmc_tpu_torch.analysis.con_rules import (lint_concurrency_tree,
                                                lint_concurrency_paths)
 from dgmc_tpu_torch.analysis.recompile import (analyze_buckets,
                                                bucket_signature)
+from dgmc_tpu_torch.analysis.registry import (SpecimenCache,
+                                              default_specimens,
+                                              run_trace_tier)
+from dgmc_tpu_torch.analysis.liveness import module_peak, peak_summary
 
 __all__ = [
     'Finding',
@@ -52,4 +69,9 @@ __all__ = [
     'lint_concurrency_paths',
     'analyze_buckets',
     'bucket_signature',
+    'SpecimenCache',
+    'default_specimens',
+    'run_trace_tier',
+    'module_peak',
+    'peak_summary',
 ]

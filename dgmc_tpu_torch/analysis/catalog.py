@@ -1,8 +1,9 @@
 """The rule catalog: every lint rule's id, tier, severity, and doc.
 
 The port's counterpart of the JAX package's ``dgmc_tpu/analysis/
-catalog.py`` for the three tiers the port has: source (SRC, rewritten
-for captured code), recompile (RCP) and concurrency (CON, copied). One
+catalog.py`` for the four tiers the port has: trace (TRC, over one
+recorded run of each specimen), source (SRC, rewritten for captured
+code), recompile (RCP) and concurrency (CON, copied). One
 structured table owns what a rule IS (``--list-rules``) and what it
 means (``--explain RULE`` — what/why/fix). Pure data, so the CLI can
 answer ``--explain`` without importing torch's backends.
@@ -15,6 +16,7 @@ __all__ = ['RuleDoc', 'RULES', 'RULE_CATALOG', 'TIERS', 'explain_rule']
 
 #: Tier key -> human name (the order tiers report in).
 TIERS = {
+    'TRC': 'trace (one recorded run of each registered specimen)',
     'SRC': 'source (ast lints over the package source)',
     'RCP': 'recompile (padding-bucket churn + obs telemetry)',
     'CON': 'concurrency (thread-entry/lock model over serving source)',
@@ -42,6 +44,84 @@ def _r(rule, severity, title, what, why, fix):
 
 
 RULES: Dict[str, RuleDoc] = {d.rule: d for d in [
+    # --- trace tier ------------------------------------------------------
+    _r('TRC001', 'error',
+       'dtype promotion: 64-bit float introduced in a <=32-bit pipeline',
+       'An op of a specimen\'s recorded run introduces a float64 or '
+       'complex128 result from inputs none of which is one. int64 is '
+       'torch\'s index dtype (gather, sort, argsort and nonzero take or '
+       'return it), so it is not drift and is not flagged.',
+       'The pipeline is float32-or-narrower by design: the H100 runs '
+       'float64 at a fraction of its float32 rate and the tensor cores '
+       'not at all, and one wide value widens everything downstream. '
+       'The CPU plain draws compute Box-Muller in float64 on purpose '
+       '(ops/kernels/rng.py, the one-ulp contract with the CUDA draw '
+       'kernel): those sites are reviewed and baselined, not exempted.',
+       'Find the introducing op (the finding carries its source line) '
+       'and pin its dtype: usually a .double(), a float64 numpy array '
+       'made a tensor, or torch.tensor of a Python float with a float64 '
+       'default dtype.'),
+    _r('TRC002', 'warning',
+       'giant constant closed over by the program',
+       'The recorded run reads a tensor above --max-const-bytes '
+       '(default 1 MiB) that is no argument, parameter, buffer or '
+       'optimizer state and was not made in the run.',
+       'A captured step bakes such a tensor\'s address into every '
+       'replay: it cannot be swapped, sharded or freed, and it usually '
+       'means a dataset or lookup table was closed over instead of '
+       'being passed in.',
+       'Pass the tensor as an argument (or register it as a buffer) '
+       'instead of closing over it.'),
+    _r('TRC003', 'error',
+       'host read in a program expected free of them (probes off)',
+       'With probes off, the recorded run reads the device from the '
+       'host: .item() / float() / bool() (_local_scalar_dense, '
+       'is_nonzero), torch.equal, an op whose output size depends on '
+       'the data (nonzero, masked_select, unique, boolean indexing, '
+       'repeat_interleave without output_size), or a copy from the card '
+       'to the host. The dynamic counterpart of SRC102. A CPU Adam\'s '
+       'read of its own host step count (torch refuses capturable for '
+       'CPU tensors) is the optimizer\'s, not the program\'s.',
+       'A host read synchronizes the host with the card every step, '
+       'and a captured step cannot contain one: the capture raises.',
+       'Keep the value on the device (torch.where, clamp, a mask) or '
+       'read it once outside the step; gate a diagnostic behind the '
+       'probe switch (obs/probes.py).'),
+    _r('TRC004', 'error',
+       'state declared in place was rebound or written out of place',
+       'After one run of the step as the CLIs run it (captured on the '
+       'card, jit=True), a tensor of the state it declares it updates '
+       'in place (parameters, buffers, Adam\'s moments and step counts, '
+       'the guard\'s counters) is not the tensor or the storage it was '
+       'before. The counterpart of JAX\'s dropped donation.',
+       'A captured replay writes the storages it recorded: a rebound '
+       'parameter (p.data = ..., a new nn.Parameter, a new Adam moment '
+       'tensor) leaves the replay updating a storage nobody reads, and '
+       'the model stops training without an error.',
+       'Update in place (copy_, add_, the optimizer\'s foreach ops; '
+       'train/state.py\'s write_state for restores).'),
+    _r('TRC005', 'info',
+       'floating-point accumulation through atomics',
+       'The recorded run accumulates floats with scatter_add, '
+       'scatter_reduce, index_add, index_put(accumulate=True) or an '
+       'embedding backward — a gather\'s or an index\'s backward among '
+       'them.',
+       'On the card these add with atomics in no fixed order, so the '
+       'sums are not bit-identical from run to run — the port promises '
+       'bit-identical repeats for its forward aggregations '
+       '(ops/graph.py). The reviewed backward sites are baselined; the '
+       'rule catches new ones.',
+       'Prefer the sorted or blocked sums (ops/graph.py segment_sum, '
+       'ops/blocked.py) on hot paths; where the accumulation is '
+       'inherent, review and baseline it.'),
+    _r('TRC006', 'warning',
+       'large sort where a top-k selection was intended',
+       'A sort / argsort / topk over an axis of >= 4096 elements.',
+       'A full sort of a large axis is a multi-pass bandwidth-bound '
+       'operation; every such site in this codebase was meant to be '
+       'the top-k kernel or the streaming blockwise top-k.',
+       'Use ops/topk.py (chunked_topk / streamed_topk, the CUDA top-k '
+       'kernel on the card) instead of sort / argsort / topk.'),
     # --- source tier -----------------------------------------------------
     _r('SRC100', 'error', 'source file failed to parse',
        'The source tier could not ast-parse a .py file.',

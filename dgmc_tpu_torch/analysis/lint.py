@@ -10,16 +10,21 @@ Usage::
     ... --select CON501,CON503       # only these rules
     ... --ignore CON503              # drop these rules
     ... --prune-baseline             # drop stale baseline entries
+    ... --device cpu                 # the trace tier on the CPU
 
 The port's counterpart of the JAX package's ``python -m
 dgmc_tpu.analysis.lint``, with its flags, report format, baseline file
-format and exit statuses for the three tiers the port has (each
-skippable): ``--skip-source`` (SRC: ``ast`` lints over captured code),
-``--skip-concurrency`` (CON: thread-entry/lock rules) and
-``--skip-recompile`` (RCP: padding-bucket churn). The recompile pass
-needs a recorded run's buckets: it runs only when ``--obs-dir`` is
+format and exit statuses for the four tiers the port has (each
+skippable): ``--skip-trace`` (TRC: one recorded run of each registered
+specimen, :mod:`~dgmc_tpu_torch.analysis.registry`, on ``--device``:
+``cuda`` by default, where the specimens launch the kernels; ``cpu``
+runs their plain versions), ``--skip-source`` (SRC: ``ast`` lints over
+captured code), ``--skip-concurrency`` (CON: thread-entry/lock rules)
+and ``--skip-recompile`` (RCP: padding-bucket churn). The recompile
+pass needs a recorded run's buckets: it runs only when ``--obs-dir`` is
 given — padding buckets are a runtime artifact, there is nothing to
-analyze statically without one.
+analyze statically without one. A tier runs only when a selected rule
+needs it, and the CLI imports torch only when the trace tier runs.
 
 The source and concurrency tiers scan the package plus ``chip_smoke.py``
 when it sits beside the package; ``--source-root`` overrides the whole
@@ -56,9 +61,10 @@ __all__ = ['RULE_CATALOG', 'build_parser', 'collect_findings', 'main']
 def build_parser():
     p = argparse.ArgumentParser(
         prog='dgmc-lint',
-        description='Static analysis of the PyTorch/CUDA port: source '
-                    'ast lints over captured code, concurrency rules, '
-                    'and recompile-hazard checks.')
+        description='Static analysis of the PyTorch/CUDA port: trace '
+                    'rules over recorded specimen runs, source ast lints '
+                    'over captured code, concurrency rules, and '
+                    'recompile-hazard checks.')
     p.add_argument('--json', action='store_true',
                    help='emit the machine-readable report on stdout '
                         '(alias for --format json; byte-stable)')
@@ -97,6 +103,8 @@ def build_parser():
                         'spelling)')
     p.add_argument('--ignore', default=None,
                    help='comma-separated rule ids to drop')
+    p.add_argument('--skip-trace', action='store_true',
+                   help='skip the trace tier (recorded specimen runs)')
     p.add_argument('--skip-source', action='store_true',
                    help='skip the source ast tier')
     p.add_argument('--skip-recompile', action='store_true',
@@ -111,6 +119,12 @@ def build_parser():
     p.add_argument('--obs-dir', default=None,
                    help='recorded obs run dir: cross-check its padding '
                         'buckets + compile telemetry (RCP202)')
+    p.add_argument('--max-const-bytes', type=int, default=None,
+                   help='TRC002 threshold in bytes (default 1 MiB)')
+    p.add_argument('--device', default='cuda',
+                   help='where the trace tier runs the specimens (default '
+                        'cuda: the kernels launch; cpu: their plain '
+                        'versions)')
     p.add_argument('--list-rules', action='store_true',
                    help='print the rule catalog and exit')
     p.add_argument('--explain', default=None, metavar='RULE[,RULE...]',
@@ -119,16 +133,17 @@ def build_parser():
 
 
 def collect_findings(args, progress):
-    """The findings of the enabled tiers. A tier runs only when it can
-    still produce a selected rule (``_rules_analyzed`` — also the
-    baseline writers' preservation set — is the single source of that
-    truth)."""
+    """``(findings, skipped_specimens)`` for the enabled tiers. A tier
+    runs only when it can still produce a selected rule
+    (``_rules_analyzed`` — also the baseline writers' preservation set —
+    is the single source of that truth)."""
     rules = _rules_analyzed(args)
 
     def tier_on(prefix):
         return any(r.startswith(prefix) for r in rules)
 
     out = []
+    skipped = []
     if tier_on('SRC'):
         from dgmc_tpu_torch.analysis.source_rules import lint_source_paths
         roots = _source_roots(args)
@@ -150,7 +165,13 @@ def collect_findings(args, progress):
                  f'from {args.obs_dir}')
         out.extend(analyze_buckets(buckets, specimen='obs',
                                    compile_events=events))
-    return out
+    if tier_on('TRC'):
+        from dgmc_tpu_torch.analysis.registry import (run_trace_tier,
+                                                      shared_cache)
+        out.extend(run_trace_tier(const_bytes=args.max_const_bytes,
+                                  on_progress=progress, skipped=skipped,
+                                  cache=shared_cache(args.device)))
+    return out, skipped
 
 
 #: Repo-root files linted alongside the package when they exist beside
@@ -179,6 +200,8 @@ def _rules_analyzed(args):
     select/ignore filters — everything OUTSIDE it is preserved on
     baseline rewrites."""
     rules = set(RULE_CATALOG)
+    if args.skip_trace:
+        rules -= {r for r in rules if r.startswith('TRC')}
     if args.skip_source:
         rules -= {r for r in rules if r.startswith('SRC')}
     if args.skip_recompile or not args.obs_dir:
@@ -192,15 +215,17 @@ def _rules_analyzed(args):
     return rules
 
 
-def _entries_not_analyzed(prior_baseline, args):
-    """Prior-baseline entries whose producing tier/rule this run did not
-    analyze — preserved verbatim on ``--write-baseline`` /
-    ``--prune-baseline`` so a partial refresh (a skipped tier, a
-    --select subset, no --obs-dir) cannot silently un-suppress findings
-    a full run will still produce."""
+def _entries_not_analyzed(prior_baseline, args, skipped_specimens=()):
+    """Prior-baseline entries whose producing tier/specimen/rule this
+    run did not analyze — preserved verbatim on ``--write-baseline`` /
+    ``--prune-baseline`` so a partial refresh (a skipped tier or
+    specimen, a --select subset, no --obs-dir) cannot silently
+    un-suppress findings a full run will still produce."""
+    skipped = set(skipped_specimens)
     analyzed_rules = _rules_analyzed(args)
     return [e for e in prior_baseline.values()
-            if e.get('rule', '') not in analyzed_rules]
+            if e.get('rule', '') not in analyzed_rules
+            or e.get('where', '').split(':', 1)[0] in skipped]
 
 
 def _parse_rules(spec):
@@ -329,7 +354,7 @@ def main(argv=None):
               f'(not an obs run directory?)', file=sys.stderr)
         return 2
 
-    found = collect_findings(args, progress)
+    found, skipped_specimens = collect_findings(args, progress)
     if keep_rules is not None:
         found = [f for f in found if f.rule in keep_rules]
     if drop_rules:
@@ -349,7 +374,8 @@ def main(argv=None):
         # are only needed to preserve unanalyzed tiers.
         prior_version = findings_mod.baseline_version(baseline_path)
         preserved = _entries_not_analyzed(
-            load_baseline(baseline_path, migrate=True), args)
+            load_baseline(baseline_path, migrate=True), args,
+            skipped_specimens)
         if prior_version == 1 and preserved:
             # Preserved v1 entries keep legacy line-hashed fingerprints
             # that can never match a v2 finding: the tiers this run
@@ -379,8 +405,8 @@ def main(argv=None):
             print(f'dgmc-lint: {e}', file=sys.stderr)
             return 2
         produced = {f.fingerprint for f in found}
-        protected = {e['fingerprint']
-                     for e in _entries_not_analyzed(prior, args)}
+        protected = {e['fingerprint'] for e in _entries_not_analyzed(
+            prior, args, skipped_specimens)}
         stale = [e for fp, e in prior.items()
                  if fp not in produced and fp not in protected]
         kept = [e for fp, e in prior.items()

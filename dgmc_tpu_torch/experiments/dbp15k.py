@@ -55,8 +55,11 @@ arms a deterministic fault (:mod:`~dgmc_tpu_torch.resilience.faults`).
 With ``--metrics_log`` a resume logs ``event='resume'`` (with the
 restore's seconds) and ``'resume_first_step'`` (the seconds from the
 restore's start to the end of the first step run), each save
-``event='checkpoint'`` (its seconds and bytes) and each rollback
-``event='rollback'``.
+``event='checkpoint'`` once it is committed (``save_s``, the seconds the
+loop was blocked; ``write_s``, the background write's; ``save_bytes``)
+and each rollback ``event='rollback'``. Saves are asynchronous, as the
+JAX CLI's are: the loop goes on while the step is written, and the
+checkpointer is closed (its last write waited for) at the end.
 
 ``--category {zh_en,ja_en,fr_en}`` trains on that language pair of
 DBP15K, parsed from the JAPE release under ``--data_root``
@@ -567,13 +570,23 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
         if ckpt is not None and (epoch % args.ckpt_every == 0
                                  or epoch == args.epochs):
             ckpt.save(epoch, model, state)
-            logger.log(epoch, event='checkpoint',
-                       save_s=ckpt.last_save['seconds'],
-                       save_bytes=ckpt.last_save['bytes'])
             # Armed ckpt-truncate / ckpt-corrupt faults damage the step
-            # just saved.
+            # just saved (once its write is committed).
             plan.after_checkpoint(ckpt, epoch)
+            log_commits(ckpt, logger)
+    if ckpt is not None:
+        ckpt.close()
+        log_commits(ckpt, logger)
     return state
+
+
+def log_commits(ckpt, logger):
+    """Log each save committed since the last call as
+    ``event='checkpoint'``: the seconds the loop was blocked
+    (``save_s``), the background write's (``write_s``) and the bytes."""
+    for c in ckpt.take_commits():
+        logger.log(c['step'], event='checkpoint', save_s=c['seconds'],
+                   write_s=c['write_s'], save_bytes=c['bytes'])
 
 
 if __name__ == '__main__':

@@ -29,7 +29,8 @@ one per batch shape; each graph's static memory is printed after its
 capture). Training batches are sampled, transformed (Qhull on every
 access) and collated two ahead in a background thread; the epoch line
 prints the seconds the loop waited for them. ``--ckpt_dir`` saves every
-epoch and resumes from the newest restorable one; ``--metrics_log PATH``
+epoch (asynchronously, as the JAX CLI does) and resumes from the newest
+restorable one; ``--metrics_log PATH``
 appends one JSONL record an epoch (``loss``, ``mean_acc``).
 
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
@@ -325,6 +326,8 @@ def _train(args, start_epoch, state, model, step, eval_step, report,
         obs.snapshot_memory(f'epoch{epoch}')
         if ckpt is not None:
             ckpt.save(epoch, model, state)
+    if ckpt is not None:
+        ckpt.close()
     prof.close()
     return state
 

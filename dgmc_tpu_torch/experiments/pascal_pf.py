@@ -286,7 +286,7 @@ def _epoch(args, epoch, state, step, train_loader, eval_loader, eval_step,
                 hook('eval', i, {k: v.clone() for k, v in out.items()})
             correct += out['correct']
             n += float(b.y_mask.sum())
-        eval_acc = float(correct) / max(n, 1.0)
+        eval_acc = eval_summary(n, hits1=correct)['hits1']
         print(f'Held-out synthetic: {100 * eval_acc:.2f}', flush=True)
         # A 0-1 fraction, as the JAX CLI logs it.
         logger.log(epoch, synthetic_eval_acc=eval_acc)

@@ -334,7 +334,7 @@ def main(argv=None, hook=None):
                         epoch_s=round(time.perf_counter() - t0, 3))
                 obs.snapshot_memory(f'pretrain_epoch{epoch}')
             if ckpt is not None:
-                ckpt.save(0, model, state)
+                ckpt.save(0, model, state, wait=True)
         snapshot = snapshot_params(model)
         print('Done!', flush=True)
         if hook is not None:
@@ -381,6 +381,8 @@ def main(argv=None, hook=None):
                 write_json_atomic(runs_path,
                                   [list(map(float, a)) for a in done])
         prof.close()
+    if ckpt is not None:
+        ckpt.close()
     all_accs = np.array(done)
     mean = all_accs.mean(axis=0)
     std = (all_accs.std(axis=0, ddof=1) if len(all_accs) > 1

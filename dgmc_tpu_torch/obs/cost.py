@@ -48,17 +48,34 @@ the probe tape and the launch counters set back after it, and never
 replays or captures a graph. The draws are Philox streams keyed by seed
 and step, so the pass consumes nothing.
 
-Left out of the JAX module: the specimen CLI (``python -m
-dgmc_tpu.obs.cost``, over the lint tier's registry), the collective table
-(no collectives on one card) and the compiled schedule fields (they read
-HLO).
+The specimen CLI (``python -m dgmc_tpu_torch.obs.cost [--specimens A,B]
+[--obs-dir DIR] [--json] [--device cpu]``, JAX's): one row a registered
+specimen of the trace tier (:mod:`~dgmc_tpu_torch.analysis.registry`,
+sharing its one recorded run per process), named ``specimen.<name>``,
+with this count's FLOPs, bytes and stages, the static peak-live bytes
+of the same run (``static_peak_bytes``,
+:mod:`~dgmc_tpu_torch.analysis.liveness`, with ``peak_stage_bytes``), the
+kernels it launched (``launches``, from the dispatch ledger) and, on the
+card, the allocator's measured peak above what the arguments held
+(``measured_peak_bytes``). ``--obs-dir`` merges the rows into that run's
+``efficiency.json`` (run rows kept verbatim; a rerun replaces the
+specimen rows), which ``obs/diff.py --max-peak-regression`` reads.
+Left out of the JAX module: the collective table (no collectives on one
+card) and the schedule fields ``overlap_fraction`` and
+``critical_path_share`` (JAX's schedule model reads HLO; it waits for
+multi-GPU work).
 """
 
+import argparse
 import bisect
+import json
+import os
+import sys
 import threading
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_leaves
 
 from dgmc_tpu_torch.obs import stages as stages_mod
@@ -67,7 +84,8 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['PEAK_FLOPS', 'CPU_PEAK_FLOPS', 'STAGE_NAMES', 'ADAM_FLOPS',
            'peak_flops_entry', 'stage_of', 'WorkCounter', 'cost_summary',
-           'efficiency_payload', 'headline_of', 'render_costs']
+           'efficiency_payload', 'headline_of', 'render_costs',
+           'specimen_costs', 'main']
 
 #: Dense bf16 tensor-core peak per card, by
 #: ``torch.cuda.get_device_name()``: NVIDIA's H100 datasheet (SXM5:
@@ -176,7 +194,10 @@ class WorkCounter(TorchDispatchMode):
     """Count the work of the ops run inside ``with WorkCounter() as c``
     per stage (see the module docstring); :meth:`summary` gives the
     account. One counter at a time; the count is of the thread that
-    enters it and of the autograd backward it starts."""
+    enters it and of the autograd backward it starts. ``on_kernel(name,
+    args, kw)``, if given, is told of each kernel entry's call after it
+    returns (the trace tier's tape marks the launch there: it shares
+    the counter's slot in the dispatch ledger)."""
 
     @classmethod
     def _should_skip_dynamo(cls):
@@ -185,8 +206,9 @@ class WorkCounter(TorchDispatchMode):
         # imports torch._dynamo (seconds in a fresh serving worker).
         return False
 
-    def __init__(self):
+    def __init__(self, on_kernel=None):
         super().__init__()
+        self.on_kernel = on_kernel
         self.rows = {}
         self.kernels = {}
         self.bytes = 0.0
@@ -267,6 +289,12 @@ class WorkCounter(TorchDispatchMode):
     def kernel(self, work_fn, fn, args, kw):
         """One call of a counted kernel entry (see
         :func:`~dgmc_tpu_torch.ops.kernels.dispatch.counted`)."""
+        out = self._kernel(work_fn, fn, args, kw)
+        if self.on_kernel is not None:
+            self.on_kernel(getattr(fn, '__name__', 'kernel'), args, kw)
+        return out
+
+    def _kernel(self, work_fn, fn, args, kw):
         if self.suppress:
             return fn(*args, **kw)
         node = self._node()
@@ -280,7 +308,11 @@ class WorkCounter(TorchDispatchMode):
             return fn(*args, **kw)   # another thread's forward
         self.suppress += 1
         try:
-            work = work_fn(*args, **kw)
+            # The account's own reads (a work function may read the
+            # device) run outside every dispatch mode: they are no part
+            # of the program.
+            with _disable_current_modes():
+                work = work_fn(*args, **kw)
             s0 = _seq()
             out = fn(*args, **kw)
             s1 = _seq()
@@ -440,9 +472,129 @@ def render_costs(payload):
             lines.append(f'    MFU                  {p["mfu"]:.4%} '
                          f'(step {st * 1e3:.3f} ms)' if st else
                          f'    MFU                  {p["mfu"]:.4%}')
+        if p.get('static_peak_bytes') is not None:
+            measured = p.get('measured_peak_bytes')
+            lines.append(f'    static peak          '
+                         f'{_fmt_num(p["static_peak_bytes"])}B'
+                         + (f' (measured {_fmt_num(measured)}B above the '
+                            f'arguments)' if measured is not None else ''))
+        if p.get('launches'):
+            lines.append(f'    launches             {p["launches"]}')
         for stage, row in (p.get('stages') or {}).items():
             lines.append(f'    stage {stage:<15} '
                          f'flops {_fmt_num(row.get("flops")):>8}  '
                          f'bytes {_fmt_num(row.get("bytes_out")):>8}  '
                          f'ops {row.get("ops", 0)}')
     return '\n'.join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Specimen mode (the trace tier's registry, one recorded run each)
+# ---------------------------------------------------------------------------
+
+
+def specimen_costs(names=None, on_progress=None, device=None, cache=None):
+    """``{specimen_name: row}`` over the registered specimens
+    (:func:`dgmc_tpu_torch.analysis.registry.default_specimens`), each
+    from its one recorded run in ``cache`` (this process's shared cache
+    on ``device``, default ``cuda``, when none is given): the work
+    count, ``static_peak_bytes`` and ``peak_stage_bytes``,
+    ``argument_bytes`` (what was live before the run), ``launches``,
+    ``measured_peak_bytes`` (the card's allocator; None on the CPU) and
+    ``run_s``. Probes are forced off (the registry's contract); a
+    specimen that fails to build or run is an ``{'error': ...}`` row."""
+    from dgmc_tpu_torch.analysis.liveness import peak_summary
+    from dgmc_tpu_torch.analysis.registry import (iter_runnable_specimens,
+                                                  shared_cache)
+    cache = cache if cache is not None else shared_cache(device)
+    out = {}
+    for spec in iter_runnable_specimens('trace', names=names,
+                                        on_progress=on_progress,
+                                        device=cache.device):
+        if on_progress:
+            on_progress(f'run {spec.name} on {cache.device}')
+        try:
+            rec = cache.artifacts(spec).recorded()
+            row = dict(rec['cost'])
+            row.update(peak_summary(rec['tape']))
+            row['argument_bytes'] = sum(
+                b.nbytes for b in rec['tape'].buffers.values()
+                if b.origin != 'op')
+            row['launches'] = dict(sorted(rec['launches'].items()))
+            row['measured_peak_bytes'] = rec['measured_peak_bytes']
+            row['run_s'] = round(rec['seconds'], 6)
+            out[spec.name] = row
+        except Exception as e:
+            out[spec.name] = {'error': f'{type(e).__name__}: {e}'}
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog='python -m dgmc_tpu_torch.obs.cost',
+        description='FLOPs, bytes, static peak and kernel launches over '
+                    'the registered specimens; --obs-dir merges the rows '
+                    "into that run's efficiency.json.")
+    parser.add_argument('--specimens', default=None,
+                        help='comma-separated specimen names '
+                             '(default: all runnable)')
+    parser.add_argument('--obs-dir', '--obs_dir', dest='obs_dir',
+                        default=None,
+                        help='obs run directory whose efficiency.json '
+                             'receives the specimen rows (created if '
+                             'absent; run rows are preserved)')
+    parser.add_argument('--json', action='store_true',
+                        help='print the machine-readable payload')
+    parser.add_argument('--device', default='cuda',
+                        help='where the specimens run (default cuda; cpu '
+                             'runs the kernels\' plain versions)')
+    args = parser.parse_args(argv)
+
+    def progress(msg):
+        if not args.json:
+            print(f'[obs.cost] {msg}', file=sys.stderr)
+
+    names = (set(n.strip() for n in args.specimens.split(',') if n.strip())
+             if args.specimens else None)
+    costs = specimen_costs(names=names, on_progress=progress,
+                           device=args.device)
+    if not costs:
+        print('obs.cost: no runnable specimens matched', file=sys.stderr)
+        return 2
+    local = efficiency_payload({f'specimen.{k}': v
+                                for k, v in costs.items()},
+                               device=args.device)
+    if args.obs_dir:
+        from dgmc_tpu_torch.utils.io import write_json_atomic
+        path = os.path.join(args.obs_dir, 'efficiency.json')
+        try:
+            with open(path) as f:
+                existing = json.load(f)
+        except (OSError, ValueError):
+            existing = {}
+        if existing:
+            # The recording machine's account stays verbatim: only the
+            # specimen rows (namespaced, so a rerun replaces them) are
+            # this machine's facts.
+            payload = dict(existing)
+            programs = dict(existing.get('programs', {}))
+            programs.update(local['programs'])
+            payload['programs'] = programs
+            if payload.get('device_kind') is None:
+                for key in ('device_kind', 'platform', 'peak_flops',
+                            'peak_flops_ref', 'peak_flops_source'):
+                    payload[key] = local.get(key)
+        else:
+            payload = local
+        write_json_atomic(path, payload, indent=1)
+    else:
+        payload = local
+    if args.json:
+        print(json.dumps(payload, indent=1, sort_keys=True))
+    else:
+        print(render_costs(payload))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

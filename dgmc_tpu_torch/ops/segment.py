@@ -23,16 +23,23 @@ def segment_sum(data, segment_ids, num_segments):
     ids, order = torch.sort(segment_ids.reshape(-1).long(), stable=True)
     bounds = torch.searchsorted(
         ids, torch.arange(num_segments + 1, device=ids.device))
-    rows = data[order[bounds[0]:bounds[-1]]]
+    # The rows of ids in [0, num_segments), first at bounds[0]; taken
+    # without reading bounds on the host (the tail past them is summed
+    # into one extra segment and dropped).
+    E = order.shape[0]
+    at = (bounds[0] + torch.arange(E, device=ids.device)).clamp(max=E - 1)
+    rows = data[order[at]]
+    lengths = bounds[1:] - bounds[:-1]
     if not data.is_floating_point():
         # Integers add exactly in any order: differences of a running sum.
         run = torch.cat([rows.new_zeros((1,) + rows.shape[1:]),
                          rows.cumsum(0)])
         return run[bounds[1:] - bounds[0]] - run[bounds[:-1] - bounds[0]]
     acc = torch.promote_types(data.dtype, torch.float32)
+    rest = (E - lengths.sum()).reshape(1)
     out = torch.segment_reduce(rows.to(acc), 'sum',
-                               lengths=bounds[1:] - bounds[:-1], axis=0)
-    return out.to(data.dtype)
+                               lengths=torch.cat([lengths, rest]), axis=0)
+    return out[:num_segments].to(data.dtype)
 
 
 def segment_mean(data, segment_ids, num_segments, weights=None):

@@ -30,7 +30,11 @@ def chunk_len(deg):
     then has about sqrt(d) chunks of about sqrt(d) slots, so the warps
     that sum its chunks and the warp that adds the chunk sums each take
     about sqrt(d) / 32 rounds."""
-    root = torch.sqrt(deg.double()).ceil().long()
+    # The exact ceil(sqrt(deg)) in integers: float32's root, corrected by
+    # the one step its rounding can be off.
+    root = torch.sqrt(deg.float()).ceil().long()
+    root = root + (root * root < deg).long()
+    root = root - ((root > 0) & ((root - 1) * (root - 1) >= deg)).long()
     return CHUNK * torch.clamp((root + CHUNK - 1) // CHUNK, min=1)
 
 

@@ -229,11 +229,13 @@ class FaultPlan:
     def after_checkpoint(self, ckpt, step):
         """Damage the just-saved step when a ``ckpt-*@step`` fault is
         armed; ``ckpt`` is a
-        :class:`~dgmc_tpu_torch.train.checkpoint.Checkpointer`."""
+        :class:`~dgmc_tpu_torch.train.checkpoint.Checkpointer` (the save
+        may be asynchronous: the damage waits for the commit)."""
         for spec in self.specs:
             if spec.kind not in _CKPT_KINDS or spec.step != step \
                     or spec.key in self._fired:
                 continue
+            ckpt.wait_until_finished()
             target = corrupt_checkpoint(
                 ckpt.directory, step,
                 mode='truncate' if spec.kind == 'ckpt-truncate'

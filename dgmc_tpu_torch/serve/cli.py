@@ -123,8 +123,9 @@ def restore(model, ckpt_dir, init_missing=False):
             raise SystemExit(f'serve: no checkpoint under {ckpt_dir} (pass '
                              f'--init-missing to save the seeded weights as '
                              f'step 0)')
-        ckpt.save(0, model, create_train_state(model))
+        ckpt.save(0, model, create_train_state(model), wait=True)
     ckpt.restore(model)
+    ckpt.close()
     return ckpt.restored_step
 
 

@@ -366,8 +366,9 @@ class ServeService:
                 raise SystemExit(
                     f'serve: no checkpoint under {args.ckpt_dir} (pass '
                     f'--init-missing to seed-initialize and save step 0)')
-            ckpt.save(0, model, create_train_state(model))
+            ckpt.save(0, model, create_train_state(model), wait=True)
         ckpt.restore(model)
+        ckpt.close()
         return model.to(self.device).eval(), ckpt.restored_step
 
     def _index(self, corpus, model, step):

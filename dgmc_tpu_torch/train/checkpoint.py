@@ -20,8 +20,31 @@ verify` re-hashes a step against its manifest; a save over an existing
 step replaces it; :meth:`Checkpointer.restore` walks from the newest
 step to the oldest past steps that fail verification or do not load,
 with a warning for each, and a pinned step that is missing or corrupt
-raises. Saves are synchronous: the tensors are copied to the host after
-the step, then written (JAX's asynchronous save is not ported).
+raises.
+
+Saves are asynchronous by default, as orbax's are in the JAX package
+(``save(step, model, state, wait=False)``):
+
+- the state is snapshotted on the caller's thread before :meth:`save`
+  returns: every tensor is copied to the host, a card's into pinned
+  buffers on the current stream, behind one CUDA event. A step that runs
+  next on that stream (a captured step's replay writes the parameters in
+  place) runs after the copies; the writer waits on the event before it
+  reads the buffers;
+- only the file write, the rename into place and the retirement of old
+  steps run in the background, one save at a time: a save first waits
+  for the write before it;
+- manifests are hashed on the caller's thread, by
+  :meth:`Checkpointer.finalize_manifests`, for committed steps only: at
+  the next save, :meth:`~Checkpointer.wait_until_finished` and
+  :meth:`~Checkpointer.close` (which waits);
+- a step is committed once its directory is renamed into place. Listing
+  and restoring see committed steps only, so a write still in flight
+  (or cut by a crash, which leaves a ``.tmp-*`` directory that the next
+  :class:`Checkpointer` removes) is never restored; a restore by the
+  saving :class:`Checkpointer` waits for its write first.
+
+``wait=True`` returns once the step is committed and manifested.
 
 A restore writes in place, through the train state's one writer
 (:func:`~dgmc_tpu_torch.train.state.write_state`): the parameters,
@@ -32,10 +55,12 @@ restored values. The optimizer's hyperparameters stay the
 caller's, as they are the JAX package's ``tx``.
 """
 
+import concurrent.futures
 import json
 import os
 import shutil
 import sys
+import threading
 import time
 
 import torch
@@ -52,6 +77,8 @@ MANIFEST_DIRNAME = 'manifests'
 STATE_FILE = 'state.pt'
 #: The payload's format, checked at restore.
 FORMAT = 1
+#: The prefix of a step's directory while it is written.
+TMP_PREFIX = '.tmp-'
 
 
 class CheckpointError(RuntimeError):
@@ -77,27 +104,91 @@ def _params(optimizer):
     return [p for g in optimizer.param_groups for p in g['params']]
 
 
-def _host(x):
-    """``x`` with every tensor copied to the host."""
+def _host(x, copies):
+    """``x`` with every tensor copied to the host: a card's tensor into a
+    pinned buffer without blocking (appended to ``copies``), a host
+    tensor cloned."""
     if torch.is_tensor(x):
-        return x.detach().to('cpu', copy=True)
+        x = x.detach()
+        if x.is_cuda:
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            out.copy_(x, non_blocking=True)
+            copies.append(out)
+            return out
+        return x.clone()
     if isinstance(x, dict):
-        return {k: _host(v) for k, v in x.items()}
+        return {k: _host(v, copies) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(_host(v) for v in x)
+        return type(x)(_host(v, copies) for v in x)
     return x
 
 
 def _payload(step, model, state):
+    """The step's payload on the host, and the event recorded after its
+    copies from the card (``None`` when no tensor lay on one)."""
+    copies = []
     out = {'format': FORMAT, 'step': int(step),
-           'model': _host(model.state_dict()),
+           'model': _host(model.state_dict(), copies),
            'optimizer': None if state is None
-           else _host(state.optimizer.state_dict()),
+           else _host(state.optimizer.state_dict(), copies),
            'state_step': None if state is None else int(state.step)}
     if getattr(state, 'skip_count', None) is not None:
-        out['guard'] = {'skip_count': _host(state.skip_count),
-                        'consec_bad': _host(state.consec_bad)}
-    return out
+        out['guard'] = {'skip_count': _host(state.skip_count, copies),
+                        'consec_bad': _host(state.consec_bad, copies)}
+    done = None
+    if copies:
+        done = torch.cuda.Event()
+        done.record()
+    return out, done
+
+
+def _step_dirs(directory):
+    """The committed steps under ``directory``, oldest first."""
+    return sorted(int(n) for n in os.listdir(directory)
+                  if n.isdigit()
+                  and os.path.isdir(os.path.join(directory, n)))
+
+
+def _write_step(directory, step, payload, done, max_to_keep):
+    """The background half of a save: wait for the snapshot's copies,
+    write the step into a temporary directory, rename it into place
+    (replacing a step of that number), then retire the steps past
+    ``max_to_keep``. Returns ``{'step', 'write_s', 'bytes'}``."""
+    t0 = time.perf_counter()
+    if done is not None:
+        done.synchronize()
+    final = os.path.join(directory, str(step))
+    tmp = os.path.join(directory, f'{TMP_PREFIX}{step}-{os.getpid()}')
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
+    nbytes = sum(e['bytes'] for e in _file_table(tmp).values())
+    if os.path.isdir(final):
+        # A re-save (a resumed run re-running the epoch of a step it
+        # fell back past) replaces the step.
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    if max_to_keep is not None:
+        steps = _step_dirs(directory)
+        for s in steps[:max(0, len(steps) - max_to_keep)]:
+            shutil.rmtree(os.path.join(directory, str(s)),
+                          ignore_errors=True)
+    return {'step': int(step), 'write_s': time.perf_counter() - t0,
+            'bytes': nbytes}
+
+
+#: The write in flight per checkpoint directory of this process: another
+#: :class:`Checkpointer` on the directory waits for it before it
+#: restores or clears temporary directories.
+_writes = {}
+_writes_lock = threading.Lock()
+
+
+def _await_writes(directory):
+    with _writes_lock:
+        pending = _writes.get(directory)
+    if pending is not None:
+        concurrent.futures.wait([pending])
 
 
 def _check_payload(payload, model, state):
@@ -176,10 +267,21 @@ class Checkpointer:
         #: checkpoint into a guarded state), ``'counters-dropped'`` (a
         #: guarded one into a plain state) or ``None``.
         self.restored_toggle = None
-        #: ``{'step', 'seconds', 'bytes'}`` of the last :meth:`save`.
+        #: ``{'step', 'seconds'}`` of the last :meth:`save`: the seconds
+        #: the caller was blocked; once the step is committed also
+        #: ``'write_s'`` (the background write) and ``'bytes'``.
         self.last_save = None
         #: ``{'step', 'seconds'}`` of the last :meth:`restore`.
         self.last_restore = None
+        self._pool = None
+        self._pending = None     # (step, future) of the write in flight
+        self._commits = []
+        # A write cut by a crash leaves its temporary directory behind.
+        _await_writes(self.directory)
+        for name in os.listdir(self.directory):
+            if name.startswith(TMP_PREFIX):
+                shutil.rmtree(os.path.join(self.directory, name),
+                              ignore_errors=True)
 
     # -- layout and manifests ---------------------------------------------
 
@@ -190,10 +292,16 @@ class Checkpointer:
         return os.path.join(self.directory, MANIFEST_DIRNAME, f'{step}.json')
 
     def all_steps(self):
-        """The committed steps, oldest first."""
-        return sorted(int(n) for n in os.listdir(self.directory)
-                      if n.isdigit()
-                      and os.path.isdir(os.path.join(self.directory, n)))
+        """The committed steps, oldest first; while a write is in flight,
+        orbax's listing: its step with the committed ones, less those
+        its commit retires."""
+        steps = _step_dirs(self.directory)
+        if self._pending is None:
+            return steps
+        steps = sorted(set(steps) | {self._pending[0]})
+        if self.max_to_keep is not None:
+            steps = steps[max(0, len(steps) - self.max_to_keep):]
+        return steps
 
     def latest_step(self):
         steps = self.all_steps()
@@ -211,7 +319,10 @@ class Checkpointer:
         """Problems of ``step``'s files against its manifest, as strings:
         empty when they match, or when there is no manifest (an
         unverifiable step is no evidence of corruption; the restore still
-        guards its load)."""
+        guards its load). A step this checkpointer is writing is waited
+        for first."""
+        if self._pending is not None and self._pending[0] == step:
+            self.wait_until_finished()
         try:
             with open(self._manifest_path(step)) as f:
                 manifest = json.load(f)
@@ -234,14 +345,33 @@ class Checkpointer:
                 problems.append(f'{rel}: sha256 mismatch')
         return problems
 
-    def _retire(self):
-        """Drop the steps past ``max_to_keep`` and the manifests whose
-        step is gone."""
+    def finalize_manifests(self):
+        """Collect a finished write (its error raises here), hash a
+        manifest for each committed step that lacks one and drop the
+        manifests whose step was retired. Runs on the caller's thread:
+        at each save, :meth:`wait_until_finished` and :meth:`close`; a
+        write still in flight gets its manifest at the next of them."""
+        if self._pending is not None and self._pending[1].done():
+            _, future = self._pending
+            self._pending = None
+            with _writes_lock:
+                if _writes.get(self.directory) is future:
+                    del _writes[self.directory]
+            done = future.result()
+            if self.last_save is not None \
+                    and self.last_save['step'] == done['step']:
+                self.last_save.update(write_s=done['write_s'],
+                                      bytes=done['bytes'])
+                self._commits.append(self.last_save)
+            else:
+                self._commits.append(dict(done, seconds=None))
+        writing = None if self._pending is None else self._pending[0]
         steps = self.all_steps()
-        if self.max_to_keep is not None:
-            for s in steps[:max(0, len(steps) - self.max_to_keep)]:
-                self.delete_step(s)
-            steps = self.all_steps()
+        if self._verify:
+            for step in steps:
+                if step != writing and \
+                        not os.path.exists(self._manifest_path(step)):
+                    self.write_manifest(step)
         mdir = os.path.join(self.directory, MANIFEST_DIRNAME)
         if os.path.isdir(mdir):
             for name in os.listdir(mdir):
@@ -250,35 +380,64 @@ class Checkpointer:
                         and int(base) not in steps:
                     os.remove(os.path.join(mdir, name))
 
+    def wait_until_finished(self):
+        """Block until the write in flight (if any) is committed, then
+        finalize its manifest."""
+        if self._pending is not None:
+            concurrent.futures.wait([self._pending[1]])
+        self.finalize_manifests()
+
+    def take_commits(self):
+        """The saves committed since the last call, oldest first, as
+        :attr:`last_save` records them (``step``, ``seconds``,
+        ``write_s``, ``bytes``)."""
+        out, self._commits = self._commits, []
+        return out
+
+    def close(self):
+        """Wait for the write in flight and stop the writer thread."""
+        self.wait_until_finished()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
     # -- save / restore ----------------------------------------------------
 
-    def save(self, step, model, state=None):
+    def save(self, step, model, state=None, wait=False):
         """Save ``model`` (and ``state``: its optimizer, step and guard
-        counters) as ``step``, replacing a step of that number, then
-        retire old steps. Returns the step directory."""
+        counters) as ``step``, replacing a step of that number; the
+        steps past ``max_to_keep`` retire once it is committed. The
+        snapshot is taken before this returns; the write runs in the
+        background unless ``wait`` (see the module docstring). Returns
+        the step directory."""
         t0 = time.perf_counter()
-        payload = _payload(step, model, state)
-        final = self._step_dir(step)
-        tmp = os.path.join(self.directory, f'.tmp-{step}-{os.getpid()}')
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(payload, os.path.join(tmp, STATE_FILE))
-        if os.path.isdir(final):
-            # A re-save (a resumed run re-running the epoch of a step it
-            # fell back past) replaces the step and its manifest.
-            self.delete_step(step)
-        os.rename(tmp, final)
-        if self._verify:
-            self.write_manifest(step)
-        self._retire()
-        self.last_save = {'step': int(step),
-                          'seconds': time.perf_counter() - t0,
-                          'bytes': sum(e['bytes'] for e in
-                                       _file_table(final).values())}
-        return final
+        self.wait_until_finished()
+        payload, done = _payload(step, model, state)
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix='checkpoint')
+        # A re-save's old manifest goes now (orbax deletes the step).
+        try:
+            os.remove(self._manifest_path(step))
+        except FileNotFoundError:
+            pass
+        future = self._pool.submit(_write_step, self.directory, int(step),
+                                   payload, done, self.max_to_keep)
+        self._pending = (int(step), future)
+        with _writes_lock:
+            _writes[self.directory] = future
+        self.last_save = record = {'step': int(step)}
+        # The manifests of the steps this write retires go now (JAX's
+        # finalize after each save).
+        self.finalize_manifests()
+        if wait:
+            self.wait_until_finished()
+        record['seconds'] = time.perf_counter() - t0
+        return self._step_dir(step)
 
     def delete_step(self, step):
-        """Remove a step and its manifest."""
+        """Remove a step and its manifest (after the write in flight)."""
+        self.wait_until_finished()
         shutil.rmtree(self._step_dir(step), ignore_errors=True)
         try:
             os.remove(self._manifest_path(step))
@@ -311,6 +470,8 @@ class Checkpointer:
         counters at 0; a guarded one into a plain state drops its
         counters (:attr:`restored_toggle` says which)."""
         t0 = time.perf_counter()
+        self.wait_until_finished()
+        _await_writes(self.directory)
         steps = self.all_steps()
         if step is not None:
             if step not in steps:

@@ -112,6 +112,7 @@ def _save_all(path, states, guarded=False, **kw):
     ckpt = Checkpointer(path, **kw)
     for i, s in enumerate(states, start=1):
         ckpt.save(i, *_carrier(s, guarded))
+    ckpt.wait_until_finished()
     return ckpt
 
 
@@ -301,7 +302,7 @@ def test_resave_over_existing_step_overwrites(tmp_path, trained):
     corrupt_checkpoint(ckpt.directory, 3)
     ckpt.restore(*_fresh())
     assert ckpt.restored_step == 2
-    ckpt.save(3, *_carrier(trained[2]))
+    ckpt.save(3, *_carrier(trained[2]), wait=True)
     assert ckpt.verify(3) == [], 'the manifest must match the new step 3'
     model, state = _fresh()
     ckpt.restore(model, state)

@@ -105,7 +105,8 @@ def test_list_rules_is_the_three_tiers(capsys):
     assert rc == 0
     listed = [line.split()[0] for line in out.splitlines()]
     assert listed == sorted(RULE_CATALOG) == sorted(RULES)
-    assert {r[:3] for r in listed} == {'SRC', 'RCP', 'CON'}
+    assert {r[:3] for r in listed} == {'TRC', 'SRC', 'RCP', 'CON'}
+    assert {f'TRC00{i}' for i in range(1, 7)} <= set(listed)
     assert {f'SRC10{i}' for i in range(5)} <= set(listed)
 
 
@@ -122,7 +123,7 @@ def test_explain_src104_says_why_it_cannot_fire(capsys):
     assert rc == 0 and 'SRC102' in out
     assert 'cannot fire on the port' in out
     assert 'compiled(...) takes no static' in out.replace('\n', ' ')
-    assert _run(['--explain', 'TRC001'], capsys)[0] == 2
+    assert _run(['--explain', 'SHD301'], capsys)[0] == 2
 
 
 # -- exit statuses ------------------------------------------------------------
@@ -134,7 +135,7 @@ def test_exit_status_under_each_fail_on(bad_tree, tmp_path, capsys, policy,
                                         before, after):
     """Before a baseline every finding is new; after ``--write-baseline``
     only ``any`` still fails."""
-    args = ['--json', '--source-root', bad_tree,
+    args = ['--json', '--skip-trace', '--source-root', bad_tree,
             '--baseline', str(tmp_path / 'bl.json')]
     rc, out = _run(args + ['--fail-on', policy], capsys)
     report = json.loads(out)
@@ -149,7 +150,7 @@ def test_exit_status_under_each_fail_on(bad_tree, tmp_path, capsys, policy,
 
 
 def test_fail_on_error_ignores_new_warnings(bad_tree, tmp_path, capsys):
-    args = ['--json', '--source-root', bad_tree,
+    args = ['--json', '--skip-trace', '--source-root', bad_tree,
             '--baseline', str(tmp_path / 'bl.json'), '--fail-on', 'error']
     assert _run(args + ['--select', 'SRC102,SRC103'], capsys)[0] == 0
     assert _run(args + ['--select', 'SRC101'], capsys)[0] == 1
@@ -162,7 +163,7 @@ def test_fail_on_error_ignores_new_warnings(bad_tree, tmp_path, capsys):
 
 @pytest.mark.parametrize('args', [
     ['--select', 'NOPE999'],
-    ['--ignore', 'TRC005'],
+    ['--ignore', 'SHD301'],
     ['--min-severity', 'loud'],
     ['--json', '--format', 'github'],
     ['--write-baseline', '--prune-baseline'],
@@ -174,7 +175,7 @@ def test_usage_errors_exit_2(tmp_path, capsys, args):
 
 
 def test_tiers_run_only_when_selected(race_tree, tmp_path, capsys):
-    args = ['--source-root', race_tree, '--baseline',
+    args = ['--skip-trace', '--source-root', race_tree, '--baseline',
             str(tmp_path / 'bl.json'), '--fail-on', 'none']
     main(args + ['--select', 'CON501'])
     err = capsys.readouterr().err
@@ -212,8 +213,8 @@ def test_obs_dir_recompile_crosscheck(tmp_path, capsys):
             {'batch': 8, 'nodes': '32x40', 'edges': '64x80', 'count': 2},
             {'batch': 8, 'nodes': '24x40', 'edges': '64x80', 'count': 1}],
     }))
-    rc, out = _run(['--json', '--skip-source', '--skip-concurrency',
-                    '--obs-dir', str(obs),
+    rc, out = _run(['--json', '--skip-trace', '--skip-source',
+                    '--skip-concurrency', '--obs-dir', str(obs),
                     '--baseline', str(tmp_path / 'bl.json'),
                     '--fail-on', 'none'], capsys)
     assert rc == 0
@@ -231,7 +232,8 @@ def test_write_and_prune_baseline_round_trip(bad_tree, race_tree, tmp_path,
     keeps the live ones and those of a tier the run skipped, and adds
     nothing new."""
     path = tmp_path / 'bl.json'
-    args = ['--source-root', bad_tree, '--baseline', str(path)]
+    args = ['--skip-trace', '--source-root', bad_tree, '--baseline',
+            str(path)]
     assert _run(args + ['--write-baseline'], capsys)[0] == 0
     entries = json.loads(path.read_text())['findings']
     assert len(entries) == 3
@@ -266,8 +268,8 @@ def test_baselines_load_across_packages(bad_tree, tmp_path, capsys):
     assert load_baseline(os.path.join(REPO, 'lint-baseline.json')) == {
         e['fingerprint']: e for e in jax_entries}
     path = str(tmp_path / 'bl.json')
-    assert main(['--source-root', bad_tree, '--baseline', path,
-                 '--write-baseline']) == 0
+    assert main(['--skip-trace', '--source-root', bad_tree, '--baseline',
+                 path, '--write-baseline']) == 0
     ours = load_baseline(path)
     assert len(ours) == 3
     with jax_worker('dgmc_tpu.analysis.findings') as m:
@@ -344,9 +346,9 @@ def test_editing_the_flagged_line_releases_the_fingerprint(tmp_path):
 def test_baseline_suppresses_across_relocation(tmp_path):
     ra, rb = _two_trees(tmp_path, LOOP, '# moved\n' * 7 + LOOP)
     bl = str(tmp_path / 'bl.json')
-    assert main(['--source-root', ra, '--baseline', bl,
+    assert main(['--skip-trace', '--source-root', ra, '--baseline', bl,
                  '--write-baseline']) == 0
-    assert main(['--source-root', rb, '--baseline', bl,
+    assert main(['--skip-trace', '--source-root', rb, '--baseline', bl,
                  '--fail-on', 'new']) == 0
 
 
@@ -359,9 +361,9 @@ def test_identical_duplicates_get_distinct_fingerprints(tmp_path):
     assert fb2.context.endswith('#2')
     assert fa.fingerprint == fb1.fingerprint
     bl = str(tmp_path / 'bl.json')
-    assert main(['--source-root', ra, '--baseline', bl,
+    assert main(['--skip-trace', '--source-root', ra, '--baseline', bl,
                  '--write-baseline']) == 0
-    assert main(['--source-root', rb, '--baseline', bl,
+    assert main(['--skip-trace', '--source-root', rb, '--baseline', bl,
                  '--fail-on', 'new']) == 1
 
 
@@ -380,7 +382,8 @@ def test_v1_baseline_is_a_migration_error(tmp_path, capsys):
         load_baseline(path)
     assert load_baseline(path, migrate=True)
     for extra in (['--fail-on', 'new'], ['--prune-baseline']):
-        assert main(['--skip-source', '--baseline', path] + extra) == 2
+        assert main(['--skip-trace', '--skip-source', '--baseline',
+                     path] + extra) == 2
         assert '--write-baseline' in capsys.readouterr().err
     assert open(path).read() == original
 
@@ -393,8 +396,8 @@ def test_write_baseline_migrates_v1_and_warns_on_kept_entries(tmp_path,
     path = _v1(tmp_path / 'bl.json', [
         {'rule': 'CON501', 'severity': 'error', 'where': 'pkg/x.py:1',
          'message': 'm', 'fingerprint': 'feedfacefeedface'}])
-    args = ['--source-root', str(root), '--baseline', path,
-            '--skip-concurrency', '--write-baseline']
+    args = ['--skip-trace', '--source-root', str(root), '--baseline',
+            path, '--skip-concurrency', '--write-baseline']
     assert main(args) == 0
     err = capsys.readouterr().err
     assert 'WARNING' in err and 'legacy fingerprints' in err
@@ -424,7 +427,7 @@ def test_the_cli_imports_no_torch():
     import sys
     code = ('import sys\n'
             'from dgmc_tpu_torch.analysis import lint\n'
-            'rc = lint.main(["--fail-on", "none",\n'
+            'rc = lint.main(["--skip-trace", "--fail-on", "none",\n'
             '                "--baseline", sys.argv[1]])\n'
             'print(rc, "torch" in sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code, BASELINE], cwd=REPO,
@@ -439,13 +442,14 @@ def test_default_roots_are_the_package_and_the_smoke_script():
 
 
 def test_the_ports_tree_is_clean_against_its_baseline(capsys):
-    rc, out = _run(['--json', '--fail-on', 'new', '--baseline', BASELINE],
-                   capsys)
+    rc, out = _run(['--json', '--skip-trace', '--fail-on', 'new',
+                    '--baseline', BASELINE], capsys)
     report = json.loads(out)
     assert rc == 0, report['findings']
     assert report['summary']['new'] == 0
     with open(BASELINE) as f:
-        entries = json.load(f)['findings']
+        entries = [e for e in json.load(f)['findings']
+                   if not e['rule'].startswith('TRC')]
     # The one entry the JAX package's baseline holds for the same code:
     # the watchdog's signal path stays lock-free by design.
     assert [(e['rule'], e['where'].rsplit(':', 1)[0], e['context'])

@@ -279,7 +279,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       *(('analysis', f'{m}.py') for m in (
                           '__init__', 'findings', 'catalog', 'concurrency',
                           'source_rules', 'con_rules', 'recompile',
-                          'lint')),
+                          'lint', 'registry', 'trace_rules', 'liveness')),
                       *(('obs', f'{m}.py') for m in (
                           '__init__', 'observe', 'registry', 'live',
                           'watchdog', 'probes', 'quality', 'anomaly', 'slo',

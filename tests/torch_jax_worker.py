@@ -48,3 +48,31 @@ def jax_worker(*names):
             owner = sys.modules.get(parent)
             if owner is not None and getattr(owner, leaf, None) is mod:
                 delattr(owner, leaf)
+
+
+@contextlib.contextmanager
+def jax_analysis(*names):
+    """:func:`jax_worker` for the JAX package's trace tier
+    (``dgmc_tpu.analysis.jaxpr_rules``, ``registry``) under the installed
+    JAX, which moved two names that tier reads: ``jax.core.ClosedJaxpr``
+    / ``JaxprEqn`` (now in ``jax.extend.core``) and
+    ``source_info_util.user_frame``, which takes a traceback where the
+    tier passes a ``SourceInfo``. Both are bridged for the block and
+    restored after it; nothing in the JAX package changes."""
+    import jax
+    import jax.extend.core as jcore
+    from jax._src import source_info_util as siu
+    added = [n for n in ('ClosedJaxpr', 'JaxprEqn')
+             if not hasattr(jax.core, n)]
+    for n in added:
+        setattr(jax.core, n, getattr(jcore, n))
+    user_frame = siu.user_frame
+    siu.user_frame = lambda info: user_frame(getattr(info, 'traceback',
+                                                     info))
+    try:
+        with jax_worker(*names) as mods:
+            yield mods
+    finally:
+        siu.user_frame = user_frame
+        for n in added:
+            delattr(jax.core, n)
