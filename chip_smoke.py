@@ -355,6 +355,30 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   ``static_peak_bytes`` beside the allocator's measured peak) and
   ``obs.diff --max-peak-regression`` over them.
 
+- ``parallel``: the port's multi-process paths
+  (``dgmc_tpu_torch/parallel``, :func:`phase_parallel`): (a) one rank on
+  NCCL, brought up by ``initialize_distributed`` with explicit
+  arguments: the row-sharded KG phase-2 step at full width, captured with
+  its all-reduces inside the graph, bit-identical (loss and parameters,
+  3 steps) to the unsharded captured step with the same launches; (b)
+  two ranks sharing the card (gloo, CUDA tensors staged through the
+  host: NCCL refuses two ranks on one device): ``sharded_topk_rows`` and
+  the ring (the target shards in JAX's rotation order, each from the
+  rank's own copy) at 15000 x 20000 x 256, k = 10, float32 and bf16,
+  each rank's indices gathered equal to the one-process kernel's, each
+  rank's ``topk.cu`` launches and ms; (c) ``python -m
+  dgmc_tpu_torch.experiments.dbp15k --synthetic --row_shards 2
+  --num_processes 2`` at full width into phase 2 (float32, 3 epochs):
+  its epoch lines within loss rel 1e-4 and Hits@1 / Hits@10 within
+  2e-3 of the one-process run's, each rank's launches of the top-k, the
+  sparse consensus forward and backward and the blocked aggregation
+  (its counters) and its collectives (its ``dispatch.json``); (d) one
+  data-parallel ``pascal`` epoch (the JAX CLI's widths, a small fixture
+  tree, 16-pair batches, each rank 8 pairs of each) on two ranks sharing
+  the card, ψ₁'s dropout masks each rank's half of the whole batch's:
+  its losses within rel 1e-4 of one process's, each rank's routing and
+  consensus launches.
+
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
 launch counts per step are the eager step's. Counts filed by a key the
@@ -5721,10 +5745,33 @@ def phase_keypoints(res, prepared=None):
         _kp_run('keypoints (d) pascal --isotropic f32', pascal.main,
                 cut + ['--epochs', '1', '--isotropic', '--f32'], 'f32',
                 tally)
+        _kp_isotropic_counts(prep['batches'])
         _kp_willow(voc, wil, tally)
         _kp_pascal_pf(pf)
     finally:
         shutil.rmtree(prep['tmp'], ignore_errors=True)
+
+
+def _kp_isotropic_counts(kp_batches):
+    """(d)'s count: the cost account of ``pascal``'s train step under the
+    bf16 policy with ``--isotropic`` (D = 1: two knots an edge) on the
+    loader's first batch, each dense kernel at its formula x launches
+    (:func:`_hold_dense_counts`)."""
+    from dgmc_tpu_torch.experiments import pascal
+    from dgmc_tpu_torch.obs.cost import cost_summary
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import make_train_step
+    batch = kp_batches[0][1]
+    args = pascal.parse_args(['--isotropic', '--precision', 'bf16'])
+    model = pascal.build_model(args, np.shape(batch.s['x'])[-1]).cuda()
+    state = create_train_state(model, learning_rate=args.lr)
+    summary = cost_summary(make_train_step(model, loss_on_s0=True,
+                                           jit=False), state, batch, 0)
+    _hold_dense_counts('keypoints (d) pascal --isotropic bf16 cost',
+                       summary['kernels'], model, batch, 1)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _kp_prepare():
@@ -6163,6 +6210,43 @@ def _hold_kg_counts(counted):
     torch.cuda.empty_cache()
 
 
+def _hold_dense_counts(label, kernels, model, batch, D):
+    """A dense train step's counted kernels (``kernels``: a cost
+    summary's ``{name: {'calls', 'flops'}}``) against each kernel's
+    formula at the batch's shapes x its launches a step: SplineConv's
+    routing, forward and ``d_t``, ``2 A O`` a real edge (``A = 2^D``
+    knots) a call, ψ₁'s ``num_layers`` calls on each graph at its width
+    and ψ₂'s ``num_layers`` on each graph in each of ``num_steps`` steps
+    (one channel-packed source call a layer where the model packs); the
+    dense consensus ``num_steps`` times
+    (:func:`~dgmc_tpu_torch.ops.kernels.consensus.consensus_work`,
+    forward and backward)."""
+    from dgmc_tpu_torch.ops.kernels.consensus import consensus_work
+    y = np.asarray(batch.y)
+    B, N_s = y.shape
+    N_t = np.shape(batch.t['x'])[1]
+    L, T = len(model.psi_1.convs), model.num_steps
+    L2 = len(model.psi_2.convs)
+    O1, R = model.psi_1.channels, model.psi_2.channels
+    E = float(np.asarray(batch.s['edge_mask']).sum()
+              + np.asarray(batch.t['edge_mask']).sum())
+    route = 2.0 * 2 ** D * E * (L * O1 + T * L2 * R)
+    calls = 2 * L + (L2 + T * L2 if model.packs_source(T) else 2 * T * L2)
+    work = consensus_work(B, N_s, N_t, R)
+    want = {'spline_route_fwd': (calls, route),
+            'spline_route_bwd': (calls, route),
+            'consensus_fwd': (T, T * work['flops']),
+            'consensus_bwd': (T, T * work['bwd']['flops'])}
+    got = {k: (kernels.get(k, {}).get('calls'), kernels.get(k, {}).get(
+        'flops')) for k in want}
+    if got != want:
+        raise AssertionError(f'{label}: counted kernels {got}, the '
+                             f'formulas x launches {want}')
+    log(f'{label}: counted kernels at their formulas x launches (D = {D}, '
+        f'{int(E)} real edges, B = {B}, N_s = {N_s}, N_t = {N_t}): '
+        f'{dict(sorted(got.items()))}')
+
+
 def _hold_attribution(label, prof, obs_dir, need):
     """``python -m dgmc_tpu_torch.obs.attribution`` (its ``main``, in this
     process) on the profiled steps in ``prof``: the stage sums no more
@@ -6407,9 +6491,11 @@ def _obs_profile(tmp):
     eff = _hold_efficiency('obs (c) PascalPF', obs_dir, {'train_step': (
         'psi1', 'initial_corr', 'consensus_iter', 'psi2', 'loss',
         'optimizer')})
-    if not eff['programs']['train_step']['kernels'].get('consensus_fwd'):
-        raise AssertionError(f'obs (c): counted kernels '
-                             f'{eff["programs"]["train_step"]["kernels"]}')
+    args = pascal_pf.parse_args(['--epochs', '1', '--seed', '0'])
+    model, loader, _ = pascal_pf.build(args)
+    _hold_dense_counts('obs (c) PascalPF',
+                       eff['programs']['train_step']['kernels'], model,
+                       loader.first_batch(), 2)
     _hold_attribution('obs (c) PascalPF', d, obs_dir,
                       ('psi1', 'initial_corr', 'consensus_iter', 'psi2',
                        'loss', 'optimizer'))
@@ -7584,6 +7670,364 @@ def phase_lint(smi_line):
         f'{smi_line}')
 
 
+#: The ``parallel`` phase's sizes: (b)'s search (B, N_s, N_t, C, k) and
+#: the ranks sharing the card; (c)'s flags (full DBP15K width, float32,
+#: the blocked aggregation on, 3 epochs into phase 2).
+PAR_TOPK = TOPK_SHAPE
+PAR_RANKS = 2
+PAR_KG_ARGV = KG_ARGV + ['--f32', '--epochs', '3', '--phase1_epochs', '1',
+                         '--blocked_adjacency', 'on']
+#: (c)'s and (d)'s tolerance against the one-process run (the sums over
+#: ranks are in another order): the loss within JAX's own bound
+#: (``tests/parallel/test_sharding.py``), Hits within 2e-3.
+PAR_LOSS_REL, PAR_HITS_ABS = 1e-4, 2e-3
+PAR_KG_KERNELS = ('topk', 'sparse_consensus_fwd', 'sparse_consensus_bwd',
+                  'blocked')
+#: (d): ``pascal`` at the JAX CLI's widths on a small fixture tree
+#: (``write_voc``: 4 training instances a category), one epoch of 16-pair
+#: batches, float32, structure only (no images).
+PAR_PASCAL_ARGV = ['--vgg_weights', 'none', '--epochs', '1', '--batch_size',
+                   '16', '--test_samples', '20', '--f32']
+PAR_PASCAL_KERNELS = ('spline_route_fwd', 'spline_route_bwd',
+                      'consensus_fwd')
+PASCAL_LOSS = re.compile(r'^Epoch: (\d+), Loss: ([\d.]+)')
+EPOCH_LINE = re.compile(r'^(\d{3}): Loss: ([\d.]+), Hits@1: ([\d.]+), '
+                        r'Hits@10: ([\d.]+)')
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _par_inputs(dtype, device, shape):
+    """(b)'s search inputs: the same on every rank (one seed, one card)."""
+    B, N_s, N_t, C, _ = shape
+    g = torch.Generator(device=device).manual_seed(23)
+    h_s = torch.randn(B, N_s, C, generator=g, device=device)
+    h_t = torch.randn(B, N_t, C, generator=g, device=device)
+    return h_s.to(dtype), h_t.to(dtype)
+
+
+def _par_topk_rank(rank, world, port, out_dir, device, shape):
+    """(b) on one rank (run in a process of its own): rows and ring, each
+    dtype, at ``shape`` (``(B, N_s, N_t, C, k)``); this rank's launches and
+    host ms a search (median of 3, synchronized), rank 0's gathered
+    indices saved beside."""
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.parallel import distributed, make_mesh
+    from dgmc_tpu_torch.parallel.comm import all_gather
+    from dgmc_tpu_torch.parallel.mesh import NamedSharding
+    from dgmc_tpu_torch.parallel.topk import (corr_sharded_topk,
+                                              sharded_topk_rows)
+    if device == 'cuda':
+        torch.cuda.set_device(0)
+    k = shape[4]
+    report = {}
+    with distributed.process_group(f'127.0.0.1:{port}', world, rank,
+                                   backend='gloo'):
+        by_model = make_mesh(data=1, model=world, device=device)
+        by_data = make_mesh(data=world, model=1, device=device)
+        ring = NamedSharding(by_data, (None, 'data'))
+        for dtype in (torch.float32, torch.bfloat16):
+            h_s, h_t = _par_inputs(dtype, device, shape)
+            calls = {
+                'rows': lambda: sharded_topk_rows(by_model, h_s, h_t, k),
+                'ring': lambda: corr_sharded_topk(ring, h_s, h_t, k, None,
+                                                  ring=True)}
+            for kind, fn in calls.items():
+                dispatch.reset()
+                block = fn()
+                if device == 'cuda':
+                    torch.cuda.synchronize()
+                launches = dispatch.launch_counts().get('topk', 0)
+                ms = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    fn()
+                    if device == 'cuda':
+                        torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                group = (by_model if kind == 'rows' else by_data).group()
+                whole = all_gather(block, group, dim=1)[:, :h_s.shape[1]]
+                name = f'{kind}_{str(dtype).split(".")[-1]}'
+                if rank == 0:
+                    torch.save(whole.cpu(), os.path.join(out_dir,
+                                                         f'{name}.pt'))
+                report[name] = {'launches': launches,
+                                'ms': statistics.median(ms),
+                                'collective': dispatch.decisions().get(
+                                    'collective', {}).get('reason')}
+    from dgmc_tpu_torch.utils.io import write_json_atomic
+    write_json_atomic(os.path.join(out_dir, f'rank{rank}.json'), report)
+
+
+def _par_spawn(argv_of, n):
+    """``n`` processes, rank ``r`` running ``python3 *argv_of(r)`` from the
+    repository root → their ``(rc, stdout, stderr)``."""
+    procs = [subprocess.Popen(
+        [sys.executable, *argv_of(r)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+    out = []
+    try:
+        for p in procs:
+            out.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (o, e)) in enumerate(zip(procs, out)):
+        if p.returncode:
+            raise AssertionError(f'parallel: rank {r} exited '
+                                 f'{p.returncode}:\n{e[-3000:]}')
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, out)]
+
+
+def _par_topk(tmp, device='cuda', shape=PAR_TOPK):
+    """(b): the search on two ranks that share the card."""
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    port = _free_port()
+    t0 = time.perf_counter()
+    _par_spawn(lambda r: [
+        '-c', f'import sys; sys.path.insert(0, "."); import chip_smoke; '
+        f'chip_smoke._par_topk_rank({r}, {PAR_RANKS}, {port}, {tmp!r}, '
+        f'{device!r}, {tuple(shape)!r})'], PAR_RANKS)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(tmp, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    k = shape[4]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        h_s, h_t = _par_inputs(dtype, device, shape)
+        want = chunked_topk(h_s, h_t, k).cpu()
+        one_ms = (cuda_ms(lambda: chunked_topk(h_s, h_t, k), runs=5)
+                  if device == 'cuda' else None)
+        dt = str(dtype).split('.')[-1]
+        for kind in ('rows', 'ring'):
+            name = f'{kind}_{dt}'
+            got = torch.load(os.path.join(tmp, f'{name}.pt'))
+            if not torch.equal(got, want):
+                bad = int((got != want).any(-1).sum())
+                raise AssertionError(f'parallel (b): {name}: {bad} rows '
+                                     f'differ from the one-process kernel')
+            launches = [r[name]['launches'] for r in ranks]
+            if device == 'cuda' and not all(launches):
+                raise AssertionError(f'parallel (b): {name}: launches '
+                                     f'{launches}')
+            rows[name] = {'launches': launches,
+                          'ms': [round(r[name]['ms'], 3) for r in ranks],
+                          'one_process_ms': one_ms}
+    log(f'parallel (b): {PAR_RANKS} ranks on one card (gloo, '
+        f'{ranks[0]["rows_float32"]["collective"]}), top-k at '
+        f'{"x".join(map(str, shape[1:4]))}, k = {k}, {wall:.1f}s '
+        f'with start-up: indices bit-equal to the one-process kernel; '
+        f'per rank launches and host ms a search beside the one-process '
+        f'kernel\'s CUDA-event ms: {json.dumps(rows)}')
+    return rows
+
+
+def _par_lines(stdout):
+    return {m.group(1): tuple(float(x) for x in m.groups()[1:])
+            for m in map(EPOCH_LINE.match, stdout.splitlines()) if m}
+
+
+def _par_kg(tmp, device='cuda', argv=None):
+    """(c): the KG CLI on two ranks sharing the card against one
+    process."""
+    argv = list(PAR_KG_ARGV if argv is None else argv)
+    obs = os.path.join(tmp, 'obs')
+    port = _free_port()
+    t0 = time.perf_counter()
+    # The CLI's ``main`` as ``python -m`` runs it, then the rank's launch
+    # counters (from 0 at the process's start).
+    runs = _par_spawn(lambda r: [
+        '-c', 'import json, sys; from dgmc_tpu_torch.experiments import '
+        'dbp15k; from dgmc_tpu_torch.ops.kernels import dispatch; '
+        'dbp15k.main(sys.argv[1:]); print("LAUNCHES " + json.dumps('
+        'dispatch.launch_counts()))', *argv, '--row_shards',
+        str(PAR_RANKS), '--coordinator', f'127.0.0.1:{port}',
+        '--num_processes', str(PAR_RANKS), '--process_id', str(r),
+        '--obs-dir', obs], PAR_RANKS)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, one = _kg_cli(argv)
+    one_s = time.perf_counter() - t0
+    got, want = _par_lines(runs[0][1]), _par_lines(one)
+    if not want or sorted(got) != sorted(want) or _par_lines(runs[1][1]):
+        raise AssertionError(f'parallel (c): epoch lines {got} (rank 1: '
+                             f'{_par_lines(runs[1][1])}) against {want}')
+    for epoch, (loss, h1, h10) in want.items():
+        g = got[epoch]
+        if (abs(g[0] - loss) > PAR_LOSS_REL * abs(loss)
+                or abs(g[1] - h1) > PAR_HITS_ABS
+                or abs(g[2] - h10) > PAR_HITS_ABS):
+            raise AssertionError(f'parallel (c): epoch {epoch}: {g} '
+                                 f'against {(loss, h1, h10)}')
+    launches = []
+    for r, (_, stdout, _) in enumerate(runs):
+        mine = json.loads(next(line for line in stdout.splitlines()
+                               if line.startswith('LAUNCHES '))[9:])
+        with open(os.path.join(obs, f'host_{r}', 'dispatch.json')) as f:
+            counts = json.load(f)['counts']
+        mine['collective'] = sum(c['count'] for c in counts
+                                 if c['kernel'] == 'collective')
+        if device == 'cuda' and not all(mine.get(k) for k in PAR_KG_KERNELS):
+            raise AssertionError(f'parallel (c): rank {r} launches {mine}')
+        launches.append({k: mine.get(k, 0) for k in (*PAR_KG_KERNELS,
+                                                     'collective')})
+    log(f'parallel (c): dbp15k --row_shards {PAR_RANKS} --num_processes '
+        f'{PAR_RANKS} ({" ".join(argv)}) in {wall:.1f}s with start-up, '
+        f'the one-process run in {one_s:.1f}s: epoch lines (loss, Hits@1, '
+        f'Hits@10) {got} against {want}; per rank launches (the '
+        f'counters) and collectives (its dispatch.json): {launches}')
+    return launches
+
+
+def _par_pascal(tmp, device='cuda', argv=None):
+    """(d): one data-parallel ``pascal`` epoch on two ranks sharing the
+    card (each its half of every batch) against one process."""
+    from dgmc_tpu_torch.datasets.fixtures import write_voc
+    from dgmc_tpu_torch.experiments import pascal
+    root = os.path.join(tmp, 'voc')
+    write_voc(root, seed=0, train=4, val=2)
+    argv = ['--data_root', root] + list(PAR_PASCAL_ARGV if argv is None
+                                        else argv)
+    port = _free_port()
+    t0 = time.perf_counter()
+    runs = _par_spawn(lambda r: [
+        '-c', 'import json, sys; from dgmc_tpu_torch.experiments import '
+        'pascal; from dgmc_tpu_torch.ops.kernels import dispatch; '
+        'pascal.main(sys.argv[1:]); print("LAUNCHES " + json.dumps('
+        'dispatch.launch_counts()))', *argv, '--coordinator',
+        f'127.0.0.1:{port}', '--num_processes', str(PAR_RANKS),
+        '--process_id', str(r)], PAR_RANKS)
+    wall = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pascal.main(argv)
+
+    def losses(text):
+        return [float(m.group(2)) for m in map(PASCAL_LOSS.match,
+                                               text.splitlines()) if m]
+    got, want = losses(runs[0][1]), losses(buf.getvalue())
+    if (not want or len(got) != len(want) or losses(runs[1][1])
+            or any(abs(g - w) > PAR_LOSS_REL * abs(w)
+                   for g, w in zip(got, want))):
+        raise AssertionError(f'parallel (d): losses {got} (rank 1: '
+                             f'{losses(runs[1][1])}) against {want}')
+    launches = []
+    for _, stdout, _ in runs:
+        mine = json.loads(next(line for line in stdout.splitlines()
+                               if line.startswith('LAUNCHES '))[9:])
+        if device == 'cuda' and not all(mine.get(k)
+                                        for k in PAR_PASCAL_KERNELS):
+            raise AssertionError(f'parallel (d): launches {mine}')
+        launches.append({k: mine.get(k, 0) for k in PAR_PASCAL_KERNELS})
+    log(f'parallel (d): pascal on {PAR_RANKS} ranks ({" ".join(argv[2:])}) '
+        f'in {wall:.1f}s with start-up: epoch losses {got} against one '
+        f'process\'s {want}; per rank launches {launches}')
+    return launches
+
+
+def _par_world1(device='cuda', backend='nccl', argv=None):
+    """(a): one rank on ``backend``: the row-sharded phase-2 step,
+    captured, against the unsharded captured step."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.parallel import (distributed, make_mesh,
+                                         make_sharded_train_step,
+                                         streamed_rules)
+    from dgmc_tpu_torch.parallel.comm import backend_of
+    from dgmc_tpu_torch.train.state import create_train_state
+    from dgmc_tpu_torch.train.steps import batch_to_device, make_train_step
+    args = dbp15k.parse_args(list(PAR_KG_ARGV if argv is None else argv)
+                             + ['--stream_chunk', '8192'])
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    out = {}
+    with distributed.process_group(f'127.0.0.1:{_free_port()}', 1, 0,
+                                   backend=backend):
+        mesh = make_mesh(data=1, device=device)
+        if backend_of(mesh.group()) != backend:
+            raise AssertionError(f'parallel (a): backend '
+                                 f'{backend_of(mesh.group())}')
+        for name in ('unsharded', 'sharded'):
+            model = dbp15k.build(args, in_dim).to(device)
+            state = create_train_state(model, learning_rate=args.lr)
+            batch = batch_to_device(train_b, device)
+            if name == 'sharded':
+                step = make_sharded_train_step(
+                    model, mesh, num_steps=args.num_steps, detach=True,
+                    rules=streamed_rules(stream_chunk=8192))
+            else:
+                step = make_train_step(model, num_steps=args.num_steps,
+                                       detach=True)
+            built = dispatch.decisions().get('sharded_step')
+            dispatch.reset()
+            losses = []
+            for e in range(3):
+                state, m = step(state, batch,
+                                dbp15k.noise_seed(0, 0, 11 + e))
+                losses.append(m['loss'].clone())
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            launches = dispatch.launch_counts()
+            decisions = dispatch.decisions()
+            params = [p.detach().clone() for p in model.parameters()]
+            seed = dbp15k.noise_seed(0, 0, 20)
+            ms = (cuda_ms(lambda: step(state, batch, seed), runs=5,
+                          warmup=1) if device == 'cuda' else None)
+            out[name] = (torch.stack(losses), params, launches,
+                         dict(decisions, sharded_step=built), ms)
+            del step, state, model, batch
+            gc.collect()
+            if device == 'cuda':
+                torch.cuda.empty_cache()
+    (l0, p0, n0, _, ms0), (l1, p1, n1, d1, ms1) = (out['unsharded'],
+                                                    out['sharded'])
+    if not torch.equal(l0, l1) or not all(torch.equal(a, b)
+                                          for a, b in zip(p0, p1)):
+        worst = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+        raise AssertionError(f'parallel (a): sharded losses {l1.tolist()} '
+                             f'against {l0.tolist()}, parameters max '
+                             f'|diff| {worst}')
+    kg = {k: n1.get(k, 0) for k in PAR_KG_KERNELS}
+    if n0 != n1 or (device == 'cuda' and not all(kg.values())):
+        raise AssertionError(f'parallel (a): launches {n1} against {n0}')
+    step_d, coll = d1.get('sharded_step'), d1.get('collective')
+    if device == 'cuda' and (
+            (step_d or {}).get('path') != 'captured'
+            or (coll or {}).get('path') != 'device'):
+        raise AssertionError(f'parallel (a): decisions {step_d} {coll}')
+    log(f'parallel (a): one rank on {backend}, the row-sharded phase-2 '
+        f'step captured with its all-reduces ({(coll or {}).get("counts")} '
+        f'collectives over 3 steps): losses {l1.tolist()} and every '
+        f'parameter bit-identical to the unsharded captured step; launches '
+        f'{kg} over 3 steps, equal; a step (CUDA events, median of 5 '
+        f'replays) {ms1} ms sharded, {ms0} ms unsharded')
+    return kg, ms0, ms1
+
+
+def phase_parallel(smi_line):
+    """The multi-process paths (``dgmc_tpu_torch/parallel``): (a)
+    :func:`_par_world1`, (b) :func:`_par_topk`, (c) :func:`_par_kg`, (d)
+    :func:`_par_pascal`; see the module docstring."""
+    import tempfile
+    log(f'parallel: {smi_line}')
+    _par_world1()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, 'topk'))
+        _par_topk(os.path.join(tmp, 'topk'))
+        _par_kg(tmp)
+        _par_pascal(tmp)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--steps', type=int, default=0, metavar='N',
@@ -7687,6 +8131,8 @@ def main(argv=None):
             ('serve_worker', None, lambda: phase_serve_worker(
                 smi[0] if smi else 'nvidia-smi: no output')),
             ('lint', None, lambda: phase_lint(
+                smi[0] if smi else 'nvidia-smi: no output')),
+            ('parallel', None, lambda: phase_parallel(
                 smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:

@@ -31,8 +31,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ['dgmc_from_flax', 'gin_from_flax', 'mlp_from_flax',
-           'relcnn_from_flax', 'splinecnn_from_flax']
+__all__ = ['dgmc_from_flax', 'flax_names', 'gin_from_flax',
+           'mlp_from_flax', 'relcnn_from_flax', 'splinecnn_from_flax']
 
 _MLP = ('mlp_hidden_kernel', 'mlp_hidden_bias', 'mlp_out_kernel',
         'mlp_out_bias')
@@ -185,4 +185,53 @@ def dgmc_from_flax(params, batch_stats=None):
     extra = set(params) - {'psi_1', 'psi_2', *_MLP}
     if extra:
         raise KeyError(f'unexpected DGMC parameters {sorted(extra)}')
+    return out
+
+
+#: A module list's scope in the flax tree: ``convs.<i>`` is ``conv_<i>``
+#: (GIN's ``convs.<i>.mlp`` is ``mlp_<i>``), ``bns.<i>`` ``bn_<i>``,
+#: ``lins.<i>`` ``dense_<i>``.
+_SCOPES = {'convs': 'conv', 'bns': 'bn', 'lins': 'dense'}
+
+
+def _flax_scope(module_key):
+    parts = module_key.split('.') if module_key else []
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in _SCOPES and i + 1 < len(parts) and parts[i + 1].isdigit():
+            if p == 'convs' and parts[i + 2:i + 3] == ['mlp']:
+                out.append(f'mlp_{parts[i + 1]}')
+                i += 3
+            else:
+                out.append(f'{_SCOPES[p]}_{parts[i + 1]}')
+                i += 2
+            continue
+        out.append(p)
+        i += 1
+    return out
+
+
+def flax_names(model):
+    """The inverse of the maps above: ``{state_dict key: (collection,
+    path, transpose)}`` for every parameter of ``model`` and every batch
+    norm running average, ``collection`` ``'params'`` or
+    ``'batch_stats'``, ``path`` the flax tree's ``/``-joined path (e.g.
+    ``psi_1/conv_0/lin1/kernel``) and ``transpose`` whether the flax leaf
+    is the tensor's transpose (a ``Linear`` weight)."""
+    from torch import nn
+    from dgmc_tpu_torch.models.norm import MaskedBatchNorm
+    out = {}
+    for mkey, module in model.named_modules():
+        scope = _flax_scope(mkey)
+        linear = isinstance(module, nn.Linear)
+        for name, _ in module.named_parameters(recurse=False):
+            leaf = 'kernel' if linear and name == 'weight' else name
+            key = f'{mkey}.{name}' if mkey else name
+            out[key] = ('params', '/'.join(scope + [leaf]),
+                        linear and name == 'weight')
+        if isinstance(module, MaskedBatchNorm):
+            for name in ('mean', 'var'):
+                out[f'{mkey}.{name}'] = ('batch_stats',
+                                         '/'.join(scope + [name]), False)
     return out

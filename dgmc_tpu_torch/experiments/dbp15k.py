@@ -70,6 +70,19 @@ alignment instead (the JAX CLI's offline stand-in, 15000 / 20000
 entities and 100000 / 120000 edges by default). One of the two is
 required.
 
+Several ranks (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.parallel`):
+one process drives one card, so ``--row_shards N`` (the correspondence
+rows, the shortlist and ψ₂'s source rows over N ranks, the search
+streamed over ``--stream_chunk`` rows, 8192 by default, its targets
+ringing) and ``--model_shards N`` (the rows over the mesh's model axis)
+each need a world of N ranks: torchrun's environment, or
+``--coordinator host:port --num_processes N --process_id I``. The two
+flags exclude each other; a shard count that differs from the world size
+is refused. Every rank holds the whole pair; metrics and standard output
+come from the coordinator (rank 0) only, and ``--obs-dir`` gets a
+``host_<rank>`` directory per rank. ``--dist_backend`` picks NCCL or gloo
+(default: NCCL where every rank has a card of its own, else gloo).
+
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
 ``--obs-dir DIR`` writes the run's telemetry there (``metrics.jsonl``,
 ``timings.json``, ``memory.json``, ``dispatch.json``, ``quality.json``,
@@ -93,7 +106,6 @@ import time
 import numpy as np
 import torch
 
-from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.synthetic import synthetic_kg_alignment
 from dgmc_tpu_torch.models import precision
 from dgmc_tpu_torch.models.dgmc import DGMC
@@ -108,6 +120,7 @@ from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
                                                   supervise_cli)
 from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
 from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
+from dgmc_tpu_torch.parallel import distributed
 from dgmc_tpu_torch.resilience import (FaultPlan, RollbackGuard,
                                        add_fault_args, ledger_dir)
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
@@ -118,7 +131,8 @@ from dgmc_tpu_torch.utils.data import (Graph, GraphPair, PairBatch,
                                        pad_pair_batch)
 
 __all__ = ['parse_args', 'use_blocked_adjacency', 'synthetic_batches',
-           'load_batches', 'build', 'noise_seed', 'offload_pass', 'main']
+           'load_batches', 'build', 'sharding', 'noise_seed', 'offload_pass',
+           'main']
 
 
 def parse_args(argv=None):
@@ -178,17 +192,31 @@ def parse_args(argv=None):
                         '(argument + output + temp bytes, the temps its '
                         'graph\'s private pool) into the metrics log as '
                         'aot_memory_<name> events')
+    p.add_argument('--model_shards', type=int, default=0,
+                   help='shard correspondence rows over N ranks '
+                        '(0 = no sharding)')
+    p.add_argument('--row_shards', type=int, default=0,
+                   help='million-entity layout (parallel/rules.py '
+                        'streamed_rules): row-shard the correspondence '
+                        'matrix, shortlist and ψ₂ source intermediates over '
+                        'N ranks on the data axis, with the candidate search '
+                        'streamed over source chunks and its targets '
+                        'ringing; the whole sharding config is the '
+                        'declarative partition-rule object. Mutually '
+                        'exclusive with --model_shards')
+    distributed.add_distributed_args(p)
     p.add_argument('--stream_chunk', type=int, default=0,
                    help='stream the sparse candidate search over source-node '
                         'chunks of this many rows, one search each (0 = '
-                        'off)')
+                        'off; defaults to 8192 under --row_shards)')
     p.add_argument('--blocked_adjacency', choices=['auto', 'on', 'off'],
                    default='auto',
                    help='aggregate RelCNN through the blocked adjacency '
                         'tables and the blocked kernel (ops/blocked.py); '
-                        '"auto" = on, except with --stream_chunk (the JAX '
-                        "CLI's rule: the tables are O(E) per device, "
-                        'dropped where memory is the budget)')
+                        '"auto" = on, except under --row_shards or '
+                        "--stream_chunk (the JAX CLI's rule: the tables are "
+                        'O(E) per device, dropped where memory is the '
+                        'budget)')
     p.add_argument('--offload-corpus', '--offload_corpus',
                    dest='offload_corpus', action='store_true',
                    help='after training, re-shortlist the test pair with '
@@ -228,12 +256,13 @@ def parse_args(argv=None):
 
 def use_blocked_adjacency(args):
     """``--blocked_adjacency`` resolved as the JAX CLI resolves it:
-    ``auto`` is on unless the search is streamed (``--stream_chunk``)."""
+    ``auto`` is on unless the layout is row-sharded (``--row_shards``) or
+    the search streamed (``--stream_chunk``)."""
     if args.blocked_adjacency == 'on':
         return True
     if args.blocked_adjacency == 'off':
         return False
-    return not args.stream_chunk
+    return not (getattr(args, 'row_shards', 0) > 1 or args.stream_chunk)
 
 
 def _pair_batches(args, g_s, g_t, y_train, y_test):
@@ -323,6 +352,42 @@ def noise_seed(seed, split, epoch):
     return (seed * 2 + split) * 1_000_033 + epoch
 
 
+def sharding(args, nproc, device):
+    """``(mesh, rules)`` of ``--model_shards`` / ``--row_shards`` over the
+    world's ranks (``(None, None)`` for neither), with JAX's refusals: the
+    two flags exclude each other, and a shard count must equal the world
+    size (one rank per card; rows over N ranks are N processes)."""
+    if args.row_shards > 1 and args.model_shards > 1:
+        raise SystemExit('--row_shards (partition-rule streamed layout) and '
+                         '--model_shards (legacy corr sharding) are mutually '
+                         'exclusive')
+    shards = max(args.row_shards, args.model_shards)
+    if nproc > 1 and shards != nproc:
+        raise SystemExit(
+            f'multi-process dbp15k requires --model_shards or --row_shards '
+            f'== world size ({nproc}; the workload is one B=1 pair, only '
+            f'the correspondence-sharded axis spans ranks)')
+    if shards > 1 and nproc != shards:
+        raise SystemExit(
+            f'--{"row" if args.row_shards > 1 else "model"}_shards {shards} '
+            f'needs {shards} ranks, one card each; this world has {nproc} '
+            f'(launch with torchrun --nproc_per_node {shards}, or with '
+            f'--coordinator / --num_processes / --process_id)')
+    if shards <= 1:
+        return None, None
+    from dgmc_tpu_torch.parallel import (corr_row_rules, make_mesh,
+                                         streamed_rules)
+    block = {'topk_block': args.topk_block} if args.topk_block else {}
+    if args.model_shards > 1:
+        mesh = make_mesh(data=1, model=shards, device=device)
+        return mesh, corr_row_rules(stream_chunk=args.stream_chunk or None,
+                                    **block)
+    mesh = make_mesh(data=shards, model=1, device=device)
+    return mesh, streamed_rules(
+        **({'stream_chunk': args.stream_chunk} if args.stream_chunk else {}),
+        **block)
+
+
 def main(argv=None, hook=None):
     """Train as the module docstring says; returns the train state.
     ``hook(kind, epoch, out)``, if given, is called after every train
@@ -337,7 +402,19 @@ def main(argv=None, hook=None):
         raise SystemExit(supervise_cli(
             'dgmc_tpu_torch.experiments.dbp15k', args, argv,
             ladder=('f32',)))
-    device = resolve_device(args.device)
+    # The process group first (a no-op for one process): the device is
+    # the rank's card.
+    nproc, device = distributed.from_args(args)
+    try:
+        return _main(args, nproc, device, hook)
+    finally:
+        if nproc > 1:
+            distributed.shutdown()
+
+
+def _main(args, nproc, device, hook):
+    mesh, rules = sharding(args, nproc, device)
+    coordinator = distributed.is_coordinator()
     plan = FaultPlan.from_args(
         args, state_dir=ledger_dir(args.ckpt_dir, args.obs_dir))
     precision.apply(precision.from_args(args))
@@ -352,24 +429,46 @@ def main(argv=None, hook=None):
     # Phase 1: feature matching only. Phase 2: refinement with ψ₁'s
     # gradients cut (detach), its dropout still active.
     fault = plan.nan_grads_step
-    phase1 = make_train_step(model, num_steps=0, guard=guard,
-                             fault_nan_step=fault)
-    phase2 = make_train_step(model, num_steps=args.num_steps, detach=True,
-                             guard=guard, fault_nan_step=fault)
-    eval1 = make_eval_step(model, hits_ks=(10,), num_steps=0)
-    eval2 = make_eval_step(model, hits_ks=(10,), num_steps=args.num_steps)
+    if rules is None:
+        phase1 = make_train_step(model, num_steps=0, guard=guard,
+                                 fault_nan_step=fault)
+        phase2 = make_train_step(model, num_steps=args.num_steps,
+                                 detach=True, guard=guard,
+                                 fault_nan_step=fault)
+        eval1 = make_eval_step(model, hits_ks=(10,), num_steps=0)
+        eval2 = make_eval_step(model, hits_ks=(10,),
+                               num_steps=args.num_steps)
+    else:
+        # The partition-rule config gives the model its row layout and
+        # the steps their cross-rank sums.
+        from dgmc_tpu_torch.parallel import (make_sharded_eval_step,
+                                             make_sharded_train_step)
+        phase1 = make_sharded_train_step(
+            model, mesh, num_steps=0, rules=rules, guard=guard,
+            fault_nan_step=fault)
+        phase2 = make_sharded_train_step(
+            model, mesh, num_steps=args.num_steps, detach=True, rules=rules,
+            guard=guard, fault_nan_step=fault)
+        eval1 = make_sharded_eval_step(model, mesh, hits_ks=(10,),
+                                       num_steps=0, rules=rules)
+        eval2 = make_sharded_eval_step(model, mesh, hits_ks=(10,),
+                                       num_steps=args.num_steps, rules=rules)
     # One pair throughout: upload it once (its graphs keep their sorted
-    # edge orders across steps).
+    # edge orders across steps); every rank holds all of it.
     train_dev = batch_to_device(train_batch, device)
     test_dev = batch_to_device(test_batch, device)
+    if rules is not None:
+        # Every rank starts from the first rank's state.
+        rules.place(state, train_dev, mesh, model)
 
-    with MetricLogger(args.metrics_log) as logger:
+    with MetricLogger(args.metrics_log if coordinator else None) as logger:
         # Resume before anything is captured: the restore writes in place
         # either way, and a capture's warm-ups start from the restored
         # state.
         t_resume = time.perf_counter()
         ckpt, state, start_epoch = resume_or_init(args.ckpt_dir, state,
-                                                  model)
+                                                  model, mesh=mesh,
+                                                  rules=rules)
         if start_epoch > 1:
             logger.log(start_epoch - 1, event='resume',
                        restore_s=ckpt.last_restore['seconds'])
@@ -377,7 +476,8 @@ def main(argv=None, hook=None):
             t_resume = None
         # Before any capture: the probe switch is read when a step's
         # graph is captured.
-        obs = RunObserver(args.obs_dir, probes=args.probes,
+        obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
+                          probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
                           obs_port=args.obs_port, padding_since=padding_since)
         prof = None
@@ -397,14 +497,21 @@ def main(argv=None, hook=None):
                              test_dev)
             prof = obs.attach_profiler(
                 start_profile(args.profile_dir, steps=args.profile_steps))
-            print('Optimize initial feature matching...', flush=True)
+            if coordinator:
+                print('Optimize initial feature matching...', flush=True)
             rollback = RollbackGuard(args.guard_bad_steps, logger, obs=obs) \
                 if guard else None
             state = _train(args, model, state, start_epoch,
                            (phase1, phase2), (eval1, eval2), train_dev,
                            test_dev, logger, obs, hook, ckpt, plan, rollback,
                            t_resume)
-            if args.offload_corpus:
+            if args.offload_corpus and nproc > 1:
+                # The ring runs on one card; a pass per rank would repeat
+                # the verification.
+                if coordinator:
+                    print('# offload shortlist: skipped (multi-process '
+                          'run; the prefetch ring is single-card)')
+            elif args.offload_corpus:
                 offload_pass(args, model, test_dev, logger, obs)
         finally:
             if prof is not None:
@@ -470,6 +577,10 @@ def _aot_compile(args, start_epoch, logger, obs, state, phases, evals,
     does. Capturing leaves the state as it found it, so training from the
     same seed follows."""
     (phase1, phase2), (eval1, eval2) = phases, evals
+    if not hasattr(phase1, 'capture'):
+        print('# aot: the sharded steps run eagerly (gloo cannot capture '
+              'collectives); nothing to capture', flush=True)
+        return
 
     def aot(name, record):
         mem = captured_memory(record)
@@ -477,10 +588,11 @@ def _aot_compile(args, start_epoch, logger, obs, state, phases, evals,
                    capture_s=record.capture_s,
                    **memory_snapshot(name)['host'])
         obs.log(0, event=f'aot_memory_{name}', **mem)
-        print(f'# {name}: per-device static memory '
-              f'{mem["total_bytes"] / 2**30:.3f} GiB '
-              f'(args {mem["argument_bytes"] >> 20} MiB, '
-              f'temps {mem["temp_bytes"] >> 20} MiB)', flush=True)
+        if distributed.is_coordinator():
+            print(f'# {name}: per-device static memory '
+                  f'{mem["total_bytes"] / 2**30:.3f} GiB '
+                  f'(args {mem["argument_bytes"] >> 20} MiB, '
+                  f'temps {mem["temp_bytes"] >> 20} MiB)', flush=True)
 
     # Clamp both gates to the epochs that will run: phase 1 ends at
     # min(phase1_epochs, epochs), and a run resumed past the last epoch
@@ -502,13 +614,14 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
     records, the guard's counters and rollbacks, the checkpoints and the
     armed faults."""
     (phase1, phase2), (eval1, eval2) = phases, evals
+    say = print if distributed.is_coordinator() else (lambda *a, **k: None)
     last_print, t_span = start_epoch - 1, time.time()
     # --profile: the second epoch run (the first captures its step).
     profile_epoch = min(start_epoch + 1, args.epochs)
     for epoch in range(start_epoch, args.epochs + 1):
         refine = epoch > args.phase1_epochs
         if epoch == args.phase1_epochs + 1:
-            print('Refine correspondence matrix...', flush=True)
+            say('Refine correspondence matrix...', flush=True)
         # Armed host-side faults fire here, on epochs that run only.
         plan.before_step(epoch)
         step = phase2 if refine else phase1
@@ -557,7 +670,7 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
                     state, _ = rollback.maybe_rollback(state, model,
                                                        consec_bad,
                                                        step=epoch)
-            print(f'{epoch:03d}: Loss: {loss:.4f}, Hits@1: {hits1:.4f}, '
+            say(f'{epoch:03d}: Loss: {loss:.4f}, Hits@1: {hits1:.4f}, '
                   f'Hits@10: {hits10:.4f} ({per_epoch:.2f}s/epoch)'
                   + ''.join(f', {k}: {v}' for k, v in guard_metrics.items()),
                   flush=True)

@@ -33,6 +33,19 @@ epoch (asynchronously, as the JAX CLI does) and resumes from the newest
 restorable one; ``--metrics_log PATH``
 appends one JSONL record an epoch (``loss``, ``mean_acc``).
 
+Several ranks (``--coordinator host:port --num_processes N --process_id
+I``, or torchrun's environment; one card per rank): data parallelism
+over the world, as the JAX CLI's. Every rank runs the same loader (the
+same seed, the same batches) and feeds its contiguous slice of each batch
+(``--batch_size`` divisible by N) to the sharded steps
+(:mod:`~dgmc_tpu_torch.parallel.sharding`: the loss over the global
+count, the gradients summed before Adam, batch norm's statistics over
+the world). A pair draws its indicator noise at its place in the whole
+batch, and its dropout masks are its part of the whole batch's (every
+rank draws them for the whole batch and keeps its slice's), so one update
+is the one-process step's. The coordinator (rank 0) prints, logs and
+checkpoints; ``--obs-dir`` gets a ``host_<rank>`` directory per rank.
+
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
 ``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
 ``--slo`` as in ``dbp15k``, built after a resume and before the first
@@ -49,7 +62,6 @@ import time
 
 import torch
 
-from dgmc_tpu_torch import resolve_device
 from dgmc_tpu_torch.data.transforms import (Cartesian, Compose, Delaunay,
                                             Distance, FaceToEdge)
 from dgmc_tpu_torch.experiments.pascal_pf import noise_seed
@@ -61,6 +73,7 @@ from dgmc_tpu_torch.obs.memory import captured_memory
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.parallel import distributed
 from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
                                                   supervise_cli)
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
@@ -72,7 +85,7 @@ from dgmc_tpu_torch.utils.data import (ConcatDataset, PairLoader,
                                        graph_limits)
 
 __all__ = ['parse_args', 'keypoint_transform', 'build_model', 'GraphReport',
-           'timed_batches', 'sample_eval', 'main']
+           'LocalSlices', 'timed_batches', 'sample_eval', 'main']
 
 
 def parse_args(argv=None):
@@ -104,6 +117,7 @@ def parse_args(argv=None):
     p.add_argument('--profile', type=str, default=None,
                    help='write a torch.profiler trace of one training epoch '
                         '(the second run) into this directory')
+    distributed.add_distributed_args(p)
     precision.add_precision_args(p)
     add_obs_flag(p)
     add_profile_flag(p)
@@ -144,6 +158,8 @@ class GraphReport:
 
     def __call__(self):
         for name, step in self.steps.items():
+            if not hasattr(step, 'jit') or not distributed.is_coordinator():
+                continue  # an eager step captures nothing
             c = step.jit.compiled
             for key, rec in ({} if c is None else c.records).items():
                 if (name, key) in self.seen:
@@ -155,6 +171,22 @@ class GraphReport:
                       f'(args {mem["argument_bytes"] >> 20} MiB, outputs '
                       f'{mem["output_bytes"] >> 20} MiB, pool temps '
                       f'{mem["temp_bytes"] >> 20} MiB)', flush=True)
+
+
+class LocalSlices:
+    """This rank's slice of each of ``loader``'s batches
+    (:func:`~dgmc_tpu_torch.parallel.distributed.local_batch_slice`; the
+    whole batch in a one-process run)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield distributed.local_batch_slice(batch)
 
 
 def timed_batches(loader, waits):
@@ -180,16 +212,19 @@ def sample_eval(eval_step, pairs, args, num_nodes, num_edges, device, seeds,
     loader = HostBatches(PairLoader(pairs, args.batch_size, shuffle=False,
                                     num_nodes=num_nodes,
                                     num_edges=num_edges), device)
+    nproc = distributed.process_count()
     correct = torch.zeros((), device=device)
     n = 0.0
     while n < args.test_samples:
         seen = n
         for batch in loader:
-            out = eval_step(batch, next(seeds))
+            out = eval_step(distributed.local_batch_slice(batch),
+                            next(seeds))
             if hook is not None:
                 hook('eval', None, {k: v.clone() for k, v in out.items()})
             correct += out['correct']
-            n += float(batch.y_mask.sum())
+            # Several ranks: the step's count is the world's.
+            n += float(batch.y_mask.sum() if nproc == 1 else out['count'])
             if n >= args.test_samples:
                 break
         if n == seen:
@@ -210,7 +245,18 @@ def main(argv=None, hook=None):
         raise SystemExit(supervise_cli(
             'dgmc_tpu_torch.experiments.pascal', args, argv,
             ladder=('f32',)))
-    device = resolve_device(args.device)
+    # The process group first (a no-op for one process): the device is
+    # the rank's card.
+    nproc, device = distributed.from_args(args)
+    try:
+        return _main(args, nproc, device, hook)
+    finally:
+        if nproc > 1:
+            distributed.shutdown()
+
+
+def _main(args, nproc, device, hook):
+    say = print if distributed.is_coordinator() else (lambda *a, **k: None)
     precision.apply(precision.from_args(args))
     from dgmc_tpu_torch.datasets import PascalVOCKeypoints, VGG16Features
     from dgmc_tpu_torch.datasets.pascal_voc import CATEGORIES
@@ -233,7 +279,7 @@ def main(argv=None, hook=None):
                                           seed=args.seed + 1))
     num_nodes, num_edges = graph_limits([s.dataset_s for s in train_sets] +
                                         [s.dataset_s for s in test_sets])
-    print(f'# data: {sum(len(s) for s in train_sets)} train / '
+    say(f'# data: {sum(len(s) for s in train_sets)} train / '
           f'{sum(len(s.dataset_s) for s in test_sets)} test instances in '
           f'{time.perf_counter() - t0:.2f}s (features '
           f'{features.seconds:.2f}s in {features.calls} extractions on '
@@ -246,25 +292,40 @@ def main(argv=None, hook=None):
 
     model = build_model(args, in_dim).to(device)
     state = create_train_state(model, learning_rate=args.lr)
-    step = make_train_step(model, loss_on_s0=True)
-    eval_step = make_eval_step(model)
+    if nproc > 1:
+        # Data parallelism over every rank: each feeds its slice.
+        from dgmc_tpu_torch.parallel import (make_mesh,
+                                             make_sharded_eval_step,
+                                             make_sharded_train_step,
+                                             replicate)
+        mesh = make_mesh(data=nproc, device=device)
+        step = make_sharded_train_step(model, mesh, loss_on_s0=True)
+        eval_step = make_sharded_eval_step(model, mesh)
+        replicate(state, mesh, model)
+    else:
+        step = make_train_step(model, loss_on_s0=True)
+        eval_step = make_eval_step(model)
     report = GraphReport(train_step=step, eval_step=eval_step)
-    batches = PrefetchLoader(HostBatches(train_loader, device), 2)
+    batches = PrefetchLoader(HostBatches(LocalSlices(train_loader), device),
+                             2)
 
-    with MetricLogger(args.metrics_log) as logger:
+    with MetricLogger(args.metrics_log if distributed.is_coordinator()
+                      else None) as logger:
         ckpt, state, start_epoch = resume_or_init(args.ckpt_dir, state,
                                                   model)
         # The cost count's example batch, collated before the observer
         # and without moving the loader's streams.
         batch0 = train_loader.first_batch() if args.obs_dir else None
-        obs = RunObserver(args.obs_dir, probes=args.probes,
+        obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
+                          probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
                           obs_port=args.obs_port)
         with obs:
             # The per-stage FLOPs and bytes and the MFU account in
             # <obs-dir>/efficiency.json (obs/cost.py), before the capture.
             if batch0 is not None:
-                obs.record_cost('train_step', step, state, batch0,
+                obs.record_cost('train_step', step, state,
+                                distributed.local_batch_slice(batch0),
                                 noise_seed(args.seed, 0, start_epoch, 0))
             state = _train(args, start_epoch, state, model, step, eval_step,
                            report, batches, train_loader, test_sets,
@@ -279,6 +340,7 @@ def _train(args, start_epoch, state, model, step, eval_step, report,
     """The epochs from ``start_epoch``: training, the sampled evaluation,
     the printed lines, the JSONL and observer records, the checkpoints."""
     from dgmc_tpu_torch.datasets.pascal_voc import CATEGORIES
+    say = print if distributed.is_coordinator() else (lambda *a, **k: None)
     obs.attach_anomaly()
     obs.attach_slo(args.slo)
     prof = obs.attach_profiler(
@@ -304,7 +366,7 @@ def _train(args, start_epoch, state, model, step, eval_step, report,
         # The device's completion fence (the read below waits anyway).
         obs.fence_devices(total)
         loss = float(total) / len(train_loader)
-        print(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, '
+        say(f'Epoch: {epoch:02d}, Loss: {loss:.4f}, '
               f'{time.perf_counter() - t0:.1f}s (waited {sum(waits):.1f}s '
               f'for {len(waits)} batches)', flush=True)
         report()
@@ -315,8 +377,8 @@ def _train(args, start_epoch, state, model, step, eval_step, report,
                                   num_edges, device, seeds, hook)
                 for ds in test_sets]
         accs.append(sum(accs) / len(accs))
-        print(' '.join(c[:5].ljust(5) for c in CATEGORIES) + ' mean')
-        print(' '.join(f'{a:.1f}'.ljust(5) for a in accs), flush=True)
+        say(' '.join(c[:5].ljust(5) for c in CATEGORIES) + ' mean')
+        say(' '.join(f'{a:.1f}'.ljust(5) for a in accs), flush=True)
         report()
         logger.log(epoch, loss=loss, mean_acc=accs[-1])
         obs.log(epoch, loss=loss, mean_acc=accs[-1],

@@ -62,6 +62,7 @@ from dgmc_tpu_torch.models.spline import SplineCNN
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.parallel import distributed
 from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
                                                   supervise_cli)
 from dgmc_tpu_torch.train.state import create_train_state
@@ -184,7 +185,9 @@ def main(argv=None, hook=None):
     # collation is not the run's) and without moving the loader's streams.
     batch0 = train_loader.first_batch() if args.obs_dir else None
     # Before the first step is captured (the probe switch is read then).
-    obs = RunObserver(args.obs_dir, probes=args.probes,
+    # This rank's directory (host_<rank> with several ranks).
+    obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
+                      probes=args.probes,
                       watchdog_deadline_s=args.watchdog_deadline,
                       obs_port=args.obs_port)
     with MetricLogger(args.metrics_log) as logger, obs:

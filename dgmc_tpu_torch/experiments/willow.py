@@ -57,6 +57,7 @@ from dgmc_tpu_torch.models.evalsum import eval_summary
 from dgmc_tpu_torch.obs.observe import MetricLogger, trace
 from dgmc_tpu_torch.obs.run import RunObserver, add_obs_flag
 from dgmc_tpu_torch.obs.trace import add_profile_flag, start_profile
+from dgmc_tpu_torch.parallel import distributed
 from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
                                                   supervise_cli)
 from dgmc_tpu_torch.train.checkpoint import Checkpointer
@@ -273,7 +274,9 @@ def main(argv=None, hook=None):
     # without moving the loader's streams.
     batch0 = pretrain_loader.first_batch() if args.obs_dir else None
     # Before the first step is captured (the probe switch is read then).
-    obs = RunObserver(args.obs_dir, probes=args.probes,
+    # This rank's directory (host_<rank> with several ranks).
+    obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
+                      probes=args.probes,
                       watchdog_deadline_s=args.watchdog_deadline,
                       obs_port=args.obs_port)
     # One --profile trace an invocation: see the module docstring.

@@ -66,7 +66,23 @@ same stream, so the CPU and CUDA paths of one call see the same draws,
 and a batch of pairs draws what the same pairs would draw one at a time.
 Tests inject JAX's own draws through ``r_s`` and ``negatives``. Dropout
 masks come from the ``generator`` passed to the forward, on the model's
-device.
+device (under data parallelism a
+:class:`~dgmc_tpu_torch.models.rel.BatchBlock`: the whole batch's masks,
+cut to the rank's slice).
+
+Row sharding (:meth:`DGMC.with_layout`, which
+:meth:`~dgmc_tpu_torch.parallel.rules.PartitionRules.apply_to_model`
+calls): where the model carries a correspondence layout whose rows lie
+over a mesh axis, each rank owns the rows ``[lo, hi)`` of ``S`` (the
+source rows padded up to equal blocks, the padding masked). Replicated on
+every rank from the same seeds, so that the draws equal one process's:
+ψ₁ and its dropout, the indicator noise, the negatives (drawn whole, then
+cut to the rows) and ψ₂ on the whole graphs. Row-local: the candidate
+search (:func:`~dgmc_tpu_torch.parallel.topk.corr_sharded_topk`, rows or
+the target ring), ``include_gt``, ``S_hat``, the softmaxes and the
+consensus deltas. Each step's ``r_t`` is summed over the row group by a
+differentiable all-reduce (its backward sums the gradient). The outputs
+are the rank's rows.
 
 Observability, at the JAX package's places: the stages run under
 ``torch.profiler.record_function`` ranges named as JAX's scopes
@@ -79,6 +95,7 @@ and ``S_L``, and each iteration's ``consensus_delta`` and entropy. With
 probes off none of it runs.
 """
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -183,6 +200,48 @@ def draw_negatives(n_valid, N_s, num_rnd, seed=0, pair_offset=0):
     return cols.view(n_valid.shape[0], N_s, num_rnd)
 
 
+class RowLayout:
+    """A model's row block under a correspondence sharding: the rows'
+    mesh axis (``sharding.spec[1]``), its process group and this rank's
+    block of it. The batch axis is the step's (each rank already holds its
+    pairs)."""
+
+    def __init__(self, sharding):
+        from dgmc_tpu_torch.parallel.mesh import NamedSharding
+        mesh, axis = sharding.mesh, sharding.axis(1)
+        self.sharding = NamedSharding(mesh, (None, axis))
+        self.parts = mesh.axis_size(axis)
+        self.index = mesh.axis_index(axis)
+        self.group = mesh.group(axis)
+
+    def bounds(self, num_rows):
+        from dgmc_tpu_torch.parallel.topk import row_block
+        return row_block(num_rows, self.parts, self.index)
+
+    def take(self, x, dim=1):
+        """This rank's rows of ``x`` along ``dim`` (padded with zeros up to
+        equal blocks)."""
+        lo, hi, padded = self.bounds(x.shape[dim])
+        if padded == x.shape[dim] and (lo, hi) == (0, padded):
+            return x
+        if padded != x.shape[dim]:
+            shape = list(x.shape)
+            shape[dim] = padded - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+        return x.narrow(dim, lo, hi - lo)
+
+    def sum(self, x):
+        """``x`` summed over the row group, differentiably."""
+        from dgmc_tpu_torch.parallel.comm import all_reduce_sum
+        return all_reduce_sum(x, self.group)
+
+    def topk(self, h_s, h_t, k, t_mask, block, chunk, ring):
+        """This rank's rows of the shortlist, from the whole ``h_s``."""
+        from dgmc_tpu_torch.parallel.topk import corr_sharded_topk
+        return corr_sharded_topk(self.sharding, h_s, h_t, k, t_mask,
+                                 block=block, chunk=chunk, ring=ring)
+
+
 def include_gt(S_idx, y_col, y_mask, return_replaced=False):
     """Overwrite the last candidate slot with the ground-truth column in
     every valid row whose ground truth is not already a candidate.
@@ -256,6 +315,9 @@ class DGMC(nn.Module):
         self.stream_chunk = None if stream_chunk is None else int(
             stream_chunk)
         self.dtype = compute_dtype_of(dtype)
+        self.corr_sharding = self.topk_sharding = self.psi2_sharding = None
+        self.ring_targets = False
+        self._layout = None
         R = psi_2.out_channels
         # Explicit consensus-MLP parameters, in the JAX package's layout
         # ([in, out] kernels).
@@ -264,6 +326,45 @@ class DGMC(nn.Module):
         self.mlp_out_kernel = nn.Parameter(torch.empty(R, 1))
         self.mlp_out_bias = nn.Parameter(torch.zeros(1))
         self.reset_parameters(generator)
+
+    def with_layout(self, corr_sharding=None, topk_sharding=None,
+                    psi2_sharding=None, psi1_sharding=None,
+                    corpus_sharding=None, stream_chunk=None,
+                    ring_targets=False, topk_block=None):
+        """A shallow copy of the model (the same parameters, buffers and
+        backbones) with JAX's layout fields: ``corr_sharding`` /
+        ``topk_sharding`` / ``psi2_sharding``
+        (:class:`~dgmc_tpu_torch.parallel.mesh.NamedSharding` of
+        ``[B, N_s, ...]`` arrays; their rows' axis is the row layout, the
+        same for the three), ``stream_chunk``, ``ring_targets`` (the search's
+        target ring) and ``topk_block``. ``psi1_sharding`` /
+        ``corpus_sharding`` (JAX's opt-in ψ₁ tables) are refused: ψ₁ runs
+        whole on every rank."""
+        if psi1_sharding is not None or corpus_sharding is not None:
+            raise ValueError('psi1_sharding / corpus_sharding shard ψ₁\'s '
+                             'tables; the port runs ψ₁ whole on every rank')
+        axes = {s.axis(1) for s in (corr_sharding, topk_sharding,
+                                    psi2_sharding) if s is not None}
+        if len(axes) > 1:
+            raise ValueError(f'corr / topk / psi2 shardings must put the '
+                             f'rows on one axis; got {sorted(map(str, axes))}')
+        out = copy.copy(self)
+        out.corr_sharding = corr_sharding
+        out.topk_sharding = topk_sharding
+        out.psi2_sharding = psi2_sharding
+        out.stream_chunk = None if stream_chunk is None else int(
+            stream_chunk)
+        out.ring_targets = bool(ring_targets)
+        if topk_block is not None:
+            out.topk_block = int(topk_block)
+        rows = next((s for s in (corr_sharding, topk_sharding, psi2_sharding)
+                     if s is not None and s.axis(1) is not None), None)
+        out._layout = None if rows is None else RowLayout(rows)
+        return out
+
+    def row_layout(self):
+        """The model's :class:`RowLayout`, or ``None`` (every row)."""
+        return self._layout
 
     def reset_parameters(self, generator=None):
         """Flax-default init (lecun-normal kernels, zero biases) drawn from
@@ -444,7 +545,11 @@ class DGMC(nn.Module):
             _probes.check_finite('psi1', h_s, h_t, order=0)
         h_s, h_t = self._cast(h_s), self._cast(h_t)
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
-        B, N_s = s_mask.shape
+        N_src = s_mask.shape[1]
+        lay = self.row_layout()
+        if lay is not None:
+            h_s, s_mask = lay.take(h_s), lay.take(s_mask)
+        B = s_mask.shape[0]
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
         with stage('initial_corr'):
             # float32 logits of compute-dtype embeddings (exact products).
@@ -455,18 +560,23 @@ class DGMC(nn.Module):
             _probes.check_finite('initial_corr', S_hat, order=1)
             _probe_corr_stage(S_0, s_mask, 'S0')
         if num_steps > 0:
-            r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
+            r_s = self._noise(r_s, num_steps, B, N_src, noise_seed,
                               pair_offset, h_s.device)
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._delta_fn()
             for step in range(num_steps):
                 with stage('consensus_iter'):
                     S = masked_softmax(S_hat, S_mask)
-                    r_t = S.transpose(1, 2) @ r_s[step].to(S.dtype)
+                    r_rows = r_s[step] if lay is None else lay.take(r_s[step])
+                    r_t = S.transpose(1, 2) @ r_rows.to(S.dtype)
+                    if lay is not None:
+                        r_t = lay.sum(r_t)
                     o_s, o_t = self._step_psi2(r_s[step], r_t, o_s_all,
                                                step, graph_s, graph_t,
                                                pair if merge_2 else None,
                                                generator)
+                    if lay is not None:
+                        o_s = lay.take(o_s)
                     delta = delta_fn(o_s, o_t, *self._mlp(o_s.dtype))
                     S_hat = S_hat + torch.where(S_mask, delta, 0.0)
                 if probe:
@@ -570,6 +680,14 @@ class DGMC(nn.Module):
             h_t_cand = h_t_cand.detach()
 
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
+        N_src = s_mask.shape[1]
+        h_s_all, lay = h_s, self.row_layout()
+        if lay is not None:
+            # This rank's rows of every [B, N_s, ...] input.
+            h_s, s_mask = lay.take(h_s), lay.take(s_mask)
+            y, y_mask, S_idx, h_t_cand = (
+                None if v is None else lay.take(v)
+                for v in (y, y_mask, S_idx, h_t_cand))
         (B, N_s), N_t = s_mask.shape, t_mask.shape[1]
         dev = h_s.device
         if S_idx is None:
@@ -577,7 +695,11 @@ class DGMC(nn.Module):
                 raise ValueError('the candidate search needs the full h_t '
                                  'table (or a precomputed S_idx)')
             with stage('topk'):
-                if self.stream_chunk is not None:
+                if lay is not None:
+                    S_idx = lay.topk(h_s_all, h_t, self.k, t_mask,
+                                     self.topk_block, self.stream_chunk,
+                                     self.ring_targets)
+                elif self.stream_chunk is not None:
                     S_idx = streamed_topk(h_s, h_t, self.k,
                                           self.stream_chunk, t_mask=t_mask,
                                           block=self.topk_block)
@@ -607,14 +729,17 @@ class DGMC(nn.Module):
             num_rnd = min(self.k, N_t - self.k)
             if num_rnd > 0:
                 if negatives is None:
-                    negatives = draw_negatives(n_valid_t, N_s, num_rnd,
+                    # Drawn whole (the one-process draws), then cut.
+                    negatives = draw_negatives(n_valid_t, N_src, num_rnd,
                                                noise_seed, pair_offset)
-                elif tuple(negatives.shape) != (B, N_s, num_rnd):
+                elif tuple(negatives.shape) != (B, N_src, num_rnd):
                     raise ValueError(f'negatives must be [B, N_s, num_rnd] '
-                                     f'= {(B, N_s, num_rnd)}; got '
+                                     f'= {(B, N_src, num_rnd)}; got '
                                      f'{tuple(negatives.shape)}')
                 elif bool(((negatives < 0) | (negatives >= N_t)).any()):
                     raise ValueError(f'negatives outside [0, {N_t})')
+                if lay is not None:
+                    negatives = lay.take(negatives)
                 S_idx = torch.cat([S_idx, negatives.to(dev).long()], dim=-1)
                 entry_mask = torch.cat(
                     [entry_mask, (n_valid_t > 0)[:, None, None].expand(
@@ -648,24 +773,29 @@ class DGMC(nn.Module):
             _probe_corr_stage(S_0, s_mask, 'S0')
 
         if num_steps > 0:
-            r_s = self._noise(r_s, num_steps, B, N_s, noise_seed,
+            r_s = self._noise(r_s, num_steps, B, N_src, noise_seed,
                               pair_offset, dev)
             o_s_all = self._packed_source(r_s, graph_s, generator)
             delta_fn = self._sparse_delta_fn(narrow=shortlist is None)
             for step in range(num_steps):
                 with stage('consensus_iter'):
                     S = masked_softmax(S_hat, entry_mask) * row_mask
+                    r_rows = r_s[step] if lay is None else lay.take(r_s[step])
                     # float32: S is; the noise is widened exactly.
                     if shortlist is None:
-                        r_t = sparse_project(S, r_s[step], S_idx, route)
+                        r_t = sparse_project(S, r_rows, S_idx, route)
                     else:
                         r_t = shortlist.scatter(
                             S[..., None]
-                            * r_s[step].to(S.dtype)[:, :, None, :])
+                            * r_rows.to(S.dtype)[:, :, None, :])
+                    if lay is not None:
+                        r_t = lay.sum(r_t)
                     o_s, o_t = self._step_psi2(r_s[step], r_t, o_s_all,
                                                step, graph_s, graph_t,
                                                pair if merge_2 else None,
                                                generator)
+                    if lay is not None:
+                        o_s = lay.take(o_s)
                     o_t = o_t.to(o_s.dtype)
                     if shortlist is None:
                         delta = delta_fn(o_s, cand_rows(o_t),

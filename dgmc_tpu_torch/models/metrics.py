@@ -12,7 +12,7 @@ import torch
 
 from dgmc_tpu_torch.ops.topk import stable_topk
 
-__all__ = ['EPS', 'nll_loss', 'acc', 'hits_at_k']
+__all__ = ['EPS', 'nll_loss', 'nll_terms', 'acc', 'hits_at_k']
 
 EPS = 1e-8
 
@@ -34,6 +34,15 @@ def _gt_val(S, y):
     return val, torch.ones(y.shape, dtype=torch.bool, device=y.device)
 
 
+def _nll(S, y, y_mask):
+    """The masked NLL ``[B, N_s]`` and its mask (valid rows whose ground
+    truth is a candidate)."""
+    y, y_mask = _prep(y, y_mask)
+    val, found = _gt_val(S, y)
+    m = y_mask & found
+    return -torch.log(val + EPS) * m, m
+
+
 def nll_loss(S, y, y_mask=None, reduction='mean'):
     """Negative log-likelihood of the ground-truth correspondences.
 
@@ -41,10 +50,7 @@ def nll_loss(S, y, y_mask=None, reduction='mean'):
     batch), ``'sum'``, ``'none'`` (``[B, N_s]``) or ``'per_pair'`` (a
     ``[B]`` masked mean per pair).
     """
-    y, y_mask = _prep(y, y_mask)
-    val, found = _gt_val(S, y)
-    m = y_mask & found
-    nll = -torch.log(val + EPS) * m
+    nll, m = _nll(S, y, y_mask)
     if reduction == 'none':
         return nll
     if reduction == 'per_pair':
@@ -54,6 +60,18 @@ def nll_loss(S, y, y_mask=None, reduction='mean'):
     if reduction == 'sum':
         return total
     return total / m.sum().clamp(min=1)
+
+
+def nll_terms(S, y, y_mask=None, per_pair=False):
+    """``(sum, count)`` of the NLL over the valid correspondences whose
+    ground truth is a candidate (scalars, or ``[B]`` with ``per_pair``):
+    the parts of :func:`nll_loss`'s mean that a row-sharded step sums over
+    its ranks."""
+    nll, m = _nll(S, y, y_mask)
+    if per_pair:
+        axes = tuple(range(1, nll.dim()))
+        return nll.sum(axes), m.sum(axes)
+    return nll.sum(), m.sum()
 
 
 def _dense_scores(S):

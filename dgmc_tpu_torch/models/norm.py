@@ -20,12 +20,45 @@ Conventions (those of the JAX package, not of ``nn.BatchNorm1d``):
 The running averages are buffers (``mean`` zeros, ``var`` ones at
 start), updated in place in training mode: a captured CUDA graph reads
 and writes their storage, so they are never rebound.
+
+Under data parallelism the module's ``stats_group`` (a process group,
+set on every batch norm of a model by :func:`sync_batch_stats`, which
+the sharded steps of :mod:`~dgmc_tpu_torch.parallel.sharding` call on
+their model, as ``nn.SyncBatchNorm.convert_sync_batchnorm`` gives a
+model its group) makes the masked sums, sums of squares and counts sums
+over that group, differentiably, so the statistics and running averages
+are those of the global batch on every rank, as GSPMD makes them in the
+JAX package. Without a group (``None``, the default) they are this
+rank's batch's.
 """
 
 import torch
 from torch import nn
 
-__all__ = ['MaskedBatchNorm']
+__all__ = ['MaskedBatchNorm', 'sync_batch_stats']
+
+
+def sync_batch_stats(module, group):
+    """Set ``group`` (a process group; ``None``: each rank's batch alone)
+    as the statistics' group of every :class:`MaskedBatchNorm` in
+    ``module``; returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.stats_group = group
+    return module
+
+
+def _global_stats(xf, w, group):
+    """``(mean, var, n)`` of the rows ``xf [M, C]`` weighted by ``w [M, 1]``
+    (``None``: every row) over ``group``'s ranks: the same two passes as
+    one rank's, each sum all-reduced."""
+    from dgmc_tpu_torch.parallel.comm import all_reduce_, all_reduce_sum
+    if w is None:
+        w = xf.new_ones((xf.shape[0], 1))
+    n = all_reduce_(w.sum().detach().clone(), group).clamp(min=1.0)
+    mean = all_reduce_sum((xf * w).sum(dim=0), group) / n
+    var = all_reduce_sum((((xf - mean) ** 2) * w).sum(dim=0), group) / n
+    return mean, var, n
 
 
 class MaskedBatchNorm(nn.Module):
@@ -41,6 +74,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('mean', torch.zeros(num_features))
         self.register_buffer('var', torch.ones(num_features))
+        self.stats_group = None
 
     def reset_parameters(self, generator=None):
         """Flax's initial state: ``scale`` ones, ``bias`` zeros, running
@@ -58,7 +92,12 @@ class MaskedBatchNorm(nn.Module):
         else:
             acc = torch.promote_types(x.dtype, torch.float32)
             xf = x.to(acc).reshape(-1, C)
-            if mask is None:
+            if self.stats_group is not None:
+                mean, var, n = _global_stats(
+                    xf, None if mask is None else mask.to(acc).reshape(-1, 1),
+                    self.stats_group)
+                bessel = n / (n - 1.0).clamp(min=1.0)
+            elif mask is None:
                 n = float(xf.shape[0])
                 mean = xf.mean(dim=0)
                 var = ((xf - mean) ** 2).mean(dim=0)

@@ -29,6 +29,7 @@ messages' dtype before they are summed.
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -39,8 +40,8 @@ from dgmc_tpu_torch.models.precision import compute_dtype_of
 from dgmc_tpu_torch.ops.blocked import adj_matmul
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
-__all__ = ['RelConv', 'RelCNN', 'dense', 'dropout', 'init_linear_',
-           'lecun_normal_']
+__all__ = ['RelConv', 'RelCNN', 'BatchBlock', 'dense', 'dropout',
+           'init_linear_', 'lecun_normal_']
 
 # Standard deviation of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
@@ -71,19 +72,35 @@ def dense(lin, x, dtype=None):
     return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
+class BatchBlock(NamedTuple):
+    """Dropout's source for block ``index`` of a batch split into ``parts``
+    equal blocks over ranks (data parallelism): the masks are drawn from
+    ``generator`` for the whole batch and the block's kept, so the pairs
+    of a rank's slice draw the masks they draw in one process."""
+    generator: torch.Generator
+    parts: int
+    index: int
+
+
 def dropout(h, p, generator):
     """Flax's ``Dropout``: keep each entry with probability ``1 - p`` and
     scale the kept ones by ``1 / (1 - p)`` in ``h``'s dtype; the mask is
     drawn from ``generator``, which lives on ``h``'s device, as float32
     uniforms under every precision policy (flax draws its Bernoulli mask
-    so; a bf16 uniform would quantize the keep probability)."""
+    so; a bf16 uniform would quantize the keep probability). A
+    :class:`BatchBlock` draws the whole batch's mask (``h``'s leading
+    axis is the rank's block of the batch) and keeps this block's."""
     if generator is None:
         raise ValueError('training-mode dropout draws its masks from an '
                          'explicit generator; pass generator=')
     if p >= 1.0:
         return torch.zeros_like(h)
-    keep = torch.rand(h.shape, generator=generator, device=h.device,
-                      dtype=torch.float32) >= p
+    gen, parts, index = (generator if isinstance(generator, BatchBlock)
+                         else (generator, 1, 0))
+    B = h.shape[0]
+    u = torch.rand((parts * B,) + tuple(h.shape[1:]), generator=gen,
+                   device=h.device, dtype=torch.float32)
+    keep = u[index * B:(index + 1) * B] >= p
     return torch.where(keep, h / (1.0 - p), 0.0)
 
 

@@ -45,8 +45,11 @@ _local = threading.local()   # .quiet: depth of quiet() on this thread
 _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
                   #                 'dtypes'}
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
-#: The two paths of each kind of gate.
-_PATHS = (('kernel', 'plain'), ('native', 'numpy'))
+#: The two paths of each kind of gate: a kernel's, the host's collation,
+#: a collective's route (:mod:`~dgmc_tpu_torch.parallel.comm`) and a
+#: sharded step's (:mod:`~dgmc_tpu_torch.parallel.sharding`).
+_PATHS = (('kernel', 'plain'), ('native', 'numpy'), ('device', 'host'),
+          ('captured', 'eager'))
 #: The active work counter (``obs.cost.WorkCounter``), or None.
 counter = None
 #: Kernel entry name -> its work function (:func:`counted`).

@@ -46,6 +46,12 @@ Saves are asynchronous by default, as orbax's are in the JAX package
 
 ``wait=True`` returns once the step is committed and manifested.
 
+Across ranks (a process group of more than one,
+:mod:`~dgmc_tpu_torch.parallel.distributed`) the coordinator rule holds:
+rank 0 writes each step, waiting for its write, while the other ranks
+wait at a barrier until it is committed; a restore starts at a barrier
+and every rank reads the same file (the directory is shared).
+
 A restore writes in place, through the train state's one writer
 (:func:`~dgmc_tpu_torch.train.state.write_state`): the parameters,
 buffers, Adam's moments and step counts keep their storage (Adam's
@@ -65,6 +71,7 @@ import time
 
 import torch
 
+from dgmc_tpu_torch.parallel import distributed
 from dgmc_tpu_torch.train.state import GuardedTrainState, write_state
 from dgmc_tpu_torch.utils.io import sha256_file, write_json_atomic
 
@@ -411,6 +418,16 @@ class Checkpointer:
         background unless ``wait`` (see the module docstring). Returns
         the step directory."""
         t0 = time.perf_counter()
+        if distributed.process_count() > 1:
+            # The coordinator writes, the others wait until it is
+            # committed.
+            if distributed.is_coordinator():
+                self._save(step, model, state, True, t0)
+            distributed.barrier()
+            return self._step_dir(step)
+        return self._save(step, model, state, wait, t0)
+
+    def _save(self, step, model, state, wait, t0):
         self.wait_until_finished()
         payload, done = _payload(step, model, state)
         if self._pool is None:
@@ -470,6 +487,7 @@ class Checkpointer:
         counters at 0; a guarded one into a plain state drops its
         counters (:attr:`restored_toggle` says which)."""
         t0 = time.perf_counter()
+        distributed.barrier()
         self.wait_until_finished()
         _await_writes(self.directory)
         steps = self.all_steps()
@@ -527,7 +545,7 @@ class Checkpointer:
             f'fresh, or repair or replace a step directory and retry.')
 
 
-def resume_or_init(ckpt_dir, state, model):
+def resume_or_init(ckpt_dir, state, model, mesh=None, rules=None):
     """A run's resume: open a :class:`Checkpointer` under ``ckpt_dir``
     (``None``: no checkpoints) and restore the newest restorable step
     into ``model`` and ``state`` in place, if there is one.
@@ -540,10 +558,21 @@ def resume_or_init(ckpt_dir, state, model):
     corruption: a plain checkpoint restores into a guarded state with its
     counters at 0, and a guarded one into a plain state with its skip
     ledger dropped; each says so on standard error. Run it before the
-    first capture (the restore writes in place either way)."""
+    first capture (the restore writes in place either way).
+
+    ``mesh`` (JAX's argument): every rank of the mesh restores the same
+    step, and the state is then replicated from the mesh's first rank
+    (:func:`~dgmc_tpu_torch.parallel.sharding.replicate`). ``rules`` (a
+    :class:`~dgmc_tpu_torch.parallel.rules.PartitionRules`) are checked
+    against the state first: the port's train state is replicated, so a
+    rule that shards a leaf of it raises
+    (:meth:`~dgmc_tpu_torch.parallel.rules.PartitionRules.check_state`)."""
+    if rules is not None:
+        rules.check_state(state, model)
     if not ckpt_dir:
         return None, state, 1
     ckpt = Checkpointer(ckpt_dir)
+    distributed.barrier()
     steps = ckpt.all_steps()
     if not steps:
         return ckpt, state, 1
@@ -559,5 +588,9 @@ def resume_or_init(ckpt_dir, state, model):
               f'(--guard-bad-steps toggled between runs)', file=sys.stderr)
     note = '' if step == steps[-1] else \
         f' (latest step {steps[-1]} was unrestorable)'
-    print(f'Resumed from {ckpt.directory} at epoch {step}.{note}')
+    if distributed.is_coordinator():
+        print(f'Resumed from {ckpt.directory} at epoch {step}.{note}')
+    if mesh is not None:
+        from dgmc_tpu_torch.parallel.sharding import replicate
+        replicate(state, mesh, model)
     return ckpt, state, step + 1

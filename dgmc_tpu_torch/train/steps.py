@@ -179,19 +179,34 @@ def dropout_generator(noise_seed, device):
 
 
 def loss_and_outputs(model, batch, loss_on_s0=False, noise_seed=0,
-                     r_s=None, **kw):
+                     r_s=None, comm=None, **kw):
     """``(loss, S_0, S_L, y, y_mask)`` of one forward in the model's
     current mode, with the graph on the model's device; ``kw`` goes to the
     model (``num_steps``, ``detach``, ``pair_offset``, ``negatives``,
-    ``generator``)."""
+    ``generator``). With ``comm`` (a sharded step's
+    :class:`~dgmc_tpu_torch.parallel.sharding.StepComm`) ``y`` and
+    ``y_mask`` are this rank's rows, the loss its part of the mesh's
+    mean, and the dropout masks the whole batch's cut to the rank's
+    slice (:meth:`~dgmc_tpu_torch.parallel.sharding.StepComm.draws`)."""
     g_s, g_t, y, y_mask = batch_to_device(batch, _device_of(model))
+    if comm is not None and 'generator' in kw:
+        kw['generator'] = comm.draws(kw['generator'])
     S_0, S_L = model(g_s, g_t, y=y, y_mask=y_mask, noise_seed=noise_seed,
                      r_s=r_s, **kw)
+    if comm is not None:
+        y, y_mask = comm.local(y), comm.local(y_mask)
+    nll = metrics.nll_loss if comm is None else comm.nll
     with stage('loss'):
-        loss = metrics.nll_loss(S_L, y, y_mask)
+        loss = nll(S_L, y, y_mask)
         if loss_on_s0:
-            loss = loss + metrics.nll_loss(S_0, y, y_mask)
+            loss = loss + nll(S_0, y, y_mask)
     return loss, S_0, S_L, y, y_mask
+
+
+def _offset(comm, batch):
+    """This rank's first pair in the batch's per-pair random streams (0
+    but under data parallelism)."""
+    return 0 if comm is None else comm.pair_offset(batch)
 
 
 def _hits(out, hits_ks, S_L, y, y_mask, reduction):
@@ -273,7 +288,7 @@ def _grads_finite(state, loss):
 
 def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
                     pair_offset=0, hits_ks=(), jit=True, guard=False,
-                    fault_nan_step=None):
+                    fault_nan_step=None, comm=None):
     """Build ``step(state, batch, noise_seed, r_s=None, negatives=None)``
     for ``model``, whose parameters ``state``'s optimizer updates. The
     metrics are ``loss`` (the scalar trained on), ``loss_per_pair``
@@ -286,7 +301,9 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     ``step.jit.compiled.records`` holds the records built so far.
     ``guard`` and ``fault_nan_step``: see the module docstring (with
     ``guard`` the metrics also carry ``bad_step``, ``skip_count`` and
-    ``consec_bad``)."""
+    ``consec_bad``). ``comm`` is the sharded builders' (:mod:`~dgmc_tpu_torch.
+    parallel.sharding`): the loss is this rank's part, the gradients are
+    summed over the mesh before the update, the metrics are the mesh's."""
 
     def body(state, batch, noise_seed, r_s, negatives, step_no, generator):
         with probes.recording() as recorder:
@@ -303,11 +320,16 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
         # Saved before the forward: batch norm's buffers move in it.
         kept = save_in_place(state, model) if guard else None
         loss, _, S_L, y, y_mask = loss_and_outputs(
-            model, batch, loss_on_s0, noise_seed, r_s, num_steps=num_steps,
-            detach=detach, pair_offset=pair_offset, negatives=negatives,
-            generator=generator)
+            model, batch, loss_on_s0, noise_seed, r_s, comm=comm,
+            num_steps=num_steps, detach=detach,
+            pair_offset=pair_offset + _offset(comm, batch),
+            negatives=negatives, generator=generator)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if comm is not None:
+            comm.grads(state)
+        # The loss trained on (the mesh's, for a sharded step).
+        loss_sum = loss.detach() if comm is None else comm.total(loss)
         if guard or fault_nan_step is not None:
             # A parameter this phase leaves without a gradient takes a
             # zero one now, as optax's global norm sees it.
@@ -323,9 +345,9 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
                  for p in g['params'] if p.grad is not None])
             probes.emit('grad_norm', gnorm)
             # The loss precedes the gradient in the pipeline.
-            probes.check_finite('loss', loss.detach(), order=1000)
+            probes.check_finite('loss', loss_sum, order=1000)
             probes.check_finite('grad', gnorm, order=1001)
-        good = _grads_finite(state, loss.detach()) if guard else None
+        good = _grads_finite(state, loss_sum) if guard else None
         with stage('optimizer'):
             optimizer_update(state)
         if guard:
@@ -333,7 +355,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
             kept(lambda tensor, saved: torch.where(good, tensor, saved))
             _count_bad(state, good)
         with torch.no_grad():
-            out = _metrics(loss, S_L, y, y_mask, hits_ks)
+            out = _metrics(loss_sum, S_L, y, y_mask, hits_ks, comm)
             if guard:
                 out.update(bad_step=~good,
                            skip_count=state.skip_count.clone(),
@@ -354,7 +376,7 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
         return _cost_pass(model, state, batch, noise_seed, r_s, negatives,
                           {'num_steps': num_steps, 'detach': detach,
                            'pair_offset': pair_offset}, loss_on_s0,
-                          hits_ks)
+                          hits_ks, comm)
 
     if not jit:
         def train_step(state, batch, noise_seed, r_s=None, negatives=None):
@@ -395,10 +417,12 @@ def make_train_step(model, loss_on_s0=False, num_steps=None, detach=False,
     return train_step
 
 
-def _metrics(loss, S_L, y, y_mask, hits_ks):
+def _metrics(loss, S_L, y, y_mask, hits_ks, comm=None):
     """A train step's metrics, under the ``metrics`` range (JAX's scope,
-    counted as ``other``)."""
+    counted as ``other``); a sharded step's over its mesh."""
     with stage('metrics'):
+        if comm is not None:
+            return comm.metrics(loss, S_L, y, y_mask, hits_ks)
         out = {'loss': loss.detach(),
                'loss_per_pair': metrics.nll_loss(S_L, y, y_mask,
                                                  reduction='per_pair'),
@@ -407,7 +431,7 @@ def _metrics(loss, S_L, y, y_mask, hits_ks):
 
 
 def _cost_pass(model, state, batch, noise_seed, r_s, negatives, kw,
-               loss_on_s0, hits_ks):
+               loss_on_s0, hits_ks, comm=None):
     """The forward, loss, ``torch.autograd.grad`` and metrics of one step
     for the work counter (:func:`~dgmc_tpu_torch.obs.cost.cost_summary`),
     leaving the run as it was: no update, no ``.grad`` written, the
@@ -427,14 +451,14 @@ def _cost_pass(model, state, batch, noise_seed, r_s, negatives, kw,
         with dispatch.quiet(), probes.recording(), torch.enable_grad():
             model.train()
             loss, _, S_L, y, y_mask = loss_and_outputs(
-                model, batch, loss_on_s0, noise_seed, r_s,
+                model, batch, loss_on_s0, noise_seed, r_s, comm=comm,
                 negatives=negatives,
                 generator=dropout_generator(noise_seed, dev), **kw)
             grads = torch.autograd.grad(
                 loss, [p for p in params if p.requires_grad],
                 allow_unused=True)
             with torch.no_grad():
-                _metrics(loss, S_L, y, y_mask, hits_ks)
+                _metrics(loss.detach(), S_L, y, y_mask, hits_ks, comm)
     finally:
         with torch.no_grad():
             for b, saved in buffers:
@@ -455,21 +479,30 @@ def _check_guarded(state, guard):
                         'train.state.with_guard_counters)')
 
 
-def make_eval_step(model, hits_ks=(1,), num_steps=None, jit=True):
+def make_eval_step(model, hits_ks=(1,), num_steps=None, detach=None,
+                   jit=True, comm=None):
     """Build ``step(batch, noise_seed, r_s=None) -> metrics`` with
-    ``count``, ``correct`` and ``hits@k`` summed over the batch. The
-    consensus steps draw indicator noise at eval time too. ``jit`` as for
+    ``count``, ``correct`` and ``hits@k`` summed over the batch (and over
+    the mesh, with a sharded step's ``comm``). The consensus steps draw
+    indicator noise at eval time too. ``num_steps`` / ``detach`` are the
+    phase's, as JAX's (``detach`` stops gradients only, so it leaves an
+    evaluation's outputs as they are). ``jit`` as for
     :func:`make_train_step` (``step.capture(batch, noise_seed, r_s=None)``
     builds a record ahead of time)."""
+    detach = bool(detach)
 
     def body(batch, noise_seed, r_s, negatives, generator):
         model.eval()
         with torch.no_grad():
             _, _, S_L, y, y_mask = loss_and_outputs(
-                model, batch, False, noise_seed, r_s, num_steps=num_steps)
+                model, batch, False, noise_seed, r_s, comm=comm,
+                num_steps=num_steps, detach=detach,
+                pair_offset=_offset(comm, batch))
             out = {'count': y_mask.sum(),
                    'correct': metrics.acc(S_L, y, y_mask, reduction='sum')}
             _hits(out, hits_ks, S_L, y, y_mask, 'sum')
+            if comm is not None:
+                out = comm.eval_sums(out)
         return out
 
     if not jit:
