@@ -377,7 +377,31 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   tree, 16-pair batches, each rank 8 pairs of each) on two ranks sharing
   the card, ψ₁'s dropout masks each rank's half of the whole batch's:
   its losses within rel 1e-4 of one process's, each rank's routing and
-  consensus launches.
+  consensus launches. (c) and (d) run side by side; the phase runs
+  after ``resume`` and before ``keypoints``.
+
+- ``elastic``: the supervisor's distributed half and the fence
+  (:func:`phase_elastic`), at ``parallel`` (c)'s flags (full width,
+  float32, blocked on), gloo ranks sharing the card: (a) the control:
+  ``parallel`` (c)'s two ranks save every epoch, then one rank resumes
+  from their epoch-3 step and runs epochs 4-5 at world 1; (b) one
+  ``--supervise`` monitor a rank over one obs root, ``peer-death@4`` on
+  rank 1: rank 0's monitor exits 0 (``completed``, one restart, attempt
+  0's reason ``peer-death:host_1``, ``--row_shards 2 -> 1 (shrink the
+  mesh)``, ``ledger.json``'s mesh ``{'shards': 1}``), rank 1's exits 0
+  retired, the resumed run names epoch 3, its epoch lines 4-5 and its
+  final checkpoint bit-equal to (a)'s, attempt 1's ``dispatch.json``
+  with the top-k, both sparse consensus kernels and the blocked
+  aggregation launched as kernels, ``obs.report`` printing the elastic
+  shrink, and the seconds from the tombstone to the resumed child's
+  first finished step; (c): two ranks,
+  ``collective-stall@2:120`` on rank 1 under ``--fence-deadline 5``:
+  both ranks exit 67 within the deadline plus 30 s of entering the
+  fence, each ``hang_report.json`` at fence ``{'phase': 'epoch-fence',
+  'step': 2}`` naming the other rank, ``obs.aggregate`` listing the hung
+  ranks. (a), (b) and (c) start together, beside ``keypoints``' CLI
+  runs (c)-(f) (:func:`elastic_launch`); the phase, right after
+  ``keypoints``, waits for them and holds them.
 
 The main paths above run the CLIs' captured steps and the serve engine's
 captured buckets; a replay counts the launches its capture made, so the
@@ -5692,7 +5716,7 @@ def _kp_run(label, main, argv, policy, tally, hook=None):
     return losses, result
 
 
-def phase_keypoints(res, prepared=None):
+def phase_keypoints(res, prepared=None, beside=None):
     """The keypoint experiments (PascalVOC and WILLOW) on the card, on a
     fixture tree written by :func:`_kp_prepare` (here, or beforehand in
     the future ``prepared``; :mod:`dgmc_tpu_torch.datasets.fixtures`:
@@ -5710,7 +5734,9 @@ def phase_keypoints(res, prepared=None):
     the snapshot; (f) ``pascal_pf.main --data_root`` on a PascalPF
     fixture, 1 epoch: one captured eval graph per category size, every
     pair evaluated. Launches at this slice's shapes go to
-    :data:`KP_MAIN`."""
+    :data:`KP_MAIN`. ``beside`` is called after (b): work that may share
+    the card with (c)-(f), whose checks are launches and equalities
+    (:func:`elastic_launch`)."""
     from dgmc_tpu_torch.experiments import pascal
     prep = prepared.result() if prepared is not None else _kp_prepare()
     pil = prep['pil']
@@ -5727,6 +5753,8 @@ def phase_keypoints(res, prepared=None):
         voc, wil, pf = prep['voc'], prep['wil'], prep['pf']
         _kp_kernels(res, prep['batches'])
         _kp_extractor()
+        if beside is not None:
+            beside()
         tally = Tally('keypoints')
         cut = ['--data_root', voc, '--test_samples', str(KP_TEST_SAMPLES)]
         for policy in ('bf16', 'f32'):
@@ -6542,11 +6570,18 @@ def _diff_rows(label, want_rc, *argv):
     return rows
 
 
-def _launched(d):
-    """The kernels whose CUDA kernel launched in the run in ``d``."""
+def _launched(d, counts=False):
+    """The kernels whose CUDA kernel launched in the run in ``d`` (with
+    ``counts``, ``{kernel: launches}``)."""
     with open(os.path.join(d, 'dispatch.json')) as f:
-        return sorted({r['kernel'] for r in json.load(f)['counts']
-                       if r['outcome'] == 'kernel' and r['count']})
+        rows = [r for r in json.load(f)['counts']
+                if r['outcome'] == 'kernel' and r['count']]
+    if counts:
+        total = collections.Counter()
+        for r in rows:
+            total[r['kernel']] += r['count']
+        return dict(sorted(total.items()))
+    return sorted({r['kernel'] for r in rows})
 
 
 def _tiny_pf_argv(tmp, name):
@@ -7764,26 +7799,25 @@ def _par_topk_rank(rank, world, port, out_dir, device, shape):
     write_json_atomic(os.path.join(out_dir, f'rank{rank}.json'), report)
 
 
-def _par_spawn(argv_of, n):
+def _par_spawn(argv_of, n, wait=True):
     """``n`` processes, rank ``r`` running ``python3 *argv_of(r)`` from the
-    repository root → their ``(rc, stdout, stderr)``."""
+    repository root → their ``(rc, stdout, stderr)``; with ``wait=False``
+    a function that waits for them and returns that."""
     procs = [subprocess.Popen(
         [sys.executable, *argv_of(r)], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(n)]
-    out = []
-    try:
-        for p in procs:
-            out.append(p.communicate(timeout=600))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, (o, e)) in enumerate(zip(procs, out)):
-        if p.returncode:
-            raise AssertionError(f'parallel: rank {r} exited '
-                                 f'{p.returncode}:\n{e[-3000:]}')
-    return [(p.returncode, o, e) for p, (o, e) in zip(procs, out)]
+    if not wait:
+        return lambda: _par_wait(procs)
+    return _par_wait(procs)
+
+
+def _par_wait(procs):
+    runs = _finish_all(procs)
+    for r, (rc, _, err, _) in enumerate(runs):
+        if rc:
+            raise AssertionError(f'parallel: rank {r} exited {rc}:\n'
+                                 f'{err[-3000:]}')
+    return [run[:3] for run in runs]
 
 
 def _par_topk(tmp, device='cuda', shape=PAR_TOPK):
@@ -7836,10 +7870,18 @@ def _par_lines(stdout):
             for m in map(EPOCH_LINE.match, stdout.splitlines()) if m}
 
 
-def _par_kg(tmp, device='cuda', argv=None):
+def _par_kg(tmp, device='cuda', argv=None, ckpt=None):
     """(c): the KG CLI on two ranks sharing the card against one
-    process."""
+    process; with ``ckpt`` the two ranks also save every epoch there (the
+    ``elastic`` phase's control, :data:`ELASTIC`)."""
+    return _par_kg_start(tmp, device, argv, ckpt)()
+
+
+def _par_kg_start(tmp, device='cuda', argv=None, ckpt=None):
+    """:func:`_par_kg`'s two ranks started → the function that waits for
+    them and holds them against one process."""
     argv = list(PAR_KG_ARGV if argv is None else argv)
+    saves = ['--ckpt_dir', ckpt, '--ckpt_every', '1'] if ckpt else []
     obs = os.path.join(tmp, 'obs')
     port = _free_port()
     t0 = time.perf_counter()
@@ -7852,7 +7894,12 @@ def _par_kg(tmp, device='cuda', argv=None):
         'dispatch.launch_counts()))', *argv, '--row_shards',
         str(PAR_RANKS), '--coordinator', f'127.0.0.1:{port}',
         '--num_processes', str(PAR_RANKS), '--process_id', str(r),
-        '--obs-dir', obs], PAR_RANKS)
+        '--obs-dir', obs, *saves], PAR_RANKS, wait=False)
+    return functools.partial(_par_kg_finish, argv, obs, device, runs, t0)
+
+
+def _par_kg_finish(argv, obs, device, ranks, t0):
+    runs = ranks()
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, one = _kg_cli(argv)
@@ -7891,8 +7938,13 @@ def _par_kg(tmp, device='cuda', argv=None):
 def _par_pascal(tmp, device='cuda', argv=None):
     """(d): one data-parallel ``pascal`` epoch on two ranks sharing the
     card (each its half of every batch) against one process."""
+    return _par_pascal_start(tmp, device, argv)()
+
+
+def _par_pascal_start(tmp, device='cuda', argv=None):
+    """:func:`_par_pascal`'s two ranks started → the function that waits
+    for them and holds them against one process."""
     from dgmc_tpu_torch.datasets.fixtures import write_voc
-    from dgmc_tpu_torch.experiments import pascal
     root = os.path.join(tmp, 'voc')
     write_voc(root, seed=0, train=4, val=2)
     argv = ['--data_root', root] + list(PAR_PASCAL_ARGV if argv is None
@@ -7905,7 +7957,13 @@ def _par_pascal(tmp, device='cuda', argv=None):
         'pascal.main(sys.argv[1:]); print("LAUNCHES " + json.dumps('
         'dispatch.launch_counts()))', *argv, '--coordinator',
         f'127.0.0.1:{port}', '--num_processes', str(PAR_RANKS),
-        '--process_id', str(r)], PAR_RANKS)
+        '--process_id', str(r)], PAR_RANKS, wait=False)
+    return functools.partial(_par_pascal_finish, argv, device, runs, t0)
+
+
+def _par_pascal_finish(argv, device, ranks, t0):
+    from dgmc_tpu_torch.experiments import pascal
+    runs = ranks()
     wall = time.perf_counter() - t0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -8015,17 +8073,289 @@ def _par_world1(device='cuda', backend='nccl', argv=None):
 def phase_parallel(smi_line):
     """The multi-process paths (``dgmc_tpu_torch/parallel``): (a)
     :func:`_par_world1`, (b) :func:`_par_topk`, (c) :func:`_par_kg`, (d)
-    :func:`_par_pascal`; see the module docstring."""
+    :func:`_par_pascal`; see the module docstring. (c)'s two ranks save
+    every epoch into :data:`ELASTIC`'s control directory, which the
+    ``elastic`` phase resumes and removes."""
     import tempfile
     log(f'parallel: {smi_line}')
     _par_world1()
     gc.collect()
     torch.cuda.empty_cache()
+    ELASTIC['control'] = tempfile.mkdtemp(prefix='elastic_control_')
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, 'topk'))
         _par_topk(os.path.join(tmp, 'topk'))
-        _par_kg(tmp)
-        _par_pascal(tmp)
+        # (c) and (d) side by side: their checks are equalities.
+        kg = _par_kg_start(tmp, ckpt=ELASTIC['control'])
+        dp = _par_pascal_start(tmp)
+        try:
+            kg()
+        finally:
+            dp()
+
+
+#: The ``elastic`` phase: ``parallel`` (c)'s control checkpoints (the
+#: two-rank run's saves of epochs 1-3, a directory :func:`phase_parallel`
+#: makes and this phase removes), the schedule (epochs 4-5 at world 1,
+#: the peer's death before epoch 4) and (c)'s deadline and stall.
+ELASTIC = {}
+ELASTIC_EPOCHS = '5'
+ELASTIC_FAULT = 'peer-death@4'
+FENCE_DEADLINE = 5
+FENCE_STALL = 'collective-stall@2:120'
+
+
+def _with_epochs(argv, epochs):
+    """``argv`` (a KG CLI's flags) with ``--epochs`` at ``epochs``."""
+    argv = list(argv)
+    argv[argv.index('--epochs') + 1] = str(epochs)
+    return argv
+
+
+def _kg_proc(argv, supervise=False):
+    """``python -m dgmc_tpu_torch.experiments.dbp15k argv`` started from
+    the repository root, its output piped; with ``supervise``, under its
+    own ``--supervise`` monitor."""
+    return subprocess.Popen(
+        [sys.executable, '-m', 'dgmc_tpu_torch.experiments.dbp15k',
+         *(['--supervise'] if supervise else []), *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _finish_all(procs, timeout=600):
+    """``procs`` waited for side by side → ``[(rc, stdout, stderr, end
+    time)]`` in order (the end on the host's wall clock); every process
+    killed if one overruns."""
+    def finish(p):
+        out, err = p.communicate(timeout=timeout)
+        return p.returncode, out, err, time.time()
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+            return list(pool.map(finish, procs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _two_ranks(argv, port, extra=None, supervise=False):
+    """The KG CLI on two gloo ranks sharing the card (``--row_shards
+    2``), rank ``r`` with ``extra[r]`` appended."""
+    return [_kg_proc([*argv, '--row_shards', str(PAR_RANKS),
+                      '--coordinator', f'127.0.0.1:{port}',
+                      '--num_processes', str(PAR_RANKS), '--process_id',
+                      str(r), *(extra or {}).get(r, [])], supervise)
+            for r in range(PAR_RANKS)]
+
+
+def _elastic_start(tmp, control):
+    """Start (b) — one ``--supervise`` monitor per rank over one obs root,
+    ``peer-death@4`` on rank 1 — and beside it (a)'s resume leg (one rank
+    from ``control``, epochs 4-5 at world 1 with the flags of (b)'s
+    attempt 1) and (c) (two ranks, ``collective-stall@2:120`` on rank 1
+    under ``--fence-deadline 5``). → ``(processes: (b)'s two monitors,
+    (a), (c)'s two ranks; (b)'s root, checkpoint dir and metrics log;
+    (c)'s obs dir)``."""
+    root, ck = os.path.join(tmp, 'obs'), os.path.join(tmp, 'ck')
+    mlog = os.path.join(tmp, 'metrics.jsonl')
+    obs_c = os.path.join(tmp, 'obs_fence')
+    argv = _with_epochs(PAR_KG_ARGV, ELASTIC_EPOCHS)
+    procs = _two_ranks(argv + ['--ckpt_dir', ck, '--ckpt_every', '1',
+                               '--obs-dir', root, '--metrics_log', mlog],
+                       _free_port(), {1: ['--inject-fault', ELASTIC_FAULT]},
+                       supervise=True)
+    procs.append(_kg_proc(argv + [
+        '--ckpt_dir', control, '--ckpt_every', '1', '--row_shards', '1',
+        '--num_processes', '1', '--obs-dir', os.path.join(tmp, 'obs_a')]))
+    procs += _two_ranks(_with_epochs(PAR_KG_ARGV, 2) + [
+        '--fence-deadline', str(FENCE_DEADLINE), '--obs-dir', obs_c],
+        _free_port(), {1: ['--inject-fault', FENCE_STALL]})
+    return procs, (root, ck, mlog), obs_c
+
+
+def _elastic_restart(runs, paths):
+    """(b)'s checks on its two monitors' ``runs``: rank 0 completed after
+    one elastic shrink to one rank and resumed at epoch 3 with the four
+    kernels launched; rank 1 retired; the report shows the shrink. →
+    ``(rank 0's monitor's stdout, seconds from the tombstone to the
+    resumed child's first finished step, attempt 1's launched
+    kernels)``."""
+    root, ck, mlog = paths
+    for r, (rc, _, err, _) in enumerate(runs):
+        if rc:
+            raise AssertionError(f'elastic (b): rank {r}\'s monitor exited '
+                                 f'{rc}:\n{err[-3000:]}')
+    out0 = runs[0][1]
+    lead = json.load(open(os.path.join(root, 'recovery.json')))
+    follow = json.load(open(os.path.join(root, 'host_1', 'recovery.json')))
+    ledger = json.load(open(os.path.join(root, 'control', 'ledger.json')))
+    reason = lead['attempts'][0].get('reason', '')
+    detail = [e['detail'] for e in lead['elastic']]
+    if (lead['outcome'] != 'completed' or lead['restarts'] != 1
+            or not reason.startswith('peer-death:host_1')
+            or detail != ['--row_shards 2 -> 1 (shrink the mesh)']
+            or ledger['mesh'] != {'shards': 1}):
+        raise AssertionError(f'elastic (b): rank 0 outcome '
+                             f'{lead["outcome"]}, restarts '
+                             f'{lead["restarts"]}, reason {reason!r}, '
+                             f'elastic {detail}, ledger mesh '
+                             f'{ledger["mesh"]}')
+    if follow['outcome'] != 'retired' \
+            or follow['events'][-1]['event'] != 'retire':
+        raise AssertionError(f'elastic (b): rank 1 outcome '
+                             f'{follow["outcome"]}, events '
+                             f'{[e["event"] for e in follow["events"]]}')
+    if f'Resumed from {ck} at epoch 3.' not in out0:
+        raise AssertionError(f'elastic (b): no resume at epoch 3 in\n'
+                             f'{out0[-2000:]}')
+    launched = _launched(os.path.join(root, 'attempt_1'), counts=True)
+    if not set(PAR_KG_KERNELS) <= set(launched):
+        raise AssertionError(f'elastic (b): attempt 1 launched {launched} '
+                             f'as kernels, not all of {PAR_KG_KERNELS}')
+    report = _module_main('dgmc_tpu_torch.obs.report', root)
+    if 'elastic shrink' not in report:
+        raise AssertionError(f'elastic (b): obs.report prints no elastic '
+                             f'shrink:\n{report[-2000:]}')
+    tomb = json.load(open(os.path.join(root, 'attempt_0', 'control',
+                                       'host_1.tombstone.json')))
+    first = [r for r in _read_jsonl(mlog)
+             if r.get('event') == 'resume_first_step']
+    if len(first) != 1:
+        raise AssertionError(f'elastic (b): resume_first_step records '
+                             f'{first}')
+    back_s = first[0]['time'] - tomb['time']
+    log(f'elastic (b): two --supervise monitors (gloo ranks sharing the '
+        f'card, {" ".join(_with_epochs(PAR_KG_ARGV, ELASTIC_EPOCHS))} '
+        f'--ckpt_every 1), {ELASTIC_FAULT} on rank 1: attempt 0 '
+        f'{reason!r}, {detail[0]}, ledger mesh {ledger["mesh"]}, rank 1 '
+        f'retired; rank 0 resumed at epoch 3 with {launched} launched as '
+        f'kernels in attempt 1 (its dispatch.json); the tombstone to the '
+        f'resumed child\'s first finished step {back_s:.1f}s')
+    return out0, back_s, launched
+
+
+def _elastic_fence(runs, obs_c):
+    """(c)'s checks: rank 1 exits 67 within the deadline plus 30 s of
+    entering the fence, with the fence's report; rank 0 exits 67 with
+    its own report naming rank 1 (its gloo collective raised or was
+    still blocked when its deadline fired); ``obs.aggregate`` lists the
+    hung rank."""
+    want = {'phase': 'epoch-fence', 'step': 2}
+    reports = []
+    for r, (rc, _, err, end) in enumerate(runs):
+        path = os.path.join(obs_c, f'host_{r}', 'hang_report.json')
+        if rc != 67 or not os.path.exists(path):
+            raise AssertionError(f'elastic (c): rank {r} exited {rc} '
+                                 f'(report {os.path.exists(path)}):\n'
+                                 f'{err[-3000:]}')
+        rep = json.load(open(path))
+        entered = rep['time'] - rep['stalled_for_s']
+        missing = [m['host'] for m in rep['missing_hosts']]
+        if (rep['fence'] != want
+                or not rep['reason'].startswith('fence-deadline')
+                or missing != [1 - r]
+                or end - entered > FENCE_DEADLINE + 30):
+            raise AssertionError(f'elastic (c): rank {r}: fence '
+                                 f'{rep["fence"]}, reason {rep["reason"]!r}, '
+                                 f'missing {missing}, exit '
+                                 f'{end - entered:.1f}s after the fence')
+        reports.append((round(end - entered, 2), rep.get(
+            'context', {}).get('collective_error')))
+    if 'firing collective-stall@2' not in runs[1][2]:
+        raise AssertionError('elastic (c): the stall did not fire')
+    summary = json.loads(_module_main('dgmc_tpu_torch.obs.aggregate', obs_c,
+                                      '--no-write', '--json'))
+    if 'host_1' not in summary['hung_hosts']:
+        raise AssertionError(f'elastic (c): aggregate lists '
+                             f'{summary["hung_hosts"]}')
+    return reports, summary['hung_hosts']
+
+
+def elastic_launch():
+    """Start the ``elastic`` phase's processes (:func:`_elastic_start`) in
+    a directory of their own, their output drained by a thread; the
+    ``keypoints`` phase calls this after its kernel and extractor parts,
+    so that the processes run beside its CLI runs (c)-(f), and
+    :func:`phase_elastic` collects them. Nothing starts without
+    ``parallel`` (c)'s control checkpoint."""
+    import tempfile
+    control = ELASTIC.get('control')
+    if not control or not os.path.isdir(os.path.join(control, '3')):
+        return None
+    tmp = tempfile.mkdtemp(prefix='elastic_')
+    start = time.time()
+    procs, paths, obs_c = _elastic_start(tmp, control)
+    ELASTIC['launched'] = {
+        'tmp': tmp, 'start': start, 'paths': paths, 'obs_c': obs_c,
+        'runs': concurrent.futures.ThreadPoolExecutor(1).submit(
+            _finish_all, procs)}
+    log(f'elastic: {len(procs)} processes started')
+    return ELASTIC['launched']
+
+
+def phase_elastic(smi_line):
+    """The supervisor's elastic restart and the fence on the card; see the
+    module docstring: (b), (a)'s resume leg and (c) side by side
+    (:func:`_elastic_start`; started beside the ``keypoints`` phase by
+    :func:`elastic_launch`, else here), (b) checked
+    (:func:`_elastic_restart`) and held bit for bit against (a), (c) by
+    :func:`_elastic_fence`."""
+    t_phase = time.perf_counter()
+    control = ELASTIC.pop('control', None)
+    launched = ELASTIC.pop('launched', None)
+    beside = launched is not None
+    if launched is None:
+        ELASTIC['control'] = control
+        launched = elastic_launch()
+        ELASTIC.pop('control', None)
+    try:
+        if launched is None:
+            raise AssertionError('elastic (a): parallel (c) left no '
+                                 'checkpoint of epoch 3')
+        runs = launched['runs'].result()
+        took = [round(r[3] - launched['start'], 1) for r in runs]
+        out_b, back_s, _ = _elastic_restart(runs[:2], launched['paths'])
+        rc, out_a, err, _ = runs[2]
+        if rc:
+            raise AssertionError(f'elastic (a): the resume leg exited {rc}:'
+                                 f'\n{err[-3000:]}')
+        if f'Resumed from {control} at epoch 3.' not in out_a:
+            raise AssertionError(f'elastic (a): no resume at epoch 3 in\n'
+                                 f'{out_a[-2000:]}')
+        lines_a, lines_b = _eval_lines(out_a), _eval_lines(out_b)
+        if [x[:3] for x in lines_a] != ['004', '005'] \
+                or lines_b[-2:] != lines_a:
+            raise AssertionError(f'elastic: epoch lines 4-5 {lines_b} '
+                                 f'against the control\'s {lines_a}')
+        n = _hold_checkpoints(
+            'elastic: (b)\'s final step against (a)\'s',
+            torch.load(os.path.join(control, ELASTIC_EPOCHS, 'state.pt'),
+                       weights_only=True),
+            torch.load(os.path.join(launched['paths'][1], ELASTIC_EPOCHS,
+                                    'state.pt'), weights_only=True))
+        log(f'elastic (a): the control (parallel (c)\'s two ranks to epoch '
+            f'3, one rank resumed to epoch {ELASTIC_EPOCHS}): (b)\'s epoch '
+            f'lines 4-5 {lines_b[-2:]} equal, its step {ELASTIC_EPOCHS} '
+            f'bit-identical ({n} tensors)')
+        reports, hung = _elastic_fence(runs[3:], launched['obs_c'])
+        log(f'elastic (c): {FENCE_STALL} on rank 1 under --fence-deadline '
+            f'{FENCE_DEADLINE}: both ranks exited 67, fence {{epoch-fence, '
+            f'2}}, each naming the other missing; seconds from entering '
+            f'the fence to the exit and the collective\'s error by rank '
+            f'{reports}; obs.aggregate hung hosts {hung}')
+    finally:
+        if launched is not None:
+            shutil.rmtree(launched['tmp'], ignore_errors=True)
+        if control:
+            shutil.rmtree(control, ignore_errors=True)
+    log(f'elastic: its processes, all started together'
+        f'{" beside keypoints (c)-(f)" if beside else ""}, ended after '
+        f'{took} s ((b)\'s monitors, (a), (c)\'s ranks): {max(took)}s; '
+        f'the tombstone to the resumed step {back_s:.1f}s; this phase '
+        f'{time.perf_counter() - t_phase:.1f}s on {smi_line}')
 
 
 def main(argv=None):
@@ -8124,15 +8454,18 @@ def main(argv=None):
             ('resume', None, lambda: phase_resume(
                 smi[0] if smi else 'nvidia-smi: no output',
                 beside=prepare_keypoints)),
+            ('parallel', None, lambda: phase_parallel(
+                smi[0] if smi else 'nvidia-smi: no output')),
             ('keypoints', None, lambda: phase_keypoints(
-                res, kp_prep[0] if kp_prep else None)),
+                res, kp_prep[0] if kp_prep else None,
+                beside=elastic_launch)),
+            ('elastic', None, lambda: phase_elastic(
+                smi[0] if smi else 'nvidia-smi: no output')),
             ('obs', None, lambda: phase_obs(
                 smi[0] if smi else 'nvidia-smi: no output')),
             ('serve_worker', None, lambda: phase_serve_worker(
                 smi[0] if smi else 'nvidia-smi: no output')),
             ('lint', None, lambda: phase_lint(
-                smi[0] if smi else 'nvidia-smi: no output')),
-            ('parallel', None, lambda: phase_parallel(
                 smi[0] if smi else 'nvidia-smi: no output'))):
         t0 = time.perf_counter()
         try:

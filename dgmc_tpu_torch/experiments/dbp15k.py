@@ -82,6 +82,13 @@ is refused. Every rank holds the whole pair; metrics and standard output
 come from the coordinator (rank 0) only, and ``--obs-dir`` gets a
 ``host_<rank>`` directory per rank. ``--dist_backend`` picks NCCL or gloo
 (default: NCCL where every rank has a card of its own, else gloo).
+Under ``--supervise`` each rank gets its own monitor over one
+``--obs-dir`` (the rank, ``--process_id``, is its host index): a rank's
+death (``--inject-fault peer-death@N``, a stale heartbeat under
+``<obs>/control/``, a fence's exit 67) halves the shard flag and the
+world, rank 0 records the decision in ``<obs>/control/ledger.json``,
+the ranks outside the new world retire, and the rest resume from the
+latest checkpoint (:mod:`~dgmc_tpu_torch.resilience.supervisor`).
 
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
 ``--obs-dir DIR`` writes the run's telemetry there (``metrics.jsonl``,
@@ -89,7 +96,11 @@ The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
 ``trace.json``, ``anomalies.json``; ``--slo FILE`` adds ``slo.json``),
 ``--probes`` streams the in-graph probes of every train step,
 ``--watchdog-deadline SEC`` arms the watchdog (``heartbeat.json``, and
-``hang_report.json`` with ``flight.json`` on a stall or SIGTERM) and
+``hang_report.json`` with ``flight.json`` on a stall or SIGTERM),
+``--fence-deadline SEC`` puts the rendezvous and each eval epoch's fence
+(a collective over the world with several ranks) under a deadline (a
+miss writes ``hang_report.json`` naming the ranks that never arrived and
+exits 67) and
 ``--obs-port PORT`` serves ``/healthz``, ``/metrics`` and ``/status``.
 The observer is built before any step is captured (``--aot_compile``'s
 too). Each step is timed on the host (its replay call: no step is
@@ -121,8 +132,10 @@ from dgmc_tpu_torch.resilience.supervisor import (add_supervisor_args,
 from dgmc_tpu_torch.ops.blocked import attach_blocks, repeat_graph
 from dgmc_tpu_torch.ops.topk import DEFAULT_STREAM_CHUNK, DEFAULT_TOPK_BLOCK
 from dgmc_tpu_torch.parallel import distributed
-from dgmc_tpu_torch.resilience import (FaultPlan, RollbackGuard,
-                                       add_fault_args, ledger_dir)
+from dgmc_tpu_torch.resilience import (FaultPlan, HostChannel,
+                                       RollbackGuard, add_fault_args,
+                                       ledger_dir)
+from dgmc_tpu_torch.resilience.distributed_guard import control_dir
 from dgmc_tpu_torch.train.checkpoint import resume_or_init
 from dgmc_tpu_torch.train.state import create_train_state, with_guard_counters
 from dgmc_tpu_torch.train.steps import (batch_to_device, make_eval_step,
@@ -397,13 +410,15 @@ def main(argv=None, hook=None):
     if args.supervise:
         # This process becomes the monitor, before anything touches the
         # device; the run executes in children that resume through
-        # --ckpt_dir. Of JAX's ladder only f32: the port has no
-        # shrink-mesh and no disable-fused rung (resilience/supervisor.py).
+        # --ckpt_dir. JAX's ladder less disable-fused (the port has no
+        # such rung, resilience/supervisor.py): f32, then shrink-mesh; a
+        # distributed failure shrinks the world at once (one monitor a
+        # rank, the rank its host index).
         raise SystemExit(supervise_cli(
-            'dgmc_tpu_torch.experiments.dbp15k', args, argv,
-            ladder=('f32',)))
-    # The process group first (a no-op for one process): the device is
-    # the rank's card.
+            'dgmc_tpu_torch.experiments.dbp15k', args, argv))
+    # The process group first (a no-op for one process; under
+    # --fence-deadline the rendezvous is guarded): the device is the
+    # rank's card.
     nproc, device = distributed.from_args(args)
     try:
         return _main(args, nproc, device, hook)
@@ -415,8 +430,27 @@ def main(argv=None, hook=None):
 def _main(args, nproc, device, hook):
     mesh, rules = sharding(args, nproc, device)
     coordinator = distributed.is_coordinator()
+    rank = distributed.process_index()
     plan = FaultPlan.from_args(
-        args, state_dir=ledger_dir(args.ckpt_dir, args.obs_dir))
+        args, state_dir=ledger_dir(args.ckpt_dir, args.obs_dir),
+        control_dir=control_dir(args.obs_dir) if args.obs_dir else None,
+        host_index=rank)
+    # Control-plane heartbeats (<obs>/control/host_<rank>.json, shared by
+    # the ranks): each rank advertises liveness and its last completed
+    # fence; peers and the supervisors read them for peer death and for
+    # naming the missing rank in a fence's hang report.
+    channel = HostChannel(args.obs_dir, host_index=rank, num_hosts=nproc,
+                          fault_plan=plan).start() if args.obs_dir else None
+    try:
+        return _run(args, nproc, device, hook, mesh, rules, coordinator,
+                    plan, channel)
+    finally:
+        if channel is not None:
+            channel.close()
+
+
+def _run(args, nproc, device, hook, mesh, rules, coordinator, plan,
+         channel):
     precision.apply(precision.from_args(args))
     # The pair's two collations belong to the run's padding account.
     padding_since = padding_baseline()
@@ -479,7 +513,12 @@ def _main(args, nproc, device, hook):
         obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
                           probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
-                          obs_port=args.obs_port, padding_since=padding_since)
+                          obs_port=args.obs_port, padding_since=padding_since,
+                          fence_deadline_s=args.fence_deadline,
+                          host_channel=channel)
+        # collective-stall@N fires inside the fence guard, where a wedged
+        # collective would block.
+        obs.fence_hook = plan.before_fence
         prof = None
         try:
             obs.attach_anomaly()
@@ -504,7 +543,7 @@ def _main(args, nproc, device, hook):
             state = _train(args, model, state, start_epoch,
                            (phase1, phase2), (eval1, eval2), train_dev,
                            test_dev, logger, obs, hook, ckpt, plan, rollback,
-                           t_resume)
+                           t_resume, channel)
             if args.offload_corpus and nproc > 1:
                 # The ring runs on one card; a pass per rank would repeat
                 # the verification.
@@ -608,7 +647,8 @@ def _aot_compile(args, start_epoch, logger, obs, state, phases, evals,
 
 
 def _train(args, model, state, start_epoch, phases, evals, train_dev,
-           test_dev, logger, obs, hook, ckpt, plan, rollback, t_resume):
+           test_dev, logger, obs, hook, ckpt, plan, rollback, t_resume,
+           channel=None):
     """The two-phase schedule from ``start_epoch``: a step per epoch, the
     evaluations, their printed lines and JSONL records, the observer's
     records, the guard's counters and rollbacks, the checkpoints and the
@@ -622,7 +662,11 @@ def _train(args, model, state, start_epoch, phases, evals, train_dev,
         refine = epoch > args.phase1_epochs
         if epoch == args.phase1_epochs + 1:
             say('Refine correspondence matrix...', flush=True)
-        # Armed host-side faults fire here, on epochs that run only.
+        # Armed host-side faults (raise / sigterm / sigkill / stall /
+        # peer-death / straggler / coord-partition) fire here, on epochs
+        # that run only.
+        if channel is not None:
+            channel.beat('epoch', epoch)
         plan.before_step(epoch)
         step = phase2 if refine else phase1
         profile = args.profile if epoch == profile_epoch else None

@@ -47,10 +47,14 @@ is the one-process step's. The coordinator (rank 0) prints, logs and
 checkpoints; ``--obs-dir`` gets a ``host_<rank>`` directory per rank.
 
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
-``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
-``--slo`` as in ``dbp15k``, built after a resume and before the first
-capture; each train step is timed on the host (the replay call), the
-epoch's summed loss is the device's completion fence.
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--fence-deadline``,
+``--obs-port`` and ``--slo`` as in ``dbp15k``, built after a resume and
+before the first capture; each train step is timed on the host (the
+replay call), the epoch's summed loss is the device's completion fence
+(with several ranks also a collective over the world).
+``--fence-deadline SEC`` (with ``--obs-dir``) puts the ranks' rendezvous
+and each fence under a deadline: a miss writes ``hang_report.json`` and
+exits 67.
 ``--profile-dir`` / ``--profile-steps`` and ``--profile DIR`` (the
 second epoch run's training loop) write ``torch.profiler`` Chrome
 traces.
@@ -245,8 +249,9 @@ def main(argv=None, hook=None):
         raise SystemExit(supervise_cli(
             'dgmc_tpu_torch.experiments.pascal', args, argv,
             ladder=('f32',)))
-    # The process group first (a no-op for one process): the device is
-    # the rank's card.
+    # The process group first (a no-op for one process; under
+    # --fence-deadline the rendezvous is guarded): the device is the
+    # rank's card.
     nproc, device = distributed.from_args(args)
     try:
         return _main(args, nproc, device, hook)
@@ -319,6 +324,7 @@ def _main(args, nproc, device, hook):
         obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
                           probes=args.probes,
                           watchdog_deadline_s=args.watchdog_deadline,
+                          fence_deadline_s=args.fence_deadline,
                           obs_port=args.obs_port)
         with obs:
             # The per-stage FLOPs and bytes and the MFU account in

@@ -37,9 +37,11 @@ appends the JAX CLI's per-epoch JSONL records (``loss``, ``train_acc``,
 ``synthetic_eval_acc``, ``mean_acc``) to ``PATH``.
 
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
-``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
-``--slo`` as in ``dbp15k``; each train step is timed on the host (the
-replay call), the epoch's summed loss is the device's completion fence.
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``,
+``--fence-deadline`` (a deadline on each fence: a miss writes
+``hang_report.json`` and exits 67), ``--obs-port`` and ``--slo`` as in
+``dbp15k``; each train step is timed on the host (the replay call),
+the epoch's summed loss is the device's completion fence.
 ``--profile-dir`` / ``--profile-steps`` and ``--profile DIR`` (the
 second epoch's training loop) write ``torch.profiler`` Chrome traces.
 """
@@ -189,6 +191,7 @@ def main(argv=None, hook=None):
     obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
                       probes=args.probes,
                       watchdog_deadline_s=args.watchdog_deadline,
+                      fence_deadline_s=args.fence_deadline,
                       obs_port=args.obs_port)
     with MetricLogger(args.metrics_log) as logger, obs:
         obs.attach_anomaly()

@@ -31,9 +31,11 @@ the directory restores the snapshot, skips pretraining and the runs
 already done, and continues with the next run.
 
 The run plane (the JAX CLI's flags, :mod:`~dgmc_tpu_torch.obs`):
-``--obs-dir``, ``--probes``, ``--watchdog-deadline``, ``--obs-port`` and
-``--slo`` as in ``dbp15k``; each train step is timed on the host (the
-replay call), each pretraining epoch's summed loss is the device's
+``--obs-dir``, ``--probes``, ``--watchdog-deadline``,
+``--fence-deadline`` (a deadline on each fence: a miss writes
+``hang_report.json`` and exits 67), ``--obs-port`` and ``--slo`` as in
+``dbp15k``; each train step is timed on the host (the replay call),
+each pretraining epoch's summed loss is the device's
 completion fence. ``--profile-dir`` / ``--profile-steps`` and
 ``--profile DIR`` (the first step of the second pretraining epoch, or
 of the first run when pretraining is resumed) write ``torch.profiler``
@@ -278,6 +280,7 @@ def main(argv=None, hook=None):
     obs = RunObserver(distributed.host_obs_dir(args.obs_dir),
                       probes=args.probes,
                       watchdog_deadline_s=args.watchdog_deadline,
+                      fence_deadline_s=args.fence_deadline,
                       obs_port=args.obs_port)
     # One --profile trace an invocation: see the module docstring.
     need_profile = args.profile

@@ -19,7 +19,9 @@ names and top-level keys:
 - ``anomalies.json`` / ``slo.json`` — the anomaly watch and, with
   ``--slo``, the SLO tracker.
 - ``heartbeat.json`` / ``hang_report.json`` — with
-  ``--watchdog-deadline`` (:mod:`~dgmc_tpu_torch.obs.watchdog`).
+  ``--watchdog-deadline`` (:mod:`~dgmc_tpu_torch.obs.watchdog`); a
+  ``hang_report.json`` also when a fence misses ``--fence-deadline``
+  (:meth:`RunObserver.fence_devices`).
 - ``flight.json`` — the flight recorder's dump on an anomaly
   (:mod:`~dgmc_tpu_torch.obs.live`).
 
@@ -89,9 +91,8 @@ __all__ = ['add_obs_flag', 'RunObserver', 'MAX_TRACE_PROBES',
 
 def add_obs_flag(parser):
     """Register the standard ``--obs-dir`` / ``--probes`` /
-    ``--watchdog-deadline`` / ``--obs-port`` / ``--slo`` flags on an
-    argparse parser (JAX's, without ``--fence-deadline``: the collective
-    fence has no single-card counterpart)."""
+    ``--watchdog-deadline`` / ``--fence-deadline`` / ``--obs-port`` /
+    ``--slo`` flags on an argparse parser (JAX's)."""
     parser.add_argument(
         '--obs-dir', '--obs_dir', dest='obs_dir', type=str, default=None,
         help='write run telemetry (metrics.jsonl, timings.json, '
@@ -113,6 +114,18 @@ def add_obs_flag(parser):
              'dump <obs-dir>/hang_report.json (all-thread tracebacks, the '
              'in-flight activity, the last-completed span) and '
              'flight.json; heartbeat.json is rewritten every poll')
+    parser.add_argument(
+        '--fence-deadline', '--fence_deadline',
+        dest='fence_deadline', type=float, default=None, metavar='SEC',
+        help='deadline on each device fence (the epoch-boundary '
+             'completion probe; with several ranks a collective over '
+             'the world) and on the ranks\' rendezvous: a fence that '
+             'does not complete within SEC seconds dumps '
+             '<obs-dir>/hang_report.json naming the fence phase/step '
+             'and the ranks that never reached it, then exits with rc 67 '
+             '(FENCE_TIMEOUT_RC) so the supervisor restarts elastically '
+             'instead of the run hanging. --supervise arms it '
+             'automatically; 0 opts out')
     parser.add_argument(
         '--obs-port', '--obs_port', dest='obs_port', type=int,
         default=None, metavar='PORT',
@@ -147,6 +160,20 @@ def padding_baseline():
             RunObserver._count_index(padding_real_table()))
 
 
+def _world_fence(device):
+    """The collective half of a fence: a one-element all-reduce over the
+    world's group on ``device`` (through the host under gloo), read back
+    so that the fence ends when the collective has (NCCL only enqueues
+    it); a no-op without a process group or in a world of one."""
+    import torch
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return
+    from dgmc_tpu_torch.parallel.comm import all_reduce_
+    float(all_reduce_(torch.ones(1, device=device), dist.group.WORLD))
+
+
 #: Probe records kept in memory for the trace timeline; past this the
 #: oldest fall off (metrics.jsonl still holds the full series, and the
 #: aggregates cover every event).
@@ -169,9 +196,26 @@ class RunObserver:
     """
 
     def __init__(self, obs_dir, probes=False, watchdog_deadline_s=None,
-                 obs_port=None, routes=None, padding_since=None):
+                 obs_port=None, routes=None, padding_since=None,
+                 fence_deadline_s=None, host_channel=None):
         self.dir = obs_dir
         self.enabled = bool(obs_dir)
+        #: Fence deadline (``--fence-deadline``): every
+        #: :meth:`fence_devices` runs under a
+        #: :class:`~dgmc_tpu_torch.resilience.distributed_guard.FenceGuard`
+        #: that turns a wedged fence into hang_report.json + a
+        #: FENCE_TIMEOUT_RC exit instead of a hang.
+        self.fence_deadline_s = fence_deadline_s or None
+        #: Optional :class:`~dgmc_tpu_torch.resilience.distributed_guard.
+        #: HostChannel`: completed fences are recorded on it (the
+        #: attribution a peer's hang report needs) and its peer table
+        #: names the missing ranks when THIS rank's fence times out.
+        self.host_channel = host_channel
+        #: Optional hook called inside the fence guard with the fence's
+        #: tag — the injection point of the ``collective-stall@N`` fault
+        #: (``FaultPlan.before_fence``), a plain callable so obs does not
+        #: import the resilience package.
+        self.fence_hook = None
         self.timer = StepTimer()
         self._t_start = time.time()
         self._snapshots = []
@@ -348,14 +392,32 @@ class RunObserver:
                 self.watchdog.done()
 
     def fence_devices(self, value, tag=None, phase='epoch-fence'):
-        """Step-completion probe of the one device: reads ``value`` (a
-        device scalar of the step's outputs) to the host and records the
-        time from the most recent step start to the read's end, per
-        device (``timings.json``'s ``device_steps``, one ``metrics.jsonl``
-        record, a ``trace.json`` counter). Call it where the loop reads
-        the device anyway (an epoch or eval boundary). ``tag`` labels the
-        fence (default: the step index). Returns ``{device: seconds}``,
-        or ``None`` when disabled or ``value`` is not a tensor."""
+        """Step-completion probe of the rank's device and the run's fence:
+        reads ``value`` (a device scalar of the step's outputs) to the
+        host and records the time from the most recent step start to the
+        read's end, per device (``timings.json``'s ``device_steps``, one
+        ``metrics.jsonl`` record, a ``trace.json`` counter). Call it where
+        the loop reads the device anyway (an epoch or eval boundary).
+        ``tag`` labels the fence (default: the step index). Returns
+        ``{device: seconds}``, or ``None`` when disabled or ``value`` is
+        not a tensor.
+
+        In a world above one rank the fence is also a collective: after
+        the read, a one-element all-reduce over the world, which no rank
+        passes before every rank reaches it (JAX's fence drains the
+        mesh's collectives by reading a sharded value; a rank's read
+        here waits only for its own stream). With ``fence_deadline_s``
+        the fence runs under a
+        :class:`~dgmc_tpu_torch.resilience.distributed_guard.FenceGuard`
+        (a miss writes ``hang_report.json`` naming this fence and the
+        missing ranks, dumps the flight recorder and exits
+        ``FENCE_TIMEOUT_RC``); ``fence_hook`` runs inside it. A
+        collective that raises instead (gloo, when a peer's connection
+        drops) can never complete either: the guard holds it until the
+        deadline fires (:meth:`FenceGuard.expire`), so a rank whose peer
+        is gone ends as a wedged one does. A completed fence is recorded
+        on the host channel, so that peers' reports can name this rank
+        as arrived."""
         if not self.enabled:
             return None
         import torch
@@ -370,9 +432,34 @@ class RunObserver:
         if self.flight is not None:
             self.flight.record('span-start', phase='fence',
                                name=f'{phase}@{tag}')
-        float(value)   # blocks until the device is done
-        times = {str(value.device.index or 0): round(
-            time.perf_counter() - t0, 6)}
+        guard = None
+        if self.fence_deadline_s:
+            from dgmc_tpu_torch.resilience.distributed_guard import \
+                FenceGuard
+            guard = FenceGuard(
+                os.path.join(self.dir, 'hang_report.json'),
+                self.fence_deadline_s, phase=phase, step=tag,
+                channel=self.host_channel,
+                context_fn=self._watchdog_context,
+                # A fence timeout is an anomaly: dump the flight
+                # recorder's trailing context before the rc-67 exit.
+                on_dump=self.flight_dump)
+        with guard or contextlib.nullcontext():
+            if self.fence_hook is not None:
+                # collective-stall@N fires here, inside the guard, where
+                # a wedged collective would block.
+                self.fence_hook(tag)
+            float(value)   # blocks until the device is done
+            times = {str(value.device.index or 0): round(
+                time.perf_counter() - t0, 6)}
+            try:
+                _world_fence(value.device)
+            except Exception as e:
+                if guard is not None:
+                    guard.expire(e)
+                raise
+        if self.host_channel is not None:
+            self.host_channel.record_fence(phase, tag)
         if self.flight is not None:
             self.flight.record('span-end', phase='fence',
                                name=f'{phase}@{tag}',

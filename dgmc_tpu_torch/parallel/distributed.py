@@ -30,7 +30,8 @@ import torch.distributed as dist
 __all__ = ['initialize_distributed', 'is_coordinator', 'process_index',
            'process_count', 'host_obs_dir', 'local_batch_slice',
            'global_batch', 'default_backend', 'rank_device', 'barrier',
-           'shutdown', 'add_distributed_args', 'from_args']
+           'shutdown', 'add_distributed_args', 'from_args',
+           'init_report_path']
 
 _initialized = False
 
@@ -71,7 +72,8 @@ def _init_method(address):
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None, backend=None, device=None):
+                           process_id=None, backend=None, device=None,
+                           deadline_s=None, hang_report_path=None):
     """Bring up the default process group (idempotent); returns the world
     size.
 
@@ -83,11 +85,33 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     environment it is a no-op returning 1, so a script can call it
     unconditionally. A second call, or a launcher that already
     initialized the group, is benign. ``backend``: ``'nccl'`` or
-    ``'gloo'``, else :func:`default_backend` for ``device``."""
+    ``'gloo'``, else :func:`default_backend` for ``device``.
+
+    ``deadline_s`` + ``hang_report_path`` put the bring-up under a
+    :class:`~dgmc_tpu_torch.resilience.distributed_guard.FenceGuard`
+    (phase ``distributed-init``): ``init_process_group``'s rendezvous
+    blocks in C++ until every rank of the declared world joins (up to
+    its own timeout, 30 minutes by default), so one absent rank holds
+    all the others; the guard turns that into a ``hang_report.json`` and
+    a ``FENCE_TIMEOUT_RC`` exit the supervisor restarts elastically."""
     global _initialized
     if _already_initialized():
         _initialized = True
         return dist.get_world_size()
+    guard = contextlib.nullcontext()
+    if deadline_s and hang_report_path:
+        from dgmc_tpu_torch.resilience.distributed_guard import FenceGuard
+        guard = FenceGuard(hang_report_path, deadline_s,
+                           phase='distributed-init')
+    with guard:
+        _init_group(coordinator_address, num_processes, process_id,
+                    backend, device)
+    _initialized = True
+    return process_count()
+
+
+def _init_group(coordinator_address, num_processes, process_id, backend,
+                device):
     explicit = (coordinator_address is not None
                 or num_processes not in (None, 1)
                 or process_id is not None)
@@ -111,8 +135,6 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
         except RuntimeError as e:
             if 'twice' not in str(e):
                 raise
-    _initialized = True
-    return process_count()
 
 
 def shutdown():
@@ -239,14 +261,36 @@ def add_distributed_args(parser):
                              'every rank has a card of its own, else gloo)')
 
 
+def init_report_path(obs_dir, num_processes=None, process_id=None):
+    """Where a rank's guarded bring-up writes its ``hang_report.json``:
+    the directory :func:`host_obs_dir` will give the rank once the group
+    is up (``obs_dir/host_<process_id>`` in a world above one — torchrun's
+    ``WORLD_SIZE`` and ``RANK`` without the flags — else ``obs_dir``), so
+    that two ranks' reports never collide. ``None`` without an obs
+    dir."""
+    if not obs_dir:
+        return None
+    if num_processes is None and all(k in os.environ for k in TORCHRUN_ENV):
+        num_processes = os.environ['WORLD_SIZE']
+        process_id = os.environ['RANK']
+    if num_processes is not None and int(num_processes) > 1:
+        obs_dir = os.path.join(obs_dir, f'host_{int(process_id or 0)}')
+    return os.path.join(obs_dir, 'hang_report.json')
+
+
 def from_args(args):
     """:func:`initialize_distributed` from a CLI's flags; returns ``(world
     size, this rank's device)`` (the device ``args.device`` resolves to,
-    the rank's card with several ranks)."""
+    the rank's card with several ranks). Under ``--fence-deadline`` with
+    ``--obs-dir`` the bring-up is guarded (:func:`init_report_path`)."""
     from dgmc_tpu_torch import resolve_device
     nproc = initialize_distributed(
         args.coordinator, args.num_processes, args.process_id,
-        backend=args.dist_backend, device=args.device)
+        backend=args.dist_backend, device=args.device,
+        deadline_s=getattr(args, 'fence_deadline', None),
+        hang_report_path=init_report_path(
+            getattr(args, 'obs_dir', None), args.num_processes,
+            args.process_id))
     return nproc, resolve_device(rank_device(args.device) if nproc > 1
                                  else args.device)
 

@@ -1,8 +1,8 @@
 """Deterministic, flag-driven fault injection.
 
-The port's copy of ``dgmc_tpu/resilience/faults.py``, its single-process
-kinds. Faults are armed from the CLI (``--inject-fault SPEC``,
-repeatable) and fire at exact, reproducible points:
+The port's copy of ``dgmc_tpu/resilience/faults.py``. Faults are armed
+from the CLI (``--inject-fault SPEC``, repeatable) and fire at exact,
+reproducible points:
 
 =====================  ==================================================
 ``raise@N``            raise :class:`FaultInjected` before epoch N
@@ -16,19 +16,33 @@ repeatable) and fire at exact, reproducible points:
                        right after it is saved
 ``ckpt-corrupt@N``     flip bytes in the largest file of the step-N
                        checkpoint right after it is saved
+``peer-death@N`` /     a rank dies at epoch N: write a control-plane
+``peer-death@N:H``     tombstone for rank H (default: this rank) then
+                       ``SIGKILL`` self — the supervisor must classify it
+                       as a *distributed* failure and shrink the world
+``straggler@N:MS``     sleep MS milliseconds (default 1000) before every
+                       epoch >= N — a persistently slow rank (a
+                       *condition*: it re-fires every epoch, unledgered)
+``coord-partition@N``  from epoch N on, write no control-plane
+                       heartbeats: the rank looks dead to its peers while
+                       still running; heals on restart (ledgered)
+``collective-stall@N``/ sleep S seconds (default 3600) INSIDE the epoch-N
+``collective-stall@N:S`` fence — the wedged-collective stand-in the fence
+                       deadline must turn into a ``hang_report.json`` and
+                       a ``FENCE_TIMEOUT_RC`` exit
 =====================  ==================================================
 
-The JAX package's other kinds need other hosts, the obs fence or
-downloads, which the port does not have yet; :func:`parse_spec` refuses
-them by name (:data:`NOT_PORTED`), never ignoring one silently.
+JAX's ``download-fail`` needs the dataset downloads, which the port does
+not have (they need a network); :func:`parse_spec` refuses it by name
+(:data:`NOT_PORTED`), never ignoring it silently.
 
 **Fire once across restarts.** A resumed run replays its schedule from
 the checkpoint; a ``sigkill@5`` that fired again on the replayed epoch 5
-would crash forever. The process-killing and checkpoint faults record
-themselves in ``<state_dir>/faults_fired.json`` the moment they fire
-(before the kill), and a restarted process skips them. The CLIs place
-the ledger with :func:`ledger_dir` (the checkpoint directory, else the
-obs root above a supervised attempt's ``attempt_<k>``, else the
+would crash forever. The process-killing, fence and checkpoint faults
+record themselves in ``<state_dir>/faults_fired.json`` the moment they
+fire (before the kill), and a restarted process skips them. The CLIs
+place the ledger with :func:`ledger_dir` (the checkpoint directory, else
+the obs root above a supervised attempt's ``attempt_<k>``, else the
 directory the supervisor exports in :data:`LEDGER_ENV`). ``nan-grads`` is
 deliberately not recorded: it is part of the deterministic step stream,
 and a resumed run must replay it to follow the uninterrupted one.
@@ -49,17 +63,20 @@ __all__ = ['FaultInjected', 'FaultSpec', 'FaultPlan', 'KINDS', 'NOT_PORTED',
 FIRED_LEDGER = 'faults_fired.json'
 
 #: Host-side kinds that fire in the training loop, once.
-_STEP_KINDS = ('raise', 'sigterm', 'sigkill', 'stall')
+_STEP_KINDS = ('raise', 'sigterm', 'sigkill', 'stall', 'peer-death',
+               'coord-partition')
 _CKPT_KINDS = ('ckpt-truncate', 'ckpt-corrupt')
-KINDS = _STEP_KINDS + _CKPT_KINDS + ('nan-grads',)
+#: Fence-scoped kinds (fire inside the fence guard, once).
+_FENCE_KINDS = ('collective-stall',)
+#: Condition kinds: persistent states, not events — unledgered, re-fire
+#: deliberately (a straggler is slow on every epoch, replays included).
+_CONDITION_KINDS = ('straggler',)
+KINDS = _STEP_KINDS + _CKPT_KINDS + _FENCE_KINDS + _CONDITION_KINDS + \
+    ('nan-grads',)
+#: Kinds that take ``:arg`` (a duration; ``peer-death``'s a rank).
+_ARG_KINDS = ('stall', 'collective-stall', 'straggler', 'peer-death')
 #: The JAX package's kinds the port refuses, and what they wait for.
 NOT_PORTED = {
-    'peer-death': 'multi-GPU runs and the supervisor\'s elastic restart '
-                  '(ROADMAP A8)',
-    'coord-partition': 'multi-GPU runs and the supervisor\'s elastic '
-                       'restart (ROADMAP A8)',
-    'collective-stall': 'multi-GPU runs and the obs fence (ROADMAP A8/A9)',
-    'straggler': 'multi-GPU runs and the obs plane (ROADMAP A8/A9)',
     'download-fail': 'the dataset downloads (ROADMAP A6)',
 }
 
@@ -104,11 +121,15 @@ def parse_spec(text):
         raise ValueError(f'{text!r}: {kind} needs a step (e.g. {kind}@3)')
     step = int(step)
     if arg is not None:
-        if kind != 'stall':
-            raise ValueError(f'{text!r}: only stall takes an argument')
-        arg = float(arg)
-    elif kind == 'stall':
+        if kind not in _ARG_KINDS:
+            raise ValueError(f'{text!r}: only {", ".join(_ARG_KINDS)} '
+                             f'take an argument')
+        # peer-death's argument is a rank, not a duration.
+        arg = int(arg) if kind == 'peer-death' else float(arg)
+    elif kind in ('stall', 'collective-stall'):
         arg = 3600.0
+    elif kind == 'straggler':
+        arg = 1000.0   # milliseconds of lag per epoch
     return FaultSpec(kind, step, arg)
 
 
@@ -119,10 +140,13 @@ def add_fault_args(parser):
         action='append', default=[], metavar='SPEC',
         help='deterministic fault injection (repeatable): raise@N, '
              'sigterm@N, sigkill@N, stall@N[:SEC], nan-grads@N, '
-             'ckpt-truncate@N, ckpt-corrupt@N. Process-killing and '
+             'ckpt-truncate@N, ckpt-corrupt@N, peer-death@N[:RANK], '
+             'straggler@N:MS, coord-partition@N, '
+             'collective-stall@N[:SEC]. Process-killing, fence and '
              'checkpoint faults fire once across supervised restarts (a '
              'ledger in the checkpoint or obs dir); nan-grads replays '
-             'deterministically. See dgmc_tpu_torch/resilience/faults.py')
+             'deterministically; straggler re-fires every epoch by '
+             'design. See dgmc_tpu_torch/resilience/faults.py')
     return parser
 
 
@@ -155,18 +179,40 @@ class FaultPlan:
         state_dir: where ``faults_fired.json`` lives
             (:func:`ledger_dir`); ``None`` keeps the record in memory
             only.
+        control_dir: the control-plane directory
+            (``distributed_guard.control_dir(obs_dir)``) where
+            ``peer-death`` writes its tombstone; defaults to
+            ``<state_dir>/control`` when there is a ledger dir.
+        host_index: this rank — the default tombstone target of
+            ``peer-death@N`` and the identity ``coord-partition``
+            silences.
     """
 
-    def __init__(self, specs=(), state_dir=None):
+    def __init__(self, specs=(), state_dir=None, control_dir=None,
+                 host_index=0):
         self.specs = [s if isinstance(s, FaultSpec) else parse_spec(s)
                       for s in (specs or ())]
         self._state_dir = state_dir
+        self._control_dir = control_dir or (
+            os.path.join(state_dir, 'control') if state_dir else None)
+        self.host_index = int(host_index)
+        #: Set once ``coord-partition`` fires; :class:`~dgmc_tpu_torch.
+        #: resilience.distributed_guard.HostChannel` checks it before
+        #: every heartbeat write. Always starts False: a ledgered
+        #: partition does not fire again after a restart, so the restart
+        #: heals it (the restart is the recovery under test).
+        self.coord_partitioned = False
         self._fired = set(self._load_ledger())
 
     @classmethod
-    def from_args(cls, args, state_dir=None):
+    def from_args(cls, args, state_dir=None, control_dir=None,
+                  host_index=0):
         return cls(getattr(args, 'inject_fault', ()) or (),
-                   state_dir=state_dir)
+                   state_dir=state_dir, control_dir=control_dir,
+                   host_index=host_index)
+
+    def __bool__(self):
+        return bool(self.specs)
 
     # -- ledger ------------------------------------------------------------
 
@@ -205,7 +251,12 @@ class FaultPlan:
     def before_step(self, step):
         """Fire any armed host-side fault scheduled for ``step`` (the
         1-based epoch). The ledger is written before the fault delivers,
-        so a killed and restarted run does not fire it again."""
+        so a killed and restarted run does not fire it again. Condition
+        kinds (``straggler``) re-fire on every step >= N by design — a
+        slow rank is slow on replays too."""
+        for spec in self.specs:
+            if spec.kind == 'straggler' and spec.step <= step:
+                time.sleep(spec.arg / 1000.0)
         for spec in self.specs:
             if spec.kind not in _STEP_KINDS or spec.step != step \
                     or spec.key in self._fired:
@@ -218,6 +269,18 @@ class FaultPlan:
             if spec.kind == 'stall':
                 time.sleep(spec.arg)
                 continue
+            if spec.kind == 'coord-partition':
+                # From here on this rank writes no heartbeats: it looks
+                # dead to its peers while still computing.
+                self.coord_partitioned = True
+                continue
+            if spec.kind == 'peer-death':
+                host = self.host_index if spec.arg is None \
+                    else int(spec.arg)
+                if self._control_dir:
+                    from dgmc_tpu_torch.resilience.distributed_guard \
+                        import write_tombstone
+                    write_tombstone(self._control_dir, host, step=step)
             os.kill(os.getpid(), signal.SIGTERM
                     if spec.kind == 'sigterm' else signal.SIGKILL)
             # A handler that swallowed the signal must not let the run go
@@ -225,6 +288,21 @@ class FaultPlan:
             time.sleep(30)
             raise FaultInjected(
                 f'{spec.key} delivered but the process survived')
+
+    def before_fence(self, step):
+        """Fire any armed fence-scoped fault for ``step`` — called by
+        :meth:`RunObserver.fence_devices
+        <dgmc_tpu_torch.obs.run.RunObserver.fence_devices>` INSIDE its
+        deadline guard, so a ``collective-stall`` is seen by exactly the
+        machinery that must turn it into a ``hang_report.json``."""
+        for spec in self.specs:
+            if spec.kind not in _FENCE_KINDS or spec.step != step \
+                    or spec.key in self._fired:
+                continue
+            self._mark_fired(spec)
+            print(f'[faults] firing {spec.key} inside the step-{step} '
+                  f'fence', file=sys.stderr, flush=True)
+            time.sleep(spec.arg)
 
     def after_checkpoint(self, ckpt, step):
         """Damage the just-saved step when a ``ckpt-*@step`` fault is

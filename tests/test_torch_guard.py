@@ -8,8 +8,8 @@ the eager and the compiled (static-buffer) step, on a model with batch
 norm so that its buffers are held too; the port's guarded step against
 JAX's ``make_train_step(guard=True, fault_nan_step=N)`` on converted
 parameters; and ports of the single-process cases of
-``tests/resilience/test_faults.py``, with the refusal of the kinds the
-port does not have.
+``tests/resilience/test_faults.py``, with the refusal of the download
+kind the port does not have.
 
 Tolerances: the frozen step's parameters and Adam state, and the
 counters, are equal (bit for bit, in both packages); a clean step's loss
@@ -383,14 +383,24 @@ def test_parse_spec_rejects(bad):
     'collective-stall@3', 'collective-stall@3:7.5', 'straggler@2:250',
     'download-fail', 'download-fail:3'])
 def test_kinds_not_ported_are_refused_at_parse_time(text):
-    """The multi-host, obs and download kinds are refused by name, never
-    ignored: at parse time and through the CLI's parser."""
+    """The JAX kinds the port once refused: the multi-rank and fence kinds
+    now parse as JAX's parser parses them (kind, step and argument), at
+    parse time and through the CLI's parser; the download kind, which
+    needs the dataset downloads the port does not have, is still refused
+    by name, never ignored."""
+    from dgmc_tpu.resilience.faults import parse_spec as jax_parse
     from dgmc_tpu_torch.experiments import dbp15k
-    with pytest.raises(ValueError, match='not ported yet'):
-        parse_spec(text)
     args = dbp15k.parse_args(['--synthetic', '--inject-fault', text])
-    with pytest.raises(ValueError, match='not ported yet'):
-        FaultPlan.from_args(args)
+    if text.startswith('download-fail'):
+        with pytest.raises(ValueError, match='not ported yet'):
+            parse_spec(text)
+        with pytest.raises(ValueError, match='not ported yet'):
+            FaultPlan.from_args(args)
+        return
+    want = jax_parse(text)
+    for spec in (parse_spec(text), FaultPlan.from_args(args).specs[0]):
+        assert (spec.kind, spec.step, spec.arg, spec.key) \
+            == (want.kind, want.step, want.arg, want.key)
 
 
 def test_raise_fires_at_exact_step(tmp_path):

@@ -3,8 +3,8 @@ CPU.
 
 ``RunObserver`` from each package, driven by the same script of calls,
 writes the same artifacts with the same top-level keys; the flags of
-``add_obs_flag`` / ``add_profile_flag`` are JAX's (without
-``--fence-deadline``); the observer's contracts (a no-op without a
+``add_obs_flag`` / ``add_profile_flag`` are JAX's (``--fence-deadline``
+included); the observer's contracts (a no-op without a
 directory, the notices for plane flags without one, a taken port moving
 the plane, the staleness verdict, the first offender); probes off leave
 a train step's outputs bit-identical to a step run with no observer;
@@ -116,11 +116,13 @@ def _flags(add):
 
 
 def test_flags_are_jax_flags_without_the_fence():
+    """The obs and profile flags are JAX's, ``--fence-deadline`` /
+    ``--fence_deadline`` included (the fence of a world of ranks)."""
     from dgmc_tpu.obs.run import add_obs_flag as j_obs
     from dgmc_tpu.obs.trace import add_profile_flag as j_profile
     want = _flags(j_obs)
-    del want[('--fence-deadline', '--fence_deadline')]
     got = _flags(add_obs_flag)
+    assert ('--fence-deadline', '--fence_deadline') in got
     assert {k: v[:2] for k, v in got.items()} == \
         {k: v[:2] for k, v in want.items()}
     assert set(_flags(add_profile_flag)) == set(_flags(j_profile))

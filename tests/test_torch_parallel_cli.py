@@ -9,7 +9,8 @@ Held: the epoch lines of both layouts against the one-process run's
 alignment, 1/210: the sums over ranks are in another order, so a near
 tie may flip), printed by the coordinator only; JAX's refusals (the two
 shard flags together, a shard count that is not the world size);
-``--obs-dir`` giving ``host_0/`` and ``host_1/``, merged by the port's
+``--obs-dir`` giving ``host_0/`` and ``host_1/`` (and the ranks'
+``control/`` heartbeats), merged by the port's
 ``obs.aggregate`` as JAX's ``dgmc_tpu.obs.aggregate`` merges them; and
 ``--ckpt_dir`` under the coordinator rule: one writer, and a resumed
 two-rank run printing the uninterrupted run's lines.
@@ -120,7 +121,11 @@ def test_refusals_match_jax(runs, capsys):
 
 def test_each_rank_writes_its_obs_dir_and_aggregate_matches_jax(runs):
     root = str(runs['tmp'] / 'obs')
-    assert sorted(os.listdir(root)) == ['host_0', 'host_1']
+    # Each rank's obs dir, and the ranks' control plane (their heartbeats,
+    # at JAX's place: <obs>/control/host_<rank>.json).
+    assert sorted(os.listdir(root)) == ['control', 'host_0', 'host_1']
+    assert sorted(os.listdir(os.path.join(root, 'control'))) \
+        == ['host_0.json', 'host_1.json']
     for host in ('host_0', 'host_1'):
         assert 'metrics.jsonl' in os.listdir(os.path.join(root, host))
     for argv in ([root, '--no-write', '--json'], [root, '--no-write']):

@@ -257,6 +257,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for m in (('ops', 'blocked.py'), ('ops', 'offload.py'),
                       ('ops', 'kernels', 'blocked.py'),
                       ('resilience', '__init__.py'),
+                      ('resilience', 'distributed_guard.py'),
                       ('resilience', 'faults.py'),
                       ('resilience', 'guard.py'),
                       ('resilience', 'supervisor.py'),

@@ -4,13 +4,15 @@
 ``dgmc_tpu.resilience.supervisor.Supervisor`` run the same scriptable
 child scripts (those of ``tests/resilience/test_supervisor.py`` and
 ``test_live_supervision.py``) in each scenario there that the port has
-(the ladder cases with the one rung the port has, ``f32``): the
-sequence of ``recovery.json`` events, the attempts (reason, exit code,
-step evidence, environment overrides), the degradations and the outcome
-must be equal. The flag helpers and the ``f32`` rung give JAX's argv
-and environment; JAX's other rungs drop out of a port ladder; ``supervise_cli`` gives JAX's child argv less the
-``--fence-deadline`` the port's CLIs do not have; no ``--supervise``
-monitor touches CUDA. Then the real thing on the CPU: a supervised
+(the ladder cases with the ``f32`` rung): the sequence of
+``recovery.json`` events, the attempts (reason, exit code, step
+evidence, environment overrides), the degradations and the outcome must
+be equal. The flag helpers and the ``f32`` and ``shrink-mesh`` rungs
+give JAX's argv and environment; JAX's ``disable-fused`` drops out of a
+port ladder; ``supervise_cli`` gives JAX's child argv, its
+``--fence-deadline`` included; no ``--supervise`` monitor touches CUDA.
+The distributed half (the elastic restart, the ledger, the rank
+monitors) is held against JAX's in ``tests/test_torch_elastic.py``. Then the real thing on the CPU: a supervised
 DBP15K run killed by ``sigkill@N`` ends with the uninterrupted run's
 last eval line and final checkpoint, bit for bit, and a supervised
 worker killed by SIGKILL comes back with a corpus-cache hit and the same
@@ -266,22 +268,23 @@ def test_flag_helpers_and_rungs_match_jax(argv):
         assert impl._flag_value(argv, ('--precision',)) \
             == jax_sup._flag_value(argv, ('--precision',))
     for env in ({}, {LEDGER_ENV: 'l'}):
-        got = sup.LADDER_RUNGS['f32'](list(argv), dict(env))
-        want = jax_sup.LADDER_RUNGS['f32'](list(argv), dict(env))
-        assert got[:2] == want[:2]
-        assert (got[2] is None) == (want[2] is None)
+        for rung in ('f32', 'shrink-mesh'):
+            got = sup.LADDER_RUNGS[rung](list(argv), dict(env))
+            want = jax_sup.LADDER_RUNGS[rung](list(argv), dict(env))
+            assert got[:2] == want[:2]
+            assert (got[2] is None) == (want[2] is None)
 
 
 def test_jax_ladders_keep_only_the_port_rungs():
     """The port has no ``disable-fused`` rung (its gates run the plain
-    versions only for CPU tensors) and no ``shrink-mesh``: a ladder naming
-    them keeps ``f32`` alone, so no restart sets JAX's switch."""
+    versions only for CPU tensors): a ladder naming it keeps ``f32`` and
+    ``shrink-mesh``, in JAX's order, so no restart sets JAX's switch."""
     assert set(sup.LADDER_RUNGS) == set(jax_sup.LADDER_RUNGS) \
-        - {'disable-fused', 'shrink-mesh'}
-    assert sup.DEFAULT_LADDER == ('f32',)
+        - {'disable-fused'}
+    assert sup.DEFAULT_LADDER == ('f32', 'shrink-mesh')
     cmd = [sys.executable, '-c', 'pass']
     assert sup.Supervisor(cmd, [], ladder=jax_sup.DEFAULT_LADDER).ladder \
-        == ['f32']
+        == ['f32', 'shrink-mesh']
     assert sup.Supervisor(cmd, [], ladder=('disable-fused',)).ladder == []
 
 
@@ -319,23 +322,25 @@ def _supervise_argv(impl, monkeypatch, argv, obs_dir='o'):
 
 
 def test_supervise_cli_appends_no_fence_deadline(monkeypatch):
+    """``supervise_cli`` gives JAX's child argv: the watchdog deadline
+    and, beside it, JAX's ``--fence-deadline`` (the port's CLIs have the
+    flag now), and JAX's default ladder less ``disable-fused``."""
     argv = ['--supervise', '--obs-dir', 'o', '--ckpt_dir', 'c',
             '--max-restarts', '2']
     got = _supervise_argv(sup, monkeypatch, argv)
     want = _supervise_argv(jax_sup, monkeypatch, argv)
-    assert '--fence-deadline' not in got['argv']
-    assert want['argv'] == got['argv'] + ['--fence-deadline', '600.0']
-    assert got['argv'] == ['--obs-dir', 'o', '--ckpt_dir', 'c',
-                           '--watchdog-deadline', '600.0']
+    assert got['argv'] == want['argv'] == [
+        '--obs-dir', 'o', '--ckpt_dir', 'c', '--watchdog-deadline', '600.0',
+        '--fence-deadline', '600.0']
     assert got['cmd'] == want['cmd']
-    assert got['ladder'] == ['f32']
+    assert got['ladder'] == ['f32', 'shrink-mesh']
 
 
 def test_monitor_never_touches_cuda(monkeypatch):
     """Each ``--supervise`` entry point hands over to the supervisor
     before anything asks for the device: with every CUDA query made to
-    raise, the five monitors reach ``Supervisor.run`` with their
-    ladders and no ``--fence-deadline``."""
+    raise, the five monitors reach ``Supervisor.run`` with their ladders
+    and JAX's ``--fence-deadline`` appended beside the watchdog's."""
     from dgmc_tpu_torch.experiments import dbp15k, pascal, pascal_pf, willow
     from dgmc_tpu_torch.serve import service
 
@@ -363,8 +368,10 @@ def test_monitor_never_touches_cuda(monkeypatch):
         'dgmc_tpu_torch.experiments.pascal_pf',
         'dgmc_tpu_torch.experiments.pascal',
         'dgmc_tpu_torch.experiments.willow', 'dgmc_tpu_torch.serve']
-    assert [s[1] for s in seen] == [['f32']] * 4 + [[]]
-    assert not any('--fence-deadline' in s[2] for s in seen)
+    assert [s[1] for s in seen] == [['f32', 'shrink-mesh']] \
+        + [['f32']] * 3 + [[]]
+    assert all(s[2][-4:] == ['--watchdog-deadline', '600.0',
+                             '--fence-deadline', '600.0'] for s in seen)
     assert not torch.cuda.is_initialized()
 
 

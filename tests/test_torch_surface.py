@@ -1,6 +1,5 @@
 """The port's package surface held against the JAX package's on the CPU:
-each package ``__all__`` (the names that need several GPUs and the
-download faults left out), the two names that had no definition
+each package ``__all__`` (the download faults left out), the two names that had no definition
 (``train.aggregate_eval``, ``train.init_variables``), the top-level
 ``DGMC`` reached without importing torch with the package, the deprecated
 ``train.observe`` alias, and ``utils/viz.py`` (``predicted_targets``
@@ -19,12 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-#: JAX names the port leaves out: those that need several GPUs (the
-#: fence, the host channel, the recovery ledger) and the download faults
-#: (no download exists in the port).
-LEFT_OUT = {'FenceGuard', 'HostChannel', 'RecoveryLedger',
-            'FENCE_TIMEOUT_RC', 'arm_download_faults',
-            'consume_download_fault'}
+#: JAX names the port leaves out: the download faults (no download
+#: exists in the port).
+LEFT_OUT = {'arm_download_faults', 'consume_download_fault'}
 
 PACKAGES = ['', '.ops', '.train', '.utils', '.data', '.models', '.obs',
             '.resilience', '.datasets']
