@@ -353,7 +353,14 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   ``.item()`` and an ``index_add_`` step flagged at their lines (TRC003,
   TRC005); (e) the specimen cost rows into an obs dir (each
   ``static_peak_bytes`` beside the allocator's measured peak) and
-  ``obs.diff --max-peak-regression`` over them.
+  ``obs.diff --max-peak-regression`` over them; (f) the five mesh
+  specimens on 4 gloo ranks sharing the card (started at the start of
+  ``obs``, joined here; (d)'s CLI run reads them: its trace, SHD and
+  SCH/MEM tiers, rc 0 against the baseline): each rank's kernel launches
+  from its ledger (:data:`MESH_KERNELS`), each specimen's collective
+  table, ``overlap_fraction``, ``critical_path_share`` and static peak,
+  and a variant of ``sharded_forward_rows`` that all-gathers the whole S
+  tripping SHD302.
 
 - ``parallel``: the port's multi-process paths
   (``dgmc_tpu_torch/parallel``, :func:`phase_parallel`): (a) one rank on
@@ -372,7 +379,11 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   its epoch lines within loss rel 1e-4 and Hits@1 / Hits@10 within
   2e-3 of the one-process run's, each rank's launches of the top-k, the
   sparse consensus forward and backward and the blocked aggregation
-  (its counters) and its collectives (its ``dispatch.json``); (d) one
+  (its counters) and its collectives (its ``dispatch.json``), and each
+  rank's ``host_<r>/efficiency.json`` ``train_step`` account
+  (``collectives``, ``overlap_fraction``, ``critical_path_share``) equal
+  between the ranks, ``obs.diff --min-overlap`` passing on ``host_0``
+  against itself and failing on a copy set below the floor; (d) one
   data-parallel ``pascal`` epoch (the JAX CLI's widths, a small fixture
   tree, 16-pair batches, each rank 8 pairs of each) on two ranks sharing
   the card, ψ₁'s dropout masks each rank's half of the whole batch's:
@@ -4371,7 +4382,11 @@ def phase_kg_tiers(res):
       prints ``equal=True``.
     - ``python -m dgmc_tpu_torch.ops.offload`` at its default sizes (2^23
       host rows of 16 channels against 2^17 targets, chunks of 2^15, ring
-      depth 2): one top-k launch per chunk, the verified prefix equal.
+      depth 2): one top-k launch per chunk, the verified prefix equal;
+      then a second pass over two slots (``devices=('cuda:0',
+      'cuda:0')``, the round-robin one card can exercise) on the first
+      :data:`OFFLOAD_SLOTS_ROWS` rows: indices bit-equal to the one-device
+      ring's, ``devices: 2``.
     """
     from dgmc_tpu_torch.ops import offload
     from dgmc_tpu_torch.ops.kernels import dispatch
@@ -4448,6 +4463,43 @@ def phase_kg_tiers(res):
     log(f'kg_tiers: ops.offload at its defaults in '
         f'{time.perf_counter() - t0:.1f}s: {json.dumps(rec)}; top-k launches '
         f'{n} (one a chunk, one for the verified prefix)')
+    _offload_two_slots()
+
+
+#: The rows of ``kg_tiers``' second offload pass (2^21 of the default
+#: corpus's 16 channels against its 2^17 targets, chunks of 2^15).
+OFFLOAD_SLOTS_ROWS = 1 << 21
+
+
+def _offload_two_slots():
+    """``kg_tiers``' offload pass over two slots of one card against the
+    one-device ring on the same inputs."""
+    from dgmc_tpu_torch.ops import offload
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    corpus = offload._synthetic_corpus(OFFLOAD_SLOTS_ROWS, 16, 8)
+    rng = np.random.RandomState(9)
+    h_t = torch.from_numpy(rng.randn(1, 1 << 17, 16).astype(np.float32))
+    out = {}
+    for name, kw in (('one', {'device': 'cuda:0'}),
+                     ('two', {'devices': ('cuda:0', 'cuda:0')})):
+        dispatch.reset()
+        t0 = time.perf_counter()
+        vals, idx, stats = offload.offloaded_streamed_topk(
+            corpus, h_t, 10, 1 << 15, **kw)
+        out[name] = (vals, idx, stats, time.perf_counter() - t0,
+                     dispatch.launch_counts()['topk'])
+    (v1, i1, s1, t1, n1), (v2, i2, s2, t2, n2) = out['one'], out['two']
+    if not (torch.equal(i1, i2) and torch.equal(v1, v2)) or \
+            s2.devices != 2 or s1.devices != 1 or n2 != s2.chunks:
+        raise AssertionError(f'kg_tiers: two-slot ring: indices equal '
+                             f'{torch.equal(i1, i2)}, stats {s2}, top-k '
+                             f'launches {n2}')
+    log(f'kg_tiers: the offload ring over two slots of one card '
+        f'(devices=(\'cuda:0\', \'cuda:0\'): the round-robin of JAX\'s ring '
+        f'on one physical GPU) at {OFFLOAD_SLOTS_ROWS} rows: indices and '
+        f'values bit-equal to the one-device ring, stats {s2.to_json()} '
+        f'({t2:.2f}s, {n2} top-k launches) against the one-device '
+        f'{t1:.2f}s')
 
 
 #: The routed sums' rows of the kernels line (``phase_union_route``): the
@@ -6793,6 +6845,9 @@ def phase_obs(smi_line):
     ``--allow-kernel-fallback``, memory and idle skipped) and reversed
     (no dispatch regression)."""
     import tempfile
+    # ``lint`` (f)'s ranks start here, beside this phase's host-bound
+    # work; ``lint`` joins them.
+    _lint_mesh_start()
     with tempfile.TemporaryDirectory() as tmp:
         # (f)'s run on the CPU, a process of its own, goes beside (a)-(e).
         cpu_run = _start_cpu_pf(tmp, 'pf_cpu')
@@ -7440,6 +7495,8 @@ def _lint_trace(tmp, smi_line):
     cache = shared_cache('cuda')
     rows = []
     for spec in default_specimens():
+        if spec.min_devices:
+            continue       # (f)
         art = cache.artifacts(spec)
         rec = art.recorded()
         got = rec['launches']
@@ -7451,7 +7508,8 @@ def _lint_trace(tmp, smi_line):
         rows.append(f'{spec.name} {dict(sorted(got.items())) or "none"} '
                     f'({len(rec["tape"].ops)} ops, run '
                     f'{rec["seconds"]:.3f}s)')
-    log(f'lint (d): the trace tier over the 8 specimens on the card in '
+    log(f'lint (d): the trace tier over the 8 specimens on the card and '
+        f'the SHD and SCH/MEM tiers over (f)\'s mesh runs in '
         f'{tier_s:.2f}s: rc 0 against lint-baseline-torch.json with '
         f'--fail-on new, findings by rule {dict(sorted(rules.items()))} '
         f'(no TRC003, no TRC004); launches by specimen: '
@@ -7509,7 +7567,7 @@ def _lint_costs(tmp, smi_line):
     bad = [k for k, v in rows.items()
            if 'error' in v or not v.get('static_peak_bytes')
            or v.get('measured_peak_bytes') is None]
-    if rc != 0 or len(rows) != 8 or bad or not run_rows or \
+    if rc != 0 or len(rows) != 13 or bad or not run_rows or \
             not run_rows <= set(payload['programs']):
         raise AssertionError(f'lint (e): rc {rc}, rows {sorted(rows)}, '
                              f'bad {bad}: {payload}')
@@ -7549,6 +7607,124 @@ def _lint_costs(tmp, smi_line):
     return seconds
 
 
+#: ``lint`` (f): the kernels each mesh specimen must launch on every rank
+#: that runs it (the TPU kernels on this slice's path, ``PERF.md``).
+MESH_KERNELS = {
+    'parallel.sharded_train_step': ('consensus_fwd',),
+    'parallel.sharded_forward_rows': ('consensus_fwd',),
+    'parallel.sharded_train_step_pairs2': ('consensus_fwd',),
+    'parallel.streamed_train_step': ('topk', 'sparse_consensus_fwd',
+                                     'sparse_consensus_bwd', 'rng'),
+    'parallel.sharded_topk_cols': ('topk',),
+}
+MESH_RANKS = 4
+#: The ranks of ``lint`` (f), started by :func:`_lint_mesh_start`.
+LINT_MESH = {}
+#: Each phase's end on the host's wall clock (``lint`` (f) prints where
+#: its ranks ended beside them).
+PHASE_END = {}
+
+
+def _mesh_hazard():
+    """``lint`` (f)'s hazard: ``sharded_forward_rows`` with its S
+    all-gathered whole over the rows' and the batch's groups."""
+    from dgmc_tpu_torch.analysis import registry
+    inner = registry._sharded_forward_rows_specimen()
+
+    def build(device, inject=None):
+        from dgmc_tpu_torch.parallel.comm import all_gather
+        built = inner(device)
+        forward = built['fn']
+
+        def gathered(model, batch, noise_seed):
+            mesh = model.corr_sharding.mesh
+            _, S_L = forward(model, batch, noise_seed)
+            rows = all_gather(S_L.val, mesh.group('model'), dim=1)
+            return all_gather(rows, mesh.group('data'), dim=0)
+
+        return dict(built, fn=gathered)
+    return registry.Specimen('parallel.sharded_forward_rows_gather_S',
+                             build, min_devices=4, tiers=('shd',))
+
+
+def _lint_mesh_start(device='cuda'):
+    """Start ``lint`` (f)'s ranks (they share the card) through the
+    package's own launcher (``analysis/ranks.py``, as the lint CLI starts
+    them), the hazard riding along, without waiting for them."""
+    from dgmc_tpu_torch.analysis.registry import shared_cache
+    runs = shared_cache(device).mesh_runs()
+    LINT_MESH.update(run=runs.start(extra=('chip_smoke:_mesh_hazard',)),
+                     runs=runs, device=device)
+
+
+def _lint_mesh_join():
+    """Wait for ``lint`` (f)'s ranks (starting them now if ``obs`` did
+    not); their records stay in this process's specimen cache, so that
+    the CLI's tiers read them: ``{'records', 'hazard', 'wall', 'ended',
+    'device'}``, ``ended`` each rank's end on the host's wall clock."""
+    if 'run' not in LINT_MESH:
+        _lint_mesh_start()
+    run = LINT_MESH['run']
+    records = dict(LINT_MESH['runs'].wait())
+    hazard = records.pop(_mesh_hazard().name)
+    return {'records': records, 'hazard': hazard,
+            'wall': max(run.ended) - run.started, 'ended': run.ended,
+            'device': LINT_MESH['device']}
+
+
+def _lint_mesh(mesh, smi_line):
+    """``lint`` (f) (see :func:`phase_lint`). Returns its seconds."""
+    from dgmc_tpu_torch.analysis.comm import collective_table
+    from dgmc_tpu_torch.analysis.liveness import peak_summary
+    from dgmc_tpu_torch.analysis.schedule import schedule_summary
+    from dgmc_tpu_torch.analysis.shd_rules import (ShardedContext,
+                                                   analyze_sharded_tape)
+    t0 = time.perf_counter()
+    rows = []
+    for name, want in MESH_KERNELS.items():
+        recs = mesh['records'].get(name) or []
+        ran = 2 if name in ('parallel.sharded_train_step',
+                            'parallel.sharded_topk_cols') else 4
+        launches = [dict(sorted(r['launches'].items())) for r in recs]
+        missing = [(r['rank'], k) for r in recs for k in want
+                   if not r['launches'].get(k)]
+        if mesh['device'] != 'cuda':
+            missing = []    # a CPU rehearsal launches no kernel
+        if len(recs) != ran or missing or any(
+                r['device'] != mesh['device'] for r in recs):
+            raise AssertionError(f'lint (f) {name}: {len(recs)} ranks, '
+                                 f'launches {launches}, none of {missing}')
+        tape = recs[0]['tape']
+        sched = schedule_summary(tape)
+        rows.append(f'{name} on {len(recs)} ranks: collectives '
+                    f'{json.dumps(collective_table(tape)["ops"])}, '
+                    f'overlap_fraction {sched.get("overlap_fraction")}, '
+                    f'critical_path_share {sched["critical_path_share"]}, '
+                    f'static peak '
+                    f'{peak_summary(tape)["static_peak_bytes"]} B, '
+                    f'launches by rank {launches}')
+    haz = [r for r in mesh['hazard'] if r is not None]
+    found = analyze_sharded_tape(
+        [r['tape'] for r in haz],
+        ShardedContext(specimen='hazard',
+                       corr_bytes=haz[0]['budgets']['corr_bytes']))
+    if len(haz) != MESH_RANKS or [f.rule for f in found] != ['SHD302']:
+        raise AssertionError(f'lint (f) hazard: {len(haz)} ranks, findings '
+                             f'{[(f.rule, f.where) for f in found]}')
+    seconds = time.perf_counter() - t0
+    started = LINT_MESH['run'].started
+    beside = ', '.join(
+        f'{name} ended at {PHASE_END[name] - started:.1f}s'
+        for name in ('obs', 'serve_worker') if name in PHASE_END)
+    log(f'lint (f): the five mesh specimens on {MESH_RANKS} gloo ranks '
+        f'sharing the card, started with obs: the ranks ended '
+        f'{", ".join(f"{e - started:.1f}" for e in mesh["ended"])}s after '
+        f'their start ({beside}): ' + '; '.join(rows) + f'; the all-gathered-S variant of '
+        f'sharded_forward_rows: {found[0].where} {found[0].message} '
+        f'({found[0].detail}) on {smi_line}')
+    return seconds
+
+
 def phase_lint(smi_line):
     """The port's static analysis (``dgmc_tpu_torch/analysis``) on the
     card's machine, over what the earlier phases left:
@@ -7582,6 +7758,10 @@ def phase_lint(smi_line):
     --max-peak-regression`` passes on the dir against itself and fails on
     a copy whose static peaks are raised 50%.
 
+    (f) the five mesh specimens on 4 gloo ranks sharing the card
+    (:func:`_lint_mesh`; started at the start of ``obs``, joined first
+    here, so that (d)'s CLI run reads them).
+
     Prints the phase's seconds beside the card's name and power limit."""
     import tempfile
     from dgmc_tpu_torch.analysis import lint as lint_mod
@@ -7592,6 +7772,7 @@ def phase_lint(smi_line):
                                                       lint_source_file)
     from dgmc_tpu_torch.utils.io import write_json_atomic
     t_phase = time.perf_counter()
+    mesh = _lint_mesh_join()
     # (a) the CLI over the checkout
     pkg = os.path.join(ROOT, 'dgmc_tpu_torch')
     built = os.listdir(os.path.join(pkg, '_build'))
@@ -7608,7 +7789,8 @@ def phase_lint(smi_line):
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, '-m', 'dgmc_tpu_torch.analysis.lint', '--json',
-         '--skip-trace', '--fail-on', 'new', '--baseline', baseline],
+         '--skip-trace', '--skip-sharded', '--skip-sched', '--fail-on',
+         'new', '--baseline', baseline],
         cwd=ROOT,
         capture_output=True, text=True, timeout=300)
     cli_s = time.perf_counter() - t0
@@ -7617,7 +7799,8 @@ def phase_lint(smi_line):
                              f'{out.stdout[-3000:]} {out.stderr[-2000:]}')
     report = json.loads(out.stdout)
     log(f'lint (a): python -m dgmc_tpu_torch.analysis.lint --json '
-        f'--skip-trace --fail-on new: rc 0 in {cli_s:.2f}s over {len(scanned)} package '
+        f'--skip-trace --skip-sharded --skip-sched --fail-on new: rc 0 in '
+        f'{cli_s:.2f}s over {len(scanned)} package '
         f'files and chip_smoke.py (_build/ with {len(built)} files and '
         f'{len(caches)} __pycache__ dirs skipped); summary '
         f'{report["summary"]}')
@@ -7640,6 +7823,7 @@ def phase_lint(smi_line):
             with contextlib.redirect_stdout(buf):
                 rc = lint_mod.main(['--json', '--skip-source',
                                     '--skip-concurrency', '--skip-trace',
+                                    '--skip-sharded', '--skip-sched',
                                     '--obs-dir', d,
                                     '--baseline',
                                     os.path.join(tmp, 'none.json'),
@@ -7700,7 +7884,9 @@ def phase_lint(smi_line):
         # (d) the trace tier on the card, (e) the specimen cost rows
         trace_s = _lint_trace(tmp, smi_line)
         cost_s = _lint_costs(tmp, smi_line)
-        log(f'lint: (d) {trace_s:.2f}s, (e) {cost_s:.2f}s')
+        mesh_s = _lint_mesh(mesh, smi_line)
+        log(f'lint: (d) {trace_s:.2f}s, (e) {cost_s:.2f}s, (f) '
+            f'{mesh_s:.2f}s after the ranks\' {mesh["wall"]:.1f}s')
     log(f'lint: phase in {time.perf_counter() - t_phase:.2f}s on '
         f'{smi_line}')
 
@@ -7932,7 +8118,54 @@ def _par_kg_finish(argv, obs, device, ranks, t0):
         f'the one-process run in {one_s:.1f}s: epoch lines (loss, Hits@1, '
         f'Hits@10) {got} against {want}; per rank launches (the '
         f'counters) and collectives (its dispatch.json): {launches}')
+    _par_account(obs)
     return launches
+
+
+def _par_account(obs):
+    """(c)'s collective account: each rank's ``train_step`` in
+    ``host_<r>/efficiency.json`` (the cost pass of the phase-2 step),
+    equal between the ranks, and ``obs.diff --min-overlap`` over it."""
+    from dgmc_tpu_torch.obs import diff as diff_mod
+    from dgmc_tpu_torch.utils.io import write_json_atomic
+    keys = ('collectives', 'overlap_fraction', 'critical_path_share')
+    acc = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(obs, f'host_{r}', 'efficiency.json')) as f:
+            step = json.load(f)['programs']['train_step']
+        acc.append({k: step.get(k) for k in keys})
+    ar = [a['collectives']['ops'].get('all-reduce') if a['collectives']
+          else None for a in acc]
+    if None in ar or any(a != acc[0] for a in acc[1:]) or \
+            acc[0]['overlap_fraction'] is None:
+        raise AssertionError(f'parallel (c): the ranks\' train_step '
+                             f'accounts {acc}')
+    floor = acc[0]['overlap_fraction']
+    host0 = os.path.join(obs, 'host_0')
+    below = f'{host0}_below'
+    shutil.copytree(host0, below)
+    path = os.path.join(below, 'efficiency.json')
+    with open(path) as f:
+        eff = json.load(f)
+    eff['programs']['train_step']['overlap_fraction'] = round(floor - 0.01,
+                                                              4)
+    write_json_atomic(path, eff)
+    rcs = {}
+    for name, cand in (('itself', host0), ('below the floor', below)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[name] = diff_mod.main([host0, cand, '--json',
+                                       '--min-overlap', str(floor)])
+    if rcs != {'itself': 0, 'below the floor': 1}:
+        raise AssertionError(f'parallel (c): obs.diff --min-overlap {floor}'
+                             f': {rcs}')
+    log(f'parallel (c): each rank\'s train_step account (the cost pass of '
+        f'the phase-2 step, host_<r>/efficiency.json), equal on both: '
+        f'collectives {json.dumps(acc[0]["collectives"])}, overlap_fraction '
+        f'{floor}, critical_path_share {acc[0]["critical_path_share"]}; '
+        f'obs.diff --min-overlap {floor}: rc {rcs["itself"]} against '
+        f'itself, rc {rcs["below the floor"]} on the copy set to '
+        f'{round(floor - 0.01, 4)}')
 
 
 def _par_pascal(tmp, device='cuda', argv=None):
@@ -8479,6 +8712,8 @@ def main(argv=None):
             log(f'phase {name}: FAILED')
             if name == 'build':
                 break
+        finally:
+            PHASE_END[name] = time.time()
         # A phase's captured graphs hold their memory pools until they
         # are collected (steps and engines sit in reference cycles).
         gc.collect()

@@ -1,8 +1,9 @@
 """The rule catalog: every lint rule's id, tier, severity, and doc.
 
 The port's counterpart of the JAX package's ``dgmc_tpu/analysis/
-catalog.py`` for the four tiers the port has: trace (TRC, over one
-recorded run of each specimen), source (SRC, rewritten for captured
+catalog.py`` for JAX's six tiers: trace (TRC, over one recorded run of
+each specimen), sharded (SHD) and schedule & liveness (SCH/MEM, over the
+mesh specimens' runs on ranks), source (SRC, rewritten for captured
 code), recompile (RCP) and concurrency (CON, copied). One
 structured table owns what a rule IS (``--list-rules``) and what it
 means (``--explain RULE`` — what/why/fix). Pure data, so the CLI can
@@ -19,6 +20,11 @@ TIERS = {
     'TRC': 'trace (one recorded run of each registered specimen)',
     'SRC': 'source (ast lints over the package source)',
     'RCP': 'recompile (padding-bucket churn + obs telemetry)',
+    'SHD': 'sharded (the collectives of the mesh specimens\' runs)',
+    'SCH': 'schedule (list-schedule overlap over the mesh specimens\' '
+           'runs)',
+    'MEM': 'liveness (static peak-live bytes over the mesh specimens\' '
+           'runs)',
     'CON': 'concurrency (thread-entry/lock model over serving source)',
 }
 
@@ -202,6 +208,131 @@ RULES: Dict[str, RuleDoc] = {d.rule: d for d in [
        'Diff the compile-event labels in the obs run (timings.json) '
        'against the padding buckets; stabilize whatever input is '
        'changing identity.'),
+    # --- sharded tier ----------------------------------------------------
+    _r('SHD301', 'error',
+       'collective sequence diverges across ranks',
+       'A mesh specimen\'s run is one path on each rank, so the rule '
+       'compares the ranks\' collective sequences (kind, group, dtype, '
+       'shape, in order) with rank 0\'s; the first position where a rank '
+       'differs is the finding, at that collective\'s line. The runtime '
+       'face of JAX\'s branch-divergent conditional.',
+       'A rank that posts a collective its peers never enter (or a '
+       'different one) blocks forever: the multichip-hang class. Every '
+       'collective of the port goes through parallel/comm.py on every '
+       'rank of its group; a data-dependent branch around one breaks '
+       'that.',
+       'Issue the same collectives in the same order on every rank, '
+       'whatever its data: hoist the collective out of the branch, or '
+       'make both sides communicate identically.'),
+    _r('SHD302', 'error',
+       'full replication of a correspondence-shaped tensor',
+       'An all-gather or broadcast (parallel/comm.py) whose result has '
+       'rank >= 3 and at least the specimen\'s declared correspondence '
+       'payload (corr_bytes: the [B, N_s, N_t] S).',
+       'The row layout exists to keep S in row blocks; one all-gather '
+       'of it puts the whole matrix on every card — at the '
+       'million-entity scale of ROADMAP item 3 an out-of-memory.',
+       'Keep S in its row blocks: reduce shard-locally (the row sums the '
+       'consensus step all-reduces are [B, N_t, R], not S) and gather '
+       'only the [B, N_s, k] candidates, as parallel/topk.py does.'),
+    _r('SHD303', 'warning',
+       'resharding churn inside one step',
+       'Two or more resharding collectives in one step where one\'s '
+       'input derives from the other\'s output: an all-to-all, or a '
+       'send / recv (JAX\'s collective-permute) fed by another. None is '
+       'issued today: parallel/comm.py has no all-to-all and no send / '
+       'recv, and the port\'s target ring moves no data (each rank holds '
+       'every shard, parallel/topk.py). The rule holds on crafted tapes.',
+       'The layout is bounced every step: communication that scales '
+       'with the steps instead of being paid once.',
+       'Settle the layout once (the rules of parallel/rules.py) instead '
+       'of round-tripping it inside the step.'),
+    _r('SHD304', 'warning',
+       'per-step collective payload exceeds the specimen budget',
+       'The run\'s total collective payload (the bytes JAX counts: the '
+       'gathered result of an all-gather) exceeds the specimen\'s '
+       'comm_budget_bytes (analysis/registry.py, measured on the CPU '
+       'ranks with 8x headroom; --comm-budget-bytes for a specimen '
+       'without one).',
+       'Silent growth in moved bytes is how sharding regressions land '
+       'unnoticed.',
+       'If the new communication is intended, raise the budget in the '
+       'registry and re-baseline; otherwise find the collective the '
+       'breakdown names.'),
+    _r('SHD305', 'error',
+       'precision contract: a bf16 accumulator',
+       'An accumulation into a bf16 result: an all-reduce of a bf16 '
+       'tensor (NCCL sums in bf16) or a scatter / index_add accumulation '
+       'in bf16, with at least 64 addends; worst when an explicit '
+       'float32 -> bf16 _to_copy feeds it. Torch\'s matmuls and '
+       'reductions accumulate in float32 internally (the precision '
+       'policy switches cuBLAS\'s bf16 reduction off), so they are no '
+       'finding.',
+       'models/precision.py\'s contract is bf16 compute with float32 '
+       'accumulation: a bf16 running sum stops absorbing addends once it '
+       'is ~256x any of them.',
+       'Sum in float32 and cast after: all-reduce a float32 copy (as '
+       'StepComm.grads sums its float32 flat buffer), accumulate the '
+       'scatter into a float32 tensor.'),
+    # --- schedule & liveness tier ----------------------------------------
+    _r('SCH401', 'error',
+       'async collective serialized inside a loop',
+       'An asynchronous collective, in a loop (recurring at one line), '
+       'whose wait follows it with no compute in between in program '
+       'order. None is issued today: the port\'s collectives are '
+       'synchronous calls, so the rule holds on crafted tapes.',
+       'The program paid for asynchrony and then blocked on it '
+       'immediately: the loop runs in lockstep.',
+       'Issue the compute that does not need the result between the '
+       'collective and its wait, or double-buffer the loop.'),
+    _r('SCH402', 'warning',
+       'modeled collective overlap below the specimen budget',
+       'The run\'s collective overlap fraction in the schedule model '
+       '(analysis/schedule.py: JAX\'s two-stream list schedule over the '
+       'tape\'s dependencies, byte proxies for durations) fell below the '
+       'specimen\'s overlap_budget (the CPU ranks\' value x 0.77, JAX\'s '
+       'headroom).',
+       'The model measures the dependency slack, not wall time: a drop '
+       'means an edit added a dependency that forces serialization.',
+       'If intended, lower the overlap_budget in the registry and '
+       're-baseline; otherwise find the new dependency of the '
+       'collectives (the finding counts the serialized ones).'),
+    _r('SCH403', 'info',
+       'per-iteration fetch serialized on the critical path '
+       '(double-buffer opportunity)',
+       'A fetch (a gather, index_select, an indexing gather, a '
+       'collective or a host -> device copy) on the run\'s critical path '
+       'that feeds compute, recurs at one line (a loop\'s iterations) '
+       'and moves at least double_buffer_min_bytes.',
+       'Iteration k+1\'s fetch cannot start until iteration k is done: '
+       'the serial chunk loop ROADMAP item 4 wants pipelined. INFO: an '
+       'opportunity, not a defect.',
+       'Fetch chunk k+1 while computing chunk k (a prefetch ring, as '
+       'ops/offload.py does on a copy stream).'),
+    _r('MEM404', 'error',
+       'static peak-live bytes exceed the specimen budget',
+       'The liveness bound of the run (analysis/liveness.py: each '
+       'storage from its op to its last use, the arguments live '
+       'throughout) exceeds the specimen\'s peak_bytes_budget (the CPU '
+       'ranks\' peak x 1.5).',
+       'Memory regressions must fail the lint before a scale run, not '
+       'during one.',
+       'If the growth is intended, raise peak_bytes_budget and '
+       're-baseline; otherwise the finding names the stages holding '
+       'bytes at the peak — find the buffer that began outliving its '
+       'consumer.'),
+    _r('MEM405', 'error',
+       'residual scales with the full streamed axis',
+       'A storage of rank >= 2 and at least residual_min_bytes, made in '
+       'the forward and read in the backward (an autograd residual) or '
+       'carried from one iteration of a loop to the next, whose shape '
+       'holds the full streamed axis (stream_full) rather than the chunk '
+       '(or stacks one slab per chunk over the whole axis).',
+       'JAX\'s PR 9 class: a chunked search that keeps per-chunk masks '
+       'for the backward holds the whole corpus axis — gigabytes for a '
+       'search whose state is [rows, k].',
+       'Keep the search out of autograd (the port\'s top-k runs under '
+       'no_grad) or recompute in the backward.'),
     # --- concurrency tier ------------------------------------------------
     _r('CON501', 'error',
        'shared attribute read-modify-written from a thread with no lock',

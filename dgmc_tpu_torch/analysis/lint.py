@@ -14,17 +14,24 @@ Usage::
 
 The port's counterpart of the JAX package's ``python -m
 dgmc_tpu.analysis.lint``, with its flags, report format, baseline file
-format and exit statuses for the four tiers the port has (each
-skippable): ``--skip-trace`` (TRC: one recorded run of each registered
-specimen, :mod:`~dgmc_tpu_torch.analysis.registry`, on ``--device``:
-``cuda`` by default, where the specimens launch the kernels; ``cpu``
-runs their plain versions), ``--skip-source`` (SRC: ``ast`` lints over
-captured code), ``--skip-concurrency`` (CON: thread-entry/lock rules)
-and ``--skip-recompile`` (RCP: padding-bucket churn). The recompile
-pass needs a recorded run's buckets: it runs only when ``--obs-dir`` is
-given — padding buckets are a runtime artifact, there is nothing to
-analyze statically without one. A tier runs only when a selected rule
-needs it, and the CLI imports torch only when the trace tier runs.
+format and exit statuses for JAX's six tiers (each skippable):
+``--skip-trace`` (TRC: one recorded run of each registered specimen,
+:mod:`~dgmc_tpu_torch.analysis.registry`, on ``--device``: ``cuda`` by
+default, where the specimens launch the kernels; ``cpu`` runs their
+plain versions), ``--skip-sharded`` (SHD: the collectives of the mesh
+specimens' runs), ``--skip-sched`` (SCH/MEM: the schedule model and the
+static peak of the same runs), ``--skip-source`` (SRC: ``ast`` lints
+over captured code), ``--skip-concurrency`` (CON: thread-entry/lock
+rules) and ``--skip-recompile`` (RCP: padding-bucket churn). The mesh
+specimens run on 4 local gloo ranks the CLI starts (on ``--device``;
+on ``cuda`` the ranks share the card), once for every tier that reads
+them, unless the process is in a world of enough ranks
+(:mod:`~dgmc_tpu_torch.analysis.ranks`). ``--comm-budget-bytes`` is
+SHD304's budget for a specimen without its own. The recompile pass
+needs a recorded run's buckets: it runs only when ``--obs-dir`` is given
+— padding buckets are a runtime artifact, there is nothing to analyze
+statically without one. A tier runs only when a selected rule needs it,
+and the CLI imports torch only when a specimen tier runs.
 
 The source and concurrency tiers scan the package plus ``chip_smoke.py``
 when it sits beside the package; ``--source-root`` overrides the whole
@@ -62,8 +69,9 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog='dgmc-lint',
         description='Static analysis of the PyTorch/CUDA port: trace '
-                    'rules over recorded specimen runs, source ast lints '
-                    'over captured code, concurrency rules, and '
+                    'rules over recorded specimen runs, the mesh '
+                    'specimens\' collectives, schedule and peak, source '
+                    'ast lints over captured code, concurrency rules, and '
                     'recompile-hazard checks.')
     p.add_argument('--json', action='store_true',
                    help='emit the machine-readable report on stdout '
@@ -109,6 +117,10 @@ def build_parser():
                    help='skip the source ast tier')
     p.add_argument('--skip-recompile', action='store_true',
                    help='skip the padding-bucket recompile pass')
+    p.add_argument('--skip-sharded', action='store_true',
+                   help='skip the sharded (SHD) tier')
+    p.add_argument('--skip-sched', action='store_true',
+                   help='skip the schedule & liveness (SCH/MEM) tier')
     p.add_argument('--skip-concurrency', action='store_true',
                    help='skip the concurrency (CON) tier')
     p.add_argument('--source-root', default=None,
@@ -121,6 +133,10 @@ def build_parser():
                         'buckets + compile telemetry (RCP202)')
     p.add_argument('--max-const-bytes', type=int, default=None,
                    help='TRC002 threshold in bytes (default 1 MiB)')
+    p.add_argument('--comm-budget-bytes', type=int, default=None,
+                   help='SHD304 fallback budget for specimens without '
+                        'their own comm_budget_bytes (default: only '
+                        'per-specimen budgets fire)')
     p.add_argument('--device', default='cuda',
                    help='where the trace tier runs the specimens (default '
                         'cuda: the kernels launch; cpu: their plain '
@@ -165,12 +181,24 @@ def collect_findings(args, progress):
                  f'from {args.obs_dir}')
         out.extend(analyze_buckets(buckets, specimen='obs',
                                    compile_events=events))
+    cache = None
+    if any(tier_on(t) for t in ('TRC', 'SHD', 'SCH', 'MEM')):
+        from dgmc_tpu_torch.analysis.registry import shared_cache
+        cache = shared_cache(args.device)
     if tier_on('TRC'):
-        from dgmc_tpu_torch.analysis.registry import (run_trace_tier,
-                                                      shared_cache)
+        from dgmc_tpu_torch.analysis.registry import run_trace_tier
         out.extend(run_trace_tier(const_bytes=args.max_const_bytes,
                                   on_progress=progress, skipped=skipped,
-                                  cache=shared_cache(args.device)))
+                                  cache=cache))
+    if tier_on('SHD'):
+        from dgmc_tpu_torch.analysis.shd_rules import run_sharded_tier
+        out.extend(run_sharded_tier(
+            cache=cache, comm_budget_bytes=args.comm_budget_bytes,
+            on_progress=progress, skipped=skipped))
+    if tier_on('SCH') or tier_on('MEM'):
+        from dgmc_tpu_torch.analysis.sched_rules import run_sched_tier
+        out.extend(run_sched_tier(cache=cache, on_progress=progress,
+                                  skipped=skipped))
     return out, skipped
 
 
@@ -206,6 +234,10 @@ def _rules_analyzed(args):
         rules -= {r for r in rules if r.startswith('SRC')}
     if args.skip_recompile or not args.obs_dir:
         rules -= {r for r in rules if r.startswith('RCP')}
+    if args.skip_sharded:
+        rules -= {r for r in rules if r.startswith('SHD')}
+    if args.skip_sched:
+        rules -= {r for r in rules if r.startswith(('SCH', 'MEM'))}
     if args.skip_concurrency:
         rules -= {r for r in rules if r.startswith('CON')}
     if args.select:

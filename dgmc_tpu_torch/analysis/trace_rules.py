@@ -56,6 +56,7 @@ port's what / why / fix):
 """
 
 import collections
+import contextlib
 import dataclasses
 import os
 import sys
@@ -99,10 +100,19 @@ _ACCUMULATING_PUTS = frozenset({'index_put', 'index_put_',
 #: Sorting ops and their default axis (TRC006).
 _SORTS = frozenset({'sort', 'argsort', 'topk', 'msort'})
 
+#: Ops that allocate without computing (with the views: the schedule
+#: model's free ops, JAX's ``FREE_OPS``).
+_ALLOCS = frozenset({'empty', 'empty_like', 'empty_strided', 'new_empty',
+                     'new_empty_strided', 'detach', 'alias', 'lift_fresh',
+                     'lift_fresh_copy'})
+
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _ANALYSIS_DIR = os.path.dirname(os.path.abspath(__file__))
 _STDLIB_DIR = os.path.dirname(os.path.abspath(os.__file__))
 _ANCHORS = ('dgmc_tpu_torch', 'tests', 'examples', 'benchmarks')
+#: The collectives' own module: a collective's provenance is its caller.
+_COMM_FILES = (os.path.join(os.path.dirname(_ANALYSIS_DIR), 'parallel',
+                            'comm.py'),)
 
 
 @dataclasses.dataclass
@@ -128,6 +138,7 @@ class TapeOp:
     stage: str = 'other'
     backward: bool = False
     in_dtypes: Tuple[torch.dtype, ...] = ()
+    in_shapes: Tuple[Tuple[int, ...], ...] = ()
     out_dtypes: Tuple[torch.dtype, ...] = ()
     out_shapes: Tuple[Tuple[int, ...], ...] = ()
     reads: Tuple[int, ...] = ()
@@ -139,6 +150,21 @@ class TapeOp:
     host_read: Optional[str] = None
     #: A floating-point accumulation through atomics (TRC005).
     atomic: bool = False
+    #: A copy from the host to the card (a fetch of SCH403).
+    host_to_device: bool = False
+    #: Bytes of its results (the schedule model's cost of a compute op).
+    out_bytes: int = 0
+    #: A view or an allocation without compute (the schedule's free ops).
+    free: bool = False
+    #: Run inside a kernel entry (its plain version's ops): the entry's
+    #: mark carries the cost.
+    in_kernel: bool = False
+    #: The call stack's identity (:func:`_site`; a backward op's is its
+    #: forward op's): equal for a Python loop's iterations.
+    site: int = 0
+    #: A collective (``kind='collective'``): ``{'kind', 'group', 'dtype',
+    #: 'shape', 'payload', 'async'}``.
+    collective: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -179,7 +205,7 @@ _ENGINE = (os.path.join(_TORCH_DIR, 'autograd', 'graph.py'),
            os.path.join(_TORCH_DIR, 'autograd', '__init__.py'))
 
 
-def _user_frame(depth=2, backward=False):
+def _user_frame(depth=2, backward=False, skip=()):
     """``path:line`` of the innermost frame outside torch, the standard
     library, site-packages and this package. With ``backward``, only a
     frame inside the backward being run counts (a custom
@@ -192,10 +218,23 @@ def _user_frame(depth=2, backward=False):
             return None
         if not (name.startswith(_TORCH_DIR) or name.startswith(_ANALYSIS_DIR)
                 or name.startswith(_STDLIB_DIR) or '<' in name
+                or name in skip
                 or 'site-packages' in name or 'dist-packages' in name):
             return f'{_frame_path(name)}:{f.f_lineno}'
         f = f.f_back
     return None if backward else '<unknown>'
+
+
+def _site(depth=2):
+    """The identity of the call stack (every frame's file and line):
+    equal for the iterations of a Python loop, different for two calls
+    of one function from two lines."""
+    f = sys._getframe(depth)
+    frames = []
+    while f is not None:
+        frames.append((f.f_code.co_filename, f.f_lineno))
+        f = f.f_back
+    return hash(tuple(frames))
 
 
 def _key(t):
@@ -284,10 +323,33 @@ class TapeRecorder(TorchDispatchMode):
         self._thread = None
         self._by_seq = {}     # autograd sequence nr -> (provenance, stage)
         self._lock = threading.Lock()
+        self._hidden = set()  # threads whose ops go unrecorded
+        self._prev = None
 
     def __enter__(self):
+        from dgmc_tpu_torch.ops.kernels import dispatch
         self._thread = threading.get_ident()
+        self._prev, dispatch.tape = dispatch.tape, self
         return super().__enter__()
+
+    def __exit__(self, *exc):
+        from dgmc_tpu_torch.ops.kernels import dispatch
+        try:
+            return super().__exit__(*exc)
+        finally:
+            dispatch.tape = self._prev
+
+    @contextlib.contextmanager
+    def hidden(self):
+        """The ops this thread runs in the block go unrecorded (a
+        collective's own copies and communication, marked as one op by
+        :meth:`collective`)."""
+        me = threading.get_ident()
+        self._hidden.add(me)
+        try:
+            yield
+        finally:
+            self._hidden.discard(me)
 
     # -- buffers ------------------------------------------------------------
 
@@ -298,6 +360,9 @@ class TapeRecorder(TorchDispatchMode):
         if k is None:
             return None
         bid = self._live.get(k)
+        if bid is not None and \
+                self.tape.buffers[bid].nbytes != t.untyped_storage().nbytes():
+            bid = None      # a storage made out of sight at a freed address
         if bid is None:
             bid = self._new_buffer(k, t, 'argument' if k in self._declared
                                    else 'closure', -1, 'other')
@@ -315,8 +380,10 @@ class TapeRecorder(TorchDispatchMode):
 
     # -- provenance ---------------------------------------------------------
 
-    def _where(self):
-        """``(provenance, stage, backward)`` of the op running now."""
+    def _where(self, skip=()):
+        """``(provenance, stage, backward, site)`` of the op running
+        now (``site``: :func:`_site`); the files in ``skip`` are no
+        provenance."""
         node = torch._C._current_autograd_node()
         if node is not None:
             # A backward op: the forward op that made its node ran with
@@ -324,13 +391,15 @@ class TapeRecorder(TorchDispatchMode):
             # the op runs in the port's own backward code (a custom
             # autograd.Function's), which names it better.
             got = self._by_seq.get(node._sequence_nr() + 1,
-                                   ('<unknown>', 'other'))
-            return _user_frame(3, backward=True) or got[0], got[1], True
-        prov = _user_frame(3)
+                                   ('<unknown>', 'other', 0))
+            return (_user_frame(3, backward=True, skip=skip) or got[0],
+                    got[1], True, got[2])
+        prov = _user_frame(3, skip=skip)
         stage = (stages_mod.current()
                  if threading.get_ident() == self._thread else 'other')
-        self._by_seq.setdefault(_seq(), (prov, stage))
-        return prov, stage, False
+        site = _site(3)
+        self._by_seq.setdefault(_seq(), (prov, stage, site))
+        return prov, stage, False, site
 
     # -- recording ----------------------------------------------------------
 
@@ -338,7 +407,8 @@ class TapeRecorder(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        if func.namespace == 'profiler':
+        if func.namespace == 'profiler' or \
+                threading.get_ident() in self._hidden:
             return out
         with self._lock:
             self._record(func, name, args, kwargs, out)
@@ -346,7 +416,7 @@ class TapeRecorder(TorchDispatchMode):
 
     def _record(self, func, name, args, kwargs, out):
         index = len(self.tape.ops)
-        prov, stage, backward = self._where()
+        prov, stage, backward, site = self._where()
         ins = _tensors((args, kwargs))
         schema_args = func._schema.arguments
         written = set()
@@ -358,6 +428,12 @@ class TapeRecorder(TorchDispatchMode):
                     written.add(id(t))
         reads, writes = [], []
         in_keys = {}
+        if name in ('lift_fresh', 'lift_fresh_copy'):
+            # ``torch.tensor``'s data, made out of the dispatcher's sight:
+            # a new constant, whatever freed storage its address reuses.
+            for t in ins:
+                if _key(t) is not None:
+                    self._new_buffer(_key(t), t, 'closure', -1, 'other')
         for t in ins:
             bid = self._buffer_of(t)
             if bid is None:
@@ -372,18 +448,28 @@ class TapeRecorder(TorchDispatchMode):
                 continue        # a view or an in-place result
             bid = self._new_buffer(k, t, 'op', index, stage)
             allocs.append((bid, self.tape.buffers[bid].nbytes))
+        from dgmc_tpu_torch.ops.kernels import dispatch
         op = TapeOp(
             index=index, name=str(func), provenance=prov, stage=stage,
             backward=backward,
             in_dtypes=tuple(t.dtype for t in ins),
+            in_shapes=tuple(tuple(t.shape) for t in ins),
             out_dtypes=tuple(t.dtype for t in outs),
             out_shapes=tuple(tuple(t.shape) for t in outs),
-            reads=tuple(reads), writes=tuple(writes), allocs=tuple(allocs))
+            reads=tuple(reads), writes=tuple(writes), allocs=tuple(allocs),
+            out_bytes=sum(t.numel() * t.element_size() for t in outs),
+            free=bool(func.is_view) or name in _ALLOCS,
+            in_kernel=bool(getattr(dispatch.counter, 'suppress', 0)),
+            site=site)
         if name in _SORTS and ins:
             x = ins[0]
             op.sort_size = (int(x.shape[_arg(func, args, kwargs, 'dim', -1)])
                             if x.dim() else 1)
         op.host_read = self._host_read(func, name, args, kwargs, ins, out)
+        op.host_to_device = bool(
+            name in ('_to_copy', 'copy_', '_copy_from') and outs
+            and outs[0].is_cuda and any(t.device.type == 'cpu'
+                                        for t in ins))
         if name == '_local_scalar_dense' and self._host_step(ins[0]):
             op.host_read = None
         floating = any(d.is_floating_point or d.is_complex
@@ -427,17 +513,70 @@ class TapeRecorder(TorchDispatchMode):
                         return True
         return False
 
-    def mark(self, name, args, kw):
+    def _results(self, index, outs, stage, skip=()):
+        """``(writes, allocs)`` of the tensors ``outs`` an op at
+        ``index`` left: the buffers already live, and the new ones."""
+        writes, allocs = [], []
+        for t in outs:
+            k = _key(t)
+            if k is None or k in skip:
+                continue
+            bid = self._live.get(k)
+            if bid is None:
+                bid = self._new_buffer(k, t, 'op', index, stage)
+                allocs.append((bid, self.tape.buffers[bid].nbytes))
+            elif bid not in writes:
+                writes.append(bid)
+        return writes, allocs
+
+    def mark(self, name, args, kw, out=None):
         """A kernel entry ``name`` ran on the tensors in ``args`` /
-        ``kw`` (its reads, out of the dispatcher's sight)."""
+        ``kw`` (its reads, out of the dispatcher's sight) and returned
+        ``out`` (its results: written, or made, by the entry)."""
         with self._lock:
             index = len(self.tape.ops)
+            stage = stages_mod.current()
             reads = [b for b in map(self._buffer_of, _tensors((args, kw)))
                      if b is not None]
-            self.tape.ops.append(TapeOp(index=index, name=name,
-                                        kind='kernel', reads=tuple(reads),
-                                        provenance=_user_frame(2),
-                                        stage=stages_mod.current()))
+            outs = _tensors(out)
+            writes, allocs = self._results(index, outs, stage)
+            self.tape.ops.append(TapeOp(
+                index=index, name=name, kind='kernel', reads=tuple(reads),
+                writes=tuple(writes), allocs=tuple(allocs),
+                out_bytes=sum(t.numel() * t.element_size() for t in outs),
+                provenance=_user_frame(2), stage=stage, site=_site(2)))
+
+    def collective(self, kind, group, tensor, out, payload, inplace):
+        """One collective of :mod:`~dgmc_tpu_torch.parallel.comm`: its
+        ``kind`` (JAX's spelling), the ``group``'s ranks, the caller's
+        ``tensor`` (read, and written where ``inplace``) and ``out`` (a
+        new tensor otherwise), its ``payload`` bytes."""
+        with self._lock:
+            index = len(self.tape.ops)
+            prov, stage, backward, site = self._where(skip=_COMM_FILES)
+            bid = self._buffer_of(tensor)
+            reads = () if bid is None else (bid,)
+            writes, allocs = list(reads), []
+            if not inplace:
+                # A new tensor, made out of the dispatcher's sight: its
+                # storage may reuse a freed one's address.
+                writes = []
+                for t in _tensors(out):
+                    k = _key(t)
+                    if k is not None:
+                        bid = self._new_buffer(k, t, 'op', index, stage)
+                        allocs.append((bid, self.tape.buffers[bid].nbytes))
+            self.tape.ops.append(TapeOp(
+                index=index, name=kind, kind='collective', provenance=prov,
+                stage=stage, backward=backward, site=site,
+                in_dtypes=(tensor.dtype,),
+                out_dtypes=(out.dtype,), out_shapes=(tuple(out.shape),),
+                reads=reads, writes=tuple(writes), allocs=tuple(allocs),
+                out_bytes=int(payload),
+                collective={'kind': kind, 'group': tuple(group),
+                            'dtype': str(tensor.dtype).replace('torch.', ''),
+                            'shape': tuple(tensor.shape),
+                            'payload': int(payload), 'async': False}))
 
     def finish(self, *alive):
         """Mark the buffers of every tensor reachable from ``alive`` (the

@@ -59,11 +59,24 @@ kernels it launched (``launches``, from the dispatch ledger) and, on the
 card, the allocator's measured peak above what the arguments held
 (``measured_peak_bytes``). ``--obs-dir`` merges the rows into that run's
 ``efficiency.json`` (run rows kept verbatim; a rerun replaces the
-specimen rows), which ``obs/diff.py --max-peak-regression`` reads.
-Left out of the JAX module: the collective table (no collectives on one
-card) and the schedule fields ``overlap_fraction`` and
-``critical_path_share`` (JAX's schedule model reads HLO; it waits for
-multi-GPU work).
+specimen rows), which ``obs/diff.py --max-peak-regression`` reads. The
+mesh specimens' rows come from rank 0's run on the ranks the CLI starts
+(:mod:`~dgmc_tpu_torch.analysis.ranks`).
+
+**The collective account** (JAX's ``_schedule_fields``,
+:func:`schedule_fields`): where the program runs on several ranks (a
+mesh specimen, or a program counted in a world of more than one rank),
+the counted run is also recorded on the trace tier's tape
+(:class:`~dgmc_tpu_torch.analysis.trace_rules.TapeRecorder`, on which
+each collective of :mod:`~dgmc_tpu_torch.parallel.comm` marks itself),
+and the program's row carries ``collectives`` (JAX's table,
+:mod:`~dgmc_tpu_torch.analysis.comm`), ``overlap_fraction`` (omitted
+when nothing moved) and ``critical_path_share`` (the schedule model,
+:mod:`~dgmc_tpu_torch.analysis.schedule`) and ``static_peak_bytes``,
+all from that one run; a model's failure leaves ``schedule_error`` /
+``liveness_error`` in their place. ``obs/diff.py --min-overlap`` reads
+``overlap_fraction``. On one process the run account carries none of
+them, as JAX's lowered one-device account carries none.
 """
 
 import argparse
@@ -84,8 +97,8 @@ from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['PEAK_FLOPS', 'CPU_PEAK_FLOPS', 'STAGE_NAMES', 'ADAM_FLOPS',
            'peak_flops_entry', 'stage_of', 'WorkCounter', 'cost_summary',
-           'efficiency_payload', 'headline_of', 'render_costs',
-           'specimen_costs', 'main']
+           'schedule_fields', 'efficiency_payload', 'headline_of',
+           'render_costs', 'specimen_costs', 'main']
 
 #: Dense bf16 tensor-core peak per card, by
 #: ``torch.cuda.get_device_name()``: NVIDIA's H100 datasheet (SXM5:
@@ -195,7 +208,7 @@ class WorkCounter(TorchDispatchMode):
     per stage (see the module docstring); :meth:`summary` gives the
     account. One counter at a time; the count is of the thread that
     enters it and of the autograd backward it starts. ``on_kernel(name,
-    args, kw)``, if given, is told of each kernel entry's call after it
+    args, kw, out)``, if given, is told of each kernel entry's call after it
     returns (the trace tier's tape marks the launch there: it shares
     the counter's slot in the dispatch ledger)."""
 
@@ -291,7 +304,7 @@ class WorkCounter(TorchDispatchMode):
         :func:`~dgmc_tpu_torch.ops.kernels.dispatch.counted`)."""
         out = self._kernel(work_fn, fn, args, kw)
         if self.on_kernel is not None:
-            self.on_kernel(getattr(fn, '__name__', 'kernel'), args, kw)
+            self.on_kernel(getattr(fn, '__name__', 'kernel'), args, kw, out)
         return out
 
     def _kernel(self, work_fn, fn, args, kw):
@@ -375,6 +388,39 @@ class WorkCounter(TorchDispatchMode):
         return out
 
 
+def schedule_fields(tape):
+    """The collective account of one recorded run (JAX's
+    ``_schedule_fields``): ``collectives``, ``overlap_fraction`` (omitted
+    when the run moved nothing between ranks), ``critical_path_share``
+    and ``static_peak_bytes``; a model that fails leaves
+    ``schedule_error`` / ``liveness_error`` instead, so a vanished field
+    has its cause beside it."""
+    out = {}
+    try:
+        from dgmc_tpu_torch.analysis.comm import collective_table
+        from dgmc_tpu_torch.analysis.schedule import schedule_summary
+        out['collectives'] = collective_table(tape)
+        sched = schedule_summary(tape)
+        if sched.get('overlap_fraction') is not None:
+            out['overlap_fraction'] = sched['overlap_fraction']
+        out['critical_path_share'] = sched['critical_path_share']
+    except Exception as e:
+        out['schedule_error'] = f'{type(e).__name__}: {e}'
+    try:
+        from dgmc_tpu_torch.analysis.liveness import peak_summary
+        peak = peak_summary(tape)
+        if peak.get('static_peak_bytes'):
+            out['static_peak_bytes'] = peak['static_peak_bytes']
+    except Exception as e:
+        out['liveness_error'] = f'{type(e).__name__}: {e}'
+    return out
+
+
+def _several_ranks():
+    from dgmc_tpu_torch.parallel.distributed import process_count
+    return process_count() > 1
+
+
 def cost_summary(target, *args, step_time_s=None):
     """Cost account of one program: ``target`` a train step (one with a
     ``cost_pass``, whose forward, loss and backward are counted and whose
@@ -382,11 +428,17 @@ def cost_summary(target, *args, step_time_s=None):
     callable, run once on ``*args`` under the counter without a gradient.
 
     Returns ``{'flops', 'bytes', 'arith_intensity', 'stages', 'kernels',
-    'source', ['step_time_s']}``.
+    'source', ['step_time_s']}`` and, in a world of several ranks, the
+    run's collective account (:func:`schedule_fields`).
     """
+    import contextlib
     counter = WorkCounter()
+    recorder = None
+    if _several_ranks():
+        from dgmc_tpu_torch.analysis.trace_rules import TapeRecorder
+        recorder = TapeRecorder(declared=args)
     params = None
-    with counter:
+    with counter, (recorder or contextlib.nullcontext()):
         if hasattr(target, 'cost_pass'):
             params = target.cost_pass(*args)
         else:
@@ -395,6 +447,8 @@ def cost_summary(target, *args, step_time_s=None):
     if params is not None:
         counter.add_optimizer(params)
     out = counter.summary()
+    if recorder is not None:
+        out.update(schedule_fields(recorder.finish(params, args)))
     if step_time_s:
         out['step_time_s'] = step_time_s
     return out
@@ -480,6 +534,15 @@ def render_costs(payload):
                             f'arguments)' if measured is not None else ''))
         if p.get('launches'):
             lines.append(f'    launches             {p["launches"]}')
+        if p.get('overlap_fraction') is not None:
+            lines.append(f'    overlap / cp-share   '
+                         f'{p["overlap_fraction"]:.4f} / '
+                         f'{p.get("critical_path_share", 0):.4f}')
+        coll = p.get('collectives') or {}
+        if coll.get('count'):
+            kinds = ', '.join(f'{k} x{v["count"]} ({v["bytes"]} B)'
+                              for k, v in sorted(coll['ops'].items()))
+            lines.append(f'    collectives          {kinds}')
         for stage, row in (p.get('stages') or {}).items():
             lines.append(f'    stage {stage:<15} '
                          f'flops {_fmt_num(row.get("flops")):>8}  '
@@ -497,25 +560,27 @@ def specimen_costs(names=None, on_progress=None, device=None, cache=None):
     """``{specimen_name: row}`` over the registered specimens
     (:func:`dgmc_tpu_torch.analysis.registry.default_specimens`), each
     from its one recorded run in ``cache`` (this process's shared cache
-    on ``device``, default ``cuda``, when none is given): the work
-    count, ``static_peak_bytes`` and ``peak_stage_bytes``,
-    ``argument_bytes`` (what was live before the run), ``launches``,
-    ``measured_peak_bytes`` (the card's allocator; None on the CPU) and
-    ``run_s``. Probes are forced off (the registry's contract); a
-    specimen that fails to build or run is an ``{'error': ...}`` row."""
+    on ``device``, default ``cuda``, starting ranks for the mesh
+    specimens, when none is given): the work count, ``static_peak_bytes``
+    and ``peak_stage_bytes``, ``argument_bytes`` (what was live before
+    the run), the collective account (:func:`schedule_fields`),
+    ``launches``, ``measured_peak_bytes`` (the card's allocator; None on
+    the CPU) and ``run_s``; a mesh specimen's from rank 0's run. Probes
+    are forced off (the registry's contract); a specimen that fails to
+    build or run is an ``{'error': ...}`` row."""
     from dgmc_tpu_torch.analysis.liveness import peak_summary
     from dgmc_tpu_torch.analysis.registry import (iter_runnable_specimens,
                                                   shared_cache)
     cache = cache if cache is not None else shared_cache(device)
     out = {}
-    for spec in iter_runnable_specimens('trace', names=names,
-                                        on_progress=on_progress,
-                                        device=cache.device):
+    for spec in iter_runnable_specimens(None, names=names,
+                                        on_progress=on_progress):
         if on_progress:
-            on_progress(f'run {spec.name} on {cache.device}')
+            on_progress(f'run {spec.name} on {cache.where(spec)}')
         try:
             rec = cache.artifacts(spec).recorded()
             row = dict(rec['cost'])
+            row.update(schedule_fields(rec['tape']))
             row.update(peak_summary(rec['tape']))
             row['argument_bytes'] = sum(
                 b.nbytes for b in rec['tape'].buffers.values()

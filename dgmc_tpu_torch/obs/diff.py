@@ -23,11 +23,13 @@ rows, ``steps_per_sec`` and the headline ``mfu`` (``efficiency.json``
 divides by that same p50) compare launch times; the row that sees the
 card's time is ``idle_fraction`` with ``idle_source`` ``device`` (from
 ``attribution.json``, merged by ``python -m
-dgmc_tpu_torch.obs.attribution PROFILE --obs-dir DIR``). No port run
-writes ``overlap_fraction`` or ``static_peak_bytes`` (JAX's schedule and
-liveness models), ``measured_overlap_fraction`` on one card, or elastic
-shrinks: the diff treats them as it treats any run without them (no row
-when both lack one; a candidate that lost what the baseline had fails).
+dgmc_tpu_torch.obs.attribution PROFILE --obs-dir DIR``). A run of several
+ranks writes ``overlap_fraction`` and ``static_peak_bytes`` (the schedule
+and liveness models over its counted step, ``obs/cost.py``), as do the
+specimen rows of ``obs.cost``; a one-process run writes neither, and no
+run writes ``measured_overlap_fraction`` on one card: the diff treats a
+missing account as it treats any run without it (no row when both lack
+one; a candidate that lost what the baseline had fails).
 
 - **step p50 / p95** — relative increase above
   ``--max-step-p50-regression`` / ``--max-step-p95-regression`` fails.

@@ -52,6 +52,10 @@ _PATHS = (('kernel', 'plain'), ('native', 'numpy'), ('device', 'host'),
           ('captured', 'eager'))
 #: The active work counter (``obs.cost.WorkCounter``), or None.
 counter = None
+#: The active tape recorder (``analysis.trace_rules.TapeRecorder``), or
+#: None: the collectives of :mod:`~dgmc_tpu_torch.parallel.comm` mark
+#: themselves on it.
+tape = None
 #: Kernel entry name -> its work function (:func:`counted`).
 WORK = {}
 

@@ -15,12 +15,14 @@ table, whatever its size.
   the compute stream waits on when :meth:`PrefetchRing.get` serves the
   chunk (the card's form of the JAX package's ``_pinned_put``). ``get(i)``
   tops the window ``i+1 .. i+depth`` back up and evicts every slot behind
-  the cursor. One device: the JAX ring's round-robin over devices is not
-  ported.
+  the cursor. With ``devices`` (JAX's round-robin) chunk ``i`` goes to
+  ``devices[i % n]``, each device's copies on a copy stream of its own.
 - :func:`offloaded_streamed_topk`: the source table in host RAM, source
-  chunks through the ring against a device-resident target table;
-  bit-identical to ``streamed_topk`` on the same inputs (the same
-  searches of the same chunks in the same order).
+  chunks through the ring against a device-resident target table (one
+  copy a device with ``devices``, chunk ``i`` searched on
+  ``devices[i % n]``: rows are independent, so the ring is also
+  data-parallel dispatch); bit-identical to ``streamed_topk`` on the same
+  inputs (the same searches of the same chunks in the same order).
 - :func:`offloaded_corpus_topk`: the target (corpus) table in host RAM,
   target chunks through the ring, each chunk's top-k merged into a running
   per-row carry, carry first (a stable descending sort), so earlier target
@@ -64,13 +66,15 @@ class PrefetchRing:
     callable ``i -> host chunk`` (``n_chunks`` then required). ``get(i)``
     takes a non-decreasing cursor: it returns chunk ``i`` on ``device``,
     issues the copies of ``i+1 .. i+depth`` and evicts every slot behind
-    the cursor, so at most ``depth + 1`` chunks are on the device.
+    the cursor, so at most ``depth + 1`` chunks are on the devices.
     ``puts`` / ``misses`` / ``evictions`` count copies issued, chunks
-    served cold and slots dropped. ``device``: ``cuda`` by default.
+    served cold and slots dropped. ``device``: ``cuda`` by default;
+    ``devices`` (a list, not with ``device``): chunk ``i`` lives on
+    ``devices[i % len(devices)]`` (JAX's round-robin).
     """
 
     def __init__(self, source, depth=DEFAULT_PREFETCH_DEPTH, n_chunks=None,
-                 device=None):
+                 device=None, devices=None):
         self._fn = (source.__getitem__ if hasattr(source, '__getitem__')
                     else source)
         if n_chunks is None:
@@ -80,27 +84,44 @@ class PrefetchRing:
             n_chunks = source.shape[0]
         self.n_chunks = int(n_chunks)
         self.depth = max(1, int(depth))
-        self.device = canonical_device(resolve_device(device))
-        self._copy = (torch.cuda.Stream(self.device)
-                      if self.device.type == 'cuda' else None)
+        if devices is not None and device is not None:
+            raise ValueError('pass device or devices, not both')
+        self.devices = [canonical_device(resolve_device(d))
+                        for d in (devices if devices is not None
+                                  else [device])]
+        if not self.devices:
+            raise ValueError('devices is empty')
+        self.device = self.devices[0]
+        self._copy = {d: torch.cuda.Stream(d) for d in self.devices
+                      if d.type == 'cuda'}
         self._slots = {}   # i -> (device chunk, copy event, host chunk)
         self.puts = 0
         self.misses = 0
         self.evictions = 0
 
+    def slot(self, i):
+        """The index in ``devices`` of chunk ``i``'s device."""
+        return i % len(self.devices)
+
+    def device_of(self, i):
+        """The device chunk ``i`` lives on."""
+        return self.devices[self.slot(i)]
+
     def _issue(self, i):
         if i >= self.n_chunks or i in self._slots:
             return
         host = torch.as_tensor(self._fn(i))
-        if self._copy is None:
-            self._slots[i] = (host.to(self.device), None, host)
+        device = self.device_of(i)
+        copy = self._copy.get(device)
+        if copy is None:
+            self._slots[i] = (host.to(device), None, host)
         else:
             if not host.is_pinned():
                 host = host.pin_memory()
-            with torch.cuda.stream(self._copy):
-                dev = host.to(self.device, non_blocking=True)
+            with torch.cuda.stream(copy):
+                dev = host.to(device, non_blocking=True)
                 done = torch.cuda.Event()
-                done.record(self._copy)
+                done.record(copy)
             self._slots[i] = (dev, done, host)
         self.puts += 1
 
@@ -113,7 +134,7 @@ class PrefetchRing:
             self._issue(i)
         out, done, _ = self._slots[i]
         if done is not None:
-            compute = torch.cuda.current_stream(self.device)
+            compute = torch.cuda.current_stream(self.device_of(i))
             compute.wait_event(done)
             # Allocated on the copy stream, used on this one: its memory
             # is not reused before this stream's work on it is done.
@@ -174,9 +195,13 @@ def _drain(pending, limit):
 def offloaded_streamed_topk(h_s_host, h_t, k, chunk, t_mask=None,
                             block=DEFAULT_BLOCK,
                             depth=DEFAULT_PREFETCH_DEPTH, device=None,
-                            on_chunk: Optional[Callable[[int], None]] = None):
+                            on_chunk: Optional[Callable[[int], None]] = None,
+                            devices=None):
     """Chunk-streamed top-k with the source table ``h_s_host [B, N_s, C]``
-    in host memory and ``h_t`` (``t_mask``) put on ``device`` once.
+    in host memory and ``h_t`` (``t_mask``) put on ``device`` once, or
+    with ``devices`` (a list, not with ``device``) once on each of them,
+    chunk ``i`` searched on ``devices[i % len(devices)]`` (JAX's
+    round-robin; on one card ``('cuda:0', 'cuda:0')`` exercises it).
 
     Bit-identical to ``streamed_topk(h_s, h_t, k, chunk, t_mask, block)``
     on the device: the same searches of the same chunks (the last one
@@ -185,8 +210,12 @@ def offloaded_streamed_topk(h_s_host, h_t, k, chunk, t_mask=None,
     they are computed; at most ``depth`` such copies are outstanding.
     ``on_chunk(i)`` runs after chunk ``i`` is dispatched. Returns host
     ``(vals, idx, OffloadStats)``."""
-    device = canonical_device(resolve_device(device))
-    on_card = device.type == 'cuda'
+    import contextlib
+    if devices is not None and device is not None:
+        raise ValueError('pass device or devices, not both')
+    devices = [canonical_device(resolve_device(d))
+               for d in (devices if devices is not None else [device])]
+    on_card = any(d.type == 'cuda' for d in devices)
     h_s_host = _host_table(h_s_host, on_card)
     B, N_s, C = h_s_host.shape
     chunk = int(chunk)
@@ -194,9 +223,11 @@ def offloaded_streamed_topk(h_s_host, h_t, k, chunk, t_mask=None,
         raise ValueError(f'chunk must be >= 1; got {chunk}')
     n_chunks = -(-N_s // chunk)
     ring = PrefetchRing(lambda i: h_s_host[:, i * chunk:(i + 1) * chunk],
-                        depth=depth, n_chunks=n_chunks, device=device)
-    h_t = torch.as_tensor(h_t).to(device)
-    t_mask = None if t_mask is None else torch.as_tensor(t_mask).to(device)
+                        depth=depth, n_chunks=n_chunks, devices=devices)
+    # The target side is the small, hot operand: one copy a device.
+    per_t = [torch.as_tensor(h_t).to(d) for d in devices]
+    per_m = [None if t_mask is None else torch.as_tensor(t_mask).to(d)
+             for d in devices]
     vals = torch.empty((B, N_s, k), dtype=h_s_host.dtype,
                        pin_memory=on_card)
     idx = torch.empty((B, N_s, k), dtype=torch.int32, pin_memory=on_card)
@@ -204,15 +235,19 @@ def offloaded_streamed_topk(h_s_host, h_t, k, chunk, t_mask=None,
     t0 = time.perf_counter()
     for i in range(n_chunks):
         lo, hi = i * chunk, min((i + 1) * chunk, N_s)
-        dv, di = chunked_topk(ring.get(i), h_t, k, t_mask, block,
-                              return_values=True)
+        d = i % len(devices)
+        dev = devices[d]
+        with (torch.cuda.device(dev) if dev.type == 'cuda'
+              else contextlib.nullcontext()):
+            dv, di = chunked_topk(ring.get(i), per_t[d], k, per_m[d], block,
+                                  return_values=True)
+            vals[:, lo:hi].copy_(dv, non_blocking=True)
+            idx[:, lo:hi].copy_(di, non_blocking=True)
+            done = None
+            if dev.type == 'cuda':
+                done = torch.cuda.Event()
+                done.record()
         streamed += B * (hi - lo) * C * h_s_host.element_size()
-        vals[:, lo:hi].copy_(dv, non_blocking=True)
-        idx[:, lo:hi].copy_(di, non_blocking=True)
-        done = None
-        if on_card:
-            done = torch.cuda.Event()
-            done.record()
         pending.append(done)
         _drain(pending, ring.depth)
         if on_chunk is not None:
@@ -221,7 +256,7 @@ def offloaded_streamed_topk(h_s_host, h_t, k, chunk, t_mask=None,
     wall = time.perf_counter() - t0
     stats = OffloadStats(
         rows=N_s, chunks=n_chunks, chunk=chunk, prefetch_depth=ring.depth,
-        devices=1,
+        devices=len(devices),
         host_resident_bytes=(_nbytes(h_s_host) + _nbytes(vals)
                              + _nbytes(idx)),
         bytes_streamed=streamed, ring_misses=ring.misses,

@@ -16,15 +16,28 @@ gradient over the same group. That is the rule for a sum whose result is
 replicated while each rank's loss covers its own rows: each rank's
 gradient of the replicated result holds its own rows' part, and the
 contributions' gradient is the sum of the parts.
+
+Each call marks itself on an active tape recorder
+(:class:`~dgmc_tpu_torch.analysis.trace_rules.TapeRecorder`, through
+``dispatch.tape``) as one op, as a kernel entry marks its launch: its
+kind in JAX's spelling (``all-reduce``, ``all-gather``,
+``collective-broadcast``), the group's ranks, the dtype and shape of the
+tensor as the caller holds it, the payload bytes as JAX counts them (the
+result's: the gathered tensor for an all-gather) and the tensors it reads
+and writes. The ops the call runs itself (the host staging, the c10d
+op) go unrecorded and uncounted by the work counter, so one program's
+tape reads the same under NCCL and under gloo.
 """
+
+import contextlib
 
 import torch
 import torch.distributed as dist
 
 from dgmc_tpu_torch.ops.kernels import dispatch
 
-__all__ = ['backend_of', 'staged', 'all_reduce_', 'all_reduce_sum',
-           'all_gather', 'broadcast_']
+__all__ = ['backend_of', 'staged', 'group_ranks', 'all_reduce_',
+           'all_reduce_sum', 'all_gather', 'broadcast_']
 
 
 def backend_of(group):
@@ -48,17 +61,51 @@ def _record(group, tensor):
                         f'tensors')
 
 
+def group_ranks(group):
+    """The global ranks of ``group``, in its order."""
+    return tuple(dist.get_global_rank(group, i)
+                 for i in range(dist.get_world_size(group)))
+
+
+@contextlib.contextmanager
+def _marked(kind, group, tensor, nbytes=None):
+    """Run one collective's body unrecorded and uncounted, then mark it
+    on the active tape (see the module docstring). The block sets
+    ``box[0]`` to the call's result (``tensor`` itself for an in-place
+    one)."""
+    box = [tensor]
+    rec, counter = dispatch.tape, dispatch.counter
+    if rec is None and counter is None:
+        yield box
+        return
+    if counter is not None:
+        counter.suppress += 1
+    try:
+        with (rec.hidden() if rec is not None
+              else contextlib.nullcontext()):
+            yield box
+    finally:
+        if counter is not None:
+            counter.suppress -= 1
+    out = box[0]
+    if rec is not None:
+        rec.collective(kind, group_ranks(group), tensor, out,
+                       out.numel() * out.element_size()
+                       if nbytes is None else nbytes, out is tensor)
+
+
 def all_reduce_(tensor, group):
     """Sum ``tensor`` over ``group`` in place; returns it."""
     if group is None:
         return tensor
     _record(group, tensor)
-    if staged(group, tensor):
-        host = tensor.cpu()
-        dist.all_reduce(host, group=group)
-        tensor.copy_(host)
-    else:
-        dist.all_reduce(tensor, group=group)
+    with _marked('all-reduce', group, tensor):
+        if staged(group, tensor):
+            host = tensor.cpu()
+            dist.all_reduce(host, group=group)
+            tensor.copy_(host)
+        else:
+            dist.all_reduce(tensor, group=group)
     return tensor
 
 
@@ -69,12 +116,13 @@ def broadcast_(tensor, group):
         return tensor
     _record(group, tensor)
     src = dist.get_global_rank(group, 0)
-    if staged(group, tensor):
-        host = tensor.cpu()
-        dist.broadcast(host, src, group=group)
-        tensor.copy_(host)
-    else:
-        dist.broadcast(tensor, src, group=group)
+    with _marked('collective-broadcast', group, tensor):
+        if staged(group, tensor):
+            host = tensor.cpu()
+            dist.broadcast(host, src, group=group)
+            tensor.copy_(host)
+        else:
+            dist.broadcast(tensor, src, group=group)
     return tensor
 
 
@@ -124,8 +172,10 @@ def all_gather(tensor, group, dim=0):
         return tensor
     _record(group, tensor)
     n = dist.get_world_size(group)
-    src = _to_wire(tensor, staged(group, tensor))
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    return _from_wire(torch.cat(parts, dim=dim), tensor.dtype,
-                      tensor.device)
+    with _marked('all-gather', group, tensor) as box:
+        src = _to_wire(tensor, staged(group, tensor))
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        box[0] = _from_wire(torch.cat(parts, dim=dim), tensor.dtype,
+                            tensor.device)
+    return box[0]

@@ -156,14 +156,21 @@ class StepComm:
         """Sum the gradients over the mesh (one flat buffer)."""
         grads = [p.grad for g in state.optimizer.param_groups
                  for p in g['params'] if p.grad is not None]
-        if self.group is None or not grads:
+        flat = self.sum_grads(grads)
+        if flat is None:
             return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        all_reduce_(flat, self.group)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+    def sum_grads(self, grads):
+        """``grads`` flattened into one buffer summed over the mesh (None
+        without a mesh or a gradient)."""
+        if self.group is None or not grads:
+            return None
+        return all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                           self.group)
 
     def metrics(self, loss, S_L, y, y_mask, hits_ks):
         """A train step's metrics over the mesh: ``loss`` (summed over the

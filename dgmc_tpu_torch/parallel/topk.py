@@ -179,22 +179,24 @@ def _ring_topk(n_ring, me, shard_cols, rows, h_t, t_mask, k, block,
     so local positions lift to global columns at ``shard_id *
     shard_cols``; a position past a shard's width maps beyond the padded
     range, where it can never take an equal-value tie from a real column.
-    Targets are padded up to the ring (masked columns)."""
+    Targets are padded up to the ring (masked columns). The shards'
+    candidates are merged once, after the ring."""
     N_t = h_t.shape[1]
     pad = n_ring * shard_cols - N_t
     if pad:
         h_t = torch.nn.functional.pad(h_t, (0, 0, 0, pad))
         t_mask = torch.nn.functional.pad(t_mask, (0, pad))
-    vals = torch.full(rows.shape[:2] + (k,), float('-inf'),
-                      dtype=rows.dtype, device=rows.device)
-    idx = torch.zeros(rows.shape[:2] + (k,), dtype=torch.int32,
-                      device=rows.device)
+    vals, idx = [], []
     for j in range(n_ring):
         shard_id = (me - j) % n_ring
         cols = slice(shard_id * shard_cols, (shard_id + 1) * shard_cols)
         tv, tp = _search(rows, h_t[:, cols], k, t_mask[:, cols], block,
                          chunk, return_values=True)
-        ti = torch.where(tp < shard_cols, shard_id * shard_cols + tp,
-                         n_ring * shard_cols + tp).to(torch.int32)
-        vals, idx = _merge_candidates(vals, idx, tv, ti, k)
-    return idx
+        vals.append(tv)
+        idx.append(torch.where(tp < shard_cols, shard_id * shard_cols + tp,
+                               n_ring * shard_cols + tp).to(torch.int32))
+    # One merge of every shard's candidates after the ring: the searches
+    # are independent (no merge on the loop's chain), and the dense tie
+    # order makes it the running merge's result.
+    vals, idx = torch.cat(vals, dim=-1), torch.cat(idx, dim=-1)
+    return _merge_candidates(vals[..., :0], idx[..., :0], vals, idx, k)[1]

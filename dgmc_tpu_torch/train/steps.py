@@ -437,8 +437,11 @@ def _cost_pass(model, state, batch, noise_seed, r_s, negatives, kw,
     leaving the run as it was: no update, no ``.grad`` written, the
     batch-norm buffers, the model's mode, the random states and the
     dispatch ledger set back, the probes recorded onto a tape that is
-    dropped, the dropout masks from a generator of its own. Returns the
-    parameters that took a gradient."""
+    dropped, the dropout masks from a generator of its own. A sharded
+    step's pass also sums the gradients over the mesh as the step does
+    (a flat copy; no ``.grad`` is written), so its account holds the
+    step's gradient all-reduce. Returns the parameters that took a
+    gradient."""
     dev = _device_of(model)
     params = [p for g in state.optimizer.param_groups for p in g['params']]
     training = model.training
@@ -458,6 +461,8 @@ def _cost_pass(model, state, batch, noise_seed, r_s, negatives, kw,
                 loss, [p for p in params if p.requires_grad],
                 allow_unused=True)
             with torch.no_grad():
+                if comm is not None:
+                    comm.sum_grads([g for g in grads if g is not None])
                 _metrics(loss.detach(), S_L, y, y_mask, hits_ks, comm)
     finally:
         with torch.no_grad():

@@ -27,6 +27,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE = os.path.join(REPO, 'lint-baseline-torch.json')
 FIXTURES_CON = os.path.join(REPO, 'tests', 'analysis', 'fixtures_con')
 CON_RULES = 'CON501,CON502,CON503,CON504,CON505'
+#: No specimen tier: the trace tier and the mesh specimens' SHD and
+#: SCH/MEM tiers.
+NO_SPECIMENS = ('--skip-trace', '--skip-sharded', '--skip-sched')
 
 #: One module with an SRC101 (error), SRC102 and SRC103 (warnings).
 BAD = textwrap.dedent('''\
@@ -105,7 +108,8 @@ def test_list_rules_is_the_three_tiers(capsys):
     assert rc == 0
     listed = [line.split()[0] for line in out.splitlines()]
     assert listed == sorted(RULE_CATALOG) == sorted(RULES)
-    assert {r[:3] for r in listed} == {'TRC', 'SRC', 'RCP', 'CON'}
+    assert {r[:3] for r in listed} == {'TRC', 'SRC', 'RCP', 'CON', 'SHD',
+                                       'SCH', 'MEM'}
     assert {f'TRC00{i}' for i in range(1, 7)} <= set(listed)
     assert {f'SRC10{i}' for i in range(5)} <= set(listed)
 
@@ -123,7 +127,7 @@ def test_explain_src104_says_why_it_cannot_fire(capsys):
     assert rc == 0 and 'SRC102' in out
     assert 'cannot fire on the port' in out
     assert 'compiled(...) takes no static' in out.replace('\n', ' ')
-    assert _run(['--explain', 'SHD301'], capsys)[0] == 2
+    assert _run(['--explain', 'SHD399'], capsys)[0] == 2
 
 
 # -- exit statuses ------------------------------------------------------------
@@ -135,7 +139,7 @@ def test_exit_status_under_each_fail_on(bad_tree, tmp_path, capsys, policy,
                                         before, after):
     """Before a baseline every finding is new; after ``--write-baseline``
     only ``any`` still fails."""
-    args = ['--json', '--skip-trace', '--source-root', bad_tree,
+    args = ['--json', *NO_SPECIMENS, '--source-root', bad_tree,
             '--baseline', str(tmp_path / 'bl.json')]
     rc, out = _run(args + ['--fail-on', policy], capsys)
     report = json.loads(out)
@@ -150,7 +154,7 @@ def test_exit_status_under_each_fail_on(bad_tree, tmp_path, capsys, policy,
 
 
 def test_fail_on_error_ignores_new_warnings(bad_tree, tmp_path, capsys):
-    args = ['--json', '--skip-trace', '--source-root', bad_tree,
+    args = ['--json', *NO_SPECIMENS, '--source-root', bad_tree,
             '--baseline', str(tmp_path / 'bl.json'), '--fail-on', 'error']
     assert _run(args + ['--select', 'SRC102,SRC103'], capsys)[0] == 0
     assert _run(args + ['--select', 'SRC101'], capsys)[0] == 1
@@ -163,7 +167,7 @@ def test_fail_on_error_ignores_new_warnings(bad_tree, tmp_path, capsys):
 
 @pytest.mark.parametrize('args', [
     ['--select', 'NOPE999'],
-    ['--ignore', 'SHD301'],
+    ['--ignore', 'SHD399'],
     ['--min-severity', 'loud'],
     ['--json', '--format', 'github'],
     ['--write-baseline', '--prune-baseline'],
@@ -175,7 +179,7 @@ def test_usage_errors_exit_2(tmp_path, capsys, args):
 
 
 def test_tiers_run_only_when_selected(race_tree, tmp_path, capsys):
-    args = ['--skip-trace', '--source-root', race_tree, '--baseline',
+    args = [*NO_SPECIMENS, '--source-root', race_tree, '--baseline',
             str(tmp_path / 'bl.json'), '--fail-on', 'none']
     main(args + ['--select', 'CON501'])
     err = capsys.readouterr().err
@@ -213,7 +217,7 @@ def test_obs_dir_recompile_crosscheck(tmp_path, capsys):
             {'batch': 8, 'nodes': '32x40', 'edges': '64x80', 'count': 2},
             {'batch': 8, 'nodes': '24x40', 'edges': '64x80', 'count': 1}],
     }))
-    rc, out = _run(['--json', '--skip-trace', '--skip-source',
+    rc, out = _run(['--json', *NO_SPECIMENS, '--skip-source',
                     '--skip-concurrency', '--obs-dir', str(obs),
                     '--baseline', str(tmp_path / 'bl.json'),
                     '--fail-on', 'none'], capsys)
@@ -232,7 +236,7 @@ def test_write_and_prune_baseline_round_trip(bad_tree, race_tree, tmp_path,
     keeps the live ones and those of a tier the run skipped, and adds
     nothing new."""
     path = tmp_path / 'bl.json'
-    args = ['--skip-trace', '--source-root', bad_tree, '--baseline',
+    args = [*NO_SPECIMENS, '--source-root', bad_tree, '--baseline',
             str(path)]
     assert _run(args + ['--write-baseline'], capsys)[0] == 0
     entries = json.loads(path.read_text())['findings']
@@ -268,7 +272,7 @@ def test_baselines_load_across_packages(bad_tree, tmp_path, capsys):
     assert load_baseline(os.path.join(REPO, 'lint-baseline.json')) == {
         e['fingerprint']: e for e in jax_entries}
     path = str(tmp_path / 'bl.json')
-    assert main(['--skip-trace', '--source-root', bad_tree, '--baseline',
+    assert main([*NO_SPECIMENS, '--source-root', bad_tree, '--baseline',
                  path, '--write-baseline']) == 0
     ours = load_baseline(path)
     assert len(ours) == 3
@@ -346,9 +350,9 @@ def test_editing_the_flagged_line_releases_the_fingerprint(tmp_path):
 def test_baseline_suppresses_across_relocation(tmp_path):
     ra, rb = _two_trees(tmp_path, LOOP, '# moved\n' * 7 + LOOP)
     bl = str(tmp_path / 'bl.json')
-    assert main(['--skip-trace', '--source-root', ra, '--baseline', bl,
+    assert main([*NO_SPECIMENS, '--source-root', ra, '--baseline', bl,
                  '--write-baseline']) == 0
-    assert main(['--skip-trace', '--source-root', rb, '--baseline', bl,
+    assert main([*NO_SPECIMENS, '--source-root', rb, '--baseline', bl,
                  '--fail-on', 'new']) == 0
 
 
@@ -361,9 +365,9 @@ def test_identical_duplicates_get_distinct_fingerprints(tmp_path):
     assert fb2.context.endswith('#2')
     assert fa.fingerprint == fb1.fingerprint
     bl = str(tmp_path / 'bl.json')
-    assert main(['--skip-trace', '--source-root', ra, '--baseline', bl,
+    assert main([*NO_SPECIMENS, '--source-root', ra, '--baseline', bl,
                  '--write-baseline']) == 0
-    assert main(['--skip-trace', '--source-root', rb, '--baseline', bl,
+    assert main([*NO_SPECIMENS, '--source-root', rb, '--baseline', bl,
                  '--fail-on', 'new']) == 1
 
 
@@ -382,7 +386,7 @@ def test_v1_baseline_is_a_migration_error(tmp_path, capsys):
         load_baseline(path)
     assert load_baseline(path, migrate=True)
     for extra in (['--fail-on', 'new'], ['--prune-baseline']):
-        assert main(['--skip-trace', '--skip-source', '--baseline',
+        assert main([*NO_SPECIMENS, '--skip-source', '--baseline',
                      path] + extra) == 2
         assert '--write-baseline' in capsys.readouterr().err
     assert open(path).read() == original
@@ -396,7 +400,7 @@ def test_write_baseline_migrates_v1_and_warns_on_kept_entries(tmp_path,
     path = _v1(tmp_path / 'bl.json', [
         {'rule': 'CON501', 'severity': 'error', 'where': 'pkg/x.py:1',
          'message': 'm', 'fingerprint': 'feedfacefeedface'}])
-    args = ['--skip-trace', '--source-root', str(root), '--baseline',
+    args = [*NO_SPECIMENS, '--source-root', str(root), '--baseline',
             path, '--skip-concurrency', '--write-baseline']
     assert main(args) == 0
     err = capsys.readouterr().err
@@ -427,7 +431,8 @@ def test_the_cli_imports_no_torch():
     import sys
     code = ('import sys\n'
             'from dgmc_tpu_torch.analysis import lint\n'
-            'rc = lint.main(["--skip-trace", "--fail-on", "none",\n'
+            'rc = lint.main(["--skip-trace", "--skip-sharded",\n'
+            '                "--skip-sched", "--fail-on", "none",\n'
             '                "--baseline", sys.argv[1]])\n'
             'print(rc, "torch" in sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code, BASELINE], cwd=REPO,
@@ -442,7 +447,7 @@ def test_default_roots_are_the_package_and_the_smoke_script():
 
 
 def test_the_ports_tree_is_clean_against_its_baseline(capsys):
-    rc, out = _run(['--json', '--skip-trace', '--fail-on', 'new',
+    rc, out = _run(['--json', *NO_SPECIMENS, '--fail-on', 'new',
                     '--baseline', BASELINE], capsys)
     report = json.loads(out)
     assert rc == 0, report['findings']
@@ -458,3 +463,58 @@ def test_the_ports_tree_is_clean_against_its_baseline(capsys):
                                    'self.dump_count += 1')]
     assert {f['fingerprint'] for f in report['findings']} == {
         e['fingerprint'] for e in entries}
+
+
+# -- the mesh specimens' tiers (SHD, SCH/MEM) ---------------------------------
+
+MESH_RULES = ('SHD301', 'SHD302', 'SHD303', 'SHD304', 'SHD305', 'SCH401',
+              'SCH402', 'SCH403', 'MEM404', 'MEM405')
+
+
+def test_catalog_has_jax_shd_sch_mem_rules_and_severities():
+    """The ten rules under JAX's ids and severities, read from JAX's
+    catalog; each explained in the port's terms."""
+    with jax_worker('dgmc_tpu.analysis.catalog') as m:
+        jax_rules = {r: d.severity for r, d in m['catalog'].RULES.items()
+                     if r[:3] in ('SHD', 'SCH', 'MEM')}
+    assert sorted(jax_rules) == sorted(MESH_RULES)
+    assert {r: RULES[r].severity for r in MESH_RULES} == jax_rules
+    for rule in ('SCH401', 'SHD303'):
+        assert 'None is issued today' in RULES[rule].what, rule
+    assert 'accumulate in float32 internally' in RULES['SHD305'].what
+
+
+@pytest.mark.parametrize('flag,gone', [
+    ('--skip-sharded', ('SHD',)), ('--skip-sched', ('SCH', 'MEM'))])
+def test_skip_flags_drop_the_mesh_tiers(flag, gone):
+    from dgmc_tpu_torch.analysis.lint import _rules_analyzed
+    every = _rules_analyzed(build_parser().parse_args([]))
+    rules = _rules_analyzed(build_parser().parse_args([flag]))
+    assert set(MESH_RULES) <= every
+    assert {r for r in every - rules} == {r for r in every
+                                         if r.startswith(gone)}
+
+
+def test_comm_budget_bytes_is_shd304s_fallback(tmp_path, capsys):
+    """On 4 gloo ranks the CLI analyzes the five mesh specimens (none
+    skipped); ``--comm-budget-bytes`` reaches SHD304 only where a
+    specimen has no budget of its own (``parallel.sharded_train_step``,
+    as in JAX)."""
+    args = ['--json', '--device', 'cpu', '--select', 'SHD304',
+            '--baseline', str(tmp_path / 'none.json'), '--fail-on', 'any']
+    rc, out = _run(args, capsys)
+    assert rc == 0 and json.loads(out)['findings'] == []
+    rc, out = _run(args + ['--comm-budget-bytes', '64'], capsys)
+    assert rc == 1
+    assert [(f['rule'], f['where'].split(':')[0])
+            for f in json.loads(out)['findings']] == [
+        ('SHD304', 'parallel.sharded_train_step')]
+    # The text report's progress lines (the ranks' runs are this
+    # process's, started once).
+    main(args[1:-2] + ['--fail-on', 'none'])
+    err = capsys.readouterr().err
+    for name in ('sharded_train_step', 'sharded_forward_rows',
+                 'sharded_train_step_pairs2', 'streamed_train_step',
+                 'sharded_topk_cols'):
+        assert f'sharded parallel.{name} on ' in err, err
+    assert 'gloo ranks on cpu' in err and 'skip ' not in err

@@ -36,6 +36,10 @@ from dgmc_tpu_torch.analysis.trace_rules import (Buffer, Tape, TapeOp,
                                                  state_tensors)
 from tests.torch_jax_worker import jax_analysis
 
+#: No specimen tier: the trace tier and the mesh specimens' SHD and
+#: SCH/MEM tiers.
+NO_SPECIMENS = ('--skip-trace', '--skip-sharded', '--skip-sched')
+
 
 @pytest.fixture(autouse=True, scope='module')
 def _one_intra_op_thread():
@@ -472,7 +476,7 @@ def _main(args):
 
 
 def test_skip_trace_runs_no_specimen(tmp_path):
-    rc, out, err = _main(['--json', '--skip-trace', '--skip-source',
+    rc, out, err = _main(['--json', *NO_SPECIMENS, '--skip-source',
                           '--fail-on', 'none', '--baseline',
                           str(tmp_path / 'none.json')])
     assert rc == 0 and 'trace ' not in err
@@ -492,7 +496,8 @@ def test_select_trc003_runs_the_trace_tier_alone(tmp_path):
 def test_cli_imports_no_torch_without_the_trace_tier():
     import subprocess
     code = ('import sys; from dgmc_tpu_torch.analysis import lint; '
-            'rc = lint.main(["--skip-trace", "--skip-source", '
+            'rc = lint.main(["--skip-trace", "--skip-sharded", '
+            '"--skip-sched", "--skip-source", '
             '"--skip-concurrency", "--fail-on", "none"]); '
             'print("torch" in sys.modules)')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -509,7 +514,7 @@ def test_baseline_keeps_trace_entries_when_the_tier_is_skipped(tmp_path):
         traced = json.load(f)['findings']
     assert rc == 0 and {e['rule'] for e in traced} == {'TRC001', 'TRC005'}
     for flag in ('--write-baseline', '--prune-baseline'):
-        rc, _, _ = _main(['--skip-trace', '--skip-source', flag,
+        rc, _, _ = _main([*NO_SPECIMENS, '--skip-source', flag,
                           '--baseline', path])
         with open(path) as f:
             kept = json.load(f)['findings']

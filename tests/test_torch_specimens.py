@@ -67,7 +67,9 @@ def tier():
     """The trace tier over the eight specimens on the CPU, through this
     process's shared cache (the cost CLI below reads the same runs)."""
     cache = registry.shared_cache('cpu')
-    findings = registry.run_trace_tier(cache=cache)
+    findings = registry.run_trace_tier(
+        [s for s in registry.default_specimens() if not s.min_devices],
+        cache=cache)
     return cache, findings
 
 
@@ -75,7 +77,14 @@ def test_names_order_and_inputs_equal_jax(jax_registry):
     want = [s.name for s in jax_registry.default_specimens()
             if not s.min_devices and 'trace' in s.tiers]
     assert want == NAMES
-    assert [s.name for s in registry.default_specimens()] == NAMES
+    assert [s.name for s in registry.default_specimens()
+            if not s.min_devices] == NAMES
+    # JAX's mesh specimens follow, with JAX's names, order, minimum
+    # device counts and tiers.
+    assert [(s.name, s.min_devices, s.tiers)
+            for s in registry.default_specimens()] == [
+        (s.name, s.min_devices, s.tiers)
+        for s in jax_registry.default_specimens()]
     jb = jax_registry._pair_batch(np.random.RandomState(0))
     pb = registry.pair_batch()
     for side in ('s', 't'):
@@ -99,6 +108,8 @@ def test_names_order_and_inputs_equal_jax(jax_registry):
 
 def test_specimens_declare_their_inplace_state():
     for spec in registry.default_specimens():
+        if spec.min_devices:
+            continue      # built on ranks (tests/test_torch_mesh_*.py)
         built = spec.build(torch.device('cpu'))
         if spec.name.startswith('train_step'):
             names = set(built['inplace']())
@@ -231,6 +242,8 @@ def test_trace_tier_on_the_cpu_is_baselined(tier):
 def test_static_peak_lies_between_the_largest_buffer_and_the_sum(tier):
     cache, _ = tier
     for spec in registry.default_specimens():
+        if spec.min_devices:
+            continue
         tape = cache.artifacts(spec).recorded()['tape']
         sizes = [b.nbytes for b in tape.buffers.values()]
         peak = module_peak(tape).peak_bytes
@@ -262,7 +275,9 @@ def test_cost_cli_rows_merge_and_rerun_idempotently(tier, tmp_path):
         run_rows['programs']['train_step']
     assert merged['device_kind'] == run_rows['device_kind']
     rows = {k: v for k, v in merged['programs'].items() if k != 'train_step'}
-    assert sorted(rows) == sorted(f'specimen.{n}' for n in NAMES)
+    # The mesh specimens' rows too (rank 0's runs on 4 gloo ranks).
+    assert sorted(rows) == sorted(f'specimen.{s.name}'
+                                  for s in registry.default_specimens())
     for name, row in rows.items():
         assert row['static_peak_bytes'] > 0 and 'stages' in row, name
         assert row['launches'] == {} and row['measured_peak_bytes'] is None

@@ -282,3 +282,12 @@ def checkpoint_job(directory):
     return (commits, start,
             {k: v.clone().numpy() for k, v in model.state_dict().items()},
             sorted(os.listdir(directory)))
+
+
+def mesh_specimens(inject):
+    """Every registered mesh specimen on the world's ranks, built with
+    ``inject``'s weights and draws (JAX's), each rank's records gathered
+    to every rank as a process in a world of enough ranks gathers them:
+    ``{name: [records, rank order]}`` (``analysis/ranks.py``)."""
+    from dgmc_tpu_torch.analysis.ranks import gather_in_world
+    return gather_in_world('cpu', inject=inject)
