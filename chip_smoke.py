@@ -388,8 +388,27 @@ float32 phases pin ``--precision f32`` (the CLIs default to bf16); the
   tree, 16-pair batches, each rank 8 pairs of each) on two ranks sharing
   the card, ψ₁'s dropout masks each rank's half of the whole batch's:
   its losses within rel 1e-4 of one process's, each rank's routing and
-  consensus launches. (c) and (d) run side by side; the phase runs
-  after ``resume`` and before ``keypoints``.
+  consensus launches; (e) JAX's opt-in ψ₁ table sharding
+  (``streamed_rules`` with ``'psi1'`` / ``'corpus'``) on two ranks
+  sharing the card (gloo) at (c)'s flags, against the same ranks under
+  ``streamed_rules``' default (:func:`_par_tables_finish`): each rank's
+  ψ₁ tables half of the whole's bytes and within rel 1e-5 of the
+  replicated ψ₁'s rows (bit for bit where cuBLAS rounds the rank's rows'
+  products as all rows'), the ring over the moved shards bit-equal to
+  one search over the same tables, the shortlists equal but inside
+  near-ties, one SGD step of phase 2 and of phase 1 from the initial
+  weights (losses within rel 1e-4, parameters within rtol 1e-5 / atol
+  1e-6 but where a near-tie swap changed phase 2's candidates), its
+  launches, one permute a search on a tape of each step, the bytes the
+  collectives stage through the host and each mode's step ms; and the
+  blocked kernel on each rank's row block of the KG source graph,
+  forward and transposed, bit-identical to ``ordered_aggregate`` over
+  the same tables. (a) also runs the step with the table rules at
+  world 1 (every row the rank's: the same code, no transfer),
+  bit-identical. Since PR 26 every rank process starts at the top of
+  the phase, beside (a): one pair runs (b), then (e) (one start-up),
+  and (c)'s and (d)'s beside it; the phase runs after ``resume`` and
+  before ``keypoints``.
 
 - ``elastic``: the supervisor's distributed half and the fence
   (:func:`phase_elastic`), at ``parallel`` (c)'s flags (full width,
@@ -8006,15 +8025,35 @@ def _par_wait(procs):
     return [run[:3] for run in runs]
 
 
-def _par_topk(tmp, device='cuda', shape=PAR_TOPK):
-    """(b): the search on two ranks that share the card."""
-    from dgmc_tpu_torch.ops.topk import chunked_topk
-    port = _free_port()
+def _par_ranks_start(tmp, device='cuda', shape=PAR_TOPK, argv=None):
+    """(b)'s and (e)'s ranks in one start-up: each rank's process runs
+    (b)'s searches (:func:`_par_topk_rank`), then (e)'s steps
+    (:func:`_par_tables_rank`), each part in a process group of its own,
+    its files in ``tmp/topk`` and ``tmp/tables`` → ``(hold_b, hold_e)``,
+    the functions that wait for the ranks (once) and hold each part."""
+    argv = list(PAR_KG_ARGV if argv is None else argv)
+    dirs = [os.path.join(tmp, d) for d in ('topk', 'tables')]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    ports = _free_port(), _free_port()
     t0 = time.perf_counter()
-    _par_spawn(lambda r: [
+    wait = functools.lru_cache(None)(_par_spawn(lambda r: [
         '-c', f'import sys; sys.path.insert(0, "."); import chip_smoke; '
-        f'chip_smoke._par_topk_rank({r}, {PAR_RANKS}, {port}, {tmp!r}, '
-        f'{device!r}, {tuple(shape)!r})'], PAR_RANKS)
+        f'chip_smoke._par_topk_rank({r}, {PAR_RANKS}, {ports[0]}, '
+        f'{dirs[0]!r}, {device!r}, {tuple(shape)!r}); '
+        f'chip_smoke._par_tables_rank({r}, {PAR_RANKS}, {ports[1]}, '
+        f'{dirs[1]!r}, {argv!r}, {device!r})'], PAR_RANKS, wait=False))
+    return (functools.partial(_par_topk_finish, dirs[0], wait, t0, device,
+                              shape),
+            functools.partial(_par_tables_finish, dirs[1], wait, t0, device,
+                              argv))
+
+
+def _par_topk_finish(tmp, wait, t0, device, shape):
+    """(b)'s checks against the one-process kernel, once its ranks are
+    done."""
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    wait()
     wall = time.perf_counter() - t0
     ranks = []
     for r in range(PAR_RANKS):
@@ -8227,7 +8266,12 @@ def _par_pascal_finish(argv, device, ranks, t0):
 
 def _par_world1(device='cuda', backend='nccl', argv=None):
     """(a): one rank on ``backend``: the row-sharded phase-2 step,
-    captured, against the unsharded captured step."""
+    captured, against the unsharded captured step, under
+    ``streamed_rules`` and with the sharded ψ₁ tables (JAX's opt-in
+    ``'psi1'`` / ``'corpus'`` rules: at world 1 the rank's block is every
+    row, the same code with no transfer). Returns the launches, the
+    three step times and the host batch ((e)'s row-block kernel check
+    reads its tables)."""
     from dgmc_tpu_torch.experiments import dbp15k
     from dgmc_tpu_torch.ops.kernels import dispatch
     from dgmc_tpu_torch.parallel import (distributed, make_mesh,
@@ -8246,14 +8290,14 @@ def _par_world1(device='cuda', backend='nccl', argv=None):
         if backend_of(mesh.group()) != backend:
             raise AssertionError(f'parallel (a): backend '
                                  f'{backend_of(mesh.group())}')
-        for name in ('unsharded', 'sharded'):
+        for name in ('unsharded', 'sharded', 'tables'):
             model = dbp15k.build(args, in_dim).to(device)
             state = create_train_state(model, learning_rate=args.lr)
             batch = batch_to_device(train_b, device)
-            if name == 'sharded':
+            if name != 'unsharded':
                 step = make_sharded_train_step(
                     model, mesh, num_steps=args.num_steps, detach=True,
-                    rules=streamed_rules(stream_chunk=8192))
+                    rules=_par_rules(name == 'tables', stream_chunk=8192))
             else:
                 step = make_train_step(model, num_steps=args.num_steps,
                                        detach=True)
@@ -8278,53 +8322,446 @@ def _par_world1(device='cuda', backend='nccl', argv=None):
             gc.collect()
             if device == 'cuda':
                 torch.cuda.empty_cache()
-    (l0, p0, n0, _, ms0), (l1, p1, n1, d1, ms1) = (out['unsharded'],
-                                                    out['sharded'])
-    if not torch.equal(l0, l1) or not all(torch.equal(a, b)
-                                          for a, b in zip(p0, p1)):
-        worst = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
-        raise AssertionError(f'parallel (a): sharded losses {l1.tolist()} '
-                             f'against {l0.tolist()}, parameters max '
-                             f'|diff| {worst}')
-    kg = {k: n1.get(k, 0) for k in PAR_KG_KERNELS}
-    if n0 != n1 or (device == 'cuda' and not all(kg.values())):
-        raise AssertionError(f'parallel (a): launches {n1} against {n0}')
-    step_d, coll = d1.get('sharded_step'), d1.get('collective')
-    if device == 'cuda' and (
-            (step_d or {}).get('path') != 'captured'
-            or (coll or {}).get('path') != 'device'):
-        raise AssertionError(f'parallel (a): decisions {step_d} {coll}')
+    l0, p0, n0, _, ms0 = out['unsharded']
+    ms, colls = {}, {}
+    for name in ('sharded', 'tables'):
+        l1, p1, n1, d1, ms[name] = out[name]
+        if not torch.equal(l0, l1) or not all(torch.equal(a, b)
+                                              for a, b in zip(p0, p1)):
+            worst = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+            raise AssertionError(f'parallel (a): {name} losses '
+                                 f'{l1.tolist()} against {l0.tolist()}, '
+                                 f'parameters max |diff| {worst}')
+        kg = {k: n1.get(k, 0) for k in PAR_KG_KERNELS}
+        if n0 != n1 or (device == 'cuda' and not all(kg.values())):
+            raise AssertionError(f'parallel (a): {name} launches {n1} '
+                                 f'against {n0}')
+        step_d, coll = d1.get('sharded_step'), d1.get('collective')
+        if device == 'cuda' and (
+                (step_d or {}).get('path') != 'captured'
+                or (coll or {}).get('path') != 'device'):
+            raise AssertionError(f'parallel (a): {name} decisions {step_d} '
+                                 f'{coll}')
+        rows = (d1.get('psi1_rows') or {}).get('path')
+        if rows != ('rows' if name == 'tables' else None):
+            raise AssertionError(f'parallel (a): {name}: psi1_rows {rows}')
+        colls[name] = (coll or {}).get('counts')
     log(f'parallel (a): one rank on {backend}, the row-sharded phase-2 '
-        f'step captured with its all-reduces ({(coll or {}).get("counts")} '
-        f'collectives over 3 steps): losses {l1.tolist()} and every '
-        f'parameter bit-identical to the unsharded captured step; launches '
-        f'{kg} over 3 steps, equal; a step (CUDA events, median of 5 '
-        f'replays) {ms1} ms sharded, {ms0} ms unsharded')
-    return kg, ms0, ms1
+        f'step captured with its collectives ({colls["sharded"]} over 3 '
+        f'steps; with the sharded ψ₁ tables, ψ₁ row-restricted: '
+        f'{colls["tables"]}): losses {l1.tolist()} and every parameter '
+        f'bit-identical to the unsharded captured step under both rules; '
+        f'launches {kg} over 3 steps, equal; a step (CUDA events, median '
+        f'of 5 replays) {ms["sharded"]} ms sharded, {ms["tables"]} ms '
+        f'with the sharded tables, {ms0} ms unsharded')
+    return kg, ms0, ms["sharded"], train_b
+
+
+#: (e): the sharded ψ₁ tables on two ranks sharing the card, each mode
+#: (today's replicated tables, then the sharded ones) a phase-2 step and
+#: a phase-1 step from the initial state, each call timed after one
+#: untimed call (the median of ``PAR_TABLES_RUNS``).
+PAR_TABLES_RUNS = 2
+
+
+def _par_rules(tables, stream_chunk=None):
+    """``streamed_rules`` (the ``--row_shards`` layout), with ``tables``
+    JAX's opt-in ``'psi1'`` / ``'corpus'`` rules added as a caller opts
+    in (``dataclasses.replace``; no CLI flag sets them, as in JAX)."""
+    import dataclasses
+    from dgmc_tpu_torch.parallel import streamed_rules
+    rules = (streamed_rules() if stream_chunk is None
+             else streamed_rules(stream_chunk=stream_chunk))
+    if not tables:
+        return rules
+    row = rules.activations['corr']
+    return dataclasses.replace(rules, activations=dict(
+        rules.activations, psi1=row, corpus=row))
+
+
+def _staged_bytes(colls, world):
+    """The bytes a rank's collectives copy between the card and the host
+    under gloo (device to host and back), from their tape marks: an
+    all-gather its block out and the whole back, a reduce-scatter
+    (:func:`~dgmc_tpu_torch.parallel.comm.reduce_scatter_rows`: an
+    all-to-all of the whole) the whole out and back, the others their
+    payload out and back."""
+    total = 0
+    for c in colls:
+        p = c['payload']
+        total += {'all-gather': p // world + p,
+                  'reduce-scatter': 2 * p * world}.get(c['kind'], 2 * p)
+    return total
+
+
+def _par_tables_rank(rank, world, port, out_dir, argv, device='cuda'):
+    """(e) on one rank (a process of its own). Under each rules mode, from
+    the initial weights: the training forward's ψ₁ tables (this rank's
+    rows of ``h_s`` and ``h_t``) and its shortlist; a phase-2 step (ψ₁
+    detached) and a phase-1 step (ψ₁ trains), each one SGD step (as the
+    CPU tests take it: Adam's first step turns an ulp in a near-zero
+    gradient into ±lr) with its loss, parameters, launches, ψ₁'s output
+    bytes, its ms (synchronized host time, median of
+    :data:`PAR_TABLES_RUNS` after the first call) and the collectives a
+    tape of one more call sees with the bytes they stage through the
+    host (:func:`_staged_bytes`). Then the comparisons
+    (:func:`_par_tables_finish` holds them); writes ``tables<r>.json``."""
+    from dgmc_tpu_torch.analysis.trace_rules import TapeRecorder
+    from dgmc_tpu_torch.experiments import dbp15k
+    from dgmc_tpu_torch.models import dgmc as dgmc_mod
+    from dgmc_tpu_torch.ops.kernels import dispatch
+    from dgmc_tpu_torch.ops.topk import chunked_topk
+    from dgmc_tpu_torch.parallel import (distributed, make_mesh,
+                                         make_sharded_train_step, replicate,
+                                         shard_batch)
+    from dgmc_tpu_torch.parallel.comm import all_gather
+    from dgmc_tpu_torch.parallel.topk import row_block
+    from dgmc_tpu_torch.train.state import TrainState
+    from dgmc_tpu_torch.train.steps import dropout_generator
+    if device == 'cuda':
+        torch.cuda.set_device(0)
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    args = dbp15k.parse_args(list(argv))
+    train_b, _, in_dim = dbp15k.synthetic_batches(args)
+    held = []
+    psi1 = dgmc_mod.DGMC._psi1
+
+    def spy(self, x, graph, generator, rows):
+        out = psi1(self, x, graph, generator, rows)
+        held.append(out)
+        return out
+    dgmc_mod.DGMC._psi1 = spy
+    report, kept = {}, {}
+    seeds = [dbp15k.noise_seed(args.seed, 0, 1 + i)
+             for i in range(1 + PAR_TABLES_RUNS)]
+    with distributed.process_group(f'127.0.0.1:{port}', world, rank,
+                                   backend='gloo', device=device):
+        mesh = make_mesh(data=world, model=1, device=device)
+        me = mesh.axis_index('data')
+        batch = shard_batch(train_b, mesh, None)
+        g_s, g_t = batch.graph_s, batch.graph_t
+        # This rank's real rows of each side: [lo, stop).
+        rows = []
+        for g in (g_s, g_t):
+            lo, hi, _ = row_block(g.num_nodes, world, me)
+            rows.append((lo, min(hi, g.num_nodes)))
+        for mode in ('replicated', 'tables'):
+            rules = _par_rules(mode == 'tables')
+            got = {}
+            for phase, num_steps, detach in (
+                    ('phase2', args.num_steps, True), ('phase1', 0, False)):
+                model = dbp15k.build(args, in_dim).to(device)
+                state = TrainState(optimizer=torch.optim.SGD(
+                    model.parameters(), lr=args.lr))
+                replicate(state, mesh, model)
+                step = make_sharded_train_step(
+                    model, mesh, num_steps=num_steps, detach=detach,
+                    rules=rules)
+                if phase == 'phase2':
+                    # The training forward's tables and shortlist.
+                    laid = rules.apply_to_model(model, mesh)
+                    gen = dropout_generator(seeds[0], device)
+                    held.clear()
+                    with torch.no_grad():
+                        S_0, _ = laid.train()(
+                            g_s, g_t, y=batch.y, y_mask=batch.y_mask,
+                            num_steps=0, noise_seed=seeds[0], generator=gen)
+                        if mode == 'replicated':
+                            # The same tables, ψ₁ whole (its draws anew).
+                            gen = dropout_generator(seeds[0], device)
+                            held[:] = [model.psi_1(g.x, g, generator=gen)
+                                       for g in (g_s, g_t)]
+                        # Whole tables, or the rank's blocks (padded).
+                        h_s, h_t = (t[:, lo:stop] if mode == 'replicated'
+                                    else t[:, :stop - lo]
+                                    for t, (lo, stop) in zip(held, rows))
+                    n_s = rows[0][1] - rows[0][0]
+                    kept[mode] = {'h_s': h_s, 'h_t': h_t,
+                                  'idx': S_0.idx[:, :n_s, :args.k].clone()}
+                    del laid, S_0
+                dispatch.reset()
+                held.clear()
+                state, m = step(state, batch, seeds[0])
+                sync()
+                entry = {'loss': float(m['loss']),
+                         'launches': {k: v for k, v in
+                                      dispatch.launch_counts().items() if v},
+                         'held_bytes': [t.numel() * t.element_size()
+                                        for t in held]}
+                held.clear()
+                kept[mode, phase] = [p.detach().clone()
+                                     for p in model.parameters()]
+                ms = []
+                for seed in seeds[1:]:
+                    t0 = time.perf_counter()
+                    state, _ = step(state, batch, seed)
+                    sync()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                entry['ms'] = statistics.median(ms)
+                with TapeRecorder() as rec:
+                    step(state, batch, seeds[0])
+                sync()
+                held.clear()
+                colls = [op.collective for op in rec.tape.ops
+                         if op.kind == 'collective']
+                entry['tape'] = collections.Counter(c['kind'] for c in colls)
+                entry['permute_bytes'] = sorted({
+                    c['payload'] for c in colls
+                    if c['kind'] == 'collective-permute'})
+                entry['staged_bytes'] = _staged_bytes(colls, world)
+                got[phase] = entry
+                del step, state, model
+                gc.collect()
+            report[mode] = got
+        report['psi1_rows'] = dispatch.decisions().get('psi1_rows',
+                                                       {}).get('path')
+        rep, tab = kept['replicated'], kept['tables']
+        def whole_t(t):
+            # Every rank's h_t rows (equal blocks but the last's padding).
+            pad = t.new_zeros((t.shape[0], -(-g_t.num_nodes // world)
+                               - t.shape[1], t.shape[2]))
+            return all_gather(torch.cat([t, pad], dim=1), mesh.group(),
+                              dim=1)[:, :g_t.num_nodes]
+        # The ring over the moved shards against one search over the same
+        # tables, gathered: bit for bit.
+        ring_idx = chunked_topk(tab['h_s'], whole_t(tab['h_t']), args.k,
+                                t_mask=g_t.node_mask)
+        report['ring_equal'] = torch.equal(ring_idx.long(),
+                                           tab['idx'].long())
+        # Whether cuBLAS rounds the first product of the rank's rows as
+        # that of all rows (the premise of bit-equal tables).
+        lo, stop = rows[0]
+        lin = dbp15k.build(args, in_dim).to(device).psi_1.convs[0].lin1
+        with torch.no_grad():
+            report['products_equal'] = torch.equal(
+                lin(g_s.x[:, lo:stop]), lin(g_s.x)[:, lo:stop])
+        report['psi1_tables'] = {}
+        for name in ('h_s', 'h_t'):
+            a, b = rep[name], tab[name]
+            report['psi1_tables'][name] = {
+                'equal': torch.equal(a, b),
+                'max_abs': float((a - b).abs().max()),
+                'scale': float(a.abs().max())}
+        vals, _ = chunked_topk(rep['h_s'], whole_t(rep['h_t']), args.k + 1,
+                               t_mask=g_t.node_mask, return_values=True)
+        report['shortlist'] = _near_tie_rows(rep['idx'], tab['idx'], vals)
+        for phase in ('phase1', 'phase2'):
+            a, b = kept['replicated', phase], kept['tables', phase]
+            report[phase + '_params'] = {
+                'equal': all(torch.equal(x, y) for x, y in zip(a, b)),
+                'close': all(torch.allclose(x, y, rtol=1e-5, atol=1e-6)
+                             for x, y in zip(a, b)),
+                'max_abs': max(float((x - y).abs().max())
+                               for x, y in zip(a, b))}
+    from dgmc_tpu_torch.utils.io import write_json_atomic
+    write_json_atomic(os.path.join(out_dir, f'tables{rank}.json'), report)
+
+
+def _near_tie_rows(want, got, vals):
+    """Rows where ``got``'s top-k indices differ from ``want``'s (``vals``
+    the top-(k + 1) scores behind ``want``): ``{'rows', 'outside'}``, the
+    rows that differ and those that differ at a position whose score is
+    not within 1e-5 relative of a neighbour's (a swap inside a near-tie is
+    what ulps in the tables can cause; :func:`hold_near_ties`'s rule)."""
+    rel = (vals[..., :-1] - vals[..., 1:]).abs() / vals[..., 1:].abs(
+        ).clamp(min=1e-30)
+    tie_next = rel <= 1e-5
+    tie_prev = torch.cat([torch.zeros_like(tie_next[..., :1]),
+                          tie_next[..., :-1]], dim=-1)
+    diff = want.long() != got.long()
+    return {'rows': int(diff.any(-1).sum()),
+            'outside': int((diff & ~(tie_next | tie_prev)).any(-1).sum())}
+
+
+def _par_tables_finish(tmp, wait, t0, device, argv):
+    """(e)'s checks on each rank, the sharded tables against the
+    replicated ones:
+
+    - ψ₁ row-restricted, its tables half of today's bytes;
+    - the ring over the moved shards bit-identical to one search over the
+      same tables (the permutes move them exactly);
+    - the ψ₁ tables within rel 1e-5 of the replicated ψ₁'s rows, and bit
+      for bit where cuBLAS rounds a product of the rank's rows as that of
+      all rows (each row's aggregation keeps its order); so the
+      shortlists equal but for swaps inside near-ties (the replicated
+      scores within 1e-5 relative, :func:`hold_near_ties`' rule);
+    - the phase-2 step (ψ₁ detached) bit-identical under that premise;
+      else, as the phase-1 step (ψ₁'s gradients summed over the ranks in
+      another order), the parameters within rtol 1e-5 / atol 1e-6 (the
+      CPU tests' tolerances) after one SGD step, but for phase 2 where a
+      near-tie swap gave a row another candidate (its gradients follow
+      the candidates); losses within :data:`PAR_LOSS_REL`;
+    - the four kernels launched, one permute (n - 1) a search on each
+      sharded tape and none on a replicated one."""
+    from dgmc_tpu_torch.experiments import dbp15k
+    wait()
+    wall = time.perf_counter() - t0
+    args = dbp15k.parse_args(argv)
+    # float32 ψ₁ tables of dim columns (PAR_KG_ARGV pins --f32).
+    table = [4 * args.dim * n for n in (args.syn_nodes_s,
+                                         args.syn_nodes_t)]
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(tmp, f'tables{r}.json')) as f:
+            ranks.append(json.load(f))
+    for r, rep in enumerate(ranks):
+        rep_t, rep_r = rep['tables'], rep['replicated']
+        premise = rep['products_equal']
+        bad = []
+        if not rep['ring_equal']:
+            bad.append('the ring\'s shortlist differs from one search '
+                       'over the same tables')
+        for name, t in rep['psi1_tables'].items():
+            if t['max_abs'] > 1e-5 * t['scale'] or (premise
+                                                    and not t['equal']):
+                bad.append(f'{name} {t} (products equal: {premise})')
+        if rep['shortlist']['outside']:
+            bad.append(f'shortlists {rep["shortlist"]}')
+        swapped = rep['shortlist']['rows']
+        for phase in ('phase1', 'phase2'):
+            p = rep[phase + '_params']
+            # Phase 2's gradients follow its candidates: where a swap
+            # inside a near-tie gave a row another candidate, its
+            # parameters are not compared, its loss is.
+            if premise and phase == 'phase2':
+                ok = p['equal']
+            else:
+                ok = p['close'] or (phase == 'phase2' and swapped)
+            if not ok:
+                bad.append(f'{phase} parameters {p}')
+            lt, lr = rep_t[phase]['loss'], rep_r[phase]['loss']
+            if abs(lt - lr) > PAR_LOSS_REL * abs(lr):
+                bad.append(f'{phase} loss {lt} against {lr}')
+            # Phase 1 runs no consensus step.
+            if device == 'cuda' and not all(
+                    rep_t[phase]['launches'].get(k)
+                    for k in (PAR_KG_KERNELS if phase == 'phase2'
+                              else ('topk', 'blocked'))):
+                bad.append(f'{phase} launches {rep_t[phase]["launches"]}')
+            part = [b * PAR_RANKS for b in rep_t[phase]['held_bytes']]
+            if part != table or rep_r[phase]['held_bytes']:
+                bad.append(f'{phase} ψ₁ tables held '
+                           f'{rep_t[phase]["held_bytes"]} B')
+            if rep_t[phase]['tape'].get('collective-permute') != \
+                    PAR_RANKS - 1 or rep_r[phase]['tape'].get(
+                        'collective-permute'):
+                bad.append(f'{phase} tapes {rep_t[phase]["tape"]} / '
+                           f'{rep_r[phase]["tape"]}')
+        if rep['psi1_rows'] != 'rows':
+            bad.append(f'psi1_rows {rep["psi1_rows"]}')
+        if bad:
+            raise AssertionError(f'parallel (e): rank {r}: {bad}; the '
+                                 f'rank\'s report: {json.dumps(rep)}')
+    per_rank = []
+    for r, rep in enumerate(ranks):
+        t2, t1 = rep['tables']['phase2'], rep['tables']['phase1']
+        r2, r1 = rep['replicated']['phase2'], rep['replicated']['phase1']
+        tables = {k: (v['equal'], v['max_abs'])
+                  for k, v in rep['psi1_tables'].items()}
+        per_rank.append(
+            f'rank {r}: products of its rows equal to all rows\': '
+            f'{rep["products_equal"]}; ψ₁ tables (bit-equal, max |diff|) '
+            f'{tables}; shortlist rows differing {rep["shortlist"]["rows"]} '
+            f'(outside a near-tie {rep["shortlist"]["outside"]}); '
+            f'parameters (bit-equal, max |diff|) phase 2 '
+            f'{rep["phase2_params"]["equal"]}, '
+            f'{rep["phase2_params"]["max_abs"]:.3g}, phase 1 '
+            f'{rep["phase1_params"]["equal"]}, '
+            f'{rep["phase1_params"]["max_abs"]:.3g}; losses phase 2 '
+            f'{r2["loss"]} / {t2["loss"]}, phase 1 {r1["loss"]} / '
+            f'{t1["loss"]}; step ms phase 2 {r2["ms"]:.1f} / '
+            f'{t2["ms"]:.1f}, phase 1 '
+            f'{r1["ms"]:.1f} / {t1["ms"]:.1f} ms; staged bytes phase 2 '
+            f'{r2["staged_bytes"]} / {t2["staged_bytes"]}, phase 1 '
+            f'{r1["staged_bytes"]} / {t1["staged_bytes"]}; ψ₁ tables '
+            f'{t2["held_bytes"]} B; sharded launches phase 1 '
+            f'{t1["launches"]}, phase 2 {t2["launches"]}; sharded tapes\' '
+            f'collectives phase 1 {dict(t1["tape"])}, phase 2 '
+            f'{dict(t2["tape"])} (permute payload {t2["permute_bytes"]} B)')
+    log(f'parallel (e): the sharded ψ₁ tables (streamed_rules with '
+        f'\'psi1\' / \'corpus\'), {PAR_RANKS} ranks sharing the card '
+        f'(gloo, eager), {args.syn_nodes_s} / {args.syn_nodes_t} '
+        f'entities, ψ₁ {args.num_layers} layers to {args.dim}, '
+        f'{wall:.1f}s with start-up and (b), one SGD step a phase: the '
+        f'ring bit-equal to one search over the same tables; against the '
+        f'replicated tables (replicated / sharded; step ms: synchronized '
+        f'host time, median of {PAR_TABLES_RUNS}, beside (a), (c) and '
+        f'(d)): ' + '; '.join(per_rank))
+    return ranks
+
+
+def _par_row_kernel(train_b):
+    """(e)'s kernel check: the blocked kernel on each rank's row block of
+    the KG source graph (2 ranks: rows 0-7500 and 7500-15000, not
+    aligned to the tables' 128-row ranges) at C = 256, forward (a
+    row-pointer slice into the whole table) and transposed (the entries
+    the block's rows send), each bit-identical to ``ordered_aggregate``
+    over the same tables. Comparison launches, uncounted."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    from dgmc_tpu_torch.parallel.topk import row_block
+    g = torch.Generator(device='cuda').manual_seed(31)
+    out = []
+    for name in ('blocks_in', 'blocks_out'):
+        blocks = train_b.s[name].map(lambda t: t.cuda())
+        N = blocks.row_ptr.shape[1] - 1
+        h = torch.randn(1, N, 256, generator=g, device='cuda')
+        for me in range(PAR_RANKS):
+            lo, hi, _ = row_block(N, PAR_RANKS, me)
+            d = torch.randn(1, hi - lo, 256, generator=g, device='cuda')
+            fwd = kb.aggregate(h, blocks, rows=(lo, hi))
+            bwd = kb.aggregate(d, blocks, rows=(lo, hi), sources=True)
+            want_f = ob.ordered_aggregate(h, ob.row_slice(blocks, lo, hi))
+            want_b = ob.ordered_aggregate(d, ob.owned_rows(blocks, lo, hi))
+            if not (torch.equal(fwd, want_f) and torch.equal(bwd, want_b)):
+                raise AssertionError(
+                    f'parallel (e): the blocked kernel on rows [{lo}, '
+                    f'{hi}) of {name}: forward max |diff| '
+                    f'{float((fwd - want_f).abs().max())}, transposed '
+                    f'{float((bwd - want_b).abs().max())}')
+            out.append((name, lo, hi))
+    log(f'parallel (e): the blocked kernel on the rank row blocks '
+        f'{out} of the KG source graph (C = 256, float32): forward and '
+        f'transposed bit-identical to ordered_aggregate over the same '
+        f'tables')
 
 
 def phase_parallel(smi_line):
     """The multi-process paths (``dgmc_tpu_torch/parallel``): (a)
-    :func:`_par_world1`, (b) :func:`_par_topk`, (c) :func:`_par_kg`, (d)
-    :func:`_par_pascal`; see the module docstring. (c)'s two ranks save
-    every epoch into :data:`ELASTIC`'s control directory, which the
-    ``elastic`` phase resumes and removes."""
+    :func:`_par_world1`, (b) and (e) :func:`_par_ranks_start` (one rank
+    process runs both) and :func:`_par_row_kernel`, (c) :func:`_par_kg`,
+    (d) :func:`_par_pascal`; see the module docstring. Every rank
+    process starts first and runs beside (a). (c)'s two
+    ranks save every epoch into :data:`ELASTIC`'s control directory,
+    which the ``elastic`` phase resumes and removes."""
     import tempfile
     log(f'parallel: {smi_line}')
-    _par_world1()
-    gc.collect()
-    torch.cuda.empty_cache()
     ELASTIC['control'] = tempfile.mkdtemp(prefix='elastic_control_')
     with tempfile.TemporaryDirectory() as tmp:
-        os.makedirs(os.path.join(tmp, 'topk'))
-        _par_topk(os.path.join(tmp, 'topk'))
-        # (c) and (d) side by side: their checks are equalities.
-        kg = _par_kg_start(tmp, ckpt=ELASTIC['control'])
-        dp = _par_pascal_start(tmp)
+        # Every rank process starts first: (b)'s and (e)'s (one start-up),
+        # (c)'s and (d)'s, all beside (a); each is then waited for and
+        # held in turn (every one, whatever failed before it).
+        holds = [*_par_ranks_start(tmp),
+                 _par_kg_start(tmp, ckpt=ELASTIC['control']),
+                 _par_pascal_start(tmp)]
+        errors = []
         try:
-            kg()
-        finally:
-            dp()
+            train_b = _par_world1()[3]
+            gc.collect()
+            torch.cuda.empty_cache()
+            _par_row_kernel(train_b)
+            del train_b
+        except Exception as e:
+            errors.append(e)
+        for hold in holds:
+            try:
+                hold()
+            except Exception as e:
+                errors.append(e)
+        if errors:
+            for e in errors[1:]:
+                log(f'parallel: also failed: {e!r}')
+            raise errors[0]
 
 
 #: The ``elastic`` phase: ``parallel`` (c)'s control checkpoints (the

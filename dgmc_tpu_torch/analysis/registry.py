@@ -393,8 +393,9 @@ def _streamed_train_step_specimen():
       and the consensus MLP, 4 B x 113 values, ψ₁ being detached; the
       loss and metric sums) against JAX's ~7.5 KiB (4,832 B at the
       installed JAX: its ring permutes the target shards and it gathers
-      the candidates, where each port rank holds every shard, ψ₁ running
-      whole on every rank); 8x: 8,000 B (JAX: 64 KiB);
+      the candidates, where each port rank holds every shard: without
+      the opt-in ``'psi1'`` / ``'corpus'`` rules, as here, ψ₁ runs whole
+      on every rank); 8x: 8,000 B (JAX: 64 KiB);
     - overlap: 0.516 modeled, on the CPU ranks and on the card (JAX:
       0.3118), so ``overlap_budget`` = 0.77 x 0.516 = 0.3973 (JAX: 0.24
       = 0.77 x 0.3118);
@@ -404,9 +405,11 @@ def _streamed_train_step_specimen():
 
     ``stream_full`` / ``stream_chunk`` (16 / 8) arm MEM405 with JAX's
     ``residual_min_bytes`` of 4 KiB; ``double_buffer_min_bytes`` is JAX's
-    128 (SCH403). The ring moves no data in the port (each rank holds
-    every target shard, ``parallel/topk.py``), so its fetches are the
-    chunk slices of the search."""
+    128 (SCH403). Under these rules (``streamed_rules``' default, without
+    ``'psi1'`` / ``'corpus'``) the ring moves no data in the port: each
+    rank holds every target shard (``parallel/topk.py``), so its fetches
+    are the chunk slices of the search. With the ``'corpus'`` rule the
+    ranks hold their shards and the ring permutes them."""
     def build(device, inject=None):
         from dgmc_tpu_torch.parallel import (make_mesh,
                                              make_sharded_train_step,

@@ -546,22 +546,27 @@ class TapeRecorder(TorchDispatchMode):
                 out_bytes=sum(t.numel() * t.element_size() for t in outs),
                 provenance=_user_frame(2), stage=stage, site=_site(2)))
 
-    def collective(self, kind, group, tensor, out, payload, inplace):
+    def collective(self, kind, group, tensor, out, payload, inplace,
+                   asynchronous=False):
         """One collective of :mod:`~dgmc_tpu_torch.parallel.comm`: its
         ``kind`` (JAX's spelling), the ``group``'s ranks, the caller's
-        ``tensor`` (read, and written where ``inplace``) and ``out`` (a
-        new tensor otherwise), its ``payload`` bytes."""
+        ``tensor`` (read, and written where ``inplace``; a tuple of
+        tensors moved by one call) and ``out`` (new tensors otherwise),
+        its ``payload`` bytes. ``asynchronous``: a start, joined later by
+        :meth:`wait`. Returns the op's index."""
+        ins = tensor if isinstance(tensor, tuple) else (tensor,)
+        outs = out if isinstance(out, tuple) else (out,)
         with self._lock:
             index = len(self.tape.ops)
             prov, stage, backward, site = self._where(skip=_COMM_FILES)
-            bid = self._buffer_of(tensor)
-            reads = () if bid is None else (bid,)
+            reads = tuple(b for b in map(self._buffer_of, ins)
+                          if b is not None)
             writes, allocs = list(reads), []
             if not inplace:
                 # A new tensor, made out of the dispatcher's sight: its
                 # storage may reuse a freed one's address.
                 writes = []
-                for t in _tensors(out):
+                for t in _tensors(outs):
                     k = _key(t)
                     if k is not None:
                         bid = self._new_buffer(k, t, 'op', index, stage)
@@ -569,14 +574,34 @@ class TapeRecorder(TorchDispatchMode):
             self.tape.ops.append(TapeOp(
                 index=index, name=kind, kind='collective', provenance=prov,
                 stage=stage, backward=backward, site=site,
-                in_dtypes=(tensor.dtype,),
-                out_dtypes=(out.dtype,), out_shapes=(tuple(out.shape),),
+                in_dtypes=tuple(t.dtype for t in ins),
+                out_dtypes=tuple(t.dtype for t in outs),
+                out_shapes=tuple(tuple(t.shape) for t in outs),
                 reads=reads, writes=tuple(writes), allocs=tuple(allocs),
                 out_bytes=int(payload),
                 collective={'kind': kind, 'group': tuple(group),
-                            'dtype': str(tensor.dtype).replace('torch.', ''),
-                            'shape': tuple(tensor.shape),
-                            'payload': int(payload), 'async': False}))
+                            'dtype': str(ins[0].dtype).replace('torch.',
+                                                               ''),
+                            'shape': tuple(ins[0].shape),
+                            'payload': int(payload),
+                            'async': bool(asynchronous)}))
+            return index
+
+    def wait(self, start, out):
+        """The end of the asynchronous collective at op ``start``: a
+        ``'wait'`` op that writes its results ``out`` (a tensor or a
+        tuple), so that their readers follow it."""
+        outs = out if isinstance(out, tuple) else (out,)
+        with self._lock:
+            index = len(self.tape.ops)
+            prov, stage, backward, site = self._where(skip=_COMM_FILES)
+            writes = tuple(b for b in map(self._buffer_of, outs)
+                           if b is not None)
+            self.tape.ops.append(TapeOp(
+                index=index, name='wait', kind='wait', provenance=prov,
+                stage=stage, backward=backward, site=site, writes=writes,
+                free=True, collective={'start': int(start)}))
+            return index
 
     def finish(self, *alive):
         """Mark the buffers of every tensor reachable from ``alive`` (the

@@ -393,7 +393,10 @@ int dgmc_blocked_aggregate(const void* h, int bf16, const int* row_ptr,
 // The routed sum: h [B, M_tab, C] (float32 or bf16 as above), row_ptr
 // [B, M_out + 1], row_src [B, E_max] int32 rows of h, row_scale [B, E_max]
 // float32 aligned with row_src or null; out [B, M_out, C] float32, every
-// element written. As dgmc_blocked_aggregate otherwise.
+// element written. As dgmc_blocked_aggregate otherwise. Each row reads
+// row_src from the offset its pointer holds, so row_ptr may be a slice of
+// a larger table's pointers whose first offset is not 0: a rank's row
+// block of a graph (ops/blocked.py row_slice), the whole table as h.
 int dgmc_blocked_route(const void* h, int bf16, const int* row_ptr,
                        const int* row_src, const float* row_scale, float* out,
                        int B, int M_out, int M_tab, int E_max, int C,

@@ -76,13 +76,22 @@ calls): where the model carries a correspondence layout whose rows lie
 over a mesh axis, each rank owns the rows ``[lo, hi)`` of ``S`` (the
 source rows padded up to equal blocks, the padding masked). Replicated on
 every rank from the same seeds, so that the draws equal one process's:
-ψ₁ and its dropout, the indicator noise, the negatives (drawn whole, then
-cut to the rows) and ψ₂ on the whole graphs. Row-local: the candidate
-search (:func:`~dgmc_tpu_torch.parallel.topk.corr_sharded_topk`, rows or
-the target ring), ``include_gt``, ``S_hat``, the softmaxes and the
-consensus deltas. Each step's ``r_t`` is summed over the row group by a
+the indicator noise, the negatives (drawn whole, then cut to the rows),
+ψ₂ on the whole graphs and, without JAX's opt-in ψ₁ table rules, ψ₁ and
+its dropout. Row-local: the candidate search
+(:func:`~dgmc_tpu_torch.parallel.topk.corr_sharded_topk`, rows or the
+target ring), ``include_gt``, ``S_hat``, the softmaxes and the consensus
+deltas. Each step's ``r_t`` is summed over the row group by a
 differentiable all-reduce (its backward sums the gradient). The outputs
-are the rank's rows.
+are the rank's rows. With ``psi1_sharding`` ψ₁ computes this rank's rows
+of ``h_s`` only, and with ``corpus_sharding`` its block of ``h_t``
+(row-restricted where the backbone computes by rows, RelCNN and GIN:
+:mod:`~dgmc_tpu_torch.models.rel`; SplineCNN computes every row and
+keeps the block, its routing being built per graph batch; the dispatch
+ledger's ``psi1_rows``); the ring then passes the ``h_t`` shards rank to
+rank, and the candidate rows come from ``h_t`` all-gathered after the
+search (differentiably: each row's gradient returns to its rank); the
+dense variant gathers ``h_t`` for ``S``.
 
 Observability, at the JAX package's places: the stages run under
 ``torch.profiler.record_function`` ranges named as JAX's scopes
@@ -213,6 +222,7 @@ class RowLayout:
         self.parts = mesh.axis_size(axis)
         self.index = mesh.axis_index(axis)
         self.group = mesh.group(axis)
+        self.mesh_group = mesh.group()
 
     def bounds(self, num_rows):
         from dgmc_tpu_torch.parallel.topk import row_block
@@ -221,25 +231,31 @@ class RowLayout:
     def take(self, x, dim=1):
         """This rank's rows of ``x`` along ``dim`` (padded with zeros up to
         equal blocks)."""
-        lo, hi, padded = self.bounds(x.shape[dim])
-        if padded == x.shape[dim] and (lo, hi) == (0, padded):
-            return x
-        if padded != x.shape[dim]:
-            shape = list(x.shape)
-            shape[dim] = padded - x.shape[dim]
-            x = torch.cat([x, x.new_zeros(shape)], dim=dim)
-        return x.narrow(dim, lo, hi - lo)
+        return self.node_rows(x.shape[dim]).take(x, dim)
 
     def sum(self, x):
         """``x`` summed over the row group, differentiably."""
         from dgmc_tpu_torch.parallel.comm import all_reduce_sum
         return all_reduce_sum(x, self.group)
 
-    def topk(self, h_s, h_t, k, t_mask, block, chunk, ring):
-        """This rank's rows of the shortlist, from the whole ``h_s``."""
+    def node_rows(self, num_nodes):
+        """This rank's block of a graph's ``num_nodes`` node rows
+        (:class:`~dgmc_tpu_torch.models.rel.NodeRows`): ψ₁'s row-restricted
+        compute under ``psi1_sharding`` / ``corpus_sharding``."""
+        from dgmc_tpu_torch.models.rel import NodeRows
+        lo, hi, _ = self.bounds(num_nodes)
+        return NodeRows(lo, hi, num_nodes, self.group, self.mesh_group)
+
+    def topk(self, h_s, h_t, k, t_mask, block, chunk, ring, local=False,
+             t_shard=None):
+        """This rank's rows of the shortlist, from the whole ``h_s`` (its
+        rows with ``local``) against the whole ``h_t``, or against this
+        rank's target shard ``t_shard`` (``h_t`` ``None``: the corpus
+        table sharded; the ring moves the shards)."""
         from dgmc_tpu_torch.parallel.topk import corr_sharded_topk
         return corr_sharded_topk(self.sharding, h_s, h_t, k, t_mask,
-                                 block=block, chunk=chunk, ring=ring)
+                                 block=block, chunk=chunk, ring=ring,
+                                 local_rows=local, t_shard=t_shard)
 
 
 def include_gt(S_idx, y_col, y_mask, return_replaced=False):
@@ -316,6 +332,7 @@ class DGMC(nn.Module):
             stream_chunk)
         self.dtype = compute_dtype_of(dtype)
         self.corr_sharding = self.topk_sharding = self.psi2_sharding = None
+        self.psi1_sharding = self.corpus_sharding = None
         self.ring_targets = False
         self._layout = None
         R = psi_2.out_channels
@@ -336,29 +353,40 @@ class DGMC(nn.Module):
         ``topk_sharding`` / ``psi2_sharding``
         (:class:`~dgmc_tpu_torch.parallel.mesh.NamedSharding` of
         ``[B, N_s, ...]`` arrays; their rows' axis is the row layout, the
-        same for the three), ``stream_chunk``, ``ring_targets`` (the search's
-        target ring) and ``topk_block``. ``psi1_sharding`` /
-        ``corpus_sharding`` (JAX's opt-in ψ₁ tables) are refused: ψ₁ runs
-        whole on every rank."""
-        if psi1_sharding is not None or corpus_sharding is not None:
-            raise ValueError('psi1_sharding / corpus_sharding shard ψ₁\'s '
-                             'tables; the port runs ψ₁ whole on every rank')
+        same for the three), ``psi1_sharding`` / ``corpus_sharding``
+        (JAX's opt-in ψ₁ tables ``h_s [B, N_s, C]`` and ``h_t [B, N_t,
+        C]``: where set, ψ₁ computes and holds this rank's row block of
+        that table only; their row axis must be the row layout's),
+        ``stream_chunk``, ``ring_targets`` (the search's target ring) and
+        ``topk_block``. Without either ψ₁ rule ψ₁ runs whole on every
+        rank."""
         axes = {s.axis(1) for s in (corr_sharding, topk_sharding,
                                     psi2_sharding) if s is not None}
         if len(axes) > 1:
             raise ValueError(f'corr / topk / psi2 shardings must put the '
                              f'rows on one axis; got {sorted(map(str, axes))}')
+        rows = next((s for s in (corr_sharding, topk_sharding, psi2_sharding)
+                     if s is not None and s.axis(1) is not None), None)
+        for name, table in (('psi1_sharding', psi1_sharding),
+                            ('corpus_sharding', corpus_sharding)):
+            if table is not None and (rows is None
+                                      or table.axis(1) != rows.axis(1)):
+                raise ValueError(
+                    f'{name} puts ψ₁\'s rows on {table.axis(1)!r}; it '
+                    f'must be the correspondence rows\' axis '
+                    f'({None if rows is None else rows.axis(1)!r}), as '
+                    f'JAX\'s rules set them alike')
         out = copy.copy(self)
         out.corr_sharding = corr_sharding
         out.topk_sharding = topk_sharding
         out.psi2_sharding = psi2_sharding
+        out.psi1_sharding = psi1_sharding
+        out.corpus_sharding = corpus_sharding
         out.stream_chunk = None if stream_chunk is None else int(
             stream_chunk)
         out.ring_targets = bool(ring_targets)
         if topk_block is not None:
             out.topk_block = int(topk_block)
-        rows = next((s for s in (corr_sharding, topk_sharding, psi2_sharding)
-                     if s is not None and s.axis(1) is not None), None)
         out._layout = None if rows is None else RowLayout(rows)
         return out
 
@@ -506,6 +534,48 @@ class DGMC(nn.Module):
                 'target table means the target side never runs ψ₁')
         return UnionPair(graph_s, graph_t), merge_1, merge_2
 
+    def _table_rows(self, graph_s, graph_t, serving, merge_1):
+        """``(rows_s, rows_t)``: the :class:`~dgmc_tpu_torch.models.rel.
+        NodeRows` ψ₁ computes on each side (``None``: every row), per
+        ``psi1_sharding`` / ``corpus_sharding``; the target's only where ψ₁
+        computes ``h_t`` (not ``serving``)."""
+        lay = self.row_layout()
+        if lay is None:
+            return None, None
+        rows_s = (lay.node_rows(graph_s.num_nodes)
+                  if self.psi1_sharding is not None else None)
+        rows_t = (lay.node_rows(graph_t.num_nodes)
+                  if self.corpus_sharding is not None and not serving
+                  else None)
+        if merge_1 and (rows_s is not None or rows_t is not None):
+            raise ValueError('batch_pair unions ψ₁\'s two sides; '
+                             'psi1_sharding / corpus_sharding shard each '
+                             'side\'s rows: not both')
+        return rows_s, rows_t
+
+    def _psi1(self, x, graph, generator, rows):
+        """ψ₁ on one side: every row, or ``rows``' block (row-restricted
+        where the backbone computes by rows, ``supports_rows``; else the
+        whole table, its block kept), recorded as ``psi1_rows``."""
+        if rows is None:
+            return self.psi_1(x, graph, generator=generator)
+        name = type(self.psi_1).__name__
+        if getattr(self.psi_1, 'supports_rows', False):
+            dispatch.record('psi1_rows', 'rows', name)
+            return self.psi_1(x, graph, generator=generator, rows=rows)
+        dispatch.record('psi1_rows', 'whole',
+                        f'{name}: every row computed, the block kept (its '
+                        f'routing is built per graph batch)')
+        return rows.take(self.psi_1(x, graph, generator=generator))
+
+    def _psi1_pair(self, graph_s, graph_t, pair, generator, rows_s, rows_t):
+        """ψ₁ on both sides (:meth:`_on_pair`, or row-restricted)."""
+        if pair is not None or (rows_s is None and rows_t is None):
+            return self._on_pair(self.psi_1, graph_s.x, graph_t.x, graph_s,
+                                 graph_t, pair, generator)
+        return (self._psi1(graph_s.x, graph_s, generator, rows_s),
+                self._psi1(graph_t.x, graph_t, generator, rows_t))
+
     @staticmethod
     def _on_pair(m, x_s, x_t, graph_s, graph_t, pair, generator):
         """``m`` on both sides: once on the union where ``pair`` is given,
@@ -534,21 +604,27 @@ class DGMC(nn.Module):
     def _dense(self, graph_s, graph_t, num_steps, detach, noise_seed,
                pair_offset, r_s, generator):
         pair, merge_1, merge_2 = self._union(graph_s, graph_t, False)
+        rows_s, rows_t = self._table_rows(graph_s, graph_t, False, merge_1)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
                 stage('psi1'):
-            h_s, h_t = self._on_pair(self.psi_1, graph_s.x, graph_t.x,
-                                     graph_s, graph_t,
-                                     pair if merge_1 else None, generator)
+            h_s, h_t = self._psi1_pair(graph_s, graph_t,
+                                       pair if merge_1 else None, generator,
+                                       rows_s, rows_t)
         # Probes document the train step only (the JAX package's rule).
         probe = _probes.enabled() and self.training
         if probe:
             _probes.check_finite('psi1', h_s, h_t, order=0)
         h_s, h_t = self._cast(h_s), self._cast(h_t)
+        if rows_t is not None:
+            # S spans every target: the corpus table gathered.
+            h_t = rows_t.gather(h_t)
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         N_src = s_mask.shape[1]
         lay = self.row_layout()
         if lay is not None:
-            h_s, s_mask = lay.take(h_s), lay.take(s_mask)
+            s_mask = lay.take(s_mask)
+            if rows_s is None:
+                h_s = lay.take(h_s)
         B = s_mask.shape[0]
         S_mask = s_mask[:, :, None] & t_mask[:, None, :]
         with stage('initial_corr'):
@@ -657,19 +733,19 @@ class DGMC(nn.Module):
         if negatives is not None and not train:
             raise ValueError('negatives are drawn in training mode only '
                              '(with y)')
-        pair, merge_1, merge_2 = self._union(
-            graph_s, graph_t, h_t is not None or h_t_cand is not None)
+        serving = h_t is not None or h_t_cand is not None
+        pair, merge_1, merge_2 = self._union(graph_s, graph_t, serving)
+        rows_s, rows_t = self._table_rows(graph_s, graph_t, serving, merge_1)
         # detach: ψ₁ runs without a graph, still in its own mode (the
         # same dropout masks as with one).
         with torch.set_grad_enabled(torch.is_grad_enabled() and not detach), \
                 stage('psi1'):
-            if h_t is None and h_t_cand is None:
-                h_s, h_t = self._on_pair(self.psi_1, graph_s.x, graph_t.x,
-                                         graph_s, graph_t,
-                                         pair if merge_1 else None,
-                                         generator)
+            if not serving:
+                h_s, h_t = self._psi1_pair(graph_s, graph_t,
+                                           pair if merge_1 else None,
+                                           generator, rows_s, rows_t)
             else:
-                h_s = self.psi_1(graph_s.x, graph_s, generator=generator)
+                h_s = self._psi1(graph_s.x, graph_s, generator, rows_s)
         probe = _probes.enabled() and self.training
         if probe:
             _probes.check_finite('psi1', h_s,
@@ -682,23 +758,30 @@ class DGMC(nn.Module):
         s_mask, t_mask = graph_s.node_mask, graph_t.node_mask
         N_src = s_mask.shape[1]
         h_s_all, lay = h_s, self.row_layout()
+        # With the corpus table sharded, h_t is this rank's shard until
+        # the search has run.
+        h_t_shard, h_t = (h_t, None) if rows_t is not None else (None, h_t)
         if lay is not None:
             # This rank's rows of every [B, N_s, ...] input.
-            h_s, s_mask = lay.take(h_s), lay.take(s_mask)
+            s_mask = lay.take(s_mask)
+            if rows_s is None:
+                h_s = lay.take(h_s)
             y, y_mask, S_idx, h_t_cand = (
                 None if v is None else lay.take(v)
                 for v in (y, y_mask, S_idx, h_t_cand))
         (B, N_s), N_t = s_mask.shape, t_mask.shape[1]
         dev = h_s.device
         if S_idx is None:
-            if h_t is None:
+            if h_t is None and h_t_shard is None:
                 raise ValueError('the candidate search needs the full h_t '
                                  'table (or a precomputed S_idx)')
             with stage('topk'):
                 if lay is not None:
                     S_idx = lay.topk(h_s_all, h_t, self.k, t_mask,
                                      self.topk_block, self.stream_chunk,
-                                     self.ring_targets)
+                                     self.ring_targets,
+                                     local=rows_s is not None,
+                                     t_shard=h_t_shard)
                 elif self.stream_chunk is not None:
                     S_idx = streamed_topk(h_s, h_t, self.k,
                                           self.stream_chunk, t_mask=t_mask,
@@ -714,6 +797,11 @@ class DGMC(nn.Module):
             # The kernels index target rows unchecked.
             raise ValueError(f'precomputed S_idx outside [0, {N_t})')
         S_idx = S_idx.long()
+        if h_t_shard is not None:
+            # The candidate rows (the search's, the negatives, the ground
+            # truth) lie anywhere in the targets: the corpus table
+            # gathered, its gradient back to the rank that owns each row.
+            h_t = rows_t.gather(h_t_shard)
 
         # Candidate-slot validity without gathering t_mask at S_idx: masked
         # columns score finfo.min / -inf in the search, strictly below any

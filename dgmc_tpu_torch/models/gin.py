@@ -18,6 +18,13 @@ cast to the compute dtype where used.
 
 GIN has no channel-packed evaluation (``streams``): as ψ₂, DGMC calls it
 once per consensus step on each side.
+
+Row-restricted (``rows``, as ψ₁ under DGMC's ``psi1_sharding`` /
+``corpus_sharding``): RelConv's incoming half
+(:func:`~dgmc_tpu_torch.models.rel.aggregate_rows`): each layer
+all-gathers its input rows, sums the neighbours of the rank's rows and
+runs the MLP on those rows alone (row-local; its batch norm over every
+rank's real rows).
 """
 
 import torch
@@ -25,8 +32,7 @@ from torch import nn
 
 from dgmc_tpu_torch.models.mlp import MLP
 from dgmc_tpu_torch.models.precision import compute_dtype_of
-from dgmc_tpu_torch.models.rel import dense, init_linear_
-from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
+from dgmc_tpu_torch.models.rel import aggregate_rows, dense, init_linear_
 
 __all__ = ['GINConv', 'GIN']
 
@@ -45,20 +51,22 @@ class GINConv(nn.Module):
             self.eps.zero_()
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, graph, generator=None):
-        msgs = gather_nodes(x, graph.senders,
-                            graph.csr('senders', masked=False))
-        agg = scatter_to_nodes(msgs, graph.receivers, graph.edge_mask,
-                               x.shape[1], aggr='sum',
-                               segs=graph.csr('receivers'))
+    def forward(self, x, graph, generator=None, rows=None):
+        """``rows``: ``x`` is this rank's rows, and so is the result."""
+        x_all = x if rows is None else rows.gather(x)
+        agg = aggregate_rows(x_all, graph, rows, 'senders', 'receivers',
+                             'sum')
         acc = torch.promote_types(x.dtype, self.eps.dtype)
         out = (1.0 + self.eps) * x.to(acc) + agg.to(acc)
-        return self.mlp(out, graph.node_mask, generator=generator)
+        mask = graph.node_mask if rows is None else rows.take(
+            graph.node_mask)
+        return self.mlp(out, mask, generator=generator, rows=rows)
 
 
 class GIN(nn.Module):
     """``GIN(in, channels, num_layers)``; flax's ``mlp_<i>`` and
     ``conv_<i>`` scopes are ``convs.<i>.mlp`` and ``convs.<i>`` here."""
+    supports_rows = True
 
     def __init__(self, in_channels, channels, num_layers, batch_norm=False,
                  cat=True, lin=True, dtype=None):
@@ -95,12 +103,13 @@ class GIN(nn.Module):
         if self.final is not None:
             init_linear_(self.final, generator)
 
-    def forward(self, x, graph, generator=None):
+    def forward(self, x, graph, generator=None, rows=None):
         """``generator`` is accepted for DGMC's calls; GIN draws nothing
-        (its MLPs have no dropout)."""
-        xs = [x]
+        (its MLPs have no dropout). ``rows``: compute this rank's rows
+        only (see the module docstring); ``x`` is whole."""
+        xs = [x if rows is None else rows.take(x)]
         for conv in self.convs:
-            xs.append(conv(xs[-1], graph, generator=generator))
+            xs.append(conv(xs[-1], graph, generator=generator, rows=rows))
         # torch.cat promotes mixed dtypes as the JAX package's concat does.
         out = torch.cat(xs, dim=-1) if self.cat else xs[-1]
         return dense(self.final, out, self.dtype) if self.lin else out

@@ -10,6 +10,11 @@ tensors; the node mask selects the batch-norm statistics' rows.
 in it as :func:`~dgmc_tpu_torch.models.rel.dense` does (flax ``Dense(
 dtype=...)``); batch norm keeps float32 statistics and returns float32,
 which the next map casts again.
+
+Row-local: given a rank's block of the node rows (``rows``, a
+:class:`~dgmc_tpu_torch.models.rel.NodeRows`) it computes those rows
+only, its batch norm's statistics over every rank's real rows and its
+dropout mask the whole graph's, cut to the block.
 """
 
 from torch import nn
@@ -44,9 +49,13 @@ class MLP(nn.Module):
         for bn in self.bns or ():
             bn.reset_parameters()
 
-    def forward(self, x, node_mask=None, generator=None):
+    def forward(self, x, node_mask=None, generator=None, rows=None):
         """``generator``: the source of the dropout mask, needed in
-        training mode with ``dropout > 0``."""
+        training mode with ``dropout > 0``. ``rows``: ``x`` and
+        ``node_mask`` are this rank's block of the node rows (see the
+        module docstring)."""
+        if rows is not None:
+            generator = rows.dropout_source(generator)
         for i, lin in enumerate(self.lins):
             last = i == self.num_layers - 1
             if last and self.training and self.dropout > 0:
@@ -55,7 +64,7 @@ class MLP(nn.Module):
             if not last:
                 x = x.relu()
                 if self.batch_norm:
-                    x = self.bns[i](x, node_mask)
+                    x = self.bns[i](x, node_mask, rows=rows)
         return x
 
     def extra_repr(self):

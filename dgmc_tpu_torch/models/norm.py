@@ -29,7 +29,11 @@ model its group) makes the masked sums, sums of squares and counts sums
 over that group, differentiably, so the statistics and running averages
 are those of the global batch on every rank, as GSPMD makes them in the
 JAX package. Without a group (``None``, the default) they are this
-rank's batch's.
+rank's batch's. Where the node rows are split over ranks (ψ₁
+row-restricted, ``rows``: a :class:`~dgmc_tpu_torch.models.rel.NodeRows`)
+the sums run over the rows' group too
+(:meth:`~dgmc_tpu_torch.models.rel.NodeRows.stats_group`), so the
+statistics are those of every real node of every rank.
 """
 
 import torch
@@ -85,17 +89,21 @@ class MaskedBatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, rows=None):
+        """``rows``: ``x`` holds this rank's block of the node rows (see
+        the module docstring)."""
         C = x.shape[-1]
+        group = (self.stats_group if rows is None
+                 else rows.stats_group(self.stats_group))
         if not self.training:
             mean, var = self.mean, self.var
         else:
             acc = torch.promote_types(x.dtype, torch.float32)
             xf = x.to(acc).reshape(-1, C)
-            if self.stats_group is not None:
+            if group is not None:
                 mean, var, n = _global_stats(
                     xf, None if mask is None else mask.to(acc).reshape(-1, 1),
-                    self.stats_group)
+                    group)
                 bessel = n / (n - 1.0).clamp(min=1.0)
             elif mask is None:
                 n = float(xf.shape[0])

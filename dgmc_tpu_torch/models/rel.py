@@ -26,6 +26,24 @@ sender orders (:meth:`GraphBatch.csr`: every edge for a gather's
 gradient, the real edges for an aggregation), so their gradients, like
 their forwards, sum in a fixed order; the means are rounded to the
 messages' dtype before they are summed.
+
+Row-restricted (``rows``, a :class:`NodeRows`: this rank's block of the
+node rows where ψ₁'s tables are sharded over ranks, DGMC's
+``psi1_sharding`` / ``corpus_sharding``): each layer computes ``lin1``,
+``lin2`` and ``root`` on the rank's rows only, all-gathers the messages
+``h1`` / ``h2`` (:func:`~dgmc_tpu_torch.parallel.comm.all_gather_grad`:
+their gradients flow back to the rank that owns them, summed over the
+ranks in rank order) and aggregates the rank's rows only: over the
+blocked tables, the output rows of the block with a backward over the
+entries the rank's rows receive
+(:func:`~dgmc_tpu_torch.ops.blocked.adj_matmul_rows`); otherwise the
+whole aggregation, its rows kept (:func:`aggregate_rows`). Batch norm's
+statistics span every rank's real rows (the row group's sums, with the
+data group's where there is one); dropout draws the whole graph's mask
+and keeps the rank's rows (:class:`NodeBlock`). The concat and the final
+map are row-local. A row's aggregation keeps its order, so the forward
+rows are the whole forward's where the products on a row subset round as
+on all rows.
 """
 
 import math
@@ -37,11 +55,12 @@ from torch.nn import functional as F
 
 from dgmc_tpu_torch.models.norm import MaskedBatchNorm
 from dgmc_tpu_torch.models.precision import compute_dtype_of
-from dgmc_tpu_torch.ops.blocked import adj_matmul
+from dgmc_tpu_torch.ops.blocked import adj_matmul, adj_matmul_rows
 from dgmc_tpu_torch.ops.graph import gather_nodes, scatter_to_nodes
 
-__all__ = ['RelConv', 'RelCNN', 'BatchBlock', 'dense', 'dropout',
-           'init_linear_', 'lecun_normal_']
+__all__ = ['RelConv', 'RelCNN', 'BatchBlock', 'NodeBlock', 'NodeRows',
+           'aggregate_rows', 'dense', 'dropout', 'init_linear_',
+           'lecun_normal_']
 
 # Standard deviation of a unit normal truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
@@ -82,6 +101,63 @@ class BatchBlock(NamedTuple):
     index: int
 
 
+class NodeBlock(NamedTuple):
+    """Dropout's source for a rank's rows ``[lo, hi)`` of a graph of
+    ``num_nodes`` node rows (ψ₁ row-restricted): the mask is drawn from
+    ``generator`` (a ``torch.Generator`` or a :class:`BatchBlock`) for
+    every node and the rank's rows kept, so a rank's rows drop what they
+    drop in one process and the generator advances as it does there."""
+    generator: object
+    lo: int
+    hi: int
+    num_nodes: int
+
+
+def _rows(x, lo, hi, dim=1):
+    """Rows ``[lo, hi)`` of ``x`` along ``dim``, zeros past its end."""
+    pad = hi - x.shape[dim]
+    if pad > 0:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    if lo == 0 and hi == x.shape[dim]:
+        return x
+    return x.narrow(dim, lo, hi - lo)
+
+
+class NodeRows:
+    """This rank's block of a graph's node rows, ``[lo, hi)`` of the
+    ``num_nodes`` rows padded up to equal blocks over the row ``group``'s
+    ranks (:func:`~dgmc_tpu_torch.parallel.topk.row_block`);
+    ``mesh_group`` spans the row group and the data group (batch norm's
+    statistics where the batch is split too)."""
+
+    def __init__(self, lo, hi, num_nodes, group, mesh_group=None):
+        self.lo, self.hi, self.num_nodes = lo, hi, num_nodes
+        self.group, self.mesh_group = group, mesh_group
+
+    def take(self, x, dim=1):
+        """The block's rows of ``x`` (whole rows along ``dim``), zeros
+        past ``num_nodes``."""
+        return _rows(x, self.lo, self.hi, dim)
+
+    def gather(self, x):
+        """Every rank's rows of ``x [B, hi - lo, C]`` → ``[B, num_nodes,
+        C]``, differentiably (the gradient of a rank's rows summed over
+        the ranks)."""
+        from dgmc_tpu_torch.parallel.comm import all_gather_grad
+        return all_gather_grad(x, self.group, dim=1)[:, :self.num_nodes]
+
+    def stats_group(self, data_group):
+        """Batch norm's group: the rows' group, or with ``data_group``
+        (the batch split too) the one over both."""
+        return self.group if data_group is None else self.mesh_group
+
+    def dropout_source(self, generator):
+        return None if generator is None else NodeBlock(
+            generator, self.lo, self.hi, self.num_nodes)
+
+
 def dropout(h, p, generator):
     """Flax's ``Dropout``: keep each entry with probability ``1 - p`` and
     scale the kept ones by ``1 / (1 - p)`` in ``h``'s dtype; the mask is
@@ -89,19 +165,43 @@ def dropout(h, p, generator):
     uniforms under every precision policy (flax draws its Bernoulli mask
     so; a bf16 uniform would quantize the keep probability). A
     :class:`BatchBlock` draws the whole batch's mask (``h``'s leading
-    axis is the rank's block of the batch) and keeps this block's."""
+    axis is the rank's block of the batch) and keeps this block's; a
+    :class:`NodeBlock` draws every node row's (``h``'s second axis is the
+    rank's block of the rows) and keeps the block's."""
     if generator is None:
         raise ValueError('training-mode dropout draws its masks from an '
                          'explicit generator; pass generator=')
     if p >= 1.0:
         return torch.zeros_like(h)
+    rows = None
+    if isinstance(generator, NodeBlock):
+        rows, generator = generator, generator.generator
     gen, parts, index = (generator if isinstance(generator, BatchBlock)
                          else (generator, 1, 0))
     B = h.shape[0]
-    u = torch.rand((parts * B,) + tuple(h.shape[1:]), generator=gen,
+    shape = tuple(h.shape[1:])
+    if rows is not None:
+        shape = (rows.num_nodes,) + shape[1:]
+    u = torch.rand((parts * B,) + shape, generator=gen,
                    device=h.device, dtype=torch.float32)
     keep = u[index * B:(index + 1) * B] >= p
+    if rows is not None:
+        keep = _rows(keep, rows.lo, rows.hi)
     return torch.where(keep, h / (1.0 - p), 0.0)
+
+
+def aggregate_rows(h_all, graph, rows, senders, receivers, aggr):
+    """``rows``' block of the aggregation ``Σ`` (or the mean) over the
+    edges ``senders -> receivers`` of the whole ``h_all [B, N, C]``: the
+    whole aggregation (the graph's cached edge orders), its block's rows
+    kept; the gradient reaches every row of ``h_all`` from the block's
+    rows alone. ``rows`` ``None``: the whole aggregation."""
+    N = h_all.shape[1]
+    msgs = gather_nodes(h_all, getattr(graph, senders),
+                        graph.csr(senders, masked=False))
+    out = scatter_to_nodes(msgs, getattr(graph, receivers), graph.edge_mask,
+                           N, aggr=aggr, segs=graph.csr(receivers))
+    return out if rows is None else rows.take(out)
 
 
 class RelConv(nn.Module):
@@ -116,11 +216,13 @@ class RelConv(nn.Module):
         for lin in (self.lin1, self.lin2, self.root):
             init_linear_(lin, generator)
 
-    def forward(self, x, graph, streams=1):
+    def forward(self, x, graph, streams=1, rows=None):
         """``streams > 1`` evaluates the same convolution on ``streams``
         independent channel groups laid out channel-wise
         (``x: [B, N, streams * C]``): per group the math equals a separate
-        call, but the edge gathers read ``streams``-times wider rows."""
+        call, but the edge gathers read ``streams``-times wider rows.
+        ``rows`` (a :class:`NodeRows`): ``x`` is this rank's rows, and so
+        is the result (see the module docstring)."""
         B, N = x.shape[0], x.shape[1]
 
         def grouped(lin, v):
@@ -132,27 +234,27 @@ class RelConv(nn.Module):
         h1 = grouped(self.lin1, x)
         h2 = grouped(self.lin2, x)
         root = grouped(self.root, x)
+        if rows is not None:
+            h1, h2 = rows.gather(h1), rows.gather(h2)
         if graph.blocks_in is not None:
             # The blocked tables (ops/blocked.py), as the JAX package
             # orders it: each mean in float32, their sum rounded once to
             # root's dtype.
-            a_in = (adj_matmul(h1, graph.blocks_in, graph.blocks_out)
-                    * graph.blocks_in.inv_degree)
-            a_out = (adj_matmul(h2, graph.blocks_out, graph.blocks_in)
-                     * graph.blocks_out.inv_degree)
+            b_in, b_out = graph.blocks_in, graph.blocks_out
+            if rows is None:
+                a_in = adj_matmul(h1, b_in, b_out) * b_in.inv_degree
+                a_out = adj_matmul(h2, b_out, b_in) * b_out.inv_degree
+            else:
+                a_in = (adj_matmul_rows(h1, b_in, b_out, rows.lo, rows.hi)
+                        * rows.take(b_in.inv_degree))
+                a_out = (adj_matmul_rows(h2, b_out, b_in, rows.lo, rows.hi)
+                         * rows.take(b_out.inv_degree))
             return root + (a_in + a_out).to(root.dtype)
-
-        def gather(h, key):
-            return gather_nodes(h, getattr(graph, key),
-                                graph.csr(key, masked=False))
-        # Incoming: messages flow sender -> receiver.
-        a_in = scatter_to_nodes(gather(h1, 'senders'), graph.receivers,
-                                graph.edge_mask, N, aggr='mean',
-                                segs=graph.csr('receivers'))
-        # Outgoing: the same edges walked backwards.
-        a_out = scatter_to_nodes(gather(h2, 'receivers'), graph.senders,
-                                 graph.edge_mask, N, aggr='mean',
-                                 segs=graph.csr('senders'))
+        # Incoming: messages flow sender -> receiver; outgoing: the same
+        # edges walked backwards.
+        a_in = aggregate_rows(h1, graph, rows, 'senders', 'receivers', 'mean')
+        a_out = aggregate_rows(h2, graph, rows, 'receivers', 'senders',
+                               'mean')
         return root + (a_in + a_out)
 
 
@@ -165,6 +267,7 @@ class RelCNN(nn.Module):
     dropout, which would couple the packed groups).
     """
     supports_streams = True
+    supports_rows = True
 
     def __init__(self, in_channels, channels, num_layers, batch_norm=False,
                  cat=True, lin=True, dropout=0.0, dtype=None):
@@ -207,12 +310,14 @@ class RelCNN(nn.Module):
         if self.final is not None:
             init_linear_(self.final, generator)
 
-    def forward(self, x, graph, streams=1, generator=None):
+    def forward(self, x, graph, streams=1, generator=None, rows=None):
         """``generator``: the source of the dropout masks, needed in
         training mode with ``dropout > 0``. ``streams > 1`` (see
         :class:`RelConv`) is refused with batch norm, whose statistics
         would span the channel groups, and with active dropout, which
-        would draw one mask across them."""
+        would draw one mask across them. ``rows`` (a :class:`NodeRows`):
+        compute this rank's rows of the whole graph's output only (see
+        the module docstring); ``x`` is whole."""
         active = self.training and self.dropout > 0
         if streams > 1 and self.batch_norm:
             raise ValueError('streams>1 is invalid with batch_norm=True: '
@@ -222,16 +327,23 @@ class RelCNN(nn.Module):
                 'streams>1 is invalid with active dropout: a packed '
                 'evaluation draws ONE mask across the channel groups, '
                 'coupling what should be independent iterations')
+        if streams > 1 and rows is not None:
+            raise ValueError('streams>1 packs ψ₂\'s source side; rows '
+                             'restrict ψ₁: not both')
         B, N = x.shape[0], x.shape[1]
+        mask = graph.node_mask
+        if rows is not None:
+            x, mask = rows.take(x), rows.take(mask)
+            generator = rows.dropout_source(generator)
         # Every consumer of x casts it to the compute dtype (the JAX
         # package's Dense layers; its concat then rounds at the final
         # Dense): once here is the same. Batch norm returns float32,
         # which the next layer's maps and the final map cast again.
         xs = [x if self.dtype is None else x.to(self.dtype)]
         for i, conv in enumerate(self.convs):
-            h = torch.relu(conv(xs[-1], graph, streams=streams))
+            h = torch.relu(conv(xs[-1], graph, streams=streams, rows=rows))
             if self.batch_norm:
-                h = self.bns[i](h, graph.node_mask)
+                h = self.bns[i](h, mask, rows=rows)
             xs.append(dropout(h, self.dropout, generator) if active else h)
         if streams == 1:
             out = torch.cat(xs, dim=-1) if self.cat else xs[-1]

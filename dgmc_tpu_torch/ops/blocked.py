@@ -25,6 +25,17 @@ with its tables bit for bit:
    check's reference for bit equality; on no main path).
 3. Backward: the gradient of ``h`` is the same aggregation over the
    transposed tables (incoming ↔ outgoing), so it is the same kernel.
+4. Row blocks (:func:`adj_matmul_rows`, a rank's rows of a graph whose
+   node rows are split over ranks): the output rows ``[lo, hi)`` only,
+   from the whole ``h`` (:func:`row_slice`: the row table's pointers
+   ``row_ptr[:, lo:hi + 1]``, whose first offset is not 0, into the
+   whole ``row_src``), and a backward that sums, over the transposed
+   tables, only the entries whose source row is the rank's
+   (:func:`owned_rows`: the entries kept in the table's order, their
+   sources re-based to ``lo``). Each row keeps its summation order, so a
+   rank's forward rows are the whole aggregation's bit for bit. Both are
+   built on the tables' device from their tensors, without a read on the
+   host.
 
 Dtype rules (JAX's ``_routed``, which change numbers): the output is
 ``promote(h, float32)``; with ``gather_dtype`` (``'bfloat16'``, the bf16
@@ -60,8 +71,9 @@ import torch
 from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['EdgeBlocks', 'build_edge_blocks', 'operand_dtype', 'operand',
-           'plain_aggregate', 'ordered_aggregate',
-           'adj_matmul', 'UnionPair', 'repeat_graph', 'attach_blocks']
+           'plain_aggregate', 'ordered_aggregate', 'row_slice', 'owned_rows',
+           'adj_matmul', 'adj_matmul_rows', 'UnionPair', 'repeat_graph',
+           'attach_blocks']
 
 _TENSORS = ('src', 'dst_local', 'mask', 'range_id', 'inv_degree',
             'range_ptr', 'row_ptr', 'row_src')
@@ -309,11 +321,11 @@ def ordered_aggregate(h, blocks, scale=None):
         B, N, C)
 
 
-def _aggregate(h, blocks):
+def _aggregate(h, blocks, **kw):
     # Looked up at call time, so a comparison can swap in the plain
     # version on the card.
     from dgmc_tpu_torch.ops.kernels import blocked
-    return blocked.aggregate(h, blocks)
+    return blocked.aggregate(h, blocks, **kw)
 
 
 class _AdjMatmul(torch.autograd.Function):
@@ -335,6 +347,67 @@ def adj_matmul(h, fwd_blocks, bwd_blocks):
     ``fwd_blocks``, in ``promote(h, float32)``; the gradient is the same
     aggregation over ``bwd_blocks`` (the transpose)."""
     return _AdjMatmul.apply(h, fwd_blocks, bwd_blocks)
+
+
+def row_slice(blocks, lo, hi):
+    """``blocks`` whose row table gives the output rows ``[lo, hi)`` only:
+    ``row_ptr [B, hi - lo + 1]``, the whole table's pointers from row
+    ``lo`` (its first offset is not 0) into the whole ``row_src``; rows
+    past the table's ``N`` are empty. JAX's block fields stay whole."""
+    ptr = blocks.row_ptr
+    N = ptr.shape[1] - 1
+    at = torch.arange(lo, hi + 1, device=ptr.device).clamp(max=N)
+    return blocks.replace(row_ptr=ptr.index_select(1, at))
+
+
+def owned_rows(blocks, lo, hi):
+    """``blocks`` whose row table sums, into every output row, only the
+    entries whose source lies in ``[lo, hi)``, in the table's order, each
+    source re-based to ``lo`` (a ``[B, hi - lo, C]`` table of rows): the
+    transposed direction's backward of a rank's row block. Built on the
+    tables' device: a stable sort of the entries, the rank's first."""
+    ptr, src = blocks.row_ptr, blocks.row_src
+    B, E = src.shape
+    pos = torch.arange(E, device=src.device)[None]
+    own = (pos < ptr[:, -1:]) & (src >= lo) & (src < hi)
+    order = torch.argsort((~own).to(torch.int8), dim=1, stable=True)
+    count = own.sum(dim=1, keepdim=True)
+    row_src = torch.where(pos < count, src.gather(1, order) - lo, 0)
+    seen = torch.cat([torch.zeros((B, 1), dtype=torch.int64,
+                                  device=src.device),
+                      own.to(torch.int64).cumsum(1)], dim=1)
+    return blocks.replace(row_ptr=seen.gather(1, ptr.long()).to(torch.int32),
+                          row_src=row_src.to(torch.int32))
+
+
+class _AdjMatmulRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h, fwd_blocks, bwd_blocks, lo, hi):
+        ctx.bwd_blocks, ctx.lo, ctx.hi = bwd_blocks, lo, hi
+        return _aggregate(h, fwd_blocks, rows=(lo, hi))
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return (_aggregate(d_out, ctx.bwd_blocks, rows=(ctx.lo, ctx.hi),
+                           sources=True), None, None, None, None)
+
+
+def _adj_rows_work(h, fwd_blocks, bwd_blocks, lo, hi):
+    from dgmc_tpu_torch.ops.kernels.blocked import rows_work
+    d = torch.empty((h.shape[0], hi - lo, h.shape[-1]), dtype=h.dtype,
+                    device='meta')
+    return dict(rows_work(h, fwd_blocks, lo, hi, False),
+                bwd=rows_work(d, bwd_blocks, lo, hi, True))
+
+
+@dispatch.counted('adj_matmul_rows', _adj_rows_work)
+def adj_matmul_rows(h, fwd_blocks, bwd_blocks, lo, hi):
+    """The output rows ``[lo, hi)`` of :func:`adj_matmul` (``[B, hi - lo,
+    C]``, rows past ``N`` zero) from the whole ``h [B, N, C]``; the
+    gradient of ``h`` sums the rows' gradient over ``bwd_blocks``' entries
+    whose source lies in ``[lo, hi)`` (see the module docstring)."""
+    return _AdjMatmulRows.apply(h, fwd_blocks, bwd_blocks, lo, hi)
 
 
 class UnionPair:

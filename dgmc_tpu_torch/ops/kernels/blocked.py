@@ -38,6 +38,22 @@ reference. Its wrappers :func:`route_project` and
 dispatch as :func:`aggregate` does; the unscaled entry and its launch
 plan are unchanged.
 
+:func:`aggregate`'s ``rows=(lo, hi)`` sums a rank's row block of a
+graph whose node rows are split over ranks
+(:func:`~dgmc_tpu_torch.ops.blocked.adj_matmul_rows`): the output rows
+``[lo, hi)`` from the whole ``h`` (``row_ptr`` the whole table's
+pointers from row ``lo``, :func:`~dgmc_tpu_torch.ops.blocked.row_slice`:
+the kernel reads each row's sources at the offsets the pointers hold, so
+the first need not be 0), or, with ``sources``, every output row over the
+entries whose source lies in the block (``h`` the block's rows,
+:func:`~dgmc_tpu_torch.ops.blocked.owned_rows`). On the card both launch
+the routed entry unscaled (its table and output row counts differ), in
+each row's own order, so that
+:func:`~dgmc_tpu_torch.ops.blocked.ordered_aggregate` over the same
+tables is their bit-for-bit reference; on the CPU the plain version runs
+on the whole table (the output rows cut, or the block's rows placed in a
+zero table), the whole aggregation's values at those rows.
+
 :func:`blocked_work` is the aggregation's least work on one table (the
 work counter's count in :mod:`~dgmc_tpu_torch.obs.cost` and
 ``chip_smoke.py``'s bound), the same whichever path runs;
@@ -52,7 +68,7 @@ from dgmc_tpu_torch.ops import blocked as blocked_ops
 from dgmc_tpu_torch.ops.kernels import dispatch
 
 __all__ = ['WARPS', 'UNROLL', 'VECTORS_PER_LANE', 'launch_plan',
-           'aggregate', 'launch', 'blocked_work', 'route_work',
+           'aggregate', 'launch', 'blocked_work', 'rows_work', 'route_work',
            'route_project', 'route_gather_bwd', 'launch_route']
 
 
@@ -68,12 +84,40 @@ def blocked_work(blocks, C, elem):
             'out_bytes': 4.0 * B * M * C, 'dot': False}
 
 
-def call_work(h, blocks):
-    """:func:`blocked_work` of one call on rows ``h``."""
+def call_work(h, blocks, rows=None, sources=False):
+    """:func:`blocked_work` of one call on rows ``h`` (:func:`rows_work`
+    with ``rows``)."""
+    if rows is not None:
+        return rows_work(h, blocks, *rows, sources)
     x_dtype = blocked_ops.operand_dtype(h.dtype, h.shape[-1],
                                         blocks.gather_dtype)
     return blocked_work(blocks, h.shape[-1],
                         torch.empty((), dtype=x_dtype).element_size())
+
+
+def rows_work(h, blocks, lo, hi, sources):
+    """The least work of a row block's aggregation (:func:`aggregate`
+    with ``rows=(lo, hi)``): an add per entry summed and channel (the
+    block's rows' entries forward; with ``sources`` the entries whose
+    source is in the block), the rows ``h`` read once, the float32 output
+    rows written once, the entries' int32 sources read once. Reads the
+    table's pointers on the host."""
+    B, M, C = h.shape
+    ptr = blocks.row_ptr.long()
+    N = ptr.shape[1] - 1
+    if sources:
+        src = blocks.row_src
+        pos = torch.arange(src.shape[1], device=src.device)[None]
+        E = float(((pos < ptr[:, -1:]) & (src >= lo) & (src < hi)).sum())
+        out_rows = N
+    else:
+        E = float((ptr[:, min(hi, N)] - ptr[:, min(lo, N)]).sum())
+        out_rows = hi - lo
+    elem = torch.empty((), dtype=blocked_ops.operand_dtype(
+        h.dtype, C, blocks.gather_dtype)).element_size()
+    return {'kernel': 'blocked', 'flops': E * C,
+            'bytes': float(B * M * C * elem + B * out_rows * C * 4)
+            + 4.0 * E, 'out_bytes': 4.0 * B * out_rows * C, 'dot': False}
 
 def route_work(kernel, B, M_tab, M_out, E, C, elem, scaled):
     """The least work of one routed sum whatever implements it: an add
@@ -207,20 +251,52 @@ def launch(x, blocks):
     return out
 
 
+def _rows_tables(blocks, rows, sources):
+    """The row table a row block's call reads (see the module
+    docstring)."""
+    lo, hi = rows
+    return (blocked_ops.owned_rows(blocks, lo, hi) if sources
+            else blocked_ops.row_slice(blocks, lo, hi))
+
+
+def _plain_rows(h, blocks, rows, sources):
+    """The plain version of a row block's call: the whole table's
+    aggregation, its rows ``[lo, hi)`` cut (zero past ``N``), or, with
+    ``sources``, over the block's rows placed in a zero table."""
+    lo, hi = rows
+    B, _, C = h.shape
+    N = blocks.row_ptr.shape[1] - 1
+    if sources:
+        whole = h.new_zeros((B, max(N, hi), C))
+        whole[:, lo:hi] = h
+        return blocked_ops.plain_aggregate(whole[:, :N], blocks)
+    out = blocked_ops.plain_aggregate(h, blocks)
+    if hi > N:
+        out = torch.cat([out, out.new_zeros((B, hi - N, C))], dim=1)
+    return out[:, lo:hi]
+
+
 @dispatch.kernel_wrapper('blocked')
 @dispatch.counted('blocked', call_work)
-def aggregate(h, blocks):
+def aggregate(h, blocks, rows=None, sources=False):
     """``out[b, n] = Σ_{e: dst=n} h[b, src_e]`` over ``blocks`` →
     ``[B, M, C]`` in ``promote(h, float32)`` (see the module
-    docstring). Carries no gradient itself:
-    :func:`~dgmc_tpu_torch.ops.blocked.adj_matmul` is the differentiable
-    form."""
-    _check(h, blocks)
+    docstring). ``rows=(lo, hi)``: a row block's call, the output rows
+    ``[lo, hi)`` of the whole ``h``, or with ``sources`` every output row
+    over the entries whose source is in the block, ``h`` its
+    ``hi - lo`` rows. Carries no gradient itself:
+    :func:`~dgmc_tpu_torch.ops.blocked.adj_matmul` and
+    :func:`~dgmc_tpu_torch.ops.blocked.adj_matmul_rows` are the
+    differentiable forms."""
+    if rows is None or not sources:
+        _check(h, blocks)
     h = h.detach()
     if h.device.type == 'cpu':
         dispatch.record('blocked', 'plain', 'device=cpu',
                         blocked_ops.operand_dtype(h.dtype, h.shape[-1],
                                                   blocks.gather_dtype))
+        if rows is not None:
+            return _plain_rows(h, blocks, rows, sources)
         return blocked_ops.plain_aggregate(h, blocks)
     if h.device.type != 'cuda':
         raise ValueError(f'blocked aggregation runs on cpu or cuda, not '
@@ -230,7 +306,11 @@ def aggregate(h, blocks):
                         f'rows; got {h.dtype}')
     x = blocked_ops.operand(h, blocks.gather_dtype)
     dispatch.record('blocked', 'kernel', 'auto-cuda', x.dtype)
-    out = launch(x, blocks)
+    if rows is None:
+        out = launch(x, blocks)
+    else:
+        table = _rows_tables(blocks, rows, sources)
+        out = launch_route(x, table.row_ptr, table.row_src)
     aggregate.launches += 1
     return out
 

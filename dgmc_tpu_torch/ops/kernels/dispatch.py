@@ -46,10 +46,12 @@ _decisions = {}   # kernel name -> {'path', 'reason', 'dtype', 'counts',
                   #                 'dtypes'}
 _wrappers = {}    # kernel name -> wrapper function (carries .launches)
 #: The two paths of each kind of gate: a kernel's, the host's collation,
-#: a collective's route (:mod:`~dgmc_tpu_torch.parallel.comm`) and a
-#: sharded step's (:mod:`~dgmc_tpu_torch.parallel.sharding`).
+#: a collective's route (:mod:`~dgmc_tpu_torch.parallel.comm`), a
+#: sharded step's (:mod:`~dgmc_tpu_torch.parallel.sharding`) and ψ₁'s
+#: under a sharded table (``psi1_rows``, :mod:`~dgmc_tpu_torch.models.
+#: dgmc`: the rank's rows computed, or every row and the rank's kept).
 _PATHS = (('kernel', 'plain'), ('native', 'numpy'), ('device', 'host'),
-          ('captured', 'eager'))
+          ('captured', 'eager'), ('rows', 'whole'))
 #: The active work counter (``obs.cost.WorkCounter``), or None.
 counter = None
 #: The active tape recorder (``analysis.trace_rules.TapeRecorder``), or

@@ -9,7 +9,11 @@ the arrays that dominate memory at DBP15K scale and beyond:
   dense ``[B, N_s, N_t]`` or sparse ``[B, N_s, K]``);
 - ``'topk'``: the shortlist ``S_idx [B, N_s, K]`` (``'corr'``'s rule
   where it has none);
-- ``'psi2'``: ψ₂'s source-row intermediates (``r_s``, ``o_s``).
+- ``'psi2'``: ψ₂'s source-row intermediates (``r_s``, ``o_s``);
+- ``'psi1'`` / ``'corpus'`` (JAX's opt-in ψ₁ tables, off in every
+  builder): ψ₁'s source table ``h_s`` / target table ``h_t``, each rank
+  computing and holding its row block (the correspondence rows' axis),
+  the target ring passing the ``h_t`` shards rank to rank.
 
 The port's train state is no pytree: :func:`state_tree` presents it as
 one, with JAX's leaf paths (``params/psi_1/conv_0/lin1/kernel``,
@@ -23,8 +27,9 @@ matching rule wins; a scalar leaf (rank 0 or one element) gets ``()``
 without a rule; a non-scalar leaf no rule matches raises, naming its
 path.
 
-The port's steps run the whole model on every rank, so the train state
-is replicated: :meth:`PartitionRules.place` refuses a state rule that
+The port's train state is replicated on every rank (ψ₁, where its
+tables are sharded, computes its rows on each rank with the same
+parameters): :meth:`PartitionRules.place` refuses a state rule that
 shards a leaf. :func:`shard_tree` places any tree (each leaf this rank's
 block of its spec). :meth:`PartitionRules.apply_to_model` gives the model
 the row layout (:meth:`~dgmc_tpu_torch.models.dgmc.DGMC.with_layout`)
@@ -199,8 +204,8 @@ class PartitionRules:
             (``('data',)`` for data parallelism; ``None`` / ``()`` for a
             replicated single pair).
         activations: the named activation rules ``'corr'``, ``'topk'``,
-            ``'psi2'`` (and JAX's opt-in ``'psi1'`` / ``'corpus'``, which
-            the port refuses: ψ₁ runs whole on every rank).
+            ``'psi2'`` and JAX's opt-in ``'psi1'`` / ``'corpus'`` (ψ₁'s
+            tables in row blocks; on the correspondence rows' axis).
         topk_block: the plain search's target block.
         stream_chunk: stream the candidate search over source chunks of
             this many rows.
@@ -255,8 +260,9 @@ class PartitionRules:
 
     def apply_to_model(self, model, mesh):
         """The model with every knob this config owns: the row layout
-        (``corr``, ``topk``, ``psi2``), the stream chunk, the ring and the
-        search block (a shallow copy sharing the parameters,
+        (``corr``, ``topk``, ``psi2``), ψ₁'s tables (``psi1``,
+        ``corpus``), the stream chunk, the ring and the search block (a
+        shallow copy sharing the parameters,
         :meth:`~dgmc_tpu_torch.models.dgmc.DGMC.with_layout`)."""
         return model.with_layout(
             corr_sharding=self.activation_sharding('corr', mesh),
@@ -294,7 +300,9 @@ def streamed_rules(row_axis=DATA_AXIS, stream_chunk=DEFAULT_STREAM_CHUNK,
     (the source rows are the data), the shortlist and ψ₂'s source rows
     following, the search streamed ``stream_chunk`` rows at a time and
     the targets ringing over the same axis (``ring_targets=False`` for
-    the replicated targets)."""
+    the replicated targets). JAX's defaults: ψ₁'s tables replicated; a
+    caller adds ``'psi1'`` / ``'corpus'`` with ``dataclasses.replace``
+    (``activations={..., 'psi1': row, 'corpus': row}``)."""
     row = (None, row_axis)
     kw.setdefault('ring_targets', True)
     return PartitionRules(

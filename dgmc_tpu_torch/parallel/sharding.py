@@ -18,7 +18,12 @@ work, and the sums across ranks are written out (:class:`StepComm`):
 - **Row sharding** (a model carrying a row layout,
   :meth:`~dgmc_tpu_torch.parallel.rules.PartitionRules.apply_to_model`):
   each rank owns a block of the correspondence rows; the model sums each
-  consensus step's ``r_t`` over the row group itself.
+  consensus step's ``r_t`` over the row group itself. With ψ₁'s tables
+  sharded (the ``'psi1'`` / ``'corpus'`` rules) each rank's ψ₁
+  computes its rows only, so its gradient of ψ₁'s parameters is its
+  rows' part, the all-gathers' backward having handed each rank the
+  gradient of its rows from every rank: the one sum over the mesh below
+  adds each row's part once.
 - Either way the loss is each rank's part, normalized by the count summed
   over the mesh; the gradients of the replicated parameters are summed
   over the mesh before Adam, so one update equals the one-process step on

@@ -88,12 +88,26 @@ def held_writes(monkeypatch):
     gate.set()
 
 
-def test_call_sequence_matches_orbax(tmp_path):
+def test_call_sequence_matches_orbax(tmp_path, monkeypatch):
+    """The first point reads both packages while their first write is in
+    flight: both writes are held until it is read (the port's background
+    write at ``_write_step``; JAX's commit as its manifest pass sees it,
+    its step directory), so neither can finish first."""
     from dgmc_tpu.train.checkpoint import Checkpointer as JaxCheckpointer
     jdir, pdir = str(tmp_path / 'jax'), str(tmp_path / 'port')
     jax_ck = JaxCheckpointer(jdir, max_to_keep=2)
     port_ck = Checkpointer(pdir, max_to_keep=2)
     model, state = _model()
+    gate = threading.Event()
+    write, step_dir = ckpt_mod._write_step, jax_ck._step_dir
+
+    def held(*args, **kw):
+        assert gate.wait(30), 'the test never released the write'
+        return write(*args, **kw)
+
+    monkeypatch.setattr(ckpt_mod, '_write_step', held)
+    monkeypatch.setattr(jax_ck, '_step_dir', lambda step: step_dir(step)
+                        if gate.is_set() else str(tmp_path / 'held'))
 
     def jstate(v):
         return {'w': np.arange(4.0, dtype=np.float32) + v}
@@ -111,6 +125,7 @@ def test_call_sequence_matches_orbax(tmp_path):
 
     save(1, 1.0, wait=False)
     point('save 1 without waiting')
+    gate.set()
     save(2, 2.0)
     point('save 2')
     jax_ck.wait_until_finished()

@@ -884,6 +884,44 @@ def test_blocked_adj_matmul_gradient_on_the_card(cuda):
     assert torch.equal(h.grad, ob.plain_aggregate(g, outg))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('C', [32, 256])
+@pytest.mark.parametrize('rows', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('parts', [2, 3])
+def test_blocked_kernel_on_a_row_block(cuda, C, rows, parts):
+    """A rank's row block (ψ₁ row-restricted): the kernel's output rows
+    ``[lo, hi)`` of the whole table (a row-pointer slice whose first
+    offset is not 0; 700 rows in blocks padded to ``parts`` ranks, not
+    aligned to the tables' 128-row ranges) and the transposed sum over
+    the entries the block's rows send, each bit-identical to
+    ordered_aggregate over the same tables; the forward rows equal the
+    whole call's rows; one launch a call."""
+    from dgmc_tpu_torch.ops import blocked as ob
+    from dgmc_tpu_torch.ops.kernels import blocked as kb
+    from dgmc_tpu_torch.parallel.topk import row_block
+    rng = np.random.RandomState(7 + C + parts)
+    gd = None if rows == 'float32' else 'bfloat16'
+    dt = getattr(torch, rows)
+    for blocks in _blocked_case(rng, 2, 700, 9000, hub=True):
+        blk = blocks.map(lambda t: t.to(cuda)).replace(gather_dtype=gd)
+        h = torch.from_numpy(rng.randn(2, 700, C)).to(cuda, dt)
+        whole = kb.aggregate(h, blk)
+        for me in range(parts):
+            lo, hi, _ = row_block(700, parts, me)
+            before = kb.aggregate.launches
+            got = kb.aggregate(h, blk, rows=(lo, hi))
+            assert kb.aggregate.launches == before + 1
+            assert torch.equal(got, ob.ordered_aggregate(
+                h, ob.row_slice(blk, lo, hi)))
+            n = min(hi, 700) - lo
+            assert torch.equal(got[:, :n], whole[:, lo:lo + n])
+            assert not got[:, n:].any()
+            d = torch.from_numpy(rng.randn(2, hi - lo, C)).to(cuda, dt)
+            back = kb.aggregate(d, blk, rows=(lo, hi), sources=True)
+            assert torch.equal(back, ob.ordered_aggregate(
+                d, ob.owned_rows(blk, lo, hi)))
+
+
 def _route_case(rng, cuda, B=2, N_s=400, K=6, n_t=900):
     """A route over a shortlist with a duplicate in every third row and a
     hub target (node 3 in most of element 0's rows), on the card."""

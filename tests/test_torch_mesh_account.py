@@ -4,7 +4,10 @@ sharded cost pass): a tiny ``dbp15k --row_shards 2`` on 2 gloo CPU ranks
 ``collectives``, ``overlap_fraction`` and ``critical_path_share`` into
 each rank's ``host_<r>/efficiency.json``, equal between the ranks, and
 ``obs.diff --min-overlap`` gates on them; a one-process run writes none
-(JAX's one-device account carries none)."""
+(JAX's one-device account carries none). With the sharded ψ₁ tables
+(``streamed_rules`` plus ``'psi1'`` / ``'corpus'``, which no CLI flag
+sets, as in JAX) the table lists the ring's permutes, the tables'
+all-gathers and, in phase 1, their gradients' reduce-scatters."""
 
 import json
 import os
@@ -17,14 +20,27 @@ import pytest
 from dgmc_tpu_torch.experiments import dbp15k
 from dgmc_tpu_torch.obs import diff as diff_mod
 from tests.test_torch_parallel_cli import TINY
-from tests.torch_dist_worker import ROOT, free_port
+from tests.torch_dist_worker import ROOT, free_port, start_groups
 
 ARGV = TINY + ['--epochs', '11']
 KEYS = ('collectives', 'overlap_fraction', 'critical_path_share')
 
 
 @pytest.fixture(scope='module')
-def obs(tmp_path_factory):
+def started():
+    """The sharded-table account's ranks, started first so that they run
+    beside the CLIs of :func:`obs`."""
+    return start_groups([('tests.torch_parallel_jobs:table_account', 2,
+                          (TINY[3:],))], timeout=180)
+
+
+@pytest.fixture(scope='module')
+def tables(started, obs):
+    return started()[0]
+
+
+@pytest.fixture(scope='module')
+def obs(started, tmp_path_factory):
     tmp = tmp_path_factory.mktemp('account')
     env = dict(os.environ, OMP_NUM_THREADS='1')
     port = free_port()
@@ -91,3 +107,24 @@ def test_min_overlap_gates_on_the_account(obs, tmp_path, capsys):
     (below / 'efficiency.json').write_text(json.dumps(eff))
     rc, rows = _diff(host0, below, floor, capsys)
     assert rc == 1 and rows[0]['status'] == 'REGRESSION'
+
+
+def test_sharded_tables_account_lists_the_permutes_and_gathers(tables):
+    """Each rank's account of the sharded-table steps, equal between the
+    ranks: a search's n - 1 = 1 permute of the target shard; the all-
+    gathers of ψ₁'s messages (two a layer a side) and of the corpus table
+    for the candidates; phase 1 (ψ₁ trains) their reduce-scatters."""
+    (a, layers), (b, _) = tables
+    for name in ('phase1_step', 'train_step'):
+        assert {k: a[name].get(k) for k in KEYS} == {
+            k: b[name].get(k) for k in KEYS}, name
+    gathers = 2 * 2 * layers + 1
+    ops = {name: {k: v['count'] for k, v in
+                  a[name]['collectives']['ops'].items()}
+           for name in ('phase1_step', 'train_step')}
+    assert ops['phase1_step']['collective-permute'] == 1
+    assert ops['phase1_step']['all-gather'] == gathers
+    assert ops['phase1_step']['reduce-scatter'] == gathers
+    assert ops['train_step']['collective-permute'] == 1
+    assert ops['train_step']['all-gather'] == gathers
+    assert 'reduce-scatter' not in ops['train_step']

@@ -7,9 +7,11 @@ targets (padded to the ring), value ties across shard boundaries, random
 masks, chunk streaming, all-equal scores (the lowest columns, though the
 shards arrive rotated) and ``k`` above a shard's columns (the whole
 targets instead). Each rank visits the shards in JAX's rotation order,
-each from its own copy of the targets (ψ₁ runs whole on every rank, so
-the ring moves no data: ``test_ring_moves_no_data``). Indices must be
-equal, bit for bit."""
+each from its own copy of the targets (without the ``'corpus'`` rule ψ₁
+runs whole on every rank, so the ring moves no data:
+``test_ring_moves_no_data``; with it the ring permutes the shards,
+``tests/test_torch_parallel_psi1.py``). Indices must be equal, bit for
+bit."""
 
 import numpy as np
 import pytest

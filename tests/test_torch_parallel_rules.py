@@ -184,7 +184,8 @@ def test_apply_to_model_shares_the_parameters(guarded):
         4, True, 8)
     assert all(a is b for a, b in zip(laid.parameters(),
                                       model.parameters()))
-    with pytest.raises(ValueError, match='ψ₁'):
+    # JAX's ψ₁ table rule needs the correspondence rows on its axis.
+    with pytest.raises(ValueError, match='ψ₁.*correspondence rows'):
         PartitionRules(activations={'psi1': (None, 'data')}).apply_to_model(
             model, mesh)
 

@@ -65,7 +65,10 @@ def jax_registry():
 @pytest.fixture(scope='module')
 def tier():
     """The trace tier over the eight specimens on the CPU, through this
-    process's shared cache (the cost CLI below reads the same runs)."""
+    process's shared cache (the cost CLI below reads the same runs),
+    begun empty: a test file run earlier in the same worker process may
+    have filled it (the lint and cost CLIs run in process)."""
+    registry._shared.pop('cpu', None)
     cache = registry.shared_cache('cpu')
     findings = registry.run_trace_tier(
         [s for s in registry.default_specimens() if not s.min_devices],

@@ -35,9 +35,24 @@ def run_ranks(fn, world, *args, timeout=120):
 def run_groups(jobs, timeout=120):
     """:func:`run_ranks` of each ``(fn, world, args)`` of ``jobs``, the
     groups side by side; their results in order."""
-    with contextlib.ExitStack() as stack:
+    return start_groups(jobs, timeout)()
+
+
+def start_groups(jobs, timeout=120):
+    """:func:`run_groups` started without waiting: returns the function
+    that waits for the groups and returns their results (so that the
+    caller can work meanwhile)."""
+    stack = contextlib.ExitStack()
+    try:
         started = [_start(stack, fn, world, args) for fn, world, args in jobs]
-        return [_finish(*s, timeout) for s in started]
+    except BaseException:
+        stack.close()
+        raise
+
+    def finish():
+        with stack:
+            return [_finish(*s, timeout) for s in started]
+    return finish
 
 
 def _start(stack, fn, world, args):

@@ -34,10 +34,11 @@ def port_batch(jb):
                      y_mask=np.asarray(jb.y_mask))
 
 
-def _draws(jm, variables, jb, key, train, k):
+def _draws(jm, variables, jb, key, train, k, with_idx=False):
     """JAX's indicator noise ``[T, B, N_s, R]`` (and, training a sparse
     model, its negatives) under ``key`` as its train step (``train``) or
-    eval step splits it."""
+    eval step splits it; ``with_idx`` also the forward's ``S_0.idx``
+    (the shortlist, sparse only)."""
     rngs = ({'noise': key} if not train else dict(zip(
         ('noise', 'negatives', 'dropout'), jax.random.split(key, 3))))
     mutable = ['batch_stats'] if 'batch_stats' in variables else False
@@ -68,7 +69,8 @@ def _draws(jm, variables, jb, key, train, k):
     neg = None
     if train and k > 0:
         neg = np.asarray(idx)[..., k:].astype(np.int64)
-    return np.ascontiguousarray(r_s, np.float32), neg
+    r_s = np.ascontiguousarray(r_s, np.float32)
+    return (r_s, neg, np.asarray(idx)) if with_idx else (r_s, neg)
 
 
 def bn_batch():
@@ -153,3 +155,66 @@ def case(name):
     if 'eval' in out:
         want['eval'], want['eval_ref'] = out['eval'], out['eval_ref']
     return port, want
+
+
+def _table_rules(stream_chunk=4):
+    """JAX's ``streamed_rules`` with the ``'psi1'`` / ``'corpus'`` rules
+    added as a caller opts in."""
+    import dataclasses
+    from jax.sharding import PartitionSpec as P
+    rules = jpar.streamed_rules(stream_chunk=stream_chunk)
+    return dataclasses.replace(rules, activations=dict(
+        rules.activations, psi1=P(None, 'data'), corpus=P(None, 'data')))
+
+
+def rel_batch():
+    """:func:`tests.torch_parallel_jobs.rel_arrays` as JAX's batch, blocked
+    as the port's (:data:`tests.torch_parallel_jobs.REL_BLOCKS`)."""
+    from dgmc_tpu.ops.blocked import attach_blocks
+    a = jobs.rel_arrays()
+
+    def side(g):
+        return attach_blocks(JaxGraphBatch(edge_attr=None, **g),
+                             **jobs.REL_BLOCKS)
+    return JaxPairBatch(s=side(a['s']), t=side(a['t']), y=a['y'],
+                        y_mask=a['y_mask'])
+
+
+def table_case(name):
+    """``(port case, JAX's results)`` of a ψ₁ table case: JAX's sharded
+    train step on two virtual devices under ``streamed_rules`` with the
+    ``'psi1'`` / ``'corpus'`` rules, on JAX's weights, with JAX's draws
+    for the port and JAX's training-forward shortlist ``S_0.idx``.
+    ``streamed-psi1``: the ``streamed`` case's model and pair (the
+    SplineCNN ψ₁ of ``tiny_model(k=4)``, ``tiny_loader(batch_size=1)``);
+    ``rel-psi1``: a two-layer RelCNN ψ₁ with batch norm over the blocked
+    pair of :func:`rel_batch`."""
+    key = jax.random.key(2)
+    if name == 'streamed-psi1':
+        jm = tiny_model(k=4)
+        jb = next(iter(tiny_loader(batch_size=1)))
+        spec, batch = ('spline', 4, jm.num_steps), port_batch(jb)
+    else:
+        jm = JaxDGMC(JaxRelCNN(4, 8, num_layers=2, batch_norm=True),
+                     JaxRelCNN(4, 4, num_layers=1), num_steps=2, k=4)
+        jb = rel_batch()
+        spec, batch = ('rel', 4, 2, True, 0.0), jobs.rel_batch()
+    state = jax.jit(lambda b: create_train_state(
+        jm, jax.random.key(0), b, tx=optax.sgd(LR)))(jb)
+    variables = {'params': state.params}
+    if state.batch_stats:
+        variables['batch_stats'] = state.batch_stats
+    r_s, neg, shortlist = _draws(jm, variables, jb, key, True, 4,
+                                 with_idx=True)
+    port = {'model': spec, 'state_dict': _state_dict(state), 'lr': LR,
+            'batch': batch, 'r_s': r_s, 'negatives': neg,
+            'loss_on_s0': False, 'chunk': 4,
+            'phases': (('jax', jm.num_steps, False),)}
+    host = jax.tree.map(np.asarray, state)
+    mesh = jpar.make_mesh(data=2, model=1, devices=jax.devices()[:2])
+    rules = _table_rules()
+    step = jpar.make_sharded_train_step(jm, mesh, rules=rules, state=state)
+    state_sh, batch_sh = rules.place(host, jb, mesh)
+    new, out = step(state_sh, batch_sh, key)
+    return port, {'metrics': jax.device_get(out),
+                  'state': _state_dict(new), 'shortlist': shortlist}
